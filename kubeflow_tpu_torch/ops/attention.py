@@ -1,0 +1,98 @@
+"""Plain attention: the port of kubeflow_tpu/ops/attention.py.
+
+``dot_product_attention`` materialises the [b, h, q, k] scores.  It is the
+decode-step attention over the contiguous KV cache and the path taken by
+segment-masked calls; the flash forward (ops/flash.py) covers prefill.
+q/k/v are [batch, seq, heads, head_dim]; GQA passes fewer kv heads.
+Per-row ``[b]`` kv offsets and int8 K/V come with the serving-engine
+slice of the port (ROADMAP queue 1, item 2).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from kubeflow_tpu_torch import NotPortedError
+
+NEG_INF = torch.finfo(torch.float32).min
+
+
+def _repeat_kv(k: torch.Tensor, q_heads: int) -> torch.Tensor:
+    """Broadcast kv heads up to q heads for grouped-query attention."""
+    kv_heads = k.shape[2]
+    if kv_heads == q_heads:
+        return k
+    if q_heads % kv_heads:
+        raise ValueError(f"{q_heads} query heads, {kv_heads} kv heads")
+    return k.repeat_interleave(q_heads // kv_heads, dim=2)
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    segment_ids: Optional[torch.Tensor] = None,
+    kv_offset: Union[int, torch.Tensor] = 0,
+    kv_valid_start: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """[b, sq, h, d] x [b, sk, hkv, d] -> [b, sq, h, d].
+
+    kv_offset: absolute position of k[0] relative to q[0]'s frame (decode:
+    one query against the cache).  kv_valid_start: per-row [b] first
+    valid key; keys before it are masked for every query (left-padded
+    prompts).  Scores and softmax are float32 whatever the input dtype;
+    masked scores take the float32 minimum, so a fully masked row gets a
+    uniform softmax, as in the JAX reference.
+    """
+    orig_dtype = q.dtype
+    h = q.shape[2]
+    k = _repeat_kv(k, h)
+    v = _repeat_kv(v, h)
+    scale = q.shape[-1] ** -0.5
+    # Products of the compute dtype are exact in float32: upcasting
+    # first gives the JAX dot's float32 accumulation.
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = _build_mask(
+        q_len=q.shape[1], k_len=k.shape[1], causal=causal,
+        segment_ids=segment_ids, kv_offset=kv_offset,
+        kv_valid_start=kv_valid_start, device=q.device,
+    )
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights.to(orig_dtype).float(),
+                       v.float())
+    return out.to(orig_dtype)
+
+
+def _build_mask(
+    q_len: int,
+    k_len: int,
+    causal: bool,
+    segment_ids: Optional[torch.Tensor],
+    kv_offset: Union[int, torch.Tensor],
+    kv_valid_start: Optional[torch.Tensor] = None,
+    device: Optional[torch.device] = None,
+) -> Optional[torch.Tensor]:
+    """Boolean keep-mask broadcastable to [b, h, q, k]."""
+    if isinstance(kv_offset, torch.Tensor) and kv_offset.ndim == 1:
+        raise NotPortedError(
+            "per-row [b] kv_offset belongs to the serving-engine slice "
+            "(decode programs, ROADMAP queue 1 item 2)")
+    mask = None
+    k_pos = torch.arange(k_len, device=device)
+    if causal:
+        q_pos = torch.arange(q_len, device=device)[:, None] + kv_offset
+        mask = (q_pos >= k_pos[None, :])[None, None, :, :]
+    if kv_valid_start is not None:
+        valid = (k_pos[None, :]
+                 >= kv_valid_start.to(device)[:, None])[:, None, None, :]
+        mask = valid if mask is None else mask & valid
+    if segment_ids is not None:
+        seg = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+        mask = seg if mask is None else mask & seg
+    return mask
