@@ -22,7 +22,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available: kubeflow_tpu_torch runs on an NVIDIA "
             "GPU unless the caller asks for the CPU (device='cpu', or "
-            "--device cpu on the serving entry point)")
+            "--device cpu on an entry point)")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

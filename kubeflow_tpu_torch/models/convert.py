@@ -11,7 +11,9 @@ dict whose per-layer leaves are stacked ``[L, ...]`` under ``layers``::
 
 The port's parameter dict is that same tree with torch tensors for
 leaves; ``load_params`` unstacks it into a ``Transformer``'s per-layer
-modules and ``params_to_jax`` stacks a module back into numpy arrays.
+modules and ``params_to_jax`` stacks a module back into numpy arrays, its
+parameters or (``grads=True``) their ``.grad``, so that gradients compare
+leaf by leaf with ``jax.grad`` of the JAX model.
 """
 
 from __future__ import annotations
@@ -84,12 +86,18 @@ def load_params(model: Transformer, params: Dict[str, Any]) -> Transformer:
     return model
 
 
-def params_to_jax(model: Transformer) -> Dict[str, Any]:
-    """The model's parameters as the JAX package's nested numpy tree
-    (stacked ``[L, ...]`` layer leaves); bf16 leaves become float32, the
-    dtype numpy can hold."""
+def params_to_jax(model: Transformer, *, grads: bool = False
+                  ) -> Dict[str, Any]:
+    """The model's parameters (or, with ``grads=True``, their gradients)
+    as the JAX package's nested numpy tree (stacked ``[L, ...]`` layer
+    leaves); bf16 leaves become float32, the dtype numpy can hold."""
 
     def host(t: torch.Tensor) -> np.ndarray:
+        if grads:
+            if t.grad is None:
+                raise ValueError(f"parameter of shape {tuple(t.shape)} has "
+                                 "no gradient")
+            t = t.grad
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)

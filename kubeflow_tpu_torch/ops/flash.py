@@ -1,12 +1,15 @@
-"""Flash attention forward: the port of kubeflow_tpu/ops/flash.py.
+"""Flash attention: the port of kubeflow_tpu/ops/flash.py.
 
-One single-pass online-softmax forward over ``[bh, s, d]`` inputs that
-returns ``(o, lse)`` with ``lse = m + log(l)``.  On a CUDA tensor it runs
-the hand-written Hopper kernel in ``csrc/flash_fwd.cu`` (built at first use
-by ``ops/_build.py``) or raises; nothing falls back to a plain path there.
-On a CPU tensor it runs ``flash_fwd_reference``, the plain PyTorch version
-of the kernel's contract, which the tests hold against the JAX kernel and
-``chip_smoke.py`` holds the CUDA kernel against.
+A single-pass online-softmax forward over ``[bh, s, d]`` inputs that
+returns ``(o, lse)`` with ``lse = m + log(l)``, and the blockwise backward
+that recomputes p from lse and returns ``(dq, dk, dv)``.  On a CUDA tensor
+each runs hand-written Hopper kernels (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``, built at first use by ``ops/_build.py``) or raises;
+nothing falls back to a plain path there.  On a CPU tensor each runs its
+plain PyTorch version (``flash_fwd_reference``, ``flash_bwd_reference``),
+which the tests hold against the JAX kernels and ``chip_smoke.py`` holds
+the CUDA kernels against.  ``_FlashFunction`` joins the two as the
+autograd counterpart of the JAX package's ``custom_vjp``.
 
 The kernel contract (shared with the JAX package's Pallas forward):
   - scores are float32, from dots of the input dtype;
@@ -15,9 +18,8 @@ The kernel contract (shared with the JAX package's Pallas forward):
     masked so far never gives weight exp(0) = 1 to a pad;
   - a row with no valid key at all gets ``o = 0`` and ``lse = NEG_INF``.
 
-Forward only: the backward kernels and the two-pass (``block_diag``)
-forward belong to the training slice of the port (ROADMAP queue 1,
-item 4; queue 2, items 3-6).
+The two-pass (``block_diag``) forward is not ported yet (ROADMAP
+queue 2, items 3-4).
 """
 
 from __future__ import annotations
@@ -32,10 +34,12 @@ from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops.attention import NEG_INF, dot_product_attention
 
-# Launches of the CUDA kernel by variant, counted where the wrapper
-# launches it and nowhere else.  chip_smoke.py zeroes and reads them to
-# show that the serving path went through the kernel.
-launch_counts: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_masked": 0}
+# Launches of each CUDA kernel (the forward by variant), counted where
+# the wrapper launches it and nowhere else.  chip_smoke.py zeroes and
+# reads them to show that the serving and training paths went through
+# the kernels.
+launch_counts: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_masked": 0,
+                                 "flash_dq": 0, "flash_dkv": 0}
 _count_lock = threading.Lock()
 
 KERNEL_HEAD_DIMS = (64, 128)
@@ -98,6 +102,50 @@ def flash_fwd_reference(
     return o.to(q.dtype), lse[..., 0]
 
 
+def _check_kernel_inputs(kernel: str, q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, g: Optional[torch.Tensor] = None,
+                         **rows: torch.Tensor) -> None:
+    """Raise on anything the kernels do not take: contiguous, 16-byte
+    aligned bf16 q (and g) [bh, sq, d] and k, v [bh, sk, d] on one device,
+    a built head_dim, a grid the card can launch, and contiguous float32
+    [bh, sq] row statistics (``rows``: lse, delta)."""
+    bh, sq, d = q.shape if q.dim() == 3 else (0, 0, 0)
+    named = [("q", q), ("k", k), ("v", v)] + ([] if g is None else [("g", g)])
+    for name, t in named:
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{kernel} kernel takes bfloat16, {name} is "
+                            f"{t.dtype}")
+        if t.dim() != 3 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [bh, s, d] "
+                             f"tensor, got shape {tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d or (
+            g is not None and g.shape != q.shape):
+        raise ValueError(
+            f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}"
+            + ("" if g is None else f", g {tuple(g.shape)}") + " do not match")
+    for name, t in rows.items():
+        if (t.dtype != torch.float32 or t.shape != (bh, sq)
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 [bh, sq] "
+                             f"= [{bh}, {sq}] tensor on q's device, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{kernel} kernel has no instance for head_dim "
+                         f"{d} (built for {KERNEL_HEAD_DIMS})")
+    if bh > 65535:
+        raise ValueError(f"batch*heads {bh} exceeds the kernel grid's 65535")
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        launch_counts[name] += 1
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_fwd")
     fn = lib.kft_flash_fwd_bf16
@@ -115,27 +163,9 @@ def _flash_fwd_cuda(
     *, causal: bool, kv_start: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the Hopper kernel; raise on anything it does not take."""
+    _check_kernel_inputs("flash_fwd", q, k, v)
     bh, sq, d = q.shape
     sk = k.shape[1]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_fwd kernel takes bfloat16, {name} is "
-                            f"{t.dtype}")
-        if t.dim() != 3 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous [bh, s, d] "
-                             f"tensor, got shape {tuple(t.shape)}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
-    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
-        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} do not match")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel has no instance for head_dim "
-                         f"{d} (built for {KERNEL_HEAD_DIMS})")
-    if bh > 65535:
-        raise ValueError(f"batch*heads {bh} exceeds the kernel grid's 65535")
     if kv_start is not None:
         if (kv_start.dtype != torch.int32 or kv_start.shape != (bh,)
                 or kv_start.device != q.device
@@ -157,9 +187,7 @@ def _flash_fwd_cuda(
     if err != 0:
         raise RuntimeError("flash_fwd kernel launch failed: "
                            + lib.kft_cuda_error_string(err).decode())
-    with _count_lock:
-        launch_counts["flash_fwd" if kv_start is None
-                      else "flash_fwd_masked"] += 1
+    _count("flash_fwd" if kv_start is None else "flash_fwd_masked")
     return o, lse
 
 
@@ -192,6 +220,180 @@ def flash_fwd_with_lse(
     return _from_bhsd(o, b, h), lse.reshape(b, h, sq)
 
 
+def _p_and_ds(q, k, v, g, lse, delta, causal):
+    """The backward's float32 p = exp(s * scale - lse), forced to 0 where
+    lse is the NEG_INF sentinel, with the causal mask as NEG_INF scores,
+    and ds = p (dp - delta) scale with dp = g v^T, both [bh, sq, sk]."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    scale = d ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        keep = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = s.masked_fill(~keep[None], NEG_INF)
+    lse = lse[..., None]
+    finite = lse > NEG_INF / 2
+    p = torch.where(finite, torch.exp(s - torch.where(finite, lse, 0.0)),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bqd,bkd->bqk", g.float(), v.float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_dq_reference(q, k, v, g, lse, delta, *, causal: bool
+                       ) -> torch.Tensor:
+    """Plain version of the dq kernel: dq = ds k, ds rounded to the
+    input dtype first, as the kernel does."""
+    _, ds = _p_and_ds(q, k, v, g, lse, delta, causal)
+    ds = ds.to(q.dtype).float()
+    return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
+
+
+def flash_dkv_reference(q, k, v, g, lse, delta, *, causal: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dkv kernel: dk = ds^T q, dv = p^T g, ds and p
+    rounded to the input dtype first, as the kernel does."""
+    p, ds = _p_and_ds(q, k, v, g, lse, delta, causal)
+    ds = ds.to(q.dtype).float()
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
+    dv = torch.einsum("bqk,bqd->bkd", p.to(g.dtype).float(), g.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels: q, g [bh, sq, d],
+    k, v [bh, sk, d], lse, delta [bh, sq] float32 -> (dq, dk, dv) in the
+    inputs' dtypes.  The [bh, sq, sk] scores are materialized: for tests,
+    CPU runs and the on-card comparison."""
+    dq = flash_dq_reference(q, k, v, g, lse, delta, causal=causal)
+    return (dq, *flash_dkv_reference(q, k, v, g, lse, delta, causal=causal))
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_bwd")
+    if lib.kft_flash_dq_bf16.argtypes is None:
+        lib.kft_flash_dq_bf16.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        lib.kft_flash_dq_bf16.restype = ctypes.c_int
+        lib.kft_flash_dkv_bf16.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        lib.kft_flash_dkv_bf16.restype = ctypes.c_int
+        lib.kft_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.kft_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_bwd(name: str, q, k, v, g, lse, delta, outs, causal: bool
+                ) -> None:
+    """Check the inputs and launch one backward kernel into ``outs``."""
+    _check_kernel_inputs(name, q, k, v, g, lse=lse, delta=delta)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if bh == 0 or sq == 0 or sk == 0:
+        # No (query, key) pair: every gradient is zero.
+        for t in outs:
+            t.zero_()
+        return
+    lib = _bwd_lib()
+    fn = lib.kft_flash_dq_bf16 if name == "flash_dq" else \
+        lib.kft_flash_dkv_bf16
+    # The launch goes to the calling thread's current device.
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 *(t.data_ptr() for t in outs), bh, sq, sk, d, int(causal),
+                 d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.kft_cuda_error_string(err).decode())
+    _count(name)
+
+
+def _flash_dq_cuda(q, k, v, g, lse, delta, *, causal: bool) -> torch.Tensor:
+    """Launch the dq kernel; raise on anything it does not take."""
+    dq = torch.empty_like(q)
+    _launch_bwd("flash_dq", q, k, v, g, lse, delta, (dq,), causal)
+    return dq
+
+
+def _flash_dkv_cuda(q, k, v, g, lse, delta, *, causal: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dkv kernel; raise on anything it does not take."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_dkv", q, k, v, g, lse, delta, (dk, dv), causal)
+    return dk, dv
+
+
+def _flash_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the dq and dkv kernels."""
+    dq = _flash_dq_cuda(q, k, v, g, lse, delta, causal=causal)
+    dk, dv = _flash_dkv_cuda(q, k, v, g, lse, delta, causal=causal)
+    return dq, dk, dv
+
+
+def flash_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[bh, s, d] backward -> (dq, dk, dv): the CUDA kernels for CUDA
+    tensors, the plain version for CPU tensors."""
+    if q.device.type == "cuda":
+        return _flash_bwd_cuda(q, k, v, g, lse, delta, causal=causal)
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, g, lse, delta, causal=causal)
+    raise ValueError(f"flash_bwd runs on cuda or cpu, not {q.device}")
+
+
+class _FlashFunction(torch.autograd.Function):
+    """Differentiable [bh, s, d] flash attention: the counterpart of the
+    JAX package's ``custom_vjp`` ``_flash``.  The forward saves
+    (q, k, v, o, lse); the backward takes delta = rowsum(g * o) in float32
+    from the o the forward returned (in the input dtype, as JAX does) and
+    runs the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_fwd(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        # g comes out of _from_bhsd's transpose and may be strided.
+        g = g.contiguous()
+        delta = (g.float() * o.float()).sum(-1)
+        dq, dk, dv = flash_bwd(q, k, v, g, lse, delta, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_bwd_block(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor,
+    *, causal: bool, block_q: int = 512, block_k: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Blockwise backward in [b, s, h, d] layout; lse/delta are [b, h, s].
+
+    GQA: callers pass kv already repeated to q's head count and fold the
+    head-group sum themselves.  block_q/block_k are accepted for
+    signature parity and unused: the CUDA kernels pick their own tiles.
+    """
+    del block_q, block_k
+    b, sq, h, d = q.shape
+    dq, dk, dv = flash_bwd(
+        _to_bhsd(q), _to_bhsd(k), _to_bhsd(v), _to_bhsd(g),
+        lse.reshape(b * h, sq).contiguous(),
+        delta.reshape(b * h, sq).contiguous(), causal=causal)
+    return _from_bhsd(dq, b, h), _from_bhsd(dk, b, h), _from_bhsd(dv, b, h)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -210,8 +412,10 @@ def flash_attention(
     the kernel: segmented calls take ``dot_product_attention``, as in the
     JAX package.  ``kv_valid_start`` ([b] int, optional) is each row's
     first valid key (left-padded prompts); it is forward-only and raises
-    under autograd.  block_q/block_k are kept for parity with the JAX
-    config and unused: the CUDA kernel picks its own tiles.
+    under autograd.  Under autograd the call goes through
+    ``_FlashFunction`` (forward and backward kernels on the card, their
+    plain versions on the CPU).  block_q/block_k are kept for parity with
+    the JAX config and unused: the CUDA kernels pick their own tiles.
     """
     del block_q, block_k
     if block_diag > 0:
@@ -225,18 +429,17 @@ def flash_attention(
             kv_valid_start=kv_valid_start)
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
-    if needs_grad:
-        if kv_valid_start is not None:
-            raise ValueError(
-                "flash_attention with kv_valid_start is forward-only "
-                "(inference prefill); it cannot be differentiated")
-        if q.device.type == "cuda":
-            raise NotPortedError(
-                "the flash backward kernels (_flash_dq_kernel, "
-                "_flash_dkv_kernel) are not ported yet: ROADMAP queue 2, "
-                "items 5-6")
+    if needs_grad and kv_valid_start is not None:
+        raise ValueError(
+            "flash_attention with kv_valid_start is forward-only "
+            "(inference prefill); it cannot be differentiated")
     b, sq, h, d = q.shape
+    # repeat_interleave's autograd sums the head-group gradients (GQA).
     k, v = repeat_kv(k, v, h)
+    if needs_grad:
+        out = _FlashFunction.apply(_to_bhsd(q), _to_bhsd(k), _to_bhsd(v),
+                                   causal)
+        return _from_bhsd(out, b, h)
     start = None
     if kv_valid_start is not None:
         start = kv_valid_start.to(q.device, torch.int32).repeat_interleave(h)

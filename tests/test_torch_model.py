@@ -107,7 +107,8 @@ def test_narrow_params_narrows_exactly_the_contractions():
 
 @pytest.mark.parametrize("option", [
     dict(moe_experts=2), dict(pipeline_microbatches=2),
-    dict(attention="ring"), dict(remat=True), dict(dropout_rate=0.1),
+    dict(attention="ring"), dict(attention="flash", flash_block_diag=8),
+    dict(dropout_rate=0.1),
 ])
 def test_unsupported_options_raise(option):
     cfg = TransformerConfig(dtype=torch.float32, **dict(SMALL, **option))
