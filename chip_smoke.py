@@ -12,9 +12,15 @@ Phases, each fatal on failure (exit code 1, no result line):
      lengths that are not tile multiples, key starts that fully mask the
      first tiles), the backward pair dq / dkv (the training shape, d 64
      with unaligned lengths, non-causal sq != sk, rows whose lse is the
-     NEG_INF sentinel), and flash_attention's autograd path (GQA);
+     NEG_INF sentinel), flash_attention's autograd path (GQA), and the
+     two passes of the two-pass causal forward (pass A flash_fwd_full,
+     pass B flash_fwd_diag) and their merge (the training split, d 64,
+     fitted blocks that are not multiples of the 64-row tile, a length
+     that is not a tile multiple, the pure band; a shape outside the
+     two-pass dispatch launches neither);
   3. timing: each kernel at the shape its path gives it, beside its
-     plain version, its bound, and one PyTorch library call;
+     plain version, its bound, and one PyTorch library call; the
+     two-pass forward beside the single-pass kernel on the same inputs;
   4. serve: export a seeded 188M LM (bench.py's configuration, random
      weights), start the port's REST server in this process with bucketed
      static batching, send concurrent mixed-length :predict requests and
@@ -28,20 +34,30 @@ Phases, each fatal on failure (exit code 1, no result line):
   6. breakdown (information only): prefill and decode time of one
      bucketed batch, and under torch.profiler the device's busy share
      and the kernels that take its time;
-  7. train: the port's LM training entry point (tools/train_lm.main) on
+  7. train: the port's LM training entry point (tools/train_lm.run) on
      bench.py's LM configuration (batch 8 x 2048, flash, remat, adamw
      1e-3) for a few steps, launch counters zeroed just before and read
      just after: flash_fwd, flash_dq and flash_dkv must each launch 12
      times a step; losses and grad_norm finite; step time, tokens/s, MFU
-     and peak memory printed;
+     and peak memory printed; then the same cell with the two-pass
+     forward (--flash-block-diag 256, adafactor 1e-3, 2 steps a call)
+     through lm_task and Trainer as bench.py builds it: flash_fwd_full,
+     flash_fwd_diag, flash_dq and flash_dkv 12 times a step, flash_fwd
+     never;
   8. gradients: one step's gradients of the bf16 model (full width and
-     depth, batch 2 x 2048) through the kernels and through the plain
-     versions, each held to a float32 run of the same weights with plain
-     attention: the kernel path may be at most 1.25x further from it;
+     depth, batch 2 x 2048) through the kernels (single pass, then two
+     passes) and through the plain versions, each held to a float32 run
+     of the same weights with plain attention: a kernel path may be at
+     most 1.25x further from it;
   9. learning: Trainer.fit for 20 steps on one repeated batch must lower
      the loss by at least 1 nat; then (information only) one profiled
      training step: device busy share, the kernels with the most device
-     time, and the share of flash fwd, dq and dkv.
+     time, and the share of flash fwd, dq and dkv;
+ 10. checkpoints and data: tools/train_lm.run with adafactor, KFTR
+     shards written by the port and verified checkpoints every 2 steps:
+     the saved steps verify, a rerun resumes after the last one, a
+     truncated newest step is walked back over; one save and one
+     restore timed.
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -106,6 +122,8 @@ BWD_SOURCE = "kubeflow_tpu_torch/ops/csrc/flash_bwd.cu"
 TPU_KERNELS = {
     "flash_fwd": "kubeflow_tpu/ops/flash.py:70",
     "flash_fwd_masked": "kubeflow_tpu/ops/flash.py:70",
+    "flash_fwd_full": "kubeflow_tpu/ops/flash.py:241",
+    "flash_fwd_diag": "kubeflow_tpu/ops/flash.py:291",
     "flash_dq": "kubeflow_tpu/ops/flash.py:508",
     "flash_dkv": "kubeflow_tpu/ops/flash.py:560",
 }
@@ -120,6 +138,16 @@ TRAIN_FLAGS = [
     "--remat", "--learning-rate", "1e-3", "--optimizer", "adamw",
     "--device", "cuda"]
 TRAIN_STEPS = 6
+# bench.py --model lm --flash-block-diag 256 --optimizer adafactor
+# --steps-per-call 2: the two-pass forward's (block_q, block_k,
+# block_diag) on the training path.
+TWO_PASS_BLOCKS = (512, 1024, 256)
+TWO_PASS_STEPS, TWO_PASS_STEPS_PER_CALL = 6, 2
+TWO_PASS_KERNELS = ("flash_fwd_full", "flash_fwd_diag", "flash_dq",
+                    "flash_dkv")
+# The checkpoint and data phase: train_lm.run on the bench flags, saving
+# every CKPT_EVERY steps, over KFTR shards of CKPT_EXAMPLES examples.
+CKPT_EVERY, CKPT_EXAMPLES, CKPT_SHARDS = 2, 64, 4
 LEARN_STEPS, LEARN_BATCH, LEARN_VOCAB = 20, 2, 512
 SERVE_KERNELS = ("flash_fwd", "flash_fwd_masked")
 TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
@@ -216,23 +244,98 @@ def check_fwd(torch, flash, name, q, k, v, ks, causal, o, lse):
     torch.cuda.synchronize()
     ro, rlse = flash.flash_fwd_reference(
         q.float(), k.float(), v.float(), causal=causal, kv_start=ks)
+    row = compare_out(torch, name, o, lse, ro, rlse,
+                      f"bh={q.shape[0]} sq={q.shape[1]} sk={k.shape[1]} "
+                      f"d={q.shape[2]} causal={causal} "
+                      f"masked={ks is not None}")
+    return dict(row, masked=ks is not None)
+
+
+def compare_out(torch, name, o, lse, ro, rlse, what):
+    """(o, lse) of a kernel against its plain version's (ro, rlse) within
+    O_TOL, O_REL_TOL and LSE_ATOL; fails on disagreement, else returns
+    the errors.  Against a reference of all zeros (pass A where no row
+    has a key: o = 0, lse = NEG_INF) the relative bound applies to the
+    largest error itself."""
     err_o = (o.float() - ro).abs().max().item()
     err_lse = (lse - rlse).abs().max().item()
-    rel_o = ((o.float() - ro).norm() / ro.norm()).item()
+    ref_norm = ro.norm().item()
+    rel_o = ((o.float() - ro).norm().item() / ref_norm if ref_norm
+             else err_o)
     ok_o = torch.allclose(o.float(), ro, **O_TOL) and rel_o <= O_REL_TOL
     ok_lse = torch.allclose(lse, rlse, atol=LSE_ATOL, rtol=0)
     finite = bool(torch.isfinite(o).all())
-    bh, sq, d = q.shape
-    log(f"check {name}: bh={bh} sq={sq} sk={k.shape[1]} d={d} "
-        f"causal={causal} masked={ks is not None} max|o-ref|={err_o:.3e} "
+    log(f"check {name}: {what} max|o-ref|={err_o:.3e} "
         f"|o-ref|_F/|ref|_F={rel_o:.3e} max|lse-ref|={err_lse:.3e} "
         f"(bounds o atol/rtol {O_TOL['atol']}, o relative "
         f"{O_REL_TOL}, lse atol {LSE_ATOL})")
     if not (ok_o and ok_lse and finite):
         fail(f"kernel disagrees with its plain version on {name}")
-    return {"variant": name, "masked": ks is not None,
-            "max_abs_err_o": err_o, "rel_err_o": rel_o,
+    return {"variant": name, "max_abs_err_o": err_o, "rel_err_o": rel_o,
             "max_abs_err_lse": err_lse}
+
+
+def check_two_pass_kernels(torch, flash, gen):
+    """Phase 2, two-pass forward: pass A (flash_fwd_full) and pass B
+    (flash_fwd_diag) each against its plain version, and their merge
+    against the single pass's plain version, at the training shape and
+    split, d 64, fitted blocks that are not multiples of the 64-row tile
+    (per-row bounds), a length that is not a tile multiple and the pure
+    band (pass A not launched); then a shape that fails the two-pass
+    dispatch must launch neither pass."""
+    bq, bk, bd = TWO_PASS_BLOCKS
+    variants = [
+        # name, bh, s, d, block_q, block_k
+        ("train", TRAIN_BATCH * MODEL["n_heads"], TRAIN_SEQ, 128, bq, bk),
+        ("d64", 16, TRAIN_SEQ, 64, bq, bk),
+        ("bq32_bk64", 8, 128, 128, 32, 64),
+        ("bq_bk32_s96", 8, 96, 64, 32, 32),
+        ("bq_bk400_s1200", 8, 1200, 128, 400, 400),
+        ("pure_band", 8, 1024, 128, bq, bk),
+    ]
+    results = {"flash_fwd_full": [], "flash_fwd_diag": [], "merged": []}
+    for name, bh, s, d, vq, vk in variants:
+        q, k, v, _ = make_inputs(torch, gen, bh, s, s, d, None)
+        ref = [t.float() for t in (q, k, v)]
+        what = f"bh={bh} s={s} d={d} block_q={vq} block_k={vk}"
+        for kernel, fn, plain in (
+                ("flash_fwd_full", flash.flash_fwd_full,
+                 flash.flash_fwd_full_reference),
+                ("flash_fwd_diag", flash.flash_fwd_diag,
+                 flash.flash_fwd_diag_reference)):
+            o, lse = fn(q, k, v, block_q=vq, block_k=vk)
+            torch.cuda.synchronize()
+            results[kernel].append(compare_out(
+                torch, f"{kernel}_{name}", o, lse,
+                *plain(*ref, block_q=vq, block_k=vk), what))
+        before = dict(flash.launch_counts)
+        o, lse = flash.flash_fwd_two_pass(q, k, v, block_q=vq, block_k=vk,
+                                          block_diag=bd)
+        torch.cuda.synchronize()
+        launched = {key: flash.launch_counts[key] - before[key]
+                    for key in ("flash_fwd", "flash_fwd_full",
+                                "flash_fwd_diag")}
+        full = 0 if name == "pure_band" else 1
+        if launched != {"flash_fwd": 0, "flash_fwd_full": full,
+                        "flash_fwd_diag": 1}:
+            fail(f"two-pass forward on {name} launched {launched}")
+        results["merged"].append(compare_out(
+            torch, f"two_pass_merged_{name}", o, lse,
+            *flash.flash_fwd_reference(*ref, causal=True),
+            f"{what} against the single pass's plain version"))
+        del q, k, v, ref, o, lse
+    q, k, v, _ = make_inputs(torch, gen, 8, TRAIN_SEQ, TRAIN_SEQ, 128, None)
+    before = dict(flash.launch_counts)
+    # sq <= block_k: the single pass.
+    flash._fwd_dispatch(q, k, v, True, bq, TRAIN_SEQ, bd)
+    torch.cuda.synchronize()
+    launched = {key: flash.launch_counts[key] - before[key]
+                for key in ("flash_fwd", "flash_fwd_full", "flash_fwd_diag")}
+    if launched != {"flash_fwd": 1, "flash_fwd_full": 0, "flash_fwd_diag": 0}:
+        fail(f"a shape outside the two-pass dispatch launched {launched}")
+    log(f"check two-pass dispatch: s {TRAIN_SEQ} <= block_k {TRAIN_SEQ} "
+        f"launched {launched}")
+    return results
 
 
 def _bwd_errors(torch, got, want):
@@ -337,17 +440,25 @@ class plain_kernels:
 
     def __enter__(self):
         f = self.flash
-        self.saved = f._flash_fwd_cuda, f._flash_bwd_cuda
+        self.saved = f._flash_fwd_cuda, f._flash_bwd_cuda, \
+            f._flash_fwd_pass_cuda
+        plain = {"flash_fwd_full": f.flash_fwd_full_reference,
+                 "flash_fwd_diag": f.flash_fwd_diag_reference}
 
         def fwd(q, k, v, *, causal, kv_start=None):
             return f.flash_fwd_reference(q, k, v, causal=causal,
                                          kv_start=kv_start)
 
-        f._flash_fwd_cuda, f._flash_bwd_cuda = fwd, f.flash_bwd_reference
+        def one_pass(name, q, k, v, *, block_q, block_k):
+            return plain[name](q, k, v, block_q=block_q, block_k=block_k)
+
+        f._flash_fwd_cuda, f._flash_bwd_cuda, f._flash_fwd_pass_cuda = \
+            fwd, f.flash_bwd_reference, one_pass
         return self
 
     def __exit__(self, *exc):
-        self.flash._flash_fwd_cuda, self.flash._flash_bwd_cuda = self.saved
+        (self.flash._flash_fwd_cuda, self.flash._flash_bwd_cuda,
+         self.flash._flash_fwd_pass_cuda) = self.saved
 
 
 def bound(ops, nbytes):
@@ -506,6 +617,110 @@ def time_train_kernels(torch, flash, gen, fwd_rows, bwd_checks):
          "bytes_bound_ms", "library_ms", "tflops")}
     del q, k, v, g, o, lse, delta, q4, k4, v4, out4
     return rows
+
+
+def two_pass_work(bh, s, bq, bk):
+    """Per pass, what the two-pass split needs: (pairs attended, query
+    rows with at least one key, key rows some query attends), and each
+    row's boundary.  Pass A: keys [0, boundary(r)); pass B: [boundary(r),
+    r], so every key is its own row's."""
+    bnd = [((r // bq) * bq // bk) * bk for r in range(s)]
+    full = (bh * sum(bnd), bh * sum(b > 0 for b in bnd), bh * max(bnd))
+    diag = (bh * sum(r - b + 1 for r, b in enumerate(bnd)), bh * s, bh * s)
+    return full, diag, bnd
+
+
+def time_two_pass(torch, flash, gen, checks):
+    """Phase 3, two-pass forward at the training shape and split: pass A,
+    pass B, the merge and the whole two-pass forward, beside the
+    single-pass kernel on the same inputs.  Yardsticks: pass A, one SDPA
+    call of the rows past the split against the keys before it (every
+    such row's boundary); pass B, SDPA with the band's boolean mask; the
+    two-pass forward, SDPA is_causal."""
+    import torch.nn.functional as F
+
+    heads, d = MODEL["n_heads"], MODEL["head_dim"]
+    bh, s = TRAIN_BATCH * heads, TRAIN_SEQ
+    bq, bk, bd = TWO_PASS_BLOCKS
+    q, k, v, _ = make_inputs(torch, gen, bh, s, s, d, None)
+    fns = {
+        "flash_fwd_full": (lambda: flash.flash_fwd_full(
+            q, k, v, block_q=bq, block_k=bk), lambda: (
+            flash.flash_fwd_full_reference(q, k, v, block_q=bq,
+                                           block_k=bk))),
+        "flash_fwd_diag": (lambda: flash.flash_fwd_diag(
+            q, k, v, block_q=bq, block_k=bk), lambda: (
+            flash.flash_fwd_diag_reference(q, k, v, block_q=bq,
+                                           block_k=bk))),
+    }
+    full_work, diag_work, bnd = two_pass_work(bh, s, bq, bk)
+    split = bnd[-1]
+    if any(b != split for b in bnd[split:]):
+        fail("the training split's rows past the boundary differ")
+    q4, k4, v4 = (t.reshape(TRAIN_BATCH, heads, s, d) for t in (q, k, v))
+    pos = torch.arange(s, device="cuda")
+    band = ((pos[None, :] >= torch.tensor(bnd, device="cuda")[:, None])
+            & (pos[None, :] <= pos[:, None]))
+    library = {
+        "flash_fwd_full": lambda: F.scaled_dot_product_attention(
+            q4[:, :, split:], k4[:, :, :split], v4[:, :, :split]),
+        "flash_fwd_diag": lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=band),
+    }
+    rows = {}
+    work = {"flash_fwd_full": full_work, "flash_fwd_diag": diag_work}
+    for name, (kernel, plain) in fns.items():
+        ms = time_ms(torch, kernel, reps=20)
+        plain_ms = time_ms(torch, plain, reps=3)
+        lib_ms = time_ms(torch, library[name], reps=20)
+        pairs, q_rows, kv_rows = work[name]
+        ops = 4 * d * pairs
+        # bf16 q of the rows with keys, k and v of the keys attended, read
+        # once; o (bf16) and lse (f32) of every row written once.
+        nbytes = 2 * d * (q_rows + 2 * kv_rows) + 2 * bh * s * d + 4 * bh * s
+        t_bound, by, t_ops, t_bytes = bound(ops, nbytes)
+        rows[name] = {
+            "name": name, "route": "cuda", "source": FWD_SOURCE,
+            "replaces": TPU_KERNELS[name],
+            "shape": {"bh": bh, "s": s, "d": d, "block_q": bq,
+                      "block_k": bk, "block_diag": bd},
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bound,
+            "bound_by": by, "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
+            "library_ms": lib_ms, "tflops": ops / (ms * 1e-3) / 1e12,
+            "max_abs_err": max(c["max_abs_err_o"] for c in checks[name]),
+            "checks": checks[name],
+        }
+        log(f"time {name} (training shape): bh={bh} s={s} d={d} block_q="
+            f"{bq} block_k={bk}: kernel {ms:.4f} ms "
+            f"({rows[name]['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms,"
+            f" sdpa {lib_ms:.4f} ms, bound {t_bound:.4f} ms ({by}; "
+            f"operations {t_ops:.4f} ms for {ops:.4g}, bytes {t_bytes:.4f} "
+            f"ms for {nbytes:.4g})")
+    (o_a, lse_a), (o_b, lse_b) = fns["flash_fwd_full"][0](), \
+        fns["flash_fwd_diag"][0]()
+    merge_ms = time_ms(torch, lambda: flash.merge_partials(
+        o_a, lse_a, o_b, lse_b), reps=20)
+    total_ms = time_ms(torch, lambda: flash.flash_fwd_two_pass(
+        q, k, v, block_q=bq, block_k=bk, block_diag=bd), reps=20)
+    single_ms = time_ms(torch, lambda: flash.flash_fwd(q, k, v, causal=True),
+                        reps=20)
+    causal_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), reps=20)
+    summary = {
+        "pass_a_ms": rows["flash_fwd_full"]["ms"],
+        "pass_b_ms": rows["flash_fwd_diag"]["ms"], "merge_ms": merge_ms,
+        "two_pass_ms": total_ms, "single_pass_kernel_ms": single_ms,
+        "sdpa_causal_ms": causal_ms,
+        "max_abs_err_merged": max(c["max_abs_err_o"]
+                                  for c in checks["merged"]),
+    }
+    log(f"time two-pass forward (training shape): pass A "
+        f"{summary['pass_a_ms']:.4f} + pass B {summary['pass_b_ms']:.4f} + "
+        f"merge {merge_ms:.4f} ms; whole call {total_ms:.4f} ms against the "
+        f"single-pass kernel's {single_ms:.4f} ms and SDPA is_causal's "
+        f"{causal_ms:.4f} ms")
+    del q, k, v, q4, k4, v4, band, o_a, lse_a, o_b, lse_b
+    return rows, summary
 
 
 def export_model(torch, base: Path) -> None:
@@ -752,11 +967,23 @@ def breakdown(torch, base: Path, gen) -> None:
             f"{e.count} launches: {e.key[:100]}")
 
 
+def step_stats(records, tokens):
+    """Median step time of the logged records, and MFU at ``tokens`` a
+    step (3 x flops_per_token x tokens over the bf16 peak)."""
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+
+    step_s = sorted(r["step_time_s"] for r in records)
+    step_s = step_s[len(step_s) // 2]
+    cfg = TransformerConfig(**{k: v for k, v in MODEL.items()
+                               if k not in ("dtype",)})
+    return step_s, 3 * cfg.flops_per_token() * tokens / step_s \
+        / PEAK_BF16_FLOPS
+
+
 def train(torch, flash, workdir: Path):
     """Phase 7: the port's training entry point on the bench LM config
     (``train_lm.run``, the work of ``train_lm.main``, which returns the
     trainer and so its last step's metrics)."""
-    from kubeflow_tpu_torch.models.transformer import TransformerConfig
     from kubeflow_tpu_torch.tools import train_lm
 
     out = workdir / "train_metrics.json"
@@ -786,12 +1013,8 @@ def train(torch, flash, workdir: Path):
         fail(f"non-finite or missing training metrics: losses {losses}, "
              f"last {last}")
     # Steps 0-1 carry one-off start-up (cuBLAS handles, allocator growth).
-    step_s = sorted(r["step_time_s"] for r in history[2:])
-    step_s = step_s[len(step_s) // 2]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    cfg = TransformerConfig(**{k: v for k, v in MODEL.items()
-                               if k not in ("dtype",)})
-    mfu = 3 * cfg.flops_per_token() * tokens / step_s / PEAK_BF16_FLOPS
+    step_s, mfu = step_stats(history[2:], tokens)
     log(f"train: {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
         f"losses {[round(x, 4) for x in losses]}, last grad_norm "
         f"{last['grad_norm']:.4f}; median step {step_s * 1e3:.1f} ms over "
@@ -801,6 +1024,150 @@ def train(torch, flash, workdir: Path):
         f"{peak_gib:.2f} GiB (information only)")
     return counts, {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
                     "mfu": mfu, "peak_gib": peak_gib, "losses": losses}
+
+
+def train_two_pass(torch, flash):
+    """Phase 7b: bench.py's LM cell with --flash-block-diag 256
+    --optimizer adafactor --steps-per-call 2, built as bench_lm builds it
+    (lm_task and Trainer over one repeated random batch), launch counters
+    zeroed just before fit and read just after: flash_fwd_full,
+    flash_fwd_diag, flash_dq and flash_dkv 12 times a step each,
+    flash_fwd never."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig,
+        lm_task,
+    )
+    from kubeflow_tpu_torch.runtime import optim
+    from kubeflow_tpu_torch.runtime.train import Trainer
+
+    bq, bk, bd = TWO_PASS_BLOCKS
+    cfg = TransformerConfig(**dict(
+        MODEL, max_seq_len=TRAIN_SEQ, dtype=torch.bfloat16, remat=True,
+        flash_block_q=bq, flash_block_k=bk, flash_block_diag=bd))
+    init_fn, loss_fn = lm_task(cfg, device="cuda")
+    trainer = Trainer(init_fn=init_fn, loss_fn=loss_fn,
+                      tx=optim.adafactor(1e-3), device="cuda",
+                      flops_per_example=cfg.flops_per_token() * TRAIN_SEQ,
+                      peak_flops_per_chip=PEAK_BF16_FLOPS)
+    state = trainer.create_state()
+    rng = np.random.RandomState(0)
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, size=(
+        TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in flash.launch_counts:
+        flash.launch_counts[key] = 0
+    trainer.fit(itertools.repeat(batch), TWO_PASS_STEPS, state=state,
+                examples_per_step=TRAIN_BATCH, log_every=1,
+                steps_per_call=TWO_PASS_STEPS_PER_CALL)
+    torch.cuda.synchronize()
+    counts = dict(flash.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = MODEL["n_layers"] * TWO_PASS_STEPS
+    log(f"kernel launches on the two-pass training path ({TWO_PASS_STEPS} "
+        f"steps): {counts} (want {want} of each of "
+        f"{', '.join(TWO_PASS_KERNELS)}, 0 of flash_fwd)")
+    bad = [k for k in TWO_PASS_KERNELS if counts[k] != want]
+    if bad or counts["flash_fwd"] or counts["flash_fwd_masked"]:
+        fail(f"two-pass training launched the wrong kernels: {counts}")
+    history = trainer.metrics.history
+    losses = [r["loss"] for r in history]
+    last = trainer.last_metrics
+    if len(losses) != TWO_PASS_STEPS // TWO_PASS_STEPS_PER_CALL or not all(
+            map(math.isfinite, losses + [last.get("grad_norm", math.nan)])):
+        fail(f"non-finite or missing two-pass training metrics: losses "
+             f"{losses}, last {last}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # The first call carries one-off start-up.
+    step_s, mfu = step_stats(history[1:], tokens)
+    log(f"train two-pass: {TWO_PASS_STEPS} steps ({TWO_PASS_STEPS_PER_CALL}"
+        f" a call) of batch {TRAIN_BATCH} x {TRAIN_SEQ}, adafactor 1e-3, "
+        f"blocks {TWO_PASS_BLOCKS}: losses {[round(x, 4) for x in losses]}, "
+        f"last grad_norm {last['grad_norm']:.4f}; median step "
+        f"{step_s * 1e3:.1f} ms over calls 2-{len(history)} (host clock "
+        f"after a sync each call), {tokens / step_s:.0f} tokens/s, MFU "
+        f"{mfu:.4f}, peak memory {peak_gib:.2f} GiB (information only)")
+    return counts, {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+                    "mfu": mfu, "peak_gib": peak_gib, "losses": losses}
+
+
+def checkpoint_and_data(torch, workdir: Path):
+    """Phase 10: tools/train_lm.run on the bench flags with
+    --optimizer adafactor, --data-files (KFTR shards written by the
+    port's writer) and --checkpoint-dir: 4 steps saving every 2, each
+    saved step verified; a rerun to 6 steps resumes at step 4; with the
+    newest step's file truncated, a rerun to 8 steps walks back to the
+    step before it.  Then one save and one restore of the trained state,
+    timed."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.data import write_example_shards
+    from kubeflow_tpu_torch.runtime import checkpoint
+    from kubeflow_tpu_torch.tools import train_lm
+
+    rng = np.random.RandomState(SEED)
+    files = [str(p) for p in write_example_shards(
+        ({"tokens": rng.randint(0, MODEL["vocab_size"], size=(
+            TRAIN_SEQ,)).astype(np.int32)} for _ in range(CKPT_EXAMPLES)),
+        workdir / "data", examples_per_shard=CKPT_EXAMPLES // CKPT_SHARDS)]
+    ckpt = workdir / "ckpt"
+    flags = TRAIN_FLAGS + [
+        "--optimizer", "adafactor", "--data-files", *files,
+        "--checkpoint-dir", str(ckpt), "--checkpoint-every", str(CKPT_EVERY),
+        "--log-every", "1", "--max-restarts", "0"]
+
+    def run(steps):
+        t0 = time.perf_counter()
+        trainer = train_lm.run(flags + ["--steps", str(steps)])
+        seen = [r["step"] for r in trainer.metrics.history]
+        losses = [r["loss"] for r in trainer.metrics.history]
+        if not all(map(math.isfinite, losses)):
+            fail(f"non-finite losses with checkpoints and data: {losses}")
+        return trainer, seen, time.perf_counter() - t0
+
+    trainer, seen, t_first = run(4)
+    steps = trainer.checkpoints.all_steps()
+    verdicts = {s: checkpoint.verify_step(ckpt, s) for s in steps}
+    if seen != [0, 1, 2, 3] or steps != [1, 3] or not all(
+            ok for ok, _ in verdicts.values()):
+        fail(f"first run: history {seen}, saved {steps}, verify {verdicts}")
+    _, seen, t_resume = run(6)
+    if seen != [4, 5]:
+        fail(f"the rerun to 6 steps did not resume at step 4: {seen}")
+    newest = checkpoint.list_checkpoint_steps(ckpt)[-1]
+    state_file = ckpt / str(newest) / checkpoint.STATE_FILE
+    state_file.write_bytes(state_file.read_bytes()[:-4096])
+    trainer, seen, t_walk = run(8)
+    if newest != 5 or seen != [4, 5, 6, 7]:
+        fail(f"truncated step {newest}: the rerun to 8 steps trained "
+             f"{seen}, not a walk back to step 3 (steps 4-7)")
+    nbytes = sum(v["size"] for v in json.loads(checkpoint.manifest_path(
+        ckpt, 7).read_text())["files"].values())
+    # One save and one restore of the trained state, timed.
+    fresh = trainer.create_state()
+    mgr = checkpoint.CheckpointManager(workdir / "timed")
+    t0 = time.perf_counter()
+    _, start = checkpoint.CheckpointManager(ckpt).restore_or_init(fresh)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr.save(0, fresh)
+    t_save_call = time.perf_counter() - t0
+    mgr.wait()
+    t_save = time.perf_counter() - t0
+    if start != 8 or not checkpoint.verify_step(workdir / "timed", 0)[0]:
+        fail(f"restore started at {start}, want 8; or the timed save "
+             "did not verify")
+    log(f"checkpoint and data: 4 steps saved {steps} (verified), a rerun "
+        f"resumed at step 4, a truncated step {newest} walked back to "
+        f"step 3; runs took {t_first:.1f} / {t_resume:.1f} / {t_walk:.1f} "
+        f"s (three model inits included); checkpoint {nbytes} bytes; save "
+        f"{t_save:.3f} s ({t_save_call:.3f} s in the caller: the host "
+        f"copy), restore {t_restore:.3f} s (information only)")
+    return {"checkpoint_bytes": nbytes, "save_s": t_save,
+            "save_call_s": t_save_call, "restore_s": t_restore}
 
 
 def check_gradients(torch, flash):
@@ -840,22 +1207,41 @@ def check_gradients(torch, flash):
     if any(n != MODEL["n_layers"] for n in launched.values()):
         fail(f"the gradient step did not launch each kernel once per layer: "
              f"{launched}")
+    # The same weights with the two-pass forward (pass A, pass B, merge).
+    bq, bk, bd = TWO_PASS_BLOCKS
+    model2 = Transformer(TransformerConfig(**dict(
+        base, dtype=torch.bfloat16, flash_block_q=bq, flash_block_k=bk,
+        flash_block_diag=bd)), device="meta")
+    model2.load_state_dict(
+        {k: v.clone() for k, v in model.state_dict().items()}, assign=True)
+    before = dict(flash.launch_counts)
+    loss_2, g_2 = grads(model2)
+    launched = {k: flash.launch_counts[k] - before[k]
+                for k in TWO_PASS_KERNELS + ("flash_fwd",)}
+    if launched != dict({k: MODEL["n_layers"] for k in TWO_PASS_KERNELS},
+                        flash_fwd=0):
+        fail(f"the two-pass gradient step launched {launched}")
+    del model2
     with plain_kernels(flash):
         loss_p, g_p = grads(model)
     loss_r, g_r = grads(model32)
     ref = g_r.norm()
     err_k = ((g_k - g_r).norm() / ref).item()
+    err_2 = ((g_2 - g_r).norm() / ref).item()
     err_p = ((g_p - g_r).norm() / ref).item()
     log(f"gradients, batch 2 x {TRAIN_SEQ}, {g_r.numel()} parameters, "
         f"against float32 with plain attention (loss {loss_r:.6f}): kernel "
-        f"path relative error {err_k:.4e} (loss {loss_k:.6f}), plain bf16 "
+        f"path relative error {err_k:.4e} (loss {loss_k:.6f}), two-pass "
+        f"kernel path {err_2:.4e} (loss {loss_2:.6f}), plain bf16 "
         f"path {err_p:.4e} (loss {loss_p:.6f}), |kernel - plain| / |ref| "
-        f"{((g_k - g_p).norm() / ref).item():.4e} (bound: kernel <= "
-        f"{GRAD_ERR_RATIO} x plain)")
-    if not (torch.isfinite(g_k).all() and err_k <= GRAD_ERR_RATIO * err_p):
+        f"{((g_k - g_p).norm() / ref).item():.4e} (bound: each kernel "
+        f"path <= {GRAD_ERR_RATIO} x plain)")
+    if not (torch.isfinite(g_k).all() and torch.isfinite(g_2).all()
+            and max(err_k, err_2) <= GRAD_ERR_RATIO * err_p):
         fail("gradients through the kernels are further from float32 than "
              "through the plain versions")
-    return {"rel_err_kernel": err_k, "rel_err_plain": err_p}
+    return {"rel_err_kernel": err_k, "rel_err_two_pass": err_2,
+            "rel_err_plain": err_p}
 
 
 def learn_and_breakdown(torch):
@@ -970,8 +1356,11 @@ def main() -> int:
     checks = check_kernels(torch, flash, gen)
     bwd_checks = check_bwd_kernels(torch, flash, gen, checks)
     check_autograd(torch, flash, gen)
+    two_pass_checks = check_two_pass_kernels(torch, flash, gen)
     timed = time_kernels(torch, flash, gen, checks)
     timed.update(time_train_kernels(torch, flash, gen, timed, bwd_checks))
+    two_pass_rows, two_pass_times = time_two_pass(torch, flash, gen,
+                                                  two_pass_checks)
 
     rng = torch.Generator().manual_seed(SEED)
     vocab = MODEL["vocab_size"]
@@ -992,6 +1381,15 @@ def main() -> int:
         check_prefill_logits(torch, flash, base, gen)
         breakdown(torch, base, gen)
         train_counts, train_info = train(torch, flash, workdir)
+        two_pass_counts, two_pass_info = train_two_pass(torch, flash)
+        log(f"train, single pass + adamw against two-pass + adafactor: "
+            f"median step {train_info['step_ms']:.1f} / "
+            f"{two_pass_info['step_ms']:.1f} ms, MFU "
+            f"{train_info['mfu']:.4f} / {two_pass_info['mfu']:.4f}, peak "
+            f"memory {train_info['peak_gib']:.2f} / "
+            f"{two_pass_info['peak_gib']:.2f} GiB (host clock, one call; "
+            f"information only)")
+        ckpt_info = checkpoint_and_data(torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     grads = check_gradients(torch, flash)
@@ -1009,8 +1407,18 @@ def main() -> int:
                                    "train": train_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
+    for name, row in two_pass_rows.items():
+        # Their launches are the two-pass training phase's.
+        row["launches"] = two_pass_counts[name]
+        row["path"] = "train"
+        row["launches_by_path"] = {"serve": counts.get(name, 0),
+                                   "train": two_pass_counts[name]}
+        kernels.append(row)
     log(json.dumps({"train": dict(train_info, gradients=grads,
-                                  breakdown=learned)}))
+                                  breakdown=learned),
+                    "train_two_pass": dict(two_pass_info,
+                                           forward=two_pass_times),
+                    "checkpoint": ckpt_info}))
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

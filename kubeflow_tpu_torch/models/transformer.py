@@ -8,10 +8,10 @@ float32 logits.  Parameters keep the JAX package's layout and names
 (models/convert.py) maps them to and from the JAX tree, whose layer leaves
 are stacked ``[L, ...]``.
 
-Dense path only.  MoE, pipeline microbatching, ring attention, the
-two-pass flash forward and dropout raise ``NotPortedError`` until their
-slices of the port land (ROADMAP queue 1, items 4, 7 and 9; queue 2,
-items 3-4).
+Dense path only.  MoE, pipeline microbatching, ring attention and dropout
+raise ``NotPortedError`` until their slices of the port land (ROADMAP
+queue 1, items 4, 7 and 9).  ``flash_block_diag > 0`` selects the
+two-pass causal flash forward (ops/flash.py).
 
 Remat (``cfg.remat``) checkpoints each block with ``torch.utils.checkpoint``
 under the JAX package's policies (``_remat_policy``).  With flash attention
@@ -66,8 +66,9 @@ class TransformerConfig:
     # "dot" (materialized scores) or "flash" (ops/flash.py); "ring" is
     # not ported yet.
     attention: str = "dot"
-    # Kept for parity with the JAX config; the CUDA kernel picks its own
-    # tiles and ignores them.
+    # The two-pass forward's split (flash_block_diag > 0): keys before
+    # each row's boundary at (flash_block_q, flash_block_k), then the
+    # diagonal band.  The single-pass kernels pick their own tiles.
     flash_block_q: int = 512
     flash_block_k: int = 1024
     flash_block_diag: int = 0
@@ -117,9 +118,6 @@ def _unsupported(cfg: TransformerConfig) -> Optional[str]:
         return "pipeline_microbatches > 0 (parallel training, ROADMAP queue 1 item 7)"
     if cfg.attention == "ring":
         return "attention='ring' (parallel training, ROADMAP queue 1 item 7)"
-    if cfg.attention == "flash" and cfg.flash_block_diag > 0:
-        return ("flash_block_diag > 0 (the two-pass flash forward, ROADMAP "
-                "queue 2 items 3-4)")
     if cfg.dropout_rate > 0:
         return "dropout_rate > 0 (training slice, ROADMAP queue 1 item 4)"
     return None

@@ -28,6 +28,24 @@
 // The tiles are this kernel's own: the TPU block sizes
 // (cfg.flash_block_q / flash_block_k) are not used here.
 //
+// The same kernel, instanced by kPass, also replaces the two passes of the
+// TPU's two-pass causal forward (_flash_fwd_two_pass, sq == sk):
+//   - kFull <- _flash_fwd_full_kernel: row r attends keys
+//     [0, boundary(r)) with no mask, boundary(r) = ((r / bq) * bq / bk) * bk
+//     for the fitted TPU blocks bq, bk; a row with boundary 0 writes
+//     o = 0, lse = NEG_INF (an empty partial);
+//   - kDiag <- _flash_fwd_diag_kernel: row r attends keys
+//     [boundary(r), r] under the causal mask.
+// Their (o, lse) partials are merged in log space outside the kernel.
+// On the TPU the split saved the masked work of (512, 1024) blocks on the
+// diagonal; here the 64-key tiles already waste little there, so each
+// pass does about half the single pass's work, at the same tiles.  The
+// TPU's fine band tiles (block_diag) set nothing here.  When bq and bk
+// are multiples of the 64-row tile, every row of a CTA shares one
+// 64-aligned boundary, and pass A carries no mask code at all; otherwise
+// (kRowBounds) each row's bound is applied per element in the tiles it
+// cuts.
+//
 // Interface: plain C, launched on the caller's stream; returns the
 // cudaError_t of the launch (0 = launched).
 
@@ -128,14 +146,30 @@ __device__ __forceinline__ void load_tile_async(uint16_t (*dst)[D + kPad],
   }
 }
 
-template <int D, bool kCausal, bool kMasked>
+// Which keys a launch attends (see the header): all of them (the single
+// pass), or one of the two passes of the two-pass causal forward.
+enum Pass : int { kSingle = 0, kFull = 1, kDiag = 2 };
+
+// First key of row r's diagonal band: the coarse boundary of the TPU's
+// two-pass split for fitted blocks bq, bk.
+__device__ __forceinline__ int coarse_boundary(int r, int bq, int bk) {
+  return (r / bq) * bq / bk * bk;
+}
+
+template <int D, bool kCausal, bool kMasked, int kPass, bool kRowBounds>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const uint16_t* __restrict__ q,
                  const uint16_t* __restrict__ k,
                  const uint16_t* __restrict__ v,
                  const int32_t* __restrict__ kv_start,
                  uint16_t* __restrict__ o, float* __restrict__ lse,
-                 int sq, int sk, float scale) {
+                 int sq, int sk, float scale, int bq, int bk) {
+  static_assert(kPass == kSingle || !kMasked, "two-pass takes no kv_start");
+  static_assert(kPass != kSingle || !kRowBounds, "row bounds are two-pass");
+  static_assert(kPass != kDiag || kCausal, "pass B is causal");
+  // Pass A with CTA-uniform, tile-aligned boundaries touches no masked
+  // key: no mask code, no sentinel test.
+  constexpr bool kNoMask = kPass == kFull && !kRowBounds;
   __shared__ __align__(16) uint16_t ks[kBK][D + kPad];
   __shared__ __align__(16) uint16_t vs[kBK][D + kPad];
 
@@ -152,32 +186,49 @@ flash_fwd_kernel(const uint16_t* __restrict__ q,
   const uint16_t* kh = k + static_cast<size_t>(bh) * sk * D;
   const uint16_t* vh = v + static_cast<size_t>(bh) * sk * D;
 
-  // Stage this CTA's query tile through the K buffer and keep each
-  // warp's 16 rows as mma A fragments for the whole key loop.
-  load_tile_async<D>(ks, qh, q0, sq);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + t * 2;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(&ks[wr + g][c]);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(&ks[wr + g + 8][c]);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(&ks[wr + g][c + 8]);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(&ks[wr + g + 8][c + 8]);
-  }
-  __syncthreads();
-
   const int start = kMasked ? kv_start[bh] : 0;
   // Live key tiles: none wholly before the first valid key, none wholly
   // above the diagonal of this query tile.
-  const int kt_begin = kMasked ? max(start, 0) / kBK : 0;
+  int kt_begin = kMasked ? max(start, 0) / kBK : 0;
   int kt_end = (sk + kBK - 1) / kBK;
   if (kCausal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBK + 1);
+  if constexpr (kPass == kFull) {
+    // Keys before the largest boundary of the tile's rows.
+    const int last = min(q0 + kBQ, sq) - 1;
+    kt_end = (coarse_boundary(last, bq, bk) + kBK - 1) / kBK;
+  } else if constexpr (kPass == kDiag) {
+    kt_begin = coarse_boundary(q0, bq, bk) / kBK;
+  }
+
+  // Stage this CTA's query tile through the K buffer and keep each
+  // warp's 16 rows as mma A fragments for the whole key loop (a CTA with
+  // no live key tile, as pass A's first rows, needs none).
+  uint32_t qf[D / 16][4];
+  if (kt_begin < kt_end) {
+    load_tile_async<D>(ks, qh, q0, sq);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 + t * 2;
+      qf[kk][0] = *reinterpret_cast<const uint32_t*>(&ks[wr + g][c]);
+      qf[kk][1] = *reinterpret_cast<const uint32_t*>(&ks[wr + g + 8][c]);
+      qf[kk][2] = *reinterpret_cast<const uint32_t*>(&ks[wr + g][c + 8]);
+      qf[kk][3] = *reinterpret_cast<const uint32_t*>(&ks[wr + g + 8][c + 8]);
+    }
+    __syncthreads();
+  }
 
   const int row_a = q0 + wr + g;  // this lane's two query rows
   const int row_b = row_a + 8;
+  // Two-pass, rows of unequal boundaries in one tile: each row's own
+  // (rows past the end take the last row's; they are not written).
+  int bnd_a = 0, bnd_b = 0;
+  if constexpr (kRowBounds) {
+    bnd_a = coarse_boundary(min(row_a, sq - 1), bq, bk);
+    bnd_b = coarse_boundary(min(row_b, sq - 1), bq, bk);
+  }
   float m_a = kNegInf, m_b = kNegInf;
   float l_a = 0.f, l_b = 0.f;  // lane-partial sums, reduced at the end
   float acc[D / 8][4];
@@ -228,12 +279,22 @@ flash_fwd_kernel(const uint16_t* __restrict__ q,
     for (int nt = 0; nt < kBK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int kj = k0 + nt * 8 + t * 2 + e;
-        const bool dead = kj >= sk || (kMasked && kj < start);
         float sa = s[nt][e] * scale;
         float sb = s[nt][2 + e] * scale;
-        if (dead || (kCausal && kj > row_a)) sa = kNegInf;
-        if (dead || (kCausal && kj > row_b)) sb = kNegInf;
+        if constexpr (!kNoMask) {
+          const int kj = k0 + nt * 8 + t * 2 + e;
+          const bool dead = kj >= sk || (kMasked && kj < start);
+          bool dead_a = dead || (kCausal && kj > row_a);
+          bool dead_b = dead || (kCausal && kj > row_b);
+          if constexpr (kRowBounds) {
+            // Pass A: keys at or past the row's boundary are pass B's;
+            // pass B: keys before it are pass A's.
+            dead_a = dead_a || (kPass == kFull ? kj >= bnd_a : kj < bnd_a);
+            dead_b = dead_b || (kPass == kFull ? kj >= bnd_b : kj < bnd_b);
+          }
+          if (dead_a) sa = kNegInf;
+          if (dead_b) sb = kNegInf;
+        }
         s[nt][e] = sa;
         s[nt][2 + e] = sb;
         mx_a = fmaxf(mx_a, sa);
@@ -251,8 +312,10 @@ flash_fwd_kernel(const uint16_t* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float sa = s[nt][e], sb = s[nt][2 + e];
-        const float pa = sa > kNegInf / 2 ? __expf(sa - mn_a) : 0.f;
-        const float pb = sb > kNegInf / 2 ? __expf(sb - mn_b) : 0.f;
+        const float pa =
+            kNoMask || sa > kNegInf / 2 ? __expf(sa - mn_a) : 0.f;
+        const float pb =
+            kNoMask || sb > kNegInf / 2 ? __expf(sb - mn_b) : 0.f;
         s[nt][e] = pa;
         s[nt][2 + e] = pb;
         ps_a += pa;
@@ -331,16 +394,42 @@ flash_fwd_kernel(const uint16_t* __restrict__ q,
   }
 }
 
-template <int D, bool kCausal, bool kMasked>
+template <int D, bool kCausal, bool kMasked, int kPass = kSingle,
+          bool kRowBounds = false>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int32_t* kv_start, void* o, float* lse, int bh,
-                   int sq, int sk, float scale, cudaStream_t stream) {
+                   int sq, int sk, float scale, cudaStream_t stream,
+                   int bq = 0, int bk = 0) {
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  flash_fwd_kernel<D, kCausal, kMasked><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), kv_start, static_cast<uint16_t*>(o),
-      lse, sq, sk, scale);
+  flash_fwd_kernel<D, kCausal, kMasked, kPass, kRowBounds>
+      <<<grid, kThreads, 0, stream>>>(
+          static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+          static_cast<const uint16_t*>(v), kv_start,
+          static_cast<uint16_t*>(o), lse, sq, sk, scale, bq, bk);
   return cudaGetLastError();
+}
+
+// One pass of the two-pass forward: kFull without a causal mask, kDiag
+// with it; per-row bounds unless every 64-row tile has one 64-aligned
+// boundary (bq and bk both multiples of the tiles).
+template <int D>
+cudaError_t dispatch_pass(const void* q, const void* k, const void* v,
+                          void* o, float* lse, int bh, int s, int pass,
+                          int bq, int bk, float scale, cudaStream_t stream) {
+  const bool row_bounds = bq % kBQ != 0 || bk % kBK != 0;
+  if (pass == kFull) {
+    return row_bounds
+        ? launch<D, false, false, kFull, true>(q, k, v, nullptr, o, lse, bh,
+                                               s, s, scale, stream, bq, bk)
+        : launch<D, false, false, kFull, false>(q, k, v, nullptr, o, lse,
+                                                bh, s, s, scale, stream, bq,
+                                                bk);
+  }
+  return row_bounds
+      ? launch<D, true, false, kDiag, true>(q, k, v, nullptr, o, lse, bh, s,
+                                            s, scale, stream, bq, bk)
+      : launch<D, true, false, kDiag, false>(q, k, v, nullptr, o, lse, bh, s,
+                                             s, scale, stream, bq, bk);
 }
 
 template <int D>
@@ -379,6 +468,32 @@ int kft_flash_fwd_bf16(const void* q, const void* k, const void* v,
     case 128:
       return dispatch<128>(q, k, v, kv_start, o, lse, bh, sq, sk, causal,
                            scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// One pass of the two-pass causal forward over q, k, v [bh, s, d]
+// contiguous bf16: pass 1 (keys before each row's coarse boundary) or
+// pass 2 (keys from it up to the row), for the fitted TPU blocks bq, bk
+// (each dividing s); o [bh, s, d] bf16, lse [bh, s] f32.  Returns a
+// cudaError_t; cudaErrorInvalidValue for another pass, a block that is
+// not positive, or a head_dim the kernel has no instance of.
+int kft_flash_fwd_pass_bf16(const void* q, const void* k, const void* v,
+                            void* o, float* lse, int bh, int s, int d,
+                            int pass, int bq, int bk, float scale,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((pass != kFull && pass != kDiag) || bq <= 0 || bk <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  switch (d) {
+    case 64:
+      return dispatch_pass<64>(q, k, v, o, lse, bh, s, pass, bq, bk, scale,
+                               st);
+    case 128:
+      return dispatch_pass<128>(q, k, v, o, lse, bh, s, pass, bq, bk, scale,
+                                st);
     default:
       return cudaErrorInvalidValue;
   }

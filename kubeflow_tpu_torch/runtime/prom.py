@@ -1,6 +1,9 @@
 """Minimal metrics registry (counters and gauges): the part of the JAX
-package's kubeflow_tpu/runtime/prom.py that the training supervisor sets,
-copied (host-only; the port imports nothing of the JAX package).  The
+package's kubeflow_tpu/runtime/prom.py that the training side sets,
+copied (host-only; the port imports nothing of the JAX package): the
+supervisor's ``kft_train_*`` and the checkpoint manager's
+``kft_checkpoint_saves_total``, ``kft_checkpoint_failures_total`` and
+``kft_checkpoint_verify_failures_total`` (runtime/checkpoint.py).  The
 Prometheus exposition and the /metrics server come with the serving
 surface (ROADMAP queue 1, item 3).
 

@@ -1,17 +1,19 @@
 """Training supervisor: bounded restart-with-backoff around Trainer.fit.
 
 A copy of the JAX package's kubeflow_tpu/runtime/supervisor.py (host-only;
-the port imports nothing of the JAX package), with the two exception types
-it catches copied beside it: ``DataError`` (the JAX package's
-data/loader.py) and ``CheckpointError`` (its runtime/checkpoint.py).
+the port imports nothing of the JAX package).  The exception types it
+restarts on come from their own modules: ``DataError`` from
+data/loader.py, ``CheckpointError`` from runtime/checkpoint.py.
 
   - ``run()`` calls ``Trainer.fit`` and, on a restartable fault
     (:data:`RESTARTABLE`: injected step faults, typed data-pipeline
     exhaustion, a failed async checkpoint save, a detected stall),
     restarts it — bounded by ``max_restarts``, with capped jittered
-    backoff on the policy clock.  The port's trainer has no checkpoint
-    manager yet (ROADMAP queue 1, item 6), so a restart starts again
-    from init, as the JAX supervisor does without one.
+    backoff on the policy clock.  Each attempt re-enters
+    ``CheckpointManager.restore_or_init`` (runtime/checkpoint.py), so
+    progress resumes from the newest VERIFIED step and the global step
+    stays monotone; a trainer without a checkpoint manager starts again
+    from init.
   - a heartbeat is stamped on ``faults.monotonic()`` at every fit call
     boundary (Trainer.fit's ``on_step``), and a step-time watchdog
     compares the CURRENT dispatch age against a rolling window of
@@ -35,22 +37,12 @@ import threading
 from collections import deque
 from typing import Any, Callable, Deque, Iterable, List, Optional, Tuple
 
+from kubeflow_tpu_torch.data.loader import DataError
+from kubeflow_tpu_torch.runtime.checkpoint import CheckpointError
 from kubeflow_tpu_torch.runtime.prom import REGISTRY
 from kubeflow_tpu_torch.testing import faults
 
 log = logging.getLogger(__name__)
-
-
-class DataError(RuntimeError):
-    """The input pipeline failed past its transient-retry budget: the
-    typed signal the supervisor converts into a supervised restart —
-    distinguishable from a programming error, which propagates raw."""
-
-
-class CheckpointError(RuntimeError):
-    """A background async checkpoint save failed; the supervisor restarts
-    from the last verified step instead of training on past a dead
-    checkpoint path."""
 
 
 class StallDetected(RuntimeError):
@@ -74,7 +66,9 @@ RESTARTABLE: Tuple[type, ...] = (
 class TrainSupervisor:
     """Crash-safe wrapper around one Trainer's ``fit``.
 
-    trainer: a :class:`~kubeflow_tpu_torch.runtime.train.Trainer`.
+    trainer: a :class:`~kubeflow_tpu_torch.runtime.train.Trainer` (with
+      a CheckpointManager attached if restarts are to resume rather than
+      recompute).
     max_restarts: restart budget across the whole ``run()`` call;
       exceeding it raises :class:`RestartBudgetExceeded` from the last
       fault.

@@ -3,22 +3,29 @@ device.  The port of kubeflow_tpu/runtime/train.py.
 
 The JAX ``Trainer`` jits one SPMD step over a mesh.  This one runs the
 same step eagerly on one explicit device: a mesh raises
-``NotPortedError`` (parallel training, ROADMAP queue 1, item 7), and so
-does a checkpoint manager (verified checkpoints, item 6).  What carries
-over unchanged:
+``NotPortedError`` (parallel training, ROADMAP queue 1, item 7).  What
+carries over unchanged:
 
   - the task contract: ``init_fn(generator) -> (model, mutable)`` and
     ``loss_fn(model, mutable, batch, rng) -> (loss, (metrics, mutable))``
     (models/transformer.py ``lm_task``);
   - the step: loss, gradients, optimizer update, step + 1, with ``loss``,
     ``grad_norm`` and the task's metrics kept as device tensors;
-  - the fit loop's dispatch discipline: no host sync except at log
-    boundaries, at most two calls in flight, the next batch staged while
-    the current step runs, ``on_step`` at each call boundary and the
-    ``train.step`` fault site before each dispatch.
+  - the fit loop's dispatch discipline: no host sync except at log and
+    checkpoint boundaries, at most two calls in flight, the next batch
+    staged while the current step runs, ``on_step`` at each call
+    boundary and the ``train.step`` fault site before each dispatch;
+  - verified checkpoints (runtime/checkpoint.py): ``fit`` resumes from
+    the newest verified step, skips the batches already trained (the
+    data's ``seek`` or a drain), saves every ``checkpoint_every`` steps
+    on call boundaries, and ends with a save of the last step and a
+    ``wait()``.
 
-The state is updated in place (parameters, gradients and optimizer
-moments), where the JAX step returns a new one into donated buffers.
+The optimizer gets the parameters and gradients by name
+(``named_parameters()`` order), which adafactor needs to stack the JAX
+model's layer leaves.  The state is updated in place (parameters,
+gradients and optimizer moments), where the JAX step returns a new one
+into donated buffers.
 """
 
 from __future__ import annotations
@@ -99,7 +106,8 @@ class Trainer:
     tx: Any
     device: DeviceLike = None
     mesh: Any = None
-    checkpoints: Any = None
+    checkpoints: Any = None  # runtime/checkpoint.py CheckpointManager
+    checkpoint_every: int = 1000
     metrics: MetricsLogger = dataclasses.field(default_factory=MetricsLogger)
     # Useful-FLOPs per example for MFU reporting (0 = skip MFU).
     flops_per_example: float = 0.0
@@ -110,9 +118,6 @@ class Trainer:
             raise NotPortedError(
                 "a mesh (parallel training) is not ported yet: ROADMAP "
                 "queue 1, item 7; the port trains on one device")
-        if self.checkpoints is not None:
-            raise NotPortedError(
-                "checkpoints are not ported yet: ROADMAP queue 1, item 6")
         self.device = resolve_device(self.device)
         self._multi_steps: Dict[int, Callable] = {}
         self._last_metrics: Dict[str, float] = {}
@@ -130,7 +135,7 @@ class Trainer:
         initialize the optimizer state."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params, mutable = self.init_fn(gen)
-        opt_state = self.tx.init(list(params.parameters()))
+        opt_state = self.tx.init(dict(params.named_parameters()))
         # The step's own stream (dropout, once ported), apart from init's.
         rng = torch.Generator(device=self.device).manual_seed(seed + 1)
         return TrainState(step=0, params=params, opt_state=opt_state,
@@ -140,17 +145,17 @@ class Trainer:
 
     def _step_body(self, state: TrainState, batch: Any
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        params = list(state.params.parameters())
-        for p in params:
+        params = dict(state.params.named_parameters())
+        for p in params.values():
             p.grad = None
         with torch.enable_grad():
             loss, (aux, new_mutable) = self.loss_fn(
                 state.params, state.mutable, batch, state.rng)
             loss.backward()
-        grads = [p.grad for p in params]
-        grad_norm = global_norm(grads)
+        grads = {name: p.grad for name, p in params.items()}
+        grad_norm = global_norm(list(grads.values()))
         self.tx.update(grads, state.opt_state, params)
-        for p in params:
+        for p in params.values():
             p.grad = None  # gradients live only inside the step
         state.step += 1
         state.mutable = new_mutable
@@ -211,7 +216,12 @@ class Trainer:
         steps_per_call: int = 1,
         on_step: Optional[Callable[[int], None]] = None,
     ) -> TrainState:
-        """Run the train loop with metrics.
+        """Run the train loop with metrics and periodic verified
+        checkpoints.  With a checkpoint manager attached, the run resumes
+        from its newest verified step (rerunning the same command is the
+        whole recovery contract), and batches already trained are not
+        replayed: the data's ``seek(start_step)`` where it has one, else
+        a drain.
 
         Dispatch discipline (as in the JAX trainer):
           - steps are enqueued asynchronously; the host never waits for
@@ -231,11 +241,21 @@ class Trainer:
         """
         if state is None:
             state = self.create_state()
-        if num_steps <= 0:
+        start_step = 0
+        if self.checkpoints is not None:
+            state, start_step = self.checkpoints.restore_or_init(state)
+        if start_step >= num_steps:
             self._last_metrics = {}
             return state
         step_fn = self.compile_step()
         it = iter(data)
+        if start_step:
+            seek = getattr(data, "seek", None)
+            if callable(seek):
+                seek(start_step)
+            else:
+                for _ in range(start_step):
+                    next(it)
         final_metrics: Dict[str, Any] = {}
         k = max(1, int(steps_per_call))
         multi_fn = self.compile_multi_step(k) if k > 1 else None
@@ -244,7 +264,7 @@ class Trainer:
         timer.start()
         window_steps = 0
         inflight: Deque[_Done] = deque()
-        i = 0
+        i = start_step
         while i < num_steps:
             faults.fire("train.step")
             if multi_fn is not None and i + k <= num_steps:
@@ -285,8 +305,14 @@ class Trainer:
                     peak_flops_per_chip=self.peak_flops_per_chip or None,
                     loss=loss,
                 )
+            if (self.checkpoints is not None and i_next // self.checkpoint_every
+                    > i // self.checkpoint_every):
+                self.checkpoints.save(last, state)
             final_metrics = metrics
             i = i_next
+        if self.checkpoints is not None:
+            self.checkpoints.save(num_steps - 1, state)
+            self.checkpoints.wait()
         self._last_metrics = {
             key: float(v) for key, v in final_metrics.items()
             if torch.is_tensor(v) and v.dim() == 0

@@ -1,8 +1,10 @@
 """Deterministic fault-injection harness: a copy of the JAX package's
 kubeflow_tpu/testing/faults.py (host-only; the port imports nothing of
 the JAX package).  Of the hook sites listed below, the port plants
-``train.step`` (runtime/train.py ``Trainer.fit``) so far; the others come
-with the modules that hold them.
+``train.step`` (runtime/train.py ``Trainer.fit``), ``checkpoint.save`` and
+``checkpoint.restore`` (runtime/checkpoint.py) and ``data.next``
+(data/loader.py), where the JAX package fires them; the others come with
+the modules that hold them.
 
 The reference stack's failure paths were exercised only by real cluster
 weather (SURVEY.md §4); ours are driven deterministically: named hook
@@ -101,7 +103,7 @@ Hook sites planted in production code (grep for ``faults.fire``):
                       restarts from, skew = ages stall/backoff
                       deadlines)
     checkpoint.save   background checkpoint finalize, between the
-                      orbax commit and the manifest write (raise =
+                      step's commit and the manifest write (raise =
                       kill mid-save: step left unverified, error
                       surfaces at the next save()/wait())
     checkpoint.restore each CheckpointManager.restore attempt

@@ -7,7 +7,11 @@ kubeflow_tpu/tools/train_lm.py, with the same flags plus ``--device``.
         --n-layers 2 --seq-len 64 --vocab-size 256 --steps 2
 
 It trains on one device: CUDA unless ``--device cpu`` is given, and an
-error when there is no GPU.  Flags of features not ported yet raise
+error when there is no GPU.  ``--optimizer adafactor``, ``--data-files``
+(KFTR shards of {"tokens": [s]} examples, data/) and
+``--checkpoint-dir`` / ``--checkpoint-every`` (verified checkpoints,
+runtime/checkpoint.py; a rerun resumes from the newest verified step)
+are wired as in the JAX entry point.  The parallel flags raise
 ``NotPortedError`` naming their ROADMAP item.  ``--metrics-out`` writes
 the JAX entry point's JSON ({"config": ..., "history": [...]}).
 """
@@ -36,12 +40,6 @@ def _not_ported(args) -> str:
         (args.moe_experts > 0, "--moe-experts (MoE, ROADMAP queue 1 item 9)"),
         (args.attention == "ring",
          "--attention ring (parallel training, ROADMAP queue 1 item 7)"),
-        (args.optimizer == "adafactor",
-         "--optimizer adafactor (training step, ROADMAP queue 1 item 5)"),
-        (args.data_files,
-         "--data-files (the record data pipeline, ROADMAP queue 1 item 5)"),
-        (args.checkpoint_dir,
-         "--checkpoint-dir (verified checkpoints, ROADMAP queue 1 item 6)"),
     ]
     return next((what for hit, what in checks if hit), "")
 
@@ -88,13 +86,16 @@ def run(argv=None):
                     help="write the final metrics history as JSON "
                          "(loss-curve artifact)")
     ap.add_argument("--mesh", default="")
-    ap.add_argument("--data-files", nargs="*", default=[])
+    ap.add_argument("--data-files", nargs="*", default=[],
+                    help="KFTR shards with {'tokens': [s]} examples "
+                         "(synthetic stream if empty)")
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--checkpoint-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--max-restarts", type=int, default=3,
-                    help="in-process supervised restarts (from init: "
-                         "the port has no checkpoints yet)")
+                    help="in-process supervised restarts from the last "
+                         "verified checkpoint (0 = fail on the first "
+                         "fault)")
     ap.add_argument("--stall-factor", type=float, default=10.0,
                     help="flag a stall when the current dispatch age "
                          "exceeds this multiple of the rolling median "
@@ -129,6 +130,7 @@ def run(argv=None):
         lm_task,
     )
     from kubeflow_tpu_torch.runtime import optim
+    from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
     from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
     from kubeflow_tpu_torch.runtime.supervisor import TrainSupervisor
     from kubeflow_tpu_torch.runtime.train import Trainer
@@ -157,22 +159,36 @@ def run(argv=None):
             end_value=args.learning_rate * 0.1)
     else:
         lr = args.learning_rate
+    tx = (optim.adafactor(lr) if args.optimizer == "adafactor"
+          else optim.adamw(lr))
     trainer = Trainer(
-        init_fn=init_fn, loss_fn=loss_fn, tx=optim.adamw(lr), device=device,
+        init_fn=init_fn, loss_fn=loss_fn, tx=tx, device=device,
+        checkpoints=(CheckpointManager(args.checkpoint_dir)
+                     if args.checkpoint_dir else None),
+        checkpoint_every=args.checkpoint_every,
         metrics=MetricsLogger(static={"job": env.job_name,
                                       "process": env.process_id}),
         flops_per_example=cfg.flops_per_token() * args.seq_len,
         peak_flops_per_chip=peak,
     )
 
-    def data_factory():
-        # Fresh RNG per attempt: a supervised restart replays the SAME
-        # stream from the start, as it restarts the model from init.
-        rng = np.random.RandomState(env.process_id)
-        while True:
-            yield {"tokens": rng.randint(
-                0, args.vocab_size,
-                size=(batch, args.seq_len)).astype(np.int32)}
+    if args.data_files:
+        from kubeflow_tpu_torch.data import RecordDataset, tensor_batches
+
+        def data_factory():
+            ds = RecordDataset(
+                args.data_files, shuffle_buffer=1024, repeat=-1,
+            ).shard(env.process_id, max(env.num_processes, 1))
+            return tensor_batches(ds, batch)
+    else:
+        def data_factory():
+            # Fresh RNG per attempt: a supervised restart replays the
+            # SAME stream, and fit's resume drain re-aligns it.
+            rng = np.random.RandomState(env.process_id)
+            while True:
+                yield {"tokens": rng.randint(
+                    0, args.vocab_size,
+                    size=(batch, args.seq_len)).astype(np.int32)}
 
     supervisor = TrainSupervisor(
         trainer, max_restarts=args.max_restarts,

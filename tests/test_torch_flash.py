@@ -108,7 +108,18 @@ def test_kv_valid_start_under_autograd_raises():
         flash.flash_attention(q, k, v, kv_valid_start=torch.tensor([3]))
 
 
-def test_block_diag_not_ported_raises():
-    q = torch.randn(1, 16, 2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash.flash_attention(q, q, q, block_diag=8)
+def test_block_diag_selects_the_two_pass_forward():
+    """flash_attention with block_diag on causal self-attention longer
+    than block_k runs the two passes (tests/test_torch_flash_two_pass.py
+    holds them to the JAX package); the result is the single pass's."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(7, 4, 64, 64, 8))
+    q, k, v = (x.reshape(1, 4, 64, 8).transpose(1, 2) for x in (q, k, v))
+    two = flash.flash_attention(q, k, v, block_q=16, block_k=32,
+                                block_diag=8)
+    want = flash.flash_attention(q, k, v)
+    torch.testing.assert_close(two, want, **TOL)
+    o, _ = flash.flash_fwd_two_pass(flash._to_bhsd(q), flash._to_bhsd(k),
+                                    flash._to_bhsd(v), block_q=16,
+                                    block_k=32, block_diag=8)
+    torch.testing.assert_close(two, flash._from_bhsd(o, 1, 4), atol=0,
+                               rtol=0)

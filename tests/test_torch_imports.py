@@ -2,6 +2,7 @@
 import anywhere in it or in chip_smoke.py, and no silent CPU run."""
 
 import ast
+import importlib
 from pathlib import Path
 
 import pytest
@@ -45,6 +46,21 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imports(f) if _forbidden(m)]
     assert not bad, bad
+
+
+def test_every_port_module_imports():
+    """Each module of the port imports (nothing is built at import: the
+    CUDA kernels and the data core build at first use), the modules of
+    the training slice's record pipeline and checkpoints among them."""
+    root = REPO / "kubeflow_tpu_torch"
+    names = sorted(
+        ".".join(f.relative_to(REPO).with_suffix("").parts).removesuffix(
+            ".__init__") for f in root.rglob("*.py"))
+    for name in names:
+        importlib.import_module(name)
+    assert {"kubeflow_tpu_torch.data", "kubeflow_tpu_torch.data.loader",
+            "kubeflow_tpu_torch.runtime.checkpoint",
+            "kubeflow_tpu_torch.runtime.optim"} <= set(names)
 
 
 def test_forbidden_prefix_does_not_match_the_port():

@@ -107,10 +107,53 @@ def test_narrow_params_narrows_exactly_the_contractions():
 
 @pytest.mark.parametrize("option", [
     dict(moe_experts=2), dict(pipeline_microbatches=2),
-    dict(attention="ring"), dict(attention="flash", flash_block_diag=8),
-    dict(dropout_rate=0.1),
+    dict(attention="ring"), dict(dropout_rate=0.1),
 ])
 def test_unsupported_options_raise(option):
     cfg = TransformerConfig(dtype=torch.float32, **dict(SMALL, **option))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transformer(cfg, device="meta")
+
+
+def test_two_pass_model_matches_jax():
+    """A Transformer with flash_block_diag (the two-pass forward, here its
+    plain versions) against the JAX model: logits, lm_task loss and every
+    gradient leaf within atol=rtol=1e-4 (float32; the JAX model's flash
+    call takes its dot path on the CPU)."""
+    from kubeflow_tpu.models.transformer import lm_task as jax_lm_task
+    from kubeflow_tpu_torch.models.transformer import lm_task
+    from kubeflow_tpu_torch.ops import flash
+
+    overrides = dict(SMALL, attention="flash", flash_block_q=16,
+                     flash_block_k=16, flash_block_diag=8)
+    cfg, tree = _jax_params(overrides)
+    tokens = np.random.default_rng(2).integers(0, 256, (2, 48)).astype(
+        np.int32)
+    want = np.asarray(JaxTransformer(cfg).apply({"params": tree}, tokens))
+    _, jloss_fn = jax_lm_task(cfg)
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: jloss_fn(p, {}, {"tokens": jnp.asarray(tokens)},
+                           jax.random.key(1)), has_aux=True)(tree)
+
+    model = _port_model(overrides, tree)
+    taken = []
+    two_pass = flash.flash_fwd_two_pass
+    flash.flash_fwd_two_pass = lambda *a, **kw: taken.append(1) or two_pass(
+        *a, **kw)
+    try:
+        with torch.no_grad():
+            got = model(torch.from_numpy(tokens).long())
+        _, loss_fn = lm_task(model.cfg, device="cpu")
+        loss, _ = loss_fn(model, {}, {"tokens": torch.from_numpy(tokens)},
+                          None)
+        loss.backward()
+    finally:
+        flash.flash_fwd_two_pass = two_pass
+    assert len(taken) == 2 * SMALL["n_layers"]
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(loss.item(), float(jloss), atol=1e-4,
+                               rtol=1e-4)
+    grads = _flat(params_to_jax(model, grads=True))
+    for path, arr in _flat(jax.tree.map(np.asarray, jgrads)).items():
+        np.testing.assert_allclose(grads[path], arr, atol=1e-4, rtol=1e-4,
+                                   err_msg=str(path))

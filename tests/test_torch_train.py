@@ -35,9 +35,11 @@ from kubeflow_tpu.models.transformer import (
 from kubeflow_tpu.models.transformer import lm_task as jax_lm_task
 from kubeflow_tpu.parallel import MeshSpec
 from kubeflow_tpu.runtime.metrics import MetricsLogger as JaxMetricsLogger
+from kubeflow_tpu.runtime import checkpoint as jax_checkpoint
 from kubeflow_tpu.runtime.train import Trainer as JaxTrainer
 from kubeflow_tpu.tools import train_lm as jax_train_lm
-from kubeflow_tpu_torch import NotPortedError
+from kubeflow_tpu_torch import NotPortedError, data
+from kubeflow_tpu_torch.data import write_example_shards
 from kubeflow_tpu_torch.models.convert import (
     load_params,
     params_from_jax,
@@ -417,12 +419,74 @@ def test_train_lm_run_returns_the_trainer_and_its_last_metrics():
 
 @pytest.mark.parametrize("flag", [
     ["--mesh", "data=1"], ["--pipeline-microbatches", "2"],
-    ["--moe-experts", "4"], ["--attention", "ring"],
-    ["--optimizer", "adafactor"], ["--data-files", "shard-0"],
-    ["--checkpoint-dir", "/nonexistent/ckpt"]])
+    ["--moe-experts", "4"], ["--attention", "ring"]])
 def test_train_lm_not_ported_flags_raise(flag):
     with pytest.raises(NotPortedError, match="ROADMAP queue 1 item"):
         train_lm.main(TINY_ARGS + ["--device", "cpu"] + flag)
+
+
+def _shards(tmp_path, n=24):
+    rng = np.random.RandomState(3)
+    return [str(p) for p in write_example_shards(
+        ({"tokens": rng.randint(0, 64, size=(16,)).astype(np.int32)}
+         for _ in range(n)), tmp_path / "data", examples_per_shard=8)]
+
+
+def test_train_lm_adafactor_data_files_and_checkpoints(tmp_path):
+    """The entry point with --optimizer adafactor, --data-files and
+    --checkpoint-dir: checkpoints every 2 steps that the JAX package's
+    verifier accepts, a rerun to more steps resumes after the last
+    saved step, and one to as many steps trains nothing."""
+    ckpt = tmp_path / "ckpt"
+    flags = TINY_ARGS + ["--device", "cpu", "--optimizer", "adafactor",
+                         "--data-files", *_shards(tmp_path),
+                         "--checkpoint-dir", str(ckpt),
+                         "--checkpoint-every", "2"]
+    first = train_lm.run(flags + ["--steps", "4"])
+    assert isinstance(first.tx, optim.Adafactor)
+    assert [r["step"] for r in first.metrics.history] == [0, 1, 2, 3]
+    assert first.checkpoints.all_steps() == [1, 3]
+    for step in (1, 3):
+        assert jax_checkpoint.verify_step(ckpt, step) == (True, "")
+    second = train_lm.run(flags + ["--steps", "6"])
+    assert [r["step"] for r in second.metrics.history] == [4, 5]
+    assert second.checkpoints.all_steps() == [1, 3, 5]
+    assert all(np.isfinite(r["loss"]) for r in second.metrics.history)
+    third = train_lm.run(flags + ["--steps", "6"])
+    assert third.metrics.history == []
+
+
+def test_train_lm_data_files_give_the_jax_entry_points_batches(
+        tmp_path, monkeypatch):
+    """The --data-files factory is the JAX entry point's:
+    RecordDataset(files, shuffle_buffer=1024, repeat=-1).shard(0, 1),
+    then tensor_batches(ds, batch).  With one reader thread the port's
+    yields the JAX package's arrays; the default four threads read files
+    and repeated epochs in no fixed order, in both packages."""
+    from kubeflow_tpu.data import RecordDataset as JaxRecordDataset
+    from kubeflow_tpu.data import tensor_batches as jax_tensor_batches
+
+    files = _shards(tmp_path, n=40)
+    seen = []
+    original = data.tensor_batches
+
+    def spy(ds, batch, **kw):
+        seen.append((ds.paths, ds.shuffle_buffer, ds.repeat, ds.seed,
+                     batch))
+        return original(ds, batch, **kw)
+
+    monkeypatch.setattr(data, "tensor_batches", spy)
+    train_lm.run(TINY_ARGS + ["--device", "cpu", "--data-files", *files,
+                              "--batch-size-per-device", "2"])
+    assert seen == [(files, 1024, -1, 0, 2)]
+    ours = original(data.RecordDataset(
+        files, shuffle_buffer=1024, repeat=-1, num_threads=1).shard(0, 1),
+        2)
+    theirs = jax_tensor_batches(JaxRecordDataset(
+        files, shuffle_buffer=1024, repeat=-1, num_threads=1).shard(0, 1),
+        2)
+    for _, a, b in zip(range(30), ours, theirs):
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
 
 
 def test_train_lm_runs_on_cuda_unless_asked():
@@ -438,9 +502,6 @@ def test_trainer_and_bootstrap_refuse_what_is_not_ported():
     with pytest.raises(NotPortedError, match="item 7"):
         Trainer(init_fn=None, loss_fn=None, tx=None, device="cpu",
                 mesh=object())
-    with pytest.raises(NotPortedError, match="item 6"):
-        Trainer(init_fn=None, loss_fn=None, tx=None, device="cpu",
-                checkpoints=object())
     env = bootstrap.worker_env({"KFT_NUM_PROCESSES": "2",
                                 "KFT_PROCESS_ID": "1",
                                 "KFT_COORDINATOR_ADDRESS": "w-0:1234"})
