@@ -9,18 +9,23 @@ Phases, each fatal on failure (exit code 1, no result line):
      (one nvcc per source, started together) and time the build;
   2. kernels: each kernel against its plain PyTorch version on the card:
      the forward (causal / masked / non-causal, head_dim 64 and 128,
-     lengths that are not tile multiples, key starts that fully mask the
-     first tiles), the backward pair dq / dkv (the training shape, d 64
-     with unaligned lengths, non-causal sq != sk, rows whose lse is the
-     NEG_INF sentinel), flash_attention's autograd path (GQA), and the
+     lengths that are not tile multiples, below one 128-row tile and one
+     past it, key starts inside a tile and ones that fully mask the
+     first tiles, heads of distinct magnitudes at a length that ends
+     inside a tile, each head on its own), the backward pair dq / dkv
+     (the training shape, d 64 with unaligned lengths, non-causal
+     sq != sk, rows whose lse is the NEG_INF sentinel),
+     flash_attention's autograd path (GQA), and the
      two passes of the two-pass causal forward (pass A flash_fwd_full,
      pass B flash_fwd_diag) and their merge (the training split, d 64,
-     fitted blocks that are not multiples of the 64-row tile, a length
-     that is not a tile multiple, the pure band; a shape outside the
-     two-pass dispatch launches neither);
+     fitted blocks that are not multiples of 64 or of the 128-row tile,
+     a length that is not a tile multiple, the pure band; a shape
+     outside the two-pass dispatch launches neither);
   3. timing: each kernel at the shape its path gives it, beside its
-     plain version, its bound, and one PyTorch library call; the
-     two-pass forward beside the single-pass kernel on the same inputs;
+     plain version, its bound, and one PyTorch library call; every
+     forward row also with its TFLOP/s, its share of its bound and its
+     instance's registers and shared memory; the two-pass forward beside
+     the single-pass kernel on the same inputs;
   4. serve: export a seeded 188M LM (bench.py's configuration, random
      weights), start the port's REST server in this process with bucketed
      static batching, send concurrent mixed-length :predict requests and
@@ -227,6 +232,13 @@ def check_kernels(torch, flash, gen):
         ("noncausal_d128", 4, 333, 1500, 128, False, None),
         ("noncausal_masked_d64", 4, 333, 777, 64, False,
          [0, 64, 500, 900]),
+        # The kernel's 128-row query and 128-key tiles: below one tile,
+        # one past a tile, and key starts inside a tile.
+        ("causal_below_one_tile", 4, 100, 100, 128, True, None),
+        ("causal_one_past_a_tile", 4, 129, 129, 128, True, None),
+        ("noncausal_one_past_tiles_d64", 4, 129, 257, 64, False, None),
+        ("masked_start_inside_a_tile", 4, 300, 300, 128, True,
+         [129, 200, 255, 1]),
     ]
     results = []
     for name, bh, sq, sk, d, causal, starts in variants:
@@ -235,7 +247,33 @@ def check_kernels(torch, flash, gen):
         results.append(check_fwd(torch, flash, name, q, k, v, ks, causal,
                                  o, lse))
         del q, k, v, o, lse
+    check_cross_head(torch, flash, gen)
     return results
+
+
+def check_cross_head(torch, flash, gen):
+    """Phase 2: heads of distinct magnitudes (k and v scaled by the head's
+    index) at a length that ends inside a tile, each head held to the plain
+    version on its own: a tile that read the next head's rows instead of
+    the zeros the kernel's loads fill in past a head's end would show.
+    Fails on disagreement; its errors (of scaled data) stay out of the
+    kernels line."""
+    bh, s, d = 6, 200, 128
+    q, k, v, _ = make_inputs(torch, gen, bh, s, s, d, None)
+    mag = torch.arange(1, bh + 1, device="cuda",
+                       dtype=torch.float32)[:, None, None]
+    k = (k.float() * (1 + mag / 4)).bfloat16()
+    v = (v.float() * (1 + mag / 2)).bfloat16()
+    for causal in (True, False):
+        o, lse = flash.flash_fwd(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ro, rlse = flash.flash_fwd_reference(q.float(), k.float(),
+                                             v.float(), causal=causal)
+        for h in range(bh):
+            compare_out(torch, f"cross_head_causal{int(causal)}_h{h}", o[h],
+                        lse[h], ro[h], rlse[h],
+                        f"head {h} of bh={bh} s={s} d={d} causal={causal}, "
+                        f"k x {1 + (h + 1) / 4}, v x {1 + (h + 1) / 2}")
 
 
 def check_fwd(torch, flash, name, q, k, v, ks, causal, o, lse):
@@ -279,10 +317,10 @@ def check_two_pass_kernels(torch, flash, gen):
     """Phase 2, two-pass forward: pass A (flash_fwd_full) and pass B
     (flash_fwd_diag) each against its plain version, and their merge
     against the single pass's plain version, at the training shape and
-    split, d 64, fitted blocks that are not multiples of the 64-row tile
-    (per-row bounds), a length that is not a tile multiple and the pure
-    band (pass A not launched); then a shape that fails the two-pass
-    dispatch must launch neither pass."""
+    split, d 64, fitted blocks that are not multiples of 64 or of the
+    128-row tile (per-row bounds), a length that is not a tile multiple
+    and the pure band (pass A not launched); then a shape that fails the
+    two-pass dispatch must launch neither pass."""
     bq, bk, bd = TWO_PASS_BLOCKS
     variants = [
         # name, bh, s, d, block_q, block_k
@@ -292,6 +330,10 @@ def check_two_pass_kernels(torch, flash, gen):
         ("bq_bk32_s96", 8, 96, 64, 32, 32),
         ("bq_bk400_s1200", 8, 1200, 128, 400, 400),
         ("pure_band", 8, 1024, 128, bq, bk),
+        # Fitted blocks that are multiples of 64 but not of the kernel's
+        # 128-row or 128-key tile: per-row bounds.
+        ("bq_bk192_s768", 8, 768, 128, 192, 192),
+        ("bq64_bk128_s512_d64", 8, 512, 64, 64, 128),
     ]
     results = {"flash_fwd_full": [], "flash_fwd_diag": [], "merged": []}
     for name, bh, s, d, vq, vk in variants:
@@ -461,6 +503,32 @@ class plain_kernels:
          self.flash._flash_fwd_pass_cuda) = self.saved
 
 
+def instance_info(flash, d, causal, masked, pass_=0, bq=0, bk=0):
+    """What the forward instance launched for these arguments uses, as the
+    loaded kernel reports it: registers a thread at entry (ptxas's count)
+    and shared memory a CTA at launch."""
+    import ctypes
+
+    lib = flash._lib()
+    fn = lib.kft_flash_fwd_instance_bf16
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 2)()
+    err = fn(d, int(causal), int(masked), pass_, bq, bk, info)
+    if err != 0:
+        fail(f"instance query failed: {lib.kft_cuda_error_string(err)}")
+    return dict(zip(("registers", "smem_bytes"), list(info)))
+
+
+def fwd_stats(row, ops):
+    """TFLOP/s and share of its bound of a timed forward row, in place."""
+    row["tflops"] = ops / (row["ms"] * 1e-3) / 1e12
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return (f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} of its "
+            f"bound; instance {row['instance']['registers']} registers, "
+            f"{row['instance']['smem_bytes']} bytes shared memory")
+
+
 def bound(ops, nbytes):
     """(bound ms, what sets it, operations ms, bytes ms)."""
     t_ops = ops / PEAK_BF16_FLOPS * 1e3
@@ -521,9 +589,11 @@ def time_kernels(torch, flash, gen, checks):
             "library_ms": library_ms,
             "max_abs_err": max(c["max_abs_err_o"] for c in mine),
             "checks": mine,
+            "instance": instance_info(flash, d, True, ks is not None),
         }
-        log(f"time {name}: bh={bh} s={s} d={d} kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+        stats = fwd_stats(rows[name], ops)
+        log(f"time {name}: bh={bh} s={s} d={d} kernel {ms:.4f} ms ({stats})"
+            f", plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
             f"{t_bound:.4f} ms ({by}; operations {t_ops:.4f} ms for "
             f"{ops:.4g}, bytes {t_bytes:.4f} ms for {nbytes:.4g})")
         del q, k, v, ks
@@ -607,6 +677,9 @@ def time_train_kernels(torch, flash, gen, fwd_rows, bwd_checks):
         rows[name]["checks"] = bwd_checks
     log(f"time backward pair: dq + dkv {dq_ms + dkv_ms:.4f} ms against the "
         f"SDPA backward's {bwd_lib:.4f} ms")
+    rows["flash_fwd"]["instance"] = instance_info(flash, d, True, False)
+    log(f"time flash_fwd (training shape): "
+        f"{fwd_stats(rows['flash_fwd'], work['flash_fwd'][3])}")
     # The forward's row keeps the serving shape's numbers at its top level
     # (as the serving slice defined them); the training shape's stand in
     # its train_shape object.
@@ -614,7 +687,8 @@ def time_train_kernels(torch, flash, gen, fwd_rows, bwd_checks):
     fwd_rows["flash_fwd"]["train_shape"] = {
         key: train_fwd[key] for key in
         ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_bound_ms",
-         "bytes_bound_ms", "library_ms", "tflops")}
+         "bytes_bound_ms", "library_ms", "tflops", "bound_share",
+         "instance")}
     del q, k, v, g, o, lse, delta, q4, k4, v4, out4
     return rows
 
@@ -686,13 +760,16 @@ def time_two_pass(torch, flash, gen, checks):
                       "block_k": bk, "block_diag": bd},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bound,
             "bound_by": by, "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
-            "library_ms": lib_ms, "tflops": ops / (ms * 1e-3) / 1e12,
+            "library_ms": lib_ms,
             "max_abs_err": max(c["max_abs_err_o"] for c in checks[name]),
             "checks": checks[name],
+            "instance": instance_info(flash, d, True, False,
+                                      flash._PASSES[name], bq, bk),
         }
+        stats = fwd_stats(rows[name], ops)
         log(f"time {name} (training shape): bh={bh} s={s} d={d} block_q="
             f"{bq} block_k={bk}: kernel {ms:.4f} ms "
-            f"({rows[name]['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms,"
+            f"({stats}), plain {plain_ms:.4f} ms,"
             f" sdpa {lib_ms:.4f} ms, bound {t_bound:.4f} ms ({by}; "
             f"operations {t_ops:.4f} ms for {ops:.4g}, bytes {t_bytes:.4f} "
             f"ms for {nbytes:.4g})")

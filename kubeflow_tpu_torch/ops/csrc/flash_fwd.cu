@@ -8,26 +8,6 @@
 // where the score sits at the NEG_INF sentinel, and writes o = 0,
 // lse = NEG_INF for a row with no valid key.
 //
-// What bounds it: at the serving prefill shape (s = 2048, d = 128) a full
-// causal forward does 2*bh*s*s*d operations, which at the card's bf16
-// tensor-core rate take longer than moving q, k, v and o through device
-// memory once; a left-padded batch skips its pad rows and sits near the
-// balance point.  This design is simple and right first:
-//   - one CTA of 4 warps per (bh, 64-row query tile); each warp owns
-//     16 query rows, so every row's m and l live in one quad of lanes,
-//     and its Q fragments stay in registers for the whole key loop;
-//   - 64-key K and V tiles in shared memory, loaded with cp.async
-//     (16 bytes a thread, zero-filled past the sequence end) so that the
-//     V tile lands while S = Q K^T and the softmax run, and the next K
-//     tile while O += P V runs;
-//   - both products on mma.sync m16n8k16 (bf16 -> f32) with their B
-//     fragments from ldmatrix (transposed for V); P is taken straight
-//     from the S accumulators (their C layout is the A layout of the
-//     next product), f32 accumulators in registers.
-// TMA, wgmma, deeper pipelines and warp specialisation are later work.
-// The tiles are this kernel's own: the TPU block sizes
-// (cfg.flash_block_q / flash_block_k) are not used here.
-//
 // The same kernel, instanced by kPass, also replaces the two passes of the
 // TPU's two-pass causal forward (_flash_fwd_two_pass, sq == sk):
 //   - kFull <- _flash_fwd_full_kernel: row r attends keys
@@ -37,78 +17,272 @@
 //   - kDiag <- _flash_fwd_diag_kernel: row r attends keys
 //     [boundary(r), r] under the causal mask.
 // Their (o, lse) partials are merged in log space outside the kernel.
-// On the TPU the split saved the masked work of (512, 1024) blocks on the
-// diagonal; here the 64-key tiles already waste little there, so each
-// pass does about half the single pass's work, at the same tiles.  The
-// TPU's fine band tiles (block_diag) set nothing here.  When bq and bk
-// are multiples of the 64-row tile, every row of a CTA shares one
-// 64-aligned boundary, and pass A carries no mask code at all; otherwise
-// (kRowBounds) each row's bound is applied per element in the tiles it
-// cuts.
+// When bq and bk are multiples of the 128-row and 128-key tiles, every
+// row of a CTA shares one tile-aligned boundary and pass A carries no
+// mask code at all; otherwise (kRowBounds) each row's bound is applied
+// per element in the tiles it cuts.  The TPU's block sizes set nothing
+// else here: the tiles are this kernel's own.
+//
+// What bounds it on an H100: at the training shape (bh 64, s 2048, d 128,
+// causal) and at pass A of the training split, the two products' bf16
+// operations at 989 TFLOP/s take longer than reading q, k, v and writing
+// o once at 3.35 TB/s (0.070 and 0.035 ms against 0.040 and 0.025 ms);
+// pass B and the serving shapes (bh 16-32) sit near the balance point or
+// on the bytes side.  So the design is built to keep the tensor cores fed:
+//   - both products on wgmma: S = Q K^T with Q and K read from shared
+//     memory through matrix descriptors (both K-major, head_dim the
+//     reduction), O += P V with P taken from registers (the S
+//     accumulators rounded to bf16 in place: their layout is wgmma's A
+//     fragment) and V as an MN-major operand ([key][d], transposed);
+//   - one CTA per (bh, 128-row query tile): two consumer warpgroups of
+//     64 rows each, and one producer warpgroup whose single thread issues
+//     TMA loads (3-D tensor maps over [bh, s, d], so a box that runs past
+//     a head's end is zero-filled instead of reading the next head) of Q
+//     once and of 128-key K and V tiles into a two-stage ring with full
+//     and empty mbarriers; setmaxnreg moves registers from the producer
+//     (40) to the consumers (232).  Tiles are 128-byte swizzled rows of 64
+//     bf16, so d 128 takes two boxes (panels) per tile;
+//   - each consumer issues O += P V for tile j and S = Q K^T for tile
+//     j + 1 back to back and waits once, so the tensor cores see the two
+//     products together while the other warpgroup runs its softmax;
+//   - mask code only in the tiles that need it: a tile wholly below the
+//     diagonal, past the first valid key, inside the sequence and not cut
+//     by a row bound runs the unmasked softmax (no per-element test, no
+//     sentinel test); the masked one runs only on the diagonal, first-key,
+//     tail and boundary tiles;
+//   - the softmax works in base 2: scale * log2(e) folds into one FMA per
+//     score before exp2, and lse goes back to natural log at the end.
+// Every instance (single pass causal / non-causal / masked, kFull, kDiag,
+// with or without row bounds, d 64 and 128) is this one mainloop.  No
+// atomics: each CTA owns its rows, so results repeat bit for bit.
 //
 // Interface: plain C, launched on the caller's stream; returns the
-// cudaError_t of the launch (0 = launched).
+// cudaError_t of the launch (0 = launched).  The tensor maps are encoded
+// on the host per call (cuTensorMapEncodeTiled, fetched from the driver
+// through the runtime) and passed by value as __grid_constant__.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kBQ = 64;       // query rows per CTA
-constexpr int kBK = 64;       // keys per shared-memory tile
-constexpr int kWarps = 4;     // 16 query rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 pad per smem row: conflict-free ldmatrix
-constexpr float kNegInf = -FLT_MAX;  // finfo(float32).min, the sentinel
+// The tiling, measured against one consumer warpgroup, 64-key tiles and
+// a third stage on an H100 (PERF.md, "The tiling, measured").
+constexpr int kConsumers = 2;              // warpgroups of 64 rows
+constexpr int kBM = 64 * kConsumers;       // query rows per CTA
+constexpr int kBN = 128;                   // keys per K / V tile
+constexpr int kStages = 2;                 // K / V ring depth
+constexpr int kThreads = 128 * (kConsumers + 1);  // + producer warpgroup
+// setmaxnreg rebalances the entry allotment (65536 / 384 = 168 a thread).
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kPanel = 64;                 // bf16 per 128-byte swizzled row
+constexpr int kRowBytes = 128;
+constexpr float kNegInf = -FLT_MAX;        // finfo(float32).min, the sentinel
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Dynamic shared memory of one CTA, from a 1024-byte aligned base (the
+// 128-byte swizzle repeats every 8 rows): Q [D / 64 panels][kBM rows],
+// then kStages K tiles and kStages V tiles [D / 64][kBN], then the
+// mbarriers.
+template <int D>
+struct Smem {
+  static constexpr int kQBytes = kBM * D * 2;
+  static constexpr int kTileBytes = kBN * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;
+  // q_full; per stage k_full, k_empty, v_full, v_empty.
+  static constexpr int kBars = 1 + 4 * kStages;
+  static constexpr int kBytes = kBar + 8 * kBars + 1024;  // + align slack
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+      :: "r"(bar), "r"(bytes) : "memory");
 }
 
-// Four 8x8 b16 matrices; lane i gives the address of row i % 8 of
-// matrix i / 8, and register j receives this lane's pair of matrix j.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+      :: "r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 3-D map ({d, row, head} coordinates) into shared
+// memory, completing `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
 }
 
-// 16 bytes global -> shared; zero-filled when !valid (nothing is read).
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+      | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+      | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
+      | static_cast<uint64_t>(1) << 62;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// K-major operand (rows of 64 bf16, 8-row swizzle atoms of 1024 bytes):
+// the leading offset is unused, the stride offset steps 8 rows.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return make_desc(addr, 16, 8 * kRowBytes);
+}
+
+// MN-major operand ([k][n], n contiguous): the leading offset steps to the
+// next 64-wide panel of n, the stride offset 8 rows of k.
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr,
+                                                  uint32_t panel_bytes) {
+  return make_desc(addr, panel_bytes, 8 * kRowBytes);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving register reads or writes across a
+// wgmma fence or wait (the hardware writes them asynchronously).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128]; A and B K-major in shared
+// memory, 128-byte swizzle; D is overwritten when !accumulate.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64]; A from registers, B MN-major in
+// shared memory (transposed), 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128]; A from registers, B MN-major in
+// shared memory (transposed), 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats -> packed bf16x2, the lower column in the low half.
@@ -127,25 +301,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Start copying rows [row0, row0 + 64) of a [rows, D] bf16 matrix into
-// smem; rows at or past `rows` become zero, so masked keys multiply
-// finite values.
-template <int D>
-__device__ __forceinline__ void load_tile_async(uint16_t (*dst)[D + kPad],
-                                                const uint16_t* __restrict__ src,
-                                                int row0, int rows) {
-  constexpr int kVec = 8;  // bf16 per 16-byte copy
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < kBK * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    const bool valid = row0 + r < rows;
-    cp_async_16(&dst[r][c],
-                src + static_cast<size_t>(valid ? row0 + r : 0) * D + c,
-                valid);
-  }
-}
-
 // Which keys a launch attends (see the header): all of them (the single
 // pass), or one of the two passes of the two-pass causal forward.
 enum Pass : int { kSingle = 0, kFull = 1, kDiag = 2 };
@@ -156,321 +311,505 @@ __device__ __forceinline__ int coarse_boundary(int r, int bq, int bk) {
   return (r / bq) * bq / bk * bk;
 }
 
+// What the mask of one thread's two query rows needs.
+struct KeyMask {
+  int sk, start;        // keys at or past sk, or before start, are dead
+  int row_a, row_b;     // this thread's rows (accumulator rows g, g + 8)
+  int bnd_a, bnd_b;     // their coarse boundaries (kRowBounds)
+};
+
+template <bool kCausal, bool kMasked, int kPass, bool kRowBounds>
+__device__ __forceinline__ bool dead_key(const KeyMask& km, int kj, int row,
+                                         int bnd) {
+  bool dead = kj >= km.sk;
+  if (kMasked) dead = dead || kj < km.start;
+  if (kCausal) dead = dead || kj > row;
+  // Pass A: keys at or past the row's boundary are pass B's; pass B:
+  // keys before it are pass A's.
+  if (kRowBounds) dead = dead || (kPass == kFull ? kj >= bnd : kj < bnd);
+  return dead;
+}
+
+// Running max (of the raw scores) and lane-partial sum of the two rows.
+struct RowState {
+  float m_a, m_b, l_a, l_b;
+};
+
+// One key tile's online softmax on the S accumulators of a thread
+// (s[4 j + c] is row a, key 8 j + 2 t + c; s[4 j + 2 + c] row b): mask
+// (kMask only), new row maxima, p = exp2(s * scale log2(e) - m scale
+// log2(e)) in place of s, and the rescale of l and of the O accumulators.
+// Without kMask every score is finite and no sentinel test is needed.
+template <int D, bool kCausal, bool kMasked, int kPass, bool kRowBounds,
+          bool kMask>
+__device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2],
+                                             float (&acc)[D / 2],
+                                             RowState& rs, const KeyMask& km,
+                                             int k0, int t, float sl2) {
+  float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if constexpr (kMask) {
+        const int kj = k0 + 8 * j + 2 * t + c;
+        if (dead_key<kCausal, kMasked, kPass, kRowBounds>(km, kj, km.row_a,
+                                                          km.bnd_a)) {
+          s[4 * j + c] = kNegInf;
+        }
+        if (dead_key<kCausal, kMasked, kPass, kRowBounds>(km, kj, km.row_b,
+                                                          km.bnd_b)) {
+          s[4 * j + 2 + c] = kNegInf;
+        }
+      }
+      mx_a = fmaxf(mx_a, s[4 * j + c]);
+      mx_b = fmaxf(mx_b, s[4 * j + 2 + c]);
+    }
+  }
+  const float mn_a = fmaxf(rs.m_a, quad_max(mx_a));
+  const float mn_b = fmaxf(rs.m_b, quad_max(mx_b));
+  const float ms_a = mn_a * sl2, ms_b = mn_b * sl2;
+  float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float pa = fast_exp2(fmaf(s[4 * j + c], sl2, -ms_a));
+      float pb = fast_exp2(fmaf(s[4 * j + 2 + c], sl2, -ms_b));
+      if constexpr (kMask) {
+        // A row whose keys are all masked so far keeps m at the sentinel,
+        // where exp2 would give 1 on masked entries: p is zeroed wherever
+        // the score is the sentinel.
+        if (!(s[4 * j + c] > kNegInf / 2)) pa = 0.f;
+        if (!(s[4 * j + 2 + c] > kNegInf / 2)) pb = 0.f;
+      }
+      s[4 * j + c] = pa;
+      s[4 * j + 2 + c] = pb;
+      ps_a += pa;
+      ps_b += pb;
+    }
+  }
+  const float alpha_a = fast_exp2((rs.m_a - mn_a) * sl2);
+  const float alpha_b = fast_exp2((rs.m_b - mn_b) * sl2);
+  rs.l_a = alpha_a * rs.l_a + ps_a;
+  rs.l_b = alpha_b * rs.l_b + ps_b;
+  rs.m_a = mn_a;
+  rs.m_b = mn_b;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[4 * j] *= alpha_a;
+    acc[4 * j + 1] *= alpha_a;
+    acc[4 * j + 2] *= alpha_b;
+    acc[4 * j + 3] *= alpha_b;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_qk(float (&s)[kBN / 2], uint32_t q,
+                                         uint32_t k) {
+  // Head_dim in steps of 16 (32 bytes) within a 64-wide panel, then the
+  // next panel.
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    const uint64_t dq = desc_k_major(q + (kk / 4) * kBM * kRowBytes + col);
+    const uint64_t dk = desc_k_major(k + (kk / 4) * kBN * kRowBytes + col);
+    wgmma_ss_n128(s, dq, dk, kk > 0);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
+                                         const uint32_t (&p)[kBN / 16][4],
+                                         uint32_t v) {
+  // Keys in steps of 16 rows; all of head_dim (D / 64 panels) at once.
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const uint64_t desc = desc_mn_major(v + kk * 16 * kRowBytes,
+                                        kBN * kRowBytes);
+    if constexpr (D == 128) {
+      wgmma_rs_n128(acc, p[kk], desc);
+    } else {
+      wgmma_rs_n64(acc, p[kk], desc);
+    }
+  }
+}
+
 template <int D, bool kCausal, bool kMasked, int kPass, bool kRowBounds>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const uint16_t* __restrict__ q,
-                 const uint16_t* __restrict__ k,
-                 const uint16_t* __restrict__ v,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(__grid_constant__ const CUtensorMap tm_q,
+                 __grid_constant__ const CUtensorMap tm_k,
+                 __grid_constant__ const CUtensorMap tm_v,
                  const int32_t* __restrict__ kv_start,
                  uint16_t* __restrict__ o, float* __restrict__ lse,
                  int sq, int sk, float scale, int bq, int bk) {
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
   static_assert(kPass == kSingle || !kMasked, "two-pass takes no kv_start");
   static_assert(kPass != kSingle || !kRowBounds, "row bounds are two-pass");
   static_assert(kPass != kDiag || kCausal, "pass B is causal");
   // Pass A with CTA-uniform, tile-aligned boundaries touches no masked
   // key: no mask code, no sentinel test.
   constexpr bool kNoMask = kPass == kFull && !kRowBounds;
-  __shared__ __align__(16) uint16_t ks[kBK][D + kPad];
-  __shared__ __align__(16) uint16_t vs[kBK][D + kPad];
+  using L = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_full = base + L::kBar;
+  auto k_full = [&](int st) { return q_full + 8 * (1 + st); };
+  auto k_empty = [&](int st) { return q_full + 8 * (1 + kStages + st); };
+  auto v_full = [&](int st) { return q_full + 8 * (1 + 2 * kStages + st); };
+  auto v_empty = [&](int st) { return q_full + 8 * (1 + 3 * kStages + st); };
 
   const int bh = blockIdx.y;
   // Heaviest causal tiles (last query rows) start first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int wr = warp * 16;
-
-  const uint16_t* qh = q + static_cast<size_t>(bh) * sq * D;
-  const uint16_t* kh = k + static_cast<size_t>(bh) * sk * D;
-  const uint16_t* vh = v + static_cast<size_t>(bh) * sk * D;
-
-  const int start = kMasked ? kv_start[bh] : 0;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;
+  const int start = kMasked ? max(kv_start[bh], 0) : 0;
   // Live key tiles: none wholly before the first valid key, none wholly
-  // above the diagonal of this query tile.
-  int kt_begin = kMasked ? max(start, 0) / kBK : 0;
-  int kt_end = (sk + kBK - 1) / kBK;
-  if (kCausal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBK + 1);
+  // above the diagonal of this query tile; the passes' own ranges.
+  const int last = min(q0 + kBM, sq) - 1;
+  int kt_begin = start / kBN;
+  int kt_end = (sk + kBN - 1) / kBN;
+  if (kCausal) kt_end = min(kt_end, last / kBN + 1);
   if constexpr (kPass == kFull) {
-    // Keys before the largest boundary of the tile's rows.
-    const int last = min(q0 + kBQ, sq) - 1;
-    kt_end = (coarse_boundary(last, bq, bk) + kBK - 1) / kBK;
+    kt_end = (coarse_boundary(last, bq, bk) + kBN - 1) / kBN;
   } else if constexpr (kPass == kDiag) {
-    kt_begin = coarse_boundary(q0, bq, bk) / kBK;
+    kt_begin = coarse_boundary(q0, bq, bk) / kBN;
   }
+  const int n_tiles = max(kt_end - kt_begin, 0);
 
-  // Stage this CTA's query tile through the K buffer and keep each
-  // warp's 16 rows as mma A fragments for the whole key loop (a CTA with
-  // no live key tile, as pass A's first rows, needs none).
-  uint32_t qf[D / 16][4];
-  if (kt_begin < kt_end) {
-    load_tile_async<D>(ks, qh, q0, sq);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + t * 2;
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(&ks[wr + g][c]);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(&ks[wr + g + 8][c]);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(&ks[wr + g][c + 8]);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(&ks[wr + g + 8][c + 8]);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(k_empty(st), kConsumers * 128);
+      mbar_init(v_full(st), 1);
+      mbar_init(v_empty(st), kConsumers * 128);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const int row_a = q0 + wr + g;  // this lane's two query rows
-  const int row_b = row_a + 8;
-  // Two-pass, rows of unequal boundaries in one tile: each row's own
-  // (rows past the end take the last row's; they are not written).
-  int bnd_a = 0, bnd_b = 0;
-  if constexpr (kRowBounds) {
-    bnd_a = coarse_boundary(min(row_a, sq - 1), bq, bk);
-    bnd_b = coarse_boundary(min(row_b, sq - 1), bq, bk);
-  }
-  float m_a = kNegInf, m_b = kNegInf;
-  float l_a = 0.f, l_b = 0.f;  // lane-partial sums, reduced at the end
-  float acc[D / 8][4];
+  if (threadIdx.x >= kConsumers * 128) {
+    // Producer warpgroup: one thread keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128 && n_tiles > 0) {
+      mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-
-  // Copy groups in flight at the top of each iteration: K(kt), V(kt).
-  if (kt_begin < kt_end) {
-    load_tile_async<D>(ks, kh, kt_begin * kBK, sk);
-    cp_async_commit();
-    load_tile_async<D>(vs, vh, kt_begin * kBK, sk);
-    cp_async_commit();
-  }
-  // ldmatrix row addresses of this lane (see ldmatrix_x4): for K, row
-  // lane % 8 of an 8-key slab at d offset 8 * (lane / 8); for V, key
-  // row 8 * ((lane / 8) % 2) + lane % 8 at d offset 8 * (lane / 16).
-  const int k_row = lane & 7, k_col = (lane >> 3) * 8;
-  const int v_row = ((lane >> 3) & 1) * 8 + (lane & 7), v_col = (lane >> 4) * 8;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    const bool more = kt + 1 < kt_end;
-    cp_async_wait<1>();  // K(kt) has landed
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; kk += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, &ks[nt * 8 + k_row][kk * 16 + k_col]);
-        mma_bf16_16816(s[nt], qf[kk], b[0], b[1]);
-        mma_bf16_16816(s[nt], qf[kk + 1], b[2], b[3]);
+      for (int p = 0; p < D / kPanel; ++p) {
+        tma_load(base + L::kQ + p * kBM * kRowBytes, &tm_q, q_full,
+                 p * kPanel, q0, bh);
       }
-    }
-    __syncthreads();  // every warp is done reading ks
-    if (more) load_tile_async<D>(ks, kh, k0 + kBK, sk);
-    cp_async_commit();  // possibly empty: keeps the group count uniform
-
-    // Scale, mask to the sentinel, and take the tile's row maxima.
-    float mx_a = kNegInf, mx_b = kNegInf;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        const uint32_t phase = (it / kStages) & 1;
+        const int k0 = (kt_begin + it) * kBN;
+        mbar_wait(k_empty(st), phase ^ 1);
+        mbar_expect_tx(k_full(st), L::kTileBytes);
 #pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float sa = s[nt][e] * scale;
-        float sb = s[nt][2 + e] * scale;
-        if constexpr (!kNoMask) {
-          const int kj = k0 + nt * 8 + t * 2 + e;
-          const bool dead = kj >= sk || (kMasked && kj < start);
-          bool dead_a = dead || (kCausal && kj > row_a);
-          bool dead_b = dead || (kCausal && kj > row_b);
-          if constexpr (kRowBounds) {
-            // Pass A: keys at or past the row's boundary are pass B's;
-            // pass B: keys before it are pass A's.
-            dead_a = dead_a || (kPass == kFull ? kj >= bnd_a : kj < bnd_a);
-            dead_b = dead_b || (kPass == kFull ? kj >= bnd_b : kj < bnd_b);
-          }
-          if (dead_a) sa = kNegInf;
-          if (dead_b) sb = kNegInf;
+        for (int p = 0; p < D / kPanel; ++p) {
+          tma_load(base + L::kK + st * L::kTileBytes + p * kBN * kRowBytes,
+                   &tm_k, k_full(st), p * kPanel, k0, bh);
         }
-        s[nt][e] = sa;
-        s[nt][2 + e] = sb;
-        mx_a = fmaxf(mx_a, sa);
-        mx_b = fmaxf(mx_b, sb);
+        mbar_wait(v_empty(st), phase ^ 1);
+        mbar_expect_tx(v_full(st), L::kTileBytes);
+#pragma unroll
+        for (int p = 0; p < D / kPanel; ++p) {
+          tma_load(base + L::kV + st * L::kTileBytes + p * kBN * kRowBytes,
+                   &tm_v, v_full(st), p * kPanel, k0, bh);
+        }
       }
     }
-    const float mn_a = fmaxf(m_a, quad_max(mx_a));
-    const float mn_b = fmaxf(m_b, quad_max(mx_b));
-    // A row whose keys are all masked so far keeps m at the sentinel;
-    // exp(s - m) would then be exp(0) = 1 on masked entries, so p is
-    // zeroed wherever the score is the sentinel.
-    float ps_a = 0.f, ps_b = 0.f;
+  } else {
+    // Consumer warpgroups: 64 query rows each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kConsumerRegs));
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;  // accumulator row group
+    const int t = lane & 3;   // thread in group
+    const int r_lo = q0 + wg * 64;
+    KeyMask km;
+    km.sk = sk;
+    km.start = start;
+    km.row_a = r_lo + warp * 16 + g;
+    km.row_b = km.row_a + 8;
+    km.bnd_a = km.bnd_b = 0;
+    // Two-pass, rows of unequal boundaries in one tile: each row's own
+    // (rows past the end take the last row's; they are not written), and
+    // the warpgroup's least and greatest.
+    int bnd_lo = 0, bnd_hi = 0;
+    if constexpr (kRowBounds) {
+      km.bnd_a = coarse_boundary(min(km.row_a, sq - 1), bq, bk);
+      km.bnd_b = coarse_boundary(min(km.row_b, sq - 1), bq, bk);
+      bnd_lo = coarse_boundary(min(r_lo, sq - 1), bq, bk);
+      bnd_hi = coarse_boundary(min(r_lo + 63, sq - 1), bq, bk);
+    }
+    const float sl2 = scale * kLog2e;
+    RowState rs = {kNegInf, kNegInf, 0.f, 0.f};
+    float acc[D / 2];
+    float s[kBN / 2];
 #pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float sa = s[nt][e], sb = s[nt][2 + e];
-        const float pa =
-            kNoMask || sa > kNegInf / 2 ? __expf(sa - mn_a) : 0.f;
-        const float pb =
-            kNoMask || sb > kNegInf / 2 ? __expf(sb - mn_b) : 0.f;
-        s[nt][e] = pa;
-        s[nt][2 + e] = pb;
-        ps_a += pa;
-        ps_b += pb;
+    for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+
+    if (n_tiles > 0) {
+      mbar_wait(q_full, 0);
+      const uint32_t q_tile = base + L::kQ + wg * 64 * kRowBytes;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        const uint32_t phase = (it / kStages) & 1;
+        const int k0 = (kt_begin + it) * kBN;
+        mbar_wait(k_full(st), phase);
+        // S = Q K^T, queued behind the previous tile's O += P V.
+        fence_regs(s);
+        wgmma_fence();
+        wgmma_qk<D>(s, q_tile, base + L::kK + st * L::kTileBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(acc);
+        mbar_arrive(k_empty(st));
+        if (it > 0) mbar_arrive(v_empty((it - 1) % kStages));
+
+        bool need_mask = false;
+        if constexpr (!kNoMask) {
+          need_mask = k0 + kBN > sk;
+          if (kMasked) need_mask = need_mask || k0 < start;
+          if (kCausal) need_mask = need_mask || k0 + kBN - 1 > r_lo;
+          if (kRowBounds) {
+            need_mask = need_mask ||
+                (kPass == kFull ? k0 + kBN > bnd_lo : k0 < bnd_hi);
+          }
+        }
+        if (need_mask) {
+          softmax_tile<D, kCausal, kMasked, kPass, kRowBounds, true>(
+              s, acc, rs, km, k0, t, sl2);
+        } else {
+          softmax_tile<D, kCausal, kMasked, kPass, kRowBounds, false>(
+              s, acc, rs, km, k0, t, sl2);
+        }
+        // P (bf16) straight from the S accumulators: their layout is
+        // wgmma's A fragment.
+        uint32_t p[kBN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk) {
+          p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+          p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        mbar_wait(v_full(st), phase);
+        fence_regs(acc);
+        wgmma_fence();
+        wgmma_pv<D>(acc, p, base + L::kV + st * L::kTileBytes);
+        wgmma_commit();
+      }
+      // The last V stage needs no release: nothing is loaded after it.
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+
+    const float l_a = quad_sum(rs.l_a);
+    const float l_b = quad_sum(rs.l_b);
+    // A row with no valid key has l == 0 and acc == 0: o = 0,
+    // lse = NEG_INF (the contract the backward and log-space merges use).
+    const float inv_a = l_a == 0.f ? 0.f : 1.f / l_a;
+    const float inv_b = l_b == 0.f ? 0.f : 1.f / l_b;
+    const int row_a = km.row_a, row_b = km.row_b;
+    uint16_t* o_a = o + (static_cast<size_t>(bh) * sq + row_a) * D;
+    uint16_t* o_b = o_a + 8 * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (row_a < sq) {
+        *reinterpret_cast<uint32_t*>(o_a + col) =
+            pack_bf16(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
+      }
+      if (row_b < sq) {
+        *reinterpret_cast<uint32_t*>(o_b + col) =
+            pack_bf16(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
       }
     }
-    const float alpha_a = __expf(m_a - mn_a);
-    const float alpha_b = __expf(m_b - mn_b);
-    l_a = alpha_a * l_a + ps_a;
-    l_b = alpha_b * l_b + ps_b;
-    m_a = mn_a;
-    m_b = mn_b;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= alpha_a;
-      acc[dt][1] *= alpha_a;
-      acc[dt][2] *= alpha_b;
-      acc[dt][3] *= alpha_b;
-    }
-
-    cp_async_wait<1>();  // V(kt) has landed; K(kt + 1) may still fly
-    __syncthreads();
-
-    // O += P V: P (bf16) from the S accumulators, V fragments by
-    // transposed ldmatrix, two 8-column d tiles per load.
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, &vs[kk * 16 + v_row][dt * 8 + v_col]);
-        mma_bf16_16816(acc[dt], pa, b[0], b[1]);
-        mma_bf16_16816(acc[dt + 1], pa, b[2], b[3]);
+    if (t == 0) {
+      if (row_a < sq) {
+        lse[static_cast<size_t>(bh) * sq + row_a] =
+            l_a == 0.f ? kNegInf : rs.m_a * scale + logf(l_a);
       }
-    }
-    __syncthreads();  // every warp is done reading vs
-    if (more) load_tile_async<D>(vs, vh, k0 + kBK, sk);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  l_a = quad_sum(l_a);
-  l_b = quad_sum(l_b);
-  // A row with no valid key has l == 0 and acc == 0: o = 0,
-  // lse = NEG_INF (the contract the backward and log-space merges use).
-  const float safe_a = l_a == 0.f ? 1.f : l_a;
-  const float safe_b = l_b == 0.f ? 1.f : l_b;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + t * 2;
-    if (row_a < sq) {
-      *reinterpret_cast<uint32_t*>(
-          o + (static_cast<size_t>(bh) * sq + row_a) * D + col) =
-          pack_bf16(acc[dt][0] / safe_a, acc[dt][1] / safe_a);
-    }
-    if (row_b < sq) {
-      *reinterpret_cast<uint32_t*>(
-          o + (static_cast<size_t>(bh) * sq + row_b) * D + col) =
-          pack_bf16(acc[dt][2] / safe_b, acc[dt][3] / safe_b);
-    }
-  }
-  if (t == 0) {
-    if (row_a < sq) {
-      lse[static_cast<size_t>(bh) * sq + row_a] =
-          l_a == 0.f ? kNegInf : m_a + logf(safe_a);
-    }
-    if (row_b < sq) {
-      lse[static_cast<size_t>(bh) * sq + row_b] =
-          l_b == 0.f ? kNegInf : m_b + logf(safe_b);
+      if (row_b < sq) {
+        lse[static_cast<size_t>(bh) * sq + row_b] =
+            l_b == 0.f ? kNegInf : rs.m_b * scale + logf(l_b);
+      }
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, fetched through the runtime so the
+// library links no libcuda of its own.
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// A 3-D map over a contiguous [heads, rows, d] bf16 tensor, read in boxes
+// of [1, box_rows, 64] with the 128-byte swizzle; what a box takes from
+// past a head's last row (or past d) is zero-filled.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int heads, int rows,
+                     int d, int box_rows) {
+  const EncodeTiledFn encode = encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  rows = rows > 0 ? rows : 1;  // an empty key set is never read
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(rows) * d * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kPanel),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+struct Args {
+  const void *q, *k, *v;
+  const int32_t* kv_start;
+  void* o;
+  float* lse;
+  int bh, sq, sk;
+  float scale;
+  cudaStream_t stream;
+  int bq, bk;
+};
 
 template <int D, bool kCausal, bool kMasked, int kPass = kSingle,
           bool kRowBounds = false>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int32_t* kv_start, void* o, float* lse, int bh,
-                   int sq, int sk, float scale, cudaStream_t stream,
-                   int bq = 0, int bk = 0) {
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  flash_fwd_kernel<D, kCausal, kMasked, kPass, kRowBounds>
-      <<<grid, kThreads, 0, stream>>>(
-          static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-          static_cast<const uint16_t*>(v), kv_start,
-          static_cast<uint16_t*>(o), lse, sq, sk, scale, bq, bk);
-  return cudaGetLastError();
-}
+struct Instance {
+  static cudaError_t launch(const Args& a) {
+    const auto kernel = flash_fwd_kernel<D, kCausal, kMasked, kPass,
+                                         kRowBounds>;
+    // Above 48 KB, dynamic shared memory must be allowed per kernel and
+    // device: once for each device this instance launches on (one bit
+    // each; past 64 devices, on every launch).
+    static std::atomic<uint64_t> allowed{0};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+    if ((allowed.load(std::memory_order_acquire) & bit) == 0) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 Smem<D>::kBytes);
+      if (err != cudaSuccess) return err;
+      allowed.fetch_or(bit, std::memory_order_release);
+    }
+    CUtensorMap tq, tk, tv;
+    // With no key the K / V maps are never read: q stands in for them.
+    const void* kp = a.sk > 0 ? a.k : a.q;
+    const void* vp = a.sk > 0 ? a.v : a.q;
+    if ((err = make_map(&tq, a.q, a.bh, a.sq, D, kBM)) != cudaSuccess ||
+        (err = make_map(&tk, kp, a.bh, a.sk, D, kBN)) != cudaSuccess ||
+        (err = make_map(&tv, vp, a.bh, a.sk, D, kBN)) != cudaSuccess) {
+      return err;
+    }
+    const dim3 grid((a.sq + kBM - 1) / kBM, a.bh);
+    kernel<<<grid, kThreads, Smem<D>::kBytes, a.stream>>>(
+        tq, tk, tv, a.kv_start, static_cast<uint16_t*>(a.o), a.lse, a.sq,
+        a.sk, a.scale, a.bq, a.bk);
+    return cudaGetLastError();
+  }
 
-// One pass of the two-pass forward: kFull without a causal mask, kDiag
-// with it; per-row bounds unless every 64-row tile has one 64-aligned
-// boundary (bq and bk both multiples of the tiles).
-template <int D>
-cudaError_t dispatch_pass(const void* q, const void* k, const void* v,
-                          void* o, float* lse, int bh, int s, int pass,
-                          int bq, int bk, float scale, cudaStream_t stream) {
-  const bool row_bounds = bq % kBQ != 0 || bk % kBK != 0;
+  // info[0] registers a thread at entry (the loaded kernel's, as ptxas
+  // reports them), info[1] shared memory a CTA in bytes as launched.
+  static cudaError_t attributes(int* info) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(
+        &attr, flash_fwd_kernel<D, kCausal, kMasked, kPass, kRowBounds>);
+    if (err != cudaSuccess) return err;
+    info[0] = attr.numRegs;
+    info[1] = static_cast<int>(attr.sharedSizeBytes) + Smem<D>::kBytes;
+    return cudaSuccess;
+  }
+};
+
+// Per-row bounds unless every 128-row tile has one boundary that is a
+// multiple of the 128-key tile (bq and bk both multiples of the tiles).
+bool needs_row_bounds(int bq, int bk) { return bq % kBM != 0 || bk % kBN != 0; }
+
+// Call f with the instance for these flags: the single pass (causal or
+// not, masked or not), or one pass of the two-pass forward (kFull
+// without a causal mask, kDiag with it, each with or without row bounds).
+template <int D, typename F>
+cudaError_t with_instance(bool causal, bool masked, int pass, bool row_bounds,
+                          F&& f) {
   if (pass == kFull) {
-    return row_bounds
-        ? launch<D, false, false, kFull, true>(q, k, v, nullptr, o, lse, bh,
-                                               s, s, scale, stream, bq, bk)
-        : launch<D, false, false, kFull, false>(q, k, v, nullptr, o, lse,
-                                                bh, s, s, scale, stream, bq,
-                                                bk);
+    return row_bounds ? f(Instance<D, false, false, kFull, true>())
+                      : f(Instance<D, false, false, kFull, false>());
   }
-  return row_bounds
-      ? launch<D, true, false, kDiag, true>(q, k, v, nullptr, o, lse, bh, s,
-                                            s, scale, stream, bq, bk)
-      : launch<D, true, false, kDiag, false>(q, k, v, nullptr, o, lse, bh, s,
-                                             s, scale, stream, bq, bk);
+  if (pass == kDiag) {
+    return row_bounds ? f(Instance<D, true, false, kDiag, true>())
+                      : f(Instance<D, true, false, kDiag, false>());
+  }
+  if (causal) {
+    return masked ? f(Instance<D, true, true>()) : f(Instance<D, true, false>());
+  }
+  return masked ? f(Instance<D, false, true>()) : f(Instance<D, false, false>());
 }
 
-template <int D>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const int32_t* kv_start, void* o, float* lse, int bh,
-                     int sq, int sk, int causal, float scale,
-                     cudaStream_t stream) {
-  if (causal) {
-    return kv_start ? launch<D, true, true>(q, k, v, kv_start, o, lse, bh,
-                                            sq, sk, scale, stream)
-                    : launch<D, true, false>(q, k, v, kv_start, o, lse, bh,
-                                             sq, sk, scale, stream);
+template <typename F>
+cudaError_t with_head_dim(int d, bool causal, bool masked, int pass,
+                          bool row_bounds, F&& f) {
+  switch (d) {
+    case 64:
+      return with_instance<64>(causal, masked, pass, row_bounds, f);
+    case 128:
+      return with_instance<128>(causal, masked, pass, row_bounds, f);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return kv_start ? launch<D, false, true>(q, k, v, kv_start, o, lse, bh, sq,
-                                           sk, scale, stream)
-                  : launch<D, false, false>(q, k, v, kv_start, o, lse, bh,
-                                            sq, sk, scale, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q [bh, sq, d], k/v [bh, sk, d] contiguous bf16; kv_start [bh] int32 or
-// NULL; o [bh, sq, d] bf16, lse [bh, sq] f32.  Returns a cudaError_t;
-// cudaErrorInvalidValue for a head_dim the kernel has no instance of.
+// q [bh, sq, d], k/v [bh, sk, d] contiguous, 16-byte aligned bf16;
+// kv_start [bh] int32 or NULL; o [bh, sq, d] bf16, lse [bh, sq] f32.
+// Returns a cudaError_t; cudaErrorInvalidValue for a head_dim the kernel
+// has no instance of.
 int kft_flash_fwd_bf16(const void* q, const void* k, const void* v,
                        const int32_t* kv_start, void* o, float* lse, int bh,
                        int sq, int sk, int d, int causal, float scale,
                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return dispatch<64>(q, k, v, kv_start, o, lse, bh, sq, sk, causal,
-                          scale, s);
-    case 128:
-      return dispatch<128>(q, k, v, kv_start, o, lse, bh, sq, sk, causal,
-                           scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const Args a{q, k, v, kv_start, o, lse, bh, sq, sk, scale,
+               static_cast<cudaStream_t>(stream), 0, 0};
+  return with_head_dim(d, causal != 0, kv_start != nullptr, kSingle, false,
+                       [&](auto inst) { return decltype(inst)::launch(a); });
 }
 
 // One pass of the two-pass causal forward over q, k, v [bh, s, d]
@@ -483,20 +822,26 @@ int kft_flash_fwd_pass_bf16(const void* q, const void* k, const void* v,
                             void* o, float* lse, int bh, int s, int d,
                             int pass, int bq, int bk, float scale,
                             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((pass != kFull && pass != kDiag) || bq <= 0 || bk <= 0) {
     return cudaErrorInvalidValue;
   }
-  switch (d) {
-    case 64:
-      return dispatch_pass<64>(q, k, v, o, lse, bh, s, pass, bq, bk, scale,
-                               st);
-    case 128:
-      return dispatch_pass<128>(q, k, v, o, lse, bh, s, pass, bq, bk, scale,
-                                st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const Args a{q, k, v, nullptr, o, lse, bh, s, s, scale,
+               static_cast<cudaStream_t>(stream), bq, bk};
+  return with_head_dim(d, pass == kDiag, false, pass,
+                       needs_row_bounds(bq, bk),
+                       [&](auto inst) { return decltype(inst)::launch(a); });
+}
+
+// What the instance that the calls above launch for these arguments
+// uses (pass 0 = the single pass; bq, bk only for passes 1 and 2): two
+// ints into info, as Instance::attributes lists them.
+int kft_flash_fwd_instance_bf16(int d, int causal, int masked, int pass,
+                                int bq, int bk, int* info) {
+  if (pass != kSingle && (bq <= 0 || bk <= 0)) return cudaErrorInvalidValue;
+  const bool row_bounds = pass != kSingle && needs_row_bounds(bq, bk);
+  return with_head_dim(
+      d, causal != 0 || pass == kDiag, masked != 0, pass, row_bounds,
+      [&](auto inst) { return decltype(inst)::attributes(info); });
 }
 
 const char* kft_cuda_error_string(int err) {

@@ -25,16 +25,21 @@ O_REL_TOL = 1e-2
 LSE_ATOL = 2e-3
 
 # name: (bh, s, block_q, block_k) at chip_smoke.py's shapes: the training
-# shape's split (every 64-row tile one aligned boundary: pass A without
+# shape's split (every 128-row tile one aligned boundary: pass A without
 # mask code), fitted blocks that are not multiples of 64 (per-row
-# bounds), a length that is not a multiple of the 64-row tile, and the
-# pure band (s <= block_k: pass A is not launched).
+# bounds), a length that is not a multiple of the tiles, and the pure
+# band (s <= block_k: pass A is not launched).  Then fitted blocks that
+# are multiples of 64 but not of the kernel's 128-row or 128-key tile,
+# which keep the per-row-bounds instances on a tile-cutting split.
 CASES = {
     "train_split": (4, 2048, 512, 1024),
     "bq32_bk64": (4, 128, 32, 64),
     "bq_bk32_s96": (4, 96, 32, 32),
     "bq_bk400_s1200": (2, 1200, 400, 400),
     "pure_band": (2, 1024, 512, 1024),
+    "bq_bk192_s768": (2, 768, 192, 192),
+    "bq64_bk128_s512": (2, 512, 64, 128),
+    "bq256_bk320_s1280": (2, 1280, 256, 320),
 }
 
 
