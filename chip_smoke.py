@@ -14,7 +14,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      first tiles, heads of distinct magnitudes at a length that ends
      inside a tile, each head on its own), the backward pair dq / dkv
      (the training shape, d 64 with unaligned lengths, non-causal
-     sq != sk, rows whose lse is the NEG_INF sentinel),
+     sq != sk, rows whose lse is the NEG_INF sentinel, a length that
+     cuts the 128-row and 64-query tiles, causal sk > sq whose key
+     tiles past the last query must write zero dk and dv),
      flash_attention's autograd path (GQA), and the
      two passes of the two-pass causal forward (pass A flash_fwd_full,
      pass B flash_fwd_diag) and their merge (the training split, d 64,
@@ -22,10 +24,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      a length that is not a tile multiple, the pure band; a shape
      outside the two-pass dispatch launches neither);
   3. timing: each kernel at the shape its path gives it, beside its
-     plain version, its bound, and one PyTorch library call; every
-     forward row also with its TFLOP/s, its share of its bound and its
-     instance's registers and shared memory; the two-pass forward beside
-     the single-pass kernel on the same inputs;
+     plain version, its bound, and one PyTorch library call; every row
+     also with its TFLOP/s, its share of its bound and its instance's
+     registers and shared memory; the backward pair plus the float32
+     delta pass beside SDPA's backward; the two-pass forward beside the
+     single-pass kernel on the same inputs;
   4. serve: export a seeded 188M LM (bench.py's configuration, random
      weights), start the port's REST server in this process with bucketed
      static batching, send concurrent mixed-length :predict requests and
@@ -400,6 +403,12 @@ def check_bwd_kernels(torch, flash, gen, fwd_checks):
         ("causal_d64_unaligned", 6, 1000, 1000, 64, True, False),
         ("noncausal_sq_ne_sk", 4, 333, 1500, 128, False, False),
         ("neg_inf_rows_d64", 4, 777, 777, 64, True, True),
+        # 1153 = 9 x 128 + 1: cuts dq's 128-row and 128-key tiles and
+        # dkv's 128-key and 64-query tiles.
+        ("causal_tile_cut_d128", 6, 1153, 1153, 128, True, False),
+        # Causal sk > sq: dkv's key tiles from 256 on hold no live query
+        # and must still write their zero dk and dv.
+        ("causal_sk_gt_sq_zero_store", 4, 200, 777, 128, True, False),
     ]
     results = []
     for name, bh, sq, sk, d, causal, neg_inf in variants:
@@ -429,6 +438,9 @@ def check_bwd_kernels(torch, flash, gen, fwd_checks):
         if neg_inf and not (torch.all(got[0][3] == 0)
                             and torch.all(got[1][3] == 0)):
             fail("a row block with NEG_INF lse got non-zero gradients")
+        if causal and sk > sq and not (torch.all(got[1][:, sq:] == 0)
+                                       and torch.all(got[2][:, sq:] == 0)):
+            fail("keys past the last query got non-zero dk or dv")
         log(f"check bwd {name}: bh={bh} sq={sq} sk={sk} d={d} "
             f"causal={causal} neg_inf_rows={neg_inf}: {'; '.join(line)} "
             f"(bounds: relative {BWD_REL_TOL}, elementwise atol "
@@ -503,25 +515,36 @@ class plain_kernels:
          self.flash._flash_fwd_pass_cuda) = self.saved
 
 
-def instance_info(flash, d, causal, masked, pass_=0, bq=0, bk=0):
-    """What the forward instance launched for these arguments uses, as the
-    loaded kernel reports it: registers a thread at entry (ptxas's count)
-    and shared memory a CTA at launch."""
+def _instance(lib, entry, *args):
+    """What a kernel instance uses, as the loaded kernel reports it through
+    the C entry point ``entry``: registers a thread at entry (ptxas's
+    count) and shared memory a CTA at launch."""
     import ctypes
 
-    lib = flash._lib()
-    fn = lib.kft_flash_fwd_instance_bf16
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     info = (ctypes.c_int * 2)()
-    err = fn(d, int(causal), int(masked), pass_, bq, bk, info)
+    err = fn(*args, info)
     if err != 0:
         fail(f"instance query failed: {lib.kft_cuda_error_string(err)}")
     return dict(zip(("registers", "smem_bytes"), list(info)))
 
 
-def fwd_stats(row, ops):
-    """TFLOP/s and share of its bound of a timed forward row, in place."""
+def instance_info(flash, d, causal, masked, pass_=0, bq=0, bk=0):
+    """The forward instance launched for these arguments."""
+    return _instance(flash._lib(), "kft_flash_fwd_instance_bf16", d,
+                     int(causal), int(masked), pass_, bq, bk)
+
+
+def bwd_instance_info(flash, name, d, causal):
+    """The dq or dkv instance launched for these arguments."""
+    return _instance(flash._bwd_lib(), "kft_flash_bwd_instance_bf16",
+                     int(name == "flash_dkv"), d, int(causal))
+
+
+def row_stats(row, ops):
+    """TFLOP/s and share of its bound of a timed row, in place."""
     row["tflops"] = ops / (row["ms"] * 1e-3) / 1e12
     row["bound_share"] = row["bound_ms"] / row["ms"]
     return (f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} of its "
@@ -591,7 +614,7 @@ def time_kernels(torch, flash, gen, checks):
             "checks": mine,
             "instance": instance_info(flash, d, True, ks is not None),
         }
-        stats = fwd_stats(rows[name], ops)
+        stats = row_stats(rows[name], ops)
         log(f"time {name}: bh={bh} s={s} d={d} kernel {ms:.4f} ms ({stats})"
             f", plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
             f"{t_bound:.4f} ms ({by}; operations {t_ops:.4f} ms for "
@@ -630,6 +653,10 @@ def time_train_kernels(torch, flash, gen, fwd_rows, bwd_checks):
         *args, causal=True), reps=3)
     dkv_plain = time_ms(torch, lambda: flash.flash_dkv_reference(
         *args, causal=True), reps=3)
+    # The float32 row sum delta = rowsum(g * o) that _FlashFunction's
+    # backward computes before the pair (SDPA's backward includes its own).
+    delta_ms = time_ms(torch, lambda: (g.float() * o.float()).sum(-1),
+                       reps=20)
     q4, k4, v4 = (t.reshape(TRAIN_BATCH, heads, s, d).detach()
                   .requires_grad_() for t in (q, k, v))
     g4 = g.reshape(TRAIN_BATCH, heads, s, d)
@@ -661,25 +688,30 @@ def time_train_kernels(torch, flash, gen, fwd_rows, bwd_checks):
             "plain_ms": plain_ms, "bound_ms": t_bound, "bound_by": by,
             "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
             "library_ms": lib_ms,
-            "tflops": ops / (ms * 1e-3) / 1e12,
         }
         log(f"time {name} (training shape): bh={bh} s={s} d={d} kernel "
-            f"{ms:.4f} ms ({rows[name]['tflops']:.1f} TFLOP/s), plain "
+            f"{ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {t_bound:.4f} "
             f"ms ({by}; operations {t_ops:.4f} ms for {ops:.4g}, bytes "
             f"{t_bytes:.4f} ms for {nbytes:.4g})")
     for name in ("flash_dq", "flash_dkv"):
+        rows[name]["instance"] = bwd_instance_info(flash, name, d, True)
+        log(f"time {name} (training shape): "
+            f"{row_stats(rows[name], work[name][3])}")
         rows[name]["library_note"] = (
             "backward of one causal SDPA call: dq, dk and dv together")
+        rows[name]["delta_pass_ms"] = delta_ms
         rows[name]["max_abs_err"] = max(
             c[f"max_abs_err_{g_}"] for c in bwd_checks
             for g_ in (("dq",) if name == "flash_dq" else ("dk", "dv")))
         rows[name]["checks"] = bwd_checks
-    log(f"time backward pair: dq + dkv {dq_ms + dkv_ms:.4f} ms against the "
-        f"SDPA backward's {bwd_lib:.4f} ms")
+    log(f"time backward pair: dq + dkv {dq_ms + dkv_ms:.4f} ms, with the "
+        f"float32 delta pass ({delta_ms:.4f} ms) "
+        f"{dq_ms + dkv_ms + delta_ms:.4f} ms, against the SDPA backward's "
+        f"{bwd_lib:.4f} ms (its own row sum included)")
     rows["flash_fwd"]["instance"] = instance_info(flash, d, True, False)
     log(f"time flash_fwd (training shape): "
-        f"{fwd_stats(rows['flash_fwd'], work['flash_fwd'][3])}")
+        f"{row_stats(rows['flash_fwd'], work['flash_fwd'][3])}")
     # The forward's row keeps the serving shape's numbers at its top level
     # (as the serving slice defined them); the training shape's stand in
     # its train_shape object.
@@ -766,7 +798,7 @@ def time_two_pass(torch, flash, gen, checks):
             "instance": instance_info(flash, d, True, False,
                                       flash._PASSES[name], bq, bk),
         }
-        stats = fwd_stats(rows[name], ops)
+        stats = row_stats(rows[name], ops)
         log(f"time {name} (training shape): bh={bh} s={s} d={d} block_q="
             f"{bq} block_k={bk}: kernel {ms:.4f} ms "
             f"({stats}), plain {plain_ms:.4f} ms,"

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface.  ``nvcc`` compiles
 it for ``sm_90a`` into ``_build/lib<name>-<digest>.so`` (the digest
-covers the source and the flags, so an edited source rebuilds) and
-``ctypes`` loads it.  No PyTorch header is compiled, which keeps a build
-to seconds.  A build failure raises with the compiler's output; nothing
-falls back to a plain version.
+covers the source, every shared header ``csrc/*.cuh`` and the flags, so
+an edited source or header rebuilds) and ``ctypes`` loads it.  No
+PyTorch header is compiled, which keeps a build to seconds.  A build
+failure raises with the compiler's output; nothing falls back to a
+plain version.
 """
 
 from __future__ import annotations
@@ -44,10 +45,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> None:

@@ -5,548 +5,738 @@
 //   - flash_dq_kernel  <- _flash_dq_kernel:  dq = sum_k ds k
 //   - flash_dkv_kernel <- _flash_dkv_kernel: dv = sum_q p^T g,
 //                                            dk = sum_q ds^T q
-// with, per (query, key) pair, s = q.k * scale (masked to NEG_INF above
-// the causal diagonal), p = exp(s - lse) (0 where lse is the NEG_INF
-// sentinel of a row with no valid key), dp = g.v and
-// ds = p * (dp - delta) * scale rounded to bf16 before its product; p is
-// rounded to bf16 before dv's.  lse is the forward's m + log(l) and
-// delta = rowsum(g * o), both float32 and computed outside the kernels.
+// with, per (query, key) pair, s = q.k * scale (masked above the causal
+// diagonal, q_pos >= k_pos in absolute positions also when sq != sk),
+// p = exp(s - lse) (0 where lse is the NEG_INF sentinel of a row with no
+// valid key), dp = g.v and ds = p * (dp - delta) * scale rounded to bf16
+// before its product; p is rounded to bf16 before dv's.  lse is the
+// forward's m + log(l) and delta = rowsum(g * o), both float32 and
+// computed outside the kernels.
 //
-// What bounds them: at the training shape (bh 64, s 2048, d 128, causal)
-// the dq kernel does three products per live (query, key) pair (s, dp,
-// dq: 6 d operations) and the dkv kernel four (s, dp, dv, dk: 8 d), which
-// at the card's bf16 tensor-core rate take about twice as long as moving
-// q, k, v, g and the gradients through device memory once.  This design is
-// simple and right first:
-//   - the TPU's sequential innermost grid axis becomes a loop inside the
-//     CTA: one CTA of 4 warps per (bh, 64-row tile), no atomics, so the
-//     gradients are the same from run to run;
-//   - dq: each warp owns 16 query rows whose Q and G fragments stay in
-//     registers; 64-key K and V tiles are double-buffered in shared memory
-//     by cp.async (zero-filled past the sequence end), so the next tile
-//     lands while this one is used;
-//   - dkv: each warp owns 16 key rows of the CTA's K and V tiles, which
-//     stay in shared memory for the whole loop (their mma A fragments are
-//     read by ldmatrix where used, which keeps the two [16, d] float32
-//     accumulators of dk and dv in registers without spilling at d 128);
-//     64-query Q and G tiles are double-buffered and walked from the
-//     first tile that reaches the causal diagonal; it works in the
+// What bounds them on an H100: at the training shape (bh 64, s 2048,
+// d 128, causal) the dq kernel does three products per live (query, key)
+// pair (s, dp, dq: 6 d operations) and the dkv kernel four (s, dp, dv,
+// dk: 8 d), which at 989 TFLOP/s take 0.104 and 0.139 ms, two to three
+// times as long as moving q, k, v, g, lse, delta and the gradients through
+// device memory once.  So the design keeps the tensor cores fed, with the
+// forward's tools (hopper.cuh):
+//   - every product on wgmma.  dq: S = Q K^T and dP = G V^T with all
+//     operands K-major in shared memory, issued back to back and waited
+//     on once; dQ += dS K with dS from registers (the S accumulators turned
+//     into ds and rounded to bf16 in place: their layout is wgmma's A
+//     fragment) and K read MN-major (transposed).  dkv works in the
 //     transposed [keys, queries] space of the Pallas kernel, so no
-//     fragment is ever transposed in registers;
-//   - every product is mma.sync m16n8k16 (bf16 -> f32); each 16-column
-//     slab of p or ds is fed to the next product straight from the
-//     accumulators (their C layout is the next product's A layout);
-//   - any length: tails are zero-filled and masked per element, without
-//     the TPU's divisor search (_fit_block).
-// A fused single kernel (dq by atomics), wgmma, TMA and warp
-// specialisation are later work.
+//     fragment is ever transposed: S^T = K Q^T and dP^T = V G^T, then
+//     dV += P^T G and dK += dS^T Q with G and Q read MN-major;
+//   - one CTA of two consumer warpgroups (64 rows each) and one producer
+//     warpgroup: dq per (bh, 128-row query tile), the producer loading
+//     Q and G once and streaming 128-key K and V tiles through a two-stage
+//     ring; dkv per (bh, 128-key tile), K and V loaded once and 64-query Q
+//     and G tiles, with their rows' lse and delta, streamed through a
+//     two-stage ring from the first query tile that reaches the causal
+//     diagonal.  TMA loads over 3-D tensor maps [bh, s, d] (a box past a
+//     head's end is zero-filled, never the next head's rows), full and
+//     empty mbarriers, setmaxnreg moving registers from the producer
+//     warpgroup to the consumers;
+//   - each consumer waits for its own register-A products (dQ; dV and dK)
+//     before the next tile's S, so their fragments never live beside the
+//     next tile's accumulators and no instance spills; the two consumers
+//     overlap each other, and dq issues dQ += dS K in two halves of the
+//     key tile, the first running while the second half's ds is computed;
+//   - mask code only in the tiles that need it: causal diagonal tiles and
+//     dq's ragged key edge.  The sentinel test is one per row (dq, once,
+//     in registers) or per column of each tile (dkv, by the producer):
+//     each row's base-2 offset of p is lse log2(e), or +inf where lse is
+//     the sentinel or the row lies past sq, so exp2 gives p = 0 there
+//     without a per-element test;
+//   - heaviest tiles first (dq: last query tiles; dkv: first key tiles);
+//   - no atomics: each CTA owns its output rows, so gradients repeat bit
+//     for bit.
+// Any length works: tails are zero-filled by TMA and masked, without the
+// TPU's divisor search (_fit_block).
 //
 // Interface: plain C, launched on the caller's stream; each entry point
-// returns the cudaError_t of its launch (0 = launched).
+// returns the cudaError_t of its launch (0 = launched).  The tensor maps
+// are encoded on the host per call and passed as __grid_constant__.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <float.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;       // query rows per tile
-constexpr int kBK = 64;       // key rows per tile
-constexpr int kWarps = 4;     // 16 rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 pad per smem row: conflict-free ldmatrix
-constexpr float kNegInf = -FLT_MAX;  // finfo(float32).min, the sentinel
+using namespace kft;
 
-static_assert(kBQ == kBK, "the causal tile walk assumes square tiles");
+constexpr int kConsumers = 2;                     // warpgroups of 64 rows
+constexpr int kThreads = 128 * (kConsumers + 1);  // + producer warpgroup
+// setmaxnreg rebalances the entry allotment (65536 / 384 = 168 a thread).
+// A dq consumer holds S, dP and dQ (192 floats at 128-key tiles) and
+// takes 240, the producer warpgroup (one TMA thread) 24; a dkv consumer
+// holds dK, dV, S^T and dP^T (192 floats) and takes 232, its producer
+// threads (which also load row statistics) 40.  Both fit in 65,536.
+constexpr int kDqProducerRegs = 24;
+constexpr int kDqConsumerRegs = 240;
+constexpr int kDkvProducerRegs = 40;
+constexpr int kDkvConsumerRegs = 232;
+static_assert(128 * (kConsumers * kDqConsumerRegs + kDqProducerRegs) <= 65536
+              && 128 * (kConsumers * kDkvConsumerRegs + kDkvProducerRegs)
+                     <= 65536, "register file");
+// dq: 128 query rows a CTA; 128-key K and V tiles in a two-stage ring;
+// dQ += dS K issued in two parts of the key tile, the first running while
+// the second part's ds is computed.
+constexpr int kDqRows = 64 * kConsumers;
+constexpr int kDqKeys = 128;
+constexpr int kDqStages = 2;
+constexpr int kDqParts = 2;
+// dkv: 128 keys a CTA; 64-query Q and G tiles in a two-stage ring.
+constexpr int kDkvKeys = 64 * kConsumers;
+constexpr int kDkvRows = 64;
+constexpr int kDkvStages = 2;
 
+// Dynamic shared memory of a dq CTA, from a 1024-byte aligned base: Q and
+// G [D / 64 panels][kDqRows], then the K and V rings [D / 64][kDqKeys],
+// then the mbarriers.
 template <int D>
-using Row = uint16_t[D + kPad];
+struct DqSmem {
+  static constexpr int kQBytes = kDqRows * D * 2;
+  static constexpr int kTileBytes = kDqKeys * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kG = kQBytes;
+  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kV = kK + kDqStages * kTileBytes;
+  static constexpr int kBar = kV + kDqStages * kTileBytes;
+  // qg_full; per stage full (K and V), empty.
+  static constexpr int kBars = 1 + 2 * kDqStages;
+  static constexpr int kBytes = kBar + 8 * kBars + 1024;  // + align slack
+};
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices; lane i gives the address of row i % 8 of
-// matrix i / 8, and register j receives this lane's pair of matrix j.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared; zero-filled when !valid (nothing is read).
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Two floats -> packed bf16x2, the lower column in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Start copying rows [row0, row0 + 64) of a [rows, D] bf16 matrix into
-// smem; rows at or past `rows` become zero.
+// Dynamic shared memory of a dkv CTA: K and V [D / 64][kDkvKeys], the Q
+// and G rings [D / 64][kDkvRows], per stage the tile's kDkvRows base-2
+// offsets of p and kDkvRows deltas (float32), then the mbarriers.
 template <int D>
-__device__ __forceinline__ void load_tile_async(Row<D>* dst,
-                                                const uint16_t* __restrict__ src,
-                                                int row0, int rows) {
-  constexpr int kVec = 8;  // bf16 per 16-byte copy
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < 64 * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    const bool valid = row0 + r < rows;
-    cp_async_16(&dst[r][c],
-                src + static_cast<size_t>(valid ? row0 + r : 0) * D + c,
-                valid);
-  }
+struct DkvSmem {
+  static constexpr int kKBytes = kDkvKeys * D * 2;
+  static constexpr int kTileBytes = kDkvRows * D * 2;
+  static constexpr int kStatBytes = 2 * kDkvRows * 4;
+  static constexpr int kK = 0;
+  static constexpr int kV = kKBytes;
+  static constexpr int kQ = 2 * kKBytes;
+  static constexpr int kG = kQ + kDkvStages * kTileBytes;
+  static constexpr int kStats = kG + kDkvStages * kTileBytes;
+  static constexpr int kBar = kStats + kDkvStages * kStatBytes;
+  // kv_full; per stage full (Q, G and the row statistics), empty.
+  static constexpr int kBars = 1 + 2 * kDkvStages;
+  static constexpr int kBytes = kBar + 8 * kBars + 1024;  // + align slack
+};
+
+// The base-2 offset of a row's p = exp2(s scale log2(e) - offset):
+// lse log2(e), or +inf (so that p = 0) for a row at or past `rows` or one
+// whose lse is the NEG_INF sentinel.  The sentinel is tested before
+// log2(e) is folded in: NEG_INF log2(e) overflows float32 to -inf.
+__device__ __forceinline__ float exp2_offset(const float* __restrict__ lse,
+                                             int row, int rows) {
+  if (row >= rows) return INFINITY;
+  const float l = lse[row];
+  return l > kNegInf / 2 ? l * kLog2e : INFINITY;
 }
 
-// mma A fragments (16 rows x D) of rows [r0, r0 + 16) of a smem tile,
-// read straight from shared memory: fragment kk covers columns
-// [16 kk, 16 kk + 16).
-template <int D>
-__device__ __forceinline__ void row_fragments(uint32_t f[][4],
-                                              Row<D>* tile, int r0) {
-  const int g = (threadIdx.x % 32) >> 2;
-  const int t = threadIdx.x & 3;
+// acc[64 x N] = A[64 x D] B[N x D]^T: A the 64 rows of a tile whose
+// panels lie a_panel bytes apart, B a tile of N rows; both K-major.
+template <int D, int N>
+__device__ __forceinline__ void gemm_ss(float (&acc)[N / 2], uint32_t a,
+                                        uint32_t a_panel, uint32_t b) {
+  // Head_dim in steps of 16 (32 bytes) within a 64-wide panel, then the
+  // next panel.
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + t * 2;
-    f[kk][0] = *reinterpret_cast<const uint32_t*>(&tile[r0 + g][c]);
-    f[kk][1] = *reinterpret_cast<const uint32_t*>(&tile[r0 + g + 8][c]);
-    f[kk][2] = *reinterpret_cast<const uint32_t*>(&tile[r0 + g][c + 8]);
-    f[kk][3] = *reinterpret_cast<const uint32_t*>(&tile[r0 + g + 8][c + 8]);
-  }
-}
-
-// acc[2][4] += A (this warp's 16 rows, fragments a[kk]) times the
-// transpose of rows [n0, n0 + 16) of `tile` (B from ldmatrix): a
-// [16 rows, 16 columns] slab of A tile^T.
-template <int D>
-__device__ __forceinline__ void slab_from_regs(float acc[2][4],
-                                               uint32_t a[][4],
-                                               Row<D>* tile, int n0) {
-  const int lane = threadIdx.x % 32;
-  const int b_row = lane & 7, b_col = (lane >> 3) * 8;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; kk += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, &tile[n0 + j * 8 + b_row][kk * 16 + b_col]);
-      mma_bf16_16816(acc[j], a[kk], b[0], b[1]);
-      mma_bf16_16816(acc[j], a[kk + 1], b[2], b[3]);
+    const uint32_t col = (kk % 4) * 32;
+    const uint64_t da = desc_k_major(a + (kk / 4) * a_panel + col);
+    const uint64_t db = desc_k_major(b + (kk / 4) * N * kRowBytes + col);
+    if constexpr (N == 128) {
+      wgmma_ss_n128(acc, da, db, kk > 0);
+    } else {
+      wgmma_ss_n64(acc, da, db, kk > 0);
     }
   }
 }
 
-// As slab_from_regs, with A = rows [r0, r0 + 16) of smem tile `at`
-// (fragments by ldmatrix, two 16-column steps per pass).
-template <int D>
-__device__ __forceinline__ void slab_from_smem(float acc[2][4],
-                                               Row<D>* at, int r0,
-                                               Row<D>* tile, int n0) {
-  const int lane = threadIdx.x % 32;
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int a_col = (lane >> 4) * 8;
-  const int b_row = lane & 7, b_col = (lane >> 3) * 8;
+// acc[64 x D] += A[64 x K] B[K x D]: A as K / 16 bf16 register fragments,
+// B a tile of K rows read MN-major (transposed).
+template <int D, int K, int kK0 = 0, int kK1 = K / 16>
+__device__ __forceinline__ void gemm_rs(float (&acc)[D / 2],
+                                        const uint32_t (&a)[K / 16][4],
+                                        uint32_t b) {
+  // The reduction in steps of 16 rows (those of [16 kK0, 16 kK1)); all of
+  // head_dim (D / 64 panels, K rows each) at once.
 #pragma unroll
-  for (int kk = 0; kk < D / 16; kk += 2) {
-    uint32_t a0[4], a1[4];
-    ldmatrix_x4(a0, &at[r0 + a_row][kk * 16 + a_col]);
-    ldmatrix_x4(a1, &at[r0 + a_row][(kk + 1) * 16 + a_col]);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      uint32_t b[4];
-      ldmatrix_x4(b, &tile[n0 + j * 8 + b_row][kk * 16 + b_col]);
-      mma_bf16_16816(acc[j], a0, b[0], b[1]);
-      mma_bf16_16816(acc[j], a1, b[2], b[3]);
+  for (int kk = kK0; kk < kK1; ++kk) {
+    const uint64_t desc = desc_mn_major(b + kk * 16 * kRowBytes,
+                                        K * kRowBytes);
+    if constexpr (D == 128) {
+      wgmma_rs_n128(acc, a[kk], desc);
+    } else {
+      wgmma_rs_n64(acc, a[kk], desc);
     }
   }
 }
 
-// acc[D/8][4] += A (16 x 16, fragment a) times rows [r0, r0 + 16) of
-// `tile` (16 x D, B by transposed ldmatrix).
-template <int D>
-__device__ __forceinline__ void accumulate_rows(float acc[][4],
-                                                const uint32_t a[4],
-                                                Row<D>* tile, int r0) {
-  const int lane = threadIdx.x % 32;
-  const int v_row = ((lane >> 3) & 1) * 8 + (lane & 7);
-  const int v_col = (lane >> 4) * 8;
+// The bf16 A fragments of a [64 x N] float32 accumulator: its layout
+// (c[4 j + e] row g, column 8 j + 2 t + e; c[4 j + 2 + e] row g + 8) is
+// wgmma's A fragment layout.
+template <int N, int kK0 = 0, int kK1 = N / 16>
+__device__ __forceinline__ void to_frags(uint32_t (&f)[N / 16][4],
+                                         const float (&c)[N / 2]) {
 #pragma unroll
-  for (int dt = 0; dt < D / 8; dt += 2) {
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, &tile[r0 + v_row][dt * 8 + v_col]);
-    mma_bf16_16816(acc[dt], a, b[0], b[1]);
-    mma_bf16_16816(acc[dt + 1], a, b[2], b[3]);
+  for (int kk = kK0; kk < kK1; ++kk) {
+    f[kk][0] = pack_bf16(c[8 * kk], c[8 * kk + 1]);
+    f[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    f[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    f[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
   }
 }
 
-// The bf16 A fragment of a [16, 16] slab held as two C fragments.
-__device__ __forceinline__ void slab_to_a(uint32_t a[4], float c[2][4]) {
-  a[0] = pack_bf16(c[0][0], c[0][1]);
-  a[1] = pack_bf16(c[0][2], c[0][3]);
-  a[2] = pack_bf16(c[1][0], c[1][1]);
-  a[3] = pack_bf16(c[1][2], c[1][3]);
-}
-
-// Write a warp's [16, D] float32 accumulator as bf16 rows r_a, r_a + 8
-// of a [rows, D] matrix.
+// Write a thread's share of a [64 x D] float32 accumulator as bf16 rows
+// row_a and row_a + 8 of a [rows, D] matrix; rows at or past `rows` are
+// not written.
 template <int D>
 __device__ __forceinline__ void store_rows(uint16_t* __restrict__ out,
-                                           float acc[][4], int row_a,
-                                           int rows) {
-  const int t = threadIdx.x & 3;
+                                           const float (&acc)[D / 2],
+                                           int row_a, int rows, int t) {
   const int row_b = row_a + 8;
+  uint16_t* o_a = out + static_cast<size_t>(row_a) * D;
+  uint16_t* o_b = o_a + 8 * D;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + t * 2;
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
     if (row_a < rows) {
-      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row_a) * D +
-                                   col) = pack_bf16(acc[dt][0], acc[dt][1]);
+      *reinterpret_cast<uint32_t*>(o_a + col) =
+          pack_bf16(acc[4 * j], acc[4 * j + 1]);
     }
     if (row_b < rows) {
-      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row_b) * D +
-                                   col) = pack_bf16(acc[dt][2], acc[dt][3]);
+      *reinterpret_cast<uint32_t*>(o_b + col) =
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
 }
 
-template <int D>
-constexpr int dq_smem_bytes() {
-  return 4 * kBK * static_cast<int>(sizeof(Row<D>));  // K, V double-buffered
+// The two query rows of a dq thread: keys before `lim` are live (those
+// before sk, and under the causal mask those up to the row), the base-2
+// offset of p, and delta * scale.
+struct DqRows {
+  int lim_a, lim_b;
+  float off_a, off_b, dls_a, dls_b;
+};
+
+// One key tile of dq (its keys [8 kJ0, 8 kJ1)): ds = p (dp - delta)
+// scale in place of s, with p = exp2(s scale log2(e) - offset).  kMask
+// (the diagonal and ragged tiles only) zeroes p of the keys past each
+// row's limit: key k0 + 8 j + 2 t + e, so the test is 8 j + e against the
+// limit less k0 + 2 t.
+template <int N, bool kMask, int kJ0, int kJ1>
+__device__ __forceinline__ void dq_ds(float (&s)[N / 2],
+                                      const float (&dp)[N / 2],
+                                      const DqRows& r, int k0, int t,
+                                      float sl2, float scale) {
+  const int ca = r.lim_a - k0 - 2 * t, cb = r.lim_b - k0 - 2 * t;
+#pragma unroll
+  for (int j = kJ0; j < kJ1; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float pa = fast_exp2(fmaf(s[4 * j + e], sl2, -r.off_a));
+      float pb = fast_exp2(fmaf(s[4 * j + 2 + e], sl2, -r.off_b));
+      if constexpr (kMask) {
+        if (8 * j + e >= ca) pa = 0.f;
+        if (8 * j + e >= cb) pb = 0.f;
+      }
+      s[4 * j + e] = pa * fmaf(dp[4 * j + e], scale, -r.dls_a);
+      s[4 * j + 2 + e] = pb * fmaf(dp[4 * j + 2 + e], scale, -r.dls_b);
+    }
+  }
 }
 
-template <int D>
-constexpr int dkv_smem_bytes() {
-  // K, V once; Q, G double-buffered; lse and delta of one query tile.
-  return 6 * kBK * static_cast<int>(sizeof(Row<D>)) +
-         2 * kBQ * static_cast<int>(sizeof(float));
+// Part kPart of kDqParts of a dq key tile: its ds (the mask chosen per
+// tile), rounded to bf16 A fragments, and its share of dQ += dS K issued
+// and committed.
+template <int D, int kPart>
+__device__ __forceinline__ void dq_part(bool mask, float (&s)[kDqKeys / 2],
+                                        const float (&dp)[kDqKeys / 2],
+                                        uint32_t (&ds)[kDqKeys / 16][4],
+                                        float (&acc)[D / 2],
+                                        const DqRows& r, int k0, int t,
+                                        float sl2, float scale,
+                                        uint32_t k_tile) {
+  constexpr int kJ = kDqKeys / 8 / kDqParts, kK = kDqKeys / 16 / kDqParts;
+  if (mask) {
+    dq_ds<kDqKeys, true, kPart * kJ, (kPart + 1) * kJ>(s, dp, r, k0, t, sl2,
+                                                       scale);
+  } else {
+    dq_ds<kDqKeys, false, kPart * kJ, (kPart + 1) * kJ>(s, dp, r, k0, t,
+                                                        sl2, scale);
+  }
+  to_frags<kDqKeys, kPart * kK, (kPart + 1) * kK>(ds, s);
+  wgmma_fence();
+  gemm_rs<D, kDqKeys, kPart * kK, (kPart + 1) * kK>(acc, ds, k_tile);
+  wgmma_commit();
 }
 
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const uint16_t* __restrict__ q,
-                const uint16_t* __restrict__ k,
-                const uint16_t* __restrict__ v,
-                const uint16_t* __restrict__ g,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dq_kernel(__grid_constant__ const CUtensorMap tm_q,
+                __grid_constant__ const CUtensorMap tm_g,
+                __grid_constant__ const CUtensorMap tm_k,
+                __grid_constant__ const CUtensorMap tm_v,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta,
                 uint16_t* __restrict__ dq, int sq, int sk, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Row<D>* ks = reinterpret_cast<Row<D>*>(smem);  // [2][kBK]
-  Row<D>* vs = ks + 2 * kBK;                     // [2][kBK]
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  using L = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t qg_full = base + L::kBar;
+  auto full = [&](int st) { return qg_full + 8 * (1 + st); };
+  auto empty = [&](int st) { return qg_full + 8 * (1 + kDqStages + st); };
 
   const int bh = blockIdx.y;
   // Heaviest causal tiles (last query rows) start first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int t = lane & 3;
-  const int wr = warp * 16;
-
-  const uint16_t* qh = q + static_cast<size_t>(bh) * sq * D;
-  const uint16_t* gh = g + static_cast<size_t>(bh) * sq * D;
-  const uint16_t* kh = k + static_cast<size_t>(bh) * sk * D;
-  const uint16_t* vh = v + static_cast<size_t>(bh) * sk * D;
-
-  // Stage this CTA's Q and G tiles through the K and V buffers and keep
-  // each warp's 16 rows of both as mma A fragments for the key loop.
-  load_tile_async<D>(ks, qh, q0, sq);
-  load_tile_async<D>(vs, gh, q0, sq);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[D / 16][4], gf[D / 16][4];
-  row_fragments<D>(qf, ks, wr);
-  row_fragments<D>(gf, vs, wr);
-  __syncthreads();
-
-  const int row_a = q0 + wr + (lane >> 2);  // this lane's two query rows
-  const int row_b = row_a + 8;
-  const size_t base = static_cast<size_t>(bh) * sq;
-  // Rows past sq read as the sentinel: their p is 0.
-  const float lse_a = row_a < sq ? lse[base + row_a] : kNegInf;
-  const float lse_b = row_b < sq ? lse[base + row_b] : kNegInf;
-  const float dl_a = row_a < sq ? delta[base + row_a] : 0.f;
-  const float dl_b = row_b < sq ? delta[base + row_b] : 0.f;
-  const bool fin_a = lse_a > kNegInf / 2;
-  const bool fin_b = lse_b > kNegInf / 2;
-
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;
   // Live key tiles: none wholly above the diagonal of this query tile.
-  int kt_end = (sk + kBK - 1) / kBK;
-  if (kCausal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBK + 1);
+  int n_tiles = (sk + kDqKeys - 1) / kDqKeys;
+  if (kCausal) {
+    n_tiles = min(n_tiles, (min(q0 + kDqRows, sq) - 1) / kDqKeys + 1);
+  }
 
-  float acc[D / 8][4];
+  if (threadIdx.x == 0) {
+    mbar_init(qg_full, 1);
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-
-  if (kt_end > 0) {
-    load_tile_async<D>(ks, kh, 0, sk);
-    load_tile_async<D>(vs, vh, 0, sk);
-  }
-  cp_async_commit();
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int buf = kt & 1;
-    // The other buffer was released by the barrier that ended the last
-    // iteration: fill it with the next tile while this one is used.
-    if (kt + 1 < kt_end) {
-      load_tile_async<D>(ks + (buf ^ 1) * kBK, kh, (kt + 1) * kBK, sk);
-      load_tile_async<D>(vs + (buf ^ 1) * kBK, vh, (kt + 1) * kBK, sk);
+    for (int st = 0; st < kDqStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers * 128);
     }
-    cp_async_commit();  // possibly empty: keeps the group count uniform
-    cp_async_wait<1>();  // tile kt has landed
-    __syncthreads();
-    Row<D>* kb = ks + buf * kBK;
-    Row<D>* vb = vs + buf * kBK;
-    const int k0 = kt * kBK;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-#pragma unroll 1
-    for (int c = 0; c < kBK / 16; ++c) {
-      // s = q k^T and dp = g v^T for 16 keys.
-      float s[2][4] = {}, dp[2][4] = {};
-      slab_from_regs<D>(s, qf, kb, c * 16);
-      slab_from_regs<D>(dp, gf, vb, c * 16);
-      // ds = p (dp - delta) scale, p = exp(s scale - lse), dead pairs 0.
+  if (threadIdx.x >= kConsumers * 128) {
+    // Producer warpgroup: one thread keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kDqProducerRegs));
+    if (threadIdx.x == kConsumers * 128 && n_tiles > 0) {
+      mbar_expect_tx(qg_full, 2 * L::kQBytes);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int p = 0; p < D / kPanel; ++p) {
+        tma_load(base + L::kQ + p * kDqRows * kRowBytes, &tm_q, qg_full,
+                 p * kPanel, q0, bh);
+        tma_load(base + L::kG + p * kDqRows * kRowBytes, &tm_g, qg_full,
+                 p * kPanel, q0, bh);
+      }
+      int st = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        mbar_wait(empty(st), phase ^ 1);
+        mbar_expect_tx(full(st), 2 * L::kTileBytes);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kj = k0 + c * 16 + j * 8 + t * 2 + e;
-          const bool live_a = fin_a && kj < sk && (!kCausal || kj <= row_a);
-          const bool live_b = fin_b && kj < sk && (!kCausal || kj <= row_b);
-          const float pa = live_a ? __expf(s[j][e] * scale - lse_a) : 0.f;
-          const float pb = live_b ? __expf(s[j][2 + e] * scale - lse_b) : 0.f;
-          s[j][e] = pa * (dp[j][e] - dl_a) * scale;
-          s[j][2 + e] = pb * (dp[j][2 + e] - dl_b) * scale;
+        for (int p = 0; p < D / kPanel; ++p) {
+          const uint32_t off = st * L::kTileBytes + p * kDqKeys * kRowBytes;
+          tma_load(base + L::kK + off, &tm_k, full(st), p * kPanel,
+                   it * kDqKeys, bh);
+          tma_load(base + L::kV + off, &tm_v, full(st), p * kPanel,
+                   it * kDqKeys, bh);
+        }
+        if (++st == kDqStages) {
+          st = 0;
+          phase ^= 1;
         }
       }
-      // dq += ds k.
-      uint32_t da[4];
-      slab_to_a(da, s);
-      accumulate_rows<D>(acc, da, kb, c * 16);
     }
-    __syncthreads();  // every warp is done with this buffer
+  } else {
+    // Consumer warpgroups: 64 query rows each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kDqConsumerRegs));
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int t = lane & 3;
+    const int r_lo = q0 + wg * 64;
+    const int row_a = r_lo + warp * 16 + (lane >> 2), row_b = row_a + 8;
+    const float* lse_h = lse + static_cast<size_t>(bh) * sq;
+    const float* delta_h = delta + static_cast<size_t>(bh) * sq;
+    DqRows r;
+    r.lim_a = kCausal ? min(row_a + 1, sk) : sk;
+    r.lim_b = kCausal ? min(row_b + 1, sk) : sk;
+    r.off_a = exp2_offset(lse_h, row_a, sq);
+    r.off_b = exp2_offset(lse_h, row_b, sq);
+    r.dls_a = row_a < sq ? delta_h[row_a] * scale : 0.f;
+    r.dls_b = row_b < sq ? delta_h[row_b] * scale : 0.f;
+    // The warpgroup's least limit: a tile that reaches it needs the mask.
+    const int wg_lim = kCausal ? min(r_lo + 1, sk) : sk;
+    const float sl2 = scale * kLog2e;
+    float acc[D / 2];
+    float s[kDqKeys / 2], dp[kDqKeys / 2];
+    uint32_t ds[kDqKeys / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDqKeys / 2; ++i) s[i] = dp[i] = 0.f;
+
+    if (n_tiles > 0) {
+      mbar_wait(qg_full, 0);
+      const uint32_t q_tile = base + L::kQ + wg * 64 * kRowBytes;
+      const uint32_t g_tile = base + L::kG + wg * 64 * kRowBytes;
+      int st = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int k0 = it * kDqKeys;
+        const uint32_t k_tile = base + L::kK + st * L::kTileBytes;
+        const uint32_t v_tile = base + L::kV + st * L::kTileBytes;
+        mbar_wait(full(st), phase);
+        // S = Q K^T and dP = G V^T, waited on together.
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+        gemm_ss<D, kDqKeys>(s, q_tile, kDqRows * kRowBytes, k_tile);
+        gemm_ss<D, kDqKeys>(dp, g_tile, kDqRows * kRowBytes, v_tile);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // dQ += dS K, part by part (each part's product runs while the
+        // next part's ds is computed); K (and V) are released once all
+        // have completed.
+        const bool mask = k0 + kDqKeys > wg_lim;
+        fence_regs(acc);
+        dq_part<D, 0>(mask, s, dp, ds, acc, r, k0, t, sl2, scale, k_tile);
+        dq_part<D, 1>(mask, s, dp, ds, acc, r, k0, t, sl2, scale, k_tile);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(ds);
+        mbar_arrive(empty(st));
+        if (++st == kDqStages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    store_rows<D>(dq + static_cast<size_t>(bh) * sq * D, acc, row_a, sq, t);
   }
-  cp_async_wait<0>();
-  store_rows<D>(dq + base * D, acc, row_a, sq);
+}
+
+// One query tile of dkv, in the transposed space (rows are keys, columns
+// queries): p^T in place of s^T.  Each column's base-2 offset (and, in
+// dkv_ds, delta) comes from the tile's row statistics in shared memory
+// (`stats`: kDkvRows offsets, then kDkvRows deltas); a thread reads those
+// of its own fragment columns.  A query past sq has offset +inf (so
+// p = 0), whatever the zero-filled Q and G tiles hold there.  kMask (the
+// causal diagonal tiles only) zeroes p where query q0 + 8 j + 2 t + e
+// precedes the key: 8 j + e against the key less q0 + 2 t.
+template <bool kMask>
+__device__ __forceinline__ void dkv_p(float (&s_t)[kDkvRows / 2],
+                                      const float* stats, int key_a, int q0,
+                                      int t, float sl2) {
+  const int ca = key_a - q0 - 2 * t, cb = ca + 8;
+#pragma unroll
+  for (int j = 0; j < kDkvRows / 8; ++j) {
+    const float2 off = *reinterpret_cast<const float2*>(stats + 8 * j +
+                                                        2 * t);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float o = e ? off.y : off.x;
+      float pa = fast_exp2(fmaf(s_t[4 * j + e], sl2, -o));
+      float pb = fast_exp2(fmaf(s_t[4 * j + 2 + e], sl2, -o));
+      if constexpr (kMask) {
+        if (8 * j + e < ca) pa = 0.f;
+        if (8 * j + e < cb) pb = 0.f;
+      }
+      s_t[4 * j + e] = pa;
+      s_t[4 * j + 2 + e] = pb;
+    }
+  }
+}
+
+// ds^T = p^T (dp^T - delta) scale in place of dp^T, p^T from dkv_p.
+__device__ __forceinline__ void dkv_ds(const float (&p_t)[kDkvRows / 2],
+                                       float (&dp_t)[kDkvRows / 2],
+                                       const float* stats, int t,
+                                       float scale) {
+#pragma unroll
+  for (int j = 0; j < kDkvRows / 8; ++j) {
+    const float2 dl = *reinterpret_cast<const float2*>(
+        stats + kDkvRows + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float dls = (e ? dl.y : dl.x) * scale;
+      dp_t[4 * j + e] = p_t[4 * j + e] * fmaf(dp_t[4 * j + e], scale, -dls);
+      dp_t[4 * j + 2 + e] =
+          p_t[4 * j + 2 + e] * fmaf(dp_t[4 * j + 2 + e], scale, -dls);
+    }
+  }
 }
 
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const uint16_t* __restrict__ q,
-                 const uint16_t* __restrict__ k,
-                 const uint16_t* __restrict__ v,
-                 const uint16_t* __restrict__ g,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkv_kernel(__grid_constant__ const CUtensorMap tm_q,
+                 __grid_constant__ const CUtensorMap tm_g,
+                 __grid_constant__ const CUtensorMap tm_k,
+                 __grid_constant__ const CUtensorMap tm_v,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
                  uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
                  int sq, int sk, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Row<D>* ks = reinterpret_cast<Row<D>*>(smem);  // [kBK]
-  Row<D>* vs = ks + kBK;                         // [kBK]
-  Row<D>* qs = vs + kBK;                         // [2][kBQ]
-  Row<D>* gs = qs + 2 * kBQ;                     // [2][kBQ]
-  float* lse_s = reinterpret_cast<float*>(gs + 2 * kBQ);  // [kBQ]
-  float* delta_s = lse_s + kBQ;                           // [kBQ]
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  using L = DkvSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  // The same base as a generic pointer, for the row statistics.
+  uint8_t* const gbase = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t kv_full = base + L::kBar;
+  auto full = [&](int st) { return kv_full + 8 * (1 + st); };
+  auto empty = [&](int st) { return kv_full + 8 * (1 + kDkvStages + st); };
+  auto stats = [&](int st) {
+    return reinterpret_cast<float*>(gbase + L::kStats + st * L::kStatBytes);
+  };
 
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kBK;  // the causal-heaviest tiles come first
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int t = lane & 3;
-  const int wr = warp * 16;
+  const int k0 = blockIdx.x * kDkvKeys;  // the causal-heaviest tiles first
+  // Live query tiles: from the first whose last row reaches this CTA's
+  // first key (q_start + kDkvRows - 1 >= k0).  None (causal, k0 >= sq):
+  // the CTA still writes its zero dk and dv.
+  const int qt_begin = kCausal ? k0 / kDkvRows : 0;
+  const int n_tiles = max((sq + kDkvRows - 1) / kDkvRows - qt_begin, 0);
 
-  const uint16_t* qh = q + static_cast<size_t>(bh) * sq * D;
-  const uint16_t* gh = g + static_cast<size_t>(bh) * sq * D;
-  const uint16_t* kh = k + static_cast<size_t>(bh) * sk * D;
-  const uint16_t* vh = v + static_cast<size_t>(bh) * sk * D;
-  const float* lh = lse + static_cast<size_t>(bh) * sq;
-  const float* dh = delta + static_cast<size_t>(bh) * sq;
-
-  // Live query tiles: from the first whose last row reaches this key
-  // tile's first key (q_start + kBQ - 1 >= k0).
-  const int qt_begin = kCausal ? k0 / kBQ : 0;
-  const int qt_end = (sq + kBQ - 1) / kBQ;
-
-  load_tile_async<D>(ks, kh, k0, sk);
-  load_tile_async<D>(vs, vh, k0, sk);
-  if (qt_begin < qt_end) {
-    load_tile_async<D>(qs, qh, qt_begin * kBQ, sq);
-    load_tile_async<D>(gs, gh, qt_begin * kBQ, sq);
-  }
-  cp_async_commit();
-
-  const int key_a = k0 + wr + (lane >> 2);  // this lane's two key rows
-  const int key_b = key_a + 8;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[dt][i] = dv_acc[dt][i] = 0.f;
-  }
-
-  for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int buf = (qt - qt_begin) & 1;
-    const int q0 = qt * kBQ;
-    if (qt + 1 < qt_end) {
-      load_tile_async<D>(qs + (buf ^ 1) * kBQ, qh, q0 + kBQ, sq);
-      load_tile_async<D>(gs + (buf ^ 1) * kBQ, gh, q0 + kBQ, sq);
+    for (int st = 0; st < kDkvStages; ++st) {
+      // Every producer thread arrives (one with the TMA bytes).
+      mbar_init(full(st), 128);
+      mbar_init(empty(st), kConsumers * 128);
     }
-    cp_async_commit();  // possibly empty: keeps the group count uniform
-    // This tile's lse and delta by column; queries past sq read as the
-    // sentinel, so their p is 0.
-    if (threadIdx.x < kBQ) {
-      const int qi = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = qi < sq ? lh[qi] : kNegInf;
-      delta_s[threadIdx.x] = qi < sq ? dh[qi] : 0.f;
-    }
-    cp_async_wait<1>();  // tile qt (and K, V) have landed
-    __syncthreads();
-    Row<D>* qb = qs + buf * kBQ;
-    Row<D>* gb = gs + buf * kBQ;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-#pragma unroll 1
-    for (int c = 0; c < kBQ / 16; ++c) {
-      // Transposed space, 16 keys x 16 queries: s_t = k q^T and
-      // dp_t = v g^T.
-      float st[2][4] = {}, dpt[2][4] = {};
-      slab_from_smem<D>(st, ks, wr, qb, c * 16);
-      slab_from_smem<D>(dpt, vs, wr, gb, c * 16);
+  if (threadIdx.x >= kConsumers * 128) {
+    // Producer warpgroup: one thread issues the TMA loads; each of the
+    // 128 writes one row statistic of the tile (threads 0-63 the base-2
+    // offsets of p, 64-127 the deltas), read within bounds.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kDkvProducerRegs));
+    const int pt = threadIdx.x - kConsumers * 128;
+    if (n_tiles > 0) {
+      if (pt == 0) {
+        mbar_expect_tx(kv_full, 2 * L::kKBytes);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = c * 16 + j * 8 + t * 2 + e;
-          const int qi = q0 + col;
-          const float l = lse_s[col];
-          const float dl = delta_s[col];
-          const bool fin = l > kNegInf / 2;
-          const bool live_a = fin && (!kCausal || qi >= key_a);
-          const bool live_b = fin && (!kCausal || qi >= key_b);
-          const float pa = live_a ? __expf(st[j][e] * scale - l) : 0.f;
-          const float pb = live_b ? __expf(st[j][2 + e] * scale - l) : 0.f;
-          st[j][e] = pa;
-          st[j][2 + e] = pb;
-          dpt[j][e] = pa * (dpt[j][e] - dl) * scale;
-          dpt[j][2 + e] = pb * (dpt[j][2 + e] - dl) * scale;
+        for (int p = 0; p < D / kPanel; ++p) {
+          tma_load(base + L::kK + p * kDkvKeys * kRowBytes, &tm_k, kv_full,
+                   p * kPanel, k0, bh);
+          tma_load(base + L::kV + p * kDkvKeys * kRowBytes, &tm_v, kv_full,
+                   p * kPanel, k0, bh);
         }
       }
-      // dv += p_t g and dk += ds_t q over these 16 queries.
-      uint32_t pf[4], dsf[4];
-      slab_to_a(pf, st);
-      slab_to_a(dsf, dpt);
-      accumulate_rows<D>(dv_acc, pf, gb, c * 16);
-      accumulate_rows<D>(dk_acc, dsf, qb, c * 16);
+      const float* lse_h = lse + static_cast<size_t>(bh) * sq;
+      const float* delta_h = delta + static_cast<size_t>(bh) * sq;
+      int st = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int q0 = (qt_begin + it) * kDkvRows;
+        const int qi = q0 + pt % kDkvRows;
+        mbar_wait(empty(st), phase ^ 1);
+        stats(st)[pt] = pt < kDkvRows ? exp2_offset(lse_h, qi, sq)
+                                      : (qi < sq ? delta_h[qi] : 0.f);
+        if (pt == 0) {
+          mbar_expect_tx(full(st), 2 * L::kTileBytes);
+#pragma unroll
+          for (int p = 0; p < D / kPanel; ++p) {
+            const uint32_t off = st * L::kTileBytes + p * kDkvRows * kRowBytes;
+            tma_load(base + L::kQ + off, &tm_q, full(st), p * kPanel, q0, bh);
+            tma_load(base + L::kG + off, &tm_g, full(st), p * kPanel, q0, bh);
+          }
+        } else {
+          mbar_arrive(full(st));
+        }
+        if (++st == kDkvStages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
     }
-    __syncthreads();  // every warp is done with this buffer and lse_s
+  } else {
+    // Consumer warpgroups: 64 keys each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kDkvConsumerRegs));
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int t = lane & 3;
+    const int kr_lo = k0 + wg * 64;
+    const int key_a = kr_lo + warp * 16 + (lane >> 2);
+    const float sl2 = scale * kLog2e;
+    float dk_acc[D / 2], dv_acc[D / 2];
+    float s_t[kDkvRows / 2], dp_t[kDkvRows / 2];
+    uint32_t pf[kDkvRows / 16][4], dsf[kDkvRows / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDkvRows / 2; ++i) s_t[i] = dp_t[i] = 0.f;
+
+    if (n_tiles > 0) {
+      mbar_wait(kv_full, 0);
+      const uint32_t k_tile = base + L::kK + wg * 64 * kRowBytes;
+      const uint32_t v_tile = base + L::kV + wg * 64 * kRowBytes;
+      int st = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int q0 = (qt_begin + it) * kDkvRows;
+        const uint32_t q_tile = base + L::kQ + st * L::kTileBytes;
+        const uint32_t g_tile = base + L::kG + st * L::kTileBytes;
+        mbar_wait(full(st), phase);
+        // S^T = K Q^T and dP^T = V G^T, waited on together.
+        fence_regs(s_t);
+        fence_regs(dp_t);
+        wgmma_fence();
+        gemm_ss<D, kDkvRows>(s_t, k_tile, kDkvKeys * kRowBytes, q_tile);
+        gemm_ss<D, kDkvRows>(dp_t, v_tile, kDkvKeys * kRowBytes, g_tile);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s_t);
+        fence_regs(dp_t);
+
+        // Causal: only a tile that starts before this warpgroup's last key
+        // holds a query that precedes a key.
+        if (kCausal && q0 < kr_lo + 63) {
+          dkv_p<true>(s_t, stats(st), key_a, q0, t, sl2);
+        } else {
+          dkv_p<false>(s_t, stats(st), key_a, q0, t, sl2);
+        }
+        // dV += P^T G and dK += dS^T Q; the stage is released once both
+        // have completed.
+        dkv_ds(s_t, dp_t, stats(st), t, scale);
+        to_frags<kDkvRows>(pf, s_t);
+        to_frags<kDkvRows>(dsf, dp_t);
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        wgmma_fence();
+        gemm_rs<D, kDkvRows>(dv_acc, pf, g_tile);
+        gemm_rs<D, kDkvRows>(dk_acc, dsf, q_tile);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        fence_regs(pf);
+        fence_regs(dsf);
+        mbar_arrive(empty(st));
+        if (++st == kDkvStages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    const size_t head = static_cast<size_t>(bh) * sk * D;
+    store_rows<D>(dk + head, dk_acc, key_a, sk, t);
+    store_rows<D>(dv + head, dv_acc, key_a, sk, t);
   }
-  cp_async_wait<0>();
-  const size_t base = static_cast<size_t>(bh) * sk * D;
-  store_rows<D>(dk + base, dk_acc, key_a, sk);
-  store_rows<D>(dv + base, dv_acc, key_a, sk);
 }
 
-template <int D, bool kCausal>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* g, const float* lse, const float* delta,
-                      void* dq, int bh, int sq, int sk, float scale,
-                      cudaStream_t stream) {
-  auto kernel = flash_dq_kernel<D, kCausal>;
-  constexpr int bytes = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(g), lse,
-      delta, static_cast<uint16_t*>(dq), sq, sk, scale);
-  return cudaGetLastError();
-}
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
 
-template <int D, bool kCausal>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* g, const float* lse, const float* delta,
-                       void* dk, void* dv, int bh, int sq, int sk,
-                       float scale, cudaStream_t stream) {
-  auto kernel = flash_dkv_kernel<D, kCausal>;
-  constexpr int bytes = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sk + kBK - 1) / kBK, bh);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(g), lse,
-      delta, static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), sq, sk,
-      scale);
-  return cudaGetLastError();
+struct Args {
+  const void *q, *k, *v, *g;
+  const float *lse, *delta;
+  void *out0, *out1;  // dq; or dk, dv
+  int bh, sq, sk;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <bool kDkv, int D, bool kCausal>
+struct Instance {
+  static auto kernel() {
+    if constexpr (kDkv) {
+      return flash_dkv_kernel<D, kCausal>;
+    } else {
+      return flash_dq_kernel<D, kCausal>;
+    }
+  }
+  static constexpr int kSmemBytes =
+      kDkv ? DkvSmem<D>::kBytes : DqSmem<D>::kBytes;
+
+  static cudaError_t launch(const Args& a) {
+    static std::atomic<uint64_t> allowed{0};
+    cudaError_t err = allow_smem(kernel(), kSmemBytes, allowed);
+    if (err != cudaSuccess) return err;
+    // Query-side boxes (Q, G) and key-side boxes (K, V) of the CTA's
+    // tiles.
+    const int q_box = kDkv ? kDkvRows : kDqRows;
+    const int k_box = kDkv ? kDkvKeys : kDqKeys;
+    CUtensorMap tq, tg, tk, tv;
+    if ((err = make_map(&tq, a.q, a.bh, a.sq, D, q_box)) != cudaSuccess ||
+        (err = make_map(&tg, a.g, a.bh, a.sq, D, q_box)) != cudaSuccess ||
+        (err = make_map(&tk, a.k, a.bh, a.sk, D, k_box)) != cudaSuccess ||
+        (err = make_map(&tv, a.v, a.bh, a.sk, D, k_box)) != cudaSuccess) {
+      return err;
+    }
+    const auto fn = kernel();
+    if constexpr (kDkv) {
+      const dim3 grid((a.sk + kDkvKeys - 1) / kDkvKeys, a.bh);
+      fn<<<grid, kThreads, kSmemBytes, a.stream>>>(
+          tq, tg, tk, tv, a.lse, a.delta, static_cast<uint16_t*>(a.out0),
+          static_cast<uint16_t*>(a.out1), a.sq, a.sk, a.scale);
+    } else {
+      const dim3 grid((a.sq + kDqRows - 1) / kDqRows, a.bh);
+      fn<<<grid, kThreads, kSmemBytes, a.stream>>>(
+          tq, tg, tk, tv, a.lse, a.delta, static_cast<uint16_t*>(a.out0),
+          a.sq, a.sk, a.scale);
+    }
+    return cudaGetLastError();
+  }
+
+  // info[0] registers a thread at entry (the loaded kernel's, as ptxas
+  // reports them), info[1] shared memory a CTA in bytes as launched.
+  static cudaError_t attributes(int* info) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel());
+    if (err != cudaSuccess) return err;
+    info[0] = attr.numRegs;
+    info[1] = static_cast<int>(attr.sharedSizeBytes) + kSmemBytes;
+    return cudaSuccess;
+  }
+};
+
+// Call f with the instance of this kernel (dq or dkv), head_dim and mask.
+template <bool kDkv, typename F>
+cudaError_t with_instance(int d, bool causal, F&& f) {
+  switch (d) {
+    case 64:
+      return causal ? f(Instance<kDkv, 64, true>())
+                    : f(Instance<kDkv, 64, false>());
+    case 128:
+      return causal ? f(Instance<kDkv, 128, true>())
+                    : f(Instance<kDkv, 128, false>());
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, g [bh, sq, d], k, v [bh, sk, d] contiguous bf16; lse, delta [bh, sq]
-// f32; dq [bh, sq, d] bf16.  Returns a cudaError_t;
+// q, g [bh, sq, d], k, v [bh, sk, d] contiguous, 16-byte aligned bf16;
+// lse, delta [bh, sq] f32; dq [bh, sq, d] bf16.  Returns a cudaError_t;
 // cudaErrorInvalidValue for a head_dim the kernel has no instance of.
 int kft_flash_dq_bf16(const void* q, const void* k, const void* v,
                       const void* g, const float* lse, const float* delta,
                       void* dq, int bh, int sq, int sk, int d, int causal,
                       float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return causal ? launch_dq<64, true>(q, k, v, g, lse, delta, dq, bh, sq,
-                                          sk, scale, s)
-                    : launch_dq<64, false>(q, k, v, g, lse, delta, dq, bh,
-                                           sq, sk, scale, s);
-    case 128:
-      return causal ? launch_dq<128, true>(q, k, v, g, lse, delta, dq, bh,
-                                           sq, sk, scale, s)
-                    : launch_dq<128, false>(q, k, v, g, lse, delta, dq, bh,
-                                            sq, sk, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const Args a{q, k, v, g, lse, delta, dq, nullptr, bh, sq, sk, scale,
+               static_cast<cudaStream_t>(stream)};
+  return with_instance<false>(
+      d, causal != 0, [&](auto inst) { return decltype(inst)::launch(a); });
 }
 
 // As kft_flash_dq_bf16; dk, dv [bh, sk, d] bf16.
@@ -554,21 +744,19 @@ int kft_flash_dkv_bf16(const void* q, const void* k, const void* v,
                        const void* g, const float* lse, const float* delta,
                        void* dk, void* dv, int bh, int sq, int sk, int d,
                        int causal, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return causal ? launch_dkv<64, true>(q, k, v, g, lse, delta, dk, dv,
-                                           bh, sq, sk, scale, s)
-                    : launch_dkv<64, false>(q, k, v, g, lse, delta, dk, dv,
-                                            bh, sq, sk, scale, s);
-    case 128:
-      return causal ? launch_dkv<128, true>(q, k, v, g, lse, delta, dk, dv,
-                                            bh, sq, sk, scale, s)
-                    : launch_dkv<128, false>(q, k, v, g, lse, delta, dk, dv,
-                                             bh, sq, sk, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const Args a{q, k, v, g, lse, delta, dk, dv, bh, sq, sk, scale,
+               static_cast<cudaStream_t>(stream)};
+  return with_instance<true>(
+      d, causal != 0, [&](auto inst) { return decltype(inst)::launch(a); });
+}
+
+// What the instance that the calls above launch uses (dkv 0: the dq
+// kernel, 1: the dkv kernel): two ints into info, as
+// Instance::attributes lists them.
+int kft_flash_bwd_instance_bf16(int dkv, int d, int causal, int* info) {
+  auto query = [&](auto inst) { return decltype(inst)::attributes(info); };
+  return dkv ? with_instance<true>(d, causal != 0, query)
+             : with_instance<false>(d, causal != 0, query);
 }
 
 const char* kft_cuda_error_string(int err) {

@@ -23,12 +23,22 @@ from kubeflow_tpu_torch.ops import flash
 
 # (causal, sq, sk, NEG_INF lse rows): lengths that are not tile
 # multiples, sq != sk in the causal frame of the JAX kernels, and rows
-# whose lse is the sentinel (a row with no valid key: p = 0).
+# whose lse is the sentinel (a row with no valid key: p = 0).  The
+# kernels' tiles are 128 query rows and 128-key K / V tiles (dq), 128
+# keys and 64-query Q / G tiles (dkv): lengths below one 64-row tile,
+# one past 128 and 2048 + 1 cut them; causal sk > sq leaves key tiles
+# past the last query, whose dk and dv must still be written (as zeros).
 CASES = {
     "causal": (True, 200, 200, False),
     "causal_sq_ne_sk": (True, 130, 333, False),
     "noncausal_sq_ne_sk": (False, 100, 333, False),
     "noncausal_neg_inf_rows": (False, 150, 90, True),
+    "causal_below_one_tile": (True, 50, 50, False),
+    "causal_one_past_a_tile": (True, 129, 129, False),
+    "causal_2049": (True, 2049, 2049, False),
+    "causal_sq_gt_sk": (True, 333, 130, False),
+    "causal_sk_past_last_query": (True, 100, 400, False),
+    "causal_neg_inf_rows": (True, 300, 300, True),
 }
 REL_TOL = 2e-2
 ELEM_TOL = dict(atol=5e-2, rtol=5e-2)
@@ -80,11 +90,49 @@ def test_kernels_match_reference(cuda_device, case, d):
         _assert_close(got, want, name)
     if neg_inf_rows:
         assert torch.all(dq[3] == 0) and torch.all(dk[3] == 0)
+        assert torch.all(dv[3] == 0)
+    if causal and sk > sq:
+        # Keys past the last query: no query attends them.
+        assert torch.all(dk[:, sq:] == 0) and torch.all(dv[:, sq:] == 0)
 
 
 @pytest.mark.cuda
-def test_kernels_are_deterministic(cuda_device):
-    q, k, v, g = _inputs(cuda_device, 8, 300, 300, 128, False)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_heads_stay_apart(cuda_device, d, causal):
+    """Heads of distinct magnitudes at a length that ends inside every
+    tile, each head held to the plain version on its own: a load that
+    read the next head's rows, or a head's lse, delta or output at
+    another head's offset, would show.  The gradients of head h scale
+    with its inputs (up to 4x each), and so do their rounding errors:
+    both sides are divided by the reference head's RMS, which leaves the
+    module's tolerance as it is for unit-scale data."""
+    bh, s = 6, 200
+    q, k, v, g = _inputs(cuda_device, bh, s, s, d, False, seed=5)
+    mag = torch.arange(1, bh + 1, device=cuda_device,
+                       dtype=torch.float32)[:, None, None]
+    q, k, v, g = ((t.float() * (1 + mag / f)).bfloat16()
+                  for t, f in ((q, 8), (k, 4), (v, 2), (g, 3)))
+    o, lse = flash.flash_fwd(q, k, v, causal=causal)
+    delta = (g.float() * o.float()).sum(-1)
+    got = flash.flash_bwd(q, k, v, g, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    ref = flash.flash_bwd_reference(q.float(), k.float(), v.float(),
+                                    g.float(), lse, delta, causal=causal)
+    for h in range(bh):
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            rms = b[h].float().pow(2).mean().sqrt()
+            _assert_close(a[h].float() / rms, b[h].float() / rms,
+                          f"{name} head {h}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,s", [(64, 300), (128, 1100)])
+def test_kernels_are_deterministic(cuda_device, d, s):
+    """Two calls give equal bits; at s 1100 the rings wrap several times
+    (9 key tiles through dq's two stages, 18 query tiles through dkv's
+    two)."""
+    q, k, v, g = _inputs(cuda_device, 8, s, s, d, False)
     o, lse = flash.flash_fwd(q, k, v, causal=True)
     delta = (g.float() * o.float()).sum(-1)
     first = flash.flash_bwd(q, k, v, g, lse, delta, causal=True)
