@@ -16,7 +16,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      (the training shape, d 64 with unaligned lengths, non-causal
      sq != sk, rows whose lse is the NEG_INF sentinel, a length that
      cuts the 128-row and 64-query tiles, causal sk > sq whose key
-     tiles past the last query must write zero dk and dv),
+     tiles past the last query must write zero dk and dv, heads of
+     distinct magnitudes with each head's relative error and max
+     |err| / RMS printed),
      flash_attention's autograd path (GQA), and the
      two passes of the two-pass causal forward (pass A flash_fwd_full,
      pass B flash_fwd_diag) and their merge (the training split, d 64,
@@ -31,10 +33,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      single-pass kernel on the same inputs;
   4. serve: export a seeded 188M LM (bench.py's configuration, random
      weights), start the port's REST server in this process with bucketed
-     static batching, send concurrent mixed-length :predict requests and
-     one direct two-row request; the kernels' launch counters are zeroed
-     just before and read just after, and every serving kernel must have
-     run;
+     static batching (--lm_static_batcher: the continuous-batching engine
+     is the default and launches no flash kernel), send concurrent
+     mixed-length :predict requests and one direct two-row request; the
+     kernels' launch counters are zeroed just before and read just after,
+     and every serving kernel must have run;
   5. check: every reply is prompt + max_new_tokens tokens in the
      vocabulary, and the prefill logits of one left-padded bf16 batch
      through the kernel are no further from a float32 run of the same
@@ -42,6 +45,22 @@ Phases, each fatal on failure (exit code 1, no result line):
   6. breakdown (information only): prefill and decode time of one
      bucketed batch, and under torch.profiler the device's busy share
      and the kernels that take its time;
+ 6b. engine: the same server with the JAX CLI's engine defaults (the
+     continuous-batching DecodeEngine: 8 slots, fused rounds of 8 steps,
+     64-token prefill chunks, 16-token KV blocks, prefix cache on) and
+     the bf16 model: the eight prompts as one concurrent burst, two
+     requests sharing a 1024-token prefix, one request with the card's
+     sync debug mode at "error"; every reply prompt + max_new_tokens
+     tokens in the vocabulary, no flash kernel launched, :stats showing
+     the slots reused, a prefix hit and the JAX engine's
+     compiled_programs(); the same engine with the float32 model (TF32
+     off) must give generate()'s greedy tokens on four prompts; then
+     (information only) the bf16 engine's first difference from bf16
+     generate() per prompt, requests/s, tokens/s, TTFT and latency
+     percentiles beside phase 4's static batcher, and one fused round
+     of 8 steps at 8 live slots called directly: its time, one round
+     under sync debug mode "error", its device busy share and the share
+     of the paged-view gathers under torch.profiler;
   7. train: the port's LM training entry point (tools/train_lm.run) on
      bench.py's LM configuration (batch 8 x 2048, flash, remat, adamw
      1e-3) for a few steps, launch counters zeroed just before and read
@@ -97,6 +116,8 @@ BUCKETS = "512,1024,2048"
 MICRO_BATCH = 4
 PROMPT_LENS = (300, 1800, 520, 1620, 760, 1440, 980, 1210)
 DIRECT_ROWS, DIRECT_LEN = 2, 1024
+# Phase 6b: two engine requests share a prefix of this many tokens.
+SHARED_PREFIX = 1024
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 rate).
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -448,6 +469,52 @@ def check_bwd_kernels(torch, flash, gen, fwd_checks):
         results.append(row)
         del q, k, v, g, o, lse, delta, got, want
     return results
+
+
+def check_bwd_heads_apart(torch, flash):
+    """Phase 2, backward: heads of distinct magnitudes (q, k, v and g
+    scaled up to 4x by the head's index) at a length that ends inside
+    every tile, as tests/test_torch_flash_bwd_cuda.py's
+    test_heads_stay_apart builds them: each head's relative Frobenius
+    error and its largest error over the head's RMS, for dq, dk and dv.
+    A head that read another head's rows would stand apart from the
+    rest; a scale effect moves them together.  Fails when a head's
+    relative error exceeds BWD_REL_TOL."""
+    import numpy as np
+
+    bh, s = 6, 200
+    rng = np.random.default_rng(5)
+    worst = 0.0
+    for d in (64, 128):
+        q, k, v, g = (torch.from_numpy(rng.standard_normal(
+            (bh, s, d), np.float32)).to("cuda", torch.bfloat16)
+            for _ in range(4))
+        mag = torch.arange(1, bh + 1, device="cuda",
+                           dtype=torch.float32)[:, None, None]
+        q, k, v, g = ((t.float() * (1 + mag / f)).bfloat16()
+                      for t, f in ((q, 8), (k, 4), (v, 2), (g, 3)))
+        for causal in (True, False):
+            o, lse = flash.flash_fwd(q, k, v, causal=causal)
+            delta = (g.float() * o.float()).sum(-1)
+            got = flash.flash_bwd(q, k, v, g, lse, delta, causal=causal)
+            torch.cuda.synchronize()
+            ref = flash.flash_bwd_reference(q.float(), k.float(), v.float(),
+                                            g.float(), lse, delta,
+                                            causal=causal)
+            for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                cells = []
+                for h in range(bh):
+                    err = a[h].float() - b[h].float()
+                    rel = (err.norm() / b[h].float().norm()).item()
+                    rms = b[h].float().pow(2).mean().sqrt()
+                    worst = max(worst, rel)
+                    cells.append(f"h{h} {rel:.3e} "
+                                 f"{(err.abs().max() / rms).item():.3e}")
+                log(f"check bwd heads apart d={d} causal={causal} {name} "
+                    f"(relative Frobenius, max|err|/rms per head): "
+                    + "; ".join(cells))
+    if worst > BWD_REL_TOL:
+        fail(f"a head's backward error {worst:.3e} exceeds {BWD_REL_TOL}")
 
 
 def check_autograd(torch, flash, gen):
@@ -865,13 +932,16 @@ def post(port: int, body: dict) -> dict:
 
 
 def serve(torch, flash, base: Path, prompts, direct):
-    """Phase 4: the port's serving entry point, driven over REST."""
+    """Phase 4: the port's serving entry point, driven over REST, on the
+    static bucketed batcher (--lm_static_batcher: the engine is the
+    default for lm_generate models and launches no flash kernel)."""
     from kubeflow_tpu_torch.serving import main as serving_main
 
     server, httpd = serving_main.start([
         "--model_name", "lm", "--model_base_path", str(base),
         "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
-        "--lm_buckets", BUCKETS, "--micro_batch_size", str(MICRO_BATCH)])
+        "--lm_static_batcher", "--lm_buckets", BUCKETS,
+        "--micro_batch_size", str(MICRO_BATCH)])
     port = httpd.server_address[1]
     try:
         # One short request first, so the timed burst does not carry the
@@ -879,21 +949,7 @@ def serve(torch, flash, base: Path, prompts, direct):
         post(port, {"instances": [{"tokens": prompts[0][:16]}]})
         for key in flash.launch_counts:
             flash.launch_counts[key] = 0
-        replies = [None] * len(prompts)
-
-        def call(i):
-            replies[i] = post(port, {"instances": [{"tokens": prompts[i]}]})
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=call, args=(i,))
-                   for i in range(len(prompts))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        if any(t.is_alive() for t in threads) or None in replies:
-            fail("a batched request did not complete")
-        t_batched = time.perf_counter() - t0
+        replies, latencies, t_batched = burst(port, prompts)
         t1 = time.perf_counter()
         direct_reply = post(port, {"instances": [{"tokens": p}
                                                  for p in direct]})
@@ -911,13 +967,307 @@ def serve(torch, flash, base: Path, prompts, direct):
         f"(host clock, information only)")
     log(f"kernel launches on the serving path: {counts}; batcher: "
         f"{stats['batches']} batches, sizes {stats['batch_size_hist']}")
-    return replies, direct_reply, counts
+    static = {"burst_s": t_batched, "latency_p50_s": pct(latencies, 0.5),
+              "latency_p99_s": pct(latencies, 0.99)}
+    return replies, direct_reply, counts, static
+
+
+def pct(values, q):
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(len(ordered) * q))]
+
+
+def burst(port: int, prompts):
+    """Every prompt as its own concurrent :predict request; returns the
+    replies, each request's latency and the burst's wall time (host
+    clock)."""
+    replies = [None] * len(prompts)
+    latencies = [None] * len(prompts)
+
+    def call(i):
+        t = time.perf_counter()
+        replies[i] = post(port, {"instances": [{"tokens": prompts[i]}]})
+        latencies[i] = time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads) or None in replies:
+        fail("a request of the burst did not complete")
+    return replies, latencies, time.perf_counter() - t0
+
+
+def get(port: int, path: str) -> dict:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        payload = json.loads(resp.read())
+    finally:
+        conn.close()
+    if resp.status != 200:
+        fail(f"GET {path} answered {resp.status}: {payload}")
+    return payload
+
+
+def engine_prefill_width() -> int:
+    """The serving entry point's engine prefill width for these flags:
+    the largest bucket, clamped to the prompt room."""
+    return min(max(int(b) for b in BUCKETS.split(",")),
+               MODEL["max_seq_len"] - MAX_NEW_TOKENS)
+
+
+def serve_engine(torch, flash, base: Path, prompts, static):
+    """Phase 6b: the port's serving entry point with the JAX CLI's engine
+    defaults (8 slots, fused rounds of 8, 64-token chunks, 16-token
+    blocks, prefix cache on), the bf16 188M LM at full width and depth.
+    The eight prompts as one concurrent burst, then two requests that
+    share a 1024-token prefix, then one request with the card's sync
+    debug mode at "error".  No flash kernel may launch; :stats must show
+    the slots reused, a prefix hit, and the JAX engine's
+    compiled_programs() for these flags."""
+    from kubeflow_tpu_torch.serving import main as serving_main
+
+    server, httpd = serving_main.start([
+        "--model_name", "lm", "--model_base_path", str(base),
+        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--lm_buckets", BUCKETS])
+    port = httpd.server_address[1]
+    rng = torch.Generator().manual_seed(SEED + 1)
+    vocab = MODEL["vocab_size"]
+    prefix = torch.randint(1, vocab, (SHARED_PREFIX,), generator=rng)
+    pair = [(prefix.tolist() + torch.randint(1, vocab, (n,), generator=rng)
+             .tolist()) for n in (100, 200)]
+    launches_before = dict(flash.launch_counts)
+    try:
+        replies, latencies, t_burst = burst(port, prompts)
+        burst_stats = get(port, "/model/lm:stats")["batcher"]
+        pair_replies = [post(port, {"instances": [{"tokens": p}]})
+                        for p in pair]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            post(port, {"instances": [{"tokens": prompts[0][:64]}]})
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        stats = get(port, "/model/lm:stats")["batcher"]
+    finally:
+        serving_main.shutdown(server, httpd)
+    if dict(flash.launch_counts) != launches_before:
+        fail("the engine path launched a flash kernel: "
+             f"{launches_before} -> {dict(flash.launch_counts)}")
+    check_replies(prompts + pair, replies + pair_replies, [], None)
+    want_programs = {"chunked_prefill": 1, "step": 0, "verify": 0,
+                     "decode_rounds": 1}
+    if stats["compiled_programs"] != want_programs:
+        fail(f"engine compiled_programs {stats['compiled_programs']}, the "
+             f"JAX engine reports {want_programs} for these flags")
+    if stats["prefix_hits"] < 1 or stats["cached_prompt_tokens"] \
+            < SHARED_PREFIX:
+        fail(f"no prefix hit on the shared {SHARED_PREFIX}-token prefix: "
+             f"{stats['prefix_hits']} hits, "
+             f"{stats['cached_prompt_tokens']} cached tokens")
+    if stats["requests"] <= stats["slots"] or stats["active_slots"] \
+            or stats["in_flight_requests"]:
+        fail(f"slots not reused and released: {stats['requests']} "
+             f"requests through {stats['slots']} slots, "
+             f"{stats['active_slots']} still active")
+    n_tok = len(prompts) * MAX_NEW_TOKENS
+    info = {
+        "burst_s": t_burst,
+        "requests_per_s": len(prompts) / t_burst,
+        "tokens_per_s": n_tok / t_burst,
+        "ttft_p50_ms": burst_stats["ttft_p50_ms"],
+        "ttft_p99_ms": burst_stats["ttft_p99_ms"],
+        "latency_p50_s": pct(latencies, 0.5),
+        "latency_p99_s": pct(latencies, 0.99),
+        "token_latency_p50_ms": burst_stats["token_latency_p50_ms"],
+        "steps_per_round_p50": burst_stats["steps_per_round_p50"],
+        "prefill_chunks": burst_stats["prefill_chunks"],
+        "prefix_hits": stats["prefix_hits"],
+        "cached_prompt_tokens": stats["cached_prompt_tokens"],
+        "compiled_programs": stats["compiled_programs"],
+    }
+    log(f"engine burst: {len(prompts)} concurrent requests in "
+        f"{t_burst:.3f} s: {info['requests_per_s']:.3f} requests/s, "
+        f"{info['tokens_per_s']:.1f} generated tokens/s; TTFT p50 "
+        f"{info['ttft_p50_ms']:.1f} ms p99 {info['ttft_p99_ms']:.1f} ms "
+        f"(engine clock); latency p50 {info['latency_p50_s']:.3f} s p99 "
+        f"{info['latency_p99_s']:.3f} s (client clock); "
+        f"{info['prefill_chunks']} prefill chunks, steps per round p50 "
+        f"{info['steps_per_round_p50']} (host clock, information only; "
+        f"{card_line()})")
+    log(f"static batcher on the same {len(prompts)} prompts (phase 4): "
+        f"burst {static['burst_s']:.3f} s, "
+        f"{n_tok / static['burst_s']:.1f} generated tokens/s, latency p50 "
+        f"{static['latency_p50_s']:.3f} s p99 "
+        f"{static['latency_p99_s']:.3f} s; engine "
+        f"{t_burst:.3f} s, {info['tokens_per_s']:.1f} tokens/s")
+    log(f"engine :stats: {stats['requests']} requests through "
+        f"{stats['slots']} slots, prefix hits {stats['prefix_hits']} "
+        f"({stats['cached_prompt_tokens']} cached tokens), "
+        f"compiled_programs {stats['compiled_programs']}; one request "
+        f"served under sync debug mode 'error'")
+    return [r["predictions"][0]["tokens"] for r in replies], info
+
+
+def engine_identity(torch, flash, base: Path, prompts, bf16_tokens):
+    """Phase 6b, token identity: the same engine with the float32 model
+    (TF32 off) on four of the prompts must give each prompt's greedy
+    tokens of generate() alone at float32.  The bf16 engine's tokens
+    against bf16 generate() are information only: the first position
+    where the two differ, per prompt."""
+    from kubeflow_tpu_torch.models.generate import DecodeConfig, generate
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    decode = DecodeConfig(max_new_tokens=MAX_NEW_TOKENS)
+    model = load_model(torch, base, torch.float32)
+    engine = DecodeEngine(model, decode, slots=8,
+                          prefill_len=engine_prefill_width(),
+                          decode_rounds=8, name="fp32-identity")
+    four = prompts[:4]
+    outs = [None] * len(four)
+
+    def call(i):
+        outs[i] = engine.submit({"tokens": four[i]})["tokens"][0].tolist()
+
+    try:
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(four))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        engine.close()
+    if None in outs:
+        fail("a float32 engine request did not complete")
+    with plain_kernels(flash):
+        for prompt, got in zip(four, outs):
+            want, _ = generate(model, torch.tensor([prompt]), decode)
+            if got != want[0].tolist():
+                fail(f"float32 engine tokens of a {len(prompt)}-token prompt "
+                     "differ from generate() alone")
+    log(f"engine token identity at float32: {len(four)} prompts "
+        f"{[len(p) for p in four]} equal generate() alone, "
+        f"{MAX_NEW_TOKENS} tokens each")
+    del model
+    model = load_model(torch, base, torch.bfloat16)
+    firsts = []
+    for prompt, got in zip(prompts, bf16_tokens):
+        want, _ = generate(model, torch.tensor([prompt]), decode)
+        new_got, new_want = got[len(prompt):], want[0, len(prompt):].tolist()
+        firsts.append(next((j for j, (a, b) in enumerate(
+            zip(new_got, new_want)) if a != b), None))
+    log(f"bf16 engine against bf16 generate() alone, first differing new "
+        f"token per prompt (None = identical; information only): {firsts}")
+    return firsts
+
+
+def engine_round(torch, base: Path):
+    """Phase 6b, information only: one fused round of 8 steps at 8 live
+    slots (the burst's prompt lengths, pool and tables as the engine
+    sizes them), called directly: its time (host clock after a
+    synchronize, median of 5), one round with sync debug mode "error",
+    then under torch.profiler the device's busy share of the round and
+    the share of its device time the paged-view gathers take (one
+    gather timed alone by CUDA events, times the round's 2 x layers x
+    steps gathers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models.generate import (
+        DecodeConfig,
+        _pool_with_scratch,
+        decode_rounds,
+        init_paged_state,
+    )
+
+    model = load_model(torch, base, torch.bfloat16)
+    slots, bt, k = 8, 16, 8
+    mb = -(-(engine_prefill_width() + MAX_NEW_TOKENS) // bt)
+    state = init_paged_state(model.cfg, slots, slots * mb, bt,
+                             device="cuda")
+    tables = torch.arange(slots * mb, device="cuda").view(slots, mb)
+    lengths = torch.tensor(PROMPT_LENS, dtype=torch.int32, device="cuda")
+    state["lengths"] = lengths
+    state["stop_len"] = lengths + MAX_NEW_TOKENS
+    state["done"] = torch.zeros(slots, dtype=torch.bool, device="cuda")
+    state["last_token"] = torch.randint(
+        1, MODEL["vocab_size"], (slots,), dtype=torch.int32, device="cuda")
+    decode = DecodeConfig(max_new_tokens=MAX_NEW_TOKENS)
+
+    def one_round():
+        with torch.inference_mode():
+            _, toks, counts, steps = decode_rounds(
+                model, state, decode, k, tables, k)
+        return toks, counts, steps
+
+    for _ in range(2):
+        one_round()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        one_round()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    round_ms = sorted(times)[2] * 1e3
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, counts, steps = one_round()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if int(steps) != k or counts.tolist() != [k] * slots:
+        fail(f"a fused round at 8 live slots ran {int(steps)} steps, "
+             f"counts {counts.tolist()}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_round()
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    pool = _pool_with_scratch(state["cache_k"])[0]
+    gather_ms = time_ms(torch, lambda: pool[tables], 20)
+    gathers = 2 * MODEL["n_layers"] * k
+    info = {"round_ms": round_ms, "steps": k, "slots": slots,
+            "gather_ms": gather_ms, "gathers_per_round": gathers}
+    if busy_us == 0:
+        log("engine round: the profiler saw no device time; busy share "
+            "and gather share not measured")
+    else:
+        kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        info.update(busy_ms=busy_us / 1e3,
+                    busy_share=busy_us / (t_prof * 1e6),
+                    gather_share=gather_ms * gathers / (busy_us / 1e3))
+        log(f"engine round under torch.profiler: wall {t_prof * 1e3:.1f} "
+            f"ms, device busy {busy_us / 1e3:.2f} ms "
+            f"({info['busy_share']:.3f} of the profiled wall); paged-view "
+            f"gather {gather_ms:.4f} ms x {gathers} = "
+            f"{gather_ms * gathers:.2f} ms, {info['gather_share']:.3f} of "
+            f"busy")
+        for e in kernels[:6]:
+            log(f"  {e.self_device_time_total / busy_us:.3f} of busy, "
+                f"{e.count} launches: {e.key[:100]}")
+    log(f"engine fused round: {k} steps at {slots} live slots (lengths "
+        f"{list(PROMPT_LENS)}) in {round_ms:.2f} ms, "
+        f"{round_ms / k:.2f} ms a step (host clock after synchronize, "
+        f"median of 5; {card_line()}); one round under sync debug mode "
+        f"'error'")
+    return info
 
 
 def check_replies(prompts, replies, direct, direct_reply):
     vocab = MODEL["vocab_size"]
     got = [r["predictions"][0]["tokens"] for r in replies]
-    got += [p["tokens"] for p in direct_reply["predictions"]]
+    if direct_reply is not None:
+        got += [p["tokens"] for p in direct_reply["predictions"]]
     for prompt, tokens in zip(list(prompts) + list(direct), got):
         if len(tokens) != len(prompt) + MAX_NEW_TOKENS:
             fail(f"reply of {len(tokens)} tokens for a {len(prompt)}-token "
@@ -1464,6 +1814,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     checks = check_kernels(torch, flash, gen)
     bwd_checks = check_bwd_kernels(torch, flash, gen, checks)
+    check_bwd_heads_apart(torch, flash)
     check_autograd(torch, flash, gen)
     two_pass_checks = check_two_pass_kernels(torch, flash, gen)
     timed = time_kernels(torch, flash, gen, checks)
@@ -1481,14 +1832,19 @@ def main() -> int:
     try:
         base = workdir / "lm"
         export_model(torch, base)
-        replies, direct_reply, counts = serve(torch, flash, base, prompts,
-                                              direct)
+        replies, direct_reply, counts, static = serve(
+            torch, flash, base, prompts, direct)
         missing = [k for k, n in counts.items() if n == 0]
         if missing:
             fail(f"kernels never launched on the serving path: {missing}")
         check_replies(prompts, replies, direct, direct_reply)
         check_prefill_logits(torch, flash, base, gen)
         breakdown(torch, base, gen)
+        engine_tokens, engine_info = serve_engine(torch, flash, base,
+                                                  prompts, static)
+        engine_info["bf16_first_difference"] = engine_identity(
+            torch, flash, base, prompts, engine_tokens)
+        engine_info["round"] = engine_round(torch, base)
         train_counts, train_info = train(torch, flash, workdir)
         two_pass_counts, two_pass_info = train_two_pass(torch, flash)
         log(f"train, single pass + adamw against two-pass + adafactor: "
@@ -1523,7 +1879,8 @@ def main() -> int:
         row["launches_by_path"] = {"serve": counts.get(name, 0),
                                    "train": two_pass_counts[name]}
         kernels.append(row)
-    log(json.dumps({"train": dict(train_info, gradients=grads,
+    log(json.dumps({"engine": engine_info,
+                    "train": dict(train_info, gradients=grads,
                                   breakdown=learned),
                     "train_two_pass": dict(two_pass_info,
                                            forward=two_pass_times),

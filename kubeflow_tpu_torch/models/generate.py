@@ -1,23 +1,48 @@
 """Autoregressive decoding: the port of kubeflow_tpu/models/generate.py.
 
-The contiguous-cache path that ``generate()`` runs: the prompt is
-prefilled in one batched forward, then tokens stream one position at a
-time against a preallocated ``[layers, b, max_len, hkv, d]`` KV cache,
-which this port updates in place.  A flash-configured model prefills
-through the flash forward (ops/flash.py) with the per-row key-start mask
-for left-padded prompts; decode steps take ``dot_product_attention`` over
-the cache's live columns.  Sampling draws from an explicit
-``torch.Generator``.
+Two families of entry points share one per-layer step:
 
-Not ported yet (ROADMAP queue 1, item 2): the paged block
-pool, per-row cache lengths, the slot programs, adapters and the int8 KV
-cache.
+- ``generate()``, the contiguous-cache path: the prompt is prefilled in
+  one batched forward, then tokens stream one position at a time
+  against a preallocated ``[layers, b, max_len, hkv, d]`` KV cache,
+  which this port updates in place.  A flash-configured model prefills
+  through the flash forward (ops/flash.py) with the per-row key-start
+  mask for left-padded prompts; decode steps take
+  ``dot_product_attention`` over the cache's live columns.  Sampling
+  draws from an explicit ``torch.Generator``.
+- The slot programs that the continuous-batching engine
+  (serving/engine.py) drives over a persistent PAGED KV pool:
+  ``init_paged_state``, ``prefill_chunk_into_slot``, ``decode_step`` and
+  ``decode_rounds``.  Each takes the host-owned per-slot block tables as
+  an argument, and each slot ropes, writes and attends at its own
+  length.  No program reads a device value on the host, so a caller can
+  queue them back to back.
+
+Where JAX drops a scatter (``mode="drop"``), this port redirects the
+write: the pool carries one scratch block past the ``nb`` blocks the
+state shows (``_pool_with_scratch``), and a write whose table entry is
+the sentinel ``nb``, whose logical block lies past the table, or whose
+column parks a retired slot lands there.  Reads of sentinel table
+entries see the scratch block; the causal frontier masks them.  A write
+to the ``[S]`` slot scalars at an index out of range matches no row.
+
+Sampling in the slot programs is per slot: a slot's ``keys`` row is its
+``(seed, step)`` counter, and its Gumbel noise is a hash of
+``(seed, step, token id)`` computed on the device (``_slot_uniform``).
+A request's stream therefore depends on its own seed and step only,
+never on which requests share the batch.  It is the port's own stream:
+JAX's threefry bits are not matched.  Greedy decoding matches JAX token
+for token.
+
+Not ported yet: ``verify_step`` (ROADMAP queue 1, item 1), the KV-page
+handoff programs (item 2), the int8 KV cache (item 4) and adapters
+(item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -30,6 +55,8 @@ from kubeflow_tpu_torch.models.transformer import (
 )
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.flash import flash_attention
+
+CacheLen = Union[int, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +81,7 @@ class DecodeConfig:
         if self.kv_cache_dtype != "model":
             raise NotPortedError(
                 f"kv_cache_dtype={self.kv_cache_dtype!r}: the int8 KV cache "
-                "is not ported yet (ROADMAP queue 1 item 2)")
+                "is not ported yet (ROADMAP queue 1 item 4)")
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -67,62 +94,180 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
             torch.zeros(shape, dtype=cfg.dtype, device=device))
 
 
+def _pool_with_scratch(cache: torch.Tensor) -> torch.Tensor:
+    """[L, nb, bt, hkv, d] pool view -> [L, nb + 1, ...] over the same
+    storage: block ``nb`` is the scratch block that ``init_paged_state``
+    allocates past the view, where dropped writes land."""
+    size = (cache.shape[0], cache.shape[1] + 1) + tuple(cache.shape[2:])
+    end = cache.storage_offset() + sum(
+        (n - 1) * st for n, st in zip(size, cache.stride())) + 1
+    if cache.untyped_storage().nbytes() < end * cache.element_size():
+        raise ValueError(
+            "paged KV pool has no scratch block past its view; build it "
+            "with init_paged_state")
+    return cache.as_strided(size, cache.stride(), cache.storage_offset())
+
+
+def _store_paged(pool: torch.Tensor, new: torch.Tensor, blk: torch.Tensor,
+                 off: torch.Tensor) -> None:
+    """pool [nb + 1, bt, hkv, d]: write new [b, t, hkv, d] at (blk, off),
+    both [b, t]; blk == nb is the scratch block."""
+    pool[blk, off] = new.to(pool.dtype)
+
+
+def _store_columns(cache: torch.Tensor, new: torch.Tensor,
+                   cols: torch.Tensor) -> None:
+    """cache [b, max_len, hkv, d]: row r's new[r, j] goes to column
+    cols[r, j]; a column past max_len is dropped.  One column of every
+    row per write, so the clamped stand-in of a dropped column (which
+    writes back what the cache holds) never shares an index with a kept
+    write of the same call."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    max_len = cache.shape[1]
+    for j in range(new.shape[1]):
+        col = cols[:, j]
+        keep = (col >= 0) & (col < max_len)
+        at = col.clamp(0, max_len - 1)
+        val = torch.where(keep[:, None, None], new[:, j].to(cache.dtype),
+                          cache[rows, at])
+        cache[rows, at] = val
+
+
 def _layer_step(cfg: TransformerConfig, block: Block, x: torch.Tensor,
-                cache_kv: Tuple[torch.Tensor, torch.Tensor], cache_len: int,
-                positions: torch.Tensor,
-                pad_amount: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One decoder block against one layer's cache.
+                cache_kv: Tuple[torch.Tensor, torch.Tensor],
+                cache_len: CacheLen, positions: torch.Tensor,
+                pad_amount: Optional[torch.Tensor] = None,
+                write_cols: Optional[torch.Tensor] = None,
+                tables: Optional[torch.Tensor] = None,
+                adapters=None) -> torch.Tensor:
+    """One decoder block against one layer's cache, which it updates in
+    place.
 
     x: [b, t, e] new activations (t = prompt width at prefill, 1 at
-    decode); cache_kv: (k, v) each [b, max_len, hkv, d], written in place
-    at columns [cache_len, cache_len + t); pad_amount: per-row [b]
-    left-pad width, whose cache columns are masked from every attention.
+    decode); cache_kv: (k, v) each [b, max_len, hkv, d], or, with
+    ``tables``, the paged pool [nb + 1, bt, hkv, d] with its scratch
+    block; cache_len: valid cache positions before this call, an int
+    (the whole batch at one length) or a per-row [b] tensor (each row
+    writes its t columns from its own frontier and attends under its
+    own causal mask); pad_amount: per-row [b] left-pad width, whose
+    cache columns are masked from every attention; write_cols: per-row
+    [b] first column to write when cache_len is per-row (defaults to
+    cache_len; a retired slot passes a column past the table, whose
+    write is dropped); tables: [b, mb] block tables mapping each row's
+    logical block (position // bt) to a pool block, the sentinel ``nb``
+    for none.  Fresh k/v go straight into the pool, and attention runs
+    over the row's gathered [mb * bt] view of it.
     """
+    if adapters is not None:
+        raise NotPortedError(
+            "adapters (per-row LoRA deltas) are not ported yet "
+            "(ROADMAP queue 1 item 5)")
     ck, cv = cache_kv
-    t = x.shape[1]
+    b, t = x.shape[:2]
+    per_row = isinstance(cache_len, torch.Tensor) and cache_len.ndim == 1
     q, k, v = block.attn.qkv(block.attn_norm(x), positions)
-    ck[:, cache_len:cache_len + t] = k
-    cv[:, cache_len:cache_len + t] = v
-    if cfg.attention == "flash" and t > 1 and cache_len == 0:
-        # Prefill: the cache is empty, so causal attention over the fresh
-        # q/k/v is the whole computation, and the flash forward keeps the
-        # [b, h, t, t] scores out of device memory.
-        out = flash_attention(
-            q, k, v, causal=True,
-            block_q=cfg.flash_block_q, block_k=cfg.flash_block_k,
-            kv_valid_start=pad_amount)
-    else:
-        # Columns past cache_len + t hold nothing yet and would get zero
-        # weight under the causal mask; attending over the live span only
-        # gives the same result.
-        live = cache_len + t
+    steps = torch.arange(t, device=x.device)
+    if tables is not None:
+        nb, bt = ck.shape[0] - 1, ck.shape[1]
+        mb = tables.shape[1]
+        if per_row:
+            base = cache_len if write_cols is None else write_cols
+            pos = base.long()[:, None] + steps[None, :]
+        else:
+            pos = (cache_len + steps)[None, :].expand(b, t)
+        blk_slot = pos // bt
+        blk = torch.take_along_dim(tables, blk_slot.clamp(0, mb - 1), dim=1)
+        # A logical block past the table, or a sentinel entry, sends the
+        # write to the scratch block (JAX drops it).
+        keep = (blk_slot < mb) & (blk >= 0) & (blk < nb)
+        blk = torch.where(keep, blk, nb)
+        off = pos % bt
+        _store_paged(ck, k, blk, off)
+        _store_paged(cv, v, blk, off)
+
+        def paged_view(pool):
+            return pool[tables].reshape((b, mb * bt) + tuple(pool.shape[2:]))
+
         out = dot_product_attention(
-            q, ck[:, :live], cv[:, :live], causal=True, kv_offset=cache_len,
-            kv_valid_start=pad_amount)
+            q, paged_view(ck), paged_view(cv), causal=True,
+            kv_offset=cache_len, kv_valid_start=pad_amount)
+    else:
+        if per_row:
+            base = cache_len if write_cols is None else write_cols
+            cols = base.long()[:, None] + steps[None, :]
+            _store_columns(ck, k, cols)
+            _store_columns(cv, v, cols)
+        else:
+            # dynamic_update_slice clamps a start that would run past the
+            # cache's end; a torch slice would not.
+            at = max(0, min(cache_len, ck.shape[1] - t))
+            ck[:, at:at + t] = k
+            cv[:, at:at + t] = v
+        if (cfg.attention == "flash" and t > 1 and not per_row
+                and cache_len == 0):
+            # Prefill: the cache is empty, so causal attention over the
+            # fresh q/k/v is the whole computation, and the flash forward
+            # keeps the [b, h, t, t] scores out of device memory.
+            out = flash_attention(
+                q, k, v, causal=True,
+                block_q=cfg.flash_block_q, block_k=cfg.flash_block_k,
+                kv_valid_start=pad_amount)
+        elif per_row:
+            out = dot_product_attention(
+                q, ck, cv, causal=True, kv_offset=cache_len,
+                kv_valid_start=pad_amount)
+        else:
+            # Columns past cache_len + t hold nothing yet and would get
+            # zero weight under the causal mask; attending over the live
+            # span only gives the same result.
+            live = cache_len + t
+            out = dot_product_attention(
+                q, ck[:, :live], cv[:, :live], causal=True,
+                kv_offset=cache_len, kv_valid_start=pad_amount)
     x = x + block.attn.out(out)
     return x + block.mlp(block.mlp_norm(x))
 
 
 def _forward_with_cache(model: Transformer, tokens: torch.Tensor,
                         cache: Tuple[torch.Tensor, torch.Tensor],
-                        cache_len: int,
-                        pad_amount: Optional[torch.Tensor] = None
+                        cache_len: CacheLen,
+                        pad_amount: Optional[torch.Tensor] = None,
+                        write_cols: Optional[torch.Tensor] = None,
+                        tables: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """tokens [b, t] -> float32 logits [b, t, v]; the cache is updated in
-    place at columns [cache_len, cache_len + t)."""
-    positions = cache_len + torch.arange(
-        tokens.shape[1], device=tokens.device)[None, :]
-    positions = positions.expand(tokens.shape)
+    place.
+
+    cache_len int: the whole batch sits at one length (generate()), and
+    writes columns [cache_len, cache_len + t).  cache_len [b]: per-row
+    lengths (the slot programs); each row ropes its t tokens at
+    [len, len + t), writes from write_cols (default cache_len) and
+    attends under its own frontier.  tables: per-row block tables of the
+    paged pool (``init_paged_state``'s ``cache_k``/``cache_v``); None
+    keeps the contiguous layout.  The port's Transformer carries no
+    adapter stack, so the state's ``adapter_ids`` are not read (JAX
+    ignores them without one).
+    """
+    t = tokens.shape[1]
+    steps = torch.arange(t, device=tokens.device)
+    if isinstance(cache_len, torch.Tensor) and cache_len.ndim == 1:
+        positions = cache_len.long()[:, None] + steps[None, :]
+    else:
+        positions = (cache_len + steps)[None, :].expand(tokens.shape)
     if pad_amount is not None:
         # Real token i of a left-padded row sits at column pad + i but
         # takes rope position i; pad columns clamp to 0 (their keys are
         # masked anyway).
         positions = torch.clamp(positions - pad_amount[:, None], min=0)
-    x = model.embed_tokens(tokens)
     cache_k, cache_v = cache
+    if tables is not None:
+        cache_k = _pool_with_scratch(cache_k)
+        cache_v = _pool_with_scratch(cache_v)
+    x = model.embed_tokens(tokens)
     for i, block in enumerate(model.layers):
         x = _layer_step(model.cfg, block, x, (cache_k[i], cache_v[i]),
-                        cache_len, positions, pad_amount)
+                        cache_len, positions, pad_amount,
+                        write_cols=write_cols, tables=tables)
     return model.logits(x).to(torch.float32)
 
 
@@ -200,3 +345,310 @@ def generate(
         if decode.eos_token >= 0 and bool(done.all()):
             break
     return torch.cat([prompt, new_tokens], dim=1), last
+
+
+# ---------------------------------------------------------------------------
+# Continuous-batching slot programs over a persistent paged KV pool
+# (serving/engine.py drives them).  The pool is [layers, nb, bt, hkv, d];
+# which pool block backs which logical block of which slot is host
+# bookkeeping (serving/prefix_cache.py BlockManager), passed into every
+# call as the [S, mb] block tables, so sharing a cached prefix between
+# slots is a table edit and no copy program exists.  Shapes are fixed
+# per engine (slot count, chunk width, pool geometry, table span).
+# Retirement is the device-side ``done`` flag: a done slot stops
+# advancing and its writes go to the scratch block.
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xorshift-multiply rounds) on int64 lanes
+    holding values below 2**32; the multipliers are below 2**31, so no
+    product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x1B873593) & _M32
+    return x ^ (x >> 16)
+
+
+def _slot_uniform(keys: torch.Tensor, vocab: int) -> torch.Tensor:
+    """keys [n, 2] int64 (seed, step) -> uniforms [n, vocab] in (0, 1),
+    a function of (seed, step, token id) alone."""
+    seed = keys[:, :1] & _M32
+    step = keys[:, 1:] & _M32
+    ids = torch.arange(vocab, device=keys.device)[None, :]
+    x = _mix32(_mix32((seed * 0x27D4EB2F) & _M32) ^ step)
+    x = _mix32(_mix32(x ^ ids) ^ 0x165667B1)
+    return ((x >> 8).to(torch.float32) + 0.5) / float(1 << 24)
+
+
+def _sample_slots(decode: DecodeConfig, logits: torch.Tensor,
+                  keys: torch.Tensor) -> torch.Tensor:
+    """Per-slot categorical draw from filtered logits [n, V] by the
+    Gumbel-max rule, with each row's noise from its own (seed, step)."""
+    u = _slot_uniform(keys, logits.shape[-1])
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(_filter_logits(decode, logits) + gumbel, dim=-1)
+
+
+def _next_keys(keys: torch.Tensor) -> torch.Tensor:
+    return torch.stack([keys[:, 0], keys[:, 1] + 1], dim=1)
+
+
+def init_paged_state(cfg: TransformerConfig, slots: int, num_blocks: int,
+                     block_tokens: int, kv_cache_dtype: str = "model",
+                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Fresh paged engine state on ``device`` (CUDA when none is given):
+    every slot retired, block pool zeroed.
+
+    ``cache_k``/``cache_v`` are [layers, num_blocks, block_tokens, hkv,
+    d] views of storage that holds one scratch block more (see
+    ``_pool_with_scratch``); the per-slot scalars are int32 [S]
+    ``lengths`` (valid cache positions), ``stop_len`` (the length at
+    which the slot stops sampling), ``last_token`` (sampled, not yet in
+    the cache) and ``adapter_ids``, bool [S] ``done`` and int64 [S, 2]
+    ``keys``, each slot's (seed, step) sampling counter.  Block tables
+    are not device state: the caller passes them into every program.
+    """
+    if kv_cache_dtype != "model":
+        raise NotPortedError(
+            f"kv_cache_dtype={kv_cache_dtype!r}: the int8 KV cache is not "
+            "ported yet (ROADMAP queue 1 item 4)")
+    device = resolve_device(device)
+    full = (cfg.n_layers, num_blocks + 1, block_tokens, cfg.n_kv_heads,
+            cfg.head_dim)
+
+    def pool():
+        return torch.zeros(full, dtype=cfg.dtype, device=device)[
+            :, :num_blocks]
+
+    def scalars(dtype=torch.int32):
+        return torch.zeros((slots,), dtype=dtype, device=device)
+
+    return {
+        "cache_k": pool(),
+        "cache_v": pool(),
+        "lengths": scalars(),
+        "stop_len": scalars(),
+        "last_token": scalars(),
+        "done": torch.ones((slots,), dtype=torch.bool, device=device),
+        "keys": torch.zeros((slots, 2), dtype=torch.int64, device=device),
+        "adapter_ids": scalars(),
+    }
+
+
+def _pool_block_tokens(cache: torch.Tensor) -> int:
+    """Static block width of a paged pool ([L, nb, bt, ...])."""
+    return cache.shape[2]
+
+
+def _device_tables(tables, device: torch.device) -> torch.Tensor:
+    """Block tables as int64 indices on ``device`` (no copy when they
+    already are)."""
+    return torch.as_tensor(tables, device=device).long()
+
+
+def _advance_slots(model: Transformer, decode: DecodeConfig,
+                   tables: torch.Tensor, park: int,
+                   state: Dict[str, torch.Tensor]):
+    """One batched decode step over every slot: the body of
+    ``decode_step`` and ``decode_rounds``.  Returns (state, nxt [S]),
+    the sampled token per slot (0 for frozen slots).  ``park`` is the
+    column past the table span where retired slots aim their writes."""
+    lengths, done = state["lengths"], state["done"]
+    advance = ~done
+    write_cols = torch.where(advance, lengths, park)
+    logits = _forward_with_cache(
+        model, state["last_token"].long()[:, None],
+        (state["cache_k"], state["cache_v"]), lengths,
+        write_cols=write_cols, tables=tables)
+    last = logits[:, -1]
+    keys = state["keys"]
+    if decode.temperature <= 0.0:
+        nxt = torch.argmax(last, dim=-1)
+    else:
+        nxt = _sample_slots(decode, last, keys)
+        keys = _next_keys(keys)
+    nxt = torch.where(advance, nxt.to(torch.int32), 0)
+    new_lengths = lengths + advance.to(torch.int32)
+    new_done = done | (new_lengths >= state["stop_len"])
+    if decode.eos_token >= 0:
+        new_done = new_done | (advance & (nxt == decode.eos_token))
+    state = dict(state)
+    state["lengths"] = new_lengths
+    state["last_token"] = nxt
+    state["done"] = new_done
+    state["keys"] = keys
+    return state, nxt
+
+
+def decode_step(model: Transformer, state: Dict[str, torch.Tensor],
+                decode: DecodeConfig, steps: int, tables):
+    """Advance every live slot ``steps`` times; returns (state, sampled
+    [steps, S] int32).
+
+    Each step is one batched forward at t=1: each slot ropes at its own
+    length, attends under its own causal frontier over its
+    table-gathered view of the pool, and writes its new k/v through
+    ``tables`` ([S, mb], host-owned).  Retired slots ride along with
+    their writes on the scratch block and emit 0.  The pool is updated
+    in place; the returned state's scalars are new tensors.
+    """
+    tables = _device_tables(tables, state["done"].device)
+    park = tables.shape[1] * _pool_block_tokens(state["cache_k"])
+    toks = []
+    for _ in range(steps):
+        state, nxt = _advance_slots(model, decode, tables, park, state)
+        toks.append(nxt)
+    return state, torch.stack(toks)
+
+
+class _DoneProbe:
+    """A lagged, non-blocking read of ``done.all()`` on CUDA: after each
+    step the flag is copied into pinned host memory behind an event; the
+    newest copy whose event has completed says whether every slot was
+    already done.  The host never waits for the device here.  On the CPU
+    the flag is read as it is computed."""
+
+    def __init__(self, k: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.flags = torch.zeros((k,), dtype=torch.bool,
+                                 pin_memory=self.cuda)
+        self.events = []
+
+    def record(self, i: int, done: torch.Tensor) -> None:
+        self.flags[i].copy_(done.all(), non_blocking=True)
+        event = None
+        if self.cuda:
+            event = torch.cuda.Event()
+            event.record()
+        self.events.append(event)
+
+    def all_done(self) -> bool:
+        for i in range(len(self.events) - 1, -1, -1):
+            if self.events[i] is None or self.events[i].query():
+                return bool(self.flags[i])
+        return False
+
+
+def decode_rounds(model: Transformer, state: Dict[str, torch.Tensor],
+                  decode: DecodeConfig, k: int, tables, max_steps: int):
+    """Up to ``min(max_steps, k)`` decode steps in one call; returns
+    ``(state, toks [S, k], counts [S], steps_run)`` with JAX's values:
+
+    - ``toks``: slot s's tokens of this round in ``toks[s, :counts[s]]``
+      (a live slot advances every step until it freezes);
+    - ``counts``: tokens emitted per slot (EOS included);
+    - ``steps_run``: 0-d int32, the steps in which some slot was live.
+
+    JAX runs a ``while_loop`` that exits on the device when every slot
+    is done.  Here the host issues the steps; a step in which every slot
+    is already done changes no state, writes only the scratch block and
+    emits 0, so it leaves the outputs as JAX's.  The loop stops issuing
+    steps once a lagged non-blocking read of ``done.all()``
+    (``_DoneProbe``) says every slot was done.  ``max_steps`` is a host
+    int.  The step body is ``decode_step``'s, so greedy tokens equal k
+    single-step calls.
+    """
+    device = state["done"].device
+    tables = _device_tables(tables, device)
+    park = tables.shape[1] * _pool_block_tokens(state["cache_k"])
+    slots = state["done"].shape[0]
+    len0 = state["lengths"]
+    cap = min(int(max_steps), int(k))
+    toks = torch.zeros((slots, k), dtype=torch.int32, device=device)
+    steps_run = torch.zeros((), dtype=torch.int32, device=device)
+    probe = _DoneProbe(k, device)
+    for i in range(cap):
+        if probe.all_done():
+            break
+        live = ~state["done"].all()
+        prev = state
+        state, nxt = _advance_slots(model, decode, tables, park, state)
+        # A step run with every slot done must leave what JAX's loop,
+        # which never runs it, leaves: last tokens and keys as they were.
+        for name in ("last_token", "keys"):
+            state[name] = torch.where(live, state[name], prev[name])
+        toks[:, i] = nxt
+        steps_run += live.to(torch.int32)
+        probe.record(i, state["done"])
+    counts = state["lengths"] - len0
+    return state, toks, counts, steps_run
+
+
+def prefill_chunk_into_slot(
+    model: Transformer,
+    state: Dict[str, torch.Tensor],
+    decode: DecodeConfig,
+    tokens: torch.Tensor,
+    start: int,
+    prompt_len: int,
+    new_tokens: int,
+    slot: int,
+    seed: int,
+    table_row,
+):
+    """Extend slot ``slot``'s KV by one static-width chunk of prompt at
+    cache offset ``start``; returns (state, first sampled token [1]).
+
+    tokens [1, w]: the prompt's tokens [start, start + w), right-padded
+    past ``prompt_len`` on the final chunk.  table_row [1, mb]: the
+    slot's block table.  Fresh k/v go into the pool through it, and the
+    chunk's queries attend over the slot's gathered view under the
+    frontier ``start``, so earlier chunks' (or an aliased shared
+    prefix's) k/v take part as if the prompt had prefilled in one call.
+    Positions past the table's real pages land on the scratch block.
+    The scalars (start, prompt_len, new_tokens, slot, seed) are host
+    ints, as the engine knows them.
+
+    On the final chunk (start + w >= prompt_len) the program samples the
+    request's first token from the last real prompt position and arms
+    the slot's scalars (lengths, stop_len, last_token, done, keys);
+    other chunks leave them.  Either way ``done[slot]`` is set True
+    first: a slot freed mid-generation (deadline expiry) still has
+    ``done`` False on the device, and without this freeze an
+    interleaved decode step would advance the dead occupant and write
+    through the new request's table.
+    """
+    slots_n = state["done"].shape[0]
+    device = state["done"].device
+    w = tokens.shape[1]
+    start, prompt_len = int(start), int(prompt_len)
+    new_tokens, slot, seed = int(new_tokens), int(slot), int(seed)
+    table_row = _device_tables(table_row, device)
+    logits = _forward_with_cache(
+        model, tokens.to(device).long(),
+        (state["cache_k"], state["cache_v"]), start, tables=table_row)
+    # First-token sampling from the last REAL prompt position of this
+    # chunk (only meaningful on the final chunk; clamped otherwise).
+    idx = min(max(prompt_len - 1 - start, 0), w - 1)
+    last = logits[:, idx]                                    # [1, V]
+    # The request's (seed, step) counter; built by selects, since an
+    # indexed store of a host scalar would copy it to the device and wait.
+    first = torch.arange(2, device=device) == 0
+    if decode.temperature <= 0.0:
+        tok = torch.argmax(last, dim=-1)
+    else:
+        tok = _sample_slots(decode, last, torch.where(first, seed, 0)[None])
+    tok = tok.to(torch.int32)
+
+    sel = torch.arange(slots_n, device=device) == slot
+    state = dict(state)
+    state["adapter_ids"] = torch.where(sel, 0, state["adapter_ids"])
+    done = torch.where(sel, True, state["done"])
+    if start + w >= prompt_len:
+        done_final = torch.full((), new_tokens <= 1, device=device)
+        if decode.eos_token >= 0:
+            done_final = done_final | (tok[0] == decode.eos_token)
+        stop = prompt_len + max(new_tokens, 1) - 1
+        done = torch.where(sel, done_final, done)
+        state["lengths"] = torch.where(sel, prompt_len, state["lengths"])
+        state["stop_len"] = torch.where(sel, stop, state["stop_len"])
+        state["last_token"] = torch.where(sel, tok[0], state["last_token"])
+        state["keys"] = torch.where(sel[:, None],
+                                    torch.where(first, seed, 1)[None],
+                                    state["keys"])
+    state["done"] = done
+    return state, tok

@@ -10,7 +10,7 @@ are stacked ``[L, ...]``.
 
 Dense path only.  MoE, pipeline microbatching, ring attention and dropout
 raise ``NotPortedError`` until their slices of the port land (ROADMAP
-queue 1, items 4, 7 and 9).  ``flash_block_diag > 0`` selects the
+queue 1, items 10, 11 and 13).  ``flash_block_diag > 0`` selects the
 two-pass causal flash forward (ops/flash.py).
 
 Remat (``cfg.remat``) checkpoints each block with ``torch.utils.checkpoint``
@@ -113,13 +113,13 @@ class TransformerConfig:
 
 def _unsupported(cfg: TransformerConfig) -> Optional[str]:
     if cfg.moe_experts > 0:
-        return "moe_experts > 0 (MoE, ROADMAP queue 1 item 9)"
+        return "moe_experts > 0 (MoE, ROADMAP queue 1 item 13)"
     if cfg.pipeline_microbatches > 0:
-        return "pipeline_microbatches > 0 (parallel training, ROADMAP queue 1 item 7)"
+        return "pipeline_microbatches > 0 (parallel training, ROADMAP queue 1 item 11)"
     if cfg.attention == "ring":
-        return "attention='ring' (parallel training, ROADMAP queue 1 item 7)"
+        return "attention='ring' (parallel training, ROADMAP queue 1 item 11)"
     if cfg.dropout_rate > 0:
-        return "dropout_rate > 0 (training slice, ROADMAP queue 1 item 4)"
+        return "dropout_rate > 0 (training slice, ROADMAP queue 1 item 10)"
     return None
 
 

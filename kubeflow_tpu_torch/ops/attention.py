@@ -3,9 +3,10 @@
 ``dot_product_attention`` materialises the [b, h, q, k] scores.  It is the
 decode-step attention over the contiguous KV cache and the path taken by
 segment-masked calls; the flash forward (ops/flash.py) covers prefill.
-q/k/v are [batch, seq, heads, head_dim]; GQA passes fewer kv heads.
-Per-row ``[b]`` kv offsets and int8 K/V come with the serving-engine
-slice of the port (ROADMAP queue 1, item 2).
+q/k/v are [batch, seq, heads, head_dim]; GQA passes fewer kv heads.  A
+per-row ``[b]`` kv offset is the serving engine's paged decode: each
+slot's queries sit at its own frontier.  The int8 K/V path is not ported
+yet (ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -13,8 +14,6 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
-
-from kubeflow_tpu_torch import NotPortedError
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -42,11 +41,12 @@ def dot_product_attention(
     """[b, sq, h, d] x [b, sk, hkv, d] -> [b, sq, h, d].
 
     kv_offset: absolute position of k[0] relative to q[0]'s frame (decode:
-    one query against the cache).  kv_valid_start: per-row [b] first
-    valid key; keys before it are masked for every query (left-padded
-    prompts).  Scores and softmax are float32 whatever the input dtype;
-    masked scores take the float32 minimum, so a fully masked row gets a
-    uniform softmax, as in the JAX reference.
+    one query against the cache), an int or a per-row [b] tensor.
+    kv_valid_start: per-row [b] first valid key; keys before it are
+    masked for every query (left-padded prompts).  Scores and softmax
+    are float32 whatever the input dtype; masked scores take the float32
+    minimum, so a fully masked row gets a uniform softmax, as in the JAX
+    reference.
     """
     orig_dtype = q.dtype
     h = q.shape[2]
@@ -79,15 +79,17 @@ def _build_mask(
     device: Optional[torch.device] = None,
 ) -> Optional[torch.Tensor]:
     """Boolean keep-mask broadcastable to [b, h, q, k]."""
-    if isinstance(kv_offset, torch.Tensor) and kv_offset.ndim == 1:
-        raise NotPortedError(
-            "per-row [b] kv_offset belongs to the serving-engine slice "
-            "(decode programs, ROADMAP queue 1 item 2)")
     mask = None
     k_pos = torch.arange(k_len, device=device)
     if causal:
-        q_pos = torch.arange(q_len, device=device)[:, None] + kv_offset
-        mask = (q_pos >= k_pos[None, :])[None, None, :, :]
+        q_pos = torch.arange(q_len, device=device)[:, None]
+        if isinstance(kv_offset, torch.Tensor) and kv_offset.ndim == 1:
+            # Per-row offsets: each row's queries sit at their own
+            # absolute positions (one slot per row of a decode batch).
+            q_pos = q_pos[None] + kv_offset.to(device)[:, None, None]
+            mask = (q_pos >= k_pos)[:, None, :, :]        # [b, 1, q, k]
+        else:
+            mask = (q_pos + kv_offset >= k_pos[None, :])[None, None, :, :]
     if kv_valid_start is not None:
         valid = (k_pos[None, :]
                  >= kv_valid_start.to(device)[:, None])[:, None, None, :]

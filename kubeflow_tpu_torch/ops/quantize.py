@@ -5,7 +5,7 @@ the axes its einsum contracts (counted from the end, so stacked ``[L, ...]``
 leaves and per-layer ones share entries).  ``narrow_params`` casts exactly
 those leaves to the compute dtype and leaves norm scales alone.
 
-Not ported yet (ROADMAP queue 1, item 2): ``QTensor``,
+Not ported yet (ROADMAP queue 1, item 4): ``QTensor``,
 ``quantize_array``/``quantize_params``, ``qeinsum`` and ``embed_lookup``
 for int8 weights and the int8 KV cache.
 """

@@ -3,7 +3,7 @@ device.  The port of kubeflow_tpu/runtime/train.py.
 
 The JAX ``Trainer`` jits one SPMD step over a mesh.  This one runs the
 same step eagerly on one explicit device: a mesh raises
-``NotPortedError`` (parallel training, ROADMAP queue 1, item 7).  What
+``NotPortedError`` (parallel training, ROADMAP queue 1, item 11).  What
 carries over unchanged:
 
   - the task contract: ``init_fn(generator) -> (model, mutable)`` and
@@ -117,7 +117,7 @@ class Trainer:
         if self.mesh is not None:
             raise NotPortedError(
                 "a mesh (parallel training) is not ported yet: ROADMAP "
-                "queue 1, item 7; the port trains on one device")
+                "queue 1, item 11; the port trains on one device")
         self.device = resolve_device(self.device)
         self._multi_steps: Dict[int, Callable] = {}
         self._last_metrics: Dict[str, float] = {}

@@ -1,0 +1,1403 @@
+"""Continuous-batching LM decode engine: the port of
+kubeflow_tpu/serving/engine.py's default path.
+
+The static batchers dispatch whole ``generate()`` calls: a batch is
+assembled, padded and owned by one program from prefill to the last
+token, so a request arriving mid-generation waits for all of it and
+every row pays the batch bucket's padded KV span.  This engine runs the
+slot programs of models/generate.py instead, over ONE persistent PAGED
+KV block pool shared by ``slots`` sequences:
+
+  - the KV store is a device block pool ([layers, kv_pool_blocks,
+    kv_block_tokens, hkv, d]) with host-owned per-slot block tables
+    passed into every program call; a slot holds pages for the tokens
+    it has produced, so capacity is bounded by tokens resident, and
+    admission reserves each request's worst-case page count up front
+    and sheds typed ``Overloaded`` when the pool can never cover it
+    (serving/prefix_cache.py BlockManager);
+  - a loop thread advances all live slots one token per ``decode_step``
+    call, or up to ``decode_rounds`` tokens per fused ``decode_rounds``
+    call;
+  - new requests are admitted into free slots BETWEEN steps, and their
+    prompts prefill in static-width chunks scheduled between steps under
+    a per-step token budget (``prefill_chunk_tokens``), so an arriving
+    prompt stalls in-flight decode for at most one chunk;
+  - admission resumes from the longest cached shared prefix: the new
+    slot's table aliases the physical blocks a previous prompt wrote (a
+    refcount bump, no device copy) and chunked prefill continues after
+    them;
+  - finished rows retire at once (device-side ``done``); their slots are
+    reused and their private pages return to the pool.
+
+The host reads sampled tokens ``sync_lag`` calls late: each program's
+results are copied into pinned host memory by non-blocking copies behind
+a CUDA event, and the host waits on that event only when it drains the
+call, ``sync_lag`` dispatches later (at the round boundary for fused
+rounds).  No program reads a device value on the host.  The loop thread
+runs under ``torch.inference_mode()``, which is per thread.
+
+Where the JAX engine lowers and compiles its programs ahead of time,
+this one calls the functions of models/generate.py directly;
+``compiled_programs()`` counts each program as built at its first call,
+so it reports what the JAX engine reports under the same flags.
+
+Not ported yet, each refused with ``NotPortedError`` naming its ROADMAP
+queue 1 item: speculative decoding (item 1), the disaggregated KV
+handoff and streaming (``kv_export``, ``kv_handoff``, ``prefill_export``,
+``fetch_kv``; item 2), the host spill tier and
+session park (item 3), the int8 KV cache (item 4), adapters (item 5)
+and ``mesh`` (item 6).
+
+Interface-compatible with the batchers (submit/accepts/stats/close), so
+ModelServer.enable_batching wires it behind the REST surface unchanged.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from kubeflow_tpu_torch import NotPortedError
+from kubeflow_tpu_torch.runtime import tracing
+from kubeflow_tpu_torch.serving.errors import (
+    BatcherClosed,
+    DeadlineExceeded,
+    Overloaded,
+)
+from kubeflow_tpu_torch.serving.model_server import (
+    EXPIRED_HELP,
+    EXPIRED_TOTAL,
+    SHED_HELP,
+    SHED_TOTAL,
+    locked_snapshot,
+)
+from kubeflow_tpu_torch.serving.prefix_cache import BlockManager
+from kubeflow_tpu_torch.testing import faults
+
+# Step-duration histogram buckets: decode steps run ~0.1 ms (tiny CPU
+# models) to ~100 ms.
+_STEP_BUCKETS = (.0005, .001, .0025, .005, .01, .025, .05, .1, .25, .5,
+                 1.0, 2.5)
+
+PREFIX_HITS_TOTAL = "kft_engine_prefix_hits_total"
+PREFIX_HITS_HELP = "admissions resumed from a cached prefix, by engine"
+PREFIX_MISSES_TOTAL = "kft_engine_prefix_misses_total"
+PREFIX_MISSES_HELP = "admissions with no cached prefix, by engine"
+PREFIX_EVICTIONS_TOTAL = "kft_engine_prefix_evictions_total"
+PREFIX_EVICTIONS_HELP = "cached prefix records evicted (LRU), by engine"
+KV_BLOCKS_GAUGE = "kft_engine_kv_blocks"
+KV_BLOCKS_HELP = "paged KV pool capacity in blocks, by engine"
+KV_BLOCKS_USED_GAUGE = "kft_engine_kv_blocks_used"
+KV_BLOCKS_USED_HELP = \
+    "paged KV blocks resident (slot- or cache-held), by engine"
+KV_EVICTIONS_TOTAL = "kft_engine_kv_block_evictions_total"
+KV_EVICTIONS_HELP = \
+    "paged KV blocks freed by prefix-cache LRU eviction, by engine"
+KV_SHED_TOTAL = "kft_engine_kv_shed_no_blocks_total"
+KV_SHED_HELP = \
+    "submissions shed because the KV block pool could not cover " \
+    "them, by engine"
+PREFILL_CHUNKS_TOTAL = "kft_engine_prefill_chunks_total"
+PREFILL_CHUNKS_HELP = "prefill chunk program calls, by engine"
+FUSED_ROUNDS_TOTAL = "kft_engine_fused_rounds_total"
+FUSED_ROUNDS_HELP = \
+    "fused multi-step decode rounds dispatched (decode_rounds > 1), " \
+    "by engine"
+FUSED_WASTED_TOTAL = "kft_engine_fused_steps_wasted_total"
+FUSED_WASTED_HELP = \
+    "fused-round slot-steps dispatched but not delivered (early-exit " \
+    "waste past a slot's EOS/budget/deadline), by engine"
+
+# Fused decode rounds (decode_rounds > 1): shrink the adaptive round
+# width when more than this fraction of a round's dispatched slot-steps
+# delivered nothing (slots frozen at EOS/budget while co-resident slots
+# keep stepping), or when an admission is queued (smaller rounds reach
+# the admission boundary sooner); grow back one step per full,
+# waste-free round.  The pace EMA smooths the per-token step latency
+# used to clamp the width under live deadlines.
+_ROUND_WASTE_FRAC = 0.25
+_ROUND_PACE_ALPHA = 0.2
+
+
+def _true_token_len(row: np.ndarray) -> int:
+    """Real prompt length of a 1-D token row: trailing pad ids (token
+    0, the framework-wide pad convention) do not count.  An all-pad row
+    keeps its full width — there is no basis to trim it."""
+    nz = np.flatnonzero(row)
+    return int(nz[-1]) + 1 if nz.size else int(row.shape[0])
+
+
+def _not_ported(what: str, item: int) -> NotPortedError:
+    return NotPortedError(
+        f"{what} is not ported to the decode engine yet (ROADMAP queue 1 "
+        f"item {item})")
+
+
+class _Readback:
+    """Program results on their way to the host without blocking the
+    loop: on CUDA, pinned buffers filled by non-blocking copies behind
+    one event, waited on only when the results are read; on the CPU the
+    results already are host tensors."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        self.event = None
+        if tensors[0].device.type != "cuda":
+            self.host = list(tensors)
+            return
+        self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in tensors]
+        for h, t in zip(self.host, tensors):
+            h.copy_(t, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def numpy(self) -> List[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.host]
+
+
+class DecodeEngine:
+    """Continuous-batching decode over a persistent slot-based KV cache.
+
+    Args:
+      model/decode: the loaded model, a ``Transformer`` on its device,
+        and its decode settings (loaders.lm_generate exposes them as
+        ``predict.engine_spec``).  The pool and every program run on
+        the model's device.
+      slots: concurrent sequences.
+      prefill_len: static prompt width bound; prompts with more REAL
+        tokens (trailing pad ids don't count) fall back to the direct
+        generate() path.
+      max_len: cache positions per slot (default prefill_len +
+        decode.max_new_tokens).
+      sync_lag: how many step calls the host may run ahead of token
+        materialization (0 = fully synchronous loop).
+      steps_per_call: decode steps fused into one step-program call.
+      decode_rounds: > 1 replaces the per-step loop with one
+        ``decode_rounds`` call advancing every slot up to this many
+        steps, drained at each round boundary (sync_lag applies to the
+        k=1 path only); the width adapts between 1 and this value.
+      admit_width: how many admissions may be MID-PREFILL at once;
+        further queued requests wait even when slots are free.  Chunk
+        scheduling among them is FIFO (best TTFT for the head of the
+        line).
+      prefill_chunk_tokens: per-step prefill token budget AND the static
+        chunk width (clamped to prefill_len).
+      kv_block_tokens: paged-KV page size in cache positions, also the
+        prefix hash/share granularity.
+      kv_pool_blocks: device pool capacity in pages; 0 sizes it to
+        ``slots x ceil(max_len / kv_block_tokens)``.
+      prefix_caching: publish/reuse shared prefixes as refcounted block
+        aliases (False disables lookup and publication).
+      max_queue_depth: a submit arriving with this many requests
+        already waiting fails fast with Overloaded; 0 = unbounded.
+      overload_retry_after_s: the Retry-After hint of a shed.
+      speculative_tokens, host_spill_blocks, mesh, partition_rules,
+        adapters: the JAX engine's options that are not ported yet; any
+        value but their off value raises ``NotPortedError``.
+    """
+
+    def __init__(
+        self,
+        model,
+        decode,
+        *,
+        slots: int = 8,
+        prefill_len: int = 256,
+        max_len: Optional[int] = None,
+        sync_lag: int = 2,
+        steps_per_call: int = 1,
+        decode_rounds: int = 1,
+        admit_width: int = 4,
+        prefill_chunk_tokens: int = 64,
+        kv_block_tokens: int = 16,
+        kv_pool_blocks: int = 0,
+        prefix_caching: bool = True,
+        host_spill_blocks: int = 0,
+        max_queue_depth: int = 0,
+        overload_retry_after_s: float = 1.0,
+        speculative_tokens: int = 0,
+        mesh=None,
+        partition_rules=None,
+        adapters=None,
+        name: str = "engine",
+    ):
+        from kubeflow_tpu_torch.models.generate import init_paged_state
+        from kubeflow_tpu_torch.runtime.prom import REGISTRY
+
+        for on, what, item in (
+                (int(speculative_tokens) > 0, "speculative_tokens", 1),
+                (int(host_spill_blocks) > 0, "host_spill_blocks", 3),
+                (decode.kv_cache_dtype != "model", "the int8 KV cache", 4),
+                (adapters is not None, "adapters", 5),
+                (mesh is not None or partition_rules is not None,
+                 "mesh (tensor-parallel decode)", 6)):
+            if on:
+                raise _not_ported(what, item)
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        self.model = model
+        self.cfg = cfg = model.cfg
+        self.device = model.embed.device
+        self.decode = decode
+        self.slots = slots
+        self.prefill_len = int(prefill_len)
+        if self.prefill_len < 1:
+            # A non-positive width silently rejects EVERY prompt via
+            # accepts(): all traffic would fall back to the direct path
+            # while the engine holds a pool and a thread.
+            raise ValueError(
+                f"prefill_len must be >= 1, got {self.prefill_len}")
+        self.max_len = int(max_len or prefill_len + decode.max_new_tokens)
+        if self.max_len <= self.prefill_len:
+            raise ValueError(
+                f"max_len {self.max_len} leaves no decode room beyond "
+                f"prefill_len {self.prefill_len}")
+        if cfg.max_seq_len < self.max_len:
+            raise ValueError(
+                f"max_len {self.max_len} exceeds model max_seq_len "
+                f"{cfg.max_seq_len}")
+        self.sync_lag = max(0, int(sync_lag))
+        self.steps_per_call = max(1, int(steps_per_call))
+        self.decode_rounds = max(1, int(decode_rounds))
+        self.admit_width = max(1, min(int(admit_width), slots))
+        self.prefill_chunk_tokens = max(1, int(prefill_chunk_tokens))
+        self.chunk_w = min(self.prefill_chunk_tokens, self.prefill_len)
+        self.kv_block_tokens = max(1, int(kv_block_tokens))
+        # Per-slot block-table span: enough logical pages to cover
+        # max_len positions (a static program shape).
+        self._table_blocks = -(-self.max_len // self.kv_block_tokens)
+        self.kv_pool_blocks = int(kv_pool_blocks) \
+            or slots * self._table_blocks
+        if self.kv_pool_blocks < 1:
+            raise ValueError(
+                f"kv_pool_blocks must be >= 1, got {self.kv_pool_blocks}")
+        self.prefix_caching = bool(prefix_caching)
+        self.max_queue_depth = max(0, int(max_queue_depth))
+        self.overload_retry_after_s = overload_retry_after_s
+        self._eos = decode.eos_token >= 0
+        self._state = init_paged_state(cfg, slots, self.kv_pool_blocks,
+                                       self.kv_block_tokens,
+                                       device=self.device)
+        # Host-owned per-slot block tables, passed into every program
+        # call; the sentinel value (== pool size) sends writes and reads
+        # of unallocated logical pages to the pool's scratch block.
+        # Loop-thread-owned.  The device copy is re-uploaded (from
+        # pinned memory, non-blocking) only when a host edit marked it
+        # dirty.
+        self._tables = np.full(
+            (slots, self._table_blocks), self.kv_pool_blocks, np.int32)
+        self._tables_dev = torch.full(
+            self._tables.shape, self.kv_pool_blocks, dtype=torch.int64,
+            device=self.device)
+        self._tables_dirty = False
+        # Paged-KV bookkeeping: physical refcounts, admission
+        # reservations and the block-hashed prefix index.  Mutated by the
+        # loop thread ONLY, always under self._lock (submit reads
+        # available() for shed attribution).
+        self._mgr = BlockManager(self.kv_pool_blocks,
+                                 self.kv_block_tokens,
+                                 caching=self.prefix_caching)
+        self._evict_rec_seen = 0
+        self._evict_blk_seen = 0
+        # Which programs have run (the JAX engine's compiled executables;
+        # see compiled_programs()).  Loop-thread-owned.
+        self._chunk_built = False
+        self._step_built = False
+        self._rounds_built = False
+        # Fused decode rounds: the adaptive round width, the realized
+        # steps-per-round reservoir and the per-token pace EMA the
+        # deadline clamp reads.  Loop-thread-owned.
+        self._round_k = self.decode_rounds
+        self._round_steps: List[int] = []
+        self._step_pace_ema: Optional[float] = None
+        self._lock = threading.Lock()
+        self._work = threading.Condition(self._lock)
+        self._queue: List[dict] = []
+        self._stopped = False
+        self._drain_deadline: Optional[float] = None
+        # Host-side slot table: None = free, else the live request entry.
+        self._slot_req: List[Optional[dict]] = [None] * slots
+        # Admitted entries whose prompts are still chunk-prefilling
+        # (FIFO).  Loop-thread-owned; the admission pop reads its length.
+        self._prefilling: List[dict] = []
+        # (_Readback, [(slot, entry), ...], has_counts) emissions not yet
+        # read.
+        self._pending: List[tuple] = []
+        # Counters (mutated by the loop thread, snapshotted under the
+        # lock).
+        self._counters = {
+            "requests": 0, "tokens": 0, "steps": 0, "prefills": 0,
+            "occupancy_sum": 0, "busy_s": 0.0, "in_flight": 0,
+            "shed": 0, "expired": 0,
+            "prefix_hits": 0, "prefix_misses": 0, "prefix_evictions": 0,
+            "prefill_chunks": 0, "cached_tokens": 0, "prompt_tokens": 0,
+            "kv_evictions": 0, "kv_shed_no_blocks": 0,
+            "fused_rounds": 0, "fused_steps_wasted": 0,
+        }
+        self._step_times: List[float] = []   # bounded reservoirs
+        self._chunk_times: List[float] = []
+        self._gap_times: List[float] = []
+        self._ttft_times: List[float] = []
+        self._last_step_end: Optional[float] = None
+        self._metric_name = name
+        self._occ_gauge = REGISTRY.gauge(
+            "kft_engine_active_slots",
+            "decode engine live slots, by engine")
+        self._queue_gauge = REGISTRY.gauge(
+            "kft_engine_queue_depth",
+            "decode engine admission queue depth, by engine")
+        self._tok_counter = REGISTRY.counter(
+            "kft_engine_tokens_total",
+            "tokens emitted by the decode engine, by engine")
+        self._step_hist = REGISTRY.histogram(
+            "kft_engine_step_seconds",
+            "decode engine per-step (= per-token) latency, by engine",
+            buckets=_STEP_BUCKETS,
+        ).declare(engine=name)
+        self._hits_ctr = REGISTRY.counter(
+            PREFIX_HITS_TOTAL, PREFIX_HITS_HELP)
+        self._misses_ctr = REGISTRY.counter(
+            PREFIX_MISSES_TOTAL, PREFIX_MISSES_HELP)
+        self._evict_ctr = REGISTRY.counter(
+            PREFIX_EVICTIONS_TOTAL, PREFIX_EVICTIONS_HELP)
+        self._chunks_ctr = REGISTRY.counter(
+            PREFILL_CHUNKS_TOTAL, PREFILL_CHUNKS_HELP)
+        self._kv_blocks_gauge = REGISTRY.gauge(
+            KV_BLOCKS_GAUGE, KV_BLOCKS_HELP)
+        self._kv_used_gauge = REGISTRY.gauge(
+            KV_BLOCKS_USED_GAUGE, KV_BLOCKS_USED_HELP)
+        self._kv_evict_ctr = REGISTRY.counter(
+            KV_EVICTIONS_TOTAL, KV_EVICTIONS_HELP)
+        self._kv_shed_ctr = REGISTRY.counter(
+            KV_SHED_TOTAL, KV_SHED_HELP)
+        self._fused_rounds_ctr = REGISTRY.counter(
+            FUSED_ROUNDS_TOTAL, FUSED_ROUNDS_HELP)
+        self._fused_wasted_ctr = REGISTRY.counter(
+            FUSED_WASTED_TOTAL, FUSED_WASTED_HELP)
+        # Fault-layer series: same names as the static batchers', so
+        # shed/expired rates read uniformly across batching planes.
+        self._shed_ctr = REGISTRY.counter(SHED_TOTAL, SHED_HELP)
+        self._expired_ctr = REGISTRY.counter(EXPIRED_TOTAL, EXPIRED_HELP)
+        self._occ_gauge.set(0, engine=name)
+        self._queue_gauge.set(0, engine=name)
+        self._kv_blocks_gauge.set(self.kv_pool_blocks, engine=name)
+        self._kv_used_gauge.set(0, engine=name)
+        # Last values pushed to the gauges: the step loop only touches
+        # the (locked) registry when a value actually changes.
+        self._occ_last = 0
+        self._queue_last = 0
+        self._kv_used_last = 0
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name=f"decode-engine-{name}")
+        self._thread.start()
+
+    # -- client surface ---------------------------------------------------
+
+    def accepts(self, inputs: Dict[str, Any]) -> bool:
+        """ModelServer routing hook: prompts whose REAL token count (an
+        explicit ``prompt_len``, else the width minus trailing pad ids)
+        exceeds the static prefill width fall back to the direct
+        generate() path.  A short prompt arriving right-padded is
+        admitted at its true length."""
+        tokens = np.asarray(inputs.get("tokens", ()))
+        if tokens.ndim == 0 or tokens.size == 0:
+            return False
+        row = tokens.reshape(-1)
+        if "prompt_len" in inputs:
+            length = int(np.asarray(inputs["prompt_len"]).reshape(()))
+            if not 0 < length <= row.shape[0]:
+                return False
+        else:
+            length = _true_token_len(row)
+        # A resume's delivered tokens join the context, so they count
+        # against the static prefill width too.
+        length += int(np.asarray(
+            inputs.get("resume_tokens", ())).size)
+        return bool(0 < length <= self.prefill_len)
+
+    def submit(self, inputs: Dict[str, Any],
+               deadline: Optional[float] = None) -> Dict[str, Any]:
+        """One request: tokens [t] or [1, t]; optional per-request
+        ``max_new_tokens`` (<= the export's budget), sampling ``seed``,
+        and ``prompt_len`` (real token count of a right-padded prompt;
+        without it trailing pad ids, token 0, are trimmed).  Blocks until
+        the completion is ready; returns {"tokens": [1, true_len +
+        emitted]}.  With ``return_timing`` truthy the result also
+        carries ``ttft_s`` / ``latency_s`` / ``cached_tokens``.
+
+        ``resume_tokens`` (mid-generation failover): tokens a prior
+        attempt of this request already emitted.  They join the prompt
+        as context and the budget shrinks by their count, so the engine
+        emits exactly the suffix an uninterrupted greedy run would have
+        produced after them.
+
+        ``deadline`` (absolute faults.monotonic() instant) is enforced
+        everywhere the request lives: on arrival, in the queue, and in
+        flight, where an expired request is retired through the
+        deterministic-retirement path and its slot frees for the next
+        admission."""
+        entry = self._admit(inputs, deadline)
+        entry["event"].wait()
+        if entry["err"] is not None:
+            raise entry["err"]
+        return entry["out"]
+
+    def prefill_export(self, inputs: Dict[str, Any],
+                       deadline: Optional[float] = None):
+        """The disaggregated prefill tier's export is not ported yet."""
+        raise _not_ported("the KV handoff export (prefill_export)", 2)
+
+    def fetch_kv(self, inputs: Dict[str, Any]):
+        """The host spill tier's session fetch is not ported yet."""
+        raise _not_ported("the KV page fetch (fetch_kv)", 2)
+
+    def _admit(self, inputs: Dict[str, Any],
+               deadline: Optional[float]) -> dict:
+        """Validate + enqueue one request; returns the live entry whose
+        ``event`` resolves it."""
+        for key, what, item in (("kv_export", "the KV handoff export", 2),
+                                ("kv_handoff", "the KV handoff import", 2),
+                                ("park_kv", "the session park", 3),
+                                ("adapter", "adapters", 5)):
+            if inputs.get(key):
+                raise _not_ported(what, item)
+        tokens = np.asarray(inputs["tokens"], np.int32)
+        if tokens.ndim == 1:
+            tokens = tokens[None]
+        n, width = tokens.shape
+        if n != 1:
+            raise ValueError(
+                f"DecodeEngine.submit takes one prompt per call (got "
+                f"batch dim {n}); submit rows separately")
+        if "prompt_len" in inputs:
+            length = int(np.asarray(inputs["prompt_len"]).reshape(()))
+            if not 0 < length <= width:
+                raise ValueError(
+                    f"prompt_len {length} outside (0, {width}] "
+                    f"(the tokens width)")
+        else:
+            length = _true_token_len(tokens[0])
+        if length <= 0:
+            raise ValueError(
+                f"true prompt length {length} must be positive")
+        tokens = np.ascontiguousarray(tokens[:, :length])
+        # Mid-generation resume: a prior attempt's delivered tokens join
+        # the context and the budget shrinks by their count.
+        resume = np.asarray(
+            inputs.get("resume_tokens", ()), np.int32).reshape(-1)
+        resume_len = int(resume.shape[0])
+        total_budget = int(np.asarray(inputs.get(
+            "max_new_tokens", self.decode.max_new_tokens)).reshape(()))
+        if total_budget < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {total_budget}")
+        total_budget = min(total_budget, self.decode.max_new_tokens)
+        if resume_len:
+            faults.fire("engine.resume")
+            if resume_len > total_budget:
+                raise ValueError(
+                    f"resume_tokens carries {resume_len} tokens but "
+                    f"the budget is {total_budget}")
+            tokens = np.concatenate([tokens, resume[None]], axis=1)
+            length += resume_len
+            if resume_len == total_budget or (
+                    self._eos
+                    and bool(np.any(resume == self.decode.eos_token))):
+                # The prior attempt already finished the generation:
+                # resolve as a completed request, nothing to emit.
+                return self._completed_entry(tokens, inputs)
+        if not 0 < length <= self.prefill_len:
+            raise ValueError(
+                f"true context length {length} (prompt + "
+                f"{resume_len} resumed) outside "
+                f"(0, {self.prefill_len}] (engine prefill width)")
+        # The export config's max_new_tokens is the ceiling, and the
+        # cache headroom caps it further, both against the TRUE length.
+        new = min(total_budget - resume_len, self.max_len - length)
+        seed = int(np.asarray(inputs.get("seed", 0)).reshape(()))
+        if deadline is not None and faults.monotonic() >= deadline:
+            with self._lock:
+                self._counters["expired"] += 1
+            self._expired_ctr.inc(batcher=self._metric_name)
+            raise DeadlineExceeded(
+                f"deadline expired before engine "
+                f"{self._metric_name!r} admission")
+        # Worst-case paged-KV reservation: every position the request
+        # could ever write (prompt + full budget) in whole pages.
+        # Reserving it at admission is what makes block exhaustion a
+        # typed shed instead of a mid-flight deadlock.
+        res_blocks = -(-(length + new) // self.kv_block_tokens)
+        trace_ctx = tracing.current_ctx()
+        entry = {
+            "tokens": tokens, "new": new, "seed": seed,
+            "emitted": [], "scheduled": 0, "slot": None,
+            "trace": trace_ctx,
+            "t_perf": time.perf_counter()
+            if trace_ctx is not None else 0.0,
+            "t_first_perf": None,
+            "prefilling": False, "pos": 0, "cached": 0,
+            "res_blocks": res_blocks, "res_left": 0, "blocks": [],
+            "released": False,
+            "deadline": deadline,
+            "want_timing": bool(inputs.get("return_timing")),
+            "event": threading.Event(), "out": None, "err": None,
+            "t": faults.monotonic(), "t_first": None,
+        }
+        with self._lock:
+            if self._stopped:
+                raise BatcherClosed(
+                    f"engine {self._metric_name!r} is closed")
+            if res_blocks > self.kv_pool_blocks:
+                # The request's worst case can NEVER fit this pool:
+                # queueing it would wedge the admission head forever.
+                self._counters["shed"] += 1
+                self._counters["kv_shed_no_blocks"] += 1
+                self._shed_ctr.inc(batcher=self._metric_name)
+                self._kv_shed_ctr.inc(engine=self._metric_name)
+                raise Overloaded(
+                    f"request needs {res_blocks} KV blocks but engine "
+                    f"{self._metric_name!r}'s pool holds "
+                    f"{self.kv_pool_blocks}",
+                    retry_after_s=self.overload_retry_after_s)
+            if self.max_queue_depth \
+                    and len(self._queue) >= self.max_queue_depth:
+                # Bounded admission: fail fast instead of queueing
+                # unboundedly.  When the pool, not the slot count, is
+                # what binds, the kv counter says so.
+                self._counters["shed"] += 1
+                if self._mgr.available() < res_blocks:
+                    self._counters["kv_shed_no_blocks"] += 1
+                    self._kv_shed_ctr.inc(engine=self._metric_name)
+                self._shed_ctr.inc(batcher=self._metric_name)
+                raise Overloaded(
+                    f"engine {self._metric_name!r} admission queue "
+                    f"full ({len(self._queue)} waiting, "
+                    f"{self.slots} slots busy)",
+                    retry_after_s=self.overload_retry_after_s)
+            self._queue.append(entry)
+            self._set_queue_gauge(len(self._queue))
+            self._work.notify()
+        return entry
+
+    def _completed_entry(self, tokens: np.ndarray,
+                         inputs: Dict[str, Any]) -> dict:
+        """A resume whose prior attempt already finished: resolve
+        without touching the loop — the full context IS the result."""
+        entry = {
+            "tokens": tokens, "new": 0, "emitted": [],
+            "out": {"tokens": tokens}, "err": None,
+            "event": threading.Event(),
+        }
+        if inputs.get("return_timing"):
+            entry["out"]["ttft_s"] = 0.0
+            entry["out"]["latency_s"] = 0.0
+            entry["out"]["cached_tokens"] = 0
+        entry["event"].set()
+        return entry
+
+    def compiled_programs(self) -> Dict[str, int]:
+        """Which programs this engine has run, in the JAX engine's terms
+        (it counts AOT-compiled executables; this port counts a program
+        as built at its first call): {"chunked_prefill", "step",
+        "verify"}, plus ``decode_rounds`` once the fused program ran.
+        ``verify`` stays 0: speculation is not ported."""
+        out = {"chunked_prefill": int(self._chunk_built),
+               "step": int(self._step_built),
+               "verify": 0}
+        if self._rounds_built:
+            out["decode_rounds"] = 1
+        return out
+
+    def stats(self) -> Dict[str, Any]:
+        """Locked snapshot of the engine counters: occupancy, queue
+        depth, throughput, per-token latency, prefix-cache
+        effectiveness and prefill-interference bounds.  The keys are
+        the JAX engine's, less those of the features not ported yet
+        (speculation, the host tier, the KV handoff, the mesh)."""
+        c, extra = locked_snapshot(
+            self._lock, self._counters,
+            lambda: {
+                "queue_depth": len(self._queue),
+                "active_slots": sum(
+                    r is not None for r in self._slot_req),
+                "kv_used": self._mgr.used_blocks(),
+                "step_times": list(self._step_times),
+                "chunk_times": list(self._chunk_times),
+                "gap_times": list(self._gap_times),
+                "ttft_times": list(self._ttft_times),
+                "round_steps": list(self._round_steps),
+            })
+        steps = c["steps"]
+        # Sort each reservoir ONCE, outside the lock.
+        times = sorted(extra["step_times"])
+        gaps = sorted(extra["gap_times"])
+        chunks = sorted(extra["chunk_times"])
+        ttfts = sorted(extra["ttft_times"])
+        rounds = sorted(extra["round_steps"])
+
+        def pct_raw(sorted_values, q):
+            if not sorted_values:
+                return 0
+            return sorted_values[min(len(sorted_values) - 1,
+                                     int(len(sorted_values) * q))]
+
+        def pct(sorted_values, q):
+            return round(pct_raw(sorted_values, q) * 1e3, 3) \
+                if sorted_values else 0.0
+
+        prompt_toks = c["prompt_tokens"]
+        return {
+            "requests": c["requests"],
+            "tokens": c["tokens"],
+            "steps": steps,
+            "prefills": c["prefills"],
+            "slots": self.slots,
+            "active_slots": extra["active_slots"],
+            "queue_depth": extra["queue_depth"],
+            # Admitted but not yet delivered: THIS is the drain signal
+            # (deterministic retirement frees a slot at dispatch, before
+            # the lagged emission reaches its client).
+            "in_flight_requests": c["in_flight"],
+            "shed": c["shed"],
+            "deadline_expired": c["expired"],
+            "prefix_hits": c["prefix_hits"],
+            "prefix_misses": c["prefix_misses"],
+            "prefix_evictions": c["prefix_evictions"],
+            "cached_prompt_tokens": c["cached_tokens"],
+            "prompt_tokens": prompt_toks,
+            "cached_token_ratio": round(
+                c["cached_tokens"] / prompt_toks, 4)
+            if prompt_toks else 0.0,
+            "kv_blocks": self.kv_pool_blocks,
+            "kv_blocks_used": extra["kv_used"],
+            "kv_block_tokens": self.kv_block_tokens,
+            "kv_block_evictions": c["kv_evictions"],
+            "kv_shed_no_blocks": c["kv_shed_no_blocks"],
+            "tokens_resident": extra["kv_used"] * self.kv_block_tokens,
+            "kv_utilization": round(
+                extra["kv_used"] / self.kv_pool_blocks, 4)
+            if self.kv_pool_blocks else 0.0,
+            # Fused decode rounds: rounds dispatched, early-exit
+            # slot-steps that delivered nothing, and the realized
+            # steps-per-round distribution.
+            "decode_rounds": self.decode_rounds,
+            "fused_rounds": c["fused_rounds"],
+            "fused_steps_wasted": c["fused_steps_wasted"],
+            "steps_per_round_p50": pct_raw(rounds, 0.50),
+            "steps_per_round_p99": pct_raw(rounds, 0.99),
+            "compiled_programs": self.compiled_programs(),
+            "prefill_chunks": c["prefill_chunks"],
+            "prefill_chunk_p95_ms": pct(chunks, 0.95),
+            "mean_occupancy": round(c["occupancy_sum"] / steps, 2)
+            if steps else 0.0,
+            "tokens_per_sec": round(c["tokens"] / c["busy_s"], 1)
+            if c["busy_s"] else 0.0,
+            "token_latency_p50_ms": pct(times, 0.50),
+            "token_latency_p95_ms": pct(times, 0.95),
+            "token_latency_p99_ms": pct(times, 0.99),
+            # Wall time between consecutive step-call completions while
+            # slots were live: the client-visible inter-token gap,
+            # including interleaved admission/prefill work.
+            "inter_token_gap_p50_ms": pct(gaps, 0.50),
+            "inter_token_gap_p99_ms": pct(gaps, 0.99),
+            "inter_token_gap_max_ms": round(gaps[-1] * 1e3, 3)
+            if gaps else 0.0,
+            "ttft_p50_ms": pct(ttfts, 0.50),
+            "ttft_p99_ms": pct(ttfts, 0.99),
+        }
+
+    def close(self, drain_s: float = 10.0) -> None:
+        """Deterministic shutdown: refuse new work, give in-flight
+        requests ``drain_s`` to finish, fail whatever remains with
+        BatcherClosed, and join the loop thread (bounded)."""
+        with self._lock:
+            if self._stopped:
+                self._work.notify_all()
+            else:
+                self._stopped = True
+                self._drain_deadline = faults.monotonic() \
+                    + max(0.0, drain_s)
+                self._work.notify_all()
+        self._thread.join(timeout=max(5.0, drain_s + 5.0))
+        # The prefix index dies with the engine (reload invalidation:
+        # the serving layer rebuilds engine + pool per model version).
+        with self._lock:
+            self._mgr.invalidate()
+        # A closed engine exports no live slots, queue or resident KV.
+        self._set_occ_gauge(0)
+        self._set_queue_gauge(0)
+        self._kv_blocks_gauge.set(0, engine=self._metric_name)
+        self._set_kv_used_gauge(0)
+
+    # -- step loop --------------------------------------------------------
+
+    def _free_slots_locked(self) -> List[int]:
+        return [i for i, r in enumerate(self._slot_req) if r is None]
+
+    def _sweep_expired_locked(self) -> List[dict]:
+        """Pull every deadline-expired request out of the queue AND the
+        live slot table (caller fails them outside the lock).
+
+        In-flight expiry rides the deterministic-retirement path: the
+        slot is freed NOW (the next admission's first chunk freezes it on
+        the device), and the request's lagged emissions still in
+        _pending are dropped by _drain_one's event-set check."""
+        pnow = faults.monotonic()
+        expired: List[dict] = []
+        live = []
+        for entry in self._queue:
+            d = entry["deadline"]
+            if d is not None and d <= pnow:
+                expired.append(entry)
+            else:
+                live.append(entry)
+        if len(live) != len(self._queue):
+            self._queue[:] = live
+            self._set_queue_gauge(len(self._queue))
+        for i, entry in enumerate(self._slot_req):
+            if entry is None:
+                continue
+            d = entry["deadline"]
+            if d is not None and d <= pnow:
+                self._slot_req[i] = None
+                # Park the dead occupant's table row: its in-flight
+                # device state (done may still be False) keeps advancing
+                # harmlessly, but every write now lands on the scratch
+                # block, so its freed pages can be reallocated at once.
+                self._tables[i][:] = self.kv_pool_blocks
+                self._tables_dirty = True
+                self._release_entry_locked(entry)
+                self._counters["in_flight"] -= 1
+                expired.append(entry)
+        # Deterministically-retired requests live in NEITHER the queue
+        # nor the slot table while their lagged emissions sit in
+        # _pending: a request is in flight until delivery, so its
+        # deadline is enforced on this tail too.
+        for _, snapshot, _ in self._pending:
+            for _, entry in snapshot:
+                if entry["event"].is_set():
+                    continue
+                d = entry["deadline"]
+                if d is None or d > pnow:
+                    continue
+                if any(entry is e for e in expired):
+                    continue
+                self._release_entry_locked(entry)
+                self._counters["in_flight"] -= 1
+                expired.append(entry)
+        if expired:
+            self._counters["expired"] += len(expired)
+        return expired
+
+    def _fail_expired(self, expired: List[dict]) -> None:
+        if not expired:
+            return
+        self._expired_ctr.inc(len(expired), batcher=self._metric_name)
+        for entry in expired:
+            if not entry["event"].is_set():
+                if entry["trace"] is not None:
+                    tracing.record_span(
+                        "engine.request", entry["trace"],
+                        entry["t_perf"], time.perf_counter(),
+                        status="deadline_expired",
+                        attrs={"engine": self._metric_name,
+                               "emitted": len(entry["emitted"]),
+                               "budget": entry["new"]})
+                entry["err"] = DeadlineExceeded(
+                    f"deadline expired after {len(entry['emitted'])} "
+                    f"of {entry['new']} tokens "
+                    f"(engine {self._metric_name!r})")
+                entry["event"].set()
+
+    def _release_entry_locked(self, entry: dict) -> None:
+        """Return an entry's physical pages (slot refs) and never-taken
+        reservation to the pool.  Pages a published prefix record
+        advertises stay resident as evictable cache.  Idempotent; never
+        touches the slot's table row (it may belong to a successor)."""
+        if entry["released"]:
+            return
+        entry["released"] = True
+        self._mgr.release(entry["blocks"], unreserve=entry["res_left"])
+        entry["blocks"] = []
+        entry["res_left"] = 0
+
+    def _plan_blocks_locked(self, entry: dict):
+        """Reserve the entry's worst-case page count (aliasing the
+        longest cached prefix for free); None = the pool cannot cover it
+        yet, leave the request at the queue head."""
+        prompt = entry["tokens"][0]
+        return self._mgr.admit(prompt, int(prompt.shape[0]) - 1,
+                               entry["res_blocks"])
+
+    def _ensure_cover(self, entry: dict, upto_pos: int) -> None:
+        """Grow the slot's block table to cover position ``upto_pos``,
+        taking physical pages from the entry's admission reservation
+        (capped there: positions past the reservation stay on the table
+        sentinel and their writes go to the scratch block; only
+        positions the frontier can never reach land there)."""
+        target = min(upto_pos // self.kv_block_tokens + 1,
+                     entry["res_blocks"])
+        if target <= len(entry["blocks"]):
+            return
+        # Chaos hook: raise = allocation failure (engine death at the
+        # growth site; _abort resolves every waiter), sleep = slow
+        # allocator under pool pressure.
+        faults.fire("engine.alloc_block")
+        row = self._tables[entry["slot"]]
+        with self._lock:
+            while len(entry["blocks"]) < target:
+                blk = self._mgr.take()
+                row[len(entry["blocks"])] = blk
+                entry["blocks"].append(blk)
+                entry["res_left"] -= 1
+            rec_d, blk_d = self._flush_evictions_locked()
+            self._tables_dirty = True
+        if rec_d:
+            self._evict_ctr.inc(rec_d, engine=self._metric_name)
+        if blk_d:
+            self._kv_evict_ctr.inc(blk_d, engine=self._metric_name)
+
+    def _flush_evictions_locked(self):
+        """Fold the manager's eviction totals into the engine counters;
+        returns the (records, blocks) deltas for the prom counters."""
+        rec_d = self._mgr.evictions - self._evict_rec_seen
+        blk_d = self._mgr.block_evictions - self._evict_blk_seen
+        if rec_d:
+            self._evict_rec_seen = self._mgr.evictions
+            self._counters["prefix_evictions"] += rec_d
+        if blk_d:
+            self._evict_blk_seen = self._mgr.block_evictions
+            self._counters["kv_evictions"] += blk_d
+        return rec_d, blk_d
+
+    def _set_queue_gauge(self, depth: int) -> None:
+        if depth != self._queue_last:
+            self._queue_last = depth
+            self._queue_gauge.set(depth, engine=self._metric_name)
+
+    def _set_occ_gauge(self, active: int) -> None:
+        if active != self._occ_last:
+            self._occ_last = active
+            self._occ_gauge.set(active, engine=self._metric_name)
+
+    def _set_kv_used_gauge(self, used: int) -> None:
+        if used != self._kv_used_last:
+            self._kv_used_last = used
+            self._kv_used_gauge.set(used, engine=self._metric_name)
+
+    def _pinned(self, array: np.ndarray) -> torch.Tensor:
+        """A host array in pinned memory on CUDA (as it is on the CPU),
+        ready for a non-blocking upload; the caching host allocator keeps
+        the pinned block until the copy has run."""
+        host = torch.from_numpy(array)
+        return host.pin_memory() if self.device.type == "cuda" else host
+
+    def _refresh_tables_dev(self) -> None:
+        """Upload the host block tables to their device copy, only when
+        a host edit marked them dirty.  The copy is ordered on the
+        stream after every program already queued (which read the old
+        tables) and before every later one."""
+        with self._lock:
+            if not self._tables_dirty:
+                return
+            self._tables_dirty = False
+            tables = self._tables.astype(np.int64)
+        self._tables_dev.copy_(self._pinned(tables), non_blocking=True)
+
+    def _begin_prefill(self, entry: dict, slot: int) -> None:
+        """Admission, host side.  The admission plan already aliased the
+        longest cached prefix into the slot's block table, so all that
+        remains is accounting and the FIRST prefill chunk, dispatched at
+        claim time: its unconditional device-side ``done`` freeze is what
+        makes reusing a deadline-expired slot safe."""
+        prompt = entry["tokens"][0]
+        true_len = int(prompt.shape[0])
+        cached = entry["cached"]
+        # Chaos hook: sleep = slow admission; raise = device death at
+        # admission (propagates to _abort, every waiter resolved).
+        faults.fire("engine.admit")
+        with self._lock:
+            self._counters["prompt_tokens"] += true_len
+            if self.prefix_caching:
+                # Hit/miss accounting only when caching is ON.
+                if cached:
+                    self._counters["prefix_hits"] += 1
+                    self._counters["cached_tokens"] += cached
+                else:
+                    self._counters["prefix_misses"] += 1
+        if self.prefix_caching:
+            (self._hits_ctr if cached else self._misses_ctr).inc(
+                engine=self._metric_name)
+        if entry["trace"] is not None:
+            tracing.record_span(
+                "engine.admission", entry["trace"], entry["t_perf"],
+                time.perf_counter(),
+                attrs={"engine": self._metric_name, "slot": slot,
+                       "prompt_tokens": true_len,
+                       "cached_tokens": cached,
+                       "prefix": "hit" if cached else "miss"})
+        entry["prefilling"] = True
+        self._prefill_chunk(entry)  # claim-time freeze + first chunk
+        if entry["prefilling"]:
+            self._prefilling.append(entry)
+
+    def _prefill_chunk(self, entry: dict) -> None:
+        """One static-width chunk of one entry's prompt into its slot
+        (dispatch only: the final chunk's first sampled token joins the
+        lagged pending stream)."""
+        from kubeflow_tpu_torch.models.generate import (
+            prefill_chunk_into_slot,
+        )
+
+        w = self.chunk_w
+        prompt = entry["tokens"][0]
+        true_len = int(prompt.shape[0])
+        # The chunk's [start, start+w) window may overhang the reserved
+        # pages on the final chunk (right-pad columns past the prompt):
+        # those positions sit on the table sentinel and land on the
+        # scratch block, beyond every frontier the slot can reach.
+        start = entry["pos"]
+        chunk = np.zeros((1, w), np.int64)
+        seg = prompt[start:start + w]
+        chunk[0, :seg.shape[0]] = seg
+        self._ensure_cover(entry, start + w - 1)
+        self._refresh_tables_dev()
+        slot = entry["slot"]
+        t0 = time.perf_counter()
+        self._state, tok = prefill_chunk_into_slot(
+            self.model, self._state, self.decode,
+            self._pinned(chunk).to(self.device, non_blocking=True),
+            start, true_len, entry["new"], slot, entry["seed"],
+            self._tables_dev[slot:slot + 1])
+        dt = time.perf_counter() - t0
+        self._chunk_built = True
+        entry["pos"] = start + w
+        finished = entry["pos"] >= true_len
+        if finished:
+            entry["prefilling"] = False
+            entry["scheduled"] = 1
+            self._pending.append((_Readback(tok), [(0, entry)], False))
+            if self.prefix_caching:
+                # Publication is free: the full-block prefix pages this
+                # prefill just wrote ARE the cache entry.
+                with self._lock:
+                    self._mgr.publish(prompt, true_len, entry["blocks"])
+        with self._lock:
+            self._counters["prefill_chunks"] += 1
+            # Prefill dispatch time belongs in busy_s beside the steps'.
+            self._counters["busy_s"] += dt
+            self._chunk_times.append(dt)
+            if len(self._chunk_times) > 4096:
+                del self._chunk_times[:2048]
+            if finished:
+                self._counters["prefills"] += 1
+        self._chunks_ctr.inc(engine=self._metric_name)
+        if entry["trace"] is not None:
+            tracing.record_span(
+                "engine.prefill_chunk", entry["trace"], t0, t0 + dt,
+                attrs={"engine": self._metric_name, "start": start,
+                       "width": w,
+                       **({"final": True} if finished else {})})
+
+    def _finish(self, entry: dict) -> None:
+        """Resolve a completed request: prompt + emitted tokens."""
+        out = np.concatenate(
+            [entry["tokens"],
+             np.asarray(entry["emitted"], np.int32)[None]], axis=1)
+        entry["out"] = {"tokens": out}
+        if entry["want_timing"]:
+            now = faults.monotonic()
+            entry["out"]["ttft_s"] = (
+                (entry["t_first"] or now) - entry["t"])
+            entry["out"]["latency_s"] = now - entry["t"]
+            entry["out"]["cached_tokens"] = entry["cached"]
+        if entry["trace"] is not None:
+            # ONE decode span per request, stamped at delivery.
+            end = time.perf_counter()
+            tracing.record_span(
+                "engine.decode", entry["trace"],
+                entry["t_first_perf"] or end, end,
+                attrs={"engine": self._metric_name,
+                       "tokens": len(entry["emitted"])})
+        entry["event"].set()
+
+    def _drain_one(self) -> None:
+        """Materialize the oldest pending emission and hand its tokens
+        to their requests; retire + resolve the ones that completed.
+
+        Three emission shapes ride the one stream: a prefill's [1] first
+        token, a decode call's [steps, slots] grid, and a fused round's
+        slot-major [slots, k] grid with a per-slot ``counts`` vector
+        (row s carries counts[s] real tokens)."""
+        readback, snapshot, has_counts = self._pending.pop(0)
+        arrays = readback.numpy()
+        host = arrays[0]
+        counts = arrays[1] if has_counts else None
+        emitted = 0
+        finished = 0
+        finished_entries: List[dict] = []
+        ttfts: List[float] = []
+        for col, entry in snapshot:
+            if counts is not None:       # fused round: row per slot
+                toks = host[col, :int(counts[col])]
+            elif host.ndim >= 2:         # decode: [steps, slots]
+                toks = host[:, col]
+            else:                        # prefill first token: [1]
+                toks = host
+            for tok in toks:
+                if entry["event"].is_set() or len(entry["emitted"]) >= \
+                        entry["new"]:
+                    break
+                tok = int(tok)
+                if entry["t_first"] is None:
+                    entry["t_first"] = faults.monotonic()
+                    if entry["trace"] is not None:
+                        entry["t_first_perf"] = time.perf_counter()
+                entry["emitted"].append(tok)
+                emitted += 1
+                complete = len(entry["emitted"]) >= entry["new"] or (
+                    self._eos and tok == self.decode.eos_token)
+                if complete:
+                    # The device `done` flag froze this slot at the same
+                    # step, so freeing it here (possibly sync_lag calls
+                    # late on the EOS path) never races the cache.
+                    if self._slot_req[entry["slot"]] is entry:
+                        self._slot_req[entry["slot"]] = None
+                    self._finish(entry)
+                    finished_entries.append(entry)
+                    ttfts.append(entry["t_first"] - entry["t"])
+                    finished += 1
+                    break
+        with self._lock:
+            self._counters["tokens"] += emitted
+            self._counters["requests"] += finished
+            self._counters["in_flight"] -= finished
+            # Delivered requests return their private KV pages to the
+            # pool; published prefix pages stay resident as evictable
+            # cache until LRU eviction needs them.
+            for e in finished_entries:
+                self._release_entry_locked(e)
+            self._ttft_times.extend(ttfts)
+            if len(self._ttft_times) > 4096:
+                del self._ttft_times[:2048]
+        if emitted:
+            self._tok_counter.inc(emitted, engine=self._metric_name)
+
+    def _record_step_timing(self, t0, end, norm, steps, occupancy,
+                            extra=None, round_steps=None):
+        """Shared per-call accounting for the step programs: busy time,
+        step/occupancy counters, the per-token latency and inter-token
+        gap reservoirs and the step histogram.  ``norm`` is tokens per
+        slot stream this call; ``extra`` merges further counters under
+        the same lock; ``round_steps`` appends to the steps-per-round
+        reservoir (fused rounds only)."""
+        dt = end - t0
+        per_tok = dt / norm
+        gap = (end - self._last_step_end
+               if self._last_step_end is not None else None)
+        self._last_step_end = end
+        # Pace EMA (loop-thread-owned): the fused-round deadline clamp
+        # reads this as its step-latency estimate.
+        self._step_pace_ema = per_tok if self._step_pace_ema is None \
+            else ((1 - _ROUND_PACE_ALPHA) * self._step_pace_ema
+                  + _ROUND_PACE_ALPHA * per_tok)
+        with self._lock:
+            self._counters["steps"] += steps
+            self._counters["occupancy_sum"] += occupancy
+            self._counters["busy_s"] += dt
+            if extra:
+                for key, value in extra.items():
+                    self._counters[key] += value
+            self._step_times.append(per_tok)
+            if len(self._step_times) > 4096:
+                del self._step_times[:2048]
+            if gap is not None:
+                self._gap_times.append(gap / norm)
+                if len(self._gap_times) > 4096:
+                    del self._gap_times[:2048]
+            if round_steps is not None:
+                self._round_steps.append(round_steps)
+                if len(self._round_steps) > 4096:
+                    del self._round_steps[:2048]
+        self._step_hist.observe(per_tok, engine=self._metric_name)
+
+    def _round_width(self) -> int:
+        """Current fused-round step width: the adaptive value, clamped
+        so ``width x pace`` stays under the tightest live deadline's
+        remaining tolerance (deadline expiry granularity is the round)."""
+        width = self._round_k
+        pace = self._step_pace_ema
+        if width > 1 and pace and pace > 0:
+            now = faults.monotonic()
+            tightest = None
+            for r in self._slot_req:
+                if r is None or r["deadline"] is None:
+                    continue
+                rem = r["deadline"] - now
+                tightest = rem if tightest is None \
+                    else min(tightest, rem)
+            if tightest is not None:
+                width = min(width, max(1, int(tightest / pace)))
+        return max(1, min(width, self.decode_rounds))
+
+    def _fused_round(self, live: int) -> None:
+        """One fused decode round (decode_rounds > 1): a single
+        ``decode_rounds`` call advances every live slot up to ``width``
+        steps, and the host work for the NEXT round (cover growth, the
+        table upload) runs while the device computes.  Drains at the
+        round boundary: admissions and expiries join between rounds.
+        Greedy tokens equal the k=1 loop's: the device math is
+        ``decode_step``'s body, and slots are independent rows."""
+        from kubeflow_tpu_torch.models.generate import decode_rounds
+
+        kmax = self.decode_rounds
+        width = self._round_width()
+        snapshot = [(i, r) for i, r in enumerate(self._slot_req)
+                    if r is not None and not r["prefilling"]]
+        # Worst-case cover for the WHOLE round before dispatch (the
+        # admission reservation guarantees the pages).
+        for _, r in snapshot:
+            self._ensure_cover(
+                r, r["tokens"].shape[1] + r["scheduled"] + width - 1)
+        self._refresh_tables_dev()
+        # Chaos hook: the same site as the unfused step.
+        faults.fire("engine.step")
+        tok_before = self._counters["tokens"]
+        t0 = time.perf_counter()
+        self._state, toks, counts, steps_run = decode_rounds(
+            self.model, self._state, self.decode, kmax, self._tables_dev,
+            width)
+        self._rounds_built = True
+        readback = _Readback(toks, counts, steps_run)
+        # ---- overlap window: everything until the readback below runs
+        # while the device computes.
+        # Deterministic retirement at dispatch: with no EOS a slot whose
+        # remaining budget fits this round is KNOWN to finish.
+        for i, r in snapshot:
+            r["scheduled"] = min(r["new"], r["scheduled"] + width)
+            if not self._eos and r["scheduled"] >= r["new"]:
+                self._slot_req[i] = None
+        # Grow the NEXT round's covers and start their table upload now.
+        for i, r in snapshot:
+            if self._slot_req[i] is r:
+                self._ensure_cover(
+                    r, r["tokens"].shape[1] + r["scheduled"] + kmax - 1)
+        self._refresh_tables_dev()
+        # ---- round boundary: materialize ONCE, deliver, account.
+        steps = int(readback.numpy()[2])
+        self._pending.append((readback, snapshot, True))
+        while self._pending:
+            self._drain_one()
+        end = time.perf_counter()
+        delivered = self._counters["tokens"] - tok_before
+        dispatched = steps * len(snapshot)
+        wasted = max(0, dispatched - delivered)
+        # Adaptive width: shrink on early-exit waste or a waiting
+        # admission, grow one step per full, waste-free round.
+        if dispatched and (self._queue
+                           or wasted > _ROUND_WASTE_FRAC * dispatched):
+            self._round_k = max(1, self._round_k // 2)
+        elif steps >= width and not wasted:
+            self._round_k = min(kmax, self._round_k + 1)
+        norm = max(1, steps)
+        self._record_step_timing(
+            t0, end, norm, steps=norm, occupancy=live * norm,
+            extra={"fused_rounds": 1, "fused_steps_wasted": wasted},
+            round_steps=steps)
+        self._fused_rounds_ctr.inc(1, engine=self._metric_name)
+        if wasted:
+            self._fused_wasted_ctr.inc(wasted,
+                                       engine=self._metric_name)
+
+    def _step(self, live: int) -> None:
+        """One ``decode_step`` call of ``steps_per_call`` steps, read
+        back ``sync_lag`` calls later."""
+        from kubeflow_tpu_torch.models.generate import decode_step
+
+        k = self.steps_per_call
+        # Cover every advancing slot's next k write positions with pages
+        # from its admission reservation BEFORE dispatch.
+        for r in self._slot_req:
+            if r is None or r["prefilling"]:
+                continue
+            self._ensure_cover(
+                r, r["tokens"].shape[1] + r["scheduled"] + k - 1)
+        self._refresh_tables_dev()
+        # Chaos hook: sleep = slow/wedged step (deadlines expire
+        # mid-generation); raise = device death.
+        faults.fire("engine.step")
+        t0 = time.perf_counter()
+        self._state, sampled = decode_step(
+            self.model, self._state, self.decode, k, self._tables_dev)
+        self._step_built = True
+        self._pending.append((_Readback(sampled), [
+            (i, r) for i, r in enumerate(self._slot_req)
+            if r is not None and not r["prefilling"]], False))
+        # Deterministic retirement: with no EOS in play a request's
+        # completion step is known at dispatch, so free the slot NOW
+        # and let the next admission overlap the lagged read.
+        for i, r in enumerate(self._slot_req):
+            if r is None or r["prefilling"]:
+                continue
+            r["scheduled"] = min(r["new"], r["scheduled"] + k)
+            if not self._eos and r["scheduled"] >= r["new"]:
+                self._slot_req[i] = None
+        while len(self._pending) > self.sync_lag:
+            self._drain_one()
+        end = time.perf_counter()
+        self._record_step_timing(t0, end, k, steps=k, occupancy=live * k)
+
+    def _run(self) -> None:
+        # inference_mode is per thread: the programs run on this one.
+        device_ctx = torch.cuda.device(self.device) \
+            if self.device.type == "cuda" else contextlib.nullcontext()
+        try:
+            with torch.inference_mode(), device_ctx:
+                while self._loop_once():
+                    pass
+        except BaseException as exc:  # noqa: BLE001 -- fail loudly to waiters
+            self._abort(exc)
+
+    def _loop_once(self) -> bool:
+        """One turn of the loop: sweep, admit, prefill under the chunk
+        budget, then one step or fused round.  False ends the loop."""
+        with self._lock:
+            while (not self._queue
+                   and all(r is None for r in self._slot_req)
+                   and not self._pending and not self._stopped):
+                self._work.wait()
+            if self._stopped and not self._queue \
+                    and all(r is None for r in self._slot_req) \
+                    and not self._pending:
+                return False
+            stopping = self._stopped
+            past_drain = (stopping and self._drain_deadline is not None
+                          and faults.monotonic() > self._drain_deadline)
+            expired = self._sweep_expired_locked()
+            admissions = []
+            if not stopping:
+                free = self._free_slots_locked()
+                while (free and self._queue
+                       and len(self._prefilling) + len(admissions)
+                       < self.admit_width):
+                    # FIFO: the JAX engine's per-tenant fair pick is FIFO
+                    # when no queued request names an adapter, which no
+                    # request can until adapters are ported.
+                    entry = self._queue[0]
+                    plan = self._plan_blocks_locked(entry)
+                    if plan is None:
+                        # Tokens-resident admission bound: the pool
+                        # cannot reserve this request's worst case yet.
+                        # It HOLDS its queue position until retirements
+                        # free pages.
+                        break
+                    self._queue.pop(0)
+                    slot = free.pop(0)
+                    shared, cached = plan
+                    # Claim the slot and bump in_flight in the same locked
+                    # section that pops the queue: stats() must never see
+                    # queue_depth == 0 AND in_flight_requests == 0 while a
+                    # request is live.
+                    entry["slot"] = slot
+                    entry["cached"] = cached
+                    entry["pos"] = cached
+                    entry["blocks"] = list(shared)
+                    entry["res_left"] = \
+                        entry["res_blocks"] - len(shared)
+                    # Zero-copy prefix resume: the cached blocks slide
+                    # into the table's leading entries; prefill starts at
+                    # the cached offset.
+                    row = self._tables[slot]
+                    row[:] = self.kv_pool_blocks
+                    row[:len(shared)] = shared
+                    self._tables_dirty = True
+                    self._slot_req[slot] = entry
+                    self._counters["in_flight"] += 1
+                    admissions.append((entry, slot))
+                self._set_queue_gauge(len(self._queue))
+        self._fail_expired(expired)
+        if expired and self._prefilling:
+            # Mid-prefill expiries leave the chunk schedule (the sweep
+            # already released their pages and parked their table rows).
+            self._prefilling = [
+                p for p in self._prefilling
+                if not any(p is e for e in expired)]
+        if past_drain:
+            self._abort(RuntimeError(
+                f"engine {self._metric_name!r} drain deadline "
+                "exceeded at close"))
+            return False
+        if stopping:
+            # Refuse queued work immediately; keep stepping only to drain
+            # in-flight slots.
+            self._fail_queue(BatcherClosed(
+                f"engine {self._metric_name!r} is closed"))
+        for entry, slot in admissions:
+            self._begin_prefill(entry, slot)
+        # Chunked prefill BETWEEN decode steps, under the per-step token
+        # budget: the head admission (FIFO) gets chunks until the budget
+        # is spent, then the loop returns to decoding.
+        budget = self.prefill_chunk_tokens
+        while budget > 0 and self._prefilling:
+            entry = self._prefilling[0]
+            self._prefill_chunk(entry)
+            budget -= self.chunk_w
+            if not entry["prefilling"]:
+                self._prefilling.pop(0)
+        self._set_occ_gauge(sum(r is not None for r in self._slot_req))
+        live = sum(1 for r in self._slot_req
+                   if r is not None and not r["prefilling"])
+        if live and self.decode_rounds > 1:
+            self._fused_round(live)
+        elif live:
+            self._step(live)
+        else:
+            self._last_step_end = None
+            if not self._prefilling:
+                while self._pending:
+                    self._drain_one()
+        self._set_occ_gauge(sum(r is not None for r in self._slot_req))
+        # Pages resident (the loop thread is the pool's only mutator).
+        self._set_kv_used_gauge(self._mgr.used_blocks())
+        return True
+
+    def _fail_queue(self, exc: Exception) -> None:
+        with self._lock:
+            queued, self._queue = self._queue, []
+            self._set_queue_gauge(0)
+        for entry in queued:
+            entry["err"] = exc
+            entry["event"].set()
+
+    def _abort(self, exc: BaseException) -> None:
+        """Engine death: every waiter gets the error, nobody hangs."""
+        with self._lock:
+            self._stopped = True
+            self._counters["in_flight"] = 0
+        err = exc if isinstance(exc, Exception) else \
+            RuntimeError(f"engine loop died: {exc!r}")
+        self._fail_queue(err)
+        # Fail live slots AND requests whose slots were already
+        # deterministically retired but whose lagged emissions still sit
+        # in _pending: those are in neither the queue nor the slot table.
+        for i, entry in enumerate(self._slot_req):
+            if entry is not None and not entry["event"].is_set():
+                entry["err"] = err
+                entry["event"].set()
+            self._slot_req[i] = None
+        for _, snapshot, _ in self._pending:
+            for _, entry in snapshot:
+                if not entry["event"].is_set():
+                    entry["err"] = err
+                    entry["event"].set()
+        self._pending.clear()
+        self._prefilling.clear()
+        self._set_occ_gauge(0)
+

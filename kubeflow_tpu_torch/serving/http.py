@@ -3,12 +3,15 @@
 The same wire contract: ``POST /model/NAME:predict`` (and
 ``/model/NAME/version/N:predict``) takes ``{"instances": [...]}`` and
 answers ``{"predictions": [...]}``; ``GET /model/NAME:metadata`` returns
-the exported signature; ``/healthz`` is liveness and ``/readyz``
-readiness (503 while draining).  Typed errors map to 404/400/429/504.
-stdlib ``http.server`` (threaded), one process.
+the exported signature; ``GET /model/NAME:stats`` the batching plane's
+live stats (the decode engine's ``stats()``, a batcher's dispatch
+profile, or null on the direct path); ``/healthz`` is liveness and
+``/readyz`` readiness (503 while draining).  Typed errors map to
+404/400/429/504, and a feature not ported yet (``NotPortedError``) to
+501.  stdlib ``http.server`` (threaded), one process.
 
-Not ported yet: :classify, :stats, :generate streaming, :prefill,
-:fetch_kv, /metrics and /debug/traces (ROADMAP queue 1, item 3).
+Not ported yet: :generate streaming, :prefill and :fetch_kv (ROADMAP
+queue 1, item 2); :classify, /metrics and /debug/traces (item 9).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ WELCOME = "kubeflow-tpu model server"
 
 _ROUTES = [
     ("GET", re.compile(r"^/model/(?P<name>[^/:]+):metadata$"), "metadata"),
+    ("GET", re.compile(r"^/model/(?P<name>[^/:]+):stats$"), "stats"),
     ("POST", re.compile(r"^/model/(?P<name>[^/:]+):predict$"), "predict"),
     ("POST", re.compile(
         r"^/model/(?P<name>[^/:]+)/version/(?P<version>\d+):predict$"),
@@ -113,6 +117,16 @@ class ServingAPI:
             },
         }
 
+    def stats(self, name: str) -> Dict[str, Any]:
+        """Live batching-plane stats for one model: the DecodeEngine's
+        occupancy, throughput, latency and prefix-cache counters, or a
+        batcher's dispatch profile (null on the direct path)."""
+        model = self.server.get(name)  # 404 on unknown names
+        return {
+            "model_spec": {"name": name, "version": str(model.version)},
+            "batcher": self.server.batcher_stats(name),
+        }
+
     def predict(self, name: str, body: Dict[str, Any],
                 version: Optional[int] = None) -> Dict[str, Any]:
         instances = body.get("instances")
@@ -171,6 +185,8 @@ class _Handler(BaseHTTPRequestHandler):
                                     f"{max(1, round(e.retry_after_s))}"})
             except DeadlineExceeded as e:
                 self._send(504, {"error": str(e)})
+            except NotImplementedError as e:
+                self._send(501, {"error": str(e)})
             except Exception as e:  # noqa: BLE001 -- serving must not die
                 log.exception("handler error")
                 self._send(500, {"error": f"{type(e).__name__}: {e}"})
@@ -197,6 +213,8 @@ class _Handler(BaseHTTPRequestHandler):
                                  else "no models loaded"})
         elif action == "metadata":
             self._send(200, self.api.metadata(groups["name"]))
+        elif action == "stats":
+            self._send(200, self.api.stats(groups["name"]))
         else:
             length = int(self.headers.get("Content-Length", 0))
             body = json.loads(self.rfile.read(length) or b"{}")

@@ -4,8 +4,9 @@ A loader is ``fn(config, device) -> (variables -> predict)``, where
 predict maps {input_name: array} -> {output_name: numpy array}.  Loader
 paths are recorded in model.json at export time (serving/export.py).
 
-Only ``lm_generate`` is ported; the ``classifier`` and ``lm`` loaders
-come with later slices (ROADMAP queue 1, items 4 and 10).
+Only ``lm_generate`` is ported; the ``lm`` loader comes with the rest of
+the serving surface (ROADMAP queue 1, item 9) and ``classifier`` with
+the CNN family (item 14).
 """
 
 from __future__ import annotations
@@ -47,6 +48,11 @@ def lm_generate(config: Dict[str, Any], device: DeviceLike = None) -> Callable:
     completions.  Signature: {"tokens": [b, t] int} ->
     {"tokens": [b, t + new] int32}.  ``prompt_len`` ([b]) marks
     left-padded rows; ``max_new_tokens`` trims the completion.
+
+    ``predict.engine_spec`` = {"cfg", "model", "decode"}: the loaded
+    ``Transformer`` on its device and its decode settings, from which
+    the serving entry point builds the continuous-batching DecodeEngine
+    around every hot-swapped version.
     """
     from kubeflow_tpu_torch.models.convert import load_params, params_from_jax
     from kubeflow_tpu_torch.models.generate import DecodeConfig, generate
@@ -59,7 +65,7 @@ def lm_generate(config: Dict[str, Any], device: DeviceLike = None) -> Callable:
         if config.get(key) is not None:
             raise NotPortedError(
                 f"{key}={config[key]!r}: int8 serving is not ported yet "
-                "(ROADMAP queue 1 item 2)")
+                "(ROADMAP queue 1 item 4)")
     decode = DecodeConfig(
         max_new_tokens=int(config.get("max_new_tokens", 64)),
         temperature=float(config.get("temperature", 0.0)),
@@ -100,6 +106,8 @@ def lm_generate(config: Dict[str, Any], device: DeviceLike = None) -> Callable:
                 out = out[:, : tokens.shape[1] + lim]
             return {"tokens": out}
 
+        predict.engine_spec = {"cfg": cfg, "model": model,
+                               "decode": decode}
         return predict
 
     return make_predict

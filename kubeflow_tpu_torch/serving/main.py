@@ -1,18 +1,24 @@
 """Serving entry point: the port of kubeflow_tpu/serving/main.py.
 
     python -m kubeflow_tpu_torch.serving.main --model_name lm \\
-        --model_base_path /models/lm --lm_buckets 512,1024,2048 \\
-        --micro_batch_size 4 [--device cpu]
+        --model_base_path /models/lm [--lm_buckets 512,1024,2048] \\
+        [--device cpu]
 
 Serves the REST contract on ``--port`` from one process on one device,
-which is CUDA unless ``--device`` says otherwise.  With
-``--micro_batch_size`` and ``--lm_buckets`` an ``lm_generate`` model is
-served through the static ``BucketedLMBatcher``; other models through the
-shape-grouped ``MicroBatcher``.
+which is CUDA unless ``--device`` says otherwise.  An ``lm_generate``
+model is served through the continuous-batching ``DecodeEngine``
+(serving/engine.py) by default, with the JAX CLI's engine defaults (8
+slots, fused rounds of 8 steps, 64-token prefill chunks, 16-token KV
+blocks, prefix caching on); prompts wider than its prefill width take
+the direct ``generate()`` path.  ``--lm_static_batcher`` restores the
+static ``BucketedLMBatcher`` (with ``--micro_batch_size`` and
+``--lm_buckets``); other models get the shape-grouped ``MicroBatcher``.
 
-Not ported yet: the continuous-batching decode engine and its flags, the
-gRPC face, tracing, fault injection and idempotency dedup (ROADMAP
-queue 1, item 3).
+Not ported yet: the engine's speculative decoding (ROADMAP queue 1,
+item 1), host spill tier (item 3), adapters (item 5) and ``--mesh``
+(item 6), whose flags are accepted at their off values only and raise
+``NotPortedError`` otherwise; the gRPC face (item 7); tracing routes,
+fault injection from the environment and idempotency dedup (item 9).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import time
 from http.server import ThreadingHTTPServer
 from typing import List, Optional, Tuple
 
+from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.serving.http import make_http_server
 from kubeflow_tpu_torch.serving.model_server import (
     BucketedLMBatcher,
@@ -40,11 +47,44 @@ DRAIN_DEADLINE_S = 30.0
 def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
                     lm_buckets: str = "",
                     lm_max_promotion_factor: float = 4.0,
+                    lm_engine: bool = True,
+                    lm_engine_slots: int = 8,
+                    lm_engine_prefill_len: int = 0,
+                    lm_engine_sync_lag: int = 2,
+                    lm_engine_steps_per_call: int = 1,
+                    lm_engine_admit_width: int = 4,
+                    decode_rounds: int = 1,
+                    prefill_chunk_tokens: int = 64,
+                    kv_block_tokens: int = 16,
+                    kv_pool_blocks: int = 0,
+                    host_spill_blocks: int = 0,
+                    prefix_caching: bool = True,
                     max_queue_depth: int = 0,
-                    overload_retry_after_s: float = 1.0):
-    """ModelServer.enable_batching factory: the static batchers.
-    ``lm_generate`` models with buckets get the BucketedLMBatcher, others
-    the MicroBatcher; rebuilt around every hot-swapped version."""
+                    overload_retry_after_s: float = 1.0,
+                    speculative_tokens: int = 0,
+                    adapters_dir: str = "",
+                    mesh: str = ""):
+    """ModelServer.enable_batching factory: picks the batcher per model,
+    rebuilt around every hot-swapped version.
+
+    ``lm_generate`` models default to the continuous-batching
+    DecodeEngine; ``lm_engine=False`` (--lm_static_batcher) falls back to
+    the static BucketedLMBatcher when buckets are configured.  Everything
+    else gets the shape-grouped MicroBatcher when micro-batching is on,
+    or no batcher (build returns None: the direct predict path).  The
+    engine options of later slices raise ``NotPortedError`` here unless
+    they are off.
+    """
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    for on, flag, item in ((speculative_tokens > 0, "--speculative_tokens", 1),
+                           (host_spill_blocks > 0, "--host_spill_blocks", 3),
+                           (bool(adapters_dir), "--adapters_dir", 5),
+                           (bool(mesh), "--mesh", 6)):
+        if on:
+            raise NotPortedError(
+                f"{flag} is not ported yet (ROADMAP queue 1 item {item}); "
+                "the port serves with it off")
     sizes = [s for s in (1, 2, 4, 8, 16, 32, 64, 128)
              if s <= micro_batch_size]
     if not sizes or sizes[-1] != micro_batch_size:
@@ -52,6 +92,43 @@ def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
     buckets = [int(b) for b in lm_buckets.split(",") if b.strip()]
 
     def build(model):
+        spec = getattr(model.predict, "engine_spec", None)
+        if lm_engine and spec is not None:
+            # Prefill width: explicit flag > largest bucket > a capped
+            # share of the prompt room max_seq_len leaves after the
+            # completion budget.  The width is a static program shape and
+            # sizes the pool (slots x (width + budget)), hence the cap.
+            # Prompts beyond it take the direct generate() path; with no
+            # room left at all, fall through to the static paths.
+            cap = (spec["cfg"].max_seq_len
+                   - spec["decode"].max_new_tokens)
+            prefill = lm_engine_prefill_len or (
+                max(buckets) if buckets else min(cap, 512))
+            prefill = min(prefill, cap)
+            if prefill >= 1:
+                logging.info(
+                    "decode engine for %r v%d: %d slots, prefill width "
+                    "%d, cache %d cols/slot", model.name, model.version,
+                    lm_engine_slots, prefill,
+                    prefill + spec["decode"].max_new_tokens)
+                return DecodeEngine(
+                    spec["model"], spec["decode"],
+                    slots=lm_engine_slots, prefill_len=prefill,
+                    sync_lag=lm_engine_sync_lag,
+                    steps_per_call=lm_engine_steps_per_call,
+                    decode_rounds=decode_rounds,
+                    admit_width=lm_engine_admit_width,
+                    prefill_chunk_tokens=prefill_chunk_tokens,
+                    kv_block_tokens=kv_block_tokens,
+                    kv_pool_blocks=kv_pool_blocks,
+                    prefix_caching=prefix_caching,
+                    max_queue_depth=max_queue_depth,
+                    overload_retry_after_s=overload_retry_after_s,
+                    name=f"{model.name}-v{model.version}")
+            logging.warning(
+                "decode engine disabled for %r: max_new_tokens %d "
+                "leaves no prompt room in max_seq_len %d", model.name,
+                spec["decode"].max_new_tokens, spec["cfg"].max_seq_len)
         if micro_batch_size <= 0:
             return None  # direct predict path
         kwargs = dict(
@@ -97,9 +174,60 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--lm_max_promotion_factor", type=float, default=4.0,
                     help="only prompts whose buckets are within this "
                          "factor share a batch; <=0 = one shared queue")
+    ap.add_argument("--lm_static_batcher", action="store_true",
+                    help="serve lm_generate models through the static "
+                         "BucketedLMBatcher instead of the default "
+                         "continuous-batching DecodeEngine; on an H100 "
+                         "the static batcher served chip_smoke.py's "
+                         "eight-request 188M LM burst 3-4x faster "
+                         "(PERF.md section 5), until the engine's step "
+                         "programs are captured as CUDA graphs (ROADMAP "
+                         "queue 1 item 8)")
+    ap.add_argument("--lm_engine_slots", type=int, default=8,
+                    help="DecodeEngine concurrent sequences")
+    ap.add_argument("--lm_engine_prefill_len", type=int, default=0,
+                    help="DecodeEngine static prompt width (0 = largest "
+                         "--lm_buckets entry, else max_seq_len minus "
+                         "max_new_tokens capped at 512; clamped to the "
+                         "model's prompt room); longer prompts take the "
+                         "direct generate() path")
+    ap.add_argument("--lm_engine_sync_lag", type=int, default=2,
+                    help="DecodeEngine host-read lag in steps (0 = "
+                         "synchronous loop)")
+    ap.add_argument("--lm_engine_steps_per_call", type=int, default=1,
+                    help="DecodeEngine decode steps per step-program "
+                         "call")
+    ap.add_argument("--lm_engine_admit_width", type=int, default=4,
+                    help="DecodeEngine concurrent mid-prefill admissions")
+    ap.add_argument("--decode_rounds", type=int, default=8,
+                    help="DecodeEngine fused decode rounds: up to k steps "
+                         "per dispatch, the width adapting between 1 and "
+                         "k; 1 restores the per-step dispatch loop")
+    ap.add_argument("--prefill_chunk_tokens", type=int, default=64,
+                    help="DecodeEngine per-step prefill token budget and "
+                         "static chunk width")
+    ap.add_argument("--kv_block_tokens", type=int, default=16,
+                    help="DecodeEngine paged-KV page size in positions "
+                         "(also the prefix sharing granularity)")
+    ap.add_argument("--kv_pool_blocks", type=int, default=0,
+                    help="DecodeEngine KV pool capacity in pages (0 = "
+                         "slots x ceil(max_len / kv_block_tokens))")
+    ap.add_argument("--no_prefix_cache", action="store_true",
+                    help="disable shared-prefix block aliasing")
+    ap.add_argument("--speculative_tokens", type=int, default=0,
+                    help="not ported yet: only 0 is accepted")
+    ap.add_argument("--host_spill_blocks", type=int, default=0,
+                    help="not ported yet: only 0 is accepted")
+    ap.add_argument("--adapters_dir", default="",
+                    help="not ported yet: only empty is accepted")
+    ap.add_argument("--mesh", default="",
+                    help="not ported yet: only empty is accepted")
     ap.add_argument("--max_queue_depth", type=int, default=256,
                     help="pending requests per model beyond which "
                          "submissions fail fast with 429 (0 = unbounded)")
+    ap.add_argument("--overload_retry_after_s", type=float, default=1.0,
+                    help="Retry-After hint carried by shed (429) "
+                         "responses")
     ap.add_argument("--max_inflight", type=int, default=512,
                     help="per-model in-flight cap across all paths; "
                          "beyond it requests get 429 (0 = unbounded)")
@@ -114,16 +242,39 @@ def start(argv: Optional[List[str]] = None
     """Load the model, start batching, the version watcher and the REST
     listener; returns (server, httpd) with both running."""
     args = _parser().parse_args(argv)
-    server = ModelServer(poll_interval_s=args.poll_interval_s,
-                         max_inflight=args.max_inflight, device=args.device)
-    server.add_model(args.model_name, args.model_base_path)
-    if args.micro_batch_size > 0:
-        server.enable_batching(args.model_name, batcher_factory(
+    factory = None
+    # lm_generate models default to the engine even with micro-batching
+    # off; --lm_static_batcher restores the static paths.
+    if args.micro_batch_size > 0 or not args.lm_static_batcher:
+        factory = batcher_factory(
             micro_batch_size=args.micro_batch_size,
             batch_timeout_s=args.batch_timeout_ms / 1e3,
             lm_buckets=args.lm_buckets,
             lm_max_promotion_factor=args.lm_max_promotion_factor,
-            max_queue_depth=args.max_queue_depth))
+            lm_engine=not args.lm_static_batcher,
+            lm_engine_slots=args.lm_engine_slots,
+            lm_engine_prefill_len=args.lm_engine_prefill_len,
+            lm_engine_sync_lag=args.lm_engine_sync_lag,
+            lm_engine_steps_per_call=args.lm_engine_steps_per_call,
+            lm_engine_admit_width=args.lm_engine_admit_width,
+            decode_rounds=args.decode_rounds,
+            prefill_chunk_tokens=args.prefill_chunk_tokens,
+            kv_block_tokens=args.kv_block_tokens,
+            kv_pool_blocks=args.kv_pool_blocks,
+            host_spill_blocks=args.host_spill_blocks,
+            prefix_caching=not args.no_prefix_cache,
+            max_queue_depth=args.max_queue_depth,
+            overload_retry_after_s=args.overload_retry_after_s,
+            speculative_tokens=args.speculative_tokens,
+            adapters_dir=args.adapters_dir,
+            mesh=args.mesh)
+    server = ModelServer(poll_interval_s=args.poll_interval_s,
+                         max_inflight=args.max_inflight,
+                         overload_retry_after_s=args.overload_retry_after_s,
+                         device=args.device)
+    server.add_model(args.model_name, args.model_base_path)
+    if factory is not None:
+        server.enable_batching(args.model_name, factory)
     server.start_watcher()
     httpd, _ = make_http_server(server, port=args.port, host=args.host)
     logging.info("serving %r on %s, rest=:%d", args.model_name,

@@ -7,9 +7,14 @@ requests into padded device batches; ``BucketedLMBatcher`` lets
 mixed-length LM prompts share one batch by left-padding at dispatch to
 the smallest bucket covering the longest member.
 
+The continuous-batching DecodeEngine (serving/engine.py) plugs in as a
+batcher; ``SHED_TOTAL``/``EXPIRED_TOTAL`` and ``locked_snapshot`` are the
+names it shares with the batchers.
+
 Not ported yet: the reload circuit breaker, idempotency dedup, request
-tracing, fault-injection sites, Prometheus metrics, adapters, KV handoff
-and streaming (ROADMAP queue 1, item 3).
+tracing, fault-injection sites and the batchers' Prometheus metrics
+(ROADMAP queue 1, item 9), adapters (item 5), the KV handoff and
+streaming (item 2).
 """
 
 from __future__ import annotations
@@ -31,6 +36,22 @@ from kubeflow_tpu_torch.serving.errors import (  # noqa: F401 -- re-exported
 from kubeflow_tpu_torch.serving.export import list_versions, load_version
 
 log = logging.getLogger(__name__)
+
+# Fault-layer series shared by every batching plane (the decode engine
+# sets them here, by batcher label), as in the JAX package.
+SHED_TOTAL = "kft_serving_shed_total"
+SHED_HELP = "admissions refused at the queue/in-flight caps, by batcher"
+EXPIRED_TOTAL = "kft_serving_deadline_expired_total"
+EXPIRED_HELP = "requests failed by their deadline, by batcher"
+
+
+def locked_snapshot(lock, data: Dict[str, Any],
+                    extra: Optional[Callable[[], Dict[str, Any]]] = None):
+    """Copy mutable stats counters under their owning lock: returns
+    (dict(data), extra() or {}) taken atomically, so a stats read never
+    sees a half-updated cycle."""
+    with lock:
+        return dict(data), (extra() if extra is not None else {})
 
 
 @dataclasses.dataclass

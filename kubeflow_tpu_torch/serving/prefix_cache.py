@@ -1,0 +1,575 @@
+"""Host-side block manager for the paged KV pool.
+
+The port's copy of kubeflow_tpu/serving/prefix_cache.py (numpy only).
+The host spill tier comes along as it is; the port's engine keeps it
+off until its slice lands (ROADMAP queue 1, item 3).
+
+The DecodeEngine's unified KV store is a device-side BLOCK POOL
+(models/generate.py ``init_paged_state``): fixed-size pages of
+``block_tokens`` cache positions, shared by every slot through per-slot
+block tables the host passes into each program call.  This module is
+ALL of the host bookkeeping for that pool:
+
+  - **physical allocation with refcounts** — a block is free, held by
+    one or more slots (``slot_ref``: live requests whose tables point
+    at it), and/or held by the prefix cache (``rec_ref``: published
+    prefix records that advertise it).  A block returns to the free
+    list only when both counts are zero, so a cached prefix can never
+    be reallocated under a slot that aliased it;
+
+  - **token-reservation admission accounting** — admission reserves a
+    request's WORST-CASE block count (ceil((prompt + budget) /
+    block_tokens)) up front and physical blocks are taken lazily from
+    that reservation as the frontier grows, so a mid-prefill or
+    mid-decode slot can never be starved by later admissions
+    (deadlock-freedom by construction: ``free + evictable >= reserved``
+    is the invariant every operation preserves), while speculative
+    rollback returns rejected-tail blocks to the pool without losing
+    the guarantee;
+
+  - **the block-hashed prefix index** — prompts are hashed in
+    ``block_tokens``-token blocks, each digest chained over its
+    predecessor's (``h_i = H(h_{i-1} || block_i)``) so a digest
+    identifies an exact token PREFIX; a completed prefill publishes its
+    full-block prefix as a record mapping digests to the PHYSICAL
+    blocks that already hold the computed k/v.  A later admission that
+    matches simply aliases those blocks into its own table (refcount
+    bump — zero device copies; divergence starts at the first
+    non-shared block, which is always a freshly allocated private
+    block because sharing is block-aligned, i.e. copy-on-write with
+    the copy statically dead);
+
+  - **LRU eviction of refcount-0 cached blocks** — when allocation
+    needs pages and the free list is dry, least-recently-used prefix
+    records are dropped; only blocks no live slot still references
+    actually free (a record evicted mid-use keeps its aliased blocks
+    resident until the aliasing slots retire).  First-writer-wins on
+    digest collisions (two misses racing to capture one hot prompt):
+    the established record keeps serving the digest, so evicting the
+    duplicate cannot orphan the survivor.  A prefix being captured is
+    "pinned" structurally — its blocks are slot-referenced until the
+    capturing request retires.
+
+  - **the host-RAM spill tier** — an optional second tier
+    (``host_blocks`` pages of capacity) holding COPIES of cold KV
+    pages in host memory, keyed by the same chained digests.  The
+    engine gathers a cold record's device pages (one batched fancy
+    index over the pool), hands the resulting host arrays to
+    ``spill()``, and the device record is dropped — pages free without
+    destroying their contents.  A later admission that misses the
+    device index but hits ``lookup_spilled`` re-imports through the
+    existing ``kv_import`` program instead of re-prefilling.  The tier
+    is a pure overlay: host records never reference device block ids,
+    so no page is ever simultaneously device-writable and
+    host-spilled, and the device-side accounting (free/idle/reserved
+    arithmetic and its deadlock-freedom invariant) is untouched.
+    Host capacity is LRU-bounded like the device index; parked
+    session KV (``park_kv``) enters via ``host_put`` so idle
+    conversations stop squatting on HBM between turns.
+
+The index holds tokens hashes and block numbers only — no device
+memory (the host tier holds host copies, still no device handles) —
+and dies with its engine, which is what makes model-reload
+invalidation automatic (the serving layer rebuilds the engine, and
+with it this manager, around every hot-swapped version).
+
+Single-writer by design: the engine's loop thread is the only caller
+of the mutating surface, and the engine wraps every call in its own
+lock so ``available()``/gauge reads from the submit path are never
+torn.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+_SEED_DIGEST = b"\x00" * 16
+
+
+def _block_digests(tokens: np.ndarray, block: int,
+                   n_blocks: int, salt: bytes = b"") -> List[bytes]:
+    """Chained digests of the first ``n_blocks`` full ``block``-token
+    blocks of ``tokens`` — digest i commits to tokens[0 : (i+1)*block].
+
+    ``salt`` seeds the whole chain (adapter-scoped KV, §5.11: the
+    engine passes each request's adapter CONTENT digest, so two
+    variants prefilling the same tokens produce disjoint chains and
+    can never alias each other's pages — while the same adapter on any
+    replica hashes identically, which keeps :fetch_kv addressable
+    fleet-wide).  Empty salt is the base chain, bit-identical to the
+    pre-adapter index."""
+    out: List[bytes] = []
+    h = hashlib.blake2b(salt, digest_size=16).digest() if salt \
+        else _SEED_DIGEST
+    flat = np.asarray(tokens, np.int32).reshape(-1)
+    for i in range(n_blocks):
+        h = hashlib.blake2b(
+            h + flat[i * block:(i + 1) * block].tobytes(),
+            digest_size=16).digest()
+        out.append(h)
+    return out
+
+
+class _PrefixRecord:
+    """One published prefix: its digest chain and the physical blocks
+    (index i of ``blocks`` holds tokens [i*block, (i+1)*block))."""
+
+    __slots__ = ("digests", "blocks")
+
+    def __init__(self, digests: List[bytes], blocks: List[int]):
+        self.digests = digests
+        self.blocks = blocks
+
+
+class _HostRecord:
+    """One spilled/parked prefix in the host tier: the digest chain and
+    an opaque payload (the engine stores gathered numpy pages; block i
+    of the payload holds tokens [i*block, (i+1)*block)).  Never holds
+    device block ids."""
+
+    __slots__ = ("digests", "payload", "n_blocks")
+
+    def __init__(self, digests: List[bytes], payload, n_blocks: int):
+        self.digests = digests
+        self.payload = payload
+        self.n_blocks = n_blocks
+
+
+class BlockManager:
+    """Paged-KV pool bookkeeping: refcounted physical blocks,
+    reservation accounting, and the prefix index (module docstring).
+
+    Args:
+      num_blocks: physical pool pages (``--kv_pool_blocks``).
+      block_tokens: cache positions per page — also the prefix
+        hash/share granularity (``--kv_block_tokens``).
+      caching: publish/lookup prefixes (False = pure allocator; the
+        engine's identity tests compare ON vs OFF).
+      host_blocks: host-tier capacity in pages (0 = no spill tier).
+    """
+
+    def __init__(self, num_blocks: int, block_tokens: int,
+                 caching: bool = True, host_blocks: int = 0):
+        if num_blocks < 1:
+            raise ValueError(
+                f"num_blocks must be >= 1, got {num_blocks}")
+        if block_tokens < 1:
+            raise ValueError(
+                f"block_tokens must be >= 1, got {block_tokens}")
+        if host_blocks < 0:
+            raise ValueError(
+                f"host_blocks must be >= 0, got {host_blocks}")
+        self.num_blocks = int(num_blocks)
+        self.block = int(block_tokens)
+        self.caching = bool(caching)
+        self.host_blocks = int(host_blocks)
+        # Free LIFO (pop from the end -> low block ids first, which
+        # keeps tests deterministic and device pages warm).
+        self._free: List[int] = list(range(self.num_blocks - 1, -1, -1))
+        self._slot_ref = [0] * self.num_blocks
+        self._rec_ref = [0] * self.num_blocks
+        # Blocks with slot_ref == 0 and rec_ref > 0: resident cache
+        # pages reclaimable by eviction.  Maintained incrementally so
+        # available() is O(1).
+        self._cached_idle = 0
+        # Admission reservations not yet backed by a physical take().
+        self._reserved = 0
+        # digest -> (record, depth): lookup returns record.blocks[:depth].
+        self._chains: Dict[bytes, Tuple[_PrefixRecord, int]] = {}
+        # id(record) -> record, insertion order == LRU order.
+        self._lru: "OrderedDict[int, _PrefixRecord]" = OrderedDict()
+        self.evictions = 0        # prefix records evicted (LRU)
+        self.block_evictions = 0  # physical blocks freed by eviction
+        # Host spill tier (module docstring): digest -> (record, depth);
+        # id(record) -> record, insertion order == LRU order.
+        self._host_chains: Dict[bytes, Tuple[_HostRecord, int]] = {}
+        self._host_lru: "OrderedDict[int, _HostRecord]" = OrderedDict()
+        self._host_used = 0       # host pages resident
+        self.spills_out = 0       # device pages copied into the host tier
+        self.spills_in = 0        # host pages re-imported to device
+        self.host_evictions = 0   # host pages destroyed by host-LRU
+
+    # -- capacity ----------------------------------------------------------
+
+    def available(self) -> int:
+        """Blocks an admission could still reserve: free pages plus
+        evictable cached pages, minus reservations already promised."""
+        return len(self._free) + self._cached_idle - self._reserved
+
+    def used_blocks(self) -> int:
+        """Pages resident (slot- or cache-held)."""
+        return self.num_blocks - len(self._free)
+
+    def host_used_blocks(self) -> int:
+        """Pages resident in the host spill tier."""
+        return self._host_used
+
+    # -- admission ---------------------------------------------------------
+
+    def admit(self, tokens: np.ndarray, limit: int,
+              total_blocks: int, salt: bytes = b"",
+              ) -> Optional[Tuple[List[int], int]]:
+        """Admission, atomically: find the longest cached block-prefix
+        of ``tokens`` covering at most ``limit`` positions, alias its
+        blocks (slot refs bumped), and reserve the remaining
+        ``total_blocks - shared`` private pages.  Returns
+        (shared_blocks, cached_tokens), or None when the pool cannot
+        currently cover the request (the engine leaves it queued;
+        retirement frees pages).  Callers pass ``limit = prompt_len -
+        1`` so at least one prompt token always recomputes — blocks
+        cache k/v, not the logits the first sampled token needs."""
+        shared, cached = self._lookup(tokens, limit, salt)
+        private = max(0, int(total_blocks) - len(shared))
+        # Aliasing an idle cached page consumes an evictable page, so
+        # it must be covered by headroom exactly like a reservation —
+        # otherwise an earlier admission's reserve could become
+        # unsatisfiable (the invariant free + evictable >= reserved).
+        shared_idle = sum(1 for b in shared if self._slot_ref[b] == 0)
+        if (len(self._free) + self._cached_idle - self._reserved
+                < private + shared_idle):
+            return None
+        for b in shared:
+            if self._slot_ref[b] == 0:
+                self._cached_idle -= 1
+            self._slot_ref[b] += 1
+        self._reserved += private
+        return shared, cached
+
+    def take(self) -> int:
+        """One physical page from the caller's reservation (admission
+        guaranteed it — evicts LRU records if the free list is dry).
+        The returned block is exclusively owned (slot_ref 1, no record
+        refs): the caller is its only writer until release."""
+        if self._reserved <= 0:
+            raise RuntimeError(
+                "BlockManager.take() without a reservation — paged-KV "
+                "accounting bug")
+        while not self._free:
+            self._evict_lru()
+        self._reserved -= 1
+        b = self._free.pop()
+        self._slot_ref[b] = 1
+        return b
+
+    def release(self, blocks: Sequence[int], unreserve: int = 0) -> None:
+        """Drop one slot reference per block (retirement, expiry) and
+        return ``unreserve`` never-taken reserved pages.  Pages a
+        published record still advertises stay resident as evictable
+        cache; the rest free immediately."""
+        if unreserve:
+            self._reserved -= int(unreserve)
+            assert self._reserved >= 0, "reservation accounting broken"
+        for b in blocks:
+            b = int(b)
+            self._slot_ref[b] -= 1
+            assert self._slot_ref[b] >= 0, f"double release of block {b}"
+            if self._slot_ref[b] == 0:
+                if self._rec_ref[b] > 0:
+                    self._cached_idle += 1
+                else:
+                    self._free.append(b)
+
+    def rollback(self, blocks: Sequence[int]) -> None:
+        """Speculative rollback: return freshly written tail pages to
+        the pool AND restore the owner's reservation (it may regrow
+        over the same positions after the rejected window)."""
+        self.release(blocks)
+        self._reserved += len(blocks)
+
+    # -- prefix index ------------------------------------------------------
+
+    def _lookup(self, tokens: np.ndarray, limit: int,
+                salt: bytes = b"") -> Tuple[List[int], int]:
+        n_blocks = int(limit) // self.block
+        if not self.caching or n_blocks <= 0 or not self._chains:
+            return [], 0
+        digests = _block_digests(tokens, self.block, n_blocks, salt)
+        for i in range(n_blocks, 0, -1):
+            ent = self._chains.get(digests[i - 1])
+            if ent is not None:
+                rec, _ = ent
+                self._lru.move_to_end(id(rec))
+                return list(rec.blocks[:i]), i * self.block
+        return [], 0
+
+    def peek(self, tokens: np.ndarray, limit: int,
+             salt: bytes = b"") -> int:
+        """Device-tier coverage of ``tokens`` in cached positions,
+        without aliasing anything or touching LRU order (the engine
+        compares this against ``lookup_spilled`` coverage to decide
+        whether a spilled record beats the resident index)."""
+        n_blocks = int(limit) // self.block
+        if not self.caching or n_blocks <= 0 or not self._chains:
+            return 0
+        digests = _block_digests(tokens, self.block, n_blocks, salt)
+        for i in range(n_blocks, 0, -1):
+            if digests[i - 1] in self._chains:
+                return i * self.block
+        return 0
+
+    def publish(self, tokens: np.ndarray, true_len: int,
+                blocks: Sequence[int], salt: bytes = b"") -> int:
+        """Register a completed prefill's full-block prefix: digest i
+        maps to ``blocks[i]``, which already holds the computed k/v —
+        publication is a refcount bump, never a copy.  Partial trailing
+        blocks carry positions the request keeps writing (decode) and
+        are never published.  First-writer-wins per digest.  Returns
+        newly published tokens (0 = fully covered already, too short,
+        or caching off)."""
+        if not self.caching:
+            return 0
+        n_blocks = min(int(true_len) // self.block, len(blocks))
+        if n_blocks <= 0:
+            return 0
+        digests = _block_digests(tokens, self.block, n_blocks, salt)
+        if digests[-1] in self._chains:
+            return 0  # the full chain is already served
+        rec = _PrefixRecord(digests,
+                            [int(b) for b in blocks[:n_blocks]])
+        new_tokens = 0
+        for i, d in enumerate(digests):
+            if d not in self._chains:
+                self._chains[d] = (rec, i + 1)
+                new_tokens += self.block
+        for b in rec.blocks:
+            # Publishing happens while the capturing slot still holds
+            # the pages (slot_ref >= 1), so no page transitions
+            # free/idle here.
+            self._rec_ref[b] += 1
+        self._lru[id(rec)] = rec
+        return new_tokens
+
+    # -- host spill tier ---------------------------------------------------
+
+    def spillable_blocks(self) -> int:
+        """Device pages that spilling could preserve instead of
+        destroy-evicting: idle cached pages, when the tier is on."""
+        return self._cached_idle if self.host_blocks else 0
+
+    def spill_pressure(self) -> int:
+        """Reservation pages the free list alone cannot cover — the
+        number of upcoming take() calls that would have to DESTROY
+        cached pages via LRU eviction.  The engine spills while this
+        is positive (and candidates exist), which is what turns
+        `free + spillable >= reserved` from an eviction bound into a
+        preservation guarantee."""
+        if not self.host_blocks:
+            return 0
+        return max(0, self._reserved - len(self._free))
+
+    def spill_candidates(self, max_records: int = 1) -> List[_PrefixRecord]:
+        """Up to ``max_records`` LRU-coldest device records whose pages
+        are ALL idle (no live slot aliases them) — safe to gather and
+        drop.  Selection only; the engine gathers the pages off-lock
+        and completes with ``spill()``."""
+        if not self.host_blocks:
+            return []
+        out: List[_PrefixRecord] = []
+        for rec in self._lru.values():
+            if len(rec.digests) > self.host_blocks:
+                continue  # never storable; destroy-evict is its fate
+            if all(self._slot_ref[b] == 0 for b in rec.blocks):
+                out.append(rec)
+                if len(out) >= max_records:
+                    break
+        return out
+
+    def spill(self, rec: _PrefixRecord, payload) -> Optional[int]:
+        """Complete a spill: store ``payload`` (the gathered host copy
+        of ``rec``'s pages) in the host tier and drop the device
+        record, freeing its idle pages WITHOUT destroying their
+        contents.  Validates the record is still live and still fully
+        idle (the gather ran outside the manager's lock); a stale or
+        unstorable candidate declines with None.  Returns device pages
+        freed (0 is a SUCCESS whose pages other records still pin).
+
+        ``payload=None`` is the gather-free fast path: succeed ONLY if
+        the record's chain is already host-resident (a parked session
+        the engine host_put at delivery) — the device pages can drop
+        without any copy because the host tier already serves them.
+        Declining (None) tells the caller to gather and retry."""
+        if not self.host_blocks or id(rec) not in self._lru:
+            return None
+        if any(self._slot_ref[b] != 0 for b in rec.blocks):
+            return None  # re-aliased since selection; still hot
+        if payload is None and rec.digests[-1] not in self._host_chains:
+            return None  # no host copy to lean on; caller must gather
+        freed = sum(1 for b in rec.blocks
+                    if self._rec_ref[b] == 1 and self._slot_ref[b] == 0)
+        if payload is not None:
+            self._host_store(rec.digests, payload)
+        else:
+            hrec, _ = self._host_chains[rec.digests[-1]]
+            self._host_lru.move_to_end(id(hrec))
+        if rec.digests[-1] not in self._host_chains:
+            # Not storable (larger than the whole host tier) and not
+            # already resident: dropping would destroy the only copy.
+            return None
+        del self._lru[id(rec)]
+        self._drop_record(rec, count=False)
+        self.spills_out += len(rec.blocks)
+        return freed
+
+    def host_put(self, tokens: np.ndarray, true_len: int,
+                 payload, salt: bytes = b"") -> int:
+        """Store a host copy of ``tokens``' full-block prefix directly
+        (parked session KV: the engine gathers the pages at delivery
+        and parks them here so the session's device pages can retire).
+        Returns host pages stored (0 = disabled, dup, or too short)."""
+        if not self.host_blocks:
+            return 0
+        n_blocks = int(true_len) // self.block
+        if n_blocks <= 0:
+            return 0
+        digests = _block_digests(tokens, self.block, n_blocks, salt)
+        return self._host_store(digests, payload)
+
+    def _host_store(self, digests: List[bytes], payload) -> int:
+        if len(digests) > self.host_blocks:
+            return 0  # larger than the whole tier — never storable
+        if digests[-1] in self._host_chains:
+            # First-writer-wins, same as publish(): the established
+            # host record already serves the full chain.
+            hrec, _ = self._host_chains[digests[-1]]
+            self._host_lru.move_to_end(id(hrec))
+            return 0
+        hrec = _HostRecord(list(digests), payload, len(digests))
+        for i, d in enumerate(digests):
+            if d not in self._host_chains:
+                self._host_chains[d] = (hrec, i + 1)
+        self._host_lru[id(hrec)] = hrec
+        self._host_used += hrec.n_blocks
+        # The new record is MRU and fits by the guard above, so this
+        # terminates with it resident.
+        while self._host_used > self.host_blocks:
+            self._evict_host_lru()
+        return hrec.n_blocks
+
+    def lookup_spilled(self, tokens: np.ndarray, limit: int,
+                       salt: bytes = b"") -> Tuple[Optional[object], int]:
+        """Longest host-tier match of ``tokens`` covering at most
+        ``limit`` positions: (payload, depth_blocks) — the payload
+        covers AT LEAST ``depth_blocks`` pages and the caller trims to
+        that depth — or (None, 0) on a miss.  Touches host LRU."""
+        n_blocks = int(limit) // self.block
+        if not self.host_blocks or n_blocks <= 0 or not self._host_chains:
+            return None, 0
+        digests = _block_digests(tokens, self.block, n_blocks, salt)
+        for i in range(n_blocks, 0, -1):
+            ent = self._host_chains.get(digests[i - 1])
+            if ent is not None:
+                hrec, depth = ent
+                assert depth == i, (depth, i)
+                self._host_lru.move_to_end(id(hrec))
+                return hrec.payload, i
+        return None, 0
+
+    def _evict_host_lru(self) -> None:
+        _, hrec = self._host_lru.popitem(last=False)
+        for d in hrec.digests:
+            ent = self._host_chains.get(d)
+            if ent is not None and ent[0] is hrec:
+                del self._host_chains[d]
+        self._host_used -= hrec.n_blocks
+        self.host_evictions += hrec.n_blocks
+
+    # -- maintenance -------------------------------------------------------
+
+    def _drop_record(self, rec: _PrefixRecord, count: bool) -> None:
+        for d in rec.digests:
+            ent = self._chains.get(d)
+            if ent is not None and ent[0] is rec:
+                del self._chains[d]
+        for b in rec.blocks:
+            self._rec_ref[b] -= 1
+            if self._rec_ref[b] == 0 and self._slot_ref[b] == 0:
+                self._cached_idle -= 1
+                self._free.append(b)
+                if count:
+                    self.block_evictions += 1
+
+    def _evict_lru(self) -> None:
+        if not self._lru:
+            raise RuntimeError(
+                "paged-KV pool accounting broken: take() with no free "
+                "and no evictable blocks")
+        _, rec = self._lru.popitem(last=False)
+        self.evictions += 1
+        self._drop_record(rec, count=True)
+
+    def invalidate(self) -> None:
+        """Forget every cached prefix (engine close / model reload: a
+        new version's KV is numerically unrelated, so serving a stale
+        prefix would be silent corruption).  Pages still aliased by
+        live slots stay resident until those slots release them.  The
+        host tier drops too — its copies are the same stale KV."""
+        while self._lru:
+            _, rec = self._lru.popitem(last=False)
+            self._drop_record(rec, count=False)
+        self._host_chains.clear()
+        self._host_lru.clear()
+        self._host_used = 0
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "blocks": self.num_blocks,
+            "block_tokens": self.block,
+            "used_blocks": self.used_blocks(),
+            "free_blocks": len(self._free),
+            "cached_idle_blocks": self._cached_idle,
+            "reserved_blocks": self._reserved,
+            "published_records": len(self._lru),
+            "published_digests": len(self._chains),
+            "evictions": self.evictions,
+            "block_evictions": self.block_evictions,
+            "host_blocks": self.host_blocks,
+            "host_used_blocks": self._host_used,
+            "host_records": len(self._host_lru),
+            "spills_out": self.spills_out,
+            "spills_in": self.spills_in,
+            "host_evictions": self.host_evictions,
+        }
+
+    def check_invariants(self) -> None:
+        """Debug/test hook: every structural invariant, or raise."""
+        assert self._reserved >= 0
+        free_set = set(self._free)
+        assert len(free_set) == len(self._free), "duplicate free block"
+        idle = 0
+        for b in range(self.num_blocks):
+            assert self._slot_ref[b] >= 0 and self._rec_ref[b] >= 0
+            held = self._slot_ref[b] > 0 or self._rec_ref[b] > 0
+            assert held != (b in free_set), (
+                f"block {b} ref/free disagreement")
+            if self._slot_ref[b] == 0 and self._rec_ref[b] > 0:
+                idle += 1
+        assert idle == self._cached_idle, (idle, self._cached_idle)
+        assert len(self._free) + self._cached_idle >= self._reserved, (
+            "reservation invariant violated")
+        for rec_id, rec in self._lru.items():
+            assert rec_id == id(rec)
+            for b in rec.blocks:
+                assert self._rec_ref[b] >= 1
+        # Host tier: the overlay never references device pages, its
+        # page accounting matches its records, and every chain entry
+        # points into a live record at the right depth.
+        assert self._host_used == sum(
+            h.n_blocks for h in self._host_lru.values()), (
+            self._host_used, "host page accounting broken")
+        assert self._host_used <= self.host_blocks, "host tier over capacity"
+        live_host = {id(h) for h in self._host_lru.values()}
+        for d, (hrec, depth) in self._host_chains.items():
+            assert id(hrec) in live_host, "host chain to evicted record"
+            assert 1 <= depth <= hrec.n_blocks
+            assert hrec.digests[depth - 1] == d
+        for hrec_id, hrec in self._host_lru.items():
+            assert hrec_id == id(hrec)
+            assert hrec.n_blocks == len(hrec.digests)
+            # The full chain must resolve through _host_chains (its
+            # tail digest always maps to this record or a first-writer
+            # predecessor covering the same prefix).
+            assert hrec.digests[-1] in self._host_chains

@@ -33,13 +33,13 @@ def _not_ported(args) -> str:
     """The first flag this port does not serve yet, with its ROADMAP
     item, or ''."""
     checks = [
-        (args.mesh, "--mesh (parallel training, ROADMAP queue 1 item 7)"),
+        (args.mesh, "--mesh (parallel training, ROADMAP queue 1 item 11)"),
         (args.pipeline_microbatches > 0,
          "--pipeline-microbatches (parallel training, ROADMAP queue 1 "
-         "item 7)"),
-        (args.moe_experts > 0, "--moe-experts (MoE, ROADMAP queue 1 item 9)"),
+         "item 11)"),
+        (args.moe_experts > 0, "--moe-experts (MoE, ROADMAP queue 1 item 13)"),
         (args.attention == "ring",
-         "--attention ring (parallel training, ROADMAP queue 1 item 7)"),
+         "--attention ring (parallel training, ROADMAP queue 1 item 11)"),
     ]
     return next((what for hit, what in checks if hit), "")
 

@@ -20,6 +20,11 @@ CASES = {
     "gqa_causal": (12, 12, 2, lambda rng: dict(causal=True)),
     "decode_offset": (1, 10, 2, lambda rng: dict(causal=True, kv_offset=9)),
     "chunk_offset": (3, 10, 4, lambda rng: dict(causal=True, kv_offset=5)),
+    "per_row_offset": (3, 10, 2, lambda rng: dict(
+        causal=True, kv_offset=np.asarray([2, 7], np.int32))),
+    "per_row_offset_valid_start": (1, 10, 2, lambda rng: dict(
+        causal=True, kv_offset=np.asarray([4, 9], np.int32),
+        kv_valid_start=np.asarray([1, 3], np.int32))),
     "kv_valid_start": (12, 12, 4, lambda rng: dict(
         causal=True, kv_valid_start=np.asarray([0, 5], np.int32))),
     "decode_offset_valid_start": (1, 10, 2, lambda rng: dict(
@@ -56,7 +61,13 @@ def test_matches_jax(case):
 
 
 def test_per_row_offset_not_ported_raises():
-    q = torch.randn(2, 1, 2, 8)
-    k = torch.randn(2, 6, 2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dot_product_attention(q, k, k, kv_offset=torch.tensor([3, 5]))
+    """The per-row [b] offset, once refused here, is now ported: each
+    row attends as it would alone at its own scalar offset."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 2, 2, 8, generator=gen)
+    k = torch.randn(2, 6, 2, 8, generator=gen)
+    got = dot_product_attention(q, k, k, kv_offset=torch.tensor([3, 4]))
+    for row, off in enumerate((3, 4)):
+        want = dot_product_attention(q[row:row + 1], k[row:row + 1],
+                                     k[row:row + 1], kv_offset=off)
+        torch.testing.assert_close(got[row:row + 1], want, **TOL)

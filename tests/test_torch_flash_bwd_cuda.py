@@ -119,6 +119,19 @@ def test_heads_stay_apart(cuda_device, d, causal):
     torch.cuda.synchronize()
     ref = flash.flash_bwd_reference(q.float(), k.float(), v.float(),
                                     g.float(), lse, delta, causal=causal)
+    # Each head's relative Frobenius error and its largest error over the
+    # head's RMS, printed before any assert (pytest -rP shows them): a
+    # head that reads another's data stands apart from the rest, a scale
+    # effect moves them together.
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        cells = []
+        for h in range(bh):
+            err = a[h].float() - b[h].float()
+            rms = b[h].float().pow(2).mean().sqrt()
+            cells.append(f"h{h} rel {(err.norm() / b[h].float().norm()):.3e}"
+                         f" max/rms {(err.abs().max() / rms):.3e}")
+        print(f"heads_stay_apart d={d} causal={causal} {name}: "
+              + "; ".join(cells))
     for h in range(bh):
         for name, a, b in zip(("dq", "dk", "dv"), got, ref):
             rms = b[h].float().pow(2).mean().sqrt()

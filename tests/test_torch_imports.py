@@ -51,7 +51,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 def test_every_port_module_imports():
     """Each module of the port imports (nothing is built at import: the
     CUDA kernels and the data core build at first use), the modules of
-    the training slice's record pipeline and checkpoints among them."""
+    the training slice's record pipeline and checkpoints and the serving
+    engine's copies of the JAX package's host modules among them."""
     root = REPO / "kubeflow_tpu_torch"
     names = sorted(
         ".".join(f.relative_to(REPO).with_suffix("").parts).removesuffix(
@@ -60,7 +61,22 @@ def test_every_port_module_imports():
         importlib.import_module(name)
     assert {"kubeflow_tpu_torch.data", "kubeflow_tpu_torch.data.loader",
             "kubeflow_tpu_torch.runtime.checkpoint",
-            "kubeflow_tpu_torch.runtime.optim"} <= set(names)
+            "kubeflow_tpu_torch.runtime.optim",
+            "kubeflow_tpu_torch.runtime.tracing",
+            "kubeflow_tpu_torch.serving.engine",
+            "kubeflow_tpu_torch.serving.prefix_cache"} <= set(names)
+
+
+@pytest.mark.parametrize("module", ["serving/engine.py",
+                                    "serving/prefix_cache.py",
+                                    "runtime/tracing.py"])
+def test_engine_slice_modules_import_nothing_of_jax(module):
+    """The engine and the stdlib/numpy modules it needs are the port's
+    own copies: none imports JAX or the JAX package."""
+    path = REPO / "kubeflow_tpu_torch" / module
+    imported = list(_imports(path))
+    assert imported
+    assert not [m for m in imported if _forbidden(m)]
 
 
 def test_forbidden_prefix_does_not_match_the_port():

@@ -1,10 +1,13 @@
 """The port's serving path: export format, loader, and the REST server.
 
 A version exported by the JAX package loads in the port; a port export
-restores under flax; and the port's server (``--device cpu``, bucketed
-static batching) answers concurrent mixed-length :predict requests with
-the tokens JAX generate() gives each prompt alone, then hot-swaps to a
-new version dropped into its base path."""
+restores under flax; and the port's server (``--device cpu``, the
+continuous-batching engine by default, its prefill width the largest
+bucket) answers concurrent mixed-length :predict requests with the
+tokens JAX generate() gives each prompt alone, then hot-swaps to a new
+version dropped into its base path (rebuilding the engine around it).
+The same burst and swap run through --lm_static_batcher's bucketed
+static batcher."""
 
 import http.client
 import json
@@ -131,8 +134,10 @@ def _request(port, method, path, body=None):
 
 
 @pytest.fixture
-def server(tmp_path):
-    """The port's serving entry point in its own process, on the CPU."""
+def server(request, tmp_path):
+    """The port's serving entry point in its own process, on the CPU;
+    an indirect parameter adds flags to its command line."""
+    extra = list(getattr(request, "param", []))
     base = tmp_path / "lm"
     cfg, params = _export_jax(base, 1, seed=3)
     log_path = tmp_path / "server.log"
@@ -143,7 +148,8 @@ def server(tmp_path):
              "--model_name", "lm", "--model_base_path", str(base),
              "--port", "0", "--host", "127.0.0.1", "--device", "cpu",
              "--lm_buckets", "8,16,32", "--micro_batch_size", "4",
-             "--batch_timeout_ms", "50", "--poll_interval_s", "0.2"],
+             "--batch_timeout_ms", "50", "--poll_interval_s", "0.2"]
+            + extra,
             stderr=log, stdout=subprocess.DEVNULL, env=env, cwd=REPO)
     try:
         port = None
@@ -166,6 +172,19 @@ def server(tmp_path):
 
 
 def test_rest_server_batches_and_hot_swaps(server):
+    _batches_and_hot_swaps(server)
+
+
+@pytest.mark.parametrize("server", [["--lm_static_batcher"]],
+                         ids=["static"], indirect=True)
+def test_static_batcher_batches_and_hot_swaps(server):
+    """The same burst and swap through the bucketed static batcher: six
+    prompts over the three buckets, and a batcher rebuilt around
+    version 2."""
+    _batches_and_hot_swaps(server)
+
+
+def _batches_and_hot_swaps(server):
     port, base, cfg, params = server
     rng = np.random.default_rng(4)
     prompts = [_prompt(rng, n) for n in (3, 14, 7, 27, 9, 20)]

@@ -499,7 +499,7 @@ def test_train_lm_runs_on_cuda_unless_asked():
 
 
 def test_trainer_and_bootstrap_refuse_what_is_not_ported():
-    with pytest.raises(NotPortedError, match="item 7"):
+    with pytest.raises(NotPortedError, match="item 11"):
         Trainer(init_fn=None, loss_fn=None, tx=None, device="cpu",
                 mesh=object())
     env = bootstrap.worker_env({"KFT_NUM_PROCESSES": "2",
