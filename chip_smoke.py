@@ -48,19 +48,26 @@ Phases, each fatal on failure (exit code 1, no result line):
  6b. engine: the same server with the JAX CLI's engine defaults (the
      continuous-batching DecodeEngine: 8 slots, fused rounds of 8 steps,
      64-token prefill chunks, 16-token KV blocks, prefix cache on) and
-     the bf16 model: the eight prompts as one concurrent burst, two
-     requests sharing a 1024-token prefix, one request with the card's
-     sync debug mode at "error"; every reply prompt + max_new_tokens
-     tokens in the vocabulary, no flash kernel launched, :stats showing
-     the slots reused, a prefix hit and the JAX engine's
-     compiled_programs(); the same engine with the float32 model (TF32
-     off) must give generate()'s greedy tokens on four prompts; then
-     (information only) the bf16 engine's first difference from bf16
-     generate() per prompt, requests/s, tokens/s, TTFT and latency
-     percentiles beside phase 4's static batcher, and one fused round
-     of 8 steps at 8 live slots called directly: its time, one round
-     under sync debug mode "error", its device busy share and the share
-     of the paged-view gathers under torch.profiler;
+     the bf16 model, its chunked-prefill and rounds programs captured as
+     CUDA graphs.  Checks on the captured engine: the eight prompts as
+     one concurrent burst, two requests sharing a 1024-token prefix, one
+     request with the card's sync debug mode at "error"; every reply
+     prompt + max_new_tokens tokens in the vocabulary, no flash kernel
+     launched, :stats showing the slots reused, a prefix hit and the JAX
+     engine's compiled_programs(); the same engine with the float32
+     model (TF32 off) must give generate()'s greedy tokens on four
+     prompts; one captured round of 8 steps at 8 live slots must equal
+     the eager decode_rounds on the same state (tokens, counts,
+     steps_run and the slot scalars), and one captured round runs under
+     sync debug mode "error".  Information only, in the same call: the
+     capture time and graph-pool bytes; the same burst through the
+     engine with cuda_graphs=False and through the static batcher
+     (--lm_static_batcher), each with requests/s, tokens/s, TTFT and
+     latency p50/p99; the bf16 engine's first difference from bf16
+     generate() per prompt; the captured and the eager round at 8 live
+     slots in turns, with their device busy shares and the paged-view
+     gathers' share under torch.profiler, and one 64-token prefill chunk
+     captured and eager;
   7. train: the port's LM training entry point (tools/train_lm.run) on
      bench.py's LM configuration (batch 8 x 2048, flash, remat, adamw
      1e-3) for a few steps, launch counters zeroed just before and read
@@ -116,8 +123,10 @@ BUCKETS = "512,1024,2048"
 MICRO_BATCH = 4
 PROMPT_LENS = (300, 1800, 520, 1620, 760, 1440, 980, 1210)
 DIRECT_ROWS, DIRECT_LEN = 2, 1024
-# Phase 6b: two engine requests share a prefix of this many tokens.
+# Phase 6b: two engine requests share a prefix of this many tokens; the
+# engine's prefill chunk width (the CLI default).
 SHARED_PREFIX = 1024
+CHUNK = 64
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 rate).
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -967,9 +976,7 @@ def serve(torch, flash, base: Path, prompts, direct):
         f"(host clock, information only)")
     log(f"kernel launches on the serving path: {counts}; batcher: "
         f"{stats['batches']} batches, sizes {stats['batch_size_hist']}")
-    static = {"burst_s": t_batched, "latency_p50_s": pct(latencies, 0.5),
-              "latency_p99_s": pct(latencies, 0.99)}
-    return replies, direct_reply, counts, static
+    return replies, direct_reply, counts
 
 
 def pct(values, q):
@@ -1021,16 +1028,55 @@ def engine_prefill_width() -> int:
                MODEL["max_seq_len"] - MAX_NEW_TOKENS)
 
 
-def serve_engine(torch, flash, base: Path, prompts, static):
+def burst_info(prompts, latencies, t_burst, stats) -> dict:
+    """Throughput and latency of one burst; TTFT from the engine's clock
+    (the static batcher returns no token before its last: None)."""
+    n_tok = len(prompts) * MAX_NEW_TOKENS
+    return {
+        "burst_s": t_burst,
+        "requests_per_s": len(prompts) / t_burst,
+        "tokens_per_s": n_tok / t_burst,
+        "ttft_p50_ms": stats.get("ttft_p50_ms"),
+        "ttft_p99_ms": stats.get("ttft_p99_ms"),
+        "latency_p50_s": pct(latencies, 0.5),
+        "latency_p99_s": pct(latencies, 0.99),
+    }
+
+
+def log_burst(what: str, info: dict) -> None:
+    ttft = ("TTFT not delivered before the last token"
+            if info["ttft_p50_ms"] is None else
+            f"TTFT p50 {info['ttft_p50_ms']:.1f} ms p99 "
+            f"{info['ttft_p99_ms']:.1f} ms (engine clock)")
+    log(f"{what} burst: {info['burst_s']:.3f} s, "
+        f"{info['requests_per_s']:.3f} requests/s, "
+        f"{info['tokens_per_s']:.1f} generated tokens/s; {ttft}; latency "
+        f"p50 {info['latency_p50_s']:.3f} s p99 "
+        f"{info['latency_p99_s']:.3f} s (client clock; information only; "
+        f"{card_line()})")
+
+
+def serve_engine(torch, flash, base: Path, prompts):
     """Phase 6b: the port's serving entry point with the JAX CLI's engine
     defaults (8 slots, fused rounds of 8, 64-token chunks, 16-token
-    blocks, prefix cache on), the bf16 188M LM at full width and depth.
-    The eight prompts as one concurrent burst, then two requests that
-    share a 1024-token prefix, then one request with the card's sync
-    debug mode at "error".  No flash kernel may launch; :stats must show
-    the slots reused, a prefix hit, and the JAX engine's
-    compiled_programs() for these flags."""
+    blocks, prefix cache on), the bf16 188M LM at full width and depth,
+    its programs captured as CUDA graphs.  The eight prompts as one
+    concurrent burst, then two requests that share a 1024-token prefix,
+    then one request with the card's sync debug mode at "error".  No
+    flash kernel may launch; :stats must show the slots reused, a prefix
+    hit, and the JAX engine's compiled_programs() for these flags.  Then
+    (information only) the same burst through the same server with the
+    engine's programs run eagerly (cuda_graphs=False), then through the
+    static batcher."""
     from kubeflow_tpu_torch.serving import main as serving_main
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    def eager_engine(loaded):
+        spec = loaded.predict.engine_spec
+        return DecodeEngine(spec["model"], spec["decode"], slots=8,
+                            prefill_len=engine_prefill_width(),
+                            decode_rounds=8, name="lm-eager",
+                            cuda_graphs=False)
 
     server, httpd = serving_main.start([
         "--model_name", "lm", "--model_base_path", str(base),
@@ -1044,6 +1090,10 @@ def serve_engine(torch, flash, base: Path, prompts, static):
              .tolist()) for n in (100, 200)]
     launches_before = dict(flash.launch_counts)
     try:
+        engine = server._batchers["lm"]
+        if not engine.cuda_graphs or engine.capture_info is None:
+            fail("the served engine did not capture its programs")
+        capture = dict(engine.capture_info)
         replies, latencies, t_burst = burst(port, prompts)
         burst_stats = get(port, "/model/lm:stats")["batcher"]
         pair_replies = [post(port, {"instances": [{"tokens": p}]})
@@ -1054,17 +1104,31 @@ def serve_engine(torch, flash, base: Path, prompts, static):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         stats = get(port, "/model/lm:stats")["batcher"]
+        # The same burst, same server, engine programs run eagerly.
+        server.enable_batching("lm", eager_engine)
+        eager_replies, eager_lat, t_eager = burst(port, prompts)
+        eager_stats = get(port, "/model/lm:stats")["batcher"]
+        launches_engine = dict(flash.launch_counts)
+        # And through the static batcher (--lm_static_batcher's).
+        server.enable_batching("lm", serving_main.batcher_factory(
+            micro_batch_size=MICRO_BATCH, batch_timeout_s=5e-3,
+            lm_buckets=BUCKETS, lm_engine=False))
+        static_replies, static_lat, t_static = burst(port, prompts)
     finally:
         serving_main.shutdown(server, httpd)
-    if dict(flash.launch_counts) != launches_before:
+    if launches_engine != launches_before:
         fail("the engine path launched a flash kernel: "
-             f"{launches_before} -> {dict(flash.launch_counts)}")
+             f"{launches_before} -> {launches_engine}")
     check_replies(prompts + pair, replies + pair_replies, [], None)
+    check_replies(prompts, eager_replies, [], None)
+    check_replies(prompts, static_replies, [], None)
     want_programs = {"chunked_prefill": 1, "step": 0, "verify": 0,
                      "decode_rounds": 1}
-    if stats["compiled_programs"] != want_programs:
-        fail(f"engine compiled_programs {stats['compiled_programs']}, the "
-             f"JAX engine reports {want_programs} for these flags")
+    for what, got in (("captured", stats), ("eager", eager_stats)):
+        if got["compiled_programs"] != want_programs:
+            fail(f"{what} engine compiled_programs "
+                 f"{got['compiled_programs']}, the JAX engine reports "
+                 f"{want_programs} for these flags")
     if stats["prefix_hits"] < 1 or stats["cached_prompt_tokens"] \
             < SHARED_PREFIX:
         fail(f"no prefix hit on the shared {SHARED_PREFIX}-token prefix: "
@@ -1075,37 +1139,31 @@ def serve_engine(torch, flash, base: Path, prompts, static):
         fail(f"slots not reused and released: {stats['requests']} "
              f"requests through {stats['slots']} slots, "
              f"{stats['active_slots']} still active")
-    n_tok = len(prompts) * MAX_NEW_TOKENS
     info = {
-        "burst_s": t_burst,
-        "requests_per_s": len(prompts) / t_burst,
-        "tokens_per_s": n_tok / t_burst,
-        "ttft_p50_ms": burst_stats["ttft_p50_ms"],
-        "ttft_p99_ms": burst_stats["ttft_p99_ms"],
-        "latency_p50_s": pct(latencies, 0.5),
-        "latency_p99_s": pct(latencies, 0.99),
-        "token_latency_p50_ms": burst_stats["token_latency_p50_ms"],
-        "steps_per_round_p50": burst_stats["steps_per_round_p50"],
-        "prefill_chunks": burst_stats["prefill_chunks"],
+        "capture": capture,
+        "captured": dict(
+            burst_info(prompts, latencies, t_burst, burst_stats),
+            token_latency_p50_ms=burst_stats["token_latency_p50_ms"],
+            steps_per_round_p50=burst_stats["steps_per_round_p50"],
+            prefill_chunks=burst_stats["prefill_chunks"]),
+        "eager": dict(
+            burst_info(prompts, eager_lat, t_eager, eager_stats),
+            token_latency_p50_ms=eager_stats["token_latency_p50_ms"]),
+        "static": burst_info(prompts, static_lat, t_static, {}),
         "prefix_hits": stats["prefix_hits"],
         "cached_prompt_tokens": stats["cached_prompt_tokens"],
         "compiled_programs": stats["compiled_programs"],
     }
-    log(f"engine burst: {len(prompts)} concurrent requests in "
-        f"{t_burst:.3f} s: {info['requests_per_s']:.3f} requests/s, "
-        f"{info['tokens_per_s']:.1f} generated tokens/s; TTFT p50 "
-        f"{info['ttft_p50_ms']:.1f} ms p99 {info['ttft_p99_ms']:.1f} ms "
-        f"(engine clock); latency p50 {info['latency_p50_s']:.3f} s p99 "
-        f"{info['latency_p99_s']:.3f} s (client clock); "
-        f"{info['prefill_chunks']} prefill chunks, steps per round p50 "
-        f"{info['steps_per_round_p50']} (host clock, information only; "
-        f"{card_line()})")
-    log(f"static batcher on the same {len(prompts)} prompts (phase 4): "
-        f"burst {static['burst_s']:.3f} s, "
-        f"{n_tok / static['burst_s']:.1f} generated tokens/s, latency p50 "
-        f"{static['latency_p50_s']:.3f} s p99 "
-        f"{static['latency_p99_s']:.3f} s; engine "
-        f"{t_burst:.3f} s, {info['tokens_per_s']:.1f} tokens/s")
+    log(f"engine capture: {capture['programs']} as CUDA graphs in "
+        f"{capture['seconds']:.3f} s, graph pool {capture['pool_bytes']} "
+        f"bytes")
+    log_burst("captured engine", info["captured"])
+    log_burst("eager engine (cuda_graphs=False)", info["eager"])
+    log_burst("static batcher", info["static"])
+    log(f"burst time, captured engine / eager engine / static batcher: "
+        f"{t_burst:.3f} / {t_eager:.3f} / {t_static:.3f} s; the captured "
+        f"engine's {info['captured']['prefill_chunks']} prefill chunks, "
+        f"steps per round p50 {info['captured']['steps_per_round_p50']}")
     log(f"engine :stats: {stats['requests']} requests through "
         f"{stats['slots']} slots, prefix hits {stats['prefix_hits']} "
         f"({stats['cached_prompt_tokens']} cached tokens), "
@@ -1125,9 +1183,13 @@ def engine_identity(torch, flash, base: Path, prompts, bf16_tokens):
 
     decode = DecodeConfig(max_new_tokens=MAX_NEW_TOKENS)
     model = load_model(torch, base, torch.float32)
+    # Built after TF32 was switched off: the captured graphs keep the
+    # math mode of their capture.
     engine = DecodeEngine(model, decode, slots=8,
                           prefill_len=engine_prefill_width(),
                           decode_rounds=8, name="fp32-identity")
+    if not engine.cuda_graphs:
+        fail("the float32 identity engine did not capture its programs")
     four = prompts[:4]
     outs = [None] * len(four)
 
@@ -1151,7 +1213,7 @@ def engine_identity(torch, flash, base: Path, prompts, bf16_tokens):
             if got != want[0].tolist():
                 fail(f"float32 engine tokens of a {len(prompt)}-token prompt "
                      "differ from generate() alone")
-    log(f"engine token identity at float32: {len(four)} prompts "
+    log(f"captured engine token identity at float32: {len(four)} prompts "
         f"{[len(p) for p in four]} equal generate() alone, "
         f"{MAX_NEW_TOKENS} tokens each")
     del model
@@ -1168,14 +1230,19 @@ def engine_identity(torch, flash, base: Path, prompts, bf16_tokens):
 
 
 def engine_round(torch, base: Path):
-    """Phase 6b, information only: one fused round of 8 steps at 8 live
-    slots (the burst's prompt lengths, pool and tables as the engine
-    sizes them), called directly: its time (host clock after a
-    synchronize, median of 5), one round with sync debug mode "error",
-    then under torch.profiler the device's busy share of the round and
-    the share of its device time the paged-view gathers take (one
-    gather timed alone by CUDA events, times the round's 2 x layers x
-    steps gathers)."""
+    """Phase 6b, the fused round at 8 live slots (the burst's prompt
+    lengths, pool and tables as the engine sizes them), called directly
+    through the engine's Rounds program, captured and eager, on one
+    state.  Checked: one captured round equals the eager decode_rounds
+    on a copy of the same state (tokens, counts, steps_run, slot
+    scalars), and one captured round runs under sync debug mode
+    "error".  Information only: the captured and the eager round's time
+    (host clock after a synchronize, median of 5, in turns), then under
+    torch.profiler each one's device busy share, and the share of the
+    device time the paged-view gathers take (one gather timed alone by
+    CUDA events, times the round's 2 x layers x steps gathers); last,
+    one 64-token prefill chunk at offset 1024, captured and eager, timed
+    the same way."""
     from torch.profiler import ProfilerActivity, profile
 
     from kubeflow_tpu_torch.models.generate import (
@@ -1184,82 +1251,162 @@ def engine_round(torch, base: Path):
         decode_rounds,
         init_paged_state,
     )
+    from kubeflow_tpu_torch.serving.programs import ChunkedPrefill, Rounds
 
     model = load_model(torch, base, torch.bfloat16)
     slots, bt, k = 8, 16, 8
     mb = -(-(engine_prefill_width() + MAX_NEW_TOKENS) // bt)
-    state = init_paged_state(model.cfg, slots, slots * mb, bt,
-                             device="cuda")
-    tables = torch.arange(slots * mb, device="cuda").view(slots, mb)
-    lengths = torch.tensor(PROMPT_LENS, dtype=torch.int32, device="cuda")
-    state["lengths"] = lengths
-    state["stop_len"] = lengths + MAX_NEW_TOKENS
-    state["done"] = torch.zeros(slots, dtype=torch.bool, device="cuda")
-    state["last_token"] = torch.randint(
-        1, MODEL["vocab_size"], (slots,), dtype=torch.int32, device="cuda")
+    nb = slots * mb
+
+    def fresh():
+        return init_paged_state(model.cfg, slots, nb, bt, device="cuda")
+
+    state = fresh()
+    tables = torch.full((slots, mb), nb, dtype=torch.int64, device="cuda")
     decode = DecodeConfig(max_new_tokens=MAX_NEW_TOKENS)
-
-    def one_round():
-        with torch.inference_mode():
-            _, toks, counts, steps = decode_rounds(
-                model, state, decode, k, tables, k)
-        return toks, counts, steps
-
-    for _ in range(2):
-        one_round()
+    progs = {"captured": Rounds(model, decode, state, tables, k, True),
+             "eager": Rounds(model, decode, state, tables, k, False)}
+    chunks = {"captured": ChunkedPrefill(model, decode, state, tables,
+                                         CHUNK, True),
+              "eager": ChunkedPrefill(model, decode, state, tables, CHUNK,
+                                      False)}
+    pool = torch.cuda.graph_pool_handle()
+    t0 = time.perf_counter()
+    with torch.inference_mode():       # on the fresh state, as the engine
+        progs["captured"].capture(pool)
+        chunks["captured"].capture(pool)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        one_round()
+    capture_s = time.perf_counter() - t0
+    tables.copy_(torch.arange(nb, device="cuda").view(slots, mb))
+    lengths = torch.tensor(PROMPT_LENS, dtype=torch.int32, device="cuda")
+    live = {"lengths": lengths, "stop_len": lengths + MAX_NEW_TOKENS,
+            "done": torch.zeros(slots, dtype=torch.bool, device="cuda"),
+            "last_token": torch.randint(
+                1, MODEL["vocab_size"], (slots,), dtype=torch.int32,
+                device="cuda")}
+
+    def reset():
+        for name, value in live.items():
+            state[name].copy_(value)
+
+    def one_round(name):
+        with torch.inference_mode():
+            return progs[name].run(k)
+
+    # Identity: the captured round against decode_rounds on a copy.
+    reset()
+    twin = fresh()
+    for name, value in state.items():
+        twin[name].copy_(value)
+    with torch.inference_mode():
+        twin, want_toks, want_counts, want_steps = decode_rounds(
+            model, twin, decode, k, tables, k)
+    toks, counts, steps = one_round("captured")
+    torch.cuda.synchronize()
+    if not (torch.equal(toks, want_toks) and torch.equal(counts, want_counts)
+            and int(steps) == int(want_steps) == k
+            and counts.tolist() == [k] * slots):
+        fail(f"a captured round differs from decode_rounds: steps "
+             f"{int(steps)} / {int(want_steps)}, counts {counts.tolist()} / "
+             f"{want_counts.tolist()}")
+    for name in ("lengths", "stop_len", "last_token", "done", "keys"):
+        if not torch.equal(state[name], twin[name]):
+            fail(f"a captured round's {name} differs from decode_rounds'")
+    pool_err = max(float((state[n].float() - twin[n].float()).abs().max())
+                   for n in ("cache_k", "cache_v"))
+    del twin
+    log(f"captured round equals decode_rounds on the same state: {k} "
+        f"steps at {slots} slots, tokens, counts and slot scalars equal; "
+        f"pool max |err| {pool_err:.3e}")
+
+    def timed(name):
+        reset()
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    round_ms = sorted(times)[2] * 1e3
+        t0 = time.perf_counter()
+        one_round(name)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for name in progs:
+        timed(name)
+    times = {name: [] for name in progs}
+    for i in range(5):
+        for name in (("captured", "eager") if i % 2 == 0
+                     else ("eager", "captured")):
+            times[name].append(timed(name))
+    round_ms = {name: sorted(t)[2] * 1e3 for name, t in times.items()}
+    reset()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        toks, counts, steps = one_round()
+        one_round("captured")
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    if int(steps) != k or counts.tolist() != [k] * slots:
-        fail(f"a fused round at 8 live slots ran {int(steps)} steps, "
-             f"counts {counts.tolist()}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one_round()
-        torch.cuda.synchronize()
-        t_prof = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    info = {"steps": k, "slots": slots, "capture_s": capture_s,
+            "pool_max_abs_err": pool_err}
     pool = _pool_with_scratch(state["cache_k"])[0]
     gather_ms = time_ms(torch, lambda: pool[tables], 20)
     gathers = 2 * MODEL["n_layers"] * k
-    info = {"round_ms": round_ms, "steps": k, "slots": slots,
-            "gather_ms": gather_ms, "gathers_per_round": gathers}
-    if busy_us == 0:
-        log("engine round: the profiler saw no device time; busy share "
-            "and gather share not measured")
-    else:
-        kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-        info.update(busy_ms=busy_us / 1e3,
-                    busy_share=busy_us / (t_prof * 1e6),
-                    gather_share=gather_ms * gathers / (busy_us / 1e3))
-        log(f"engine round under torch.profiler: wall {t_prof * 1e3:.1f} "
-            f"ms, device busy {busy_us / 1e3:.2f} ms "
-            f"({info['busy_share']:.3f} of the profiled wall); paged-view "
-            f"gather {gather_ms:.4f} ms x {gathers} = "
-            f"{gather_ms * gathers:.2f} ms, {info['gather_share']:.3f} of "
-            f"busy")
-        for e in kernels[:6]:
-            log(f"  {e.self_device_time_total / busy_us:.3f} of busy, "
-                f"{e.count} launches: {e.key[:100]}")
-    log(f"engine fused round: {k} steps at {slots} live slots (lengths "
-        f"{list(PROMPT_LENS)}) in {round_ms:.2f} ms, "
-        f"{round_ms / k:.2f} ms a step (host clock after synchronize, "
-        f"median of 5; {card_line()}); one round under sync debug mode "
-        f"'error'")
+    info.update(gather_ms=gather_ms, gathers_per_round=gathers)
+    for name in progs:
+        reset()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one_round(name)
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        row = {"round_ms": round_ms[name], "profiled_ms": t_prof * 1e3}
+        if busy_us == 0:
+            log(f"{name} round: the profiler saw no device time; busy "
+                "share and gather share not measured")
+        else:
+            kernels.sort(key=lambda e: e.self_device_time_total,
+                         reverse=True)
+            row.update(busy_ms=busy_us / 1e3,
+                       busy_share=busy_us / (t_prof * 1e6),
+                       gather_share=gather_ms * gathers / (busy_us / 1e3))
+            log(f"{name} round under torch.profiler: wall "
+                f"{t_prof * 1e3:.1f} ms, device busy {busy_us / 1e3:.2f} ms "
+                f"({row['busy_share']:.3f} of the profiled wall); "
+                f"paged-view gather {gather_ms:.4f} ms x {gathers} = "
+                f"{gather_ms * gathers:.2f} ms, {row['gather_share']:.3f} "
+                f"of busy")
+            for e in kernels[:6]:
+                log(f"  {e.self_device_time_total / busy_us:.3f} of busy, "
+                    f"{e.count} launches: {e.key[:100]}")
+        info[name] = row
+    # One prefill chunk of slot 0's prompt at offset 1024, in turns.
+    segment = torch.ones(CHUNK, dtype=torch.int64).numpy()
+    chunk_times = {name: [] for name in chunks}
+    for i in range(6):
+        for name in (("captured", "eager") if i % 2 == 0
+                     else ("eager", "captured")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                chunks[name].run(segment, 1024, 1100, MAX_NEW_TOKENS, 0, 0)
+            torch.cuda.synchronize()
+            chunk_times[name].append(time.perf_counter() - t0)
+    info["chunk_ms"] = {name: sorted(t[1:])[2] * 1e3
+                        for name, t in chunk_times.items()}
+    for prog in (progs["captured"], chunks["captured"]):
+        prog.release()
+    log(f"engine prefill chunk of {CHUNK} tokens at offset 1024: captured "
+        f"{info['chunk_ms']['captured']:.2f} ms, eager "
+        f"{info['chunk_ms']['eager']:.2f} ms (host clock after "
+        f"synchronize, median of 5 after one warm-up, in turns)")
+    log(f"engine fused round, {k} steps at {slots} live slots (lengths "
+        f"{list(PROMPT_LENS)}): captured {round_ms['captured']:.2f} ms "
+        f"({round_ms['captured'] / k:.2f} ms a step), eager "
+        f"{round_ms['eager']:.2f} ms ({round_ms['eager'] / k:.2f} ms a "
+        f"step), in turns, host clock after synchronize, median of 5; "
+        f"capture {capture_s:.3f} s; one captured round under sync debug "
+        f"mode 'error' ({card_line()})")
     return info
 
 
@@ -1832,7 +1979,7 @@ def main() -> int:
     try:
         base = workdir / "lm"
         export_model(torch, base)
-        replies, direct_reply, counts, static = serve(
+        replies, direct_reply, counts = serve(
             torch, flash, base, prompts, direct)
         missing = [k for k, n in counts.items() if n == 0]
         if missing:
@@ -1841,7 +1988,7 @@ def main() -> int:
         check_prefill_logits(torch, flash, base, gen)
         breakdown(torch, base, gen)
         engine_tokens, engine_info = serve_engine(torch, flash, base,
-                                                  prompts, static)
+                                                  prompts)
         engine_info["bf16_first_difference"] = engine_identity(
             torch, flash, base, prompts, engine_tokens)
         engine_info["round"] = engine_round(torch, base)

@@ -16,7 +16,10 @@ Two families of entry points share one per-layer step:
   ``decode_rounds``.  Each takes the host-owned per-slot block tables as
   an argument, and each slot ropes, writes and attends at its own
   length.  No program reads a device value on the host, so a caller can
-  queue them back to back.
+  queue them back to back.  Their per-call scalars may be 0-d device
+  tensors (JAX's traced operands), and each has an in-place form that
+  writes into the state's own tensors, so a CUDA graph can capture it
+  once and replay it with new scalars (serving/programs.py).
 
 Where JAX drops a scatter (``mode="drop"``), this port redirects the
 write: the pool carries one scratch block past the ``nb`` blocks the
@@ -450,13 +453,34 @@ def _device_tables(tables, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(tables, device=device).long()
 
 
+def _scalar(value, device: torch.device) -> torch.Tensor:
+    """A program scalar as a 0-d int64 tensor on ``device``: a host int
+    is copied up, a tensor (a view of a caller's device buffer) is
+    read where it lies."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.int64)
+    return torch.tensor(int(value), dtype=torch.int64, device=device)
+
+
+def _assign(state: Dict[str, torch.Tensor],
+            new: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Write a program's new slot scalars into ``state``'s own tensors
+    (the in-place form: a CUDA graph reads and writes fixed addresses).
+    Returns ``state``."""
+    for name, value in new.items():
+        if value is not state[name]:
+            state[name].copy_(value)
+    return state
+
+
 def _advance_slots(model: Transformer, decode: DecodeConfig,
                    tables: torch.Tensor, park: int,
                    state: Dict[str, torch.Tensor]):
     """One batched decode step over every slot: the body of
     ``decode_step`` and ``decode_rounds``.  Returns (state, nxt [S]),
-    the sampled token per slot (0 for frozen slots).  ``park`` is the
-    column past the table span where retired slots aim their writes."""
+    the sampled token per slot (0 for frozen slots); the returned
+    state's scalars are new tensors.  ``park`` is the column past the
+    table span where retired slots aim their writes."""
     lengths, done = state["lengths"], state["done"]
     advance = ~done
     write_cols = torch.where(advance, lengths, park)
@@ -485,7 +509,8 @@ def _advance_slots(model: Transformer, decode: DecodeConfig,
 
 
 def decode_step(model: Transformer, state: Dict[str, torch.Tensor],
-                decode: DecodeConfig, steps: int, tables):
+                decode: DecodeConfig, steps: int, tables, *,
+                in_place: bool = False):
     """Advance every live slot ``steps`` times; returns (state, sampled
     [steps, S] int32).
 
@@ -494,23 +519,28 @@ def decode_step(model: Transformer, state: Dict[str, torch.Tensor],
     table-gathered view of the pool, and writes its new k/v through
     ``tables`` ([S, mb], host-owned).  Retired slots ride along with
     their writes on the scratch block and emit 0.  The pool is updated
-    in place; the returned state's scalars are new tensors.
+    in place; the returned state's scalars are new tensors, or, with
+    ``in_place``, the given state's own tensors, overwritten.  The
+    ``steps`` are unrolled, as JAX's ``scan`` runs them.
     """
     tables = _device_tables(tables, state["done"].device)
     park = tables.shape[1] * _pool_block_tokens(state["cache_k"])
+    out = state
     toks = []
     for _ in range(steps):
-        state, nxt = _advance_slots(model, decode, tables, park, state)
+        out, nxt = _advance_slots(model, decode, tables, park, out)
         toks.append(nxt)
-    return state, torch.stack(toks)
+    if in_place:
+        out = _assign(state, out)
+    return out, torch.stack(toks)
 
 
 class _DoneProbe:
-    """A lagged, non-blocking read of ``done.all()`` on CUDA: after each
-    step the flag is copied into pinned host memory behind an event; the
-    newest copy whose event has completed says whether every slot was
-    already done.  The host never waits for the device here.  On the CPU
-    the flag is read as it is computed."""
+    """A lagged, non-blocking read of the all-done flag on CUDA: after
+    each step the flag is copied into pinned host memory behind an
+    event; the newest copy whose event has completed says whether every
+    slot was already done.  The host never waits for the device here.
+    On the CPU the flag is read as it is computed."""
 
     def __init__(self, k: int, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -518,8 +548,8 @@ class _DoneProbe:
                                  pin_memory=self.cuda)
         self.events = []
 
-    def record(self, i: int, done: torch.Tensor) -> None:
-        self.flags[i].copy_(done.all(), non_blocking=True)
+    def record(self, i: int, all_done: torch.Tensor) -> None:
+        self.flags[i].copy_(all_done, non_blocking=True)
         event = None
         if self.cuda:
             event = torch.cuda.Event()
@@ -533,8 +563,44 @@ class _DoneProbe:
         return False
 
 
+def decode_round_step(model: Transformer, decode: DecodeConfig,
+                      tables: torch.Tensor, park: int,
+                      state: Dict[str, torch.Tensor], toks: torch.Tensor,
+                      step: torch.Tensor,
+                      steps_run: torch.Tensor) -> torch.Tensor:
+    """One guarded step of ``decode_rounds``, entirely in place: the
+    state's scalars, ``toks[:, step]``, ``steps_run`` and the 0-d int64
+    device step index ``step`` (then advanced by one).  Returns the
+    0-d all-done flag after the step.
+
+    A step run with every slot already done changes no state and writes
+    only the scratch block; its last tokens and keys are kept as they
+    were, as JAX's loop, which never runs it, leaves them."""
+    live = ~state["done"].all()
+    new, nxt = _advance_slots(model, decode, tables, park, state)
+    for name in ("last_token", "keys"):
+        new[name] = torch.where(live, new[name], state[name])
+    _assign(state, new)
+    toks.index_copy_(1, step.reshape(1), nxt[:, None])
+    steps_run.add_(live.to(torch.int32))
+    step.add_(1)
+    return state["done"].all()
+
+
+def run_round(step_fn, k: int, max_steps, device: torch.device) -> None:
+    """The host side of a fused round: issue ``step_fn`` (one guarded
+    step returning the all-done flag) up to ``min(max_steps, k)`` times,
+    and stop once a lagged read of the flag says every slot was done.
+    ``max_steps`` is a host int (a 0-d tensor is read once)."""
+    probe = _DoneProbe(k, device)
+    for i in range(min(int(max_steps), int(k))):
+        if probe.all_done():
+            break
+        probe.record(i, step_fn())
+
+
 def decode_rounds(model: Transformer, state: Dict[str, torch.Tensor],
-                  decode: DecodeConfig, k: int, tables, max_steps: int):
+                  decode: DecodeConfig, k: int, tables, max_steps):
     """Up to ``min(max_steps, k)`` decode steps in one call; returns
     ``(state, toks [S, k], counts [S], steps_run)`` with JAX's values:
 
@@ -544,36 +610,31 @@ def decode_rounds(model: Transformer, state: Dict[str, torch.Tensor],
     - ``steps_run``: 0-d int32, the steps in which some slot was live.
 
     JAX runs a ``while_loop`` that exits on the device when every slot
-    is done.  Here the host issues the steps; a step in which every slot
-    is already done changes no state, writes only the scratch block and
-    emits 0, so it leaves the outputs as JAX's.  The loop stops issuing
-    steps once a lagged non-blocking read of ``done.all()``
-    (``_DoneProbe``) says every slot was done.  ``max_steps`` is a host
-    int.  The step body is ``decode_step``'s, so greedy tokens equal k
-    single-step calls.
+    is done.  Here the host issues the steps (``run_round``); a step in
+    which every slot is already done changes no state, writes only the
+    scratch block and emits 0, so it leaves the outputs as JAX's.  The
+    loop stops issuing steps once a lagged non-blocking read of the
+    all-done flag says every slot was done.  Each step writes its
+    tokens at a device step index (``decode_round_step``), so one
+    captured step serves every step of every round.  The step body is
+    ``decode_step``'s, so greedy tokens equal k single-step calls.  The
+    pool is updated in place; the returned state's scalars are new
+    tensors (the engine's in-place round is ``decode_round_step``, see
+    serving/programs.py).
     """
     device = state["done"].device
     tables = _device_tables(tables, device)
     park = tables.shape[1] * _pool_block_tokens(state["cache_k"])
+    state = {name: value if name in ("cache_k", "cache_v")
+             else value.clone() for name, value in state.items()}
     slots = state["done"].shape[0]
-    len0 = state["lengths"]
-    cap = min(int(max_steps), int(k))
     toks = torch.zeros((slots, k), dtype=torch.int32, device=device)
     steps_run = torch.zeros((), dtype=torch.int32, device=device)
-    probe = _DoneProbe(k, device)
-    for i in range(cap):
-        if probe.all_done():
-            break
-        live = ~state["done"].all()
-        prev = state
-        state, nxt = _advance_slots(model, decode, tables, park, state)
-        # A step run with every slot done must leave what JAX's loop,
-        # which never runs it, leaves: last tokens and keys as they were.
-        for name in ("last_token", "keys"):
-            state[name] = torch.where(live, state[name], prev[name])
-        toks[:, i] = nxt
-        steps_run += live.to(torch.int32)
-        probe.record(i, state["done"])
+    step = torch.zeros((), dtype=torch.int64, device=device)
+    len0 = state["lengths"].clone()
+    run_round(lambda: decode_round_step(model, decode, tables, park, state,
+                                        toks, step, steps_run),
+              k, max_steps, device)
     counts = state["lengths"] - len0
     return state, toks, counts, steps_run
 
@@ -583,12 +644,14 @@ def prefill_chunk_into_slot(
     state: Dict[str, torch.Tensor],
     decode: DecodeConfig,
     tokens: torch.Tensor,
-    start: int,
-    prompt_len: int,
-    new_tokens: int,
-    slot: int,
-    seed: int,
+    start,
+    prompt_len,
+    new_tokens,
+    slot,
+    seed,
     table_row,
+    *,
+    in_place: bool = False,
 ):
     """Extend slot ``slot``'s KV by one static-width chunk of prompt at
     cache offset ``start``; returns (state, first sampled token [1]).
@@ -600,33 +663,40 @@ def prefill_chunk_into_slot(
     frontier ``start``, so earlier chunks' (or an aliased shared
     prefix's) k/v take part as if the prompt had prefilled in one call.
     Positions past the table's real pages land on the scratch block.
-    The scalars (start, prompt_len, new_tokens, slot, seed) are host
-    ints, as the engine knows them.
 
-    On the final chunk (start + w >= prompt_len) the program samples the
-    request's first token from the last real prompt position and arms
-    the slot's scalars (lengths, stop_len, last_token, done, keys);
-    other chunks leave them.  Either way ``done[slot]`` is set True
-    first: a slot freed mid-generation (deadline expiry) still has
-    ``done`` False on the device, and without this freeze an
-    interleaved decode step would advance the dead occupant and write
-    through the new request's table.
+    The scalars (start, prompt_len, new_tokens, slot, seed) are JAX's
+    traced operands: 0-d int tensors on the state's device (views of a
+    caller's buffer, which a CUDA graph reads at replay), or host ints,
+    copied up.  Everything that depends on them is computed on the
+    device, so the body is the same program for every call.
+
+    On the final chunk (start + w >= prompt_len, decided on the device)
+    the program samples the request's first token from the last real
+    prompt position and arms the slot's scalars (lengths, stop_len,
+    last_token, done, keys) by selects against ``final_slot``, which is
+    out of range on other chunks, as JAX's dropped writes are.  Either
+    way ``done[slot]`` is set True first: a slot freed mid-generation
+    (deadline expiry) still has ``done`` False on the device, and
+    without this freeze an interleaved decode step would advance the
+    dead occupant and write through the new request's table.  The pool
+    is updated in place; the slot scalars are new tensors, or, with
+    ``in_place``, written into the state's own.
     """
     slots_n = state["done"].shape[0]
     device = state["done"].device
     w = tokens.shape[1]
-    start, prompt_len = int(start), int(prompt_len)
-    new_tokens, slot, seed = int(new_tokens), int(slot), int(seed)
+    start, prompt_len, new_tokens, slot, seed = (
+        _scalar(v, device) for v in (start, prompt_len, new_tokens, slot,
+                                     seed))
     table_row = _device_tables(table_row, device)
     logits = _forward_with_cache(
         model, tokens.to(device).long(),
         (state["cache_k"], state["cache_v"]), start, tables=table_row)
     # First-token sampling from the last REAL prompt position of this
     # chunk (only meaningful on the final chunk; clamped otherwise).
-    idx = min(max(prompt_len - 1 - start, 0), w - 1)
-    last = logits[:, idx]                                    # [1, V]
-    # The request's (seed, step) counter; built by selects, since an
-    # indexed store of a host scalar would copy it to the device and wait.
+    idx = (prompt_len - 1 - start).clamp(0, w - 1)
+    last = logits.index_select(1, idx.reshape(1))[:, 0]      # [1, V]
+    # The request's (seed, step) counter, built by selects.
     first = torch.arange(2, device=device) == 0
     if decode.temperature <= 0.0:
         tok = torch.argmax(last, dim=-1)
@@ -634,21 +704,27 @@ def prefill_chunk_into_slot(
         tok = _sample_slots(decode, last, torch.where(first, seed, 0)[None])
     tok = tok.to(torch.int32)
 
-    sel = torch.arange(slots_n, device=device) == slot
-    state = dict(state)
-    state["adapter_ids"] = torch.where(sel, 0, state["adapter_ids"])
-    done = torch.where(sel, True, state["done"])
-    if start + w >= prompt_len:
-        done_final = torch.full((), new_tokens <= 1, device=device)
-        if decode.eos_token >= 0:
-            done_final = done_final | (tok[0] == decode.eos_token)
-        stop = prompt_len + max(new_tokens, 1) - 1
-        done = torch.where(sel, done_final, done)
-        state["lengths"] = torch.where(sel, prompt_len, state["lengths"])
-        state["stop_len"] = torch.where(sel, stop, state["stop_len"])
-        state["last_token"] = torch.where(sel, tok[0], state["last_token"])
-        state["keys"] = torch.where(sel[:, None],
-                                    torch.where(first, seed, 1)[None],
-                                    state["keys"])
-    state["done"] = done
-    return state, tok
+    ids = torch.arange(slots_n, device=device)
+    sel = ids == slot
+    is_last = start + w >= prompt_len
+    final = ids == torch.where(is_last, slot, slots_n)  # none mid-prefill
+    stop = prompt_len + new_tokens.clamp(min=1) - 1
+    done_final = new_tokens <= 1
+    if decode.eos_token >= 0:
+        done_final = done_final | (tok[0] == decode.eos_token)
+    new = {
+        "adapter_ids": torch.where(sel, 0, state["adapter_ids"]),
+        "done": torch.where(final, done_final,
+                            torch.where(sel, True, state["done"])),
+        "lengths": torch.where(final, prompt_len.to(torch.int32),
+                               state["lengths"]),
+        "stop_len": torch.where(final, stop.to(torch.int32),
+                                state["stop_len"]),
+        "last_token": torch.where(final, tok[0], state["last_token"]),
+        "keys": torch.where(final[:, None],
+                            torch.where(first, seed, 1)[None],
+                            state["keys"]),
+    }
+    if in_place:
+        return _assign(state, new), tok
+    return dict(state, **new), tok

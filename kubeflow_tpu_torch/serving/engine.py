@@ -37,9 +37,15 @@ rounds).  No program reads a device value on the host.  The loop thread
 runs under ``torch.inference_mode()``, which is per thread.
 
 Where the JAX engine lowers and compiles its programs ahead of time,
-this one calls the functions of models/generate.py directly;
-``compiled_programs()`` counts each program as built at its first call,
-so it reports what the JAX engine reports under the same flags.
+this one builds them once (serving/programs.py): on CUDA each program
+is captured as a CUDA graph on the loop thread before the first
+admission, and each call is an upload of its tokens and scalars into
+fixed device buffers and one replay.  A capture that fails raises from
+the constructor; nothing falls back to eager ops unless the caller
+passes ``cuda_graphs=False``.  On the CPU the same program objects run
+eagerly.  ``compiled_programs()`` counts each program once the engine
+has run it, so it reports what the JAX engine reports under the same
+flags.
 
 Not ported yet, each refused with ``NotPortedError`` naming its ROADMAP
 queue 1 item: speculative decoding (item 1), the disaggregated KV
@@ -55,6 +61,7 @@ ModelServer.enable_batching wires it behind the REST surface unchanged.
 from __future__ import annotations
 
 import contextlib
+import logging
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -64,6 +71,7 @@ import torch
 
 from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.runtime import tracing
+from kubeflow_tpu_torch.serving import programs
 from kubeflow_tpu_torch.serving.errors import (
     BatcherClosed,
     DeadlineExceeded,
@@ -78,6 +86,8 @@ from kubeflow_tpu_torch.serving.model_server import (
 )
 from kubeflow_tpu_torch.serving.prefix_cache import BlockManager
 from kubeflow_tpu_torch.testing import faults
+
+log = logging.getLogger(__name__)
 
 # Step-duration histogram buckets: decode steps run ~0.1 ms (tiny CPU
 # models) to ~100 ms.
@@ -141,13 +151,14 @@ def _not_ported(what: str, item: int) -> NotPortedError:
 class _Readback:
     """Program results on their way to the host without blocking the
     loop: on CUDA, pinned buffers filled by non-blocking copies behind
-    one event, waited on only when the results are read; on the CPU the
-    results already are host tensors."""
+    one event, waited on only when the results are read; on the CPU,
+    copies.  Either way the copies are taken at once, so the program's
+    next call may overwrite its output buffers."""
 
     def __init__(self, *tensors: torch.Tensor):
         self.event = None
         if tensors[0].device.type != "cuda":
-            self.host = list(tensors)
+            self.host = [t.clone() for t in tensors]
             return
         self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                      for t in tensors]
@@ -201,6 +212,10 @@ class DecodeEngine:
       speculative_tokens, host_spill_blocks, mesh, partition_rules,
         adapters: the JAX engine's options that are not ported yet; any
         value but their off value raises ``NotPortedError``.
+      cuda_graphs: None (the default) captures the programs as CUDA
+        graphs on a CUDA device and runs them eagerly on the CPU; False
+        runs them eagerly on CUDA too (a comparison baseline); True on
+        the CPU raises.
     """
 
     def __init__(
@@ -227,6 +242,7 @@ class DecodeEngine:
         partition_rules=None,
         adapters=None,
         name: str = "engine",
+        cuda_graphs: Optional[bool] = None,
     ):
         from kubeflow_tpu_torch.models.generate import init_paged_state
         from kubeflow_tpu_torch.runtime.prom import REGISTRY
@@ -297,6 +313,29 @@ class DecodeEngine:
             self._tables.shape, self.kv_pool_blocks, dtype=torch.int64,
             device=self.device)
         self._tables_dirty = False
+        # The engine's programs over the state, the device tables and
+        # their own buffers, all of which keep their storage for the
+        # engine's life; the fused-round program replaces the step
+        # program when decode_rounds > 1, as in JAX.
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        self.cuda_graphs = bool(cuda_graphs)
+        self._chunk_prog = programs.ChunkedPrefill(
+            model, decode, self._state, self._tables_dev, self.chunk_w,
+            graphs=self.cuda_graphs)
+        if self.decode_rounds > 1:
+            self._decode_prog = programs.Rounds(
+                model, decode, self._state, self._tables_dev,
+                self.decode_rounds, graphs=self.cuda_graphs)
+        else:
+            self._decode_prog = programs.Step(
+                model, decode, self._state, self._tables_dev,
+                self.steps_per_call, graphs=self.cuda_graphs)
+        # Capture time and graph-pool bytes, set once the loop thread has
+        # captured the programs (None when they run eagerly).
+        self.capture_info: Optional[Dict[str, Any]] = None
+        self._ready = threading.Event()
+        self._capture_error: Optional[BaseException] = None
         # Paged-KV bookkeeping: physical refcounts, admission
         # reservations and the block-hashed prefix index.  Mutated by the
         # loop thread ONLY, always under self._lock (submit reads
@@ -397,6 +436,14 @@ class DecodeEngine:
         self._thread = threading.Thread(
             target=self._run, daemon=True, name=f"decode-engine-{name}")
         self._thread.start()
+        # The programs are captured on the loop thread before it admits
+        # anything; no request can reach the engine before this returns.
+        self._ready.wait()
+        if self._capture_error is not None:
+            self._thread.join(timeout=5.0)
+            raise RuntimeError(
+                f"engine {name!r}: CUDA graph capture of its programs "
+                f"failed: {self._capture_error!r}") from self._capture_error
 
     # -- client surface ---------------------------------------------------
 
@@ -605,9 +652,9 @@ class DecodeEngine:
     def compiled_programs(self) -> Dict[str, int]:
         """Which programs this engine has run, in the JAX engine's terms
         (it counts AOT-compiled executables; this port counts a program
-        as built at its first call): {"chunked_prefill", "step",
-        "verify"}, plus ``decode_rounds`` once the fused program ran.
-        ``verify`` stays 0: speculation is not ported."""
+        once the engine has run it, captured or not): {"chunked_prefill",
+        "step", "verify"}, plus ``decode_rounds`` once the fused program
+        ran.  ``verify`` stays 0: speculation is not ported."""
         out = {"chunked_prefill": int(self._chunk_built),
                "step": int(self._step_built),
                "verify": 0}
@@ -726,6 +773,11 @@ class DecodeEngine:
                     + max(0.0, drain_s)
                 self._work.notify_all()
         self._thread.join(timeout=max(5.0, drain_s + 5.0))
+        if not self._thread.is_alive():
+            # A hot swap builds a new engine: this one's graphs and
+            # their pool go now, not when the object is collected.
+            self._chunk_prog.release()
+            self._decode_prog.release()
         # The prefix index dies with the engine (reload invalidation:
         # the serving layer rebuilds engine + pool per model version).
         with self._lock:
@@ -892,13 +944,6 @@ class DecodeEngine:
             self._kv_used_last = used
             self._kv_used_gauge.set(used, engine=self._metric_name)
 
-    def _pinned(self, array: np.ndarray) -> torch.Tensor:
-        """A host array in pinned memory on CUDA (as it is on the CPU),
-        ready for a non-blocking upload; the caching host allocator keeps
-        the pinned block until the copy has run."""
-        host = torch.from_numpy(array)
-        return host.pin_memory() if self.device.type == "cuda" else host
-
     def _refresh_tables_dev(self) -> None:
         """Upload the host block tables to their device copy, only when
         a host edit marked them dirty.  The copy is ordered on the
@@ -909,7 +954,7 @@ class DecodeEngine:
                 return
             self._tables_dirty = False
             tables = self._tables.astype(np.int64)
-        self._tables_dev.copy_(self._pinned(tables), non_blocking=True)
+        programs.upload(self._tables_dev, tables)
 
     def _begin_prefill(self, entry: dict, slot: int) -> None:
         """Admission, host side.  The admission plan already aliased the
@@ -952,10 +997,6 @@ class DecodeEngine:
         """One static-width chunk of one entry's prompt into its slot
         (dispatch only: the final chunk's first sampled token joins the
         lagged pending stream)."""
-        from kubeflow_tpu_torch.models.generate import (
-            prefill_chunk_into_slot,
-        )
-
         w = self.chunk_w
         prompt = entry["tokens"][0]
         true_len = int(prompt.shape[0])
@@ -964,26 +1005,21 @@ class DecodeEngine:
         # those positions sit on the table sentinel and land on the
         # scratch block, beyond every frontier the slot can reach.
         start = entry["pos"]
-        chunk = np.zeros((1, w), np.int64)
-        seg = prompt[start:start + w]
-        chunk[0, :seg.shape[0]] = seg
         self._ensure_cover(entry, start + w - 1)
         self._refresh_tables_dev()
-        slot = entry["slot"]
+        finished = start + w >= true_len
         t0 = time.perf_counter()
-        self._state, tok = prefill_chunk_into_slot(
-            self.model, self._state, self.decode,
-            self._pinned(chunk).to(self.device, non_blocking=True),
-            start, true_len, entry["new"], slot, entry["seed"],
-            self._tables_dev[slot:slot + 1])
+        tok = self._chunk_prog.run(
+            prompt[start:start + w], start, true_len, entry["new"],
+            entry["slot"], entry["seed"])
+        readback = _Readback(tok) if finished else None
         dt = time.perf_counter() - t0
         self._chunk_built = True
         entry["pos"] = start + w
-        finished = entry["pos"] >= true_len
         if finished:
             entry["prefilling"] = False
             entry["scheduled"] = 1
-            self._pending.append((_Readback(tok), [(0, entry)], False))
+            self._pending.append((readback, [(0, entry)], False))
             if self.prefix_caching:
                 # Publication is free: the full-block prefix pages this
                 # prefill just wrote ARE the cache entry.
@@ -1155,8 +1191,6 @@ class DecodeEngine:
         round boundary: admissions and expiries join between rounds.
         Greedy tokens equal the k=1 loop's: the device math is
         ``decode_step``'s body, and slots are independent rows."""
-        from kubeflow_tpu_torch.models.generate import decode_rounds
-
         kmax = self.decode_rounds
         width = self._round_width()
         snapshot = [(i, r) for i, r in enumerate(self._slot_req)
@@ -1171,11 +1205,8 @@ class DecodeEngine:
         faults.fire("engine.step")
         tok_before = self._counters["tokens"]
         t0 = time.perf_counter()
-        self._state, toks, counts, steps_run = decode_rounds(
-            self.model, self._state, self.decode, kmax, self._tables_dev,
-            width)
+        readback = _Readback(*self._decode_prog.run(width))
         self._rounds_built = True
-        readback = _Readback(toks, counts, steps_run)
         # ---- overlap window: everything until the readback below runs
         # while the device computes.
         # Deterministic retirement at dispatch: with no EOS a slot whose
@@ -1219,8 +1250,6 @@ class DecodeEngine:
     def _step(self, live: int) -> None:
         """One ``decode_step`` call of ``steps_per_call`` steps, read
         back ``sync_lag`` calls later."""
-        from kubeflow_tpu_torch.models.generate import decode_step
-
         k = self.steps_per_call
         # Cover every advancing slot's next k write positions with pages
         # from its admission reservation BEFORE dispatch.
@@ -1234,10 +1263,9 @@ class DecodeEngine:
         # mid-generation); raise = device death.
         faults.fire("engine.step")
         t0 = time.perf_counter()
-        self._state, sampled = decode_step(
-            self.model, self._state, self.decode, k, self._tables_dev)
+        readback = _Readback(self._decode_prog.run())
         self._step_built = True
-        self._pending.append((_Readback(sampled), [
+        self._pending.append((readback, [
             (i, r) for i, r in enumerate(self._slot_req)
             if r is not None and not r["prefilling"]], False))
         # Deterministic retirement: with no EOS in play a request's
@@ -1260,10 +1288,46 @@ class DecodeEngine:
             if self.device.type == "cuda" else contextlib.nullcontext()
         try:
             with torch.inference_mode(), device_ctx:
+                try:
+                    self._capture()
+                except BaseException as exc:
+                    self._capture_error = exc
+                    raise
+                finally:
+                    self._ready.set()
                 while self._loop_once():
                     pass
         except BaseException as exc:  # noqa: BLE001 -- fail loudly to waiters
             self._abort(exc)
+
+    def _capture(self) -> None:
+        """Capture the engine's programs as CUDA graphs in one shared
+        memory pool, on the fresh state, before the first admission (the
+        constructor waits for this).  Its time falls outside every timed
+        window, as the JAX engine compiles outside them."""
+        if not self.cuda_graphs:
+            return
+        t0 = time.perf_counter()
+        pool = torch.cuda.graph_pool_handle()
+        progs = (self._chunk_prog, self._decode_prog)
+        for prog in progs:
+            prog.capture(pool)
+        torch.cuda.synchronize(self.device)
+        self.capture_info = {
+            "seconds": time.perf_counter() - t0,
+            "programs": [type(p).__name__ for p in progs],
+            # The graphs' private pool: its segments stay reserved for
+            # the graphs' life, so their size is the pool's peak.
+            "pool_bytes": sum(
+                seg["total_size"]
+                for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", ())) == tuple(pool)),
+        }
+        log.info("engine %r captured %s as CUDA graphs in %.3f s "
+                 "(graph pool %d bytes)", self._metric_name,
+                 self.capture_info["programs"],
+                 self.capture_info["seconds"],
+                 self.capture_info["pool_bytes"])
 
     def _loop_once(self) -> bool:
         """One turn of the loop: sweep, admit, prefill under the chunk

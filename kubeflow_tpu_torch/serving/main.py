@@ -178,11 +178,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="serve lm_generate models through the static "
                          "BucketedLMBatcher instead of the default "
                          "continuous-batching DecodeEngine; on an H100 "
-                         "the static batcher served chip_smoke.py's "
-                         "eight-request 188M LM burst 3-4x faster "
-                         "(PERF.md section 5), until the engine's step "
-                         "programs are captured as CUDA graphs (ROADMAP "
-                         "queue 1 item 8)")
+                         "the engine, its programs captured as CUDA "
+                         "graphs, served chip_smoke.py's eight-request "
+                         "188M LM burst 1.70-3.54x faster than the "
+                         "static batcher in two runs (PERF.md section 5)")
     ap.add_argument("--lm_engine_slots", type=int, default=8,
                     help="DecodeEngine concurrent sequences")
     ap.add_argument("--lm_engine_prefill_len", type=int, default=0,

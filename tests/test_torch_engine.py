@@ -457,7 +457,7 @@ def test_abort_resolves_retired_requests(spec, monkeypatch):
 
 def test_loop_thread_runs_programs_in_inference_mode(spec, monkeypatch):
     seen = []
-    for name in ("prefill_chunk_into_slot", "decode_rounds"):
+    for name in ("prefill_chunk_into_slot", "decode_round_step"):
         real = getattr(pgen, name)
 
         def wrapped(*args, _real=real, **kwargs):

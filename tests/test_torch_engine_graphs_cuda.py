@@ -1,0 +1,289 @@
+"""The decode engine's programs captured as CUDA graphs, on an NVIDIA GPU.
+
+Imports neither JAX nor the JAX package, so it runs on a machine that has
+only PyTorch and the CUDA toolkit:
+
+    python -m pytest -m cuda --noconftest tests/test_torch_engine_graphs_cuda.py
+
+Elsewhere every test skips.  A small float32 model with TF32 off.  Each
+program is captured on a fresh state with one set of scalars, then
+replayed with three others (other slots, starts, seeds and prompt
+lengths; final and non-final chunks; round widths 1, 3 and 8; EOS inside
+a round); each replay must equal the same program run eagerly on a twin
+state: integer state and tokens equal, pool and logits within 1e-6.  An
+engine with graphs must give ``generate()``'s greedy tokens, and a
+capture forced to fail must raise from the engine's constructor.
+"""
+
+import dataclasses
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from kubeflow_tpu_torch.models import generate as pgen
+from kubeflow_tpu_torch.models.transformer import Transformer, TransformerConfig
+from kubeflow_tpu_torch.serving import programs
+from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+VOCAB = 512
+SMALL = dict(vocab_size=VOCAB, d_model=64, n_layers=2, n_heads=4,
+             n_kv_heads=2, d_ff=128, head_dim=16, max_seq_len=128)
+SLOTS, NB, BT, MB, W, K = 3, 24, 4, 8, 8, 8
+TOL = dict(atol=1e-6, rtol=1e-6)
+INTS = ("lengths", "stop_len", "last_token", "done", "keys", "adapter_ids")
+WAIT_S = 120
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.fixture
+def model(cuda_device):
+    cfg = TransformerConfig(dtype=torch.float32, attention="dot", **SMALL)
+    return Transformer(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(9)
+                       ).to(cuda_device)
+
+
+def _prompt(n, seed):
+    return np.random.default_rng(seed).integers(1, VOCAB, n)
+
+
+def _fresh_pairs(model):
+    """Two fresh (state, tables): the captured side's and the eager
+    side's."""
+    return [(pgen.init_paged_state(model.cfg, SLOTS, NB, BT, device="cuda"),
+             torch.full((SLOTS, MB), NB, dtype=torch.int64, device="cuda"))
+            for _ in range(2)]
+
+
+def _cover(pairs, slot, blocks):
+    for _, tables in pairs:
+        tables[slot] = NB
+        tables[slot, :len(blocks)] = torch.tensor(blocks)
+
+
+def _logits(model, state, tables):
+    """The paged forward of every slot's last token, on a copy of the
+    pools."""
+    scratch = pgen.init_paged_state(model.cfg, SLOTS, NB, BT, device="cuda")
+    for name in ("cache_k", "cache_v"):
+        scratch[name].copy_(state[name])
+    with torch.inference_mode():
+        return pgen._forward_with_cache(
+            model, state["last_token"].long()[:, None],
+            (scratch["cache_k"], scratch["cache_v"]), state["lengths"],
+            tables=tables)
+
+
+def _check(model, pairs):
+    (got, got_tables), (want, want_tables) = pairs
+    torch.cuda.synchronize()
+    for name in INTS:
+        assert torch.equal(got[name], want[name]), name
+    for name in ("cache_k", "cache_v"):
+        torch.testing.assert_close(got[name], want[name], **TOL)
+    torch.testing.assert_close(_logits(model, got, got_tables),
+                               _logits(model, want, want_tables), **TOL)
+
+
+class Twin:
+    """One program per (state, tables) pair, fed the same calls: the
+    first captured (when ``graphs``), the second eager."""
+
+    def __init__(self, model, pairs, make, graphs=True):
+        self.model = model
+        self.pairs = pairs
+        self.progs = [make(state, tables, g) for (state, tables), g
+                      in zip(pairs, (graphs, False))]
+
+    def capture(self):
+        with torch.inference_mode():
+            self.progs[0].capture(torch.cuda.graph_pool_handle())
+        assert self.progs[0].graph is not None
+        _check(self.model, self.pairs)
+
+    def call(self, *args):
+        """Both programs on the same arguments; their outputs must be
+        equal, then their states."""
+        outs = []
+        with torch.inference_mode():
+            for prog in self.progs:
+                out = prog.run(*args)
+                out = out if isinstance(out, tuple) else (out,)
+                outs.append([t.clone() for t in out])
+        for got, want in zip(*outs):
+            assert torch.equal(got, want)
+        _check(self.model, self.pairs)
+        return outs[0]
+
+    def prefill(self, slot, n, new, seed):
+        prompt = _prompt(n, seed)
+        for start in range(0, n, W):
+            self.call(prompt[start:start + W], start, n, new, slot, seed)
+
+
+def _chunk(model, decode):
+    return lambda state, tables, graphs: programs.ChunkedPrefill(
+        model, decode, state, tables, W, graphs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["greedy", "sampled"])
+def test_prefill_replays_other_scalars(cuda_device, model, sampling):
+    decode = pgen.DecodeConfig(max_new_tokens=8)
+    if sampling == "sampled":
+        decode = dataclasses.replace(decode, temperature=1.0, top_k=40)
+    twin = Twin(model, _fresh_pairs(model), _chunk(model, decode))
+    # Captured with (start 0, prompt_len 5, new_tokens 3, slot 0, seed 4).
+    twin.progs[0].inputs[W:] = torch.tensor([0, 5, 3, 0, 4])
+    twin.capture()
+    state = twin.pairs[0][0]
+    # Replayed with others: a non-final, then a final chunk of slot 1.
+    _cover(twin.pairs, 1, [5, 9, 2, 7])
+    prompt = _prompt(13, 1)
+    twin.call(prompt[:W], 0, 13, 6, 1, 21)
+    assert bool(state["done"][1]) and int(state["lengths"][1]) == 0
+    twin.call(prompt[W:], W, 13, 6, 1, 21)
+    assert not bool(state["done"][1]) and int(state["lengths"][1]) == 13
+    assert state["keys"][1].tolist() == [21, 1]
+    # A one-chunk prompt of slot 2 with a budget of one token.
+    _cover(twin.pairs, 2, [0, 1, 3])
+    twin.prefill(2, 7, 1, 33)
+    assert bool(state["done"][2]) and int(state["stop_len"][2]) == 7
+    # Slot 1 reused by another request.
+    _cover(twin.pairs, 1, [10, 11, 12, 13])
+    twin.prefill(1, 11, 5, 8)
+    assert state["keys"][1].tolist() == [8, 1]
+
+
+def _admit_two(model, decode, pairs):
+    """Slots 0 and 2 live, prefilled by eager programs on both sides."""
+    chunk = Twin(model, pairs, _chunk(model, decode), graphs=False)
+    _cover(pairs, 0, [0, 1, 2, 3, 4, 5])
+    chunk.prefill(0, 9, 16, 2)
+    _cover(pairs, 2, [6, 7, 8, 9, 10, 11])
+    chunk.prefill(2, 4, 5, 3)
+
+
+def _rounds(model, decode):
+    return lambda state, tables, graphs: programs.Rounds(
+        model, decode, state, tables, K, graphs)
+
+
+WIDTHS = (1, 3, 8)
+
+
+def _eos_inside_a_round(model, decode):
+    """(token, round, step): a token that a slot first emits at a step
+    after the first of a round, and that no slot emitted before."""
+    pairs = _fresh_pairs(model)
+    twin = Twin(model, pairs, _rounds(model, decode), graphs=False)
+    _admit_two(model, decode, pairs)
+    seen = set(pairs[0][0]["last_token"].tolist())
+    for r, width in enumerate(WIDTHS):
+        toks, _, _ = twin.call(width)
+        for j in range(width):
+            for s in (0, 2):
+                tok = int(toks[s, j])
+                if j and tok not in seen:
+                    return tok, r, j
+            seen.update(toks[:, j].tolist())
+    raise AssertionError("no token to end a round with")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eos", [False, True])
+def test_rounds_replay_widths_and_eos(cuda_device, model, eos):
+    decode = pgen.DecodeConfig(max_new_tokens=16)
+    if eos:
+        tok, r, j = _eos_inside_a_round(model, decode)
+        decode = dataclasses.replace(decode, eos_token=tok)
+    pairs = _fresh_pairs(model)
+    twin = Twin(model, pairs, _rounds(model, decode))
+    twin.capture()                     # every slot done
+    _admit_two(model, decode, pairs)
+    results = [twin.call(width) for width in WIDTHS]
+    if eos:
+        toks, counts, _ = results[r]
+        assert any(int(counts[s]) == j + 1 and int(toks[s, j]) == tok
+                   for s in (0, 2))
+    else:
+        assert [int(steps) for _, _, steps in results] == [1, 3, 8]
+
+
+@pytest.mark.cuda
+def test_step_replays(cuda_device, model):
+    decode = pgen.DecodeConfig(max_new_tokens=16)
+    pairs = _fresh_pairs(model)
+    twin = Twin(model, pairs, lambda state, tables, graphs: programs.Step(
+        model, decode, state, tables, 2, graphs))
+    twin.capture()
+    _admit_two(model, decode, pairs)
+    for _ in range(3):
+        twin.call()
+
+
+def _serve(engine, prompts):
+    outs = [None] * len(prompts)
+
+    def client(i):
+        outs[i] = engine.submit(
+            {"tokens": np.asarray(prompts[i], np.int32)})["tokens"]
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=WAIT_S)
+    assert not any(t.is_alive() for t in threads), "a client hung"
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decode_rounds", [1, 8])
+def test_engine_with_graphs_matches_generate(cuda_device, model,
+                                             decode_rounds):
+    decode = pgen.DecodeConfig(max_new_tokens=12)
+    prompts = [_prompt(n, 50 + n).tolist() for n in (5, 17, 30, 9, 24)]
+    engine = DecodeEngine(model, decode, slots=3, prefill_len=32,
+                          prefill_chunk_tokens=8, kv_block_tokens=4,
+                          decode_rounds=decode_rounds, name="graphs-test")
+    try:
+        assert engine.cuda_graphs and engine.capture_info["seconds"] > 0
+        outs = _serve(engine, prompts)
+        want_programs = {"chunked_prefill": 1, "verify": 0}
+        want_programs.update({"step": 1} if decode_rounds == 1
+                             else {"step": 0, "decode_rounds": 1})
+        assert engine.compiled_programs() == want_programs
+    finally:
+        engine.close()
+    assert engine._decode_prog.graph is None       # freed at close
+    for prompt, out in zip(prompts, outs):
+        want, _ = pgen.generate(model, torch.tensor([prompt]), decode)
+        assert np.asarray(out)[0].tolist() == want[0].tolist()
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_from_the_engine(cuda_device, model,
+                                               monkeypatch):
+    def fails(self, pool):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(programs._Program, "capture", fails)
+    with pytest.raises(RuntimeError, match="CUDA graph capture"):
+        DecodeEngine(model, pgen.DecodeConfig(max_new_tokens=4), slots=1,
+                     prefill_len=16, name="fails")

@@ -6,7 +6,10 @@ through both packages' ``init_paged_state``, ``prefill_chunk_into_slot``,
 ``[:, :nb]`` and the logits agree within 1e-5; lengths, stop lengths,
 last tokens, done flags, sampled tokens, ``counts`` and ``steps_run`` are
 equal.  The port's ``keys`` are its own (seed, step) counters, so they
-are held to their own contract, not to JAX's threefry keys."""
+are held to their own contract, not to JAX's threefry keys.  The prefill
+and rounds cases run with the scalars as host ints, and again
+(``test_tensor_scalars``) as 0-d tensors, JAX's traced operands, with
+which every decision (a final chunk or not) is made on the device."""
 
 import jax
 import jax.numpy as jnp
@@ -47,7 +50,12 @@ def models():
 
 
 class Pair:
-    """One JAX state and one port state, stepped side by side."""
+    """One JAX state and one port state, stepped side by side.  The
+    port's scalars (prefill's start, prompt_len, new_tokens, slot and
+    seed; the rounds' max_steps) go in as host ints, or as 0-d int64
+    tensors when ``scalars`` is "tensor"."""
+
+    scalars = "int"
 
     def __init__(self, models, decode=None, **decode_kw):
         self.jcfg, self.tree, self.model = models
@@ -68,10 +76,11 @@ class Pair:
             self.jcfg, self.tree, self.js, self.jdecode, jnp.asarray(chunk),
             np.int32(start), np.int32(len(prompt)), np.int32(new),
             np.int32(slot), np.int32(seed), jnp.asarray(row))
+        args = self._scalars(start, len(prompt), new, slot, seed)
         with torch.inference_mode():
             self.ps, ptok = pgen.prefill_chunk_into_slot(
                 self.model, self.ps, self.decode, torch.from_numpy(chunk),
-                start, len(prompt), new, slot, seed, torch.from_numpy(row))
+                *args, torch.from_numpy(row))
         return np.asarray(jtok), ptok.numpy()
 
     def step(self, steps):
@@ -91,9 +100,14 @@ class Pair:
         with torch.inference_mode():
             self.ps, pt, pc, pn = pgen.decode_rounds(
                 self.model, self.ps, self.decode, k,
-                torch.from_numpy(self.tables), max_steps)
+                torch.from_numpy(self.tables), *self._scalars(max_steps))
         return ((np.asarray(jt), np.asarray(jc), int(jn)),
                 (pt.numpy(), pc.numpy(), int(pn)))
+
+    def _scalars(self, *values):
+        if self.scalars == "int":
+            return values
+        return [torch.tensor(v, dtype=torch.int64) for v in values]
 
     def check(self, scalars=True):
         for name in ("cache_k", "cache_v"):
@@ -262,6 +276,18 @@ def test_decode_rounds_eos_inside_round(models):
     pair.check()
     assert pc[slot] == j + 1 and pt[slot, j] == eos
     assert not pt[slot, j + 1:].any()
+
+
+@pytest.mark.parametrize("case", [
+    test_prefill_chunks_resume_and_aliased_prefix,
+    test_sentinel_and_overhang_writes_leave_the_pool,
+    test_decode_rounds_k8_and_max_steps_below_k,
+    test_decode_rounds_eos_inside_round,
+], ids=lambda case: case.__name__[len("test_"):])
+def test_tensor_scalars(models, case, monkeypatch):
+    """The prefill and rounds cases above with 0-d tensor scalars."""
+    monkeypatch.setattr(Pair, "scalars", "tensor")
+    case(models)
 
 
 def test_sampled_slots_repeat_alone_or_co_batched(models):
