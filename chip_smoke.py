@@ -91,10 +91,31 @@ Phases, each fatal on failure (exit code 1, no result line):
      shards written by the port and verified checkpoints every 2 steps:
      the saved steps verify, a rerun resumes after the last one, a
      truncated newest step is walked back over; one save and one
-     restore timed.
+     restore timed;
+ 11. CNN serve: a seeded ResNet-50 (224 x 224) and Inception-v3 (299 x
+     299), 1000 classes, every leaf drawn from numpy, exported under the
+     JAX loader name and served by the port's REST server with
+     --micro_batch_size 8 (the classifier loader, the MicroBatcher): a
+     concurrent burst of 16 :predict requests per model (uint8 pixel
+     lists and float32 lists in turns), one :predict and one :classify
+     of one image alone, one direct 8-row request.  Every reply's scores
+     sum to 1 within 1e-3 with the top k their sorted head; :classify
+     gives :predict's top k; each served row equals the loader's own
+     predict on the same image at a batch size the batcher served; the
+     bf16 logits are within 5e-2 (relative Frobenius) of a float32 run
+     of the same weights; no flash kernel launches.  Information only:
+     requests/s, latency p50/p99, the batch-size histogram, and one
+     batch of 8 under torch.profiler (busy share, top kernels);
+ 12. CNN train: tools/train_cnn.run on bench.py's ResNet-50 cell (batch
+     256 x 224 x 224, bf16, sgd 0.1 with momentum 0.9, synthetic data)
+     for 4 steps with checkpoints every 2: losses finite, the saved
+     steps verify; Trainer.fit for 30 steps on one repeated batch of 32
+     must bring the mean loss of the last 5 below the first; no flash
+     kernel launches.  Information only: the step on a batch staged on
+     the card (time, images/s, MFU, peak memory) and one profiled step.
 
-The line before the last is a JSON object {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}.
+The phases' times are printed.  The line before the last is a JSON
+object {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -187,6 +208,28 @@ TWO_PASS_KERNELS = ("flash_fwd_full", "flash_fwd_diag", "flash_dq",
 # every CKPT_EVERY steps, over KFTR shards of CKPT_EXAMPLES examples.
 CKPT_EVERY, CKPT_EXAMPLES, CKPT_SHARDS = 2, 64, 4
 LEARN_STEPS, LEARN_BATCH, LEARN_VOCAB = 20, 2, 512
+# Phases 11-12: the CNN family.  Phase 11 serves these exports through the
+# classifier loader and the MicroBatcher; each model's name, its loader
+# config and its image size (the canonical input of each).
+CNN_SERVED = {
+    "resnet": ({"family": "resnet50", "num_classes": 1000, "top_k": 5}, 224),
+    "inception": ({"family": "inception_v3", "num_classes": 1000,
+                   "top_k": 5}, 299),
+}
+CNN_LOADER = "kubeflow_tpu.serving.loaders:classifier"
+CNN_MICRO_BATCH, CNN_BURST, CNN_DIRECT_ROWS = 8, 16, 8
+# bf16 logits against a float32 run of the same weights (TF32 off): the
+# relative Frobenius error bound.
+CNN_LOGITS_REL_TOL = 5e-2
+# bench.py's ResNet-50 cell (bench_resnet): 224 x 224, batch 256 a chip,
+# bf16, optax.sgd(0.1, momentum=0.9); the flags of the port's entry point.
+CNN_TRAIN_BATCH = 256
+CNN_TRAIN_FLAGS = [
+    "--model", "resnet50", "--image-size", "224", "--num-classes", "1000",
+    "--batch-size-per-device", str(CNN_TRAIN_BATCH), "--dtype", "bfloat16",
+    "--learning-rate", "0.1", "--device", "cuda"]
+CNN_TRAIN_STEPS, CNN_CKPT_EVERY = 4, 2
+CNN_LEARN_STEPS, CNN_LEARN_BATCH = 30, 32
 SERVE_KERNELS = ("flash_fwd", "flash_fwd_masked")
 TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
@@ -926,17 +969,17 @@ def export_model(torch, base: Path) -> None:
     log(f"exported seeded {n_params / 1e6:.1f}M-parameter LM to {base}")
 
 
-def post(port: int, body: dict) -> dict:
+def post(port: int, body: dict, path: str = "/model/lm:predict") -> dict:
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
-        conn.request("POST", "/model/lm:predict", body=json.dumps(body),
+        conn.request("POST", path, body=json.dumps(body),
                      headers={"Content-Type": "application/json"})
         resp = conn.getresponse()
         payload = json.loads(resp.read())
     finally:
         conn.close()
     if resp.status != 200:
-        fail(f"predict answered {resp.status}: {payload}")
+        fail(f"POST {path} answered {resp.status}: {payload}")
     return payload
 
 
@@ -1925,6 +1968,372 @@ def learn_and_breakdown(torch):
             "shares": shares}
 
 
+def cnn_model(name: str, dtype, device):
+    """The served model of ``name`` as its loader config builds it."""
+    from kubeflow_tpu_torch.models.inception import InceptionV3
+    from kubeflow_tpu_torch.models.resnet import ResNetConfig
+
+    config, _ = CNN_SERVED[name]
+    if config["family"] == "inception_v3":
+        return InceptionV3(num_classes=config["num_classes"], dtype=dtype,
+                           device=device)
+    return ResNetConfig._FACTORIES[config["family"]](
+        num_classes=config["num_classes"], dtype=dtype, device=device,
+        num_filters=config.get("num_filters", 64))
+
+
+def export_cnn(torch, base: Path, name: str) -> dict:
+    from kubeflow_tpu_torch.serving.export import export
+
+    config, size = CNN_SERVED[name]
+    from kubeflow_tpu_torch.testing.cnn import random_cnn_variables
+
+    model = cnn_model(name, torch.float32, "meta")
+    variables = random_cnn_variables(model, SEED)
+    export(base, 1, variables, loader=CNN_LOADER, config=config,
+           signature={"inputs": {"image": [None, size, size, 3]},
+                      "outputs": {"scores": [None, config["num_classes"]]}})
+    n = sum(p.numel() for p in model.parameters())
+    log(f"exported seeded {config['family']} ({n} parameters, "
+        f"{size} x {size}, {config['num_classes']} classes) to {base}")
+    return variables
+
+
+def profile_busy(torch, fn, what: str, top: int = 8) -> dict:
+    """One call of ``fn`` (which ends in a synchronize) under
+    torch.profiler: device busy time, its share of the profiled wall,
+    and the kernels with the most device time (information only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us == 0:
+        log(f"{what}: the profiler saw no device time; busy share not "
+            "measured")
+        return {"wall_ms": wall * 1e3, "busy_ms": None}
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    log(f"{what} under torch.profiler: wall {wall * 1e3:.2f} ms, device "
+        f"busy {busy_us / 1e3:.2f} ms ({busy_us / (wall * 1e6):.3f} of the "
+        f"wall), {sum(e.count for e in kernels)} kernel launches "
+        f"(information only)")
+    tops = []
+    for e in kernels[:top]:
+        share = e.self_device_time_total / busy_us
+        tops.append({"kernel": e.key[:100], "share": share,
+                     "launches": e.count})
+        log(f"  {share:.3f} of busy, {e.count} launches: {e.key[:100]}")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / (wall * 1e6), "top": tops}
+
+
+def cnn_images(name: str, n: int, seed: int, floats: bool = False):
+    """n uint8 images of the model's size; with ``floats``, every odd one
+    sent as float32 pixels scaled to [0, 1] instead."""
+    import numpy as np
+
+    _, size = CNN_SERVED[name]
+    rng = np.random.default_rng(seed)
+    images = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+              for _ in range(n)]
+    return [im.astype(np.float32) / 255.0 if floats and i % 2 else im
+            for i, im in enumerate(images)]
+
+
+def check_cnn_reply(name: str, reply: dict) -> None:
+    """Scores of the model's width summing to 1, the top k sorted and
+    equal to the scores at its classes."""
+    import numpy as np
+
+    config, _ = CNN_SERVED[name]
+    scores = np.asarray(reply["scores"], np.float64)
+    classes = np.asarray(reply["top_k_classes"])
+    top = np.asarray(reply["top_k_scores"], np.float64)
+    if scores.shape != (config["num_classes"],) or not np.all(
+            np.isfinite(scores)) or abs(scores.sum() - 1.0) > 1e-3:
+        fail(f"{name}: scores of shape {scores.shape} summing to "
+             f"{scores.sum()}")
+    if classes.shape != (config["top_k"],) or np.any(np.diff(top) > 0) \
+            or not np.array_equal(top, scores[classes]) \
+            or top[0] != scores.max():
+        fail(f"{name}: top k {classes.tolist()} / {top.tolist()} is not the "
+             "sorted head of the scores")
+
+
+def serve_cnn_model(torch, base: Path, name: str, variables: dict):
+    """Phase 11, one model: the port's serving entry point with
+    --micro_batch_size 8, a concurrent burst of 16 :predict requests
+    (uint8 pixel lists and float32 lists in turns), then one :predict and
+    one :classify of the same image alone, and one direct 8-row request
+    of uint8 pixels.
+    Every reply checked; the served scores equal to the loader's own
+    predict on the same rows at the batch size they were served in; the
+    bf16 logits held to a float32 run of the same weights."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.convert_cnn import load_cnn_variables
+    from kubeflow_tpu_torch.serving import main as serving_main
+
+    config, size = CNN_SERVED[name]
+    images = cnn_images(name, CNN_BURST, SEED + 11, floats=True)
+    direct = cnn_images(name, CNN_DIRECT_ROWS, SEED + 12)
+    server, httpd = serving_main.start([
+        "--model_name", name, "--model_base_path", str(base),
+        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--micro_batch_size", str(CNN_MICRO_BATCH)])
+    port = httpd.server_address[1]
+    route = f"/model/{name}"
+    try:
+        post(port, {"instances": [images[0].tolist()]},
+             f"{route}:predict")  # the process's first cuDNN work
+        before = server.batcher_stats(name)["batch_size_hist"]
+        replies, latencies = [None] * CNN_BURST, [None] * CNN_BURST
+
+        def call(i):
+            t = time.perf_counter()
+            replies[i] = post(port, {"instances": [images[i].tolist()]},
+                              f"{route}:predict")["predictions"][0]
+            latencies[i] = time.perf_counter() - t
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(CNN_BURST)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        t_burst = time.perf_counter() - t0
+        if None in replies:
+            fail(f"{name}: a request of the burst did not complete")
+        stats = server.batcher_stats(name)
+        alone = post(port, {"instances": [images[0].tolist()]},
+                     f"{route}:predict")["predictions"][0]
+        classified = post(port, {"instances": [images[0].tolist()]},
+                          f"{route}:classify")
+        t1 = time.perf_counter()
+        direct_reply = post(port, {"instances": [x.tolist()
+                                                 for x in direct]},
+                            f"{route}:predict")["predictions"]
+        t_direct = time.perf_counter() - t1
+        predict = server.get(name).predict
+    finally:
+        serving_main.shutdown(server, httpd)
+    for reply in replies + [alone] + direct_reply:
+        check_cnn_reply(name, reply)
+    pairs = classified["result"]["classifications"]
+    want = [[str(c), s] for c, s in zip(alone["top_k_classes"],
+                                        alone["top_k_scores"])]
+    if len(pairs) != 1 or pairs[0] != want:
+        fail(f"{name}: :classify {pairs} is not :predict's top k {want}")
+
+    # The server adds no numeric change: each served row equals the
+    # loader's predict on the same image at its served batch size (the
+    # batcher pads to 1, 2, 4 or 8 rows; the image repeated to fill).
+    hist = {n: k - before.get(n, 0)
+            for n, k in stats["batch_size_hist"].items()
+            if k > before.get(n, 0)}
+    padded = sorted({next(s for s in (1, 2, 4, 8) if s >= int(n))
+                     for n in hist})
+
+    def scores_at(image, rows):
+        batch = np.stack([image] * rows)
+        return predict({"image": batch})["scores"][0]
+
+    for i, reply in enumerate(replies):
+        got = np.asarray(reply["scores"], np.float32)
+        if not any(np.array_equal(got, scores_at(images[i], rows))
+                   for rows in padded):
+            fail(f"{name}: served request {i} differs from the loader's "
+                 f"predict at every served batch size {padded}")
+    mine = predict({"image": np.stack(direct)})["scores"]
+    if not np.array_equal(np.asarray([r["scores"] for r in direct_reply],
+                                     np.float32), mine):
+        fail(f"{name}: the direct 8-row reply differs from the loader's "
+             "predict on the same rows")
+    if not np.array_equal(np.asarray(alone["scores"], np.float32),
+                          scores_at(images[0], 1)):
+        fail(f"{name}: the lone request differs from the loader's predict")
+
+    # bf16 logits against float32 (TF32 off) on the direct rows.
+    x = torch.from_numpy(np.stack(direct).astype(np.float32) / 255.0).cuda()
+    f32 = cnn_model(name, torch.float32, "cuda")
+    stats32 = load_cnn_variables(f32, variables)
+    with torch.inference_mode():
+        want32 = f32(x, stats32)
+        got16 = predict.model(x, predict.batch_stats)
+    rel = ((got16 - want32).norm() / want32.norm()).item()
+    log(f"{name}: bf16 logits against float32 (TF32 off) on "
+        f"{CNN_DIRECT_ROWS} images: relative Frobenius error {rel:.4e} "
+        f"(bound {CNN_LOGITS_REL_TOL}); argmax agrees on "
+        f"{int((got16.argmax(-1) == want32.argmax(-1)).sum())} of "
+        f"{CNN_DIRECT_ROWS}")
+    if not rel <= CNN_LOGITS_REL_TOL:
+        fail(f"{name}: bf16 logits are {rel:.4e} from float32")
+    del f32, stats32
+
+    def one_batch():
+        predict({"image": np.stack(direct)})
+        torch.cuda.synchronize()
+
+    one_batch()
+    t0 = time.perf_counter()
+    one_batch()
+    t_batch = time.perf_counter() - t0
+    busy = profile_busy(torch, one_batch,
+                        f"{name}: one served batch of {CNN_DIRECT_ROWS}")
+    info = {
+        "burst_s": t_burst, "requests_per_s": CNN_BURST / t_burst,
+        "latency_p50_s": pct(latencies, 0.5),
+        "latency_p99_s": pct(latencies, 0.99),
+        "batch_size_hist": hist, "direct_8_rows_s": t_direct,
+        "batch_of_8_ms": t_batch * 1e3, "logits_rel_err": rel,
+        "profile": busy}
+    log(f"{name} ({config['family']}, {size} x {size}): burst of "
+        f"{CNN_BURST} :predict in {t_burst:.3f} s, "
+        f"{info['requests_per_s']:.2f} requests/s, latency p50 "
+        f"{info['latency_p50_s']:.3f} s p99 {info['latency_p99_s']:.3f} s "
+        f"(client clock, JSON encoding in the same process); batch sizes "
+        f"{hist}; direct {CNN_DIRECT_ROWS}-row request {t_direct:.3f} s; "
+        f"one batch of {CNN_DIRECT_ROWS} through the loader "
+        f"{t_batch * 1e3:.2f} ms (host clock after a sync; information "
+        f"only; {card_line()})")
+    return info
+
+
+def serve_cnn(torch, flash, workdir: Path) -> dict:
+    """Phase 11: ResNet-50 at 224 and Inception-v3 at 299 (1000 classes,
+    seeded weights) served over REST through the classifier loader and
+    the MicroBatcher; no flash kernel may launch."""
+    for key in flash.launch_counts:
+        flash.launch_counts[key] = 0
+    info = {}
+    for name in CNN_SERVED:
+        base = workdir / name
+        variables = export_cnn(torch, base, name)
+        info[name] = serve_cnn_model(torch, base, name, variables)
+    launched = {k: n for k, n in flash.launch_counts.items() if n}
+    if launched:
+        fail(f"the CNN serving path launched flash kernels: {launched}")
+    log("CNN serving launched no flash kernel")
+    return info
+
+
+def train_cnn_phase(torch, flash, workdir: Path) -> dict:
+    """Phase 12: tools/train_cnn.run on bench.py's ResNet-50 cell (batch
+    256 at 224, bf16, sgd(0.1, momentum 0.9), synthetic data) for 4
+    steps, verified checkpoints every 2; Trainer.fit for 30 steps on one
+    repeated batch of 32 must lower the loss; then, information only,
+    the step on a batch staged on the card: time, images/s, MFU, peak
+    memory and one profiled step."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.classification import classification_task
+    from kubeflow_tpu_torch.models.resnet import ResNetConfig
+    from kubeflow_tpu_torch.runtime import checkpoint, optim
+    from kubeflow_tpu_torch.runtime.train import Trainer
+    from kubeflow_tpu_torch.tools import train_cnn
+
+    for key in flash.launch_counts:
+        flash.launch_counts[key] = 0
+    ckpt = workdir / "cnn_ckpt"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = train_cnn.run(CNN_TRAIN_FLAGS + [
+        "--steps", str(CNN_TRAIN_STEPS), "--log-every", "1",
+        "--checkpoint-dir", str(ckpt), "--checkpoint-every",
+        str(CNN_CKPT_EVERY), "--max-restarts", "0"])
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    history = trainer.metrics.history
+    losses = [r["loss"] for r in history]
+    if len(losses) != CNN_TRAIN_STEPS or not all(
+            map(math.isfinite, losses + [trainer.last_metrics.get(
+                "grad_norm", float("nan"))])):
+        fail(f"train_cnn: non-finite or missing losses {losses}")
+    saved = trainer.checkpoints.all_steps()
+    verdicts = {s: checkpoint.verify_step(ckpt, s) for s in saved}
+    if saved != [1, 3] or not all(ok for ok, _ in verdicts.values()):
+        fail(f"train_cnn: saved steps {saved}, verify {verdicts}")
+    run_step = sorted(r["step_time_s"] for r in history[1:])
+    run_step = run_step[len(run_step) // 2]
+    log(f"train_cnn.run: {CNN_TRAIN_STEPS} steps of ResNet-50, batch "
+        f"{CNN_TRAIN_BATCH} x 224 x 224, losses "
+        f"{[round(x, 4) for x in losses]}, saved steps {saved} (verified); "
+        f"median step {run_step * 1e3:.1f} ms over steps 1-"
+        f"{CNN_TRAIN_STEPS - 1} with the host drawing each synthetic batch "
+        f"(numpy randn), whole run {t_run:.1f} s (information only)")
+
+    flops = ResNetConfig("resnet50").fwd_flops_per_image
+    cfg = ResNetConfig("resnet50", dtype=torch.bfloat16)
+
+    def fresh_trainer():
+        init_fn, loss_fn = classification_task(
+            cfg.build(device="cuda"), (1, 224, 224, 3), device="cuda")
+        return Trainer(init_fn=init_fn, loss_fn=loss_fn,
+                       tx=optim.sgd(0.1, momentum=0.9), device="cuda")
+
+    learner = fresh_trainer()
+    rng = np.random.RandomState(SEED)
+    batch = {"image": rng.randn(CNN_LEARN_BATCH, 224, 224, 3).astype(
+        np.float32), "label": rng.randint(0, 1000, size=(CNN_LEARN_BATCH,))}
+    learner.fit(itertools.repeat(batch), CNN_LEARN_STEPS,
+                state=learner.create_state(SEED), log_every=1)
+    learned = [r["loss"] for r in learner.metrics.history]
+    tail = sum(learned[-5:]) / 5
+    log(f"learning: {CNN_LEARN_STEPS} steps on one repeated batch of "
+        f"{CNN_LEARN_BATCH}: first loss {learned[0]:.4f}, mean of the last "
+        f"5 {tail:.4f}, a drop of {learned[0] - tail:.4f} (bound: the mean "
+        f"of the last 5 below the first)")
+    if not (math.isfinite(tail) and tail < learned[0]):
+        fail("the ResNet-50 loss did not fall on a repeated batch")
+    del learner
+
+    timer = fresh_trainer()
+    state = timer.create_state(SEED)
+    step = timer.compile_step()
+    big = timer.shard_batch({
+        "image": rng.randn(CNN_TRAIN_BATCH, 224, 224, 3).astype(np.float32),
+        "label": rng.randint(0, 1000, size=(CNN_TRAIN_BATCH,))})
+    torch.cuda.reset_peak_memory_stats()
+
+    def one():
+        nonlocal state
+        state, _ = step(state, big)
+        torch.cuda.synchronize()
+
+    one()  # warm-up at this batch shape
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one()
+        times.append(time.perf_counter() - t0)
+    step_s = sorted(times)[1]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    mfu = 3 * flops * CNN_TRAIN_BATCH / step_s / PEAK_BF16_FLOPS
+    log(f"ResNet-50 step on a staged batch of {CNN_TRAIN_BATCH} x 224 x "
+        f"224: median of 3 {step_s * 1e3:.1f} ms (host clock after a "
+        f"sync), {CNN_TRAIN_BATCH / step_s:.1f} images/s, MFU {mfu:.4f} "
+        f"(3 x {flops:.3g} x {CNN_TRAIN_BATCH} / step / "
+        f"{PEAK_BF16_FLOPS:.3g}), peak memory {peak_gib:.2f} GiB "
+        f"(information only; {card_line()})")
+    busy = profile_busy(torch, one, f"one ResNet-50 training step of "
+                        f"batch {CNN_TRAIN_BATCH}")
+    launched = {k: n for k, n in flash.launch_counts.items() if n}
+    if launched:
+        fail(f"the CNN training path launched flash kernels: {launched}")
+    log("CNN training launched no flash kernel")
+    return {"run_losses": losses, "run_step_ms": run_step * 1e3,
+            "saved_steps": saved, "learn_first": learned[0],
+            "learn_last5": tail, "step_ms": step_s * 1e3,
+            "images_per_s": CNN_TRAIN_BATCH / step_s, "mfu": mfu,
+            "peak_gib": peak_gib, "profile": busy}
+
+
 def main() -> int:
     try:
         import torch
@@ -1946,6 +2355,14 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
+    phase_s = {}
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_phase[0], 3)
+        t_phase[0] = now
+
     t0 = time.perf_counter()
     sources = ("flash_fwd", "flash_bwd")
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -1957,6 +2374,7 @@ def main() -> int:
                 log(f"  ptxas {src}: {line.split(chr(39))[1][:90]}")
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {src}: {line.strip()}")
+    phase_done("1 card and build")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     checks = check_kernels(torch, flash, gen)
@@ -1964,10 +2382,12 @@ def main() -> int:
     check_bwd_heads_apart(torch, flash)
     check_autograd(torch, flash, gen)
     two_pass_checks = check_two_pass_kernels(torch, flash, gen)
+    phase_done("2 kernels")
     timed = time_kernels(torch, flash, gen, checks)
     timed.update(time_train_kernels(torch, flash, gen, timed, bwd_checks))
     two_pass_rows, two_pass_times = time_two_pass(torch, flash, gen,
                                                   two_pass_checks)
+    phase_done("3 timing")
 
     rng = torch.Generator().manual_seed(SEED)
     vocab = MODEL["vocab_size"]
@@ -1984,16 +2404,21 @@ def main() -> int:
         missing = [k for k, n in counts.items() if n == 0]
         if missing:
             fail(f"kernels never launched on the serving path: {missing}")
+        phase_done("4 serve")
         check_replies(prompts, replies, direct, direct_reply)
         check_prefill_logits(torch, flash, base, gen)
+        phase_done("5 check")
         breakdown(torch, base, gen)
+        phase_done("6 breakdown")
         engine_tokens, engine_info = serve_engine(torch, flash, base,
                                                   prompts)
         engine_info["bf16_first_difference"] = engine_identity(
             torch, flash, base, prompts, engine_tokens)
         engine_info["round"] = engine_round(torch, base)
+        phase_done("6b engine")
         train_counts, train_info = train(torch, flash, workdir)
         two_pass_counts, two_pass_info = train_two_pass(torch, flash)
+        phase_done("7 train")
         log(f"train, single pass + adamw against two-pass + adafactor: "
             f"median step {train_info['step_ms']:.1f} / "
             f"{two_pass_info['step_ms']:.1f} ms, MFU "
@@ -2002,10 +2427,17 @@ def main() -> int:
             f"{two_pass_info['peak_gib']:.2f} GiB (host clock, one call; "
             f"information only)")
         ckpt_info = checkpoint_and_data(torch, workdir)
+        phase_done("10 checkpoints and data")
+        grads = check_gradients(torch, flash)
+        phase_done("8 gradients")
+        learned = learn_and_breakdown(torch)
+        phase_done("9 learning")
+        cnn_serve_info = serve_cnn(torch, flash, workdir)
+        phase_done("11 CNN serve")
+        cnn_train_info = train_cnn_phase(torch, flash, workdir)
+        phase_done("12 CNN train")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    grads = check_gradients(torch, flash)
-    learned = learn_and_breakdown(torch)
 
     kernels = []
     for name, row in timed.items():
@@ -2031,7 +2463,11 @@ def main() -> int:
                                   breakdown=learned),
                     "train_two_pass": dict(two_pass_info,
                                            forward=two_pass_times),
-                    "checkpoint": ckpt_info}))
+                    "checkpoint": ckpt_info,
+                    "cnn_serve": cnn_serve_info,
+                    "cnn_train": cnn_train_info}))
+    log(f"phase times (s): {json.dumps(phase_s)}; total "
+        f"{sum(phase_s.values()):.1f} s")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Optimizers with optax's semantics, on PyTorch tensors.
 
 The JAX package trains with ``optax.adamw`` or ``optax.adafactor``
-(tools/train_lm.py, bench.py) and, behind ``--warmup-steps``,
-``optax.warmup_cosine_decay_schedule``.
+(tools/train_lm.py, bench.py), its CNNs with ``optax.sgd(lr,
+momentum=0.9)`` (tools/train_cnn.py, bench.py's ResNet cell) and, behind
+``--warmup-steps``, ``optax.warmup_cosine_decay_schedule``.
 PyTorch's own classes differ from them where it matters (``AdamW``'s
 weight decay defaults to 0.01 and is decoupled from the learning-rate
 schedule differently; its ``Adafactor`` is another algorithm), so this
@@ -23,13 +24,17 @@ module writes optax's arithmetic out:
     layer, so adafactor takes the parameters by name and works on the
     stacked leaf (``leaf_groups``): its factored dims, its block RMS and
     its statistics are the JAX leaf's;
+  - ``sgd``: optax.sgd = trace(decay=momentum, nesterov=False) ->
+    scale by -learning_rate(count): ``trace = g + momentum * trace``,
+    then ``param += -lr * trace``; with ``momentum=None`` the update is
+    ``-lr * g`` and no trace is kept;
   - schedules count updates from 0: update t uses schedule(t), so the
     first update under a warmup from 0 changes nothing;
   - ``global_norm`` is optax.global_norm.
 
-Both take the parameters and gradients as a name -> tensor mapping (as
-``Trainer`` passes them, in ``named_parameters()`` order); adamw also
-takes plain sequences.
+All take the parameters and gradients as a name -> tensor mapping (as
+``Trainer`` passes them, in ``named_parameters()`` order); adamw and sgd
+also take plain sequences.
 
 The update runs in place on the parameters and the moment buffers (one
 set of foreach kernels per step; JAX's functional update allocates new
@@ -358,3 +363,53 @@ class Adafactor:
 def adafactor(learning_rate: ScalarOrSchedule) -> Adafactor:
     """optax.adafactor(learning_rate) with optax's defaults."""
     return Adafactor(learning_rate)
+
+
+@dataclasses.dataclass
+class SgdState:
+    """Updates taken so far (host int) and the momentum trace, one
+    float32 buffer per parameter in parameter order (empty without
+    momentum)."""
+
+    count: int
+    trace: List[torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Sgd:
+    """optax.sgd as an in-place update over float32 parameters:
+    ``state = tx.init(params)``, then ``tx.update(grads, state, params)``."""
+
+    learning_rate: ScalarOrSchedule
+    momentum: Optional[float] = None
+
+    def init(self, params: Tensors) -> SgdState:
+        params = _values(params)
+        _check_float32("sgd", params)
+        trace = ([torch.zeros_like(p) for p in params]
+                 if self.momentum is not None else [])
+        return SgdState(count=0, trace=trace)
+
+    def lr(self, count: int) -> float:
+        """The learning rate of update ``count`` (0-based)."""
+        return _lr(self.learning_rate, count)
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state: SgdState,
+               params: Tensors) -> None:
+        params, grads = _values(params), _values(grads)
+        lr = self.lr(state.count)
+        step = grads
+        if self.momentum is not None:
+            # trace = g + momentum * trace
+            torch._foreach_mul_(state.trace, self.momentum)
+            torch._foreach_add_(state.trace, grads)
+            step = state.trace
+        torch._foreach_add_(params, torch._foreach_mul(step, -lr))
+        state.count += 1
+
+
+def sgd(learning_rate: ScalarOrSchedule,
+        momentum: Optional[float] = None) -> Sgd:
+    """optax.sgd(learning_rate, momentum) (no Nesterov term)."""
+    return Sgd(learning_rate, momentum)

@@ -45,6 +45,8 @@ _ALLOWED_LOADER_MODULES = {"kubeflow_tpu_torch.serving.loaders"}
 _JAX_LOADERS = {
     "kubeflow_tpu.serving.loaders:lm_generate":
         "kubeflow_tpu_torch.serving.loaders:lm_generate",
+    "kubeflow_tpu.serving.loaders:classifier":
+        "kubeflow_tpu_torch.serving.loaders:classifier",
 }
 
 # ---------------------------------------------------------------------------

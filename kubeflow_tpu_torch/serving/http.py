@@ -2,7 +2,9 @@
 
 The same wire contract: ``POST /model/NAME:predict`` (and
 ``/model/NAME/version/N:predict``) takes ``{"instances": [...]}`` and
-answers ``{"predictions": [...]}``; ``GET /model/NAME:metadata`` returns
+answers ``{"predictions": [...]}``; ``:classify`` (both forms) takes the
+same body and answers ``{"result": {"classifications": [[[class,
+score], ...], ...]}}``; ``GET /model/NAME:metadata`` returns
 the exported signature; ``GET /model/NAME:stats`` the batching plane's
 live stats (the decode engine's ``stats()``, a batcher's dispatch
 profile, or null on the direct path); ``/healthz`` is liveness and
@@ -11,7 +13,7 @@ profile, or null on the direct path); ``/healthz`` is liveness and
 501.  stdlib ``http.server`` (threaded), one process.
 
 Not ported yet: :generate streaming, :prefill and :fetch_kv (ROADMAP
-queue 1, item 2); :classify, /metrics and /debug/traces (item 9).
+queue 1, item 2); /metrics and /debug/traces (item 9).
 """
 
 from __future__ import annotations
@@ -39,9 +41,13 @@ _ROUTES = [
     ("GET", re.compile(r"^/model/(?P<name>[^/:]+):metadata$"), "metadata"),
     ("GET", re.compile(r"^/model/(?P<name>[^/:]+):stats$"), "stats"),
     ("POST", re.compile(r"^/model/(?P<name>[^/:]+):predict$"), "predict"),
+    ("POST", re.compile(r"^/model/(?P<name>[^/:]+):classify$"), "classify"),
     ("POST", re.compile(
         r"^/model/(?P<name>[^/:]+)/version/(?P<version>\d+):predict$"),
      "predict"),
+    ("POST", re.compile(
+        r"^/model/(?P<name>[^/:]+)/version/(?P<version>\d+):classify$"),
+     "classify"),
     ("GET", re.compile(r"^/$"), "index"),
     ("GET", re.compile(r"^/healthz$"), "health"),
     ("GET", re.compile(r"^/readyz$"), "ready"),
@@ -143,6 +149,23 @@ class ServingAPI:
                                       deadline=deadline)
         return {"predictions": outputs_to_predictions(outputs)}
 
+    def classify(self, name: str, body: Dict[str, Any],
+                 version: Optional[int] = None) -> Dict[str, Any]:
+        """Classification response: ``[[class_id, score], ...]`` per
+        instance (TF-Serving's ClassificationResult): the top k where the
+        model gives it, else every class in order."""
+        result = self.predict(name, body, version)
+        classifications = []
+        for row in result["predictions"]:
+            if "top_k_classes" in row:
+                pairs = [[str(c), float(s)] for c, s in
+                         zip(row["top_k_classes"], row["top_k_scores"])]
+            else:
+                pairs = [[str(i), float(s)]
+                         for i, s in enumerate(row.get("scores", []))]
+            classifications.append(pairs)
+        return {"result": {"classifications": classifications}}
+
 
 class _Handler(BaseHTTPRequestHandler):
     api: ServingAPI  # set by make_http_server
@@ -220,7 +243,9 @@ class _Handler(BaseHTTPRequestHandler):
             body = json.loads(self.rfile.read(length) or b"{}")
             version = int(groups["version"]) if groups.get("version") \
                 else None
-            self._send(200, self.api.predict(groups["name"], body, version))
+            handler = (self.api.classify if action == "classify"
+                       else self.api.predict)
+            self._send(200, handler(groups["name"], body, version))
 
     def _send(self, code: int, payload: Any, raw: bool = False,
               headers: Optional[Dict[str, str]] = None) -> None:

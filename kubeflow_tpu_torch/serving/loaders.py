@@ -4,9 +4,8 @@ A loader is ``fn(config, device) -> (variables -> predict)``, where
 predict maps {input_name: array} -> {output_name: numpy array}.  Loader
 paths are recorded in model.json at export time (serving/export.py).
 
-Only ``lm_generate`` is ported; the ``lm`` loader comes with the rest of
-the serving surface (ROADMAP queue 1, item 9) and ``classifier`` with
-the CNN family (item 14).
+``lm_generate`` and ``classifier`` are ported; the ``lm`` loader comes
+with the rest of the serving surface (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -34,6 +33,107 @@ def _model_config(overrides: Dict[str, Any]):
             raise ValueError(f"unknown model dtype {name!r}")
         overrides["dtype"] = _DTYPES[name]
     return TransformerConfig(**overrides)
+
+
+def classifier(config: Dict[str, Any], device: DeviceLike = None
+               ) -> Callable:
+    """Image classifier over models/resnet.py or models/inception.py.
+
+    config: {"family": "resnet50"|"inception_v3"|..., "num_classes": int,
+             "top_k": int (5), "num_filters": int (resnet, 64)}
+    Signature: {"image": [b, h, w, 3] or [h, w, 3], float or uint8} ->
+               {"scores": [b, classes], "top_k_scores": [b, k],
+                "top_k_classes": [b, k]}
+
+    The model computes in bfloat16, as the JAX loader's does, and is
+    staged on the device once per version, its conv kernels narrowed to
+    bf16 there (BatchNorm and head stay float32).  The wire dtype is kept
+    on the host-to-device copy and converted on the device: uint8 images
+    (the raw-image-bytes contract) are scaled to [0, 1] there, a quarter
+    of the bytes of a host-side float32 cast.  float64 is narrowed to
+    float32 on the host; integer pixels ship as uint8 when they fit
+    0..255, else as float32 (unscaled).  A 3-dim image gets a batch
+    axis.  The top k is a stable descending sort of the scores, so ties
+    go to the lowest class, as ``jax.lax.top_k`` breaks them.
+
+    ``predict.model`` and ``predict.batch_stats`` are the staged model and
+    its running statistics, for callers that hold the served numbers to
+    a direct run.
+    """
+    from kubeflow_tpu_torch.models.convert_cnn import load_cnn_variables
+
+    dev = resolve_device(device)
+    family = config.get("family", "resnet50")
+    num_classes = int(config.get("num_classes", 1000))
+    top_k = min(int(config.get("top_k", 5)), num_classes)
+    if family.startswith("resnet"):
+        from kubeflow_tpu_torch.models.resnet import ResNetConfig
+
+        factory = ResNetConfig._FACTORIES.get(family)
+        if factory is None:
+            raise ValueError(f"unknown resnet family {family!r}")
+
+        def build():
+            return factory(num_classes=num_classes,
+                           num_filters=int(config.get("num_filters", 64)),
+                           device=dev)
+    elif family == "inception_v3":
+        from kubeflow_tpu_torch.models.inception import InceptionV3
+
+        def build():
+            return InceptionV3(num_classes=num_classes, device=dev)
+    else:
+        raise ValueError(f"unknown classifier family {family!r}")
+
+    def make_predict(variables):
+        model = build()
+        batch_stats = load_cnn_variables(model, variables)
+        model.requires_grad_(False)
+        for p in model.parameters():
+            if p.dim() == 4:  # conv kernels: the compute dtype, once
+                p.data = p.data.to(model.dtype).contiguous(
+                    memory_format=torch.channels_last)
+
+        @torch.inference_mode()
+        def fwd(image: torch.Tensor):
+            image = image.to(dev, non_blocking=True)
+            if image.dtype == torch.uint8:
+                image = image.to(torch.float32) / 255.0
+            else:
+                image = image.to(torch.float32)
+            logits = model(image, batch_stats)
+            probs = torch.softmax(logits, dim=-1)
+            top_p, top_i = torch.sort(probs, dim=-1, descending=True,
+                                      stable=True)
+            return probs, top_p[:, :top_k], top_i[:, :top_k]
+
+        def predict(inputs: Dict[str, Any]) -> Dict[str, Any]:
+            image = inputs["image"]
+            if not isinstance(image, torch.Tensor):
+                image = np.asarray(image)
+                if image.dtype == np.float64:
+                    image = image.astype(np.float32)
+                elif image.dtype.kind in "iu" and image.dtype != np.uint8:
+                    # JSON integer pixels: uint8 when they fit the 0..255
+                    # image range, else float32.
+                    if image.size and 0 <= image.min() \
+                            and image.max() <= 255:
+                        image = image.astype(np.uint8)
+                    else:
+                        image = image.astype(np.float32)
+                image = torch.from_numpy(np.ascontiguousarray(image))
+            if image.dim() == 3:
+                image = image[None]
+            probs, top_p, top_i = fwd(image)
+            return {"scores": probs.cpu().numpy(),
+                    "top_k_scores": top_p.cpu().numpy(),
+                    "top_k_classes": top_i.to(torch.int32).cpu().numpy()}
+
+        predict.model = model
+        predict.batch_stats = batch_stats
+        return predict
+
+    return make_predict
 
 
 def lm_generate(config: Dict[str, Any], device: DeviceLike = None) -> Callable:

@@ -1,1 +1,2 @@
-"""Test harness of the port: the fault-injection sites."""
+"""Test harness of the port: the fault-injection sites and seeded CNN
+weights."""

@@ -29,6 +29,17 @@ import sys
 PEAK_BF16_FLOPS = {"H100": 989e12}
 
 
+def peak_bf16_flops(device) -> float:
+    """The card's bf16 peak FLOP/s from ``PEAK_BF16_FLOPS``, or 0 (no
+    MFU) on the CPU or an unlisted card."""
+    import torch
+
+    if device.type != "cuda":
+        return 0.0
+    name = torch.cuda.get_device_name(device)
+    return next((v for k, v in PEAK_BF16_FLOPS.items() if k in name), 0.0)
+
+
 def _not_ported(args) -> str:
     """The first flag this port does not serve yet, with its ROADMAP
     item, or ''."""
@@ -122,7 +133,6 @@ def run(argv=None):
     env = bootstrap.initialize()
 
     import numpy as np
-    import torch
 
     from kubeflow_tpu_torch.device import resolve_device
     from kubeflow_tpu_torch.models.transformer import (
@@ -147,11 +157,7 @@ def run(argv=None):
     )
     init_fn, loss_fn = lm_task(cfg, device=device)
     batch = args.batch_size_per_device  # one device
-    peak = 0.0
-    if device.type == "cuda":
-        name = torch.cuda.get_device_name(device)
-        peak = next((v for k, v in PEAK_BF16_FLOPS.items() if k in name),
-                    0.0)
+    peak = peak_bf16_flops(device)
     if args.warmup_steps > 0:
         lr = optim.warmup_cosine_decay_schedule(
             init_value=0.0, peak_value=args.learning_rate,

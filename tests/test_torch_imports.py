@@ -10,6 +10,8 @@ import torch
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.generate import init_cache
+from kubeflow_tpu_torch.models.inception import InceptionV3
+from kubeflow_tpu_torch.models.resnet import ResNet50, ResNetConfig
 from kubeflow_tpu_torch.models.transformer import Transformer, TransformerConfig
 from kubeflow_tpu_torch.serving.model_server import ModelServer
 
@@ -87,6 +89,8 @@ def test_forbidden_prefix_does_not_match_the_port():
 def test_default_device_is_cuda_or_an_error():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
+        assert ResNet50(num_classes=10, num_filters=8).head.weight.is_cuda
+        assert InceptionV3(num_classes=10).logits.weight.is_cuda
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
@@ -96,6 +100,12 @@ def test_default_device_is_cuda_or_an_error():
         Transformer(SMALL)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_cache(SMALL, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ResNet50(num_classes=10, num_filters=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ResNetConfig(name="resnet18").build()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InceptionV3(num_classes=10)
     assert resolve_device("cpu").type == "cpu"
     assert Transformer(SMALL, device="cpu").embed.device.type == "cpu"
     assert init_cache(SMALL, 1, 8, device="cpu")[0].device.type == "cpu"
