@@ -37,9 +37,10 @@ never on which requests share the batch.  It is the port's own stream:
 JAX's threefry bits are not matched.  Greedy decoding matches JAX token
 for token.
 
-Not ported yet: ``verify_step`` (ROADMAP queue 1, item 1), the KV-page
-handoff programs (item 2), the int8 KV cache (item 4) and adapters
-(item 5).
+The engine's speculative verify (``verify_step``) and the KV-page
+handoff pair (``gather_kv_pages``, ``import_kv_pages``) run over the
+same pool.  Not ported yet: the int8 KV cache (ROADMAP queue 1 item 4)
+and adapters (item 5).
 """
 
 from __future__ import annotations
@@ -447,6 +448,42 @@ def _pool_block_tokens(cache: torch.Tensor) -> int:
     return cache.shape[2]
 
 
+def import_kv_pages(state: Dict[str, torch.Tensor], pages_k: torch.Tensor,
+                    pages_v: torch.Tensor, ids) -> Dict[str, torch.Tensor]:
+    """The disaggregated KV handoff, device side: scatter page stacks
+    ``pages_k``/``pages_v`` ([layers, n, block_tokens, hkv, d]) into the
+    pool at physical blocks ``ids`` ([n]).  An id outside ``[0, nb)``
+    (the pool-size sentinel pads a span to its static width) sends its
+    page to the scratch block, where JAX drops it.  The pool is written
+    in place and ``state`` returned; the pages are cast to the pool's
+    dtype.  After the scatter the pool holds the exporter's bytes, and
+    the slot resumes through the ordinary cached-prefix path (chunked
+    prefill from the covered offset)."""
+    cache_k = state["cache_k"]
+    nb = cache_k.shape[1]
+    ids = _device_tables(ids, cache_k.device)
+    ids = torch.where((ids >= 0) & (ids < nb), ids, nb)
+    for name, pages in (("cache_k", pages_k), ("cache_v", pages_v)):
+        pool = _pool_with_scratch(state[name])
+        pool.index_copy_(1, ids, pages.to(device=pool.device,
+                                          dtype=pool.dtype))
+    return state
+
+
+def gather_kv_pages(state: Dict[str, torch.Tensor], ids):
+    """The inverse of ``import_kv_pages``: physical blocks ``ids`` of the
+    pool as HOST page stacks, one batched index per pool side
+    ([layers, n, block_tokens, hkv, d] in one transfer).  Returns
+    ``((k, None), (v, None))``, CPU tensors in the pool's dtype (the
+    ``None`` is JAX's int8 scale slot).  Not a program: ``n`` varies per
+    request; the engine runs it on its loop thread between program
+    calls, while the pages are still held."""
+    device = state["cache_k"].device
+    ids = _device_tables(ids, device)
+    return tuple((state[name].index_select(1, ids).cpu(), None)
+                 for name in ("cache_k", "cache_v"))
+
+
 def _device_tables(tables, device: torch.device) -> torch.Tensor:
     """Block tables as int64 indices on ``device`` (no copy when they
     already are)."""
@@ -637,6 +674,74 @@ def decode_rounds(model: Transformer, state: Dict[str, torch.Tensor],
               k, max_steps, device)
     counts = state["lengths"] - len0
     return state, toks, counts, steps_run
+
+
+def verify_step(model: Transformer, state: Dict[str, torch.Tensor],
+                decode: DecodeConfig, k: int, draft, draft_len, tables, *,
+                in_place: bool = False):
+    """Speculative verify: score up to ``k`` host-drafted tokens per slot
+    in one forward; returns (state, tokens [S, k+1] int32, emit [S]
+    int32).
+
+    ``draft`` [S, k] is each slot's candidate continuation and
+    ``draft_len`` [S] how many of its tokens are real (0: the slot rides
+    along undrafted).  The window ``[last_token, draft]`` goes through
+    the paged forward at t = k+1 with per-row rope positions, per-row
+    causal frontiers and per-row writes through ``tables``: the
+    decode step's math widened to the window, so position j's logits are
+    the (j+1)-th decode step's whenever the first j drafts match.
+
+    Acceptance is exact-match greedy: with ``a`` the longest draft prefix
+    equal to the argmax targets, a slot emits a+1 tokens (the accepted
+    drafts and one free token), clipped to ``stop_len - lengths`` and cut
+    at EOS.  Rollback is a length: the k+1 columns were written, but
+    ``lengths`` advances over the emitted prefix only, and the next call
+    overwrites the rest before it attends to them.  Retired slots park
+    their writes past the table span and emit 0 tokens.  The pool is
+    updated in place; the slot scalars are new tensors, or, with
+    ``in_place``, written into the state's own.
+    """
+    device = state["done"].device
+    tables = _device_tables(tables, device)
+    lengths, done = state["lengths"], state["done"]
+    park = tables.shape[1] * _pool_block_tokens(state["cache_k"])
+    advance = ~done
+    write_cols = torch.where(advance, lengths, park)
+    draft = torch.as_tensor(draft, device=device).to(torch.int32)
+    draft_len = torch.as_tensor(draft_len, device=device).to(torch.int32)
+    tokens = torch.cat([state["last_token"][:, None], draft], dim=1)
+    logits = _forward_with_cache(
+        model, tokens.long(), (state["cache_k"], state["cache_v"]), lengths,
+        write_cols=write_cols, tables=tables)
+    targets = torch.argmax(logits, dim=-1).to(torch.int32)   # [S, k+1]
+    pos = torch.arange(k, device=device)[None, :]
+    match = (draft == targets[:, :k]) & (pos < draft_len[:, None])
+    accepted = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+    emit = torch.minimum(accepted + 1,
+                         (state["stop_len"] - lengths).clamp(min=0))
+    if decode.eos_token >= 0:
+        is_eos = targets == decode.eos_token
+        eos_cut = torch.where(is_eos.any(dim=1),
+                              torch.argmax(is_eos.to(torch.int32), dim=1) + 1,
+                              k + 2)
+        done_eos = advance & (eos_cut <= emit)
+        emit = torch.minimum(emit, eos_cut)
+    else:
+        done_eos = torch.zeros_like(done)
+    emit = torch.where(advance, emit, 0).to(torch.int32)
+    cols = torch.arange(k + 1, device=device)[None, :]
+    out = torch.where(cols < emit[:, None], targets, 0)
+    new_lengths = lengths + emit
+    last = targets.gather(1, (emit - 1).clamp(min=0).long()[:, None])[:, 0]
+    new = {
+        "lengths": new_lengths,
+        "last_token": torch.where(emit > 0, last, state["last_token"]),
+        "done": done | done_eos | (advance
+                                   & (new_lengths >= state["stop_len"])),
+    }
+    if in_place:
+        return _assign(state, new), out, emit
+    return dict(state, **new), out, emit
 
 
 def prefill_chunk_into_slot(

@@ -27,7 +27,18 @@ KV block pool shared by ``slots`` sequences:
     refcount bump, no device copy) and chunked prefill continues after
     them;
   - finished rows retire at once (device-side ``done``); their slots are
-    reused and their private pages return to the pool.
+    reused and their private pages return to the pool;
+  - with ``speculative_tokens`` k > 0 (greedy exports only), the host
+    drafts up to k tokens a slot from the slot's own history (n-gram
+    prompt lookup) and one ``verify_step`` call scores them, emitting
+    the accepted prefix and one free token, token-identical to plain
+    decode; gates on draft mass and on the measured delivered rates keep
+    it off where it does not pay;
+  - for disaggregated serving, ``prefill_export`` returns a prompt's
+    finished full-block KV pages (``kv_handoff``) and a request carrying
+    such a payload imports them into its own blocks and prefills only
+    the rest; ``submit_stream`` streams a request's tokens as the loop
+    materializes them.
 
 The host reads sampled tokens ``sync_lag`` calls late: each program's
 results are copied into pinned host memory by non-blocking copies behind
@@ -48,11 +59,9 @@ has run it, so it reports what the JAX engine reports under the same
 flags.
 
 Not ported yet, each refused with ``NotPortedError`` naming its ROADMAP
-queue 1 item: speculative decoding (item 1), the disaggregated KV
-handoff and streaming (``kv_export``, ``kv_handoff``, ``prefill_export``,
-``fetch_kv``; item 2), the host spill tier and
-session park (item 3), the int8 KV cache (item 4), adapters (item 5)
-and ``mesh`` (item 6).
+queue 1 item: the host spill tier, session park and the spill tier's
+``fetch_kv`` (item 3), the int8 KV cache (item 4), adapters (item 5) and
+``mesh`` (item 6).
 
 Interface-compatible with the batchers (submit/accepts/stats/close), so
 ModelServer.enable_batching wires it behind the REST surface unchanged.
@@ -122,6 +131,35 @@ FUSED_WASTED_TOTAL = "kft_engine_fused_steps_wasted_total"
 FUSED_WASTED_HELP = \
     "fused-round slot-steps dispatched but not delivered (early-exit " \
     "waste past a slot's EOS/budget/deadline), by engine"
+SPEC_DRAFTED_TOTAL = "kft_engine_spec_drafted_total"
+SPEC_DRAFTED_HELP = "draft tokens proposed to verify_step, by engine"
+SPEC_ACCEPTED_TOTAL = "kft_engine_spec_accepted_total"
+SPEC_ACCEPTED_HELP = "draft tokens accepted by verify_step, by engine"
+HANDOFF_PAGES_TOTAL = "kft_engine_handoff_pages_total"
+HANDOFF_PAGES_HELP = \
+    "paged-KV pages transferred for disaggregated prefill/decode " \
+    "handoff, by engine and direction (export/import)"
+
+# N-gram drafter bounds: suffixes of up to _SPEC_NGRAM_MAX tokens are
+# matched against the request's own history, down to _SPEC_NGRAM_MIN (a
+# bigram: a single repeated token recurs by chance in unrepetitive text,
+# while every periodic regime repeats its bigrams too).  A slot whose
+# adaptive draft width backed off to zero re-probes after _SPEC_COOLDOWN
+# rounds.
+_SPEC_NGRAM_MAX = 4
+_SPEC_NGRAM_MIN = 2
+_SPEC_COOLDOWN = 8
+# While no live slot proposes anything, the drafting scan's period
+# doubles, up to _SPEC_SCAN_STRIDE_MAX rounds; a proposal or a draftable
+# admission resets it to every round.
+_SPEC_SCAN_STRIDE_MAX = 8
+# Throughput gate: verify keeps running only while its measured
+# delivered token rate (EMA) is at least this share of the decode
+# program's; while gated off, a probe verify runs every
+# _SPEC_PROBE_EVERY gated rounds to refresh the estimate.
+_SPEC_RATE_MARGIN = 0.95
+_SPEC_PROBE_EVERY = 4
+_SPEC_RATE_ALPHA = 0.3
 
 # Fused decode rounds (decode_rounds > 1): shrink the adaptive round
 # width when more than this fraction of a round's dispatched slot-steps
@@ -132,6 +170,53 @@ FUSED_WASTED_HELP = \
 # used to clamp the width under live deadlines.
 _ROUND_WASTE_FRAC = 0.25
 _ROUND_PACE_ALPHA = 0.2
+
+
+_NO_DRAFT = np.empty((0,), np.int32)
+
+
+def _ngram_propose(history: np.ndarray, k: int,
+                   nmax: int = _SPEC_NGRAM_MAX,
+                   nmin: int = _SPEC_NGRAM_MIN) -> np.ndarray:
+    """Prompt-lookup drafting: find the most recent earlier occurrence of
+    the history's longest matchable suffix (n-gram, longest n first) and
+    propose the up-to-k tokens that followed it; empty when no suffix
+    recurs.  A proposal carries no correctness weight (verify accepts
+    exact greedy matches only): it sets the acceptance rate.  Every
+    matchable suffix ends with the history's last two tokens, so one
+    vectorized scan for them prunes unrepetitive text first."""
+    n_hist = int(history.shape[0])
+    if n_hist < nmin + 1 or k <= 0:
+        return _NO_DRAFT
+    ends = np.flatnonzero(history[:n_hist - 1] == history[n_hist - 1])
+    if ends.size == 0:
+        return _NO_DRAFT
+    if nmin >= 2:
+        ends = ends[ends >= 1]
+        ends = ends[history[ends - 1] == history[n_hist - 2]]
+        if ends.size == 0:
+            return _NO_DRAFT
+    for n in range(min(nmax, n_hist - 1), nmin - 1, -1):
+        cand = ends[ends >= n - 1]
+        if cand.size == 0:
+            continue
+        if n > 1:
+            pattern = history[n_hist - n:]
+            idx = (cand - (n - 1))[:, None] + np.arange(n)[None, :]
+            cand = cand[(history[idx] == pattern[None, :]).all(axis=1)]
+            if cand.size == 0:
+                continue
+        starts = cand + 1
+        # The most recent occurrence with a full k-token continuation,
+        # else the most recent at all, whose short continuation (the
+        # period of a periodic tail) repeats cyclically.
+        full = starts[starts + k <= n_hist]
+        start = int(full[-1] if full.size else starts[-1])
+        proposal = history[start:start + k]
+        if proposal.size < k:
+            proposal = np.resize(history[start:], k)
+        return proposal.astype(np.int32)
+    return _NO_DRAFT
 
 
 def _true_token_len(row: np.ndarray) -> int:
@@ -209,9 +294,14 @@ class DecodeEngine:
       max_queue_depth: a submit arriving with this many requests
         already waiting fails fast with Overloaded; 0 = unbounded.
       overload_retry_after_s: the Retry-After hint of a shed.
-      speculative_tokens, host_spill_blocks, mesh, partition_rules,
-        adapters: the JAX engine's options that are not ported yet; any
-        value but their off value raises ``NotPortedError``.
+      speculative_tokens: the static draft width k of the verify
+        program (0 disables); clamped to ``max_new_tokens - 1``, dropped
+        with a warning when the export samples (speculation is greedy
+        only), and it forces ``sync_lag`` to 0: the drafter reads each
+        slot's delivered history.
+      host_spill_blocks, mesh, partition_rules, adapters: the JAX
+        engine's options that are not ported yet; any value but their
+        off value raises ``NotPortedError``.
       cuda_graphs: None (the default) captures the programs as CUDA
         graphs on a CUDA device and runs them eagerly on the CPU; False
         runs them eagerly on CUDA too (a comparison baseline); True on
@@ -248,7 +338,6 @@ class DecodeEngine:
         from kubeflow_tpu_torch.runtime.prom import REGISTRY
 
         for on, what, item in (
-                (int(speculative_tokens) > 0, "speculative_tokens", 1),
                 (int(host_spill_blocks) > 0, "host_spill_blocks", 3),
                 (decode.kv_cache_dtype != "model", "the int8 KV cache", 4),
                 (adapters is not None, "adapters", 5),
@@ -298,6 +387,21 @@ class DecodeEngine:
         self.max_queue_depth = max(0, int(max_queue_depth))
         self.overload_retry_after_s = overload_retry_after_s
         self._eos = decode.eos_token >= 0
+        # Speculative draft width: greedy exports only, and never more
+        # than the largest completion less its free verify token.
+        spec = max(0, int(speculative_tokens))
+        spec = min(spec, max(0, int(decode.max_new_tokens) - 1))
+        if spec and decode.temperature > 0:
+            log.warning(
+                "engine %r: speculative_tokens=%d ignored: the export "
+                "samples at temperature %g and speculation is greedy-only",
+                name, spec, decode.temperature)
+            spec = 0
+        self.speculative_tokens = spec
+        if spec:
+            # The drafter proposes from each slot's delivered history,
+            # so every call drains in its own loop turn.
+            self.sync_lag = 0
         self._state = init_paged_state(cfg, slots, self.kv_pool_blocks,
                                        self.kv_block_tokens,
                                        device=self.device)
@@ -316,7 +420,10 @@ class DecodeEngine:
         # The engine's programs over the state, the device tables and
         # their own buffers, all of which keep their storage for the
         # engine's life; the fused-round program replaces the step
-        # program when decode_rounds > 1, as in JAX.
+        # program when decode_rounds > 1, as in JAX.  The verify program
+        # exists when the engine speculates; the import program always
+        # (a decode tier may receive a handoff at any time, and every
+        # program is captured before the first admission).
         if cuda_graphs is None:
             cuda_graphs = self.device.type == "cuda"
         self.cuda_graphs = bool(cuda_graphs)
@@ -331,6 +438,13 @@ class DecodeEngine:
             self._decode_prog = programs.Step(
                 model, decode, self._state, self._tables_dev,
                 self.steps_per_call, graphs=self.cuda_graphs)
+        self._verify_prog = programs.Verify(
+            model, decode, self._state, self._tables_dev,
+            self.speculative_tokens, graphs=self.cuda_graphs) \
+            if self.speculative_tokens else None
+        self._import_prog = programs.KvImport(
+            model, decode, self._state, self._tables_dev,
+            self._table_blocks, graphs=self.cuda_graphs)
         # Capture time and graph-pool bytes, set once the loop thread has
         # captured the programs (None when they run eagerly).
         self.capture_info: Optional[Dict[str, Any]] = None
@@ -350,14 +464,28 @@ class DecodeEngine:
         self._chunk_built = False
         self._step_built = False
         self._rounds_built = False
+        self._verify_built = False
+        self._import_built = False
         # Fused decode rounds: the adaptive round width, the realized
         # steps-per-round reservoir and the per-token pace EMA the
         # deadline clamp reads.  Loop-thread-owned.
         self._round_k = self.decode_rounds
         self._round_steps: List[int] = []
         self._step_pace_ema: Optional[float] = None
+        # Speculation (loop-thread-owned): the drafting-scan stride
+        # backoff, the measured delivered-rate EMAs of the decode and
+        # verify programs (the throughput gate's inputs) and the
+        # gated-round probe counter.
+        self._spec_stride = 1
+        self._spec_tick = 0
+        self._rate_step_ema: Optional[float] = None
+        self._rate_verify_ema: Optional[float] = None
+        self._spec_probe = 0
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
+        # Streaming delivery: submit_stream() readers wait here and
+        # _drain_one notifies after each materialized emission.
+        self._emit = threading.Condition(self._lock)
         self._queue: List[dict] = []
         self._stopped = False
         self._drain_deadline: Optional[float] = None
@@ -377,7 +505,9 @@ class DecodeEngine:
             "shed": 0, "expired": 0,
             "prefix_hits": 0, "prefix_misses": 0, "prefix_evictions": 0,
             "prefill_chunks": 0, "cached_tokens": 0, "prompt_tokens": 0,
+            "spec_drafted": 0, "spec_accepted": 0, "spec_steps": 0,
             "kv_evictions": 0, "kv_shed_no_blocks": 0,
+            "handoff_pages_out": 0, "handoff_pages_in": 0,
             "fused_rounds": 0, "fused_steps_wasted": 0,
         }
         self._step_times: List[float] = []   # bounded reservoirs
@@ -420,6 +550,12 @@ class DecodeEngine:
             FUSED_ROUNDS_TOTAL, FUSED_ROUNDS_HELP)
         self._fused_wasted_ctr = REGISTRY.counter(
             FUSED_WASTED_TOTAL, FUSED_WASTED_HELP)
+        self._spec_drafted_ctr = REGISTRY.counter(
+            SPEC_DRAFTED_TOTAL, SPEC_DRAFTED_HELP)
+        self._spec_accepted_ctr = REGISTRY.counter(
+            SPEC_ACCEPTED_TOTAL, SPEC_ACCEPTED_HELP)
+        self._handoff_ctr = REGISTRY.counter(
+            HANDOFF_PAGES_TOTAL, HANDOFF_PAGES_HELP)
         # Fault-layer series: same names as the static batchers', so
         # shed/expired rates read uniformly across batching planes.
         self._shed_ctr = REGISTRY.counter(SHED_TOTAL, SHED_HELP)
@@ -497,21 +633,67 @@ class DecodeEngine:
         return entry["out"]
 
     def prefill_export(self, inputs: Dict[str, Any],
-                       deadline: Optional[float] = None):
-        """The disaggregated prefill tier's export is not ported yet."""
-        raise _not_ported("the KV handoff export (prefill_export)", 2)
+                       deadline: Optional[float] = None) -> Dict[str, Any]:
+        """Disaggregated serving, prefill tier: admit the prompt as an
+        ordinary request clamped to one generated token and return the
+        result with its finished full-block pages under ``kv_handoff``
+        (see _attach_export).  A prompt too short to cover one full page
+        returns no payload."""
+        fwd = dict(inputs)
+        fwd["kv_export"] = True
+        fwd["max_new_tokens"] = 1
+        return self.submit(fwd, deadline=deadline)
+
+    def submit_stream(self, inputs: Dict[str, Any],
+                      deadline: Optional[float] = None):
+        """Streaming twin of :meth:`submit`: admits the request (the same
+        validation, deadlines, resume and typed sheds, all raised here
+        before any token) and returns ``(meta, iterator)``.  ``meta``
+        says whether a replay with ``resume_tokens`` is token-identical
+        (``resumable``: a greedy export), whether a sampling seed was
+        given (``seeded``), the admitted context width and the granted
+        budget.  The iterator yields lists of newly emitted token ints as
+        the loop delivers them, and raises the request's typed error if
+        it fails after admission."""
+        entry = self._admit(inputs, deadline)
+        meta = {
+            "resumable": self.decode.temperature <= 0.0,
+            "seeded": inputs.get("seed") is not None,
+            "prompt_tokens": int(entry["tokens"].shape[1]),
+            "max_new_tokens": entry["new"],
+        }
+
+        def stream():
+            sent = 0
+            while True:
+                with self._emit:
+                    n = len(entry["emitted"])
+                    if n <= sent and not entry["event"].is_set():
+                        self._emit.wait(timeout=0.02)
+                        continue
+                if n > sent:
+                    chunk = [int(t) for t in entry["emitted"][sent:n]]
+                    sent = n
+                    yield chunk
+                if entry["event"].is_set() \
+                        and sent >= len(entry["emitted"]):
+                    if entry["err"] is not None:
+                        raise entry["err"]
+                    return
+
+        return meta, stream()
 
     def fetch_kv(self, inputs: Dict[str, Any]):
-        """The host spill tier's session fetch is not ported yet."""
-        raise _not_ported("the KV page fetch (fetch_kv)", 2)
+        """The host spill tier's session fetch (it serves that tier
+        only) is not ported yet."""
+        raise _not_ported("the host spill tier's KV page fetch (fetch_kv)",
+                          3)
 
     def _admit(self, inputs: Dict[str, Any],
                deadline: Optional[float]) -> dict:
-        """Validate + enqueue one request; returns the live entry whose
-        ``event`` resolves it."""
-        for key, what, item in (("kv_export", "the KV handoff export", 2),
-                                ("kv_handoff", "the KV handoff import", 2),
-                                ("park_kv", "the session park", 3),
+        """Validate + enqueue one request (submit and submit_stream share
+        it); returns the live entry whose ``event`` resolves it."""
+        for key, what, item in (("park_kv", "the session park", 3),
                                 ("adapter", "adapters", 5)):
             if inputs.get(key):
                 raise _not_ported(what, item)
@@ -569,6 +751,12 @@ class DecodeEngine:
         # cache headroom caps it further, both against the TRUE length.
         new = min(total_budget - resume_len, self.max_len - length)
         seed = int(np.asarray(inputs.get("seed", 0)).reshape(()))
+        # Disaggregated serving: ``kv_export`` marks a prefill-tier
+        # request whose result carries its finished pages; ``kv_handoff``
+        # is the decode tier's import payload, validated here so a
+        # malformed one answers 400 before any device work.
+        export = bool(inputs.get("kv_export"))
+        handoff = self._parse_handoff(inputs.get("kv_handoff"), length)
         if deadline is not None and faults.monotonic() >= deadline:
             with self._lock:
                 self._counters["expired"] += 1
@@ -588,15 +776,35 @@ class DecodeEngine:
             "trace": trace_ctx,
             "t_perf": time.perf_counter()
             if trace_ctx is not None else 0.0,
-            "t_first_perf": None,
+            "t_first_perf": None, "spec_acc": 0,
             "prefilling": False, "pos": 0, "cached": 0,
             "res_blocks": res_blocks, "res_left": 0, "blocks": [],
             "released": False,
+            "export": export, "handoff": handoff,
+            # Adaptive draft width: grows on full accepts, shrinks on
+            # full rejects; 0 = backed off (re-probes after cooldown).
+            "spec_k": self.speculative_tokens, "spec_cool": 0,
+            # Drafting history (prompt + emitted), kept by the drain.
+            "hist": None, "hist_len": 0,
             "deadline": deadline,
             "want_timing": bool(inputs.get("return_timing")),
             "event": threading.Event(), "out": None, "err": None,
             "t": faults.monotonic(), "t_first": None,
         }
+        if self.speculative_tokens:
+            hist = np.empty((length + new,), np.int32)
+            hist[:length] = tokens[0]
+            entry["hist"] = hist
+            entry["hist_len"] = length
+            # Only a prompt that repeats a bigram can draft at
+            # admission, so only such an admission resets the backoff.
+            if length >= 3:
+                pairs = (hist[:length - 1].astype(np.int64) << 32) \
+                    | hist[1:length].astype(np.int64)
+                entry["spec_seed"] = bool(
+                    np.unique(pairs).size < length - 1)
+            else:
+                entry["spec_seed"] = False
         with self._lock:
             if self._stopped:
                 raise BatcherClosed(
@@ -653,11 +861,14 @@ class DecodeEngine:
         """Which programs this engine has run, in the JAX engine's terms
         (it counts AOT-compiled executables; this port counts a program
         once the engine has run it, captured or not): {"chunked_prefill",
-        "step", "verify"}, plus ``decode_rounds`` once the fused program
-        ran.  ``verify`` stays 0: speculation is not ported."""
+        "step", "verify"} ("verify" once a slot drafted and a verify
+        call ran), plus ``kv_import`` once a handoff was imported and
+        ``decode_rounds`` once the fused program ran."""
         out = {"chunked_prefill": int(self._chunk_built),
                "step": int(self._step_built),
-               "verify": 0}
+               "verify": int(self._verify_built)}
+        if self._import_built:
+            out["kv_import"] = 1
         if self._rounds_built:
             out["decode_rounds"] = 1
         return out
@@ -667,7 +878,7 @@ class DecodeEngine:
         depth, throughput, per-token latency, prefix-cache
         effectiveness and prefill-interference bounds.  The keys are
         the JAX engine's, less those of the features not ported yet
-        (speculation, the host tier, the KV handoff, the mesh)."""
+        (the host tier, the mesh)."""
         c, extra = locked_snapshot(
             self._lock, self._counters,
             lambda: {
@@ -734,6 +945,19 @@ class DecodeEngine:
             # Fused decode rounds: rounds dispatched, early-exit
             # slot-steps that delivered nothing, and the realized
             # steps-per-round distribution.
+            "handoff_pages_out": c["handoff_pages_out"],
+            "handoff_pages_in": c["handoff_pages_in"],
+            # Speculation: drafted and accepted tokens and the extra
+            # tokens a verify call delivered beyond a decode step's one.
+            "spec_drafted": c["spec_drafted"],
+            "spec_accepted": c["spec_accepted"],
+            "spec_steps": c["spec_steps"],
+            "spec_acceptance_rate": round(
+                c["spec_accepted"] / c["spec_drafted"], 4)
+            if c["spec_drafted"] else 0.0,
+            "accepted_per_step": round(
+                c["spec_accepted"] / c["spec_steps"], 3)
+            if c["spec_steps"] else 0.0,
             "decode_rounds": self.decode_rounds,
             "fused_rounds": c["fused_rounds"],
             "fused_steps_wasted": c["fused_steps_wasted"],
@@ -776,8 +1000,8 @@ class DecodeEngine:
         if not self._thread.is_alive():
             # A hot swap builds a new engine: this one's graphs and
             # their pool go now, not when the object is collected.
-            self._chunk_prog.release()
-            self._decode_prog.release()
+            for prog in self._programs():
+                prog.release()
         # The prefix index dies with the engine (reload invalidation:
         # the serving layer rebuilds engine + pool per model version).
         with self._lock:
@@ -885,8 +1109,116 @@ class DecodeEngine:
         longest cached prefix for free); None = the pool cannot cover it
         yet, leave the request at the queue head."""
         prompt = entry["tokens"][0]
-        return self._mgr.admit(prompt, int(prompt.shape[0]) - 1,
-                               entry["res_blocks"])
+        # A handoff's pages arrive from the prefill tier into private
+        # blocks, so its whole worst case reserves (no prefix lookup).
+        limit = 0 if entry.get("handoff") else int(prompt.shape[0]) - 1
+        return self._mgr.admit(prompt, limit, entry["res_blocks"])
+
+    # -- disaggregated prefill/decode handoff ----------------------------
+
+    def _parse_handoff(self, payload, length: int):
+        """Validate + normalize a KV-handoff payload against this
+        engine's pool geometry; returns {"covered", "k", "v"} (the full
+        pages covering at most ``length - 1`` positions, CPU tensors:
+        at least one prompt token recomputes locally, and its final
+        chunk arms the slot's scalars), or None when nothing is
+        importable.  A geometry or dtype mismatch raises ValueError (a
+        400): a payload from a differently configured replica must not
+        reach the pool.  Pages of another floating dtype are cast to the
+        pool's, as JAX casts them."""
+        if payload is None:
+            return None
+        if not isinstance(payload, dict):
+            raise ValueError("kv_handoff must be an object")
+        bt = int(payload.get("block_tokens", 0))
+        if bt != self.kv_block_tokens:
+            raise ValueError(
+                f"kv_handoff block_tokens {bt} != engine page size "
+                f"{self.kv_block_tokens}")
+        cfg = self.cfg
+        page_shape = (cfg.n_layers, self.kv_block_tokens, cfg.n_kv_heads,
+                      cfg.head_dim)
+
+        def norm(side, raw):
+            if isinstance(raw, dict):
+                raise ValueError(
+                    f"kv_handoff {side}: engine pool is {cfg.dtype}: got "
+                    "a quantized payload")
+            pages = raw if isinstance(raw, torch.Tensor) \
+                else torch.from_numpy(np.asarray(raw))
+            if not pages.dtype.is_floating_point:
+                raise ValueError(
+                    f"kv_handoff {side}: pages of dtype {pages.dtype} "
+                    f"cannot fill a {cfg.dtype} pool")
+            if pages.ndim != 5 or (pages.shape[0],) \
+                    + tuple(pages.shape[2:]) != page_shape:
+                raise ValueError(
+                    f"kv_handoff {side} pages {tuple(pages.shape)} do not "
+                    f"match pool pages [layers={page_shape[0]}, n, "
+                    f"block_tokens={page_shape[1]}, hkv={page_shape[2]}, "
+                    f"d={page_shape[3]}]")
+            return pages
+
+        pages_k = norm("k", payload.get("k"))
+        pages_v = norm("v", payload.get("v"))
+        if pages_k.shape[1] != pages_v.shape[1]:
+            raise ValueError("kv_handoff k/v page counts differ")
+        n = min(int(pages_k.shape[1]),
+                (int(length) - 1) // self.kv_block_tokens)
+        if n <= 0:
+            return None
+        return {"covered": n * self.kv_block_tokens,
+                "k": pages_k[:, :n], "v": pages_v[:, :n]}
+
+    def _import_handoff(self, entry: dict) -> None:
+        """Admission, decode-tier side (loop thread, slot claimed): take
+        the covered pages from the entry's reservation, scatter the
+        transferred pages into them (one ``kv_import`` call over the
+        table-wide span, padded with the sentinel as JAX's ``_pad_pages``
+        pads it) and start chunked prefill at the covered offset, from
+        where the request is a local prefix-cache resume."""
+        # Chaos hook: sleep = slow cross-replica transfer, raise = import
+        # failure.
+        faults.fire("engine.kv_handoff")
+        pages = entry["handoff"]
+        self._ensure_cover(entry, pages["covered"] - 1)
+        n = pages["covered"] // self.kv_block_tokens
+        ids = np.full((self._table_blocks,), self.kv_pool_blocks, np.int64)
+        ids[:n] = entry["blocks"][:n]
+        self._import_prog.run(pages["k"], pages["v"], ids)
+        self._import_built = True
+        entry["pos"] = pages["covered"]
+        with self._lock:
+            self._counters["handoff_pages_in"] += n
+        self._handoff_ctr.inc(n, engine=self._metric_name,
+                              direction="import")
+
+    def _attach_export(self, entry: dict) -> None:
+        """Delivery, prefill side (loop thread, pages still held): gather
+        the finished full-block prompt pages into the result, in the form
+        ``kv_handoff`` imports.  It runs before release, so nothing can
+        overwrite the pages mid-gather."""
+        from kubeflow_tpu_torch.models.generate import gather_kv_pages
+
+        true_len = int(entry["tokens"].shape[1])
+        n = min((true_len - 1) // self.kv_block_tokens,
+                len(entry["blocks"]))
+        if n <= 0:
+            return
+        # Chaos hook: raise = export failure at delivery.
+        faults.fire("engine.kv_handoff")
+        (pages_k, _), (pages_v, _) = gather_kv_pages(
+            self._state, entry["blocks"][:n])
+        entry["out"]["kv_handoff"] = {
+            "block_tokens": self.kv_block_tokens,
+            "tokens_covered": n * self.kv_block_tokens,
+            "k": pages_k,
+            "v": pages_v,
+        }
+        with self._lock:
+            self._counters["handoff_pages_out"] += n
+        self._handoff_ctr.inc(n, engine=self._metric_name,
+                              direction="export")
 
     def _ensure_cover(self, entry: dict, upto_pos: int) -> None:
         """Grow the slot's block table to cover position ``upto_pos``,
@@ -915,6 +1247,24 @@ class DecodeEngine:
             self._evict_ctr.inc(rec_d, engine=self._metric_name)
         if blk_d:
             self._kv_evict_ctr.inc(blk_d, engine=self._metric_name)
+
+    def _trim_cover(self, entry: dict, next_write_pos: int) -> None:
+        """Speculative rollback, pool side: pages past the one covering
+        ``next_write_pos`` hold only rejected-draft k/v (already behind
+        the attention mask); give them back to the pool and restore the
+        entry's reservation."""
+        target = max(1, next_write_pos // self.kv_block_tokens + 1)
+        n = len(entry["blocks"])
+        if n <= target:
+            return
+        row = self._tables[entry["slot"]]
+        row[target:n] = self.kv_pool_blocks
+        with self._lock:
+            self._tables_dirty = True
+            tail = entry["blocks"][target:]
+            del entry["blocks"][target:]
+            entry["res_left"] += len(tail)
+            self._mgr.rollback(tail)
 
     def _flush_evictions_locked(self):
         """Fold the manager's eviction totals into the engine counters;
@@ -988,6 +1338,10 @@ class DecodeEngine:
                        "prompt_tokens": true_len,
                        "cached_tokens": cached,
                        "prefix": "hit" if cached else "miss"})
+        if entry.get("handoff"):
+            # Disaggregated decode tier: import the prefill tier's pages,
+            # then chunk-prefill only the uncovered suffix (>= 1 token).
+            self._import_handoff(entry)
         entry["prefilling"] = True
         self._prefill_chunk(entry)  # claim-time freeze + first chunk
         if entry["prefilling"]:
@@ -1048,6 +1402,9 @@ class DecodeEngine:
             [entry["tokens"],
              np.asarray(entry["emitted"], np.int32)[None]], axis=1)
         entry["out"] = {"tokens": out}
+        if entry.get("export"):
+            # Prefill-tier delivery: the finished pages ride the result.
+            self._attach_export(entry)
         if entry["want_timing"]:
             now = faults.monotonic()
             entry["out"]["ttft_s"] = (
@@ -1061,7 +1418,8 @@ class DecodeEngine:
                 "engine.decode", entry["trace"],
                 entry["t_first_perf"] or end, end,
                 attrs={"engine": self._metric_name,
-                       "tokens": len(entry["emitted"])})
+                       "tokens": len(entry["emitted"]),
+                       "spec_accepted": entry["spec_acc"]})
         entry["event"].set()
 
     def _drain_one(self) -> None:
@@ -1071,7 +1429,8 @@ class DecodeEngine:
         Three emission shapes ride the one stream: a prefill's [1] first
         token, a decode call's [steps, slots] grid, and a fused round's
         slot-major [slots, k] grid with a per-slot ``counts`` vector
-        (row s carries counts[s] real tokens)."""
+        (row s carries counts[s] real tokens), the shape a verify call's
+        [slots, k + 1] emissions take too."""
         readback, snapshot, has_counts = self._pending.pop(0)
         arrays = readback.numpy()
         host = arrays[0]
@@ -1097,6 +1456,9 @@ class DecodeEngine:
                     if entry["trace"] is not None:
                         entry["t_first_perf"] = time.perf_counter()
                 entry["emitted"].append(tok)
+                if entry["hist"] is not None:
+                    entry["hist"][entry["hist_len"]] = tok
+                    entry["hist_len"] += 1
                 emitted += 1
                 complete = len(entry["emitted"]) >= entry["new"] or (
                     self._eos and tok == self.decode.eos_token)
@@ -1123,17 +1485,30 @@ class DecodeEngine:
             self._ttft_times.extend(ttfts)
             if len(self._ttft_times) > 4096:
                 del self._ttft_times[:2048]
+            # Wake streaming readers: their tokens materialized above.
+            self._emit.notify_all()
         if emitted:
             self._tok_counter.inc(emitted, engine=self._metric_name)
 
+    @staticmethod
+    def _blend_rate(ema, rate):
+        return rate if ema is None else (
+            (1 - _SPEC_RATE_ALPHA) * ema + _SPEC_RATE_ALPHA * rate)
+
     def _record_step_timing(self, t0, end, norm, steps, occupancy,
-                            extra=None, round_steps=None):
-        """Shared per-call accounting for the step programs: busy time,
-        step/occupancy counters, the per-token latency and inter-token
-        gap reservoirs and the step histogram.  ``norm`` is tokens per
-        slot stream this call; ``extra`` merges further counters under
-        the same lock; ``round_steps`` appends to the steps-per-round
-        reservoir (fused rounds only)."""
+                            extra=None, delivered=None, program="step",
+                            round_steps=None):
+        """Shared per-call accounting for every step program (decode
+        step, fused round, verify): busy time, step/occupancy counters,
+        the per-token latency and inter-token gap reservoirs, the step
+        histogram and the throughput gate's rate EMAs.  ``norm`` is
+        tokens per slot stream this call; ``extra`` merges further
+        counters under the same lock; ``delivered`` (tokens the call
+        delivered, after EOS and budget cuts) over the call's time feeds
+        the ``program``'s rate EMA, one sample a call, each call timed
+        from its dispatch to the end of its drain on the host clock;
+        ``round_steps`` appends to the steps-per-round reservoir (fused
+        rounds only)."""
         dt = end - t0
         per_tok = dt / norm
         gap = (end - self._last_step_end
@@ -1163,6 +1538,14 @@ class DecodeEngine:
                 if len(self._round_steps) > 4096:
                     del self._round_steps[:2048]
         self._step_hist.observe(per_tok, engine=self._metric_name)
+        if delivered is not None and delivered > 0 and dt > 0:
+            rate = delivered / dt
+            if program == "verify":
+                self._rate_verify_ema = self._blend_rate(
+                    self._rate_verify_ema, rate)
+            else:
+                self._rate_step_ema = self._blend_rate(
+                    self._rate_step_ema, rate)
 
     def _round_width(self) -> int:
         """Current fused-round step width: the adaptive value, clamped
@@ -1190,7 +1573,9 @@ class DecodeEngine:
         table upload) runs while the device computes.  Drains at the
         round boundary: admissions and expiries join between rounds.
         Greedy tokens equal the k=1 loop's: the device math is
-        ``decode_step``'s body, and slots are independent rows."""
+        ``decode_step``'s body, and slots are independent rows.  When
+        the engine speculates, the drafting scan for the next boundary's
+        verify runs in the overlap window too (``_draft_ahead``)."""
         kmax = self.decode_rounds
         width = self._round_width()
         snapshot = [(i, r) for i, r in enumerate(self._slot_req)
@@ -1221,6 +1606,8 @@ class DecodeEngine:
                 self._ensure_cover(
                     r, r["tokens"].shape[1] + r["scheduled"] + kmax - 1)
         self._refresh_tables_dev()
+        if self.speculative_tokens:
+            self._draft_ahead(snapshot, width)
         # ---- round boundary: materialize ONCE, deliver, account.
         steps = int(readback.numpy()[2])
         self._pending.append((readback, snapshot, True))
@@ -1241,7 +1628,7 @@ class DecodeEngine:
         self._record_step_timing(
             t0, end, norm, steps=norm, occupancy=live * norm,
             extra={"fused_rounds": 1, "fused_steps_wasted": wasted},
-            round_steps=steps)
+            delivered=delivered, round_steps=steps)
         self._fused_rounds_ctr.inc(1, engine=self._metric_name)
         if wasted:
             self._fused_wasted_ctr.inc(wasted,
@@ -1262,6 +1649,9 @@ class DecodeEngine:
         # Chaos hook: sleep = slow/wedged step (deadlines expire
         # mid-generation); raise = device death.
         faults.fire("engine.step")
+        # The tokens this call delivers (the drain below runs on this
+        # thread) feed the speculation gate's decode-side rate.
+        tok_before = self._counters["tokens"]
         t0 = time.perf_counter()
         readback = _Readback(self._decode_prog.run())
         self._step_built = True
@@ -1280,7 +1670,247 @@ class DecodeEngine:
         while len(self._pending) > self.sync_lag:
             self._drain_one()
         end = time.perf_counter()
-        self._record_step_timing(t0, end, k, steps=k, occupancy=live * k)
+        self._record_step_timing(
+            t0, end, k, steps=k, occupancy=live * k,
+            delivered=(self._counters["tokens"] - tok_before
+                       if self.speculative_tokens else None))
+
+    # -- speculation -----------------------------------------------------
+
+    def _draft_ahead(self, snapshot, width: int) -> None:
+        """Overlapped drafting (fused rounds): while the round computes,
+        scan each slot's dispatch-time history and keep the proposal on
+        the entry, drafted ``width`` tokens deeper than the verify window
+        so that it outlives the round in flight.  At the boundary,
+        ``_harvest_ahead_drafts`` keeps the proposals whose heads match
+        what the round delivered.  The scan-stride backoff and the
+        per-slot cooldown tick here, as in ``_collect_drafts``."""
+        k = self.speculative_tokens
+        self._spec_tick += 1
+        if self._spec_tick < self._spec_stride:
+            return
+        self._spec_tick = 0
+        proposed = False
+        for i, entry in snapshot:
+            if self._slot_req[i] is not entry or entry["event"].is_set():
+                continue    # retired at this round's dispatch
+            if entry["spec_k"] <= 0:
+                entry["spec_cool"] -= 1
+                if entry["spec_cool"] <= 0:
+                    entry["spec_k"] = max(1, k // 2)
+                continue
+            room = entry["new"] - len(entry["emitted"]) - 1
+            if room <= 0:
+                continue
+            depth = width + min(k, entry["spec_k"], room)
+            proposal = _ngram_propose(
+                entry["hist"][:entry["hist_len"]], depth)
+            if proposal.size:
+                proposed = True
+                entry["draft_ahead"] = (entry["hist_len"], proposal)
+        if proposed:
+            self._spec_stride = 1
+        else:
+            self._spec_stride = min(self._spec_stride * 2,
+                                    _SPEC_SCAN_STRIDE_MAX)
+
+    def _harvest_ahead_drafts(self):
+        """The boundary side of overlapped drafting: (snapshot, draft
+        [S, k], draft_len [S]) from the ahead-proposals whose heads equal
+        the tokens the round delivered, clipped to the verify window at
+        the new frontier; None when nothing survived (the loop then runs
+        a plain fused round, which drafts again while it computes)."""
+        k = self.speculative_tokens
+        draft = draft_len = None
+        snapshot: List[tuple] = []
+        for i, entry in enumerate(self._slot_req):
+            if entry is None or entry["prefilling"]:
+                continue
+            snapshot.append((i, entry))
+            ahead = entry.pop("draft_ahead", None)
+            if ahead is None:
+                continue
+            at_len, proposal = ahead
+            grown = entry["hist_len"] - at_len
+            if grown < 0 or grown >= proposal.size:
+                continue
+            if grown and not np.array_equal(
+                    entry["hist"][at_len:entry["hist_len"]],
+                    proposal[:grown]):
+                continue
+            room = entry["new"] - len(entry["emitted"]) - 1
+            width = min(int(proposal.size) - grown, k, entry["spec_k"],
+                        room)
+            if width <= 0:
+                continue
+            if draft is None:
+                draft = np.zeros((self.slots, k), np.int32)
+                draft_len = np.zeros((self.slots,), np.int32)
+            draft[i, :width] = proposal[grown:grown + width]
+            draft_len[i] = width
+        if draft is None:
+            return None
+        return snapshot, draft, draft_len
+
+    def _collect_drafts(self):
+        """The host's n-gram drafting pass over the live slots: (snapshot,
+        draft [S, k], draft_len [S]) when at least one slot proposed,
+        else None (the loop then runs the plain decode program).  The
+        histories are exact: speculation forces sync_lag 0."""
+        k = self.speculative_tokens
+        draft = draft_len = None
+        snapshot: List[tuple] = []
+        for i, entry in enumerate(self._slot_req):
+            if entry is None or entry["prefilling"]:
+                continue
+            snapshot.append((i, entry))
+            if entry["spec_k"] <= 0:
+                # Backed off: tick the cooldown, then re-probe at a width
+                # that can clear the draft-mass floor on its own.
+                entry["spec_cool"] -= 1
+                if entry["spec_cool"] <= 0:
+                    entry["spec_k"] = max(1, k // 2)
+                continue
+            # The last budgeted token is the verify call's free one.
+            room = entry["new"] - len(entry["emitted"]) - 1
+            width = min(k, entry["spec_k"], room)
+            if width <= 0:
+                continue
+            proposal = _ngram_propose(
+                entry["hist"][:entry["hist_len"]], width)
+            if proposal.size:
+                if draft is None:
+                    draft = np.zeros((self.slots, k), np.int32)
+                    draft_len = np.zeros((self.slots,), np.int32)
+                draft[i, :proposal.size] = proposal
+                draft_len[i] = proposal.size
+        if draft is None:
+            return None
+        return snapshot, draft, draft_len
+
+    def _spec_gates_pass(self, draft_len) -> bool:
+        """Should this round's proposals dispatch verify?  Mass gate: the
+        window is statically k+1 wide, so a round proposing under half a
+        window cannot win.  Throughput gate: verify runs only while its
+        measured delivered rate is at least ``_SPEC_RATE_MARGIN`` of the
+        decode program's (EMAs over real calls); while gated, a probe
+        verify every ``_SPEC_PROBE_EVERY`` rounds refreshes the
+        estimate."""
+        if int(draft_len.sum()) < max(1, self.speculative_tokens // 2):
+            return False
+        if self._rate_step_ema is not None \
+                and self._rate_verify_ema is not None:
+            if self._rate_verify_ema \
+                    < _SPEC_RATE_MARGIN * self._rate_step_ema:
+                self._spec_probe += 1
+                if self._spec_probe < _SPEC_PROBE_EVERY:
+                    return False
+            self._spec_probe = 0
+        return True
+
+    def _verify_round(self, snapshot, draft, draft_len, live: int) -> None:
+        """One speculative round: a verify call over every live slot,
+        drained in this loop turn, its outcome folded into the adaptive
+        widths and counters.  Rejected columns are already behind the
+        attention mask (the call advanced ``lengths`` over the emitted
+        prefix only); the host gives whole rejected-tail pages back to
+        the pool.  Prefix publication covers full prompt pages written
+        by prefill only, so a rejected draft never enters one."""
+        k = self.speculative_tokens
+        # Cover every slot's window [len, len + k] before dispatch;
+        # positions past the reservation can only be rejected or past
+        # the budget, and land on the scratch block.
+        for _, entry in snapshot:
+            self._ensure_cover(
+                entry, entry["tokens"].shape[1] + len(entry["emitted"]) + k)
+        self._refresh_tables_dev()
+        faults.fire("engine.step")
+        t0 = time.perf_counter()
+        readback = _Readback(*self._verify_prog.run(draft, draft_len))
+        self._verify_built = True
+        self._pending.append((readback, snapshot, True))
+        while len(self._pending) > self.sync_lag:   # sync: drains all
+            self._drain_one()
+        end = time.perf_counter()
+        toks_np, counts_np = readback.numpy()
+        drafted = int(draft_len.sum())
+        accepted = 0
+        for col, entry in snapshot:
+            d = int(draft_len[col])
+            if not d:
+                continue
+            lim = min(d, int(counts_np[col]))
+            a = 0
+            while a < lim and toks_np[col, a] == draft[col, a]:
+                a += 1
+            accepted += a
+            entry["spec_acc"] += a
+            # Additive increase on a full accept, decrease on a full
+            # reject; at zero the slot stops drafting until the cooldown
+            # re-probe.
+            if a == d:
+                entry["spec_k"] = min(k, entry["spec_k"] + 1)
+            elif a == 0:
+                entry["spec_k"] -= 1
+                if entry["spec_k"] <= 0:
+                    entry["spec_k"] = 0
+                    entry["spec_cool"] = _SPEC_COOLDOWN
+        # ``scheduled`` follows the delivered count: the plain rounds
+        # that follow size their page cover from it.
+        for _, entry in snapshot:
+            entry["scheduled"] = max(entry["scheduled"],
+                                     len(entry["emitted"]))
+            if not entry["released"]:
+                self._trim_cover(
+                    entry, entry["tokens"].shape[1] + len(entry["emitted"]))
+        total = int(counts_np.sum())
+        advancing = int(np.count_nonzero(counts_np))
+        # Per-token latency: normalized by the mean emissions of the
+        # slots that advanced, the client-visible stream pace.
+        norm = max(1.0, total / advancing) if advancing else 1.0
+        self._record_step_timing(
+            t0, end, norm, steps=1, occupancy=live,
+            extra={"spec_steps": 1, "spec_drafted": drafted,
+                   "spec_accepted": accepted},
+            delivered=total, program="verify")
+        if drafted:
+            self._spec_drafted_ctr.inc(drafted, engine=self._metric_name)
+        if accepted:
+            self._spec_accepted_ctr.inc(accepted, engine=self._metric_name)
+
+    def _speculate(self, live: int, admissions) -> bool:
+        """The loop's speculation branch; True when a verify round ran in
+        place of this turn's decode step or round.  Fused mode harvests
+        the proposals drafted in the previous round's overlap window;
+        the per-step mode drafts here, and a truly empty scan stretches
+        the scan stride.  A draftable admission resets the stride and
+        lets the first drafted round probe past the throughput gate."""
+        seeded = any(e.get("spec_seed") for e, _ in admissions)
+        if self.decode_rounds > 1:
+            if seeded:
+                self._spec_stride = 1
+                self._spec_tick = self._spec_stride
+                self._spec_probe = _SPEC_PROBE_EVERY
+            drafts = self._harvest_ahead_drafts()
+        else:
+            self._spec_tick += 1
+            if seeded:
+                self._spec_stride = 1
+                self._spec_tick = self._spec_stride
+                self._spec_probe = _SPEC_PROBE_EVERY
+            if self._spec_tick < self._spec_stride:
+                return False
+            self._spec_tick = 0
+            drafts = self._collect_drafts()
+            if drafts is None:
+                self._spec_stride = min(self._spec_stride * 2,
+                                        _SPEC_SCAN_STRIDE_MAX)
+                return False
+            self._spec_stride = 1
+        if drafts is None or not self._spec_gates_pass(drafts[2]):
+            return False
+        self._verify_round(*drafts, live)
+        return True
 
     def _run(self) -> None:
         # inference_mode is per thread: the programs run on this one.
@@ -1309,7 +1939,7 @@ class DecodeEngine:
             return
         t0 = time.perf_counter()
         pool = torch.cuda.graph_pool_handle()
-        progs = (self._chunk_prog, self._decode_prog)
+        progs = self._programs()
         for prog in progs:
             prog.capture(pool)
         torch.cuda.synchronize(self.device)
@@ -1328,6 +1958,12 @@ class DecodeEngine:
                  self.capture_info["programs"],
                  self.capture_info["seconds"],
                  self.capture_info["pool_bytes"])
+
+    def _programs(self) -> List[programs._Program]:
+        """The engine's programs, in capture order."""
+        return [prog for prog in (self._chunk_prog, self._decode_prog,
+                                  self._verify_prog, self._import_prog)
+                if prog is not None]
 
     def _loop_once(self) -> bool:
         """One turn of the loop: sweep, admit, prefill under the chunk
@@ -1418,7 +2054,10 @@ class DecodeEngine:
         self._set_occ_gauge(sum(r is not None for r in self._slot_req))
         live = sum(1 for r in self._slot_req
                    if r is not None and not r["prefilling"])
-        if live and self.decode_rounds > 1:
+        if live and self.speculative_tokens \
+                and self._speculate(live, admissions):
+            pass    # a verify round took this turn's decode
+        elif live and self.decode_rounds > 1:
             self._fused_round(live)
         elif live:
             self._step(live)

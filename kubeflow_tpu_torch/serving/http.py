@@ -8,12 +8,23 @@ score], ...], ...]}}``; ``GET /model/NAME:metadata`` returns
 the exported signature; ``GET /model/NAME:stats`` the batching plane's
 live stats (the decode engine's ``stats()``, a batcher's dispatch
 profile, or null on the direct path); ``/healthz`` is liveness and
-``/readyz`` readiness (503 while draining).  Typed errors map to
+``/readyz`` readiness (503 while draining), with the server's ``role``.
+On a decode-engine model, ``POST /model/NAME:generate`` streams chunked
+NDJSON (a meta line, ``{"tokens": [...]}`` lines as the engine emits, a
+terminal done or error line), and ``POST /model/NAME:prefill`` answers
+the prompt's finished KV pages as a wire-encoded ``kv_handoff`` that a
+decode tier's :generate body carries.  Typed errors map to
 404/400/429/504, and a feature not ported yet (``NotPortedError``) to
-501.  stdlib ``http.server`` (threaded), one process.
+501, as ``:fetch_kv`` (the host spill tier's) answers.  stdlib
+``http.server`` (threaded), one process.
 
-Not ported yet: :generate streaming, :prefill and :fetch_kv (ROADMAP
-queue 1, item 2); /metrics and /debug/traces (item 9).
+The wire form of a KV page stack is JAX's, byte for byte: ``{"b64",
+"shape", "dtype"}`` with the raw little-endian bytes, ``"bfloat16"``
+for bf16 pages (written from an int16 view, read back with
+``torch.frombuffer``), so a prefill tier of either package can hand
+pages to a decode tier of the other.
+
+Not ported yet: /metrics and /debug/traces (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from kubeflow_tpu_torch.serving.errors import DeadlineExceeded, Overloaded
 from kubeflow_tpu_torch.serving.model_server import ModelServer
@@ -42,6 +54,9 @@ _ROUTES = [
     ("GET", re.compile(r"^/model/(?P<name>[^/:]+):stats$"), "stats"),
     ("POST", re.compile(r"^/model/(?P<name>[^/:]+):predict$"), "predict"),
     ("POST", re.compile(r"^/model/(?P<name>[^/:]+):classify$"), "classify"),
+    ("POST", re.compile(r"^/model/(?P<name>[^/:]+):generate$"), "generate"),
+    ("POST", re.compile(r"^/model/(?P<name>[^/:]+):prefill$"), "prefill"),
+    ("POST", re.compile(r"^/model/(?P<name>[^/:]+):fetch_kv$"), "fetch_kv"),
     ("POST", re.compile(
         r"^/model/(?P<name>[^/:]+)/version/(?P<version>\d+):predict$"),
      "predict"),
@@ -68,6 +83,65 @@ def parse_deadline_ms(body: Dict[str, Any]) -> Optional[float]:
         raise ValueError(f"deadline_ms must be a positive finite number, "
                          f"got {deadline_ms}")
     return time.monotonic() + deadline_ms / 1e3
+
+
+# Wire dtype names of the port's pool dtypes.  An int8 pool's payload
+# (values + float32 scale) also decodes, so that the engine refuses it by
+# name.
+_WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+_FROM_WIRE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int8": torch.int8}
+
+
+def _enc_arr(pages: torch.Tensor) -> Dict[str, Any]:
+    """A page stack -> ``{b64, shape, dtype}``; bf16 bytes go out through
+    an int16 view."""
+    t = pages.detach().to("cpu").contiguous()
+    raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+    return {"b64": base64.b64encode(raw.tobytes()).decode(),
+            "shape": list(t.shape), "dtype": _WIRE_DTYPES[t.dtype]}
+
+
+def _dec_arr(d: Any) -> torch.Tensor:
+    if not isinstance(d, dict) or "b64" not in d:
+        raise ValueError("kv_handoff array must be {b64, shape, dtype}")
+    try:
+        dtype = _FROM_WIRE[str(d["dtype"])]
+        raw = bytearray(base64.b64decode(d["b64"]))
+        shape = [int(s) for s in d["shape"]]
+        if not raw:
+            return torch.zeros(shape, dtype=dtype)
+        return torch.frombuffer(raw, dtype=dtype).reshape(shape)
+    except (ValueError, TypeError, KeyError, RuntimeError) as e:
+        raise ValueError(f"malformed kv_handoff array: {e!r}") from None
+
+
+def encode_kv_handoff(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """Engine-form KV handoff (page stacks, DecodeEngine._attach_export)
+    -> JSON wire form, each stack ``{b64, shape, dtype}``.  A router
+    forwards it verbatim from a :prefill answer into a decode tier's
+    :generate body."""
+    return {"block_tokens": int(payload["block_tokens"]),
+            "tokens_covered": int(payload["tokens_covered"]),
+            "k": _enc_arr(payload["k"]),
+            "v": _enc_arr(payload["v"])}
+
+
+def decode_kv_handoff(wire: Any) -> Dict[str, Any]:
+    """Wire form -> the engine's import form (CPU tensors; the engine
+    validates geometry and dtype against its own pool)."""
+    if not isinstance(wire, dict):
+        raise ValueError("kv_handoff must be an object")
+
+    def dec_side(side):
+        if isinstance(side, dict) and "values" in side:
+            return {"values": _dec_arr(side.get("values")),
+                    "scale": _dec_arr(side.get("scale"))}
+        return _dec_arr(side)
+
+    return {"block_tokens": int(wire.get("block_tokens", 0)),
+            "k": dec_side(wire.get("k")),
+            "v": dec_side(wire.get("v"))}
 
 
 def decode_b64_if_needed(value: Any) -> Any:
@@ -166,6 +240,59 @@ class ServingAPI:
             classifications.append(pairs)
         return {"result": {"classifications": classifications}}
 
+    def generate(self, name: str, body: Dict[str, Any]):
+        """Streaming generation admission: (meta, iterator) from the
+        model's decode engine.  Body keys: ``tokens`` (the prompt),
+        optional ``max_new_tokens`` / ``seed`` / ``prompt_len`` /
+        ``deadline_ms`` / ``resume_tokens`` (tokens a prior attempt
+        delivered), and ``kv_handoff`` (a prefill tier's pages: the
+        engine imports them and prefills only the rest)."""
+        tokens = body.get("tokens")
+        if tokens is None:
+            raise ValueError("Request json object must use the key: tokens")
+        deadline = parse_deadline_ms(body)
+        inputs: Dict[str, Any] = {"tokens": np.asarray(tokens, np.int32)}
+        for key in ("max_new_tokens", "seed", "prompt_len",
+                    "resume_tokens", "park_kv"):
+            if body.get(key) is not None:
+                inputs[key] = body[key]
+        if body.get("kv_handoff") is not None:
+            inputs["kv_handoff"] = decode_kv_handoff(body["kv_handoff"])
+        return self.server.generate_stream(name, inputs, deadline=deadline)
+
+    def prefill(self, name: str, body: Dict[str, Any],
+                version: Optional[int] = None) -> Dict[str, Any]:
+        """Disaggregated serving, prefill tier: chunk-prefill the prompt
+        on the model's engine and answer its finished pages as a wire
+        ``kv_handoff``, null when the prompt is too short to cover one
+        full page (the caller then takes the untiered path)."""
+        tokens = body.get("tokens")
+        if tokens is None:
+            raise ValueError("Request json object must use the key: tokens")
+        deadline = parse_deadline_ms(body)
+        inputs: Dict[str, Any] = {"tokens": np.asarray(tokens, np.int32)}
+        for key in ("seed", "prompt_len"):
+            if body.get(key) is not None:
+                inputs[key] = body[key]
+        out = self.server.prefill_handoff(name, inputs, deadline=deadline)
+        payload = out.get("kv_handoff")
+        return {
+            "kv_handoff": None if payload is None
+            else encode_kv_handoff(payload),
+            "tokens_covered": 0 if payload is None
+            else int(payload["tokens_covered"]),
+        }
+
+    def fetch_kv(self, name: str, body: Dict[str, Any],
+                 version: Optional[int] = None) -> Dict[str, Any]:
+        """The host spill tier's page fetch: the engine refuses it (501)
+        until that tier is ported (ROADMAP queue 1 item 3)."""
+        tokens = body.get("tokens")
+        if tokens is None:
+            raise ValueError("Request json object must use the key: tokens")
+        return self.server.fetch_kv(
+            name, {"tokens": np.asarray(tokens, np.int32)})
+
 
 class _Handler(BaseHTTPRequestHandler):
     api: ServingAPI  # set by make_http_server
@@ -228,24 +355,75 @@ class _Handler(BaseHTTPRequestHandler):
         elif action == "health":
             self._send(200, {"status": "ok", "models": server.models()})
         elif action == "ready":
+            # ``role`` advertises the disaggregation tier (prefill,
+            # decode or unified) to whatever routes between tiers.
             if server.is_ready():
-                self._send(200, {"status": "ready",
+                self._send(200, {"status": "ready", "role": server.role,
                                  "models": server.models()})
             else:
                 self._send(503, {"status": "draining" if server.draining()
-                                 else "no models loaded"})
+                                 else "no models loaded",
+                                 "role": server.role})
         elif action == "metadata":
             self._send(200, self.api.metadata(groups["name"]))
         elif action == "stats":
             self._send(200, self.api.stats(groups["name"]))
+        elif action == "generate":
+            self._run_generate(groups["name"])
         else:
             length = int(self.headers.get("Content-Length", 0))
             body = json.loads(self.rfile.read(length) or b"{}")
             version = int(groups["version"]) if groups.get("version") \
                 else None
-            handler = (self.api.classify if action == "classify"
-                       else self.api.predict)
+            handler = getattr(self.api, action)
             self._send(200, handler(groups["name"], body, version))
+
+    def _run_generate(self, name: str) -> None:
+        """The streaming :generate route: chunked NDJSON on the keep-alive
+        connection.  Admission failures (shed, expired deadline, bad
+        request, no engine) raise before the status line and map to the
+        ordinary codes; once streaming has begun, a failure becomes a
+        terminal ``{"error": ..., "code": ...}`` line (a second status
+        line would corrupt the chunked body)."""
+        length = int(self.headers.get("Content-Length", 0))
+        body = json.loads(self.rfile.read(length) or b"{}")
+        meta, stream = self.api.generate(name, body)
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        emitted = 0
+        try:
+            self._write_chunk({"meta": dict(meta, model=name)})
+            for chunk in stream:
+                emitted += len(chunk)
+                self._write_chunk({"tokens": chunk})
+            self._write_chunk({"done": True, "tokens_emitted": emitted})
+        except DeadlineExceeded as e:
+            self._write_chunk({"error": str(e), "code": 504})
+        except ConnectionError:
+            # The client went away: nothing is left to write to, and the
+            # engine entry resolves on its own.
+            return
+        except Exception as e:  # noqa: BLE001 -- the stream must close
+            log.exception("generate stream error")
+            self._write_chunk({"error": f"{type(e).__name__}: {e}",
+                               "code": 500})
+        finally:
+            stream.close()
+        self._end_chunks()
+
+    def _write_chunk(self, payload: Dict[str, Any]) -> None:
+        """One NDJSON line as one flushed HTTP/1.1 chunk: a proxy splices
+        streams on line boundaries, so each line goes out when it
+        exists."""
+        data = json.dumps(payload).encode() + b"\n"
+        self.wfile.write(b"%x\r\n" % len(data) + data + b"\r\n")
+        self.wfile.flush()
+
+    def _end_chunks(self) -> None:
+        self.wfile.write(b"0\r\n\r\n")
+        self.wfile.flush()
 
     def _send(self, code: int, payload: Any, raw: bool = False,
               headers: Optional[Dict[str, str]] = None) -> None:

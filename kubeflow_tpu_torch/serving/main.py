@@ -13,12 +13,16 @@ blocks, prefix caching on); prompts wider than its prefill width take
 the direct ``generate()`` path.  ``--lm_static_batcher`` restores the
 static ``BucketedLMBatcher`` (with ``--micro_batch_size`` and
 ``--lm_buckets``); other models get the shape-grouped ``MicroBatcher``.
+``--speculative_tokens N`` makes the engine speculate with n-gram drafts
+of up to N tokens (greedy exports), and ``--role prefill|decode``
+advertises the server's disaggregated tier on /readyz (every server
+answers :prefill and the streaming :generate).
 
-Not ported yet: the engine's speculative decoding (ROADMAP queue 1,
-item 1), host spill tier (item 3), adapters (item 5) and ``--mesh``
-(item 6), whose flags are accepted at their off values only and raise
-``NotPortedError`` otherwise; the gRPC face (item 7); tracing routes,
-fault injection from the environment and idempotency dedup (item 9).
+Not ported yet: the engine's host spill tier (ROADMAP queue 1, item 3),
+adapters (item 5) and ``--mesh`` (item 6), whose flags are accepted at
+their off values only and raise ``NotPortedError`` otherwise; the gRPC
+face (item 7); tracing routes, fault injection from the environment and
+idempotency dedup (item 9).
 """
 
 from __future__ import annotations
@@ -77,8 +81,7 @@ def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
     """
     from kubeflow_tpu_torch.serving.engine import DecodeEngine
 
-    for on, flag, item in ((speculative_tokens > 0, "--speculative_tokens", 1),
-                           (host_spill_blocks > 0, "--host_spill_blocks", 3),
+    for on, flag, item in ((host_spill_blocks > 0, "--host_spill_blocks", 3),
                            (bool(adapters_dir), "--adapters_dir", 5),
                            (bool(mesh), "--mesh", 6)):
         if on:
@@ -124,6 +127,7 @@ def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
                     prefix_caching=prefix_caching,
                     max_queue_depth=max_queue_depth,
                     overload_retry_after_s=overload_retry_after_s,
+                    speculative_tokens=speculative_tokens,
                     name=f"{model.name}-v{model.version}")
             logging.warning(
                 "decode engine disabled for %r: max_new_tokens %d "
@@ -214,13 +218,24 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no_prefix_cache", action="store_true",
                     help="disable shared-prefix block aliasing")
     ap.add_argument("--speculative_tokens", type=int, default=0,
-                    help="not ported yet: only 0 is accepted")
+                    help="DecodeEngine self-speculative decoding: up to "
+                         "this many n-gram-drafted tokens a slot verify "
+                         "in one forward, token-identical to greedy "
+                         "decode; greedy exports only (a sampling export "
+                         "serves without it); 0 = off")
     ap.add_argument("--host_spill_blocks", type=int, default=0,
                     help="not ported yet: only 0 is accepted")
     ap.add_argument("--adapters_dir", default="",
                     help="not ported yet: only empty is accepted")
     ap.add_argument("--mesh", default="",
                     help="not ported yet: only empty is accepted")
+    ap.add_argument("--role", default="unified",
+                    choices=("unified", "prefill", "decode"),
+                    help="disaggregated-serving tier, advertised on "
+                         "/readyz: 'prefill' servers answer :prefill with "
+                         "KV handoff pages, 'decode' servers import them "
+                         "and stream :generate; 'unified' (default) "
+                         "serves the single-tier path")
     ap.add_argument("--max_queue_depth", type=int, default=256,
                     help="pending requests per model beyond which "
                          "submissions fail fast with 429 (0 = unbounded)")
@@ -270,7 +285,7 @@ def start(argv: Optional[List[str]] = None
     server = ModelServer(poll_interval_s=args.poll_interval_s,
                          max_inflight=args.max_inflight,
                          overload_retry_after_s=args.overload_retry_after_s,
-                         device=args.device)
+                         device=args.device, role=args.role)
     server.add_model(args.model_name, args.model_base_path)
     if factory is not None:
         server.enable_batching(args.model_name, factory)

@@ -9,12 +9,14 @@ the smallest bucket covering the longest member.
 
 The continuous-batching DecodeEngine (serving/engine.py) plugs in as a
 batcher; ``SHED_TOTAL``/``EXPIRED_TOTAL`` and ``locked_snapshot`` are the
-names it shares with the batchers.
+names it shares with the batchers.  Through it the server also runs the
+disaggregated prefill tier (``prefill_handoff``) and streams generation
+(``generate_stream``); ``role`` advertises the server's tier.
 
 Not ported yet: the reload circuit breaker, idempotency dedup, request
 tracing, fault-injection sites and the batchers' Prometheus metrics
-(ROADMAP queue 1, item 9), adapters (item 5), the KV handoff and
-streaming (item 2).
+(ROADMAP queue 1, item 9), adapters (item 5) and the host spill tier's
+``fetch_kv`` (item 3).
 """
 
 from __future__ import annotations
@@ -64,11 +66,21 @@ class LoadedModel:
 
 class ModelServer:
     """Serves N named models, each from a versioned base path, on one
-    device (``device=None`` means CUDA; see kubeflow_tpu_torch.device)."""
+    device (``device=None`` means CUDA; see kubeflow_tpu_torch.device).
+
+    ``role`` is the disaggregated-serving tier this server advertises on
+    /readyz: "prefill" servers answer :prefill with KV handoff pages,
+    "decode" servers import them and stream, "unified" (the default)
+    serves the single-tier path.  It is an advertisement, not a gate:
+    every server answers every route."""
 
     def __init__(self, poll_interval_s: float = 2.0, max_inflight: int = 0,
                  overload_retry_after_s: float = 1.0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, role: str = "unified"):
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(
+                f"role must be unified/prefill/decode, got {role!r}")
+        self.role = role
         self.device = resolve_device(device)
         self._models: Dict[str, Dict[int, LoadedModel]] = {}
         self._base_paths: Dict[str, str] = {}
@@ -297,6 +309,68 @@ class ModelServer:
             raise DeadlineExceeded(
                 f"deadline expired before direct dispatch of {name!r}")
         return model.predict(inputs)
+
+    def _engine_call(self, name: str, method: str, route: str):
+        """The bound ``method`` of ``name``'s decode engine: KeyError (404)
+        on unknown names, ValueError (400) when the model has no
+        engine."""
+        self.get(name)
+        with self._lock:
+            batcher = self._batchers.get(name)
+        fn = getattr(batcher, method, None)
+        if fn is None:
+            raise ValueError(
+                f"model {name!r} has no decode engine ({route} requires "
+                "the continuous-batching engine)")
+        return fn
+
+    def _enter_model(self, name: str) -> None:
+        with self._lock:
+            self._inflight += 1
+            self._inflight_by_model[name] = \
+                self._inflight_by_model.get(name, 0) + 1
+
+    def _exit_model(self, name: str) -> None:
+        with self._lock:
+            self._inflight -= 1
+            self._inflight_by_model[name] -= 1
+
+    def prefill_handoff(self, name: str, inputs: Dict[str, Any],
+                        deadline: Optional[float] = None) -> Dict[str, Any]:
+        """Disaggregated serving, prefill tier (the :prefill route): the
+        prompt's chunked prefill on ``name``'s engine, returned with its
+        finished KV pages (``kv_handoff``) for a decode tier to import.
+        Bracketed in the in-flight counts like a predict."""
+        export_fn = self._engine_call(name, "prefill_export", ":prefill")
+        self._enter_model(name)
+        try:
+            return export_fn(inputs, deadline=deadline)
+        finally:
+            self._exit_model(name)
+
+    def fetch_kv(self, name: str, inputs: Dict[str, Any]) -> Dict[str, Any]:
+        """The host spill tier's page fetch (:fetch_kv), on ``name``'s
+        engine; the engine refuses it until that tier is ported."""
+        return self._engine_call(name, "fetch_kv", ":fetch_kv")(inputs)
+
+    def generate_stream(self, name: str, inputs: Dict[str, Any],
+                        deadline: Optional[float] = None):
+        """Streaming generation (the :generate route): (meta, iterator)
+        from ``name``'s engine (see DecodeEngine.submit_stream).  The
+        iterator is bracketed in the in-flight counts from its first
+        iteration, so a drain waits for live streams; callers exhaust or
+        close() it."""
+        stream_fn = self._engine_call(name, "submit_stream", ":generate")
+        meta, stream = stream_fn(inputs, deadline=deadline)
+
+        def bracketed():
+            self._enter_model(name)
+            try:
+                yield from stream
+            finally:
+                self._exit_model(name)
+
+        return meta, bracketed()
 
 
 class MicroBatcher:

@@ -13,7 +13,13 @@ over fixed buffers, built once per engine:
   - ``Rounds``: one guarded step of ``decode_rounds`` that writes its
     tokens at a device step index; the host issues it up to the round's
     width and stops on the lagged all-done read, so one program serves
-    every adaptive width.
+    every adaptive width;
+  - ``Verify``: ``verify_step`` at the engine's static draft width k;
+    the drafts and their lengths are one int32 device buffer;
+  - ``KvImport``: ``import_kv_pages`` over a page span padded to the
+    block tables' width, as JAX's ``_pad_pages`` pads it; the padding's
+    ids are the pool-size sentinel, so its pages land on the scratch
+    block.
 
 Every program writes the engine's state in place, so the state's
 tensors, the block tables and the buffers keep their storage for the
@@ -199,3 +205,70 @@ class Rounds(_Program):
         generate.run_round(self._launch, self.k, max_steps, self.device)
         torch.sub(self.state["lengths"], self.len0, out=self.counts)
         return self.toks, self.counts, self.steps_run
+
+
+class Verify(_Program):
+    """``verify_step`` at the static draft width ``k`` over one
+    ``[S, k + 1]`` int32 input buffer: each row's k draft tokens, then
+    its draft length."""
+
+    def __init__(self, model, decode, state, tables, k: int, graphs: bool):
+        super().__init__(model, decode, state, tables, graphs)
+        self.k = k
+        slots = state["done"].shape[0]
+        self.inputs = torch.zeros((slots, k + 1), dtype=torch.int32,
+                                  device=self.device)
+
+    def _body(self):
+        _, tokens, emit = generate.verify_step(
+            self.model, self.state, self.decode, self.k,
+            self.inputs[:, :self.k], self.inputs[:, self.k], self.tables,
+            in_place=True)
+        return tokens, emit
+
+    def run(self, draft: np.ndarray, draft_len: np.ndarray):
+        """One verify call on ``draft`` [S, k] and ``draft_len`` [S];
+        returns (tokens [S, k + 1], emit [S]), output buffers the next
+        call overwrites."""
+        host = np.empty(tuple(self.inputs.shape), np.int32)
+        host[:, :self.k] = draft
+        host[:, self.k] = draft_len
+        upload(self.inputs, host)
+        return self._launch()
+
+
+class KvImport(_Program):
+    """``import_kv_pages`` over fixed page buffers of ``span`` pages a
+    side and their int64 block ids.  The ids start at the pool-size
+    sentinel, so a capture's warm-up runs scatter onto the scratch block
+    whatever the pool holds."""
+
+    def __init__(self, model, decode, state, tables, span: int,
+                 graphs: bool):
+        super().__init__(model, decode, state, tables, graphs)
+        cache = state["cache_k"]
+        shape = (cache.shape[0], span) + tuple(cache.shape[2:])
+        self.pages_k = torch.zeros(shape, dtype=cache.dtype,
+                                   device=self.device)
+        self.pages_v = torch.zeros_like(self.pages_k)
+        self.ids = torch.full((span,), cache.shape[1], dtype=torch.int64,
+                              device=self.device)
+
+    def _body(self):
+        generate.import_kv_pages(self.state, self.pages_k, self.pages_v,
+                                 self.ids)
+
+    def run(self, pages_k: torch.Tensor, pages_v: torch.Tensor,
+            ids: np.ndarray) -> None:
+        """Scatter ``n`` pages a side (host tensors [L, n, bt, hkv, d],
+        cast to the pool's dtype) into blocks ``ids`` ([span], the pages'
+        n ids, then the sentinel).  Pages past ``n`` in the buffers are
+        left as they were: their ids send them to the scratch block."""
+        n = pages_k.shape[1]
+        for buf, pages in ((self.pages_k, pages_k), (self.pages_v, pages_v)):
+            pages = pages.to(buf.dtype)
+            if buf.device.type == "cuda":
+                pages = pages.pin_memory()
+            buf[:, :n].copy_(pages, non_blocking=True)
+        upload(self.ids, np.asarray(ids, np.int64))
+        self._launch()

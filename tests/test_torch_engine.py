@@ -1,17 +1,17 @@
 """The port's continuous-batching DecodeEngine against the JAX package's.
 
 The twins of tests/test_lm_serving.py's TestDecodeEngine and
-tests/test_fused_decode.py, minus speculation, int8, adapters and mesh:
-the same numpy weights serve through both engines at float32 on the
-CPU, and the port's greedy tokens must equal the JAX engine's (which
-takes the requests one at a time) and the port's own single-request
-``generate()``, across mixed lengths with slot reuse, per-step and
-fused rounds, prefix caching on and off under eviction, EOS retirement
-and deadline expiry.  ``compiled_programs()``
-must report what the JAX engine reports.  Sampled decode is held to the
-port's own determinism: the same seed gives the same stream, alone or
-co-batched.  Every wait has its own timeout and every engine is closed
-in ``finally``."""
+tests/test_fused_decode.py, minus int8, adapters and mesh (speculation
+is tests/test_torch_speculative.py's): the same numpy weights serve
+through both engines at float32 on the CPU, and the port's greedy
+tokens must equal the JAX engine's (which takes the requests one at a
+time) and the port's own single-request ``generate()``, across mixed
+lengths with slot reuse, per-step and fused rounds, prefix caching on
+and off under eviction, EOS retirement and deadline expiry.
+``compiled_programs()`` must report what the JAX engine reports.
+Sampled decode is held to the port's own determinism: the same seed
+gives the same stream, alone or co-batched.  Every wait has its own
+timeout and every engine is closed in ``finally``."""
 
 import dataclasses
 import threading
@@ -493,12 +493,13 @@ def test_sampled_stream_repeats_alone_or_co_batched(spec):
     assert alone != run([prompt], [8], 8)[0]
 
 
+# The ids the cases had beside the speculation case, which left with the
+# refusal it checked.
 @pytest.mark.parametrize("option,item", [
-    ({"speculative_tokens": 2}, 1),
     ({"host_spill_blocks": 4}, 3),
     ({"adapters": object()}, 5),
     ({"mesh": object()}, 6),
-])
+], ids=["option1-3", "option2-5", "option3-6"])
 def test_held_back_options_raise_not_ported(spec, option, item):
     with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
         _port_engine(spec, **option)
@@ -512,14 +513,13 @@ def test_held_back_requests_raise_not_ported(spec):
     engine = _port_engine(spec, slots=1, prefill_len=16)
     tokens = np.arange(1, 5, dtype=np.int32)
     try:
-        for key, item in (("kv_export", 2), ("kv_handoff", 2),
-                          ("park_kv", 3), ("adapter", 5)):
+        for key, item in (("park_kv", 3), ("adapter", 5)):
             with pytest.raises(NotPortedError,
                                match=f"ROADMAP queue 1 item {item}"):
                 _submit(engine, {"tokens": tokens, key: {"x": 1}})
-        for call in (engine.prefill_export, engine.fetch_kv):
-            with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 2"):
-                call({"tokens": tokens})
+        # The host spill tier's fetch waits for that tier (item 3).
+        with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 3"):
+            engine.fetch_kv({"tokens": tokens})
         # The loop thread lives on and serves.
         t0 = time.monotonic()
         out = _submit(engine, {"tokens": tokens, "max_new_tokens": 2})

@@ -9,10 +9,14 @@ Elsewhere every test skips.  A small float32 model with TF32 off.  Each
 program is captured on a fresh state with one set of scalars, then
 replayed with three others (other slots, starts, seeds and prompt
 lengths; final and non-final chunks; round widths 1, 3 and 8; EOS inside
-a round); each replay must equal the same program run eagerly on a twin
-state: integer state and tokens equal, pool and logits within 1e-6.  An
-engine with graphs must give ``generate()``'s greedy tokens, and a
-capture forced to fail must raise from the engine's constructor.
+a round; verify windows fully accepted, rejected, clipped and undrafted;
+page imports of other spans and ids); each replay must equal the same
+program run eagerly on a twin state: integer state and tokens equal,
+pool and logits within 1e-6, and an import leaves every page outside
+its ids unchanged.  An engine with graphs must give ``generate()``'s
+greedy tokens, speculating too, and a decode tier importing a prefill
+tier's pages must give the unified engine's; a capture forced to fail
+must raise from the engine's constructor.
 """
 
 import dataclasses
@@ -236,6 +240,84 @@ def test_step_replays(cuda_device, model):
         twin.call()
 
 
+def _verify(model, decode):
+    return lambda state, tables, graphs: programs.Verify(
+        model, decode, state, tables, SPEC_K, graphs)
+
+
+SPEC_K = 4
+
+
+@pytest.mark.cuda
+def test_verify_replays_drafts_and_slots(cuda_device, model):
+    decode = pgen.DecodeConfig(max_new_tokens=16)
+    pairs = _fresh_pairs(model)
+    twin = Twin(model, pairs, _verify(model, decode))
+    twin.capture()                     # every slot done
+    _admit_two(model, decode, pairs)
+    state = pairs[0][0]
+    # Each live slot's greedy continuation (prompts as _admit_two's).
+    conts = {}
+    for slot, (n, seed) in ((0, (9, 2)), (2, (4, 3))):
+        want, _ = pgen.generate(model, torch.tensor([_prompt(n, seed).tolist()]),
+                                pgen.DecodeConfig(max_new_tokens=16))
+        conts[slot] = (n, want[0, n:].tolist())
+
+    def oracle(slot):
+        n, cont = conts[slot]
+        at = int(state["lengths"][slot]) - n + 1     # tokens emitted
+        return cont[at:at + SPEC_K]
+
+    rng = np.random.default_rng(7)
+    for call in range(4):
+        draft = rng.integers(1, VOCAB, (SLOTS, SPEC_K)).astype(np.int32)
+        draft_len = np.asarray([SPEC_K, 2, 3], np.int32)
+        if call in (0, 2):
+            draft[0, :len(oracle(0))] = oracle(0)
+        if call in (1, 2):
+            draft[2, :len(oracle(2))] = oracle(2)
+        if call == 3:
+            draft_len[:] = 0
+        toks, emit = twin.call(draft, draft_len)
+        if call == 0:
+            assert int(emit[0]) == SPEC_K + 1 and int(emit[1]) == 0
+    assert bool(state["done"][2])          # slot 2's budget of 5 is spent
+
+
+def _import(model):
+    return lambda state, tables, graphs: programs.KvImport(
+        model, None, state, tables, MB, graphs)
+
+
+@pytest.mark.cuda
+def test_kv_import_replays_spans_and_ids(cuda_device, model):
+    pairs = _fresh_pairs(model)
+    progs = [_import(model)(state, tables, g)
+             for (state, tables), g in zip(pairs, (True, False))]
+    with torch.inference_mode():
+        progs[0].capture(torch.cuda.graph_pool_handle())
+    _check(model, pairs)
+    gen = torch.Generator().manual_seed(5)
+    cfg = model.cfg
+    for ids in ([5, 9, 2], [11], list(range(12, 12 + MB))):
+        n = len(ids)
+        shape = (cfg.n_layers, n, BT, cfg.n_kv_heads, cfg.head_dim)
+        pages_k = torch.randn(shape, generator=gen)
+        pages_v = torch.randn(shape, generator=gen)
+        padded = np.full((MB,), NB, np.int64)
+        padded[:n] = ids
+        before = pairs[0][0]["cache_k"].clone()
+        with torch.inference_mode():
+            for prog in progs:
+                prog.run(pages_k, pages_v, padded)
+        _check(model, pairs)
+        got = pairs[0][0]
+        for name, pages in (("cache_k", pages_k), ("cache_v", pages_v)):
+            assert torch.equal(got[name][:, ids].cpu(), pages)
+        outside = [b for b in range(NB) if b not in ids]
+        assert torch.equal(got["cache_k"][:, outside], before[:, outside])
+
+
 def _serve(engine, prompts):
     outs = [None] * len(prompts)
 
@@ -275,6 +357,56 @@ def test_engine_with_graphs_matches_generate(cuda_device, model,
     for prompt, out in zip(prompts, outs):
         want, _ = pgen.generate(model, torch.tensor([prompt]), decode)
         assert np.asarray(out)[0].tolist() == want[0].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decode_rounds", [1, 8])
+def test_speculating_engine_with_graphs_matches_generate(cuda_device, model,
+                                                         decode_rounds):
+    decode = pgen.DecodeConfig(max_new_tokens=16)
+    rng = np.random.default_rng(60)
+    prompts = [np.tile(rng.integers(1, VOCAB, 4), 3).tolist()
+               if i % 2 == 0 else _prompt(10, 70 + i).tolist()
+               for i in range(6)]
+    engine = DecodeEngine(model, decode, slots=3, prefill_len=32,
+                          prefill_chunk_tokens=8, kv_block_tokens=4,
+                          decode_rounds=decode_rounds,
+                          speculative_tokens=SPEC_K, name="graphs-spec")
+    try:
+        assert type(engine._verify_prog).__name__ in \
+            engine.capture_info["programs"]
+        outs = _serve(engine, prompts)
+        programs_run = engine.compiled_programs()
+    finally:
+        engine.close()
+    for prompt, out in zip(prompts, outs):
+        want, _ = pgen.generate(model, torch.tensor([prompt]), decode)
+        assert np.asarray(out)[0].tolist() == want[0].tolist()
+    assert programs_run["chunked_prefill"] == 1
+
+
+@pytest.mark.cuda
+def test_decode_tier_import_with_graphs_matches_unified(cuda_device, model):
+    decode = pgen.DecodeConfig(max_new_tokens=8)
+    prompt = _prompt(30, 80)
+
+    def engine(name):
+        return DecodeEngine(model, decode, slots=2, prefill_len=32,
+                            prefill_chunk_tokens=8, kv_block_tokens=4,
+                            prefix_caching=False, name=name)
+
+    pre, dec, uni = engine("pre"), engine("dec"), engine("uni")
+    try:
+        out = pre.prefill_export({"tokens": prompt})
+        ho = out["kv_handoff"]
+        assert ho["tokens_covered"] == 28 and ho["k"].device.type == "cpu"
+        got = dec.submit({"tokens": prompt, "kv_handoff": ho})["tokens"]
+        want = uni.submit({"tokens": prompt})["tokens"]
+        assert dec.compiled_programs()["kv_import"] == 1
+    finally:
+        for e in (pre, dec, uni):
+            e.close()
+    assert np.asarray(got).tolist() == np.asarray(want).tolist()
 
 
 @pytest.mark.cuda

@@ -188,12 +188,13 @@ def test_factory_declines_engine_without_prompt_room():
     assert factory(model) is None  # direct path, no crash
 
 
+# The ids the cases had beside the --speculative_tokens case, which left
+# with the refusal it checked.
 @pytest.mark.parametrize("flags,item", [
-    (["--speculative_tokens", "4"], 1),
     (["--host_spill_blocks", "16"], 3),
     (["--adapters_dir", "/tmp/adapters"], 5),
     (["--mesh", "tensor=2"], 6),
-])
+], ids=["flags1-3", "flags2-5", "flags3-6"])
 def test_later_slice_flags_raise_not_ported(exported, flags, item):
     with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
         _start(exported[0], *flags)

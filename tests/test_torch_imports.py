@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, flax, optax, msgpack or kubeflow_tpu
-import anywhere in it or in chip_smoke.py, and no silent CPU run."""
+"""The port stands alone: no JAX, flax, optax, msgpack, ml_dtypes or
+kubeflow_tpu import anywhere in it or in chip_smoke.py, and no silent CPU
+run."""
 
 import ast
 import importlib
@@ -16,7 +17,8 @@ from kubeflow_tpu_torch.models.transformer import Transformer, TransformerConfig
 from kubeflow_tpu_torch.serving.model_server import ModelServer
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "kubeflow_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ml_dtypes",
+             "kubeflow_tpu")
 SMALL = TransformerConfig(vocab_size=64, d_model=16, n_layers=1, n_heads=2,
                           n_kv_heads=2, d_ff=32, head_dim=8,
                           dtype=torch.float32)
