@@ -98,6 +98,32 @@ Phases, each fatal on failure (exit code 1, no result line):
      prompts.  Information only: the payload's bytes, its encode and
      decode time, the :prefill latency, and the decode tier's TTFT
      beside the unified engine's on the same prompt;
+ 6e. int8: the same weights exported with quantize and kv_cache int8
+     (the JAX loader's keys), served over REST through the captured
+     engine (int8 weights on the card, an int8 pool of 405,504-byte
+     pages with float32 scales) and through the static batcher: every
+     reply prompt + max_new_tokens tokens in the vocabulary, the JAX
+     engine's compiled_programs(), no flash kernel launched; at float32
+     the captured int8 engine gives int8 generate()'s greedy tokens on 4
+     prompts; in bf16 the first-step logits of int8 weights over an int8
+     cache reach cosine > 0.99 against the unquantized model's.
+     Information only: the weight bytes on the card against bf16, the
+     pool bytes a page against bf16, a captured round of 8 steps and a
+     verify call at 8 live slots on an int8 state beside phase 6b's bf16
+     round, and the int8 -> bf16 weight converts' share of the round's
+     device time;
+ 6f. spill tier: a server with --kv_pool_blocks 128 and
+     --host_spill_blocks 1024 parks eight sessions of 512-1024 prompt
+     tokens (park_kv), more pages than its pool holds: it must spill,
+     never shed, never destroy-evict, and every second turn must equal
+     that of a control server with the default pool; a failover, the
+     parking server's :fetch_kv of a session resumed on a fresh server
+     with resume_tokens over :generate, gives the parking server's
+     tokens, for the bf16 export and for the int8 one; no flash kernel
+     launched.  Information only: pages spilled out and re-imported,
+     spill-out and re-import ms a page, the resume TTFT against the
+     cold prefill's, and the fetched payload's bytes and its encode and
+     decode time;
   7. train: the port's LM training entry point (tools/train_lm.run) on
      bench.py's LM configuration (batch 8 x 2048, flash, remat, adamw
      1e-3) for a few steps, launch counters zeroed just before and read
@@ -189,6 +215,24 @@ SPEC_LENS = (256, 512, 768, 1024)
 # kv heads x 128 x 2 bytes x 2 sides.
 HANDOFF_LEN = 1024
 HANDOFF_BYTES = 12 * 1008 * 8 * 128 * 2 * 2
+# Phase 6e: the int8 export's config keys, and a pool page's bytes by the
+# code: 12 layers x 16 positions x 8 kv heads x (128 int8 values + one
+# float32 scale) x 2 sides, against 12 x 16 x 8 x 128 x 2 bytes x 2 sides
+# in bf16.  The float32 identity's prompt lengths; the cosine bound of
+# tests/test_quantize.py.
+INT8_CONFIG = {"quantize": "int8", "kv_cache": "int8"}
+INT8_PAGE_BYTES = 12 * 16 * 8 * (128 + 4) * 2
+BF16_PAGE_BYTES = 12 * 16 * 8 * 128 * 2 * 2
+INT8_LENS = (300, 170, 410, 90)
+INT8_COSINE = 0.99
+# Phase 6f: the spilling server's pool and host tier in pages, the parked
+# sessions' prompt lengths (their contexts fill 346 pages), the new
+# tokens of each second turn, and the tokens a failed-over request had
+# delivered before its :fetch_kv.
+SPILL_POOL, SPILL_HOST = 128, 1024
+SPILL_LENS = (512, 1024, 576, 640, 512, 704, 544, 768)
+TURN2_NEW = 16
+FETCH_DELIVERED = 8
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 rate).
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -2032,6 +2076,483 @@ def tier_identity(torch, flash, base: Path):
     return {"covered": covered, "pages_in": pages_in}
 
 
+# -- phase 6e: int8 weights and the int8 KV pool ---------------------------
+
+def export_int8(base: Path, int8_base: Path) -> None:
+    """The int8 serving export of the same weights: the params file linked
+    and model.json naming ``quantize`` and ``kv_cache`` int8 (the JAX
+    loader's keys)."""
+    import os
+
+    from kubeflow_tpu_torch.serving.export import (
+        FORMAT,
+        MODEL_FILE,
+        PARAMS_FILE,
+    )
+
+    vdir = int8_base / "1"
+    vdir.mkdir(parents=True)
+    os.link(base / "1" / PARAMS_FILE, vdir / PARAMS_FILE)
+    (vdir / MODEL_FILE).write_text(json.dumps({
+        "format": FORMAT, "loader": JAX_LOADER,
+        "config": dict(INT8_CONFIG, model=MODEL,
+                       max_new_tokens=MAX_NEW_TOKENS),
+        "signature": {"inputs": ["tokens"], "outputs": ["tokens"]}}))
+
+
+def int8_model(torch, base: Path, dtype):
+    """The exported weights quantized as the loader stages them (int8
+    matmul weights on the card), computing in ``dtype``, and its int8
+    decode config."""
+    from kubeflow_tpu_torch.serving.export import PARAMS_FILE, msgpack_restore
+    from kubeflow_tpu_torch.serving.loaders import lm_generate
+
+    tree = msgpack_restore((base / "1" / PARAMS_FILE).read_bytes())
+    name = str(dtype).replace("torch.", "")
+    predict = lm_generate(dict(
+        INT8_CONFIG, model=dict(MODEL, dtype=name),
+        max_new_tokens=MAX_NEW_TOKENS), device="cuda")(tree)
+    return predict.engine_spec["model"], predict.engine_spec["decode"]
+
+
+def weight_bytes(model) -> int:
+    """Bytes of the model's weights on the card: its parameters and its
+    int8 QTensors (values and scales)."""
+    from kubeflow_tpu_torch.ops.quantize import QTensor
+
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    for module in model.modules():
+        total += sum(v.nbytes for v in vars(module).values()
+                     if isinstance(v, QTensor))
+    return total
+
+
+def page_bytes(state) -> int:
+    """Bytes of one pool page, both sides, values and scales."""
+    from kubeflow_tpu_torch.ops.quantize import QTensor
+
+    total = 0
+    for name in ("cache_k", "cache_v"):
+        pool = state[name]
+        parts = (pool.values, pool.scale) if isinstance(pool, QTensor) \
+            else (pool,)
+        total += sum(t[:, 0].numel() * t.element_size() for t in parts)
+    return total
+
+
+def serve_int8(torch, flash, base: Path, int8_base: Path):
+    """Phase 6e over REST: the int8 export (``quantize`` and ``kv_cache``
+    int8) served through the captured engine (a burst of four prompts,
+    its weights int8 QTensors on the card, its pool int8 with float32
+    scales), then through the static batcher (``generate()`` over an int8
+    cache); neither may launch a flash kernel."""
+    from kubeflow_tpu_torch.ops.quantize import QTensor
+    from kubeflow_tpu_torch.serving import main as serving_main
+
+    prompts = [torch.randint(1, MODEL["vocab_size"], (n,),
+                             generator=torch.Generator().manual_seed(
+                                 SEED + 9 + n)).tolist()
+               for n in PROMPT_LENS[:4]]
+    launches_before = dict(flash.launch_counts)
+    server, httpd = serving_main.start([
+        "--model_name", "lm", "--model_base_path", str(int8_base),
+        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--lm_buckets", BUCKETS])
+    port = httpd.server_address[1]
+    try:
+        engine = server._batchers["lm"]
+        if engine.capture_info is None:
+            fail("the int8 engine did not capture its programs")
+        model = engine.model
+        if not isinstance(model.layers[0].attn.wq, QTensor) \
+                or model.embed.values.dtype != torch.int8:
+            fail("the int8 export's weights are not int8 on the card")
+        if not isinstance(engine._state["cache_k"], QTensor):
+            fail("the int8 export's pool is not int8")
+        served_bytes = weight_bytes(model)
+        pool_page = page_bytes(engine._state)
+        replies, latencies, t_burst = burst(port, prompts)
+        stats = get(port, "/model/lm:stats")["batcher"]
+        server.enable_batching("lm", serving_main.batcher_factory(
+            micro_batch_size=MICRO_BATCH, batch_timeout_s=5e-3,
+            lm_buckets=BUCKETS, lm_engine=False))
+        static_replies, static_lat, t_static = burst(port, prompts)
+    finally:
+        serving_main.shutdown(server, httpd)
+    launches = {k: flash.launch_counts[k] - launches_before.get(k, 0)
+                for k in flash.launch_counts}
+    if any(launches.values()):
+        fail(f"the int8 path launched flash kernels: {launches}")
+    check_replies(prompts, replies, [], None)
+    check_replies(prompts, static_replies, [], None)
+    if stats["compiled_programs"] != {"chunked_prefill": 1, "step": 0,
+                                      "verify": 0, "decode_rounds": 1}:
+        fail(f"int8 engine compiled_programs {stats['compiled_programs']}")
+    if pool_page != INT8_PAGE_BYTES:
+        fail(f"an int8 pool page holds {pool_page} bytes, expected "
+             f"{INT8_PAGE_BYTES}")
+    info = {"engine": burst_info(prompts, latencies, t_burst, stats),
+            "static": burst_info(prompts, static_lat, t_static, {}),
+            "weight_bytes": served_bytes, "page_bytes": pool_page,
+            "flash_launches": launches}
+    log_burst("int8 engine", info["engine"])
+    log_burst("int8 static batcher", info["static"])
+    return info
+
+
+def int8_identity(torch, flash, base: Path):
+    """Phase 6e, token identity at float32 (TF32 off): the engine with
+    int8 weights over an int8 pool (programs captured) gives the port's
+    int8 generate()'s greedy tokens on four prompts."""
+    from kubeflow_tpu_torch.models.generate import generate
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    model, decode = int8_model(torch, base, torch.float32)
+    rng = torch.Generator().manual_seed(SEED + 10)
+    prompts = [torch.randint(1, MODEL["vocab_size"], (n,),
+                             generator=rng).tolist() for n in INT8_LENS]
+    launches_before = dict(flash.launch_counts)
+    engine = DecodeEngine(model, decode, slots=8, prefill_len=512,
+                          decode_rounds=8, name="int8-fp32")
+    try:
+        got = engine_tokens(engine, prompts)
+    finally:
+        engine.close()
+    want = [generate(model, torch.tensor([p]), decode)[0][0].tolist()
+            for p in prompts]
+    if dict(flash.launch_counts) != launches_before:
+        fail("the float32 int8 engine or generate() launched a flash kernel")
+    check_identity(torch, flash, model, "float32 int8 engine", prompts, got,
+                   want)
+    log(f"float32 token identity: the int8 engine (int8 weights and pool) "
+        f"equals int8 generate() on {len(prompts)} prompts "
+        f"{list(INT8_LENS)}")
+    del model
+
+
+def int8_numbers(torch, flash, base: Path, bf16_round_ms):
+    """Phase 6e in bf16: the first-step logits of int8 weights over an int8
+    cache against the unquantized model's (cosine above INT8_COSINE, the
+    bound of the reference's own tests); then, information only, the
+    weight bytes of both on the card, a captured fused round of 8 steps
+    at 8 live slots and a captured verify call on an int8 state (host
+    clock after synchronize, median of 5), the round's device busy time
+    under torch.profiler and the share of it the int8 -> bf16 weight
+    converts take (one decode step's converts timed alone by CUDA events,
+    times the steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models.generate import (
+        DecodeConfig,
+        generate,
+        init_paged_state,
+    )
+    from kubeflow_tpu_torch.ops.quantize import QTensor
+    from kubeflow_tpu_torch.serving.programs import Rounds, Verify
+
+    model_q, decode_q = int8_model(torch, base, torch.bfloat16)
+    model = load_model(torch, base, torch.bfloat16)
+    rng = torch.Generator().manual_seed(SEED + 11)
+    prompt = torch.randint(1, MODEL["vocab_size"], (2, 512), generator=rng)
+    launches_before = dict(flash.launch_counts)
+    _, logits_q = generate(model_q, prompt, DecodeConfig(
+        max_new_tokens=1, kv_cache_dtype="int8"))
+    if dict(flash.launch_counts) != launches_before:
+        fail("int8 generate() launched a flash kernel")
+    _, logits = generate(model, prompt, DecodeConfig(max_new_tokens=1))
+    a, b = logits_q.double().flatten(), logits.double().flatten()
+    cosine = float(a @ b / (a.norm() * b.norm()))
+    if not cosine > INT8_COSINE:
+        fail(f"bf16 int8 logits against the unquantized model: cosine "
+             f"{cosine:.6f}, bound {INT8_COSINE}")
+    bytes_q, bytes_bf16 = weight_bytes(model_q), weight_bytes(model)
+    del model
+    slots, bt, k = 8, 16, 8
+    mb = -(-(engine_prefill_width() + MAX_NEW_TOKENS) // bt)
+    nb = slots * mb
+    state = init_paged_state(model_q.cfg, slots, nb, bt, "int8",
+                             device="cuda")
+    tables = torch.full((slots, mb), nb, dtype=torch.int64, device="cuda")
+    rounds = Rounds(model_q, decode_q, state, tables, k, True)
+    verify = Verify(model_q, decode_q, state, tables, SPEC_TOKENS, True)
+    pool = torch.cuda.graph_pool_handle()
+    with torch.inference_mode():
+        rounds.capture(pool)
+        verify.capture(pool)
+    tables.copy_(torch.arange(nb, device="cuda").view(slots, mb))
+    lengths = torch.tensor(PROMPT_LENS, dtype=torch.int32, device="cuda")
+
+    def reset():
+        state["lengths"].copy_(lengths)
+        state["stop_len"].copy_(lengths + MAX_NEW_TOKENS)
+        state["done"].zero_()
+        state["last_token"].fill_(7)
+
+    draft = torch.randint(1, MODEL["vocab_size"], (slots, SPEC_TOKENS),
+                          generator=rng).int().numpy()
+    draft_len = torch.full((slots,), SPEC_TOKENS, dtype=torch.int32).numpy()
+
+    def timed(fn):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    calls = {"round": lambda: rounds.run(k),
+             "verify": lambda: verify.run(draft, draft_len)}
+    times = {name: [] for name in calls}
+    for i in range(6):
+        for name in (("round", "verify") if i % 2 == 0
+                     else ("verify", "round")):
+            times[name].append(timed(calls[name]))
+    ms = {name: sorted(t[1:])[2] * 1e3 for name, t in times.items()}
+    reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            rounds.run(k)
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    weights = [v for m in model_q.modules() for v in vars(m).values()
+               if isinstance(v, QTensor)]
+    # One decode step converts each int8 weight once: wq, both wkv sides,
+    # wo, both wi sides and the MLP's wo per layer (each QTensor here
+    # whole), and the tied embedding for the logits.
+    convert_ms = time_ms(torch, lambda: [w.values.to(torch.bfloat16)
+                                         for w in weights], 20)
+    rounds.release()
+    verify.release()
+    info = {"cosine": cosine, "weight_bytes_int8": bytes_q,
+            "weight_bytes_bf16": bytes_bf16,
+            "page_bytes_int8": INT8_PAGE_BYTES,
+            "page_bytes_bf16": BF16_PAGE_BYTES,
+            "round_ms": ms["round"], "verify_ms": ms["verify"],
+            "bf16_round_ms": bf16_round_ms,
+            "convert_ms_per_step": convert_ms}
+    if busy_us:
+        info.update(round_busy_ms=busy_us / 1e3,
+                    convert_share=convert_ms * k / (busy_us / 1e3))
+    log(f"int8 against bf16 (information only; {card_line()}): weights "
+        f"{bytes_q} / {bytes_bf16} bytes on the card "
+        f"({bytes_q / bytes_bf16:.3f}x); pool page {INT8_PAGE_BYTES} / "
+        f"{BF16_PAGE_BYTES} bytes ({INT8_PAGE_BYTES / BF16_PAGE_BYTES:.3f}"
+        f"x); captured round of {k} steps at {slots} live slots "
+        f"{ms['round']:.2f} ms against the bf16 round's {bf16_round_ms:.2f}"
+        f" ms (phase 6b, this call); captured verify call, window "
+        f"{SPEC_TOKENS + 1}, {ms['verify']:.2f} ms; first-step logits "
+        f"cosine {cosine:.6f} against the unquantized model")
+    if busy_us:
+        log(f"int8 round under torch.profiler: device busy "
+            f"{busy_us / 1e3:.2f} ms; one step's int8 -> bf16 weight "
+            f"converts {convert_ms:.4f} ms (CUDA events), "
+            f"{info['convert_share']:.3f} of the round's busy time")
+    else:
+        log("int8 round: the profiler saw no device time; the converts' "
+            "share is not measured")
+    return info
+
+
+# -- phase 6f: the host spill tier, session park and :fetch_kv ------------
+
+def spill_tier(torch, flash, base: Path, int8_base: Path):
+    """Phase 6f over REST.  Server A serves the bf16 export with
+    ``--kv_pool_blocks 128 --host_spill_blocks 1024``; control server C
+    with the default pool (1024 pages, nothing spills).  Eight sessions
+    of 512-1024 prompt tokens park (``park_kv``) on both: their pages
+    exceed A's pool, so A must spill, never shed and never
+    destroy-evict; each second turn on A must equal C's.  Then a
+    failover: A's ``:fetch_kv`` of a session's prompt plus its first
+    delivered tokens, resumed with ``resume_tokens`` on a fresh server
+    B over :generate, must give A's tokens; likewise between two int8
+    servers.  Information only: the pages spilled out and in, the
+    spill-out and re-import ms a page (host clock), the resume TTFT on A
+    against the cold prefill TTFT of the same context on B (client
+    clock, :generate), and the fetched payload's bytes and its decode
+    and encode ms.  No flash kernel launches."""
+    from kubeflow_tpu_torch.serving import http as serving_http
+    from kubeflow_tpu_torch.serving import main as serving_main
+
+    rng = torch.Generator().manual_seed(SEED + 12)
+    vocab = MODEL["vocab_size"]
+    prompts = [torch.randint(1, vocab, (n,), generator=rng).tolist()
+               for n in SPILL_LENS]
+    extra = [torch.randint(1, vocab, (TURN2_NEW,), generator=rng).tolist()
+             for _ in SPILL_LENS]
+
+    def start(export, *flags):
+        return serving_main.start([
+            "--model_name", "lm", "--model_base_path", str(export),
+            "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+            "--lm_buckets", BUCKETS, *flags])
+
+    def tokens_of(reply):
+        return reply["predictions"][0]["tokens"]
+
+    launches_before = dict(flash.launch_counts)
+    servers = {}
+    try:
+        servers["a"] = start(base, "--kv_pool_blocks", str(SPILL_POOL),
+                             "--host_spill_blocks", str(SPILL_HOST))
+        servers["c"] = start(base)
+        servers["b"] = start(base)
+        port = {k: httpd.server_address[1]
+                for k, (_, httpd) in servers.items()}
+        turn1 = {}
+        for name in ("a", "c"):
+            turn1[name] = [tokens_of(post(port[name], {"instances": [
+                {"tokens": p, "park_kv": True}]})) for p in prompts]
+        parked = get(port["a"], "/model/lm:stats")["batcher"]
+        engine_a = servers["a"][0]._batchers["lm"]
+        mgr_parked = engine_a._mgr.stats()
+        turn2 = {"a": [], "c": []}
+        ttft_resume = None
+        for i, t1 in enumerate(turn1["a"]):
+            ctx = t1 + extra[i]
+            if i == 0:
+                streamed, ttft_resume, _ = stream_generate(
+                    port["a"], {"tokens": ctx})
+                turn2["a"].append(ctx + streamed)
+            else:
+                turn2["a"].append(tokens_of(post(
+                    port["a"], {"instances": [{"tokens": ctx}]})))
+            turn2["c"].append(tokens_of(post(
+                port["c"], {"instances": [{"tokens": ctx}]})))
+        # The cold prefill of session 0's second-turn context on fresh B.
+        _, ttft_cold, _ = stream_generate(
+            port["b"], {"tokens": turn1["a"][0] + extra[0]})
+        resumed = get(port["a"], "/model/lm:stats")["batcher"]
+        mgr_resumed = engine_a._mgr.stats()
+        timing = dict(engine_a.spill_timing)
+        # Failover of session 1 after FETCH_DELIVERED tokens: A's pages
+        # over :fetch_kv, resumed on B.
+        p = prompts[1]
+        delivered = turn1["a"][1][len(p):len(p) + FETCH_DELIVERED]
+        t0 = time.perf_counter()
+        fetched = post(port["a"], {"tokens": p + delivered},
+                       "/model/lm:fetch_kv")
+        t_fetch = time.perf_counter() - t0
+        wire = fetched["kv_handoff"]
+        if wire is None:
+            fail(f":fetch_kv of a parked session missed: {fetched}")
+        t0 = time.perf_counter()
+        payload = serving_http.decode_kv_handoff(wire)
+        t_decode = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = serving_http.encode_kv_handoff(
+            dict(payload, tokens_covered=fetched["tokens_covered"]))
+        t_encode = time.perf_counter() - t0
+        if again != wire:
+            fail("the fetched payload re-encoded is not its wire form")
+        nbytes = sum(payload[s].numel() * payload[s].element_size()
+                     for s in ("k", "v"))
+        streamed, _, _ = stream_generate(port["b"], {
+            "tokens": p, "resume_tokens": delivered, "kv_handoff": wire})
+        fetch_resumed = p + delivered + streamed
+        fetch_b = get(port["b"], "/model/lm:stats")["batcher"]
+    finally:
+        for server, httpd in servers.values():
+            serving_main.shutdown(server, httpd)
+    # The same failover between two int8 servers.
+    servers = {}
+    try:
+        servers["a8"] = start(int8_base, "--host_spill_blocks",
+                              str(SPILL_HOST))
+        servers["b8"] = start(int8_base)
+        port8 = {k: httpd.server_address[1]
+                 for k, (_, httpd) in servers.items()}
+        p8 = prompts[2]
+        want8 = tokens_of(post(port8["a8"], {"instances": [
+            {"tokens": p8, "park_kv": True}]}))
+        delivered8 = want8[len(p8):len(p8) + FETCH_DELIVERED]
+        fetched8 = post(port8["a8"], {"tokens": p8 + delivered8},
+                        "/model/lm:fetch_kv")
+        wire8 = fetched8["kv_handoff"]
+        if wire8 is None or set(wire8["k"]) != {"values", "scale"} \
+                or wire8["k"]["values"]["dtype"] != "int8":
+            fail(f"the int8 :fetch_kv payload is not int8 values and "
+                 f"scales: {None if wire8 is None else wire8['k'].keys()}")
+        payload8 = serving_http.decode_kv_handoff(wire8)
+        nbytes8 = sum(t.numel() * t.element_size() for s in ("k", "v")
+                      for t in payload8[s].values())
+        streamed8, _, _ = stream_generate(port8["b8"], {
+            "tokens": p8, "resume_tokens": delivered8, "kv_handoff": wire8})
+    finally:
+        for server, httpd in servers.values():
+            serving_main.shutdown(server, httpd)
+    if dict(flash.launch_counts) != launches_before:
+        fail("the spill tier's engines launched a flash kernel")
+    if turn1["a"] != turn1["c"]:
+        fail("a parked first turn differs between the spilling server and "
+             "the control")
+    for i, (got, want) in enumerate(zip(turn2["a"], turn2["c"])):
+        if got != want:
+            fail(f"session {i}'s second turn on the spilling server differs "
+                 f"from the control at new token "
+                 f"{first_difference(got, want)}")
+    if parked["kv_spill_pages_out"] <= 0 or resumed["kv_spill_pages_in"] \
+            <= 0 or resumed["shed"] or mgr_resumed["evictions"] \
+            or mgr_resumed["block_evictions"] \
+            or parked["parked_sessions"] != len(prompts):
+        fail(f"spill tier: pages out {parked['kv_spill_pages_out']}, in "
+             f"{resumed['kv_spill_pages_in']}, shed {resumed['shed']}, "
+             f"evictions {mgr_resumed['evictions']} records / "
+             f"{mgr_resumed['block_evictions']} blocks, parked "
+             f"{parked['parked_sessions']}")
+    if fetch_resumed != turn1["a"][1] or fetch_b["handoff_pages_in"] < 1:
+        fail(f"the bf16 fetch-resume on B differs from A's tokens at new "
+             f"token {first_difference(fetch_resumed, turn1['a'][1])}")
+    if p8 + delivered8 + streamed8 != want8:
+        fail("the int8 fetch-resume differs from the parking server's "
+             "tokens")
+    info = {
+        "sessions": len(prompts),
+        "parked_pages": sum((len(t) - 1) // 16 for t in turn1["a"]),
+        "pages_out": resumed["kv_spill_pages_out"],
+        "pages_in": resumed["kv_spill_pages_in"],
+        "host_tier_used": resumed["host_tier_used"],
+        "prefix_hits": resumed["prefix_hits"],
+        "spill_out_ms_per_page": timing["out_s"] * 1e3
+        / max(1, timing["out_pages"]),
+        "spill_in_ms_per_page": timing["in_s"] * 1e3
+        / max(1, timing["in_pages"]),
+        "timed_pages": {"out": timing["out_pages"],
+                        "in": timing["in_pages"]},
+        "ttft_resume_ms": ttft_resume * 1e3,
+        "ttft_cold_ms": ttft_cold * 1e3,
+        "fetch_bytes": nbytes, "fetch_wire_bytes": len(json.dumps(wire)),
+        "fetch_ms": t_fetch * 1e3, "decode_ms": t_decode * 1e3,
+        "encode_ms": t_encode * 1e3,
+        "fetch_covered": fetched["tokens_covered"],
+        "fetch_bytes_int8": nbytes8,
+        "fetch_covered_int8": fetched8["tokens_covered"],
+    }
+    log(f"spill tier: {len(prompts)} sessions parked ({info['parked_pages']}"
+        f" full pages) on a {SPILL_POOL}-page pool with a {SPILL_HOST}-page "
+        f"host tier: {info['pages_out']} pages spilled out, "
+        f"{info['pages_in']} re-imported, shed 0, evictions 0; every second "
+        f"turn equals the control's; spill-out "
+        f"{info['spill_out_ms_per_page']:.3f} ms a page, re-import "
+        f"{info['spill_in_ms_per_page']:.3f} ms a page (host clock, "
+        f"{timing['out_pages']} and {timing['in_pages']} pages timed)")
+    log(f"spill tier, resume TTFT of a {len(turn1['a'][0] + extra[0])}-token"
+        f" second turn {info['ttft_resume_ms']:.1f} ms against its cold "
+        f"prefill's {info['ttft_cold_ms']:.1f} ms (client clock, "
+        f":generate); :fetch_kv of {fetched['tokens_covered']} tokens in "
+        f"{info['fetch_ms']:.1f} ms, {nbytes} bytes of bf16 pages "
+        f"({info['fetch_wire_bytes']} of JSON), decode "
+        f"{info['decode_ms']:.1f} ms, encode {info['encode_ms']:.1f} ms; "
+        f"the resumed failover equals the parking server's tokens at bf16 "
+        f"and at int8 ({nbytes8} bytes of int8 pages and scales for "
+        f"{fetched8['tokens_covered']} tokens) (information only; "
+        f"{card_line()})")
+    return info
+
+
 def check_replies(prompts, replies, direct, direct_reply):
     vocab = MODEL["vocab_size"]
     got = [r["predictions"][0]["tokens"] for r in replies]
@@ -3046,6 +3567,16 @@ def main() -> int:
         tier_info = serve_tiers(torch, flash, base)
         tier_info["identity"] = tier_identity(torch, flash, base)
         phase_done("6d tiers")
+        int8_base = workdir / "lm_int8"
+        export_int8(base, int8_base)
+        int8_info = serve_int8(torch, flash, base, int8_base)
+        int8_identity(torch, flash, base)
+        int8_info.update(int8_numbers(
+            torch, flash, base,
+            engine_info["round"]["captured"]["round_ms"]))
+        phase_done("6e int8")
+        spill_info = spill_tier(torch, flash, base, int8_base)
+        phase_done("6f spill tier")
         train_counts, train_info = train(torch, flash, workdir)
         two_pass_counts, two_pass_info = train_two_pass(torch, flash)
         phase_done("7 train")
@@ -3090,6 +3621,7 @@ def main() -> int:
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
+                    "int8": int8_info, "spill": spill_info,
                     "train": dict(train_info, gradients=grads,
                                   breakdown=learned),
                     "train_two_pass": dict(two_pass_info,

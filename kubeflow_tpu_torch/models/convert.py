@@ -13,7 +13,10 @@ The port's parameter dict is that same tree with torch tensors for
 leaves; ``load_params`` unstacks it into a ``Transformer``'s per-layer
 modules and ``params_to_jax`` stacks a module back into numpy arrays, its
 parameters or (``grads=True``) their ``.grad``, so that gradients compare
-leaf by leaf with ``jax.grad`` of the JAX model.
+leaf by leaf with ``jax.grad`` of the JAX model.  A served tree's matmul
+weights may be int8 ``QTensor``s (ops/quantize.py ``quantize_params``);
+``load_params`` installs them as plain attributes in place of the
+parameters.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models.transformer import Transformer
+from kubeflow_tpu_torch.ops.quantize import QTensor
 
 _LAYER_LEAVES = (
     ("attn_norm", "scale"), ("attn", "wq"), ("attn", "wkv"),
@@ -56,10 +60,21 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     return convert(tree)
 
 
+def params_to_device(params: Dict[str, Any], device) -> Dict[str, Any]:
+    """Every leaf of a port parameter dict (tensors and ``QTensor``s) on
+    ``device``, dtypes kept."""
+    if isinstance(params, dict):
+        return {k: params_to_device(v, device) for k, v in params.items()}
+    return params.to(device)
+
+
 def load_params(model: Transformer, params: Dict[str, Any]) -> Transformer:
     """Install a port parameter dict into ``model`` in place.  Each leaf
     keeps its own dtype and device (a model built on ``device="meta"``
-    takes the tensors as they are); shapes must match exactly."""
+    takes the tensors as they are); shapes must match exactly.  A
+    ``QTensor`` leaf replaces its parameter with a plain attribute of the
+    same name, which ``model.to()`` does not move: stage such a tree on
+    its device first (``params_to_device``)."""
     n = model.cfg.n_layers
     state = {"embed": params["embed"],
              "final_norm.scale": params["final_norm"]["scale"]}
@@ -82,6 +97,11 @@ def load_params(model: Transformer, params: Dict[str, Any]) -> Transformer:
         if tuple(t.shape) != tuple(expected[name].shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, model expects "
                              f"{tuple(expected[name].shape)}")
+    for name in [n for n, t in state.items() if isinstance(t, QTensor)]:
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner)
+        delattr(module, leaf)
+        setattr(module, leaf, state.pop(name))
     model.load_state_dict(state, strict=True, assign=True)
     return model
 

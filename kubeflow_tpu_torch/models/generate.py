@@ -39,8 +39,13 @@ for token.
 
 The engine's speculative verify (``verify_step``) and the KV-page
 handoff pair (``gather_kv_pages``, ``import_kv_pages``) run over the
-same pool.  Not ported yet: the int8 KV cache (ROADMAP queue 1 item 4)
-and adapters (item 5).
+same pool.  With ``kv_cache_dtype="int8"`` every cache, contiguous or
+paged, is a pair of int8 ``QTensor``s with one float32 scale per
+(position, head) (ops/quantize.py), written through ``quantize_array``
+and read by ``dot_product_attention`` with the scales folded into both
+matmuls; a quantized cache never takes the flash prefill.  The model's
+weights may be int8 too.  Not ported yet: adapters (ROADMAP queue 1
+item 5).
 """
 
 from __future__ import annotations
@@ -59,8 +64,10 @@ from kubeflow_tpu_torch.models.transformer import (
 )
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.flash import flash_attention
+from kubeflow_tpu_torch.ops.quantize import QTensor, quantize_array
 
 CacheLen = Union[int, torch.Tensor]
+Cache = Union[torch.Tensor, QTensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +80,8 @@ class DecodeConfig:
     top_k: int = 0
     top_p: float = 1.0
     eos_token: int = -1        # -1 = never stop early
+    # "model" = the model's compute dtype; "int8" = a quantized cache with
+    # per-(position, head) scales.
     kv_cache_dtype: str = "model"
 
     def __post_init__(self):
@@ -82,26 +91,41 @@ class DecodeConfig:
                 "(1.0 disables nucleus filtering)")
         if self.top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {self.top_k}")
-        if self.kv_cache_dtype != "model":
-            raise NotPortedError(
-                f"kv_cache_dtype={self.kv_cache_dtype!r}: the int8 KV cache "
-                "is not ported yet (ROADMAP queue 1 item 4)")
+
+
+def _zeros_cache(cfg: TransformerConfig, shape, kv_cache_dtype: str,
+                 device: torch.device) -> Cache:
+    """One zeroed cache side of ``shape`` ([..., hkv, d]): the compute
+    dtype, or an int8 QTensor whose scale drops the head dim."""
+    if kv_cache_dtype == "int8":
+        return QTensor(torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device), (-1,))
+    if kv_cache_dtype != "model":
+        raise ValueError(f"unknown kv_cache_dtype {kv_cache_dtype!r}")
+    return torch.zeros(shape, dtype=cfg.dtype, device=device)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
-               device: DeviceLike = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Zeroed (k, v) caches, each [L, b, max_len, hkv, d], on ``device``
-    (CUDA when none is given)."""
+               device: DeviceLike = None,
+               kv_cache_dtype: str = "model") -> Tuple[Cache, Cache]:
+    """Zeroed (k, v) caches, each [L, b, max_len, hkv, d] (int8 QTensors
+    for ``kv_cache_dtype="int8"``), on ``device`` (CUDA when none is
+    given)."""
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
-            torch.zeros(shape, dtype=cfg.dtype, device=device))
+    return (_zeros_cache(cfg, shape, kv_cache_dtype, device),
+            _zeros_cache(cfg, shape, kv_cache_dtype, device))
 
 
-def _pool_with_scratch(cache: torch.Tensor) -> torch.Tensor:
-    """[L, nb, bt, hkv, d] pool view -> [L, nb + 1, ...] over the same
+def _pool_with_scratch(cache: Cache) -> Cache:
+    """[L, nb, bt, ...] pool view -> [L, nb + 1, ...] over the same
     storage: block ``nb`` is the scratch block that ``init_paged_state``
-    allocates past the view, where dropped writes land."""
+    allocates past the view, where dropped writes land.  A QTensor pool
+    gets the scratch block of its values and of its scales."""
+    if isinstance(cache, QTensor):
+        return QTensor(_pool_with_scratch(cache.values),
+                       _pool_with_scratch(cache.scale), cache.axes)
     size = (cache.shape[0], cache.shape[1] + 1) + tuple(cache.shape[2:])
     end = cache.storage_offset() + sum(
         (n - 1) * st for n, st in zip(size, cache.stride())) + 1
@@ -112,29 +136,57 @@ def _pool_with_scratch(cache: torch.Tensor) -> torch.Tensor:
     return cache.as_strided(size, cache.stride(), cache.storage_offset())
 
 
-def _store_paged(pool: torch.Tensor, new: torch.Tensor, blk: torch.Tensor,
+def _store(cache: Cache, new: torch.Tensor, write) -> None:
+    """Write the fresh k or v ``new`` [b, t, hkv, d] into ``cache`` with
+    ``write(tensor, values)``: cast to the cache's dtype, or, for an int8
+    QTensor, quantized over the head dim (one scale per (position, head))
+    with values and scales written alike."""
+    if isinstance(cache, QTensor):
+        values, scale = quantize_array(new, (-1,))
+        write(cache.values, values)
+        write(cache.scale, scale)
+    else:
+        write(cache, new.to(cache.dtype))
+
+
+def _store_paged(pool: Cache, new: torch.Tensor, blk: torch.Tensor,
                  off: torch.Tensor) -> None:
     """pool [nb + 1, bt, hkv, d]: write new [b, t, hkv, d] at (blk, off),
     both [b, t]; blk == nb is the scratch block."""
-    pool[blk, off] = new.to(pool.dtype)
+    def write(dst, src):
+        dst[blk, off] = src
+
+    _store(pool, new, write)
 
 
-def _store_columns(cache: torch.Tensor, new: torch.Tensor,
+def _store_columns(cache: Cache, new: torch.Tensor,
                    cols: torch.Tensor) -> None:
     """cache [b, max_len, hkv, d]: row r's new[r, j] goes to column
     cols[r, j]; a column past max_len is dropped.  One column of every
     row per write, so the clamped stand-in of a dropped column (which
     writes back what the cache holds) never shares an index with a kept
     write of the same call."""
-    rows = torch.arange(cache.shape[0], device=cache.device)
-    max_len = cache.shape[1]
-    for j in range(new.shape[1]):
-        col = cols[:, j]
-        keep = (col >= 0) & (col < max_len)
-        at = col.clamp(0, max_len - 1)
-        val = torch.where(keep[:, None, None], new[:, j].to(cache.dtype),
-                          cache[rows, at])
-        cache[rows, at] = val
+    rows = torch.arange(new.shape[0], device=new.device)
+
+    def write(dst, src):
+        max_len = dst.shape[1]
+        for j in range(src.shape[1]):
+            col = cols[:, j]
+            keep = (col >= 0) & (col < max_len)
+            at = col.clamp(0, max_len - 1)
+            keep = keep.view((-1,) + (1,) * (src.dim() - 2))
+            dst[rows, at] = torch.where(keep, src[:, j], dst[rows, at])
+
+    _store(cache, new, write)
+
+
+def _store_slice(cache: Cache, new: torch.Tensor, at: int) -> None:
+    """cache [b, max_len, hkv, d]: new [b, t, hkv, d] at columns
+    [at, at + t)."""
+    def write(dst, src):
+        dst[:, at:at + src.shape[1]] = src
+
+    _store(cache, new, write)
 
 
 def _layer_step(cfg: TransformerConfig, block: Block, x: torch.Tensor,
@@ -171,6 +223,7 @@ def _layer_step(cfg: TransformerConfig, block: Block, x: torch.Tensor,
     per_row = isinstance(cache_len, torch.Tensor) and cache_len.ndim == 1
     q, k, v = block.attn.qkv(block.attn_norm(x), positions)
     steps = torch.arange(t, device=x.device)
+    quantized = isinstance(ck, QTensor)
     if tables is not None:
         nb, bt = ck.shape[0] - 1, ck.shape[1]
         mb = tables.shape[1]
@@ -190,6 +243,9 @@ def _layer_step(cfg: TransformerConfig, block: Block, x: torch.Tensor,
         _store_paged(cv, v, blk, off)
 
         def paged_view(pool):
+            if isinstance(pool, QTensor):
+                return QTensor(paged_view(pool.values),
+                               paged_view(pool.scale), pool.axes)
             return pool[tables].reshape((b, mb * bt) + tuple(pool.shape[2:]))
 
         out = dot_product_attention(
@@ -205,13 +261,15 @@ def _layer_step(cfg: TransformerConfig, block: Block, x: torch.Tensor,
             # dynamic_update_slice clamps a start that would run past the
             # cache's end; a torch slice would not.
             at = max(0, min(cache_len, ck.shape[1] - t))
-            ck[:, at:at + t] = k
-            cv[:, at:at + t] = v
+            _store_slice(ck, k, at)
+            _store_slice(cv, v, at)
         if (cfg.attention == "flash" and t > 1 and not per_row
-                and cache_len == 0):
+                and cache_len == 0 and not quantized):
             # Prefill: the cache is empty, so causal attention over the
             # fresh q/k/v is the whole computation, and the flash forward
-            # keeps the [b, h, t, t] scores out of device memory.
+            # keeps the [b, h, t, t] scores out of device memory.  A
+            # quantized cache attends over its own rounding instead, as
+            # in JAX (its serving goldens pin that rounding).
             out = flash_attention(
                 q, k, v, causal=True,
                 block_q=cfg.flash_block_q, block_k=cfg.flash_block_k,
@@ -233,7 +291,7 @@ def _layer_step(cfg: TransformerConfig, block: Block, x: torch.Tensor,
 
 
 def _forward_with_cache(model: Transformer, tokens: torch.Tensor,
-                        cache: Tuple[torch.Tensor, torch.Tensor],
+                        cache: Tuple[Cache, Cache],
                         cache_len: CacheLen,
                         pad_amount: Optional[torch.Tensor] = None,
                         write_cols: Optional[torch.Tensor] = None,
@@ -330,7 +388,8 @@ def generate(
     device = model.embed.device
     prompt = prompt.to(device)
     b, t = prompt.shape
-    cache = init_cache(cfg, b, t + decode.max_new_tokens, device=device)
+    cache = init_cache(cfg, b, t + decode.max_new_tokens, device=device,
+                       kv_cache_dtype=decode.kv_cache_dtype)
     pad_amount = None
     if prompt_len is not None:
         pad_amount = t - prompt_len.to(device, torch.int64)
@@ -409,24 +468,23 @@ def init_paged_state(cfg: TransformerConfig, slots: int, num_blocks: int,
 
     ``cache_k``/``cache_v`` are [layers, num_blocks, block_tokens, hkv,
     d] views of storage that holds one scratch block more (see
-    ``_pool_with_scratch``); the per-slot scalars are int32 [S]
+    ``_pool_with_scratch``), or, with ``kv_cache_dtype="int8"``, QTensors
+    of such views: int8 values and float32 scales [layers, num_blocks,
+    block_tokens, hkv], each with its scratch block; the per-slot
+    scalars are int32 [S]
     ``lengths`` (valid cache positions), ``stop_len`` (the length at
     which the slot stops sampling), ``last_token`` (sampled, not yet in
     the cache) and ``adapter_ids``, bool [S] ``done`` and int64 [S, 2]
     ``keys``, each slot's (seed, step) sampling counter.  Block tables
     are not device state: the caller passes them into every program.
     """
-    if kv_cache_dtype != "model":
-        raise NotPortedError(
-            f"kv_cache_dtype={kv_cache_dtype!r}: the int8 KV cache is not "
-            "ported yet (ROADMAP queue 1 item 4)")
     device = resolve_device(device)
     full = (cfg.n_layers, num_blocks + 1, block_tokens, cfg.n_kv_heads,
             cfg.head_dim)
 
     def pool():
-        return torch.zeros(full, dtype=cfg.dtype, device=device)[
-            :, :num_blocks]
+        cache = _zeros_cache(cfg, full, kv_cache_dtype, device)
+        return cache[:, :num_blocks]
 
     def scalars(dtype=torch.int32):
         return torch.zeros((slots,), dtype=dtype, device=device)
@@ -443,45 +501,62 @@ def init_paged_state(cfg: TransformerConfig, slots: int, num_blocks: int,
     }
 
 
-def _pool_block_tokens(cache: torch.Tensor) -> int:
+def _pool_block_tokens(cache: Cache) -> int:
     """Static block width of a paged pool ([L, nb, bt, ...])."""
     return cache.shape[2]
 
 
-def import_kv_pages(state: Dict[str, torch.Tensor], pages_k: torch.Tensor,
-                    pages_v: torch.Tensor, ids) -> Dict[str, torch.Tensor]:
+def import_kv_pages(state: Dict[str, Cache], pages_k: Cache, pages_v: Cache,
+                    ids) -> Dict[str, Cache]:
     """The disaggregated KV handoff, device side: scatter page stacks
-    ``pages_k``/``pages_v`` ([layers, n, block_tokens, hkv, d]) into the
-    pool at physical blocks ``ids`` ([n]).  An id outside ``[0, nb)``
-    (the pool-size sentinel pads a span to its static width) sends its
-    page to the scratch block, where JAX drops it.  The pool is written
-    in place and ``state`` returned; the pages are cast to the pool's
-    dtype.  After the scatter the pool holds the exporter's bytes, and
-    the slot resumes through the ordinary cached-prefix path (chunked
+    ``pages_k``/``pages_v`` ([layers, n, block_tokens, hkv, d]; QTensors
+    of values and scales for an int8 pool) into the pool at physical
+    blocks ``ids`` ([n]).  An id outside ``[0, nb)`` (the pool-size
+    sentinel pads a span to its static width) sends its page, scales
+    included, to the scratch block, where JAX drops it.  The pool is
+    written in place and ``state`` returned; the pages are cast to the
+    pool's dtypes.  After the scatter the pool holds the exporter's bytes,
+    and the slot resumes through the ordinary cached-prefix path (chunked
     prefill from the covered offset)."""
     cache_k = state["cache_k"]
     nb = cache_k.shape[1]
     ids = _device_tables(ids, cache_k.device)
     ids = torch.where((ids >= 0) & (ids < nb), ids, nb)
-    for name, pages in (("cache_k", pages_k), ("cache_v", pages_v)):
-        pool = _pool_with_scratch(state[name])
+
+    def scatter(pool, pages):
         pool.index_copy_(1, ids, pages.to(device=pool.device,
                                           dtype=pool.dtype))
+
+    for name, pages in (("cache_k", pages_k), ("cache_v", pages_v)):
+        pool = _pool_with_scratch(state[name])
+        if isinstance(pool, QTensor):
+            scatter(pool.values, pages.values)
+            scatter(pool.scale, pages.scale)
+        else:
+            scatter(pool, pages)
     return state
 
 
-def gather_kv_pages(state: Dict[str, torch.Tensor], ids):
+def gather_kv_pages(state: Dict[str, Cache], ids):
     """The inverse of ``import_kv_pages``: physical blocks ``ids`` of the
-    pool as HOST page stacks, one batched index per pool side
+    pool as HOST page stacks, one batched index per pool tensor
     ([layers, n, block_tokens, hkv, d] in one transfer).  Returns
-    ``((k, None), (v, None))``, CPU tensors in the pool's dtype (the
-    ``None`` is JAX's int8 scale slot).  Not a program: ``n`` varies per
-    request; the engine runs it on its loop thread between program
-    calls, while the pages are still held."""
-    device = state["cache_k"].device
+    ``((k_values, k_scale), (v_values, v_scale))``, CPU tensors in the
+    pool's dtypes; the scales ([layers, n, block_tokens, hkv] float32)
+    are None for a pool of the compute dtype.  Not a program: ``n``
+    varies per request; the engine runs it on its loop thread between
+    program calls, while the pages are still held, on the stream its
+    programs run on, so the copy follows every write queued before it."""
+    device = state["done"].device
     ids = _device_tables(ids, device)
-    return tuple((state[name].index_select(1, ids).cpu(), None)
-                 for name in ("cache_k", "cache_v"))
+
+    def gather(pool):
+        if isinstance(pool, QTensor):
+            return (pool.values.index_select(1, ids).cpu(),
+                    pool.scale.index_select(1, ids).cpu())
+        return pool.index_select(1, ids).cpu(), None
+
+    return gather(state["cache_k"]), gather(state["cache_v"])
 
 
 def _device_tables(tables, device: torch.device) -> torch.Tensor:

@@ -44,6 +44,7 @@ from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.flash import flash_attention
+from kubeflow_tpu_torch.ops.quantize import embed_lookup, qeinsum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,14 +231,14 @@ class Attention(nn.Module):
         plain v [b,s,hkv,d], all in the compute dtype."""
         cfg = self.cfg
         dt = cfg.dtype
-        q = torch.einsum("bse,ehd->bshd", x, self.wq.to(dt))
-        k = torch.einsum("bse,ehd->bshd", x, self.wkv[0].to(dt))
-        v = torch.einsum("bse,ehd->bshd", x, self.wkv[1].to(dt))
+        q = qeinsum("bse,ehd->bshd", x, self.wq, dt)
+        k = qeinsum("bse,ehd->bshd", x, self.wkv[0], dt)
+        v = qeinsum("bse,ehd->bshd", x, self.wkv[1], dt)
         return (rope(q, positions, cfg.rope_theta),
                 rope(k, positions, cfg.rope_theta), v)
 
     def out(self, o: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("bshd,hde->bse", o, self.wo.to(self.cfg.dtype))
+        return qeinsum("bshd,hde->bse", o, self.wo, self.cfg.dtype)
 
     def attend(self, q, k, v, segment_ids=None) -> torch.Tensor:
         cfg = self.cfg
@@ -265,10 +266,9 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
-        gate = torch.einsum("bse,ef->bsf", x, self.wi[0].to(dt))
-        up = torch.einsum("bse,ef->bsf", x, self.wi[1].to(dt))
-        return torch.einsum("bsf,fe->bse", F.silu(gate) * up,
-                            self.wo.to(dt))
+        gate = qeinsum("bse,ef->bsf", x, self.wi[0], dt)
+        up = qeinsum("bse,ef->bsf", x, self.wi[1], dt)
+        return qeinsum("bsf,fe->bse", F.silu(gate) * up, self.wo, dt)
 
 
 class Block(nn.Module):
@@ -321,7 +321,9 @@ class Transformer(nn.Module):
     norm scales) on ``device``: CUDA when none is given (an error without
     a GPU), ``"cpu"`` when asked.  ``device="meta"`` allocates nothing,
     for a model whose weights are loaded afterwards (models/convert.py
-    load_params).
+    load_params).  A served model's matmul weights may be int8
+    ``QTensor``s (ops/quantize.py) in place of parameters; the forward
+    takes them through ``qeinsum`` and ``embed_lookup``.
     """
 
     def __init__(self, cfg: TransformerConfig, *, device=None,
@@ -346,16 +348,16 @@ class Transformer(nn.Module):
                                 device)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embed).to(self.cfg.dtype)
+        return embed_lookup(self.embed, tokens, self.cfg.dtype)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and unembed of hidden states [b, s, e]."""
         cfg = self.cfg
         x = self.final_norm(x)
         if cfg.tied_embeddings:
-            logits = torch.einsum("bse,ve->bsv", x, self.embed.to(cfg.dtype))
+            logits = qeinsum("bse,ve->bsv", x, self.embed, cfg.dtype)
         else:
-            logits = torch.einsum("bse,ev->bsv", x, self.w_out.to(cfg.dtype))
+            logits = qeinsum("bse,ev->bsv", x, self.w_out, cfg.dtype)
         return logits.to(torch.float32) if cfg.ce_dtype == "f32" else logits
 
     def forward(self, tokens: torch.Tensor, *,

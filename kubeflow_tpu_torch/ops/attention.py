@@ -5,8 +5,8 @@ decode-step attention over the contiguous KV cache and the path taken by
 segment-masked calls; the flash forward (ops/flash.py) covers prefill.
 q/k/v are [batch, seq, heads, head_dim]; GQA passes fewer kv heads.  A
 per-row ``[b]`` kv offset is the serving engine's paged decode: each
-slot's queries sit at its own frontier.  The int8 K/V path is not ported
-yet (ROADMAP queue 1, item 4).
+slot's queries sit at its own frontier.  k and v may be int8 ``QTensor``s
+(the quantized KV cache) with per-(position, head) scales.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+
+from kubeflow_tpu_torch.ops.quantize import QTensor
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -30,8 +32,8 @@ def _repeat_kv(k: torch.Tensor, q_heads: int) -> torch.Tensor:
 
 def dot_product_attention(
     q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
+    k: Union[torch.Tensor, QTensor],
+    v: Union[torch.Tensor, QTensor],
     *,
     causal: bool = True,
     segment_ids: Optional[torch.Tensor] = None,
@@ -47,15 +49,33 @@ def dot_product_attention(
     are float32 whatever the input dtype; masked scores take the float32
     minimum, so a fully masked row gets a uniform softmax, as in the JAX
     reference.
+
+    int8 ``QTensor`` k/v: the scales commute through both matmuls, as in
+    JAX.  The key scale multiplies the float32 score columns after the
+    ``d**-0.5`` scale and before the mask; the value scale multiplies the
+    float32 softmax weights before their cast to the compute dtype.
     """
     orig_dtype = q.dtype
     h = q.shape[2]
-    k = _repeat_kv(k, h)
-    v = _repeat_kv(v, h)
+    k_scale = v_scale = None
+    if isinstance(k, QTensor):
+        # _repeat_kv repeats dim 2, the heads of the [b, sk, hkv] scale as
+        # of the values.
+        k, k_scale = _repeat_kv(k.values, h), _repeat_kv(k.scale, h)
+    else:
+        k = _repeat_kv(k, h)
+    if isinstance(v, QTensor):
+        v, v_scale = _repeat_kv(v.values, h), _repeat_kv(v.scale, h)
+    else:
+        v = _repeat_kv(v, h)
     scale = q.shape[-1] ** -0.5
     # Products of the compute dtype are exact in float32: upcasting
-    # first gives the JAX dot's float32 accumulation.
+    # first gives the JAX dot's float32 accumulation (int8 values are
+    # exact in every compute dtype).
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if k_scale is not None:
+        # [b, sk, h] -> [b, h, 1, sk] column scales.
+        scores = scores * k_scale.transpose(1, 2)[:, :, None, :]
     mask = _build_mask(
         q_len=q.shape[1], k_len=k.shape[1], causal=causal,
         segment_ids=segment_ids, kv_offset=kv_offset,
@@ -64,6 +84,8 @@ def dot_product_attention(
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     weights = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        weights = weights * v_scale.transpose(1, 2)[:, :, None, :]
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(orig_dtype).float(),
                        v.float())
     return out.to(orig_dtype)

@@ -38,7 +38,18 @@ KV block pool shared by ``slots`` sequences:
     finished full-block KV pages (``kv_handoff``) and a request carrying
     such a payload imports them into its own blocks and prefills only
     the rest; ``submit_stream`` streams a request's tokens as the loop
-    materializes them.
+    materializes them;
+  - with ``host_spill_blocks`` > 0 the pool gains a host-memory tier:
+    under pool pressure the loop copies LRU-cold idle prefix records to
+    host memory before admission would destroy-evict them, a request
+    with ``park_kv`` publishes its whole context and copies its pages
+    there at delivery, and an admission the host tier covers further
+    than the device index re-imports those pages through the same
+    ``KvImport`` program a handoff uses; ``fetch_kv`` serves the host
+    tier's pages to a peer (host memory only, on any thread);
+  - a ``kv_cache_dtype="int8"`` export keeps an int8 pool with one
+    float32 scale per (position, head), which its handoff, spill and
+    fetch payloads carry as ``{"values", "scale"}`` sides.
 
 The host reads sampled tokens ``sync_lag`` calls late: each program's
 results are copied into pinned host memory by non-blocking copies behind
@@ -59,9 +70,7 @@ has run it, so it reports what the JAX engine reports under the same
 flags.
 
 Not ported yet, each refused with ``NotPortedError`` naming its ROADMAP
-queue 1 item: the host spill tier, session park and the spill tier's
-``fetch_kv`` (item 3), the int8 KV cache (item 4), adapters (item 5) and
-``mesh`` (item 6).
+queue 1 item: adapters (item 5) and ``mesh`` (item 6).
 
 Interface-compatible with the batchers (submit/accepts/stats/close), so
 ModelServer.enable_batching wires it behind the REST surface unchanged.
@@ -79,6 +88,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch import NotPortedError
+from kubeflow_tpu_torch.ops.quantize import QTensor
 from kubeflow_tpu_torch.runtime import tracing
 from kubeflow_tpu_torch.serving import programs
 from kubeflow_tpu_torch.serving.errors import (
@@ -97,6 +107,13 @@ from kubeflow_tpu_torch.serving.prefix_cache import BlockManager
 from kubeflow_tpu_torch.testing import faults
 
 log = logging.getLogger(__name__)
+
+
+class _SpillShed(Exception):
+    """Internal: a spill-tier fault struck mid-admission (the engine.spill
+    site raised during re-import).  The loop sheds the one affected
+    request typed 429: never engine death, never a leaked page."""
+
 
 # Step-duration histogram buckets: decode steps run ~0.1 ms (tiny CPU
 # models) to ~100 ms.
@@ -139,6 +156,18 @@ HANDOFF_PAGES_TOTAL = "kft_engine_handoff_pages_total"
 HANDOFF_PAGES_HELP = \
     "paged-KV pages transferred for disaggregated prefill/decode " \
     "handoff, by engine and direction (export/import)"
+KV_SPILLED_GAUGE = "kft_engine_kv_spilled_blocks"
+KV_SPILLED_HELP = \
+    "paged-KV pages currently resident in the host spill tier, " \
+    "by engine"
+HOST_TIER_GAUGE = "kft_engine_host_tier_blocks"
+HOST_TIER_HELP = \
+    "host spill-tier capacity in pages (0 = tier disabled), by engine"
+KV_SPILL_TOTAL = "kft_engine_kv_spill_total"
+KV_SPILL_HELP = \
+    "paged-KV pages crossing the host spill tier, by engine and " \
+    "direction (out = device pages evacuated to host, in = host " \
+    "pages re-imported at admission)"
 
 # N-gram drafter bounds: suffixes of up to _SPEC_NGRAM_MAX tokens are
 # matched against the request's own history, down to _SPEC_NGRAM_MIN (a
@@ -227,6 +256,31 @@ def _true_token_len(row: np.ndarray) -> int:
     return int(nz[-1]) + 1 if nz.size else int(row.shape[0])
 
 
+def _page_stack(pages, n: int):
+    """Host pages ``(values, scale)`` ([L, >= n, bt, hkv, d], scale None
+    for a pool of the compute dtype) cut to n pages, in the form
+    ``KvImport`` takes: a tensor, or a QTensor of values and scales."""
+    values, scale = pages
+    if scale is None:
+        return values[:, :n]
+    return QTensor(values[:, :n], scale[:, :n], (-1,))
+
+
+def _wire_side(pages, n: int):
+    """Host pages ``(values, scale)`` cut to n pages, in the export form
+    of a handoff or fetch payload: the page tensor, or ``{"values",
+    "scale"}`` for an int8 pool."""
+    values, scale = pages
+    if scale is None:
+        return values[:, :n]
+    return {"values": values[:, :n], "scale": scale[:, :n]}
+
+
+def _host_tensor(raw) -> torch.Tensor:
+    return raw if isinstance(raw, torch.Tensor) \
+        else torch.from_numpy(np.asarray(raw))
+
+
 def _not_ported(what: str, item: int) -> NotPortedError:
     return NotPortedError(
         f"{what} is not ported to the decode engine yet (ROADMAP queue 1 "
@@ -299,9 +353,14 @@ class DecodeEngine:
         with a warning when the export samples (speculation is greedy
         only), and it forces ``sync_lag`` to 0: the drafter reads each
         slot's delivered history.
-      host_spill_blocks, mesh, partition_rules, adapters: the JAX
-        engine's options that are not ported yet; any value but their
-        off value raises ``NotPortedError``.
+      host_spill_blocks: host-memory spill tier capacity in pages (0
+        disables it, as does ``prefix_caching=False``: the tier is
+        looked up by the prefix index's digests).  Idle cached pages
+        spill there under pool pressure, parked sessions (``park_kv``)
+        are copied there at delivery, and ``fetch_kv`` serves it.
+      mesh, partition_rules, adapters: the JAX engine's options that
+        are not ported yet; any value but their off value raises
+        ``NotPortedError``.
       cuda_graphs: None (the default) captures the programs as CUDA
         graphs on a CUDA device and runs them eagerly on the CPU; False
         runs them eagerly on CUDA too (a comparison baseline); True on
@@ -338,8 +397,6 @@ class DecodeEngine:
         from kubeflow_tpu_torch.runtime.prom import REGISTRY
 
         for on, what, item in (
-                (int(host_spill_blocks) > 0, "host_spill_blocks", 3),
-                (decode.kv_cache_dtype != "model", "the int8 KV cache", 4),
                 (adapters is not None, "adapters", 5),
                 (mesh is not None or partition_rules is not None,
                  "mesh (tensor-parallel decode)", 6)):
@@ -384,6 +441,10 @@ class DecodeEngine:
             raise ValueError(
                 f"kv_pool_blocks must be >= 1, got {self.kv_pool_blocks}")
         self.prefix_caching = bool(prefix_caching)
+        # The host tier rides the prefix index (spilled records are looked
+        # up by the same chained digests), so it requires caching.
+        self.host_spill_blocks = max(0, int(host_spill_blocks)) \
+            if self.prefix_caching else 0
         self.max_queue_depth = max(0, int(max_queue_depth))
         self.overload_retry_after_s = overload_retry_after_s
         self._eos = decode.eos_token >= 0
@@ -404,6 +465,7 @@ class DecodeEngine:
             self.sync_lag = 0
         self._state = init_paged_state(cfg, slots, self.kv_pool_blocks,
                                        self.kv_block_tokens,
+                                       decode.kv_cache_dtype,
                                        device=self.device)
         # Host-owned per-slot block tables, passed into every program
         # call; the sentinel value (== pool size) sends writes and reads
@@ -456,7 +518,8 @@ class DecodeEngine:
         # available() for shed attribution).
         self._mgr = BlockManager(self.kv_pool_blocks,
                                  self.kv_block_tokens,
-                                 caching=self.prefix_caching)
+                                 caching=self.prefix_caching,
+                                 host_blocks=self.host_spill_blocks)
         self._evict_rec_seen = 0
         self._evict_blk_seen = 0
         # Which programs have run (the JAX engine's compiled executables;
@@ -509,7 +572,15 @@ class DecodeEngine:
             "kv_evictions": 0, "kv_shed_no_blocks": 0,
             "handoff_pages_out": 0, "handoff_pages_in": 0,
             "fused_rounds": 0, "fused_steps_wasted": 0,
+            "spill_pages_out": 0, "spill_pages_in": 0,
+            "parked_sessions": 0, "fetches": 0,
         }
+        # Host-clock seconds the loop spent gathering pages into the host
+        # tier (spill-out and park) and re-importing them (spill-in), and
+        # the pages those timed calls moved; loop-thread-owned, read for
+        # measurement, not part of stats().
+        self.spill_timing = {"out_s": 0.0, "out_pages": 0, "in_s": 0.0,
+                             "in_pages": 0}
         self._step_times: List[float] = []   # bounded reservoirs
         self._chunk_times: List[float] = []
         self._gap_times: List[float] = []
@@ -556,6 +627,12 @@ class DecodeEngine:
             SPEC_ACCEPTED_TOTAL, SPEC_ACCEPTED_HELP)
         self._handoff_ctr = REGISTRY.counter(
             HANDOFF_PAGES_TOTAL, HANDOFF_PAGES_HELP)
+        self._kv_spilled_gauge = REGISTRY.gauge(
+            KV_SPILLED_GAUGE, KV_SPILLED_HELP)
+        self._host_tier_gauge = REGISTRY.gauge(
+            HOST_TIER_GAUGE, HOST_TIER_HELP)
+        self._kv_spill_ctr = REGISTRY.counter(
+            KV_SPILL_TOTAL, KV_SPILL_HELP)
         # Fault-layer series: same names as the static batchers', so
         # shed/expired rates read uniformly across batching planes.
         self._shed_ctr = REGISTRY.counter(SHED_TOTAL, SHED_HELP)
@@ -564,11 +641,14 @@ class DecodeEngine:
         self._queue_gauge.set(0, engine=name)
         self._kv_blocks_gauge.set(self.kv_pool_blocks, engine=name)
         self._kv_used_gauge.set(0, engine=name)
+        self._kv_spilled_gauge.set(0, engine=name)
+        self._host_tier_gauge.set(self.host_spill_blocks, engine=name)
         # Last values pushed to the gauges: the step loop only touches
         # the (locked) registry when a value actually changes.
         self._occ_last = 0
         self._queue_last = 0
         self._kv_used_last = 0
+        self._kv_spilled_last = 0
         self._thread = threading.Thread(
             target=self._run, daemon=True, name=f"decode-engine-{name}")
         self._thread.start()
@@ -683,20 +763,49 @@ class DecodeEngine:
 
         return meta, stream()
 
-    def fetch_kv(self, inputs: Dict[str, Any]):
-        """The host spill tier's session fetch (it serves that tier
-        only) is not ported yet."""
-        raise _not_ported("the host spill tier's KV page fetch (fetch_kv)",
-                          3)
+    def fetch_kv(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
+        """Fleet-wide session fetch (any thread): the longest HOST-TIER
+        match of ``tokens`` in the export form (``{"kv_handoff",
+        "tokens_covered"}``; serving/http.py's ``encode_kv_handoff``
+        makes it portable), or ``{"kv_handoff": None, "tokens_covered":
+        0}`` on a miss.  Host tier only, by design: the device pool and
+        the programs' buffers belong to the loop thread and its queued
+        graphs, so this never touches a device tensor, and parked or
+        spilled sessions, what a failover survivor needs, are
+        host-resident by construction.  ``adapter_digest`` salts the
+        lookup as the JAX engine's does (a variant's pages are addressed
+        by its content digest)."""
+        tokens = np.asarray(inputs["tokens"], np.int32).reshape(-1)
+        salt = b""
+        digest = inputs.get("adapter_digest")
+        if digest:
+            salt = bytes.fromhex(str(digest))
+        # Chaos hook: the cross-replica fetch path (raise = fetch failure,
+        # the caller falls back to recompute; sleep = slow fetch).
+        faults.fire("engine.fetch")
+        with self._lock:
+            self._counters["fetches"] += 1
+            payload, depth = self._mgr.lookup_spilled(
+                tokens, int(tokens.shape[0]), salt=salt)
+        if payload is None:
+            return {"kv_handoff": None, "tokens_covered": 0}
+        covered = depth * self.kv_block_tokens
+        return {
+            "kv_handoff": {
+                "block_tokens": self.kv_block_tokens,
+                "tokens_covered": covered,
+                "k": _wire_side(payload["k"], depth),
+                "v": _wire_side(payload["v"], depth),
+            },
+            "tokens_covered": covered,
+        }
 
     def _admit(self, inputs: Dict[str, Any],
                deadline: Optional[float]) -> dict:
         """Validate + enqueue one request (submit and submit_stream share
         it); returns the live entry whose ``event`` resolves it."""
-        for key, what, item in (("park_kv", "the session park", 3),
-                                ("adapter", "adapters", 5)):
-            if inputs.get(key):
-                raise _not_ported(what, item)
+        if inputs.get("adapter"):
+            raise _not_ported("adapters", 5)
         tokens = np.asarray(inputs["tokens"], np.int32)
         if tokens.ndim == 1:
             tokens = tokens[None]
@@ -781,6 +890,8 @@ class DecodeEngine:
             "res_blocks": res_blocks, "res_left": 0, "blocks": [],
             "released": False,
             "export": export, "handoff": handoff,
+            "park": bool(inputs.get("park_kv")),
+            "spill_in": None,
             # Adaptive draft width: grows on full accepts, shrinks on
             # full rejects; 0 = backed off (re-probes after cooldown).
             "spec_k": self.speculative_tokens, "spec_cool": 0,
@@ -877,8 +988,8 @@ class DecodeEngine:
         """Locked snapshot of the engine counters: occupancy, queue
         depth, throughput, per-token latency, prefix-cache
         effectiveness and prefill-interference bounds.  The keys are
-        the JAX engine's, less those of the features not ported yet
-        (the host tier, the mesh)."""
+        the JAX engine's (``mesh_devices`` is 1: the port's engine runs
+        on one device)."""
         c, extra = locked_snapshot(
             self._lock, self._counters,
             lambda: {
@@ -886,6 +997,7 @@ class DecodeEngine:
                 "active_slots": sum(
                     r is not None for r in self._slot_req),
                 "kv_used": self._mgr.used_blocks(),
+                "host_used": self._mgr.host_used_blocks(),
                 "step_times": list(self._step_times),
                 "chunk_times": list(self._chunk_times),
                 "gap_times": list(self._gap_times),
@@ -942,9 +1054,23 @@ class DecodeEngine:
             "kv_utilization": round(
                 extra["kv_used"] / self.kv_pool_blocks, 4)
             if self.kv_pool_blocks else 0.0,
-            # Fused decode rounds: rounds dispatched, early-exit
-            # slot-steps that delivered nothing, and the realized
-            # steps-per-round distribution.
+            # The host spill tier: its occupancy and flow.
+            # tokens_addressable is the two-tier capacity (positions
+            # servable without a cold prefill, pool plus host tier);
+            # kv_spill_ratio the host tier's used / capacity.
+            "host_spill_blocks": self.host_spill_blocks,
+            "host_tier_used": extra["host_used"],
+            "kv_spill_pages_out": c["spill_pages_out"],
+            "kv_spill_pages_in": c["spill_pages_in"],
+            "parked_sessions": c["parked_sessions"],
+            "kv_fetches": c["fetches"],
+            "tokens_addressable": (self.kv_pool_blocks
+                                   + self.host_spill_blocks)
+            * self.kv_block_tokens,
+            "kv_spill_ratio": round(
+                extra["host_used"] / self.host_spill_blocks, 4)
+            if self.host_spill_blocks else 0.0,
+            "mesh_devices": 1,
             "handoff_pages_out": c["handoff_pages_out"],
             "handoff_pages_in": c["handoff_pages_in"],
             # Speculation: drafted and accepted tokens and the extra
@@ -1011,6 +1137,9 @@ class DecodeEngine:
         self._set_queue_gauge(0)
         self._kv_blocks_gauge.set(0, engine=self._metric_name)
         self._set_kv_used_gauge(0)
+        self._kv_spilled_gauge.set(0, engine=self._metric_name)
+        self._kv_spilled_last = 0
+        self._host_tier_gauge.set(0, engine=self._metric_name)
 
     # -- step loop --------------------------------------------------------
 
@@ -1107,25 +1236,40 @@ class DecodeEngine:
     def _plan_blocks_locked(self, entry: dict):
         """Reserve the entry's worst-case page count (aliasing the
         longest cached prefix for free); None = the pool cannot cover it
-        yet, leave the request at the queue head."""
+        yet, leave the request at the queue head.  A handoff's pages
+        arrive from the prefill tier into private blocks, so its whole
+        worst case reserves (no prefix lookup).  When the HOST tier
+        covers more of the prompt than the device index, the admission
+        plans like a handoff too (a full private reservation) and
+        re-imports the spilled pages through ``KvImport``."""
         prompt = entry["tokens"][0]
-        # A handoff's pages arrive from the prefill tier into private
-        # blocks, so its whole worst case reserves (no prefix lookup).
         limit = 0 if entry.get("handoff") else int(prompt.shape[0]) - 1
-        return self._mgr.admit(prompt, limit, entry["res_blocks"])
+        spill_in = None
+        if limit > 0 and self.host_spill_blocks:
+            payload, depth = self._mgr.lookup_spilled(prompt, limit)
+            if payload is not None and depth * self.kv_block_tokens \
+                    > self._mgr.peek(prompt, limit):
+                spill_in = (payload, depth)
+                limit = 0
+        plan = self._mgr.admit(prompt, limit, entry["res_blocks"])
+        if plan is not None:
+            entry["spill_in"] = spill_in
+        return plan
 
     # -- disaggregated prefill/decode handoff ----------------------------
 
     def _parse_handoff(self, payload, length: int):
         """Validate + normalize a KV-handoff payload against this
         engine's pool geometry; returns {"covered", "k", "v"} (the full
-        pages covering at most ``length - 1`` positions, CPU tensors:
-        at least one prompt token recomputes locally, and its final
-        chunk arms the slot's scalars), or None when nothing is
-        importable.  A geometry or dtype mismatch raises ValueError (a
-        400): a payload from a differently configured replica must not
-        reach the pool.  Pages of another floating dtype are cast to the
-        pool's, as JAX casts them."""
+        pages covering at most ``length - 1`` positions, CPU tensors, or
+        QTensors of int8 values and float32 scales for an int8 pool: at
+        least one prompt token recomputes locally, and its final chunk
+        arms the slot's scalars), or None when nothing is importable.  A
+        geometry or dtype mismatch raises ValueError (a 400): a payload
+        from a differently configured replica must not reach the pool,
+        and a pool of one kind refuses a payload of the other.  Pages of
+        another floating dtype are cast to the pool's, as JAX casts
+        them."""
         if payload is None:
             return None
         if not isinstance(payload, dict):
@@ -1136,51 +1280,64 @@ class DecodeEngine:
                 f"kv_handoff block_tokens {bt} != engine page size "
                 f"{self.kv_block_tokens}")
         cfg = self.cfg
+        int8 = self.decode.kv_cache_dtype == "int8"
+        dtype_name = str(cfg.dtype).replace("torch.", "")
         page_shape = (cfg.n_layers, self.kv_block_tokens, cfg.n_kv_heads,
                       cfg.head_dim)
 
         def norm(side, raw):
+            if int8:
+                if not isinstance(raw, dict) or "values" not in raw \
+                        or "scale" not in raw:
+                    raise ValueError(
+                        f"kv_handoff {side}: engine pool is int8 — "
+                        f"payload needs values + scale")
+                values = _host_tensor(raw["values"]).to(torch.int8)
+                scale = _host_tensor(raw["scale"]).to(torch.float32)
+                if scale.shape != values.shape[:-1]:
+                    raise ValueError(
+                        f"kv_handoff {side}: scale {tuple(scale.shape)} "
+                        f"must match values {tuple(values.shape)} minus "
+                        f"the trailing dim")
+                return values, scale
             if isinstance(raw, dict):
                 raise ValueError(
-                    f"kv_handoff {side}: engine pool is {cfg.dtype}: got "
-                    "a quantized payload")
-            pages = raw if isinstance(raw, torch.Tensor) \
-                else torch.from_numpy(np.asarray(raw))
+                    f"kv_handoff {side}: engine pool is {dtype_name} "
+                    f"— got a quantized payload")
+            pages = _host_tensor(raw)
             if not pages.dtype.is_floating_point:
                 raise ValueError(
                     f"kv_handoff {side}: pages of dtype {pages.dtype} "
-                    f"cannot fill a {cfg.dtype} pool")
-            if pages.ndim != 5 or (pages.shape[0],) \
-                    + tuple(pages.shape[2:]) != page_shape:
+                    f"cannot fill a {dtype_name} pool")
+            return pages, None
+
+        k_pages = norm("k", payload.get("k"))
+        v_pages = norm("v", payload.get("v"))
+        for side, (values, _) in (("k", k_pages), ("v", v_pages)):
+            if values.ndim != 5 or (values.shape[0],) \
+                    + tuple(values.shape[2:]) != page_shape:
                 raise ValueError(
-                    f"kv_handoff {side} pages {tuple(pages.shape)} do not "
+                    f"kv_handoff {side} pages {tuple(values.shape)} do not "
                     f"match pool pages [layers={page_shape[0]}, n, "
                     f"block_tokens={page_shape[1]}, hkv={page_shape[2]}, "
                     f"d={page_shape[3]}]")
-            return pages
-
-        pages_k = norm("k", payload.get("k"))
-        pages_v = norm("v", payload.get("v"))
-        if pages_k.shape[1] != pages_v.shape[1]:
+        if k_pages[0].shape[1] != v_pages[0].shape[1]:
             raise ValueError("kv_handoff k/v page counts differ")
-        n = min(int(pages_k.shape[1]),
+        n = min(int(k_pages[0].shape[1]),
                 (int(length) - 1) // self.kv_block_tokens)
         if n <= 0:
             return None
         return {"covered": n * self.kv_block_tokens,
-                "k": pages_k[:, :n], "v": pages_v[:, :n]}
+                "k": _page_stack(k_pages, n), "v": _page_stack(v_pages, n)}
 
-    def _import_handoff(self, entry: dict) -> None:
-        """Admission, decode-tier side (loop thread, slot claimed): take
-        the covered pages from the entry's reservation, scatter the
-        transferred pages into them (one ``kv_import`` call over the
-        table-wide span, padded with the sentinel as JAX's ``_pad_pages``
-        pads it) and start chunked prefill at the covered offset, from
-        where the request is a local prefix-cache resume."""
-        # Chaos hook: sleep = slow cross-replica transfer, raise = import
-        # failure.
-        faults.fire("engine.kv_handoff")
-        pages = entry["handoff"]
+    def _import_pages(self, entry: dict, pages: dict) -> int:
+        """The shared page-import tail (loop thread, slot claimed): take
+        the covered pages from the entry's reservation, scatter the page
+        data into them (one ``kv_import`` call over the table-wide span,
+        padded with the sentinel as JAX's ``_pad_pages`` pads it) and
+        start chunked prefill at the covered offset, from where the
+        request is a local prefix-cache resume.  ``pages`` is the
+        normalized {"covered", "k", "v"} form; returns pages imported."""
         self._ensure_cover(entry, pages["covered"] - 1)
         n = pages["covered"] // self.kv_block_tokens
         ids = np.full((self._table_blocks,), self.kv_pool_blocks, np.int64)
@@ -1188,10 +1345,47 @@ class DecodeEngine:
         self._import_prog.run(pages["k"], pages["v"], ids)
         self._import_built = True
         entry["pos"] = pages["covered"]
+        return n
+
+    def _import_handoff(self, entry: dict) -> None:
+        """Admission, decode-tier side: import the prefill tier's
+        transferred pages and prefill the rest."""
+        # Chaos hook: sleep = slow cross-replica transfer, raise = import
+        # failure.
+        faults.fire("engine.kv_handoff")
+        n = self._import_pages(entry, entry["handoff"])
         with self._lock:
             self._counters["handoff_pages_in"] += n
         self._handoff_ctr.inc(n, engine=self._metric_name,
                               direction="import")
+
+    def _import_spill(self, entry: dict) -> None:
+        """Admission, host-tier side: re-import the spilled pages the plan
+        matched through the same ``KvImport`` program a handoff uses, so
+        re-admitting a spilled session costs one page scatter plus the
+        uncovered suffix's chunks, never a full re-prefill.  A fault here
+        sheds THIS admission typed 429 (the caller releases its pages;
+        the host record is untouched, so no page leaks in either tier)
+        instead of killing the engine."""
+        payload, depth = entry.pop("spill_in")
+        try:
+            # Chaos hook: the spill-in import path (raise = spill-tier
+            # failure mid-admission -> typed 429; sleep = slow host copy).
+            faults.fire("engine.spill")
+        except Exception as exc:
+            raise _SpillShed(str(exc)) from exc
+        t0 = time.perf_counter()
+        n = self._import_pages(entry, {
+            "covered": depth * self.kv_block_tokens,
+            "k": _page_stack(payload["k"], depth),
+            "v": _page_stack(payload["v"], depth)})
+        self.spill_timing["in_s"] += time.perf_counter() - t0
+        self.spill_timing["in_pages"] += n
+        with self._lock:
+            self._counters["spill_pages_in"] += n
+            self._mgr.spills_in += n
+        self._kv_spill_ctr.inc(n, engine=self._metric_name,
+                               direction="in")
 
     def _attach_export(self, entry: dict) -> None:
         """Delivery, prefill side (loop thread, pages still held): gather
@@ -1207,13 +1401,12 @@ class DecodeEngine:
             return
         # Chaos hook: raise = export failure at delivery.
         faults.fire("engine.kv_handoff")
-        (pages_k, _), (pages_v, _) = gather_kv_pages(
-            self._state, entry["blocks"][:n])
+        pages_k, pages_v = gather_kv_pages(self._state, entry["blocks"][:n])
         entry["out"]["kv_handoff"] = {
             "block_tokens": self.kv_block_tokens,
             "tokens_covered": n * self.kv_block_tokens,
-            "k": pages_k,
-            "v": pages_v,
+            "k": _wire_side(pages_k, n),
+            "v": _wire_side(pages_v, n),
         }
         with self._lock:
             self._counters["handoff_pages_out"] += n
@@ -1294,6 +1487,136 @@ class DecodeEngine:
             self._kv_used_last = used
             self._kv_used_gauge.set(used, engine=self._metric_name)
 
+    def _set_kv_spilled_gauge(self, spilled: int) -> None:
+        if spilled != self._kv_spilled_last:
+            self._kv_spilled_last = spilled
+            self._kv_spilled_gauge.set(spilled, engine=self._metric_name)
+
+    # -- host spill tier -------------------------------------------------
+
+    def _spill_tick(self, max_records: int = 4) -> int:
+        """Evacuate LRU-cold idle records to the host tier while take()
+        pressure would otherwise destroy-evict them (loop thread, between
+        program calls).  Each spill is select-under-lock,
+        gather-outside-the-lock (a device read never runs under the
+        engine lock), complete-under-lock; ``spill()`` revalidates the
+        candidate, so the off-lock window is race-free.  The gather runs
+        on the stream the programs use, after every program already
+        queued, and its ``.cpu()`` waits for them.  A gather fault leaves
+        the record resident: destructive LRU eviction remains the
+        fallback.  Returns records spilled."""
+        from kubeflow_tpu_torch.models.generate import gather_kv_pages
+
+        spilled = 0
+        while spilled < max_records and self._mgr.spill_pressure() > 0:
+            with self._lock:
+                cands = self._mgr.spill_candidates(1)
+            if not cands:
+                break
+            rec = cands[0]
+            n = len(rec.blocks)
+            with self._lock:
+                # Gather-free fast path: a parked session's chain is
+                # already host-resident (host_put at delivery), so its
+                # device pages drop without another copy.
+                freed = self._mgr.spill(rec, None)
+                if freed is not None:
+                    self._counters["spill_pages_out"] += n
+            if freed is not None:
+                self._kv_spill_ctr.inc(n, engine=self._metric_name,
+                                       direction="out")
+                spilled += 1
+                continue
+            try:
+                # Chaos hook: the spill-out gather (raise = gather failure,
+                # the record stays resident; sleep = slow host copy).
+                faults.fire("engine.spill")
+                t0 = time.perf_counter()
+                pages_k, pages_v = gather_kv_pages(self._state, rec.blocks)
+                self.spill_timing["out_s"] += time.perf_counter() - t0
+                self.spill_timing["out_pages"] += n
+            except Exception:  # noqa: BLE001 -- degrade to eviction
+                log.debug("engine %r: spill-out gather failed",
+                          self._metric_name, exc_info=True)
+                break
+            with self._lock:
+                freed = self._mgr.spill(rec, {"k": pages_k, "v": pages_v})
+                if freed is None:
+                    continue  # went stale off-lock; reselect
+                self._counters["spill_pages_out"] += n
+            self._kv_spill_ctr.inc(n, engine=self._metric_name,
+                                   direction="out")
+            spilled += 1
+        self._set_kv_spilled_gauge(self._mgr.host_used_blocks())
+        return spilled
+
+    def _shed_admitted(self, entry: dict, slot: int, why: str) -> None:
+        """Shed one ALREADY-CLAIMED admission typed 429 (a spill-tier
+        fault mid-admission): release its pages and reservation, free the
+        slot (no chunk was dispatched, so the previous occupant's
+        claim-time freeze still holds) and resolve the waiter.  The host
+        tier is untouched: its record serves the next attempt."""
+        with self._lock:
+            if self._slot_req[slot] is entry:
+                self._slot_req[slot] = None
+            self._tables[slot][:] = self.kv_pool_blocks
+            self._tables_dirty = True
+            self._release_entry_locked(entry)
+            self._counters["in_flight"] -= 1
+            self._counters["shed"] += 1
+            self._counters["kv_shed_no_blocks"] += 1
+        self._shed_ctr.inc(batcher=self._metric_name)
+        self._kv_shed_ctr.inc(engine=self._metric_name)
+        entry["err"] = Overloaded(
+            f"engine {self._metric_name!r} spill-tier re-import "
+            f"failed mid-admission: {why}",
+            retry_after_s=self.overload_retry_after_s)
+        entry["event"].set()
+
+    def _park_kv(self, entry: dict) -> None:
+        """Delivery-side session park (loop thread, pages still
+        slot-held): publish the FULL context (prompt + emitted; the last
+        sampled token has no cache entry) as an ordinary device record
+        AND copy its full-block pages into the host tier.  The next turn
+        resumes through the device index while the record is warm,
+        through host-tier re-import once pressure spilled it, and over
+        ``fetch_kv`` from a peer after failover.  A gather fault
+        degrades to device-resident-only parking."""
+        from kubeflow_tpu_torch.models.generate import gather_kv_pages
+
+        context = np.concatenate(
+            [entry["tokens"][0], np.asarray(entry["emitted"], np.int32)])
+        true_len = int(context.shape[0]) - 1
+        n = min(true_len // self.kv_block_tokens, len(entry["blocks"]))
+        with self._lock:
+            self._counters["parked_sessions"] += 1
+            if n > 0 and self.prefix_caching:
+                self._mgr.publish(context, true_len, entry["blocks"])
+        if n <= 0 or not self.host_spill_blocks:
+            return
+        try:
+            # Chaos hook: the park-side gather, with the pressure spill's
+            # site and degradation.
+            faults.fire("engine.spill")
+            t0 = time.perf_counter()
+            pages_k, pages_v = gather_kv_pages(
+                self._state, entry["blocks"][:n])
+            self.spill_timing["out_s"] += time.perf_counter() - t0
+            self.spill_timing["out_pages"] += n
+        except Exception:  # noqa: BLE001 -- degrade to device-only park
+            log.debug("engine %r: park gather failed", self._metric_name,
+                      exc_info=True)
+            return
+        with self._lock:
+            stored = self._mgr.host_put(
+                context, true_len, {"k": pages_k, "v": pages_v})
+            if stored:
+                self._counters["spill_pages_out"] += stored
+        if stored:
+            self._kv_spill_ctr.inc(stored, engine=self._metric_name,
+                                   direction="out")
+        self._set_kv_spilled_gauge(self._mgr.host_used_blocks())
+
     def _refresh_tables_dev(self) -> None:
         """Upload the host block tables to their device copy, only when
         a host edit marked them dirty.  The copy is ordered on the
@@ -1342,6 +1665,10 @@ class DecodeEngine:
             # Disaggregated decode tier: import the prefill tier's pages,
             # then chunk-prefill only the uncovered suffix (>= 1 token).
             self._import_handoff(entry)
+        elif entry.get("spill_in"):
+            # Host-tier re-import: the same mechanics, the pages from
+            # this engine's own spill tier.
+            self._import_spill(entry)
         entry["prefilling"] = True
         self._prefill_chunk(entry)  # claim-time freeze + first chunk
         if entry["prefilling"]:
@@ -1405,6 +1732,10 @@ class DecodeEngine:
         if entry.get("export"):
             # Prefill-tier delivery: the finished pages ride the result.
             self._attach_export(entry)
+        if entry.get("park"):
+            # Session park: publish and host-copy the full context before
+            # release frees its pages.
+            self._park_kv(entry)
         if entry["want_timing"]:
             now = faults.monotonic()
             entry["out"]["ttft_s"] = (
@@ -1608,6 +1939,11 @@ class DecodeEngine:
         self._refresh_tables_dev()
         if self.speculative_tokens:
             self._draft_ahead(snapshot, width)
+        # Overlapped spill: evacuate one cold record in the window.  Its
+        # gather queues behind the round and waits for it, where the
+        # readback below would wait anyway.
+        if self.host_spill_blocks:
+            self._spill_tick(1)
         # ---- round boundary: materialize ONCE, deliver, account.
         steps = int(readback.numpy()[2])
         self._pending.append((readback, snapshot, True))
@@ -2039,8 +2375,16 @@ class DecodeEngine:
             # in-flight slots.
             self._fail_queue(BatcherClosed(
                 f"engine {self._metric_name!r} is closed"))
+        if self.host_spill_blocks:
+            # Spill-then-admit: evacuate LRU-cold idle records to the host
+            # tier BEFORE this turn's take() calls (admission prefills,
+            # the chunk budget, decode covers) can destroy-evict them.
+            self._spill_tick()
         for entry, slot in admissions:
-            self._begin_prefill(entry, slot)
+            try:
+                self._begin_prefill(entry, slot)
+            except _SpillShed as exc:
+                self._shed_admitted(entry, slot, str(exc))
         # Chunked prefill BETWEEN decode steps, under the per-step token
         # budget: the head admission (FIFO) gets chunks until the budget
         # is spent, then the loop returns to decoding.
@@ -2069,6 +2413,8 @@ class DecodeEngine:
         self._set_occ_gauge(sum(r is not None for r in self._slot_req))
         # Pages resident (the loop thread is the pool's only mutator).
         self._set_kv_used_gauge(self._mgr.used_blocks())
+        if self.host_spill_blocks:
+            self._set_kv_spilled_gauge(self._mgr.host_used_blocks())
         return True
 
     def _fail_queue(self, exc: Exception) -> None:

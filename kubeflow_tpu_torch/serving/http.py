@@ -13,16 +13,19 @@ On a decode-engine model, ``POST /model/NAME:generate`` streams chunked
 NDJSON (a meta line, ``{"tokens": [...]}`` lines as the engine emits, a
 terminal done or error line), and ``POST /model/NAME:prefill`` answers
 the prompt's finished KV pages as a wire-encoded ``kv_handoff`` that a
-decode tier's :generate body carries.  Typed errors map to
-404/400/429/504, and a feature not ported yet (``NotPortedError``) to
-501, as ``:fetch_kv`` (the host spill tier's) answers.  stdlib
-``http.server`` (threaded), one process.
+decode tier's :generate body carries; ``POST /model/NAME:fetch_kv``
+answers the host spill tier's pages for a prompt in the same form
+(``{"kv_handoff": null, "tokens_covered": 0}`` on a miss).  Typed errors
+map to 404/400/429/504, and a feature not ported yet
+(``NotPortedError``) to 501.  stdlib ``http.server`` (threaded), one
+process.
 
 The wire form of a KV page stack is JAX's, byte for byte: ``{"b64",
 "shape", "dtype"}`` with the raw little-endian bytes, ``"bfloat16"``
 for bf16 pages (written from an int16 view, read back with
-``torch.frombuffer``), so a prefill tier of either package can hand
-pages to a decode tier of the other.
+``torch.frombuffer``), and ``{"values", "scale"}`` of int8 and float32
+stacks for an int8 pool, so a tier of either package can hand pages to
+one of the other.
 
 Not ported yet: /metrics and /debug/traces (ROADMAP queue 1 item 9).
 """
@@ -85,10 +88,10 @@ def parse_deadline_ms(body: Dict[str, Any]) -> Optional[float]:
     return time.monotonic() + deadline_ms / 1e3
 
 
-# Wire dtype names of the port's pool dtypes.  An int8 pool's payload
-# (values + float32 scale) also decodes, so that the engine refuses it by
-# name.
-_WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+# Wire dtype names of the port's pool tensors: the model-dtype pages, and
+# an int8 pool's values and float32 scales.
+_WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.int8: "int8"}
 _FROM_WIRE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "int8": torch.int8}
 
@@ -117,14 +120,21 @@ def _dec_arr(d: Any) -> torch.Tensor:
 
 
 def encode_kv_handoff(payload: Dict[str, Any]) -> Dict[str, Any]:
-    """Engine-form KV handoff (page stacks, DecodeEngine._attach_export)
-    -> JSON wire form, each stack ``{b64, shape, dtype}``.  A router
-    forwards it verbatim from a :prefill answer into a decode tier's
+    """Engine-form KV handoff (page stacks, DecodeEngine._attach_export or
+    fetch_kv) -> JSON wire form, each stack ``{b64, shape, dtype}`` (an
+    int8 pool's side ``{"values", "scale"}`` of two).  A router forwards
+    it verbatim from a :prefill or :fetch_kv answer into a decode tier's
     :generate body."""
+    def enc_side(side):
+        if isinstance(side, dict):  # int8: values + scale
+            return {"values": _enc_arr(side["values"]),
+                    "scale": _enc_arr(side["scale"])}
+        return _enc_arr(side)
+
     return {"block_tokens": int(payload["block_tokens"]),
             "tokens_covered": int(payload["tokens_covered"]),
-            "k": _enc_arr(payload["k"]),
-            "v": _enc_arr(payload["v"])}
+            "k": enc_side(payload["k"]),
+            "v": enc_side(payload["v"])}
 
 
 def decode_kv_handoff(wire: Any) -> Dict[str, Any]:
@@ -285,13 +295,20 @@ class ServingAPI:
 
     def fetch_kv(self, name: str, body: Dict[str, Any],
                  version: Optional[int] = None) -> Dict[str, Any]:
-        """The host spill tier's page fetch: the engine refuses it (501)
-        until that tier is ported (ROADMAP queue 1 item 3)."""
+        """The host spill tier's page fetch: the longest match of the
+        prompt in the engine's host tier as a wire ``kv_handoff``, null
+        on a miss.  A pure host-memory read, so a replay is harmless."""
         tokens = body.get("tokens")
         if tokens is None:
             raise ValueError("Request json object must use the key: tokens")
-        return self.server.fetch_kv(
+        out = self.server.fetch_kv(
             name, {"tokens": np.asarray(tokens, np.int32)})
+        payload = out.get("kv_handoff")
+        return {
+            "kv_handoff": None if payload is None
+            else encode_kv_handoff(payload),
+            "tokens_covered": int(out.get("tokens_covered", 0)),
+        }
 
 
 class _Handler(BaseHTTPRequestHandler):

@@ -15,7 +15,6 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -141,7 +140,9 @@ def lm_generate(config: Dict[str, Any], device: DeviceLike = None) -> Callable:
 
     config: {"model": TransformerConfig overrides, "max_new_tokens": int,
              "temperature": float, "top_k": int (0 = off),
-             "top_p": float (1.0 = off), "eos_token": int}
+             "top_p": float (1.0 = off), "eos_token": int,
+             "quantize": "int8" (optional, weight-only),
+             "kv_cache": "int8" (optional, quantized decode cache)}
 
     Sampling is deterministic per request: a request without ``seed``
     samples from seed 0, so identical prompts return identical
@@ -154,33 +155,45 @@ def lm_generate(config: Dict[str, Any], device: DeviceLike = None) -> Callable:
     the serving entry point builds the continuous-batching DecodeEngine
     around every hot-swapped version.
     """
-    from kubeflow_tpu_torch.models.convert import load_params, params_from_jax
+    from kubeflow_tpu_torch.models.convert import (
+        load_params,
+        params_from_jax,
+        params_to_device,
+    )
     from kubeflow_tpu_torch.models.generate import DecodeConfig, generate
     from kubeflow_tpu_torch.models.transformer import Transformer
-    from kubeflow_tpu_torch.ops.quantize import narrow_params
+    from kubeflow_tpu_torch.ops.quantize import narrow_params, quantize_params
 
     dev = resolve_device(device)
     cfg = _model_config(config.get("model", {}))
-    for key in ("quantize", "kv_cache"):
-        if config.get(key) is not None:
-            raise NotPortedError(
-                f"{key}={config[key]!r}: int8 serving is not ported yet "
-                "(ROADMAP queue 1 item 4)")
+    kv_cache = config.get("kv_cache")
+    if kv_cache not in (None, "int8"):
+        raise ValueError(f"unknown kv_cache mode {kv_cache!r}")
     decode = DecodeConfig(
         max_new_tokens=int(config.get("max_new_tokens", 64)),
         temperature=float(config.get("temperature", 0.0)),
         top_k=int(config.get("top_k", 0)),
         top_p=float(config.get("top_p", 1.0)),
         eos_token=int(config.get("eos_token", -1)),
+        kv_cache_dtype=kv_cache or "model",
     )
+    quantize = config.get("quantize")
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
 
     def make_predict(variables):
-        # Staged on the device once, with the matmul weights narrowed to
-        # the compute dtype (checkpoints carry float32 masters); norm
-        # scales stay float32.
-        params = narrow_params(params_from_jax(variables["params"]),
-                               cfg.dtype)
-        model = load_params(Transformer(cfg, device="meta"), params).to(dev)
+        # Staged on the device once.  Weight-only int8 quantization runs
+        # on the host before the copy, so the int8 bytes are what cross
+        # to the device and live there; without it the matmul weights
+        # are narrowed to the compute dtype (checkpoints carry float32
+        # masters).  Norm scales stay float32 either way.
+        params = params_from_jax(variables["params"])
+        if quantize == "int8":
+            params = quantize_params(params)
+        else:
+            params = narrow_params(params, cfg.dtype)
+        model = load_params(Transformer(cfg, device="meta"),
+                            params_to_device(params, dev))
 
         def predict(inputs: Dict[str, Any]) -> Dict[str, Any]:
             tokens = torch.as_tensor(np.asarray(inputs["tokens"]),

@@ -16,11 +16,15 @@ static ``BucketedLMBatcher`` (with ``--micro_batch_size`` and
 ``--speculative_tokens N`` makes the engine speculate with n-gram drafts
 of up to N tokens (greedy exports), and ``--role prefill|decode``
 advertises the server's disaggregated tier on /readyz (every server
-answers :prefill and the streaming :generate).
+answers :prefill and the streaming :generate).  ``--host_spill_blocks
+N`` gives the engine a host-memory KV tier of N pages, which parked
+sessions (``park_kv``) and pool pressure fill and ``:fetch_kv`` serves.
+An export whose config sets ``quantize: int8`` or ``kv_cache: int8``
+serves int8 weights or an int8 KV pool.
 
-Not ported yet: the engine's host spill tier (ROADMAP queue 1, item 3),
-adapters (item 5) and ``--mesh`` (item 6), whose flags are accepted at
-their off values only and raise ``NotPortedError`` otherwise; the gRPC
+Not ported yet: adapters (ROADMAP queue 1, item 5) and ``--mesh`` (item
+6), whose flags are accepted at their off values only and raise
+``NotPortedError`` otherwise; the gRPC
 face (item 7); tracing routes, fault injection from the environment and
 idempotency dedup (item 9).
 """
@@ -81,8 +85,7 @@ def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
     """
     from kubeflow_tpu_torch.serving.engine import DecodeEngine
 
-    for on, flag, item in ((host_spill_blocks > 0, "--host_spill_blocks", 3),
-                           (bool(adapters_dir), "--adapters_dir", 5),
+    for on, flag, item in ((bool(adapters_dir), "--adapters_dir", 5),
                            (bool(mesh), "--mesh", 6)):
         if on:
             raise NotPortedError(
@@ -124,6 +127,7 @@ def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
                     prefill_chunk_tokens=prefill_chunk_tokens,
                     kv_block_tokens=kv_block_tokens,
                     kv_pool_blocks=kv_pool_blocks,
+                    host_spill_blocks=host_spill_blocks,
                     prefix_caching=prefix_caching,
                     max_queue_depth=max_queue_depth,
                     overload_retry_after_s=overload_retry_after_s,
@@ -224,7 +228,15 @@ def _parser() -> argparse.ArgumentParser:
                          "decode; greedy exports only (a sampling export "
                          "serves without it); 0 = off")
     ap.add_argument("--host_spill_blocks", type=int, default=0,
-                    help="not ported yet: only 0 is accepted")
+                    help="DecodeEngine host-RAM KV spill tier capacity "
+                         "in pages (0 = disabled).  LRU-cold "
+                         "prefix records and parked multi-turn "
+                         "sessions evacuate to host memory under pool "
+                         "pressure and re-import through kv_import on "
+                         "the next hit; tokens-addressable capacity "
+                         "becomes (kv_pool_blocks + host_spill_blocks)"
+                         " x kv_block_tokens, and the :fetch_kv route "
+                         "serves these pages to failover peers")
     ap.add_argument("--adapters_dir", default="",
                     help="not ported yet: only empty is accepted")
     ap.add_argument("--mesh", default="",

@@ -10,13 +10,13 @@ the smallest bucket covering the longest member.
 The continuous-batching DecodeEngine (serving/engine.py) plugs in as a
 batcher; ``SHED_TOTAL``/``EXPIRED_TOTAL`` and ``locked_snapshot`` are the
 names it shares with the batchers.  Through it the server also runs the
-disaggregated prefill tier (``prefill_handoff``) and streams generation
-(``generate_stream``); ``role`` advertises the server's tier.
+disaggregated prefill tier (``prefill_handoff``), streams generation
+(``generate_stream``) and serves the engine's host spill tier to peers
+(``fetch_kv``); ``role`` advertises the server's tier.
 
 Not ported yet: the reload circuit breaker, idempotency dedup, request
 tracing, fault-injection sites and the batchers' Prometheus metrics
-(ROADMAP queue 1, item 9), adapters (item 5) and the host spill tier's
-``fetch_kv`` (item 3).
+(ROADMAP queue 1, item 9) and adapters (item 5).
 """
 
 from __future__ import annotations
@@ -349,8 +349,11 @@ class ModelServer:
             self._exit_model(name)
 
     def fetch_kv(self, name: str, inputs: Dict[str, Any]) -> Dict[str, Any]:
-        """The host spill tier's page fetch (:fetch_kv), on ``name``'s
-        engine; the engine refuses it until that tier is ported."""
+        """The host spill tier's page fetch (:fetch_kv): ``tokens``' longest
+        match in ``name``'s engine host tier, in the engine's export
+        form, or a miss.  A pure host-memory read with no in-flight
+        bracket: a drain must not wait on a peer's failover fetch, and
+        the fetch keeps answering while this replica drains."""
         return self._engine_call(name, "fetch_kv", ":fetch_kv")(inputs)
 
     def generate_stream(self, name: str, inputs: Dict[str, Any],

@@ -1,8 +1,7 @@
 """Host-side block manager for the paged KV pool.
 
-The port's copy of kubeflow_tpu/serving/prefix_cache.py (numpy only).
-The host spill tier comes along as it is; the port's engine keeps it
-off until its slice lands (ROADMAP queue 1, item 3).
+The port's copy of kubeflow_tpu/serving/prefix_cache.py (numpy only),
+host spill tier included; its payloads are the port's CPU page tensors.
 
 The DecodeEngine's unified KV store is a device-side BLOCK POOL
 (models/generate.py ``init_paged_state``): fixed-size pages of

@@ -19,7 +19,14 @@ over fixed buffers, built once per engine:
   - ``KvImport``: ``import_kv_pages`` over a page span padded to the
     block tables' width, as JAX's ``_pad_pages`` pads it; the padding's
     ids are the pool-size sentinel, so its pages land on the scratch
-    block.
+    block.  It serves the disaggregated handoff and the host spill
+    tier's re-import alike.
+
+An int8 state's pool sides are ``QTensor``s (ops/quantize.py): int8
+values and float32 scales, four tensors in all, each a fixed buffer the
+graphs read and write as they do the model-dtype pool's two, each with
+its scratch block.  ``KvImport`` then holds int8 and float32 page
+buffers.
 
 Every program writes the engine's state in place, so the state's
 tensors, the block tables and the buffers keep their storage for the
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models import generate
+from kubeflow_tpu_torch.ops.quantize import QTensor
 
 # Warm-up runs of a body before its capture: the first run of each op
 # on a fresh stream initialises what a capture cannot (cuBLAS handles
@@ -237,20 +245,39 @@ class Verify(_Program):
         return self._launch()
 
 
+def _page_buffer(cache, span: int):
+    """Zeroed page buffer of ``span`` pages shaped like the pool ``cache``
+    ([L, nb, bt, ...] -> [L, span, bt, ...]), a QTensor of two for an
+    int8 pool."""
+    if isinstance(cache, QTensor):
+        return QTensor(_page_buffer(cache.values, span),
+                       _page_buffer(cache.scale, span), cache.axes)
+    shape = (cache.shape[0], span) + tuple(cache.shape[2:])
+    return torch.zeros(shape, dtype=cache.dtype, device=cache.device)
+
+
+def _fill_pages(buf: torch.Tensor, pages: torch.Tensor) -> None:
+    """Copy host pages [L, n, ...] into the first n pages of ``buf``, cast
+    to its dtype (pinned first on CUDA, so the copy does not block)."""
+    pages = pages.to(buf.dtype)
+    if buf.device.type == "cuda":
+        pages = pages.pin_memory()
+    buf[:, :pages.shape[1]].copy_(pages, non_blocking=True)
+
+
 class KvImport(_Program):
     """``import_kv_pages`` over fixed page buffers of ``span`` pages a
-    side and their int64 block ids.  The ids start at the pool-size
-    sentinel, so a capture's warm-up runs scatter onto the scratch block
-    whatever the pool holds."""
+    side (values and scales for an int8 pool) and their int64 block ids.
+    The ids start at the pool-size sentinel, so a capture's warm-up runs
+    scatter onto the scratch block, scales included, whatever the pool
+    holds."""
 
     def __init__(self, model, decode, state, tables, span: int,
                  graphs: bool):
         super().__init__(model, decode, state, tables, graphs)
         cache = state["cache_k"]
-        shape = (cache.shape[0], span) + tuple(cache.shape[2:])
-        self.pages_k = torch.zeros(shape, dtype=cache.dtype,
-                                   device=self.device)
-        self.pages_v = torch.zeros_like(self.pages_k)
+        self.pages_k = _page_buffer(cache, span)
+        self.pages_v = _page_buffer(cache, span)
         self.ids = torch.full((span,), cache.shape[1], dtype=torch.int64,
                               device=self.device)
 
@@ -258,17 +285,17 @@ class KvImport(_Program):
         generate.import_kv_pages(self.state, self.pages_k, self.pages_v,
                                  self.ids)
 
-    def run(self, pages_k: torch.Tensor, pages_v: torch.Tensor,
-            ids: np.ndarray) -> None:
+    def run(self, pages_k, pages_v, ids: np.ndarray) -> None:
         """Scatter ``n`` pages a side (host tensors [L, n, bt, hkv, d],
-        cast to the pool's dtype) into blocks ``ids`` ([span], the pages'
-        n ids, then the sentinel).  Pages past ``n`` in the buffers are
-        left as they were: their ids send them to the scratch block."""
-        n = pages_k.shape[1]
+        cast to the pool's dtype; QTensors of values and scales for an
+        int8 pool) into blocks ``ids`` ([span], the pages' n ids, then the
+        sentinel).  Pages past ``n`` in the buffers are left as they
+        were: their ids send them to the scratch block."""
         for buf, pages in ((self.pages_k, pages_k), (self.pages_v, pages_v)):
-            pages = pages.to(buf.dtype)
-            if buf.device.type == "cuda":
-                pages = pages.pin_memory()
-            buf[:, :n].copy_(pages, non_blocking=True)
+            if isinstance(buf, QTensor):
+                _fill_pages(buf.values, pages.values)
+                _fill_pages(buf.scale, pages.scale)
+            else:
+                _fill_pages(buf, pages)
         upload(self.ids, np.asarray(ids, np.int64))
         self._launch()

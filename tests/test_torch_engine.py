@@ -1,8 +1,10 @@
 """The port's continuous-batching DecodeEngine against the JAX package's.
 
 The twins of tests/test_lm_serving.py's TestDecodeEngine and
-tests/test_fused_decode.py, minus int8, adapters and mesh (speculation
-is tests/test_torch_speculative.py's): the same numpy weights serve
+tests/test_fused_decode.py, minus adapters and mesh (speculation is
+tests/test_torch_speculative.py's, int8 tests/test_torch_int8_engine.py's
+and the host spill tier tests/test_torch_kv_spill.py's): the same numpy
+weights serve
 through both engines at float32 on the CPU, and the port's greedy
 tokens must equal the JAX engine's (which takes the requests one at a
 time) and the port's own single-request ``generate()``, across mixed
@@ -493,33 +495,23 @@ def test_sampled_stream_repeats_alone_or_co_batched(spec):
     assert alone != run([prompt], [8], 8)[0]
 
 
-# The ids the cases had beside the speculation case, which left with the
-# refusal it checked.
+# The ids the cases had beside the speculation and host-spill cases, which
+# left with the refusals they checked.
 @pytest.mark.parametrize("option,item", [
-    ({"host_spill_blocks": 4}, 3),
     ({"adapters": object()}, 5),
     ({"mesh": object()}, 6),
-], ids=["option1-3", "option2-5", "option3-6"])
+], ids=["option2-5", "option3-6"])
 def test_held_back_options_raise_not_ported(spec, option, item):
     with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
         _port_engine(spec, **option)
 
 
 def test_held_back_requests_raise_not_ported(spec):
-    int8 = SimpleNamespace(max_new_tokens=4, eos_token=-1,
-                           kv_cache_dtype="int8", temperature=0.0)
-    with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 4"):
-        DecodeEngine(spec.model, int8)
     engine = _port_engine(spec, slots=1, prefill_len=16)
     tokens = np.arange(1, 5, dtype=np.int32)
     try:
-        for key, item in (("park_kv", 3), ("adapter", 5)):
-            with pytest.raises(NotPortedError,
-                               match=f"ROADMAP queue 1 item {item}"):
-                _submit(engine, {"tokens": tokens, key: {"x": 1}})
-        # The host spill tier's fetch waits for that tier (item 3).
-        with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 3"):
-            engine.fetch_kv({"tokens": tokens})
+        with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 5"):
+            _submit(engine, {"tokens": tokens, "adapter": {"x": 1}})
         # The loop thread lives on and serves.
         t0 = time.monotonic()
         out = _submit(engine, {"tokens": tokens, "max_new_tokens": 2})

@@ -13,10 +13,15 @@ a round; verify windows fully accepted, rejected, clipped and undrafted;
 page imports of other spans and ids); each replay must equal the same
 program run eagerly on a twin state: integer state and tokens equal,
 pool and logits within 1e-6, and an import leaves every page outside
-its ids unchanged.  An engine with graphs must give ``generate()``'s
-greedy tokens, speculating too, and a decode tier importing a prefill
-tier's pages must give the unified engine's; a capture forced to fail
-must raise from the engine's constructor.
+its ids unchanged.  On an int8 state (int8 weights over an int8 pool)
+each of the five programs replays equal to its eager run the same way,
+the pools' int8 values equal and their scales within 1e-6.  An engine
+with graphs must give ``generate()``'s greedy tokens, speculating too, a
+decode tier importing a prefill tier's pages must give the unified
+engine's, and a session parked, dropped from the device and re-imported
+from the host spill tier through the captured ``KvImport`` must give
+the tokens of an engine that never spilled it (model dtype and int8); a
+capture forced to fail must raise from the engine's constructor.
 """
 
 import dataclasses
@@ -27,7 +32,14 @@ import pytest
 import torch
 
 from kubeflow_tpu_torch.models import generate as pgen
+from kubeflow_tpu_torch.models.convert import (
+    load_params,
+    params_from_jax,
+    params_to_device,
+    params_to_jax,
+)
 from kubeflow_tpu_torch.models.transformer import Transformer, TransformerConfig
+from kubeflow_tpu_torch.ops.quantize import QTensor, quantize_params
 from kubeflow_tpu_torch.serving import programs
 from kubeflow_tpu_torch.serving.engine import DecodeEngine
 
@@ -61,16 +73,43 @@ def model(cuda_device):
                        ).to(cuda_device)
 
 
+@pytest.fixture
+def model_q(model):
+    """``model``'s weights quantized to int8, on the card."""
+    params = quantize_params(params_from_jax(params_to_jax(model)))
+    return load_params(Transformer(model.cfg, device="meta"),
+                       params_to_device(params, "cuda"))
+
+
 def _prompt(n, seed):
     return np.random.default_rng(seed).integers(1, VOCAB, n)
 
 
-def _fresh_pairs(model):
+def _fresh_pairs(model, kv="model"):
     """Two fresh (state, tables): the captured side's and the eager
-    side's."""
-    return [(pgen.init_paged_state(model.cfg, SLOTS, NB, BT, device="cuda"),
+    side's, with a pool of the model's dtype or an int8 one."""
+    return [(pgen.init_paged_state(model.cfg, SLOTS, NB, BT, kv,
+                                   device="cuda"),
              torch.full((SLOTS, MB), NB, dtype=torch.int64, device="cuda"))
             for _ in range(2)]
+
+
+def _copy_pool(dst, src):
+    if isinstance(src, QTensor):
+        dst.values.copy_(src.values)
+        dst.scale.copy_(src.scale)
+    else:
+        dst.copy_(src)
+
+
+def _check_pool(got, want):
+    """Model-dtype pools within 1e-6; int8 pools' values equal and
+    scales within 1e-6."""
+    if isinstance(want, QTensor):
+        assert torch.equal(got.values, want.values)
+        torch.testing.assert_close(got.scale, want.scale, **TOL)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
 
 
 def _cover(pairs, slot, blocks):
@@ -82,9 +121,11 @@ def _cover(pairs, slot, blocks):
 def _logits(model, state, tables):
     """The paged forward of every slot's last token, on a copy of the
     pools."""
-    scratch = pgen.init_paged_state(model.cfg, SLOTS, NB, BT, device="cuda")
+    kv = "int8" if isinstance(state["cache_k"], QTensor) else "model"
+    scratch = pgen.init_paged_state(model.cfg, SLOTS, NB, BT, kv,
+                                    device="cuda")
     for name in ("cache_k", "cache_v"):
-        scratch[name].copy_(state[name])
+        _copy_pool(scratch[name], state[name])
     with torch.inference_mode():
         return pgen._forward_with_cache(
             model, state["last_token"].long()[:, None],
@@ -98,7 +139,7 @@ def _check(model, pairs):
     for name in INTS:
         assert torch.equal(got[name], want[name]), name
     for name in ("cache_k", "cache_v"):
-        torch.testing.assert_close(got[name], want[name], **TOL)
+        _check_pool(got[name], want[name])
     torch.testing.assert_close(_logits(model, got, got_tables),
                                _logits(model, want, want_tables), **TOL)
 
@@ -419,3 +460,125 @@ def test_failed_capture_raises_from_the_engine(cuda_device, model,
     with pytest.raises(RuntimeError, match="CUDA graph capture"):
         DecodeEngine(model, pgen.DecodeConfig(max_new_tokens=4), slots=1,
                      prefill_len=16, name="fails")
+
+
+# -- int8 weights over an int8 pool -------------------------------------------
+
+INT8 = pgen.DecodeConfig(max_new_tokens=16, kv_cache_dtype="int8")
+
+
+@pytest.mark.cuda
+def test_int8_prefill_replays(cuda_device, model_q):
+    pairs = _fresh_pairs(model_q, "int8")
+    twin = Twin(model_q, pairs, _chunk(model_q, INT8))
+    twin.capture()
+    _cover(pairs, 1, [5, 9, 2, 7])
+    twin.prefill(1, 13, 6, 21)
+    _cover(pairs, 2, [0, 1, 3])
+    twin.prefill(2, 7, 1, 33)
+    assert pairs[0][0]["cache_k"].scale[:, [5, 9]].abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_int8_rounds_and_step_replay(cuda_device, model_q):
+    for make, args in ((_rounds(model_q, INT8), [(w,) for w in WIDTHS]),
+                       (lambda state, tables, graphs: programs.Step(
+                           model_q, INT8, state, tables, 2, graphs),
+                        [()] * 3)):
+        pairs = _fresh_pairs(model_q, "int8")
+        twin = Twin(model_q, pairs, make)
+        twin.capture()
+        _admit_two(model_q, INT8, pairs)
+        for a in args:
+            twin.call(*a)
+
+
+@pytest.mark.cuda
+def test_int8_verify_replays(cuda_device, model_q):
+    pairs = _fresh_pairs(model_q, "int8")
+    twin = Twin(model_q, pairs, _verify(model_q, INT8))
+    twin.capture()
+    _admit_two(model_q, INT8, pairs)
+    rng = np.random.default_rng(8)
+    for draft_len in ([SPEC_K, 2, 3], [0, 0, 0], [1, 0, SPEC_K]):
+        draft = rng.integers(1, VOCAB, (SLOTS, SPEC_K)).astype(np.int32)
+        twin.call(draft, np.asarray(draft_len, np.int32))
+
+
+@pytest.mark.cuda
+def test_int8_kv_import_replays(cuda_device, model_q):
+    pairs = _fresh_pairs(model_q, "int8")
+    progs = [_import(model_q)(state, tables, g)
+             for (state, tables), g in zip(pairs, (True, False))]
+    with torch.inference_mode():
+        progs[0].capture(torch.cuda.graph_pool_handle())
+    _check(model_q, pairs)
+    gen = torch.Generator().manual_seed(6)
+    cfg = model_q.cfg
+    for ids in ([5, 9, 2], list(range(12, 12 + MB))):
+        n = len(ids)
+        shape = (cfg.n_layers, n, BT, cfg.n_kv_heads, cfg.head_dim)
+
+        def pages():
+            return QTensor(
+                torch.randint(-127, 128, shape, generator=gen,
+                              dtype=torch.int8),
+                torch.rand(shape[:-1], generator=gen), (-1,))
+
+        pages_k, pages_v = pages(), pages()
+        padded = np.full((MB,), NB, np.int64)
+        padded[:n] = ids
+        before = pairs[0][0]["cache_k"].scale.clone()
+        with torch.inference_mode():
+            for prog in progs:
+                prog.run(pages_k, pages_v, padded)
+        _check(model_q, pairs)
+        got = pairs[0][0]
+        for name, want in (("cache_k", pages_k), ("cache_v", pages_v)):
+            assert torch.equal(got[name].values[:, ids].cpu(), want.values)
+            assert torch.equal(got[name].scale[:, ids].cpu(), want.scale)
+        outside = [b for b in range(NB) if b not in ids]
+        assert torch.equal(got["cache_k"].scale[:, outside],
+                           before[:, outside])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["model", "int8"])
+def test_spill_reimport_with_graphs_matches_uninterrupted(cuda_device,
+                                                          model, model_q,
+                                                          kv):
+    """A parked session whose device records are dropped resumes through
+    the host tier's re-import (the captured KvImport); its second turn
+    equals that of an engine whose device record stayed."""
+    served = model_q if kv == "int8" else model
+    decode = pgen.DecodeConfig(max_new_tokens=8, kv_cache_dtype=kv)
+
+    def engine(name, **kw):
+        return DecodeEngine(served, decode, slots=2, prefill_len=48,
+                            prefill_chunk_tokens=8, kv_block_tokens=4,
+                            name=name, **kw)
+
+    prompt = _prompt(21, 90)
+    spill, keep = (engine("spill", kv_pool_blocks=24, host_spill_blocks=64),
+                   engine("keep"))
+    try:
+        turns = {}
+        for name, eng in (("spill", spill), ("keep", keep)):
+            turn1 = eng.submit({"tokens": prompt, "park_kv": True})
+            turns[name] = np.asarray(turn1["tokens"])[0]
+        assert turns["spill"].tolist() == turns["keep"].tolist()
+        with spill._lock:
+            while spill._mgr._lru:
+                _, rec = spill._mgr._lru.popitem(last=False)
+                spill._mgr._drop_record(rec, count=False)
+        turn2 = np.concatenate([turns["spill"], _prompt(3, 91)])
+        got = spill.submit({"tokens": turn2})["tokens"]
+        want = keep.submit({"tokens": turn2})["tokens"]
+        stats = spill.stats()
+        assert stats["kv_spill_pages_in"] > 0
+        assert spill.compiled_programs()["kv_import"] == 1
+        assert keep.stats()["kv_spill_pages_in"] == 0
+    finally:
+        spill.close()
+        keep.close()
+    assert np.asarray(got).tolist() == np.asarray(want).tolist()

@@ -128,8 +128,8 @@ def test_predict_through_the_engine_by_default(exported):
         # A request for a feature of a later slice: 501, and the engine
         # serves on.
         status, body = _request(port, "POST", "/model/lm:predict", {
-            "instances": [{"tokens": prompts[0], "park_kv": True}]})
-        assert status == 501 and "ROADMAP queue 1 item 3" in body["error"]
+            "instances": [{"tokens": prompts[0], "adapter": "tenant"}]})
+        assert status == 501 and "ROADMAP queue 1 item 5" in body["error"]
         assert _predict_all(port, prompts[:1])[0][0] == 200
     finally:
         serving_main.shutdown(server, httpd)
@@ -188,13 +188,12 @@ def test_factory_declines_engine_without_prompt_room():
     assert factory(model) is None  # direct path, no crash
 
 
-# The ids the cases had beside the --speculative_tokens case, which left
-# with the refusal it checked.
+# The ids the cases had beside the --speculative_tokens and
+# --host_spill_blocks cases, which left with the refusals they checked.
 @pytest.mark.parametrize("flags,item", [
-    (["--host_spill_blocks", "16"], 3),
     (["--adapters_dir", "/tmp/adapters"], 5),
     (["--mesh", "tensor=2"], 6),
-], ids=["flags1-3", "flags2-5", "flags3-6"])
+], ids=["flags2-5", "flags3-6"])
 def test_later_slice_flags_raise_not_ported(exported, flags, item):
     with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
         _start(exported[0], *flags)

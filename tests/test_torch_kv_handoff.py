@@ -17,11 +17,11 @@ of one package are imported by decode-tier engines of both:
     fault site ``engine.kv_handoff`` fires on both sides;
   - ``submit_stream`` yields exactly the suffix, and over REST the
     :prefill route, the NDJSON :generate route (with and without a
-    payload), ``role`` on /readyz and the 501 of :fetch_kv."""
+    payload), ``role`` on /readyz and a :fetch_kv miss (the host spill
+    tier's fetch is tests/test_torch_kv_spill.py's)."""
 
 import http.client
 import json
-import threading
 
 import jax
 import jax.numpy as jnp
@@ -37,7 +37,6 @@ from kubeflow_tpu.serving.engine import DecodeEngine as JaxDecodeEngine
 from kubeflow_tpu.serving.export import export as jax_export
 from kubeflow_tpu.serving.export import load_version as jax_load_version
 from kubeflow_tpu.serving.loaders import _model_config as jax_model_config
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.models import generate as pgen
 from kubeflow_tpu_torch.models.convert import load_params, params_from_jax
 from kubeflow_tpu_torch.models.transformer import Transformer, TransformerConfig
@@ -421,39 +420,19 @@ def test_rest_tiers(lm32):
         stats = _request(dec_port, "GET", "/model/lm:stats")[1]["batcher"]
         assert stats["handoff_pages_in"] == 3
         assert stats["compiled_programs"]["kv_import"] == 1
-        # Typed errors: a mismatched payload is a 400 before any token,
-        # the spill tier's fetch a 501 naming its ROADMAP item, an
-        # unknown model a 404.
+        # Typed errors: a mismatched payload is a 400 before any token, an
+        # unknown model a 404; a server without a host spill tier answers
+        # :fetch_kv with a miss.
         status, body = _request(dec_port, "POST", "/model/lm:generate", {
             "tokens": prompt, "kv_handoff": {"block_tokens": 8}})
         assert status == 400
         status, body = _request(dec_port, "POST", "/model/lm:fetch_kv",
                                 {"tokens": prompt})
-        assert status == 501 and "ROADMAP queue 1 item 3" in body["error"]
+        assert status == 200 and body == {"kv_handoff": None,
+                                          "tokens_covered": 0}
         assert _request(dec_port, "POST", "/model/nope:generate",
                         {"tokens": prompt})[0] == 404
     finally:
         serving_main.shutdown(pre, pre_httpd)
         serving_main.shutdown(dec, dec_httpd)
 
-
-def test_fetch_kv_and_park_stay_refused(lm32):
-    engine = _port_engine(lm32, name="refusals")
-    try:
-        with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 3"):
-            engine.fetch_kv({"tokens": np.arange(1, 5, dtype=np.int32)})
-        box = {}
-
-        def call():
-            try:
-                engine.submit({"tokens": np.arange(1, 5, dtype=np.int32),
-                               "park_kv": True})
-            except NotPortedError as exc:
-                box["err"] = exc
-
-        thread = threading.Thread(target=call)
-        thread.start()
-        thread.join(WAIT_S)
-        assert "ROADMAP queue 1 item 3" in str(box["err"])
-    finally:
-        engine.close()

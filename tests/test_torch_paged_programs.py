@@ -162,8 +162,15 @@ def test_init_paged_state_matches_jax_layout(models):
     full = pgen._pool_with_scratch(pair.ps["cache_k"])
     assert full.shape[1] == NB + 1
     assert full.data_ptr() == pair.ps["cache_k"].data_ptr()
-    with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 4"):
-        pgen.init_paged_state(models[2].cfg, 1, 2, 4, "int8", device="cpu")
+    # An int8 state's pool sides are QTensors laid out as JAX's.
+    js = jgen.init_paged_state(pair.jcfg, SLOTS, NB, BT, "int8")
+    ps = pgen.init_paged_state(models[2].cfg, SLOTS, NB, BT, "int8",
+                               device="cpu")
+    for name in ("cache_k", "cache_v"):
+        for part in ("values", "scale"):
+            got, want = getattr(ps[name], part), getattr(js[name], part)
+            assert tuple(got.shape) == tuple(want.shape), (name, part)
+            assert str(got.dtype).split(".")[-1] == str(want.dtype)
 
 
 def test_prefill_chunks_resume_and_aliased_prefix(models):
