@@ -124,6 +124,24 @@ Phases, each fatal on failure (exit code 1, no result line):
      spill-out and re-import ms a page, the resume TTFT against the
      cold prefill's, and the fetched payload's bytes and its encode and
      decode time;
+ 6g. adapters: three seeded rank-4 adapters (alpha, beta, gamma; factor
+     scale 0.05) written with the port's save_adapter and served with
+     --adapters_dir at the engine defaults (--adapter_slots 8, programs
+     captured): a REST burst of eight :predict requests, two each of lm,
+     lm@alpha, lm@beta and lm@gamma, every reply prompt + max_new_tokens
+     tokens in the vocabulary, :stats with the three resident and the
+     JAX engine's compiled_programs(), /readyz advertising them,
+     lm@ghost answering 404.  At float32 (TF32 off): each co-batched
+     request equals its run alone on the same engine, base rows equal a
+     base-only engine's, each variant differs from base, the engine
+     captured and ran the base-only engine's programs; in a 2-slot
+     registry a hot load with one adapter pinned evicts only the idle
+     one, and the evicted adapter reloaded into another's row decodes
+     its tokens again through the graphs captured at construction.  No
+     flash kernel launched.  Information only (bf16): the burst's TTFT
+     and tokens/s, the stack's bytes on the card, one hot load's ms,
+     and a captured round of 8 steps at 8 live slots with mixed adapter
+     rows against the same round with no adapter stack;
   7. train: the port's LM training entry point (tools/train_lm.run) on
      bench.py's LM configuration (batch 8 x 2048, flash, remat, adamw
      1e-3) for a few steps, launch counters zeroed just before and read
@@ -233,6 +251,14 @@ SPILL_POOL, SPILL_HOST = 128, 1024
 SPILL_LENS = (512, 1024, 576, 640, 512, 704, 544, 768)
 TURN2_NEW = 16
 FETCH_DELIVERED = 8
+# Phase 6g: three seeded adapters at rank 4 whose factors are drawn at
+# random_adapter_factors' default scale of 0.05 (each variant's greedy
+# tokens must differ from base), and the two prompts each of base and the
+# three variants decodes.
+ADAPTERS = ("alpha", "beta", "gamma")
+ADAPTER_RANK = 4
+ADAPTER_SCALE = 0.05
+ADAPTER_LENS = (300, 170)
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 rate).
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -2553,6 +2579,376 @@ def spill_tier(torch, flash, base: Path, int8_base: Path):
     return info
 
 
+# -- phase 6g: adapter-array serving ----------------------------------------
+
+def write_adapters(torch, adir: Path) -> dict:
+    """The three seeded adapters of the phase, written with the port's
+    ``save_adapter`` (the JAX package's artifact format); their
+    digests."""
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.serving.adapters import (
+        random_adapter_factors,
+        save_adapter,
+    )
+
+    cfg = TransformerConfig(**dict(MODEL, dtype=torch.float32))
+    adir.mkdir(parents=True)
+    return {name: save_adapter(str(adir / f"{name}.npz"),
+                               random_adapter_factors(
+                                   cfg, ADAPTER_RANK, SEED + 40 + i,
+                                   scale=ADAPTER_SCALE))
+            for i, name in enumerate(ADAPTERS)}
+
+
+def adapter_prompts(torch):
+    rng = torch.Generator().manual_seed(SEED + 13)
+    return [torch.randint(1, MODEL["vocab_size"], (n,),
+                          generator=rng).tolist() for n in ADAPTER_LENS]
+
+
+def adapter_work(prompts):
+    """Two requests each of base and every adapter: (adapter or None,
+    prompt) in the order base, alpha, beta, gamma for each prompt."""
+    return [(a, p) for p in prompts for a in (None,) + ADAPTERS]
+
+
+def post_status(port: int, path: str, body: dict):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def stack_bytes(stack) -> int:
+    return sum(t.numel() * t.element_size()
+               for leaves in stack.values() for t in leaves.values())
+
+
+def serve_adapters(torch, flash, base: Path, adir: Path):
+    """Phase 6g over REST: the bf16 export with ``--adapters_dir`` at the
+    JAX CLI's engine defaults (8 slots, ``--adapter_slots 8``,
+    ``--adapter_rank 4``; programs captured).  A burst of eight
+    concurrent :predict requests, two each of ``lm``, ``lm@alpha``,
+    ``lm@beta`` and ``lm@gamma``: every reply prompt + max_new_tokens
+    tokens in the vocabulary, :stats with the three adapters resident and
+    the JAX engine's compiled_programs() for these flags, /readyz
+    advertising them, ``lm@ghost`` answering 404.  Information only:
+    the burst's TTFT and tokens/s, the stack's bytes on the card, and
+    which bf16 variants' tokens differ from base."""
+    from kubeflow_tpu_torch.serving import main as serving_main
+
+    prompts = adapter_prompts(torch)
+    work = adapter_work(prompts)
+    server, httpd = serving_main.start([
+        "--model_name", "lm", "--model_base_path", str(base),
+        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--lm_buckets", BUCKETS, "--adapters_dir", str(adir),
+        "--adapter_slots", "8", "--adapter_rank", str(ADAPTER_RANK)])
+    port = httpd.server_address[1]
+    try:
+        engine = server._batchers["lm"]
+        if engine.capture_info is None:
+            fail("the adapter engine did not capture its programs")
+        # One short request first: the burst must not carry the
+        # process's one-off start-up.
+        post(port, {"instances": [{"tokens": prompts[0][:16]}]})
+        replies = [None] * len(work)
+        latencies = [None] * len(work)
+
+        def call(i):
+            adapter, prompt = work[i]
+            name = "lm" if adapter is None else f"lm@{adapter}"
+            t = time.perf_counter()
+            replies[i] = post(port, {"instances": [{"tokens": prompt}]},
+                              f"/model/{name}:predict")
+            latencies[i] = time.perf_counter() - t
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(work))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        t_burst = time.perf_counter() - t0
+        if None in replies:
+            fail("a request of the adapter burst did not complete")
+        stats = get(port, "/model/lm:stats")["batcher"]
+        ready = get(port, "/readyz")
+        status, body = post_status(port, "/model/lm@ghost:predict", {
+            "instances": [{"tokens": prompts[0][:8]}]})
+        on_card = stack_bytes(engine._adapter_stack)
+    finally:
+        serving_main.shutdown(server, httpd)
+    check_replies([p for _, p in work], replies, [], None)
+    if stats["compiled_programs"] != {"chunked_prefill": 1, "step": 0,
+                                      "verify": 0, "decode_rounds": 1}:
+        fail(f"adapter engine compiled_programs {stats['compiled_programs']}")
+    if stats["adapters"]["adapters_resident"] != len(ADAPTERS):
+        fail(f"adapter engine stats {stats['adapters']}")
+    if {a["name"] for a in ready.get("adapters", {}).get("lm", ())} \
+            != set(ADAPTERS):
+        fail(f"/readyz does not advertise the adapters: {ready}")
+    if status != 404:
+        fail(f"an unknown adapter answered {status}: {body}")
+    toks = [r["predictions"][0]["tokens"] for r in replies]
+    differs = {a: [toks[i] != toks[i - 1 - j] for i, (b, _) in
+                   enumerate(work) if b == a]
+               for j, a in enumerate(ADAPTERS)}
+    info = {"burst": burst_info([p for _, p in work], latencies, t_burst,
+                                stats),
+            "stack_bytes": on_card,
+            "bf16_differs_from_base": differs}
+    log_burst("adapter engine (2 x base, lm@alpha, lm@beta, lm@gamma)",
+              info["burst"])
+    log(f"adapter stack on the card: {on_card} bytes for 9 rows (8 slots "
+        f"and the base row) at rank {ADAPTER_RANK}, "
+        f"{on_card / 9 / 1e6:.3f} MB a row; bf16 variants differing from "
+        f"base per prompt (information only): {differs}; lm@ghost "
+        f"answered 404")
+    return info
+
+
+def adapter_identity(torch, flash, base: Path, adir: Path):
+    """Phase 6g at float32 (TF32 off), engines with programs captured and
+    the prefix cache off (so a rerun of a prompt prefills as its first
+    run did): the burst of eight mixed requests through one engine gives
+    each request its tokens alone on the same engine; base rows equal a
+    base-only engine's; each variant differs from base on both prompts;
+    the engine captured and ran the programs the base-only engine did.
+    Then a 2-slot registry: with alpha pinned, loading gamma evicts only
+    the idle beta, and beta reloaded into a row another adapter held
+    decodes its tokens again through the graphs captured at
+    construction."""
+    from kubeflow_tpu_torch.models.generate import DecodeConfig
+    from kubeflow_tpu_torch.serving.adapters import AdapterRegistry
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    model = load_model(torch, base, torch.float32)
+    decode = DecodeConfig(max_new_tokens=MAX_NEW_TOKENS)
+    geometry = dict(slots=8, prefill_len=512, decode_rounds=8,
+                    prefix_caching=False)
+    prompts = adapter_prompts(torch)
+    work = adapter_work(prompts)
+
+    def registry(slots, name):
+        return AdapterRegistry(model.cfg, slots=slots, rank=ADAPTER_RANK,
+                               directory=str(adir), name=name)
+
+    def request(adapter, prompt):
+        return dict({"tokens": prompt},
+                    **({"adapter": adapter} if adapter else {}))
+
+    def alone(engine, items):
+        return [engine.submit(request(a, p))["tokens"][0].tolist()
+                for a, p in items]
+
+    def programs_of(engine):
+        return (engine.capture_info["programs"], engine.compiled_programs())
+
+    engine = DecodeEngine(model, decode, adapters=registry(8, "ad-fp32"),
+                          name="adapters-fp32", **geometry)
+    try:
+        together = engine_tokens(engine, [p for _, p in work],
+                                 extra=[request(a, p) for a, p in work])
+        single = alone(engine, work)
+        ad_programs = programs_of(engine)
+        ad_pool = engine.capture_info["pool_bytes"]
+    finally:
+        engine.close()
+    engine = DecodeEngine(model, decode, name="base-fp32", **geometry)
+    try:
+        base_rows = alone(engine, [w for w in work if w[0] is None])
+        base_programs = programs_of(engine)
+        base_pool = engine.capture_info["pool_bytes"]
+    finally:
+        engine.close()
+    for (adapter, prompt), a, b in zip(work, together, single):
+        if a != b:
+            fail(f"float32 adapter engine: {adapter or 'base'} on a "
+                 f"{len(prompt)}-token prompt co-batched differs from its "
+                 f"run alone at position {first_difference(a, b)}")
+    if [t for (a, _), t in zip(work, together) if a is None] != base_rows:
+        fail("float32 adapter engine: base rows differ from a base-only "
+             "engine's")
+    for i, (adapter, _) in enumerate(work):
+        if adapter is not None and together[i] == together[
+                i - 1 - ADAPTERS.index(adapter)]:
+            fail(f"float32: adapter {adapter} decoded base's tokens")
+    if ad_programs != base_programs:
+        fail(f"the adapter engine's programs {ad_programs} differ from a "
+             f"base-only engine's {base_programs}")
+    log(f"float32 adapter identity: {len(work)} co-batched requests (2 x "
+        f"base, alpha, beta, gamma on prompts of {list(ADAPTER_LENS)} "
+        f"tokens) equal their runs alone; base rows equal a base-only "
+        f"engine's; every variant differs from base; programs "
+        f"{ad_programs[0]}, compiled {ad_programs[1]}, as the base-only "
+        f"engine's (graph pool {ad_pool} bytes against {base_pool})")
+    want = {(a, tuple(p)): t for (a, p), t in zip(work, single)}
+    prompt = prompts[0]
+    reg = registry(2, "ad-hot")
+    engine = DecodeEngine(model, decode, adapters=reg, name="adapters-hot",
+                          **geometry)
+    try:
+        graphs = [id(p.graph) for p in engine._programs()]
+        for adapter in ("alpha", "beta"):
+            if alone(engine, [(adapter, prompt)])[0] != want[
+                    (adapter, tuple(prompt))]:
+                fail(f"2-slot registry: {adapter} differs from its tokens "
+                     "on the 8-slot engine")
+        pin, _ = reg.acquire("alpha")
+        try:
+            got = alone(engine, [("gamma", prompt)])[0]
+            resident = {r["name"] for r in reg.loaded()}
+        finally:
+            reg.release(pin)
+        if resident != {"alpha", "gamma"}:
+            fail(f"a hot load with alpha pinned left {resident} resident")
+        if got != want[("gamma", tuple(prompt))]:
+            fail("gamma hot-loaded into beta's row decodes other tokens")
+        got = alone(engine, [("beta", prompt)])[0]
+        rows = {r["name"]: r["index"] for r in reg.loaded()}
+        if got != want[("beta", tuple(prompt))]:
+            fail(f"beta reloaded into row {rows.get('beta')} decodes other "
+                 "tokens through the captured graphs")
+        if [id(p.graph) for p in engine._programs()] != graphs:
+            fail("the engine recaptured a program for a hot load")
+        hot_stats = engine.stats()["adapters"]
+    finally:
+        engine.close()
+    log(f"float32 hot load into a 2-slot registry: gamma evicted only the "
+        f"idle beta while alpha was pinned; beta reloaded into row "
+        f"{rows['beta']} (resident now {sorted(rows)}) decodes its tokens "
+        f"again through the graphs captured at construction; registry "
+        f"{hot_stats['adapters_resident']} resident, "
+        f"{hot_stats['adapters_pinned']} pinned")
+    del model
+    return {"requests": len(work), "programs": ad_programs[0],
+            "graph_pool_bytes": ad_pool, "base_graph_pool_bytes": base_pool,
+            "beta_reload_row": rows["beta"]}
+
+
+def adapter_numbers(torch, base: Path, adir: Path, bf16_round_ms):
+    """Phase 6g in bf16, information only: one hot load (the registry's
+    acquire of an adapter from disk, host clock; then the copy of the
+    whole stack into the device stack, as the engine makes it, host clock
+    after synchronize), and a captured round of 8 steps at 8 live slots
+    with the adapter rows (0, 1, 2, 3, 0, 1, 2, 3) against the same round
+    with no adapter stack, in turns (median of 5 after one warm-up),
+    each with its device busy time under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models.generate import (
+        DecodeConfig,
+        init_paged_state,
+    )
+    from kubeflow_tpu_torch.serving.adapters import AdapterRegistry
+    from kubeflow_tpu_torch.serving.engine import copy_adapter_stack
+    from kubeflow_tpu_torch.serving.programs import Rounds
+
+    model = load_model(torch, base, torch.bfloat16)
+    reg = AdapterRegistry(model.cfg, slots=8, rank=ADAPTER_RANK,
+                          directory=str(adir), name="ad-numbers")
+    acquire_ms = {}
+    for name in ADAPTERS:
+        t0 = time.perf_counter()
+        idx, _ = reg.acquire(name)
+        acquire_ms[name] = (time.perf_counter() - t0) * 1e3
+        reg.release(idx)
+    snapshot, _ = reg.stack_snapshot()
+    stack = {grp: {k: torch.zeros(a.shape, dtype=torch.bfloat16,
+                                  device="cuda")
+                   for k, a in leaves.items()}
+             for grp, leaves in snapshot.items()}
+    copy_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        copy_adapter_stack(stack, snapshot)
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    slots, bt, k = 8, 16, 8
+    mb = -(-(engine_prefill_width() + MAX_NEW_TOKENS) // bt)
+    nb = slots * mb
+    decode = DecodeConfig(max_new_tokens=MAX_NEW_TOKENS)
+    states = {name: init_paged_state(model.cfg, slots, nb, bt,
+                                     device="cuda")
+              for name in ("adapters", "base")}
+    tables = torch.full((slots, mb), nb, dtype=torch.int64, device="cuda")
+    rounds = {"adapters": Rounds(model, decode, states["adapters"], tables,
+                                 k, True, adapters=stack),
+              "base": Rounds(model, decode, states["base"], tables, k,
+                             True)}
+    pool = torch.cuda.graph_pool_handle()
+    with torch.inference_mode():
+        for prog in rounds.values():
+            prog.capture(pool)
+    tables.copy_(torch.arange(nb, device="cuda").view(slots, mb))
+    lengths = torch.tensor(PROMPT_LENS, dtype=torch.int32, device="cuda")
+    rows = torch.tensor([0, 1, 2, 3] * 2, dtype=torch.int32, device="cuda")
+
+    def reset(name):
+        state = states[name]
+        state["lengths"].copy_(lengths)
+        state["stop_len"].copy_(lengths + MAX_NEW_TOKENS)
+        state["done"].zero_()
+        state["last_token"].fill_(7)
+        state["adapter_ids"].copy_(rows if name == "adapters" else 0 * rows)
+
+    def timed(name):
+        reset(name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            rounds[name].run(k)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    times = {name: [] for name in rounds}
+    for i in range(6):
+        for name in (("adapters", "base") if i % 2 == 0
+                     else ("base", "adapters")):
+            times[name].append(timed(name))
+    ms = {name: sorted(t[1:])[2] * 1e3 for name, t in times.items()}
+    busy = {}
+    for name in rounds:
+        reset(name)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with torch.inference_mode():
+                rounds[name].run(k)
+            torch.cuda.synchronize()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy[name] = busy_us / 1e3 if busy_us else None
+    for prog in rounds.values():
+        prog.release()
+    info = {"round_ms": ms["adapters"], "base_round_ms": ms["base"],
+            "ratio": ms["adapters"] / ms["base"],
+            "phase_6b_round_ms": bf16_round_ms,
+            "round_busy_ms": busy["adapters"],
+            "base_round_busy_ms": busy["base"],
+            "acquire_ms": acquire_ms, "stack_copy_ms": sorted(copy_ms)[1],
+            "stack_bytes": stack_bytes(stack)}
+    log(f"adapters in bf16 (information only; {card_line()}): captured "
+        f"round of {k} steps at {slots} live slots with adapter rows "
+        f"{rows.tolist()} {ms['adapters']:.2f} ms against "
+        f"{ms['base']:.2f} ms with no adapter stack, in turns "
+        f"({info['ratio']:.3f}x; phase 6b's round {bf16_round_ms:.2f} ms); "
+        f"device busy {busy['adapters']} / {busy['base']} ms under "
+        f"torch.profiler; one hot load: acquire from disk "
+        f"{acquire_ms} ms (host clock), copy of the {info['stack_bytes']}"
+        f"-byte stack to the card {info['stack_copy_ms']:.3f} ms (host "
+        f"clock after synchronize, median of 3)")
+    del model
+    return info
+
+
 def check_replies(prompts, replies, direct, direct_reply):
     vocab = MODEL["vocab_size"]
     got = [r["predictions"][0]["tokens"] for r in replies]
@@ -3577,6 +3973,21 @@ def main() -> int:
         phase_done("6e int8")
         spill_info = spill_tier(torch, flash, base, int8_base)
         phase_done("6f spill tier")
+        launches_before = dict(flash.launch_counts)
+        adir = workdir / "adapters"
+        write_adapters(torch, adir)
+        adapter_info = serve_adapters(torch, flash, base, adir)
+        adapter_info["identity"] = adapter_identity(torch, flash, base,
+                                                    adir)
+        adapter_info.update(adapter_numbers(
+            torch, base, adir, engine_info["round"]["captured"]["round_ms"]))
+        launches = {k: flash.launch_counts[k] - launches_before.get(k, 0)
+                    for k in flash.launch_counts}
+        if any(launches.values()):
+            fail(f"the adapter phase launched flash kernels: {launches}")
+        adapter_info["flash_launches"] = launches
+        log(f"flash launch counters over phase 6g: {launches}")
+        phase_done("6g adapters")
         train_counts, train_info = train(torch, flash, workdir)
         two_pass_counts, two_pass_info = train_two_pass(torch, flash)
         phase_done("7 train")
@@ -3622,6 +4033,7 @@ def main() -> int:
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
                     "int8": int8_info, "spill": spill_info,
+                    "adapters": adapter_info,
                     "train": dict(train_info, gradients=grads,
                                   breakdown=learned),
                     "train_two_pass": dict(two_pass_info,

@@ -44,8 +44,18 @@ paged, is a pair of int8 ``QTensor``s with one float32 scale per
 (position, head) (ops/quantize.py), written through ``quantize_array``
 and read by ``dot_product_attention`` with the scales folded into both
 matmuls; a quantized cache never takes the flash prefill.  The model's
-weights may be int8 too.  Not ported yet: adapters (ROADMAP queue 1
-item 5).
+weights may be int8 too.
+
+Adapter-array serving: the slot programs take an optional ``adapters``
+stack, a dict ``{"attn": {...}, "mlp": {...}}`` of ``[rows, layers,
+...]`` tensors in the model dtype (serving/adapters.py's factor shapes;
+row 0 the all-zero base), which the engine owns on the device.  Each
+slot's row index is ``state["adapter_ids"]``, armed by
+``prefill_chunk_into_slot``; every forward gathers each row's factors
+from the stack and adds its low-rank delta to the q, k, v (before
+rope), attention-out and MLP projections in two rank-r hops
+(``_lora``).  Without a stack every program runs the exact operations
+it runs without adapters.
 """
 
 from __future__ import annotations
@@ -55,12 +65,12 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.models.transformer import (
     Block,
     Transformer,
     TransformerConfig,
+    rope,
 )
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.flash import flash_attention
@@ -68,6 +78,7 @@ from kubeflow_tpu_torch.ops.quantize import QTensor, quantize_array
 
 CacheLen = Union[int, torch.Tensor]
 Cache = Union[torch.Tensor, QTensor]
+Adapters = Dict[str, Dict[str, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,6 +200,57 @@ def _store_slice(cache: Cache, new: torch.Tensor, at: int) -> None:
     _store(cache, new, write)
 
 
+def _lora(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, spec_a: str,
+          spec_b: str) -> torch.Tensor:
+    """Per-row low-rank delta: contract ``x`` against PER-ROW factor
+    slices ``a``/``b`` (leading batch axis: row i's slice is its own
+    adapter's, gathered by ``_forward_with_cache`` from the stack) in two
+    rank-r hops, so the full-rank delta never materializes.  Rows are
+    independent, so a mixed-adapter batch gives each row what it gets
+    alone."""
+    mid = torch.einsum(spec_a, x, a)
+    return torch.einsum(spec_b, mid, b).to(x.dtype)
+
+
+def _adapted_qkv(cfg: TransformerConfig, block: Block, x: torch.Tensor,
+                 positions: torch.Tensor, ad: Dict[str, torch.Tensor]):
+    """``block.attn.qkv(block.attn_norm(x), positions)`` with each row's
+    low-rank deltas added to q, k and v before rope, so the delta is part
+    of the projection itself."""
+    y = block.attn_norm(x)
+    q, k, v = block.attn.project(y)
+    q = q + _lora(y, ad["wq_a"], ad["wq_b"], "bse,ber->bsr",
+                  "bsr,brhd->bshd")
+    k = k + _lora(y, ad["wkv_a"][:, 0], ad["wkv_b"][:, 0], "bse,ber->bsr",
+                  "bsr,brhd->bshd")
+    v = v + _lora(y, ad["wkv_a"][:, 1], ad["wkv_b"][:, 1], "bse,ber->bsr",
+                  "bsr,brhd->bshd")
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def _adapted_out_and_mlp(block: Block, x: torch.Tensor, out: torch.Tensor,
+                         adapters):
+    """The block's attention-out projection and MLP with each row's
+    low-rank deltas: ``wo`` from the attention output, the MLP's gate and
+    up before silu, its ``wo`` from the hidden ``h``."""
+    ad = adapters["attn"]
+    y = block.attn.out(out) + _lora(out, ad["wo_a"], ad["wo_b"],
+                                    "bshd,bhdr->bsr", "bsr,bre->bse")
+    x = x + y
+    y = block.mlp_norm(x)
+    ad = adapters["mlp"]
+    gate, up = block.mlp.gate_up(y)
+    gate = gate + _lora(y, ad["wi_a"][:, 0], ad["wi_b"][:, 0],
+                        "bse,ber->bsr", "bsr,brf->bsf")
+    up = up + _lora(y, ad["wi_a"][:, 1], ad["wi_b"][:, 1], "bse,ber->bsr",
+                    "bsr,brf->bsf")
+    h = torch.nn.functional.silu(gate) * up
+    y = block.mlp.down(h) + _lora(h, ad["wo_a"], ad["wo_b"], "bsf,bfr->bsr",
+                                  "bsr,bre->bse")
+    return x + y
+
+
 def _layer_step(cfg: TransformerConfig, block: Block, x: torch.Tensor,
                 cache_kv: Tuple[torch.Tensor, torch.Tensor],
                 cache_len: CacheLen, positions: torch.Tensor,
@@ -212,16 +274,18 @@ def _layer_step(cfg: TransformerConfig, block: Block, x: torch.Tensor,
     write is dropped); tables: [b, mb] block tables mapping each row's
     logical block (position // bt) to a pool block, the sentinel ``nb``
     for none.  Fresh k/v go straight into the pool, and attention runs
-    over the row's gathered [mb * bt] view of it.
+    over the row's gathered [mb * bt] view of it.  adapters: this layer's
+    per-row factors ({"attn": {...}, "mlp": {...}}, each [b, ...]), whose
+    low-rank deltas join every projection; None runs the block's own
+    projections.
     """
-    if adapters is not None:
-        raise NotPortedError(
-            "adapters (per-row LoRA deltas) are not ported yet "
-            "(ROADMAP queue 1 item 5)")
     ck, cv = cache_kv
     b, t = x.shape[:2]
     per_row = isinstance(cache_len, torch.Tensor) and cache_len.ndim == 1
-    q, k, v = block.attn.qkv(block.attn_norm(x), positions)
+    if adapters is None:
+        q, k, v = block.attn.qkv(block.attn_norm(x), positions)
+    else:
+        q, k, v = _adapted_qkv(cfg, block, x, positions, adapters["attn"])
     steps = torch.arange(t, device=x.device)
     quantized = isinstance(ck, QTensor)
     if tables is not None:
@@ -286,6 +350,8 @@ def _layer_step(cfg: TransformerConfig, block: Block, x: torch.Tensor,
             out = dot_product_attention(
                 q, ck[:, :live], cv[:, :live], causal=True,
                 kv_offset=cache_len, kv_valid_start=pad_amount)
+    if adapters is not None:
+        return _adapted_out_and_mlp(block, x, out, adapters)
     x = x + block.attn.out(out)
     return x + block.mlp(block.mlp_norm(x))
 
@@ -295,7 +361,9 @@ def _forward_with_cache(model: Transformer, tokens: torch.Tensor,
                         cache_len: CacheLen,
                         pad_amount: Optional[torch.Tensor] = None,
                         write_cols: Optional[torch.Tensor] = None,
-                        tables: Optional[torch.Tensor] = None
+                        tables: Optional[torch.Tensor] = None,
+                        adapter_ids: Optional[torch.Tensor] = None,
+                        adapters: Optional[Adapters] = None
                         ) -> torch.Tensor:
     """tokens [b, t] -> float32 logits [b, t, v]; the cache is updated in
     place.
@@ -306,9 +374,11 @@ def _forward_with_cache(model: Transformer, tokens: torch.Tensor,
     [len, len + t), writes from write_cols (default cache_len) and
     attends under its own frontier.  tables: per-row block tables of the
     paged pool (``init_paged_state``'s ``cache_k``/``cache_v``); None
-    keeps the contiguous layout.  The port's Transformer carries no
-    adapter stack, so the state's ``adapter_ids`` are not read (JAX
-    ignores them without one).
+    keeps the contiguous layout.  adapter_ids ([b] int, optional): each
+    row's index into the stacked ``adapters`` (``[rows, layers, ...]``
+    tensors, row 0 the all-zero base); one gather a forward pulls each
+    row's factors out of the stack.  Without a stack the ids are not
+    read, as JAX ignores them without one.
     """
     t = tokens.shape[1]
     steps = torch.arange(t, device=tokens.device)
@@ -325,11 +395,24 @@ def _forward_with_cache(model: Transformer, tokens: torch.Tensor,
     if tables is not None:
         cache_k = _pool_with_scratch(cache_k)
         cache_v = _pool_with_scratch(cache_v)
+    stack = None
+    if adapters is not None and adapter_ids is not None:
+        # Per-row gather: [rows, L, ...] -> [b, L, ...]; layer i reads
+        # [:, i].  One gather a forward, one program for every mix of
+        # co-batched variants.
+        ids = adapter_ids.reshape(-1).long()
+        dt = model.cfg.dtype
+        stack = {grp: {name: leaf.index_select(0, ids).to(dt)
+                       for name, leaf in leaves.items()}
+                 for grp, leaves in adapters.items()}
     x = model.embed_tokens(tokens)
     for i, block in enumerate(model.layers):
+        ad = None if stack is None else {
+            grp: {name: leaf[:, i] for name, leaf in leaves.items()}
+            for grp, leaves in stack.items()}
         x = _layer_step(model.cfg, block, x, (cache_k[i], cache_v[i]),
                         cache_len, positions, pad_amount,
-                        write_cols=write_cols, tables=tables)
+                        write_cols=write_cols, tables=tables, adapters=ad)
     return model.logits(x).to(torch.float32)
 
 
@@ -587,19 +670,22 @@ def _assign(state: Dict[str, torch.Tensor],
 
 def _advance_slots(model: Transformer, decode: DecodeConfig,
                    tables: torch.Tensor, park: int,
-                   state: Dict[str, torch.Tensor]):
+                   state: Dict[str, torch.Tensor],
+                   adapters: Optional[Adapters] = None):
     """One batched decode step over every slot: the body of
     ``decode_step`` and ``decode_rounds``.  Returns (state, nxt [S]),
     the sampled token per slot (0 for frozen slots); the returned
     state's scalars are new tensors.  ``park`` is the column past the
-    table span where retired slots aim their writes."""
+    table span where retired slots aim their writes; with ``adapters``
+    each slot adds its ``adapter_ids`` row's deltas."""
     lengths, done = state["lengths"], state["done"]
     advance = ~done
     write_cols = torch.where(advance, lengths, park)
     logits = _forward_with_cache(
         model, state["last_token"].long()[:, None],
         (state["cache_k"], state["cache_v"]), lengths,
-        write_cols=write_cols, tables=tables)
+        write_cols=write_cols, tables=tables,
+        adapter_ids=state["adapter_ids"], adapters=adapters)
     last = logits[:, -1]
     keys = state["keys"]
     if decode.temperature <= 0.0:
@@ -622,7 +708,8 @@ def _advance_slots(model: Transformer, decode: DecodeConfig,
 
 def decode_step(model: Transformer, state: Dict[str, torch.Tensor],
                 decode: DecodeConfig, steps: int, tables, *,
-                in_place: bool = False):
+                in_place: bool = False,
+                adapters: Optional[Adapters] = None):
     """Advance every live slot ``steps`` times; returns (state, sampled
     [steps, S] int32).
 
@@ -633,14 +720,16 @@ def decode_step(model: Transformer, state: Dict[str, torch.Tensor],
     their writes on the scratch block and emit 0.  The pool is updated
     in place; the returned state's scalars are new tensors, or, with
     ``in_place``, the given state's own tensors, overwritten.  The
-    ``steps`` are unrolled, as JAX's ``scan`` runs them.
+    ``steps`` are unrolled, as JAX's ``scan`` runs them.  ``adapters``:
+    the stacked adapter factors each slot's ``adapter_ids`` indexes.
     """
     tables = _device_tables(tables, state["done"].device)
     park = tables.shape[1] * _pool_block_tokens(state["cache_k"])
     out = state
     toks = []
     for _ in range(steps):
-        out, nxt = _advance_slots(model, decode, tables, park, out)
+        out, nxt = _advance_slots(model, decode, tables, park, out,
+                                  adapters)
         toks.append(nxt)
     if in_place:
         out = _assign(state, out)
@@ -678,8 +767,8 @@ class _DoneProbe:
 def decode_round_step(model: Transformer, decode: DecodeConfig,
                       tables: torch.Tensor, park: int,
                       state: Dict[str, torch.Tensor], toks: torch.Tensor,
-                      step: torch.Tensor,
-                      steps_run: torch.Tensor) -> torch.Tensor:
+                      step: torch.Tensor, steps_run: torch.Tensor,
+                      adapters: Optional[Adapters] = None) -> torch.Tensor:
     """One guarded step of ``decode_rounds``, entirely in place: the
     state's scalars, ``toks[:, step]``, ``steps_run`` and the 0-d int64
     device step index ``step`` (then advanced by one).  Returns the
@@ -689,7 +778,7 @@ def decode_round_step(model: Transformer, decode: DecodeConfig,
     only the scratch block; its last tokens and keys are kept as they
     were, as JAX's loop, which never runs it, leaves them."""
     live = ~state["done"].all()
-    new, nxt = _advance_slots(model, decode, tables, park, state)
+    new, nxt = _advance_slots(model, decode, tables, park, state, adapters)
     for name in ("last_token", "keys"):
         new[name] = torch.where(live, new[name], state[name])
     _assign(state, new)
@@ -712,7 +801,8 @@ def run_round(step_fn, k: int, max_steps, device: torch.device) -> None:
 
 
 def decode_rounds(model: Transformer, state: Dict[str, torch.Tensor],
-                  decode: DecodeConfig, k: int, tables, max_steps):
+                  decode: DecodeConfig, k: int, tables, max_steps, *,
+                  adapters: Optional[Adapters] = None):
     """Up to ``min(max_steps, k)`` decode steps in one call; returns
     ``(state, toks [S, k], counts [S], steps_run)`` with JAX's values:
 
@@ -745,7 +835,7 @@ def decode_rounds(model: Transformer, state: Dict[str, torch.Tensor],
     step = torch.zeros((), dtype=torch.int64, device=device)
     len0 = state["lengths"].clone()
     run_round(lambda: decode_round_step(model, decode, tables, park, state,
-                                        toks, step, steps_run),
+                                        toks, step, steps_run, adapters),
               k, max_steps, device)
     counts = state["lengths"] - len0
     return state, toks, counts, steps_run
@@ -753,7 +843,8 @@ def decode_rounds(model: Transformer, state: Dict[str, torch.Tensor],
 
 def verify_step(model: Transformer, state: Dict[str, torch.Tensor],
                 decode: DecodeConfig, k: int, draft, draft_len, tables, *,
-                in_place: bool = False):
+                in_place: bool = False,
+                adapters: Optional[Adapters] = None):
     """Speculative verify: score up to ``k`` host-drafted tokens per slot
     in one forward; returns (state, tokens [S, k+1] int32, emit [S]
     int32).
@@ -774,7 +865,9 @@ def verify_step(model: Transformer, state: Dict[str, torch.Tensor],
     overwrites the rest before it attends to them.  Retired slots park
     their writes past the table span and emit 0 tokens.  The pool is
     updated in place; the slot scalars are new tensors, or, with
-    ``in_place``, written into the state's own.
+    ``in_place``, written into the state's own.  With ``adapters`` each
+    slot's window carries its ``adapter_ids`` row's deltas, as its decode
+    steps do.
     """
     device = state["done"].device
     tables = _device_tables(tables, device)
@@ -787,7 +880,8 @@ def verify_step(model: Transformer, state: Dict[str, torch.Tensor],
     tokens = torch.cat([state["last_token"][:, None], draft], dim=1)
     logits = _forward_with_cache(
         model, tokens.long(), (state["cache_k"], state["cache_v"]), lengths,
-        write_cols=write_cols, tables=tables)
+        write_cols=write_cols, tables=tables,
+        adapter_ids=state["adapter_ids"], adapters=adapters)
     targets = torch.argmax(logits, dim=-1).to(torch.int32)   # [S, k+1]
     pos = torch.arange(k, device=device)[None, :]
     match = (draft == targets[:, :k]) & (pos < draft_len[:, None])
@@ -830,8 +924,10 @@ def prefill_chunk_into_slot(
     slot,
     seed,
     table_row,
+    adapter_id=None,
     *,
     in_place: bool = False,
+    adapters: Optional[Adapters] = None,
 ):
     """Extend slot ``slot``'s KV by one static-width chunk of prompt at
     cache offset ``start``; returns (state, first sampled token [1]).
@@ -844,8 +940,15 @@ def prefill_chunk_into_slot(
     prefix's) k/v take part as if the prompt had prefilled in one call.
     Positions past the table's real pages land on the scratch block.
 
-    The scalars (start, prompt_len, new_tokens, slot, seed) are JAX's
-    traced operands: 0-d int tensors on the state's device (views of a
+    adapter_id: the request's row of the stacked ``adapters`` (None or 0
+    is the base row), applied to this chunk's forward (the prompt's k/v
+    carry the tenant's delta too) and written to
+    ``state["adapter_ids"][slot]`` on every chunk, so the step programs
+    gather the same row; the freeze below parks the slot until its final
+    chunk, so an interleaved step reads the new id from a frozen row.
+
+    The scalars (start, prompt_len, new_tokens, slot, seed, adapter_id)
+    are JAX's traced operands: 0-d int tensors on the state's device (views of a
     caller's buffer, which a CUDA graph reads at replay), or host ints,
     copied up.  Everything that depends on them is computed on the
     device, so the body is the same program for every call.
@@ -865,13 +968,15 @@ def prefill_chunk_into_slot(
     slots_n = state["done"].shape[0]
     device = state["done"].device
     w = tokens.shape[1]
-    start, prompt_len, new_tokens, slot, seed = (
+    start, prompt_len, new_tokens, slot, seed, aid = (
         _scalar(v, device) for v in (start, prompt_len, new_tokens, slot,
-                                     seed))
+                                     seed,
+                                     0 if adapter_id is None else adapter_id))
     table_row = _device_tables(table_row, device)
     logits = _forward_with_cache(
         model, tokens.to(device).long(),
-        (state["cache_k"], state["cache_v"]), start, tables=table_row)
+        (state["cache_k"], state["cache_v"]), start, tables=table_row,
+        adapter_ids=aid.reshape(1), adapters=adapters)
     # First-token sampling from the last REAL prompt position of this
     # chunk (only meaningful on the final chunk; clamped otherwise).
     idx = (prompt_len - 1 - start).clamp(0, w - 1)
@@ -893,7 +998,8 @@ def prefill_chunk_into_slot(
     if decode.eos_token >= 0:
         done_final = done_final | (tok[0] == decode.eos_token)
     new = {
-        "adapter_ids": torch.where(sel, 0, state["adapter_ids"]),
+        "adapter_ids": torch.where(sel, aid.to(torch.int32),
+                                   state["adapter_ids"]),
         "done": torch.where(final, done_final,
                             torch.where(sel, True, state["done"])),
         "lengths": torch.where(final, prompt_len.to(torch.int32),

@@ -226,16 +226,20 @@ class Attention(nn.Module):
         self.wkv = _param((2, e, hkv, d), generator, device)
         self.wo = _param((h, d, e), generator, device)
 
+    def project(self, x: torch.Tensor):
+        """Projections of x [b, s, e] before rope: q [b,s,h,d], k and v
+        [b,s,hkv,d], all in the compute dtype."""
+        dt = self.cfg.dtype
+        return (qeinsum("bse,ehd->bshd", x, self.wq, dt),
+                qeinsum("bse,ehd->bshd", x, self.wkv[0], dt),
+                qeinsum("bse,ehd->bshd", x, self.wkv[1], dt))
+
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
         """Projections of x [b, s, e] -> roped q [b,s,h,d], roped k and
         plain v [b,s,hkv,d], all in the compute dtype."""
-        cfg = self.cfg
-        dt = cfg.dtype
-        q = qeinsum("bse,ehd->bshd", x, self.wq, dt)
-        k = qeinsum("bse,ehd->bshd", x, self.wkv[0], dt)
-        v = qeinsum("bse,ehd->bshd", x, self.wkv[1], dt)
-        return (rope(q, positions, cfg.rope_theta),
-                rope(k, positions, cfg.rope_theta), v)
+        q, k, v = self.project(x)
+        theta = self.cfg.rope_theta
+        return rope(q, positions, theta), rope(k, positions, theta), v
 
     def out(self, o: torch.Tensor) -> torch.Tensor:
         return qeinsum("bshd,hde->bse", o, self.wo, self.cfg.dtype)
@@ -264,11 +268,18 @@ class MLP(nn.Module):
         self.wi = _param((2, cfg.d_model, cfg.d_ff), generator, device)
         self.wo = _param((cfg.d_ff, cfg.d_model), generator, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def gate_up(self, x: torch.Tensor):
+        """The gate and up projections of x [b, s, e], each [b, s, f]."""
         dt = self.cfg.dtype
-        gate = qeinsum("bse,ef->bsf", x, self.wi[0], dt)
-        up = qeinsum("bse,ef->bsf", x, self.wi[1], dt)
-        return qeinsum("bsf,fe->bse", F.silu(gate) * up, self.wo, dt)
+        return (qeinsum("bse,ef->bsf", x, self.wi[0], dt),
+                qeinsum("bse,ef->bsf", x, self.wi[1], dt))
+
+    def down(self, h: torch.Tensor) -> torch.Tensor:
+        return qeinsum("bsf,fe->bse", h, self.wo, self.cfg.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gate, up = self.gate_up(x)
+        return self.down(F.silu(gate) * up)
 
 
 class Block(nn.Module):

@@ -1,0 +1,503 @@
+"""Adapter-array multi-model serving: stacked per-tenant deltas.  The
+port's copy of kubeflow_tpu/serving/adapters.py (numpy only).
+
+One base model serves many per-tenant fine-tuned variants: every
+variant is a LoRA-style low-rank delta over the attention and MLP
+projections, and all variants live in ONE stacked ``[rows, layers,
+...]`` array per factor beside the base weights.  The engine's slot
+programs gather each slot's delta by a per-slot row index
+(``state["adapter_ids"]``, armed at prefill), so requests for
+different variants ride ONE continuous batch and the SAME captured
+programs, and ``compiled_programs()`` never grows a per-adapter entry.
+Row 0 of the stack is the all-zero base delta: base traffic co-batches
+with tenant traffic at identical math.
+
+Device-side application lives in models/generate.py (``_lora`` and the
+``_forward_with_cache`` gather); the engine (serving/engine.py) owns the
+device copy of the stack, in the model dtype, and copies each new
+version of it into that copy's own storage between program calls, so
+the captured graphs read the new rows without being rebuilt.  This
+module is the HOST side:
+
+  AdapterRegistry   bounded slots, digest-verified load from disk, hot
+                    load/evict behind the ``_ReloadBreaker`` discipline
+                    (a corrupt adapter can't hot-loop; the last-good
+                    revision keeps serving), LRU eviction of IDLE
+                    adapters only: in-flight requests pin their
+                    adapter's slot, so evict-under-pressure never
+                    corrupts a running generation.
+
+The host stack is float32 (numpy has no bfloat16); the engine casts it
+to the model dtype on the card.  Artifacts (``<name>.npz`` of float32
+factors plus a ``<name>.npz.json`` digest sidecar) and the digest are
+the JAX package's byte for byte, so either package reads the other's.
+
+Wire form: clients address a variant as ``model@adapter``; ModelServer
+splits the name, the engine resolves it to a row index at admission, or
+sheds typed 404 (unknown adapter) / 429 (slots exhausted, breaker open).
+KV is adapter-SCOPED: the engine seeds each request's prefix-digest
+chain with its adapter's content digest, so variants never alias each
+other's cached pages.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from kubeflow_tpu_torch.serving.errors import Overloaded
+from kubeflow_tpu_torch.testing import faults
+
+log = logging.getLogger(__name__)
+
+# Metric constants (kft_engine_adapter_*): module-level names shared by
+# the registry and the e2e assertions — divergent literals would mint a
+# silent second series.
+ADAPTER_LOADS_TOTAL = "kft_engine_adapter_loads_total"
+ADAPTER_LOADS_HELP = "adapter (re)loads installed into the stack, by engine/adapter"
+ADAPTER_LOAD_FAILURES_TOTAL = "kft_engine_adapter_load_failures_total"
+ADAPTER_LOAD_FAILURES_HELP = "adapter load attempts that raised, by engine/adapter"
+ADAPTER_EVICTIONS_TOTAL = "kft_engine_adapter_evictions_total"
+ADAPTER_EVICTIONS_HELP = "idle adapters LRU-evicted from the stack, by engine"
+ADAPTER_RESIDENT_GAUGE = "kft_engine_adapter_resident"
+ADAPTER_RESIDENT_HELP = "adapters currently resident in the stack, by engine"
+
+
+class AdapterNotFound(KeyError):
+    """Unknown ``model@adapter`` name: no resident slot and no loadable
+    artifact on disk.  Subclasses KeyError so both transports map it to
+    the same 404 an unknown model name gets."""
+
+
+def split_model_adapter(name: str) -> Tuple[str, Optional[str]]:
+    """``"lm@tenant1"`` -> ``("lm", "tenant1")``; plain names pass
+    through with adapter None.  The single parse site for the wire
+    form — ModelServer and the fleet router both call this."""
+    if "@" in name:
+        base, _, adapter = name.partition("@")
+        return base, (adapter or None)
+    return name, None
+
+
+def _factor_shapes(cfg, rank: int) -> Dict[str, Dict[str, tuple]]:
+    """Per-projection low-rank factor shapes (without the adapter row
+    axis), mirroring the base param tree: delta(W) = a @ b per
+    projection, so the stacked arrays prepend [rows, layers] to
+    these."""
+    e, h, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    d, f, r = cfg.head_dim, cfg.d_ff, int(rank)
+    return {
+        "attn": {
+            "wq_a": (e, r), "wq_b": (r, h, d),
+            "wkv_a": (2, e, r), "wkv_b": (2, r, hkv, d),
+            "wo_a": (h, d, r), "wo_b": (r, e),
+        },
+        "mlp": {
+            "wi_a": (2, e, r), "wi_b": (2, r, f),
+            "wo_a": (f, r), "wo_b": (r, e),
+        },
+    }
+
+
+def init_adapter_stack(cfg, rows: int, rank: int, dtype=None):
+    """Zeroed stacked delta arrays: ``[rows, layers, ...]`` per factor.
+    Row 0 is the permanent base (zero-delta) row; rows 1..slots hold
+    loaded tenants.  Shapes are fixed at construction, which is what
+    lets hot load/evict mutate rows without recapturing any program.
+    ``dtype`` is a numpy dtype, float32 by default (the port's
+    ``cfg.dtype`` is a torch dtype, and numpy has no bfloat16)."""
+    if dtype is None:
+        dtype = np.float32
+    L = cfg.n_layers
+    return {
+        grp: {k: np.zeros((rows, L) + shape, dtype)
+              for k, shape in leaves.items()}
+        for grp, leaves in _factor_shapes(cfg, rank).items()
+    }
+
+
+def random_adapter_factors(cfg, rank: int, seed: int,
+                           scale: float = 0.05):
+    """Deterministic per-layer random factors for one adapter (tests,
+    benches, and the hermetic e2e fabricate tenants with these — a
+    distinct seed is a distinct tenant)."""
+    rng = np.random.default_rng(seed)
+    L = cfg.n_layers
+    return {
+        grp: {k: (rng.standard_normal((L,) + shape) * scale
+                  ).astype(np.float32)
+              for k, shape in leaves.items()}
+        for grp, leaves in _factor_shapes(cfg, rank).items()
+    }
+
+
+def _flatten(factors) -> Dict[str, np.ndarray]:
+    return {f"{grp}/{k}": np.asarray(v, np.float32)
+            for grp, leaves in factors.items()
+            for k, v in leaves.items()}
+
+
+def factors_digest(factors) -> str:
+    """Content digest of a factor tree (stable across save/load):
+    sha256 over the sorted flattened float32 leaves."""
+    h = hashlib.sha256()
+    for key, arr in sorted(_flatten(factors).items()):
+        h.update(key.encode())
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def save_adapter(path: str, factors) -> str:
+    """Write one adapter artifact: ``<path>`` (npz of float32 factor
+    leaves, '/'-joined keys) plus a ``<path>.json`` sidecar carrying
+    the content digest the loader verifies.  Returns the digest."""
+    flat = _flatten(factors)
+    digest = factors_digest(factors)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    os.replace(tmp, path)  # atomic-write discipline: never half a file
+    with open(path + ".json", "w") as f:
+        json.dump({"digest": digest}, f)
+    return digest
+
+
+def load_adapter(path: str, cfg, rank: int):
+    """Digest-verified load: returns ``(factors, digest)`` or raises
+    ValueError on a digest mismatch / wrong-shape artifact (the
+    registry's breaker turns that into a bounded-backoff open, not a
+    hot loop)."""
+    with np.load(path) as data:
+        flat = {k: np.asarray(data[k]) for k in data.files}
+    factors: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, arr in flat.items():
+        grp, _, leaf = key.partition("/")
+        factors.setdefault(grp, {})[leaf] = arr
+    want = _factor_shapes(cfg, rank)
+    for grp, leaves in want.items():
+        for k, shape in leaves.items():
+            got = factors.get(grp, {}).get(k)
+            if got is None or got.shape != (cfg.n_layers,) + shape:
+                raise ValueError(
+                    f"adapter artifact {path!r} missing/misshaped "
+                    f"factor {grp}/{k} (want "
+                    f"{(cfg.n_layers,) + shape}, got "
+                    f"{None if got is None else got.shape})")
+    digest = factors_digest(factors)
+    sidecar = path + ".json"
+    if os.path.exists(sidecar):
+        with open(sidecar) as f:
+            expect = json.load(f).get("digest")
+        if expect and expect != digest:
+            raise ValueError(
+                f"adapter artifact {path!r} digest mismatch: sidecar "
+                f"{expect[:12]} != content {digest[:12]} (corrupt or "
+                f"torn write)")
+    return factors, digest
+
+
+class AdapterRegistry:
+    """Bounded-slot host registry over the stacked delta arrays.
+
+    ``slots`` tenants max beside the permanent base row 0.  Resolution
+    is load-on-demand: the first admission naming an adapter loads it
+    from ``directory/<name>.npz`` (digest-verified) into a free slot —
+    or LRU-evicts an IDLE one (pins == 0; in-flight requests pin their
+    slot from admission to release).  A changed on-disk digest
+    hot-reloads in place behind a per-adapter ``_ReloadBreaker``: a
+    corrupt artifact opens the breaker for a jittered exponential
+    backoff during which the last-good revision keeps serving (or, for
+    a never-loaded name, admissions shed typed 429 until it expires).
+
+    Mutations are copy-on-write (a load/evict replaces whole leaf
+    arrays) and bump ``version``; the engine loop copies pending
+    versions into its device stack between program calls via
+    ``stack_snapshot()``, so a program never reads a torn row.  The
+    host stack is ``dtype`` (numpy, float32 by default).  Thread-safe; the engine calls
+    ``acquire``/``release`` from transport threads and
+    ``stack_snapshot`` from its loop thread.
+    """
+
+    def __init__(self, cfg, *, slots: int = 8, rank: int = 4,
+                 directory: Optional[str] = None, dtype=None,
+                 name: str = "engine",
+                 breaker_base_s: float = 0.5,
+                 breaker_cap_s: float = 60.0,
+                 overload_retry_after_s: float = 1.0):
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        self.cfg = cfg
+        self.slots = int(slots)
+        self.rank = int(rank)
+        self.directory = directory
+        self.name = name
+        self._dtype = dtype if dtype is not None else np.float32
+        self._retry_after_s = float(overload_retry_after_s)
+        self._breaker_base_s = breaker_base_s
+        self._breaker_cap_s = breaker_cap_s
+        self._stack = init_adapter_stack(cfg, self.slots + 1, self.rank,
+                                         self._dtype)
+        self._lock = threading.Lock()
+        self._residents: Dict[str, Dict[str, Any]] = {}
+        self._by_index: Dict[int, Dict[str, Any]] = {}
+        self._free: List[int] = list(range(1, self.slots + 1))
+        self._breakers: Dict[str, Any] = {}
+        self._digest_cache: Dict[str, Tuple[Tuple[float, int], str]] = {}
+        self._seq = 0
+        self.version = 0
+
+    # -- stack access (engine loop) ---------------------------------------
+
+    def stack_snapshot(self):
+        """(stack tree, version) — leaves are never mutated in place,
+        so the engine may read these refs without copying them first."""
+        with self._lock:
+            return self._stack, self.version
+
+    # -- resolution (transport threads) -----------------------------------
+
+    def acquire(self, name: str) -> Tuple[int, str]:
+        """Resolve ``name`` to ``(row index, content digest)`` and PIN
+        the slot until ``release(index)``.  Loads/reloads from disk as
+        needed; sheds AdapterNotFound (404) for unknown names and
+        Overloaded (429) when every slot is pinned or the load breaker
+        is open with no last-good revision."""
+        with self._lock:
+            res = self._residents.get(name)
+            path = self._path(name)
+            want: Optional[str] = None
+            if path is not None and os.path.exists(path):
+                try:
+                    want = self._file_digest_locked(name, path)
+                except OSError:
+                    want = None
+            if res is not None and (want is None
+                                    or want == res["digest"]):
+                return self._pin_locked(res)
+            if want is None:
+                if res is not None:
+                    # Artifact vanished: the resident revision keeps
+                    # serving (eviction under live pins would be worse).
+                    return self._pin_locked(res)
+                raise AdapterNotFound(
+                    f"adapter {name!r} is not resident and has no "
+                    f"artifact under {self.directory!r}")
+            breaker = self._breaker_locked(name)
+            if not breaker.allow(want):
+                if res is not None:
+                    return self._pin_locked(res)  # last-good serves
+                raise Overloaded(
+                    f"adapter {name!r} load breaker open "
+                    f"(artifact {want[:12]} failed "
+                    f"{breaker.failures}x)",
+                    retry_after_s=max(
+                        self._retry_after_s,
+                        breaker.open_until - faults.monotonic()))
+            try:
+                faults.fire("adapter.load")
+                factors, digest = load_adapter(path, self.cfg,
+                                               self.rank)
+            except Exception as exc:
+                breaker.record_failure(want)
+                self._counter(
+                    ADAPTER_LOAD_FAILURES_TOTAL,
+                    ADAPTER_LOAD_FAILURES_HELP).inc(
+                        engine=self.name, adapter=name)
+                if res is not None:
+                    log.warning(
+                        "adapter %r reload failed (%s); breaker open, "
+                        "last-good %s keeps serving", name, exc,
+                        res["digest"][:12])
+                    return self._pin_locked(res)
+                raise Overloaded(
+                    f"adapter {name!r} failed to load: {exc}",
+                    retry_after_s=self._retry_after_s)
+            breaker.record_success()
+            self._install_locked(name, factors, digest, reuse=res)
+            return self._pin_locked(self._residents[name])
+
+    def release(self, index: int) -> None:
+        with self._lock:
+            res = self._by_index.get(index)
+            if res is not None and res["pins"] > 0:
+                res["pins"] -= 1
+
+    def put(self, name: str, factors, digest: Optional[str] = None
+            ) -> int:
+        """Install ``factors`` for ``name`` directly (no disk) — the
+        in-memory load path tests and benches use.  Returns the row
+        index."""
+        with self._lock:
+            if digest is None:
+                digest = factors_digest(factors)
+            self._install_locked(name, factors, digest,
+                                 reuse=self._residents.get(name))
+            return self._residents[name]["index"]
+
+    def salt(self, index: int) -> bytes:
+        """Prefix-digest chain salt for a resolved adapter row: the
+        content digest's bytes (stable across replicas, unlike the row
+        index), empty for the base row — KV pages are adapter-scoped
+        so variants never alias each other's cache (§5.11)."""
+        if index == 0:
+            return b""
+        with self._lock:
+            res = self._by_index.get(index)
+            return bytes.fromhex(res["digest"]) if res else b""
+
+    def loaded(self) -> List[Dict[str, Any]]:
+        """Resident adapters for /readyz advertisement and stats."""
+        with self._lock:
+            return [{"name": r["name"], "digest": r["digest"],
+                     "index": r["index"], "pins": r["pins"]}
+                    for r in sorted(self._by_index.values(),
+                                    key=lambda r: r["index"])]
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "adapter_slots": self.slots,
+                "adapter_rank": self.rank,
+                "adapters_resident": len(self._residents),
+                "adapters_pinned": sum(
+                    1 for r in self._residents.values()
+                    if r["pins"] > 0),
+            }
+
+    # -- internals (all under self._lock) ---------------------------------
+
+    def _path(self, name: str) -> Optional[str]:
+        if self.directory is None:
+            return None
+        # Tenant names come off the wire: refuse separators so a name
+        # can never path-traverse out of the adapter directory.
+        if not name or "/" in name or "\\" in name or ".." in name:
+            raise AdapterNotFound(f"invalid adapter name {name!r}")
+        return os.path.join(self.directory, name + ".npz")
+
+    def _file_digest_locked(self, name: str, path: str) -> str:
+        """Sidecar digest when present (cheap), else content hash of
+        the npz cached by (mtime, size) — acquire() runs per admission
+        and must not re-hash an unchanged artifact every request."""
+        sidecar = path + ".json"
+        if os.path.exists(sidecar):
+            with open(sidecar) as f:
+                digest = json.load(f).get("digest")
+            if digest:
+                return str(digest)
+        st = os.stat(path)
+        key = (st.st_mtime, st.st_size)
+        cached = self._digest_cache.get(name)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        h = hashlib.sha256()
+        with open(path, "rb") as f:
+            for chunk in iter(lambda: f.read(1 << 20), b""):
+                h.update(chunk)
+        digest = h.hexdigest()
+        self._digest_cache[name] = (key, digest)
+        return digest
+
+    def _breaker_locked(self, name: str):
+        breaker = self._breakers.get(name)
+        if breaker is None:
+            from kubeflow_tpu_torch.serving.model_server import (
+                _ReloadBreaker,
+            )
+
+            breaker = self._breakers[name] = _ReloadBreaker(
+                self._breaker_base_s, self._breaker_cap_s)
+        return breaker
+
+    def _pin_locked(self, res) -> Tuple[int, str]:
+        res["pins"] += 1
+        res["last_used"] = self._seq
+        self._seq += 1
+        return res["index"], res["digest"]
+
+    def _install_locked(self, name, factors, digest, reuse=None):
+        if reuse is not None:
+            index = reuse["index"]
+        elif self._free:
+            index = self._free.pop(0)
+        else:
+            index = self._evict_lru_locked()
+        self._write_row_locked(index, factors)
+        res = {"name": name, "index": index, "digest": digest,
+               "pins": reuse["pins"] if reuse is not None else 0,
+               "last_used": self._seq}
+        self._seq += 1
+        self._residents[name] = res
+        self._by_index[index] = res
+        self._counter(ADAPTER_LOADS_TOTAL, ADAPTER_LOADS_HELP).inc(
+            engine=self.name, adapter=name)
+        self._gauge().set(len(self._residents), engine=self.name)
+        log.info("adapter %r -> slot %d (digest %s)", name, index,
+                 digest[:12])
+
+    def _evict_lru_locked(self) -> int:
+        """Free the least-recently-used IDLE slot; every pinned slot
+        belongs to an in-flight request and is untouchable — all
+        pinned means the stack is genuinely full (typed 429)."""
+        idle = [r for r in self._residents.values() if r["pins"] == 0]
+        if not idle:
+            raise Overloaded(
+                f"all {self.slots} adapter slots pinned by in-flight "
+                f"requests", retry_after_s=self._retry_after_s)
+        victim = min(idle, key=lambda r: r["last_used"])
+        faults.fire("adapter.evict")
+        index = victim["index"]
+        self._zero_row_locked(index)
+        del self._residents[victim["name"]]
+        del self._by_index[index]
+        self._counter(ADAPTER_EVICTIONS_TOTAL,
+                      ADAPTER_EVICTIONS_HELP).inc(engine=self.name)
+        self._gauge().set(len(self._residents), engine=self.name)
+        log.info("adapter %r LRU-evicted from slot %d",
+                 victim["name"], index)
+        return index
+
+    def _write_row_locked(self, index: int, factors) -> None:
+        # Copy-on-write: programs in flight keep reading the old leaf
+        # arrays; the engine loop picks the new tree up at the next
+        # version check, between dispatches.
+        new_stack = {}
+        for grp, leaves in self._stack.items():
+            new_stack[grp] = {}
+            for k, arr in leaves.items():
+                arr = np.array(arr)
+                arr[index] = np.asarray(factors[grp][k]).astype(
+                    arr.dtype)
+                new_stack[grp][k] = arr
+        self._stack = new_stack
+        self.version += 1
+
+    def _zero_row_locked(self, index: int) -> None:
+        new_stack = {}
+        for grp, leaves in self._stack.items():
+            new_stack[grp] = {}
+            for k, arr in leaves.items():
+                arr = np.array(arr)
+                arr[index] = 0
+                new_stack[grp][k] = arr
+        self._stack = new_stack
+        self.version += 1
+
+    @staticmethod
+    def _counter(name, help_):
+        from kubeflow_tpu_torch.runtime.prom import REGISTRY
+
+        return REGISTRY.counter(name, help_)
+
+    @staticmethod
+    def _gauge():
+        from kubeflow_tpu_torch.runtime.prom import REGISTRY
+
+        return REGISTRY.gauge(ADAPTER_RESIDENT_GAUGE,
+                              ADAPTER_RESIDENT_HELP)

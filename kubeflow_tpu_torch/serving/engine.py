@@ -49,7 +49,14 @@ KV block pool shared by ``slots`` sequences:
     tier's pages to a peer (host memory only, on any thread);
   - a ``kv_cache_dtype="int8"`` export keeps an int8 pool with one
     float32 scale per (position, head), which its handoff, spill and
-    fetch payloads carry as ``{"values", "scale"}`` sides.
+    fetch payloads carry as ``{"values", "scale"}`` sides;
+  - with an ``AdapterRegistry`` (serving/adapters.py), a request naming
+    an ``adapter`` decodes that tenant's low-rank variant in the same
+    continuous batch: the engine keeps the registry's stacked factors
+    on the device (model dtype) and every program gathers each slot's
+    row; admission pins the row, salts the request's prefix chain with
+    the adapter's content digest, and picks among queued requests
+    fairly per tenant.
 
 The host reads sampled tokens ``sync_lag`` calls late: each program's
 results are copied into pinned host memory by non-blocking copies behind
@@ -69,8 +76,8 @@ eagerly.  ``compiled_programs()`` counts each program once the engine
 has run it, so it reports what the JAX engine reports under the same
 flags.
 
-Not ported yet, each refused with ``NotPortedError`` naming its ROADMAP
-queue 1 item: adapters (item 5) and ``mesh`` (item 6).
+Not ported yet: ``mesh`` (ROADMAP queue 1 item 6), refused with
+``NotPortedError``.
 
 Interface-compatible with the batchers (submit/accepts/stats/close), so
 ModelServer.enable_batching wires it behind the REST surface unchanged.
@@ -91,6 +98,7 @@ from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.ops.quantize import QTensor
 from kubeflow_tpu_torch.runtime import tracing
 from kubeflow_tpu_torch.serving import programs
+from kubeflow_tpu_torch.serving.adapters import AdapterNotFound
 from kubeflow_tpu_torch.serving.errors import (
     BatcherClosed,
     DeadlineExceeded,
@@ -168,6 +176,10 @@ KV_SPILL_HELP = \
     "paged-KV pages crossing the host spill tier, by engine and " \
     "direction (out = device pages evacuated to host, in = host " \
     "pages re-imported at admission)"
+ADAPTER_REQUESTS_TOTAL = "kft_engine_adapter_requests_total"
+ADAPTER_REQUESTS_HELP = \
+    "requests admitted naming an adapter variant, by engine and " \
+    "adapter"
 
 # N-gram drafter bounds: suffixes of up to _SPEC_NGRAM_MAX tokens are
 # matched against the request's own history, down to _SPEC_NGRAM_MIN (a
@@ -287,6 +299,21 @@ def _not_ported(what: str, item: int) -> NotPortedError:
         f"item {item})")
 
 
+def copy_adapter_stack(dst: Dict[str, Dict[str, torch.Tensor]],
+                       stack) -> None:
+    """Copy a registry's host stack (numpy leaves) INTO the device stack
+    ``dst``, each leaf cast to its tensor's dtype, without blocking: on
+    CUDA from pinned memory, queued on the current stream after every
+    call already queued there.  ``dst``'s tensors keep their storage."""
+    for grp, leaves in stack.items():
+        for k, arr in leaves.items():
+            t = dst[grp][k]
+            host = torch.from_numpy(np.asarray(arr)).to(t.dtype)
+            if t.device.type == "cuda":
+                host = host.pin_memory()
+            t.copy_(host, non_blocking=t.device.type == "cuda")
+
+
 class _Readback:
     """Program results on their way to the host without blocking the
     loop: on CUDA, pinned buffers filled by non-blocking copies behind
@@ -336,7 +363,9 @@ class DecodeEngine:
       admit_width: how many admissions may be MID-PREFILL at once;
         further queued requests wait even when slots are free.  Chunk
         scheduling among them is FIFO (best TTFT for the head of the
-        line).
+        line); which queued request is admitted next is FIFO too, or,
+        while a queued request names an adapter, the per-tenant fair
+        pick (``_fair_pick_locked``).
       prefill_chunk_tokens: per-step prefill token budget AND the static
         chunk width (clamped to prefill_len).
       kv_block_tokens: paged-KV page size in cache positions, also the
@@ -358,9 +387,18 @@ class DecodeEngine:
         looked up by the prefix index's digests).  Idle cached pages
         spill there under pool pressure, parked sessions (``park_kv``)
         are copied there at delivery, and ``fetch_kv`` serves it.
-      mesh, partition_rules, adapters: the JAX engine's options that
-        are not ported yet; any value but their off value raises
-        ``NotPortedError``.
+      adapters: a serving/adapters.py ``AdapterRegistry`` to serve
+        per-tenant low-rank variants from.  Its stacked factors are
+        copied to the device in the model dtype, and every program reads
+        that copy as a fixed buffer, so the engine runs the same
+        programs, no more, for every mix of variants.  Admission
+        resolves ``inputs["adapter"]`` to a row (or sheds typed 404 /
+        429), pins it until release, and salts the request's
+        prefix-digest chain with the adapter's content digest, so
+        variants never alias each other's KV pages.  Without it a
+        request naming an adapter is refused with ``AdapterNotFound``.
+      mesh, partition_rules: the JAX engine's tensor-parallel options,
+        not ported yet; any value but None raises ``NotPortedError``.
       cuda_graphs: None (the default) captures the programs as CUDA
         graphs on a CUDA device and runs them eagerly on the CPU; False
         runs them eagerly on CUDA too (a comparison baseline); True on
@@ -396,12 +434,8 @@ class DecodeEngine:
         from kubeflow_tpu_torch.models.generate import init_paged_state
         from kubeflow_tpu_torch.runtime.prom import REGISTRY
 
-        for on, what, item in (
-                (adapters is not None, "adapters", 5),
-                (mesh is not None or partition_rules is not None,
-                 "mesh (tensor-parallel decode)", 6)):
-            if on:
-                raise _not_ported(what, item)
+        if mesh is not None or partition_rules is not None:
+            raise _not_ported("mesh (tensor-parallel decode)", 6)
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         self.model = model
@@ -467,6 +501,21 @@ class DecodeEngine:
                                        self.kv_block_tokens,
                                        decode.kv_cache_dtype,
                                        device=self.device)
+        # Adapter-array serving: the registry's stacked factors on the
+        # device, in the model dtype.  Every program reads these tensors
+        # as fixed buffers; a new registry version is copied INTO them
+        # between program calls (_apply_adapter_updates), never rebound,
+        # so the captured graphs read the new rows.
+        self._registry = adapters
+        self._adapter_version = None
+        self._adapter_stack = None
+        if adapters is not None:
+            stack, self._adapter_version = adapters.stack_snapshot()
+            self._adapter_stack = {
+                grp: {k: torch.from_numpy(np.array(arr)).to(
+                    device=self.device, dtype=cfg.dtype)
+                    for k, arr in leaves.items()}
+                for grp, leaves in stack.items()}
         # Host-owned per-slot block tables, passed into every program
         # call; the sentinel value (== pool size) sends writes and reads
         # of unallocated logical pages to the pool's scratch block.
@@ -489,21 +538,24 @@ class DecodeEngine:
         if cuda_graphs is None:
             cuda_graphs = self.device.type == "cuda"
         self.cuda_graphs = bool(cuda_graphs)
+        stack = self._adapter_stack
         self._chunk_prog = programs.ChunkedPrefill(
             model, decode, self._state, self._tables_dev, self.chunk_w,
-            graphs=self.cuda_graphs)
+            graphs=self.cuda_graphs, adapters=stack)
         if self.decode_rounds > 1:
             self._decode_prog = programs.Rounds(
                 model, decode, self._state, self._tables_dev,
-                self.decode_rounds, graphs=self.cuda_graphs)
+                self.decode_rounds, graphs=self.cuda_graphs,
+                adapters=stack)
         else:
             self._decode_prog = programs.Step(
                 model, decode, self._state, self._tables_dev,
-                self.steps_per_call, graphs=self.cuda_graphs)
+                self.steps_per_call, graphs=self.cuda_graphs,
+                adapters=stack)
         self._verify_prog = programs.Verify(
             model, decode, self._state, self._tables_dev,
-            self.speculative_tokens, graphs=self.cuda_graphs) \
-            if self.speculative_tokens else None
+            self.speculative_tokens, graphs=self.cuda_graphs,
+            adapters=stack) if self.speculative_tokens else None
         self._import_prog = programs.KvImport(
             model, decode, self._state, self._tables_dev,
             self._table_blocks, graphs=self.cuda_graphs)
@@ -550,6 +602,11 @@ class DecodeEngine:
         # _drain_one notifies after each materialized emission.
         self._emit = threading.Condition(self._lock)
         self._queue: List[dict] = []
+        # Per-tenant fair admission: the admission sequence number at
+        # which each adapter key ("" = base traffic) was last admitted.
+        # Mutated only under the lock.
+        self._fair_last: Dict[str, int] = {}
+        self._fair_seq = 0
         self._stopped = False
         self._drain_deadline: Optional[float] = None
         # Host-side slot table: None = free, else the live request entry.
@@ -633,6 +690,8 @@ class DecodeEngine:
             HOST_TIER_GAUGE, HOST_TIER_HELP)
         self._kv_spill_ctr = REGISTRY.counter(
             KV_SPILL_TOTAL, KV_SPILL_HELP)
+        self._adapter_req_ctr = REGISTRY.counter(
+            ADAPTER_REQUESTS_TOTAL, ADAPTER_REQUESTS_HELP)
         # Fault-layer series: same names as the static batchers', so
         # shed/expired rates read uniformly across batching planes.
         self._shed_ctr = REGISTRY.counter(SHED_TOTAL, SHED_HELP)
@@ -804,8 +863,6 @@ class DecodeEngine:
                deadline: Optional[float]) -> dict:
         """Validate + enqueue one request (submit and submit_stream share
         it); returns the live entry whose ``event`` resolves it."""
-        if inputs.get("adapter"):
-            raise _not_ported("adapters", 5)
         tokens = np.asarray(inputs["tokens"], np.int32)
         if tokens.ndim == 1:
             tokens = tokens[None]
@@ -873,6 +930,29 @@ class DecodeEngine:
             raise DeadlineExceeded(
                 f"deadline expired before engine "
                 f"{self._metric_name!r} admission")
+        # Adapter resolution: name -> stacked row, PINNED from here to
+        # release so LRU eviction never recycles a row under an in-flight
+        # request.  Unknown names shed typed 404, exhausted slots or an
+        # open load breaker 429, all before any queue state exists.
+        # Every terminal path below unpins (_unpin_adapter is
+        # idempotent), so "evictable" is exactly "no live request".
+        adapter_name = inputs.get("adapter")
+        adapter_idx, adapter_salt, adapter_pin = 0, b"", None
+        if adapter_name:
+            adapter_name = str(adapter_name)
+            if self._registry is None:
+                raise AdapterNotFound(
+                    f"engine {self._metric_name!r} serves no adapters "
+                    f"(requested {adapter_name!r})")
+            adapter_idx, digest = self._registry.acquire(adapter_name)
+            adapter_pin = adapter_idx
+            # KV is scoped by the adapter's CONTENT digest (stable across
+            # replicas, unlike the row index).
+            adapter_salt = bytes.fromhex(digest)
+            self._adapter_req_ctr.inc(
+                engine=self._metric_name, adapter=adapter_name)
+        else:
+            adapter_name = None
         # Worst-case paged-KV reservation: every position the request
         # could ever write (prompt + full budget) in whole pages.
         # Reserving it at admission is what makes block exhaustion a
@@ -892,6 +972,8 @@ class DecodeEngine:
             "export": export, "handoff": handoff,
             "park": bool(inputs.get("park_kv")),
             "spill_in": None,
+            "adapter": adapter_idx, "adapter_salt": adapter_salt,
+            "adapter_name": adapter_name,
             # Adaptive draft width: grows on full accepts, shrinks on
             # full rejects; 0 = backed off (re-probes after cooldown).
             "spec_k": self.speculative_tokens, "spec_cool": 0,
@@ -902,6 +984,8 @@ class DecodeEngine:
             "event": threading.Event(), "out": None, "err": None,
             "t": faults.monotonic(), "t_first": None,
         }
+        if adapter_pin is not None:
+            entry["adapter_pin"] = adapter_pin
         if self.speculative_tokens:
             hist = np.empty((length + new,), np.int32)
             hist[:length] = tokens[0]
@@ -918,6 +1002,7 @@ class DecodeEngine:
                 entry["spec_seed"] = False
         with self._lock:
             if self._stopped:
+                self._unpin_adapter(entry)
                 raise BatcherClosed(
                     f"engine {self._metric_name!r} is closed")
             if res_blocks > self.kv_pool_blocks:
@@ -927,6 +1012,7 @@ class DecodeEngine:
                 self._counters["kv_shed_no_blocks"] += 1
                 self._shed_ctr.inc(batcher=self._metric_name)
                 self._kv_shed_ctr.inc(engine=self._metric_name)
+                self._unpin_adapter(entry)
                 raise Overloaded(
                     f"request needs {res_blocks} KV blocks but engine "
                     f"{self._metric_name!r}'s pool holds "
@@ -942,6 +1028,7 @@ class DecodeEngine:
                     self._counters["kv_shed_no_blocks"] += 1
                     self._kv_shed_ctr.inc(engine=self._metric_name)
                 self._shed_ctr.inc(batcher=self._metric_name)
+                self._unpin_adapter(entry)
                 raise Overloaded(
                     f"engine {self._metric_name!r} admission queue "
                     f"full ({len(self._queue)} waiting, "
@@ -984,6 +1071,12 @@ class DecodeEngine:
             out["decode_rounds"] = 1
         return out
 
+    def adapter_info(self) -> List[Dict[str, Any]]:
+        """Resident adapters (name, digest, index, pins) for the /readyz
+        advertisement; empty when this engine serves no adapters."""
+        return self._registry.loaded() if self._registry is not None \
+            else []
+
     def stats(self) -> Dict[str, Any]:
         """Locked snapshot of the engine counters: occupancy, queue
         depth, throughput, per-token latency, prefix-cache
@@ -1023,7 +1116,7 @@ class DecodeEngine:
                 if sorted_values else 0.0
 
         prompt_toks = c["prompt_tokens"]
-        return {
+        out = {
             "requests": c["requests"],
             "tokens": c["tokens"],
             "steps": steps,
@@ -1109,6 +1202,11 @@ class DecodeEngine:
             "ttft_p50_ms": pct(ttfts, 0.50),
             "ttft_p99_ms": pct(ttfts, 0.99),
         }
+        if self._registry is not None:
+            # Registry occupancy and the resident name/digest list.
+            out["adapters"] = self._registry.stats()
+            out["adapters"]["loaded"] = self._registry.loaded()
+        return out
 
     def close(self, drain_s: float = 10.0) -> None:
         """Deterministic shutdown: refuse new work, give in-flight
@@ -1145,6 +1243,40 @@ class DecodeEngine:
 
     def _free_slots_locked(self) -> List[int]:
         return [i for i, r in enumerate(self._slot_req) if r is None]
+
+    def _fair_pick_locked(self) -> int:
+        """Per-tenant fair admission: among the queued requests, pick the
+        one whose adapter key ("" = base traffic) was admitted least
+        recently, oldest first within a tenant, so a hot adapter's burst
+        cannot starve co-batched neighbours.  FIFO when nothing queued
+        names an adapter.  The caller still stops on the first pick the
+        pool cannot plan, so a waiting request is never jumped
+        indefinitely."""
+        if self._registry is None or len(self._queue) < 2:
+            return 0
+        if all(e.get("adapter_name") is None for e in self._queue):
+            return 0
+        best, best_key = 0, None
+        for i, e in enumerate(self._queue):
+            key = (self._fair_last.get(e.get("adapter_name") or "", -1), i)
+            if best_key is None or key < best_key:
+                best, best_key = i, key
+        return best
+
+    def _apply_adapter_updates(self) -> None:
+        """Hot adapter load/evict, device side (loop thread, between
+        program calls): when the registry's version moved, copy its
+        stacked factors INTO the resident device tensors.  The copies are
+        queued on the programs' stream, so calls already queued read the
+        old rows and the next call the new; the tensors keep their
+        storage, which the captured graphs read (rebinding them would
+        leave the graphs serving the old rows).  Shapes never change, so
+        nothing is recaptured."""
+        stack, version = self._registry.stack_snapshot()
+        if version == self._adapter_version:
+            return
+        copy_adapter_stack(self._adapter_stack, stack)
+        self._adapter_version = version
 
     def _sweep_expired_locked(self) -> List[dict]:
         """Pull every deadline-expired request out of the queue AND the
@@ -1206,6 +1338,10 @@ class DecodeEngine:
             return
         self._expired_ctr.inc(len(expired), batcher=self._metric_name)
         for entry in expired:
+            # Queue-expired entries never reach _release_entry_locked
+            # (they hold no pages): unpin their adapters here.
+            self._unpin_adapter(entry)
+        for entry in expired:
             if not entry["event"].is_set():
                 if entry["trace"] is not None:
                     tracing.record_span(
@@ -1221,11 +1357,21 @@ class DecodeEngine:
                     f"(engine {self._metric_name!r})")
                 entry["event"].set()
 
+    def _unpin_adapter(self, entry: dict) -> None:
+        """Drop an entry's adapter pin (idempotent: the pin is popped
+        once).  Every terminal path calls this (release, expiry, queue
+        failure, abort and the typed admission sheds), so an adapter row
+        is LRU-evictable exactly when no live request references it."""
+        pin = entry.pop("adapter_pin", None)
+        if pin is not None and self._registry is not None:
+            self._registry.release(pin)
+
     def _release_entry_locked(self, entry: dict) -> None:
         """Return an entry's physical pages (slot refs) and never-taken
         reservation to the pool.  Pages a published prefix record
         advertises stay resident as evictable cache.  Idempotent; never
         touches the slot's table row (it may belong to a successor)."""
+        self._unpin_adapter(entry)
         if entry["released"]:
             return
         entry["released"] = True
@@ -1243,15 +1389,19 @@ class DecodeEngine:
         plans like a handoff too (a full private reservation) and
         re-imports the spilled pages through ``KvImport``."""
         prompt = entry["tokens"][0]
+        # Adapter-scoped KV: a variant's chain is salted with its digest.
+        salt = entry.get("adapter_salt", b"")
         limit = 0 if entry.get("handoff") else int(prompt.shape[0]) - 1
         spill_in = None
         if limit > 0 and self.host_spill_blocks:
-            payload, depth = self._mgr.lookup_spilled(prompt, limit)
+            payload, depth = self._mgr.lookup_spilled(prompt, limit,
+                                                      salt=salt)
             if payload is not None and depth * self.kv_block_tokens \
-                    > self._mgr.peek(prompt, limit):
+                    > self._mgr.peek(prompt, limit, salt=salt):
                 spill_in = (payload, depth)
                 limit = 0
-        plan = self._mgr.admit(prompt, limit, entry["res_blocks"])
+        plan = self._mgr.admit(prompt, limit, entry["res_blocks"],
+                               salt=salt)
         if plan is not None:
             entry["spill_in"] = spill_in
         return plan
@@ -1588,10 +1738,12 @@ class DecodeEngine:
             [entry["tokens"][0], np.asarray(entry["emitted"], np.int32)])
         true_len = int(context.shape[0]) - 1
         n = min(true_len // self.kv_block_tokens, len(entry["blocks"]))
+        salt = entry.get("adapter_salt", b"")
         with self._lock:
             self._counters["parked_sessions"] += 1
             if n > 0 and self.prefix_caching:
-                self._mgr.publish(context, true_len, entry["blocks"])
+                self._mgr.publish(context, true_len, entry["blocks"],
+                                  salt=salt)
         if n <= 0 or not self.host_spill_blocks:
             return
         try:
@@ -1609,7 +1761,7 @@ class DecodeEngine:
             return
         with self._lock:
             stored = self._mgr.host_put(
-                context, true_len, {"k": pages_k, "v": pages_v})
+                context, true_len, {"k": pages_k, "v": pages_v}, salt=salt)
             if stored:
                 self._counters["spill_pages_out"] += stored
         if stored:
@@ -1692,7 +1844,7 @@ class DecodeEngine:
         t0 = time.perf_counter()
         tok = self._chunk_prog.run(
             prompt[start:start + w], start, true_len, entry["new"],
-            entry["slot"], entry["seed"])
+            entry["slot"], entry["seed"], entry.get("adapter", 0))
         readback = _Readback(tok) if finished else None
         dt = time.perf_counter() - t0
         self._chunk_built = True
@@ -1705,7 +1857,8 @@ class DecodeEngine:
                 # Publication is free: the full-block prefix pages this
                 # prefill just wrote ARE the cache entry.
                 with self._lock:
-                    self._mgr.publish(prompt, true_len, entry["blocks"])
+                    self._mgr.publish(prompt, true_len, entry["blocks"],
+                                      salt=entry.get("adapter_salt", b""))
         with self._lock:
             self._counters["prefill_chunks"] += 1
             # Prefill dispatch time belongs in busy_s beside the steps'.
@@ -2323,10 +2476,8 @@ class DecodeEngine:
                 while (free and self._queue
                        and len(self._prefilling) + len(admissions)
                        < self.admit_width):
-                    # FIFO: the JAX engine's per-tenant fair pick is FIFO
-                    # when no queued request names an adapter, which no
-                    # request can until adapters are ported.
-                    entry = self._queue[0]
+                    pick = self._fair_pick_locked()
+                    entry = self._queue[pick]
                     plan = self._plan_blocks_locked(entry)
                     if plan is None:
                         # Tokens-resident admission bound: the pool
@@ -2334,7 +2485,10 @@ class DecodeEngine:
                         # It HOLDS its queue position until retirements
                         # free pages.
                         break
-                    self._queue.pop(0)
+                    self._queue.pop(pick)
+                    self._fair_seq += 1
+                    self._fair_last[entry.get("adapter_name") or ""] = \
+                        self._fair_seq
                     slot = free.pop(0)
                     shared, cached = plan
                     # Claim the slot and bump in_flight in the same locked
@@ -2375,6 +2529,10 @@ class DecodeEngine:
             # in-flight slots.
             self._fail_queue(BatcherClosed(
                 f"engine {self._metric_name!r} is closed"))
+        if self._registry is not None:
+            # Hot adapter load/evict: fold a pending stack version into
+            # the device stack before this turn's program calls.
+            self._apply_adapter_updates()
         if self.host_spill_blocks:
             # Spill-then-admit: evacuate LRU-cold idle records to the host
             # tier BEFORE this turn's take() calls (admission prefills,
@@ -2422,6 +2580,7 @@ class DecodeEngine:
             queued, self._queue = self._queue, []
             self._set_queue_gauge(0)
         for entry in queued:
+            self._unpin_adapter(entry)
             entry["err"] = exc
             entry["event"].set()
 
@@ -2438,12 +2597,14 @@ class DecodeEngine:
         # in _pending: those are in neither the queue nor the slot table.
         for i, entry in enumerate(self._slot_req):
             if entry is not None and not entry["event"].is_set():
+                self._unpin_adapter(entry)
                 entry["err"] = err
                 entry["event"].set()
             self._slot_req[i] = None
         for _, snapshot, _ in self._pending:
             for _, entry in snapshot:
                 if not entry["event"].is_set():
+                    self._unpin_adapter(entry)
                     entry["err"] = err
                     entry["event"].set()
         self._pending.clear()

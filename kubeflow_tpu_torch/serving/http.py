@@ -8,7 +8,10 @@ score], ...], ...]}}``; ``GET /model/NAME:metadata`` returns
 the exported signature; ``GET /model/NAME:stats`` the batching plane's
 live stats (the decode engine's ``stats()``, a batcher's dispatch
 profile, or null on the direct path); ``/healthz`` is liveness and
-``/readyz`` readiness (503 while draining), with the server's ``role``.
+``/readyz`` readiness (503 while draining), with the server's ``role``
+and, where an engine serves adapters, its resident ``adapters``.
+``NAME`` may be ``model@adapter`` on :predict, :generate and :prefill
+(an unknown adapter answers 404).
 On a decode-engine model, ``POST /model/NAME:generate`` streams chunked
 NDJSON (a meta line, ``{"tokens": [...]}`` lines as the engine emits, a
 terminal done or error line), and ``POST /model/NAME:prefill`` answers
@@ -45,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.serving.adapters import split_model_adapter
 from kubeflow_tpu_torch.serving.errors import DeadlineExceeded, Overloaded
 from kubeflow_tpu_torch.serving.model_server import ModelServer
 
@@ -225,7 +229,10 @@ class ServingAPI:
                 "Request json object must use the key: instances")
         deadline = parse_deadline_ms(body)
         instances = decode_b64_if_needed(instances)
-        model = self.server.get(name, version)
+        # A ``model@adapter`` name: the signature is the base model's;
+        # ModelServer.predict splits the name again to hand the adapter
+        # to the engine's admission.
+        model = self.server.get(split_model_adapter(name)[0], version)
         sig_inputs = list(
             model.meta.get("signature", {}).get("inputs", []) or [])
         inputs = instances_to_inputs(instances, sig_inputs or None)
@@ -375,8 +382,14 @@ class _Handler(BaseHTTPRequestHandler):
             # ``role`` advertises the disaggregation tier (prefill,
             # decode or unified) to whatever routes between tiers.
             if server.is_ready():
-                self._send(200, {"status": "ready", "role": server.role,
-                                 "models": server.models()})
+                body = {"status": "ready", "role": server.role,
+                        "models": server.models()}
+                # Resident adapters (name, digest, slot, pins) per engine
+                # model, for a router's digest-affinity pick.
+                adapters = server.adapter_info()
+                if adapters:
+                    body["adapters"] = adapters
+                self._send(200, body)
             else:
                 self._send(503, {"status": "draining" if server.draining()
                                  else "no models loaded",

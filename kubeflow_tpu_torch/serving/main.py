@@ -20,12 +20,15 @@ answers :prefill and the streaming :generate).  ``--host_spill_blocks
 N`` gives the engine a host-memory KV tier of N pages, which parked
 sessions (``park_kv``) and pool pressure fill and ``:fetch_kv`` serves.
 An export whose config sets ``quantize: int8`` or ``kv_cache: int8``
-serves int8 weights or an int8 KV pool.
+serves int8 weights or an int8 KV pool.  ``--adapters_dir DIR`` (with
+``--adapter_slots`` and ``--adapter_rank``) gives each engine an
+``AdapterRegistry`` over ``DIR/<name>.npz``: ``POST
+/model/NAME@ADAPTER:predict`` or ``:generate`` serves that adapter,
+co-batched with base traffic in the same captured programs.
 
-Not ported yet: adapters (ROADMAP queue 1, item 5) and ``--mesh`` (item
-6), whose flags are accepted at their off values only and raise
-``NotPortedError`` otherwise; the gRPC
-face (item 7); tracing routes, fault injection from the environment and
+Not ported yet: ``--mesh`` (ROADMAP queue 1, item 6), accepted at its
+off value only and raising ``NotPortedError`` otherwise; the gRPC face
+(item 7); tracing routes, fault injection from the environment and
 idempotency dedup (item 9).
 """
 
@@ -71,6 +74,8 @@ def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
                     overload_retry_after_s: float = 1.0,
                     speculative_tokens: int = 0,
                     adapters_dir: str = "",
+                    adapter_slots: int = 8,
+                    adapter_rank: int = 4,
                     mesh: str = ""):
     """ModelServer.enable_batching factory: picks the batcher per model,
     rebuilt around every hot-swapped version.
@@ -79,18 +84,18 @@ def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
     DecodeEngine; ``lm_engine=False`` (--lm_static_batcher) falls back to
     the static BucketedLMBatcher when buckets are configured.  Everything
     else gets the shape-grouped MicroBatcher when micro-batching is on,
-    or no batcher (build returns None: the direct predict path).  The
-    engine options of later slices raise ``NotPortedError`` here unless
-    they are off.
+    or no batcher (build returns None: the direct predict path).  With
+    ``adapters_dir`` each engine gets its own ``AdapterRegistry`` of
+    ``adapter_slots`` rows at ``adapter_rank``.  ``mesh`` raises
+    ``NotPortedError`` unless it is off.
     """
+    from kubeflow_tpu_torch.serving.adapters import AdapterRegistry
     from kubeflow_tpu_torch.serving.engine import DecodeEngine
 
-    for on, flag, item in ((bool(adapters_dir), "--adapters_dir", 5),
-                           (bool(mesh), "--mesh", 6)):
-        if on:
-            raise NotPortedError(
-                f"{flag} is not ported yet (ROADMAP queue 1 item {item}); "
-                "the port serves with it off")
+    if mesh:
+        raise NotPortedError(
+            "--mesh is not ported yet (ROADMAP queue 1 item 6); the port "
+            "serves with it off")
     sizes = [s for s in (1, 2, 4, 8, 16, 32, 64, 128)
              if s <= micro_batch_size]
     if not sizes or sizes[-1] != micro_batch_size:
@@ -112,6 +117,16 @@ def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
                 max(buckets) if buckets else min(cap, 512))
             prefill = min(prefill, cap)
             if prefill >= 1:
+                registry = None
+                if adapters_dir:
+                    # One registry per engine: hot-loaded per-tenant
+                    # deltas ride the engine's stacked adapter arrays
+                    # inside the SAME captured programs.
+                    registry = AdapterRegistry(
+                        spec["cfg"], slots=adapter_slots,
+                        rank=adapter_rank, directory=adapters_dir,
+                        name=f"{model.name}-v{model.version}",
+                        overload_retry_after_s=overload_retry_after_s)
                 logging.info(
                     "decode engine for %r v%d: %d slots, prefill width "
                     "%d, cache %d cols/slot", model.name, model.version,
@@ -132,6 +147,7 @@ def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
                     max_queue_depth=max_queue_depth,
                     overload_retry_after_s=overload_retry_after_s,
                     speculative_tokens=speculative_tokens,
+                    adapters=registry,
                     name=f"{model.name}-v{model.version}")
             logging.warning(
                 "decode engine disabled for %r: max_new_tokens %d "
@@ -238,7 +254,24 @@ def _parser() -> argparse.ArgumentParser:
                          " x kv_block_tokens, and the :fetch_kv route "
                          "serves these pages to failover peers")
     ap.add_argument("--adapters_dir", default="",
-                    help="not ported yet: only empty is accepted")
+                    help="directory of per-tenant adapter deltas "
+                         "(<name>.npz + digest sidecar): enables "
+                         "multi-model serving on the DecodeEngine; "
+                         "requests naming 'model@adapter' hot-load the "
+                         "delta into a bounded stacked-array slot and "
+                         "co-batch with every other variant in the SAME "
+                         "captured programs.  Empty = adapter requests "
+                         "404")
+    ap.add_argument("--adapter_slots", type=int, default=8,
+                    help="resident adapter variants per engine (the "
+                         "stacked array's device rows beyond base); "
+                         "idle adapters LRU-evict when the slots fill, "
+                         "in-flight ones are pinned; all slots pinned "
+                         "sheds 429")
+    ap.add_argument("--adapter_rank", type=int, default=4,
+                    help="low-rank adapter factor rank: every adapter "
+                         "served by one engine shares this rank (the "
+                         "stacked array is one static shape)")
     ap.add_argument("--mesh", default="",
                     help="not ported yet: only empty is accepted")
     ap.add_argument("--role", default="unified",
@@ -293,6 +326,8 @@ def start(argv: Optional[List[str]] = None
             overload_retry_after_s=args.overload_retry_after_s,
             speculative_tokens=args.speculative_tokens,
             adapters_dir=args.adapters_dir,
+            adapter_slots=args.adapter_slots,
+            adapter_rank=args.adapter_rank,
             mesh=args.mesh)
     server = ModelServer(poll_interval_s=args.poll_interval_s,
                          max_inflight=args.max_inflight,

@@ -12,30 +12,41 @@ batcher; ``SHED_TOTAL``/``EXPIRED_TOTAL`` and ``locked_snapshot`` are the
 names it shares with the batchers.  Through it the server also runs the
 disaggregated prefill tier (``prefill_handoff``), streams generation
 (``generate_stream``) and serves the engine's host spill tier to peers
-(``fetch_kv``); ``role`` advertises the server's tier.
+(``fetch_kv``); ``role`` advertises the server's tier.  A request name
+``model@adapter`` serves the adapter ``adapter`` of ``model`` through
+the model's engine (serving/adapters.py); a model without an engine
+refuses it with ``AdapterNotFound`` (a 404), never decoding base
+weights for a tenant.
 
-Not ported yet: the reload circuit breaker, idempotency dedup, request
+``_ReloadBreaker`` is here for the adapter registry's loads.  Not
+ported yet: its use around model reloads, idempotency dedup, request
 tracing, fault-injection sites and the batchers' Prometheus metrics
-(ROADMAP queue 1, item 9) and adapters (item 5).
+(ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import random
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
+from kubeflow_tpu_torch.serving.adapters import (
+    AdapterNotFound,
+    split_model_adapter,
+)
 from kubeflow_tpu_torch.serving.errors import (  # noqa: F401 -- re-exported
     BatcherClosed,
     DeadlineExceeded,
     Overloaded,
 )
 from kubeflow_tpu_torch.serving.export import list_versions, load_version
+from kubeflow_tpu_torch.testing import faults
 
 log = logging.getLogger(__name__)
 
@@ -62,6 +73,82 @@ class LoadedModel:
     version: int
     predict: Callable[[Dict[str, Any]], Dict[str, Any]]
     meta: Dict[str, Any]
+
+
+class _ReloadBreaker:
+    """Exponential-backoff circuit breaker for one model's (re)loads.
+
+    A corrupt checkpoint directory must not hot-loop the version
+    watcher: after a load failure the breaker OPENS for a jittered,
+    exponentially-growing backoff during which reload() skips the disk
+    entirely (the last-good version keeps serving).  When the backoff
+    expires the breaker goes HALF-OPEN: exactly one trial load runs;
+    success closes it, failure re-opens with a doubled backoff.  A NEW
+    latest version (different from the one that failed) resets the
+    breaker immediately — the breaker guards the corrupt artifact, not
+    the model name.
+
+    The backoff clock is faults.monotonic() (the skewable policy
+    clock), so chaos tests drive the open -> half-open -> closed walk
+    without wall-clock sleeps."""
+
+    def __init__(self, base_s: float = 0.5, cap_s: float = 60.0,
+                 rng: Optional[random.Random] = None):
+        self._base_s = base_s
+        self._cap_s = cap_s
+        # OS-seeded by default: each replica must walk a DIFFERENT
+        # jitter sequence or concurrent replicas watching one shared
+        # model path retry in lockstep.  Tests needing a fixed walk
+        # pass their own rng.
+        self._rng = rng or random.Random()
+        self._lock = threading.Lock()
+        self.failures = 0
+        self.open_until = 0.0
+        self.failing_version: Optional[int] = None
+        self._half_open = False
+
+    def allow(self, version: int) -> bool:
+        """May a load of ``version`` run now?  Claims the single
+        half-open trial slot when the backoff has expired."""
+        with self._lock:
+            if self.failures == 0:
+                return True
+            if version != self.failing_version:
+                self._reset_locked()
+                return True
+            if self._half_open:
+                return False  # a trial is already in flight
+            if faults.monotonic() < self.open_until:
+                return False
+            self._half_open = True
+            return True
+
+    def record_failure(self, version: int) -> None:
+        with self._lock:
+            self.failures += 1
+            self.failing_version = version
+            self._half_open = False
+            backoff = min(self._cap_s,
+                          self._base_s * (2 ** (self.failures - 1)))
+            # Full jitter up to +25%: concurrent replicas watching one
+            # shared model path must not retry in lockstep.
+            backoff *= 1.0 + 0.25 * self._rng.random()
+            self.open_until = faults.monotonic() + backoff
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._reset_locked()
+
+    def _reset_locked(self) -> None:
+        self.failures = 0
+        self.open_until = 0.0
+        self.failing_version = None
+        self._half_open = False
+
+    @property
+    def open(self) -> bool:
+        with self._lock:
+            return self.failures > 0
 
 
 class ModelServer:
@@ -211,6 +298,41 @@ class ModelServer:
         with self._lock:
             return {n: sorted(v) for n, v in self._models.items()}
 
+    def has_model(self, name: str) -> bool:
+        """Whether ``name`` (or the base of ``model@adapter``) is served."""
+        base, _ = split_model_adapter(name)
+        with self._lock:
+            return base in self._models
+
+    def adapter_info(self) -> Dict[str, List[Dict[str, Any]]]:
+        """Resident adapters per engine-served model (name, digest, slot
+        index, pins) for the /readyz advertisement.  Models without an
+        adapter registry are omitted."""
+        with self._lock:
+            batchers = dict(self._batchers)
+        out: Dict[str, List[Dict[str, Any]]] = {}
+        for name, batcher in batchers.items():
+            info_fn = getattr(batcher, "adapter_info", None)
+            if info_fn is None:
+                continue
+            info = info_fn()
+            if info:
+                out[name] = info
+        return out
+
+    def _resolve_adapter(self, name: str, inputs: Dict[str, Any]
+                         ) -> Tuple[str, Dict[str, Any]]:
+        """Split a ``model@adapter`` request name: the BASE name drives
+        every lookup, in-flight count and batcher route (one model, one
+        engine, one set of programs), while the adapter rides
+        ``inputs["adapter"]`` for the engine to resolve against its
+        registry at admission.  Plain names pass through untouched."""
+        base, adapter = split_model_adapter(name)
+        if adapter:
+            inputs = dict(inputs)
+            inputs["adapter"] = adapter
+        return base, inputs
+
     def batcher_stats(self, name: str) -> Optional[Dict[str, Any]]:
         with self._lock:
             batcher = self._batchers.get(name)
@@ -250,6 +372,8 @@ class ModelServer:
         """True when every input leaf carries exactly one example -- the
         only shape a batcher entry can represent."""
         for v in inputs.values():
+            if isinstance(v, str):
+                continue  # routing metadata ("adapter"), not a leaf
             shape = getattr(v, "shape", None)
             if shape is None:
                 shape = np.asarray(v).shape
@@ -261,7 +385,9 @@ class ModelServer:
                 version: Optional[int] = None,
                 deadline: Optional[float] = None) -> Dict[str, Any]:
         """``deadline`` is an absolute time.monotonic() instant, enforced
-        in the batcher queues and at entry to the direct path."""
+        in the batcher queues and at entry to the direct path.  ``name``
+        may be ``model@adapter``."""
+        name, inputs = self._resolve_adapter(name, inputs)
         with self._lock:
             if self._max_inflight and self._inflight_by_model.get(
                     name, 0) >= self._max_inflight:
@@ -286,8 +412,8 @@ class ModelServer:
             raise DeadlineExceeded(
                 f"deadline expired before dispatch of {name!r}")
         if version is None:
-            converted = {k: v if hasattr(v, "shape") else np.asarray(v)
-                         for k, v in inputs.items()}
+            converted = {k: v if isinstance(v, str) or hasattr(v, "shape")
+                         else np.asarray(v) for k, v in inputs.items()}
             # Bounded retry: a hot-swap or drain can close the batcher
             # between lookup and submit; the second lap takes the
             # replacement, and no replacement falls through to the direct
@@ -297,6 +423,9 @@ class ModelServer:
                     batcher = self._batchers.get(name)
                 if batcher is None or not self._single_row(converted):
                     break
+                if inputs.get("adapter") and not hasattr(batcher,
+                                                         "adapter_info"):
+                    break  # a static batcher decodes base weights only
                 accepts = getattr(batcher, "accepts", None)
                 if accepts is not None and not accepts(converted):
                     break  # e.g. a prompt beyond the largest bucket
@@ -305,6 +434,14 @@ class ModelServer:
                 except BatcherClosed:
                     continue
         model = self.get(name, version)
+        if inputs.get("adapter"):
+            # The direct path and the static batchers run the BASE weights
+            # only: answering an adapter request with base output would be
+            # a wrong-tenant response, worse than failing.
+            raise AdapterNotFound(
+                f"adapter {inputs['adapter']!r} requires the "
+                f"continuous-batching engine; model {name!r} fell "
+                f"through to the direct path")
         if deadline is not None and time.monotonic() >= deadline:
             raise DeadlineExceeded(
                 f"deadline expired before direct dispatch of {name!r}")
@@ -341,6 +478,7 @@ class ModelServer:
         prompt's chunked prefill on ``name``'s engine, returned with its
         finished KV pages (``kv_handoff``) for a decode tier to import.
         Bracketed in the in-flight counts like a predict."""
+        name, inputs = self._resolve_adapter(name, inputs)
         export_fn = self._engine_call(name, "prefill_export", ":prefill")
         self._enter_model(name)
         try:
@@ -353,7 +491,10 @@ class ModelServer:
         match in ``name``'s engine host tier, in the engine's export
         form, or a miss.  A pure host-memory read with no in-flight
         bracket: a drain must not wait on a peer's failover fetch, and
-        the fetch keeps answering while this replica drains."""
+        the fetch keeps answering while this replica drains.  An adapter in
+        ``name`` is dropped: a variant's pages are addressed by the
+        ``adapter_digest`` input."""
+        name, _ = split_model_adapter(name)
         return self._engine_call(name, "fetch_kv", ":fetch_kv")(inputs)
 
     def generate_stream(self, name: str, inputs: Dict[str, Any],
@@ -363,6 +504,7 @@ class ModelServer:
         iterator is bracketed in the in-flight counts from its first
         iteration, so a drain waits for live streams; callers exhaust or
         close() it."""
+        name, inputs = self._resolve_adapter(name, inputs)
         stream_fn = self._engine_call(name, "submit_stream", ":generate")
         meta, stream = stream_fn(inputs, deadline=deadline)
 

@@ -7,8 +7,8 @@ over fixed buffers, built once per engine:
 
   - ``ChunkedPrefill``: ``prefill_chunk_into_slot`` for one static-width
     chunk; its tokens and its scalars (start, prompt_len, new_tokens,
-    slot, seed) are one int64 device buffer, and the slot's block-table
-    row is picked on the device by the slot scalar;
+    slot, seed, adapter id) are one int64 device buffer, and the slot's
+    block-table row is picked on the device by the slot scalar;
   - ``Step``: ``decode_step``, the engine's ``steps_per_call`` unrolled;
   - ``Rounds``: one guarded step of ``decode_rounds`` that writes its
     tokens at a device step index; the host issues it up to the round's
@@ -27,6 +27,13 @@ values and float32 scales, four tensors in all, each a fixed buffer the
 graphs read and write as they do the model-dtype pool's two, each with
 its scratch block.  ``KvImport`` then holds int8 and float32 page
 buffers.
+
+An engine that serves adapters passes its stacked adapter factors
+(``adapters``, ``[rows, layers, ...]`` tensors in the model dtype) to
+every program, which reads them as fixed buffers, as the int8 pool's
+scales are read: the engine copies a new registry version into their
+storage between calls and never rebinds them, so the captured graphs
+read the new rows.  The number of programs does not change.
 
 Every program writes the engine's state in place, so the state's
 tensors, the block tables and the buffers keep their storage for the
@@ -68,11 +75,13 @@ class _Program:
     eagerly or captured once and replayed."""
 
     def __init__(self, model, decode, state: Dict[str, torch.Tensor],
-                 tables: torch.Tensor, graphs: bool):
+                 tables: torch.Tensor, graphs: bool,
+                 adapters: Optional[generate.Adapters] = None):
         self.model = model
         self.decode = decode
         self.state = state
         self.tables = tables
+        self.adapters = adapters
         self.device = state["done"].device
         if graphs and self.device.type != "cuda":
             raise ValueError(
@@ -125,36 +134,40 @@ class _Program:
 
 
 class ChunkedPrefill(_Program):
-    """``prefill_chunk_into_slot`` over one ``[w + 5]`` int64 input
+    """``prefill_chunk_into_slot`` over one ``[w + 6]`` int64 input
     buffer: the chunk's tokens, then (start, prompt_len, new_tokens,
-    slot, seed)."""
+    slot, seed, adapter id)."""
 
     def __init__(self, model, decode, state, tables, chunk_w: int,
-                 graphs: bool):
-        super().__init__(model, decode, state, tables, graphs)
+                 graphs: bool, adapters=None):
+        super().__init__(model, decode, state, tables, graphs, adapters)
         self.chunk_w = chunk_w
-        self.inputs = torch.zeros((chunk_w + 5,), dtype=torch.int64,
+        self.inputs = torch.zeros((chunk_w + 6,), dtype=torch.int64,
                                   device=self.device)
         self.tokens = self.inputs[:chunk_w].view(1, chunk_w)
         self.scalars = self.inputs[chunk_w:]
 
     def _body(self) -> torch.Tensor:
-        start, prompt_len, new_tokens, slot, seed = self.scalars.unbind()
+        start, prompt_len, new_tokens, slot, seed, adapter = \
+            self.scalars.unbind()
         row = self.tables.index_select(0, self.scalars[3:4])
         _, tok = generate.prefill_chunk_into_slot(
             self.model, self.state, self.decode, self.tokens, start,
-            prompt_len, new_tokens, slot, seed, row, in_place=True)
+            prompt_len, new_tokens, slot, seed, row, adapter,
+            in_place=True, adapters=self.adapters)
         return tok
 
     def run(self, segment: np.ndarray, start: int, prompt_len: int,
-            new_tokens: int, slot: int, seed: int) -> torch.Tensor:
+            new_tokens: int, slot: int, seed: int,
+            adapter: int = 0) -> torch.Tensor:
         """Prefill ``segment`` (the prompt's tokens [start, start + w),
-        at most w of them; right-padded with 0) into ``slot``; returns
-        the first sampled token [1], an output buffer the next call
-        overwrites."""
-        host = np.zeros((self.chunk_w + 5,), np.int64)
+        at most w of them; right-padded with 0) into ``slot`` under
+        adapter row ``adapter`` (0: base); returns the first sampled
+        token [1], an output buffer the next call overwrites."""
+        host = np.zeros((self.chunk_w + 6,), np.int64)
         host[:len(segment)] = segment
-        host[self.chunk_w:] = (start, prompt_len, new_tokens, slot, seed)
+        host[self.chunk_w:] = (start, prompt_len, new_tokens, slot, seed,
+                               adapter)
         upload(self.inputs, host)
         return self._launch()
 
@@ -163,14 +176,14 @@ class Step(_Program):
     """``decode_step`` with the engine's static ``steps`` unrolled."""
 
     def __init__(self, model, decode, state, tables, steps: int,
-                 graphs: bool):
-        super().__init__(model, decode, state, tables, graphs)
+                 graphs: bool, adapters=None):
+        super().__init__(model, decode, state, tables, graphs, adapters)
         self.steps = steps
 
     def _body(self) -> torch.Tensor:
         _, sampled = generate.decode_step(
             self.model, self.state, self.decode, self.steps, self.tables,
-            in_place=True)
+            in_place=True, adapters=self.adapters)
         return sampled
 
     def run(self) -> torch.Tensor:
@@ -183,8 +196,9 @@ class Rounds(_Program):
     """``decode_rounds`` of width up to ``k``: the program is one guarded
     step (``decode_round_step``), issued by the host."""
 
-    def __init__(self, model, decode, state, tables, k: int, graphs: bool):
-        super().__init__(model, decode, state, tables, graphs)
+    def __init__(self, model, decode, state, tables, k: int, graphs: bool,
+                 adapters=None):
+        super().__init__(model, decode, state, tables, graphs, adapters)
         self.k = k
         slots = state["done"].shape[0]
         self.park = tables.shape[1] * generate._pool_block_tokens(
@@ -200,7 +214,7 @@ class Rounds(_Program):
     def _body(self) -> torch.Tensor:
         return generate.decode_round_step(
             self.model, self.decode, self.tables, self.park, self.state,
-            self.toks, self.step, self.steps_run)
+            self.toks, self.step, self.steps_run, self.adapters)
 
     def run(self, max_steps: int):
         """One round of up to ``min(max_steps, k)`` steps; returns the
@@ -220,8 +234,9 @@ class Verify(_Program):
     ``[S, k + 1]`` int32 input buffer: each row's k draft tokens, then
     its draft length."""
 
-    def __init__(self, model, decode, state, tables, k: int, graphs: bool):
-        super().__init__(model, decode, state, tables, graphs)
+    def __init__(self, model, decode, state, tables, k: int, graphs: bool,
+                 adapters=None):
+        super().__init__(model, decode, state, tables, graphs, adapters)
         self.k = k
         slots = state["done"].shape[0]
         self.inputs = torch.zeros((slots, k + 1), dtype=torch.int32,
@@ -231,7 +246,7 @@ class Verify(_Program):
         _, tokens, emit = generate.verify_step(
             self.model, self.state, self.decode, self.k,
             self.inputs[:, :self.k], self.inputs[:, self.k], self.tables,
-            in_place=True)
+            in_place=True, adapters=self.adapters)
         return tokens, emit
 
     def run(self, draft: np.ndarray, draft_len: np.ndarray):

@@ -1,9 +1,10 @@
 """The port's continuous-batching DecodeEngine against the JAX package's.
 
 The twins of tests/test_lm_serving.py's TestDecodeEngine and
-tests/test_fused_decode.py, minus adapters and mesh (speculation is
-tests/test_torch_speculative.py's, int8 tests/test_torch_int8_engine.py's
-and the host spill tier tests/test_torch_kv_spill.py's): the same numpy
+tests/test_fused_decode.py, minus mesh (speculation is
+tests/test_torch_speculative.py's, int8 tests/test_torch_int8_engine.py's,
+the host spill tier tests/test_torch_kv_spill.py's and adapters
+tests/test_torch_adapters.py's): the same numpy
 weights serve
 through both engines at float32 on the CPU, and the port's greedy
 tokens must equal the JAX engine's (which takes the requests one at a
@@ -33,6 +34,7 @@ from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.models import generate as pgen
 from kubeflow_tpu_torch.models.convert import load_params, params_from_jax
 from kubeflow_tpu_torch.models.transformer import Transformer, TransformerConfig
+from kubeflow_tpu_torch.serving.adapters import AdapterNotFound
 from kubeflow_tpu_torch.serving.engine import DecodeEngine
 from kubeflow_tpu_torch.serving.errors import (
     BatcherClosed,
@@ -495,22 +497,24 @@ def test_sampled_stream_repeats_alone_or_co_batched(spec):
     assert alone != run([prompt], [8], 8)[0]
 
 
-# The ids the cases had beside the speculation and host-spill cases, which
-# left with the refusals they checked.
+# The id the case had beside the speculation, host-spill and adapters
+# cases, which left with the refusals they checked.
 @pytest.mark.parametrize("option,item", [
-    ({"adapters": object()}, 5),
     ({"mesh": object()}, 6),
-], ids=["option2-5", "option3-6"])
+], ids=["option3-6"])
 def test_held_back_options_raise_not_ported(spec, option, item):
     with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
         _port_engine(spec, **option)
 
 
 def test_held_back_requests_raise_not_ported(spec):
+    """Adapters are ported: a request naming one on an engine built
+    without an adapter registry is refused with AdapterNotFound (a 404),
+    never decoded with base weights, and the loop serves on."""
     engine = _port_engine(spec, slots=1, prefill_len=16)
     tokens = np.arange(1, 5, dtype=np.int32)
     try:
-        with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 5"):
+        with pytest.raises(AdapterNotFound, match="serves no adapters"):
             _submit(engine, {"tokens": tokens, "adapter": {"x": 1}})
         # The loop thread lives on and serves.
         t0 = time.monotonic()

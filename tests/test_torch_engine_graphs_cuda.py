@@ -192,8 +192,9 @@ def test_prefill_replays_other_scalars(cuda_device, model, sampling):
     if sampling == "sampled":
         decode = dataclasses.replace(decode, temperature=1.0, top_k=40)
     twin = Twin(model, _fresh_pairs(model), _chunk(model, decode))
-    # Captured with (start 0, prompt_len 5, new_tokens 3, slot 0, seed 4).
-    twin.progs[0].inputs[W:] = torch.tensor([0, 5, 3, 0, 4])
+    # Captured with (start 0, prompt_len 5, new_tokens 3, slot 0, seed 4,
+    # adapter row 0).
+    twin.progs[0].inputs[W:] = torch.tensor([0, 5, 3, 0, 4, 0])
     twin.capture()
     state = twin.pairs[0][0]
     # Replayed with others: a non-final, then a final chunk of slot 1.

@@ -6,8 +6,8 @@ the tokens JAX generate() gives each prompt alone; prompts wider than the
 engine's prefill width take the direct path; ``:stats`` returns the
 engine's ``stats()``; ``--lm_static_batcher`` restores the static
 bucketed batcher; the factory declines the engine when the export leaves
-no prompt room; and the engine options of later slices answer
-``NotPortedError`` (501 over REST)."""
+no prompt room; ``--mesh`` answers ``NotPortedError``; and a request
+naming an adapter on a server without ``--adapters_dir`` answers 404."""
 
 import http.client
 import json
@@ -125,11 +125,14 @@ def test_predict_through_the_engine_by_default(exported):
             "chunked_prefill": 1, "step": 0, "verify": 0,
             "decode_rounds": 1}
         assert _request(port, "GET", "/model/nope:stats")[0] == 404
-        # A request for a feature of a later slice: 501, and the engine
-        # serves on.
+        # A request naming an adapter on a server without an adapter
+        # directory: 404 (never base weights), and the engine serves on.
         status, body = _request(port, "POST", "/model/lm:predict", {
             "instances": [{"tokens": prompts[0], "adapter": "tenant"}]})
-        assert status == 501 and "ROADMAP queue 1 item 5" in body["error"]
+        assert status == 404 and "serves no adapters" in body["error"]
+        status, body = _request(port, "POST", "/model/lm@tenant:predict", {
+            "instances": [{"tokens": prompts[0]}]})
+        assert status == 404 and "serves no adapters" in body["error"]
         assert _predict_all(port, prompts[:1])[0][0] == 200
     finally:
         serving_main.shutdown(server, httpd)
@@ -188,12 +191,11 @@ def test_factory_declines_engine_without_prompt_room():
     assert factory(model) is None  # direct path, no crash
 
 
-# The ids the cases had beside the --speculative_tokens and
-# --host_spill_blocks cases, which left with the refusals they checked.
+# The id the case had beside the --speculative_tokens, --host_spill_blocks
+# and --adapters_dir cases, which left with the refusals they checked.
 @pytest.mark.parametrize("flags,item", [
-    (["--adapters_dir", "/tmp/adapters"], 5),
     (["--mesh", "tensor=2"], 6),
-], ids=["flags2-5", "flags3-6"])
+], ids=["flags3-6"])
 def test_later_slice_flags_raise_not_ported(exported, flags, item):
     with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
         _start(exported[0], *flags)

@@ -68,11 +68,13 @@ def test_every_port_module_imports():
             "kubeflow_tpu_torch.runtime.optim",
             "kubeflow_tpu_torch.runtime.tracing",
             "kubeflow_tpu_torch.serving.engine",
+            "kubeflow_tpu_torch.serving.adapters",
             "kubeflow_tpu_torch.serving.prefix_cache"} <= set(names)
 
 
 @pytest.mark.parametrize("module", ["serving/engine.py",
                                     "serving/prefix_cache.py",
+                                    "serving/adapters.py",
                                     "runtime/tracing.py"])
 def test_engine_slice_modules_import_nothing_of_jax(module):
     """The engine and the stdlib/numpy modules it needs are the port's

@@ -23,7 +23,6 @@ from kubeflow_tpu.models.transformer import Transformer as JaxTransformer
 from kubeflow_tpu.models.transformer import (
     TransformerConfig as JaxTransformerConfig,
 )
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.models import generate as pgen
 from kubeflow_tpu_torch.models.convert import load_params, params_from_jax
 from kubeflow_tpu_torch.models.transformer import Transformer, TransformerConfig
@@ -324,14 +323,38 @@ def test_sampled_slots_repeat_alone_or_co_batched(models):
 
 
 def test_adapters_are_not_ported(models):
+    """Adapters are ported: ``_layer_step`` with a row's factors adds its
+    low-rank deltas, and with the all-zero base row it gives exactly what
+    it gives without adapters (the base programs keep their math)."""
+    from kubeflow_tpu_torch.serving.adapters import (
+        init_adapter_stack,
+        random_adapter_factors,
+    )
+
     _, _, model = models
-    x = torch.zeros((1, 1, SMALL["d_model"]))
-    cache = pgen.init_cache(model.cfg, 1, 4, device="cpu")
-    with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 5"):
-        pgen._layer_step(model.cfg, model.layers[0], x,
-                         (cache[0][0], cache[1][0]), 0,
-                         torch.zeros((1, 1), dtype=torch.long),
-                         adapters={"attn": {}})
+    cfg = model.cfg
+    x = torch.from_numpy(np.random.RandomState(3).standard_normal(
+        (2, 3, SMALL["d_model"])).astype(np.float32))
+    positions = torch.arange(3)[None].expand(2, 3)
+    stack = init_adapter_stack(cfg, 2, 4)
+    factors = random_adapter_factors(cfg, 4, 5, scale=0.5)
+    for grp, leaves in factors.items():
+        for k, arr in leaves.items():
+            stack[grp][k][1] = arr
+    layer0 = {grp: {k: torch.from_numpy(arr[[0, 1], 0])
+                    for k, arr in leaves.items()}
+              for grp, leaves in stack.items()}
+
+    def run(adapters):
+        cache = pgen.init_cache(cfg, 2, 4, device="cpu")
+        with torch.no_grad():
+            return pgen._layer_step(cfg, model.layers[0], x,
+                                    (cache[0][0], cache[1][0]), 0,
+                                    positions, adapters=adapters)
+
+    base, adapted = run(None), run(layer0)
+    assert torch.equal(adapted[0], base[0])
+    assert not torch.allclose(adapted[1], base[1], atol=1e-3)
 
 
 def test_per_row_contiguous_columns(models):
