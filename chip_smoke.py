@@ -142,6 +142,29 @@ Phases, each fatal on failure (exit code 1, no result line):
      and tokens/s, the stack's bytes on the card, one hot load's ms,
      and a captured round of 8 steps at 8 live slots with mixed adapter
      rows against the same round with no adapter stack;
+ 6h. serving surface: the same weights exported under the JAX package's
+     ``lm`` loader name (logits).  Direct: the loader's predict on [2,
+     1024] tokens, launch counters zeroed just before and read just
+     after: flash_fwd 12 launches a call, every other kernel 0; logits
+     float32 of shape [2, 1024, 32000], finite, and their mean error
+     against a float32 run of the same weights (plain attention) within
+     LOGITS_ERR_RATIO of the plain bf16 path's.  Over REST in-process
+     with --trace_sample_rate 1: a 16-token :predict whose JSON logits
+     equal the direct predict's; a client traceparent's trace id back in
+     /debug/traces under server.predict; /metrics, parsed with the
+     port's parse_metrics, counting the requests and reading 0 in
+     flight during the scrape; two POSTs with one x-kft-idempotency-key
+     running the model once (12 flash launches); a token id outside
+     the vocabulary answering 400 with no launch, the next request
+     answered as before; a corrupt version 2
+     failing its load while version 1 keeps serving, the breaker gauge
+     at 1 and a second load skipped; loader.load:raise*1 (the port's
+     KFT_FAULTS grammar) failing exactly one reload of version 3, which
+     loads once the backoff has passed.  Information only: the forward
+     (CUDA events) and the whole predict (host clock), the 262,144,000
+     bytes of logits' copy to the host, the JSON answer's bytes and
+     latency, and phase 6b's burst with tracing at sample rate 1
+     against tracing off, in turns;
   7. train: the port's LM training entry point (tools/train_lm.run) on
      bench.py's LM configuration (batch 8 x 2048, flash, remat, adamw
      1e-3) for a few steps, launch counters zeroed just before and read
@@ -259,6 +282,13 @@ ADAPTERS = ("alpha", "beta", "gamma")
 ADAPTER_RANK = 4
 ADAPTER_SCALE = 0.05
 ADAPTER_LENS = (300, 170)
+# Phase 6h: the phase-4 weights exported under the JAX lm loader's name;
+# the direct call's tokens ([2, 1024]: bh 16 at 8 heads, the kernel
+# table's serve shape) and its counted calls; the REST request's tokens.
+LM_LOGITS_LOADER = "kubeflow_tpu.serving.loaders:lm"
+LM_BATCH, LM_LEN = 2, 1024
+LM_CALLS = 3
+LM_REST_LEN = 16
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 rate).
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -2949,6 +2979,354 @@ def adapter_numbers(torch, base: Path, adir: Path, bf16_round_ms):
     return info
 
 
+# -- phase 6h: the rest of the serving surface ------------------------------
+
+def export_lm_logits(base: Path, lm_base: Path, version: int) -> None:
+    """The phase-4 export's weights as a version of the JAX package's
+    ``lm`` loader: its config is the TransformerConfig overrides
+    themselves.  The params file is linked (or copied), and model.json is
+    written last, so the version appears complete."""
+    import os
+
+    from kubeflow_tpu_torch.serving.export import MODEL_FILE, PARAMS_FILE
+
+    src, dst = base / "1", lm_base / str(version)
+    dst.mkdir(parents=True)
+    try:
+        os.link(src / PARAMS_FILE, dst / PARAMS_FILE)
+    except OSError:
+        shutil.copyfile(src / PARAMS_FILE, dst / PARAMS_FILE)
+    meta = json.loads((src / MODEL_FILE).read_text())
+    meta.update(loader=LM_LOGITS_LOADER, config=MODEL,
+                signature={"inputs": ["tokens"], "outputs": ["logits"]})
+    (dst / MODEL_FILE).write_text(json.dumps(meta))
+
+
+def post_raw(port: int, path: str, body: dict, headers=None):
+    """(status, raw body bytes, seconds on the client clock)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=json.dumps(body),
+                     headers=dict({"Content-Type": "application/json"},
+                                  **(headers or {})))
+        resp = conn.getresponse()
+        raw = resp.read()
+        return resp.status, raw, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def get_text(port: int, path: str) -> str:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        text = resp.read().decode()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        fail(f"GET {path} answered {resp.status}: {text[:200]}")
+    return text
+
+
+def lm_logits_direct(torch, flash, lm_base: Path):
+    """Phase 6h, direct: the ``lm`` loader's predict on [2, 1024] tokens
+    (bh 16 at 8 heads: the kernel table's serve shape), counts zeroed
+    just before the counted calls and read just after: flash_fwd 12
+    launches a call, no other kernel.  The logits' mean error against a
+    float32 run of the same weights (plain attention) within
+    LOGITS_ERR_RATIO of the plain bf16 path's.  Information only: the
+    forward alone (CUDA events, synchronized before the copy to the host)
+    and the whole predict (host clock)."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.serving.export import load_version
+
+    predict, meta = load_version(lm_base, 1, device="cuda")
+    if meta["loader"] != LM_LOGITS_LOADER:
+        fail(f"the lm export loaded as {meta['loader']!r}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    tokens = torch.randint(1, MODEL["vocab_size"], (LM_BATCH, LM_LEN),
+                           device="cuda", generator=gen)
+    host_tokens = tokens.cpu().numpy().astype(np.int32)
+    predict({"tokens": host_tokens})  # warm-up, outside the count
+    torch.cuda.synchronize()
+    for key in flash.launch_counts:
+        flash.launch_counts[key] = 0
+    host_ms = []
+    out = None
+    for _ in range(LM_CALLS):
+        t0 = time.perf_counter()
+        out = predict({"tokens": host_tokens})["logits"]
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(flash.launch_counts)
+    want = {k: (MODEL["n_layers"] * LM_CALLS if k == "flash_fwd" else 0)
+            for k in counts}
+    if counts != want:
+        fail(f"the lm loader's {LM_CALLS} calls launched {counts}, want "
+             f"{want}")
+    if out.shape != (LM_BATCH, LM_LEN, MODEL["vocab_size"]) \
+            or out.dtype != np.float32 or not np.isfinite(out).all():
+        fail(f"lm logits {out.shape} {out.dtype} (finite "
+             f"{bool(np.isfinite(out).all())})")
+    fwd_ms = []
+    for _ in range(LM_CALLS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits = predict.forward(tokens)
+        end.record()
+        torch.cuda.synchronize()
+        fwd_ms.append(start.elapsed_time(end))
+    t0 = time.perf_counter()
+    logits.cpu()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+
+    def one_forward():
+        predict.forward(tokens)
+        torch.cuda.synchronize()
+
+    profiled = profile_busy(torch, one_forward,
+                            f"lm forward [{LM_BATCH}, {LM_LEN}]")
+    with plain_kernels(flash):
+        plain = predict.forward(tokens)
+        with torch.inference_mode():
+            reference = load_model(torch, lm_base, torch.float32)(tokens)
+    err_k = (logits - reference).abs().mean().item()
+    err_p = (plain - reference).abs().mean().item()
+    agree = (logits.argmax(-1) == reference.argmax(-1)).float().mean().item()
+    same_as_host = bool(torch.equal(logits.cpu(), torch.from_numpy(out)))
+    del plain, reference
+    torch.cuda.empty_cache()
+    if err_k > LOGITS_ERR_RATIO * err_p:
+        fail(f"lm logits through the kernel mean |err| {err_k:.4e} against "
+             f"float32, over {LOGITS_ERR_RATIO} x the plain path's "
+             f"{err_p:.4e}")
+    flops = lm_forward_flops(LM_BATCH, LM_LEN)
+    info = {
+        "launches": counts, "calls": LM_CALLS,
+        "forward_ms": sorted(fwd_ms), "predict_ms": sorted(host_ms),
+        "copy_ms": copy_ms, "logits_bytes": int(out.nbytes),
+        "forward_flops": flops,
+        "forward_tflops": flops / (min(fwd_ms) * 1e-3) / 1e12,
+        "mean_err_kernel": err_k, "mean_err_plain": err_p,
+        "argmax_agreement": agree, "device_logits_equal_host": same_as_host,
+        "profile": profiled,
+    }
+    log(f"lm loader, [{LM_BATCH}, {LM_LEN}] tokens: flash launches {counts} "
+        f"over {LM_CALLS} calls; logits mean |err| against float32 "
+        f"{err_k:.4e} (plain bf16 path {err_p:.4e}, bound {LOGITS_ERR_RATIO}"
+        f"x), argmax agreement {agree:.4f}; forward {min(fwd_ms):.3f}-"
+        f"{max(fwd_ms):.3f} ms (CUDA events, {flops / 1e9:.1f} GFLOP, "
+        f"{info['forward_tflops']:.1f} TFLOP/s), copy of the "
+        f"{out.nbytes}-byte logits to the host {copy_ms:.2f} ms, whole "
+        f"predict {min(host_ms):.2f}-{max(host_ms):.2f} ms (host clock; "
+        f"information only; {card_line()})")
+    return predict, host_tokens, counts, info
+
+
+def lm_forward_flops(batch: int, seq: int) -> float:
+    """Matmul FLOPs of one causal forward: 2 x the non-embedding weights
+    and the unembed per token, plus the causal half of q.k and p.v."""
+    d, f, L = MODEL["d_model"], MODEL["d_ff"], MODEL["n_layers"]
+    hd = MODEL["n_heads"] * MODEL["head_dim"]
+    kv = MODEL["n_kv_heads"] * MODEL["head_dim"]
+    per_layer = d * hd * 2 + d * kv * 2 + 3 * d * f
+    weights = 2 * batch * seq * (L * per_layer + MODEL["vocab_size"] * d)
+    attn = L * batch * 2 * 2 * seq * seq * hd / 2
+    return float(weights + attn)
+
+
+def serve_surface(torch, flash, base: Path, lm_base: Path, direct_predict,
+                  host_tokens):
+    """Phase 6h over REST, in-process, with --trace_sample_rate 1: a
+    16-token :predict equal to the direct predict's logits; a client
+    traceparent's trace id back in /debug/traces under server.predict;
+    /metrics parsed with the port's parse_metrics; one idempotency key
+    twice runs the loader once; an out-of-range token id answers 400
+    and the server goes on serving; a corrupt version 2 trips the breaker
+    while version 1 serves; loader.load:raise*1 fails exactly one
+    reload."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.runtime import tracing
+    from kubeflow_tpu_torch.runtime.prom import parse_metrics, sample_value
+    from kubeflow_tpu_torch.serving import main as serving_main
+    from kubeflow_tpu_torch.testing import faults
+
+    tokens16 = host_tokens[:1, :LM_REST_LEN]
+    want = direct_predict({"tokens": tokens16})["logits"][0]
+    server, httpd = serving_main.start([
+        "--model_name", "lm", "--model_base_path", str(lm_base),
+        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--trace_sample_rate", "1", "--poll_interval_s", "3600"])
+    port = httpd.server_address[1]
+    body = {"instances": [{"tokens": tokens16[0].tolist()}]}
+    trace_id, parent = "5e" * 16, "c4" * 8
+    info = {}
+    try:
+        status, raw, warm_s = post_raw(port, "/model/lm:predict", body)
+        statuses = [status]
+        status, raw, rest_s = post_raw(
+            port, "/model/lm:predict", body,
+            {"traceparent": tracing.format_traceparent(trace_id, parent)})
+        statuses.append(status)
+        t0 = time.perf_counter()
+        reply = json.loads(raw)
+        parse_s = time.perf_counter() - t0
+        got = np.asarray(reply["predictions"][0]["logits"], np.float32)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"REST logits {got.shape} differ from the direct "
+                 f"predict's {want.shape}: max |diff| "
+                 f"{float(np.abs(got - want).max()):.4e}")
+        traces = get(port, "/debug/traces")["traces"]
+        mine = [t for t in traces if t["trace_id"] == trace_id]
+        spans = {s["name"]: s for t in mine for s in t["spans"]}
+        if "server.predict" not in spans \
+                or spans["server.predict"]["parent_id"] != parent:
+            fail(f"the client traceparent's trace {trace_id} is not in "
+                 f"/debug/traces under server.predict: {sorted(spans)}")
+        parsed = parse_metrics(get_text(port, "/metrics"))
+        ok = sample_value(parsed, "kft_serving_requests_total", model="lm",
+                          route="predict", outcome="ok")
+        inflight = sample_value(parsed, "kft_serving_inflight")
+        if not ok or ok < 2 or inflight != 0.0:
+            fail(f"/metrics: requests_total ok {ok}, in-flight {inflight} "
+                 "(a scrape must not count as in flight)")
+        before = flash.launch_counts["flash_fwd"]
+        keyed = [post_raw(port, "/model/lm:predict", body,
+                          {"x-kft-idempotency-key": "chip-smoke-1"})
+                 for _ in range(2)]
+        ran = flash.launch_counts["flash_fwd"] - before
+        if ran != MODEL["n_layers"] or keyed[0][1] != keyed[1][1] \
+                or {k[0] for k in keyed} != {200}:
+            fail(f"two POSTs with one idempotency key ran {ran} flash "
+                 f"launches (want {MODEL['n_layers']}: one execution)")
+        # An id outside the vocabulary answers 400 before the card sees
+        # it (a device-side assert would poison the CUDA context), and
+        # the next request is answered as before.
+        before = flash.launch_counts["flash_fwd"]
+        bad = {"instances": [{"tokens": [MODEL["vocab_size"]]
+                              + tokens16[0, 1:].tolist()}]}
+        bad_status, _, _ = post_raw(port, "/model/lm:predict", bad)
+        status, raw_after, _ = post_raw(port, "/model/lm:predict", body)
+        statuses.append(status)
+        ran = flash.launch_counts["flash_fwd"] - before
+        if bad_status != 400 or ran != MODEL["n_layers"] \
+                or raw_after != raw:
+            fail(f"an out-of-range token id: status {bad_status}, {ran} "
+                 f"flash launches for it and the next request (want "
+                 f"{MODEL['n_layers']}), next answer the same "
+                 f"{raw_after == raw}")
+        # A corrupt version 2 trips the breaker; version 1 keeps serving.
+        (lm_base / "2").mkdir()
+        (lm_base / "2" / "model.json").write_text("{corrupt")
+        try:
+            server.reload("lm")
+            fail("the corrupt version 2 loaded")
+        except faults.FaultInjected:
+            fail("a fault was injected before any was installed")
+        except Exception:  # noqa: BLE001 -- the corrupt model.json
+            pass
+        if server.reload("lm") is not False:
+            fail("the open breaker let a second load of version 2 run")
+        status, raw2, _ = post_raw(port, "/model/lm:predict", body)
+        statuses.append(status)
+        version = get(port, "/model/lm:metadata")["model_spec"]["version"]
+        parsed = parse_metrics(get_text(port, "/metrics"))
+        open_ = sample_value(parsed, "kft_serving_reload_breaker_open",
+                             model="lm")
+        failures = sample_value(parsed, "kft_serving_reload_failures_total",
+                                model="lm")
+        if version != "1" or raw2 != raw or open_ != 1.0 or failures != 1:
+            fail(f"after the corrupt version: serving v{version}, breaker "
+                 f"gauge {open_}, failures {failures}")
+        # loader.load:raise*1, in the KFT_FAULTS grammar, fails one reload.
+        with faults.injected("loader.load:raise*1") as inj:
+            export_lm_logits(base, lm_base, 3)
+            try:
+                server.reload("lm")
+                fail("loader.load:raise*1 did not fail the reload")
+            except faults.FaultInjected:
+                pass
+            skipped = server.reload("lm")
+            inj.advance_clock(3600.0)
+            t0 = time.perf_counter()
+            loaded = server.reload("lm")
+            reload_s = time.perf_counter() - t0
+            fired = inj.fired("loader.load")
+        status, raw3, _ = post_raw(port, "/model/lm:predict", body)
+        statuses.append(status)
+        parsed = parse_metrics(get_text(port, "/metrics"))
+        open_after = sample_value(parsed, "kft_serving_reload_breaker_open",
+                                  model="lm")
+        version = get(port, "/model/lm:metadata")["model_spec"]["version"]
+        if skipped is not False or loaded is not True or fired != 2 \
+                or version != "3" or open_after != 0.0 or raw3 != raw:
+            fail(f"loader.load:raise*1: skipped {skipped}, loaded "
+                 f"{loaded}, fired {fired}, serving v{version}, breaker "
+                 f"gauge {open_after}, same logits {raw3 == raw}")
+        if set(statuses) != {200}:
+            fail(f"REST statuses {statuses}")
+        info = {"json_bytes": len(raw), "rest_s": rest_s,
+                "warm_rest_s": warm_s, "client_parse_s": parse_s,
+                "spans": sorted(spans), "reload_v3_s": reload_s,
+                "metrics_samples": sum(len(v) for v in parsed.values())}
+    finally:
+        serving_main.shutdown(server, httpd)
+        tracing.disable()
+    log(f"lm over REST: a {LM_REST_LEN}-token :predict answered "
+        f"{len(raw)} bytes of JSON in {rest_s * 1e3:.1f} ms (client "
+        f"parse {parse_s * 1e3:.1f} ms), logits equal to the direct "
+        f"predict's; trace {trace_id[:8]}... back with spans "
+        f"{info['spans']}; one idempotency key twice, one execution; an "
+        f"out-of-range token id answered 400 and the server served on; a "
+        f"corrupt v2 tripped the breaker while v1 served; "
+        f"loader.load:raise*1 failed one reload, then v3 loaded in "
+        f"{reload_s:.2f} s (host clock; information only; {card_line()})")
+    return info
+
+
+def tracing_cost(torch, base: Path, prompts):
+    """Phase 6h, information only: phase 6b's burst through the captured
+    engine with tracing at sample rate 1 and with tracing off, in turns,
+    in one server after one untimed burst.  The prefix cache is off, so
+    every burst prefills all its prompts, as phase 6b's first does."""
+    from kubeflow_tpu_torch.runtime import tracing
+    from kubeflow_tpu_torch.serving import main as serving_main
+
+    server, httpd = serving_main.start([
+        "--model_name", "lm", "--model_base_path", str(base),
+        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--lm_buckets", BUCKETS, "--trace_sample_rate", "1",
+        "--no_prefix_cache"])
+    port = httpd.server_address[1]
+    times = {"on": [], "off": []}
+    retained = 0
+    try:
+        burst(port, prompts)
+        for mode in ("on", "off", "on", "off"):
+            if mode == "on":
+                store = tracing.enable(sample_rate=1.0, capacity=128)
+            else:
+                tracing.disable()
+            replies, _, t = burst(port, prompts)
+            check_replies(prompts, replies, [], None)
+            times[mode].append(t)
+            if mode == "on":
+                retained = max(retained, len(store))
+    finally:
+        serving_main.shutdown(server, httpd)
+        tracing.disable()
+    ratio = sum(times["on"]) / sum(times["off"])
+    log(f"engine burst with tracing at sample rate 1 / off, in turns: "
+        f"{times['on']} / {times['off']} s ({ratio:.3f}x; {retained} "
+        f"traces retained; host clock; information only; {card_line()})")
+    return {"on_s": times["on"], "off_s": times["off"], "ratio": ratio,
+            "traces_retained": retained}
+
+
 def check_replies(prompts, replies, direct, direct_reply):
     vocab = MODEL["vocab_size"]
     got = [r["predictions"][0]["tokens"] for r in replies]
@@ -3988,6 +4366,15 @@ def main() -> int:
         adapter_info["flash_launches"] = launches
         log(f"flash launch counters over phase 6g: {launches}")
         phase_done("6g adapters")
+        lm_base = workdir / "lm_logits"
+        export_lm_logits(base, lm_base, 1)
+        lm_predict, lm_tokens, lm_counts, surface_info = lm_logits_direct(
+            torch, flash, lm_base)
+        surface_info["rest"] = serve_surface(
+            torch, flash, base, lm_base, lm_predict, lm_tokens)
+        del lm_predict
+        surface_info["tracing"] = tracing_cost(torch, base, prompts)
+        phase_done("6h serving surface")
         train_counts, train_info = train(torch, flash, workdir)
         two_pass_counts, two_pass_info = train_two_pass(torch, flash)
         phase_done("7 train")
@@ -4020,7 +4407,8 @@ def main() -> int:
         row["launches"] = train_counts[name] if on_train else counts[name]
         row["path"] = "train" if on_train else "serve"
         row["launches_by_path"] = {"serve": counts.get(name, 0),
-                                   "train": train_counts[name]}
+                                   "train": train_counts[name],
+                                   "lm": lm_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
     for name, row in two_pass_rows.items():
@@ -4028,12 +4416,14 @@ def main() -> int:
         row["launches"] = two_pass_counts[name]
         row["path"] = "train"
         row["launches_by_path"] = {"serve": counts.get(name, 0),
-                                   "train": two_pass_counts[name]}
+                                   "train": two_pass_counts[name],
+                                   "lm": lm_counts[name]}
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
                     "int8": int8_info, "spill": spill_info,
                     "adapters": adapter_info,
+                    "serving_surface": surface_info,
                     "train": dict(train_info, gradients=grads,
                                   breakdown=learned),
                     "train_two_pass": dict(two_pass_info,

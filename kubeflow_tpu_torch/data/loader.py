@@ -125,7 +125,10 @@ def _native_lib():
                 cmd = ["g++", *_NATIVE_FLAGS, str(_NATIVE_SRC), "-o",
                        str(tmp)]
                 # Serializing the one-time native build is the point of
-                # _build_lock: racing compilers would clobber the .so.
+                # _build_lock: racing compilers would clobber the .so;
+                # every later call hits the cached fast path without
+                # blocking.
+                # kft: allow=blocking-under-lock
                 subprocess.run(cmd, check=True, capture_output=True)
                 os.replace(tmp, so_path)
                 log.info("built native data core -> %s", so_path)

@@ -318,10 +318,15 @@ class CheckpointManager:
         tmp = self.directory / f"{step}{_TMP_MARK}{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
+        # The commit is the DIRECTORY rename below, not a rename of this
+        # file: the file is fsynced inside the temporary directory, whose
+        # entry is fsynced before the rename makes ``<step>`` appear.
+        # kft: allow=atomic-write
         with open(tmp / STATE_FILE, "wb") as f:
             torch.save(tree, f)
             f.flush()
             os.fsync(f.fileno())
+        _fsync_dir(tmp)
         os.rename(tmp, step_dir)
         _fsync_dir(self.directory)
         return step_dir

@@ -1,9 +1,11 @@
 """Distributed request tracing: spans, W3C propagation, tail sampling.
 
 The port's copy of kubeflow_tpu/runtime/tracing.py (stdlib only), on
-the port's metrics registry and fault clock.  Of the serving surface,
-the decode engine stamps spans on it so far; the REST trace routes are
-not ported yet (ROADMAP queue 1, item 9).
+the port's metrics registry and fault clock.  The port's REST front end
+(serving/http.py) opens the server spans and answers ``/debug/traces``,
+the model server stamps admission spans, the batchers queue-wait and
+dispatch spans, and the decode engine its own; serving/main.py takes
+the ``--trace_*`` flags through ``add_cli_args``/``enable_from_args``.
 
 Aggregates (`/metrics`, ``stats()``) say THAT p99 moved; this module
 says WHERE one request spent its time.  A request entering the fleet

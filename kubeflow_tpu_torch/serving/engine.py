@@ -1951,6 +1951,11 @@ class DecodeEngine:
                     # step, so freeing it here (possibly sync_lag calls
                     # late on the EOS path) never races the cache.
                     if self._slot_req[entry["slot"]] is entry:
+                        # Slot table is loop-thread-owned: only _run/
+                        # _drain_one rebind entries; stats() reads a
+                        # GIL-atomic snapshot under the lock purely
+                        # for counter consistency.
+                        # kft: allow=lock-guard
                         self._slot_req[entry["slot"]] = None
                     self._finish(entry)
                     finished_entries.append(entry)
@@ -2083,6 +2088,8 @@ class DecodeEngine:
         for i, r in snapshot:
             r["scheduled"] = min(r["new"], r["scheduled"] + width)
             if not self._eos and r["scheduled"] >= r["new"]:
+                # Loop-thread-owned (see _drain_one).
+                # kft: allow=lock-guard
                 self._slot_req[i] = None
         # Grow the NEXT round's covers and start their table upload now.
         for i, r in snapshot:
@@ -2155,6 +2162,8 @@ class DecodeEngine:
                 continue
             r["scheduled"] = min(r["new"], r["scheduled"] + k)
             if not self._eos and r["scheduled"] >= r["new"]:
+                # Loop-thread-owned (see _drain_one).
+                # kft: allow=lock-guard
                 self._slot_req[i] = None
         while len(self._pending) > self.sync_lag:
             self._drain_one()
@@ -2600,6 +2609,9 @@ class DecodeEngine:
                 self._unpin_adapter(entry)
                 entry["err"] = err
                 entry["event"].set()
+            # Loop thread is dead or dying here; no concurrent writer
+            # exists (see _drain_one).
+            # kft: allow=lock-guard
             self._slot_req[i] = None
         for _, snapshot, _ in self._pending:
             for _, entry in snapshot:

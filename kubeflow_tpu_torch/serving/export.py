@@ -43,6 +43,8 @@ _VERSION_RE = re.compile(r"^\d+$")
 _ALLOWED_LOADER_MODULES = {"kubeflow_tpu_torch.serving.loaders"}
 # Loader names written by the JAX package -> the port's counterpart.
 _JAX_LOADERS = {
+    "kubeflow_tpu.serving.loaders:lm":
+        "kubeflow_tpu_torch.serving.loaders:lm",
     "kubeflow_tpu.serving.loaders:lm_generate":
         "kubeflow_tpu_torch.serving.loaders:lm_generate",
     "kubeflow_tpu.serving.loaders:classifier":

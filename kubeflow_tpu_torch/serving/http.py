@@ -10,6 +10,16 @@ live stats (the decode engine's ``stats()``, a batcher's dispatch
 profile, or null on the direct path); ``/healthz`` is liveness and
 ``/readyz`` readiness (503 while draining), with the server's ``role``
 and, where an engine serves adapters, its resident ``adapters``.
+``GET /metrics`` refreshes the server's load gauges and answers the
+metrics registry in the Prometheus text format; ``GET /debug/traces``
+answers the tail-sampled trace store.  Neither they nor the probes count
+as in flight.  Every model route opens a ``server.<route>`` span that
+continues a ``traceparent`` header, and counts in
+``kft_serving_requests_total`` (model, route, outcome) and
+``kft_serving_request_seconds`` (route); only a served model's name
+becomes a label value (others read ``_unknown_``).  An
+``x-kft-idempotency-key`` header dedups retried POSTs (see
+``ModelServer.predict``).
 ``NAME`` may be ``model@adapter`` on :predict, :generate and :prefill
 (an unknown adapter answers 404).
 On a decode-engine model, ``POST /model/NAME:generate`` streams chunked
@@ -29,8 +39,6 @@ for bf16 pages (written from an int16 view, read back with
 ``torch.frombuffer``), and ``{"values", "scale"}`` of int8 and float32
 stacks for an int8 pool, so a tier of either package can hand pages to
 one of the other.
-
-Not ported yet: /metrics and /debug/traces (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -48,9 +56,18 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.runtime import tracing
+from kubeflow_tpu_torch.runtime.prom import REGISTRY
 from kubeflow_tpu_torch.serving.adapters import split_model_adapter
 from kubeflow_tpu_torch.serving.errors import DeadlineExceeded, Overloaded
-from kubeflow_tpu_torch.serving.model_server import ModelServer
+from kubeflow_tpu_torch.serving.model_server import (
+    LATENCY_HELP,
+    LATENCY_SECONDS,
+    REQUESTS_HELP,
+    REQUESTS_TOTAL,
+    ModelServer,
+)
+from kubeflow_tpu_torch.testing import faults
 
 log = logging.getLogger(__name__)
 
@@ -73,11 +90,16 @@ _ROUTES = [
     ("GET", re.compile(r"^/$"), "index"),
     ("GET", re.compile(r"^/healthz$"), "health"),
     ("GET", re.compile(r"^/readyz$"), "ready"),
+    ("GET", re.compile(r"^/metrics$"), "metrics"),
+    ("GET", re.compile(r"^/debug/traces$"), "traces"),
 ]
+
+IDEMPOTENCY_HEADER = "x-kft-idempotency-key"
 
 
 def parse_deadline_ms(body: Dict[str, Any]) -> Optional[float]:
-    """``deadline_ms`` body key -> absolute time.monotonic() instant."""
+    """``deadline_ms`` body key -> absolute instant on the policy clock
+    (``faults.monotonic()``, which the deadline checks downstream read)."""
     deadline_ms = body.get("deadline_ms")
     if deadline_ms is None:
         return None
@@ -89,7 +111,7 @@ def parse_deadline_ms(body: Dict[str, Any]) -> Optional[float]:
     if not math.isfinite(deadline_ms) or deadline_ms <= 0:
         raise ValueError(f"deadline_ms must be a positive finite number, "
                          f"got {deadline_ms}")
-    return time.monotonic() + deadline_ms / 1e3
+    return faults.monotonic() + deadline_ms / 1e3
 
 
 # Wire dtype names of the port's pool tensors: the model-dtype pages, and
@@ -222,7 +244,8 @@ class ServingAPI:
         }
 
     def predict(self, name: str, body: Dict[str, Any],
-                version: Optional[int] = None) -> Dict[str, Any]:
+                version: Optional[int] = None,
+                idem_key: Optional[str] = None) -> Dict[str, Any]:
         instances = body.get("instances")
         if instances is None:
             raise ValueError(
@@ -237,15 +260,17 @@ class ServingAPI:
             model.meta.get("signature", {}).get("inputs", []) or [])
         inputs = instances_to_inputs(instances, sig_inputs or None)
         outputs = self.server.predict(name, inputs, version,
-                                      deadline=deadline)
+                                      deadline=deadline,
+                                      idem_key=idem_key)
         return {"predictions": outputs_to_predictions(outputs)}
 
     def classify(self, name: str, body: Dict[str, Any],
-                 version: Optional[int] = None) -> Dict[str, Any]:
+                 version: Optional[int] = None,
+                 idem_key: Optional[str] = None) -> Dict[str, Any]:
         """Classification response: ``[[class_id, score], ...]`` per
         instance (TF-Serving's ClassificationResult): the top k where the
         model gives it, else every class in order."""
-        result = self.predict(name, body, version)
+        result = self.predict(name, body, version, idem_key=idem_key)
         classifications = []
         for row in result["predictions"]:
             if "top_k_classes" in row:
@@ -278,11 +303,14 @@ class ServingAPI:
         return self.server.generate_stream(name, inputs, deadline=deadline)
 
     def prefill(self, name: str, body: Dict[str, Any],
-                version: Optional[int] = None) -> Dict[str, Any]:
+                version: Optional[int] = None,
+                idem_key: Optional[str] = None) -> Dict[str, Any]:
         """Disaggregated serving, prefill tier: chunk-prefill the prompt
         on the model's engine and answer its finished pages as a wire
         ``kv_handoff``, null when the prompt is too short to cover one
-        full page (the caller then takes the untiered path)."""
+        full page (the caller then takes the untiered path).
+        ``idem_key`` is taken for the generic dispatch's sake; prefill
+        is pure, so a replay is harmless without dedup."""
         tokens = body.get("tokens")
         if tokens is None:
             raise ValueError("Request json object must use the key: tokens")
@@ -301,7 +329,8 @@ class ServingAPI:
         }
 
     def fetch_kv(self, name: str, body: Dict[str, Any],
-                 version: Optional[int] = None) -> Dict[str, Any]:
+                 version: Optional[int] = None,
+                 idem_key: Optional[str] = None) -> Dict[str, Any]:
         """The host spill tier's page fetch: the longest match of the
         prompt in the engine's host tier as a wire ``kv_handoff``, null
         on a miss.  A pure host-memory read, so a replay is harmless."""
@@ -323,7 +352,10 @@ class _Handler(BaseHTTPRequestHandler):
 
     # Keep-alive is safe: every response carries Content-Length.
     protocol_version = "HTTP/1.1"
-    _PROBE_PATHS = ("/healthz", "/readyz")
+    # Pure reads outside the in-flight bracket: a probe or a scrape is
+    # not work a drain waits for, and a scrape counted as in flight
+    # would report a phantom +1 load.
+    _PROBE_PATHS = ("/metrics", "/healthz", "/readyz", "/debug/traces")
 
     def log_message(self, fmt, *args):
         log.debug("http: " + fmt, *args)
@@ -394,6 +426,13 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send(503, {"status": "draining" if server.draining()
                                  else "no models loaded",
                                  "role": server.role})
+        elif action == "metrics":
+            # The load gauges are refreshed at scrape time: a reader of
+            # this render sees the load now, not at the last request.
+            server.refresh_gauges()
+            self._send(200, REGISTRY.render(), raw=True)
+        elif action == "traces":
+            self._send(200, tracing.snapshot())
         elif action == "metadata":
             self._send(200, self.api.metadata(groups["name"]))
         elif action == "stats":
@@ -406,7 +445,55 @@ class _Handler(BaseHTTPRequestHandler):
             version = int(groups["version"]) if groups.get("version") \
                 else None
             handler = getattr(self.api, action)
-            self._send(200, handler(groups["name"], body, version))
+            name = groups["name"]
+            model_label = self._model_label(name)
+            # Server span: continues the caller's trace (traceparent) or
+            # roots a fresh one; as the thread's current context it lets
+            # the batching planes stamp child spans.
+            span = tracing.start_span(
+                f"server.{action}", parent=tracing.extract(self.headers),
+                attrs={"model": model_label, "transport": "rest"})
+            # ``outcome`` is the request counter's vocabulary (a 4xx
+            # counts as "error"); ``span_status`` also names the client
+            # faults, so tail sampling treats a 404/400 as an answer.
+            outcome = span_status = "error"
+            t0 = time.perf_counter()
+            idem_key = self.headers.get(IDEMPOTENCY_HEADER)
+            try:
+                with tracing.use_span(span):
+                    out = handler(name, body, version, idem_key=idem_key)
+                outcome = span_status = "ok"
+            except KeyError:
+                span_status = "not_found"
+                raise
+            except ValueError:
+                span_status = "invalid_argument"
+                raise
+            except Overloaded:
+                outcome = span_status = "shed"
+                raise
+            except DeadlineExceeded:
+                outcome = span_status = "deadline_exceeded"
+                raise
+            finally:
+                self._count(model_label, action, outcome, t0)
+                span.end(status=span_status)
+            self._send(200, out)
+
+    def _model_label(self, name: str) -> str:
+        """Only served model names become label values: the URL is the
+        client's, and each distinct label value is a permanent series."""
+        return name if self.api.server.has_model(name) else "_unknown_"
+
+    @staticmethod
+    def _count(model_label: str, route: str, outcome: str,
+               t0: float) -> None:
+        REGISTRY.counter(REQUESTS_TOTAL, REQUESTS_HELP).inc(
+            model=model_label, route=route, outcome=outcome)
+        # Failures included: the slowest requests of an incident are
+        # usually the failing ones.
+        REGISTRY.histogram(LATENCY_SECONDS, LATENCY_HELP).observe(
+            time.perf_counter() - t0, route=route)
 
     def _run_generate(self, name: str) -> None:
         """The streaming :generate route: chunked NDJSON on the keep-alive
@@ -417,31 +504,59 @@ class _Handler(BaseHTTPRequestHandler):
         line would corrupt the chunked body)."""
         length = int(self.headers.get("Content-Length", 0))
         body = json.loads(self.rfile.read(length) or b"{}")
-        meta, stream = self.api.generate(name, body)
-        self.send_response(200)
-        self.send_header("Content-Type", "application/x-ndjson")
-        self.send_header("Transfer-Encoding", "chunked")
-        self.end_headers()
-        emitted = 0
+        model_label = self._model_label(name)
+        span = tracing.start_span(
+            "server.generate", parent=tracing.extract(self.headers),
+            attrs={"model": model_label, "transport": "rest"})
+        outcome = span_status = "error"
+        t0 = time.perf_counter()
         try:
-            self._write_chunk({"meta": dict(meta, model=name)})
-            for chunk in stream:
-                emitted += len(chunk)
-                self._write_chunk({"tokens": chunk})
-            self._write_chunk({"done": True, "tokens_emitted": emitted})
-        except DeadlineExceeded as e:
-            self._write_chunk({"error": str(e), "code": 504})
-        except ConnectionError:
-            # The client went away: nothing is left to write to, and the
-            # engine entry resolves on its own.
-            return
-        except Exception as e:  # noqa: BLE001 -- the stream must close
-            log.exception("generate stream error")
-            self._write_chunk({"error": f"{type(e).__name__}: {e}",
-                               "code": 500})
+            try:
+                with tracing.use_span(span):
+                    meta, stream = self.api.generate(name, body)
+            except KeyError:
+                span_status = "not_found"
+                raise
+            except ValueError:
+                span_status = "invalid_argument"
+                raise
+            except Overloaded:
+                outcome = span_status = "shed"
+                raise
+            except DeadlineExceeded:
+                outcome = span_status = "deadline_exceeded"
+                raise
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            emitted = 0
+            try:
+                self._write_chunk({"meta": dict(meta, model=name)})
+                for chunk in stream:
+                    emitted += len(chunk)
+                    self._write_chunk({"tokens": chunk})
+                self._write_chunk({"done": True,
+                                   "tokens_emitted": emitted})
+                outcome = span_status = "ok"
+            except DeadlineExceeded as e:
+                outcome = span_status = "deadline_exceeded"
+                self._write_chunk({"error": str(e), "code": 504})
+            except ConnectionError:
+                # The client went away: nothing is left to write to, and
+                # the engine entry resolves on its own.
+                span_status = "client_disconnected"
+                return
+            except Exception as e:  # noqa: BLE001 -- the stream must close
+                log.exception("generate stream error")
+                self._write_chunk({"error": f"{type(e).__name__}: {e}",
+                                   "code": 500})
+            finally:
+                stream.close()
+            self._end_chunks()
         finally:
-            stream.close()
-        self._end_chunks()
+            self._count(model_label, "generate", outcome, t0)
+            span.end(status=span_status)
 
     def _write_chunk(self, payload: Dict[str, Any]) -> None:
         """One NDJSON line as one flushed HTTP/1.1 chunk: a proxy splices

@@ -4,8 +4,8 @@ A loader is ``fn(config, device) -> (variables -> predict)``, where
 predict maps {input_name: array} -> {output_name: numpy array}.  Loader
 paths are recorded in model.json at export time (serving/export.py).
 
-``lm_generate`` and ``classifier`` are ported; the ``lm`` loader comes
-with the rest of the serving surface (ROADMAP queue 1, item 9).
+All three of the JAX package's loaders are ported: ``lm`` (logits),
+``lm_generate`` and ``classifier``.
 """
 
 from __future__ import annotations
@@ -130,6 +130,69 @@ def classifier(config: Dict[str, Any], device: DeviceLike = None
 
         predict.model = model
         predict.batch_stats = batch_stats
+        return predict
+
+    return make_predict
+
+
+def lm(config: Dict[str, Any], device: DeviceLike = None) -> Callable:
+    """Transformer LM loader: next-token logits for a token batch.
+
+    config: TransformerConfig field overrides (not nested under "model",
+            unlike ``lm_generate``'s).
+    Signature: {"tokens": [b, s] int} -> {"logits": [b, s, vocab] float32}
+
+    The weights are narrowed to the compute dtype and staged on the
+    device once per version, as ``lm_generate``'s are.  The forward is
+    the port's ``Transformer``: with ``attention: "flash"`` its causal
+    prefill launches the flash forward kernel on CUDA (one launch a
+    layer) and runs the kernel's plain version on the CPU.  The logits
+    are float32 whatever the model's ``ce_dtype``.  ``predict.model`` is
+    the staged model and ``predict.forward`` the device-side call
+    (tokens tensor -> float32 logits on the device), for callers that
+    time or check the forward apart from the copy to the host.
+    ``predict`` refuses token ids outside ``[0, vocab_size)`` with a
+    ValueError before anything reaches the device.
+    """
+    from kubeflow_tpu_torch.models.convert import (
+        load_params,
+        params_from_jax,
+        params_to_device,
+    )
+    from kubeflow_tpu_torch.models.transformer import Transformer
+    from kubeflow_tpu_torch.ops.quantize import narrow_params
+
+    dev = resolve_device(device)
+    cfg = _model_config(config)
+
+    def make_predict(variables):
+        params = narrow_params(params_from_jax(variables["params"]),
+                               cfg.dtype)
+        model = load_params(Transformer(cfg, device="meta"),
+                            params_to_device(params, dev))
+        model.requires_grad_(False)
+
+        @torch.inference_mode()
+        def forward(tokens: torch.Tensor) -> torch.Tensor:
+            return model(tokens.to(dev, non_blocking=True)).to(
+                torch.float32)
+
+        def predict(inputs: Dict[str, Any]) -> Dict[str, Any]:
+            tokens = np.asarray(inputs["tokens"])
+            # Checked on the host: an id outside the table would trip a
+            # device-side assert in the embedding gather, and that error
+            # sticks to the process's CUDA context, failing every model
+            # the server holds.  A ValueError answers 400.
+            if tokens.size and (tokens.min() < 0
+                                or tokens.max() >= cfg.vocab_size):
+                raise ValueError(
+                    f"token ids must lie in [0, {cfg.vocab_size}): got "
+                    f"[{tokens.min()}, {tokens.max()}]")
+            tokens = torch.as_tensor(tokens, dtype=torch.int64)
+            return {"logits": forward(tokens).cpu().numpy()}
+
+        predict.model = model
+        predict.forward = forward
         return predict
 
     return make_predict

@@ -26,10 +26,17 @@ serves int8 weights or an int8 KV pool.  ``--adapters_dir DIR`` (with
 /model/NAME@ADAPTER:predict`` or ``:generate`` serves that adapter,
 co-batched with base traffic in the same captured programs.
 
+As in the JAX entry point: ``--trace_sample_rate``, ``--trace_capacity``
+and ``--no_tracing`` set up request tracing (``GET /debug/traces``);
+``KFT_FAULTS`` in the environment installs a scripted fault scenario
+(testing/faults.py); ``--dedup_capacity`` and ``--dedup_ttl_s`` size the
+idempotency cache; ``--reload_backoff_s`` and ``--reload_backoff_cap_s``
+the reload breaker; and SIGTERM flips /readyz, then waits up to
+``--drain_deadline_s`` on the policy clock for in-flight work.
+
 Not ported yet: ``--mesh`` (ROADMAP queue 1, item 6), accepted at its
 off value only and raising ``NotPortedError`` otherwise; the gRPC face
-(item 7); tracing routes, fault injection from the environment and
-idempotency dedup (item 9).
+(item 7).
 """
 
 from __future__ import annotations
@@ -44,15 +51,14 @@ from http.server import ThreadingHTTPServer
 from typing import List, Optional, Tuple
 
 from kubeflow_tpu_torch import NotPortedError
+from kubeflow_tpu_torch.runtime import tracing
 from kubeflow_tpu_torch.serving.http import make_http_server
 from kubeflow_tpu_torch.serving.model_server import (
     BucketedLMBatcher,
     MicroBatcher,
     ModelServer,
 )
-
-# Graceful-drain budget after SIGTERM.
-DRAIN_DEADLINE_S = 30.0
+from kubeflow_tpu_torch.testing import faults
 
 
 def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
@@ -290,17 +296,50 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--max_inflight", type=int, default=512,
                     help="per-model in-flight cap across all paths; "
                          "beyond it requests get 429 (0 = unbounded)")
+    ap.add_argument("--dedup_capacity", type=int, default=1024,
+                    help="idempotency dedup cache entries (completed "
+                         "results answered to retried keys; in-flight "
+                         "duplicates attach instead of re-executing)")
+    ap.add_argument("--dedup_ttl_s", type=float, default=120.0,
+                    help="how long a completed idempotency-key result "
+                         "stays answerable (policy clock); 0 disables "
+                         "expiry")
+    ap.add_argument("--drain_deadline_s", type=float, default=30.0,
+                    help="graceful-drain budget on SIGTERM: /readyz "
+                         "flips not-ready at once, then in-flight "
+                         "requests get this long to finish before the "
+                         "listener closes")
+    ap.add_argument("--reload_backoff_s", type=float, default=0.5,
+                    help="initial circuit-breaker backoff after a "
+                         "model (re)load failure (doubles per failure, "
+                         "jittered; the last-good version keeps "
+                         "serving while the breaker is open)")
+    ap.add_argument("--reload_backoff_cap_s", type=float, default=60.0,
+                    help="circuit-breaker backoff ceiling")
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default; fails when no GPU is "
                          "present), 'cuda:N' or 'cpu'")
+    tracing.add_cli_args(ap)
     return ap
 
 
 def start(argv: Optional[List[str]] = None
           ) -> Tuple[ModelServer, ThreadingHTTPServer]:
-    """Load the model, start batching, the version watcher and the REST
-    listener; returns (server, httpd) with both running."""
-    args = _parser().parse_args(argv)
+    """Set up tracing and the ``KFT_FAULTS`` scenario, load the model,
+    start batching, the version watcher and the REST listener; returns
+    (server, httpd) with both running."""
+    server, httpd, _ = _start(_parser().parse_args(argv))
+    return server, httpd
+
+
+def _start(args: argparse.Namespace):
+    if tracing.enable_from_args(args) is not None:
+        logging.info("request tracing on (sample rate %g, store %d "
+                     "traces): GET /debug/traces",
+                     args.trace_sample_rate, args.trace_capacity)
+    # Scripted chaos (KFT_FAULTS): a no-op unless the variable is set.
+    if faults.install_from_env() is not None:
+        logging.warning("fault injection ACTIVE (KFT_FAULTS set)")
     factory = None
     # lm_generate models default to the engine even with micro-batching
     # off; --lm_static_batcher restores the static paths.
@@ -330,8 +369,12 @@ def start(argv: Optional[List[str]] = None
             adapter_rank=args.adapter_rank,
             mesh=args.mesh)
     server = ModelServer(poll_interval_s=args.poll_interval_s,
+                         reload_backoff_s=args.reload_backoff_s,
+                         reload_backoff_cap_s=args.reload_backoff_cap_s,
                          max_inflight=args.max_inflight,
                          overload_retry_after_s=args.overload_retry_after_s,
+                         dedup_capacity=args.dedup_capacity,
+                         dedup_ttl_s=args.dedup_ttl_s,
                          device=args.device, role=args.role)
     server.add_model(args.model_name, args.model_base_path)
     if factory is not None:
@@ -340,7 +383,7 @@ def start(argv: Optional[List[str]] = None
     httpd, _ = make_http_server(server, port=args.port, host=args.host)
     logging.info("serving %r on %s, rest=:%d", args.model_name,
                  server.device, httpd.server_address[1])
-    return server, httpd
+    return server, httpd, args
 
 
 def shutdown(server: ModelServer, httpd: ThreadingHTTPServer) -> None:
@@ -351,7 +394,7 @@ def shutdown(server: ModelServer, httpd: ThreadingHTTPServer) -> None:
 
 def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    server, httpd = start(argv)
+    server, httpd, args = _start(_parser().parse_args(argv))
     # Readiness marker for process-spawning callers: the bound port.
     print(f"KFT_SERVING_READY rest={httpd.server_address[1]}",
           file=sys.stderr, flush=True)
@@ -364,7 +407,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     signal.signal(signal.SIGTERM, on_signal)
     signal.signal(signal.SIGINT, on_signal)
     stop.wait()
-    drained = wait_for_drain(server, DRAIN_DEADLINE_S)
+    drained = wait_for_drain(server, args.drain_deadline_s)
     logging.info("drain %s after SIGTERM (in-flight now %d)",
                  "complete" if drained else "deadline exceeded",
                  server.inflight())
@@ -375,14 +418,15 @@ def main(argv: Optional[List[str]] = None) -> int:
 def wait_for_drain(server: ModelServer, deadline_s: float,
                    settle_s: float = 0.25, poll_s: float = 0.02) -> bool:
     """Block until in-flight stays at zero for ``settle_s`` or
-    ``deadline_s`` passes; True when the server quiesced in time."""
-    deadline = time.monotonic() + max(0.0, deadline_s)
+    ``deadline_s`` passes on the policy clock; True when the server
+    quiesced in time."""
+    deadline = faults.monotonic() + max(0.0, deadline_s)
     quiet_since = None
-    while time.monotonic() < deadline:
+    while faults.monotonic() < deadline:
         if server.inflight() == 0:
             if quiet_since is None:
-                quiet_since = time.monotonic()
-            elif time.monotonic() - quiet_since >= settle_s:
+                quiet_since = faults.monotonic()
+            elif faults.monotonic() - quiet_since >= settle_s:
                 return True
         else:
             quiet_since = None

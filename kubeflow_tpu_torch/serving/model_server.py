@@ -18,14 +18,23 @@ the model's engine (serving/adapters.py); a model without an engine
 refuses it with ``AdapterNotFound`` (a 404), never decoding base
 weights for a tenant.
 
-``_ReloadBreaker`` is here for the adapter registry's loads.  Not
-ported yet: its use around model reloads, idempotency dedup, request
-tracing, fault-injection sites and the batchers' Prometheus metrics
-(ROADMAP queue 1, item 9).
+``reload`` runs under a per-model ``_ReloadBreaker`` (the adapter
+registry's loads use one too): a failed load opens it for a jittered,
+doubling backoff on the policy clock, and the last good version keeps
+serving.  ``predict(..., idem_key=)`` dedups retried requests through
+``_DedupCache``.  Under a trace context set by the transport, admission
+stamps a ``server.admission`` span and the MicroBatcher
+``batcher.queue_wait`` and ``batcher.dispatch`` spans;
+``refresh_gauges`` pushes the load gauges the ``/metrics`` scrape reads.
+Deadlines, backoffs and batch aging read ``faults.monotonic()``, the
+skewable policy clock, as the JAX package's do; ``loader.load`` and
+``batcher.dispatch`` are fault sites.  Metric names and label sets are
+the JAX package's.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import random
@@ -36,6 +45,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
+from kubeflow_tpu_torch.runtime import tracing
+from kubeflow_tpu_torch.runtime.prom import REGISTRY
 from kubeflow_tpu_torch.serving.adapters import (
     AdapterNotFound,
     split_model_adapter,
@@ -50,12 +61,41 @@ from kubeflow_tpu_torch.testing import faults
 
 log = logging.getLogger(__name__)
 
-# Fault-layer series shared by every batching plane (the decode engine
-# sets them here, by batcher label), as in the JAX package.
+# The request counter and latency histogram the REST face writes.
+REQUESTS_TOTAL = "kft_serving_requests_total"
+REQUESTS_HELP = "serving requests by model/route/outcome (REST + gRPC)"
+LATENCY_SECONDS = "kft_serving_request_seconds"
+LATENCY_HELP = "serving request latency by route (REST + gRPC)"
+# Fault-layer series shared by every batching plane (MicroBatcher,
+# BucketedLMBatcher, DecodeEngine), one series per batcher label.
 SHED_TOTAL = "kft_serving_shed_total"
 SHED_HELP = "admissions refused at the queue/in-flight caps, by batcher"
 EXPIRED_TOTAL = "kft_serving_deadline_expired_total"
 EXPIRED_HELP = "requests failed by their deadline, by batcher"
+RELOAD_FAILURES_TOTAL = "kft_serving_reload_failures_total"
+RELOAD_FAILURES_HELP = "model (re)load attempts that raised, by model"
+BREAKER_OPEN = "kft_serving_reload_breaker_open"
+BREAKER_OPEN_HELP = "1 while a model's reload circuit breaker is open"
+# Scrape-refreshed load gauges (refresh_gauges).
+INFLIGHT_GAUGE = "kft_serving_inflight"
+INFLIGHT_HELP = ("requests in flight (transport + predict); unlabeled "
+                 "= process total, model= per-model predict calls")
+QUEUE_GAUGE = "kft_serving_queue_depth"
+QUEUE_HELP = "pending entries in a model's batching plane, by model"
+READY_GAUGE = "kft_serving_ready"
+READY_HELP = "1 when /readyz would say ready (models loaded, not draining)"
+CACHED_RATIO_GAUGE = "kft_serving_cached_token_ratio"
+CACHED_RATIO_HELP = ("fraction of prompt tokens served from the engine "
+                     "prefix cache; unlabeled = process aggregate, "
+                     "model= per-model")
+SPILL_RATIO_GAUGE = "kft_serving_kv_spill_ratio"
+SPILL_RATIO_HELP = ("host spill-tier occupancy / host_spill_blocks "
+                    "(0 when the tier is disabled), by model; "
+                    "unlabeled = process aggregate")
+DEDUP_HITS_TOTAL = "kft_serving_dedup_hits_total"
+DEDUP_HITS_HELP = ("requests answered from the idempotency dedup "
+                   "cache (completed result or in-flight attach), "
+                   "by model")
 
 
 def locked_snapshot(lock, data: Dict[str, Any],
@@ -151,6 +191,83 @@ class _ReloadBreaker:
             return self.failures > 0
 
 
+class _DedupCache:
+    """Bounded, TTL'd idempotency-key -> result cache.
+
+    One entry per key: the FIRST request to present a key becomes the
+    primary and executes; concurrent duplicates attach to its entry
+    and wait on its event; later duplicates of a COMPLETED key are
+    answered from the cached result — so a connection that dies after
+    the replica finished no longer forces a client-visible failure or
+    a double execution when the request is retried with the same key.
+
+    Failures are never cached: ``fail`` resolves attached waiters with
+    the error and drops the entry, so a later retry re-executes (a
+    transient Overloaded must not be replayed from cache for the TTL).
+    Completed entries expire after ``ttl_s`` on the skewable policy
+    clock and are LRU-bounded at ``capacity``; in-flight entries are
+    pinned (waiters hold references) and never evicted."""
+
+    def __init__(self, capacity: int = 1024, ttl_s: float = 120.0):
+        self.capacity = max(1, int(capacity))
+        self.ttl_s = float(ttl_s)
+        self._lock = threading.Lock()
+        self._entries: "collections.OrderedDict[str, dict]" = \
+            collections.OrderedDict()
+
+    def begin(self, key: str) -> Tuple[str, dict]:
+        """Claim or join ``key``: ("new", entry) makes the caller the
+        primary (it MUST finish/fail the entry), ("inflight", entry)
+        attaches to a live execution, ("done", entry) hands back the
+        cached result."""
+        with self._lock:
+            self._sweep_locked()
+            entry = self._entries.get(key)
+            if entry is not None:
+                self._entries.move_to_end(key)
+                verdict = "done" if entry["event"].is_set() \
+                    else "inflight"
+                return verdict, entry
+            entry = {"event": threading.Event(), "result": None,
+                     "err": None, "done_at": None}
+            self._entries[key] = entry
+            while len(self._entries) > self.capacity:
+                victim = next(
+                    (k for k, e in self._entries.items()
+                     if e["event"].is_set()), None)
+                if victim is None:
+                    break  # everything in flight: pinned
+                del self._entries[victim]
+            return "new", entry
+
+    def finish(self, key: str, entry: dict, result: Any) -> None:
+        with self._lock:
+            entry["result"] = result
+            entry["done_at"] = faults.monotonic()
+        entry["event"].set()
+
+    def fail(self, key: str, entry: dict, exc: BaseException) -> None:
+        with self._lock:
+            entry["err"] = exc
+            if self._entries.get(key) is entry:
+                del self._entries[key]
+        entry["event"].set()
+
+    def _sweep_locked(self) -> None:
+        if self.ttl_s <= 0:
+            return
+        now = faults.monotonic()
+        stale = [k for k, e in self._entries.items()
+                 if e["done_at"] is not None
+                 and now - e["done_at"] > self.ttl_s]
+        for k in stale:
+            del self._entries[k]
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+
 class ModelServer:
     """Serves N named models, each from a versioned base path, on one
     device (``device=None`` means CUDA; see kubeflow_tpu_torch.device).
@@ -161,8 +278,13 @@ class ModelServer:
     serves the single-tier path.  It is an advertisement, not a gate:
     every server answers every route."""
 
-    def __init__(self, poll_interval_s: float = 2.0, max_inflight: int = 0,
+    def __init__(self, poll_interval_s: float = 2.0,
+                 reload_backoff_s: float = 0.5,
+                 reload_backoff_cap_s: float = 60.0,
+                 max_inflight: int = 0,
                  overload_retry_after_s: float = 1.0,
+                 dedup_capacity: int = 1024,
+                 dedup_ttl_s: float = 120.0,
                  device: DeviceLike = None, role: str = "unified"):
         if role not in ("unified", "prefill", "decode"):
             raise ValueError(
@@ -177,6 +299,10 @@ class ModelServer:
         self._stop = threading.Event()
         self._batcher_factories: Dict[str, Callable] = {}
         self._batchers: Dict[str, Any] = {}
+        # Reload circuit breakers, one per model (see _ReloadBreaker).
+        self._reload_backoff_s = reload_backoff_s
+        self._reload_backoff_cap_s = reload_backoff_cap_s
+        self._breakers: Dict[str, _ReloadBreaker] = {}
         self._draining = threading.Event()
         self._inflight = 0
         # Per-model cap over every path, the direct one included (it has
@@ -184,6 +310,9 @@ class ModelServer:
         self._max_inflight = max(0, int(max_inflight))
         self._overload_retry_after_s = overload_retry_after_s
         self._inflight_by_model: Dict[str, int] = {}
+        # Idempotency-key result dedup: the REST face passes the
+        # x-kft-idempotency-key header through to predict().
+        self._dedup = _DedupCache(dedup_capacity, dedup_ttl_s)
 
     # -- loading ----------------------------------------------------------
 
@@ -195,8 +324,13 @@ class ModelServer:
 
     def reload(self, name: str) -> bool:
         """Scan the base path; load a new latest version and drop stale
-        ones.  Returns True if the served version changed.  A load failure
-        raises; the version already serving keeps serving."""
+        ones.  Returns True if the served version changed.
+
+        A load failure raises to the caller AND trips the model's circuit
+        breaker: until its jittered exponential backoff expires, further
+        reload() calls of the same version return False without touching
+        the loader, so the version watcher cannot hot-loop on a bad
+        artifact while the last good version keeps serving."""
         base = self._base_paths[name]
         versions = list_versions(base)
         if not versions:
@@ -206,7 +340,31 @@ class ModelServer:
         with self._lock:
             if latest in self._models[name]:
                 return False
-        predict, meta = load_version(base, latest, device=self.device)
+            breaker = self._breakers.get(name)
+            if breaker is None:
+                breaker = self._breakers[name] = _ReloadBreaker(
+                    self._reload_backoff_s, self._reload_backoff_cap_s)
+        if not breaker.allow(latest):
+            return False
+        try:
+            faults.fire("loader.load")
+            predict, meta = load_version(base, latest, device=self.device)
+        except Exception:
+            breaker.record_failure(latest)
+            REGISTRY.counter(
+                RELOAD_FAILURES_TOTAL, RELOAD_FAILURES_HELP).inc(
+                    model=name)
+            REGISTRY.gauge(BREAKER_OPEN, BREAKER_OPEN_HELP).set(
+                1, model=name)
+            log.warning(
+                "load of %r v%d failed; breaker open until +%.1fs "
+                "(failure #%d), last-good version keeps serving",
+                name, latest,
+                max(0.0, breaker.open_until - faults.monotonic()),
+                breaker.failures)
+            raise
+        breaker.record_success()
+        REGISTRY.gauge(BREAKER_OPEN, BREAKER_OPEN_HELP).set(0, model=name)
         with self._lock:
             model = LoadedModel(name=name, version=latest, predict=predict,
                                 meta=meta)
@@ -367,6 +525,50 @@ class ModelServer:
         with self._lock:
             self._inflight -= 1
 
+    def refresh_gauges(self) -> None:
+        """Push the live load signals into the metrics registry: called
+        at scrape time by the /metrics route, so the in-flight, queue,
+        readiness, prefix-cache and spill gauges are current at the
+        instant of the scrape."""
+        with self._lock:
+            total = self._inflight
+            per_model = {n: self._inflight_by_model.get(n, 0)
+                         for n in self._models}
+        inflight = REGISTRY.gauge(INFLIGHT_GAUGE, INFLIGHT_HELP)
+        inflight.set(total)
+        for name, count in per_model.items():
+            inflight.set(count, model=name)
+        queue = REGISTRY.gauge(QUEUE_GAUGE, QUEUE_HELP)
+        ratio = REGISTRY.gauge(CACHED_RATIO_GAUGE, CACHED_RATIO_HELP)
+        spill = REGISTRY.gauge(SPILL_RATIO_GAUGE, SPILL_RATIO_HELP)
+        cached_total = prompt_total = 0
+        spill_used = spill_cap = 0
+        any_engine = any_spill = False
+        for name in per_model:
+            stats = self.batcher_stats(name) or {}
+            queue.set(stats.get("queue_depth", 0) or 0, model=name)
+            if "cached_token_ratio" in stats:
+                any_engine = True
+                ratio.set(stats["cached_token_ratio"], model=name)
+                cached_total += stats.get("cached_prompt_tokens", 0)
+                prompt_total += stats.get("prompt_tokens", 0)
+            cap = stats.get("host_spill_blocks", 0) or 0
+            if cap:
+                any_spill = True
+                used = stats.get("host_tier_used", 0) or 0
+                spill.set(round(used / cap, 4), model=name)
+                spill_used += used
+                spill_cap += cap
+        if any_spill:
+            spill.set(round(spill_used / spill_cap, 4))
+        if any_engine:
+            # The unlabeled aggregate resets with its engines: a reload
+            # rebuilds the engine with an empty cache.
+            ratio.set(round(cached_total / prompt_total, 4)
+                      if prompt_total else 0.0)
+        REGISTRY.gauge(READY_GAUGE, READY_HELP).set(
+            1 if self.is_ready() else 0)
+
     @staticmethod
     def _single_row(inputs: Dict[str, Any]) -> bool:
         """True when every input leaf carries exactly one example -- the
@@ -383,32 +585,95 @@ class ModelServer:
 
     def predict(self, name: str, inputs: Dict[str, Any],
                 version: Optional[int] = None,
-                deadline: Optional[float] = None) -> Dict[str, Any]:
-        """``deadline`` is an absolute time.monotonic() instant, enforced
-        in the batcher queues and at entry to the direct path.  ``name``
-        may be ``model@adapter``."""
+                deadline: Optional[float] = None,
+                idem_key: Optional[str] = None) -> Dict[str, Any]:
+        """``deadline`` is an absolute faults.monotonic() instant,
+        enforced in the batcher queues and at entry to the direct path.
+        ``name`` may be ``model@adapter``.
+
+        ``idem_key`` (the x-kft-idempotency-key header) dedups retried
+        requests: the first presentation executes, an in-flight duplicate
+        attaches to that execution, and a completed duplicate is answered
+        from the TTL'd result cache."""
         name, inputs = self._resolve_adapter(name, inputs)
-        with self._lock:
-            if self._max_inflight and self._inflight_by_model.get(
-                    name, 0) >= self._max_inflight:
-                raise Overloaded(
-                    f"model {name!r} at its in-flight cap "
-                    f"({self._max_inflight})",
-                    retry_after_s=self._overload_retry_after_s)
-            self._inflight += 1
-            self._inflight_by_model[name] = \
-                self._inflight_by_model.get(name, 0) + 1
+        if idem_key:
+            return self._predict_deduped(name, inputs, version,
+                                         deadline, idem_key)
+        return self._predict_admitted(name, inputs, version, deadline)
+
+    def _predict_deduped(self, name, inputs, version, deadline,
+                         idem_key):
+        verdict, entry = self._dedup.begin(idem_key)
+        if verdict != "new":
+            with self._lock:
+                label = name if name in self._models else "_unknown_"
+            REGISTRY.counter(DEDUP_HITS_TOTAL, DEDUP_HITS_HELP).inc(
+                model=label)
+            if verdict == "inflight":
+                # Attach to the primary (no second execution, no second
+                # in-flight slot), bounded by OUR deadline.
+                timeout = None if deadline is None else max(
+                    0.0, deadline - faults.monotonic())
+                if not entry["event"].wait(timeout):
+                    raise DeadlineExceeded(
+                        f"deadline expired waiting on the in-flight "
+                        f"twin of idempotency key {idem_key!r}")
+            if entry["err"] is not None:
+                raise entry["err"]
+            return entry["result"]
+        try:
+            result = self._predict_admitted(name, inputs, version,
+                                            deadline)
+        except BaseException as exc:
+            # Failures are not cached: waiters get the error, the key
+            # frees, and a later retry re-executes.
+            self._dedup.fail(idem_key, entry, exc)
+            raise
+        self._dedup.finish(idem_key, entry, result)
+        return result
+
+    def _predict_admitted(self, name: str, inputs: Dict[str, Any],
+                          version: Optional[int],
+                          deadline: Optional[float]) -> Dict[str, Any]:
+        # Admission child span (trace context set by the transport): a
+        # shed admission records status="shed", so the trace is kept.
+        ctx = tracing.current_ctx()
+        t_adm = time.perf_counter() if ctx is not None else 0.0
+        try:
+            with self._lock:
+                if self._max_inflight and self._inflight_by_model.get(
+                        name, 0) >= self._max_inflight:
+                    REGISTRY.counter(SHED_TOTAL, SHED_HELP).inc(
+                        batcher=f"{name}-inflight")
+                    raise Overloaded(
+                        f"model {name!r} at its in-flight cap "
+                        f"({self._max_inflight})",
+                        retry_after_s=self._overload_retry_after_s)
+                self._inflight += 1
+                self._inflight_by_model[name] = \
+                    self._inflight_by_model.get(name, 0) + 1
+        except Overloaded:
+            self._record_admission(ctx, name, t_adm, status="shed")
+            raise
+        self._record_admission(ctx, name, t_adm)
         try:
             return self._predict(name, inputs, version, deadline)
         finally:
-            with self._lock:
-                self._inflight -= 1
-                self._inflight_by_model[name] -= 1
+            self._exit_model(name)
+
+    def _record_admission(self, ctx, name: str, t_adm: float,
+                          status: str = "ok") -> None:
+        """The one server.admission stamping site: shed and admitted
+        verdicts both land here."""
+        if ctx is not None:
+            tracing.record_span(
+                "server.admission", ctx, t_adm, time.perf_counter(),
+                status=status, attrs={"model": name})
 
     def _predict(self, name: str, inputs: Dict[str, Any],
                  version: Optional[int],
                  deadline: Optional[float]) -> Dict[str, Any]:
-        if deadline is not None and time.monotonic() >= deadline:
+        if deadline is not None and faults.monotonic() >= deadline:
             raise DeadlineExceeded(
                 f"deadline expired before dispatch of {name!r}")
         if version is None:
@@ -442,7 +707,7 @@ class ModelServer:
                 f"adapter {inputs['adapter']!r} requires the "
                 f"continuous-batching engine; model {name!r} fell "
                 f"through to the direct path")
-        if deadline is not None and time.monotonic() >= deadline:
+        if deadline is not None and faults.monotonic() >= deadline:
             raise DeadlineExceeded(
                 f"deadline expired before direct dispatch of {name!r}")
         return model.predict(inputs)
@@ -527,6 +792,13 @@ class MicroBatcher:
     assembled while another runs.  Rows group by shape signature, or by
     ``group_key`` with ``collate``/``finish`` hooks (all or none) that
     build the batch and restore each row's own shape.
+
+    ``kft_serving_batch_size`` records each dispatched batch's occupied
+    size (declared at construction, so an idle batcher scrapes zeros),
+    and sheds and deadline expiries count in the shared series, all by
+    ``batcher=name``.  A traced request gets a ``batcher.queue_wait``
+    span for its time in the queue and a ``batcher.dispatch`` span for
+    the cycle it rode.  Batch aging and deadlines read the policy clock.
     """
 
     def __init__(
@@ -573,6 +845,13 @@ class MicroBatcher:
         self._requests = 0
         self._shed = 0
         self._expired = 0
+        self._size_hist = REGISTRY.histogram(
+            "kft_serving_batch_size",
+            "occupied micro-batch size at dispatch, by batcher",
+            buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0),
+        ).declare(batcher=name)
+        self._shed_ctr = REGISTRY.counter(SHED_TOTAL, SHED_HELP)
+        self._expired_ctr = REGISTRY.counter(EXPIRED_TOTAL, EXPIRED_HELP)
         self._runners = [
             threading.Thread(target=self._run, daemon=True,
                              name=f"microbatcher-{i}")
@@ -584,12 +863,18 @@ class MicroBatcher:
     def submit(self, inputs: Dict[str, Any],
                deadline: Optional[float] = None) -> Dict[str, Any]:
         """One logical request of batch-dim 1 ([1, ...] rows)."""
-        entry = {"inputs": inputs, "t": time.monotonic(),
-                 "deadline": deadline, "event": threading.Event(),
-                 "out": None, "err": None}
-        if deadline is not None and time.monotonic() >= deadline:
+        # Trace context captured on the caller's thread (the transport
+        # set it); the runners stamp spans from these perf readings.
+        trace_ctx = tracing.current_ctx()
+        entry = {"inputs": inputs, "t": faults.monotonic(),
+                 "deadline": deadline, "trace": trace_ctx,
+                 "t_perf": time.perf_counter()
+                 if trace_ctx is not None else 0.0,
+                 "event": threading.Event(), "out": None, "err": None}
+        if deadline is not None and faults.monotonic() >= deadline:
             with self._lock:
                 self._expired += 1
+            self._expired_ctr.inc(batcher=self._name)
             raise DeadlineExceeded(
                 f"deadline expired before batcher {self._name!r} admission")
         if self._group_key is not None:
@@ -607,6 +892,7 @@ class MicroBatcher:
             if self.max_queue_depth \
                     and self._pending_total >= self.max_queue_depth:
                 self._shed += 1
+                self._shed_ctr.inc(batcher=self._name)
                 raise Overloaded(
                     f"batcher {self._name!r} queue full "
                     f"({self._pending_total} pending)",
@@ -665,7 +951,9 @@ class MicroBatcher:
         goes first, so a busy majority shape cannot starve a minority
         one.  Entries past their deadline move into ``expired``.
         """
-        now = time.monotonic()
+        # One policy clock for request deadlines and batch aging: a
+        # seeded skew ages queued entries as it expires deadlines.
+        now = faults.monotonic()
         best_sig, best_t = None, None
         self._next_deadline = None
 
@@ -708,6 +996,20 @@ class MicroBatcher:
         self._pending_total -= len(batch)
         return batch
 
+    def _record_queue_wait(self, entries: List[dict],
+                           status: str = "ok") -> None:
+        """The one batcher.queue_wait stamping site: dispatched and
+        deadline-expired entries both land here."""
+        if not any(e["trace"] is not None for e in entries):
+            return
+        now_perf = time.perf_counter()
+        for e in entries:
+            if e["trace"] is not None:
+                tracing.record_span(
+                    "batcher.queue_wait", e["trace"], e["t_perf"],
+                    now_perf, status=status,
+                    attrs={"batcher": self._name})
+
     def _run(self) -> None:
         while True:
             expired: List[dict] = []
@@ -724,19 +1026,27 @@ class MicroBatcher:
                         self._flusher.wait(
                             timeout=None if self._next_deadline is None
                             else max(0.0, self._next_deadline
-                                     - time.monotonic()))
+                                     - faults.monotonic()))
                 self._expired += len(expired)
                 if batch is not None:
+                    # stats() and the scrapeable histogram record the
+                    # same quantity at the same site.
                     self._batch_sizes[len(batch)] = \
                         self._batch_sizes.get(len(batch), 0) + 1
                     self._requests += len(batch)
+                    self._size_hist.observe(float(len(batch)),
+                                            batcher=self._name)
             if expired:
+                self._expired_ctr.inc(len(expired), batcher=self._name)
                 err = DeadlineExceeded(
                     f"deadline expired in batcher {self._name!r} queue")
+                self._record_queue_wait(expired,
+                                        status="deadline_expired")
                 for e in expired:
                     e["err"] = err
                     e["event"].set()
             if batch is not None:
+                self._record_queue_wait(batch)
                 self._process(batch)
 
     def _pad_size(self, n: int) -> int:
@@ -747,6 +1057,10 @@ class MicroBatcher:
 
     def _process(self, batch: List[dict]) -> None:
         try:
+            # Chaos hook: a scripted stall simulates a wedged dispatch, a
+            # scripted raise takes the device-failure path to waiters.
+            faults.fire("batcher.dispatch")
+            t0 = time.perf_counter()
             n = len(batch)
             size = self._pad_size(n)
             metas: Optional[List[Any]] = None
@@ -770,6 +1084,15 @@ class MicroBatcher:
                     row = self._finish(row, metas[i])
                 e["out"] = row
                 e["event"].set()
+            t1 = time.perf_counter()
+            # The whole dispatch cycle each traced row rode, with the
+            # occupied and padded batch sizes.
+            for e in batch:
+                if e["trace"] is not None:
+                    tracing.record_span(
+                        "batcher.dispatch", e["trace"], t0, t1,
+                        attrs={"batcher": self._name, "batch_size": n,
+                               "padded_to": size})
         except Exception as exc:  # noqa: BLE001 -- delivered to waiters
             # Rows already delivered keep their results.
             for e in batch:

@@ -1,20 +1,15 @@
-"""Deterministic fault-injection harness: a copy of the JAX package's
-kubeflow_tpu/testing/faults.py (host-only; the port imports nothing of
-the JAX package).  Of the hook sites listed below, the port plants
-``train.step`` (runtime/train.py ``Trainer.fit``), ``checkpoint.save`` and
-``checkpoint.restore`` (runtime/checkpoint.py) and ``data.next``
-(data/loader.py), where the JAX package fires them; the others come with
-the modules that hold them.
+"""Deterministic fault-injection harness: the port's copy of the JAX
+package's kubeflow_tpu/testing/faults.py (host-only; the port imports
+nothing of the JAX package), with the port's own registry of hook sites.
 
-The reference stack's failure paths were exercised only by real cluster
-weather (SURVEY.md §4); ours are driven deterministically: named hook
-sites in production code call :func:`fire`, which is a no-op until a
+Failure paths are driven deterministically: named hook sites in
+production code call :func:`fire`, which is a no-op until a
 :class:`FaultInjector` is installed — from a test, or from the
 ``KFT_FAULTS`` env var at process start (serving/main.py installs it),
-so the same scripted chaos runs in-process, in the e2e harness, and
-against a deployed container.
+so the same scripted chaos runs in-process and against a served model.
 
-Hook sites planted in production code (grep for ``faults.fire``):
+Hook sites the port fires (grep for ``faults.fire``), each where the
+JAX package fires its counterpart:
 
     engine.step       before each DecodeEngine step-program call
                       (sleep = slow/wedged step, raise = device death)
@@ -24,80 +19,38 @@ Hook sites planted in production code (grep for ``faults.fire``):
                       (sleep = slow allocator under pool pressure,
                       raise = allocation failure — engine death at
                       the growth site, every waiter resolved)
-    batcher.dispatch  MicroBatcher batch dispatch (sleep = queue stall)
-    loader.load       ModelServer.reload before load_version
-                      (raise = corrupt checkpoint directory)
-    kube.request      HttpKube transport attempt (raise = apiserver
-                      connection failure, before the retry layer)
-    router.forward    fleet router upstream attempt (raise = replica
-                      connection failure, before the socket — the
-                      retry/ejection layer sees it as a refused
-                      connect)
-    router.replay     each replay/failover attempt the router grants
-                      for an idempotent POST — after the cap and the
-                      retry-budget withdrawal, before the new replica
-                      is picked (raise = failure of the failover path
-                      itself; the chaos e2e's deterministic replay
-                      observation point)
     engine.resume     DecodeEngine admission of a resume request
-                      (prompt + tokens a prior attempt delivered,
-                      the router's mid-generation failover payload;
+                      (prompt + tokens a prior attempt delivered;
                       sleep = slow failover, raise = resume rejected)
     engine.kv_handoff disaggregated prefill/decode page transfer —
                       fired on the prefill tier's export gather and
                       the decode tier's import scatter (sleep = slow
-                      cross-replica transfer, raise = handoff
-                      failure; the router surfaces it rather than
-                      hanging the tiered dispatch)
-    router.tier_dispatch
-                      the router's tiered prefill-then-decode
-                      dispatch decision for a :generate (raise =
-                      tier routing failure — the request must fall
-                      back to the untiered path, never hang or 500)
-    engine.spill      hierarchical-KV host-tier traffic: the spill-out
-                      gather (raise = spill abandoned, the record
-                      stays device-resident and destructive eviction
-                      remains the fallback), the park gather (raise =
-                      the session parks device-resident only), and
-                      the spill-in re-import at admission (raise =
-                      typed Overloaded shed, no page leaked in
-                      either tier; sleep = slow host copy)
-    engine.fetch      the :fetch_kv host-tier read a failover peer
-                      asks for a session's pages (raise = fetch
-                      failure — the router falls back to
-                      recompute-resume, sleep = slow fetch)
+                      transfer, raise = handoff failure)
+    engine.spill      host-tier KV traffic: the spill-out gather
+                      (raise = spill abandoned, the record stays
+                      device-resident), the park gather (raise = the
+                      session parks device-resident only), and the
+                      spill-in re-import at admission (raise = typed
+                      Overloaded shed, no page leaked in either tier;
+                      sleep = slow host copy)
+    engine.fetch      the :fetch_kv host-tier read a peer asks for a
+                      session's pages (raise = fetch failure, sleep =
+                      slow fetch)
     adapter.load      AdapterRegistry cold-load of a requested
                       adapter from disk, before the artifact read
                       (raise = corrupt/missing adapter: the request
                       sheds 404, the breaker opens, and resident
-                      last-good adapters KEEP serving; sleep = slow
-                      hot-load under traffic)
+                      last-good adapters keep serving)
     adapter.evict     LRU eviction of an idle resident adapter to
                       free a slot (raise = eviction failure — the
                       incoming load sheds, nothing in-flight is
                       touched)
-    fleet.probe       endpoint registry readiness probe attempt
-    scheduler.admit   cluster scheduler admission-plan pass (skew =
-                      age the queue / expire preemption windows,
-                      raise = wedged policy pass — the reconcile
-                      error path must contain it)
-    scheduler.preempt each eviction wave the policy commits (before
-                      victims are marked)
-    scheduler.fuse    each fused gang the fold pass forms from
-                      fusable queued singletons (scheduler/fuse.py;
-                      raise = wedged fold — contained like a wedged
-                      admission pass, members stay queued singletons)
-    scheduler.colocate
-                      each serving-claim view the colocation fold
-                      splits or admits into the shared pool
-                      (scheduler/colocate.py; raise = wedged fold —
-                      contained, the claim stays pending and training
-                      is untouched)
-    autoscaler.claim  each ServingClaimClient.sync of the desired
-                      replica count into the claim CR (raise =
-                      apiserver blip — the autoscaler loop absorbs it
-                      and the next level-triggered pass repairs;
-                      sleep = slow claim write)
+    batcher.dispatch  MicroBatcher batch dispatch (sleep = queue
+                      stall, raise = the device-failure path to every
+                      waiter of the batch)
+    loader.load       ModelServer.reload before load_version
+                      (raise = corrupt checkpoint directory: the
+                      reload breaker opens, last-good keeps serving)
     train.step        each Trainer.fit loop iteration, before the
                       dispatch (raise = step fault the supervisor
                       restarts from, skew = ages stall/backoff
@@ -109,6 +62,15 @@ Hook sites planted in production code (grep for ``faults.fire``):
     checkpoint.restore each CheckpointManager.restore attempt
     data.next         each TensorBatches batch pull (raise = one
                       transient read error, retried with backoff)
+
+Not ported yet: the JAX package also fires ``kube.request`` (its
+Kubernetes transport), ``router.forward``, ``router.replay``,
+``router.tier_dispatch`` and ``fleet.probe`` (its fleet router and
+endpoint registry), ``scheduler.admit``, ``scheduler.preempt``,
+``scheduler.fuse`` and ``scheduler.colocate`` (its cluster scheduler)
+and ``autoscaler.claim`` (its serving autoscaler).  Those modules hold
+no JAX and come to the port with ROADMAP queue 1 item 18; a
+``KFT_FAULTS`` scenario naming one of them tests nothing here.
 
 Clock skips: deadline/backoff code reads :func:`monotonic` instead of
 ``time.monotonic`` — a ``skew`` action (or ``advance_clock`` from a

@@ -69,7 +69,31 @@ def test_every_port_module_imports():
             "kubeflow_tpu_torch.runtime.tracing",
             "kubeflow_tpu_torch.serving.engine",
             "kubeflow_tpu_torch.serving.adapters",
-            "kubeflow_tpu_torch.serving.prefix_cache"} <= set(names)
+            "kubeflow_tpu_torch.serving.prefix_cache",
+            "kubeflow_tpu_torch.analysis",
+            "kubeflow_tpu_torch.analysis.core",
+            "kubeflow_tpu_torch.analysis.capture",
+            "kubeflow_tpu_torch.analysis.faultsites"} <= set(names)
+
+
+ANALYSIS = sorted(p.name for p in
+                  (REPO / "kubeflow_tpu_torch" / "analysis").glob("*.py"))
+
+
+@pytest.mark.parametrize("module", ANALYSIS)
+def test_analysis_modules_import_only_the_stdlib_and_themselves(module):
+    """The port's analyzer is a stdlib-only copy: each module imports the
+    standard library and ``kubeflow_tpu_torch.analysis`` and nothing
+    else, neither the JAX package's analyzer nor torch."""
+    import sys
+
+    path = REPO / "kubeflow_tpu_torch" / "analysis" / module
+    imported = [m for m in _imports(path) if m != "__future__"]
+    assert imported
+    for m in imported:
+        top = m.split(".")[0]
+        assert m.startswith("kubeflow_tpu_torch.analysis") or \
+            top in sys.stdlib_module_names, (module, m)
 
 
 @pytest.mark.parametrize("module", ["serving/engine.py",
