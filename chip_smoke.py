@@ -37,7 +37,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      is the default and launches no flash kernel), send concurrent
      mixed-length :predict requests and one direct two-row request; the
      kernels' launch counters are zeroed just before and read just after,
-     and every serving kernel must have run;
+     and every serving kernel must have run.  The same server also
+     serves gRPC (--grpc_port 0; without grpcio it fails to start): one
+     Predict alone must equal a REST :predict of the same prompt and the
+     grpc.health.v1 check answer SERVING; every other phase's server
+     runs REST only (--grpc_port -1);
   5. check: every reply is prompt + max_new_tokens tokens in the
      vocabulary, and the prefill logits of one left-padded bf16 batch
      through the kernel are no further from a float32 run of the same
@@ -175,6 +179,29 @@ Phases, each fatal on failure (exit code 1, no result line):
      through lm_task and Trainer as bench.py builds it: flash_fwd_full,
      flash_fwd_diag, flash_dq and flash_dkv 12 times a step, flash_fwd
      never;
+ 7c. MoE: bench.py's lm_moe cell (the 188M preset with 4 experts,
+     top-2, capacity 1.25, the einsum dispatch in routing groups of 128,
+     adafactor, batch 8 x 2048, remat nobatch, flash, bf16) through
+     lm_task and Trainer on one repeated batch: 2 warm-up steps, then 8
+     with the launch counters zeroed just before and read just after:
+     flash_fwd, flash_dq and flash_dkv 12 times a step each; losses,
+     grad_norm and moe_aux finite; the loss falling by 1 nat.  One MoE
+     layer at [8, 2048, 1024] under the einsum dispatch and the gather
+     dispatch (groups 128 and 256), and under both at capacity 0.5
+     (many choices dropped), each held to references: float32 on the
+     card equal to float32 on the CPU (the batch row with the most
+     dropped choices: routing, slots and drops), bf16 on the card near
+     that float32 reference, and the bf16 gather output within 2 bf16
+     ulps of the einsum one.
+     Information only: step time, tokens/s, MFU (flops_per_token counts
+     the top-2 experts' MLPs and the router), peak memory, one profiled
+     step (busy share, top device ops), and that layer's forward and
+     backward under each dispatch;
+ 7d. dropout: the dense 188M at 8 x 2048 with dropout 0.1: one training
+     step's gradients (lm_task forward and backward) with remat on and
+     off from one generator seed within 1e-3 relative Frobenius; the
+     same seed again gives the same loss and seed + 1 another;
+     flash_fwd, flash_dq and flash_dkv 12 times in the step;
   8. gradients: one step's gradients of the bf16 model (full width and
      depth, batch 2 x 2048) through the kernels (single pass, then two
      passes) and through the plain versions, each held to a float32 run
@@ -349,6 +376,37 @@ TWO_PASS_KERNELS = ("flash_fwd_full", "flash_fwd_diag", "flash_dq",
 # every CKPT_EVERY steps, over KFTR shards of CKPT_EXAMPLES examples.
 CKPT_EVERY, CKPT_EXAMPLES, CKPT_SHARDS = 2, 64, 4
 LEARN_STEPS, LEARN_BATCH, LEARN_VOCAB = 20, 2, 512
+# Phase 7c, bench.py's lm_moe cell: the 188M preset with 4 experts
+# (top-2, capacity 1.25, the einsum dispatch in routing groups of 128)
+# and adafactor, batch 8 x 2048, remat nobatch, flash, bf16.  A repeated
+# batch of LEARN_VOCAB ids, MOE_WARMUP steps, then MOE_STEPS counted and
+# timed ones; the loss must fall by MOE_LEARN_NATS over all of them.
+MOE = {"moe_experts": 4, "moe_top_k": 2, "moe_capacity_factor": 1.25,
+       "moe_impl": "einsum", "moe_group_size": 128}
+MOE_WARMUP, MOE_STEPS, MOE_LR, MOE_LEARN_NATS = 2, 8, 1e-2, 1.0
+MOE_LAYER_REPS = 5
+# The layer's dispatches and groups (the cell's capacity 1.25), then both
+# dispatches at capacity 0.5, where many choices are dropped (at 1.25
+# random routing drops almost none).
+MOE_LAYER_CASES = (("einsum", 128, 1.25), ("gather", 128, 1.25),
+                   ("gather", 256, 1.25), ("einsum", 128, 0.5),
+                   ("gather", 128, 0.5))
+# One MoE layer at the cell's shape against references (moe_layer):
+# float32 on the card vs float32 on the CPU, and bf16 on the card vs the
+# same float32 reference, each as max |err| / max |ref|; the bf16 gather
+# dispatch vs the bf16 einsum one in bf16 ulps at the output's largest
+# magnitude.  Sound readings (NVIDIA H100 80GB HBM3 at 700 W): 1.87e-6,
+# 7.41e-3 and 1 ulp; a token routed or slotted otherwise moves O(1).
+MOE_F32_REL_TOL = 1e-4
+MOE_BF16_REL_TOL = 1.5e-2
+MOE_DISPATCH_ULPS = 2
+# Phase 7d: dropout 0.1 on the dense 188M at 8 x 2048.  One step's
+# gradients with remat on and off from one generator seed: the masks are
+# drawn outside the checkpointed regions, so the two differ only by the
+# order of bf16 arithmetic, if at all; a mask drawn anew on recompute
+# would move them by O(1).
+DROPOUT_RATE = 0.1
+DROPOUT_REMAT_REL_TOL = 1e-3
 # Phases 11-12: the CNN family.  Phase 11 serves these exports through the
 # classifier loader and the MicroBatcher; each model's name, its loader
 # config and its image size (the canonical input of each).
@@ -1128,6 +1186,34 @@ def post(port: int, body: dict, path: str = "/model/lm:predict") -> dict:
     return payload
 
 
+def grpc_predict(grpc_port: int, rest_port: int, prompt) -> None:
+    """One gRPC Predict of ``prompt`` on the phase 4 server, held equal
+    to a REST :predict of the same prompt, each sent alone."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.serving.grpc_server import PredictionClient
+
+    rest = post(rest_port, {"instances": [{"tokens": prompt}]})
+    client = PredictionClient(f"127.0.0.1:{grpc_port}")
+    try:
+        t0 = time.perf_counter()
+        out = client.predict("lm", {"tokens": np.asarray([prompt],
+                                                         np.int32)},
+                             timeout=600.0)
+        t_grpc = time.perf_counter() - t0
+        ready = client.ready()
+    finally:
+        client.close()
+    got = np.asarray(out["tokens"])[0].tolist()
+    want = rest["predictions"][0]["tokens"]
+    log(f"grpc: Predict of a {len(prompt)}-token prompt on :{grpc_port} in "
+        f"{t_grpc * 1e3:.1f} ms (host clock), health SERVING {ready}, "
+        f"tokens equal to REST's: {got == want}")
+    if got != want or not ready:
+        fail("the gRPC Predict answer differs from REST's, or the health "
+             "check is not SERVING")
+
+
 def serve(torch, flash, base: Path, prompts, direct):
     """Phase 4: the port's serving entry point, driven over REST, on the
     static bucketed batcher (--lm_static_batcher: the engine is the
@@ -1136,7 +1222,8 @@ def serve(torch, flash, base: Path, prompts, direct):
 
     server, httpd = serving_main.start([
         "--model_name", "lm", "--model_base_path", str(base),
-        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--port", "0", "--grpc_port", "0", "--host", "127.0.0.1",
+        "--device", "cuda",
         "--lm_static_batcher", "--lm_buckets", BUCKETS,
         "--micro_batch_size", str(MICRO_BATCH)])
     port = httpd.server_address[1]
@@ -1152,6 +1239,7 @@ def serve(torch, flash, base: Path, prompts, direct):
                                                  for p in direct]})
         t_direct = time.perf_counter() - t1
         stats = server.batcher_stats("lm")
+        grpc_predict(httpd.grpc_server.bound_port, port, prompts[0])
     finally:
         serving_main.shutdown(server, httpd)
     counts = {k: flash.launch_counts[k] for k in SERVE_KERNELS}
@@ -1268,7 +1356,8 @@ def serve_engine(torch, flash, base: Path, prompts):
 
     server, httpd = serving_main.start([
         "--model_name", "lm", "--model_base_path", str(base),
-        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--port", "0", "--grpc_port", "-1", "--host", "127.0.0.1",
+        "--device", "cuda",
         "--lm_buckets", BUCKETS])
     port = httpd.server_address[1]
     rng = torch.Generator().manual_seed(SEED + 1)
@@ -1702,7 +1791,8 @@ def serve_spec(torch, flash, base: Path):
     prompts = spec_prompts(torch, SEED + 3)
     server, httpd = serving_main.start([
         "--model_name", "lm", "--model_base_path", str(base),
-        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--port", "0", "--grpc_port", "-1", "--host", "127.0.0.1",
+        "--device", "cuda",
         "--lm_buckets", BUCKETS, "--speculative_tokens", str(SPEC_TOKENS)])
     port = httpd.server_address[1]
     launches_before = dict(flash.launch_counts)
@@ -1975,7 +2065,8 @@ def serve_tiers(torch, flash, base: Path):
         for role in ("prefill", "decode"):
             servers[role] = serving_main.start([
                 "--model_name", "lm", "--model_base_path", str(base),
-                "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+                "--port", "0", "--grpc_port", "-1", "--host", "127.0.0.1",
+                "--device", "cuda",
                 "--lm_buckets", BUCKETS, "--role", role])
         ports = {role: httpd.server_address[1]
                  for role, (_, httpd) in servers.items()}
@@ -2212,7 +2303,8 @@ def serve_int8(torch, flash, base: Path, int8_base: Path):
     launches_before = dict(flash.launch_counts)
     server, httpd = serving_main.start([
         "--model_name", "lm", "--model_base_path", str(int8_base),
-        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--port", "0", "--grpc_port", "-1", "--host", "127.0.0.1",
+        "--device", "cuda",
         "--lm_buckets", BUCKETS])
     port = httpd.server_address[1]
     try:
@@ -2443,7 +2535,8 @@ def spill_tier(torch, flash, base: Path, int8_base: Path):
     def start(export, *flags):
         return serving_main.start([
             "--model_name", "lm", "--model_base_path", str(export),
-            "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+            "--port", "0", "--grpc_port", "-1", "--host", "127.0.0.1",
+            "--device", "cuda",
             "--lm_buckets", BUCKETS, *flags])
 
     def tokens_of(reply):
@@ -2675,7 +2768,8 @@ def serve_adapters(torch, flash, base: Path, adir: Path):
     work = adapter_work(prompts)
     server, httpd = serving_main.start([
         "--model_name", "lm", "--model_base_path", str(base),
-        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--port", "0", "--grpc_port", "-1", "--host", "127.0.0.1",
+        "--device", "cuda",
         "--lm_buckets", BUCKETS, "--adapters_dir", str(adir),
         "--adapter_slots", "8", "--adapter_rank", str(ADAPTER_RANK)])
     port = httpd.server_address[1]
@@ -3159,7 +3253,8 @@ def serve_surface(torch, flash, base: Path, lm_base: Path, direct_predict,
     want = direct_predict({"tokens": tokens16})["logits"][0]
     server, httpd = serving_main.start([
         "--model_name", "lm", "--model_base_path", str(lm_base),
-        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--port", "0", "--grpc_port", "-1", "--host", "127.0.0.1",
+        "--device", "cuda",
         "--trace_sample_rate", "1", "--poll_interval_s", "3600"])
     port = httpd.server_address[1]
     body = {"instances": [{"tokens": tokens16[0].tolist()}]}
@@ -3298,7 +3393,8 @@ def tracing_cost(torch, base: Path, prompts):
 
     server, httpd = serving_main.start([
         "--model_name", "lm", "--model_base_path", str(base),
-        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--port", "0", "--grpc_port", "-1", "--host", "127.0.0.1",
+        "--device", "cuda",
         "--lm_buckets", BUCKETS, "--trace_sample_rate", "1",
         "--no_prefix_cache"])
     port = httpd.server_address[1]
@@ -3614,6 +3710,294 @@ def train_two_pass(torch, flash):
         f"{mfu:.4f}, peak memory {peak_gib:.2f} GiB (information only)")
     return counts, {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
                     "mfu": mfu, "peak_gib": peak_gib, "losses": losses}
+
+
+def train_moe(torch, flash):
+    """Phase 7c: bench.py's lm_moe cell through lm_task and Trainer on
+    one repeated batch: warm-up, then MOE_STEPS steps with the launch
+    counters zeroed just before and read just after (flash_fwd,
+    flash_dq and flash_dkv 12 times a step each); loss and moe_aux
+    finite, the loss falling by MOE_LEARN_NATS; then, information only,
+    one profiled step; last, one MoE layer under each dispatch held to
+    its references and timed (moe_layer)."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig,
+        lm_task,
+    )
+    from kubeflow_tpu_torch.runtime import optim
+    from kubeflow_tpu_torch.runtime.train import Trainer
+
+    cfg = TransformerConfig(**dict(MODEL, **MOE, max_seq_len=TRAIN_SEQ,
+                                   dtype=torch.bfloat16, remat=True,
+                                   remat_policy="nobatch"))
+    init_fn, loss_fn = lm_task(cfg, device="cuda")
+    trainer = Trainer(init_fn=init_fn, loss_fn=loss_fn,
+                      tx=optim.adafactor(MOE_LR), device="cuda",
+                      flops_per_example=cfg.flops_per_token() * TRAIN_SEQ,
+                      peak_flops_per_chip=PEAK_BF16_FLOPS)
+    state = trainer.create_state(SEED)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    rng = np.random.RandomState(SEED)
+    batch = {"tokens": rng.randint(0, LEARN_VOCAB, size=(
+        TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)}
+    state = trainer.fit(itertools.repeat(batch), MOE_WARMUP, state=state,
+                        log_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in flash.launch_counts:
+        flash.launch_counts[key] = 0
+    state = trainer.fit(itertools.repeat(batch), MOE_STEPS, state=state,
+                        examples_per_step=TRAIN_BATCH, log_every=1)
+    torch.cuda.synchronize()
+    counts = dict(flash.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = MODEL["n_layers"] * MOE_STEPS
+    log(f"kernel launches on the MoE training path ({MOE_STEPS} steps): "
+        f"{counts} (want {want} of each of {', '.join(TRAIN_KERNELS)})")
+    bad = [k for k in TRAIN_KERNELS if counts[k] != want]
+    if bad:
+        fail(f"MoE training launched the wrong number of kernels: {bad}")
+    history = trainer.metrics.history
+    losses = [r["loss"] for r in history]
+    last = trainer.last_metrics
+    finite = losses + [last.get("grad_norm", math.nan),
+                       last.get("moe_aux", math.nan)]
+    if len(losses) != MOE_WARMUP + MOE_STEPS or not all(
+            map(math.isfinite, finite)):
+        fail(f"non-finite or missing MoE training metrics: losses {losses},"
+             f" last {last}")
+    log(f"MoE learning: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{len(losses)} steps on one repeated batch (bound: a drop of at "
+        f"least {MOE_LEARN_NATS} nat); last moe_aux {last['moe_aux']:.4f}")
+    if not losses[-1] <= losses[0] - MOE_LEARN_NATS:
+        fail("the MoE LM did not learn a repeated batch")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = sorted(r["step_time_s"] for r in history[MOE_WARMUP:])
+    step_s = step_s[len(step_s) // 2]
+    mfu = 3 * cfg.flops_per_token() * tokens / step_s / PEAK_BF16_FLOPS
+    log(f"train MoE ({n_params / 1e6:.1f}M parameters, 4 experts top-2, "
+        f"capacity 1.25, einsum dispatch in groups of 128, adafactor "
+        f"{MOE_LR}): median step {step_s * 1e3:.1f} ms over {MOE_STEPS} "
+        f"steps (host clock after a sync each step), {tokens / step_s:.0f}"
+        f" tokens/s, MFU {mfu:.4f} (3 x flops_per_token "
+        f"{cfg.flops_per_token():.4g} x tokens / {PEAK_BF16_FLOPS:.3g}), "
+        f"peak memory {peak_gib:.2f} "
+        f"GiB (information only)")
+    step = trainer.compile_step()
+    staged = trainer.shard_batch(batch)
+
+    def one():
+        nonlocal state
+        state, _ = step(state, staged)
+        torch.cuda.synchronize()
+
+    one()
+    busy = profile_busy(torch, one, "MoE training step")
+    del trainer, state, staged
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+                    "mfu": mfu, "peak_gib": peak_gib, "losses": losses,
+                    "moe_aux": last["moe_aux"], "params": n_params,
+                    "profile": busy, "layer": moe_layer(torch)}
+
+
+def moe_layer(torch):
+    """One MoE layer at the cell's shape ([8, 2048, 1024], one seed's
+    weights), held to references, then timed.
+
+    Checks (the phase fails on any): in each of MOE_LAYER_CASES (einsum
+    and gather at group 128, gather at 256, and both dispatches at
+    capacity 0.5, which drops many choices) the float32 layer on the card,
+    run on the whole input, equals the float32 layer on the CPU, run on
+    the batch row with the most choices dropped past capacity, within
+    MOE_F32_REL_TOL of the reference's largest magnitude (routing groups
+    never cross rows, so that row routes alone as it does in the batch;
+    a token routed, slotted or dropped otherwise on the card moves its
+    row by O(1)); the aux of that row alike; the bf16
+    layer on the card within MOE_BF16_REL_TOL of the same reference; the
+    bf16 gather output within MOE_DISPATCH_ULPS bf16 ulps (at the einsum
+    output's largest magnitude) of the bf16 einsum output at group 128.
+    Then each bf16 layer's forward and backward, CUDA events
+    (information only)."""
+    from kubeflow_tpu_torch.models.moe import MoEMLP
+
+    d, f = MODEL["d_model"], MODEL["d_ff"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, d), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    cot = torch.randn((TRAIN_BATCH, TRAIN_SEQ, d), device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    x_cpu = x.float().cpu()
+    n_exp, top_k = MOE["moe_experts"], MOE["moe_top_k"]
+
+    def make(impl, group, cf, dtype, weights=None):
+        """The seeded layer on the card, or one holding ``weights``
+        (float32 tensors, on the device they lie on)."""
+        kw = dict(group_size=group, capacity_factor=cf, dtype=dtype,
+                  impl=impl)
+        if weights is None:
+            return MoEMLP(d, f, MOE["moe_experts"], device="cuda",
+                          generator=torch.Generator(
+                              device="cuda").manual_seed(SEED), **kw)
+        layer = MoEMLP(d, f, MOE["moe_experts"], device="meta", **kw)
+        layer.load_state_dict(weights, assign=True)
+        return layer
+
+    rows, einsum_out, bad = {}, None, []
+    for impl, group, cf in MOE_LAYER_CASES:
+        key = f"{impl}_{group}" + (
+            "" if cf == MOE["moe_capacity_factor"] else f"_cf{cf}")
+        layer = make(impl, group, cf, torch.bfloat16)
+        weights = {k: v.detach().clone() for k, v in
+                   layer.state_dict().items()}
+        with torch.no_grad():
+            y, _ = layer(x)
+            cpu32 = make(impl, group, cf, torch.float32, {
+                k: v.cpu() for k, v in weights.items()})
+            # The row with the most choices dropped past capacity (routed
+            # on the CPU), so the comparison covers the drop path.
+            *_, routes = cpu32._route(x_cpu.reshape(-1, group, d), max(
+                top_k, math.ceil(group * top_k / n_exp * cf)))
+            dropped = sum((~keep).int() for *_, keep in routes).reshape(
+                TRAIN_BATCH, -1).sum(1)
+            r = int(dropped.argmax())
+            ref, ref_aux = cpu32(x_cpu[r:r + 1])
+            scale = ref.abs().max().item()
+            card32 = make(impl, group, cf, torch.float32, weights)
+            y32, _ = card32(x.float())
+            _, aux32 = card32(x[r:r + 1].float())
+            del card32
+        err32 = (y32[r:r + 1].cpu() - ref).abs().max().item() / scale
+        aux_err = abs(aux32.item() - ref_aux.item()) / abs(ref_aux.item())
+        err16 = (y[r:r + 1].float().cpu() - ref).abs().max().item() / scale
+        del y32
+        if key == "einsum_128":
+            einsum_out = y
+        xx = x.detach().requires_grad_()
+
+        def fwd_bwd():
+            out, aux = layer(xx)
+            torch.autograd.backward((out, aux), (cot, torch.ones_like(aux)))
+
+        rows[key] = {
+            "fwd_bwd_ms": time_ms(torch, fwd_bwd, MOE_LAYER_REPS),
+            "fwd_ms": time_ms(torch, lambda: layer(x), MOE_LAYER_REPS),
+            "f32_card_vs_cpu_rel": err32, "aux_card_vs_cpu_rel": aux_err,
+            "bf16_vs_f32_rel": err16, "ref_max_abs": scale, "row": r,
+            "row_choices_dropped": int(dropped[r]),
+            "choices_dropped": int(dropped.sum())}
+        if max(err32, aux_err) > MOE_F32_REL_TOL:
+            bad.append(f"{key}: float32 on the card vs the CPU {err32:.3e},"
+                       f" aux {aux_err:.3e} (bound {MOE_F32_REL_TOL})")
+        if err16 > MOE_BF16_REL_TOL:
+            bad.append(f"{key}: bf16 vs float32 {err16:.3e} (bound "
+                       f"{MOE_BF16_REL_TOL})")
+        if key == "gather_128":
+            peak = einsum_out.float().abs().max().item()
+            ulp = 2.0 ** (math.floor(math.log2(peak)) - 7)
+            diff = (y.float() - einsum_out.float()).abs().max().item()
+            rows[key].update(max_abs_diff_from_einsum=diff,
+                             einsum_max_abs=peak, bf16_ulp_at_max=ulp)
+            if diff > MOE_DISPATCH_ULPS * ulp:
+                bad.append(f"gather vs einsum at group 128: {diff:.3e} "
+                           f"(bound {MOE_DISPATCH_ULPS} x {ulp:.3e})")
+        del layer, xx, y
+    ratio = rows["einsum_128"]["fwd_bwd_ms"] / rows["gather_128"]["fwd_bwd_ms"]
+    vs = rows["gather_128"]
+    log("MoE layer at [8, 2048, 1024]: float32 on the card vs the CPU on "
+        "one batch row, max |err| / max |ref|: " + ", ".join(
+            f"{k} {v['f32_card_vs_cpu_rel']:.3e} (aux "
+            f"{v['aux_card_vs_cpu_rel']:.3e}), bf16 {v['bf16_vs_f32_rel']:.3e}"
+            f" (row {v['row']}, {v['row_choices_dropped']} of the batch's "
+            f"{v['choices_dropped']} dropped choices, max |ref| "
+            f"{v['ref_max_abs']:.4f})" for k, v in rows.items())
+        + f"; bounds {MOE_F32_REL_TOL} and {MOE_BF16_REL_TOL}; bf16 gather "
+        f"vs einsum at group 128 {vs['max_abs_diff_from_einsum']:.3e} "
+        f"(bound {MOE_DISPATCH_ULPS} x the bf16 ulp "
+        f"{vs['bf16_ulp_at_max']:.3e} at max |out| "
+        f"{vs['einsum_max_abs']:.4f})")
+    log("MoE layer at [8, 2048, 1024] bf16, forward + backward (CUDA "
+        "events, median of 5): " + ", ".join(
+            f"{k} {v['fwd_bwd_ms']:.3f} ms (forward {v['fwd_ms']:.3f})"
+            for k, v in rows.items())
+        + f"; einsum / gather_128 {ratio:.3f} (information only)")
+    if bad:
+        fail("the MoE layer on the card disagrees with its references: "
+             + "; ".join(bad))
+    return rows
+
+
+def dropout_phase(torch, flash):
+    """Phase 7d: dropout 0.1 on the dense 188M LM at 8 x 2048: one
+    training step's gradients (lm_task forward and backward) with remat
+    on and off from one generator seed within DROPOUT_REMAT_REL_TOL
+    (relative Frobenius), two runs at one seed with equal losses and
+    another seed with another loss, and flash_fwd, flash_dq and
+    flash_dkv 12 times in the step."""
+    from kubeflow_tpu_torch.models.transformer import (
+        Transformer,
+        TransformerConfig,
+        lm_task,
+    )
+
+    base = dict(MODEL, max_seq_len=TRAIN_SEQ, dtype=torch.bfloat16,
+                dropout_rate=DROPOUT_RATE)
+    model = Transformer(TransformerConfig(**base, remat=True), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            SEED))
+    plain = Transformer(TransformerConfig(**base, remat=False),
+                        device="meta")
+    plain.load_state_dict({k: v.clone() for k, v in
+                           model.state_dict().items()}, assign=True)
+    tokens = torch.randint(0, MODEL["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ),
+                           device="cuda", generator=torch.Generator(
+                               device="cuda").manual_seed(SEED + 2))
+
+    def step(m, seed):
+        _, loss_fn = lm_task(m.cfg, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(m, {}, {"tokens": tokens}, gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        flat = torch.cat([p.grad.float().flatten() for p in m.parameters()])
+        m.zero_grad(set_to_none=True)
+        return loss.item(), flat, dt
+
+    step(model, SEED)  # warm-up
+    for key in flash.launch_counts:
+        flash.launch_counts[key] = 0
+    loss_a, g_a, t_a = step(model, SEED)
+    counts = dict(flash.launch_counts)
+    want = MODEL["n_layers"]
+    log(f"kernel launches in one dropout training step: {counts} (want "
+        f"{want} of each of {', '.join(TRAIN_KERNELS)})")
+    if any(counts[k] != want for k in TRAIN_KERNELS):
+        fail(f"the dropout step launched the wrong kernels: {counts}")
+    loss_b, g_b, t_b = step(plain, SEED)
+    rel = ((g_a - g_b).norm() / g_b.norm()).item()
+    loss_c, g_c, _ = step(model, SEED)
+    loss_d, _, _ = step(model, SEED + 1)
+    log(f"dropout {DROPOUT_RATE}, batch {TRAIN_BATCH} x {TRAIN_SEQ}: loss "
+        f"remat on {loss_a:.6f}, off {loss_b:.6f}; gradients remat on vs "
+        f"off relative Frobenius {rel:.3e} (bound {DROPOUT_REMAT_REL_TOL}; "
+        f"bit-equal {torch.equal(g_a, g_b)}); same seed again {loss_c:.6f}"
+        f" (gradients bit-equal {torch.equal(g_a, g_c)}), seed + 1 "
+        f"{loss_d:.6f}; step {t_a * 1e3:.1f} ms remat on, "
+        f"{t_b * 1e3:.1f} ms off (host clock after a sync, information "
+        f"only)")
+    if not (math.isfinite(loss_a) and rel <= DROPOUT_REMAT_REL_TOL):
+        fail("dropout gradients with remat on differ from remat off")
+    if loss_c != loss_a or loss_d == loss_a:
+        fail("dropout is not determined by its generator seed")
+    del model, plain, g_a, g_b, g_c
+    torch.cuda.empty_cache()
+    return counts, {"loss": loss_a, "remat_rel_err": rel,
+                    "step_ms_remat": t_a * 1e3, "step_ms_no_remat": t_b * 1e3}
 
 
 def checkpoint_and_data(torch, workdir: Path):
@@ -3992,7 +4376,8 @@ def serve_cnn_model(torch, base: Path, name: str, variables: dict):
     direct = cnn_images(name, CNN_DIRECT_ROWS, SEED + 12)
     server, httpd = serving_main.start([
         "--model_name", name, "--model_base_path", str(base),
-        "--port", "0", "--host", "127.0.0.1", "--device", "cuda",
+        "--port", "0", "--grpc_port", "-1", "--host", "127.0.0.1",
+        "--device", "cuda",
         "--micro_batch_size", str(CNN_MICRO_BATCH)])
     port = httpd.server_address[1]
     route = f"/model/{name}"
@@ -4378,6 +4763,10 @@ def main() -> int:
         train_counts, train_info = train(torch, flash, workdir)
         two_pass_counts, two_pass_info = train_two_pass(torch, flash)
         phase_done("7 train")
+        moe_counts, moe_info = train_moe(torch, flash)
+        phase_done("7c MoE train")
+        dropout_counts, dropout_info = dropout_phase(torch, flash)
+        phase_done("7d dropout")
         log(f"train, single pass + adamw against two-pass + adafactor: "
             f"median step {train_info['step_ms']:.1f} / "
             f"{two_pass_info['step_ms']:.1f} ms, MFU "
@@ -4408,7 +4797,9 @@ def main() -> int:
         row["path"] = "train" if on_train else "serve"
         row["launches_by_path"] = {"serve": counts.get(name, 0),
                                    "train": train_counts[name],
-                                   "lm": lm_counts[name]}
+                                   "lm": lm_counts[name],
+                                   "moe": moe_counts[name],
+                                   "dropout": dropout_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
     for name, row in two_pass_rows.items():
@@ -4417,7 +4808,9 @@ def main() -> int:
         row["path"] = "train"
         row["launches_by_path"] = {"serve": counts.get(name, 0),
                                    "train": two_pass_counts[name],
-                                   "lm": lm_counts[name]}
+                                   "lm": lm_counts[name],
+                                   "moe": moe_counts[name],
+                                   "dropout": dropout_counts[name]}
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
@@ -4428,6 +4821,7 @@ def main() -> int:
                                   breakdown=learned),
                     "train_two_pass": dict(two_pass_info,
                                            forward=two_pass_times),
+                    "train_moe": moe_info, "dropout": dropout_info,
                     "checkpoint": ckpt_info,
                     "cnn_serve": cnn_serve_info,
                     "cnn_train": cnn_train_info}))

@@ -8,6 +8,8 @@ dict whose per-layer leaves are stacked ``[L, ...]`` under ``layers``::
     layers/attn_norm/scale [L, e]; layers/mlp_norm/scale [L, e]
     layers/attn/wq [L, e, h, d]; wkv [L, 2, e, hkv, d]; wo [L, h, d, e]
     layers/mlp/wi [L, 2, e, f]; layers/mlp/wo [L, f, e]
+    (MoE, in place of mlp) layers/moe/router [L, e, E];
+    layers/moe/wi [L, E, 2, e, f]; layers/moe/wo [L, E, f, e]
 
 The port's parameter dict is that same tree with torch tensors for
 leaves; ``load_params`` unstacks it into a ``Transformer``'s per-layer
@@ -31,8 +33,17 @@ from kubeflow_tpu_torch.ops.quantize import QTensor
 
 _LAYER_LEAVES = (
     ("attn_norm", "scale"), ("attn", "wq"), ("attn", "wkv"),
-    ("attn", "wo"), ("mlp_norm", "scale"), ("mlp", "wi"), ("mlp", "wo"),
+    ("attn", "wo"), ("mlp_norm", "scale"),
 )
+_MLP_LEAVES = (("mlp", "wi"), ("mlp", "wo"))
+_MOE_LEAVES = (("moe", "router"), ("moe", "wi"), ("moe", "wo"))
+
+
+def _layer_leaves(model: Transformer):
+    """The (module, parameter) pairs of one layer: the dense MLP's or,
+    with ``moe_experts > 0``, the MoE MLP's."""
+    return _LAYER_LEAVES + (_MOE_LEAVES if model.cfg.moe_experts > 0
+                            else _MLP_LEAVES)
 
 
 def _to_tensor(leaf: Any) -> torch.Tensor:
@@ -81,7 +92,7 @@ def load_params(model: Transformer, params: Dict[str, Any]) -> Transformer:
     if not model.cfg.tied_embeddings:
         state["w_out"] = params["w_out"]
     layers = params["layers"]
-    for outer, inner in _LAYER_LEAVES:
+    for outer, inner in _layer_leaves(model):
         stacked = layers[outer][inner]
         if stacked.shape[0] != n:
             raise ValueError(f"layers/{outer}/{inner} has {stacked.shape[0]} "
@@ -130,7 +141,7 @@ def params_to_jax(model: Transformer, *, grads: bool = False
     }
     if model.w_out is not None:
         out["w_out"] = host(model.w_out)
-    for outer, inner in _LAYER_LEAVES:
+    for outer, inner in _layer_leaves(model):
         leaves = [getattr(getattr(block, outer), inner)
                   for block in model.layers]
         out["layers"].setdefault(outer, {})[inner] = np.stack(

@@ -446,6 +446,19 @@ def _sample(decode: DecodeConfig, logits: torch.Tensor,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def refuse_moe(cfg: TransformerConfig) -> None:
+    """Decoding runs the dense MLP of every layer (``block.mlp``, as the
+    JAX package's ``_layer_step`` reads ``layer_params["mlp"]``): neither
+    package decodes a mixture-of-experts model, so it is refused here
+    rather than run wrong."""
+    if cfg.moe_experts > 0:
+        raise ValueError(
+            f"decoding a mixture-of-experts model (moe_experts="
+            f"{cfg.moe_experts}) is not supported: generate() and the "
+            "DecodeEngine run the dense MLP only; serve its logits with "
+            "the lm loader instead")
+
+
 @torch.inference_mode()
 def generate(
     model: Transformer,
@@ -468,6 +481,7 @@ def generate(
     from the first real token, so a padded row decodes as it would alone.
     """
     cfg = model.cfg
+    refuse_moe(cfg)
     device = model.embed.device
     prompt = prompt.to(device)
     b, t = prompt.shape

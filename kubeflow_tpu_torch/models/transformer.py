@@ -8,10 +8,18 @@ float32 logits.  Parameters keep the JAX package's layout and names
 (models/convert.py) maps them to and from the JAX tree, whose layer leaves
 are stacked ``[L, ...]``.
 
-Dense path only.  MoE, pipeline microbatching, ring attention and dropout
-raise ``NotPortedError`` until their slices of the port land (ROADMAP
-queue 1, items 10, 11 and 13).  ``flash_block_diag > 0`` selects the
-two-pass causal flash forward (ops/flash.py).
+``moe_experts > 0`` puts the mixture-of-experts MLP (models/moe.py) in
+each block in place of the dense one; the forward sums its per-layer aux
+loss (``return_aux=True``).  ``dropout_rate > 0`` drops the attention
+output and the MLP output of every block in a forward with
+``deterministic=False``, with masks drawn from the forward's explicit
+``generator``, two per layer, before the layer runs: the checkpointed
+regions take them as inputs, so a recompute under remat applies the same
+masks (``torch.utils.checkpoint`` restores only the default generators).
+Pipeline microbatching and ring attention raise ``NotPortedError`` until
+their slice of the port lands (ROADMAP queue 1, item 11).
+``flash_block_diag > 0`` selects the two-pass causal flash forward
+(ops/flash.py).
 
 Remat (``cfg.remat``) checkpoints each block with ``torch.utils.checkpoint``
 under the JAX package's policies (``_remat_policy``).  With flash attention
@@ -28,7 +36,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -42,6 +49,7 @@ from torch.utils.checkpoint import (
 
 from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.device import resolve_device
+from kubeflow_tpu_torch.models.moe import MoEMLP, default_group_size, fit_divisor
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.flash import flash_attention
 from kubeflow_tpu_torch.ops.quantize import embed_lookup, qeinsum
@@ -93,6 +101,11 @@ class TransformerConfig:
         if self.pipeline_microbatches and self.dropout_rate:
             raise ValueError("pipeline_microbatches requires dropout_rate=0")
 
+    def resolved_moe_group_size(self) -> int:
+        """The MoE routing group: ``moe_group_size``, or the impl's
+        default (models/moe.py ``default_group_size``) when it is 0."""
+        return self.moe_group_size or default_group_size(self.moe_impl)
+
     def flops_per_token(self) -> float:
         """Forward useful FLOPs per token (2*params matmul convention +
         attention term) - the MFU numerator, bwd counted as 2x by caller."""
@@ -113,14 +126,10 @@ class TransformerConfig:
 
 
 def _unsupported(cfg: TransformerConfig) -> Optional[str]:
-    if cfg.moe_experts > 0:
-        return "moe_experts > 0 (MoE, ROADMAP queue 1 item 13)"
     if cfg.pipeline_microbatches > 0:
         return "pipeline_microbatches > 0 (parallel training, ROADMAP queue 1 item 11)"
     if cfg.attention == "ring":
         return "attention='ring' (parallel training, ROADMAP queue 1 item 11)"
-    if cfg.dropout_rate > 0:
-        return "dropout_rate > 0 (training slice, ROADMAP queue 1 item 10)"
     return None
 
 
@@ -282,30 +291,69 @@ class MLP(nn.Module):
         return self.down(F.silu(gate) * up)
 
 
+def dropout_mask(shape, rate: float, generator: torch.Generator,
+                 device) -> torch.Tensor:
+    """flax ``nn.Dropout``'s keep mask: True with probability 1 - rate,
+    drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) \
+        < 1.0 - rate
+
+
+def _dropped(y: torch.Tensor, keep: torch.Tensor, rate: float
+             ) -> torch.Tensor:
+    """flax's dropout with the mask given: kept entries scaled by
+    1 / (1 - rate), the rest zero."""
+    return torch.where(keep, y / (1.0 - rate), torch.zeros_like(y))
+
+
 class Block(nn.Module):
+    """One decoder block: ``forward(x, positions, segment_ids=None,
+    masks=None) -> (x, aux)``.  ``aux`` is the MoE layer's load-balancing
+    loss (None for the dense MLP); ``masks`` are the two dropout keep
+    masks (attention output, MLP output) or None."""
+
     def __init__(self, cfg: TransformerConfig, generator=None, device=None):
         super().__init__()
         self.cfg = cfg
         self.attn_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
         self.attn = Attention(cfg, generator, device)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
-        self.mlp = MLP(cfg, generator, device)
+        if cfg.moe_experts > 0:
+            self.moe = MoEMLP(
+                cfg.d_model, cfg.d_ff, cfg.moe_experts, top_k=cfg.moe_top_k,
+                capacity_factor=cfg.moe_capacity_factor,
+                group_size=cfg.resolved_moe_group_size(), dtype=cfg.dtype,
+                impl=cfg.moe_impl, generator=generator, device=device)
+        else:
+            self.mlp = MLP(cfg, generator, device)
 
     def _qkv(self, x, positions):
         return self.attn.qkv(self.attn_norm(x), positions)
 
-    def _out_and_mlp(self, x, o):
-        x = x + self.attn.out(o)
-        return x + self.mlp(self.mlp_norm(x))
+    def _out_and_mlp(self, x, o, masks=None):
+        rate = self.cfg.dropout_rate
+        y = self.attn.out(o)
+        if masks is not None:
+            y = _dropped(y, masks[0], rate)
+        x = x + y
+        aux = None
+        if self.cfg.moe_experts > 0:
+            y, aux = self.moe(self.mlp_norm(x))
+        else:
+            y = self.mlp(self.mlp_norm(x))
+        if masks is not None:
+            y = _dropped(y, masks[1], rate)
+        return x + y, aux
 
-    def _block(self, x, positions, segment_ids):
+    def _block(self, x, positions, segment_ids, masks=None):
         q, k, v = self._qkv(x, positions)
-        return self._out_and_mlp(x, self.attn.attend(q, k, v, segment_ids))
+        return self._out_and_mlp(x, self.attn.attend(q, k, v, segment_ids),
+                                 masks)
 
-    def forward(self, x, positions, segment_ids=None):
+    def forward(self, x, positions, segment_ids=None, masks=None):
         cfg = self.cfg
         if not (cfg.remat and torch.is_grad_enabled()):
-            return self._block(x, positions, segment_ids)
+            return self._block(x, positions, segment_ids, masks)
         kwargs = _remat_policy(cfg)
         if (cfg.attention == "flash" and cfg.save_attn_residuals
                 and segment_ids is None):
@@ -314,8 +362,9 @@ class Block(nn.Module):
             # kernels need, so the forward kernel is not re-run.
             q, k, v = checkpoint(self._qkv, x, positions, **kwargs)
             o = self.attn.attend(q, k, v)
-            return checkpoint(self._out_and_mlp, x, o, **kwargs)
-        return checkpoint(self._block, x, positions, segment_ids, **kwargs)
+            return checkpoint(self._out_and_mlp, x, o, masks, **kwargs)
+        return checkpoint(self._block, x, positions, segment_ids, masks,
+                          **kwargs)
 
 
 class Transformer(nn.Module):
@@ -325,7 +374,16 @@ class Transformer(nn.Module):
     With ``return_hidden=True`` the unembed projection is skipped and the
     call returns ``(hidden [b, s, d], unembed [v, d] or [d, v])`` in the
     compute dtype instead: the chunked-CE contract (lm_task,
-    ``cfg.ce_chunk > 0``).
+    ``cfg.ce_chunk > 0``).  With ``return_aux=True`` the call returns
+    ``(that, aux)``, ``aux`` the MoE layers' summed load-balancing loss
+    (None without MoE).  ``deterministic=False`` (training) applies
+    dropout at ``cfg.dropout_rate`` with masks drawn from ``generator``,
+    which must then be given and live on the model's device; the
+    default, ``deterministic=True``, draws nothing, as every serving path
+    runs.  ``deterministic`` keeps the JAX package's signature and
+    meaning: there a ``dropout`` rng passed with ``deterministic=True``
+    is ignored, and ``deterministic=False`` without one is an error, so
+    here a generator is ignored and a missing one raises ValueError.
 
     Parameters are drawn with the JAX package's init scales from
     ``generator`` (lecun-normal kernels, normal(0.02) embedding, unit
@@ -374,35 +432,36 @@ class Transformer(nn.Module):
     def forward(self, tokens: torch.Tensor, *,
                 positions: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
-                return_hidden: bool = False):
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                return_hidden: bool = False,
+                return_aux: bool = False):
+        rate = self.cfg.dropout_rate
+        drop = rate > 0 and not deterministic
+        if drop and generator is None:
+            raise ValueError("dropout (deterministic=False, dropout_rate "
+                             f"{rate}) needs a generator")
         if positions is None:
             positions = torch.arange(
                 tokens.shape[1], device=tokens.device).expand(tokens.shape)
         x = self.embed_tokens(tokens)
+        aux = None
         for block in self.layers:
-            x = block(x, positions, segment_ids)
+            masks = None
+            if drop:
+                # Drawn here, outside the checkpointed regions (see the
+                # module docstring); each layer gets its own pair.
+                masks = tuple(dropout_mask(x.shape, rate, generator,
+                                           x.device) for _ in range(2))
+            x, layer_aux = block(x, positions, segment_ids, masks)
+            if layer_aux is not None:
+                aux = layer_aux if aux is None else aux + layer_aux
         if return_hidden:
             unembed = self.embed if self.w_out is None else self.w_out
-            return self.final_norm(x), unembed.to(self.cfg.dtype)
-        return self.logits(x)
-
-
-def fit_divisor(n: int, limit: int, label: str, consequence: str) -> int:
-    """Largest divisor of ``n`` <= ``limit`` (the JAX package's
-    models/moe.py ``fit_divisor``, copied: the chunked-CE tiling fit).
-
-    Below limit//4 a warning names the ``label`` and its
-    ``consequence`` so the config is fixed rather than silently paid
-    every step."""
-    want = min(limit, n)
-    got = next(c for c in range(want, 0, -1) if n % c == 0)
-    if got < want // 4:
-        warnings.warn(
-            f"{label} degenerated: {n} has no divisor near {limit} "
-            f"(fitted {got}).  {consequence}",
-            stacklevel=3,
-        )
-    return got
+            out = (self.final_norm(x), unembed.to(self.cfg.dtype))
+        else:
+            out = self.logits(x)
+        return (out, aux) if return_aux else out
 
 
 def lm_task(cfg: TransformerConfig, device=None,
@@ -414,7 +473,11 @@ def lm_task(cfg: TransformerConfig, device=None,
     drawn from ``generator`` (or the one given here).
     ``loss_fn(model, mutable, batch, rng) -> (loss, (metrics, mutable))``
     takes ``{"tokens": [b, s] int}`` and predicts tokens[1:]; the loss is
-    the mean over the b * (s - 1) predicted positions.
+    the mean over the b * (s - 1) predicted positions.  The forward runs
+    in training mode: dropout (``cfg.dropout_rate``) draws its masks from
+    ``rng``.  With MoE the loss adds ``moe_aux_coef`` times the summed
+    aux loss, reported as ``metrics["moe_aux"]`` (``perplexity`` is of
+    the cross-entropy alone), as in the JAX package.
     """
 
     def init_fn(gen: Optional[torch.Generator] = None):
@@ -473,14 +536,19 @@ def lm_task(cfg: TransformerConfig, device=None,
 
     def loss_fn(model: Transformer, mutable, batch, rng
                 ) -> Tuple[torch.Tensor, Tuple[Dict[str, torch.Tensor], dict]]:
-        del mutable, rng  # no mutable collections; dropout is not ported
+        del mutable  # no mutable collections
         tokens = batch["tokens"]
+        out, aux = model(tokens, deterministic=False, generator=rng,
+                         return_hidden=cfg.ce_chunk > 0, return_aux=True)
         if cfg.ce_chunk > 0:
-            hidden, unembed = model(tokens, return_hidden=True)
+            hidden, unembed = out
             loss = chunked_ce(hidden, unembed, tokens)
         else:
-            logits = model(tokens)
-            loss = ce_per_position(logits[:, :-1], tokens[:, 1:]).mean()
-        return loss, ({"perplexity": torch.exp(loss.detach())}, {})
+            loss = ce_per_position(out[:, :-1], tokens[:, 1:]).mean()
+        metrics = {"perplexity": torch.exp(loss.detach())}
+        if cfg.moe_experts > 0:
+            metrics["moe_aux"] = aux.detach()
+            loss = loss + cfg.moe_aux_coef * aux
+        return loss, (metrics, {})
 
     return init_fn, loss_fn

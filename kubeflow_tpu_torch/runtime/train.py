@@ -136,7 +136,7 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params, mutable = self.init_fn(gen)
         opt_state = self.tx.init(dict(params.named_parameters()))
-        # The step's own stream (dropout, once ported), apart from init's.
+        # The step's own stream (dropout's masks), apart from init's.
         rng = torch.Generator(device=self.device).manual_seed(seed + 1)
         return TrainState(step=0, params=params, opt_state=opt_state,
                           rng=rng, mutable=mutable)

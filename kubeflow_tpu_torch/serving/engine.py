@@ -431,11 +431,15 @@ class DecodeEngine:
         name: str = "engine",
         cuda_graphs: Optional[bool] = None,
     ):
-        from kubeflow_tpu_torch.models.generate import init_paged_state
+        from kubeflow_tpu_torch.models.generate import (
+            init_paged_state,
+            refuse_moe,
+        )
         from kubeflow_tpu_torch.runtime.prom import REGISTRY
 
         if mesh is not None or partition_rules is not None:
             raise _not_ported("mesh (tensor-parallel decode)", 6)
+        refuse_moe(model.cfg)
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         self.model = model

@@ -34,9 +34,18 @@ idempotency cache; ``--reload_backoff_s`` and ``--reload_backoff_cap_s``
 the reload breaker; and SIGTERM flips /readyz, then waits up to
 ``--drain_deadline_s`` on the policy clock for in-flight work.
 
+The gRPC ``PredictionService`` (``Predict``, ``Classify``,
+``GetModelMetadata``), its TF-Serving ``Predict`` face and
+``grpc.health.v1`` share one port, ``--grpc_port`` (9000 as in the JAX
+entry point and the serving manifest; 0 = any free port, -1 = REST
+only), started and stopped with the REST listener (serving/grpc_server.py).
+grpcio is imported only when gRPC is asked for: without it a server
+started with gRPC on fails at start with the ImportError, and
+``--grpc_port -1`` serves REST alone.  ``KFT_SERVING_READY rest=PORT
+grpc=PORT`` on stderr marks both listeners up (``grpc=-1`` when off).
+
 Not ported yet: ``--mesh`` (ROADMAP queue 1, item 6), accepted at its
-off value only and raising ``NotPortedError`` otherwise; the gRPC face
-(item 7).
+off value only and raising ``NotPortedError`` otherwise.
 """
 
 from __future__ import annotations
@@ -188,6 +197,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--model_base_path", required=True)
     ap.add_argument("--port", type=int, default=8000,
                     help="REST port (0 = any free port)")
+    ap.add_argument("--grpc_port", type=int, default=9000,
+                    help="gRPC PredictionService port (0 = any free "
+                         "port); -1 disables")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--poll_interval_s", type=float, default=2.0,
                     help="model version poll period (hot-swap latency)")
@@ -326,13 +338,21 @@ def _parser() -> argparse.ArgumentParser:
 def start(argv: Optional[List[str]] = None
           ) -> Tuple[ModelServer, ThreadingHTTPServer]:
     """Set up tracing and the ``KFT_FAULTS`` scenario, load the model,
-    start batching, the version watcher and the REST listener; returns
-    (server, httpd) with both running."""
+    start batching, the version watcher, the REST listener and (unless
+    ``--grpc_port -1``) the gRPC server; returns (server, httpd) with
+    all running.  The gRPC server is ``httpd.grpc_server`` (None when
+    off; its port is ``.bound_port``), and ``shutdown`` stops it."""
     server, httpd, _ = _start(_parser().parse_args(argv))
     return server, httpd
 
 
 def _start(args: argparse.Namespace):
+    make_grpc_server = None
+    if args.grpc_port >= 0:
+        # Deferred import, before anything starts: a REST-only server
+        # (--grpc_port -1) runs without grpcio installed, and a server
+        # asked for gRPC without it fails here.
+        from kubeflow_tpu_torch.serving.grpc_server import make_grpc_server
     if tracing.enable_from_args(args) is not None:
         logging.info("request tracing on (sample rate %g, store %d "
                      "traces): GET /debug/traces",
@@ -381,22 +401,41 @@ def _start(args: argparse.Namespace):
         server.enable_batching(args.model_name, factory)
     server.start_watcher()
     httpd, _ = make_http_server(server, port=args.port, host=args.host)
-    logging.info("serving %r on %s, rest=:%d", args.model_name,
-                 server.device, httpd.server_address[1])
+    httpd.grpc_server = None
+    if make_grpc_server is not None:
+        try:
+            httpd.grpc_server = make_grpc_server(
+                server, port=args.grpc_port, host=args.host)
+        except BaseException:
+            shutdown(server, httpd)
+            raise
+        logging.info("serving %r on %s, rest=:%d grpc=:%d",
+                     args.model_name, server.device,
+                     httpd.server_address[1], httpd.grpc_server.bound_port)
+    else:
+        logging.info("serving %r on %s, rest=:%d (grpc disabled)",
+                     args.model_name, server.device,
+                     httpd.server_address[1])
     return server, httpd, args
 
 
 def shutdown(server: ModelServer, httpd: ThreadingHTTPServer) -> None:
     httpd.shutdown()
     httpd.server_close()
+    grpc_server = getattr(httpd, "grpc_server", None)
+    if grpc_server is not None:
+        grpc_server.stop(grace=1).wait()
     server.stop()
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
     server, httpd, args = _start(_parser().parse_args(argv))
-    # Readiness marker for process-spawning callers: the bound port.
-    print(f"KFT_SERVING_READY rest={httpd.server_address[1]}",
+    # Readiness marker for process-spawning callers: the bound ports,
+    # on one line, after both listeners are up.
+    grpc_server = httpd.grpc_server
+    print(f"KFT_SERVING_READY rest={httpd.server_address[1]} "
+          f"grpc={grpc_server.bound_port if grpc_server else -1}",
           file=sys.stderr, flush=True)
     stop = threading.Event()
 

@@ -7,7 +7,10 @@ kubeflow_tpu/tools/train_lm.py, with the same flags plus ``--device``.
         --n-layers 2 --seq-len 64 --vocab-size 256 --steps 2
 
 It trains on one device: CUDA unless ``--device cpu`` is given, and an
-error when there is no GPU.  ``--optimizer adafactor``, ``--data-files``
+error when there is no GPU.  ``--moe-experts N`` (with
+``--moe-capacity-factor``) trains the mixture-of-experts LM
+(models/moe.py; top-2, the einsum dispatch, as in the JAX entry point).
+``--optimizer adafactor``, ``--data-files``
 (KFTR shards of {"tokens": [s]} examples, data/) and
 ``--checkpoint-dir`` / ``--checkpoint-every`` (verified checkpoints,
 runtime/checkpoint.py; a rerun resumes from the newest verified step)
@@ -48,7 +51,6 @@ def _not_ported(args) -> str:
         (args.pipeline_microbatches > 0,
          "--pipeline-microbatches (parallel training, ROADMAP queue 1 "
          "item 11)"),
-        (args.moe_experts > 0, "--moe-experts (MoE, ROADMAP queue 1 item 13)"),
         (args.attention == "ring",
          "--attention ring (parallel training, ROADMAP queue 1 item 11)"),
     ]
@@ -151,6 +153,7 @@ def run(argv=None):
         n_layers=args.n_layers, n_heads=args.n_heads,
         n_kv_heads=args.n_kv_heads, d_ff=args.d_ff,
         head_dim=args.head_dim, max_seq_len=args.seq_len,
+        moe_experts=args.moe_experts,
         moe_capacity_factor=args.moe_capacity_factor,
         attention=args.attention,
         remat=args.remat, ce_dtype=args.ce_dtype,

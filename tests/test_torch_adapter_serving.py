@@ -228,6 +228,7 @@ def test_rest_model_at_adapter(exported, servers):
     _, jax_server = servers
     server, httpd = serving_main.start([
         "--model_name", "lm", "--model_base_path", str(base), "--port", "0",
+        "--grpc_port", "-1",
         "--host", "127.0.0.1", "--device", "cpu", "--poll_interval_s", "60",
         "--lm_buckets", "16", "--kv_block_tokens", "4",
         "--prefill_chunk_tokens", "4", "--adapters_dir", str(adir),

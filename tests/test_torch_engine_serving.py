@@ -69,6 +69,7 @@ def _request(port, method, path, body=None):
 def _start(base, *flags):
     return serving_main.start([
         "--model_name", "lm", "--model_base_path", str(base), "--port", "0",
+        "--grpc_port", "-1",
         "--host", "127.0.0.1", "--device", "cpu", "--poll_interval_s", "60",
         *flags])
 

@@ -73,7 +73,12 @@ def test_every_port_module_imports():
             "kubeflow_tpu_torch.analysis",
             "kubeflow_tpu_torch.analysis.core",
             "kubeflow_tpu_torch.analysis.capture",
-            "kubeflow_tpu_torch.analysis.faultsites"} <= set(names)
+            "kubeflow_tpu_torch.analysis.faultsites",
+            "kubeflow_tpu_torch.models.moe",
+            "kubeflow_tpu_torch.serving.grpc_server",
+            "kubeflow_tpu_torch.serving.tf_compat",
+            "kubeflow_tpu_torch.serving.protos.prediction_pb2",
+            "kubeflow_tpu_torch.serving.protos.tf_compat_pb2"} <= set(names)
 
 
 ANALYSIS = sorted(p.name for p in
@@ -99,10 +104,16 @@ def test_analysis_modules_import_only_the_stdlib_and_themselves(module):
 @pytest.mark.parametrize("module", ["serving/engine.py",
                                     "serving/prefix_cache.py",
                                     "serving/adapters.py",
-                                    "runtime/tracing.py"])
+                                    "runtime/tracing.py",
+                                    "serving/grpc_server.py",
+                                    "serving/tf_compat.py",
+                                    "serving/protos/prediction_pb2.py",
+                                    "serving/protos/tf_compat_pb2.py",
+                                    "models/moe.py"])
 def test_engine_slice_modules_import_nothing_of_jax(module):
-    """The engine and the stdlib/numpy modules it needs are the port's
-    own copies: none imports JAX or the JAX package."""
+    """The engine, the gRPC face and the MoE MLP, and the stdlib/numpy
+    modules they need, are the port's own copies: none imports JAX or
+    the JAX package."""
     path = REPO / "kubeflow_tpu_torch" / module
     imported = list(_imports(path))
     assert imported
@@ -137,3 +148,17 @@ def test_default_device_is_cuda_or_an_error():
     assert resolve_device("cpu").type == "cpu"
     assert Transformer(SMALL, device="cpu").embed.device.type == "cpu"
     assert init_cache(SMALL, 1, 8, device="cpu")[0].device.type == "cpu"
+
+
+def test_serving_entry_point_imports_grpc_only_when_asked():
+    """serving/main.py imports the gRPC face inside the start-up that asks
+    for it: a REST-only server (``--grpc_port -1``) runs without grpcio
+    on the machine."""
+    path = REPO / "kubeflow_tpu_torch" / "serving" / "main.py"
+    tree = ast.parse(path.read_text())
+    top = [node for node in tree.body
+           if isinstance(node, (ast.Import, ast.ImportFrom))]
+    names = [a.name for n in top for a in n.names] + [
+        n.module or "" for n in top if isinstance(n, ast.ImportFrom)]
+    assert not [m for m in names if "grpc" in m], names
+    assert "kubeflow_tpu_torch.serving.grpc_server" in set(_imports(path))

@@ -376,6 +376,7 @@ def _request(port, method, path, body=None):
 def _start(base, role):
     return serving_main.start([
         "--model_name", "lm", "--model_base_path", str(base), "--port", "0",
+        "--grpc_port", "-1",
         "--host", "127.0.0.1", "--device", "cpu", "--poll_interval_s", "60",
         "--kv_block_tokens", str(BT), "--prefill_chunk_tokens", "8",
         "--lm_buckets", "32", "--role", role])

@@ -421,6 +421,7 @@ def test_rest_park_and_fetch_kv(lm, tmp_path, pool):
                signature={"inputs": ["tokens"], "outputs": ["tokens"]})
     server, httpd = serving_main.start([
         "--model_name", "lm", "--model_base_path", str(base), "--port", "0",
+        "--grpc_port", "-1",
         "--host", "127.0.0.1", "--device", "cpu", "--poll_interval_s", "60",
         "--kv_block_tokens", "4", "--prefill_chunk_tokens", "8",
         "--lm_buckets", "32", "--host_spill_blocks", "32"])

@@ -146,7 +146,8 @@ def server(request, tmp_path):
         proc = subprocess.Popen(
             [sys.executable, "-m", "kubeflow_tpu_torch.serving.main",
              "--model_name", "lm", "--model_base_path", str(base),
-             "--port", "0", "--host", "127.0.0.1", "--device", "cpu",
+             "--port", "0", "--grpc_port", "-1", "--host", "127.0.0.1",
+             "--device", "cpu",
              "--lm_buckets", "8,16,32", "--micro_batch_size", "4",
              "--batch_timeout_ms", "50", "--poll_interval_s", "0.2"]
             + extra,
@@ -158,7 +159,7 @@ def server(request, tmp_path):
             assert proc.poll() is None, log_path.read_text()
             for line in log_path.read_text().splitlines():
                 if line.startswith("KFT_SERVING_READY"):
-                    port = int(line.split("rest=")[1])
+                    port = int(line.split("rest=")[1].split()[0])
             time.sleep(0.1)
         assert port is not None, log_path.read_text()
         yield port, base, cfg, params

@@ -419,7 +419,7 @@ def test_train_lm_run_returns_the_trainer_and_its_last_metrics():
 
 @pytest.mark.parametrize("flag", [
     ["--mesh", "data=1"], ["--pipeline-microbatches", "2"],
-    ["--moe-experts", "4"], ["--attention", "ring"]])
+    ["--attention", "ring"]], ids=["flag0", "flag1", "flag3"])
 def test_train_lm_not_ported_flags_raise(flag):
     with pytest.raises(NotPortedError, match="ROADMAP queue 1 item"):
         train_lm.main(TINY_ARGS + ["--device", "cpu"] + flag)
