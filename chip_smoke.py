@@ -202,6 +202,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      off from one generator seed within 1e-3 relative Frobenius; the
      same seed again gives the same loss and seed + 1 another;
      flash_fwd, flash_dq and flash_dkv 12 times in the step;
+  7e. HFTA: a width-4 FusedTrainer (runtime/hfta.py) on bench.py's LM
+     cell (8 x 2048, flash, remat, adamw, bf16), member i at lr 1e-4 (i +
+     1) from seed i, m1 stopping at step 2: 2 warm-up steps, then 6 from
+     the members' states with the launch counters zeroed just before and
+     read just after: flash_fwd, flash_dq and flash_dkv 12 times a fused
+     step (one launch a layer for all members, folded to bh 256); m1's
+     parameters bit-equal to its step-2 snapshot; one fused step's
+     per-member loss and gradients against a solo step on the same
+     weights and batch; the folded kernels at bh 256 against their plain
+     versions (phase 2's bounds).  Information only: the fused step
+     against phase 7's solo step, tokens/s per member and in all, MFU,
+     peak memory, one profiled fused step;
   8. gradients: one step's gradients of the bf16 model (full width and
      depth, batch 2 x 2048) through the kernels (single pass, then two
      passes) and through the plain versions, each held to a float32 run
@@ -407,6 +419,20 @@ MOE_DISPATCH_ULPS = 2
 # would move them by O(1).
 DROPOUT_RATE = 0.1
 DROPOUT_REMAT_REL_TOL = 1e-3
+# Phase 7e: HFTA, a width-4 FusedTrainer on bench.py's LM cell (8 x 2048,
+# flash, remat, adamw, bf16): member i at lr 1e-4 (i + 1) from seed i, m1
+# stopping at step 2.  HFTA_WARMUP steps, then HFTA_STEPS counted and
+# timed ones; one fused step's per-member loss and gradients against a
+# solo step on the same weights and batch within HFTA_LOSS_ATOL and
+# HFTA_GRAD_REL_TOL (relative Frobenius over every parameter).  Sound
+# readings (NVIDIA H100 80GB HBM3 at 700 W): losses within 1e-6 and
+# gradients 1.97e-9 to 2.14e-9 apart (the batched GEMMs rounded as the
+# solo ones did).  The bounds are phase 7d's 1e-3: room for a GEMM
+# algorithm that rounds the bf16 activations otherwise, where a member's
+# weights, lr or batch mixed up with another's moves them by O(1).
+HFTA_MEMBERS, HFTA_STOP, HFTA_LR = 4, 2, 1e-4
+HFTA_WARMUP, HFTA_STEPS = 2, 6
+HFTA_LOSS_ATOL, HFTA_GRAD_REL_TOL = 1e-3, 1e-3
 # Phases 11-12: the CNN family.  Phase 11 serves these exports through the
 # classifier loader and the MicroBatcher; each model's name, its loader
 # config and its image size (the canonical input of each).
@@ -4000,6 +4026,225 @@ def dropout_phase(torch, flash):
                     "step_ms_remat": t_a * 1e3, "step_ms_no_remat": t_b * 1e3}
 
 
+def hfta_members():
+    from kubeflow_tpu_torch.runtime.hfta import MemberSpec
+
+    return [MemberSpec(name=f"m{i}", seed=i, lr=HFTA_LR * (i + 1),
+                       stop_step=HFTA_STOP if i == 1 else None)
+            for i in range(HFTA_MEMBERS)]
+
+
+class _CaptureGrads:
+    """The fused trainer's optimizer, keeping a float32 copy of the
+    stacked gradients it is handed (the solo comparison reads them)."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, None
+
+    def update_members(self, grads, state, params, keep):
+        self.grads = {k: g.float().clone() for k, g in grads.items()}
+        self.tx.update_members(grads, state, params, keep)
+
+
+def hfta_against_solo(torch, trainer, states, batch, loss_fn):
+    """One fused step from ``states`` (solo member states at the warm-up's
+    end) against each member's solo step on the same weights and batch:
+    loss difference and relative Frobenius error of all gradients."""
+    capture = _CaptureGrads(trainer._tx)
+    trainer._tx = capture
+    trainer.fit(itertools.repeat(batch), HFTA_WARMUP + 1,
+                member_states=states, log_every=1)
+    trainer._tx = capture.tx
+    fused_losses = [trainer.last_metrics[f"loss/m{i}"]
+                    for i in range(HFTA_MEMBERS)]
+    tokens = {"tokens": torch.as_tensor(batch["tokens"], device="cuda")}
+    rows = []
+    for i, st in enumerate(states):
+        model = st.params
+        loss, _ = loss_fn(model, {}, tokens, st.rng)
+        loss.backward()
+        named = dict(model.named_parameters())
+        num = sum((named[k].grad.float() - g[i]).square().sum()
+                  for k, g in capture.grads.items())
+        den = sum(g[i].square().sum() for g in capture.grads.values())
+        rows.append({"loss_fused": fused_losses[i], "loss_solo": loss.item(),
+                     "grad_rel_err": (num / den).sqrt().item()})
+        model.zero_grad(set_to_none=True)
+    del capture
+    for i, row in enumerate(rows):
+        log(f"hfta m{i}: one fused step against a solo step on the same "
+            f"weights and batch: loss {row['loss_fused']:.6f} / "
+            f"{row['loss_solo']:.6f}, gradients relative Frobenius "
+            f"{row['grad_rel_err']:.3e} (bounds {HFTA_LOSS_ATOL} and "
+            f"{HFTA_GRAD_REL_TOL})")
+        if not (abs(row["loss_fused"] - row["loss_solo"]) <= HFTA_LOSS_ATOL
+                and row["grad_rel_err"] <= HFTA_GRAD_REL_TOL):
+            fail(f"fused member m{i} disagrees with its solo step")
+    return rows
+
+
+def hfta_folded_kernels(torch, flash):
+    """The members' folded call at the phase's shape: 4 members of [8,
+    2048, 8 heads of 128] on one launch of each kernel at bh 256, o and
+    lse against the forward's plain version per member, dq, dk and dv
+    (the backward of the retained graph) against the backward's plain
+    version on the kernel's own o and lse, within phase 2's bounds."""
+    from torch.func import vmap
+
+    m, bh = HFTA_MEMBERS, TRAIN_BATCH * MODEL["n_heads"]
+    d = MODEL["head_dim"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    q, k, v, g = (torch.randn(m, bh, TRAIN_SEQ, d, device="cuda",
+                              generator=gen).bfloat16() for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = dict(flash.launch_counts)
+    o, lse = vmap(lambda a, b, c: flash._FlashFunction.apply(
+        a, b, c, True, 512, 512, 0))(q, k, v)
+    o.backward(g)
+    torch.cuda.synchronize()
+    once = {n: flash.launch_counts[n] - before[n] for n in TRAIN_KERNELS}
+    if once != {n: 1 for n in TRAIN_KERNELS}:
+        fail(f"the folded call did not launch each kernel once: {once}")
+    worst = {"o": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for i in range(m):
+        qi, ki, vi = q[i].detach(), k[i].detach(), v[i].detach()
+        ro, rlse = flash.flash_fwd_reference(qi.float(), ki.float(),
+                                             vi.float(), causal=True)
+        row = compare_out(torch, "flash_fwd", o[i].detach(), lse[i], ro,
+                          rlse, f"hfta member {i} of {m}, folded bh "
+                          f"{m * bh}")
+        worst["o"] = max(worst["o"], row["rel_err_o"])
+        worst["lse"] = max(worst["lse"], row["max_abs_err_lse"])
+        del ro, rlse
+        delta = (g[i].float() * o[i].detach().float()).sum(-1)
+        want = flash.flash_bwd_reference(qi, ki, vi, g[i], lse[i].detach(),
+                                         delta, causal=True)
+        for name, got, ref in zip(("dq", "dk", "dv"),
+                                  (q.grad[i], k.grad[i], v.grad[i]), want):
+            rel, mx, ok, finite = _bwd_errors(torch, got, ref)
+            worst[name] = max(worst[name], rel)
+            if not (ok and finite and rel <= BWD_REL_TOL):
+                fail(f"folded {name} of member {i} disagrees with the plain "
+                     f"version: relative {rel:.3e}, max {mx:.3e}")
+        del want
+    log(f"hfta folded kernels at bh {m * bh} ({m} members x {bh}): one "
+        f"launch each of {', '.join(TRAIN_KERNELS)}; worst member: o "
+        f"relative {worst['o']:.3e}, lse {worst['lse']:.3e}, dq "
+        f"{worst['dq']:.3e}, dk {worst['dk']:.3e}, dv {worst['dv']:.3e} "
+        f"(bounds {O_REL_TOL}, {LSE_ATOL}, {BWD_REL_TOL})")
+    del q, k, v, g, o, lse
+    torch.cuda.empty_cache()
+    return worst
+
+
+def train_hfta(torch, flash, solo_info):
+    """Phase 7e: a width-4 FusedTrainer (runtime/hfta.py) on bench.py's
+    LM cell: HFTA_WARMUP fused steps, then, the launch counters zeroed
+    just before and read just after, HFTA_STEPS more from the members'
+    states (m1 re-enters frozen at its stop): flash_fwd, flash_dq and
+    flash_dkv 12 times a fused step (one folded launch a layer for every
+    member), m1's parameters bit-equal to its step-2 snapshot, losses
+    finite.  Then one fused step against solo steps on the same weights,
+    and the folded kernels against their plain versions at bh 256.
+    Information: the fused step against phase 7's solo step, tokens/s,
+    peak memory, one profiled fused step."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig,
+        lm_task,
+    )
+    from kubeflow_tpu_torch.runtime.hfta import FusedTrainer
+
+    cfg = TransformerConfig(**dict(MODEL, max_seq_len=TRAIN_SEQ,
+                                   dtype=torch.bfloat16, remat=True))
+    init_fn, loss_fn = lm_task(cfg, device="cuda")
+    members = hfta_members()
+
+    def trainer():
+        return FusedTrainer(init_fn=init_fn, loss_fn=loss_fn,
+                            members=members, device="cuda")
+
+    rng = np.random.RandomState(0)
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, size=(
+        TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)}
+    ft = trainer()
+    warm = ft.fit(itertools.repeat(batch), HFTA_WARMUP, log_every=1,
+                  examples_per_step=TRAIN_BATCH)
+    snapshot = {k: v[1].detach().clone() for k, v in warm.params.items()}
+    states = [ft.member_state(warm, i) for i in range(HFTA_MEMBERS)]
+    del warm
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in flash.launch_counts:
+        flash.launch_counts[key] = 0
+    final = ft.fit(itertools.repeat(batch), HFTA_WARMUP + HFTA_STEPS,
+                   member_states=states, log_every=1,
+                   examples_per_step=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    counts = dict(flash.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = MODEL["n_layers"] * HFTA_STEPS
+    log(f"kernel launches on the HFTA path ({HFTA_STEPS} fused steps of "
+        f"{HFTA_MEMBERS} members): {counts} (want {want} = "
+        f"{MODEL['n_layers']} layers x {HFTA_STEPS} steps of each of "
+        f"{', '.join(TRAIN_KERNELS)}: one folded launch a layer)")
+    if any(counts[k] != want for k in TRAIN_KERNELS):
+        fail(f"the fused step launched the wrong number of kernels: {counts}")
+    steps = [int(s) for s in final.step.tolist()]
+    frozen = all(torch.equal(final.params[k][1], v)
+                 for k, v in snapshot.items())
+    log(f"hfta member steps {steps}; m1 bit-equal to its step-"
+        f"{HFTA_STOP} snapshot: {frozen}")
+    if not frozen or steps != [HFTA_WARMUP + HFTA_STEPS, HFTA_STOP,
+                               HFTA_WARMUP + HFTA_STEPS,
+                               HFTA_WARMUP + HFTA_STEPS]:
+        fail("the early-stopped member moved, or the steps are wrong")
+    losses = [ft.last_metrics[f"loss/m{i}"] for i in range(HFTA_MEMBERS)]
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite HFTA losses {losses}")
+    history = ft.metrics.history[-HFTA_STEPS:]
+    step_s = sorted(r["step_time_s"] for r in history)[HFTA_STEPS // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    active = HFTA_MEMBERS - 1
+    mfu = 3 * cfg.flops_per_token() * tokens * HFTA_MEMBERS / step_s \
+        / PEAK_BF16_FLOPS
+    step = ft.compile_step()
+    still = torch.tensor([i != 1 for i in range(HFTA_MEMBERS)],
+                         device="cuda")
+    stops = torch.full((HFTA_MEMBERS,), 10 ** 6, device="cuda")
+    device_batch = ft.shard_batch(batch)
+    busy = profile_busy(torch, lambda: (
+        step(final, still, stops, device_batch), torch.cuda.synchronize()),
+        "one HFTA fused step")
+    log(f"hfta: {HFTA_STEPS} fused steps of {HFTA_MEMBERS} members ("
+        f"{active} active, m1 frozen) on batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"losses {[round(x, 4) for x in losses]}; median fused step "
+        f"{step_s * 1e3:.1f} ms (host clock after a sync each step) against "
+        f"phase 7's solo step {solo_info['step_ms']:.1f} ms in this call "
+        f"({step_s * 1e3 / solo_info['step_ms']:.3f}x for "
+        f"{HFTA_MEMBERS} members); {tokens / step_s:.0f} tokens/s a member, "
+        f"{HFTA_MEMBERS * tokens / step_s:.0f} computed and "
+        f"{active * tokens / step_s:.0f} applied in all, against "
+        f"{solo_info['tokens_per_s']:.0f} solo; MFU {mfu:.4f} over the "
+        f"{HFTA_MEMBERS} members' work; peak memory {peak_gib:.2f} GiB "
+        f"(information only)")
+    del final, step, device_batch
+    torch.cuda.empty_cache()
+    check = trainer()
+    vs_solo = hfta_against_solo(torch, check, states, batch, loss_fn)
+    del check, states
+    torch.cuda.empty_cache()
+    folded = hfta_folded_kernels(torch, flash)
+    return counts, {"step_ms": step_s * 1e3, "solo_step_ms":
+                    solo_info["step_ms"], "tokens_per_s_member":
+                    tokens / step_s, "tokens_per_s_total":
+                    HFTA_MEMBERS * tokens / step_s, "mfu": mfu,
+                    "peak_gib": peak_gib, "losses": losses, "busy": busy,
+                    "vs_solo": vs_solo, "folded": folded}
+
+
 def checkpoint_and_data(torch, workdir: Path):
     """Phase 10: tools/train_lm.run on the bench flags with
     --optimizer adafactor, --data-files (KFTR shards written by the
@@ -4767,6 +5012,8 @@ def main() -> int:
         phase_done("7c MoE train")
         dropout_counts, dropout_info = dropout_phase(torch, flash)
         phase_done("7d dropout")
+        hfta_counts, hfta_info = train_hfta(torch, flash, train_info)
+        phase_done("7e HFTA")
         log(f"train, single pass + adamw against two-pass + adafactor: "
             f"median step {train_info['step_ms']:.1f} / "
             f"{two_pass_info['step_ms']:.1f} ms, MFU "
@@ -4799,7 +5046,8 @@ def main() -> int:
                                    "train": train_counts[name],
                                    "lm": lm_counts[name],
                                    "moe": moe_counts[name],
-                                   "dropout": dropout_counts[name]}
+                                   "dropout": dropout_counts[name],
+                                   "hfta": hfta_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
     for name, row in two_pass_rows.items():
@@ -4810,7 +5058,8 @@ def main() -> int:
                                    "train": two_pass_counts[name],
                                    "lm": lm_counts[name],
                                    "moe": moe_counts[name],
-                                   "dropout": dropout_counts[name]}
+                                   "dropout": dropout_counts[name],
+                                   "hfta": hfta_counts[name]}
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
@@ -4822,6 +5071,7 @@ def main() -> int:
                     "train_two_pass": dict(two_pass_info,
                                            forward=two_pass_times),
                     "train_moe": moe_info, "dropout": dropout_info,
+                    "hfta": hfta_info,
                     "checkpoint": ckpt_info,
                     "cnn_serve": cnn_serve_info,
                     "cnn_train": cnn_train_info}))

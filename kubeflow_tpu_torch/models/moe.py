@@ -141,10 +141,14 @@ class MoEMLP(nn.Module):
             slot_src = torch.full((n_groups, e, capacity + 1), g,
                                   dtype=torch.int64, device=x.device)
             token_ids = torch.arange(g, device=x.device).expand(n_groups, g)
+            # Out of place, so that the fused trainer's member map
+            # (runtime/member_map.py) batches it: an in-place scatter of
+            # mapped indices into an unmapped table has no batching rule.
             for idx, pos, keep in routes:
                 col = torch.where(keep, pos, capacity)
-                slot_src.view(n_groups, -1).scatter_(
-                    1, idx * (capacity + 1) + col, token_ids)
+                slot_src = slot_src.view(n_groups, -1).scatter(
+                    1, idx * (capacity + 1) + col, token_ids).view(
+                        n_groups, e, capacity + 1)
             slot_src = slot_src[:, :, :capacity]
             tokens_pad = torch.cat(
                 [tokens.to(dt), tokens.new_zeros((n_groups, 1, d), dtype=dt)],

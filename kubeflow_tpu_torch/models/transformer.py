@@ -27,8 +27,13 @@ and ``save_attn_residuals`` the attention call sits between two
 checkpointed regions (norm + qkv + rope before it; the output projection
 and the MLP after it), so its (o, lse) residuals are kept and the forward
 kernel runs once per layer per step, as JAX's ``checkpoint_name`` tags
-arrange.  ``lm_task`` is the next-token cross-entropy task for the
-trainer (runtime/train.py).
+arrange.  Every checkpointed region (and the chunked CE's) goes through
+``runtime/member_map.py``'s ``checkpoint``, naming the module whose
+parameters it reads: on the solo path that is ``torch.utils.checkpoint``;
+under the fused trainer's member map (runtime/hfta.py) the region wraps
+the map, and the dropout masks come from each member's own generator.
+``lm_task`` is the next-token cross-entropy task for the trainer
+(runtime/train.py).
 """
 
 from __future__ import annotations
@@ -43,7 +48,6 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy,
-    checkpoint,
     create_selective_checkpoint_contexts,
 )
 
@@ -53,6 +57,7 @@ from kubeflow_tpu_torch.models.moe import MoEMLP, default_group_size, fit_diviso
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.flash import flash_attention
 from kubeflow_tpu_torch.ops.quantize import embed_lookup, qeinsum
+from kubeflow_tpu_torch.runtime import member_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,12 +138,17 @@ def _unsupported(cfg: TransformerConfig) -> Optional[str]:
     return None
 
 
-def _no_batch_dims(op, args) -> bool:
+def _no_batch_dims(op, args, members: int = 1) -> bool:
     """An einsum of a weight (a "bse,ehd" projection) reaches aten as mm or
-    as a bmm over a batch of 1; attention scores are a bmm over b*h."""
+    as a bmm over a batch of 1; attention scores are a bmm over b*h.
+    Under the fused trainer's member map (runtime/member_map.py) the
+    region runs on stacked members, and a projection is a bmm over the
+    ``members``: it still counts as one without batch dims, as a member's
+    own dots do in JAX, where vmap lifts the step after its gradient
+    (and so its remat policy) is formed."""
     if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
         return True
-    return op is torch.ops.aten.bmm.default and args[0].shape[0] == 1
+    return op is torch.ops.aten.bmm.default and args[0].shape[0] == members
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -149,15 +159,16 @@ _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
 # dots_saveable (every matmul), "minimal" = nothing_saveable.
 _POLICIES: Dict[str, Optional[Callable]] = {
     "nobatch": _no_batch_dims,
-    "dots": lambda op, args: op in _MATMULS,
+    "dots": lambda op, args, members: op in _MATMULS,
     "minimal": None,
 }
 
 
-def _remat_policy(cfg: TransformerConfig):
+def _remat_policy(cfg: TransformerConfig, members: int = 1):
     """``torch.utils.checkpoint`` keyword arguments for one decoder block
     under remat: a selective-checkpoint context that saves what the
-    policy names (none for "minimal")."""
+    policy names (none for "minimal").  ``members``: the stacked members
+    the region runs on (runtime/member_map.py), 1 on the solo path."""
     if cfg.remat_policy not in _POLICIES:
         raise ValueError(
             f"remat_policy={cfg.remat_policy!r} not in "
@@ -166,7 +177,7 @@ def _remat_policy(cfg: TransformerConfig):
     kwargs = {"use_reentrant": False}
     if saves is not None:
         def policy(ctx, op, *args, **kw):
-            return (CheckpointPolicy.MUST_SAVE if saves(op, args)
+            return (CheckpointPolicy.MUST_SAVE if saves(op, args, members)
                     else CheckpointPolicy.PREFER_RECOMPUTE)
 
         kwargs["context_fn"] = functools.partial(
@@ -294,7 +305,12 @@ class MLP(nn.Module):
 def dropout_mask(shape, rate: float, generator: torch.Generator,
                  device) -> torch.Tensor:
     """flax ``nn.Dropout``'s keep mask: True with probability 1 - rate,
-    drawn from ``generator``."""
+    drawn from ``generator``.  Inside the fused trainer's member map the
+    generator is a ``member_map.MemberGenerators``: each member's mask is
+    drawn from its own generator outside the map."""
+    if isinstance(generator, member_map.MemberGenerators):
+        return generator.per_member(
+            lambda g: dropout_mask(shape, rate, g, device))
     return torch.rand(shape, generator=generator, device=device) \
         < 1.0 - rate
 
@@ -354,17 +370,22 @@ class Block(nn.Module):
         cfg = self.cfg
         if not (cfg.remat and torch.is_grad_enabled()):
             return self._block(x, positions, segment_ids, masks)
-        kwargs = _remat_policy(cfg)
+        # Each region names its module, whose parameters the member map
+        # takes as explicit inputs (runtime/member_map.py); on the solo
+        # path this is torch.utils.checkpoint.
+        policy = functools.partial(_remat_policy, cfg)
         if (cfg.attention == "flash" and cfg.save_attn_residuals
                 and segment_ids is None):
             # The flash call stays outside both checkpointed regions: its
             # saved (q, k, v, o, lse) are the residuals its backward
             # kernels need, so the forward kernel is not re-run.
-            q, k, v = checkpoint(self._qkv, x, positions, **kwargs)
+            q, k, v = member_map.checkpoint(self._qkv, x, positions,
+                                            module=self, policy=policy)
             o = self.attn.attend(q, k, v)
-            return checkpoint(self._out_and_mlp, x, o, masks, **kwargs)
-        return checkpoint(self._block, x, positions, segment_ids, masks,
-                          **kwargs)
+            return member_map.checkpoint(self._out_and_mlp, x, o, masks,
+                                         module=self, policy=policy)
+        return member_map.checkpoint(self._block, x, positions, segment_ids,
+                                     masks, module=self, policy=policy)
 
 
 class Transformer(nn.Module):
@@ -529,9 +550,9 @@ def lm_task(cfg: TransformerConfig, device=None,
         total = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for i in range(0, s, chunk):
             part = slice(i, i + chunk)
-            total = total + checkpoint(
+            total = total + member_map.checkpoint(
                 body, hidden[:, part], targets[:, part], weights[:, part],
-                unembed, use_reentrant=False)
+                unembed)
         return total / (b * (s - 1))
 
     def loss_fn(model: Transformer, mutable, batch, rng

@@ -529,29 +529,65 @@ def flash_bwd(
 
 class _FlashFunction(torch.autograd.Function):
     """Differentiable [bh, s, d] flash attention: the counterpart of the
-    JAX package's ``custom_vjp`` ``_flash``.  The forward goes through
-    ``_fwd_dispatch`` (single pass, or two passes with ``block_diag``)
-    and saves (q, k, v, o, lse); the merged lse of the two passes is the
-    full softmax's, so one backward serves both.  The backward takes
-    delta = rowsum(g * o) in float32 from the o the forward returned (in
-    the input dtype, as JAX does) and runs the backward kernels."""
+    JAX package's ``custom_vjp`` ``_flash``.  ``apply(q, k, v, causal,
+    block_q, block_k, block_diag) -> (o, lse)``; lse is a residual, not
+    differentiable.  The forward goes through ``_fwd_dispatch`` (single
+    pass, or two passes with ``block_diag``) and saves (q, k, v, o, lse);
+    the merged lse of the two passes is the full softmax's, so one
+    backward serves both.  The backward takes delta = rowsum(g * o) in
+    float32 from the o the forward returned (in the input dtype, as JAX
+    does) and runs the backward kernels.
+
+    The ``forward`` + ``setup_context`` form composes with
+    ``torch.func``.  Under ``torch.func.vmap`` the ``vmap`` rule folds the
+    mapped axis (the fused trainer's members, runtime/hfta.py) into bh
+    and applies the function once to the folded tensors, so one forward
+    launch, and in the backward one dq and one dkv launch, serve every
+    member: a vmapped ``pallas_call`` in JAX gains a grid axis, not a
+    loop."""
+
+    generate_vmap_rule = False
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, block_q: int = 512,
+    def forward(q, k, v, causal: bool, block_q: int = 512,
                 block_k: int = 512, block_diag: int = 0):
-        o, lse = _fwd_dispatch(q, k, v, causal, block_q, block_k, block_diag)
+        return _fwd_dispatch(q, k, v, causal, block_q, block_k, block_diag)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal = inputs[:4]
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
-        return o
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, g_lse):
+        del g_lse  # lse is not differentiable
         q, k, v, o, lse = ctx.saved_tensors
         # g comes out of _from_bhsd's transpose and may be strided.
         g = g.contiguous()
         delta = (g.float() * o.float()).sum(-1)
         dq, dk, dv = flash_bwd(q, k, v, g, lse, delta, causal=ctx.causal)
         return dq, dk, dv, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, block_q, block_k, block_diag):
+        """The mapped axis folded into bh: each input's mapped dim moved
+        to the front (an unmapped k or v expanded to every member),
+        made contiguous and reshaped to [m * bh, s, d]; the outputs
+        unfolded to [m, bh, ...], member-major, as they were folded."""
+        m = info.batch_size
+
+        def fold(t, dim):
+            t = t.expand(m, *t.shape) if dim is None else t.movedim(dim, 0)
+            return t.contiguous().reshape(-1, *t.shape[2:])
+
+        o, lse = _FlashFunction.apply(
+            fold(q, in_dims[0]), fold(k, in_dims[1]), fold(v, in_dims[2]),
+            causal, block_q, block_k, block_diag)
+        return (o.reshape(m, -1, *o.shape[1:]),
+                lse.reshape(m, -1, *lse.shape[1:])), (0, 0)
 
 
 def flash_bwd_block(
@@ -572,6 +608,11 @@ def flash_bwd_block(
         lse.reshape(b * h, sq).contiguous(),
         delta.reshape(b * h, sq).contiguous(), causal=causal)
     return _from_bhsd(dq, b, h), _from_bhsd(dk, b, h), _from_bhsd(dv, b, h)
+
+
+def _is_mapped(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a tensor inside ``torch.func.vmap``."""
+    return torch._C._functorch.is_batchedtensor(t)
 
 
 def flash_attention(
@@ -599,24 +640,37 @@ def flash_attention(
     as in the JAX package); the single pass picks its own tiles.  Under
     autograd the call goes through ``_FlashFunction`` (forward and
     backward kernels on the card, their plain versions on the CPU).
+    Under ``torch.func.vmap`` (the fused trainer, runtime/hfta.py) it
+    always does, with grad mode on: its vmap rule runs every member in
+    one launch; the forward-only branches raise there.
     """
     if segment_ids is not None:
         return dot_product_attention(
             q, k, v, causal=causal, segment_ids=segment_ids,
             kv_valid_start=kv_valid_start)
-    needs_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
+    # A tensor inside torch.func.vmap reports requires_grad False whatever
+    # it maps, so a mapped call takes the autograd function, whose vmap
+    # rule folds the members into one launch (see _FlashFunction).
+    mapped = any(_is_mapped(t) for t in (q, k, v))
+    needs_grad = torch.is_grad_enabled() and (mapped or any(
+        t.requires_grad for t in (q, k, v)))
     if needs_grad and kv_valid_start is not None:
         raise ValueError(
             "flash_attention with kv_valid_start is forward-only "
             "(inference prefill); it cannot be differentiated")
+    if mapped and not needs_grad:
+        raise ValueError(
+            "flash_attention under torch.func.vmap runs only through its "
+            "autograd function (grad mode on, no kv_valid_start): the "
+            "forward-only path launches on the tensors' memory, which a "
+            "mapped tensor does not have")
     b, sq, h, d = q.shape
     # repeat_interleave's autograd sums the head-group gradients (GQA).
     k, v = repeat_kv(k, v, h)
     q, k, v = _to_bhsd(q), _to_bhsd(k), _to_bhsd(v)
     if needs_grad:
-        out = _FlashFunction.apply(q, k, v, causal, block_q, block_k,
-                                   block_diag)
+        out, _ = _FlashFunction.apply(q, k, v, causal, block_q, block_k,
+                                      block_diag)
     elif kv_valid_start is not None:
         start = kv_valid_start.to(q.device, torch.int32).repeat_interleave(h)
         out, _ = flash_fwd(q, k, v, causal=causal, kv_start=start)

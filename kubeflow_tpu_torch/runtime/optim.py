@@ -36,6 +36,20 @@ All take the parameters and gradients as a name -> tensor mapping (as
 ``Trainer`` passes them, in ``named_parameters()`` order); adamw and sgd
 also take plain sequences.
 
+The fused trainer (runtime/hfta.py) steps N members whose leaves and
+states are stacked on a leading member axis.  Its optimizer is
+``default_tx_factory(lr)`` (optax.inject_hyperparams(optax.adamw)): the
+learning rate rides in the state as data, so stacking the members'
+states gives an ``[M]`` learning-rate vector beside ``[M]`` counts.
+``update_members(grads, state, params, keep)`` is the update of the
+stack: each member's count, bias corrections and learning rate are
+``[M]`` device tensors broadcast over its leaves, every candidate is
+computed out of place, and only the rows ``keep`` ([M] bool) selects are
+written, so a masked member's parameters, statistics and count stay
+bit-exact.  adafactor picks its factored dims and blocks from the solo
+leaf's shape (``[L, ...]``), never the stacked one, as the member axis is
+invisible under ``jax.vmap``.
+
 The update runs in place on the parameters and the moment buffers (one
 set of foreach kernels per step; JAX's functional update allocates new
 ones, which XLA's buffer donation then reuses).  The step count is a host
@@ -189,6 +203,26 @@ class AdamW:
         torch._foreach_add_(params, step)
         state.count = t
 
+    @torch.no_grad()
+    def update_members(self, grads: Tensors, state: AdamState,
+                       params: Tensors, keep: torch.Tensor,
+                       lr: torch.Tensor) -> None:
+        """The update of stacked members (module docstring): leaves [M,
+        ...], ``state.count`` [M] int, ``lr`` [M] float32 (the injected
+        state's; this optimizer's own is not read); rows where ``keep``
+        is False unchanged."""
+        t = state.count + 1
+        bc1, bc2 = _bias_correction(B1, t), _bias_correction(B2, t)
+        for p, g, mu, nu in zip(_values(params), _values(grads), state.mu,
+                                state.nu):
+            mu_new = torch.add(mu * B1, g, alpha=1 - B1)
+            nu_new = torch.addcmul(nu * B2, g, g, value=1 - B2)
+            denom = (nu_new / _rows(bc2, p)).sqrt_().add_(EPS)
+            step = (mu_new / _rows(bc1, p)).div_(denom)
+            step.add_(p, alpha=WEIGHT_DECAY).mul_(_rows(-lr, p))
+            _keep_rows(keep, ((mu, mu_new), (nu, nu_new), (p, p + step)))
+        state.count = torch.where(keep, t, state.count)
+
 
 def adamw(learning_rate: ScalarOrSchedule) -> AdamW:
     """optax.adamw(learning_rate) with optax's defaults."""
@@ -198,6 +232,24 @@ def adamw(learning_rate: ScalarOrSchedule) -> AdamW:
 def _lr(learning_rate: ScalarOrSchedule, count: int) -> float:
     return float(learning_rate(count) if callable(learning_rate)
                  else learning_rate)
+
+
+def _rows(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-member [M] vector shaped to broadcast over a stacked leaf."""
+    return v.reshape(v.shape + (1,) * (like.dim() - 1))
+
+
+def _keep_rows(keep: torch.Tensor, pairs) -> None:
+    """Write each candidate into its buffer in the rows ``keep`` selects
+    (``pairs``: (buffer, candidate)); the other rows stay bit-exact."""
+    for buf, new in pairs:
+        buf.copy_(torch.where(_rows(keep, buf), new, buf))
+
+
+def _bias_correction(decay: float, t: torch.Tensor) -> torch.Tensor:
+    """1 - decay ** t in float64, rounded to float32: the value a host
+    float from the solo update's integer count becomes in its kernel."""
+    return (1.0 - decay ** t.double()).float()
 
 
 def _check_float32(name: str, params: Sequence[torch.Tensor]) -> None:
@@ -263,6 +315,15 @@ def _leaf(tensors: Mapping[str, torch.Tensor], members: List[str]
     if len(members) == 1 and not members[0].startswith("layers."):
         return tensors[members[0]]
     return torch.stack([tensors[n] for n in members])
+
+
+def _member_leaf(tensors: Mapping[str, torch.Tensor], members: List[str]
+                 ) -> torch.Tensor:
+    """``_leaf`` of stacked members: [M, L, ...] for layers (a copy), the
+    [M, ...] tensor itself for a leaf of its own."""
+    if len(members) == 1 and not members[0].startswith("layers."):
+        return tensors[members[0]]
+    return torch.stack([tensors[n] for n in members], dim=1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -338,6 +399,60 @@ class Adafactor:
                                     list(u.unbind(0)))
         state.count += 1
 
+    @torch.no_grad()
+    def update_members(self, grads: Mapping[str, torch.Tensor],
+                       state: AdafactorState,
+                       params: Mapping[str, torch.Tensor],
+                       keep: torch.Tensor, lr: torch.Tensor) -> None:
+        """The update of stacked members (module docstring): each leaf
+        [M, ...] and its statistics [M, ...], ``state.count`` [M] int,
+        ``lr`` [M] float32 (the injected state's); the factored dims are
+        the solo leaf's, the block RMS each member's own; rows where
+        ``keep`` is False unchanged."""
+        t = state.count + 1
+        # optax: decay_rate_t = 1 - (count + 1) ** -0.8, in float32.
+        decay = 1.0 - (t.double() ** -DECAY_RATE).float()
+        fresh = (1.0 - decay.double()).float()
+        for leaf, members in self._groups(params).items():
+            layered = members[0].startswith("layers.")
+            g = _member_leaf(grads, members)
+            p = _member_leaf(params, members)
+            dims = _factored_dims(list(g.shape[1:]))
+            g_sqr = g * g + FACTORED_EPS
+            if dims is None:
+                v = state.v[leaf]
+                v_new = v * _rows(decay, v) + g_sqr * _rows(fresh, v)
+                u = g * torch.rsqrt(v_new)
+                stats = ((v, v_new),)
+            else:
+                d1, d0 = dims[0] + 1, dims[1] + 1
+                v_row, v_col = state.v_row[leaf], state.v_col[leaf]
+                row_new = v_row * _rows(decay, v_row) \
+                    + g_sqr.mean(d0) * _rows(fresh, v_row)
+                col_new = v_col * _rows(decay, v_col) \
+                    + g_sqr.mean(d1) * _rows(fresh, v_col)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_col_mean = row_new.mean(reduced_d1, keepdim=True)
+                row_factor = torch.rsqrt(row_new / row_col_mean)
+                col_factor = torch.rsqrt(col_new)
+                u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+                stats = ((v_row, row_new), (v_col, col_new))
+            every = tuple(range(1, u.dim()))
+            rms_u = torch.sqrt(torch.mean(u * u, dim=every))
+            u = u / _rows(torch.clamp(rms_u / CLIPPING_THRESHOLD, min=1.0), u)
+            u = u * _rows(lr, u)
+            rms_p = torch.sqrt(torch.mean(p * p, dim=every))
+            u = u * _rows(torch.where(rms_p <= MIN_PARAM_SCALE,
+                                      torch.full_like(rms_p, MIN_PARAM_SCALE),
+                                      rms_p), u)
+            p_new = p - u
+            if layered:
+                news = [(params[n], p_new[:, i]) for i, n in enumerate(members)]
+            else:
+                news = [(params[members[0]], p_new)]
+            _keep_rows(keep, stats + tuple(news))
+        state.count = torch.where(keep, t, state.count)
+
     @staticmethod
     def _scaled(leaf: str, g: torch.Tensor, state: AdafactorState,
                 decay: float) -> torch.Tensor:
@@ -408,8 +523,69 @@ class Sgd:
         torch._foreach_add_(params, torch._foreach_mul(step, -lr))
         state.count += 1
 
+    @torch.no_grad()
+    def update_members(self, grads: Tensors, state: SgdState,
+                       params: Tensors, keep: torch.Tensor,
+                       lr: torch.Tensor) -> None:
+        """The update of stacked members (module docstring): leaves [M,
+        ...], ``state.count`` [M] int, ``lr`` [M] float32 (the injected
+        state's); rows where ``keep`` is False unchanged."""
+        t = state.count + 1
+        traces = state.trace or [None] * len(_values(params))
+        for p, g, trace in zip(_values(params), _values(grads), traces):
+            pairs = ()
+            step = g
+            if trace is not None:
+                step = g + trace * self.momentum
+                pairs = ((trace, step),)
+            _keep_rows(keep, pairs + ((p, p + step * _rows(-lr, p)),))
+        state.count = torch.where(keep, t, state.count)
+
 
 def sgd(learning_rate: ScalarOrSchedule,
         momentum: Optional[float] = None) -> Sgd:
     """optax.sgd(learning_rate, momentum) (no Nesterov term)."""
     return Sgd(learning_rate, momentum)
+
+
+@dataclasses.dataclass
+class InjectedState:
+    """optax.inject_hyperparams's state in the port's idiom: the learning
+    rate as data (a float for one job, an [M] float32 tensor for stacked
+    members) beside the inner optimizer's state."""
+
+    learning_rate: Union[float, torch.Tensor]
+    inner: object
+
+
+@dataclasses.dataclass(frozen=True)
+class InjectLearningRate:
+    """``inner`` (adamw, adafactor or sgd) with its learning rate in its
+    state: optax.inject_hyperparams(tx)(learning_rate=...).  The
+    optimizer's own ``learning_rate`` is what ``init`` puts in the state;
+    ``inner``'s is never read."""
+
+    inner: Union[AdamW, "Adafactor", Sgd]
+    learning_rate: float
+
+    def init(self, params: Tensors) -> InjectedState:
+        return InjectedState(learning_rate=float(self.learning_rate),
+                             inner=self.inner.init(params))
+
+    def update(self, grads: Tensors, state: InjectedState,
+               params: Tensors) -> None:
+        dataclasses.replace(
+            self.inner, learning_rate=float(state.learning_rate)).update(
+                grads, state.inner, params)
+
+    def update_members(self, grads: Tensors, state: InjectedState,
+                       params: Tensors, keep: torch.Tensor) -> None:
+        self.inner.update_members(grads, state.inner, params, keep,
+                                  state.learning_rate)
+
+
+def default_tx_factory(lr: float) -> InjectLearningRate:
+    """The fused trainer's default (runtime/hfta.py): adamw with the
+    learning rate in its state, so that stacked members each step at
+    their own rate."""
+    return InjectLearningRate(adamw(0.0), lr)

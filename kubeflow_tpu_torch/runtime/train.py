@@ -75,6 +75,21 @@ def _tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
+def place_batch(batch: Any, device: torch.device) -> Any:
+    """Place a host batch (numpy or torch leaves) on ``device``.  On CUDA
+    the copy goes through pinned memory without blocking the host, so it
+    overlaps the step already enqueued."""
+    cuda = device.type == "cuda"
+
+    def put(x):
+        t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+        if cuda and t.device.type == "cpu":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+
+    return _tree_map(put, batch)
+
+
 class _Done:
     """Stands for a call in flight: ``synchronize()`` waits for the work
     enqueued before it was made (nothing to wait for on the CPU)."""
@@ -189,19 +204,8 @@ class Trainer:
         return run
 
     def shard_batch(self, batch: Any) -> Any:
-        """Place a host batch (numpy or torch leaves) on the device.  On
-        CUDA the copy goes through pinned memory without blocking the
-        host, so it overlaps the step already enqueued."""
-        cuda = self.device.type == "cuda"
-
-        def put(x):
-            t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
-                                else x)
-            if cuda and t.device.type == "cpu":
-                return t.pin_memory().to(self.device, non_blocking=True)
-            return t.to(self.device)
-
-        return _tree_map(put, batch)
+        """Place a host batch on the device (``place_batch``)."""
+        return place_batch(batch, self.device)
 
     # -- loop -------------------------------------------------------------
 

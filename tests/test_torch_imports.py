@@ -78,7 +78,9 @@ def test_every_port_module_imports():
             "kubeflow_tpu_torch.serving.grpc_server",
             "kubeflow_tpu_torch.serving.tf_compat",
             "kubeflow_tpu_torch.serving.protos.prediction_pb2",
-            "kubeflow_tpu_torch.serving.protos.tf_compat_pb2"} <= set(names)
+            "kubeflow_tpu_torch.serving.protos.tf_compat_pb2",
+            "kubeflow_tpu_torch.runtime.hfta",
+            "kubeflow_tpu_torch.runtime.member_map"} <= set(names)
 
 
 ANALYSIS = sorted(p.name for p in
