@@ -214,6 +214,29 @@ Phases, each fatal on failure (exit code 1, no result line):
      versions (phase 2's bounds).  Information only: the fused step
      against phase 7's solo step, tokens/s per member and in all, MFU,
      peak memory, one profiled fused step;
+ 7f. parallel: (a) ring attention (parallel/ring.py) as 4 processes
+     sharing the one GPU over gloo (testing/ring_check.py, each hop
+     staged through host memory) at the 188M LM's attention widths, b 1,
+     s 16384 (4096 a rank), 8 heads of 128, bf16, forward and backward:
+     causal, causal GQA with 2 kv heads, and non-causal; each case's o,
+     dq, dk and dv joined over the ranks against the kernel's
+     flash_attention on the whole sequence in this process and against
+     float32 attention, within the bounds below; the kernels' launches
+     summed over the ranks exactly the ring's live hops, 10 each of
+     flash_fwd, flash_dq and flash_dkv causal (R (R + 1) / 2 at R = 4)
+     and 16 non-causal, and no other kernel.  (b) tools/train_lm.run on
+     bench.py's LM cell with --mesh data=1: the bootstrap's one-process
+     job, a one-rank NCCL group, FSDP2 wrapping; 3 steps' losses within
+     1e-3 of phase 7's (same seed and batches), and 12 launches a step
+     of flash_fwd, flash_dq and flash_dkv.  (c) the same with --mesh
+     sequence=2 --attention ring as 2 processes on the card over gloo
+     (KFT_DIST_BACKEND=gloo): the ranks' losses equal, finite and within
+     1e-3 of phase 7's, 36 launches a step of each of the three over the
+     ranks (3 live hops a layer).  Information only: each rank's ring
+     forward and backward ms against the single process (the ranks
+     time-share one GPU: no scaling figure), the mesh step's ms, busy
+     share and peak memory against phase 7's, the ring trainer's step
+     ms;
   8. gradients: one step's gradients of the bf16 model (full width and
      depth, batch 2 x 2048) through the kernels (single pass, then two
      passes) and through the plain versions, each held to a float32 run
@@ -262,6 +285,7 @@ import http.client
 import itertools
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -433,6 +457,33 @@ DROPOUT_REMAT_REL_TOL = 1e-3
 HFTA_MEMBERS, HFTA_STOP, HFTA_LR = 4, 2, 1e-4
 HFTA_WARMUP, HFTA_STEPS = 2, 6
 HFTA_LOSS_ATOL, HFTA_GRAD_REL_TOL = 1e-3, 1e-3
+# Phase 7f: ring attention as RING_WORLD processes sharing the one GPU,
+# at the 188M LM's attention widths (MODEL's 8 heads of 128) over a
+# sequence of RING_SEQ; each case is (kv heads, causal).  Bounds, relative
+# Frobenius over each of o, dq, dk, dv joined over the ranks, against the
+# kernel on the whole sequence (both round p, ds and their outputs to
+# bf16, at other points of the sum; the ring also rounds each hop's dk
+# and dv before summing them in float32) and against float32 attention.
+# Sound readings (NVIDIA H100 80GB HBM3 at 700 W): 1.23e-3 to 3.24e-3
+# against the kernel, 2.19e-3 to 2.95e-3 against float32, where the
+# kernel's own reads 2.09e-3 to 2.95e-3; the bounds sit about 1.5x above
+# (phase 2's are 1e-2 and 2e-2); a hop merged at the wrong place or a
+# shard of the wrong rank moves them by O(1).
+RING_WORLD, RING_SEQ, RING_TIME_REPS = 4, 16384, 3
+RING_CASES = {"causal": (8, True), "gqa": (2, True), "full": (8, False)}
+RING_KERNEL_REL_TOL = 5e-3
+RING_F32_REL_TOL = {"o": 5e-3, "dq": 5e-3, "dk": 5e-3, "dv": 5e-3}
+RING_JOB_TIMEOUT_S = 300
+# The mesh trainer: --mesh data=1 for MESH_STEPS steps, each loss within
+# MESH_LOSS_ATOL of phase 7's (phase 7d's bound).
+MESH_STEPS, MESH_LOSS_ATOL = 3, 1e-3
+# The ring trainer: --mesh sequence=2 --attention ring at the same cell
+# as RING_TRAIN_WORLD processes sharing the GPU over gloo
+# (KFT_DIST_BACKEND=gloo: gloo moves FSDP2's collectives of CUDA tensors
+# on the card's torch, and the ring stages its hops through host memory),
+# each loss within MESH_LOSS_ATOL of phase 7's on the same global batch
+# (sound reading: 4.67e-4, the ring's merge rounding otherwise).
+RING_TRAIN_WORLD, RING_TRAIN_STEPS, RING_TRAIN_TIMEOUT_S = 2, 3, 300
 # Phases 11-12: the CNN family.  Phase 11 serves these exports through the
 # classifier loader and the MicroBatcher; each model's name, its loader
 # config and its image size (the canonical input of each).
@@ -4137,6 +4188,264 @@ def hfta_folded_kernels(torch, flash):
     return worst
 
 
+def ring_phase(torch, flash, workdir: Path):
+    """Phase 7f (a): the ring on RING_WORLD processes sharing the one GPU
+    against the kernel on the whole sequence and float32 attention, with
+    its launches per live hop.  Returns the causal case's launches
+    summed over the ranks, and the readings."""
+    from kubeflow_tpu_torch.testing import ring_check
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    h, d = MODEL["n_heads"], MODEL["head_dim"]
+
+    def draw(heads):
+        return torch.randn((1, RING_SEQ, heads, d), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    cases = {name: {"q": draw(h), "k": draw(hkv), "v": draw(hkv),
+                    "g": draw(h), "causal": causal}
+             for name, (hkv, causal) in RING_CASES.items()}
+    jobdir = workdir / "ring"
+    jobdir.mkdir()
+    t0 = time.perf_counter()
+    results = ring_check.run_job(jobdir, cases, RING_WORLD, "cuda",
+                                 time_reps=RING_TIME_REPS,
+                                 timeout_s=RING_JOB_TIMEOUT_S)
+    job_s = time.perf_counter() - t0
+    shutil.rmtree(jobdir, ignore_errors=True)
+    info = {"world": RING_WORLD, "seq": RING_SEQ, "job_s": job_s,
+            "cases": {}}
+    for name, c in cases.items():
+        args = [c[x] for x in "qkvg"]
+        launches = ring_check.totals(results, name, "launches")
+        hops = (RING_WORLD * (RING_WORLD + 1) // 2 if c["causal"]
+                else RING_WORLD * RING_WORLD)
+        want = {k: 0 for k in flash.launch_counts}
+        want.update(flash_fwd=hops, flash_dq=hops, flash_dkv=hops)
+        log(f"ring {name} (kv heads {c['k'].shape[2]}, causal "
+            f"{c['causal']}): launches over {RING_WORLD} ranks {launches}"
+            f" (want {hops} each of flash_fwd, flash_dq, flash_dkv)")
+        if launches != want:
+            fail(f"ring {name}: launches {launches}, want {want}")
+        whole = ring_check.whole_sequence(*args, c["causal"])
+        f32 = ring_check.reference_f32(*args, c["causal"])
+        errs = {}
+        for i, key in enumerate(("o", "dq", "dk", "dv")):
+            got = ring_check.gathered(results, name, key)
+            errs[key] = {"kernel": ring_check.rel_err(got, whole[i]),
+                         "f32": ring_check.rel_err(got, f32[i]),
+                         "whole_f32": ring_check.rel_err(whole[i], f32[i])}
+        log(f"ring {name}: relative Frobenius error of the ring against "
+            "the whole-sequence kernel / float32 (the kernel's own against"
+            " float32): " + ", ".join(
+                f"{k} {e['kernel']:.3e} / {e['f32']:.3e} "
+                f"({e['whole_f32']:.3e})" for k, e in errs.items())
+            + f" (bounds {RING_KERNEL_REL_TOL} / {RING_F32_REL_TOL['o']})")
+        bad = [k for k, e in errs.items()
+               if not (e["kernel"] < RING_KERNEL_REL_TOL
+                       and e["f32"] < RING_F32_REL_TOL[k])]
+        if bad:
+            fail(f"ring {name}: {bad} outside the bounds: {errs}")
+        del f32
+        q, k, v = (t.detach().clone().requires_grad_() for t in args[:3])
+        with torch.no_grad():
+            single_fwd = time_ms(torch, lambda: flash.flash_attention(
+                q, k, v, causal=c["causal"]), RING_TIME_REPS)
+        o = flash.flash_attention(q, k, v, causal=c["causal"])
+        single_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            o, (q, k, v), args[3], retain_graph=True), RING_TIME_REPS)
+        fwd = [r[name]["fwd_ms"] for r in results]
+        bwd = [r[name]["bwd_ms"] for r in results]
+        log(f"ring {name}: forward ms per rank {[round(x, 3) for x in fwd]}"
+            f", backward {[round(x, 3) for x in bwd]}; one process on the "
+            f"whole sequence: forward {single_fwd:.3f}, backward "
+            f"{single_bwd:.3f} ms (CUDA events; the {RING_WORLD} ranks "
+            "time-share one GPU and stage hops through host memory: no "
+            "scaling figure; information only)")
+        info["cases"][name] = {"errors": errs, "launches": launches,
+                               "rank_fwd_ms": fwd, "rank_bwd_ms": bwd,
+                               "single_fwd_ms": single_fwd,
+                               "single_bwd_ms": single_bwd}
+    return ring_check.totals(results, "causal", "launches"), info
+
+
+# One rank of the ring trainer: tools/train_lm.run with its own metrics
+# file, then its launch counts.
+_RING_TRAIN_RANK = r"""
+import json, os, sys
+import torch
+from kubeflow_tpu_torch.ops import flash
+from kubeflow_tpu_torch.tools import train_lm
+rank = os.environ["KFT_PROCESS_ID"]
+train_lm.run(sys.argv[2:] + ["--metrics-out", f"{sys.argv[1]}/rank{rank}.json"])
+torch.cuda.synchronize()
+print("LAUNCHES " + json.dumps(flash.launch_counts), flush=True)
+"""
+
+
+def ring_train_phase(torch, flash, solo_info, workdir: Path):
+    """Phase 7f (c): tools/train_lm.run with --mesh sequence=2 --attention
+    ring as RING_TRAIN_WORLD processes on the one GPU: the ranks' losses
+    equal, finite and near phase 7's on the same global batch; the
+    kernels' launches over the ranks the ring's live hops (3 a layer of
+    each at R = 2).  Information: the step time, staged hops and all."""
+    from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
+
+    out = workdir / "ring_train"
+    out.mkdir()
+    argv = TRAIN_FLAGS + ["--mesh", f"sequence={RING_TRAIN_WORLD}",
+                          "--attention", "ring",
+                          "--steps", str(RING_TRAIN_STEPS), "--log-every",
+                          "1", "--max-restarts", "0"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = run_ranks(["-c", _RING_TRAIN_RANK, str(out), *argv],
+                        RING_TRAIN_WORLD, timeout_s=RING_TRAIN_TIMEOUT_S,
+                        cwd=str(Path(__file__).resolve().parent),
+                        env=dict(os.environ, KFT_DIST_BACKEND="gloo"))
+    job_s = time.perf_counter() - t0
+    try:
+        check_ranks(results)
+    except RuntimeError as e:
+        fail(f"the ring trainer failed: {e}")
+    launches = {}
+    for r in results:
+        line = next(ln for ln in r.stdout.splitlines()
+                    if ln.startswith("LAUNCHES "))
+        for key, n in json.loads(line[9:]).items():
+            launches[key] = launches.get(key, 0) + n
+    hops = RING_TRAIN_WORLD * (RING_TRAIN_WORLD + 1) // 2
+    want = {k: 0 for k in flash.launch_counts}
+    want.update({k: MODEL["n_layers"] * hops * RING_TRAIN_STEPS
+                 for k in TRAIN_KERNELS})
+    log(f"ring trainer (--mesh sequence={RING_TRAIN_WORLD} --attention "
+        f"ring, {RING_TRAIN_WORLD} processes over gloo): launches over "
+        f"the ranks {launches} (want {want['flash_fwd']} of each of "
+        f"{', '.join(TRAIN_KERNELS)}: {hops} live hops a layer a step)")
+    if launches != want:
+        fail(f"ring trainer launches {launches}, want {want}")
+    histories = [json.loads((out / f"rank{r}.json").read_text())["history"]
+                 for r in range(RING_TRAIN_WORLD)]
+    losses = [[h["loss"] for h in hist] for hist in histories]
+    solo = solo_info["losses"][:RING_TRAIN_STEPS]
+    diff = max(abs(a - b) for a, b in zip(losses[0], solo))
+    steps_ms = [h["step_time_s"] * 1e3 for h in histories[0]]
+    log(f"ring trainer losses {[round(x, 5) for x in losses[0]]} on every "
+        f"rank: {all(x == losses[0] for x in losses)}; phase 7's "
+        f"{[round(x, 5) for x in solo]}: max |diff| {diff:.2e}; steps "
+        f"{[round(x, 1) for x in steps_ms]} ms (the first carries start-up;"
+        f" both ranks on one GPU, hops and FSDP2's gradient all-reduce "
+        f"through host memory), job {job_s:.1f} s (information only)")
+    if not (len(losses[0]) == RING_TRAIN_STEPS
+            and all(x == losses[0] for x in losses)
+            and all(map(math.isfinite, losses[0]))
+            and diff <= MESH_LOSS_ATOL):
+        fail(f"ring trainer losses differ across ranks, are not finite or "
+             f"are more than {MESH_LOSS_ATOL} from phase 7's: {losses}")
+    return launches, {"losses": losses[0], "max_loss_diff": diff,
+                      "step_ms": steps_ms, "job_s": job_s}
+
+
+def profile_step(torch, trainer, state, batch):
+    """(host ms, device busy ms or None) of one training step, the second
+    of two, the step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = trainer.compile_step()
+    placed = trainer.shard_batch(batch)
+    state, _ = step(state, placed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, placed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall * 1e3, (busy_us / 1e3 if busy_us else None)
+
+
+def mesh_phase(torch, flash, solo_info, workdir: Path):
+    """Phase 7f (b): tools/train_lm.run with --mesh data=1 (a one-rank
+    NCCL group and FSDP2 over it): MESH_STEPS losses against phase 7's,
+    12 launches a step of each training kernel; then, information, one
+    profiled step of the mesh trainer and of the trainer without one."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig,
+        lm_task,
+    )
+    from kubeflow_tpu_torch.runtime.train import Trainer
+    from kubeflow_tpu_torch.tools import train_lm
+
+    out = workdir / "mesh_metrics.json"
+    argv = TRAIN_FLAGS + ["--mesh", "data=1", "--steps", str(MESH_STEPS),
+                          "--log-every", "1", "--max-restarts", "0",
+                          "--metrics-out", str(out)]
+    torch.cuda.reset_peak_memory_stats()
+    for key in flash.launch_counts:
+        flash.launch_counts[key] = 0
+    trainer = train_lm.run(argv)
+    torch.cuda.synchronize()
+    counts = dict(flash.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    try:
+        if trainer.mesh is None or dist.get_backend() != "nccl" or \
+                dist.get_world_size() != 1:
+            fail("--mesh data=1 did not train over a one-rank NCCL mesh")
+        want = MODEL["n_layers"] * MESH_STEPS
+        log(f"mesh trainer (--mesh data=1, NCCL, FSDP2): launches over "
+            f"{MESH_STEPS} steps {counts} (want {want} of each of "
+            f"{', '.join(TRAIN_KERNELS)})")
+        bad = [k for k in TRAIN_KERNELS if counts[k] != want]
+        if bad:
+            fail(f"mesh trainer kernels launched the wrong number of "
+                 f"times: {bad}")
+        history = json.loads(out.read_text())["history"]
+        losses = [r["loss"] for r in history]
+        solo = solo_info["losses"][:MESH_STEPS]
+        diff = max(abs(a - b) for a, b in zip(losses, solo))
+        log(f"mesh trainer losses {[round(x, 5) for x in losses]} against "
+            f"phase 7's {[round(x, 5) for x in solo]}: max |diff| "
+            f"{diff:.2e} (bound {MESH_LOSS_ATOL})")
+        if len(losses) != MESH_STEPS or not diff <= MESH_LOSS_ATOL:
+            fail("the mesh trainer's losses differ from phase 7's")
+        batch = {"tokens": np.random.RandomState(SEED).randint(
+            0, MODEL["vocab_size"],
+            size=(TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)}
+        state = trainer.create_state(SEED)
+        mesh_ms, mesh_busy = profile_step(torch, trainer, state, batch)
+        del state
+    finally:
+        dist.destroy_process_group()
+    cfg = TransformerConfig(**dict(MODEL, max_seq_len=TRAIN_SEQ, remat=True,
+                                   attention="flash", dtype=torch.bfloat16))
+    init_fn, loss_fn = lm_task(cfg, device="cuda")
+    plain = Trainer(init_fn=init_fn, loss_fn=loss_fn, tx=trainer.tx,
+                    device="cuda")
+    state = plain.create_state(SEED)
+    solo_ms, solo_busy = profile_step(torch, plain, state, batch)
+    del state
+
+    def share(busy, wall):
+        return "not measured" if busy is None else f"{busy / wall:.3f}"
+
+    log(f"mesh trainer step (one profiled step after one more): "
+        f"{mesh_ms:.1f} ms, busy share {share(mesh_busy, mesh_ms)}, peak "
+        f"memory {peak_gib:.2f} GiB over its run; without a mesh "
+        f"{solo_ms:.1f} ms, busy share {share(solo_busy, solo_ms)}; phase "
+        f"7's median step {solo_info['step_ms']:.1f} ms, peak "
+        f"{solo_info['peak_gib']:.2f} GiB (host clock; information only)")
+    return counts, {"losses": losses, "max_loss_diff": diff,
+                    "step_ms": mesh_ms, "busy_ms": mesh_busy,
+                    "peak_gib": peak_gib, "solo_step_ms": solo_ms,
+                    "solo_busy_ms": solo_busy}
+
+
 def train_hfta(torch, flash, solo_info):
     """Phase 7e: a width-4 FusedTrainer (runtime/hfta.py) on bench.py's
     LM cell: HFTA_WARMUP fused steps, then, the launch counters zeroed
@@ -5014,6 +5323,12 @@ def main() -> int:
         phase_done("7d dropout")
         hfta_counts, hfta_info = train_hfta(torch, flash, train_info)
         phase_done("7e HFTA")
+        ring_counts, ring_info = ring_phase(torch, flash, workdir)
+        mesh_counts, mesh_info = mesh_phase(torch, flash, train_info,
+                                            workdir)
+        ring_train_counts, ring_train_info = ring_train_phase(
+            torch, flash, train_info, workdir)
+        phase_done("7f parallel")
         log(f"train, single pass + adamw against two-pass + adafactor: "
             f"median step {train_info['step_ms']:.1f} / "
             f"{two_pass_info['step_ms']:.1f} ms, MFU "
@@ -5047,7 +5362,10 @@ def main() -> int:
                                    "lm": lm_counts[name],
                                    "moe": moe_counts[name],
                                    "dropout": dropout_counts[name],
-                                   "hfta": hfta_counts[name]}
+                                   "hfta": hfta_counts[name],
+                                   "ring": ring_counts[name],
+                                   "mesh": mesh_counts[name],
+                                   "ring_train": ring_train_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
     for name, row in two_pass_rows.items():
@@ -5059,7 +5377,10 @@ def main() -> int:
                                    "lm": lm_counts[name],
                                    "moe": moe_counts[name],
                                    "dropout": dropout_counts[name],
-                                   "hfta": hfta_counts[name]}
+                                   "hfta": hfta_counts[name],
+                                   "ring": ring_counts[name],
+                                   "mesh": mesh_counts[name],
+                                   "ring_train": ring_train_counts[name]}
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
@@ -5072,6 +5393,8 @@ def main() -> int:
                                            forward=two_pass_times),
                     "train_moe": moe_info, "dropout": dropout_info,
                     "hfta": hfta_info,
+                    "parallel": {"ring": ring_info, "mesh": mesh_info,
+                                 "ring_train": ring_train_info},
                     "checkpoint": ckpt_info,
                     "cnn_serve": cnn_serve_info,
                     "cnn_train": cnn_train_info}))

@@ -16,10 +16,18 @@ output and the MLP output of every block in a forward with
 ``generator``, two per layer, before the layer runs: the checkpointed
 regions take them as inputs, so a recompute under remat applies the same
 masks (``torch.utils.checkpoint`` restores only the default generators).
-Pipeline microbatching and ring attention raise ``NotPortedError`` until
-their slice of the port lands (ROADMAP queue 1, item 11).
-``flash_block_diag > 0`` selects the two-pass causal flash forward
-(ops/flash.py).
+Pipeline microbatching raises ``NotPortedError`` until GPipe lands
+(ROADMAP queue 1, item 20).  ``flash_block_diag > 0`` selects the
+two-pass causal flash forward (ops/flash.py).
+
+Under a mesh (``Transformer(cfg, mesh=...)``, a ``DeviceMesh`` from
+parallel/mesh.py) each rank runs the model on its local shard of the
+batch and, with ``sequence`` above 1, of the sequence: ``attention=
+"ring"`` is ring attention over the ``sequence`` group
+(parallel/ring.py, which requires a mesh, as in JAX), ``"flash"`` is
+``make_sharded_flash``, and RoPE positions are global (rank r of the
+sequence group starts at r * s_local).  ``lm_task(cfg, mesh=...)``'s
+targets and loss are the global sequence's (see its docstring).
 
 Remat (``cfg.remat``) checkpoints each block with ``torch.utils.checkpoint``
 under the JAX package's policies (``_remat_policy``).  With flash attention
@@ -55,8 +63,21 @@ from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.moe import MoEMLP, default_group_size, fit_divisor
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
-from kubeflow_tpu_torch.ops.flash import flash_attention
+from kubeflow_tpu_torch.ops.flash import flash_attention, make_sharded_flash
 from kubeflow_tpu_torch.ops.quantize import embed_lookup, qeinsum
+from kubeflow_tpu_torch.parallel.ring import (
+    from_next_rank,
+    make_ring_attention,
+)
+from kubeflow_tpu_torch.parallel.mesh import (
+    DATA,
+    EXPERT,
+    FSDP,
+    PIPELINE,
+    SEQUENCE,
+    TENSOR,
+    axis_sizes,
+)
 from kubeflow_tpu_torch.runtime import member_map
 
 
@@ -77,8 +98,8 @@ class TransformerConfig:
     remat_policy: str = "nobatch"
     save_attn_residuals: bool = True
     tied_embeddings: bool = True
-    # "dot" (materialized scores) or "flash" (ops/flash.py); "ring" is
-    # not ported yet.
+    # "dot" (materialized scores), "flash" (ops/flash.py) or "ring"
+    # (parallel/ring.py; needs a mesh).
     attention: str = "dot"
     # The two-pass forward's split (flash_block_diag > 0): keys before
     # each row's boundary at (flash_block_q, flash_block_k), then the
@@ -130,12 +151,30 @@ class TransformerConfig:
         return float(matmul + attn)
 
 
-def _unsupported(cfg: TransformerConfig) -> Optional[str]:
+def _unsupported(cfg: TransformerConfig, mesh) -> Optional[str]:
     if cfg.pipeline_microbatches > 0:
-        return "pipeline_microbatches > 0 (parallel training, ROADMAP queue 1 item 11)"
-    if cfg.attention == "ring":
-        return "attention='ring' (parallel training, ROADMAP queue 1 item 11)"
+        return ("pipeline_microbatches > 0 (GPipe, ROADMAP queue 1 item "
+                "20)")
+    if mesh is None:
+        return None
+    sizes = axis_sizes(mesh)
+    if sizes[TENSOR] > 1:
+        return ("a mesh with tensor > 1 (tensor parallelism, ROADMAP queue "
+                "1 item 19)")
+    if sizes[PIPELINE] > 1:
+        return "a mesh with pipeline > 1 (GPipe, ROADMAP queue 1 item 20)"
+    if sizes[EXPERT] > 1 or cfg.moe_experts > 0:
+        return ("MoE or a mesh with expert > 1 (MoE's expert axis, ROADMAP "
+                "queue 1 item 21)")
     return None
+
+
+def _sequence_shard(mesh) -> Tuple[int, int]:
+    """(this rank's index, size) along the ``sequence`` axis; (0, 1)
+    without a mesh."""
+    if mesh is None or axis_sizes(mesh)[SEQUENCE] == 1:
+        return 0, 1
+    return mesh.get_local_rank(SEQUENCE), axis_sizes(mesh)[SEQUENCE]
 
 
 def _no_batch_dims(op, args, members: int = 1) -> bool:
@@ -238,13 +277,22 @@ class RMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, generator=None, device=None):
+    def __init__(self, cfg: TransformerConfig, generator=None, device=None,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
         e, h, hkv, d = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         self.wq = _param((e, h, d), generator, device)
         self.wkv = _param((2, e, hkv, d), generator, device)
         self.wo = _param((h, d, e), generator, device)
+        # The mesh's attention (JAX's Attention._attend under a mesh).
+        self._sharded = None
+        if cfg.attention == "ring":
+            self._sharded = make_ring_attention(mesh, causal=True)
+        elif cfg.attention == "flash" and mesh is not None:
+            self._sharded = make_sharded_flash(
+                mesh, causal=True, block_q=cfg.flash_block_q,
+                block_k=cfg.flash_block_k, block_diag=cfg.flash_block_diag)
 
     def project(self, x: torch.Tensor):
         """Projections of x [b, s, e] before rope: q [b,s,h,d], k and v
@@ -266,6 +314,10 @@ class Attention(nn.Module):
 
     def attend(self, q, k, v, segment_ids=None) -> torch.Tensor:
         cfg = self.cfg
+        if self._sharded is not None and segment_ids is None:
+            return self._sharded(q, k, v)
+        if cfg.attention == "ring":
+            raise ValueError("ring attention takes no segment_ids")
         if cfg.attention == "flash":
             return flash_attention(
                 q, k, v, causal=True, segment_ids=segment_ids,
@@ -328,11 +380,12 @@ class Block(nn.Module):
     loss (None for the dense MLP); ``masks`` are the two dropout keep
     masks (attention output, MLP output) or None."""
 
-    def __init__(self, cfg: TransformerConfig, generator=None, device=None):
+    def __init__(self, cfg: TransformerConfig, generator=None, device=None,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
         self.attn_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
-        self.attn = Attention(cfg, generator, device)
+        self.attn = Attention(cfg, generator, device, mesh)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
         if cfg.moe_experts > 0:
             self.moe = MoEMLP(
@@ -374,11 +427,12 @@ class Block(nn.Module):
         # takes as explicit inputs (runtime/member_map.py); on the solo
         # path this is torch.utils.checkpoint.
         policy = functools.partial(_remat_policy, cfg)
-        if (cfg.attention == "flash" and cfg.save_attn_residuals
+        if (cfg.attention in ("flash", "ring") and cfg.save_attn_residuals
                 and segment_ids is None):
-            # The flash call stays outside both checkpointed regions: its
-            # saved (q, k, v, o, lse) are the residuals its backward
-            # kernels need, so the forward kernel is not re-run.
+            # The flash (or ring) call stays outside both checkpointed
+            # regions: its saved (q, k, v, o, lse) are the residuals its
+            # backward kernels need, so the forward kernels (and the
+            # ring's transfers) are not re-run.
             q, k, v = member_map.checkpoint(self._qkv, x, positions,
                                             module=self, policy=policy)
             o = self.attn.attend(q, k, v)
@@ -386,6 +440,20 @@ class Block(nn.Module):
                                          module=self, policy=policy)
         return member_map.checkpoint(self._block, x, positions, segment_ids,
                                      masks, module=self, policy=policy)
+
+
+# The JAX model's logical axes per parameter (nn.with_logical_partitioning
+# in kubeflow_tpu/models/transformer.py), by name within its block.
+_LOGICAL_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    "embed": ("vocab", "embed"),
+    "w_out": ("embed", "vocab"),
+    "attn.wq": ("embed", "heads", "kv"),
+    "attn.wkv": (None, "embed", "heads", "kv"),
+    "attn.wo": ("heads", "kv", "embed"),
+    "mlp.wi": (None, "embed", "mlp"),
+    "mlp.wo": ("mlp", "embed"),
+    "scale": ("norm",),
+}
 
 
 class Transformer(nn.Module):
@@ -417,20 +485,28 @@ class Transformer(nn.Module):
     """
 
     def __init__(self, cfg: TransformerConfig, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
-        reason = _unsupported(cfg)
+        reason = _unsupported(cfg, mesh)
         if reason is not None:
             raise NotPortedError(f"not ported yet: {reason}")
+        if cfg.attention == "ring" and mesh is None:
+            raise ValueError("attention='ring' requires a mesh")
+        if _sequence_shard(mesh)[1] > 1 and cfg.attention != "ring":
+            raise ValueError(
+                f"attention={cfg.attention!r} under a mesh with sequence > 1 "
+                "would attend within each rank's shard only; the sharded "
+                "sequence takes attention='ring'")
         if cfg.remat:
             _remat_policy(cfg)  # an unknown policy fails here, not mid-step
         if device is None or torch.device(device).type != "meta":
             device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
         self.embed = _param((cfg.vocab_size, cfg.d_model), generator, device,
                             init="embed")
         self.layers = nn.ModuleList(
-            Block(cfg, generator, device) for _ in range(cfg.n_layers))
+            Block(cfg, generator, device, mesh) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
         self.w_out = None
         if not cfg.tied_embeddings:
@@ -439,6 +515,18 @@ class Transformer(nn.Module):
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return embed_lookup(self.embed, tokens, self.cfg.dtype)
+
+    def param_logical_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Each parameter's logical axes, as the JAX model annotates the
+        same leaf (without its ``layers`` stack dim); the rule table
+        (parallel/mesh.py) maps them to mesh axes."""
+        out = {}
+        for name, _ in self.named_parameters():
+            rest = name.split(".", 2)[2] if name.startswith("layers.") \
+                else name
+            key = "scale" if rest.endswith("scale") else rest
+            out[name] = _LOGICAL_AXES.get(key, ())
+        return out
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and unembed of hidden states [b, s, e]."""
@@ -463,8 +551,12 @@ class Transformer(nn.Module):
             raise ValueError("dropout (deterministic=False, dropout_rate "
                              f"{rate}) needs a generator")
         if positions is None:
+            # Global positions: this sequence shard starts at r * s_local.
+            rank, _ = _sequence_shard(self.mesh)
+            s = tokens.shape[1]
             positions = torch.arange(
-                tokens.shape[1], device=tokens.device).expand(tokens.shape)
+                rank * s, (rank + 1) * s,
+                device=tokens.device).expand(tokens.shape)
         x = self.embed_tokens(tokens)
         aux = None
         for block in self.layers:
@@ -486,7 +578,7 @@ class Transformer(nn.Module):
 
 
 def lm_task(cfg: TransformerConfig, device=None,
-            generator: Optional[torch.Generator] = None):
+            generator: Optional[torch.Generator] = None, mesh=None):
     """(init_fn, loss_fn) pair for the trainer: next-token cross-entropy.
 
     ``init_fn(generator=None) -> (model, mutable)`` builds a
@@ -499,11 +591,26 @@ def lm_task(cfg: TransformerConfig, device=None,
     ``rng``.  With MoE the loss adds ``moe_aux_coef`` times the summed
     aux loss, reported as ``metrics["moe_aux"]`` (``perplexity`` is of
     the cross-entropy alone), as in the JAX package.
+
+    Under a mesh (the ``DeviceMesh`` of the trainer's ``Trainer(mesh=...)``)
+    the batch is this rank's shard, rows over (data, fsdp) and, with
+    ``sequence`` above 1, its sequence shard, and the loss is the JAX
+    package's over the global batch: the targets are the global
+    sequence's (each shard's last position predicts the first token of
+    the next shard, taken from the next rank of the sequence group), only
+    the globally last position has no target, and the loss is the sum of
+    every rank's cross-entropy over the global count of predicted
+    positions (not a mean of local means).  Its value is that global loss
+    on every rank (an all-reduce), and its gradient on a rank is that
+    rank's share of the global loss's gradient: the trainer's reduction
+    sums the shares (runtime/train.py).  The chunked CE's divisibility
+    check applies to the local length.
     """
 
     def init_fn(gen: Optional[torch.Generator] = None):
         model = Transformer(cfg, device=device,
-                            generator=generator if gen is None else gen)
+                            generator=generator if gen is None else gen,
+                            mesh=mesh)
         return model, {}
 
     def ce_per_position(lg: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
@@ -523,37 +630,76 @@ def lm_task(cfg: TransformerConfig, device=None,
         target = lg.gather(-1, tgt[..., None])[..., 0].float()
         return lse - target
 
-    def chunked_ce(hidden, unembed, tokens):
-        """Mean next-token CE without materializing [b, s, vocab]:
-        unembed + loss run `chunk` positions at a time, each chunk under
-        torch.utils.checkpoint (the backward recomputes its logits).  The
-        final position has no target; a zero weight masks it so chunks
-        tile all s positions whatever the divisors of s - 1."""
-        b, s = tokens.shape
+    def chunked_ce(hidden, unembed, targets, weights):
+        """Sum of the weighted next-token CE without materializing [b, s,
+        vocab]: unembed + loss run `chunk` positions at a time, each chunk
+        under torch.utils.checkpoint (the backward recomputes its logits).
+        A position without a target has weight 0, so chunks tile all s
+        positions whatever the divisors of s - 1."""
+        s = targets.shape[1]
         chunk = fit_divisor(
             s, cfg.ce_chunk, "ce_chunk",
             "The chunked CE collapses toward an s-iteration loop of "
             "single-position unembeds (looks like a hang).  Choose a "
             "sequence length with a divisor close to ce_chunk.")
-        targets = torch.cat([tokens[:, 1:], tokens.new_zeros((b, 1))], dim=1)
-        weights = torch.cat(
-            [torch.ones((b, s - 1), dtype=torch.float32,
-                        device=tokens.device),
-             torch.zeros((b, 1), dtype=torch.float32, device=tokens.device)],
-            dim=1)
         spec = "bce,ve->bcv" if cfg.tied_embeddings else "bce,ev->bcv"
 
         def body(hc, tc, wc, w):
             lg = torch.einsum(spec, hc, w)
             return torch.sum(ce_per_position(lg, tc) * wc)
 
-        total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        total = torch.zeros((), dtype=torch.float32, device=targets.device)
         for i in range(0, s, chunk):
             part = slice(i, i + chunk)
             total = total + member_map.checkpoint(
                 body, hidden[:, part], targets[:, part], weights[:, part],
                 unembed)
-        return total / (b * (s - 1))
+        return total
+
+    def shifted(tokens: torch.Tensor):
+        """(targets, weights), [b, s] each: the next token of every
+        position (of the global sequence under a mesh) and 1, or 0 and 0
+        at the globally last position."""
+        b, s = tokens.shape
+        rank, n = _sequence_shard(mesh)
+        if n > 1:
+            nxt = from_next_rank(tokens[:, :1].contiguous(),
+                                 mesh.get_group(SEQUENCE))
+        else:
+            nxt = tokens.new_zeros((b, 1))
+        weights = torch.ones((b, s), dtype=torch.float32,
+                             device=tokens.device)
+        if rank == n - 1:
+            nxt = torch.zeros_like(nxt)
+            weights[:, -1] = 0.0
+        return torch.cat([tokens[:, 1:], nxt], dim=1), weights
+
+    def global_count(tokens: torch.Tensor) -> int:
+        """Predicted positions of the global batch."""
+        b, s = tokens.shape
+        if mesh is None:
+            return b * (s - 1)
+        sizes = axis_sizes(mesh)
+        return b * sizes[DATA] * sizes[FSDP] * (s * sizes[SEQUENCE] - 1)
+
+    def mean_ce(out, tokens):
+        """The rank's share of the mean CE: its positions' sum over the
+        global count (on one device, the mean itself)."""
+        rank, n = _sequence_shard(mesh)
+        if cfg.ce_chunk > 0:
+            hidden, unembed = out
+            targets, weights = shifted(tokens)
+            return chunked_ce(hidden, unembed, targets, weights) \
+                / global_count(tokens)
+        # Every rank of the sequence group takes part in the exchange.
+        targets = shifted(tokens)[0] if n > 1 else None
+        if rank == n - 1:
+            ce = ce_per_position(out[:, :-1], tokens[:, 1:])
+        else:
+            ce = ce_per_position(out, targets)
+        # The mean times the rank's share of the count: exactly the mean
+        # when the rank holds the whole batch.
+        return ce.mean() * (ce.numel() / global_count(tokens))
 
     def loss_fn(model: Transformer, mutable, batch, rng
                 ) -> Tuple[torch.Tensor, Tuple[Dict[str, torch.Tensor], dict]]:
@@ -561,11 +707,7 @@ def lm_task(cfg: TransformerConfig, device=None,
         tokens = batch["tokens"]
         out, aux = model(tokens, deterministic=False, generator=rng,
                          return_hidden=cfg.ce_chunk > 0, return_aux=True)
-        if cfg.ce_chunk > 0:
-            hidden, unembed = out
-            loss = chunked_ce(hidden, unembed, tokens)
-        else:
-            loss = ce_per_position(out[:, :-1], tokens[:, 1:]).mean()
+        loss = _global_loss(mean_ce(out, tokens), mesh)
         metrics = {"perplexity": torch.exp(loss.detach())}
         if cfg.moe_experts > 0:
             metrics["moe_aux"] = aux.detach()
@@ -573,3 +715,16 @@ def lm_task(cfg: TransformerConfig, device=None,
         return loss, (metrics, {})
 
     return init_fn, loss_fn
+
+
+def _global_loss(share: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``share`` over the mesh's ranks as the value, with
+    ``share``'s own gradient (an all-reduce of the value; nothing to do
+    on one rank)."""
+    import torch.distributed as dist
+
+    if mesh is None or mesh.size() == 1:
+        return share
+    total = share.detach().clone()
+    dist.all_reduce(total)
+    return total + (share - share.detach())

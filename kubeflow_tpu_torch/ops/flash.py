@@ -677,3 +677,32 @@ def flash_attention(
     else:
         out, _ = _fwd_dispatch(q, k, v, causal, block_q, block_k, block_diag)
     return _from_bhsd(out, b, h)
+
+
+def make_sharded_flash(
+    mesh,
+    *,
+    causal: bool = True,
+    block_q: int = 512,
+    block_k: int = 512,
+    block_diag: int = 0,
+):
+    """Flash attention under a mesh (the JAX package's
+    ``make_sharded_flash``): batch over (data, fsdp), sequence resident
+    (ring attention shards it), heads over tensor.  Each rank already
+    holds its batch shard and the whole sequence as plain local tensors,
+    so this is ``flash_attention`` on them.  Heads over ``tensor`` are
+    ROADMAP queue 1 item 19."""
+    from kubeflow_tpu_torch import NotPortedError
+    from kubeflow_tpu_torch.parallel.mesh import TENSOR, axis_sizes
+
+    if axis_sizes(mesh)[TENSOR] > 1:
+        raise NotPortedError(
+            "flash attention with heads over the tensor axis is not ported "
+            "yet: tensor parallelism is ROADMAP queue 1 item 19")
+
+    def fn(q, k, v):
+        return flash_attention(q, k, v, causal=causal, block_q=block_q,
+                               block_k=block_k, block_diag=block_diag)
+
+    return fn

@@ -1,0 +1,34 @@
+"""Parallelism over several GPUs: the port of kubeflow_tpu/parallel/.
+
+``mesh.py`` names the axes and maps a ``MeshSpec`` onto a
+``torch.distributed`` ``DeviceMesh`` (one rank a GPU); ``ring.py`` is
+ring attention over the ``sequence`` axis on the flash kernels.  The
+GPipe schedule (``parallel/pipeline.py`` in JAX) is ROADMAP queue 1 item
+20.
+"""
+
+from kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_ORDER,
+    DATA,
+    DEFAULT_RULES,
+    EXPERT,
+    FSDP,
+    PIPELINE,
+    SEQUENCE,
+    TENSOR,
+    MeshSpec,
+    logical_spec,
+)
+
+__all__ = [
+    "AXIS_ORDER",
+    "DATA",
+    "FSDP",
+    "PIPELINE",
+    "EXPERT",
+    "SEQUENCE",
+    "TENSOR",
+    "DEFAULT_RULES",
+    "MeshSpec",
+    "logical_spec",
+]

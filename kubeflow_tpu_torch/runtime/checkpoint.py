@@ -32,6 +32,16 @@ optimizer state (its dataclass fields), the step generator's
 caller's template state.  The port does not read the JAX package's orbax
 checkpoints.
 
+In a multi-process job (a process group of more than one rank) every
+rank calls ``save`` and ``restore`` in step: a save gathers each sharded
+tensor (a DTensor, runtime/train.py under a mesh) into the full one,
+rank 0 writes the step and its manifest in the format above, and the
+step counts as saved only when every rank has passed the barrier after
+rank 0's commit (a failure there raises on every rank).  The files are
+those of a one-device save, so a trainer without a mesh resumes them.
+A restore reads the full state on every rank and keeps each rank's
+shards of the sharded tensors.
+
 Fault hook sites (testing/faults.py): ``checkpoint.save`` fires in the
 background finalize, between the step's commit and the manifest write (a
 ``raise`` models a save that died before its manifest);
@@ -174,10 +184,44 @@ def list_checkpoint_steps(directory: str | Path) -> List[int]:
 # -- state <-> tensors and plain containers ----------------------------------
 
 
+def _is_sharded(t: Any) -> bool:
+    """Whether ``t`` is a DTensor (its ``full_tensor`` gathers it)."""
+    return isinstance(t, torch.Tensor) and callable(
+        getattr(t, "full_tensor", None))
+
+
+def _local_shard(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of ``full`` as the DTensor ``like`` places it
+    (``torch.chunk`` along each sharded dim, as FSDP2 splits)."""
+    mesh, coord = like.device_mesh, like.device_mesh.get_coordinate()
+    local = full
+    for i, placement in enumerate(like.placements):
+        if placement.is_shard():
+            chunks = torch.chunk(local, mesh.size(i), dim=placement.dim)
+            local = chunks[coord[i]]
+    want = like.to_local().shape
+    if local.shape != want:
+        raise ValueError(f"shard {tuple(local.shape)} of {tuple(full.shape)}"
+                         f" does not match the local {tuple(want)}")
+    return local
+
+
+def _world() -> Tuple[int, int]:
+    """(rank, ranks) of the job's process group; (0, 1) without one."""
+    import torch.distributed as dist
+
+    if not dist.is_available() or not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
 def _encode(obj: Any) -> Any:
     """The state as tensors (host copies) and plain containers, the only
-    things ``torch.load(weights_only=True)`` reads back."""
+    things ``torch.load(weights_only=True)`` reads back.  A sharded
+    tensor is gathered (a collective: every rank encodes)."""
     if isinstance(obj, torch.Tensor):
+        if _is_sharded(obj):
+            obj = obj.full_tensor()
         return obj.detach().to("cpu", copy=True)
     if isinstance(obj, nn.Module):
         return {k: _encode(v) for k, v in obj.state_dict().items()}
@@ -209,7 +253,7 @@ def _decode(template: Any, saved: Any, path: str,
                 for k in want):
             raise ValueError(f"{path}: saved parameters do not match the "
                              "model")
-        later.append(lambda: template.load_state_dict(saved))
+        later.append(lambda: _load_module(template, saved))
         return template
     if isinstance(template, torch.Generator):
         if not isinstance(saved, torch.Tensor):
@@ -221,7 +265,7 @@ def _decode(template: Any, saved: Any, path: str,
                 saved.shape != template.shape:
             raise ValueError(f"{path}: saved {getattr(saved, 'shape', '?')}"
                              f", want {tuple(template.shape)}")
-        return saved.to(template.device, template.dtype)
+        return _place_like(saved, template)
     if dataclasses.is_dataclass(template) and not isinstance(template, type):
         names = [f.name for f in dataclasses.fields(template)]
         if not isinstance(saved, dict) or set(saved) != set(names):
@@ -243,6 +287,40 @@ def _decode(template: Any, saved: Any, path: str,
                               for i, (t, s) in enumerate(zip(template,
                                                              saved)))
     return saved
+
+
+def _place_like(saved: torch.Tensor, template: torch.Tensor
+                ) -> torch.Tensor:
+    """``saved`` on the template's device and dtype; for a sharded
+    template, this rank's shard of it, placed as the template is."""
+    if not _is_sharded(template):
+        return saved.to(template.device, template.dtype)
+    from torch.distributed.tensor import DTensor
+
+    local = _local_shard(saved, template).to(template.device,
+                                             template.dtype)
+    return DTensor.from_local(local.contiguous(), template.device_mesh,
+                              template.placements, run_check=False,
+                              shape=template.shape,
+                              stride=template.stride())
+
+
+def _load_module(module: nn.Module, saved: Dict[str, torch.Tensor]
+                 ) -> None:
+    """The saved full tensors into ``module``: ``load_state_dict``, or
+    for sharded parameters each rank's shard copied into its own."""
+    if not any(map(_is_sharded, module.state_dict().values())):
+        module.load_state_dict(saved)
+        return
+    targets = dict(module.named_parameters())
+    targets.update(module.named_buffers())
+    with torch.no_grad():
+        for name, value in saved.items():
+            target = targets[name]
+            if _is_sharded(target):
+                target.to_local().copy_(_local_shard(value, target))
+            else:
+                target.copy_(value)
 
 
 def _tree_metadata(tree: Any, path: str = "") -> List[dict]:
@@ -292,9 +370,12 @@ class CheckpointManager:
         """Copy ``state`` to the host and queue its write; False if
         ``step`` is already saved or queued.  Raises
         :class:`CheckpointError` first if an earlier save failed in the
-        background."""
+        background.  In a multi-process job the save is collective and
+        returns once the step is committed (module docstring)."""
         self._raise_pending()
         step = int(step)
+        if _world()[1] > 1:
+            return self._save_together(step, state)
         with self._lock:
             if step in self._queued or step in self.all_steps():
                 return False
@@ -309,6 +390,28 @@ class CheckpointManager:
         log.info("checkpoint save queued at step %d -> %s", step,
                  self.directory)
         thread.start()
+        return True
+
+    def _save_together(self, step: int, state: Any) -> bool:
+        """Every rank gathers, rank 0 writes and commits, and every rank
+        learns rank 0's outcome at the barrier that ends the save."""
+        import torch.distributed as dist
+
+        if step in self.all_steps():
+            return False
+        tree = _encode(state)
+        error = ""
+        if _world()[0] == 0:
+            self._finalize(step, tree)
+            with self._lock:
+                err, self._async_error = self._async_error, None
+            error = "" if err is None else repr(err)
+        outcome = [error]
+        dist.broadcast_object_list(outcome, src=0)
+        if outcome[0]:
+            raise CheckpointError(
+                f"checkpoint save of step {step} failed on rank 0: "
+                f"{outcome[0]}")
         return True
 
     def _write_step(self, step: int, tree: Any) -> Path:

@@ -44,9 +44,9 @@ than its solo run's.
 The fit loop keeps ``Trainer.fit``'s dispatch discipline (at most two
 calls in flight, async checkpoints, the ``train.step`` fault site,
 ``on_step`` at each call boundary), so ``TrainSupervisor`` wraps a
-FusedTrainer unchanged.  A mesh raises ``NotPortedError`` (parallel
-training, ROADMAP queue 1 item 11).  JAX's process-level cache of traced
-steps has no counterpart: eager PyTorch has nothing to trace.
+FusedTrainer unchanged.  A mesh raises ``NotPortedError`` (a fused
+trainer over a mesh, ROADMAP queue 1 item 22).  JAX's process-level cache
+of traced steps has no counterpart: eager PyTorch has nothing to trace.
 """
 
 from __future__ import annotations
@@ -188,8 +188,8 @@ class FusedTrainer:
       ``optim.default_tx_factory``.
     members: the member array.  Order is the stacking order and the
       checkpoint subdirectory layout — keep it stable across resumes.
-    mesh / rules: None; a mesh raises ``NotPortedError`` (parallel
-      training, ROADMAP queue 1 item 11).
+    mesh / rules: None; a mesh raises ``NotPortedError`` (a fused
+      trainer over a mesh, ROADMAP queue 1 item 22).
     checkpoint_dir: per-member managers live at
       ``<checkpoint_dir>/<member.name>``; None disables checkpointing.
     mask_nonfinite: freeze a member whose loss goes non-finite instead
@@ -224,8 +224,8 @@ class FusedTrainer:
             raise ValueError(f"duplicate member names: {names}")
         if self.mesh is not None or self.rules is not None:
             raise NotPortedError(
-                "a mesh (parallel training) is not ported yet: ROADMAP "
-                "queue 1, item 11; the fused trainer runs on one device")
+                "a fused trainer over a mesh is not ported yet: ROADMAP "
+                "queue 1 item 22; the fused trainer runs on one device")
         self.device = resolve_device(self.device)
         self._tx = self.tx_factory(0.0)  # lr comes from opt_state
         self._skeleton: Optional[torch.nn.Module] = None

@@ -34,7 +34,11 @@ module writes optax's arithmetic out:
 
 All take the parameters and gradients as a name -> tensor mapping (as
 ``Trainer`` passes them, in ``named_parameters()`` order); adamw and sgd
-also take plain sequences.
+also take plain sequences.  Under a mesh whose ``fsdp`` axis is above 1
+the trainer hands adamw and sgd the sharded parameters (DTensors: their
+elementwise arithmetic runs on each shard, and the moments are sharded
+as their parameters are); adafactor refuses them, as its factored
+statistics would span the sharded dim (ROADMAP queue 1 item 24).
 
 The fused trainer (runtime/hfta.py) steps N members whose leaves and
 states are stacked on a leading member axis.  Its optimizer is
@@ -344,6 +348,14 @@ class Adafactor:
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdafactorState:
         _check_float32("adafactor", _values(params))
+        if any(callable(getattr(p, "to_local", None))
+               for p in _values(params)):
+            from kubeflow_tpu_torch import NotPortedError
+
+            raise NotPortedError(
+                "adafactor on parameters sharded over fsdp > 1 is not "
+                "ported yet (its factored statistics span the sharded "
+                "dim): ROADMAP queue 1 item 24")
         state = AdafactorState(count=0, v_row={}, v_col={}, v={})
         for leaf, members in self._groups(params).items():
             first = params[members[0]]

@@ -1,9 +1,10 @@
-"""Training runtime: state init, the train step and the fit loop, on one
-device.  The port of kubeflow_tpu/runtime/train.py.
+"""Training runtime: state init, the train step and the fit loop.  The
+port of kubeflow_tpu/runtime/train.py.
 
 The JAX ``Trainer`` jits one SPMD step over a mesh.  This one runs the
-same step eagerly on one explicit device: a mesh raises
-``NotPortedError`` (parallel training, ROADMAP queue 1, item 11).  What
+same step eagerly, on one explicit device or, with ``mesh`` (a
+``DeviceMesh`` from parallel/mesh.py ``MeshSpec.build``), as one process
+a GPU over the mesh's ``data``, ``fsdp`` and ``sequence`` axes.  What
 carries over unchanged:
 
   - the task contract: ``init_fn(generator) -> (model, mutable)`` and
@@ -20,6 +21,29 @@ carries over unchanged:
     data's ``seek`` or a drain), saves every ``checkpoint_every`` steps
     on call boundaries, and ends with a save of the last step and a
     ``wait()``.
+
+Under a mesh (JAX's ``param_shardings``, ``_opt_shardings`` and
+``shard_batch``):
+
+  - parameters are sharded over ``fsdp`` and replicated over ``data``
+    and ``sequence`` with FSDP2 (``fully_shard`` per ``Block`` and at the
+    root: ZeRO-3 gathers a layer's weights for its forward and
+    backward).  Each parameter is sharded on the dim the rule table maps
+    to ``fsdp`` from the JAX model's logical axes (the task's model
+    gives them, ``param_logical_axes``; ``embed`` goes over fsdp), dim 0
+    for one the rule table leaves replicated;
+  - the optimizer state follows its parameter: the optimizer runs on the
+    sharded parameters (DTensors) when ``fsdp`` is above 1, and on the
+    local tensors, which are then whole, otherwise;
+  - each process feeds its own rows (``shard_batch`` takes this rank's
+    rows at the global sequence length and keeps its sequence shard);
+  - the task's loss has the global loss as its value on every rank and
+    that rank's share of it as its gradient (``lm_task(mesh=...)``).
+    FSDP2 averages the gradients over the mesh's ranks, so the step
+    scales the backward by their number: the reduced gradient is the
+    global loss's, as JAX's psum gives it;
+  - ``grad_norm`` is the global norm over the shards, and MFU counts
+    every rank's chip.
 
 The optimizer gets the parameters and gradients by name
 (``named_parameters()`` order), which adafactor needs to stack the JAX
@@ -41,6 +65,17 @@ from torch import nn
 
 from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
+from kubeflow_tpu_torch.parallel.mesh import (
+    DEFAULT_RULES,
+    EXPERT,
+    FSDP,
+    PIPELINE,
+    SEQUENCE,
+    TENSOR,
+    axis_sizes,
+    fsdp_mesh,
+    sharded_dim,
+)
 from kubeflow_tpu_torch.runtime.metrics import MetricsLogger, Timer
 from kubeflow_tpu_torch.runtime.optim import global_norm
 from kubeflow_tpu_torch.testing import faults
@@ -90,6 +125,24 @@ def place_batch(batch: Any, device: torch.device) -> Any:
     return _tree_map(put, batch)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; any other tensor itself."""
+    to_local = getattr(t, "to_local", None)
+    return to_local() if callable(to_local) else t
+
+
+def _check_mesh(mesh) -> None:
+    """Refuse the axes this port does not train over yet."""
+    sizes = axis_sizes(mesh)
+    for axis, what, item in ((TENSOR, "tensor parallelism", 19),
+                             (PIPELINE, "GPipe", 20),
+                             (EXPERT, "MoE's expert axis", 21)):
+        if sizes.get(axis, 1) > 1:
+            raise NotPortedError(
+                f"a mesh with {axis} > 1 is not ported yet: {what} is "
+                f"ROADMAP queue 1 item {item}")
+
+
 class _Done:
     """Stands for a call in flight: ``synchronize()`` waits for the work
     enqueued before it was made (nothing to wait for on the CPU)."""
@@ -107,20 +160,28 @@ class _Done:
 
 @dataclasses.dataclass
 class Trainer:
-    """Trainer on one device (CUDA unless ``device="cpu"``).
+    """Trainer on one device (CUDA unless ``device="cpu"``), or on this
+    rank's device over ``mesh``.
 
     init_fn: generator -> (model, mutable).
     loss_fn: (model, mutable, batch, generator) ->
-      (scalar loss, (metrics dict, new_mutable))
+      (scalar loss, (metrics dict, new_mutable)); under a mesh the loss's
+      value is the global loss and its gradient this rank's share of it
+      (``lm_task(mesh=...)``).
     tx: an optimizer with ``init(params)`` and
       ``update(grads, state, params)`` (runtime/optim.py).
+    mesh / rules: a ``DeviceMesh`` from ``MeshSpec.build`` (every rank
+      builds the same trainer and calls it in step) and the logical-axis
+      rule table; a mesh with tensor, pipeline or expert above 1 raises
+      ``NotPortedError``.
     """
 
     init_fn: Callable[[torch.Generator], Tuple[nn.Module, Any]]
     loss_fn: LossFn
     tx: Any
     device: DeviceLike = None
-    mesh: Any = None
+    mesh: Any = None  # a DeviceMesh from parallel/mesh.py MeshSpec.build
+    rules: Any = DEFAULT_RULES
     checkpoints: Any = None  # runtime/checkpoint.py CheckpointManager
     checkpoint_every: int = 1000
     metrics: MetricsLogger = dataclasses.field(default_factory=MetricsLogger)
@@ -130,9 +191,7 @@ class Trainer:
 
     def __post_init__(self) -> None:
         if self.mesh is not None:
-            raise NotPortedError(
-                "a mesh (parallel training) is not ported yet: ROADMAP "
-                "queue 1, item 11; the port trains on one device")
+            _check_mesh(self.mesh)
         self.device = resolve_device(self.device)
         self._multi_steps: Dict[int, Callable] = {}
         self._last_metrics: Dict[str, float] = {}
@@ -150,13 +209,56 @@ class Trainer:
         initialize the optimizer state."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params, mutable = self.init_fn(gen)
-        opt_state = self.tx.init(dict(params.named_parameters()))
+        if self.mesh is not None:
+            # Every rank drew the same weights from the same seed; each
+            # keeps its shards.
+            self._shard(params)
+        opt_state = self.tx.init(self._opt_view(params.named_parameters()))
         # The step's own stream (dropout's masks), apart from init's.
         rng = torch.Generator(device=self.device).manual_seed(seed + 1)
         return TrainState(step=0, params=params, opt_state=opt_state,
                           rng=rng, mutable=mutable)
 
     # -- step -------------------------------------------------------------
+
+    def _shard(self, model: nn.Module) -> None:
+        """FSDP2 over ``fsdp_mesh``: each Block, then the root, with each
+        parameter sharded on the dim the rule table maps to ``fsdp``."""
+        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.tensor import Shard
+
+        axes_of = getattr(model, "param_logical_axes", dict)()
+        names = {id(p): n for n, p in model.named_parameters()}
+
+        def placement(param):
+            dim = sharded_dim(axes_of.get(names[id(param)], ()), FSDP,
+                              self.rules)
+            return Shard(0 if dim is None else dim)
+
+        mesh = fsdp_mesh(self.mesh)
+        for block in getattr(model, "layers", ()):
+            fully_shard(block, mesh=mesh, shard_placement_fn=placement)
+        fully_shard(model, mesh=mesh, shard_placement_fn=placement)
+
+    def _opt_view(self, named) -> Dict[str, torch.Tensor]:
+        """What the optimizer steps: the tensors themselves, or under a
+        mesh whose ``fsdp`` is 1 their local tensors, which are whole."""
+        named = dict(named)
+        if self.mesh is None or axis_sizes(self.mesh)[FSDP] > 1:
+            return named
+        return {k: _local(v) for k, v in named.items()}
+
+    def _grad_norm(self, grads) -> torch.Tensor:
+        """optax.global_norm of the step's gradients; under a mesh over
+        the shards of every gradient (a sum of squares over ``fsdp``)."""
+        if self.mesh is None or axis_sizes(self.mesh)[FSDP] == 1:
+            return global_norm([_local(g) for g in grads])
+        import torch.distributed as dist
+
+        norms = torch._foreach_norm([_local(g).float() for g in grads])
+        sq = torch.linalg.vector_norm(torch.stack(norms)) ** 2
+        dist.all_reduce(sq, group=self.mesh.get_group(FSDP))
+        return torch.sqrt(sq)
 
     def _step_body(self, state: TrainState, batch: Any
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -166,10 +268,13 @@ class Trainer:
         with torch.enable_grad():
             loss, (aux, new_mutable) = self.loss_fn(
                 state.params, state.mutable, batch, state.rng)
-            loss.backward()
-        grads = {name: p.grad for name, p in params.items()}
-        grad_norm = global_norm(list(grads.values()))
-        self.tx.update(grads, state.opt_state, params)
+            ranks = 1 if self.mesh is None else self.mesh.size()
+            # FSDP2 averages over the ranks; each rank's gradient is its
+            # share of the global loss's, so the sum is wanted.
+            (loss * ranks if ranks > 1 else loss).backward()
+        grads = self._opt_view((n, p.grad) for n, p in params.items())
+        grad_norm = self._grad_norm(list(grads.values()))
+        self.tx.update(grads, state.opt_state, self._opt_view(params))
         for p in params.values():
             p.grad = None  # gradients live only inside the step
         state.step += 1
@@ -204,7 +309,26 @@ class Trainer:
         return run
 
     def shard_batch(self, batch: Any) -> Any:
-        """Place a host batch on the device (``place_batch``)."""
+        """Place a host batch on the device (``place_batch``).  Under a
+        mesh the batch is this rank's rows at the global sequence length
+        (every rank of a ``sequence`` group feeds the same rows), and
+        each ``[b, s, ...]`` leaf keeps this rank's sequence shard."""
+        if self.mesh is not None and axis_sizes(self.mesh)[SEQUENCE] > 1:
+            n = axis_sizes(self.mesh)[SEQUENCE]
+            r = self.mesh.get_local_rank(SEQUENCE)
+
+            def cut(x):
+                x = np.asarray(x) if not torch.is_tensor(x) else x
+                if x.ndim < 2:
+                    return x
+                if x.shape[1] % n:
+                    raise ValueError(
+                        f"sequence length {x.shape[1]} does not split over "
+                        f"{n} sequence ranks")
+                s = x.shape[1] // n
+                return x[:, r * s:(r + 1) * s]
+
+            batch = _tree_map(cut, batch)
         return place_batch(batch, self.device)
 
     # -- loop -------------------------------------------------------------
@@ -305,7 +429,7 @@ class Trainer:
                     examples_per_step=examples_per_step,
                     flops_per_step=self.flops_per_example * examples_per_step * 3
                     if self.flops_per_example else None,
-                    n_chips=1,
+                    n_chips=1 if self.mesh is None else self.mesh.size(),
                     peak_flops_per_chip=self.peak_flops_per_chip or None,
                     loss=loss,
                 )

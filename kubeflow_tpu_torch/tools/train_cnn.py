@@ -17,7 +17,8 @@ saves verified checkpoints every ``--checkpoint-every`` steps, and a
 rerun resumes from the newest verified step.  MFU is reported over the
 card's bf16 peak (tools/train_lm.py's table).  A multi-process gang
 (``KFT_NUM_PROCESSES`` > 1) raises ``NotPortedError``: data parallelism
-over several cards is ROADMAP queue 1 item 11.
+over several cards, with BatchNorm's statistics reduced over the data
+ranks, is ROADMAP queue 1 item 23.
 """
 
 from __future__ import annotations
@@ -79,7 +80,15 @@ def run(argv=None):
     # chaos (train.step, checkpoint.*) drives a deployed container and
     # in-process tests.
     faults.install_from_env()
-    env = bootstrap.initialize()  # a multi-process gang: NotPortedError
+    env = bootstrap.worker_env()
+    if env.is_distributed:
+        from kubeflow_tpu_torch import NotPortedError
+
+        raise NotPortedError(
+            f"a gang of {env.num_processes} processes is not ported yet: "
+            "data-parallel CNN training (BatchNorm statistics reduced over "
+            "the data ranks) is ROADMAP queue 1 item 23")
+    env = bootstrap.initialize(env)
 
     import numpy as np
     import torch

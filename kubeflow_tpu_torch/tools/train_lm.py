@@ -6,17 +6,29 @@ kubeflow_tpu/tools/train_lm.py, with the same flags plus ``--device``.
     python -m kubeflow_tpu_torch.tools.train_lm --device cpu --d-model 64 \\
         --n-layers 2 --seq-len 64 --vocab-size 256 --steps 2
 
-It trains on one device: CUDA unless ``--device cpu`` is given, and an
-error when there is no GPU.  ``--moe-experts N`` (with
+It trains on CUDA unless ``--device cpu`` is given, and an error when
+there is no GPU: on one device, or over a mesh of processes, one GPU
+each, with ``--mesh data=2,fsdp=2,sequence=2`` (parsed as the JAX entry
+point parses it; ``model`` is ``tensor``'s other name) and ``--attention
+ring`` for the sequence axis.  A multi-process job is started by the
+operator's ``KFT_*`` variables or by ``torchrun`` (runtime/bootstrap.py);
+without ``--mesh`` it is data-parallel over every rank, as the JAX entry
+point's default mesh is, and so is ``--attention ring`` alone.  Each
+rank trains on ``--batch-size-per-device`` rows (the ranks of a
+``sequence`` group share theirs, each keeping its shard of the
+sequence), drawn by its (data, fsdp) coordinate: KFTR shards
+``RecordDataset(...).shard(i, data * fsdp)``, or a synthetic stream
+seeded with i.  The tensor, pipeline and expert axes and
+``--pipeline-microbatches`` raise ``NotPortedError`` naming their
+ROADMAP items.  ``--moe-experts N`` (with
 ``--moe-capacity-factor``) trains the mixture-of-experts LM
 (models/moe.py; top-2, the einsum dispatch, as in the JAX entry point).
 ``--optimizer adafactor``, ``--data-files``
 (KFTR shards of {"tokens": [s]} examples, data/) and
 ``--checkpoint-dir`` / ``--checkpoint-every`` (verified checkpoints,
 runtime/checkpoint.py; a rerun resumes from the newest verified step)
-are wired as in the JAX entry point.  The parallel flags raise
-``NotPortedError`` naming their ROADMAP item.  ``--metrics-out`` writes
-the JAX entry point's JSON ({"config": ..., "history": [...]}).
+are wired as in the JAX entry point.  ``--metrics-out`` writes the JAX
+entry point's JSON ({"config": ..., "history": [...]}).
 """
 
 from __future__ import annotations
@@ -43,16 +55,34 @@ def peak_bf16_flops(device) -> float:
     return next((v for k, v in PEAK_BF16_FLOPS.items() if k in name), 0.0)
 
 
-def _not_ported(args) -> str:
+def parse_mesh(flag: str) -> dict:
+    """``--mesh`` as the JAX entry point parses it: ``axis=size`` pairs
+    separated by commas, ``model`` another name for ``tensor``; an axis
+    named twice is an error."""
+    axes = {}
+    for pair in filter(None, flag.split(",")):
+        k, _, v = pair.partition("=")
+        k = k.strip()
+        if k == "model":
+            k = "tensor"
+        if k in axes:
+            raise ValueError(f"--mesh declares axis {k!r} twice (note "
+                             "'model' aliases 'tensor')")
+        axes[k] = int(v)
+    return axes
+
+
+def _not_ported(args, mesh_axes: dict) -> str:
     """The first flag this port does not serve yet, with its ROADMAP
     item, or ''."""
     checks = [
-        (args.mesh, "--mesh (parallel training, ROADMAP queue 1 item 11)"),
-        (args.pipeline_microbatches > 0,
-         "--pipeline-microbatches (parallel training, ROADMAP queue 1 "
-         "item 11)"),
-        (args.attention == "ring",
-         "--attention ring (parallel training, ROADMAP queue 1 item 11)"),
+        (mesh_axes.get("tensor", 1) > 1,
+         "--mesh tensor > 1 (tensor parallelism, ROADMAP queue 1 item 19)"),
+        (mesh_axes.get("pipeline", 1) > 1 or args.pipeline_microbatches > 0,
+         "--mesh pipeline > 1 and --pipeline-microbatches (GPipe, ROADMAP "
+         "queue 1 item 20)"),
+        (mesh_axes.get("expert", 1) > 1,
+         "--mesh expert > 1 (MoE's expert axis, ROADMAP queue 1 item 21)"),
     ]
     return next((what for hit, what in checks if hit), "")
 
@@ -121,7 +151,11 @@ def run(argv=None):
 
     from kubeflow_tpu_torch import NotPortedError
 
-    missing = _not_ported(args)
+    try:
+        mesh_axes = parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    missing = _not_ported(args, mesh_axes)
     if missing:
         raise NotPortedError(f"not ported yet: {missing}")
 
@@ -132,7 +166,7 @@ def run(argv=None):
     # Honor KFT_FAULTS as the JAX entry point does: the same scripted
     # chaos (train.step) drives a deployed container and in-process tests.
     faults.install_from_env()
-    env = bootstrap.initialize()
+    env = bootstrap.initialize(device=args.device)
 
     import numpy as np
 
@@ -148,6 +182,20 @@ def run(argv=None):
     from kubeflow_tpu_torch.runtime.train import Trainer
 
     device = resolve_device(args.device)
+    mesh = None
+    dp_index, dp_count = 0, 1
+    if args.mesh or env.is_distributed or args.attention == "ring":
+        from kubeflow_tpu_torch.parallel.mesh import (
+            DATA,
+            FSDP,
+            MeshSpec,
+        )
+
+        mesh = MeshSpec(**mesh_axes).build(device)
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        dp_index = mesh.get_local_rank(DATA) * sizes[FSDP] \
+            + mesh.get_local_rank(FSDP)
+        dp_count = sizes[DATA] * sizes[FSDP]
     cfg = TransformerConfig(
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads,
@@ -158,8 +206,11 @@ def run(argv=None):
         attention=args.attention,
         remat=args.remat, ce_dtype=args.ce_dtype,
     )
-    init_fn, loss_fn = lm_task(cfg, device=device)
-    batch = args.batch_size_per_device  # one device
+    init_fn, loss_fn = lm_task(cfg, device=device, mesh=mesh)
+    # Rows of this rank (one GPU a process), and of the global batch: the
+    # ranks of a sequence group share their rows.
+    batch = args.batch_size_per_device
+    global_batch = batch * dp_count
     peak = peak_bf16_flops(device)
     if args.warmup_steps > 0:
         lr = optim.warmup_cosine_decay_schedule(
@@ -171,7 +222,7 @@ def run(argv=None):
     tx = (optim.adafactor(lr) if args.optimizer == "adafactor"
           else optim.adamw(lr))
     trainer = Trainer(
-        init_fn=init_fn, loss_fn=loss_fn, tx=tx, device=device,
+        init_fn=init_fn, loss_fn=loss_fn, tx=tx, device=device, mesh=mesh,
         checkpoints=(CheckpointManager(args.checkpoint_dir)
                      if args.checkpoint_dir else None),
         checkpoint_every=args.checkpoint_every,
@@ -187,13 +238,13 @@ def run(argv=None):
         def data_factory():
             ds = RecordDataset(
                 args.data_files, shuffle_buffer=1024, repeat=-1,
-            ).shard(env.process_id, max(env.num_processes, 1))
+            ).shard(dp_index, dp_count)
             return tensor_batches(ds, batch)
     else:
         def data_factory():
             # Fresh RNG per attempt: a supervised restart replays the
             # SAME stream, and fit's resume drain re-aligns it.
-            rng = np.random.RandomState(env.process_id)
+            rng = np.random.RandomState(dp_index)
             while True:
                 yield {"tokens": rng.randint(
                     0, args.vocab_size,
@@ -202,7 +253,7 @@ def run(argv=None):
     supervisor = TrainSupervisor(
         trainer, max_restarts=args.max_restarts,
         stall_factor=args.stall_factor, heartbeat_s=args.heartbeat_s)
-    supervisor.run(data_factory, args.steps, examples_per_step=batch,
+    supervisor.run(data_factory, args.steps, examples_per_step=global_batch,
                    log_every=args.log_every,
                    steps_per_call=args.steps_per_call)
     logging.info("training done: %s", trainer.last_metrics)

@@ -233,7 +233,7 @@ def test_train_cnn_refuses_a_gang_and_a_missing_gpu(monkeypatch):
     monkeypatch.setenv("KFT_NUM_PROCESSES", "2")
     monkeypatch.setenv("KFT_PROCESS_ID", "0")
     monkeypatch.setenv("KFT_COORDINATOR_ADDRESS", "w-0:1234")
-    with pytest.raises(NotPortedError, match="item 11"):
+    with pytest.raises(NotPortedError, match="item 23"):
         train_cnn.run(TINY_ARGS + ["--steps", "1"])
     monkeypatch.delenv("KFT_NUM_PROCESSES")
     if not torch.cuda.is_available():

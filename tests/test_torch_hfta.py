@@ -384,9 +384,9 @@ def test_member_validation():
         make([MemberSpec(name="a"), MemberSpec(name="a")])
     with pytest.raises(ValueError, match="at least one"):
         make([])
-    with pytest.raises(NotPortedError, match="item 11"):
+    with pytest.raises(NotPortedError, match="item 22"):
         make(specs(2), mesh=object())
-    with pytest.raises(NotPortedError, match="item 11"):
+    with pytest.raises(NotPortedError, match="item 22"):
         make(specs(2), rules=(("batch", "data"),))
     with pytest.raises(ValueError, match="member states"):
         make(specs(2)).fit(data_factory(), 1, member_states=[])

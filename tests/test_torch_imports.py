@@ -80,7 +80,13 @@ def test_every_port_module_imports():
             "kubeflow_tpu_torch.serving.protos.prediction_pb2",
             "kubeflow_tpu_torch.serving.protos.tf_compat_pb2",
             "kubeflow_tpu_torch.runtime.hfta",
-            "kubeflow_tpu_torch.runtime.member_map"} <= set(names)
+            "kubeflow_tpu_torch.runtime.member_map",
+            "kubeflow_tpu_torch.parallel",
+            "kubeflow_tpu_torch.parallel.mesh",
+            "kubeflow_tpu_torch.parallel.ring",
+            "kubeflow_tpu_torch.runtime.bootstrap",
+            "kubeflow_tpu_torch.testing.ranks",
+            "kubeflow_tpu_torch.testing.ring_check"} <= set(names)
 
 
 ANALYSIS = sorted(p.name for p in
@@ -120,6 +126,24 @@ def test_engine_slice_modules_import_nothing_of_jax(module):
     imported = list(_imports(path))
     assert imported
     assert not [m for m in imported if _forbidden(m)]
+
+
+PARALLEL_SLICE = ["parallel/__init__.py", "parallel/mesh.py",
+                  "parallel/ring.py", "runtime/bootstrap.py",
+                  "runtime/train.py", "testing/ranks.py",
+                  "testing/ring_check.py"]
+
+
+@pytest.mark.parametrize("module", PARALLEL_SLICE)
+def test_parallel_slice_modules_import_nothing_of_jax(module):
+    """The mesh, the ring, the NCCL bootstrap (with its own copy of
+    ``kubeflow_tpu/tools/train_torch.py``'s ``torch_dist_env``), the
+    mesh trainer and the rank launcher import neither JAX, flax or optax
+    nor anything of the JAX package, whose train_torch tool among it."""
+    imported = list(_imports(REPO / "kubeflow_tpu_torch" / module))
+    assert imported
+    assert not [m for m in imported if _forbidden(m)]
+    assert "kubeflow_tpu.tools.train_torch" not in imported
 
 
 def test_forbidden_prefix_does_not_match_the_port():

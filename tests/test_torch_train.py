@@ -17,7 +17,10 @@ another route.  Tolerances:
 """
 
 import collections
+import dataclasses
 import json
+import socket
+import types
 
 import jax
 import jax.numpy as jnp
@@ -417,11 +420,13 @@ def test_train_lm_run_returns_the_trainer_and_its_last_metrics():
     assert last["loss"] == trainer.metrics.history[-1]["loss"]
 
 
-@pytest.mark.parametrize("flag", [
-    ["--mesh", "data=1"], ["--pipeline-microbatches", "2"],
-    ["--attention", "ring"]], ids=["flag0", "flag1", "flag3"])
-def test_train_lm_not_ported_flags_raise(flag):
-    with pytest.raises(NotPortedError, match="ROADMAP queue 1 item"):
+# --mesh with data, fsdp and sequence and --attention ring are ported
+# (tests/test_torch_parallel_train.py); the other axes are not.
+@pytest.mark.parametrize("flag,item", [
+    (["--mesh", "model=2"], 19), (["--pipeline-microbatches", "2"], 20),
+    (["--mesh", "expert=2"], 21)], ids=["flag0", "flag1", "flag3"])
+def test_train_lm_not_ported_flags_raise(flag, item):
+    with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
         train_lm.main(TINY_ARGS + ["--device", "cpu"] + flag)
 
 
@@ -499,14 +504,30 @@ def test_train_lm_runs_on_cuda_unless_asked():
 
 
 def test_trainer_and_bootstrap_refuse_what_is_not_ported():
-    with pytest.raises(NotPortedError, match="item 11"):
-        Trainer(init_fn=None, loss_fn=None, tx=None, device="cpu",
-                mesh=object())
+    """A mesh with an axis this port does not train over is refused with
+    its ROADMAP item; a multi-process job whose rendezvous fails raises
+    (no single-process fallback); a single process needs none."""
+    for axis, item in (("tensor", 19), ("pipeline", 20), ("expert", 21)):
+        names = ("data", "fsdp", "pipeline", "expert", "sequence", "tensor")
+        mesh = types.SimpleNamespace(
+            mesh_dim_names=names,
+            shape=tuple(2 if n == axis else 1 for n in names))
+        with pytest.raises(NotPortedError, match=f"item {item}"):
+            Trainer(init_fn=None, loss_fn=None, tx=None, device="cpu",
+                    mesh=mesh)
     env = bootstrap.worker_env({"KFT_NUM_PROCESSES": "2",
                                 "KFT_PROCESS_ID": "1",
                                 "KFT_COORDINATOR_ADDRESS": "w-0:1234"})
     assert env.is_distributed and env.process_id == 1
-    with pytest.raises(NotPortedError, match="item 11"):
-        bootstrap.initialize(env)
+    # Rank 1 of 2 against a coordinator port on this host that nobody
+    # serves: the store connection gives up after the timeout.
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    unserved = dataclasses.replace(
+        env, coordinator_address=f"127.0.0.1:{port}")
+    with pytest.raises(Exception, match="(?i)timed out|timeout|refused"):
+        bootstrap.initialize(unserved, device="cpu", timeout_s=2)
+    assert not torch.distributed.is_initialized()
     single = bootstrap.initialize(bootstrap.worker_env({}))
     assert not single.is_distributed
