@@ -237,6 +237,19 @@ Phases, each fatal on failure (exit code 1, no result line):
      time-share one GPU: no scaling figure), the mesh step's ms, busy
      share and peak memory against phase 7's, the ring trainer's step
      ms;
+ 7g. tensor parallelism: tools/train_lm.run on bench.py's LM cell with
+     --mesh tensor=2 as 2 processes sharing the one GPU over gloo
+     (KFT_DIST_BACKEND=gloo), 3 steps from phase 7's seed and batches:
+     each rank holds half the heads, mlp and vocab (Megatron's column/
+     row split, the vocab-parallel embedding and cross-entropy).  The
+     ranks' losses equal, finite and within TENSOR_LOSS_ATOL of phase
+     7's; each rank launches exactly 36 each of flash_fwd, flash_dq and
+     flash_dkv (one a layer a step), every one at bh 32 (8 rows x 4
+     local heads), and none of the other kernels.  Information only:
+     each rank's step ms and the host time inside its gloo all-reduces
+     in that step, a profiled step's busy share, its peak memory, and
+     its all-reduces a step with the time of one of [8, 2048, 1024]
+     bf16 (32 MB) alone;
   8. gradients: one step's gradients of the bf16 model (full width and
      depth, batch 2 x 2048) through the kernels (single pass, then two
      passes) and through the plain versions, each held to a float32 run
@@ -484,6 +497,18 @@ MESH_STEPS, MESH_LOSS_ATOL = 3, 1e-3
 # each loss within MESH_LOSS_ATOL of phase 7's on the same global batch
 # (sound reading: 4.67e-4, the ring's merge rounding otherwise).
 RING_TRAIN_WORLD, RING_TRAIN_STEPS, RING_TRAIN_TIMEOUT_S = 2, 3, 300
+# Phase 7g: --mesh tensor=TENSOR_WORLD at the same cell as TENSOR_WORLD
+# processes sharing the GPU over gloo, each loss within TENSOR_LOSS_ATOL
+# of phase 7's.  Each row-parallel projection's output is two bf16
+# partial sums added in bf16 by the all-reduce, where one device rounds
+# its float32 accumulator once: about 2^-9 more relative error in each
+# element of the residual stream, which the loss averages over 16384
+# positions (predicted 1e-4 to 3e-3); a wrong slice or a missed
+# reduction moves the activations by O(1).  TENSOR_LOCAL_BH: the flash
+# kernels' batch x heads a rank (8 rows x 8 / TENSOR_WORLD heads).
+TENSOR_WORLD, TENSOR_STEPS, TENSOR_TIMEOUT_S = 2, 3, 300
+TENSOR_LOSS_ATOL = 1e-2
+TENSOR_LOCAL_BH = TRAIN_BATCH * MODEL["n_heads"] // TENSOR_WORLD
 # Phases 11-12: the CNN family.  Phase 11 serves these exports through the
 # classifier loader and the MicroBatcher; each model's name, its loader
 # config and its image size (the canonical input of each).
@@ -4347,6 +4372,175 @@ def ring_train_phase(torch, flash, solo_info, workdir: Path):
                       "step_ms": steps_ms, "job_s": job_s}
 
 
+# One rank of the tensor-parallel trainer: tools/train_lm.run with its own
+# metrics file, recording the flash kernels' bh and counting the gloo
+# all-reduces; then one profiled step on a fresh state and the time of
+# one all-reduce of an activation, with its launch counts.
+_TENSOR_TRAIN_RANK = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from kubeflow_tpu_torch.ops import flash
+from kubeflow_tpu_torch.tools import train_lm
+rank = os.environ["KFT_PROCESS_ID"]
+shapes = set()
+
+
+def recorded(fn, kind):
+    def call(q, *args, **kw):
+        shapes.add((kind, q.shape[0]))
+        return fn(q, *args, **kw)
+    return call
+
+
+flash.flash_fwd = recorded(flash.flash_fwd, "fwd")
+flash.flash_bwd = recorded(flash.flash_bwd, "bwd")
+reduces = {"calls": 0, "bytes": 0}
+in_reduce = [0.0]
+all_reduce = dist.all_reduce
+
+
+def counted(t, *args, **kw):
+    reduces["calls"] += 1
+    reduces["bytes"] += t.numel() * t.element_size()
+    t0 = time.perf_counter()
+    out = all_reduce(t, *args, **kw)
+    in_reduce[0] += time.perf_counter() - t0
+    return out
+
+
+dist.all_reduce = counted
+torch.cuda.reset_peak_memory_stats()
+for key in flash.launch_counts:
+    flash.launch_counts[key] = 0
+trainer = train_lm.run(sys.argv[3:] + [
+    "--metrics-out", f"{sys.argv[1]}/rank{rank}.json"])
+torch.cuda.synchronize()
+launches = dict(flash.launch_counts)
+peak = torch.cuda.max_memory_allocated() / 2 ** 30
+steps = int(sys.argv[2])
+per_step = {k: v / steps for k, v in reduces.items()}
+from torch.profiler import ProfilerActivity, profile
+state = trainer.create_state(0)
+batch = trainer.shard_batch({"tokens": np.random.RandomState(0).randint(
+    0, 32000, size=(8, 2048)).astype(np.int32)})
+step = trainer.compile_step()
+torch.cuda.synchronize()
+in_reduce[0] = 0.0
+t0 = time.perf_counter()
+state, _ = step(state, batch)
+torch.cuda.synchronize()
+timed_step = (time.perf_counter() - t0) * 1e3
+reduce_in_step = in_reduce[0] * 1e3
+dist.barrier()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+busy = sum(e.self_device_time_total for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+del state
+group = trainer.mesh.get_group("tensor")
+x = torch.ones((8, 2048, 1024), dtype=torch.bfloat16, device="cuda")
+all_reduce(x, group=group)
+torch.cuda.synchronize()
+dist.barrier()
+t0 = time.perf_counter()
+for _ in range(5):
+    all_reduce(x, group=group)
+torch.cuda.synchronize()
+reduce_ms = (time.perf_counter() - t0) * 1e3 / 5
+print("RESULT " + json.dumps({
+    "launches": launches, "bh": sorted(shapes), "peak_gib": peak,
+    "reduces_per_step": per_step, "reduce_32mb_ms": reduce_ms,
+    "step_ms": timed_step, "in_reduces_ms": reduce_in_step,
+    "profiled_step_ms": wall, "busy_ms": busy or None}), flush=True)
+"""
+
+
+def tensor_train_phase(torch, flash, solo_info, workdir: Path):
+    """Phase 7g: tools/train_lm.run with --mesh tensor=TENSOR_WORLD as
+    TENSOR_WORLD processes on the one GPU over gloo: the ranks' losses
+    equal, finite and near phase 7's; each rank's kernels one a layer a
+    step at bh TENSOR_LOCAL_BH.  Information: a profiled step, peak
+    memory and the gloo all-reduces of each rank."""
+    from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
+
+    out = workdir / "tensor_train"
+    out.mkdir()
+    argv = TRAIN_FLAGS + ["--mesh", f"tensor={TENSOR_WORLD}",
+                          "--steps", str(TENSOR_STEPS), "--log-every", "1",
+                          "--max-restarts", "0"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = run_ranks(
+        ["-c", _TENSOR_TRAIN_RANK, str(out), str(TENSOR_STEPS), *argv],
+        TENSOR_WORLD, timeout_s=TENSOR_TIMEOUT_S,
+        cwd=str(Path(__file__).resolve().parent),
+        env=dict(os.environ, KFT_DIST_BACKEND="gloo"))
+    job_s = time.perf_counter() - t0
+    try:
+        check_ranks(results)
+    except RuntimeError as e:
+        fail(f"the tensor-parallel trainer failed: {e}")
+    ranks = [json.loads(next(ln for ln in r.stdout.splitlines()
+                             if ln.startswith("RESULT "))[7:])
+             for r in results]
+    want = {k: 0 for k in flash.launch_counts}
+    want.update({k: MODEL["n_layers"] * TENSOR_STEPS for k in TRAIN_KERNELS})
+    for r, info in enumerate(ranks):
+        log(f"tensor trainer rank {r}: launches {info['launches']} (want "
+            f"{want['flash_fwd']} of each of {', '.join(TRAIN_KERNELS)}, "
+            f"none of the others); kernel bh {info['bh']} (want "
+            f"{TENSOR_LOCAL_BH})")
+        if info["launches"] != want:
+            fail(f"tensor trainer rank {r} launches {info['launches']}, "
+                 f"want {want}")
+        if sorted(info["bh"]) != [["bwd", TENSOR_LOCAL_BH],
+                                  ["fwd", TENSOR_LOCAL_BH]]:
+            fail(f"tensor trainer rank {r} ran the kernels at bh "
+                 f"{info['bh']}, want {TENSOR_LOCAL_BH}")
+    histories = [json.loads((out / f"rank{r}.json").read_text())["history"]
+                 for r in range(TENSOR_WORLD)]
+    losses = [[h["loss"] for h in hist] for hist in histories]
+    solo = solo_info["losses"][:TENSOR_STEPS]
+    diff = max(abs(a - b) for a, b in zip(losses[0], solo))
+    steps_ms = [h["step_time_s"] * 1e3 for h in histories[0]]
+    log(f"tensor trainer losses {[round(x, 5) for x in losses[0]]} on "
+        f"every rank: {all(x == losses[0] for x in losses)}; phase 7's "
+        f"{[round(x, 5) for x in solo]}: max |diff| {diff:.2e} (bound "
+        f"{TENSOR_LOSS_ATOL}); steps {[round(x, 1) for x in steps_ms]} ms "
+        f"(the first carries start-up), job {job_s:.1f} s")
+    if not (len(losses[0]) == TENSOR_STEPS
+            and all(x == losses[0] for x in losses)
+            and all(map(math.isfinite, losses[0]))
+            and diff <= TENSOR_LOSS_ATOL):
+        fail(f"tensor trainer losses differ across ranks, are not finite "
+             f"or are more than {TENSOR_LOSS_ATOL} from phase 7's: "
+             f"{losses}")
+    for r, info in enumerate(ranks):
+        busy = info["busy_ms"]
+        share = ("not measured" if busy is None
+                 else f"{busy / info['profiled_step_ms']:.3f}")
+        per = info["reduces_per_step"]
+        log(f"tensor trainer rank {r}: step {info['step_ms']:.1f} ms, "
+            f"{info['in_reduces_ms']:.1f} ms of it inside gloo "
+            f"all-reduces; profiled step {info['profiled_step_ms']:.1f} "
+            f"ms, busy {busy} ms (share {share}), peak "
+            f"{info['peak_gib']:.2f} GiB; {per['calls']:.0f} gloo "
+            f"all-reduces a step moving {per['bytes'] / 2 ** 20:.1f} MiB, "
+            f"one of 32 MB alone {info['reduce_32mb_ms']:.2f} ms (both "
+            "ranks on one GPU, staged through host memory; host clock "
+            "after a sync; information only)")
+    launches = {k: sum(info["launches"][k] for info in ranks)
+                for k in flash.launch_counts}
+    return launches, {"losses": losses[0], "max_loss_diff": diff,
+                      "step_ms": steps_ms, "job_s": job_s, "ranks": ranks}
+
+
 def profile_step(torch, trainer, state, batch):
     """(host ms, device busy ms or None) of one training step, the second
     of two, the step under torch.profiler."""
@@ -5329,6 +5523,9 @@ def main() -> int:
         ring_train_counts, ring_train_info = ring_train_phase(
             torch, flash, train_info, workdir)
         phase_done("7f parallel")
+        tensor_counts, tensor_info = tensor_train_phase(
+            torch, flash, train_info, workdir)
+        phase_done("7g tensor")
         log(f"train, single pass + adamw against two-pass + adafactor: "
             f"median step {train_info['step_ms']:.1f} / "
             f"{two_pass_info['step_ms']:.1f} ms, MFU "
@@ -5365,7 +5562,8 @@ def main() -> int:
                                    "hfta": hfta_counts[name],
                                    "ring": ring_counts[name],
                                    "mesh": mesh_counts[name],
-                                   "ring_train": ring_train_counts[name]}
+                                   "ring_train": ring_train_counts[name],
+                                   "tensor": tensor_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
     for name, row in two_pass_rows.items():
@@ -5380,7 +5578,8 @@ def main() -> int:
                                    "hfta": hfta_counts[name],
                                    "ring": ring_counts[name],
                                    "mesh": mesh_counts[name],
-                                   "ring_train": ring_train_counts[name]}
+                                   "ring_train": ring_train_counts[name],
+                                   "tensor": tensor_counts[name]}
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
@@ -5394,7 +5593,8 @@ def main() -> int:
                     "train_moe": moe_info, "dropout": dropout_info,
                     "hfta": hfta_info,
                     "parallel": {"ring": ring_info, "mesh": mesh_info,
-                                 "ring_train": ring_train_info},
+                                 "ring_train": ring_train_info,
+                                 "tensor": tensor_info},
                     "checkpoint": ckpt_info,
                     "cnn_serve": cnn_serve_info,
                     "cnn_train": cnn_train_info}))

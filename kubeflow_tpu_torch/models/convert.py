@@ -19,6 +19,15 @@ leaf by leaf with ``jax.grad`` of the JAX model.  A served tree's matmul
 weights may be int8 ``QTensor``s (ops/quantize.py ``quantize_params``);
 ``load_params`` installs them as plain attributes in place of the
 parameters.
+
+A model under a mesh holds shares of the whole weights: its slices over
+``tensor`` (models/transformer.py splits heads, mlp and vocab) and, once
+the trainer has wrapped it, FSDP2's shards of those over ``fsdp``.
+``load_params`` takes the whole tree and installs the rank's tensor
+slices (FSDP2 then shards them as it wraps the model, and a checkpoint
+restore places both, runtime/checkpoint.py); ``whole_parameters`` and
+``params_to_jax`` gather the shares back into whole weights, a
+collective that every rank of the mesh calls.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 
 from kubeflow_tpu_torch.models.transformer import Transformer
 from kubeflow_tpu_torch.ops.quantize import QTensor
+from kubeflow_tpu_torch.parallel import tensor as tp
 
 _LAYER_LEAVES = (
     ("attn_norm", "scale"), ("attn", "wq"), ("attn", "wkv"),
@@ -85,7 +95,9 @@ def load_params(model: Transformer, params: Dict[str, Any]) -> Transformer:
     takes the tensors as they are); shapes must match exactly.  A
     ``QTensor`` leaf replaces its parameter with a plain attribute of the
     same name, which ``model.to()`` does not move: stage such a tree on
-    its device first (``params_to_device``)."""
+    its device first (``params_to_device``).  A model whose parameters
+    are slices over ``tensor`` takes the whole leaves and keeps its own
+    slices of them."""
     n = model.cfg.n_layers
     state = {"embed": params["embed"],
              "final_norm.scale": params["final_norm"]["scale"]}
@@ -100,6 +112,10 @@ def load_params(model: Transformer, params: Dict[str, Any]) -> Transformer:
         for i in range(n):
             state[f"layers.{i}.{outer}.{inner}"] = stacked[i]
     expected = dict(model.named_parameters())
+    slices = {name: tp.shard_of(p) for name, p in expected.items()}
+    for name, shard in slices.items():
+        if shard is not None and name in state:
+            state[name] = shard.take(state[name]).contiguous()
     if set(state) != set(expected):
         raise ValueError(
             f"parameter names differ: missing {sorted(set(expected) - set(state))}"
@@ -114,22 +130,43 @@ def load_params(model: Transformer, params: Dict[str, Any]) -> Transformer:
         delattr(module, leaf)
         setattr(module, leaf, state.pop(name))
     model.load_state_dict(state, strict=True, assign=True)
+    for name, param in model.named_parameters():
+        tp.mark(param, slices[name])  # assign=True made new parameters
     return model
+
+
+def _whole(param: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of which ``t`` (``param`` or its gradient) is this
+    rank's share: FSDP2's shards gathered, then the tensor slices (a
+    collective under a mesh; ``t`` itself otherwise)."""
+    t = t.detach()
+    if callable(getattr(t, "full_tensor", None)):
+        t = t.full_tensor()
+    shard = tp.shard_of(param)
+    return t if shard is None else shard.gather(t)
+
+
+def whole_parameters(model: Transformer) -> Dict[str, torch.Tensor]:
+    """Every parameter by name, whole (gathered over the mesh: every rank
+    calls it), on its own device."""
+    return {name: _whole(p, p) for name, p in model.named_parameters()}
 
 
 def params_to_jax(model: Transformer, *, grads: bool = False
                   ) -> Dict[str, Any]:
     """The model's parameters (or, with ``grads=True``, their gradients)
     as the JAX package's nested numpy tree (stacked ``[L, ...]`` layer
-    leaves); bf16 leaves become float32, the dtype numpy can hold."""
+    leaves), whole under a mesh (gathered: every rank calls it); bf16
+    leaves become float32, the dtype numpy can hold."""
 
-    def host(t: torch.Tensor) -> np.ndarray:
+    def host(p: torch.Tensor) -> np.ndarray:
+        t = p
         if grads:
-            if t.grad is None:
-                raise ValueError(f"parameter of shape {tuple(t.shape)} has "
+            if p.grad is None:
+                raise ValueError(f"parameter of shape {tuple(p.shape)} has "
                                  "no gradient")
-            t = t.grad
-        t = t.detach().cpu()
+            t = p.grad
+        t = _whole(p, t).cpu()
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
         return t.numpy()

@@ -27,7 +27,27 @@ batch and, with ``sequence`` above 1, of the sequence: ``attention=
 (parallel/ring.py, which requires a mesh, as in JAX), ``"flash"`` is
 ``make_sharded_flash``, and RoPE positions are global (rank r of the
 sequence group starts at r * s_local).  ``lm_task(cfg, mesh=...)``'s
-targets and loss are the global sequence's (see its docstring).
+targets and loss are the global sequence's (see its docstring).  Under
+a mesh dropout draws each mask at the global ``[B, S, E]`` shape from
+the step's generator, seeded alike on every rank, and each rank keeps
+its rows and positions (``rank_dropout_mask``): the masks are those of
+one device on the global batch, and every rank of a ``tensor`` group
+keeps the same one.
+
+With ``tensor`` above 1 (parallel/tensor.py) the model is split as the
+rule table (parallel/mesh.py ``DEFAULT_RULES``) places the JAX model's
+logical axes: each rank draws the whole weights from the generator, as
+one device does, and keeps its slice of the ``heads`` dim of ``wq``,
+``wkv`` and ``wo``, of the ``mlp`` dim of ``wi`` and the MLP's ``wo``,
+and of the ``vocab`` dim of ``embed`` and ``w_out`` (marked with their
+``TensorShard``).  The attention and MLP are Megatron's column/row
+pairs: ``copy_to_parallel`` on the input of ``wq``/``wkv`` and of
+``wi``, ``reduce_from_parallel`` at the end of ``Attention.out`` and
+``MLP.down``, before dropout and the residual add.  The embedding is a
+vocab-parallel lookup, and the logits are the rank's vocab slice, which
+``lm_task``'s vocab-parallel cross-entropy takes without gathering them.
+Every rank runs its local heads through the flash kernels (or the ring),
+with ``n_heads / n_kv_heads`` kept per rank.
 
 Remat (``cfg.remat``) checkpoints each block with ``torch.utils.checkpoint``
 under the JAX package's policies (``_remat_policy``).  With flash attention
@@ -69,6 +89,7 @@ from kubeflow_tpu_torch.parallel.ring import (
     from_next_rank,
     make_ring_attention,
 )
+from kubeflow_tpu_torch.parallel import tensor as tp
 from kubeflow_tpu_torch.parallel.mesh import (
     DATA,
     EXPERT,
@@ -77,6 +98,9 @@ from kubeflow_tpu_torch.parallel.mesh import (
     SEQUENCE,
     TENSOR,
     axis_sizes,
+    batch_group,
+    sharded_dim,
+    tensor_shard,
 )
 from kubeflow_tpu_torch.runtime import member_map
 
@@ -158,9 +182,6 @@ def _unsupported(cfg: TransformerConfig, mesh) -> Optional[str]:
     if mesh is None:
         return None
     sizes = axis_sizes(mesh)
-    if sizes[TENSOR] > 1:
-        return ("a mesh with tensor > 1 (tensor parallelism, ROADMAP queue "
-                "1 item 19)")
     if sizes[PIPELINE] > 1:
         return "a mesh with pipeline > 1 (GPipe, ROADMAP queue 1 item 20)"
     if sizes[EXPERT] > 1 or cfg.moe_experts > 0:
@@ -175,6 +196,25 @@ def _sequence_shard(mesh) -> Tuple[int, int]:
     if mesh is None or axis_sizes(mesh)[SEQUENCE] == 1:
         return 0, 1
     return mesh.get_local_rank(SEQUENCE), axis_sizes(mesh)[SEQUENCE]
+
+
+def _row_shard(mesh) -> Tuple[int, int]:
+    """(this rank's index, count) of the batch's row shards, over
+    ``data`` x ``fsdp``; (0, 1) without a mesh."""
+    if mesh is None:
+        return 0, 1
+    sizes = axis_sizes(mesh)
+    return (mesh.get_local_rank(DATA) * sizes[FSDP]
+            + mesh.get_local_rank(FSDP), sizes[DATA] * sizes[FSDP])
+
+
+def _vocab_split(mesh, vocab_size: int):
+    """(first vocab id, ``tensor`` group) of this rank's vocab slice when
+    the rule table splits ``vocab`` over ``tensor`` > 1, else None."""
+    index, count = tensor_shard(mesh)
+    if count == 1 or sharded_dim(("vocab",), TENSOR) is None:
+        return None
+    return index * (vocab_size // count), mesh.get_group(TENSOR)
 
 
 def _no_batch_dims(op, args, members: int = 1) -> bool:
@@ -285,6 +325,9 @@ class Attention(nn.Module):
         self.wq = _param((e, h, d), generator, device)
         self.wkv = _param((2, e, hkv, d), generator, device)
         self.wo = _param((h, d, e), generator, device)
+        # The tensor group when the heads are split over it (Transformer
+        # sets it), None otherwise.
+        self.group = None
         # The mesh's attention (JAX's Attention._attend under a mesh).
         self._sharded = None
         if cfg.attention == "ring":
@@ -296,8 +339,10 @@ class Attention(nn.Module):
 
     def project(self, x: torch.Tensor):
         """Projections of x [b, s, e] before rope: q [b,s,h,d], k and v
-        [b,s,hkv,d], all in the compute dtype."""
+        [b,s,hkv,d], all in the compute dtype (this rank's heads when they
+        are split over ``tensor``)."""
         dt = self.cfg.dtype
+        x = tp.copy_to_parallel(x, self.group)
         return (qeinsum("bse,ehd->bshd", x, self.wq, dt),
                 qeinsum("bse,ehd->bshd", x, self.wkv[0], dt),
                 qeinsum("bse,ehd->bshd", x, self.wkv[1], dt))
@@ -310,7 +355,8 @@ class Attention(nn.Module):
         return rope(q, positions, theta), rope(k, positions, theta), v
 
     def out(self, o: torch.Tensor) -> torch.Tensor:
-        return qeinsum("bshd,hde->bse", o, self.wo, self.cfg.dtype)
+        return tp.reduce_from_parallel(
+            qeinsum("bshd,hde->bse", o, self.wo, self.cfg.dtype), self.group)
 
     def attend(self, q, k, v, segment_ids=None) -> torch.Tensor:
         cfg = self.cfg
@@ -339,15 +385,20 @@ class MLP(nn.Module):
         self.cfg = cfg
         self.wi = _param((2, cfg.d_model, cfg.d_ff), generator, device)
         self.wo = _param((cfg.d_ff, cfg.d_model), generator, device)
+        # The tensor group when the hidden dim is split over it.
+        self.group = None
 
     def gate_up(self, x: torch.Tensor):
-        """The gate and up projections of x [b, s, e], each [b, s, f]."""
+        """The gate and up projections of x [b, s, e], each [b, s, f]
+        (this rank's slice of f when it is split over ``tensor``)."""
         dt = self.cfg.dtype
+        x = tp.copy_to_parallel(x, self.group)
         return (qeinsum("bse,ef->bsf", x, self.wi[0], dt),
                 qeinsum("bse,ef->bsf", x, self.wi[1], dt))
 
     def down(self, h: torch.Tensor) -> torch.Tensor:
-        return qeinsum("bsf,fe->bse", h, self.wo, self.cfg.dtype)
+        return tp.reduce_from_parallel(
+            qeinsum("bsf,fe->bse", h, self.wo, self.cfg.dtype), self.group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gate, up = self.gate_up(x)
@@ -365,6 +416,24 @@ def dropout_mask(shape, rate: float, generator: torch.Generator,
             lambda g: dropout_mask(shape, rate, g, device))
     return torch.rand(shape, generator=generator, device=device) \
         < 1.0 - rate
+
+
+def rank_dropout_mask(shape, rate: float, generator: torch.Generator,
+                      device, mesh) -> torch.Tensor:
+    """This rank's keep mask for activations of local ``shape`` [b, s,
+    e]: its rows (its data x fsdp shard) and positions (its sequence
+    shard) of the mask ``dropout_mask`` draws at the global shape, so the
+    masks of a mesh are those of one device on the global batch, and
+    every rank of a ``tensor`` group keeps the same one.  Each rank draws
+    the whole global mask (data x fsdp x sequence times its own)."""
+    rows, n_rows = _row_shard(mesh)
+    pos, n_pos = _sequence_shard(mesh)
+    if n_rows * n_pos == 1:
+        return dropout_mask(shape, rate, generator, device)
+    b, s = shape[0], shape[1]
+    keep = dropout_mask((b * n_rows, s * n_pos, *shape[2:]), rate,
+                        generator, device)
+    return keep[rows * b:(rows + 1) * b, pos * s:(pos + 1) * s].contiguous()
 
 
 def _dropped(y: torch.Tensor, keep: torch.Tensor, rate: float
@@ -482,6 +551,12 @@ class Transformer(nn.Module):
     load_params).  A served model's matmul weights may be int8
     ``QTensor``s (ops/quantize.py) in place of parameters; the forward
     takes them through ``qeinsum`` and ``embed_lookup``.
+
+    Under a mesh with ``tensor`` above 1 the weights are split over it as
+    the rule table places their logical axes (the module docstring), and the
+    logits (or, with ``return_hidden``, the unembed) are this rank's
+    vocab slice.  ``n_heads`` and ``n_kv_heads`` must then be multiples
+    of ``tensor``.
     """
 
     def __init__(self, cfg: TransformerConfig, *, device=None,
@@ -490,6 +565,11 @@ class Transformer(nn.Module):
         reason = _unsupported(cfg, mesh)
         if reason is not None:
             raise NotPortedError(f"not ported yet: {reason}")
+        _, tensor = tensor_shard(mesh)
+        if cfg.n_heads % tensor or cfg.n_kv_heads % tensor:
+            raise ValueError(
+                f"n_heads={cfg.n_heads} and n_kv_heads={cfg.n_kv_heads} "
+                f"must both be multiples of the mesh's tensor={tensor}")
         if cfg.attention == "ring" and mesh is None:
             raise ValueError("attention='ring' requires a mesh")
         if _sequence_shard(mesh)[1] > 1 and cfg.attention != "ring":
@@ -512,9 +592,43 @@ class Transformer(nn.Module):
         if not cfg.tied_embeddings:
             self.w_out = _param((cfg.d_model, cfg.vocab_size), generator,
                                 device)
+        self._vocab = None
+        if tensor > 1:
+            self._split_over_tensor()
+
+    def _split_over_tensor(self) -> None:
+        """Keep this rank's slice of every parameter whose logical axes
+        the rule table places on ``tensor`` (drawn whole, as one device
+        draws them), marked with its ``TensorShard``; set the column/row
+        group of each attention and MLP whose weights were split, and
+        the vocab-parallel lookup's range."""
+        index, count = tensor_shard(self.mesh)
+        group = self.mesh.get_group(TENSOR)
+        axes_of = self.param_logical_axes()
+        for name, param in list(self.named_parameters()):
+            dim = sharded_dim(axes_of[name], TENSOR)
+            if dim is None:
+                continue
+            shard = tp.TensorShard(dim, index, count, group)
+            owner, _, leaf = name.rpartition(".")
+            module = self.get_submodule(owner)
+            setattr(module, leaf, tp.mark(nn.Parameter(
+                shard.take(param.detach()).contiguous()), shard))
+            if axes_of[name][dim] != "vocab":
+                module.group = group  # an attention's heads, an MLP's
+        self._vocab = _vocab_split(self.mesh, self.cfg.vocab_size)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self._vocab is not None:
+            return tp.vocab_parallel_embedding(
+                self.embed, tokens, self.cfg.dtype, *self._vocab)
         return embed_lookup(self.embed, tokens, self.cfg.dtype)
+
+    def _unembed_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm of hidden states [b, s, e], entering the
+        vocab-parallel unembed through ``copy_to_parallel``."""
+        group = None if self._vocab is None else self._vocab[1]
+        return tp.copy_to_parallel(self.final_norm(x), group)
 
     def param_logical_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
         """Each parameter's logical axes, as the JAX model annotates the
@@ -529,9 +643,10 @@ class Transformer(nn.Module):
         return out
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm and unembed of hidden states [b, s, e]."""
+        """Final norm and unembed of hidden states [b, s, e] (this rank's
+        vocab slice when the vocab is split over ``tensor``)."""
         cfg = self.cfg
-        x = self.final_norm(x)
+        x = self._unembed_input(x)
         if cfg.tied_embeddings:
             logits = qeinsum("bse,ve->bsv", x, self.embed, cfg.dtype)
         else:
@@ -564,14 +679,15 @@ class Transformer(nn.Module):
             if drop:
                 # Drawn here, outside the checkpointed regions (see the
                 # module docstring); each layer gets its own pair.
-                masks = tuple(dropout_mask(x.shape, rate, generator,
-                                           x.device) for _ in range(2))
+                masks = tuple(rank_dropout_mask(x.shape, rate, generator,
+                                                x.device, self.mesh)
+                              for _ in range(2))
             x, layer_aux = block(x, positions, segment_ids, masks)
             if layer_aux is not None:
                 aux = layer_aux if aux is None else aux + layer_aux
         if return_hidden:
             unembed = self.embed if self.w_out is None else self.w_out
-            out = (self.final_norm(x), unembed.to(self.cfg.dtype))
+            out = (self._unembed_input(x), unembed.to(self.cfg.dtype))
         else:
             out = self.logits(x)
         return (out, aux) if return_aux else out
@@ -604,8 +720,17 @@ def lm_task(cfg: TransformerConfig, device=None,
     on every rank (an all-reduce), and its gradient on a rank is that
     rank's share of the global loss's gradient: the trainer's reduction
     sums the shares (runtime/train.py).  The chunked CE's divisibility
-    check applies to the local length.
+    check applies to the local length.  With ``tensor`` above 1 the
+    logits are the rank's vocab slice, and the CE is the vocab-parallel
+    one (parallel/tensor.py) on both ``ce_dtype`` values and in the
+    chunked path: no rank gathers ``[b, s, vocab]``.  The ranks of a
+    tensor group compute the same share, so the global sum runs over
+    data x fsdp x sequence only (parallel/mesh.py ``batch_group``).
     """
+    vocab = _vocab_split(mesh, cfg.vocab_size)
+    # The global loss's group, created here, where every rank builds its
+    # task, not inside the first step.
+    summed_over = None if mesh is None else batch_group(mesh)
 
     def init_fn(gen: Optional[torch.Generator] = None):
         model = Transformer(cfg, device=device,
@@ -617,6 +742,8 @@ def lm_task(cfg: TransformerConfig, device=None,
         """Per-position CE [*, n] from logits [*, n, v], honoring
         cfg.ce_dtype (shared by the unchunked and chunked paths)."""
         tgt = tgt.long()
+        if vocab is not None:
+            return tp.vocab_parallel_cross_entropy(lg, tgt, *vocab)
         if cfg.ce_dtype == "f32":
             return F.cross_entropy(
                 lg.float().flatten(0, -2), tgt.flatten(),
@@ -707,7 +834,7 @@ def lm_task(cfg: TransformerConfig, device=None,
         tokens = batch["tokens"]
         out, aux = model(tokens, deterministic=False, generator=rng,
                          return_hidden=cfg.ce_chunk > 0, return_aux=True)
-        loss = _global_loss(mean_ce(out, tokens), mesh)
+        loss = _global_loss(mean_ce(out, tokens), summed_over)
         metrics = {"perplexity": torch.exp(loss.detach())}
         if cfg.moe_experts > 0:
             metrics["moe_aux"] = aux.detach()
@@ -717,14 +844,15 @@ def lm_task(cfg: TransformerConfig, device=None,
     return init_fn, loss_fn
 
 
-def _global_loss(share: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of ``share`` over the mesh's ranks as the value, with
-    ``share``'s own gradient (an all-reduce of the value; nothing to do
-    on one rank)."""
+def _global_loss(share: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``share`` over ``group`` (the ranks that hold the
+    batch's other rows and positions) as the value, with ``share``'s own
+    gradient (an all-reduce of the value; nothing to do without a group
+    or in a group of one)."""
     import torch.distributed as dist
 
-    if mesh is None or mesh.size() == 1:
+    if group is None or dist.get_world_size(group) == 1:
         return share
     total = share.detach().clone()
-    dist.all_reduce(total)
+    dist.all_reduce(total, group=group)
     return total + (share - share.detach())

@@ -690,16 +690,12 @@ def make_sharded_flash(
     """Flash attention under a mesh (the JAX package's
     ``make_sharded_flash``): batch over (data, fsdp), sequence resident
     (ring attention shards it), heads over tensor.  Each rank already
-    holds its batch shard and the whole sequence as plain local tensors,
-    so this is ``flash_attention`` on them.  Heads over ``tensor`` are
-    ROADMAP queue 1 item 19."""
-    from kubeflow_tpu_torch import NotPortedError
-    from kubeflow_tpu_torch.parallel.mesh import TENSOR, axis_sizes
-
-    if axis_sizes(mesh)[TENSOR] > 1:
-        raise NotPortedError(
-            "flash attention with heads over the tensor axis is not ported "
-            "yet: tensor parallelism is ROADMAP queue 1 item 19")
+    holds its batch shard, the whole sequence and, with ``tensor`` above
+    1, its slice of the query and kv heads (models/transformer.py splits
+    ``wq`` and ``wkv`` alike, so GQA keeps ``n_heads / n_kv_heads`` per
+    rank) as plain local tensors, so this is ``flash_attention`` on them:
+    the kernels run at bh = local rows x local heads."""
+    del mesh  # every axis is already in the local shapes
 
     def fn(q, k, v):
         return flash_attention(q, k, v, causal=causal, block_q=block_q,

@@ -2,7 +2,9 @@
 
 ``mesh.py`` names the axes and maps a ``MeshSpec`` onto a
 ``torch.distributed`` ``DeviceMesh`` (one rank a GPU); ``ring.py`` is
-ring attention over the ``sequence`` axis on the flash kernels.  The
+ring attention over the ``sequence`` axis on the flash kernels;
+``tensor.py`` holds the collectives of the ``tensor`` axis (Megatron's
+column/row split, the vocab-parallel embedding and cross-entropy).  The
 GPipe schedule (``parallel/pipeline.py`` in JAX) is ROADMAP queue 1 item
 20.
 """

@@ -16,7 +16,13 @@ shares the rank's singleton group.
 returns a ``PartitionSpec`` of the same entries.  ``fsdp_mesh`` is the
 mesh FSDP2 shards over: the ``fsdp`` axis, with the ``data`` and
 ``sequence`` axes, over which parameters are replicated, folded into one
-replicate dim (HSDP) when either is above 1.
+replicate dim (HSDP) when either is above 1, at this rank's index along
+``tensor`` (and ``pipeline`` and ``expert``): FSDP2 shards and reduces
+within one tensor index, never across them.  ``tensor_shard`` and
+``batch_group`` serve tensor parallelism (parallel/tensor.py): this
+rank's place along ``tensor``, and the group of the ranks that hold other
+rows or positions of the batch (data x fsdp x sequence) at its tensor
+index, over which the loss is summed.
 """
 
 from __future__ import annotations
@@ -175,13 +181,26 @@ def axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
+def _at_my_index(mesh, ranks: torch.Tensor, keep: List[str]
+                 ) -> torch.Tensor:
+    """The rank grid along the axes ``keep`` (in that order) at this
+    rank's index along every other axis."""
+    dims = [AXIS_ORDER.index(a) for a in keep]
+    index = tuple(slice(None) if d in dims else mesh.get_local_rank(a)
+                  for d, a in enumerate(AXIS_ORDER))
+    left = [d for d in range(ranks.dim()) if d in dims]
+    return ranks[index].permute([left.index(d) for d in dims])
+
+
 def fsdp_mesh(mesh, timeout_s: float = DEFAULT_TIMEOUT_S):
     """The mesh FSDP2 shards parameters over: 1-D over ``fsdp`` when the
     ``data`` and ``sequence`` axes are both 1, else 2-D ``("replicate",
     "fsdp")`` with the ranks of ``data`` x ``sequence`` as the replicate
     dim (HSDP: gradients reduce-scattered over fsdp, all-reduced over
-    replicate).  A collective: every rank calls it once per mesh, and the
-    result is kept on the mesh."""
+    replicate), at this rank's ``tensor`` index: ranks of different
+    tensor indices hold different slices and are never joined.  A
+    collective: every rank calls it once per mesh, and the result is
+    kept on the mesh."""
     cached = getattr(mesh, "_kft_fsdp_mesh", None)
     if cached is not None:
         return cached
@@ -199,12 +218,42 @@ def fsdp_mesh(mesh, timeout_s: float = DEFAULT_TIMEOUT_S):
         dims = [AXIS_ORDER.index(DATA), AXIS_ORDER.index(SEQUENCE)]
         rep_group = _axis_groups(
             ranks, dims, datetime.timedelta(seconds=timeout_s))
-        grid = ranks.permute(
-            dims + [d for d in range(ranks.dim()) if d not in dims])
+        grid = _at_my_index(mesh, ranks, [DATA, SEQUENCE, FSDP])
         out = _from_groups([rep_group, fsdp_group], mesh.device_type,
                            grid.reshape(replicate, sizes[FSDP]),
                            ("replicate", FSDP))
     mesh._kft_fsdp_mesh = out
+    return out
+
+
+def tensor_shard(mesh) -> Tuple[int, int]:
+    """(this rank's index, size) along ``tensor``; (0, 1) without a
+    mesh."""
+    if mesh is None or axis_sizes(mesh)[TENSOR] == 1:
+        return 0, 1
+    return mesh.get_local_rank(TENSOR), axis_sizes(mesh)[TENSOR]
+
+
+def batch_group(mesh, timeout_s: float = DEFAULT_TIMEOUT_S):
+    """The process group of the ranks that hold other rows or sequence
+    positions of the batch than this one (data x fsdp x sequence) at its
+    ``tensor`` index: the loss is summed over it, where a sum over the
+    whole mesh would count each share once per tensor rank.  The world's
+    group when that is every rank.  A collective on first use, kept on
+    the mesh."""
+    cached = getattr(mesh, "_kft_batch_group", None)
+    if cached is not None:
+        return cached
+    import torch.distributed as dist
+
+    sizes = axis_sizes(mesh)
+    if sizes[DATA] * sizes[FSDP] * sizes[SEQUENCE] == mesh.size():
+        out = dist.group.WORLD
+    else:
+        dims = [AXIS_ORDER.index(a) for a in (DATA, FSDP, SEQUENCE)]
+        out = _axis_groups(mesh.mesh.to(torch.int), dims,
+                           datetime.timedelta(seconds=timeout_s))
+    mesh._kft_batch_group = out
     return out
 
 

@@ -40,7 +40,6 @@ from typing import Callable, List, Sequence, Tuple
 
 import torch
 
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 from kubeflow_tpu_torch.ops.flash import (
     flash_bwd_block,
@@ -48,7 +47,7 @@ from kubeflow_tpu_torch.ops.flash import (
     merge_partials,
     repeat_kv,
 )
-from kubeflow_tpu_torch.parallel.mesh import SEQUENCE, TENSOR, axis_sizes
+from kubeflow_tpu_torch.parallel.mesh import SEQUENCE
 
 
 def _ring_size(group) -> Tuple[int, int]:
@@ -226,12 +225,10 @@ def make_ring_attention(
 ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
     """Ring attention over ``mesh``'s ``axis_name`` group, on local
     shards laid out as the JAX package's ``make_ring_attention`` expects
-    them: batch over (data, fsdp), sequence over ``axis_name``.  Heads
-    over ``tensor`` are ROADMAP queue 1 item 19."""
-    if axis_sizes(mesh)[TENSOR] > 1:
-        raise NotPortedError(
-            "ring attention with heads over the tensor axis is not ported "
-            "yet: tensor parallelism is ROADMAP queue 1 item 19")
+    them: batch over (data, fsdp), sequence over ``axis_name``, heads
+    over ``tensor`` (each rank's own heads, query and kv split alike).
+    The ``axis_name`` group holds the ranks of this rank's tensor index
+    only, so the hops rotate among the shards of the same heads."""
     group = mesh.get_group(axis_name)
 
     def fn(q, k, v):

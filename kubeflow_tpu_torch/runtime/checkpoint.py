@@ -37,10 +37,15 @@ rank calls ``save`` and ``restore`` in step: a save gathers each sharded
 tensor (a DTensor, runtime/train.py under a mesh) into the full one,
 rank 0 writes the step and its manifest in the format above, and the
 step counts as saved only when every rank has passed the barrier after
-rank 0's commit (a failure there raises on every rank).  The files are
-those of a one-device save, so a trainer without a mesh resumes them.
-A restore reads the full state on every rank and keeps each rank's
-shards of the sharded tensors.
+rank 0's commit (a failure there raises on every rank).  A tensor that
+is one rank's slice over the ``tensor`` axis (its ``TensorShard``,
+parallel/tensor.py: the split weights of a tensor-parallel model and
+their moments) is gathered over its group too, after FSDP2's gather.
+The files are those of a one-device save, each weight whole in the JAX
+layout, so a trainer without a mesh resumes them.  A restore reads the
+full state on every rank and keeps each rank's shards of the sharded
+tensors: its tensor slice first, then its FSDP2 shard of that, so a
+tensor-parallel trainer resumes a save without a mesh too.
 
 Fault hook sites (testing/faults.py): ``checkpoint.save`` fires in the
 background finalize, between the step's commit and the manifest write (a
@@ -63,6 +68,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from kubeflow_tpu_torch.parallel import tensor as tp
 from kubeflow_tpu_torch.runtime.prom import REGISTRY
 from kubeflow_tpu_torch.testing import faults
 
@@ -190,6 +196,13 @@ def _is_sharded(t: Any) -> bool:
         getattr(t, "full_tensor", None))
 
 
+def _whole_shape(t: torch.Tensor) -> Tuple[int, ...]:
+    """The shape of the whole tensor ``t`` is a share of: its own (a
+    DTensor's is the global one) or, for a tensor slice, the whole's."""
+    shard = tp.shard_of(t)
+    return tuple(t.shape) if shard is None else shard.whole_shape(t.shape)
+
+
 def _local_shard(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """This rank's shard of ``full`` as the DTensor ``like`` places it
     (``torch.chunk`` along each sharded dim, as FSDP2 splits)."""
@@ -218,13 +231,19 @@ def _world() -> Tuple[int, int]:
 def _encode(obj: Any) -> Any:
     """The state as tensors (host copies) and plain containers, the only
     things ``torch.load(weights_only=True)`` reads back.  A sharded
-    tensor is gathered (a collective: every rank encodes)."""
+    tensor is gathered, and a tensor slice too (collectives: every rank
+    encodes)."""
     if isinstance(obj, torch.Tensor):
+        shard = tp.shard_of(obj)
+        obj = obj.detach()
         if _is_sharded(obj):
             obj = obj.full_tensor()
-        return obj.detach().to("cpu", copy=True)
+        if shard is not None:
+            obj = shard.gather(obj)
+        return obj.to("cpu", copy=True)
     if isinstance(obj, nn.Module):
-        return {k: _encode(v) for k, v in obj.state_dict().items()}
+        return {k: _encode(v)
+                for k, v in obj.state_dict(keep_vars=True).items()}
     if isinstance(obj, torch.Generator):
         return obj.get_state()
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
@@ -247,9 +266,9 @@ def _decode(template: Any, saved: Any, path: str,
     once the whole tree has decoded, so a checkpoint that does not fit
     changes nothing."""
     if isinstance(template, nn.Module):
-        want = template.state_dict()
+        want = template.state_dict(keep_vars=True)
         if not isinstance(saved, dict) or set(saved) != set(want) or any(
-                tuple(saved[k].shape) != tuple(want[k].shape)
+                tuple(saved[k].shape) != _whole_shape(want[k])
                 for k in want):
             raise ValueError(f"{path}: saved parameters do not match the "
                              "model")
@@ -262,9 +281,9 @@ def _decode(template: Any, saved: Any, path: str,
         return template
     if isinstance(template, torch.Tensor):
         if not isinstance(saved, torch.Tensor) or \
-                saved.shape != template.shape:
+                tuple(saved.shape) != _whole_shape(template):
             raise ValueError(f"{path}: saved {getattr(saved, 'shape', '?')}"
-                             f", want {tuple(template.shape)}")
+                             f", want {_whole_shape(template)}")
         return _place_like(saved, template)
     if dataclasses.is_dataclass(template) and not isinstance(template, type):
         names = [f.name for f in dataclasses.fields(template)]
@@ -291,25 +310,33 @@ def _decode(template: Any, saved: Any, path: str,
 
 def _place_like(saved: torch.Tensor, template: torch.Tensor
                 ) -> torch.Tensor:
-    """``saved`` on the template's device and dtype; for a sharded
-    template, this rank's shard of it, placed as the template is."""
+    """``saved`` on the template's device and dtype; for a tensor slice
+    or a sharded template, this rank's share of it, placed and marked as
+    the template is."""
+    shard = tp.shard_of(template)
+    if shard is not None:
+        saved = shard.take(saved)
     if not _is_sharded(template):
-        return saved.to(template.device, template.dtype)
+        return tp.mark(saved.to(template.device, template.dtype,
+                                copy=True), shard)
     from torch.distributed.tensor import DTensor
 
     local = _local_shard(saved, template).to(template.device,
                                              template.dtype)
-    return DTensor.from_local(local.contiguous(), template.device_mesh,
-                              template.placements, run_check=False,
-                              shape=template.shape,
-                              stride=template.stride())
+    return tp.mark(DTensor.from_local(
+        local.contiguous(), template.device_mesh, template.placements,
+        run_check=False, shape=template.shape, stride=template.stride()),
+        shard)
 
 
 def _load_module(module: nn.Module, saved: Dict[str, torch.Tensor]
                  ) -> None:
     """The saved full tensors into ``module``: ``load_state_dict``, or
-    for sharded parameters each rank's shard copied into its own."""
-    if not any(map(_is_sharded, module.state_dict().values())):
+    for sharded parameters and tensor slices each rank's share copied
+    into its own."""
+    current = module.state_dict(keep_vars=True).values()
+    if not any(_is_sharded(t) or tp.shard_of(t) is not None
+               for t in current):
         module.load_state_dict(saved)
         return
     targets = dict(module.named_parameters())
@@ -317,6 +344,9 @@ def _load_module(module: nn.Module, saved: Dict[str, torch.Tensor]
     with torch.no_grad():
         for name, value in saved.items():
             target = targets[name]
+            shard = tp.shard_of(target)
+            if shard is not None:
+                value = shard.take(value)
             if _is_sharded(target):
                 target.to_local().copy_(_local_shard(value, target))
             else:
@@ -397,7 +427,12 @@ class CheckpointManager:
         learns rank 0's outcome at the barrier that ends the save."""
         import torch.distributed as dist
 
-        if step in self.all_steps():
+        # Rank 0's look at the directory decides for every rank: a rank
+        # that looked once rank 0 had written the step would skip the
+        # collectives below and hang the others.
+        saved = [step in self.all_steps()]
+        dist.broadcast_object_list(saved, src=0)
+        if saved[0]:
             return False
         tree = _encode(state)
         error = ""

@@ -37,8 +37,10 @@ All take the parameters and gradients as a name -> tensor mapping (as
 also take plain sequences.  Under a mesh whose ``fsdp`` axis is above 1
 the trainer hands adamw and sgd the sharded parameters (DTensors: their
 elementwise arithmetic runs on each shard, and the moments are sharded
-as their parameters are); adafactor refuses them, as its factored
-statistics would span the sharded dim (ROADMAP queue 1 item 24).
+as their parameters are); a parameter that is a slice over ``tensor``
+(parallel/tensor.py) passes its ``TensorShard`` on to its moments.
+adafactor refuses both, as its factored statistics would span the
+sharded dim (ROADMAP queue 1 item 24).
 
 The fused trainer (runtime/hfta.py) steps N members whose leaves and
 states are stacked on a leading member axis.  Its optimizer is
@@ -82,6 +84,8 @@ from typing import (
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.parallel import tensor as tp
+
 Schedule = Callable[[int], float]
 ScalarOrSchedule = Union[float, Schedule]
 
@@ -92,6 +96,11 @@ DECAY_RATE, MIN_DIM_SIZE_TO_FACTOR, FACTORED_EPS = 0.8, 128, 1e-30
 CLIPPING_THRESHOLD, MIN_PARAM_SCALE = 1.0, 1e-3
 
 Tensors = Union[Sequence[torch.Tensor], Mapping[str, torch.Tensor]]
+
+
+def _zeros_like(p: torch.Tensor) -> torch.Tensor:
+    """A moment buffer for ``p``: zeros sharded and marked as ``p`` is."""
+    return tp.like(torch.zeros_like(p), p)
 
 
 def _values(tensors: Tensors) -> List[torch.Tensor]:
@@ -177,8 +186,8 @@ class AdamW:
         params = _values(params)
         _check_float32("adamw", params)
         return AdamState(count=0,
-                         mu=[torch.zeros_like(p) for p in params],
-                         nu=[torch.zeros_like(p) for p in params])
+                         mu=[_zeros_like(p) for p in params],
+                         nu=[_zeros_like(p) for p in params])
 
     def lr(self, count: int) -> float:
         """The learning rate of update ``count`` (0-based)."""
@@ -349,13 +358,13 @@ class Adafactor:
     def init(self, params: Mapping[str, torch.Tensor]) -> AdafactorState:
         _check_float32("adafactor", _values(params))
         if any(callable(getattr(p, "to_local", None))
-               for p in _values(params)):
+               or tp.shard_of(p) is not None for p in _values(params)):
             from kubeflow_tpu_torch import NotPortedError
 
             raise NotPortedError(
-                "adafactor on parameters sharded over fsdp > 1 is not "
-                "ported yet (its factored statistics span the sharded "
-                "dim): ROADMAP queue 1 item 24")
+                "adafactor on parameters sharded over fsdp > 1 or tensor > "
+                "1 is not ported yet (its factored statistics span the "
+                "sharded dim): ROADMAP queue 1 item 24")
         state = AdafactorState(count=0, v_row={}, v_col={}, v={})
         for leaf, members in self._groups(params).items():
             first = params[members[0]]
@@ -513,7 +522,7 @@ class Sgd:
     def init(self, params: Tensors) -> SgdState:
         params = _values(params)
         _check_float32("sgd", params)
-        trace = ([torch.zeros_like(p) for p in params]
+        trace = ([_zeros_like(p) for p in params]
                  if self.momentum is not None else [])
         return SgdState(count=0, trace=trace)
 

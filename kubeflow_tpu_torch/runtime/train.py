@@ -4,8 +4,8 @@ port of kubeflow_tpu/runtime/train.py.
 The JAX ``Trainer`` jits one SPMD step over a mesh.  This one runs the
 same step eagerly, on one explicit device or, with ``mesh`` (a
 ``DeviceMesh`` from parallel/mesh.py ``MeshSpec.build``), as one process
-a GPU over the mesh's ``data``, ``fsdp`` and ``sequence`` axes.  What
-carries over unchanged:
+a GPU over the mesh's ``data``, ``fsdp``, ``sequence`` and ``tensor``
+axes.  What carries over unchanged:
 
   - the task contract: ``init_fn(generator) -> (model, mutable)`` and
     ``loss_fn(model, mutable, batch, rng) -> (loss, (metrics, mutable))``
@@ -25,25 +25,37 @@ carries over unchanged:
 Under a mesh (JAX's ``param_shardings``, ``_opt_shardings`` and
 ``shard_batch``):
 
-  - parameters are sharded over ``fsdp`` and replicated over ``data``
-    and ``sequence`` with FSDP2 (``fully_shard`` per ``Block`` and at the
-    root: ZeRO-3 gathers a layer's weights for its forward and
-    backward).  Each parameter is sharded on the dim the rule table maps
-    to ``fsdp`` from the JAX model's logical axes (the task's model
-    gives them, ``param_logical_axes``; ``embed`` goes over fsdp), dim 0
-    for one the rule table leaves replicated;
+  - with ``tensor`` above 1 the task's model holds this rank's slices
+    of the weights the rule table splits over ``tensor`` (heads, mlp and
+    vocab), as plain local tensors marked with their ``TensorShard``
+    (models/transformer.py, parallel/tensor.py); the kernels launch on
+    the local tensors' memory, and FSDP2 takes a plain local tensor as a
+    whole one, so no DTensor spans the ``tensor`` axis;
+  - parameters are then sharded over ``fsdp`` and replicated over
+    ``data`` and ``sequence`` with FSDP2 (``fully_shard`` per ``Block``
+    and at the root: ZeRO-3 gathers a layer's weights for its forward
+    and backward) over ``fsdp_mesh``, which holds the ranks of this
+    rank's tensor index only.  Each parameter is sharded on the dim the
+    rule table maps to ``fsdp`` from the JAX model's logical axes (the
+    task's model gives them, ``param_logical_axes``; ``embed`` goes over
+    fsdp), dim 0 for one the rule table leaves replicated;
   - the optimizer state follows its parameter: the optimizer runs on the
     sharded parameters (DTensors) when ``fsdp`` is above 1, and on the
-    local tensors, which are then whole, otherwise;
+    local tensors (whole, or their tensor slices) otherwise; the
+    moments carry their parameter's ``TensorShard``, so checkpoints
+    gather and split them as the parameters;
   - each process feeds its own rows (``shard_batch`` takes this rank's
     rows at the global sequence length and keeps its sequence shard);
   - the task's loss has the global loss as its value on every rank and
     that rank's share of it as its gradient (``lm_task(mesh=...)``).
-    FSDP2 averages the gradients over the mesh's ranks, so the step
-    scales the backward by their number: the reduced gradient is the
-    global loss's, as JAX's psum gives it;
-  - ``grad_norm`` is the global norm over the shards, and MFU counts
-    every rank's chip.
+    FSDP2 averages the gradients over its ranks (data x fsdp x
+    sequence at one tensor index), so the step scales the backward by
+    their number: the reduced gradient is the global loss's, as JAX's
+    psum gives it.  The ranks of a tensor group each hold the whole
+    gradient of their own slices and of the replicated weights;
+  - ``grad_norm`` is the global norm over the shards (squares summed
+    over ``fsdp``, and over ``tensor`` for the tensor slices only), and
+    MFU counts every rank's chip.
 
 The optimizer gets the parameters and gradients by name
 (``named_parameters()`` order), which adafactor needs to stack the JAX
@@ -65,6 +77,7 @@ from torch import nn
 
 from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
+from kubeflow_tpu_torch.parallel import tensor as tp
 from kubeflow_tpu_torch.parallel.mesh import (
     DEFAULT_RULES,
     EXPERT,
@@ -134,8 +147,7 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 def _check_mesh(mesh) -> None:
     """Refuse the axes this port does not train over yet."""
     sizes = axis_sizes(mesh)
-    for axis, what, item in ((TENSOR, "tensor parallelism", 19),
-                             (PIPELINE, "GPipe", 20),
+    for axis, what, item in ((PIPELINE, "GPipe", 20),
                              (EXPERT, "MoE's expert axis", 21)):
         if sizes.get(axis, 1) > 1:
             raise NotPortedError(
@@ -172,7 +184,7 @@ class Trainer:
       ``update(grads, state, params)`` (runtime/optim.py).
     mesh / rules: a ``DeviceMesh`` from ``MeshSpec.build`` (every rank
       builds the same trainer and calls it in step) and the logical-axis
-      rule table; a mesh with tensor, pipeline or expert above 1 raises
+      rule table; a mesh with pipeline or expert above 1 raises
       ``NotPortedError``.
     """
 
@@ -229,6 +241,7 @@ class Trainer:
 
         axes_of = getattr(model, "param_logical_axes", dict)()
         names = {id(p): n for n, p in model.named_parameters()}
+        slices = {n: tp.shard_of(p) for n, p in model.named_parameters()}
 
         def placement(param):
             dim = sharded_dim(axes_of.get(names[id(param)], ()), FSDP,
@@ -239,26 +252,45 @@ class Trainer:
         for block in getattr(model, "layers", ()):
             fully_shard(block, mesh=mesh, shard_placement_fn=placement)
         fully_shard(model, mesh=mesh, shard_placement_fn=placement)
+        # FSDP2's parameters replace the model's: they are the same
+        # tensor slices.
+        for name, param in model.named_parameters():
+            tp.mark(param, slices[name])
 
     def _opt_view(self, named) -> Dict[str, torch.Tensor]:
         """What the optimizer steps: the tensors themselves, or under a
-        mesh whose ``fsdp`` is 1 their local tensors, which are whole."""
+        mesh whose ``fsdp`` is 1 their local tensors, which are whole or
+        (marked as the tensors are) their slices over ``tensor``."""
         named = dict(named)
         if self.mesh is None or axis_sizes(self.mesh)[FSDP] > 1:
             return named
-        return {k: _local(v) for k, v in named.items()}
+        return {k: tp.like(_local(v), v) for k, v in named.items()}
 
-    def _grad_norm(self, grads) -> torch.Tensor:
+    def _grad_norm(self, grads, split) -> torch.Tensor:
         """optax.global_norm of the step's gradients; under a mesh over
-        the shards of every gradient (a sum of squares over ``fsdp``)."""
-        if self.mesh is None or axis_sizes(self.mesh)[FSDP] == 1:
+        the shards of every gradient: a sum of squares over ``fsdp``, and
+        over ``tensor`` for the gradients whose parameter is a tensor
+        slice (``split``, one flag a gradient), the replicated ones
+        counted once."""
+        sizes = {} if self.mesh is None else axis_sizes(self.mesh)
+        fsdp, tensor = sizes.get(FSDP, 1), sizes.get(TENSOR, 1)
+        if fsdp == 1 and tensor == 1:
             return global_norm([_local(g) for g in grads])
         import torch.distributed as dist
 
-        norms = torch._foreach_norm([_local(g).float() for g in grads])
-        sq = torch.linalg.vector_norm(torch.stack(norms)) ** 2
-        dist.all_reduce(sq, group=self.mesh.get_group(FSDP))
-        return torch.sqrt(sq)
+        sq = torch.stack(torch._foreach_norm(
+            [_local(g).float() for g in grads])) ** 2
+        is_slice = torch.tensor(split, device=sq.device)
+        # [squares of the tensor slices, of the other gradients]
+        sq = torch.stack([torch.where(is_slice, sq, 0).sum(),
+                          torch.where(is_slice, 0, sq).sum()])
+        if fsdp > 1:
+            dist.all_reduce(sq, group=self.mesh.get_group(FSDP))
+        if tensor > 1:
+            sliced = sq[0].clone()
+            dist.all_reduce(sliced, group=self.mesh.get_group(TENSOR))
+            return torch.sqrt(sliced + sq[1])
+        return torch.sqrt(sq.sum())
 
     def _step_body(self, state: TrainState, batch: Any
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -268,12 +300,14 @@ class Trainer:
         with torch.enable_grad():
             loss, (aux, new_mutable) = self.loss_fn(
                 state.params, state.mutable, batch, state.rng)
-            ranks = 1 if self.mesh is None else self.mesh.size()
-            # FSDP2 averages over the ranks; each rank's gradient is its
+            ranks = 1 if self.mesh is None else fsdp_mesh(self.mesh).size()
+            # FSDP2 averages over its ranks; each rank's gradient is its
             # share of the global loss's, so the sum is wanted.
             (loss * ranks if ranks > 1 else loss).backward()
         grads = self._opt_view((n, p.grad) for n, p in params.items())
-        grad_norm = self._grad_norm(list(grads.values()))
+        grad_norm = self._grad_norm(
+            list(grads.values()),
+            [tp.shard_of(p) is not None for p in params.values()])
         self.tx.update(grads, state.opt_state, self._opt_view(params))
         for p in params.values():
             p.grad = None  # gradients live only inside the step

@@ -18,6 +18,13 @@ the whole sequence, "causal": bool}}}``; rank r writes
 kernel launches (``ops/flash.py`` counts, CUDA) and the plain versions'
 calls by mask (CPU) over its forward and backward, and, with
 ``time_reps`` on CUDA, the forward's and the backward's ms.
+
+With ``"mesh"`` in the inputs (``MeshSpec`` sizes) the ranks build that
+mesh and run ``make_ring_attention`` over it, each on its rows (data x
+fsdp), its sequence shard and its heads (query and kv heads alike over
+``tensor``), as the JAX package's mixed-mesh ring runs; each rank also
+writes where its shard lies (``"split"``), and ``gathered`` puts the
+shards back together.
 """
 
 from __future__ import annotations
@@ -67,10 +74,39 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _splits(spec, rank: int, world: int):
+    """(the ring's attention function of (q, k, v, causal), and this
+    rank's (index, count) along the batch, sequence and head dims)."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel import mesh as mesh_lib
+    from kubeflow_tpu_torch.parallel.ring import (
+        make_ring_attention,
+        ring_attention,
+    )
+
+    if spec.get("mesh") is None:
+        def attend(q, k, v, causal):
+            return ring_attention(q, k, v, group=dist.group.WORLD,
+                                  causal=causal)
+
+        return attend, ((0, 1), (rank, world), (0, 1))
+    mesh = mesh_lib.MeshSpec(**spec["mesh"]).build(
+        spec["device"], timeout_s=spec.get("timeout_s", 120))
+    sizes = mesh_lib.axis_sizes(mesh)
+    rings = {c: make_ring_attention(mesh, causal=c) for c in (True, False)}
+    rows = (mesh.get_local_rank(mesh_lib.DATA) * sizes[mesh_lib.FSDP]
+            + mesh.get_local_rank(mesh_lib.FSDP),
+            sizes[mesh_lib.DATA] * sizes[mesh_lib.FSDP])
+    return (lambda q, k, v, causal: rings[causal](q, k, v),
+            (rows, (mesh.get_local_rank(mesh_lib.SEQUENCE),
+                    sizes[mesh_lib.SEQUENCE]),
+             mesh_lib.tensor_shard(mesh)))
+
+
 def run_rank(workdir: Path) -> None:
     import torch.distributed as dist
 
-    from kubeflow_tpu_torch.parallel.ring import ring_attention
     from kubeflow_tpu_torch.runtime import bootstrap
 
     spec = torch.load(workdir / "inputs.pt", weights_only=True)
@@ -78,12 +114,14 @@ def run_rank(workdir: Path) -> None:
                          timeout_s=spec.get("timeout_s", 120))
     rank, world = dist.get_rank(), dist.get_world_size()
     dev = torch.device(spec["device"])
-    group = dist.group.WORLD
+    attend, split = _splits(spec, rank, world)
     calls = _count_plain_calls()
     out = {}
     for name, case in spec["cases"].items():
         def shard(t):
-            return t.chunk(world, dim=1)[rank].to(dev).contiguous()
+            for dim, (i, n) in enumerate(split):
+                t = t.chunk(n, dim=dim)[i]
+            return t.to(dev).contiguous()
 
         q, k, v = (shard(case[x]).requires_grad_() for x in "qkv")
         g = shard(case["g"])
@@ -92,22 +130,21 @@ def run_rank(workdir: Path) -> None:
             flash.launch_counts[key] = 0
         for key in calls:
             calls[key] = 0
-        o = ring_attention(q, k, v, group=group, causal=causal)
+        o = attend(q, k, v, causal)
         o.backward(g)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         res = {"o": o.detach().cpu(), "dq": q.grad.cpu(),
                "dk": k.grad.cpu(), "dv": v.grad.cpu(),
                "launches": dict(flash.launch_counts),
-               "plain_calls": dict(calls)}
+               "plain_calls": dict(calls), "split": split}
         reps = int(spec.get("time_reps", 0))
         if reps and dev.type == "cuda":
             dist.barrier()
             with torch.no_grad():
                 res["fwd_ms"] = _time_ms(
-                    lambda: ring_attention(q, k, v, group=group,
-                                           causal=causal), reps)
-            o = ring_attention(q, k, v, group=group, causal=causal)
+                    lambda: attend(q, k, v, causal), reps)
+            o = attend(q, k, v, causal)
             dist.barrier()
             res["bwd_ms"] = _time_ms(
                 lambda: torch.autograd.grad(o, (q, k, v), g,
@@ -120,17 +157,20 @@ def run_rank(workdir: Path) -> None:
 
 def run_job(workdir: Path, cases: Dict[str, dict], world: int,
             device: str, *, time_reps: int = 0, timeout_s: float = 300.0,
-            threads: Optional[int] = None) -> List[dict]:
+            threads: Optional[int] = None,
+            mesh: Optional[Dict[str, int]] = None) -> List[dict]:
     """Write ``cases`` ({name: {"q", "k", "v", "g", "causal"}}, whole
     sequences) and run the ring on ``world`` ranks of ``device`` over
-    them; each rank's results, in rank order.  Raises if a rank fails or
-    the job outlasts ``timeout_s``."""
+    them (over ``mesh``'s sequence axis, each rank on its rows and heads
+    too, when ``mesh`` gives ``MeshSpec`` sizes); each rank's results, in
+    rank order.  Raises if a rank fails or the job outlasts
+    ``timeout_s``."""
     from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
 
     host = {name: {k: v.detach().cpu() if torch.is_tensor(v) else v
                    for k, v in case.items()} for name, case in cases.items()}
     torch.save({"device": device, "timeout_s": min(timeout_s, 120.0),
-                "time_reps": time_reps, "cases": host},
+                "time_reps": time_reps, "cases": host, "mesh": mesh},
                workdir / "inputs.pt")
     # gloo: on the card the ranks share one GPU, which NCCL refuses.
     check_ranks(run_ranks(
@@ -142,8 +182,18 @@ def run_job(workdir: Path, cases: Dict[str, dict], world: int,
 
 
 def gathered(results: List[dict], case: str, key: str) -> torch.Tensor:
-    """The ranks' shards of ``key`` joined along the sequence."""
-    return torch.cat([r[case][key] for r in results], dim=1)
+    """The ranks' shards of ``key`` put back together: along the
+    sequence, and along the rows and heads of a mesh's ring."""
+    first = results[0][case]
+    shape = [n * c for n, (_, c) in zip(first[key].shape, first["split"])]
+    out = torch.empty(shape + list(first[key].shape[3:]),
+                      dtype=first[key].dtype)
+    for r in results:
+        part = r[case][key]
+        index = tuple(slice(i * n, (i + 1) * n) for n, (i, _) in
+                      zip(part.shape, r[case]["split"]))
+        out[index] = part
+    return out
 
 
 def totals(results: List[dict], case: str, field: str) -> Dict[str, int]:

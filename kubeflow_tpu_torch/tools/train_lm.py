@@ -8,17 +8,18 @@ kubeflow_tpu/tools/train_lm.py, with the same flags plus ``--device``.
 
 It trains on CUDA unless ``--device cpu`` is given, and an error when
 there is no GPU: on one device, or over a mesh of processes, one GPU
-each, with ``--mesh data=2,fsdp=2,sequence=2`` (parsed as the JAX entry
-point parses it; ``model`` is ``tensor``'s other name) and ``--attention
-ring`` for the sequence axis.  A multi-process job is started by the
+each, with ``--mesh data=2,fsdp=2,sequence=2,tensor=2`` (parsed as the
+JAX entry point parses it; ``model`` is ``tensor``'s other name) and
+``--attention ring`` for the sequence axis.  A multi-process job is started by the
 operator's ``KFT_*`` variables or by ``torchrun`` (runtime/bootstrap.py);
 without ``--mesh`` it is data-parallel over every rank, as the JAX entry
 point's default mesh is, and so is ``--attention ring`` alone.  Each
 rank trains on ``--batch-size-per-device`` rows (the ranks of a
 ``sequence`` group share theirs, each keeping its shard of the
-sequence), drawn by its (data, fsdp) coordinate: KFTR shards
-``RecordDataset(...).shard(i, data * fsdp)``, or a synthetic stream
-seeded with i.  The tensor, pipeline and expert axes and
+sequence, and the ranks of a ``tensor`` group theirs, each holding its
+slice of the heads, mlp and vocab), drawn by its (data, fsdp)
+coordinate: KFTR shards ``RecordDataset(...).shard(i, data * fsdp)``, or
+a synthetic stream seeded with i.  The pipeline and expert axes and
 ``--pipeline-microbatches`` raise ``NotPortedError`` naming their
 ROADMAP items.  ``--moe-experts N`` (with
 ``--moe-capacity-factor``) trains the mixture-of-experts LM
@@ -76,8 +77,6 @@ def _not_ported(args, mesh_axes: dict) -> str:
     """The first flag this port does not serve yet, with its ROADMAP
     item, or ''."""
     checks = [
-        (mesh_axes.get("tensor", 1) > 1,
-         "--mesh tensor > 1 (tensor parallelism, ROADMAP queue 1 item 19)"),
         (mesh_axes.get("pipeline", 1) > 1 or args.pipeline_microbatches > 0,
          "--mesh pipeline > 1 and --pipeline-microbatches (GPipe, ROADMAP "
          "queue 1 item 20)"),
@@ -208,7 +207,8 @@ def run(argv=None):
     )
     init_fn, loss_fn = lm_task(cfg, device=device, mesh=mesh)
     # Rows of this rank (one GPU a process), and of the global batch: the
-    # ranks of a sequence group share their rows.
+    # ranks of a sequence group and of a tensor group share their rows,
+    # and only the (data, fsdp) coordinate picks them.
     batch = args.batch_size_per_device
     global_batch = batch * dp_count
     peak = peak_bf16_flops(device)

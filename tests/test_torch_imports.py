@@ -84,6 +84,7 @@ def test_every_port_module_imports():
             "kubeflow_tpu_torch.parallel",
             "kubeflow_tpu_torch.parallel.mesh",
             "kubeflow_tpu_torch.parallel.ring",
+            "kubeflow_tpu_torch.parallel.tensor",
             "kubeflow_tpu_torch.runtime.bootstrap",
             "kubeflow_tpu_torch.testing.ranks",
             "kubeflow_tpu_torch.testing.ring_check"} <= set(names)
@@ -129,16 +130,18 @@ def test_engine_slice_modules_import_nothing_of_jax(module):
 
 
 PARALLEL_SLICE = ["parallel/__init__.py", "parallel/mesh.py",
-                  "parallel/ring.py", "runtime/bootstrap.py",
+                  "parallel/ring.py", "parallel/tensor.py",
+                  "runtime/bootstrap.py",
                   "runtime/train.py", "testing/ranks.py",
                   "testing/ring_check.py"]
 
 
 @pytest.mark.parametrize("module", PARALLEL_SLICE)
 def test_parallel_slice_modules_import_nothing_of_jax(module):
-    """The mesh, the ring, the NCCL bootstrap (with its own copy of
-    ``kubeflow_tpu/tools/train_torch.py``'s ``torch_dist_env``), the
-    mesh trainer and the rank launcher import neither JAX, flax or optax
+    """The mesh, the ring, tensor parallelism's operators, the NCCL
+    bootstrap (with its own copy of ``kubeflow_tpu/tools/train_torch.py``'s
+    ``torch_dist_env``), the mesh trainer and the rank launcher import
+    neither JAX, flax or optax
     nor anything of the JAX package, whose train_torch tool among it."""
     imported = list(_imports(REPO / "kubeflow_tpu_torch" / module))
     assert imported

@@ -9,7 +9,10 @@ free subprocesses joined with a timeout) builds meshes whose process
 groups must hold, along each axis, the ranks the JAX mesh puts along it
 (its device grid over the same 4 devices, laid out in ``AXIS_ORDER``),
 and whose FSDP2 mesh is the fsdp group with data x sequence as its
-replicate dim.
+replicate dim.  With ``tensor`` = 2 the FSDP2 mesh and the batch group
+(``batch_group``, over which the loss is summed) hold only the ranks of
+the rank's own tensor index: FSDP2 never joins ranks that hold
+different tensor slices.
 """
 
 import json
@@ -103,17 +106,22 @@ for kw in json.loads(sys.argv[1]):
                            for a in m.AXIS_ORDER},
                 "coords": {a: dm.get_local_rank(a) for a in m.AXIS_ORDER},
                 "fsdp_mesh": m.fsdp_mesh(dm).mesh.tolist(),
-                "fsdp_names": list(m.fsdp_mesh(dm).mesh_dim_names)})
+                "fsdp_names": list(m.fsdp_mesh(dm).mesh_dim_names),
+                "batch": dist.get_process_group_ranks(m.batch_group(dm)),
+                "tensor_shard": list(m.tensor_shard(dm))})
 print("MESH " + json.dumps(out), flush=True)
 dist.destroy_process_group()
 """
 BUILDS = [dict(data=2, sequence=2), dict(fsdp=2, sequence=2),
           dict(data=2, fsdp=2), dict(sequence=4), dict(data=1, fsdp=-1)]
+TENSOR_BUILDS = [dict(data=2, tensor=2), dict(fsdp=2, tensor=2),
+                 dict(sequence=2, tensor=2)]
 
 
 @pytest.fixture(scope="module")
 def built():
-    results = run_ranks(["-c", _BUILD, json.dumps(BUILDS)], 4,
+    results = run_ranks(["-c", _BUILD, json.dumps(BUILDS + TENSOR_BUILDS)],
+                        4,
                         timeout_s=120, cwd=REPO, threads=1)
     check_ranks(results)
     return [json.loads(next(ln for ln in r.stdout.splitlines()
@@ -121,12 +129,12 @@ def built():
             for r in results]
 
 
-@pytest.mark.parametrize("i", range(len(BUILDS)))
+@pytest.mark.parametrize("i", range(len(BUILDS + TENSOR_BUILDS)))
 def test_build_groups_follow_axis_order(built, i):
     """Along each axis a rank's group is the JAX mesh's device slice
     through that rank, and its coordinates are its place in the grid."""
-    grid = np.vectorize(lambda d: d.id)(
-        jax_mesh.MeshSpec(**BUILDS[i]).build(jax.devices()[:4]).devices)
+    grid = np.vectorize(lambda d: d.id)(jax_mesh.MeshSpec(
+        **(BUILDS + TENSOR_BUILDS)[i]).build(jax.devices()[:4]).devices)
     for rank, per_rank in enumerate(built):
         got = per_rank[i]
         where = tuple(int(c[0]) for c in np.nonzero(grid == rank))
@@ -153,3 +161,23 @@ def test_fsdp_mesh_replicates_over_data_and_sequence(built, i):
         else:
             assert got["fsdp_names"] == ["replicate", mesh.FSDP]
             assert got["fsdp_mesh"] == want.tolist()
+
+
+@pytest.mark.parametrize("i", range(len(TENSOR_BUILDS)))
+def test_fsdp_mesh_never_joins_tensor_indices(built, i):
+    """With tensor=2 a rank's FSDP2 mesh and batch group hold exactly
+    the ranks that share its tensor index (the JAX grid's slice at that
+    index), laid out as replicate (data x sequence) by fsdp."""
+    sizes = mesh.MeshSpec(**TENSOR_BUILDS[i]).sizes(4)
+    grid = np.arange(4).reshape([sizes[a] for a in mesh.AXIS_ORDER])
+    replicate = sizes[mesh.DATA] * sizes[mesh.SEQUENCE]
+    for rank, per_rank in enumerate(built):
+        got = per_rank[len(BUILDS) + i]
+        t = got["coords"][mesh.TENSOR]
+        assert got["tensor_shard"] == [t, 2]
+        mine = grid[..., t]
+        want = mine.transpose(0, 4, 1, 2, 3).reshape(replicate, -1)
+        flat = np.asarray(got["fsdp_mesh"]).reshape(replicate, -1)
+        assert flat.tolist() == want.tolist()
+        assert sorted(got["batch"]) == sorted(mine.flatten().tolist())
+        assert rank in got["batch"]

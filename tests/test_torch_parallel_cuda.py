@@ -19,8 +19,18 @@ flash_fwd, flash_dq and flash_dkv causal (R (R + 1) / 2 at R = 4), 16
 non-causal, and no other kernel.  The trainer over a one-rank mesh (NCCL,
 FSDP2 over a group of one) takes the same losses as the trainer without
 a mesh on the same weights and batches within 1e-3 in bf16, with remat,
-and launches flash_fwd, flash_dq and flash_dkv once a layer a step.
+and launches flash_fwd, flash_dq and flash_dkv once a layer a step.  The
+trainer over ``tensor=2`` runs as 2 processes sharing the GPU over gloo
+(each holding half the heads, mlp and vocab), at a small width with
+flash and remat: its losses equal on both ranks and within 1e-2 of the
+trainer without a mesh in bf16 on the same weights and batches (each
+row-parallel output is two bf16 partial sums added in bf16), and each
+rank launches flash_fwd, flash_dq and flash_dkv once a layer a step at
+its local bh.
 """
+
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -123,3 +133,70 @@ def test_one_rank_mesh_trainer_matches_no_mesh():
     for counts in (plain_counts, mesh_counts):
         assert counts["flash_fwd"] == counts["flash_dq"] == \
             counts["flash_dkv"] == per_run
+
+
+# One rank of the tensor=2 trainer: its losses and launches, then (every
+# rank alike, no mesh) the trainer without a mesh on the same batches.
+_TENSOR_RANK = r"""
+import json
+import numpy as np
+import torch
+from kubeflow_tpu_torch.models.transformer import TransformerConfig, lm_task
+from kubeflow_tpu_torch.ops import flash
+from kubeflow_tpu_torch.parallel.mesh import MeshSpec
+from kubeflow_tpu_torch.runtime import bootstrap, optim
+from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
+from kubeflow_tpu_torch.runtime.train import Trainer
+bootstrap.initialize(device="cuda", timeout_s=120)
+mesh = MeshSpec(data=1, tensor=2).build("cuda", timeout_s=120)
+cfg = TransformerConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4,
+                        n_kv_heads=2, d_ff=256, head_dim=64,
+                        max_seq_len=256, attention="flash", remat=True)
+rng = np.random.default_rng(0)
+batches = [{"tokens": rng.integers(0, 256, (2, 256), dtype=np.int32)}
+           for _ in range(3)]
+out = {}
+for name, m in (("tensor", mesh), ("plain", None)):
+    init_fn, loss_fn = lm_task(cfg, device="cuda", mesh=m)
+    tr = Trainer(init_fn=init_fn, loss_fn=loss_fn, tx=optim.adamw(1e-3),
+                 device="cuda", mesh=m,
+                 metrics=MetricsLogger(stream=open("/dev/null", "w")))
+    state = tr.create_state(seed=0)
+    step = tr.compile_step()
+    for key in flash.launch_counts:
+        flash.launch_counts[key] = 0
+    losses = []
+    for b in batches:
+        state, metrics = step(state, tr.shard_batch(b))
+        losses.append(float(metrics["loss"]))
+    out[name] = {"losses": losses, "launches": dict(flash.launch_counts),
+                 "wq": tuple(state.params.layers[0].attn.wq.shape)}
+print("RESULT " + json.dumps(out), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_tensor_parallel_trainer_matches_no_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import os
+
+    from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
+
+    results = run_ranks(["-c", _TENSOR_RANK], 2, timeout_s=600,
+                        cwd=str(Path(__file__).resolve().parents[1]),
+                        env=dict(os.environ, KFT_DIST_BACKEND="gloo"))
+    check_ranks(results)
+    ranks = [json.loads(next(ln for ln in r.stdout.splitlines()
+                             if ln.startswith("RESULT "))[7:])
+             for r in results]
+    assert ranks[0]["tensor"]["losses"] == ranks[1]["tensor"]["losses"]
+    for r in ranks:
+        np.testing.assert_allclose(r["tensor"]["losses"],
+                                   r["plain"]["losses"], atol=1e-2)
+        assert r["tensor"]["wq"] == [128, 2, 64]  # 4 heads / 2 ranks
+        per_run = 2 * 3  # layers x steps
+        for run in ("tensor", "plain"):
+            counts = r[run]["launches"]
+            assert counts["flash_fwd"] == counts["flash_dq"] == \
+                counts["flash_dkv"] == per_run, (run, counts)

@@ -32,7 +32,31 @@ together and joined with a timeout, hold every result these tests read:
   - ``train_lm`` (2 ranks): tools/train_lm.py at ``--mesh fsdp=2``
     through runtime/bootstrap.py's rendezvous from ``KFT_*`` variables
     (the twin of tests/test_bootstrap_rendezvous.py's sharded
-    training): both ranks end at the same loss after 3 steps.
+    training): both ranks end at the same loss after 3 steps;
+  - ``tensor8`` (8 ranks): JAX's ``test_tp_sharded_params_and_loss_
+    decreases`` layout, data=2, fsdp=2, tensor=2, with flash (its plain
+    version here), against the JAX ``Trainer`` on the same mesh: loss
+    and grad_norm over 5 adamw steps within 1e-4 (relative), the
+    parameters after them within atol=rtol=1e-4; shard shapes as JAX's
+    specs (``wi``'s mlp dim over tensor, its embed dim over fsdp); a
+    gathered checkpoint that JAX's ``verify_step`` accepts and that a
+    trainer without a mesh restores exactly; adafactor refusing the
+    tensor slices;
+  - ``tensor2`` (2 ranks): tensor=2 alone with an untied unembed (the
+    vocab-parallel ``w_out``), the chunked CE and dropout 0.1, against
+    the trainer without a mesh from the same seed: loss and grad_norm
+    over 3 adamw steps within 1e-5 (relative), parameters within
+    atol=rtol=1e-5, with and without remat; both tensor ranks keep the
+    same dropout mask; a checkpoint saved without a mesh restores onto
+    the tensor slices and resumes to the third step's loss;
+  - ``dropout4`` (4 ranks): data=2, sequence=2 with the ring at dropout
+    0.1 against the trainer without a mesh on the global batch: loss,
+    grad_norm and parameters over 2 sgd steps within 1e-5; each rank's
+    mask is its rows and positions of the one global draw, so the data
+    ranks' masks differ and so do the sequence shards';
+  - ``train_lm_tensor`` (2 ranks): tools/train_lm.py at ``--mesh
+    model=2`` (``tensor``'s other name): both ranks' losses those of the
+    entry point without a mesh on the same flags within 2e-4 (bf16).
 """
 
 import concurrent.futures
@@ -62,6 +86,7 @@ from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
 from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
 from kubeflow_tpu_torch.runtime.train import Trainer
 from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
+from kubeflow_tpu_torch.tools import train_lm
 
 REPO = Path(__file__).resolve().parents[1]
 WORKER = str(REPO / "tests" / "torch_mesh_train_worker.py")
@@ -69,8 +94,10 @@ SMALL = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=2,
              n_kv_heads=2, d_ff=64, head_dim=16, max_seq_len=32)
 BATCH, SEQ, STEPS, SGD_LR = 8, 32, 5, 0.1
 JOB_TIMEOUT_S = 240
-JOBS = {"mesh8": 8, "world1": 1, "train_lm": 2}
+JOBS = {"mesh8": 8, "world1": 1, "train_lm": 2, "tensor8": 8, "tensor2": 2,
+        "dropout4": 4, "train_lm_tensor": 2}
 TOL = dict(atol=1e-4, rtol=1e-4)
+NO_MESH_TOL = dict(atol=1e-5, rtol=1e-5)
 TRAIN_LM_ARGV = [
     "-m", "kubeflow_tpu_torch.tools.train_lm", "--device", "cpu",
     "--mesh", "fsdp=2", "--d-model", "32", "--n-layers", "2",
@@ -91,16 +118,21 @@ def _same_rows():
                    % SMALL["vocab_size"], (BATCH, 1))
 
 
-def _jax_trainer(tx):
-    mesh = JaxMeshSpec(data=2, fsdp=2, sequence=2).build(jax.devices())
-    cfg = JaxConfig(dtype=jnp.float32, attention="ring", **SMALL)
+def _jax_trainer(tx, tensor=False):
+    """The JAX trainer on mesh8's layout with the ring, or (``tensor``)
+    on tensor8's with flash."""
+    spec = (dict(data=2, fsdp=2, tensor=2) if tensor
+            else dict(data=2, fsdp=2, sequence=2))
+    mesh = JaxMeshSpec(**spec).build(jax.devices())
+    cfg = JaxConfig(dtype=jnp.float32,
+                    attention="flash" if tensor else "ring", **SMALL)
     init_fn, loss_fn = jax_lm_task(cfg, mesh=mesh)
     return JaxTrainer(init_fn=init_fn, loss_fn=loss_fn, tx=tx, mesh=mesh,
                       metrics=JaxMetricsLogger(stream=open("/dev/null", "w")))
 
 
-def _jax_run(tx, batches):
-    tr = _jax_trainer(tx)
+def _jax_run(tx, batches, tensor=False):
+    tr = _jax_trainer(tx, tensor)
     state = tr.create_state(seed=0)
     step = tr.compile_step()
     losses, norms = [], []
@@ -119,12 +151,19 @@ def _start_jobs(work, init_tree, pool):
                 "batches": [torch.from_numpy(b) for b in _batches()],
                 "same_rows": torch.from_numpy(_same_rows()),
                 "sgd_lr": SGD_LR,
-                "train_lm_argv": TRAIN_LM_ARGV[2:]},
+                "train_lm_argv": TRAIN_LM_ARGV[2:],
+                "train_lm_tensor_argv": _tensor_argv()[2:]},
                work / "inputs.pt")
     return {name: pool.submit(run_ranks, [WORKER, name, str(work)], n,
                               timeout_s=JOB_TIMEOUT_S, cwd=str(REPO),
                               threads=1)
             for name, n in JOBS.items()}
+
+
+def _tensor_argv():
+    argv = list(TRAIN_LM_ARGV)
+    argv[argv.index("--mesh") + 1] = "model=2"
+    return argv
 
 
 @pytest.fixture(scope="module")
@@ -143,6 +182,13 @@ def both(tmp_path_factory):
                                                _batches()[:3])
         jax_out["same_rows_losses"], jax_out["same_rows_norms"], _ = \
             _jax_run(optax.sgd(SGD_LR), [_same_rows()])
+        tr = _jax_trainer(optax.adamw(1e-3), tensor=True)
+        jax_out["tensor_wi_spec"] = tuple(
+            tr.create_state(seed=0).params["layers"]["mlp"]["wi"]
+            .sharding.spec)
+        (jax_out["tensor_losses"], jax_out["tensor_norms"],
+         jax_out["tensor_params"]) = _jax_run(optax.adamw(1e-3), _batches(),
+                                              tensor=True)
         for future in futures.values():
             check_ranks(future.result())
     jobs = {name: [torch.load(work / f"{name}-rank{r}.pt",
@@ -313,3 +359,150 @@ def test_two_process_bootstrap_training(jobs):
     losses = [[h["loss"] for h in r["history"]] for r in ranks]
     assert len(losses[0]) == 3 and losses[0] == losses[1]
     assert np.isfinite(losses[0]).all()
+
+
+# -- tensor parallelism and dropout under a mesh ----------------------------
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_tensor_loss_and_grad_norm_match_jax(jobs, jax_side, step):
+    got = jobs["tensor8"][0]
+    np.testing.assert_allclose(got["adamw_losses"][step],
+                               jax_side["tensor_losses"][step], rtol=1e-4)
+    np.testing.assert_allclose(got["adamw_norms"][step],
+                               jax_side["tensor_norms"][step], rtol=1e-4)
+
+
+def test_tensor_every_rank_reports_the_global_loss(jobs):
+    first = jobs["tensor8"][0]
+    for r in jobs["tensor8"][1:]:
+        assert r["adamw_losses"] == first["adamw_losses"]
+        assert r["adamw_norms"] == first["adamw_norms"]
+
+
+def test_tensor_adamw_params_match_jax(jobs, jax_side):
+    _assert_trees_close(_tree_of(jobs["tensor8"][0]["adamw_params"]),
+                        jax_side["tensor_params"], **TOL)
+
+
+def test_tensor_params_sharded_as_jax(jobs, jax_side):
+    """JAX's spec of the stacked ``wi`` [L, 2, embed, mlp] puts fsdp on
+    its embed dim and tensor on its mlp dim; each rank's ``wi`` [2, e,
+    f] holds half of each.  The heads of ``wq``, ``wkv`` and ``wo`` and
+    the vocab of the tied ``embed`` are halved too, each weight's embed
+    dim split over fsdp; the norm scales are split over fsdp only."""
+    spec = jax_side["tensor_wi_spec"]
+    assert spec[2:] == ("fsdp", "tensor"), spec
+    e, h, d, f, v = 32, 2, 16, 64, 128
+    want = {"embed": (v // 2, e // 2), "final_norm.scale": (e // 2,),
+            "layers.0.attn.wq": (e // 2, h // 2, d),
+            "layers.0.attn.wkv": (2, e // 2, h // 2, d),
+            "layers.0.attn.wo": (h // 2, d, e // 2),
+            "layers.0.mlp.wi": (2, e // 2, f // 2),
+            "layers.0.mlp.wo": (f // 2, e // 2),
+            "layers.1.mlp_norm.scale": (e // 2,)}
+    for r in jobs["tensor8"]:
+        for name, shape in want.items():
+            assert r["shard_shapes"][name] == shape, name
+
+
+def test_tensor_checkpoint_verifies_in_jax(jobs):
+    ckdir = jobs["dir"] / "ckpt_tensor"
+    for step in (0, 1):
+        assert verify_step(ckdir, step) == (True, ""), step
+
+
+def test_no_mesh_trainer_restores_tensor_checkpoint(jobs):
+    """The gathered save of data=2, fsdp=2, tensor=2 holds each weight
+    whole, in the JAX layout: a trainer without a mesh restores the mesh
+    trainer's parameters after 2 steps bit for bit."""
+    cfg = TransformerConfig(dtype=torch.float32, **SMALL)
+    init_fn, loss_fn = lm_task(cfg, device="cpu")
+    tr = Trainer(init_fn=init_fn, loss_fn=loss_fn, tx=optim.adamw(1e-3),
+                 device="cpu",
+                 metrics=MetricsLogger(stream=open("/dev/null", "w")))
+    state = CheckpointManager(jobs["dir"] / "ckpt_tensor").restore(
+        tr.create_state(seed=3), step=1)
+    assert state.step == 2 and state.opt_state.count == 2
+    for name, p in state.params.named_parameters():
+        torch.testing.assert_close(p.detach(),
+                                   jobs["tensor8"][0]["ckpt_params"][name],
+                                   atol=0, rtol=0)
+
+
+def test_adafactor_refuses_tensor_slices(jobs):
+    assert "ROADMAP queue 1 item 24" in jobs["tensor8"][0]["adafactor"]
+
+
+@pytest.mark.parametrize("job,variant", [("tensor2", "plain"),
+                                         ("tensor2", "remat"),
+                                         ("dropout4", "ring")])
+def test_dropout_mesh_step_matches_no_mesh(jobs, job, variant):
+    """At dropout 0.1 the mesh trainer's steps are those of the trainer
+    without a mesh on the global batch from the same seed: each rank
+    keeps its share of one global mask draw."""
+    for r in jobs[job]:
+        (m_loss, m_norm, m_params), (p_loss, p_norm, p_params) = r[variant]
+        np.testing.assert_allclose(m_loss, p_loss, rtol=1e-5)
+        np.testing.assert_allclose(m_norm, p_norm, rtol=1e-5)
+        for name, t in m_params.items():
+            torch.testing.assert_close(t, p_params[name], **NO_MESH_TOL)
+
+
+def test_dropout_masks_are_shares_of_one_draw(jobs):
+    """Each rank of data=2 x sequence=2 keeps its rows and positions of
+    the mask one device draws for the global [4, 32, 32] activations;
+    so the data ranks' masks differ, and so do the sequence shards'."""
+    whole = torch.rand((4, 32, 32),
+                       generator=torch.Generator().manual_seed(7)) < 0.9
+    masks = {}
+    for r in jobs["dropout4"]:
+        d, s = r["coords"]["data"], r["coords"]["sequence"]
+        masks[d, s] = r["mask"]
+        torch.testing.assert_close(
+            r["mask"], whole[2 * d:2 * d + 2, 16 * s:16 * s + 16])
+    assert not torch.equal(masks[0, 0], masks[1, 0])
+    assert not torch.equal(masks[0, 0], masks[0, 1])
+
+
+def test_tensor_ranks_keep_one_mask(jobs):
+    ranks = jobs["tensor2"]
+    assert [r["coords"]["tensor"] for r in ranks] == [0, 1]
+    torch.testing.assert_close(ranks[0]["mask"], ranks[1]["mask"])
+
+
+def test_tensor_trainer_restores_no_mesh_checkpoint(jobs):
+    """A save without a mesh restores onto tensor=2's slices: the whole
+    parameters as saved, each rank holding its half of the heads, mlp
+    and vocab, and the next step's loss that of the run without a
+    mesh."""
+    for r in jobs["tensor2"]:
+        assert r["restored_step"] == 2
+        for name, t in r["restored_params"].items():
+            torch.testing.assert_close(t, r["saved_params"][name], atol=0,
+                                       rtol=0)
+        t = r["coords"]["tensor"]
+        torch.testing.assert_close(
+            r["restored_local"]["w_out"],
+            r["saved_params"]["w_out"][:, 64 * t:64 * (t + 1)], atol=0,
+            rtol=0)
+        np.testing.assert_allclose(r["resumed_loss"],
+                                   r["plain"][1][0][2], rtol=1e-5)
+
+
+def test_train_lm_tensor_matches_no_mesh(jobs):
+    """tools/train_lm.py at --mesh model=2 over gloo: both tensor ranks
+    feed the same rows and report the losses of the entry point run
+    without a mesh on the same flags.  The entry point computes in bf16,
+    where each row-parallel all-reduce adds two bf16 partial sums that
+    one device rounds once: 2.2e-5 apart here, held to 2e-4."""
+    ranks = jobs["train_lm_tensor"]
+    assert [r["world"] for r in ranks] == [2, 2]
+    losses = [[h["loss"] for h in r["history"]] for r in ranks]
+    assert losses[0] == losses[1]
+    argv = _tensor_argv()[2:]
+    at = argv.index("--mesh")
+    plain = train_lm.run(argv[:at] + argv[at + 2:])
+    want = [h["loss"] for h in plain.metrics.history]
+    assert len(want) == 3
+    np.testing.assert_allclose(losses[0], want, rtol=2e-4)

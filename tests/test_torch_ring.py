@@ -13,6 +13,12 @@ JAX and of ``flash_attention`` on the whole sequence; the plain
 versions' calls summed over the ranks are the live hops, R (R + 1) / 2
 of each of the forward and the backward per causal ring (R of them on
 the diagonal, the rest full), R * R unmasked per non-causal one.
+
+The twin of JAX's ``test_mixed_mesh_dp_sp_tp``: ``make_ring_attention``
+over a mesh of data=2, sequence=2, tensor=2 (8 ranks), batch, sequence
+and heads all split at once, at b 4, s 16, 4 query heads of 8 on 4 kv
+heads and on 2 (GQA: one kv head a tensor rank), causal: o, dq, dk and
+dv within 2e-5 of the JAX ring on the same mesh.
 """
 
 import functools
@@ -48,6 +54,49 @@ def _inputs(h, hkv, seed):
 def _numpy_cases():
     return {name: dict(_inputs(h, hkv, i), causal=causal)
             for i, (name, (h, hkv, causal)) in enumerate(CASES.items())}
+
+
+MIXED_MESH = dict(data=2, sequence=2, tensor=2)
+MIXED = {"mha": (4, 4), "gqa": (4, 2)}
+
+
+def _mixed_cases():
+    out = {}
+    for i, (name, (h, hkv)) in enumerate(MIXED.items()):
+        rng = np.random.RandomState(10 + i)
+        out[name] = {"q": rng.randn(4, 16, h, 8).astype(np.float32),
+                     "k": rng.randn(4, 16, hkv, 8).astype(np.float32),
+                     "v": rng.randn(4, 16, hkv, 8).astype(np.float32),
+                     "g": rng.randn(4, 16, h, 8).astype(np.float32),
+                     "causal": True}
+    return out
+
+
+@pytest.fixture(scope="module")
+def mixed_job(tmp_path_factory):
+    cases = {name: {k: (torch.from_numpy(v) if isinstance(v, np.ndarray)
+                        else v) for k, v in case.items()}
+             for name, case in _mixed_cases().items()}
+    return ring_check.run_job(tmp_path_factory.mktemp("ring_mixed"), cases,
+                              8, "cpu", timeout_s=JOB_TIMEOUT_S, threads=1,
+                              mesh=MIXED_MESH)
+
+
+@pytest.mark.parametrize("case", list(MIXED))
+def test_mixed_mesh_dp_sp_tp(mixed_job, case):
+    """Batch, sequence and heads split at once: each rank's ring runs its
+    heads around its sequence group (the ranks of its data and tensor
+    index), and the joined shards are the JAX ring's."""
+    c = _mixed_cases()[case]
+    mesh = JaxMeshSpec(**MIXED_MESH).build(jax.devices())
+    o, vjp = jax.vjp(jax.jit(jax_ring(mesh, causal=True)),
+                     *(jnp.asarray(c[x]) for x in "qkv"))
+    want = [np.asarray(t) for t in (o, *vjp(jnp.asarray(c["g"])))]
+    for key, ref in zip(("o", "dq", "dk", "dv"), want):
+        np.testing.assert_allclose(_gathered(mixed_job, case, key), ref,
+                                   err_msg=key, atol=2e-5)
+    for r in mixed_job:
+        assert r[case]["o"].shape == (2, 8, MIXED[case][0] // 2, 8)
 
 
 @pytest.fixture(scope="module")

@@ -420,10 +420,10 @@ def test_train_lm_run_returns_the_trainer_and_its_last_metrics():
     assert last["loss"] == trainer.metrics.history[-1]["loss"]
 
 
-# --mesh with data, fsdp and sequence and --attention ring are ported
-# (tests/test_torch_parallel_train.py); the other axes are not.
+# --mesh with data, fsdp, sequence and tensor (model) and --attention ring
+# are ported (tests/test_torch_parallel_train.py); the other axes are not.
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh", "model=2"], 19), (["--pipeline-microbatches", "2"], 20),
+    (["--mesh", "pipeline=2"], 20), (["--pipeline-microbatches", "2"], 20),
     (["--mesh", "expert=2"], 21)], ids=["flag0", "flag1", "flag3"])
 def test_train_lm_not_ported_flags_raise(flag, item):
     with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
@@ -505,16 +505,22 @@ def test_train_lm_runs_on_cuda_unless_asked():
 
 def test_trainer_and_bootstrap_refuse_what_is_not_ported():
     """A mesh with an axis this port does not train over is refused with
-    its ROADMAP item; a multi-process job whose rendezvous fails raises
-    (no single-process fallback); a single process needs none."""
-    for axis, item in (("tensor", 19), ("pipeline", 20), ("expert", 21)):
-        names = ("data", "fsdp", "pipeline", "expert", "sequence", "tensor")
-        mesh = types.SimpleNamespace(
+    its ROADMAP item, and one over ``tensor`` is taken; a multi-process
+    job whose rendezvous fails raises (no single-process fallback); a
+    single process needs none."""
+    names = ("data", "fsdp", "pipeline", "expert", "sequence", "tensor")
+
+    def mesh_of(axis):
+        return types.SimpleNamespace(
             mesh_dim_names=names,
             shape=tuple(2 if n == axis else 1 for n in names))
+
+    for axis, item in (("pipeline", 20), ("expert", 21)):
         with pytest.raises(NotPortedError, match=f"item {item}"):
             Trainer(init_fn=None, loss_fn=None, tx=None, device="cpu",
-                    mesh=mesh)
+                    mesh=mesh_of(axis))
+    assert Trainer(init_fn=None, loss_fn=None, tx=None, device="cpu",
+                   mesh=mesh_of("tensor")).mesh is not None
     env = bootstrap.worker_env({"KFT_NUM_PROCESSES": "2",
                                 "KFT_PROCESS_ID": "1",
                                 "KFT_COORDINATOR_ADDRESS": "w-0:1234"})
