@@ -169,6 +169,32 @@ Phases, each fatal on failure (exit code 1, no result line):
      bytes of logits' copy to the host, the JSON answer's bytes and
      latency, and phase 6b's burst with tracing at sample rate 1
      against tracing off, in turns;
+ 6i. tensor-parallel decode: three servers of serving.main --mesh
+     tensor=2, each 2 processes sharing the card over gloo
+     (KFT_DIST_BACKEND=gloo), serving at once at the engine's CLI
+     defaults: the bf16 export (phase 6b's burst of eight, then phase
+     6d's 1024-token handoff into this decode tier), the bf16 export
+     with --speculative_tokens 4 and --adapters_dir (6c's speculating
+     burst, then 6g's adapter burst) and the int8 export (6e's burst).
+     Every request answered; each first generated token equal to the
+     single-device phase's, or a near tie (the two tokens, and one
+     device's own top two, within MESH_TIE_GAP in one device's bf16
+     logits; the requests whose top two are further apart, which must
+     be equal, counted); the handoff's pages
+     imported, a verify call, :stats mesh_devices 2; each rank's digest
+     of its engine's slot scalars, logged at release, equal to rank 0's,
+     and both ranks exiting 0 (the servers' kernel launches are not
+     counted).  Beside the servers, a 2-rank job on the engine's
+     forward: one 1024-token prompt's prefill logits at tensor=2 against
+     tensor=1 within the MESH_* bounds in bf16 and in float32, the
+     ranks' scalars equal after their rounds, and no flash kernel
+     launched by either rank (each counts its own).
+     Information only: streams equal and first differing positions,
+     TTFT and tokens/s, one chunk and one fused round of 8 steps at 8
+     live slots against 6b's rounds, the all-reduces and all-gathers of
+     each with their ms, one all-reduce alone on CUDA and host tensors,
+     one lockstep broadcast, busy share, pool bytes and peak memory a
+     rank;
   7. train: the port's LM training entry point (tools/train_lm.run) on
      bench.py's LM configuration (batch 8 x 2048, flash, remat, adamw
      1e-3) for a few steps, launch counters zeroed just before and read
@@ -300,6 +326,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -365,6 +392,36 @@ LM_LOGITS_LOADER = "kubeflow_tpu.serving.loaders:lm"
 LM_BATCH, LM_LEN = 2, 1024
 LM_CALLS = 3
 LM_REST_LEN = 16
+# Phase 6i: the serving mesh's ranks (processes sharing the card over
+# gloo) and their start, stop and job time limits.  The bounds on one
+# 1024-token prompt's prefill logits at tensor=2 against tensor=1's
+# (PERF.md section 6): in bf16 the two are two bf16 paths of one
+# function, so their distance (relative Frobenius) is bounded by
+# MESH_TWO_PATHS times the tensor=1 path's own distance from float32,
+# and tensor=2's mean error against float32 by LOGITS_ERR_RATIO times
+# tensor=1's (phase 5's rule for another bf16 path); in float32 (TF32
+# off), where only summation order differs, a relative Frobenius
+# distance of at most MESH_F32_REL_FRO, the last position's argmax equal
+# and at least MESH_F32_ARGMAX of the positions' argmax equal.  The
+# largest gap in one device's bf16 logits between a mesh reply's first
+# token and the single-device phase's, and between one device's own top
+# two, at which a differing first token counts as a near tie (phase 5's
+# largest difference between two bf16 paths of the model, 9.57e-2).
+MESH_WORLD = 2
+MESH_START_S, MESH_STOP_S, MESH_JOB_S = 180, 60, 180
+# Intra-op threads of each mesh process: the six server processes and
+# the job's two share the host's cores, and their host work (gloo's
+# staged collectives, the lockstep channel) is serial, as torchrun sets
+# one thread a process in a multi-process job.
+MESH_THREADS = 1
+MESH_TWO_PATHS = 2.0
+MESH_F32_REL_FRO = 1e-4
+MESH_F32_ARGMAX = 0.999
+MESH_TIE_GAP = 0.1
+# Replies of the single-device phases that phase 6i holds the mesh's
+# first generated tokens to: "6b", "6c", "6e" (prompts, replies), "6g"
+# (the adapter work's replies), "6d" (prompt, wire payload, tokens).
+SERVED = {}
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 rate).
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -1474,6 +1531,7 @@ def serve_engine(torch, flash, base: Path, prompts):
             fail("the served engine did not capture its programs")
         capture = dict(engine.capture_info)
         replies, latencies, t_burst = burst(port, prompts)
+        SERVED["6b"] = [r["predictions"][0]["tokens"] for r in replies]
         burst_stats = get(port, "/model/lm:stats")["batcher"]
         pair_replies = [post(port, {"instances": [{"tokens": p}]})
                         for p in pair]
@@ -1904,6 +1962,7 @@ def serve_spec(torch, flash, base: Path):
                 or "Verify" not in engine.capture_info["programs"]:
             fail("the speculating engine did not capture its verify program")
         replies, latencies, t_burst = burst(port, prompts)
+        SERVED["6c"] = [r["predictions"][0]["tokens"] for r in replies]
         stats = get(port, "/model/lm:stats")["batcher"]
         gate = {"verify_rate_ema": engine._rate_verify_ema,
                 "step_rate_ema": engine._rate_step_ema}
@@ -2202,6 +2261,7 @@ def serve_tiers(torch, flash, base: Path):
                  f"{payload['k'].dtype}, expected {HANDOFF_BYTES} of bf16")
         streamed, ttft_tiered, t_tiered = stream_generate(
             ports["decode"], {"tokens": prompt, "kv_handoff": wire})
+        SERVED["6d"] = (prompt, wire, streamed)
         engine = servers["decode"][0]._batchers["lm"]
         direct = engine.submit({"tokens": prompt, "kv_handoff": payload})[
             "tokens"][0].tolist()
@@ -2422,6 +2482,8 @@ def serve_int8(torch, flash, base: Path, int8_base: Path):
         served_bytes = weight_bytes(model)
         pool_page = page_bytes(engine._state)
         replies, latencies, t_burst = burst(port, prompts)
+        SERVED["6e"] = (prompts, [r["predictions"][0]["tokens"]
+                                  for r in replies])
         stats = get(port, "/model/lm:stats")["batcher"]
         server.enable_batching("lm", serving_main.batcher_factory(
             micro_batch_size=MICRO_BATCH, batch_timeout_s=5e-3,
@@ -2922,6 +2984,7 @@ def serve_adapters(torch, flash, base: Path, adir: Path):
     if status != 404:
         fail(f"an unknown adapter answered {status}: {body}")
     toks = [r["predictions"][0]["tokens"] for r in replies]
+    SERVED["6g"] = toks
     differs = {a: [toks[i] != toks[i - 1 - j] for i, (b, _) in
                    enumerate(work) if b == a]
                for j, a in enumerate(ADAPTERS)}
@@ -3523,6 +3586,714 @@ def tracing_cost(torch, base: Path, prompts):
         f"traces retained; host clock; information only; {card_line()})")
     return {"on_s": times["on"], "off_s": times["off"], "ratio": ratio,
             "traces_retained": retained}
+
+
+# -- phase 6i: tensor-parallel decode ----------------------------------------
+
+_MESH_DECODE_RANK = r"""
+import dataclasses, hashlib, json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.profiler import ProfilerActivity, profile
+from kubeflow_tpu_torch.models.convert import load_params, param_tree
+from kubeflow_tpu_torch.models.generate import (
+    DecodeConfig, _forward_with_cache, init_paged_state)
+from kubeflow_tpu_torch.models.transformer import Transformer
+from kubeflow_tpu_torch.ops import flash
+from kubeflow_tpu_torch.runtime import bootstrap
+from kubeflow_tpu_torch.serving import lockstep, sharding
+from kubeflow_tpu_torch.serving.export import load_version
+from kubeflow_tpu_torch.serving.programs import ChunkedPrefill, Rounds
+
+base, seed, length = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+lens = [int(n) for n in sys.argv[4].split(",")]
+new, width, rounds = int(sys.argv[5]), int(sys.argv[6]), int(sys.argv[7])
+chunk = int(sys.argv[8])
+env = bootstrap.initialize(device="cuda")
+mesh = sharding.build_mesh({"tensor": env.num_processes}, device="cuda")
+rank = env.process_id
+whole = load_version(base, 1, device="cuda")[0].engine_spec["model"]
+cfg = whole.cfg
+prompt = torch.randint(1, cfg.vocab_size, (1, length),
+                       generator=torch.Generator().manual_seed(seed)).cuda()
+calls = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0]}
+
+
+def counted(name):
+    fn = getattr(dist, name)
+
+    def call(*args, **kw):
+        t = args[0] if name == "all_reduce" else args[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        rec = calls[name]
+        rec[0] += 1
+        rec[1] += t.numel() * t.element_size()
+        rec[2] += time.perf_counter() - t0
+        return out
+    return call
+
+
+def counting(fn):
+    # fn() with every collective counted and timed alone (each
+    # synchronized before and after); returns the counts.
+    plain = {name: getattr(dist, name) for name in calls}
+    for rec in calls.values():
+        rec[:] = [0, 0, 0.0]
+    for name in calls:
+        setattr(dist, name, counted(name))
+    try:
+        fn()
+    finally:
+        for name, f in plain.items():
+            setattr(dist, name, f)
+    return {name: {"calls": rec[0], "bytes": rec[1], "ms": rec[2] * 1e3}
+            for name, rec in calls.items()}
+
+
+def prefill(model):
+    # The engine's forward: the paged pool, one slot's table, the whole
+    # prompt in one call from offset 0.
+    bt = 16
+    nb = length // bt + 1
+    state = init_paged_state(
+        model.cfg, 1, nb, bt, device="cuda",
+        kv_heads=sharding.local_kv_heads(cfg.n_kv_heads, model.mesh))
+    table = torch.arange(nb, device="cuda")[None]
+    with torch.inference_mode():
+        return _forward_with_cache(
+            model, prompt, (state["cache_k"], state["cache_v"]),
+            torch.zeros(1, dtype=torch.int32, device="cuda"),
+            tables=table)[0]
+
+
+def compare(got, want):
+    diff = (got - want).float()
+    return {"max_abs": float(diff.abs().max()),
+            "mean_abs": float(diff.abs().mean()),
+            "rel_fro": float(diff.norm() / want.float().norm()),
+            "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                  .float().mean()),
+            "last_argmax_equal": bool(got[-1].argmax() == want[-1].argmax()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+out = {"rank": rank}
+# float32 (TF32 off): the same weights, widened.
+f32_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+tree = param_tree(whole)
+
+
+def widen(node):
+    if isinstance(node, dict):
+        return {k: widen(v) for k, v in node.items()}
+    return node.float()
+
+
+whole32 = load_params(Transformer(f32_cfg, device="meta"), widen(tree))
+del tree
+want = {"bf16": prefill(whole), "f32": prefill(whole32)} if rank == 0 \
+    else None
+model = sharding.shard_model(whole, mesh)
+model32 = sharding.shard_model(whole32, mesh)
+del whole, whole32
+torch.cuda.empty_cache()
+torch.cuda.reset_peak_memory_stats()
+got = {"bf16": prefill(model), "f32": prefill(model32)}
+if rank == 0:
+    f32 = want["f32"].float()
+    out["logits"] = {k: compare(got[k], want[k]) for k in got}
+    out["logits"]["bf16"]["tensor1_rel_fro_f32"] = float(
+        (want["bf16"] - f32).norm() / f32.norm())
+    out["logits"]["bf16"]["tensor1_mean_abs_f32"] = float(
+        (want["bf16"] - f32).abs().mean())
+    out["logits"]["bf16"]["tensor2_mean_abs_f32"] = float(
+        (got["bf16"] - f32).abs().mean())
+del got, want, model32
+torch.cuda.empty_cache()
+decode = DecodeConfig(max_new_tokens=new)
+
+# One prefill chunk at offset ``length`` of a slot (6b's chunk).
+bt = 16
+mb = -(-(width + new) // bt)
+slots = len(lens)
+nb = slots * mb
+state = init_paged_state(cfg, slots, nb, bt, device="cuda",
+                         kv_heads=sharding.local_kv_heads(cfg.n_kv_heads,
+                                                          mesh))
+tables = torch.arange(nb, device="cuda").view(slots, mb)
+chunk_prog = ChunkedPrefill(model, decode, state, tables, chunk, graphs=False)
+segment = np.arange(1, chunk + 1, dtype=np.int64)
+
+
+def one_chunk():
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        chunk_prog.run(segment, length, length + chunk, new, 0, 0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+one_chunk()
+out["chunk_ms"] = sorted(one_chunk() for _ in range(3))[1]
+out["chunk_collectives"] = counting(one_chunk)
+
+# A fused round of 8 steps at 8 live slots (6b's round).
+prog = Rounds(model, decode, state, tables, rounds, graphs=False)
+lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+last = torch.randint(1, cfg.vocab_size, (slots,), dtype=torch.int32,
+                     generator=torch.Generator().manual_seed(seed + 1))
+live = {"lengths": lengths, "stop_len": lengths + 2 * rounds,
+        "done": torch.zeros(slots, dtype=torch.bool, device="cuda"),
+        "last_token": last.cuda()}
+
+
+def one_round():
+    for name, value in live.items():
+        state[name].copy_(value)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        _, _, steps = prog.run(rounds)
+    torch.cuda.synchronize()
+    out["steps"] = int(steps)
+    return (time.perf_counter() - t0) * 1e3
+
+
+one_round()
+times = [one_round() for _ in range(3)]
+out["round_ms"] = sorted(times)[1]
+out["round_ms_all"] = times
+per_round = counting(one_round)
+out["collectives_per_step"] = {
+    name: {k: v / out["steps"] for k, v in rec.items()}
+    for name, rec in per_round.items()}
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    wall = one_round()
+busy = sum(e.self_device_time_total for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+out["profiled_round_ms"] = wall
+out["busy_ms"] = busy if busy > 0 else None
+
+# One all-reduce alone, 20 times, of a decode step's and a chunk's
+# row-parallel partial: CUDA tensors over the tensor group (gloo stages
+# them through host memory) against host tensors over the lockstep
+# channel's gloo group, and one lockstep-sized broadcast.
+tensor_group = mesh.get_group("tensor")
+chan = lockstep.channel(mesh)
+
+
+def reduce_ms(shape, device, group):
+    t = torch.ones(shape, dtype=torch.float32, device=device)
+    dist.all_reduce(t, group=group)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        dist.all_reduce(t, group=group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / 20
+
+
+out["reduce_alone_ms"] = {
+    f"{where} {list(shape)}": reduce_ms(shape, where, group)
+    for shape in ((slots, 1, cfg.d_model), (1, chunk, cfg.d_model))
+    for where, group in (("cuda", tensor_group), ("cpu", chan.group))}
+dist.barrier()
+t0 = time.perf_counter()
+for _ in range(20):
+    dist.broadcast_object_list([("engine-1", "_op_round_step", ())],
+                               src=0, group=chan.group)
+out["broadcast_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+out["pool_bytes"] = sum(
+    t.numel() * t.element_size() for t in (state["cache_k"],
+                                          state["cache_v"]))
+out["pool_blocks"] = nb
+out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+digest = hashlib.sha256()
+for name in ("lengths", "done", "last_token", "keys"):
+    digest.update(state[name].cpu().numpy().tobytes())
+out["scalars_sha256"] = digest.hexdigest()
+out["flash_launches"] = sum(flash.launch_counts.values())
+print("RESULT " + json.dumps(out), flush=True)
+dist.barrier()
+"""
+
+
+def start_mesh_server(workdir: Path, name: str, base: Path, *flags):
+    """Start ``serving.main --mesh tensor=MESH_WORLD`` as MESH_WORLD
+    processes sharing the card over gloo; returns (processes, stderr
+    paths) at once (``mesh_port`` waits for it)."""
+    from kubeflow_tpu_torch.testing.ranks import free_port
+
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs, errs = [], []
+    for rank in range(MESH_WORLD):
+        err = workdir / f"mesh-{name}-rank{rank}.err"
+        errs.append(err)
+        env = dict(os.environ, KFT_NUM_PROCESSES=str(MESH_WORLD),
+                   KFT_PROCESS_ID=str(rank),
+                   KFT_COORDINATOR_ADDRESS=coordinator,
+                   KFT_DIST_BACKEND="gloo", PYTHONUNBUFFERED="1",
+                   OMP_NUM_THREADS=str(MESH_THREADS))
+        with open(err, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "kubeflow_tpu_torch.serving.main",
+                 "--model_name", "lm", "--model_base_path", str(base),
+                 "--port", "0", "--grpc_port", "-1", "--host",
+                 "127.0.0.1", "--lm_buckets", BUCKETS, "--mesh",
+                 f"tensor={MESH_WORLD}", *flags],
+                cwd=str(Path(__file__).resolve().parent), env=env,
+                stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+                stderr=f))
+    return procs, errs
+
+
+def mesh_port(name: str, procs, errs) -> int:
+    """The REST port of a started mesh server, once rank 0 printed its
+    ready line (MESH_START_S at most)."""
+    deadline = time.monotonic() + MESH_START_S
+    while time.monotonic() < deadline:
+        for line in errs[0].read_text().splitlines():
+            if line.startswith("KFT_SERVING_READY"):
+                return int(line.split("rest=")[1].split()[0])
+        if any(p.poll() is not None for p in procs):
+            break
+        time.sleep(0.1)
+    for p in procs:
+        p.kill()
+        p.wait()
+    fail(f"the mesh server {name!r} did not start: "
+         + errs[0].read_text()[-2000:] + errs[1].read_text()[-2000:])
+
+
+def stop_mesh_server(name: str, procs, errs):
+    """SIGTERM rank 0 (it drains, closes its engines and the lockstep
+    channel); every rank must exit 0.  Returns each rank's digests of
+    its engines' slot scalars, logged at their release."""
+    procs[0].send_signal(signal.SIGTERM)
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(MESH_STOP_S))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            codes.append(None)
+    if codes != [0] * MESH_WORLD:
+        fail(f"mesh server {name!r} ranks exited {codes}: "
+             + "".join(e.read_text()[-1500:] for e in errs))
+    digests = []
+    for err in errs:
+        digests.append([line.rsplit(" ", 1)[1] for line in
+                        err.read_text().splitlines()
+                        if "slot scalars sha256" in line])
+    if not digests[0] or any(d != digests[0] for d in digests):
+        fail(f"mesh server {name!r}: the ranks' slot scalars differ at "
+             f"the end: {digests}")
+    log(f"mesh server {name!r}: rank 1's digest of its engine's slot "
+        f"scalars {digests[1]} equals rank 0's; both ranks exited 0")
+    return digests
+
+
+_REF_MODELS = {}
+_REF_LOCK = threading.Lock()
+
+
+def mesh_ref_logits(torch, flash, export: Path, prompt, adapter=None,
+                    adir=None):
+    """The next-token logits after ``prompt`` on one device: the model
+    ``export``'s loader serves (bf16 or int8 weights, its KV dtype), with
+    ``adapter``'s delta when named, plain attention.  The yardstick of a
+    near tie."""
+    with _REF_LOCK:  # the servers' threads may ask at once
+        return _ref_logits(torch, flash, export, prompt, adapter, adir)
+
+
+def _ref_logits(torch, flash, export: Path, prompt, adapter, adir):
+    from kubeflow_tpu_torch.models.generate import (
+        _forward_with_cache,
+        init_cache,
+    )
+    from kubeflow_tpu_torch.serving.adapters import AdapterRegistry
+    from kubeflow_tpu_torch.serving.export import load_version
+
+    key = str(export)
+    if key not in _REF_MODELS:
+        spec = load_version(export, 1, device="cuda")[0].engine_spec
+        _REF_MODELS[key] = (spec["model"], spec["decode"])
+    model, decode = _REF_MODELS[key]
+    ids = stack = None
+    if adapter is not None:
+        reg = AdapterRegistry(model.cfg, slots=8, rank=ADAPTER_RANK,
+                              directory=str(adir))
+        row, _ = reg.acquire(adapter)
+        host, _ = reg.stack_snapshot()
+        stack = {g: {k: torch.as_tensor(v).to("cuda", model.cfg.dtype)
+                     for k, v in leaves.items()}
+                 for g, leaves in host.items()}
+        ids = torch.tensor([row], device="cuda")
+    tokens = torch.tensor([prompt], device="cuda")
+    cache = init_cache(model.cfg, 1, len(prompt), device="cuda",
+                       kv_cache_dtype=decode.kv_cache_dtype)
+    with plain_kernels(flash), torch.inference_mode():
+        return _forward_with_cache(model, tokens, cache, 0, adapter_ids=ids,
+                                   adapters=stack)[0, -1].float()
+
+
+def mesh_compare(what: str, prompts, replies, want, ref):
+    """Every reply's first generated token must equal ``want``'s (the
+    single-device phase's reply to the same prompt), or, where it does
+    not, be a near tie on one device: in its logits (``ref(i)``, the
+    single-device forward) the two tokens lie within MESH_TIE_GAP of each
+    other and its own top two within MESH_TIE_GAP too.  A request whose
+    single-device top-2 gap exceeds MESH_TIE_GAP is decisive: its first
+    token must be equal, so a mesh that drew the runner-up fails there;
+    how many requests are decisive is logged (the check's power).  Whole
+    streams that equal the phase's and the first differing positions are
+    information."""
+    got = [r["predictions"][0]["tokens"] for r in replies]
+    firsts = [(g[len(p)], w[len(p)]) for p, g, w in zip(prompts, got, want)]
+    ties, top2 = {}, []
+    for i, (mine, theirs) in enumerate(firsts):
+        logits = ref(i)
+        top2.append(torch_top2_gap(logits))
+        if mine == theirs:
+            continue
+        gap = float(logits[theirs] - logits[mine])
+        ties[i] = {"gap": gap, "top2_gap": top2[i]}
+        if abs(gap) > MESH_TIE_GAP or top2[i] > MESH_TIE_GAP:
+            fail(f"mesh {what}: request {i}'s first generated token "
+                 f"{mine} differs from the single-device phase's {theirs}: "
+                 f"their gap {gap:.4f} and the single-device top-2 gap "
+                 f"{top2[i]:.4f} in one device's logits are not both "
+                 f"within {MESH_TIE_GAP}: {firsts}")
+    decisive = sum(g > MESH_TIE_GAP for g in top2)
+    diffs = [first_difference(g[len(p):], w[len(p):])
+             for p, g, w in zip(prompts, got, want)]
+    log(f"mesh {what}: first generated tokens equal the single-device "
+        f"phase's for {len(firsts) - len(ties)} / {len(firsts)} requests"
+        + (f", near ties (single-device logit gap, top-2 gap) "
+           + ", ".join(f"request {i}: {t['gap']:.4f}, {t['top2_gap']:.4f}"
+                       for i, t in ties.items()) if ties else "")
+        + f"; {decisive} / {len(firsts)} requests decisive (single-device "
+        f"top-2 gap above {MESH_TIE_GAP}: their first tokens must be "
+        f"equal); whole streams equal for {diffs.count(None)} / "
+        f"{len(diffs)}, first differing positions {diffs} (information "
+        f"only)")
+    return {"first_equal": len(firsts) - len(ties), "near_ties": ties,
+            "decisive": decisive, "requests": len(firsts),
+            "streams_equal": diffs.count(None), "first_difference": diffs}
+
+
+def torch_top2_gap(logits) -> float:
+    top = logits.topk(2).values
+    return float(top[0] - top[1])
+
+
+def check_mesh_stats(what: str, stats: dict) -> None:
+    if stats.get("mesh_devices") != MESH_WORLD:
+        fail(f"mesh {what}: :stats mesh_devices {stats.get('mesh_devices')}"
+             f", want {MESH_WORLD}")
+    if stats["active_slots"] or stats["in_flight_requests"]:
+        fail(f"mesh {what}: slots still active after the bursts: {stats}")
+
+
+def adapter_burst(port: int, work):
+    """The adapter work as one concurrent burst; the replies."""
+    replies = [None] * len(work)
+
+    def call(i):
+        adapter, prompt = work[i]
+        name = "lm" if adapter is None else f"lm@{adapter}"
+        replies[i] = post(port, {"instances": [{"tokens": prompt}]},
+                          f"/model/{name}:predict")
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(work))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if None in replies:
+        fail("a request of the mesh adapter burst did not complete")
+    return replies
+
+
+def mesh_serving(torch, flash, workdir: Path, base: Path, int8_base: Path,
+                 adir: Path, prompts, alongside):
+    """Phase 6i over REST: three servers of ``serving.main --mesh
+    tensor=2``, 2 processes each on the card over gloo, at the engine's
+    JAX CLI defaults, serving at once (each is latency-bound on its
+    host-staged collectives; the card is idle most of the time): (a) the
+    bf16 export: phase 6b's burst of eight, then phase 6d's 1024-token
+    handoff from its single-device prefill tier into this decode tier;
+    (b) the bf16 export with --speculative_tokens 4 and --adapters_dir:
+    phase 6c's speculating burst, then phase 6g's adapter burst; (c)
+    phase 6e's int8 export and its burst.  Checked: every request
+    answered, each first generated token equal to the single-device
+    phase's or a near tie (``mesh_compare``), the handoff's pages
+    imported, at least one verify call, :stats mesh_devices 2, both
+    ranks' slot-scalar digests equal at the end and both exiting 0.
+    The servers' kernel launches are not counted here (``mesh_job``
+    counts its ranks').  ``alongside()`` (the 2-rank job, ``mesh_job``)
+    runs in a thread from the servers' start to past their bursts, its
+    result kept under "job": the two are independent, and both are
+    bound by the host's cores, not the card.  Information: streams
+    equal, TTFT and tokens/s (three servers and the job share the card
+    and the host's cores)."""
+
+    def ref(export, prompts_, adapters=None):
+        return lambda i: mesh_ref_logits(
+            torch, flash, export, prompts_[i],
+            None if adapters is None else adapters[i], adir)
+
+    def serve_base(port):
+        out = {}
+        replies, latencies, t_burst = burst(port, prompts)
+        check_replies(prompts, replies, [], None)
+        out["burst"] = dict(
+            burst_info(prompts, latencies, t_burst,
+                       get(port, "/model/lm:stats")["batcher"]),
+            **mesh_compare("6b burst", prompts, replies, SERVED["6b"],
+                           ref(base, prompts)))
+        ho_prompt, wire, want = SERVED["6d"]
+        streamed, ttft, t_total = stream_generate(
+            port, {"tokens": ho_prompt, "kv_handoff": wire})
+        if len(streamed) != MAX_NEW_TOKENS:
+            fail(f"mesh decode tier streamed {len(streamed)} tokens")
+        out["handoff"] = dict(mesh_compare(
+            "6d handoff", [ho_prompt],
+            [{"predictions": [{"tokens": ho_prompt + streamed}]}],
+            [ho_prompt + want], ref(base, [ho_prompt])),
+            ttft_s=ttft, latency_s=t_total)
+        stats = get(port, "/model/lm:stats")["batcher"]
+        check_mesh_stats("bf16", stats)
+        if stats["handoff_pages_in"] != (HANDOFF_LEN - 16) // 16:
+            fail(f"mesh decode tier imported {stats['handoff_pages_in']} "
+                 "pages")
+        return out
+
+    def serve_spec(port):
+        out = {}
+        sprompts = spec_prompts(torch, SEED + 3)
+        replies, latencies, t_burst = burst(port, sprompts)
+        check_replies(sprompts, replies, [], None)
+        out["spec"] = dict(
+            burst_info(sprompts, latencies, t_burst,
+                       get(port, "/model/lm:stats")["batcher"]),
+            **mesh_compare("6c burst", sprompts, replies, SERVED["6c"],
+                           ref(base, sprompts)))
+        work = adapter_work(adapter_prompts(torch))
+        wprompts = [p for _, p in work]
+        replies = adapter_burst(port, work)
+        check_replies(wprompts, replies, [], None)
+        out["adapters"] = mesh_compare(
+            "6g adapter burst", wprompts, replies, SERVED["6g"],
+            ref(base, wprompts, [a for a, _ in work]))
+        stats = get(port, "/model/lm:stats")["batcher"]
+        check_mesh_stats("spec-adapters", stats)
+        if stats["spec_steps"] <= 0:
+            fail(f"the speculating mesh server ran no verify call: {stats}")
+        out["spec_steps"] = stats["spec_steps"]
+        return out
+
+    def serve_int8(port):
+        iprompts, want = SERVED["6e"]
+        replies, latencies, t_burst = burst(port, iprompts)
+        check_replies(iprompts, replies, [], None)
+        stats = get(port, "/model/lm:stats")["batcher"]
+        check_mesh_stats("int8", stats)
+        return {"int8": dict(
+            burst_info(iprompts, latencies, t_burst, stats),
+            **mesh_compare("6e int8 burst", iprompts, replies, want,
+                           ref(int8_base, iprompts)))}
+
+    plan = {"bf16": (base, (), serve_base),
+            "spec-adapters": (base, (
+                "--speculative_tokens", str(SPEC_TOKENS), "--adapters_dir",
+                str(adir), "--adapter_slots", "8", "--adapter_rank",
+                str(ADAPTER_RANK)), serve_spec),
+            "int8": (int8_base, (), serve_int8)}
+    servers, results, info = {}, {}, {}
+    try:
+        for name, (export, flags, _) in plan.items():
+            servers[name] = start_mesh_server(workdir, name, export, *flags)
+
+        def job():
+            try:
+                results["job"] = alongside()
+            except BaseException as exc:  # noqa: BLE001 -- re-raised below
+                results["job"] = exc
+
+        job_thread = threading.Thread(target=job)
+        job_thread.start()
+        ports = {name: mesh_port(name, *procs)
+                 for name, procs in servers.items()}
+
+        def run(name):
+            try:
+                results[name] = plan[name][2](ports[name])
+            except BaseException as exc:  # noqa: BLE001 -- re-raised below
+                results[name] = exc
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(name,))
+                   for name in plan]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        info["bursts_s"] = time.perf_counter() - t0
+        job_thread.join(timeout=MESH_JOB_S + MESH_START_S)
+        for name in ("job", *plan):
+            out = results.get(name)
+            if out is None:
+                fail(f"the mesh server {name!r}'s requests did not finish"
+                     if name in plan else "the tensor=2 job did not finish")
+            if isinstance(out, BaseException):
+                raise out
+            if name == "job":
+                info["job"] = out
+            else:
+                info.update(out)
+    finally:
+        stopped = None
+        for name, (procs, errs) in servers.items():
+            try:
+                info[f"digests_{name}"] = stop_mesh_server(name, procs,
+                                                           errs)
+            except BaseException as exc:  # noqa: BLE001 -- stop the rest
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                stopped = stopped or exc
+        if stopped is not None:
+            raise stopped
+    log_burst("mesh tensor=2 engine (6b's prompts)", info["burst"])
+    log_burst("mesh tensor=2 speculating engine with adapters (6c's "
+              "prompts)", info["spec"])
+    log_burst("mesh tensor=2 int8 engine (6e's prompts)", info["int8"])
+    log(f"mesh decode tier: phase 6d's handoff streamed {MAX_NEW_TOKENS} "
+        f"tokens; TTFT {info['handoff']['ttft_s'] * 1e3:.1f} ms; "
+        f"{info['spec_steps']} verify calls; the three servers' requests "
+        f"took {info['bursts_s']:.1f} s together (client clock; "
+        f"information only; {card_line()})")
+    _REF_MODELS.clear()
+    return info
+
+
+def mesh_job(torch, base: Path, captured):
+    """Phase 6i in process: a 2-rank job on the engine's forward (the
+    ranks share the card over gloo).  Checked: one 1024-token prompt's
+    prefill logits at tensor=2 against tensor=1 on the same weights
+    (rank 0 runs both) within the bounds beside MESH_WORLD: bf16
+    against tensor=1 and against float32, float32 against tensor=1;
+    the ranks' slot scalars equal after their rounds; no flash kernel
+    launched by either rank (each counts its own).  Information (taken
+    beside phase 6i's servers, ``mesh_serving``): one 64-token chunk and
+    one fused round of 8 steps at 8 live slots (against 6b's captured
+    and eager rounds at one rank, ``captured``), the collectives of each
+    and their ms, one
+    all-reduce alone over CUDA and over host tensors, one lockstep
+    broadcast, busy share, pool bytes and peak memory a rank."""
+    from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = run_ranks(
+        ["-c", _MESH_DECODE_RANK, str(base), str(SEED + 21),
+         str(HANDOFF_LEN), ",".join(map(str, PROMPT_LENS)),
+         str(MAX_NEW_TOKENS), str(engine_prefill_width()), "8",
+         str(CHUNK)],
+        MESH_WORLD, timeout_s=MESH_JOB_S,
+        cwd=str(Path(__file__).resolve().parent),
+        env=dict(os.environ, KFT_DIST_BACKEND="gloo"), threads=MESH_THREADS)
+    try:
+        check_ranks(results)
+    except RuntimeError as e:
+        fail(f"the tensor=2 decode job failed: {e}")
+    ranks = [json.loads(next(ln for ln in r.stdout.splitlines()
+                             if ln.startswith("RESULT "))[7:])
+             for r in results]
+    info = {"job_s": time.perf_counter() - t0}
+    for kind, lg in ranks[0]["logits"].items():
+        log(f"mesh prefill logits of one {HANDOFF_LEN}-token prompt in "
+            f"{kind}, tensor=2 against tensor=1 on the engine's forward: "
+            f"max |diff| {lg['max_abs']:.4e}, mean {lg['mean_abs']:.4e}, "
+            f"relative Frobenius {lg['rel_fro']:.4e}, argmax agreement "
+            f"{lg['argmax_agree']:.4f}, last position's argmax equal "
+            f"{lg['last_argmax_equal']}")
+    lg, lf = ranks[0]["logits"]["bf16"], ranks[0]["logits"]["f32"]
+    bound = MESH_TWO_PATHS * lg["tensor1_rel_fro_f32"]
+    log(f"mesh prefill logits in bf16 against float32 (tensor=1): "
+        f"tensor=1 relative Frobenius {lg['tensor1_rel_fro_f32']:.4e}, "
+        f"mean |err| {lg['tensor1_mean_abs_f32']:.4e}; tensor=2 mean "
+        f"|err| {lg['tensor2_mean_abs_f32']:.4e} (bounds: tensor=2 "
+        f"against tensor=1 {bound:.4e} = {MESH_TWO_PATHS} x tensor=1's "
+        f"distance; mean |err| {LOGITS_ERR_RATIO} x tensor=1's; float32 "
+        f"relative Frobenius {MESH_F32_REL_FRO}, argmax agreement "
+        f"{MESH_F32_ARGMAX})")
+    if not lg["finite"] or lg["rel_fro"] > bound \
+            or lg["tensor2_mean_abs_f32"] \
+            > LOGITS_ERR_RATIO * lg["tensor1_mean_abs_f32"]:
+        fail(f"tensor=2 bf16 prefill logits are not finite, further from "
+             f"tensor=1's than {bound:.4e}, or further from float32 than "
+             f"{LOGITS_ERR_RATIO} x tensor=1's: {lg}")
+    if not (lf["finite"] and lf["last_argmax_equal"]
+            and lf["rel_fro"] <= MESH_F32_REL_FRO
+            and lf["argmax_agree"] >= MESH_F32_ARGMAX):
+        fail(f"tensor=2 float32 prefill logits differ from tensor=1's "
+             f"(bounds {MESH_F32_REL_FRO}, argmax {MESH_F32_ARGMAX}): "
+             f"{lf}")
+    if ranks[0]["scalars_sha256"] != ranks[1]["scalars_sha256"]:
+        fail("the tensor=2 job's ranks hold different slot scalars after "
+             "their rounds")
+    launched = [r["flash_launches"] for r in ranks]
+    if any(launched):
+        fail(f"the tensor=2 job's ranks launched flash kernels {launched}: "
+             "the engine attends through dot_product_attention")
+    log(f"the tensor=2 job's ranks launched {launched} flash kernels "
+        "(the engine attends through dot_product_attention)")
+    info["logits"] = ranks[0]["logits"]
+    info["ranks"] = [{k: v for k, v in r.items() if k != "logits"}
+                     for r in ranks]
+    for r in ranks:
+        per, ch = r["collectives_per_step"], r["chunk_collectives"]
+        busy = r["busy_ms"]
+        share = ("not measured" if busy is None
+                 else f"{busy / r['profiled_round_ms']:.3f}")
+        alone = ", ".join(f"{k} {v:.3f} ms"
+                          for k, v in r["reduce_alone_ms"].items())
+        log(f"mesh rank {r['rank']}: fused round of {r['steps']} steps at "
+            f"8 live slots {r['round_ms']:.2f} ms (median of 3; 6b's "
+            f"captured {captured['captured']['round_ms']:.2f} ms, eager "
+            f"{captured['eager']['round_ms']:.2f} ms at one rank); a "
+            f"decode step {per['all_reduce']['calls']:.1f} all-reduces of "
+            f"{per['all_reduce']['bytes'] / 1024:.1f} KiB in all, "
+            f"{per['all_reduce']['ms']:.2f} ms, and "
+            f"{per['all_gather']['calls']:.1f} all-gathers of "
+            f"{per['all_gather']['bytes'] / 1024:.1f} KiB, "
+            f"{per['all_gather']['ms']:.2f} ms (each synchronized to time "
+            f"it); a {CHUNK}-token chunk {r['chunk_ms']:.2f} ms with "
+            f"{ch['all_reduce']['calls']} all-reduces "
+            f"({ch['all_reduce']['ms']:.2f} ms) and "
+            f"{ch['all_gather']['calls']} all-gathers "
+            f"({ch['all_gather']['ms']:.2f} ms); one all-reduce alone: "
+            f"{alone}; one lockstep broadcast {r['broadcast_ms']:.3f} ms; "
+            f"busy share {share}; pool {r['pool_bytes']} bytes for "
+            f"{r['pool_blocks']} blocks; peak {r['peak_gib']:.2f} GiB "
+            f"(host clock; gloo stages CUDA tensors through host memory, "
+            f"both ranks on one GPU; information only; {card_line()})")
+    return info
 
 
 def check_replies(prompts, replies, direct, direct_reply):
@@ -5508,6 +6279,10 @@ def main() -> int:
         del lm_predict
         surface_info["tracing"] = tracing_cost(torch, base, prompts)
         phase_done("6h serving surface")
+        serving_mesh_info = mesh_serving(
+            torch, flash, workdir, base, int8_base, adir, prompts,
+            lambda: mesh_job(torch, base, engine_info["round"]))
+        phase_done("6i mesh")
         train_counts, train_info = train(torch, flash, workdir)
         two_pass_counts, two_pass_info = train_two_pass(torch, flash)
         phase_done("7 train")
@@ -5586,6 +6361,7 @@ def main() -> int:
                     "int8": int8_info, "spill": spill_info,
                     "adapters": adapter_info,
                     "serving_surface": surface_info,
+                    "serving_mesh": serving_mesh_info,
                     "train": dict(train_info, gradients=grads,
                                   breakdown=learned),
                     "train_two_pass": dict(two_pass_info,

@@ -97,7 +97,7 @@ def load_params(model: Transformer, params: Dict[str, Any]) -> Transformer:
     same name, which ``model.to()`` does not move: stage such a tree on
     its device first (``params_to_device``).  A model whose parameters
     are slices over ``tensor`` takes the whole leaves and keeps its own
-    slices of them."""
+    slices of them (an int8 ``QTensor`` with its scale)."""
     n = model.cfg.n_layers
     state = {"embed": params["embed"],
              "final_norm.scale": params["final_norm"]["scale"]}
@@ -133,6 +133,34 @@ def load_params(model: Transformer, params: Dict[str, Any]) -> Transformer:
     for name, param in model.named_parameters():
         tp.mark(param, slices[name])  # assign=True made new parameters
     return model
+
+
+def param_tree(model: Transformer) -> Dict[str, Any]:
+    """The model's own weights (parameters, or the int8 ``QTensor``s a
+    served model holds in their place) as the nested tree ``load_params``
+    takes, layer leaves stacked ``[L, ...]`` on the model's device (a
+    copy); this rank's slices under a mesh."""
+
+    def stack(leaves):
+        if isinstance(leaves[0], QTensor):
+            return QTensor(torch.stack([q.values for q in leaves]),
+                           torch.stack([q.scale for q in leaves]),
+                           leaves[0].axes)
+        return torch.stack([t.detach() for t in leaves])
+
+    out: Dict[str, Any] = {
+        "embed": model.embed if isinstance(model.embed, QTensor)
+        else model.embed.detach(),
+        "final_norm": {"scale": model.final_norm.scale.detach()},
+        "layers": {},
+    }
+    if model.w_out is not None:
+        out["w_out"] = model.w_out if isinstance(model.w_out, QTensor) \
+            else model.w_out.detach()
+    for outer, inner in _layer_leaves(model):
+        out["layers"].setdefault(outer, {})[inner] = stack(
+            [getattr(getattr(block, outer), inner) for block in model.layers])
+    return out
 
 
 def _whole(param: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

@@ -75,6 +75,7 @@ from kubeflow_tpu_torch.models.transformer import (
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.flash import flash_attention
 from kubeflow_tpu_torch.ops.quantize import QTensor, quantize_array
+from kubeflow_tpu_torch.parallel import tensor as tp
 
 CacheLen = Union[int, torch.Tensor]
 Cache = Union[torch.Tensor, QTensor]
@@ -233,10 +234,17 @@ def _adapted_out_and_mlp(block: Block, x: torch.Tensor, out: torch.Tensor,
                          adapters):
     """The block's attention-out projection and MLP with each row's
     low-rank deltas: ``wo`` from the attention output, the MLP's gate and
-    up before silu, its ``wo`` from the hidden ``h``."""
+    up before silu, its ``wo`` from the hidden ``h``.  Under a tensor
+    group the two row-parallel deltas are partial sums over the rank's
+    heads or hidden units, like the projections they join: each is added
+    to its projection's local product before the one all-reduce."""
     ad = adapters["attn"]
-    y = block.attn.out(out) + _lora(out, ad["wo_a"], ad["wo_b"],
-                                    "bshd,bhdr->bsr", "bsr,bre->bse")
+    attn, mlp = block.attn, block.mlp
+    dt = x.dtype
+    y = tp.reduce_from_parallel(
+        attn.out_local(out) + _lora(out, ad["wo_a"], ad["wo_b"],
+                                    "bshd,bhdr->bsr", "bsr,bre->bse"),
+        attn.group).to(dt)
     x = x + y
     y = block.mlp_norm(x)
     ad = adapters["mlp"]
@@ -246,8 +254,10 @@ def _adapted_out_and_mlp(block: Block, x: torch.Tensor, out: torch.Tensor,
     up = up + _lora(y, ad["wi_a"][:, 1], ad["wi_b"][:, 1], "bse,ber->bsr",
                     "bsr,brf->bsf")
     h = torch.nn.functional.silu(gate) * up
-    y = block.mlp.down(h) + _lora(h, ad["wo_a"], ad["wo_b"], "bsf,bfr->bsr",
-                                  "bsr,bre->bse")
+    y = tp.reduce_from_parallel(
+        mlp.down_local(h) + _lora(h, ad["wo_a"], ad["wo_b"],
+                                  "bsf,bfr->bsr", "bsr,bre->bse"),
+        mlp.group).to(dt)
     return x + y
 
 
@@ -312,9 +322,10 @@ def _layer_step(cfg: TransformerConfig, block: Block, x: torch.Tensor,
                                paged_view(pool.scale), pool.axes)
             return pool[tables].reshape((b, mb * bt) + tuple(pool.shape[2:]))
 
+        local_kv = block.attn.local_kv
         out = dot_product_attention(
-            q, paged_view(ck), paged_view(cv), causal=True,
-            kv_offset=cache_len, kv_valid_start=pad_amount)
+            q, local_kv(paged_view(ck)), local_kv(paged_view(cv)),
+            causal=True, kv_offset=cache_len, kv_valid_start=pad_amount)
     else:
         if per_row:
             base = cache_len if write_cols is None else write_cols
@@ -335,12 +346,14 @@ def _layer_step(cfg: TransformerConfig, block: Block, x: torch.Tensor,
             # quantized cache attends over its own rounding instead, as
             # in JAX (its serving goldens pin that rounding).
             out = flash_attention(
-                q, k, v, causal=True,
+                q, block.attn.local_kv(k), block.attn.local_kv(v),
+                causal=True,
                 block_q=cfg.flash_block_q, block_k=cfg.flash_block_k,
                 kv_valid_start=pad_amount)
         elif per_row:
             out = dot_product_attention(
-                q, ck, cv, causal=True, kv_offset=cache_len,
+                q, block.attn.local_kv(ck), block.attn.local_kv(cv),
+                causal=True, kv_offset=cache_len,
                 kv_valid_start=pad_amount)
         else:
             # Columns past cache_len + t hold nothing yet and would get
@@ -348,7 +361,8 @@ def _layer_step(cfg: TransformerConfig, block: Block, x: torch.Tensor,
             # span only gives the same result.
             live = cache_len + t
             out = dot_product_attention(
-                q, ck[:, :live], cv[:, :live], causal=True,
+                q, block.attn.local_kv(ck[:, :live]),
+                block.attn.local_kv(cv[:, :live]), causal=True,
                 kv_offset=cache_len, kv_valid_start=pad_amount)
     if adapters is not None:
         return _adapted_out_and_mlp(block, x, out, adapters)
@@ -363,10 +377,14 @@ def _forward_with_cache(model: Transformer, tokens: torch.Tensor,
                         write_cols: Optional[torch.Tensor] = None,
                         tables: Optional[torch.Tensor] = None,
                         adapter_ids: Optional[torch.Tensor] = None,
-                        adapters: Optional[Adapters] = None
-                        ) -> torch.Tensor:
+                        adapters: Optional[Adapters] = None,
+                        whole_vocab: bool = True) -> torch.Tensor:
     """tokens [b, t] -> float32 logits [b, t, v]; the cache is updated in
-    place.
+    place.  Under a tensor group (a served model split over ``tensor``)
+    the cache holds this rank's kv heads and the logits are gathered
+    whole on every rank (``whole_vocab=False`` returns this rank's vocab
+    slice, for a caller that gathers only the positions it reads,
+    ``_whole_vocab``).
 
     cache_len int: the whole batch sits at one length (generate()), and
     writes columns [cache_len, cache_len + t).  cache_len [b]: per-row
@@ -413,7 +431,18 @@ def _forward_with_cache(model: Transformer, tokens: torch.Tensor,
         x = _layer_step(model.cfg, block, x, (cache_k[i], cache_v[i]),
                         cache_len, positions, pad_amount,
                         write_cols=write_cols, tables=tables, adapters=ad)
-    return model.logits(x).to(torch.float32)
+    logits = model.logits(x).to(torch.float32)
+    return _whole_vocab(model, logits) if whole_vocab else logits
+
+
+def _whole_vocab(model: Transformer, logits: torch.Tensor) -> torch.Tensor:
+    """Logits ``[..., v]`` over the whole vocab: this rank's slice
+    gathered from every rank when the vocab is split over ``tensor``, so
+    each rank filters, samples and accepts on the whole vocab and draws
+    the same token (the lowest id on a tie); ``logits`` otherwise."""
+    if model._vocab is None:
+        return logits
+    return tp.gather_last_dim(logits, model._vocab[1])
 
 
 def _filter_logits(decode: DecodeConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -559,9 +588,13 @@ def _next_keys(keys: torch.Tensor) -> torch.Tensor:
 
 def init_paged_state(cfg: TransformerConfig, slots: int, num_blocks: int,
                      block_tokens: int, kv_cache_dtype: str = "model",
-                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+                     device: DeviceLike = None,
+                     kv_heads: Optional[int] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Fresh paged engine state on ``device`` (CUDA when none is given):
-    every slot retired, block pool zeroed.
+    every slot retired, block pool zeroed.  ``kv_heads`` sizes the pool's
+    head dim (default ``cfg.n_kv_heads``; a rank of a tensor group holds
+    its own kv heads, serving/sharding.py).
 
     ``cache_k``/``cache_v`` are [layers, num_blocks, block_tokens, hkv,
     d] views of storage that holds one scratch block more (see
@@ -576,8 +609,8 @@ def init_paged_state(cfg: TransformerConfig, slots: int, num_blocks: int,
     are not device state: the caller passes them into every program.
     """
     device = resolve_device(device)
-    full = (cfg.n_layers, num_blocks + 1, block_tokens, cfg.n_kv_heads,
-            cfg.head_dim)
+    full = (cfg.n_layers, num_blocks + 1, block_tokens,
+            cfg.n_kv_heads if kv_heads is None else kv_heads, cfg.head_dim)
 
     def pool():
         cache = _zeros_cache(cfg, full, kv_cache_dtype, device)
@@ -990,11 +1023,12 @@ def prefill_chunk_into_slot(
     logits = _forward_with_cache(
         model, tokens.to(device).long(),
         (state["cache_k"], state["cache_v"]), start, tables=table_row,
-        adapter_ids=aid.reshape(1), adapters=adapters)
+        adapter_ids=aid.reshape(1), adapters=adapters, whole_vocab=False)
     # First-token sampling from the last REAL prompt position of this
-    # chunk (only meaningful on the final chunk; clamped otherwise).
+    # chunk (only meaningful on the final chunk; clamped otherwise); a
+    # tensor group gathers that position's logits alone.
     idx = (prompt_len - 1 - start).clamp(0, w - 1)
-    last = logits.index_select(1, idx.reshape(1))[:, 0]      # [1, V]
+    last = _whole_vocab(model, logits.index_select(1, idx.reshape(1))[:, 0])
     # The request's (seed, step) counter, built by selects.
     first = torch.arange(2, device=device) == 0
     if decode.temperature <= 0.0:

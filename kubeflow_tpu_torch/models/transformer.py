@@ -47,7 +47,14 @@ pairs: ``copy_to_parallel`` on the input of ``wq``/``wkv`` and of
 vocab-parallel lookup, and the logits are the rank's vocab slice, which
 ``lm_task``'s vocab-parallel cross-entropy takes without gathering them.
 Every rank runs its local heads through the flash kernels (or the ring),
-with ``n_heads / n_kv_heads`` kept per rank.
+with ``n_heads / n_kv_heads`` kept per rank.  A served model
+(``replicate_indivisible=True``, serving/sharding.py) keeps whole any
+dim that does not divide ``tensor``, as JAX's serving rules replicate
+it: an attention or MLP whose dim stays whole runs whole on every rank
+with no reduce, and with fewer kv heads than ranks each rank's q heads
+read their own kv heads (``Attention.local_kv``).  ``out_local`` and
+``down_local`` are the partial sums before the reduce, to which decode
+adds the row-parallel adapter deltas (models/generate.py).
 
 Remat (``cfg.remat``) checkpoints each block with ``torch.utils.checkpoint``
 under the JAX package's policies (``_remat_policy``).  With flash attention
@@ -84,7 +91,7 @@ from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.moe import MoEMLP, default_group_size, fit_divisor
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.flash import flash_attention, make_sharded_flash
-from kubeflow_tpu_torch.ops.quantize import embed_lookup, qeinsum
+from kubeflow_tpu_torch.ops.quantize import QTensor, embed_lookup, qeinsum
 from kubeflow_tpu_torch.parallel.ring import (
     from_next_rank,
     make_ring_attention,
@@ -210,9 +217,11 @@ def _row_shard(mesh) -> Tuple[int, int]:
 
 def _vocab_split(mesh, vocab_size: int):
     """(first vocab id, ``tensor`` group) of this rank's vocab slice when
-    the rule table splits ``vocab`` over ``tensor`` > 1, else None."""
+    the rule table splits ``vocab`` over ``tensor`` > 1 (and the vocab
+    divides it), else None."""
     index, count = tensor_shard(mesh)
-    if count == 1 or sharded_dim(("vocab",), TENSOR) is None:
+    if (count == 1 or sharded_dim(("vocab",), TENSOR) is None
+            or vocab_size % count):
         return None
     return index * (vocab_size // count), mesh.get_group(TENSOR)
 
@@ -328,6 +337,10 @@ class Attention(nn.Module):
         # The tensor group when the heads are split over it (Transformer
         # sets it), None otherwise.
         self.group = None
+        # The global kv head of each local q head when the q heads are
+        # split over ``tensor`` but the kv heads, fewer than the ranks,
+        # are whole on every rank (a served model; None otherwise).
+        self.kv_heads: Optional[torch.Tensor] = None
         # The mesh's attention (JAX's Attention._attend under a mesh).
         self._sharded = None
         if cfg.attention == "ring":
@@ -354,12 +367,31 @@ class Attention(nn.Module):
         theta = self.cfg.rope_theta
         return rope(q, positions, theta), rope(k, positions, theta), v
 
+    def out_local(self, o: torch.Tensor) -> torch.Tensor:
+        """This rank's partial output projection (its heads' share of the
+        sum that ``out`` reduces over the tensor group)."""
+        return qeinsum("bshd,hde->bse", o, self.wo, self.cfg.dtype)
+
     def out(self, o: torch.Tensor) -> torch.Tensor:
-        return tp.reduce_from_parallel(
-            qeinsum("bshd,hde->bse", o, self.wo, self.cfg.dtype), self.group)
+        return tp.reduce_from_parallel(self.out_local(o), self.group)
+
+    def local_kv(self, kv):
+        """k or v ``[b, s, hkv, d]`` (a tensor or an int8 ``QTensor``) as
+        the local q heads read it: itself, or, when the kv heads are whole
+        and the q heads split (``kv_heads``), one kv head per local q
+        head."""
+        if self.kv_heads is None:
+            return kv
+        if isinstance(kv, QTensor):
+            return QTensor(self.local_kv(kv.values), self.local_kv(kv.scale),
+                           kv.axes)
+        if self.kv_heads.device != kv.device:
+            self.kv_heads = self.kv_heads.to(kv.device)
+        return kv.index_select(2, self.kv_heads)
 
     def attend(self, q, k, v, segment_ids=None) -> torch.Tensor:
         cfg = self.cfg
+        k, v = self.local_kv(k), self.local_kv(v)
         if self._sharded is not None and segment_ids is None:
             return self._sharded(q, k, v)
         if cfg.attention == "ring":
@@ -396,9 +428,13 @@ class MLP(nn.Module):
         return (qeinsum("bse,ef->bsf", x, self.wi[0], dt),
                 qeinsum("bse,ef->bsf", x, self.wi[1], dt))
 
+    def down_local(self, h: torch.Tensor) -> torch.Tensor:
+        """This rank's partial down projection (its hidden units' share
+        of the sum that ``down`` reduces over the tensor group)."""
+        return qeinsum("bsf,fe->bse", h, self.wo, self.cfg.dtype)
+
     def down(self, h: torch.Tensor) -> torch.Tensor:
-        return tp.reduce_from_parallel(
-            qeinsum("bsf,fe->bse", h, self.wo, self.cfg.dtype), self.group)
+        return tp.reduce_from_parallel(self.down_local(h), self.group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gate, up = self.gate_up(x)
@@ -556,17 +592,23 @@ class Transformer(nn.Module):
     the rule table places their logical axes (the module docstring), and the
     logits (or, with ``return_hidden``, the unembed) are this rank's
     vocab slice.  ``n_heads`` and ``n_kv_heads`` must then be multiples
-    of ``tensor``.
+    of ``tensor``, unless ``replicate_indivisible`` (a served model,
+    serving/sharding.py): then a dim that does not divide ``tensor``
+    stays whole on every rank, as JAX's ``_divisible`` replicates it,
+    and its module runs whole with no reduce (kv heads fewer than the
+    ranks: each rank's q heads read their own kv heads' group).
     """
 
     def __init__(self, cfg: TransformerConfig, *, device=None,
-                 generator: Optional[torch.Generator] = None, mesh=None):
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 replicate_indivisible: bool = False):
         super().__init__()
         reason = _unsupported(cfg, mesh)
         if reason is not None:
             raise NotPortedError(f"not ported yet: {reason}")
         _, tensor = tensor_shard(mesh)
-        if cfg.n_heads % tensor or cfg.n_kv_heads % tensor:
+        if not replicate_indivisible and (cfg.n_heads % tensor
+                                          or cfg.n_kv_heads % tensor):
             raise ValueError(
                 f"n_heads={cfg.n_heads} and n_kv_heads={cfg.n_kv_heads} "
                 f"must both be multiples of the mesh's tensor={tensor}")
@@ -601,13 +643,15 @@ class Transformer(nn.Module):
         the rule table places on ``tensor`` (drawn whole, as one device
         draws them), marked with its ``TensorShard``; set the column/row
         group of each attention and MLP whose weights were split, and
-        the vocab-parallel lookup's range."""
+        the vocab-parallel lookup's range.  A dim that does not divide
+        ``tensor`` (only a served model's, see the class docstring) is
+        kept whole."""
         index, count = tensor_shard(self.mesh)
         group = self.mesh.get_group(TENSOR)
         axes_of = self.param_logical_axes()
         for name, param in list(self.named_parameters()):
             dim = sharded_dim(axes_of[name], TENSOR)
-            if dim is None:
+            if dim is None or param.shape[dim] % count:
                 continue
             shard = tp.TensorShard(dim, index, count, group)
             owner, _, leaf = name.rpartition(".")
@@ -617,6 +661,13 @@ class Transformer(nn.Module):
             if axes_of[name][dim] != "vocab":
                 module.group = group  # an attention's heads, an MLP's
         self._vocab = _vocab_split(self.mesh, self.cfg.vocab_size)
+        cfg = self.cfg
+        if cfg.n_heads % count == 0 and cfg.n_kv_heads % count:
+            local = cfg.n_heads // count
+            heads = torch.arange(index * local, (index + 1) * local)
+            kv_heads = heads // (cfg.n_heads // cfg.n_kv_heads)
+            for block in self.layers:
+                block.attn.kv_heads = kv_heads
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         if self._vocab is not None:

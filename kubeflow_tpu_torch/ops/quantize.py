@@ -63,6 +63,31 @@ class QTensor:
         return (self.values.numel() * self.values.element_size()
                 + self.scale.numel() * self.scale.element_size())
 
+    def scale_dim(self, dim: int) -> Optional[int]:
+        """The dim of ``scale`` that follows ``values``'s ``dim``, or None
+        when ``dim`` is a contraction axis (the scale has no such dim)."""
+        n = self.values.dim()
+        dim %= n
+        if dim - n in self.axes:
+            return None
+        return dim - sum(1 for a in self.axes if a + n < dim)
+
+    def chunk(self, count: int, dim: int) -> Tuple["QTensor", ...]:
+        """``count`` equal slices along ``values``'s ``dim``, each scale
+        sliced with its values where it keeps that dim and whole where
+        ``dim`` is contracted (there the scale is the whole contraction's
+        amax: weights are quantized whole, then split)."""
+        sdim = self.scale_dim(dim)
+        values = self.values.chunk(count, dim=dim)
+        scales = (self.scale.chunk(count, dim=sdim) if sdim is not None
+                  else (self.scale,) * count)
+        return tuple(QTensor(v, s, self.axes)
+                     for v, s in zip(values, scales))
+
+    def contiguous(self) -> "QTensor":
+        return QTensor(self.values.contiguous(), self.scale.contiguous(),
+                       self.axes)
+
 
 CONTRACTIONS: Dict[Tuple[str, ...], Tuple[int, ...]] = {
     ("embed",): (-1,),             # [v, e] contract e (head); gather rows

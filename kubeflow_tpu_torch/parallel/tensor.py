@@ -1,6 +1,9 @@
 """Tensor parallelism over the mesh's ``tensor`` axis: Megatron's
 conjugate operators, the vocab-parallel embedding and cross-entropy, and
-the record of which share of a whole tensor a rank holds.
+the record of which share of a whole tensor a rank holds, and the
+forward-only pieces of tensor-parallel decode (``reduce_from_parallel``
+under ``torch.no_grad`` is a plain all-reduce; ``gather_last_dim``
+gathers vocab-sliced logits).
 
 There is no JAX counterpart of this file.  The JAX package annotates
 each weight with its logical axes and lets the rule table
@@ -44,6 +47,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from kubeflow_tpu_torch.ops.quantize import QTensor, embed_lookup
+
 _ATTR = "_kft_tensor_shard"
 
 
@@ -57,8 +62,9 @@ class TensorShard:
     count: int
     group: Any
 
-    def take(self, whole: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of ``whole``."""
+    def take(self, whole):
+        """This rank's slice of ``whole`` (a tensor, or an int8
+        ``QTensor`` whose scale is sliced with its values)."""
         if whole.shape[self.dim] % self.count:
             raise ValueError(
                 f"dim {self.dim} of {tuple(whole.shape)} does not split "
@@ -135,21 +141,61 @@ def copy_to_parallel(x: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_from_parallel(x: torch.Tensor, group) -> torch.Tensor:
     """All-reduce (sum) over ``group`` forward, identity backward; ``x``
-    itself when ``group`` is None."""
-    return x if group is None else _ReduceFromParallel.apply(x, group)
+    itself when ``group`` is None.  With autograd off (serving) it is a
+    plain all-reduce of a copy of ``x``."""
+    if group is None:
+        return x
+    if not torch.is_grad_enabled():
+        if _host_staged(x, group):
+            host = x.to("cpu", memory_format=torch.contiguous_format)
+            return _all_reduce(host, group).to(x.device)
+        return _all_reduce(x.contiguous().clone(), group)
+    return _ReduceFromParallel.apply(x, group)
 
 
-def vocab_parallel_embedding(table: torch.Tensor, tokens: torch.Tensor,
+def _host_staged(x: torch.Tensor, group) -> bool:
+    """Whether serving's collectives on ``x`` stage it through host memory
+    themselves: a CUDA tensor over a gloo group (several ranks sharing one
+    GPU), where gloo's own CUDA path took 2.15 ms for a [8, 1, 1024]
+    float32 all-reduce against 1.2 ms on host tensors on an H100 at 700 W
+    (PERF.md section 6)."""
+    import torch.distributed as dist
+
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def gather_last_dim(x: torch.Tensor, group) -> torch.Tensor:
+    """The whole tensor from every rank's slice ``x`` along its last dim
+    (an all-gather over ``group``, forward only: decode's vocab-sliced
+    logits, gathered so that every rank samples from the whole vocab);
+    ``x`` itself when ``group`` is None."""
+    if group is None:
+        return x
+    import torch.distributed as dist
+
+    local = x.to("cpu", memory_format=torch.contiguous_format) \
+        if _host_staged(x, group) else x.contiguous()
+    parts = [torch.empty_like(local)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, local, group=group)
+    return torch.cat(parts, dim=-1).to(x.device)
+
+
+def vocab_parallel_embedding(table, tokens: torch.Tensor,
                              dtype: torch.dtype, start: int,
                              group) -> torch.Tensor:
     """Rows of the whole embedding for ``tokens`` from each rank's slice
-    ``table`` (vocab ids ``start`` to ``start + len(table)``): the ids in
+    ``table`` (vocab ids ``start`` to ``start + len(table)``; an int8
+    ``QTensor`` slice of a served model too): the ids in
     range are looked up, the others give zero rows, and the sum over the
     group is the lookup in the whole table."""
     local = tokens.long() - start
     inside = (local >= 0) & (local < table.shape[0])
-    rows = torch.nn.functional.embedding(
-        torch.where(inside, local, torch.zeros_like(local)), table)
+    local = torch.where(inside, local, torch.zeros_like(local))
+    if isinstance(table, QTensor):
+        rows = embed_lookup(table, local, dtype)
+    else:
+        rows = torch.nn.functional.embedding(local, table)
     rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
     return reduce_from_parallel(rows.to(dtype), group)
 

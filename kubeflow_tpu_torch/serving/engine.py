@@ -76,8 +76,21 @@ eagerly.  ``compiled_programs()`` counts each program once the engine
 has run it, so it reports what the JAX engine reports under the same
 flags.
 
-Not ported yet: ``mesh`` (ROADMAP queue 1 item 6), refused with
-``NotPortedError``.
+Under a ``tensor`` mesh (``mesh=``, serving/sharding.py ``build_mesh``)
+the engine is a group of processes, one a GPU: each rank holds its slice
+of the model (heads, MLP hidden and vocab) and its kv heads of the pool.
+Rank 0 runs everything above: the queue, the scheduler, the prefix
+cache and the block tables.  Every call that writes or reads device
+state (the programs' runs and a round's steps, the table uploads, the
+adapter stack copy, the KV import and gathers, the release at close)
+goes through one choke point, ``_device``, which broadcasts it over the
+lockstep channel (serving/lockstep.py) before running it; every other
+rank runs ``follow()``, which builds the same engine when rank 0 builds
+one and replays each call on it.  Under a mesh the programs run
+uncaptured (an explicit ``cuda_graphs=True`` raises ``NotPortedError``,
+ROADMAP queue 1 item 25), and the host spill tier is not ported (item
+26).  A KV export gathers every rank's heads on rank 0; an import gives
+each rank its head slice.
 
 Interface-compatible with the batchers (submit/accepts/stats/close), so
 ModelServer.enable_batching wires it behind the REST surface unchanged.
@@ -89,7 +102,7 @@ import contextlib
 import logging
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -97,7 +110,7 @@ import torch
 from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.ops.quantize import QTensor
 from kubeflow_tpu_torch.runtime import tracing
-from kubeflow_tpu_torch.serving import programs
+from kubeflow_tpu_torch.serving import lockstep, programs, sharding
 from kubeflow_tpu_torch.serving.adapters import AdapterNotFound
 from kubeflow_tpu_torch.serving.errors import (
     BatcherClosed,
@@ -160,6 +173,10 @@ SPEC_DRAFTED_TOTAL = "kft_engine_spec_drafted_total"
 SPEC_DRAFTED_HELP = "draft tokens proposed to verify_step, by engine"
 SPEC_ACCEPTED_TOTAL = "kft_engine_spec_accepted_total"
 SPEC_ACCEPTED_HELP = "draft tokens accepted by verify_step, by engine"
+MESH_DEVICES_GAUGE = "kft_engine_mesh_devices"
+MESH_DEVICES_HELP = \
+    "devices the engine's serving mesh spans (1 = single-device), " \
+    "by engine"
 HANDOFF_PAGES_TOTAL = "kft_engine_handoff_pages_total"
 HANDOFF_PAGES_HELP = \
     "paged-KV pages transferred for disaggregated prefill/decode " \
@@ -397,12 +414,18 @@ class DecodeEngine:
         prefix-digest chain with the adapter's content digest, so
         variants never alias each other's KV pages.  Without it a
         request naming an adapter is refused with ``AdapterNotFound``.
-      mesh, partition_rules: the JAX engine's tensor-parallel options,
-        not ported yet; any value but None raises ``NotPortedError``.
+      mesh: a serving mesh (serving/sharding.py ``build_mesh``; None =
+        one device).  Rank 0 builds the engine around the WHOLE model,
+        and the engine keeps its slice (``sharding.shard_model``); the
+        other ranks run ``follow()``.
+      source: what the other ranks of a mesh load this engine's whole
+        model from, handed to their ``follow()`` resolver (the serving
+        entry point passes the export's base path and version).
       cuda_graphs: None (the default) captures the programs as CUDA
-        graphs on a CUDA device and runs them eagerly on the CPU; False
-        runs them eagerly on CUDA too (a comparison baseline); True on
-        the CPU raises.
+        graphs on a CUDA device, and runs them eagerly on the CPU or
+        under a mesh; False runs them eagerly on CUDA too (a comparison
+        baseline); True on the CPU raises ValueError, under a mesh
+        ``NotPortedError``.
     """
 
     def __init__(
@@ -426,10 +449,11 @@ class DecodeEngine:
         overload_retry_after_s: float = 1.0,
         speculative_tokens: int = 0,
         mesh=None,
-        partition_rules=None,
         adapters=None,
         name: str = "engine",
         cuda_graphs: Optional[bool] = None,
+        source: Any = None,
+        _replica: Optional[tuple] = None,
     ):
         from kubeflow_tpu_torch.models.generate import (
             init_paged_state,
@@ -437,12 +461,32 @@ class DecodeEngine:
         )
         from kubeflow_tpu_torch.runtime.prom import REGISTRY
 
-        if mesh is not None or partition_rules is not None:
-            raise _not_ported("mesh (tensor-parallel decode)", 6)
         refuse_moe(model.cfg)
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
-        self.model = model
+        # What every rank of a mesh builds its engine from (rank 0
+        # announces it; the others get it back through ``_replica``).
+        geometry = dict(
+            slots=slots, prefill_len=prefill_len, max_len=max_len,
+            sync_lag=sync_lag, steps_per_call=steps_per_call,
+            decode_rounds=decode_rounds, admit_width=admit_width,
+            prefill_chunk_tokens=prefill_chunk_tokens,
+            kv_block_tokens=kv_block_tokens, kv_pool_blocks=kv_pool_blocks,
+            prefix_caching=prefix_caching, max_queue_depth=max_queue_depth,
+            overload_retry_after_s=overload_retry_after_s,
+            speculative_tokens=speculative_tokens, name=name)
+        self.mesh = mesh
+        self._chan = None
+        self._uid: Optional[str] = None
+        if mesh is not None:
+            if cuda_graphs:
+                raise _not_ported(
+                    "CUDA graph capture under a tensor mesh", 25)
+            if host_spill_blocks > 0 and prefix_caching:
+                raise _not_ported("the host spill tier under a mesh", 26)
+            cuda_graphs = False
+            self._chan = lockstep.channel(mesh)
+        self._metric_name = name
         self.cfg = cfg = model.cfg
         self.device = model.embed.device
         self.decode = decode
@@ -501,25 +545,39 @@ class DecodeEngine:
             # The drafter proposes from each slot's delivered history,
             # so every call drains in its own loop turn.
             self.sync_lag = 0
-        self._state = init_paged_state(cfg, slots, self.kv_pool_blocks,
-                                       self.kv_block_tokens,
-                                       decode.kv_cache_dtype,
-                                       device=self.device)
         # Adapter-array serving: the registry's stacked factors on the
-        # device, in the model dtype.  Every program reads these tensors
-        # as fixed buffers; a new registry version is copied INTO them
-        # between program calls (_apply_adapter_updates), never rebound,
-        # so the captured graphs read the new rows.
+        # device, in the model dtype (this rank's slice under a mesh).
+        # Every program reads these tensors as fixed buffers; a new
+        # registry version is copied INTO them between program calls
+        # (_apply_adapter_updates), never rebound, so the captured graphs
+        # read the new rows.
         self._registry = adapters
         self._adapter_version = None
         self._adapter_stack = None
+        stack = None
         if adapters is not None:
             stack, self._adapter_version = adapters.stack_snapshot()
+        if _replica is not None:
+            self._uid, stack = _replica
+        elif self._chan is not None:
+            # Rank 0: the other ranks build this engine as it is built
+            # here (they load the whole model from ``source``).
+            self._uid = self._chan.new_key(f"engine-{name}")
+            self._chan.announce("engine", self._uid, source, decode,
+                                geometry, stack)
+        if mesh is not None:
+            model = sharding.shard_model(model, mesh)
+        self.model = model
+        self._state = init_paged_state(
+            cfg, slots, self.kv_pool_blocks, self.kv_block_tokens,
+            decode.kv_cache_dtype, device=self.device,
+            kv_heads=sharding.local_kv_heads(cfg.n_kv_heads, mesh))
+        if stack is not None:
             self._adapter_stack = {
-                grp: {k: torch.from_numpy(np.array(arr)).to(
+                grp: {k: torch.as_tensor(arr).to(
                     device=self.device, dtype=cfg.dtype)
                     for k, arr in leaves.items()}
-                for grp, leaves in stack.items()}
+                for grp, leaves in self._shard_stack(stack).items()}
         # Host-owned per-slot block tables, passed into every program
         # call; the sentinel value (== pool size) sends writes and reads
         # of unallocated logical pages to the pool's scratch block.
@@ -563,6 +621,10 @@ class DecodeEngine:
         self._import_prog = programs.KvImport(
             model, decode, self._state, self._tables_dev,
             self._table_blocks, graphs=self.cuda_graphs)
+        if self._chan is not None:
+            self._chan.register(self._uid, self)
+        if _replica is not None:
+            return  # a follower: rank 0's calls drive this engine
         # Capture time and graph-pool bytes, set once the loop thread has
         # captured the programs (None when they run eagerly).
         self.capture_info: Optional[Dict[str, Any]] = None
@@ -647,7 +709,6 @@ class DecodeEngine:
         self._gap_times: List[float] = []
         self._ttft_times: List[float] = []
         self._last_step_end: Optional[float] = None
-        self._metric_name = name
         self._occ_gauge = REGISTRY.gauge(
             "kft_engine_active_slots",
             "decode engine live slots, by engine")
@@ -700,6 +761,9 @@ class DecodeEngine:
         # shed/expired rates read uniformly across batching planes.
         self._shed_ctr = REGISTRY.counter(SHED_TOTAL, SHED_HELP)
         self._expired_ctr = REGISTRY.counter(EXPIRED_TOTAL, EXPIRED_HELP)
+        self._mesh_gauge = REGISTRY.gauge(MESH_DEVICES_GAUGE,
+                                          MESH_DEVICES_HELP)
+        self._mesh_gauge.set(sharding.mesh_devices(mesh), engine=name)
         self._occ_gauge.set(0, engine=name)
         self._queue_gauge.set(0, engine=name)
         self._kv_blocks_gauge.set(self.kv_pool_blocks, engine=name)
@@ -1085,8 +1149,7 @@ class DecodeEngine:
         """Locked snapshot of the engine counters: occupancy, queue
         depth, throughput, per-token latency, prefix-cache
         effectiveness and prefill-interference bounds.  The keys are
-        the JAX engine's (``mesh_devices`` is 1: the port's engine runs
-        on one device)."""
+        the JAX engine's."""
         c, extra = locked_snapshot(
             self._lock, self._counters,
             lambda: {
@@ -1167,7 +1230,7 @@ class DecodeEngine:
             "kv_spill_ratio": round(
                 extra["host_used"] / self.host_spill_blocks, 4)
             if self.host_spill_blocks else 0.0,
-            "mesh_devices": 1,
+            "mesh_devices": sharding.mesh_devices(self.mesh),
             "handoff_pages_out": c["handoff_pages_out"],
             "handoff_pages_in": c["handoff_pages_in"],
             # Speculation: drafted and accepted tokens and the extra
@@ -1227,9 +1290,18 @@ class DecodeEngine:
         self._thread.join(timeout=max(5.0, drain_s + 5.0))
         if not self._thread.is_alive():
             # A hot swap builds a new engine: this one's graphs and
-            # their pool go now, not when the object is collected.
-            for prog in self._programs():
-                prog.release()
+            # their pool go now, not when the object is collected (on
+            # every rank of a mesh).
+            try:
+                self._device("release")
+            except lockstep.ChannelClosed:
+                log.warning("engine %r: release not replayed (lockstep "
+                            "channel closed)", self._metric_name)
+            finally:
+                if self._chan is not None:
+                    # The channel's last reference to this engine (and
+                    # its model and pool) on rank 0.
+                    self._chan.unregister(self._uid)
         # The prefix index dies with the engine (reload invalidation:
         # the serving layer rebuilds engine + pool per model version).
         with self._lock:
@@ -1242,6 +1314,102 @@ class DecodeEngine:
         self._kv_spilled_gauge.set(0, engine=self._metric_name)
         self._kv_spilled_last = 0
         self._host_tier_gauge.set(0, engine=self._metric_name)
+        self._mesh_gauge.set(0, engine=self._metric_name)
+
+    # -- device calls: the one choke point -----------------------------
+
+    def _device(self, op: str, *args):
+        """Run device call ``op`` (``_op_<op>``) on this engine, and under
+        a mesh on every rank's engine, in rank 0's order (broadcast over
+        the lockstep channel before it runs here).  Every write or read
+        of device state goes through here."""
+        if self._chan is None:
+            return getattr(self, "_op_" + op)(*args)
+        return self._chan.call(self._uid, "_op_" + op, *args)
+
+    def _shard_stack(self, stack):
+        """A host adapter stack -> this rank's slices (the ``adapters/``
+        rules; whole without a mesh)."""
+        if self.mesh is None:
+            return stack
+        return sharding.shard_params({"adapters": stack},
+                                     self.mesh)["adapters"]
+
+    def _op_tables(self, tables: np.ndarray) -> None:
+        programs.upload(self._tables_dev, tables)
+
+    def _op_prefill(self, *args):
+        return self._chunk_prog.run(*args)
+
+    def _op_step(self):
+        return self._decode_prog.run()
+
+    def _op_round_begin(self) -> None:
+        self._decode_prog.begin()
+
+    def _op_round_step(self):
+        return self._decode_prog.issue()
+
+    def _op_round_end(self):
+        return self._decode_prog.end()
+
+    def _op_verify(self, draft, draft_len):
+        return self._verify_prog.run(draft, draft_len)
+
+    def _op_import(self, pages_k, pages_v, ids) -> None:
+        """Scatter whole-head host pages into the pool: this rank's kv
+        heads of them."""
+        self._import_prog.run(sharding.head_slice(pages_k, self.mesh),
+                              sharding.head_slice(pages_v, self.mesh), ids)
+
+    def _op_gather(self, ids):
+        """Pool blocks ``ids`` as whole-head host page stacks (every
+        rank's heads gathered, on rank 0 as on the others)."""
+        from kubeflow_tpu_torch.models.generate import gather_kv_pages
+
+        pages = gather_kv_pages(self._state, ids)
+        if self.mesh is None or self._state["cache_k"].shape[3] \
+                == self.cfg.n_kv_heads:
+            return pages
+        return tuple(tuple(None if t is None
+                           else self._chan.gather_cat(t, dim=3)
+                           for t in side) for side in pages)
+
+    def _op_adapters(self, stack) -> None:
+        copy_adapter_stack(self._adapter_stack, self._shard_stack(stack))
+
+    def _op_release(self) -> None:
+        for prog in self._programs():
+            prog.release()
+        if self._chan is not None:
+            # Every rank's replicated slot scalars, for its log: the
+            # ranks ran the same calls, so their digests are equal.
+            log.info("lockstep engine %s released on rank %d: slot "
+                     "scalars sha256 %s", self._uid, self._chan.rank,
+                     self.scalars_digest())
+            self._chan.unregister(self._uid)
+
+    def scalars_digest(self) -> str:
+        """sha256 of the per-slot scalars (lengths, done, last_token,
+        keys) as they stand on the device: equal on every rank of a
+        mesh, whose ranks compute them alike."""
+        import hashlib
+
+        digest = hashlib.sha256()
+        for name in ("lengths", "done", "last_token", "keys"):
+            digest.update(self._state[name].cpu().numpy().tobytes())
+        return digest.hexdigest()
+
+    def _run_round(self, width: int):
+        """One fused round of up to ``width`` steps, each step its own
+        device call, so that every rank issues as many steps as the
+        lagged all-done read lets rank 0 issue."""
+        from kubeflow_tpu_torch.models.generate import run_round
+
+        self._device("round_begin")
+        run_round(lambda: self._device("round_step"), self.decode_rounds,
+                  width, self.device)
+        return self._device("round_end")
 
     # -- step loop --------------------------------------------------------
 
@@ -1279,7 +1447,7 @@ class DecodeEngine:
         stack, version = self._registry.stack_snapshot()
         if version == self._adapter_version:
             return
-        copy_adapter_stack(self._adapter_stack, stack)
+        self._device("adapters", stack)
         self._adapter_version = version
 
     def _sweep_expired_locked(self) -> List[dict]:
@@ -1496,7 +1664,7 @@ class DecodeEngine:
         n = pages["covered"] // self.kv_block_tokens
         ids = np.full((self._table_blocks,), self.kv_pool_blocks, np.int64)
         ids[:n] = entry["blocks"][:n]
-        self._import_prog.run(pages["k"], pages["v"], ids)
+        self._device("import", pages["k"], pages["v"], ids)
         self._import_built = True
         entry["pos"] = pages["covered"]
         return n
@@ -1546,8 +1714,6 @@ class DecodeEngine:
         the finished full-block prompt pages into the result, in the form
         ``kv_handoff`` imports.  It runs before release, so nothing can
         overwrite the pages mid-gather."""
-        from kubeflow_tpu_torch.models.generate import gather_kv_pages
-
         true_len = int(entry["tokens"].shape[1])
         n = min((true_len - 1) // self.kv_block_tokens,
                 len(entry["blocks"]))
@@ -1555,7 +1721,7 @@ class DecodeEngine:
             return
         # Chaos hook: raise = export failure at delivery.
         faults.fire("engine.kv_handoff")
-        pages_k, pages_v = gather_kv_pages(self._state, entry["blocks"][:n])
+        pages_k, pages_v = self._device("gather", entry["blocks"][:n])
         entry["out"]["kv_handoff"] = {
             "block_tokens": self.kv_block_tokens,
             "tokens_covered": n * self.kv_block_tokens,
@@ -1659,8 +1825,6 @@ class DecodeEngine:
         queued, and its ``.cpu()`` waits for them.  A gather fault leaves
         the record resident: destructive LRU eviction remains the
         fallback.  Returns records spilled."""
-        from kubeflow_tpu_torch.models.generate import gather_kv_pages
-
         spilled = 0
         while spilled < max_records and self._mgr.spill_pressure() > 0:
             with self._lock:
@@ -1686,7 +1850,7 @@ class DecodeEngine:
                 # the record stays resident; sleep = slow host copy).
                 faults.fire("engine.spill")
                 t0 = time.perf_counter()
-                pages_k, pages_v = gather_kv_pages(self._state, rec.blocks)
+                pages_k, pages_v = self._device("gather", rec.blocks)
                 self.spill_timing["out_s"] += time.perf_counter() - t0
                 self.spill_timing["out_pages"] += n
             except Exception:  # noqa: BLE001 -- degrade to eviction
@@ -1736,8 +1900,6 @@ class DecodeEngine:
         through host-tier re-import once pressure spilled it, and over
         ``fetch_kv`` from a peer after failover.  A gather fault
         degrades to device-resident-only parking."""
-        from kubeflow_tpu_torch.models.generate import gather_kv_pages
-
         context = np.concatenate(
             [entry["tokens"][0], np.asarray(entry["emitted"], np.int32)])
         true_len = int(context.shape[0]) - 1
@@ -1755,8 +1917,7 @@ class DecodeEngine:
             # site and degradation.
             faults.fire("engine.spill")
             t0 = time.perf_counter()
-            pages_k, pages_v = gather_kv_pages(
-                self._state, entry["blocks"][:n])
+            pages_k, pages_v = self._device("gather", entry["blocks"][:n])
             self.spill_timing["out_s"] += time.perf_counter() - t0
             self.spill_timing["out_pages"] += n
         except Exception:  # noqa: BLE001 -- degrade to device-only park
@@ -1783,7 +1944,7 @@ class DecodeEngine:
                 return
             self._tables_dirty = False
             tables = self._tables.astype(np.int64)
-        programs.upload(self._tables_dev, tables)
+        self._device("tables", tables)
 
     def _begin_prefill(self, entry: dict, slot: int) -> None:
         """Admission, host side.  The admission plan already aliased the
@@ -1846,9 +2007,10 @@ class DecodeEngine:
         self._refresh_tables_dev()
         finished = start + w >= true_len
         t0 = time.perf_counter()
-        tok = self._chunk_prog.run(
-            prompt[start:start + w], start, true_len, entry["new"],
-            entry["slot"], entry["seed"], entry.get("adapter", 0))
+        tok = self._device(
+            "prefill", prompt[start:start + w], start, true_len,
+            entry["new"], entry["slot"], entry["seed"],
+            entry.get("adapter", 0))
         readback = _Readback(tok) if finished else None
         dt = time.perf_counter() - t0
         self._chunk_built = True
@@ -2083,7 +2245,7 @@ class DecodeEngine:
         faults.fire("engine.step")
         tok_before = self._counters["tokens"]
         t0 = time.perf_counter()
-        readback = _Readback(*self._decode_prog.run(width))
+        readback = _Readback(*self._run_round(width))
         self._rounds_built = True
         # ---- overlap window: everything until the readback below runs
         # while the device computes.
@@ -2153,7 +2315,7 @@ class DecodeEngine:
         # thread) feed the speculation gate's decode-side rate.
         tok_before = self._counters["tokens"]
         t0 = time.perf_counter()
-        readback = _Readback(self._decode_prog.run())
+        readback = _Readback(self._device("step"))
         self._step_built = True
         self._pending.append((readback, [
             (i, r) for i, r in enumerate(self._slot_req)
@@ -2328,7 +2490,7 @@ class DecodeEngine:
         self._refresh_tables_dev()
         faults.fire("engine.step")
         t0 = time.perf_counter()
-        readback = _Readback(*self._verify_prog.run(draft, draft_len))
+        readback = _Readback(*self._device("verify", draft, draft_len))
         self._verify_built = True
         self._pending.append((readback, snapshot, True))
         while len(self._pending) > self.sync_lag:   # sync: drains all
@@ -2627,3 +2789,22 @@ class DecodeEngine:
         self._prefilling.clear()
         self._set_occ_gauge(0)
 
+
+
+def follow(mesh, resolve: Callable[[Any], Any]) -> None:
+    """The loop of every rank of a serving mesh but rank 0: build each
+    engine rank 0 builds and replay every device call rank 0 makes on
+    it, until rank 0 closes the mesh's lockstep channel
+    (serving/lockstep.py).  ``resolve(source)`` returns the whole model
+    of an engine rank 0 built with ``source`` (the serving entry point
+    loads that export version; the engine keeps this rank's slice of
+    it).  A failed receive (rank 0 gone) raises
+    ``lockstep.ChannelClosed``."""
+    chan = lockstep.channel(mesh)
+
+    def build(uid, source, decode, geometry, stack):
+        DecodeEngine(resolve(source), decode, mesh=mesh,
+                     _replica=(uid, stack), **geometry)
+
+    with torch.inference_mode():
+        chan.follow({"engine": build})

@@ -44,8 +44,18 @@ started with gRPC on fails at start with the ImportError, and
 ``--grpc_port -1`` serves REST alone.  ``KFT_SERVING_READY rest=PORT
 grpc=PORT`` on stderr marks both listeners up (``grpc=-1`` when off).
 
-Not ported yet: ``--mesh`` (ROADMAP queue 1, item 6), accepted at its
-off value only and raising ``NotPortedError`` otherwise.
+``--mesh tensor=N`` serves each engine tensor-parallel over N processes,
+one a GPU (serving/sharding.py): start N copies of this entry point with
+the ``KFT_*`` variables (runtime/bootstrap.py; ``KFT_DIST_BACKEND=gloo``
+when they share one GPU, and ``--device cpu`` on the CPU) or under
+torchrun.  Rank 0 serves REST and gRPC and runs the engine's host side;
+every other rank loads the same export version from the same base path,
+keeps its slice and replays rank 0's device calls (``engine.follow``),
+binds no port, prints ``KFT_SERVING_FOLLOWER rank=R`` on stderr and
+exits when rank 0 shuts down.  Under a mesh the engine's programs run
+uncaptured; prompts wider than its prefill width and the static batcher
+run whole on rank 0, as in the JAX entry point, which passes the mesh to
+the engine only.
 """
 
 from __future__ import annotations
@@ -59,8 +69,8 @@ import time
 from http.server import ThreadingHTTPServer
 from typing import List, Optional, Tuple
 
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.runtime import tracing
+from kubeflow_tpu_torch.serving import lockstep, sharding
 from kubeflow_tpu_torch.serving.http import make_http_server
 from kubeflow_tpu_torch.serving.model_server import (
     BucketedLMBatcher,
@@ -91,7 +101,8 @@ def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
                     adapters_dir: str = "",
                     adapter_slots: int = 8,
                     adapter_rank: int = 4,
-                    mesh: str = ""):
+                    mesh=None,
+                    model_base_path: str = ""):
     """ModelServer.enable_batching factory: picks the batcher per model,
     rebuilt around every hot-swapped version.
 
@@ -101,16 +112,14 @@ def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
     else gets the shape-grouped MicroBatcher when micro-batching is on,
     or no batcher (build returns None: the direct predict path).  With
     ``adapters_dir`` each engine gets its own ``AdapterRegistry`` of
-    ``adapter_slots`` rows at ``adapter_rank``.  ``mesh`` raises
-    ``NotPortedError`` unless it is off.
+    ``adapter_slots`` rows at ``adapter_rank``.  ``mesh`` (a serving
+    mesh from ``sharding.build_mesh``, built once per job) makes each
+    engine tensor-parallel; the other ranks load the version the engine
+    serves from ``model_base_path``.
     """
     from kubeflow_tpu_torch.serving.adapters import AdapterRegistry
     from kubeflow_tpu_torch.serving.engine import DecodeEngine
 
-    if mesh:
-        raise NotPortedError(
-            "--mesh is not ported yet (ROADMAP queue 1 item 6); the port "
-            "serves with it off")
     sizes = [s for s in (1, 2, 4, 8, 16, 32, 64, 128)
              if s <= micro_batch_size]
     if not sizes or sizes[-1] != micro_batch_size:
@@ -163,6 +172,9 @@ def batcher_factory(*, micro_batch_size: int, batch_timeout_s: float,
                     overload_retry_after_s=overload_retry_after_s,
                     speculative_tokens=speculative_tokens,
                     adapters=registry,
+                    mesh=mesh,
+                    source={"base": model_base_path,
+                            "version": model.version},
                     name=f"{model.name}-v{model.version}")
             logging.warning(
                 "decode engine disabled for %r: max_new_tokens %d "
@@ -291,7 +303,10 @@ def _parser() -> argparse.ArgumentParser:
                          "served by one engine shares this rank (the "
                          "stacked array is one static shape)")
     ap.add_argument("--mesh", default="",
-                    help="not ported yet: only empty is accepted")
+                    help="serving mesh, 'tensor=N': each engine runs "
+                         "tensor-parallel over the job's N processes "
+                         "(rank 0 serves, the others follow it); empty "
+                         "= one device")
     ap.add_argument("--role", default="unified",
                     choices=("unified", "prefill", "decode"),
                     help="disaggregated-serving tier, advertised on "
@@ -341,12 +356,51 @@ def start(argv: Optional[List[str]] = None
     start batching, the version watcher, the REST listener and (unless
     ``--grpc_port -1``) the gRPC server; returns (server, httpd) with
     all running.  The gRPC server is ``httpd.grpc_server`` (None when
-    off; its port is ``.bound_port``), and ``shutdown`` stops it."""
-    server, httpd, _ = _start(_parser().parse_args(argv))
+    off; its port is ``.bound_port``), and ``shutdown`` stops it.  With
+    ``--mesh`` this process must be rank 0 of the job (``main`` runs the
+    other ranks)."""
+    args = _parser().parse_args(argv)
+    mesh = _serving_mesh(args)
+    if mesh is not None and not lockstep.channel(mesh).leader:
+        raise ValueError("start() serves from rank 0 of a mesh; the other "
+                         "ranks run main(), which follows it")
+    server, httpd, _ = _start(args, mesh)
     return server, httpd
 
 
-def _start(args: argparse.Namespace):
+def _serving_mesh(args: argparse.Namespace):
+    """The job's serving mesh for ``--mesh`` (None without one): a
+    multi-process job joins its process group first."""
+    axes = sharding.parse_mesh_flag(args.mesh)
+    if axes.get(sharding.TENSOR, 1) <= 1:
+        return None
+    from kubeflow_tpu_torch.runtime import bootstrap
+
+    bootstrap.initialize(device=args.device)
+    return sharding.build_mesh(axes, device=args.device)
+
+
+def _follow(args: argparse.Namespace, mesh) -> int:
+    """A rank other than 0: build every engine rank 0 builds from the
+    same export version, replay its device calls, exit when it closes
+    the channel."""
+    from kubeflow_tpu_torch.serving.engine import follow
+    from kubeflow_tpu_torch.serving.export import load_version
+
+    def resolve(source):
+        predict, _ = load_version(source["base"], source["version"],
+                                  device=args.device)
+        return predict.engine_spec["model"]
+
+    rank = lockstep.channel(mesh).rank
+    logging.info("rank %d follows rank 0 (mesh %s)", rank, args.mesh)
+    print(f"KFT_SERVING_FOLLOWER rank={rank}", file=sys.stderr, flush=True)
+    follow(mesh, resolve)
+    logging.info("rank %d: rank 0 closed the mesh", rank)
+    return 0
+
+
+def _start(args: argparse.Namespace, mesh=None):
     make_grpc_server = None
     if args.grpc_port >= 0:
         # Deferred import, before anything starts: a REST-only server
@@ -387,7 +441,8 @@ def _start(args: argparse.Namespace):
             adapters_dir=args.adapters_dir,
             adapter_slots=args.adapter_slots,
             adapter_rank=args.adapter_rank,
-            mesh=args.mesh)
+            mesh=mesh,
+            model_base_path=args.model_base_path)
     server = ModelServer(poll_interval_s=args.poll_interval_s,
                          reload_backoff_s=args.reload_backoff_s,
                          reload_backoff_cap_s=args.reload_backoff_cap_s,
@@ -401,6 +456,7 @@ def _start(args: argparse.Namespace):
         server.enable_batching(args.model_name, factory)
     server.start_watcher()
     httpd, _ = make_http_server(server, port=args.port, host=args.host)
+    httpd.lockstep = None if mesh is None else lockstep.channel(mesh)
     httpd.grpc_server = None
     if make_grpc_server is not None:
         try:
@@ -426,11 +482,18 @@ def shutdown(server: ModelServer, httpd: ThreadingHTTPServer) -> None:
     if grpc_server is not None:
         grpc_server.stop(grace=1).wait()
     server.stop()
+    chan = getattr(httpd, "lockstep", None)
+    if chan is not None:
+        chan.close()  # the other ranks of the mesh exit
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    server, httpd, args = _start(_parser().parse_args(argv))
+    args = _parser().parse_args(argv)
+    mesh = _serving_mesh(args)
+    if mesh is not None and not lockstep.channel(mesh).leader:
+        return _follow(args, mesh)
+    server, httpd, args = _start(args, mesh)
     # Readiness marker for process-spawning callers: the bound ports,
     # on one line, after both listeners are up.
     grpc_server = httpd.grpc_server

@@ -35,6 +35,13 @@ scales are read: the engine copies a new registry version into their
 storage between calls and never rebinds them, so the captured graphs
 read the new rows.  The number of programs does not change.
 
+Under a tensor mesh (serving/sharding.py) each rank's programs run over
+its slice of the model and its kv heads of the pool, eagerly: the
+collectives inside the bodies are staged through the host over gloo on
+one GPU, which a CUDA graph cannot hold, and ``capture()`` refuses.
+The engine issues a round's steps one lockstep call at a time
+(``Rounds.begin``, ``issue``, ``end``), so every rank runs as many.
+
 Every program writes the engine's state in place, so the state's
 tensors, the block tables and the buffers keep their storage for the
 engine's life.  On CUDA, ``capture()`` records each body as a CUDA graph
@@ -50,6 +57,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.models import generate
 from kubeflow_tpu_torch.ops.quantize import QTensor
 
@@ -93,12 +101,20 @@ class _Program:
 
     def capture(self, pool) -> None:
         """Record the body as a CUDA graph in the memory pool ``pool``.
+        A model split over a tensor group refuses: its collectives are
+        staged through the host over gloo on one GPU, and no machine
+        with one GPU a rank has tested NCCL collectives inside a graph
+        (ROADMAP queue 1 item 25).
 
         The warm-up runs execute the body for real, on a side stream, so
         the slot scalars are snapshot before them and restored after;
         on a fresh engine state every slot is done and every table entry
         is the sentinel, so their pool writes land on the scratch block.
         A capture that fails raises."""
+        if getattr(self.model, "mesh", None) is not None:
+            raise NotPortedError(
+                "CUDA graph capture of a program under a tensor mesh is "
+                "not ported yet (ROADMAP queue 1 item 25)")
         saved = {name: value.clone() for name, value in self.state.items()
                  if name not in ("cache_k", "cache_v")}
         side = torch.cuda.Stream(self.device)
@@ -216,17 +232,29 @@ class Rounds(_Program):
             self.model, self.decode, self.tables, self.park, self.state,
             self.toks, self.step, self.steps_run, self.adapters)
 
-    def run(self, max_steps: int):
-        """One round of up to ``min(max_steps, k)`` steps; returns the
-        buffers (toks [S, k], counts [S], steps_run), which the next
-        round overwrites."""
+    def begin(self) -> None:
+        """Reset the round's buffers before its first step."""
         self.toks.zero_()
         self.steps_run.zero_()
         self.step.zero_()
         self.len0.copy_(self.state["lengths"])
-        generate.run_round(self._launch, self.k, max_steps, self.device)
+
+    def issue(self) -> torch.Tensor:
+        """One guarded step; returns the 0-d all-done flag after it."""
+        return self._launch()
+
+    def end(self):
+        """The round's buffers (toks [S, k], counts [S], steps_run),
+        which the next round overwrites."""
         torch.sub(self.state["lengths"], self.len0, out=self.counts)
         return self.toks, self.counts, self.steps_run
+
+    def run(self, max_steps: int):
+        """One round of up to ``min(max_steps, k)`` steps (``begin``,
+        the host-issued steps, ``end``); returns ``end()``'s buffers."""
+        self.begin()
+        generate.run_round(self.issue, self.k, max_steps, self.device)
+        return self.end()
 
 
 class Verify(_Program):

@@ -497,11 +497,14 @@ def test_sampled_stream_repeats_alone_or_co_batched(spec):
     assert alone != run([prompt], [8], 8)[0]
 
 
-# The id the case had beside the speculation, host-spill and adapters
-# cases, which left with the refusals they checked.
+# The mesh's two refusals: capture under a tensor mesh and the host
+# spill tier under one (the mesh itself is ported,
+# tests/test_torch_serving_mesh.py).  Both refuse before the mesh is
+# read.  The first keeps the id of the mesh refusal it replaces.
 @pytest.mark.parametrize("option,item", [
-    ({"mesh": object()}, 6),
-], ids=["option3-6"])
+    ({"mesh": object(), "cuda_graphs": True}, 25),
+    ({"mesh": object(), "host_spill_blocks": 4}, 26),
+], ids=["option3-6", "option4-26"])
 def test_held_back_options_raise_not_ported(spec, option, item):
     with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
         _port_engine(spec, **option)

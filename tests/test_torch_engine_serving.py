@@ -6,7 +6,8 @@ the tokens JAX generate() gives each prompt alone; prompts wider than the
 engine's prefill width take the direct path; ``:stats`` returns the
 engine's ``stats()``; ``--lm_static_batcher`` restores the static
 bucketed batcher; the factory declines the engine when the export leaves
-no prompt room; ``--mesh`` answers ``NotPortedError``; and a request
+no prompt room; ``--mesh`` in a one-process job is refused with the
+job size it needs; and a request
 naming an adapter on a server without ``--adapters_dir`` answers 404."""
 
 import http.client
@@ -25,7 +26,6 @@ from kubeflow_tpu.models.generate import generate as jax_generate
 from kubeflow_tpu.models.transformer import Transformer as JaxTransformer
 from kubeflow_tpu.serving.export import export as jax_export
 from kubeflow_tpu.serving.loaders import _model_config as jax_model_config
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.serving import main as serving_main
 
 VOCAB, NEW = 128, 6
@@ -194,9 +194,12 @@ def test_factory_declines_engine_without_prompt_room():
 
 # The id the case had beside the --speculative_tokens, --host_spill_blocks
 # and --adapters_dir cases, which left with the refusals they checked.
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "tensor=2"], 6),
+# --mesh is ported (tests/test_torch_serving_mesh.py serves it from a
+# job of two processes); asked of a one-process job it is refused with
+# the job size it needs, before anything loads.
+@pytest.mark.parametrize("flags,match", [
+    (["--mesh", "tensor=2"], "needs a job of 2 processes"),
 ], ids=["flags3-6"])
-def test_later_slice_flags_raise_not_ported(exported, flags, item):
-    with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
+def test_later_slice_flags_raise_not_ported(exported, flags, match):
+    with pytest.raises(ValueError, match=match):
         _start(exported[0], *flags)

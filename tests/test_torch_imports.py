@@ -87,7 +87,9 @@ def test_every_port_module_imports():
             "kubeflow_tpu_torch.parallel.tensor",
             "kubeflow_tpu_torch.runtime.bootstrap",
             "kubeflow_tpu_torch.testing.ranks",
-            "kubeflow_tpu_torch.testing.ring_check"} <= set(names)
+            "kubeflow_tpu_torch.testing.ring_check",
+            "kubeflow_tpu_torch.serving.sharding",
+            "kubeflow_tpu_torch.serving.lockstep"} <= set(names)
 
 
 ANALYSIS = sorted(p.name for p in
@@ -134,6 +136,22 @@ PARALLEL_SLICE = ["parallel/__init__.py", "parallel/mesh.py",
                   "runtime/bootstrap.py",
                   "runtime/train.py", "testing/ranks.py",
                   "testing/ring_check.py"]
+
+
+SERVING_MESH_SLICE = ["serving/sharding.py", "serving/lockstep.py",
+                      "serving/main.py", "serving/programs.py"]
+
+
+@pytest.mark.parametrize("module", SERVING_MESH_SLICE)
+def test_serving_mesh_modules_import_nothing_of_jax(module):
+    """Tensor-parallel decode (the serving mesh, its rule table and
+    placement, the lockstep channel, and the entry point that joins the
+    job) imports neither JAX nor the JAX package: its rule table and
+    flag grammar are the port's own copies of kubeflow_tpu/serving/
+    sharding.py's."""
+    imported = list(_imports(REPO / "kubeflow_tpu_torch" / module))
+    assert imported
+    assert not [m for m in imported if _forbidden(m)]
 
 
 @pytest.mark.parametrize("module", PARALLEL_SLICE)
