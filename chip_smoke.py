@@ -276,6 +276,21 @@ Phases, each fatal on failure (exit code 1, no result line):
      in that step, a profiled step's busy share, its peak memory, and
      its all-reduces a step with the time of one of [8, 2048, 1024]
      bf16 (32 MB) alone;
+ 7h. pipeline parallelism (GPipe): tools/train_lm.run on bench.py's LM
+     cell with --mesh pipeline=2 --pipeline-microbatches 4 as 2 processes
+     sharing the one GPU over gloo (KFT_DIST_BACKEND=gloo), 3 steps from
+     phase 7's seed and batches: each stage holds 6 of the 12 layers and
+     runs them on 4 microbatches of 2 rows (parallel/pipeline.py, the
+     hops and broadcasts staged through host memory).  The ranks' losses
+     equal, finite and within 1e-3 of phase 7's; each rank launches
+     exactly 72 each of flash_fwd, flash_dq and flash_dkv (24 a step),
+     every one at bh 16, and none of the other kernels; one stage's
+     forward and backward at bh 16 against their plain versions within
+     phase 2's bounds; the phase within 90 s.  Information only: each
+     rank's step ms against phase 7's, the host time and bytes of its
+     hops and broadcasts, the time it waits on its neighbour beside
+     GPipe's bubble share, a profiled step's busy share and its peak
+     memory;
   8. gradients: one step's gradients of the bf16 model (full width and
      depth, batch 2 x 2048) through the kernels (single pass, then two
      passes) and through the plain versions, each held to a float32 run
@@ -566,6 +581,18 @@ RING_TRAIN_WORLD, RING_TRAIN_STEPS, RING_TRAIN_TIMEOUT_S = 2, 3, 300
 TENSOR_WORLD, TENSOR_STEPS, TENSOR_TIMEOUT_S = 2, 3, 300
 TENSOR_LOSS_ATOL = 1e-2
 TENSOR_LOCAL_BH = TRAIN_BATCH * MODEL["n_heads"] // TENSOR_WORLD
+# Phase 7h: --mesh pipeline=PIPE_WORLD --pipeline-microbatches PIPE_MICRO
+# at the same cell as PIPE_WORLD processes sharing the GPU over gloo, each
+# loss within MESH_LOSS_ATOL of phase 7's (a microbatch's GEMMs round
+# otherwise than the whole batch's; a layer run on the wrong stage, a
+# microbatch out of place or a cotangent taken twice moves the loss by
+# O(1)).  Each rank runs its 6 layers on 4 microbatches of 2 rows: the
+# flash kernels at bh PIPE_LOCAL_BH (2 rows x 8 heads), PIPE_PER_STEP
+# times a step each.  The phase must end within PIPE_PHASE_S.
+PIPE_WORLD, PIPE_MICRO, PIPE_STEPS, PIPE_TIMEOUT_S = 2, 4, 3, 240
+PIPE_LOCAL_BH = TRAIN_BATCH // PIPE_MICRO * MODEL["n_heads"]
+PIPE_PER_STEP = MODEL["n_layers"] // PIPE_WORLD * PIPE_MICRO
+PIPE_PHASE_S = 90.0
 # Phases 11-12: the CNN family.  Phase 11 serves these exports through the
 # classifier loader and the MicroBatcher; each model's name, its loader
 # config and its image size (the canonical input of each).
@@ -5312,6 +5339,249 @@ def tensor_train_phase(torch, flash, solo_info, workdir: Path):
                       "step_ms": steps_ms, "job_s": job_s, "ranks": ranks}
 
 
+# One rank of the pipelined trainer: tools/train_lm.run with its own
+# metrics file, recording the flash kernels' bh and timing the stage's
+# hops (parallel/p2p.py Send and recv) and the broadcasts of the outputs
+# and of the input gradient; then one profiled step on a fresh state.
+_PIPE_TRAIN_RANK = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from kubeflow_tpu_torch.ops import flash
+from kubeflow_tpu_torch.parallel import p2p
+from kubeflow_tpu_torch.tools import train_lm
+rank = os.environ["KFT_PROCESS_ID"]
+shapes = set()
+
+
+def recorded(fn, kind):
+    def call(q, *args, **kw):
+        shapes.add((kind, q.shape[0]))
+        return fn(q, *args, **kw)
+    return call
+
+
+flash.flash_fwd = recorded(flash.flash_fwd, "fwd")
+flash.flash_bwd = recorded(flash.flash_bwd, "bwd")
+moved = {k: {"calls": 0, "bytes": 0, "s": 0.0}
+         for k in ("send", "recv", "broadcast")}
+
+
+def timed(kind, fn, nbytes):
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        rec = moved[kind]
+        rec["s"] += time.perf_counter() - t0
+        rec["calls"] += 1
+        rec["bytes"] += nbytes(args, out)
+        return out
+    return call
+
+
+def size(t):
+    return t.numel() * t.element_size()
+
+
+class Send(p2p.Send):
+    def __init__(self, t, *args, **kw):
+        t0 = time.perf_counter()
+        super().__init__(t, *args, **kw)
+        moved["send"]["s"] += time.perf_counter() - t0
+        moved["send"]["calls"] += 1
+        moved["send"]["bytes"] += size(t)
+
+    def wait(self):
+        t0 = time.perf_counter()
+        super().wait()
+        moved["send"]["s"] += time.perf_counter() - t0
+
+
+p2p.Send = Send
+p2p.recv = timed("recv", p2p.recv, lambda a, out: size(out))
+p2p.broadcast = timed("broadcast", p2p.broadcast, lambda a, out: size(out))
+torch.cuda.reset_peak_memory_stats()
+for key in flash.launch_counts:
+    flash.launch_counts[key] = 0
+trainer = train_lm.run(sys.argv[3:] + [
+    "--metrics-out", f"{sys.argv[1]}/rank{rank}.json"])
+torch.cuda.synchronize()
+launches = dict(flash.launch_counts)
+peak = torch.cuda.max_memory_allocated() / 2 ** 30
+steps = int(sys.argv[2])
+per_step = {k: {"calls": v["calls"] / steps, "bytes": v["bytes"] / steps,
+                "ms": v["s"] * 1e3 / steps} for k, v in moved.items()}
+from torch.profiler import ProfilerActivity, profile
+state = trainer.create_state(0)
+batch = trainer.shard_batch({"tokens": np.random.RandomState(0).randint(
+    0, 32000, size=(8, 2048)).astype(np.int32)})
+step = trainer.compile_step()
+state, _ = step(state, batch)
+torch.cuda.synchronize()
+for v in moved.values():
+    v["s"] = 0.0
+dist.barrier()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+busy = sum(e.self_device_time_total for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+print("RESULT " + json.dumps({
+    "launches": launches, "bh": sorted(shapes), "peak_gib": peak,
+    "moved_per_step": per_step, "profiled_step_ms": wall,
+    "profiled_recv_ms": moved["recv"]["s"] * 1e3,
+    "profiled_comm_ms": sum(v["s"] for v in moved.values()) * 1e3,
+    "busy_ms": busy or None}), flush=True)
+"""
+
+
+def pipeline_kernels(torch, flash):
+    """One stage's kernels at the pipelined path's shape: [PIPE_LOCAL_BH,
+    2048, 128] bf16, one launch of each of the forward and the backward,
+    o and lse against the forward's plain version, dq, dk and dv against
+    the backward's plain version on the kernel's own o and lse, within
+    phase 2's bounds."""
+    bh, d = PIPE_LOCAL_BH, MODEL["head_dim"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    q, k, v, g = (torch.randn(bh, TRAIN_SEQ, d, device="cuda",
+                              generator=gen).bfloat16() for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = dict(flash.launch_counts)
+    o, lse = flash._FlashFunction.apply(q, k, v, True, 512, 512, 0)
+    o.backward(g)
+    torch.cuda.synchronize()
+    once = {n: flash.launch_counts[n] - before[n] for n in TRAIN_KERNELS}
+    if once != {n: 1 for n in TRAIN_KERNELS}:
+        fail(f"the stage's kernels did not launch once each: {once}")
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    ro, rlse = flash.flash_fwd_reference(qd.float(), kd.float(), vd.float(),
+                                         causal=True)
+    row = compare_out(torch, "flash_fwd", o.detach(), lse, ro, rlse,
+                      f"one pipeline stage's call at bh {bh}")
+    worst = {"o": row["rel_err_o"], "lse": row["max_abs_err_lse"]}
+    delta = (g.float() * o.detach().float()).sum(-1)
+    want = flash.flash_bwd_reference(qd, kd, vd, g, lse.detach(), delta,
+                                     causal=True)
+    for name, got, ref in zip(("dq", "dk", "dv"), (q.grad, k.grad, v.grad),
+                              want):
+        rel, mx, ok, finite = _bwd_errors(torch, got, ref)
+        worst[name] = rel
+        if not (ok and finite and rel <= BWD_REL_TOL):
+            fail(f"the stage's {name} at bh {bh} disagrees with the plain "
+                 f"version: relative {rel:.3e}, max {mx:.3e}")
+    log(f"pipeline stage kernels at bh {bh}: o relative {worst['o']:.3e}, "
+        f"lse {worst['lse']:.3e}, dq {worst['dq']:.3e}, dk "
+        f"{worst['dk']:.3e}, dv {worst['dv']:.3e} (bounds {O_REL_TOL}, "
+        f"{LSE_ATOL}, {BWD_REL_TOL})")
+    del q, k, v, g, o, lse, ro, rlse, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def pipeline_train_phase(torch, flash, solo_info, workdir: Path):
+    """Phase 7h: tools/train_lm.run with --mesh pipeline=PIPE_WORLD
+    --pipeline-microbatches PIPE_MICRO as PIPE_WORLD processes on the one
+    GPU over gloo: the ranks' losses equal, finite and within
+    MESH_LOSS_ATOL of phase 7's; each rank's kernels once a (layer,
+    microbatch) a step at bh PIPE_LOCAL_BH; one stage's kernels at that
+    shape against their plain versions.  Information: each rank's step,
+    its hops and broadcasts, the time it waits on its neighbour, a
+    profiled step's busy share and its peak memory."""
+    from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
+
+    t_phase = time.perf_counter()
+    out = workdir / "pipeline_train"
+    out.mkdir()
+    argv = TRAIN_FLAGS + ["--mesh", f"pipeline={PIPE_WORLD}",
+                          "--pipeline-microbatches", str(PIPE_MICRO),
+                          "--steps", str(PIPE_STEPS), "--log-every", "1",
+                          "--max-restarts", "0"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = run_ranks(
+        ["-c", _PIPE_TRAIN_RANK, str(out), str(PIPE_STEPS), *argv],
+        PIPE_WORLD, timeout_s=PIPE_TIMEOUT_S,
+        cwd=str(Path(__file__).resolve().parent),
+        env=dict(os.environ, KFT_DIST_BACKEND="gloo"))
+    job_s = time.perf_counter() - t0
+    try:
+        check_ranks(results)
+    except RuntimeError as e:
+        fail(f"the pipelined trainer failed: {e}")
+    ranks = [json.loads(next(ln for ln in r.stdout.splitlines()
+                             if ln.startswith("RESULT "))[7:])
+             for r in results]
+    want = {k: 0 for k in flash.launch_counts}
+    want.update({k: PIPE_PER_STEP * PIPE_STEPS for k in TRAIN_KERNELS})
+    for r, info in enumerate(ranks):
+        log(f"pipeline trainer rank {r}: launches {info['launches']} (want "
+            f"{want['flash_fwd']} of each of {', '.join(TRAIN_KERNELS)}: "
+            f"{MODEL['n_layers'] // PIPE_WORLD} layers x {PIPE_MICRO} "
+            f"microbatches x {PIPE_STEPS} steps; none of the others); "
+            f"kernel bh {info['bh']} (want {PIPE_LOCAL_BH})")
+        if info["launches"] != want:
+            fail(f"pipeline trainer rank {r} launches {info['launches']}, "
+                 f"want {want}")
+        if sorted(info["bh"]) != [["bwd", PIPE_LOCAL_BH],
+                                  ["fwd", PIPE_LOCAL_BH]]:
+            fail(f"pipeline trainer rank {r} ran the kernels at bh "
+                 f"{info['bh']}, want {PIPE_LOCAL_BH}")
+    histories = [json.loads((out / f"rank{r}.json").read_text())["history"]
+                 for r in range(PIPE_WORLD)]
+    losses = [[h["loss"] for h in hist] for hist in histories]
+    solo = solo_info["losses"][:PIPE_STEPS]
+    diff = max(abs(a - b) for a, b in zip(losses[0], solo))
+    steps_ms = [[h["step_time_s"] * 1e3 for h in hist] for hist in histories]
+    log(f"pipeline trainer losses {[round(x, 5) for x in losses[0]]} on "
+        f"every rank: {all(x == losses[0] for x in losses)}; phase 7's "
+        f"{[round(x, 5) for x in solo]}: max |diff| {diff:.2e} (bound "
+        f"{MESH_LOSS_ATOL}); job {job_s:.1f} s")
+    if not (len(losses[0]) == PIPE_STEPS
+            and all(x == losses[0] for x in losses)
+            and all(map(math.isfinite, losses[0]))
+            and diff <= MESH_LOSS_ATOL):
+        fail(f"pipeline trainer losses differ across ranks, are not finite "
+             f"or are more than {MESH_LOSS_ATOL} from phase 7's: {losses}")
+    kernels = pipeline_kernels(torch, flash)
+    bubble = (PIPE_WORLD - 1) / (PIPE_MICRO + PIPE_WORLD - 1)
+    for r, info in enumerate(ranks):
+        busy = info["busy_ms"]
+        wall = info["profiled_step_ms"]
+        share = "not measured" if busy is None else f"{busy / wall:.3f}"
+        per = info["moved_per_step"]
+        log(f"pipeline trainer rank {r}: steps "
+            f"{[round(x, 1) for x in steps_ms[r]]} ms (the first carries "
+            f"start-up; phase 7's median {solo_info['step_ms']:.1f} ms on "
+            f"one process); a step's sends {per['send']['calls']:.0f} "
+            f"({per['send']['bytes'] / 2 ** 20:.1f} MiB, "
+            f"{per['send']['ms']:.1f} ms), receives "
+            f"{per['recv']['calls']:.0f} ({per['recv']['bytes'] / 2 ** 20:.1f}"
+            f" MiB, {per['recv']['ms']:.1f} ms, the wait on the neighbour "
+            f"included), broadcasts {per['broadcast']['calls']:.0f} "
+            f"({per['broadcast']['bytes'] / 2 ** 20:.1f} MiB, "
+            f"{per['broadcast']['ms']:.1f} ms); profiled step {wall:.1f} ms"
+            f", {info['profiled_recv_ms']:.1f} ms of it in receives and "
+            f"{info['profiled_comm_ms']:.1f} ms in all transfers (GPipe's "
+            f"bubble (S-1)/(M+S-1) = {bubble:.3f}), busy {busy} ms (share "
+            f"{share}), peak {info['peak_gib']:.2f} GiB (both ranks on one "
+            "GPU, staged through host memory; host clock after a sync; "
+            "information only)")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 7h took {phase_s:.1f} s (bound {PIPE_PHASE_S})")
+    if phase_s > PIPE_PHASE_S:
+        fail(f"phase 7h took {phase_s:.1f} s, over {PIPE_PHASE_S}")
+    launches = {k: sum(info["launches"][k] for info in ranks)
+                for k in flash.launch_counts}
+    return launches, {"losses": losses[0], "max_loss_diff": diff,
+                      "step_ms": steps_ms, "job_s": job_s, "ranks": ranks,
+                      "kernels": kernels, "bubble": bubble,
+                      "phase_s": phase_s}
+
+
 def profile_step(torch, trainer, state, batch):
     """(host ms, device busy ms or None) of one training step, the second
     of two, the step under torch.profiler."""
@@ -6301,6 +6571,9 @@ def main() -> int:
         tensor_counts, tensor_info = tensor_train_phase(
             torch, flash, train_info, workdir)
         phase_done("7g tensor")
+        pipe_counts, pipe_info = pipeline_train_phase(
+            torch, flash, train_info, workdir)
+        phase_done("7h pipeline")
         log(f"train, single pass + adamw against two-pass + adafactor: "
             f"median step {train_info['step_ms']:.1f} / "
             f"{two_pass_info['step_ms']:.1f} ms, MFU "
@@ -6338,7 +6611,8 @@ def main() -> int:
                                    "ring": ring_counts[name],
                                    "mesh": mesh_counts[name],
                                    "ring_train": ring_train_counts[name],
-                                   "tensor": tensor_counts[name]}
+                                   "tensor": tensor_counts[name],
+                                   "pipeline": pipe_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
     for name, row in two_pass_rows.items():
@@ -6354,7 +6628,8 @@ def main() -> int:
                                    "ring": ring_counts[name],
                                    "mesh": mesh_counts[name],
                                    "ring_train": ring_train_counts[name],
-                                   "tensor": tensor_counts[name]}
+                                   "tensor": tensor_counts[name],
+                                   "pipeline": pipe_counts[name]}
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
@@ -6370,7 +6645,8 @@ def main() -> int:
                     "hfta": hfta_info,
                     "parallel": {"ring": ring_info, "mesh": mesh_info,
                                  "ring_train": ring_train_info,
-                                 "tensor": tensor_info},
+                                 "tensor": tensor_info,
+                                 "pipeline": pipe_info},
                     "checkpoint": ckpt_info,
                     "cnn_serve": cnn_serve_info,
                     "cnn_train": cnn_train_info}))

@@ -27,7 +27,12 @@ the trainer has wrapped it, FSDP2's shards of those over ``fsdp``.
 slices (FSDP2 then shards them as it wraps the model, and a checkpoint
 restore places both, runtime/checkpoint.py); ``whole_parameters`` and
 ``params_to_jax`` gather the shares back into whole weights, a
-collective that every rank of the mesh calls.
+collective that every rank of the mesh calls.  A pipeline stage
+(parallel/pipeline.py) holds the rows [p L/S, (p + 1) L/S) of every
+stacked layer leaf: ``load_params`` gives it those rows of the whole
+tree, ``param_tree`` returns its own, and ``whole_parameters`` and
+``params_to_jax`` gather every stage's layers into the whole ``[L, ...]``
+stack, in stage order, on every rank.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 
 from kubeflow_tpu_torch.models.transformer import Transformer
 from kubeflow_tpu_torch.ops.quantize import QTensor
+from kubeflow_tpu_torch.parallel import pipeline
 from kubeflow_tpu_torch.parallel import tensor as tp
 
 _LAYER_LEAVES = (
@@ -97,8 +103,10 @@ def load_params(model: Transformer, params: Dict[str, Any]) -> Transformer:
     same name, which ``model.to()`` does not move: stage such a tree on
     its device first (``params_to_device``).  A model whose parameters
     are slices over ``tensor`` takes the whole leaves and keeps its own
-    slices of them (an int8 ``QTensor`` with its scale)."""
+    slices of them (an int8 ``QTensor`` with its scale); a pipeline
+    stage keeps its rows of the whole stack (``cfg.n_layers`` of them)."""
     n = model.cfg.n_layers
+    stage = getattr(model, "stage", None)
     state = {"embed": params["embed"],
              "final_norm.scale": params["final_norm"]["scale"]}
     if not model.cfg.tied_embeddings:
@@ -111,6 +119,7 @@ def load_params(model: Transformer, params: Dict[str, Any]) -> Transformer:
                              f"layers, config has {n}")
         for i in range(n):
             state[f"layers.{i}.{outer}.{inner}"] = stacked[i]
+    state = pipeline.stage_named(state, stage)
     expected = dict(model.named_parameters())
     slices = {name: tp.shard_of(p) for name, p in expected.items()}
     for name, shard in slices.items():
@@ -131,7 +140,9 @@ def load_params(model: Transformer, params: Dict[str, Any]) -> Transformer:
         setattr(module, leaf, state.pop(name))
     model.load_state_dict(state, strict=True, assign=True)
     for name, param in model.named_parameters():
-        tp.mark(param, slices[name])  # assign=True made new parameters
+        # assign=True made new parameters.
+        tp.mark_stage(tp.mark(param, slices[name]), tp.stage_of(
+            expected[name]))
     return model
 
 
@@ -139,7 +150,7 @@ def param_tree(model: Transformer) -> Dict[str, Any]:
     """The model's own weights (parameters, or the int8 ``QTensor``s a
     served model holds in their place) as the nested tree ``load_params``
     takes, layer leaves stacked ``[L, ...]`` on the model's device (a
-    copy); this rank's slices under a mesh."""
+    copy); this rank's slices and stage's layers under a mesh."""
 
     def stack(leaves):
         if isinstance(leaves[0], QTensor):
@@ -175,9 +186,12 @@ def _whole(param: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 
 def whole_parameters(model: Transformer) -> Dict[str, torch.Tensor]:
-    """Every parameter by name, whole (gathered over the mesh: every rank
+    """Every parameter of the whole model by name (every stage's layers
+    under their global names), whole (gathered over the mesh: every rank
     calls it), on its own device."""
-    return {name: _whole(p, p) for name, p in model.named_parameters()}
+    return pipeline.whole_named(
+        {name: _whole(p, p) for name, p in model.named_parameters()},
+        getattr(model, "stage", None))
 
 
 def params_to_jax(model: Transformer, *, grads: bool = False
@@ -206,9 +220,14 @@ def params_to_jax(model: Transformer, *, grads: bool = False
     }
     if model.w_out is not None:
         out["w_out"] = host(model.w_out)
+    stage = getattr(model, "stage", None)
     for outer, inner in _layer_leaves(model):
-        leaves = [getattr(getattr(block, outer), inner)
-                  for block in model.layers]
-        out["layers"].setdefault(outer, {})[inner] = np.stack(
-            [host(t) for t in leaves])
+        mine = np.stack([host(getattr(getattr(block, outer), inner))
+                         for block in model.layers])
+        if stage is not None:
+            # Every stage's rows, in stage order.
+            mine = np.concatenate([
+                part.numpy() for part in pipeline.gather(
+                    torch.from_numpy(mine), stage.group)])
+        out["layers"].setdefault(outer, {})[inner] = mine
     return out

@@ -16,9 +16,8 @@ output and the MLP output of every block in a forward with
 ``generator``, two per layer, before the layer runs: the checkpointed
 regions take them as inputs, so a recompute under remat applies the same
 masks (``torch.utils.checkpoint`` restores only the default generators).
-Pipeline microbatching raises ``NotPortedError`` until GPipe lands
-(ROADMAP queue 1, item 20).  ``flash_block_diag > 0`` selects the
-two-pass causal flash forward (ops/flash.py).
+``flash_block_diag > 0`` selects the two-pass causal flash forward
+(ops/flash.py).
 
 Under a mesh (``Transformer(cfg, mesh=...)``, a ``DeviceMesh`` from
 parallel/mesh.py) each rank runs the model on its local shard of the
@@ -55,6 +54,23 @@ with no reduce, and with fewer kv heads than ranks each rank's q heads
 read their own kv heads (``Attention.local_kv``).  ``out_local`` and
 ``down_local`` are the partial sums before the reduce, to which decode
 adds the row-parallel adapter deltas (models/generate.py).
+
+With ``pipeline`` above 1 (parallel/pipeline.py, GPipe) each rank draws
+the whole weights from the generator, as one device does, and keeps its
+stage's ``n_layers / pipeline`` blocks: stage p holds layers [p L/S,
+(p + 1) L/S) as its ``layers.0 ...``, and ``stage`` (a ``Stage``, also
+marked on each of their parameters) maps them to the global stack for
+``param_logical_axes``' callers, the weight bridge and checkpoints.  The
+embedding, final norm and unembed are whole on every stage, as in JAX.
+The forward embeds the tokens on every stage, runs ``pipelined_scan``
+over the local blocks with ``cfg.pipeline_microbatches`` microbatches of
+the local batch (one when it is 0: the stages run one after another),
+and returns the same logits on every stage.  Remat, ring attention over
+the stage's ``sequence`` group, ``tensor`` > 1 and the two-pass forward
+run inside the stage's blocks as without a pipeline; under FSDP2 each
+block reduces its gradient once a step, after the last microbatch's
+backward.  Dropout (at 0 microbatches only, as in JAX) draws every
+layer's masks in layer order, as one device does, and keeps the stage's.
 
 Remat (``cfg.remat``) checkpoints each block with ``torch.utils.checkpoint``
 under the JAX package's policies (``_remat_policy``).  With flash attention
@@ -106,8 +122,15 @@ from kubeflow_tpu_torch.parallel.mesh import (
     TENSOR,
     axis_sizes,
     batch_group,
+    pipeline_stage,
     sharded_dim,
     tensor_shard,
+)
+from kubeflow_tpu_torch.parallel.pipeline import (
+    Stage,
+    microbatch,
+    pipelined_scan,
+    unmicrobatch,
 )
 from kubeflow_tpu_torch.runtime import member_map
 
@@ -183,18 +206,25 @@ class TransformerConfig:
 
 
 def _unsupported(cfg: TransformerConfig, mesh) -> Optional[str]:
-    if cfg.pipeline_microbatches > 0:
-        return ("pipeline_microbatches > 0 (GPipe, ROADMAP queue 1 item "
-                "20)")
     if mesh is None:
         return None
-    sizes = axis_sizes(mesh)
-    if sizes[PIPELINE] > 1:
-        return "a mesh with pipeline > 1 (GPipe, ROADMAP queue 1 item 20)"
-    if sizes[EXPERT] > 1 or cfg.moe_experts > 0:
+    if axis_sizes(mesh)[EXPERT] > 1 or cfg.moe_experts > 0:
         return ("MoE or a mesh with expert > 1 (MoE's expert axis, ROADMAP "
                 "queue 1 item 21)")
     return None
+
+
+def _stage(cfg: TransformerConfig, mesh) -> Optional[Stage]:
+    """This rank's pipeline ``Stage`` of the layer stack, or None when the
+    mesh has no ``pipeline`` axis above 1."""
+    index, count = pipeline_stage(mesh)
+    if count == 1:
+        return None
+    if cfg.n_layers % count:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by "
+                         f"pipeline={count} stages")
+    return Stage(index, count, cfg.n_layers // count,
+                 mesh.get_group(PIPELINE))
 
 
 def _sequence_shard(mesh) -> Tuple[int, int]:
@@ -625,10 +655,17 @@ class Transformer(nn.Module):
             device = resolve_device(device)
         self.cfg = cfg
         self.mesh = mesh
+        self.stage = _stage(cfg, mesh)
         self.embed = _param((cfg.vocab_size, cfg.d_model), generator, device,
                             init="embed")
-        self.layers = nn.ModuleList(
-            Block(cfg, generator, device, mesh) for _ in range(cfg.n_layers))
+        # Every block is drawn, in layer order, as one device draws them;
+        # a pipeline stage keeps its own.
+        blocks = [Block(cfg, generator, device, mesh)
+                  for _ in range(cfg.n_layers)]
+        if self.stage is not None:
+            blocks = blocks[self.stage.offset:
+                            self.stage.offset + self.stage.layers]
+        self.layers = nn.ModuleList(blocks)
         self.final_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
         self.w_out = None
         if not cfg.tied_embeddings:
@@ -637,6 +674,8 @@ class Transformer(nn.Module):
         self._vocab = None
         if tensor > 1:
             self._split_over_tensor()
+        for param in self.layers.parameters():
+            tp.mark_stage(param, self.stage)
 
     def _split_over_tensor(self) -> None:
         """Keep this rank's slice of every parameter whose logical axes
@@ -668,6 +707,45 @@ class Transformer(nn.Module):
             kv_heads = heads // (cfg.n_heads // cfg.n_kv_heads)
             for block in self.layers:
                 block.attn.kv_heads = kv_heads
+
+    def _pipelined(self, x: torch.Tensor, positions: torch.Tensor,
+                   drop: bool, generator) -> torch.Tensor:
+        """The stage's blocks under the GPipe schedule: x [b, s, e] ->
+        the last stage's output [b, s, e] on every stage."""
+        cfg, stage = self.cfg, self.stage
+        n_micro = max(cfg.pipeline_microbatches, 1)
+        if x.shape[0] % n_micro:
+            raise ValueError(f"batch {x.shape[0]} not divisible by "
+                             f"pipeline_microbatches={n_micro}")
+        masks = [None] * stage.layers
+        if drop:
+            # Every layer's pair in layer order (one microbatch: dropout
+            # needs pipeline_microbatches=0), as one device draws them.
+            for layer in range(cfg.n_layers):
+                pair = tuple(rank_dropout_mask(x.shape, cfg.dropout_rate,
+                                               generator, x.device,
+                                               self.mesh)
+                             for _ in range(2))
+                if 0 <= layer - stage.offset < stage.layers:
+                    masks[layer - stage.offset] = pair
+        pos = positions[:x.shape[0] // n_micro]
+
+        def stage_fn(act):
+            for block, pair in zip(self.layers, masks):
+                act, _ = block(act, pos, None, pair)
+            return act
+
+        out = pipelined_scan(stage_fn, microbatch(x, n_micro), stage.group,
+                             gradient_sync=self._gradient_sync)
+        return unmicrobatch(out)
+
+    def _gradient_sync(self, flag: bool) -> None:
+        """Turn FSDP2's gradient reduction of the stage's blocks on or off
+        (``pipelined_scan``'s ``gradient_sync``; nothing without FSDP2)."""
+        for block in self.layers:
+            sync = getattr(block, "set_requires_gradient_sync", None)
+            if sync is not None:
+                sync(flag)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         if self._vocab is not None:
@@ -716,6 +794,10 @@ class Transformer(nn.Module):
         if drop and generator is None:
             raise ValueError("dropout (deterministic=False, dropout_rate "
                              f"{rate}) needs a generator")
+        if self.stage is not None and (positions is not None
+                                       or segment_ids is not None):
+            raise ValueError("the pipelined layer stack supports only "
+                             "default positions and no segment_ids")
         if positions is None:
             # Global positions: this sequence shard starts at r * s_local.
             rank, _ = _sequence_shard(self.mesh)
@@ -725,17 +807,21 @@ class Transformer(nn.Module):
                 device=tokens.device).expand(tokens.shape)
         x = self.embed_tokens(tokens)
         aux = None
-        for block in self.layers:
-            masks = None
-            if drop:
-                # Drawn here, outside the checkpointed regions (see the
-                # module docstring); each layer gets its own pair.
-                masks = tuple(rank_dropout_mask(x.shape, rate, generator,
-                                                x.device, self.mesh)
-                              for _ in range(2))
-            x, layer_aux = block(x, positions, segment_ids, masks)
-            if layer_aux is not None:
-                aux = layer_aux if aux is None else aux + layer_aux
+        if self.stage is not None:
+            x = self._pipelined(x, positions, drop, generator)
+        else:
+            for block in self.layers:
+                masks = None
+                if drop:
+                    # Drawn here, outside the checkpointed regions (see
+                    # the module docstring); each layer gets its own pair.
+                    masks = tuple(rank_dropout_mask(x.shape, rate,
+                                                    generator, x.device,
+                                                    self.mesh)
+                                  for _ in range(2))
+                x, layer_aux = block(x, positions, segment_ids, masks)
+                if layer_aux is not None:
+                    aux = layer_aux if aux is None else aux + layer_aux
         if return_hidden:
             unembed = self.embed if self.w_out is None else self.w_out
             out = (self._unembed_input(x), unembed.to(self.cfg.dtype))

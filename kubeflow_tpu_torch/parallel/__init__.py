@@ -4,9 +4,9 @@
 ``torch.distributed`` ``DeviceMesh`` (one rank a GPU); ``ring.py`` is
 ring attention over the ``sequence`` axis on the flash kernels;
 ``tensor.py`` holds the collectives of the ``tensor`` axis (Megatron's
-column/row split, the vocab-parallel embedding and cross-entropy).  The
-GPipe schedule (``parallel/pipeline.py`` in JAX) is ROADMAP queue 1 item
-20.
+column/row split, the vocab-parallel embedding and cross-entropy);
+``pipeline.py`` is the GPipe schedule over the ``pipeline`` axis; and
+``p2p.py`` the point-to-point transfers the ring and the pipeline share.
 """
 
 from kubeflow_tpu_torch.parallel.mesh import (

@@ -17,12 +17,13 @@ returns a ``PartitionSpec`` of the same entries.  ``fsdp_mesh`` is the
 mesh FSDP2 shards over: the ``fsdp`` axis, with the ``data`` and
 ``sequence`` axes, over which parameters are replicated, folded into one
 replicate dim (HSDP) when either is above 1, at this rank's index along
-``tensor`` (and ``pipeline`` and ``expert``): FSDP2 shards and reduces
-within one tensor index, never across them.  ``tensor_shard`` and
-``batch_group`` serve tensor parallelism (parallel/tensor.py): this
-rank's place along ``tensor``, and the group of the ranks that hold other
-rows or positions of the batch (data x fsdp x sequence) at its tensor
-index, over which the loss is summed.
+``tensor``, ``pipeline`` and ``expert``: FSDP2 shards and reduces within
+one tensor index and one stage, never across them.  ``tensor_shard`` and
+``pipeline_stage`` are this rank's place along ``tensor`` and
+``pipeline`` (parallel/tensor.py, parallel/pipeline.py), and
+``batch_group`` the group of the ranks that hold other rows or positions
+of the batch (data x fsdp x sequence) at its tensor and pipeline
+indices, over which the loss is summed.
 """
 
 from __future__ import annotations
@@ -197,8 +198,9 @@ def fsdp_mesh(mesh, timeout_s: float = DEFAULT_TIMEOUT_S):
     ``data`` and ``sequence`` axes are both 1, else 2-D ``("replicate",
     "fsdp")`` with the ranks of ``data`` x ``sequence`` as the replicate
     dim (HSDP: gradients reduce-scattered over fsdp, all-reduced over
-    replicate), at this rank's ``tensor`` index: ranks of different
-    tensor indices hold different slices and are never joined.  A
+    replicate), at this rank's ``tensor`` and ``pipeline`` indices: ranks
+    of different tensor indices hold different slices, and ranks of
+    different stages different layers, and are never joined.  A
     collective: every rank calls it once per mesh, and the result is
     kept on the mesh."""
     cached = getattr(mesh, "_kft_fsdp_mesh", None)
@@ -234,13 +236,21 @@ def tensor_shard(mesh) -> Tuple[int, int]:
     return mesh.get_local_rank(TENSOR), axis_sizes(mesh)[TENSOR]
 
 
+def pipeline_stage(mesh) -> Tuple[int, int]:
+    """(this rank's stage, stages) along ``pipeline``; (0, 1) without a
+    mesh.  The stage's process group is ``mesh.get_group(PIPELINE)``."""
+    if mesh is None or axis_sizes(mesh)[PIPELINE] == 1:
+        return 0, 1
+    return mesh.get_local_rank(PIPELINE), axis_sizes(mesh)[PIPELINE]
+
+
 def batch_group(mesh, timeout_s: float = DEFAULT_TIMEOUT_S):
     """The process group of the ranks that hold other rows or sequence
     positions of the batch than this one (data x fsdp x sequence) at its
-    ``tensor`` index: the loss is summed over it, where a sum over the
-    whole mesh would count each share once per tensor rank.  The world's
-    group when that is every rank.  A collective on first use, kept on
-    the mesh."""
+    ``tensor`` and ``pipeline`` indices: the loss is summed over it,
+    where a sum over the whole mesh would count each share once per
+    tensor rank and once per stage.  The world's group when that is every
+    rank.  A collective on first use, kept on the mesh."""
     cached = getattr(mesh, "_kft_batch_group", None)
     if cached is not None:
         return cached

@@ -28,15 +28,15 @@ hop; the hop's dk / dv fold the head groups back (``_fold_heads``).
 
 Transfers are ``batch_isend_irecv`` to the next rank of the group and
 from the previous one, issued before the hop's kernel runs, so on NCCL
-the next shard moves while the current one is computed.  On a gloo group
-a CUDA tensor is staged through host memory (gloo's point-to-point
-moves host tensors): that is gloo's transport, used when several
-processes share one GPU, not a fallback; NCCL moves device memory.
+the next shard moves while the current one is computed (parallel/p2p.py
+``Rotation``: on a gloo group a CUDA tensor is staged through host
+memory, gloo's transport when several processes share one GPU; NCCL
+moves device memory).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable
 
 import torch
 
@@ -48,16 +48,7 @@ from kubeflow_tpu_torch.ops.flash import (
     repeat_kv,
 )
 from kubeflow_tpu_torch.parallel.mesh import SEQUENCE
-
-
-def _ring_size(group) -> Tuple[int, int]:
-    """(this rank's index, ring size); a ring of one without a process
-    group."""
-    import torch.distributed as dist
-
-    if not dist.is_initialized():
-        return 0, 1
-    return dist.get_rank(group), dist.get_world_size(group)
+from kubeflow_tpu_torch.parallel.p2p import Rotation, rank_and_size
 
 
 def _hop_class(src: int, me: int, causal: bool) -> str:
@@ -66,41 +57,12 @@ def _hop_class(src: int, me: int, causal: bool) -> str:
     return "diag" if src == me else "skip"
 
 
-class _Rotation:
-    """One transfer of ``tensors`` to the next rank of the ring and of
-    the previous rank's into fresh buffers (``step=-1``: to the previous
-    rank, from the next): constructing it issues the transfer, ``wait``
-    returns the received tensors on the senders' device."""
-
-    def __init__(self, tensors: Sequence[torch.Tensor], group,
-                 step: int = 1):
-        import torch.distributed as dist
-
-        me, n = _ring_size(group)
-        self._device = tensors[0].device
-        stage = (self._device.type == "cuda"
-                 and dist.get_backend(group) == "gloo")
-        send = [t.cpu() if stage else t.contiguous() for t in tensors]
-        self._recv = [torch.empty_like(t) for t in send]
-        nxt = dist.get_global_rank(group, (me + step) % n)
-        prv = dist.get_global_rank(group, (me - step) % n)
-        ops = [dist.P2POp(dist.isend, t, nxt, group) for t in send]
-        ops += [dist.P2POp(dist.irecv, t, prv, group) for t in self._recv]
-        self._works = dist.batch_isend_irecv(ops)
-        self._send = send  # alive until the transfer is done
-
-    def wait(self) -> List[torch.Tensor]:
-        for work in self._works:
-            work.wait()
-        return [t.to(self._device, non_blocking=True) for t in self._recv]
-
-
 def from_next_rank(t: torch.Tensor, group) -> torch.Tensor:
     """The next rank's ``t`` along the ring (the first rank's on the
     last): each rank sends its own to the previous one.  lm_task takes
     the first token of the next sequence shard with it, the target of
     its shard's last position."""
-    return _Rotation((t,), group, step=-1).wait()[0]
+    return Rotation((t,), group, step=-1).wait()[0]
 
 
 def _fold_heads(dk: torch.Tensor, hkv: int) -> torch.Tensor:
@@ -123,14 +85,14 @@ def _merge(o_acc, lse_acc, o_p, lse_p):
 def _ring_fwd(q, k, v, group, causal: bool):
     """(o float32 [b, s, h, d], lse [b, h, s]) of the resident queries
     against every kv shard of the ring."""
-    me, n = _ring_size(group)
+    me, n = rank_and_size(group)
     b, s, h, d = q.shape
     o_acc = torch.zeros((b, s, h, d), dtype=torch.float32, device=q.device)
     lse_acc = torch.full((b, h, s), NEG_INF, dtype=torch.float32,
                          device=q.device)
     k_cur, v_cur = k, v
     for step in range(n):
-        rotation = _Rotation((k_cur, v_cur), group) if step < n - 1 \
+        rotation = Rotation((k_cur, v_cur), group) if step < n - 1 \
             else None
         kind = _hop_class((me - step) % n, me, causal)
         if kind != "skip":
@@ -145,7 +107,7 @@ def _ring_fwd(q, k, v, group, causal: bool):
 def _ring_bwd(q, k, v, o, lse, g, group, causal: bool):
     """(dq, dk, dv) in the inputs' dtypes: kv re-rotated with its dk / dv
     accumulators, home after n transfers."""
-    me, n = _ring_size(group)
+    me, n = rank_and_size(group)
     b, s, h, d = q.shape
     hkv = k.shape[2]
     g = g.contiguous()
@@ -155,7 +117,7 @@ def _ring_bwd(q, k, v, o, lse, g, group, causal: bool):
     dv = torch.zeros_like(dk)
     k_cur, v_cur = k, v
     for step in range(n):
-        kv_rotation = _Rotation((k_cur, v_cur), group) if step < n - 1 \
+        kv_rotation = Rotation((k_cur, v_cur), group) if step < n - 1 \
             else None
         kind = _hop_class((me - step) % n, me, causal)
         if kind != "skip":
@@ -166,7 +128,7 @@ def _ring_bwd(q, k, v, o, lse, g, group, causal: bool):
             dk += _fold_heads(dk_p.float(), hkv)
             dv += _fold_heads(dv_p.float(), hkv)
         if n > 1:
-            dk, dv = _Rotation((dk, dv), group).wait()
+            dk, dv = Rotation((dk, dv), group).wait()
         if kv_rotation is not None:
             k_cur, v_cur = kv_rotation.wait()
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -32,12 +32,16 @@ blocks are replicated over the group:
     rank's own slice.
 
 ``TensorShard`` names the share of a whole tensor a rank holds (the dim,
-the rank's index and the count along it, and the ``tensor`` group);
-``mark`` attaches it to a tensor and ``shard_of`` reads it back.  The
-model marks the parameters it splits, the trainer marks FSDP2's
-parameters in their place and the optimizers their moments, so
-checkpoints (runtime/checkpoint.py) and the weight bridge
-(models/convert.py) gather whole tensors and split them again.
+the rank's index and the count along it, and the ``tensor`` group, or
+for adafactor's statistics of a stage's stacked layers the ``pipeline``
+group); ``mark`` attaches it to a tensor and ``shard_of`` reads it back.
+``mark_stage`` and ``stage_of`` do the same with the pipeline ``Stage``
+(parallel/pipeline.py) of a tensor that belongs to one of a stage's
+layers.  The model marks the parameters it splits and its stage's
+layers, the trainer marks FSDP2's parameters in their place and the
+optimizers their moments (``like``), so checkpoints
+(runtime/checkpoint.py) and the weight bridge (models/convert.py) gather
+whole tensors and split them again.
 """
 
 from __future__ import annotations
@@ -48,8 +52,10 @@ from typing import Any, Optional, Tuple
 import torch
 
 from kubeflow_tpu_torch.ops.quantize import QTensor, embed_lookup
+from kubeflow_tpu_torch.parallel.p2p import staged
 
 _ATTR = "_kft_tensor_shard"
+_STAGE_ATTR = "_kft_stage"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,9 +105,22 @@ def shard_of(t: Any) -> Optional[TensorShard]:
     return getattr(t, _ATTR, None)
 
 
+def mark_stage(t: torch.Tensor, stage: Any) -> torch.Tensor:
+    """Attach the pipeline ``Stage`` of the layer ``t`` belongs to (None:
+    nothing) and return ``t``."""
+    if stage is not None:
+        setattr(t, _STAGE_ATTR, stage)
+    return t
+
+
+def stage_of(t: Any) -> Any:
+    """The pipeline ``Stage`` attached to ``t``, or None."""
+    return getattr(t, _STAGE_ATTR, None)
+
+
 def like(t: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
     """``t`` marked as ``source`` is (a moment follows its parameter)."""
-    return mark(t, shard_of(source))
+    return mark_stage(mark(t, shard_of(source)), stage_of(source))
 
 
 def _all_reduce(t: torch.Tensor, group, op=None) -> torch.Tensor:
@@ -146,22 +165,11 @@ def reduce_from_parallel(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     if not torch.is_grad_enabled():
-        if _host_staged(x, group):
+        if staged(x.device, group):
             host = x.to("cpu", memory_format=torch.contiguous_format)
             return _all_reduce(host, group).to(x.device)
         return _all_reduce(x.contiguous().clone(), group)
     return _ReduceFromParallel.apply(x, group)
-
-
-def _host_staged(x: torch.Tensor, group) -> bool:
-    """Whether serving's collectives on ``x`` stage it through host memory
-    themselves: a CUDA tensor over a gloo group (several ranks sharing one
-    GPU), where gloo's own CUDA path took 2.15 ms for a [8, 1, 1024]
-    float32 all-reduce against 1.2 ms on host tensors on an H100 at 700 W
-    (PERF.md section 6)."""
-    import torch.distributed as dist
-
-    return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
 def gather_last_dim(x: torch.Tensor, group) -> torch.Tensor:
@@ -174,7 +182,7 @@ def gather_last_dim(x: torch.Tensor, group) -> torch.Tensor:
     import torch.distributed as dist
 
     local = x.to("cpu", memory_format=torch.contiguous_format) \
-        if _host_staged(x, group) else x.contiguous()
+        if staged(x.device, group) else x.contiguous()
     parts = [torch.empty_like(local)
              for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, local, group=group)

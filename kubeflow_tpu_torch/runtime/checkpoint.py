@@ -41,11 +41,18 @@ rank 0's commit (a failure there raises on every rank).  A tensor that
 is one rank's slice over the ``tensor`` axis (its ``TensorShard``,
 parallel/tensor.py: the split weights of a tensor-parallel model and
 their moments) is gathered over its group too, after FSDP2's gather.
-The files are those of a one-device save, each weight whole in the JAX
-layout, so a trainer without a mesh resumes them.  A restore reads the
-full state on every rank and keeps each rank's shards of the sharded
-tensors: its tensor slice first, then its FSDP2 shard of that, so a
-tensor-parallel trainer resumes a save without a mesh too.
+Under ``pipeline`` above 1 each stage holds its own layers (marked with
+their ``Stage``, parallel/pipeline.py): a save gathers every stage's
+layer parameters under their global names and every stage's entries of
+the optimizer's per-parameter lists, in stage order, and adafactor's
+stacked statistics over the pipeline group (their ``TensorShard``); the
+replicated parameters are this rank's.  The files are those of a
+one-device save, each weight whole in the JAX layout, so a trainer
+without a mesh resumes them.  A restore reads the full state on every
+rank and keeps each rank's shards of the sharded tensors: its stage's
+layers, its tensor slice, then its FSDP2 shard of that, so a
+tensor-parallel or pipelined trainer resumes a save without a mesh
+too.
 
 Fault hook sites (testing/faults.py): ``checkpoint.save`` fires in the
 background finalize, between the step's commit and the manifest write (a
@@ -68,6 +75,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from kubeflow_tpu_torch.parallel import pipeline
 from kubeflow_tpu_torch.parallel import tensor as tp
 from kubeflow_tpu_torch.runtime.prom import REGISTRY
 from kubeflow_tpu_torch.testing import faults
@@ -242,8 +250,10 @@ def _encode(obj: Any) -> Any:
             obj = shard.gather(obj)
         return obj.to("cpu", copy=True)
     if isinstance(obj, nn.Module):
-        return {k: _encode(v)
-                for k, v in obj.state_dict(keep_vars=True).items()}
+        current = obj.state_dict(keep_vars=True)
+        return pipeline.whole_named({k: _encode(v)
+                                     for k, v in current.items()},
+                                    _stage_of(current.values()))
     if isinstance(obj, torch.Generator):
         return obj.get_state()
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
@@ -252,10 +262,17 @@ def _encode(obj: Any) -> Any:
     if isinstance(obj, dict):
         return {k: _encode(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return [_encode(v) for v in obj]
+        return pipeline.whole_list([_encode(v) for v in obj],
+                                   [tp.stage_of(v) for v in obj])
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return obj
     raise TypeError(f"cannot checkpoint a {type(obj).__name__}")
+
+
+def _stage_of(values) -> Any:
+    """The pipeline ``Stage`` marked on any of ``values``, or None."""
+    return next((tp.stage_of(v) for v in values
+                 if tp.stage_of(v) is not None), None)
 
 
 def _decode(template: Any, saved: Any, path: str,
@@ -267,6 +284,8 @@ def _decode(template: Any, saved: Any, path: str,
     changes nothing."""
     if isinstance(template, nn.Module):
         want = template.state_dict(keep_vars=True)
+        if isinstance(saved, dict):
+            saved = pipeline.stage_named(saved, _stage_of(want.values()))
         if not isinstance(saved, dict) or set(saved) != set(want) or any(
                 tuple(saved[k].shape) != _whole_shape(want[k])
                 for k in want):
@@ -300,6 +319,9 @@ def _decode(template: Any, saved: Any, path: str,
         return {k: _decode(template.get(k), v, f"{path}[{k!r}]", later)
                 for k, v in saved.items()}
     if isinstance(template, (list, tuple)):
+        if isinstance(saved, list):
+            saved = pipeline.stage_list(saved, [tp.stage_of(t)
+                                                for t in template])
         if not isinstance(saved, list) or len(saved) != len(template):
             raise ValueError(f"{path}: saved list does not match")
         return type(template)(_decode(t, s, f"{path}[{i}]", later)

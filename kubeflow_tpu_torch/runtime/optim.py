@@ -40,7 +40,13 @@ elementwise arithmetic runs on each shard, and the moments are sharded
 as their parameters are); a parameter that is a slice over ``tensor``
 (parallel/tensor.py) passes its ``TensorShard`` on to its moments.
 adafactor refuses both, as its factored statistics would span the
-sharded dim (ROADMAP queue 1 item 24).
+sharded dim (ROADMAP queue 1 item 24).  Under ``pipeline`` > 1 a stage's
+layered leaves stack its own layers (``leaf_groups`` on its local
+names): their factored statistics are its rows of the whole leaf's (the
+layer dim is never factored at the repo's configurations, and a leaf
+whose would be raises item 24's ``NotPortedError``), marked as such for
+checkpoints, and the block RMS of a leaf sums its squares over the
+stages.
 
 The fused trainer (runtime/hfta.py) steps N members whose leaves and
 states are stacked on a leading member axis.  Its optimizer is
@@ -368,23 +374,31 @@ class Adafactor:
         state = AdafactorState(count=0, v_row={}, v_col={}, v={})
         for leaf, members in self._groups(params).items():
             first = params[members[0]]
+            stage = tp.stage_of(first)
             shape = list(first.shape)
             if members[0].startswith("layers."):
                 shape = [len(members)] + shape
             dims = _factored_dims(shape)
+            if stage is not None:
+                _check_stage_split(leaf, shape, stage)
+            # A stage's statistics are its rows of the whole leaf's.
+            rows = None if stage is None else tp.TensorShard(
+                0, stage.index, stage.count, stage.group)
 
-            def zeros(s):
-                return torch.zeros(s, dtype=torch.float32,
-                                   device=first.device)
+            def zeros(s, marked=True):
+                return tp.mark(torch.zeros(s, dtype=torch.float32,
+                                           device=first.device),
+                               rows if marked else None)
 
             if dims is None:
-                state.v_row[leaf], state.v_col[leaf] = zeros(1), zeros(1)
+                state.v_row[leaf] = zeros(1, marked=False)
+                state.v_col[leaf] = zeros(1, marked=False)
                 state.v[leaf] = zeros(shape)
             else:
                 d1, d0 = dims
                 state.v_row[leaf] = zeros(np.delete(shape, d0).tolist())
                 state.v_col[leaf] = zeros(np.delete(shape, d1).tolist())
-                state.v[leaf] = zeros(1)
+                state.v[leaf] = zeros(1, marked=False)
         return state
 
     def lr(self, count: int) -> float:
@@ -403,12 +417,13 @@ class Adafactor:
             g = _leaf(grads, members)
             p = _leaf(params, members)
             u = self._scaled(leaf, g, state, decay)
+            stage = tp.stage_of(params[members[0]])
             # clip_by_block_rms(1.0): u / max(1, rms(u) / threshold).
-            rms_u = torch.sqrt(torch.mean(u * u))
+            rms_u = _block_rms(u, stage)
             u = u / torch.clamp(rms_u / CLIPPING_THRESHOLD, min=1.0)
             # scale_by_learning_rate, then scale_by_param_block_rms.
             u = u * lr
-            rms_p = torch.sqrt(torch.mean(p * p))
+            rms_p = _block_rms(p, stage)
             u = u * torch.where(rms_p <= MIN_PARAM_SCALE,
                                 torch.full_like(rms_p, MIN_PARAM_SCALE),
                                 rms_p)
@@ -494,6 +509,34 @@ class Adafactor:
         row_factor = torch.rsqrt(v_row / row_col_mean)
         col_factor = torch.rsqrt(v_col)
         return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+
+
+def _check_stage_split(leaf: str, shape: Sequence[int], stage) -> None:
+    """Refuse a stage's share of a stacked leaf whose whole ``[L, ...]``
+    would factor over its layer dim: its statistics would then span the
+    stages.  At the repo's configurations the layer dim is never one of
+    the two largest, so the factored statistics split by layer."""
+    whole = [shape[0] * stage.count] + list(shape[1:])
+    dims = _factored_dims(whole)
+    if dims is not None and 0 in dims:
+        from kubeflow_tpu_torch import NotPortedError
+
+        raise NotPortedError(
+            f"adafactor over pipeline stages for {leaf} {tuple(whole)}, "
+            "whose factored statistics span its layer dim, is not ported "
+            "yet: ROADMAP queue 1 item 24")
+
+
+def _block_rms(t: torch.Tensor, stage) -> torch.Tensor:
+    """sqrt(mean(t * t)) over the whole JAX leaf: ``t`` itself, or with
+    a pipeline ``stage`` every stage's rows of it (a sum of squares over
+    the pipeline group)."""
+    if stage is None:
+        return torch.sqrt(torch.mean(t * t))
+    from kubeflow_tpu_torch.parallel.pipeline import all_reduce
+
+    total = all_reduce(torch.sum(t * t), stage.group)
+    return torch.sqrt(total / (t.numel() * stage.count))
 
 
 def adafactor(learning_rate: ScalarOrSchedule) -> Adafactor:

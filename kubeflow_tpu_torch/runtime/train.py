@@ -4,8 +4,8 @@ port of kubeflow_tpu/runtime/train.py.
 The JAX ``Trainer`` jits one SPMD step over a mesh.  This one runs the
 same step eagerly, on one explicit device or, with ``mesh`` (a
 ``DeviceMesh`` from parallel/mesh.py ``MeshSpec.build``), as one process
-a GPU over the mesh's ``data``, ``fsdp``, ``sequence`` and ``tensor``
-axes.  What carries over unchanged:
+a GPU over the mesh's ``data``, ``fsdp``, ``pipeline``, ``sequence``
+and ``tensor`` axes.  What carries over unchanged:
 
   - the task contract: ``init_fn(generator) -> (model, mutable)`` and
     ``loss_fn(model, mutable, batch, rng) -> (loss, (metrics, mutable))``
@@ -53,9 +53,15 @@ Under a mesh (JAX's ``param_shardings``, ``_opt_shardings`` and
     their number: the reduced gradient is the global loss's, as JAX's
     psum gives it.  The ranks of a tensor group each hold the whole
     gradient of their own slices and of the replicated weights;
+  - with ``pipeline`` above 1 the task's model holds its stage's layers
+    (models/transformer.py, parallel/pipeline.py), and FSDP2 wraps only
+    those, over the stage's own ranks; every stage computes the same
+    loss from the broadcast outputs, so the embedding, final norm and
+    unembed and their gradients are whole and equal on every stage;
   - ``grad_norm`` is the global norm over the shards (squares summed
-    over ``fsdp``, and over ``tensor`` for the tensor slices only), and
-    MFU counts every rank's chip.
+    over ``fsdp``, over ``tensor`` for the tensor slices and over
+    ``pipeline`` for a stage's layers, the rest counted once), and MFU
+    counts every rank's chip.
 
 The optimizer gets the parameters and gradients by name
 (``named_parameters()`` order), which adafactor needs to stack the JAX
@@ -146,13 +152,10 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 def _check_mesh(mesh) -> None:
     """Refuse the axes this port does not train over yet."""
-    sizes = axis_sizes(mesh)
-    for axis, what, item in ((PIPELINE, "GPipe", 20),
-                             (EXPERT, "MoE's expert axis", 21)):
-        if sizes.get(axis, 1) > 1:
-            raise NotPortedError(
-                f"a mesh with {axis} > 1 is not ported yet: {what} is "
-                f"ROADMAP queue 1 item {item}")
+    if axis_sizes(mesh).get(EXPERT, 1) > 1:
+        raise NotPortedError(
+            f"a mesh with {EXPERT} > 1 is not ported yet: MoE's expert "
+            "axis is ROADMAP queue 1 item 21")
 
 
 class _Done:
@@ -184,8 +187,7 @@ class Trainer:
       ``update(grads, state, params)`` (runtime/optim.py).
     mesh / rules: a ``DeviceMesh`` from ``MeshSpec.build`` (every rank
       builds the same trainer and calls it in step) and the logical-axis
-      rule table; a mesh with pipeline or expert above 1 raises
-      ``NotPortedError``.
+      rule table; a mesh with expert above 1 raises ``NotPortedError``.
     """
 
     init_fn: Callable[[torch.Generator], Tuple[nn.Module, Any]]
@@ -241,7 +243,7 @@ class Trainer:
 
         axes_of = getattr(model, "param_logical_axes", dict)()
         names = {id(p): n for n, p in model.named_parameters()}
-        slices = {n: tp.shard_of(p) for n, p in model.named_parameters()}
+        before = dict(model.named_parameters())
 
         def placement(param):
             dim = sharded_dim(axes_of.get(names[id(param)], ()), FSDP,
@@ -253,9 +255,9 @@ class Trainer:
             fully_shard(block, mesh=mesh, shard_placement_fn=placement)
         fully_shard(model, mesh=mesh, shard_placement_fn=placement)
         # FSDP2's parameters replace the model's: they are the same
-        # tensor slices.
+        # tensor slices of the same stage's layers.
         for name, param in model.named_parameters():
-            tp.mark(param, slices[name])
+            tp.like(param, before[name])
 
     def _opt_view(self, named) -> Dict[str, torch.Tensor]:
         """What the optimizer steps: the tensors themselves, or under a
@@ -266,30 +268,35 @@ class Trainer:
             return named
         return {k: tp.like(_local(v), v) for k, v in named.items()}
 
-    def _grad_norm(self, grads, split) -> torch.Tensor:
+    def _grad_norm(self, grads, params) -> torch.Tensor:
         """optax.global_norm of the step's gradients; under a mesh over
-        the shards of every gradient: a sum of squares over ``fsdp``, and
+        the shards of every gradient: a sum of squares over ``fsdp``,
         over ``tensor`` for the gradients whose parameter is a tensor
-        slice (``split``, one flag a gradient), the replicated ones
-        counted once."""
+        slice, and over ``pipeline`` for those of a stage's layers; the
+        replicated ones counted once."""
         sizes = {} if self.mesh is None else axis_sizes(self.mesh)
-        fsdp, tensor = sizes.get(FSDP, 1), sizes.get(TENSOR, 1)
-        if fsdp == 1 and tensor == 1:
+        fsdp, tensor, stages = (sizes.get(FSDP, 1), sizes.get(TENSOR, 1),
+                                sizes.get(PIPELINE, 1))
+        if fsdp == tensor == stages == 1:
             return global_norm([_local(g) for g in grads])
         import torch.distributed as dist
 
         sq = torch.stack(torch._foreach_norm(
             [_local(g).float() for g in grads])) ** 2
-        is_slice = torch.tensor(split, device=sq.device)
-        # [squares of the tensor slices, of the other gradients]
-        sq = torch.stack([torch.where(is_slice, sq, 0).sum(),
-                          torch.where(is_slice, 0, sq).sum()])
+        # Each gradient's squares go to one of four sums: (tensor slice
+        # or not) x (a stage's layer or not).
+        kind = torch.tensor(
+            [2 * (tp.shard_of(p) is not None) + (tp.stage_of(p) is not None)
+             for p in params], device=sq.device)
+        sq = torch.zeros(4, device=sq.device).index_add_(0, kind, sq)
         if fsdp > 1:
             dist.all_reduce(sq, group=self.mesh.get_group(FSDP))
-        if tensor > 1:
-            sliced = sq[0].clone()
-            dist.all_reduce(sliced, group=self.mesh.get_group(TENSOR))
-            return torch.sqrt(sliced + sq[1])
+        for axis, count, over in ((TENSOR, tensor, [2, 3]),
+                                  (PIPELINE, stages, [1, 3])):
+            if count > 1:
+                summed = sq.clone()
+                dist.all_reduce(summed, group=self.mesh.get_group(axis))
+                sq[over] = summed[over]
         return torch.sqrt(sq.sum())
 
     def _step_body(self, state: TrainState, batch: Any
@@ -305,9 +312,8 @@ class Trainer:
             # share of the global loss's, so the sum is wanted.
             (loss * ranks if ranks > 1 else loss).backward()
         grads = self._opt_view((n, p.grad) for n, p in params.items())
-        grad_norm = self._grad_norm(
-            list(grads.values()),
-            [tp.shard_of(p) is not None for p in params.values()])
+        grad_norm = self._grad_norm(list(grads.values()),
+                                    list(params.values()))
         self.tx.update(grads, state.opt_state, self._opt_view(params))
         for p in params.values():
             p.grad = None  # gradients live only inside the step

@@ -8,20 +8,23 @@ kubeflow_tpu/tools/train_lm.py, with the same flags plus ``--device``.
 
 It trains on CUDA unless ``--device cpu`` is given, and an error when
 there is no GPU: on one device, or over a mesh of processes, one GPU
-each, with ``--mesh data=2,fsdp=2,sequence=2,tensor=2`` (parsed as the
-JAX entry point parses it; ``model`` is ``tensor``'s other name) and
-``--attention ring`` for the sequence axis.  A multi-process job is started by the
+each, with ``--mesh data=2,fsdp=2,pipeline=2,sequence=2,tensor=2``
+(parsed as the JAX entry point parses it; ``model`` is ``tensor``'s
+other name), ``--attention ring`` for the sequence axis and
+``--pipeline-microbatches M`` for the pipeline axis (GPipe: each stage
+holds ``n_layers / pipeline`` layers; ``pipeline`` > 1 without it is an
+error, as in JAX).  A multi-process job is started by the
 operator's ``KFT_*`` variables or by ``torchrun`` (runtime/bootstrap.py);
 without ``--mesh`` it is data-parallel over every rank, as the JAX entry
 point's default mesh is, and so is ``--attention ring`` alone.  Each
 rank trains on ``--batch-size-per-device`` rows (the ranks of a
 ``sequence`` group share theirs, each keeping its shard of the
 sequence, and the ranks of a ``tensor`` group theirs, each holding its
-slice of the heads, mlp and vocab), drawn by its (data, fsdp)
-coordinate: KFTR shards ``RecordDataset(...).shard(i, data * fsdp)``, or
-a synthetic stream seeded with i.  The pipeline and expert axes and
-``--pipeline-microbatches`` raise ``NotPortedError`` naming their
-ROADMAP items.  ``--moe-experts N`` (with
+slice of the heads, mlp and vocab, and the ranks of a ``pipeline``
+group theirs, each holding its stage's layers), drawn by its (data,
+fsdp) coordinate: KFTR shards ``RecordDataset(...).shard(i, data *
+fsdp)``, or a synthetic stream seeded with i.  The expert axis raises
+``NotPortedError`` naming its ROADMAP item.  ``--moe-experts N`` (with
 ``--moe-capacity-factor``) trains the mixture-of-experts LM
 (models/moe.py; top-2, the einsum dispatch, as in the JAX entry point).
 ``--optimizer adafactor``, ``--data-files``
@@ -76,14 +79,9 @@ def parse_mesh(flag: str) -> dict:
 def _not_ported(args, mesh_axes: dict) -> str:
     """The first flag this port does not serve yet, with its ROADMAP
     item, or ''."""
-    checks = [
-        (mesh_axes.get("pipeline", 1) > 1 or args.pipeline_microbatches > 0,
-         "--mesh pipeline > 1 and --pipeline-microbatches (GPipe, ROADMAP "
-         "queue 1 item 20)"),
-        (mesh_axes.get("expert", 1) > 1,
-         "--mesh expert > 1 (MoE's expert axis, ROADMAP queue 1 item 21)"),
-    ]
-    return next((what for hit, what in checks if hit), "")
+    if mesh_axes.get("expert", 1) > 1:
+        return "--mesh expert > 1 (MoE's expert axis, ROADMAP queue 1 item 21)"
+    return ""
 
 
 def main(argv=None) -> int:
@@ -154,6 +152,13 @@ def run(argv=None):
         mesh_axes = parse_mesh(args.mesh)
     except ValueError as e:
         ap.error(str(e))
+    if mesh_axes.get("pipeline", 1) > 1 and not args.pipeline_microbatches:
+        # Without microbatches the stages would run one after another on
+        # the whole batch: the pipeline axis would only idle all but one.
+        ap.error("--mesh pipeline>1 requires --pipeline-microbatches>0 "
+                 "(otherwise the pipeline axis is pure overhead: the "
+                 "layer stack is sharded over it but the GPipe schedule "
+                 "never runs)")
     missing = _not_ported(args, mesh_axes)
     if missing:
         raise NotPortedError(f"not ported yet: {missing}")
@@ -204,11 +209,13 @@ def run(argv=None):
         moe_capacity_factor=args.moe_capacity_factor,
         attention=args.attention,
         remat=args.remat, ce_dtype=args.ce_dtype,
+        pipeline_microbatches=args.pipeline_microbatches,
     )
     init_fn, loss_fn = lm_task(cfg, device=device, mesh=mesh)
     # Rows of this rank (one GPU a process), and of the global batch: the
-    # ranks of a sequence group and of a tensor group share their rows,
-    # and only the (data, fsdp) coordinate picks them.
+    # ranks of a sequence group, of a tensor group and of a pipeline
+    # group share their rows, and only the (data, fsdp) coordinate picks
+    # them.
     batch = args.batch_size_per_device
     global_batch = batch * dp_count
     peak = peak_bf16_flops(device)

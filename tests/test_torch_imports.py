@@ -83,6 +83,8 @@ def test_every_port_module_imports():
             "kubeflow_tpu_torch.runtime.member_map",
             "kubeflow_tpu_torch.parallel",
             "kubeflow_tpu_torch.parallel.mesh",
+            "kubeflow_tpu_torch.parallel.p2p",
+            "kubeflow_tpu_torch.parallel.pipeline",
             "kubeflow_tpu_torch.parallel.ring",
             "kubeflow_tpu_torch.parallel.tensor",
             "kubeflow_tpu_torch.runtime.bootstrap",

@@ -4,6 +4,8 @@ Logits of the port's Transformer on bridged weights are held to
 ``Transformer.apply`` at atol=rtol=1e-4 (float32; the port's flash
 attention runs its plain version on CPU, the JAX one its dot path)."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -105,17 +107,22 @@ def test_narrow_params_narrows_exactly_the_contractions():
         == len(CONTRACTIONS)
 
 
-# Pipelining is not ported (GPipe); ring attention is, and needs a mesh,
-# as in the JAX package.
-@pytest.mark.parametrize("option,error,match", [
-    (dict(pipeline_microbatches=2), NotImplementedError, "ROADMAP queue 1 "
-     "item 20"),
-    (dict(attention="ring"), ValueError, "requires a mesh"),
+# Pipelining is ported (GPipe, tests/test_torch_pipeline.py); MoE under a
+# mesh is not, and ring attention needs a mesh, as in the JAX package.
+_ONE_RANK_MESH = types.SimpleNamespace(
+    mesh_dim_names=("data", "fsdp", "pipeline", "expert", "sequence",
+                    "tensor"), shape=(1, 1, 1, 1, 1, 1))
+
+
+@pytest.mark.parametrize("option,mesh,error,match", [
+    (dict(moe_experts=4), _ONE_RANK_MESH, NotImplementedError,
+     "ROADMAP queue 1 item 21"),
+    (dict(attention="ring"), None, ValueError, "requires a mesh"),
 ], ids=["option1", "option2"])
-def test_unsupported_options_raise(option, error, match):
+def test_unsupported_options_raise(option, mesh, error, match):
     cfg = TransformerConfig(dtype=torch.float32, **dict(SMALL, **option))
     with pytest.raises(error, match=match):
-        Transformer(cfg, device="meta")
+        Transformer(cfg, device="meta", mesh=mesh)
 
 
 def test_two_pass_model_matches_jax():

@@ -420,10 +420,13 @@ def test_train_lm_run_returns_the_trainer_and_its_last_metrics():
     assert last["loss"] == trainer.metrics.history[-1]["loss"]
 
 
-# --mesh with data, fsdp, sequence and tensor (model) and --attention ring
-# are ported (tests/test_torch_parallel_train.py); the other axes are not.
+# --mesh with data, fsdp, pipeline (with --pipeline-microbatches), sequence
+# and tensor (model) and --attention ring are ported
+# (tests/test_torch_parallel_train.py, tests/test_torch_pipeline.py); the
+# expert axis is not, alone or beside the others.
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh", "pipeline=2"], 20), (["--pipeline-microbatches", "2"], 20),
+    (["--mesh", "pipeline=2,expert=2", "--pipeline-microbatches", "2"], 21),
+    (["--mesh", "model=2,expert=2"], 21),
     (["--mesh", "expert=2"], 21)], ids=["flag0", "flag1", "flag3"])
 def test_train_lm_not_ported_flags_raise(flag, item):
     with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
@@ -505,9 +508,9 @@ def test_train_lm_runs_on_cuda_unless_asked():
 
 def test_trainer_and_bootstrap_refuse_what_is_not_ported():
     """A mesh with an axis this port does not train over is refused with
-    its ROADMAP item, and one over ``tensor`` is taken; a multi-process
-    job whose rendezvous fails raises (no single-process fallback); a
-    single process needs none."""
+    its ROADMAP item, and one over ``tensor`` or ``pipeline`` is taken; a
+    multi-process job whose rendezvous fails raises (no single-process
+    fallback); a single process needs none."""
     names = ("data", "fsdp", "pipeline", "expert", "sequence", "tensor")
 
     def mesh_of(axis):
@@ -515,12 +518,12 @@ def test_trainer_and_bootstrap_refuse_what_is_not_ported():
             mesh_dim_names=names,
             shape=tuple(2 if n == axis else 1 for n in names))
 
-    for axis, item in (("pipeline", 20), ("expert", 21)):
-        with pytest.raises(NotPortedError, match=f"item {item}"):
-            Trainer(init_fn=None, loss_fn=None, tx=None, device="cpu",
-                    mesh=mesh_of(axis))
-    assert Trainer(init_fn=None, loss_fn=None, tx=None, device="cpu",
-                   mesh=mesh_of("tensor")).mesh is not None
+    with pytest.raises(NotPortedError, match="item 21"):
+        Trainer(init_fn=None, loss_fn=None, tx=None, device="cpu",
+                mesh=mesh_of("expert"))
+    for axis in ("tensor", "pipeline"):
+        assert Trainer(init_fn=None, loss_fn=None, tx=None, device="cpu",
+                       mesh=mesh_of(axis)).mesh is not None
     env = bootstrap.worker_env({"KFT_NUM_PROCESSES": "2",
                                 "KFT_PROCESS_ID": "1",
                                 "KFT_COORDINATOR_ADDRESS": "w-0:1234"})
