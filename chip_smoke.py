@@ -271,7 +271,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      ranks' losses equal, finite and within TENSOR_LOSS_ATOL of phase
      7's; each rank launches exactly 36 each of flash_fwd, flash_dq and
      flash_dkv (one a layer a step), every one at bh 32 (8 rows x 4
-     local heads), and none of the other kernels.  Information only:
+     local heads), and none of the other kernels; the forward and
+     backward at bh 32 against their plain versions within phase 2's
+     bounds.  Information only:
      each rank's step ms and the host time inside its gloo all-reduces
      in that step, a profiled step's busy share, its peak memory, and
      its all-reduces a step with the time of one of [8, 2048, 1024]
@@ -291,6 +293,27 @@ Phases, each fatal on failure (exit code 1, no result line):
      hops and broadcasts, the time it waits on its neighbour beside
      GPipe's bubble share, a profiled step's busy share and its peak
      memory;
+ 7i. MoE over a mesh: tools/train_lm.run on bench.py's lm_moe cell
+     (phase 7c's model) as 2 processes sharing the one GPU over gloo, 3
+     steps each, with --mesh data=2 and adafactor (bench.py's own layout
+     at 2 chips: 4 rows a rank, the aux from the per-expert statistics
+     summed over the data ranks) and with --mesh expert=2 and adamw (2 of
+     the 4 experts a rank, all 8 rows, the partial outputs summed over
+     the expert group).  For each: the ranks' losses equal, finite and
+     within 1e-3 of one process on the same global batch from the same
+     seed; the data job's last moe_aux within 1e-3 (relative) of that
+     process's global one and ten times nearer it than the mean of the
+     ranks' own auxes; the first step's loss, grad_norm and routers'
+     gradient norm within 1e-4 (data) or 3e-3 (expert) relative of that
+     process's; each rank launches exactly 36 each of flash_fwd,
+     flash_dq and flash_dkv (12 a step), at bh 32 (data) or 64
+     (expert), and none of the other kernels; the forward and backward
+     at bh 32 and 64 against their plain versions within phase 2's
+     bounds; the phase within 90 s.  Information only: each
+     rank's step ms, a profiled step's busy share, its gloo all-reduces a
+     step (those over the expert group apart: count, bytes, ms) and its
+     peak memory (the two jobs run side by side), and the mean of
+     per-rank auxes beside the global one;
   8. gradients: one step's gradients of the bf16 model (full width and
      depth, batch 2 x 2048) through the kernels (single pass, then two
      passes) and through the plain versions, each held to a float32 run
@@ -593,6 +616,48 @@ PIPE_WORLD, PIPE_MICRO, PIPE_STEPS, PIPE_TIMEOUT_S = 2, 4, 3, 240
 PIPE_LOCAL_BH = TRAIN_BATCH // PIPE_MICRO * MODEL["n_heads"]
 PIPE_PER_STEP = MODEL["n_layers"] // PIPE_WORLD * PIPE_MICRO
 PIPE_PHASE_S = 90.0
+# Phase 7i: bench.py's lm_moe cell (phase 7c's model: the 188M preset with
+# 4 experts, top-2, capacity 1.25, the einsum dispatch in groups of 128;
+# 8 x 2048, remat, flash, bf16) through train_lm.run over a mesh of
+# MOE_MESH_WORLD processes sharing the GPU over gloo, MOE_MESH_STEPS
+# steps from train_lm's seed and synthetic stream, the two jobs side by
+# side (alone, one after the other, they took 56.5 to 90.6 s as hosts
+# vary, NVIDIA H100 80GB HBM3 at 700 W).  Each job: (its flags
+# beside TRAIN_FLAGS and --moe-experts, the rows a rank).  "data" is
+# bench.py's own layout at 2 chips (MeshSpec(data=n_chips), adafactor):
+# each rank draws its 4 rows; "expert" holds 2 of the 4 experts a rank,
+# every rank the same 8 rows (adamw: adafactor over expert slices is
+# ROADMAP item 24).  Each job's losses must be equal on both ranks and
+# within MOE_MESH_LOSS_ATOL of one process on the same global batch from
+# the same seed, and every rank must launch flash_fwd, flash_dq and
+# flash_dkv once a layer a step at bh (its rows x 8 heads), and the
+# kernels at that bh must agree with their plain versions.  The data
+# job's last moe_aux must be the global one, over all 8 rows: within
+# MOE_MESH_AUX_RTOL (relative) of that process's (a sum over the 12
+# layers, whose inputs the 4-row GEMMs round otherwise) and ten times
+# nearer it than the mean of the ranks' auxes over their own rows.
+# Sound readings (NVIDIA H100 80GB HBM3 at 700 W): 1.5e-4 from the
+# global aux, where that mean stood 7.4e-2 from it.  The phase must end
+# within MOE_MESH_PHASE_S.
+MOE_MESH_WORLD, MOE_MESH_STEPS, MOE_MESH_TIMEOUT_S = 2, 3, 180
+MOE_MESH_LOSS_ATOL, MOE_MESH_AUX_RTOL = 1e-3, 1e-3
+# The first step (before the optimizer moves the router, whose collapse
+# under adamw makes the later losses ride on near ties): its loss,
+# grad_norm and routers' gradient norm, each within the job's
+# MOE_MESH_FIRST_RTOL (relative) of one process's on every rank.  Sound
+# readings (NVIDIA H100 80GB HBM3 at 700 W): data 8.5e-6; expert 9.7e-4
+# on the routers' norm and 3.2e-4 on grad_norm, where each rank's
+# experts' partial output and the einsum dispatch's gradient round to
+# bf16 before the sum over the group.  The aux's share of the routers'
+# gradient counted twice (summed over an expert group of 2) would move
+# that norm by 0.94 (data) and 0.97 (expert), 300 times either bound.
+MOE_MESH_FIRST = ("loss", "grad_norm", "router_grad_norm")
+MOE_MESH_FIRST_RTOL = {"data": 1e-4, "expert": 3e-3}
+MOE_MESH_PHASE_S = 90.0
+MOE_MESH_JOBS = {
+    "data": (["--mesh", "data=2", "--optimizer", "adafactor"], 4),
+    "expert": (["--mesh", "expert=2", "--optimizer", "adamw"], 8),
+}
 # Phases 11-12: the CNN family.  Phase 11 serves these exports through the
 # classifier loader and the MicroBatcher; each model's name, its loader
 # config and its image size (the canonical input of each).
@@ -5170,11 +5235,13 @@ def ring_train_phase(torch, flash, solo_info, workdir: Path):
                       "step_ms": steps_ms, "job_s": job_s}
 
 
-# One rank of the tensor-parallel trainer: tools/train_lm.run with its own
-# metrics file, recording the flash kernels' bh and counting the gloo
-# all-reduces; then one profiled step on a fresh state and the time of
-# one all-reduce of an activation, with its launch counts.
-_TENSOR_TRAIN_RANK = r"""
+# What every rank of phases 7g-7i records: the flash kernels' bh
+# (``shapes``) and each gloo all-reduce's group, bytes and host seconds
+# (``reduces``); ``run_trainer`` is tools/train_lm.run with the rank's own
+# metrics file, after the launch counts and the peak memory are reset,
+# and ``result`` prints the rank's RESULT line.  Each rank is started as
+# ``python -c SCRIPT OUT_DIR STEPS TRAIN_LM_FLAGS...``.
+_RANK_PRELUDE = r"""
 import json, os, sys, time
 import numpy as np
 import torch
@@ -5182,6 +5249,7 @@ import torch.distributed as dist
 from kubeflow_tpu_torch.ops import flash
 from kubeflow_tpu_torch.tools import train_lm
 rank = os.environ["KFT_PROCESS_ID"]
+steps = int(sys.argv[2])
 shapes = set()
 
 
@@ -5194,43 +5262,57 @@ def recorded(fn, kind):
 
 flash.flash_fwd = recorded(flash.flash_fwd, "fwd")
 flash.flash_bwd = recorded(flash.flash_bwd, "bwd")
-reduces = {"calls": 0, "bytes": 0}
-in_reduce = [0.0]
+reduces = []
 all_reduce = dist.all_reduce
 
 
 def counted(t, *args, **kw):
-    reduces["calls"] += 1
-    reduces["bytes"] += t.numel() * t.element_size()
     t0 = time.perf_counter()
     out = all_reduce(t, *args, **kw)
-    in_reduce[0] += time.perf_counter() - t0
+    reduces.append((kw.get("group"), t.numel() * t.element_size(),
+                    time.perf_counter() - t0))
     return out
 
 
 dist.all_reduce = counted
-torch.cuda.reset_peak_memory_stats()
-for key in flash.launch_counts:
-    flash.launch_counts[key] = 0
-trainer = train_lm.run(sys.argv[3:] + [
-    "--metrics-out", f"{sys.argv[1]}/rank{rank}.json"])
-torch.cuda.synchronize()
-launches = dict(flash.launch_counts)
-peak = torch.cuda.max_memory_allocated() / 2 ** 30
-steps = int(sys.argv[2])
-per_step = {k: v / steps for k, v in reduces.items()}
+
+
+def run_trainer():
+    torch.cuda.reset_peak_memory_stats()
+    for key in flash.launch_counts:
+        flash.launch_counts[key] = 0
+    trainer = train_lm.run(sys.argv[3:] + [
+        "--metrics-out", f"{sys.argv[1]}/rank{rank}.json"])
+    torch.cuda.synchronize()
+    return (trainer, dict(flash.launch_counts),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def result(launches, peak, **fields):
+    print("RESULT " + json.dumps(dict(
+        launches=launches, bh=sorted(shapes), peak_gib=peak, **fields)),
+        flush=True)
+"""
+
+# One rank of the tensor-parallel trainer: its gloo all-reduces a step,
+# then one step on a fresh state timed alone and one under
+# torch.profiler, and the time of one all-reduce of an activation.
+_TENSOR_TRAIN_RANK = _RANK_PRELUDE + r"""
+trainer, launches, peak = run_trainer()
+per_step = {"calls": len(reduces) / steps,
+            "bytes": sum(c[1] for c in reduces) / steps}
 from torch.profiler import ProfilerActivity, profile
 state = trainer.create_state(0)
 batch = trainer.shard_batch({"tokens": np.random.RandomState(0).randint(
     0, 32000, size=(8, 2048)).astype(np.int32)})
 step = trainer.compile_step()
 torch.cuda.synchronize()
-in_reduce[0] = 0.0
+first = len(reduces)
 t0 = time.perf_counter()
 state, _ = step(state, batch)
 torch.cuda.synchronize()
 timed_step = (time.perf_counter() - t0) * 1e3
-reduce_in_step = in_reduce[0] * 1e3
+reduce_in_step = sum(c[2] for c in reduces[first:]) * 1e3
 dist.barrier()
 with profile(activities=[ProfilerActivity.CPU,
                          ProfilerActivity.CUDA]) as prof:
@@ -5251,21 +5333,44 @@ for _ in range(5):
     all_reduce(x, group=group)
 torch.cuda.synchronize()
 reduce_ms = (time.perf_counter() - t0) * 1e3 / 5
-print("RESULT " + json.dumps({
-    "launches": launches, "bh": sorted(shapes), "peak_gib": peak,
-    "reduces_per_step": per_step, "reduce_32mb_ms": reduce_ms,
-    "step_ms": timed_step, "in_reduces_ms": reduce_in_step,
-    "profiled_step_ms": wall, "busy_ms": busy or None}), flush=True)
+result(launches, peak, reduces_per_step=per_step, reduce_32mb_ms=reduce_ms,
+       step_ms=timed_step, in_reduces_ms=reduce_in_step,
+       profiled_step_ms=wall, busy_ms=busy or None)
 """
+
+
+def rank_results(results, what: str, want: dict, bh: int):
+    """Each rank's RESULT line of a mesh trainer job (``what`` names it),
+    once every rank has exited 0, launched the kernels ``want`` times and
+    run them at ``bh`` alone."""
+    from kubeflow_tpu_torch.testing.ranks import check_ranks
+
+    try:
+        check_ranks(results)
+    except RuntimeError as e:
+        fail(f"{what} failed: {e}")
+    ranks = [json.loads(next(ln for ln in r.stdout.splitlines()
+                             if ln.startswith("RESULT "))[7:])
+             for r in results]
+    for r, info in enumerate(ranks):
+        log(f"{what} rank {r}: launches {info['launches']} (want {want}); "
+            f"kernel bh {info['bh']} (want {bh})")
+        if info["launches"] != want:
+            fail(f"{what} rank {r} launches {info['launches']}, want {want}")
+        if sorted(info["bh"]) != [["bwd", bh], ["fwd", bh]]:
+            fail(f"{what} rank {r} ran the kernels at bh {info['bh']}, "
+                 f"want {bh}")
+    return ranks
 
 
 def tensor_train_phase(torch, flash, solo_info, workdir: Path):
     """Phase 7g: tools/train_lm.run with --mesh tensor=TENSOR_WORLD as
     TENSOR_WORLD processes on the one GPU over gloo: the ranks' losses
     equal, finite and near phase 7's; each rank's kernels one a layer a
-    step at bh TENSOR_LOCAL_BH.  Information: a profiled step, peak
-    memory and the gloo all-reduces of each rank."""
-    from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
+    step at bh TENSOR_LOCAL_BH; the kernels at that shape against their
+    plain versions.  Information: a profiled step, peak memory and the
+    gloo all-reduces of each rank."""
+    from kubeflow_tpu_torch.testing.ranks import run_ranks
 
     out = workdir / "tensor_train"
     out.mkdir()
@@ -5280,27 +5385,10 @@ def tensor_train_phase(torch, flash, solo_info, workdir: Path):
         cwd=str(Path(__file__).resolve().parent),
         env=dict(os.environ, KFT_DIST_BACKEND="gloo"))
     job_s = time.perf_counter() - t0
-    try:
-        check_ranks(results)
-    except RuntimeError as e:
-        fail(f"the tensor-parallel trainer failed: {e}")
-    ranks = [json.loads(next(ln for ln in r.stdout.splitlines()
-                             if ln.startswith("RESULT "))[7:])
-             for r in results]
     want = {k: 0 for k in flash.launch_counts}
     want.update({k: MODEL["n_layers"] * TENSOR_STEPS for k in TRAIN_KERNELS})
-    for r, info in enumerate(ranks):
-        log(f"tensor trainer rank {r}: launches {info['launches']} (want "
-            f"{want['flash_fwd']} of each of {', '.join(TRAIN_KERNELS)}, "
-            f"none of the others); kernel bh {info['bh']} (want "
-            f"{TENSOR_LOCAL_BH})")
-        if info["launches"] != want:
-            fail(f"tensor trainer rank {r} launches {info['launches']}, "
-                 f"want {want}")
-        if sorted(info["bh"]) != [["bwd", TENSOR_LOCAL_BH],
-                                  ["fwd", TENSOR_LOCAL_BH]]:
-            fail(f"tensor trainer rank {r} ran the kernels at bh "
-                 f"{info['bh']}, want {TENSOR_LOCAL_BH}")
+    ranks = rank_results(results, "the tensor trainer", want,
+                         TENSOR_LOCAL_BH)
     histories = [json.loads((out / f"rank{r}.json").read_text())["history"]
                  for r in range(TENSOR_WORLD)]
     losses = [[h["loss"] for h in hist] for hist in histories]
@@ -5319,6 +5407,7 @@ def tensor_train_phase(torch, flash, solo_info, workdir: Path):
         fail(f"tensor trainer losses differ across ranks, are not finite "
              f"or are more than {TENSOR_LOSS_ATOL} from phase 7's: "
              f"{losses}")
+    kernels = path_kernels(torch, flash, TENSOR_LOCAL_BH, "a tensor rank")
     for r, info in enumerate(ranks):
         busy = info["busy_ms"]
         share = ("not measured" if busy is None
@@ -5336,34 +5425,15 @@ def tensor_train_phase(torch, flash, solo_info, workdir: Path):
     launches = {k: sum(info["launches"][k] for info in ranks)
                 for k in flash.launch_counts}
     return launches, {"losses": losses[0], "max_loss_diff": diff,
-                      "step_ms": steps_ms, "job_s": job_s, "ranks": ranks}
+                      "step_ms": steps_ms, "job_s": job_s, "ranks": ranks,
+                      "kernels": kernels}
 
 
-# One rank of the pipelined trainer: tools/train_lm.run with its own
-# metrics file, recording the flash kernels' bh and timing the stage's
-# hops (parallel/p2p.py Send and recv) and the broadcasts of the outputs
-# and of the input gradient; then one profiled step on a fresh state.
-_PIPE_TRAIN_RANK = r"""
-import json, os, sys, time
-import numpy as np
-import torch
-import torch.distributed as dist
-from kubeflow_tpu_torch.ops import flash
+# One rank of the pipelined trainer: the stage's hops (parallel/p2p.py
+# Send and recv) and the broadcasts of the outputs and of the input
+# gradient, timed; then one profiled step on a fresh state.
+_PIPE_TRAIN_RANK = _RANK_PRELUDE + r"""
 from kubeflow_tpu_torch.parallel import p2p
-from kubeflow_tpu_torch.tools import train_lm
-rank = os.environ["KFT_PROCESS_ID"]
-shapes = set()
-
-
-def recorded(fn, kind):
-    def call(q, *args, **kw):
-        shapes.add((kind, q.shape[0]))
-        return fn(q, *args, **kw)
-    return call
-
-
-flash.flash_fwd = recorded(flash.flash_fwd, "fwd")
-flash.flash_bwd = recorded(flash.flash_bwd, "bwd")
 moved = {k: {"calls": 0, "bytes": 0, "s": 0.0}
          for k in ("send", "recv", "broadcast")}
 
@@ -5401,15 +5471,7 @@ class Send(p2p.Send):
 p2p.Send = Send
 p2p.recv = timed("recv", p2p.recv, lambda a, out: size(out))
 p2p.broadcast = timed("broadcast", p2p.broadcast, lambda a, out: size(out))
-torch.cuda.reset_peak_memory_stats()
-for key in flash.launch_counts:
-    flash.launch_counts[key] = 0
-trainer = train_lm.run(sys.argv[3:] + [
-    "--metrics-out", f"{sys.argv[1]}/rank{rank}.json"])
-torch.cuda.synchronize()
-launches = dict(flash.launch_counts)
-peak = torch.cuda.max_memory_allocated() / 2 ** 30
-steps = int(sys.argv[2])
+trainer, launches, peak = run_trainer()
 per_step = {k: {"calls": v["calls"] / steps, "bytes": v["bytes"] / steps,
                 "ms": v["s"] * 1e3 / steps} for k, v in moved.items()}
 from torch.profiler import ProfilerActivity, profile
@@ -5430,22 +5492,20 @@ with profile(activities=[ProfilerActivity.CPU,
     wall = (time.perf_counter() - t0) * 1e3
 busy = sum(e.self_device_time_total for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-print("RESULT " + json.dumps({
-    "launches": launches, "bh": sorted(shapes), "peak_gib": peak,
-    "moved_per_step": per_step, "profiled_step_ms": wall,
-    "profiled_recv_ms": moved["recv"]["s"] * 1e3,
-    "profiled_comm_ms": sum(v["s"] for v in moved.values()) * 1e3,
-    "busy_ms": busy or None}), flush=True)
+result(launches, peak, moved_per_step=per_step, profiled_step_ms=wall,
+       profiled_recv_ms=moved["recv"]["s"] * 1e3,
+       profiled_comm_ms=sum(v["s"] for v in moved.values()) * 1e3,
+       busy_ms=busy or None)
 """
 
 
-def pipeline_kernels(torch, flash):
-    """One stage's kernels at the pipelined path's shape: [PIPE_LOCAL_BH,
-    2048, 128] bf16, one launch of each of the forward and the backward,
-    o and lse against the forward's plain version, dq, dk and dv against
-    the backward's plain version on the kernel's own o and lse, within
-    phase 2's bounds."""
-    bh, d = PIPE_LOCAL_BH, MODEL["head_dim"]
+def path_kernels(torch, flash, bh: int, what: str):
+    """The training kernels at a mesh path's shape (``what`` names it):
+    [bh, 2048, 128] bf16, one launch of each of the forward and the
+    backward, o and lse against the forward's plain version, dq, dk and
+    dv against the backward's plain version on the kernel's own o and
+    lse, within phase 2's bounds."""
+    d = MODEL["head_dim"]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     q, k, v, g = (torch.randn(bh, TRAIN_SEQ, d, device="cuda",
                               generator=gen).bfloat16() for _ in range(4))
@@ -5456,12 +5516,12 @@ def pipeline_kernels(torch, flash):
     torch.cuda.synchronize()
     once = {n: flash.launch_counts[n] - before[n] for n in TRAIN_KERNELS}
     if once != {n: 1 for n in TRAIN_KERNELS}:
-        fail(f"the stage's kernels did not launch once each: {once}")
+        fail(f"{what}'s kernels did not launch once each: {once}")
     qd, kd, vd = q.detach(), k.detach(), v.detach()
     ro, rlse = flash.flash_fwd_reference(qd.float(), kd.float(), vd.float(),
                                          causal=True)
     row = compare_out(torch, "flash_fwd", o.detach(), lse, ro, rlse,
-                      f"one pipeline stage's call at bh {bh}")
+                      f"{what}'s call at bh {bh}")
     worst = {"o": row["rel_err_o"], "lse": row["max_abs_err_lse"]}
     delta = (g.float() * o.detach().float()).sum(-1)
     want = flash.flash_bwd_reference(qd, kd, vd, g, lse.detach(), delta,
@@ -5471,9 +5531,9 @@ def pipeline_kernels(torch, flash):
         rel, mx, ok, finite = _bwd_errors(torch, got, ref)
         worst[name] = rel
         if not (ok and finite and rel <= BWD_REL_TOL):
-            fail(f"the stage's {name} at bh {bh} disagrees with the plain "
+            fail(f"{what}'s {name} at bh {bh} disagrees with the plain "
                  f"version: relative {rel:.3e}, max {mx:.3e}")
-    log(f"pipeline stage kernels at bh {bh}: o relative {worst['o']:.3e}, "
+    log(f"{what}'s kernels at bh {bh}: o relative {worst['o']:.3e}, "
         f"lse {worst['lse']:.3e}, dq {worst['dq']:.3e}, dk "
         f"{worst['dk']:.3e}, dv {worst['dv']:.3e} (bounds {O_REL_TOL}, "
         f"{LSE_ATOL}, {BWD_REL_TOL})")
@@ -5491,7 +5551,7 @@ def pipeline_train_phase(torch, flash, solo_info, workdir: Path):
     shape against their plain versions.  Information: each rank's step,
     its hops and broadcasts, the time it waits on its neighbour, a
     profiled step's busy share and its peak memory."""
-    from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
+    from kubeflow_tpu_torch.testing.ranks import run_ranks
 
     t_phase = time.perf_counter()
     out = workdir / "pipeline_train"
@@ -5508,28 +5568,11 @@ def pipeline_train_phase(torch, flash, solo_info, workdir: Path):
         cwd=str(Path(__file__).resolve().parent),
         env=dict(os.environ, KFT_DIST_BACKEND="gloo"))
     job_s = time.perf_counter() - t0
-    try:
-        check_ranks(results)
-    except RuntimeError as e:
-        fail(f"the pipelined trainer failed: {e}")
-    ranks = [json.loads(next(ln for ln in r.stdout.splitlines()
-                             if ln.startswith("RESULT "))[7:])
-             for r in results]
+    # A stage's layers x the microbatches x the steps.
     want = {k: 0 for k in flash.launch_counts}
     want.update({k: PIPE_PER_STEP * PIPE_STEPS for k in TRAIN_KERNELS})
-    for r, info in enumerate(ranks):
-        log(f"pipeline trainer rank {r}: launches {info['launches']} (want "
-            f"{want['flash_fwd']} of each of {', '.join(TRAIN_KERNELS)}: "
-            f"{MODEL['n_layers'] // PIPE_WORLD} layers x {PIPE_MICRO} "
-            f"microbatches x {PIPE_STEPS} steps; none of the others); "
-            f"kernel bh {info['bh']} (want {PIPE_LOCAL_BH})")
-        if info["launches"] != want:
-            fail(f"pipeline trainer rank {r} launches {info['launches']}, "
-                 f"want {want}")
-        if sorted(info["bh"]) != [["bwd", PIPE_LOCAL_BH],
-                                  ["fwd", PIPE_LOCAL_BH]]:
-            fail(f"pipeline trainer rank {r} ran the kernels at bh "
-                 f"{info['bh']}, want {PIPE_LOCAL_BH}")
+    ranks = rank_results(results, "the pipeline trainer", want,
+                         PIPE_LOCAL_BH)
     histories = [json.loads((out / f"rank{r}.json").read_text())["history"]
                  for r in range(PIPE_WORLD)]
     losses = [[h["loss"] for h in hist] for hist in histories]
@@ -5546,7 +5589,7 @@ def pipeline_train_phase(torch, flash, solo_info, workdir: Path):
             and diff <= MESH_LOSS_ATOL):
         fail(f"pipeline trainer losses differ across ranks, are not finite "
              f"or are more than {MESH_LOSS_ATOL} from phase 7's: {losses}")
-    kernels = pipeline_kernels(torch, flash)
+    kernels = path_kernels(torch, flash, PIPE_LOCAL_BH, "a pipeline stage")
     bubble = (PIPE_WORLD - 1) / (PIPE_MICRO + PIPE_WORLD - 1)
     for r, info in enumerate(ranks):
         busy = info["busy_ms"]
@@ -5580,6 +5623,300 @@ def pipeline_train_phase(torch, flash, solo_info, workdir: Path):
                       "step_ms": steps_ms, "job_s": job_s, "ranks": ranks,
                       "kernels": kernels, "bubble": bubble,
                       "phase_s": phase_s}
+
+
+# One rank of a mesh MoE trainer: the first step's loss, grad_norm,
+# moe_aux and routers' gradient norm (read from the step's gradients as
+# the optimizer takes them), its all-reduces (those over the expert group
+# apart), its last step under torch.profiler.
+_MOE_MESH_RANK = _RANK_PRELUDE + r"""
+from torch.profiler import ProfilerActivity, profile
+from kubeflow_tpu_torch.runtime.train import Trainer
+body, view = Trainer._step_body, Trainer._opt_view
+profiled, first, seen = {}, {}, [0]
+
+
+def opt_view(self, named):
+    # The first step's first view is of its gradients.
+    named = view(self, named)
+    if seen[0] == 1 and "router_grad_norm" not in first:
+        first["router_grad_norm"] = sum(
+            float(getattr(g, "to_local", lambda: g)().float().square().sum())
+            for n, g in named.items() if n.endswith("moe.router")) ** 0.5
+    return named
+
+
+def step_body(self, state, batch):
+    seen[0] += 1
+    if seen[0] < steps:
+        state, m = body(self, state, batch)
+        if seen[0] == 1:
+            first.update({k: float(m[k])
+                          for k in ("loss", "grad_norm", "moe_aux")})
+        return state, m
+    torch.cuda.synchronize()
+    # Device activity only: host-op tracing of the step's thousands of
+    # launches would take longer than the step.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = body(self, state, batch)
+        torch.cuda.synchronize()
+        profiled["wall"] = (time.perf_counter() - t0) * 1e3
+    profiled["busy"] = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return out
+
+
+Trainer._step_body, Trainer._opt_view = step_body, opt_view
+trainer, launches, peak = run_trainer()
+sizes = dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape))
+
+
+def ranks_of(group):
+    return dist.get_process_group_ranks(
+        dist.group.WORLD if group is None else group)
+
+
+# The expert group's ranks (the world's group stands for it when it is
+# every rank).
+expert = (ranks_of(trainer.mesh.get_group("expert"))
+          if sizes["expert"] > 1 else None)
+
+
+def summary(picked):
+    return {"calls": len(picked) / steps,
+            "bytes": sum(c[1] for c in picked) / steps,
+            "ms": sum(c[2] for c in picked) * 1e3 / steps}
+
+
+result(launches, peak, last=trainer.last_metrics, first=first,
+       reduces_per_step={"all": summary(reduces), "expert": summary(
+           [c for c in reduces if ranks_of(c[0]) == expert])},
+       profiled_step_ms=profiled["wall"], busy_ms=profiled["busy"] or None)
+"""
+
+
+def moe_mesh_reference(torch, job: str, rows: int):
+    """One process on the global batch that job ``job``'s ranks draw
+    (train_lm's synthetic stream: rank d's rows from RandomState(d),
+    ``rows`` of them a step), from train_lm's seed and optimizer: the
+    losses and moe_aux of MOE_MESH_STEPS steps, the first step's
+    grad_norm and routers' gradient norm, how far that norm would move
+    with the aux's share of it counted twice, and for the data job the
+    mean of the two ranks' auxes over their own rows alone on the last
+    step's weights (what a per-rank aux would give)."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig,
+        lm_task,
+    )
+    from kubeflow_tpu_torch.runtime import optim
+    from kubeflow_tpu_torch.runtime.train import Trainer
+
+    cfg = TransformerConfig(**dict(MODEL, **MOE, max_seq_len=TRAIN_SEQ,
+                                   dtype=torch.bfloat16, remat=True))
+    init_fn, loss_fn = lm_task(cfg, device="cuda")
+    tx = optim.adafactor(1e-3) if job == "data" else optim.adamw(1e-3)
+    trainer = Trainer(init_fn=init_fn, loss_fn=loss_fn, tx=tx,
+                      device="cuda")
+    state = trainer.create_state(0)
+    step = trainer.compile_step()
+    dp = MOE_MESH_WORLD if job == "data" else 1
+    streams = [np.random.RandomState(d) for d in range(dp)]
+    losses, auxes, local_aux, first = [], [], None, {}
+    for i in range(MOE_MESH_STEPS):
+        parts = [r.randint(0, MODEL["vocab_size"], size=(
+            rows, TRAIN_SEQ)).astype(np.int32) for r in streams]
+        batch = trainer.shard_batch({"tokens": np.concatenate(parts)})
+        if i == 0:
+            first = router_gradients(torch, state.params, loss_fn, batch,
+                                     cfg.moe_aux_coef)
+        if dp > 1 and i == MOE_MESH_STEPS - 1:
+            with torch.no_grad():
+                local_aux = sum(float(state.params(
+                    batch["tokens"][d * rows:(d + 1) * rows],
+                    return_aux=True)[1]) for d in range(dp)) / dp
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        auxes.append(float(m["moe_aux"]))
+        if i == 0:
+            first["grad_norm"] = float(m["grad_norm"])
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "auxes": auxes, "local_aux": local_aux,
+            "first": first}
+
+
+def router_gradients(torch, model, loss_fn, batch, coef):
+    """The routers' gradient norm of the loss at ``model``'s weights on
+    ``batch``, and that norm with the aux term's share of the gradient
+    counted twice (what summing the whole-on-every-rank aux gradient over
+    an expert group of 2 would give)."""
+    routers = [p for n, p in model.named_parameters()
+               if n.endswith("moe.router")]
+    with torch.enable_grad():
+        loss, _ = loss_fn(model, {}, batch, None)
+        whole = torch.autograd.grad(loss, routers)
+        aux = model(batch["tokens"], return_aux=True)[1]
+        share = torch.autograd.grad(coef * aux, routers)
+
+    def norm(gs):
+        return float(sum(g.float().square().sum() for g in gs)) ** 0.5
+
+    return {"router_grad_norm": norm(whole), "router_aux_twice": norm(
+        [g + a for g, a in zip(whole, share)])}
+
+
+def moe_mesh_phase(torch, flash, workdir: Path):
+    """Phase 7i: bench.py's lm_moe cell through tools/train_lm.run over
+    each of MOE_MESH_JOBS as MOE_MESH_WORLD processes on the one GPU over
+    gloo (the jobs side by side), each against one process on the same
+    global batch: the ranks' losses equal, finite and within
+    MOE_MESH_LOSS_ATOL of it, the data job's last moe_aux within
+    MOE_MESH_AUX_RTOL of its global one, the first step's loss,
+    grad_norm and routers' gradient norm within the job's
+    MOE_MESH_FIRST_RTOL of its, each rank's kernels once a layer a step
+    at bh (rows x 8 heads) and the kernels at that shape against their
+    plain versions; the phase within MOE_MESH_PHASE_S.  Information:
+    each rank's step ms, a profiled step's busy share, its all-reduces
+    (those over the expert group apart) and its peak memory."""
+    from kubeflow_tpu_torch.testing.ranks import run_ranks
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in flash.launch_counts}
+    info, futures, refs, done = {}, {}, {}, {}
+    torch.cuda.empty_cache()
+
+    def job_ranks(job, flags, rows):
+        out = workdir / f"moe_mesh_{job}"
+        out.mkdir()
+        argv = TRAIN_FLAGS + ["--moe-experts", str(MOE["moe_experts"]),
+                              "--batch-size-per-device", str(rows),
+                              "--steps", str(MOE_MESH_STEPS), "--log-every",
+                              "1", "--max-restarts", "0", *flags]
+        results = run_ranks(
+            ["-c", _MOE_MESH_RANK, str(out), str(MOE_MESH_STEPS), *argv],
+            MOE_MESH_WORLD, timeout_s=MOE_MESH_TIMEOUT_S,
+            cwd=str(Path(__file__).resolve().parent),
+            env=dict(os.environ, KFT_DIST_BACKEND="gloo"))
+        done[job] = time.perf_counter() - t_phase
+        return results
+
+    # Both jobs' ranks run side by side (the step is bound by the host's
+    # gloo copies, the device busy a tenth of it), and the one-process
+    # references run here while the ranks start.
+    with ThreadPoolExecutor(len(MOE_MESH_JOBS)) as pool:
+        for job, (flags, rows) in MOE_MESH_JOBS.items():
+            futures[job] = pool.submit(job_ranks, job, flags, rows)
+        for job, (flags, rows) in MOE_MESH_JOBS.items():
+            refs[job] = moe_mesh_reference(torch, job, rows)
+        ref_s = time.perf_counter() - t_phase
+        outcomes = {job: f.result() for job, f in futures.items()}
+    for job, (flags, rows) in MOE_MESH_JOBS.items():
+        out, ref, results = workdir / f"moe_mesh_{job}", refs[job], \
+            outcomes[job]
+        job_s = done[job]
+        bh = rows * MODEL["n_heads"]
+        want = {k: 0 for k in flash.launch_counts}
+        want.update({k: MODEL["n_layers"] * MOE_MESH_STEPS
+                     for k in TRAIN_KERNELS})
+        ranks = rank_results(results, f"the MoE trainer over --mesh "
+                             f"{flags[1]}", want, bh)
+        for rank in ranks:
+            for k in launches:
+                launches[k] += rank["launches"][k]
+        histories = [json.loads((out / f"rank{r}.json").read_text())[
+            "history"] for r in range(MOE_MESH_WORLD)]
+        losses = [[h["loss"] for h in hist] for hist in histories]
+        diff = max(abs(a - b) for a, b in zip(losses[0], ref["losses"]))
+        auxes = [rank["last"]["moe_aux"] for rank in ranks]
+        want_aux = ref["auxes"][-1]
+        aux_rel = abs(auxes[0] - want_aux) / abs(want_aux)
+        local = ("" if ref["local_aux"] is None else
+                 f"; the mean of the ranks' auxes over their own rows alone "
+                 f"would be {ref['local_aux']:.6f} (relative "
+                 f"{abs(ref['local_aux'] - want_aux) / abs(want_aux):.2e})")
+        log(f"MoE --mesh {flags[1]} losses {[round(x, 5) for x in losses[0]]}"
+            f" on every rank: {all(x == losses[0] for x in losses)}; one "
+            f"process's {[round(x, 5) for x in ref['losses']]}: max |diff| "
+            f"{diff:.2e} (bound {MOE_MESH_LOSS_ATOL}); last moe_aux "
+            f"{auxes[0]:.6f} against the global {want_aux:.6f}: relative "
+            f"{aux_rel:.2e} ("
+            + (f"bound {MOE_MESH_AUX_RTOL}" if ref["local_aux"] is not None
+               else "information only") +
+            f"; the reference's auxes {[round(x, 4) for x in ref['auxes']]})"
+            f"{local}; job {job_s:.1f} s beside the other job, both "
+            f"references {ref_s:.1f} s beside the ranks' start")
+        steps_ms = [[h["step_time_s"] * 1e3 for h in hist]
+                    for hist in histories]
+        for r, rank in enumerate(ranks):
+            busy, wall = rank["busy_ms"], rank["profiled_step_ms"]
+            share = "not measured" if busy is None else f"{busy / wall:.3f}"
+            per = rank["reduces_per_step"]
+            log(f"MoE --mesh {flags[1]} rank {r}: steps "
+                f"{[round(x, 1) for x in steps_ms[r]]} ms (the first "
+                f"carries start-up, the last is the profiled one); "
+                f"profiled step {wall:.1f} ms, busy "
+                f"{busy} ms (share {share}), peak {rank['peak_gib']:.2f} "
+                f"GiB; a step's gloo all-reduces {per['all']['calls']:.0f}"
+                f" ({per['all']['bytes'] / 2 ** 20:.1f} MiB, "
+                f"{per['all']['ms']:.1f} ms), over the expert group "
+                f"{per['expert']['calls']:.0f} ("
+                f"{per['expert']['bytes'] / 2 ** 20:.1f} MiB, "
+                f"{per['expert']['ms']:.1f} ms) (both ranks on one GPU "
+                "beside the other job's two, staged through host memory; "
+                "host clock after a sync; information only)")
+        # The first step, before the optimizer has moved the router: the
+        # loss, grad_norm and the routers' gradient norm of every rank
+        # against one process's.  A router gradient whose aux share is
+        # summed over the expert group, or whose other experts' gates are
+        # lost, moves the last of them (the reach below).
+        ref_first = dict(ref["first"], loss=ref["losses"][0])
+        first_rel = max(abs(rank["first"][k] - ref_first[k]) / ref_first[k]
+                        for rank in ranks for k in MOE_MESH_FIRST)
+        reach = (ref_first["router_aux_twice"] / ref_first[
+            "router_grad_norm"] - 1)
+        log(f"MoE --mesh {flags[1]} first step: "
+            + ", ".join(f"{k} {ranks[0]['first'][k]:.6g} against "
+                        f"{ref_first[k]:.6g}" for k in MOE_MESH_FIRST)
+            + f": worst relative {first_rel:.2e} over the ranks (bound "
+            f"{MOE_MESH_FIRST_RTOL[job]}); the aux's share counted twice "
+            f"would move the routers' gradient norm by {reach:.2e}")
+        if not first_rel <= MOE_MESH_FIRST_RTOL[job]:
+            fail(f"MoE --mesh {flags[1]}'s first step is more than "
+                 f"{MOE_MESH_FIRST_RTOL[job]} from one process's: "
+                 f"{[rank['first'] for rank in ranks]}, {ref_first}")
+        kernels = path_kernels(torch, flash, bh, f"an MoE --mesh {flags[1]} "
+                               f"rank")
+        info[job] = {"losses": losses[0], "max_loss_diff": diff,
+                     "aux": auxes[0], "aux_rel": aux_rel,
+                     "first_rel": first_rel, "router_reach": reach,
+                     "reference": ref, "step_ms": steps_ms,
+                     "job_s": job_s, "ref_s": ref_s, "ranks": ranks,
+                     "kernels": kernels}
+        # The data job's aux is the global one: within MOE_MESH_AUX_RTOL
+        # of one process's and ten times nearer it than the mean of the
+        # ranks' own, where a per-rank aux would sit.  The expert job's
+        # ranks hold every row, so its aux is information only.
+        aux_ok = ref["local_aux"] is None or (
+            aux_rel <= MOE_MESH_AUX_RTOL and abs(auxes[0] - want_aux)
+            < abs(ref["local_aux"] - want_aux) / 10)
+        if not (len(losses[0]) == MOE_MESH_STEPS
+                and all(x == losses[0] for x in losses)
+                and all(map(math.isfinite, losses[0] + auxes))
+                and auxes[0] == auxes[1] and diff <= MOE_MESH_LOSS_ATOL
+                and aux_ok):
+            fail(f"MoE --mesh {flags[1]} losses or auxes differ across "
+                 f"ranks, are not finite or are too far from one "
+                 f"process's: {losses}, {auxes}, {ref}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 7i took {phase_s:.1f} s (bound {MOE_MESH_PHASE_S})")
+    if phase_s > MOE_MESH_PHASE_S:
+        fail(f"phase 7i took {phase_s:.1f} s, over {MOE_MESH_PHASE_S}")
+    info["phase_s"] = phase_s
+    return launches, info
 
 
 def profile_step(torch, trainer, state, batch):
@@ -6574,6 +6911,9 @@ def main() -> int:
         pipe_counts, pipe_info = pipeline_train_phase(
             torch, flash, train_info, workdir)
         phase_done("7h pipeline")
+        moe_mesh_counts, moe_mesh_info = moe_mesh_phase(torch, flash,
+                                                        workdir)
+        phase_done("7i MoE mesh")
         log(f"train, single pass + adamw against two-pass + adafactor: "
             f"median step {train_info['step_ms']:.1f} / "
             f"{two_pass_info['step_ms']:.1f} ms, MFU "
@@ -6612,7 +6952,8 @@ def main() -> int:
                                    "mesh": mesh_counts[name],
                                    "ring_train": ring_train_counts[name],
                                    "tensor": tensor_counts[name],
-                                   "pipeline": pipe_counts[name]}
+                                   "pipeline": pipe_counts[name],
+                                   "moe_mesh": moe_mesh_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
     for name, row in two_pass_rows.items():
@@ -6629,7 +6970,8 @@ def main() -> int:
                                    "mesh": mesh_counts[name],
                                    "ring_train": ring_train_counts[name],
                                    "tensor": tensor_counts[name],
-                                   "pipeline": pipe_counts[name]}
+                                   "pipeline": pipe_counts[name],
+                                   "moe_mesh": moe_mesh_counts[name]}
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
@@ -6646,7 +6988,8 @@ def main() -> int:
                     "parallel": {"ring": ring_info, "mesh": mesh_info,
                                  "ring_train": ring_train_info,
                                  "tensor": tensor_info,
-                                 "pipeline": pipe_info},
+                                 "pipeline": pipe_info,
+                                 "moe_mesh": moe_mesh_info},
                     "checkpoint": ckpt_info,
                     "cnn_serve": cnn_serve_info,
                     "cnn_train": cnn_train_info}))

@@ -21,8 +21,9 @@ weights may be int8 ``QTensor``s (ops/quantize.py ``quantize_params``);
 parameters.
 
 A model under a mesh holds shares of the whole weights: its slices over
-``tensor`` (models/transformer.py splits heads, mlp and vocab) and, once
-the trainer has wrapped it, FSDP2's shards of those over ``fsdp``.
+``tensor`` (models/transformer.py splits heads, mlp and vocab) and over
+``expert`` (an MoE model's experts of ``layers/moe/wi`` and ``wo``) and,
+once the trainer has wrapped it, FSDP2's shards of those over ``fsdp``.
 ``load_params`` takes the whole tree and installs the rank's tensor
 slices (FSDP2 then shards them as it wraps the model, and a checkpoint
 restore places both, runtime/checkpoint.py); ``whole_parameters`` and

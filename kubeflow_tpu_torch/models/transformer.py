@@ -72,6 +72,30 @@ block reduces its gradient once a step, after the last microbatch's
 backward.  Dropout (at 0 microbatches only, as in JAX) draws every
 layer's masks in layer order, as one device does, and keeps the stage's.
 
+The MoE LM trains under every axis (models/moe.py's module docstring has
+the layer's side).  With ``expert`` above 1 each rank keeps the experts
+[r E/N, (r + 1) E/N) of every ``moe.wi`` and ``moe.wo`` (and, with
+``tensor`` above 1, its slice of their mlp dim), marked with a chained
+``TensorShard``; the router stays whole.  The ranks of an expert group
+hold the same rows, as those of a tensor group do.  The routing group is
+fitted to the tokens of one routing call over the whole mesh (the
+global batch; under a pipeline a microbatch over data x fsdp, each
+sequence shard routing its own, as JAX's schedule is manual over
+``sequence``) and must tile each rank's own tokens, else the forward
+raises ``NotPortedError`` (ROADMAP queue 1 item 27) before any
+collective.  The aux loss is the global one: its statistics are summed
+over the ranks of other rows and positions, and under a pipeline the
+stages' sum (``pipelined_scan``'s ``with_aux``) is divided by the
+microbatches and averaged over the sequence shards, as JAX's is.  A
+known difference under pipeline x data (or fsdp): each rank microbatches
+its own rows, so the global microbatch m joins every rank's m-th slice
+of its rows, where JAX's is the global rows [m B/M, (m + 1) B/M).  The
+dense loss does not depend on the grouping; the aux, a product of each
+microbatch's means, and its routing groups do, so the port on the
+ranks' rows equals JAX on the global batch reordered to the port's
+microbatches (tests/test_torch_moe_mesh.py's ``moe_pipe8``), not on the
+same global batch.
+
 Remat (``cfg.remat``) checkpoints each block with ``torch.utils.checkpoint``
 under the JAX package's policies (``_remat_policy``).  With flash attention
 and ``save_attn_residuals`` the attention call sits between two
@@ -102,9 +126,13 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.device import resolve_device
-from kubeflow_tpu_torch.models.moe import MoEMLP, default_group_size, fit_divisor
+from kubeflow_tpu_torch.models.moe import (
+    MoEMLP,
+    Spread,
+    default_group_size,
+    fit_divisor,
+)
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 from kubeflow_tpu_torch.ops.flash import flash_attention, make_sharded_flash
 from kubeflow_tpu_torch.ops.quantize import QTensor, embed_lookup, qeinsum
@@ -122,6 +150,8 @@ from kubeflow_tpu_torch.parallel.mesh import (
     TENSOR,
     axis_sizes,
     batch_group,
+    expert_shard,
+    group_over,
     pipeline_stage,
     sharded_dim,
     tensor_shard,
@@ -203,15 +233,6 @@ class TransformerConfig:
         attn = 2 * 2 * self.n_layers * self.n_heads * self.head_dim \
             * self.max_seq_len  # qk^T + av, causal halving ignored
         return float(matmul + attn)
-
-
-def _unsupported(cfg: TransformerConfig, mesh) -> Optional[str]:
-    if mesh is None:
-        return None
-    if axis_sizes(mesh)[EXPERT] > 1 or cfg.moe_experts > 0:
-        return ("MoE or a mesh with expert > 1 (MoE's expert axis, ROADMAP "
-                "queue 1 item 21)")
-    return None
 
 
 def _stage(cfg: TransformerConfig, mesh) -> Optional[Stage]:
@@ -587,6 +608,9 @@ _LOGICAL_AXES: Dict[str, Tuple[Optional[str], ...]] = {
     "attn.wo": ("heads", "kv", "embed"),
     "mlp.wi": (None, "embed", "mlp"),
     "mlp.wo": ("mlp", "embed"),
+    "moe.router": ("embed", "expert"),
+    "moe.wi": ("expert", None, "embed", "mlp"),
+    "moe.wo": ("expert", "mlp", "embed"),
     "scale": ("norm",),
 }
 
@@ -633,10 +657,11 @@ class Transformer(nn.Module):
                  generator: Optional[torch.Generator] = None, mesh=None,
                  replicate_indivisible: bool = False):
         super().__init__()
-        reason = _unsupported(cfg, mesh)
-        if reason is not None:
-            raise NotPortedError(f"not ported yet: {reason}")
         _, tensor = tensor_shard(mesh)
+        _, experts = expert_shard(mesh)
+        if cfg.moe_experts and cfg.moe_experts % experts:
+            raise ValueError(f"moe_experts={cfg.moe_experts} not divisible "
+                             f"by the mesh's expert={experts}")
         if not replicate_indivisible and (cfg.n_heads % tensor
                                           or cfg.n_kv_heads % tensor):
             raise ValueError(
@@ -672,33 +697,53 @@ class Transformer(nn.Module):
             self.w_out = _param((cfg.d_model, cfg.vocab_size), generator,
                                 device)
         self._vocab = None
-        if tensor > 1:
-            self._split_over_tensor()
+        if tensor > 1 or (experts > 1 and cfg.moe_experts):
+            self._split_over_mesh()
+        if mesh is not None and cfg.moe_experts:
+            self._place_moe()
         for param in self.layers.parameters():
             tp.mark_stage(param, self.stage)
 
-    def _split_over_tensor(self) -> None:
+    def _split_over_mesh(self) -> None:
         """Keep this rank's slice of every parameter whose logical axes
-        the rule table places on ``tensor`` (drawn whole, as one device
-        draws them), marked with its ``TensorShard``; set the column/row
-        group of each attention and MLP whose weights were split, and
-        the vocab-parallel lookup's range.  A dim that does not divide
+        the rule table places on ``tensor`` or ``expert`` (drawn whole, as
+        one device draws them), marked with its ``TensorShard`` (an MoE
+        ``wi`` or ``wo`` under both: its experts' slice, then its slice of
+        the mlp dim); set the column/row group of each attention and MLP
+        whose weights were split over ``tensor``, and the vocab-parallel
+        lookup's range.  The MoE router stays whole: every rank routes
+        with all of its columns (JAX splits them over ``expert`` and
+        gathers them for the softmax).  A dim that does not divide
         ``tensor`` (only a served model's, see the class docstring) is
         kept whole."""
-        index, count = tensor_shard(self.mesh)
-        group = self.mesh.get_group(TENSOR)
+        splits = [(axis, *shard_at(self.mesh))
+                  for axis, shard_at in ((EXPERT, expert_shard),
+                                         (TENSOR, tensor_shard))]
         axes_of = self.param_logical_axes()
         for name, param in list(self.named_parameters()):
-            dim = sharded_dim(axes_of[name], TENSOR)
-            if dim is None or param.shape[dim] % count:
+            shard = None
+            for axis, index, count in splits:
+                dim = sharded_dim(axes_of[name], axis)
+                if (count == 1 or dim is None or param.shape[dim] % count
+                        or name.endswith("moe.router")):
+                    continue
+                shard = tp.TensorShard(dim, index, count,
+                                       self.mesh.get_group(axis), axis,
+                                       then=shard)
+            if shard is None:
                 continue
-            shard = tp.TensorShard(dim, index, count, group)
             owner, _, leaf = name.rpartition(".")
             module = self.get_submodule(owner)
             setattr(module, leaf, tp.mark(nn.Parameter(
                 shard.take(param.detach()).contiguous()), shard))
-            if axes_of[name][dim] != "vocab":
-                module.group = group  # an attention's heads, an MLP's
+            dim = sharded_dim(axes_of[name], TENSOR)
+            if (shard.axis == TENSOR and axes_of[name][dim] != "vocab"
+                    and not isinstance(module, MoEMLP)):
+                # An attention's heads, an MLP's hidden units.
+                module.group = self.mesh.get_group(TENSOR)
+        index, count = tensor_shard(self.mesh)
+        if count == 1:
+            return
         self._vocab = _vocab_split(self.mesh, self.cfg.vocab_size)
         cfg = self.cfg
         if cfg.n_heads % count == 0 and cfg.n_kv_heads % count:
@@ -708,10 +753,43 @@ class Transformer(nn.Module):
             for block in self.layers:
                 block.attn.kv_heads = kv_heads
 
+    def _place_moe(self) -> None:
+        """Each MoE layer's place in the mesh (models/moe.py): the spread
+        of the tokens it routes in one call (the batch's data x fsdp x
+        sequence shards; under a pipeline a microbatch's data x fsdp
+        shards, each sequence shard routing its own, as JAX's schedule
+        is manual over ``sequence``), its first expert, the group over
+        which its partial outputs are summed (the axes its ``wi`` is
+        split over) and the groups of those axes alone.  Collectives:
+        every rank builds the same groups in the same order."""
+        mesh, sizes = self.mesh, axis_sizes(self.mesh)
+        if self.stage is None:
+            spread = Spread(sizes[DATA] * sizes[FSDP] * sizes[SEQUENCE],
+                            group_over(mesh, (DATA, FSDP, SEQUENCE)),
+                            within_rows=sizes[SEQUENCE] > 1)
+        else:
+            spread = Spread(sizes[DATA] * sizes[FSDP],
+                            group_over(mesh, (DATA, FSDP)))
+        index, count = expert_shard(mesh)
+        shard = tp.shard_of(self.layers[0].moe.wi) if self.layers else None
+        axes = () if shard is None else shard.axes()
+        groups = [group_over(mesh, over)
+                  for over in (axes, set(axes) & {EXPERT},
+                               set(axes) & {TENSOR})]
+        for block in self.layers:
+            moe = block.moe
+            moe.spread = spread
+            moe.first_expert = index * (self.cfg.moe_experts // count)
+            moe.group, moe.expert_group, moe.tensor_group = groups
+
     def _pipelined(self, x: torch.Tensor, positions: torch.Tensor,
-                   drop: bool, generator) -> torch.Tensor:
+                   drop: bool, generator):
         """The stage's blocks under the GPipe schedule: x [b, s, e] ->
-        the last stage's output [b, s, e] on every stage."""
+        (the last stage's output [b, s, e], the MoE aux or None) on every
+        stage.  The aux is JAX's: each microbatch's blocks sum their aux,
+        ``pipelined_scan`` sums those over the microbatches and stages,
+        and the sum is divided by the microbatches and, under the ring,
+        averaged over the sequence shards (each routed its own tokens)."""
         cfg, stage = self.cfg, self.stage
         n_micro = max(cfg.pipeline_microbatches, 1)
         if x.shape[0] % n_micro:
@@ -729,15 +807,28 @@ class Transformer(nn.Module):
                 if 0 <= layer - stage.offset < stage.layers:
                     masks[layer - stage.offset] = pair
         pos = positions[:x.shape[0] // n_micro]
+        moe = cfg.moe_experts > 0
+        if moe and self.layers:
+            # Every stage refuses a routing group that spans ranks before
+            # the schedule's first transfer, not one stage inside it.
+            self.layers[0].moe.fit(x.shape[0] // n_micro, x.shape[1])
 
         def stage_fn(act):
+            aux = None
             for block, pair in zip(self.layers, masks):
-                act, _ = block(act, pos, None, pair)
-            return act
+                act, part = block(act, pos, None, pair)
+                if part is not None:
+                    aux = part if aux is None else aux + part
+            return (act, aux) if moe else act
 
         out = pipelined_scan(stage_fn, microbatch(x, n_micro), stage.group,
-                             gradient_sync=self._gradient_sync)
-        return unmicrobatch(out)
+                             with_aux=moe, gradient_sync=self._gradient_sync)
+        if not moe:
+            return unmicrobatch(out), None
+        out, aux = out
+        _, shards = _sequence_shard(self.mesh)
+        return unmicrobatch(out), _mean_over(aux / n_micro, shards,
+                                             self.mesh.get_group(SEQUENCE))
 
     def _gradient_sync(self, flag: bool) -> None:
         """Turn FSDP2's gradient reduction of the stage's blocks on or off
@@ -807,8 +898,12 @@ class Transformer(nn.Module):
                 device=tokens.device).expand(tokens.shape)
         x = self.embed_tokens(tokens)
         aux = None
+        if (self.mesh is not None and self.stage is None
+                and self.cfg.moe_experts and self.layers):
+            # Before the first layer's collectives, on every rank alike.
+            self.layers[0].moe.fit(*tokens.shape)
         if self.stage is not None:
-            x = self._pipelined(x, positions, drop, generator)
+            x, aux = self._pipelined(x, positions, drop, generator)
         else:
             for block in self.layers:
                 masks = None
@@ -861,8 +956,10 @@ def lm_task(cfg: TransformerConfig, device=None,
     logits are the rank's vocab slice, and the CE is the vocab-parallel
     one (parallel/tensor.py) on both ``ce_dtype`` values and in the
     chunked path: no rank gathers ``[b, s, vocab]``.  The ranks of a
-    tensor group compute the same share, so the global sum runs over
-    data x fsdp x sequence only (parallel/mesh.py ``batch_group``).
+    tensor group (and of an expert group, or the stages of a pipeline)
+    compute the same share, so the global sum runs over data x fsdp x
+    sequence only (parallel/mesh.py ``batch_group``).  ``moe_aux`` is the
+    global aux on every rank, with the same convention for its gradient.
     """
     vocab = _vocab_split(mesh, cfg.vocab_size)
     # The global loss's group, created here, where every rank builds its
@@ -979,6 +1076,15 @@ def lm_task(cfg: TransformerConfig, device=None,
         return loss, (metrics, {})
 
     return init_fn, loss_fn
+
+
+def _mean_over(share: torch.Tensor, count: int, group) -> torch.Tensor:
+    """The mean of ``share`` over the ``count`` ranks of ``group`` as the
+    value, with ``share / count`` as this rank's gradient (``share``
+    itself when ``count`` is 1)."""
+    if count == 1:
+        return share
+    return _global_loss(share / count, group)
 
 
 def _global_loss(share: torch.Tensor, group) -> torch.Tensor:

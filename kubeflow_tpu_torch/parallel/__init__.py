@@ -7,6 +7,8 @@ ring attention over the ``sequence`` axis on the flash kernels;
 column/row split, the vocab-parallel embedding and cross-entropy);
 ``pipeline.py`` is the GPipe schedule over the ``pipeline`` axis; and
 ``p2p.py`` the point-to-point transfers the ring and the pipeline share.
+The ``expert`` axis is models/moe.py's: each rank holds a share of the
+experts, marked with a ``TensorShard`` as the tensor slices are.
 """
 
 from kubeflow_tpu_torch.parallel.mesh import (

@@ -18,12 +18,14 @@ mesh FSDP2 shards over: the ``fsdp`` axis, with the ``data`` and
 ``sequence`` axes, over which parameters are replicated, folded into one
 replicate dim (HSDP) when either is above 1, at this rank's index along
 ``tensor``, ``pipeline`` and ``expert``: FSDP2 shards and reduces within
-one tensor index and one stage, never across them.  ``tensor_shard`` and
-``pipeline_stage`` are this rank's place along ``tensor`` and
-``pipeline`` (parallel/tensor.py, parallel/pipeline.py), and
-``batch_group`` the group of the ranks that hold other rows or positions
-of the batch (data x fsdp x sequence) at its tensor and pipeline
-indices, over which the loss is summed.
+one tensor index, one stage and one expert index, never across them.
+``tensor_shard``, ``expert_shard`` and ``pipeline_stage`` are this
+rank's place along ``tensor``, ``expert`` and ``pipeline``
+(parallel/tensor.py, models/moe.py, parallel/pipeline.py);
+``group_over`` is the group of the ranks along some axes at this rank's
+index along the others, and ``batch_group`` that of the ranks that hold
+other rows or positions of the batch (data x fsdp x sequence), over
+which the loss and the MoE aux's statistics are summed.
 """
 
 from __future__ import annotations
@@ -244,27 +246,59 @@ def pipeline_stage(mesh) -> Tuple[int, int]:
     return mesh.get_local_rank(PIPELINE), axis_sizes(mesh)[PIPELINE]
 
 
+def expert_shard(mesh) -> Tuple[int, int]:
+    """(this rank's index, size) along ``expert``; (0, 1) without a
+    mesh."""
+    if mesh is None or axis_sizes(mesh)[EXPERT] == 1:
+        return 0, 1
+    return mesh.get_local_rank(EXPERT), axis_sizes(mesh)[EXPERT]
+
+
+def group_over(mesh, axes: Sequence[str],
+               timeout_s: float = DEFAULT_TIMEOUT_S):
+    """The process group of the ranks along ``axes`` at this rank's index
+    along every other axis: None when those axes are all 1 (the rank is
+    alone), the axis's own group when one of them is above 1, the
+    world's when they span every rank.  A collective on first use (every
+    rank asks for the same groups in the same order), kept on the
+    mesh."""
+    sizes = axis_sizes(mesh)
+    key = tuple(a for a in AXIS_ORDER if a in axes and sizes[a] > 1)
+    cache = mesh.__dict__.setdefault("_kft_groups", {})
+    if key in cache:
+        return cache[key]
+    import torch.distributed as dist
+
+    if not key:
+        out = None
+    elif math.prod(sizes[a] for a in key) == mesh.size():
+        out = dist.group.WORLD
+    elif len(key) == 1:
+        out = mesh.get_group(key[0])
+    else:
+        out = _axis_groups(mesh.mesh.to(torch.int),
+                           [AXIS_ORDER.index(a) for a in key],
+                           datetime.timedelta(seconds=timeout_s))
+    cache[key] = out
+    return out
+
+
 def batch_group(mesh, timeout_s: float = DEFAULT_TIMEOUT_S):
     """The process group of the ranks that hold other rows or sequence
     positions of the batch than this one (data x fsdp x sequence) at its
-    ``tensor`` and ``pipeline`` indices: the loss is summed over it,
-    where a sum over the whole mesh would count each share once per
-    tensor rank and once per stage.  The world's group when that is every
-    rank.  A collective on first use, kept on the mesh."""
-    cached = getattr(mesh, "_kft_batch_group", None)
-    if cached is not None:
-        return cached
-    import torch.distributed as dist
+    ``tensor``, ``pipeline`` and ``expert`` indices: the loss is summed
+    over it, where a sum over the whole mesh would count each share once
+    per tensor rank, per stage and per expert rank, which hold the same
+    rows.  The world's group when that is every rank, and the world's
+    too when the rank holds the whole batch alone (a group of one).  A
+    collective on first use, kept on the mesh."""
+    group = group_over(mesh, (DATA, FSDP, SEQUENCE), timeout_s)
+    if group is None:
+        import torch.distributed as dist
 
-    sizes = axis_sizes(mesh)
-    if sizes[DATA] * sizes[FSDP] * sizes[SEQUENCE] == mesh.size():
-        out = dist.group.WORLD
-    else:
-        dims = [AXIS_ORDER.index(a) for a in (DATA, FSDP, SEQUENCE)]
-        out = _axis_groups(mesh.mesh.to(torch.int), dims,
-                           datetime.timedelta(seconds=timeout_s))
-    mesh._kft_batch_group = out
-    return out
+        return dist.group.WORLD if mesh.size() == 1 else \
+            mesh.get_group(DATA)
+    return group
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,9 @@
-"""Point-to-point transfers and broadcasts between the ranks of one
-process group, shared by ring attention (parallel/ring.py) and the GPipe
-schedule (parallel/pipeline.py).
+"""Point-to-point transfers, broadcasts and out-of-place all-reduces
+between the ranks of one process group, shared by ring attention
+(parallel/ring.py), the GPipe schedule (parallel/pipeline.py), the MoE
+layer's global statistics (models/moe.py), adafactor's stage statistics
+(runtime/optim.py) and serving's forward-only reduce
+(parallel/tensor.py).
 
 On a gloo group a CUDA tensor is staged through host memory (``staged``):
 gloo's point-to-point moves host tensors (on the card's torch its CUDA
@@ -106,3 +109,14 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
         else t.detach().contiguous()
     dist.broadcast(buf, dist.get_global_rank(group, src), group=group)
     return buf.to(t.device, non_blocking=True)
+
+
+def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, out of place and outside
+    autograd."""
+    import torch.distributed as dist
+
+    buf = t.detach().to("cpu", memory_format=torch.contiguous_format) \
+        if staged(t.device, group) else t.detach().contiguous().clone()
+    dist.all_reduce(buf, group=group)
+    return buf.to(t.device)

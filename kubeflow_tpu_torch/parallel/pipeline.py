@@ -166,7 +166,7 @@ class _Schedule:
         if self.n > 1:
             ys = p2p.broadcast(ys, self.n - 1, self.group)
             if self.with_aux:
-                aux = all_reduce(aux, self.group)
+                aux = p2p.all_reduce(aux, self.group)
         return ys, aux
 
     def backward(self, g_ys: torch.Tensor, g_aux: Optional[torch.Tensor]
@@ -221,17 +221,6 @@ class _PipelineFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_ys, g_aux):
         return ctx.sched.backward(g_ys.contiguous(), g_aux), None, None
-
-
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``t`` over ``group`` (host-staged on gloo), out of
-    place."""
-    import torch.distributed as dist
-
-    buf = t.detach().cpu() if p2p.staged(t.device, group) \
-        else t.detach().clone()
-    dist.all_reduce(buf, group=group)
-    return buf.to(t.device)
 
 
 # ---------------------------------------------------------------------------

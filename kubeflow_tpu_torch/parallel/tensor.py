@@ -32,9 +32,12 @@ blocks are replicated over the group:
     rank's own slice.
 
 ``TensorShard`` names the share of a whole tensor a rank holds (the dim,
-the rank's index and the count along it, and the ``tensor`` group, or
-for adafactor's statistics of a stage's stacked layers the ``pipeline``
-group); ``mark`` attaches it to a tensor and ``shard_of`` reads it back.
+the rank's index and the count along it, the mesh axis and its group:
+``tensor``; ``expert`` for an MoE weight's experts, models/moe.py; or for
+adafactor's statistics of a stage's stacked layers ``pipeline``), and a
+second split over another axis where there is one (an MoE ``wi`` under
+expert x tensor); ``mark`` attaches it to a tensor and ``shard_of``
+reads it back.
 ``mark_stage`` and ``stage_of`` do the same with the pipeline ``Stage``
 (parallel/pipeline.py) of a tensor that belongs to one of a stage's
 layers.  The model marks the parameters it splits and its stage's
@@ -52,7 +55,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from kubeflow_tpu_torch.ops.quantize import QTensor, embed_lookup
-from kubeflow_tpu_torch.parallel.p2p import staged
+from kubeflow_tpu_torch.parallel.p2p import all_reduce, staged
 
 _ATTR = "_kft_tensor_shard"
 _STAGE_ATTR = "_kft_stage"
@@ -61,12 +64,19 @@ _STAGE_ATTR = "_kft_stage"
 @dataclasses.dataclass(frozen=True)
 class TensorShard:
     """Share ``index`` of ``count`` equal slices along ``dim`` of a whole
-    tensor, held by that rank of the ``tensor`` process ``group``."""
+    tensor, held by that rank of the process ``group`` of mesh ``axis``
+    (``tensor``; ``expert`` for an MoE weight's experts; ``pipeline`` for
+    a stage's rows of adafactor's statistics).  ``then`` is a second
+    split of the same tensor over another axis, or None: an MoE ``wi``
+    under expert x tensor holds its experts' slice of the expert dim and
+    its slice of the mlp dim."""
 
     dim: int
     index: int
     count: int
     group: Any
+    axis: str = "tensor"
+    then: Optional["TensorShard"] = None
 
     def take(self, whole):
         """This rank's slice of ``whole`` (a tensor, or an int8
@@ -74,23 +84,31 @@ class TensorShard:
         if whole.shape[self.dim] % self.count:
             raise ValueError(
                 f"dim {self.dim} of {tuple(whole.shape)} does not split "
-                f"over {self.count} tensor ranks")
-        return whole.chunk(self.count, dim=self.dim)[self.index]
+                f"over {self.count} {self.axis} ranks")
+        part = whole.chunk(self.count, dim=self.dim)[self.index]
+        return part if self.then is None else self.then.take(part)
 
     def whole_shape(self, shape) -> Tuple[int, ...]:
         out = list(shape)
         out[self.dim] *= self.count
-        return tuple(out)
+        return tuple(out) if self.then is None else \
+            self.then.whole_shape(out)
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """The whole tensor from every rank's ``local`` slice (a
-        collective over the group)."""
+        collective over the group, then over ``then``'s)."""
         import torch.distributed as dist
 
         local = local.detach().contiguous()
         parts = [torch.empty_like(local) for _ in range(self.count)]
         dist.all_gather(parts, local, group=self.group)
-        return torch.cat(parts, dim=self.dim)
+        whole = torch.cat(parts, dim=self.dim)
+        return whole if self.then is None else self.then.gather(whole)
+
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes the tensor is split over."""
+        rest = () if self.then is None else self.then.axes()
+        return (self.axis,) + rest
 
 
 def mark(t: torch.Tensor, shard: Optional[TensorShard]) -> torch.Tensor:
@@ -165,10 +183,7 @@ def reduce_from_parallel(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     if not torch.is_grad_enabled():
-        if staged(x.device, group):
-            host = x.to("cpu", memory_format=torch.contiguous_format)
-            return _all_reduce(host, group).to(x.device)
-        return _all_reduce(x.contiguous().clone(), group)
+        return all_reduce(x, group)
     return _ReduceFromParallel.apply(x, group)
 
 

@@ -38,9 +38,11 @@ tensor (a DTensor, runtime/train.py under a mesh) into the full one,
 rank 0 writes the step and its manifest in the format above, and the
 step counts as saved only when every rank has passed the barrier after
 rank 0's commit (a failure there raises on every rank).  A tensor that
-is one rank's slice over the ``tensor`` axis (its ``TensorShard``,
-parallel/tensor.py: the split weights of a tensor-parallel model and
-their moments) is gathered over its group too, after FSDP2's gather.
+is one rank's slice over the ``tensor`` or ``expert`` axis (its
+``TensorShard``, parallel/tensor.py: the split weights of a
+tensor-parallel model, an MoE model's experts, and their moments) is
+gathered over its group too (over both, for an MoE weight split over
+both), after FSDP2's gather.
 Under ``pipeline`` above 1 each stage holds its own layers (marked with
 their ``Stage``, parallel/pipeline.py): a save gathers every stage's
 layer parameters under their global names and every stage's entries of

@@ -38,9 +38,10 @@ also take plain sequences.  Under a mesh whose ``fsdp`` axis is above 1
 the trainer hands adamw and sgd the sharded parameters (DTensors: their
 elementwise arithmetic runs on each shard, and the moments are sharded
 as their parameters are); a parameter that is a slice over ``tensor``
-(parallel/tensor.py) passes its ``TensorShard`` on to its moments.
-adafactor refuses both, as its factored statistics would span the
-sharded dim (ROADMAP queue 1 item 24).  Under ``pipeline`` > 1 a stage's
+(parallel/tensor.py), or over ``expert`` (an MoE weight's experts),
+passes its ``TensorShard`` on to its moments.  adafactor refuses all
+three, as its factored statistics and block RMS would span the sharded
+dim (ROADMAP queue 1 item 24).  Under ``pipeline`` > 1 a stage's
 layered leaves stack its own layers (``leaf_groups`` on its local
 names): their factored statistics are its rows of the whole leaf's (the
 layer dim is never factored at the repo's configurations, and a leaf
@@ -368,9 +369,10 @@ class Adafactor:
             from kubeflow_tpu_torch import NotPortedError
 
             raise NotPortedError(
-                "adafactor on parameters sharded over fsdp > 1 or tensor > "
-                "1 is not ported yet (its factored statistics span the "
-                "sharded dim): ROADMAP queue 1 item 24")
+                "adafactor on parameters sharded over fsdp > 1, tensor > 1 "
+                "or expert > 1 is not ported yet (its factored statistics "
+                "and block RMS span the sharded dim): ROADMAP queue 1 item "
+                "24")
         state = AdafactorState(count=0, v_row={}, v_col={}, v={})
         for leaf, members in self._groups(params).items():
             first = params[members[0]]
@@ -383,7 +385,7 @@ class Adafactor:
                 _check_stage_split(leaf, shape, stage)
             # A stage's statistics are its rows of the whole leaf's.
             rows = None if stage is None else tp.TensorShard(
-                0, stage.index, stage.count, stage.group)
+                0, stage.index, stage.count, stage.group, "pipeline")
 
             def zeros(s, marked=True):
                 return tp.mark(torch.zeros(s, dtype=torch.float32,
@@ -533,7 +535,7 @@ def _block_rms(t: torch.Tensor, stage) -> torch.Tensor:
     the pipeline group)."""
     if stage is None:
         return torch.sqrt(torch.mean(t * t))
-    from kubeflow_tpu_torch.parallel.pipeline import all_reduce
+    from kubeflow_tpu_torch.parallel.p2p import all_reduce
 
     total = all_reduce(torch.sum(t * t), stage.group)
     return torch.sqrt(total / (t.numel() * stage.count))

@@ -4,8 +4,8 @@ port of kubeflow_tpu/runtime/train.py.
 The JAX ``Trainer`` jits one SPMD step over a mesh.  This one runs the
 same step eagerly, on one explicit device or, with ``mesh`` (a
 ``DeviceMesh`` from parallel/mesh.py ``MeshSpec.build``), as one process
-a GPU over the mesh's ``data``, ``fsdp``, ``pipeline``, ``sequence``
-and ``tensor`` axes.  What carries over unchanged:
+a GPU over the mesh's ``data``, ``fsdp``, ``pipeline``, ``expert``,
+``sequence`` and ``tensor`` axes.  What carries over unchanged:
 
   - the task contract: ``init_fn(generator) -> (model, mutable)`` and
     ``loss_fn(model, mutable, batch, rng) -> (loss, (metrics, mutable))``
@@ -53,15 +53,20 @@ Under a mesh (JAX's ``param_shardings``, ``_opt_shardings`` and
     their number: the reduced gradient is the global loss's, as JAX's
     psum gives it.  The ranks of a tensor group each hold the whole
     gradient of their own slices and of the replicated weights;
+  - with ``expert`` above 1 the MoE model holds this rank's experts of
+    each ``moe.wi`` and ``moe.wo``, marked as the tensor slices are, and
+    FSDP2's mesh is at this rank's expert index: the ranks of an expert
+    group hold the same rows, their replicated weights' gradients whole
+    and equal on each;
   - with ``pipeline`` above 1 the task's model holds its stage's layers
     (models/transformer.py, parallel/pipeline.py), and FSDP2 wraps only
     those, over the stage's own ranks; every stage computes the same
     loss from the broadcast outputs, so the embedding, final norm and
     unembed and their gradients are whole and equal on every stage;
   - ``grad_norm`` is the global norm over the shards (squares summed
-    over ``fsdp``, over ``tensor`` for the tensor slices and over
-    ``pipeline`` for a stage's layers, the rest counted once), and MFU
-    counts every rank's chip.
+    over ``fsdp``, over ``tensor`` and ``expert`` for the slices over
+    them and over ``pipeline`` for a stage's layers, the rest counted
+    once), and MFU counts every rank's chip.
 
 The optimizer gets the parameters and gradients by name
 (``named_parameters()`` order), which adafactor needs to stack the JAX
@@ -81,7 +86,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.parallel import tensor as tp
 from kubeflow_tpu_torch.parallel.mesh import (
@@ -150,12 +154,21 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return to_local() if callable(to_local) else t
 
 
-def _check_mesh(mesh) -> None:
-    """Refuse the axes this port does not train over yet."""
-    if axis_sizes(mesh).get(EXPERT, 1) > 1:
-        raise NotPortedError(
-            f"a mesh with {EXPERT} > 1 is not ported yet: MoE's expert "
-            "axis is ROADMAP queue 1 item 21")
+# The axes a parameter may be split over (not replicated): its bit in
+# ``_split_bits``.
+_SPLIT_AXES = (PIPELINE, TENSOR, EXPERT)
+
+
+def _split_bits(param) -> int:
+    """A bit for each axis of ``_SPLIT_AXES`` that ``param`` is split
+    over: its ``TensorShard``'s axes, and ``pipeline`` for a stage's
+    layer."""
+    shard = tp.shard_of(param)
+    axes = set(() if shard is None else shard.axes())
+    if tp.stage_of(param) is not None:
+        axes.add(PIPELINE)
+    return sum(1 << bit for bit, axis in enumerate(_SPLIT_AXES)
+               if axis in axes)
 
 
 class _Done:
@@ -187,7 +200,7 @@ class Trainer:
       ``update(grads, state, params)`` (runtime/optim.py).
     mesh / rules: a ``DeviceMesh`` from ``MeshSpec.build`` (every rank
       builds the same trainer and calls it in step) and the logical-axis
-      rule table; a mesh with expert above 1 raises ``NotPortedError``.
+      rule table.
     """
 
     init_fn: Callable[[torch.Generator], Tuple[nn.Module, Any]]
@@ -204,8 +217,6 @@ class Trainer:
     peak_flops_per_chip: float = 0.0
 
     def __post_init__(self) -> None:
-        if self.mesh is not None:
-            _check_mesh(self.mesh)
         self.device = resolve_device(self.device)
         self._multi_steps: Dict[int, Callable] = {}
         self._last_metrics: Dict[str, float] = {}
@@ -271,32 +282,33 @@ class Trainer:
     def _grad_norm(self, grads, params) -> torch.Tensor:
         """optax.global_norm of the step's gradients; under a mesh over
         the shards of every gradient: a sum of squares over ``fsdp``,
-        over ``tensor`` for the gradients whose parameter is a tensor
-        slice, and over ``pipeline`` for those of a stage's layers; the
-        replicated ones counted once."""
+        over ``tensor`` and ``expert`` for the gradients whose parameter
+        is a slice over that axis, and over ``pipeline`` for those of a
+        stage's layers; the replicated ones counted once."""
         sizes = {} if self.mesh is None else axis_sizes(self.mesh)
-        fsdp, tensor, stages = (sizes.get(FSDP, 1), sizes.get(TENSOR, 1),
-                                sizes.get(PIPELINE, 1))
-        if fsdp == tensor == stages == 1:
+        split = [(axis, _SPLIT_AXES.index(axis))
+                 for axis in (TENSOR, EXPERT, PIPELINE)
+                 if sizes.get(axis, 1) > 1]
+        fsdp = sizes.get(FSDP, 1)
+        if fsdp == 1 and not split:
             return global_norm([_local(g) for g in grads])
         import torch.distributed as dist
 
         sq = torch.stack(torch._foreach_norm(
             [_local(g).float() for g in grads])) ** 2
-        # Each gradient's squares go to one of four sums: (tensor slice
-        # or not) x (a stage's layer or not).
-        kind = torch.tensor(
-            [2 * (tp.shard_of(p) is not None) + (tp.stage_of(p) is not None)
-             for p in params], device=sq.device)
-        sq = torch.zeros(4, device=sq.device).index_add_(0, kind, sq)
+        # Each gradient's squares go to the sum of its kind: a bit for
+        # each axis it is split over.
+        kind = torch.tensor([_split_bits(p) for p in params],
+                            device=sq.device)
+        sq = torch.zeros(2 ** len(_SPLIT_AXES), device=sq.device
+                         ).index_add_(0, kind, sq)
         if fsdp > 1:
             dist.all_reduce(sq, group=self.mesh.get_group(FSDP))
-        for axis, count, over in ((TENSOR, tensor, [2, 3]),
-                                  (PIPELINE, stages, [1, 3])):
-            if count > 1:
-                summed = sq.clone()
-                dist.all_reduce(summed, group=self.mesh.get_group(axis))
-                sq[over] = summed[over]
+        for axis, bit in split:
+            over = [k for k in range(sq.numel()) if k >> bit & 1]
+            summed = sq.clone()
+            dist.all_reduce(summed, group=self.mesh.get_group(axis))
+            sq[over] = summed[over]
         return torch.sqrt(sq.sum())
 
     def _step_body(self, state: TrainState, batch: Any

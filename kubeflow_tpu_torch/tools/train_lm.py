@@ -10,23 +10,29 @@ It trains on CUDA unless ``--device cpu`` is given, and an error when
 there is no GPU: on one device, or over a mesh of processes, one GPU
 each, with ``--mesh data=2,fsdp=2,pipeline=2,sequence=2,tensor=2``
 (parsed as the JAX entry point parses it; ``model`` is ``tensor``'s
-other name), ``--attention ring`` for the sequence axis and
+other name), ``--attention ring`` for the sequence axis,
 ``--pipeline-microbatches M`` for the pipeline axis (GPipe: each stage
 holds ``n_layers / pipeline`` layers; ``pipeline`` > 1 without it is an
-error, as in JAX).  A multi-process job is started by the
-operator's ``KFT_*`` variables or by ``torchrun`` (runtime/bootstrap.py);
+error, as in JAX) and ``--mesh expert=N`` with ``--moe-experts E`` for
+the expert axis (each rank holds E/N experts; N divides E).  A
+multi-process job is started by the operator's ``KFT_*`` variables or by
+``torchrun`` (runtime/bootstrap.py);
 without ``--mesh`` it is data-parallel over every rank, as the JAX entry
 point's default mesh is, and so is ``--attention ring`` alone.  Each
 rank trains on ``--batch-size-per-device`` rows (the ranks of a
 ``sequence`` group share theirs, each keeping its shard of the
 sequence, and the ranks of a ``tensor`` group theirs, each holding its
 slice of the heads, mlp and vocab, and the ranks of a ``pipeline``
-group theirs, each holding its stage's layers), drawn by its (data,
-fsdp) coordinate: KFTR shards ``RecordDataset(...).shard(i, data *
-fsdp)``, or a synthetic stream seeded with i.  The expert axis raises
-``NotPortedError`` naming its ROADMAP item.  ``--moe-experts N`` (with
-``--moe-capacity-factor``) trains the mixture-of-experts LM
-(models/moe.py; top-2, the einsum dispatch, as in the JAX entry point).
+group theirs, each holding its stage's layers, and the ranks of an
+``expert`` group theirs, each holding its share of the experts), drawn
+by its (data, fsdp) coordinate: KFTR shards ``RecordDataset(...).shard(i,
+data * fsdp)``, or a synthetic stream seeded with i.  ``--moe-experts N``
+(with ``--moe-capacity-factor``) trains the mixture-of-experts LM
+(models/moe.py; top-2, the einsum dispatch, as in the JAX entry point),
+under any mesh; its routing groups must not span ranks (ROADMAP queue 1
+item 27).  ``--optimizer adafactor`` over parameters split over fsdp,
+tensor or expert raises ``NotPortedError`` naming ROADMAP queue 1 item
+24.
 ``--optimizer adafactor``, ``--data-files``
 (KFTR shards of {"tokens": [s]} examples, data/) and
 ``--checkpoint-dir`` / ``--checkpoint-every`` (verified checkpoints,
@@ -79,8 +85,12 @@ def parse_mesh(flag: str) -> dict:
 def _not_ported(args, mesh_axes: dict) -> str:
     """The first flag this port does not serve yet, with its ROADMAP
     item, or ''."""
-    if mesh_axes.get("expert", 1) > 1:
-        return "--mesh expert > 1 (MoE's expert axis, ROADMAP queue 1 item 21)"
+    split = [axis for axis in ("fsdp", "tensor", "expert")
+             if mesh_axes.get(axis, 1) > 1
+             and (axis != "expert" or args.moe_experts > 0)]
+    if args.optimizer == "adafactor" and split:
+        return (f"--optimizer adafactor over parameters split over "
+                f"{' and '.join(split)} (ROADMAP queue 1 item 24)")
     return ""
 
 

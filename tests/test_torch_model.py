@@ -107,22 +107,37 @@ def test_narrow_params_narrows_exactly_the_contractions():
         == len(CONTRACTIONS)
 
 
-# Pipelining is ported (GPipe, tests/test_torch_pipeline.py); MoE under a
-# mesh is not, and ring attention needs a mesh, as in the JAX package.
+# Pipelining (tests/test_torch_pipeline.py) and MoE under a mesh
+# (tests/test_torch_moe_mesh.py) are ported; ring attention needs a mesh,
+# as in the JAX package.
 _ONE_RANK_MESH = types.SimpleNamespace(
     mesh_dim_names=("data", "fsdp", "pipeline", "expert", "sequence",
                     "tensor"), shape=(1, 1, 1, 1, 1, 1))
 
 
 @pytest.mark.parametrize("option,mesh,error,match", [
-    (dict(moe_experts=4), _ONE_RANK_MESH, NotImplementedError,
-     "ROADMAP queue 1 item 21"),
+    (dict(moe_experts=4), _ONE_RANK_MESH, None, None),
     (dict(attention="ring"), None, ValueError, "requires a mesh"),
 ], ids=["option1", "option2"])
 def test_unsupported_options_raise(option, mesh, error, match):
+    """What the port refuses raises; MoE under a mesh, once refused
+    (``error`` None), builds: under a mesh of one rank its logits and
+    aux are those of the model without a mesh from the same seed."""
     cfg = TransformerConfig(dtype=torch.float32, **dict(SMALL, **option))
-    with pytest.raises(error, match=match):
-        Transformer(cfg, device="meta", mesh=mesh)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            Transformer(cfg, device="meta", mesh=mesh)
+        return
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, SMALL["vocab_size"], (2, 16)))
+    outs = [Transformer(cfg, device="cpu", mesh=m,
+                        generator=torch.Generator().manual_seed(0))(
+                            tokens, return_aux=True)
+            for m in (mesh, None)]
+    (logits, aux), (want_logits, want_aux) = outs
+    torch.testing.assert_close(logits, want_logits, atol=0, rtol=0)
+    torch.testing.assert_close(aux, want_aux, atol=0, rtol=0)
+    assert float(aux) > 0
 
 
 def test_two_pass_model_matches_jax():

@@ -25,7 +25,8 @@ through its dot attention, as tests/test_transformer.py's
     1e-4 of the JAX ``Trainer`` on the same mesh, equal on both ranks;
     dropout 0.1 at 0 microbatches against the trainer without a mesh; a
     checkpoint saved without a mesh restored onto the stages and resumed;
-    the refusals (MoE under the mesh, layers or batch that do not divide,
+    the MoE LM's loss and aux against the mean over the microbatches
+    without a mesh; the refusals (layers or batch that do not divide,
     positions or segment ids);
   - ``pipe8`` (8 ranks): ``TestPipelineParallel``'s data=2, pipeline=2,
     tensor=2 layout: loss and grad_norm over 5 adamw steps within 1e-4
@@ -460,7 +461,7 @@ def test_pipelined_trainer_restores_no_mesh_checkpoint(jobs):
 
 
 @pytest.mark.parametrize("case,want", [
-    ("moe", "NotPortedError: .*ROADMAP queue 1 item 21"),
+    ("moe", None),
     ("layers", "ValueError: n_layers=3 not divisible by pipeline=2 stages"),
     ("batch", "ValueError: batch 6 not divisible by pipeline_microbatches=4"),
     ("positions", "ValueError: the pipelined layer stack supports only "
@@ -468,7 +469,17 @@ def test_pipelined_trainer_restores_no_mesh_checkpoint(jobs):
     ("segments", "ValueError: the pipelined layer stack supports only "
                  "default positions and no segment_ids")])
 def test_pipe2_refusals(jobs, case, want):
+    """What the stages refuse; MoE, refused before the expert axis came
+    (``want`` None), trains: its pipelined loss and aux are the mean of
+    the loss and aux without a mesh on each microbatch (rtol 1e-5, JAX's
+    test_pipelined_moe_matches_microbatched_sequential)."""
     for r in jobs["pipe2"]:
+        if want is None:
+            (loss, aux), (ref_loss, ref_aux) = r[case]
+            np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+            np.testing.assert_allclose(aux, ref_aux, rtol=1e-5)
+            assert aux > 0
+            continue
         assert __import__("re").match(want, r["refusals"][case]), \
             r["refusals"][case]
 
@@ -487,8 +498,16 @@ def test_train_lm_refuses_pipeline_without_microbatches(capsys):
 
 
 def test_train_lm_refuses_expert_with_item_21():
-    with pytest.raises(NotPortedError, match="item 21"):
-        train_lm.run(TRAIN_LM_ARGV + ["--mesh", "expert=2"])
+    """The expert axis trains (tests/test_torch_moe_mesh.py): a one-rank
+    ``--mesh expert=1 --moe-experts 4`` gives the losses of no mesh, and
+    what stays refused over expert slices, adafactor, names item 24."""
+    moe = TRAIN_LM_ARGV + ["--moe-experts", "4"]
+    with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 24"):
+        train_lm.run(moe + ["--mesh", "expert=2", "--optimizer",
+                            "adafactor"])
+    got, want = (train_lm.run(moe + flag).metrics.history
+                 for flag in (["--mesh", "expert=1"], []))
+    assert [h["loss"] for h in got] == [h["loss"] for h in want]
 
 
 # -- data x pipeline x tensor ---------------------------------------------------

@@ -420,14 +420,18 @@ def test_train_lm_run_returns_the_trainer_and_its_last_metrics():
     assert last["loss"] == trainer.metrics.history[-1]["loss"]
 
 
-# --mesh with data, fsdp, pipeline (with --pipeline-microbatches), sequence
-# and tensor (model) and --attention ring are ported
-# (tests/test_torch_parallel_train.py, tests/test_torch_pipeline.py); the
-# expert axis is not, alone or beside the others.
+# --mesh with every axis (expert with --moe-experts) and --attention ring
+# are ported (tests/test_torch_parallel_train.py,
+# tests/test_torch_pipeline.py, tests/test_torch_moe_mesh.py); adafactor
+# over parameters split over expert or tensor is not, alone or beside the
+# other axes.
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh", "pipeline=2,expert=2", "--pipeline-microbatches", "2"], 21),
-    (["--mesh", "model=2,expert=2"], 21),
-    (["--mesh", "expert=2"], 21)], ids=["flag0", "flag1", "flag3"])
+    (["--mesh", "pipeline=2,expert=2", "--pipeline-microbatches", "2",
+      "--moe-experts", "4", "--optimizer", "adafactor"], 24),
+    (["--mesh", "model=2,expert=2", "--moe-experts", "4", "--optimizer",
+      "adafactor"], 24),
+    (["--mesh", "expert=2", "--moe-experts", "4", "--optimizer",
+      "adafactor"], 24)], ids=["flag0", "flag1", "flag3"])
 def test_train_lm_not_ported_flags_raise(flag, item):
     with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
         train_lm.main(TINY_ARGS + ["--device", "cpu"] + flag)
@@ -507,10 +511,10 @@ def test_train_lm_runs_on_cuda_unless_asked():
 
 
 def test_trainer_and_bootstrap_refuse_what_is_not_ported():
-    """A mesh with an axis this port does not train over is refused with
-    its ROADMAP item, and one over ``tensor`` or ``pipeline`` is taken; a
-    multi-process job whose rendezvous fails raises (no single-process
-    fallback); a single process needs none."""
+    """A mesh over ``tensor``, ``pipeline`` or ``expert`` is taken (the
+    expert axis, refused before it was ported, too); a multi-process job
+    whose rendezvous fails raises (no single-process fallback); a single
+    process needs none."""
     names = ("data", "fsdp", "pipeline", "expert", "sequence", "tensor")
 
     def mesh_of(axis):
@@ -518,10 +522,7 @@ def test_trainer_and_bootstrap_refuse_what_is_not_ported():
             mesh_dim_names=names,
             shape=tuple(2 if n == axis else 1 for n in names))
 
-    with pytest.raises(NotPortedError, match="item 21"):
-        Trainer(init_fn=None, loss_fn=None, tx=None, device="cpu",
-                mesh=mesh_of("expert"))
-    for axis in ("tensor", "pipeline"):
+    for axis in ("tensor", "pipeline", "expert"):
         assert Trainer(init_fn=None, loss_fn=None, tx=None, device="cpu",
                        mesh=mesh_of(axis)).mesh is not None
     env = bootstrap.worker_env({"KFT_NUM_PROCESSES": "2",

@@ -17,7 +17,8 @@ and 8 and with an aux that reads each layer's input, then as the second
 stage of a group whose first never sends; ``pipe2`` the LM at
 data=1, pipeline=2 (logits with and without remat, adamw and adafactor
 steps, dropout at 0 microbatches against no mesh, a checkpoint saved
-without a mesh restored onto the stages, the refusals);
+without a mesh restored onto the stages, the MoE LM against the mean of
+its microbatches without a mesh, the refusals);
 ``pipe8`` at data=2, pipeline=2, tensor=2 (adamw steps, shard shapes, a
 checkpoint and its resume); ``pipe4`` at pipeline=2, sequence=2 with the
 ring (one loss and its gradients) and at fsdp=2, pipeline=2 (adamw
@@ -273,9 +274,8 @@ def pipe2(spec, workdir):
         {"tokens": spec["batches"][2]}))
     out["resumed_loss"] = float(m["loss"])
 
+    out["moe"] = moe_pipelined(spec, mesh, tokens)
     out["refusals"] = {
-        "moe": refused(lambda: Transformer(
-            _cfg(spec, moe_experts=4), device="cpu", mesh=mesh)),
         "layers": refused(lambda: Transformer(
             _cfg(spec, n_layers=3), device="cpu", mesh=mesh)),
         "batch": refused(lambda: model(spec, mesh)(tokens[:6])),
@@ -284,6 +284,28 @@ def pipe2(spec, workdir):
         "segments": refused(lambda: model(spec, mesh)(
             tokens, segment_ids=torch.ones_like(tokens))),
     }
+    return out
+
+
+def moe_pipelined(spec, mesh, tokens):
+    """The MoE LM (4 experts, routing groups of a whole microbatch) at
+    the stages' M 4, from one seed's weights: its loss and aux, and the
+    mean over the microbatches of the loss and aux without a mesh on
+    each (JAX's test_pipelined_moe_matches_microbatched_sequential)."""
+    moe = dict(moe_experts=4, moe_group_size=tokens.numel() // 4)
+    out = []
+    for m, over in ((mesh, {}), (None, dict(pipeline_microbatches=0))):
+        cfg = _cfg(spec, **moe, **over)
+        _, loss_fn = lm_task(cfg, device="cpu", mesh=m)
+        net = Transformer(cfg, device="cpu", mesh=m,
+                          generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            parts = [loss_fn(net, {}, {"tokens": t}, None)
+                     for t in ([tokens] if m is not None
+                               else microbatch(tokens, 4))]
+        out.append((sum(float(p[0]) for p in parts) / len(parts),
+                    sum(float(p[1][0]["moe_aux"]) for p in parts)
+                    / len(parts)))
     return out
 
 
