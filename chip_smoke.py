@@ -314,6 +314,22 @@ Phases, each fatal on failure (exit code 1, no result line):
      step (those over the expert group apart: count, bytes, ms) and its
      peak memory (the two jobs run side by side), and the mean of
      per-rank auxes beside the global one;
+ 7j. adafactor over a mesh: tools/train_lm.run on bench.py's LM cell with
+     --optimizer adafactor as 2 processes sharing the one GPU over gloo,
+     3 steps each, the two jobs side by side: --mesh fsdp=2 (4 rows a
+     rank; FSDP2 shards every weight's embed dim, and the factored
+     statistics' means over it are all-reduced) and --mesh tensor=2 (all
+     8 rows; the heads, mlp and vocab split).  For each: the ranks' losses
+     equal, finite and within the job's bound of one process with
+     adafactor on the same global batch from the same seed; the first
+     step's loss and grad_norm within the job's relative bound of that
+     process's; each rank launches exactly 36 each of flash_fwd, flash_dq
+     and flash_dkv (12 a step), all at bh 32, and none of the other
+     kernels; the forward and backward at bh 32 against their plain
+     versions within phase 2's bounds; the phase within 90 s.
+     Information only: each rank's step ms, a profiled step's busy share,
+     its gloo all-reduces a step (count, bytes, ms), its peak memory and
+     the shapes of its share of the embedding's statistics;
   8. gradients: one step's gradients of the bf16 model (full width and
      depth, batch 2 x 2048) through the kernels (single pass, then two
      passes) and through the plain versions, each held to a float32 run
@@ -350,7 +366,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      steps verify; Trainer.fit for 30 steps on one repeated batch of 32
      must bring the mean loss of the last 5 below the first; no flash
      kernel launches.  Information only: the step on a batch staged on
-     the card (time, images/s, MFU, peak memory) and one profiled step.
+     the card (time, images/s, MFU, peak memory) and one profiled step;
+ 12b. CNN gang: tools/train_cnn.run on the same cell as 2 processes
+     sharing the one GPU over gloo (KFT_DIST_BACKEND=gloo), 128 rows a
+     process (the global batch of 256), 3 steps: MeshSpec(data=2), FSDP2
+     at the root, BatchNorm's statistics over the global batch.  The
+     ranks' losses equal, finite and within CNN_GANG_LOSS_ATOL of one
+     process on the same 256 rows from the same seed; bn_init's running
+     mean and variance equal on both ranks (bit for bit) and within
+     CNN_GANG_STATS_RTOL (relative Frobenius) of that process's; no flash
+     kernel launches; the phase within 90 s.  Information only: each
+     rank's step ms, its gloo all-reduces a step (count, bytes, ms), a
+     profiled step's busy share and its peak memory.
 
 The phases' times are printed.  The line before the last is a JSON
 object {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
@@ -658,6 +685,30 @@ MOE_MESH_JOBS = {
     "data": (["--mesh", "data=2", "--optimizer", "adafactor"], 4),
     "expert": (["--mesh", "expert=2", "--optimizer", "adamw"], 8),
 }
+# Phase 7j: adafactor over a mesh (ROADMAP item 24 done): bench.py's LM
+# cell through train_lm.run with --optimizer adafactor over
+# ADAFACTOR_MESH_WORLD processes sharing the GPU over gloo,
+# ADAFACTOR_MESH_STEPS steps from train_lm's seed and synthetic stream,
+# the two jobs side by side.  Each job: (its flags beside TRAIN_FLAGS,
+# the rows a rank, the bound on its losses against one process with
+# adafactor on the same global batch, the relative bound on its first
+# step's loss and grad_norm).  "fsdp": each rank draws its 4 rows and
+# holds half of every weight's embed dim; the first step's weights are
+# one process's, and the later losses move by the bf16 rounding of each
+# rank's 4-row gradients before FSDP2 sums them (7i's data job read
+# 7.92e-5 and 8.5e-6 at these bounds).  "tensor": every rank the same 8
+# rows; each row-parallel output is two bf16 partial sums (7g read
+# 5.52e-4 against adamw's bound of 1e-2; 7i's expert job 9.7e-4 on its
+# first step).  Every rank's flash kernels run at bh 32 (4 rows x 8
+# heads, 8 rows x 4 heads).  The phase must end within
+# ADAFACTOR_MESH_PHASE_S.
+ADAFACTOR_MESH_WORLD, ADAFACTOR_MESH_STEPS = 2, 3
+ADAFACTOR_MESH_TIMEOUT_S, ADAFACTOR_MESH_PHASE_S = 240, 90.0
+ADAFACTOR_MESH_BH = 32
+ADAFACTOR_MESH_JOBS = {
+    "fsdp": (["--mesh", "fsdp=2"], 4, 1e-3, 1e-4),
+    "tensor": (["--mesh", "tensor=2"], 8, 1e-2, 3e-3),
+}
 # Phases 11-12: the CNN family.  Phase 11 serves these exports through the
 # classifier loader and the MicroBatcher; each model's name, its loader
 # config and its image size (the canonical input of each).
@@ -684,6 +735,19 @@ CNN_TRAIN_FLAGS = [
     "--learning-rate", "0.1", "--device", "cuda"]
 CNN_TRAIN_STEPS, CNN_CKPT_EVERY = 4, 2
 CNN_LEARN_STEPS, CNN_LEARN_BATCH = 30, 32
+# Phase 12b: the same cell through train_cnn.run as a gang of
+# CNN_GANG_WORLD processes sharing the GPU over gloo, each on its
+# CNN_TRAIN_BATCH / CNN_GANG_WORLD rows, CNN_GANG_STEPS steps, against one
+# process on the same 256 rows (rank d's from RandomState(d)) from the
+# same seed: each loss within CNN_GANG_LOSS_ATOL and bn_init's running
+# mean and variance within CNN_GANG_STATS_RTOL (relative Frobenius), where
+# each rank rounds its rows' bf16 weight gradients before the all-reduce
+# and one process rounds the whole batch's once; the running statistics
+# equal on both ranks bit for bit (each rank's own rows, or weights out of
+# step, would part them).  The phase must end within CNN_GANG_PHASE_S.
+CNN_GANG_WORLD, CNN_GANG_STEPS, CNN_GANG_TIMEOUT_S = 2, 3, 240
+CNN_GANG_LOSS_ATOL, CNN_GANG_STATS_RTOL = 5e-3, 1e-2
+CNN_GANG_PHASE_S = 90.0
 SERVE_KERNELS = ("flash_fwd", "flash_fwd_masked")
 TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
@@ -5919,6 +5983,199 @@ def moe_mesh_phase(torch, flash, workdir: Path):
     return launches, info
 
 
+# One rank of an adafactor mesh trainer: the first step's loss and
+# grad_norm, its gloo all-reduces, its share of the embedding's
+# statistics and its last step under torch.profiler.
+_ADAFACTOR_MESH_RANK = _RANK_PRELUDE + r"""
+from torch.profiler import ProfilerActivity, profile
+from kubeflow_tpu_torch.runtime.train import Trainer
+body = Trainer._step_body
+profiled, first, seen, stats = {}, {}, [0], {}
+
+
+def step_body(self, state, batch):
+    seen[0] += 1
+    if seen[0] < steps:
+        state, m = body(self, state, batch)
+        if seen[0] == 1:
+            first.update({k: float(m[k]) for k in ("loss", "grad_norm")})
+        return state, m
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = body(self, state, batch)
+        torch.cuda.synchronize()
+        profiled["wall"] = (time.perf_counter() - t0) * 1e3
+    profiled["busy"] = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    opt = out[0].opt_state
+    stats.update({k: list(getattr(opt, k)["embed"].shape)
+                  for k in ("v_row", "v_col")})
+    return out
+
+
+Trainer._step_body = step_body
+trainer, launches, peak = run_trainer()
+per_step = {"calls": len(reduces) / steps,
+            "bytes": sum(c[1] for c in reduces) / steps,
+            "ms": sum(c[2] for c in reduces) * 1e3 / steps}
+result(launches, peak, first=first, reduces_per_step=per_step,
+       embed_stats=stats, profiled_step_ms=profiled["wall"],
+       busy_ms=profiled["busy"] or None)
+"""
+
+
+def adafactor_mesh_reference(torch, rows: int, dp: int):
+    """One process with adafactor on the global batch that an adafactor
+    mesh job's ranks draw (train_lm's synthetic stream: rank d of ``dp``
+    its ``rows`` from RandomState(d) a step), from train_lm's seed: the
+    losses of ADAFACTOR_MESH_STEPS steps and the first step's
+    grad_norm."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig,
+        lm_task,
+    )
+    from kubeflow_tpu_torch.runtime import optim
+    from kubeflow_tpu_torch.runtime.train import Trainer
+
+    cfg = TransformerConfig(**dict(MODEL, max_seq_len=TRAIN_SEQ,
+                                   dtype=torch.bfloat16, remat=True))
+    init_fn, loss_fn = lm_task(cfg, device="cuda")
+    trainer = Trainer(init_fn=init_fn, loss_fn=loss_fn,
+                      tx=optim.adafactor(1e-3), device="cuda")
+    state = trainer.create_state(0)
+    step = trainer.compile_step()
+    streams = [np.random.RandomState(d) for d in range(dp)]
+    losses, first = [], {}
+    for i in range(ADAFACTOR_MESH_STEPS):
+        parts = [r.randint(0, MODEL["vocab_size"], size=(
+            rows, TRAIN_SEQ)).astype(np.int32) for r in streams]
+        state, m = step(state, trainer.shard_batch(
+            {"tokens": np.concatenate(parts)}))
+        losses.append(float(m["loss"]))
+        if i == 0:
+            first = {"loss": losses[0], "grad_norm": float(m["grad_norm"])}
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "first": first}
+
+
+def adafactor_mesh_phase(torch, flash, workdir: Path):
+    """Phase 7j: bench.py's LM cell with --optimizer adafactor through
+    tools/train_lm.run over each of ADAFACTOR_MESH_JOBS as
+    ADAFACTOR_MESH_WORLD processes on the one GPU over gloo (the jobs side
+    by side), each against one process with adafactor on the same global
+    batch: the ranks' losses equal, finite and within the job's bound of
+    it, the first step's loss and grad_norm within the job's relative
+    bound of its, each rank's kernels once a layer a step at bh
+    ADAFACTOR_MESH_BH and the kernels at that shape against their plain
+    versions; the phase within ADAFACTOR_MESH_PHASE_S.  Information:
+    each rank's step ms, a profiled step's busy share, its all-reduces
+    and peak memory, its share of the embedding's statistics."""
+    from kubeflow_tpu_torch.testing.ranks import run_ranks
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in flash.launch_counts}
+    info, futures, refs, done = {}, {}, {}, {}
+    torch.cuda.empty_cache()
+
+    def job_ranks(job, flags, rows):
+        out = workdir / f"adafactor_mesh_{job}"
+        out.mkdir()
+        argv = TRAIN_FLAGS + ["--optimizer", "adafactor",
+                              "--batch-size-per-device", str(rows),
+                              "--steps", str(ADAFACTOR_MESH_STEPS),
+                              "--log-every", "1", "--max-restarts", "0",
+                              *flags]
+        results = run_ranks(
+            ["-c", _ADAFACTOR_MESH_RANK, str(out),
+             str(ADAFACTOR_MESH_STEPS), *argv],
+            ADAFACTOR_MESH_WORLD, timeout_s=ADAFACTOR_MESH_TIMEOUT_S,
+            cwd=str(Path(__file__).resolve().parent),
+            env=dict(os.environ, KFT_DIST_BACKEND="gloo"))
+        done[job] = time.perf_counter() - t_phase
+        return results
+
+    # Both jobs' ranks run side by side, the one-process references here
+    # while the ranks start.
+    with ThreadPoolExecutor(len(ADAFACTOR_MESH_JOBS)) as pool:
+        for job, (flags, rows, _, _) in ADAFACTOR_MESH_JOBS.items():
+            futures[job] = pool.submit(job_ranks, job, flags, rows)
+        for job, (flags, rows, _, _) in ADAFACTOR_MESH_JOBS.items():
+            dp = ADAFACTOR_MESH_WORLD if "fsdp" in flags[1] else 1
+            refs[job] = adafactor_mesh_reference(torch, rows, dp)
+        ref_s = time.perf_counter() - t_phase
+        outcomes = {job: f.result() for job, f in futures.items()}
+    want = {k: 0 for k in flash.launch_counts}
+    want.update({k: MODEL["n_layers"] * ADAFACTOR_MESH_STEPS
+                 for k in TRAIN_KERNELS})
+    for job, (flags, rows, loss_atol, first_rtol) in \
+            ADAFACTOR_MESH_JOBS.items():
+        out, ref = workdir / f"adafactor_mesh_{job}", refs[job]
+        ranks = rank_results(outcomes[job], f"the adafactor trainer over "
+                             f"--mesh {flags[1]}", want, ADAFACTOR_MESH_BH)
+        for rank in ranks:
+            for k in launches:
+                launches[k] += rank["launches"][k]
+        histories = [json.loads((out / f"rank{r}.json").read_text())[
+            "history"] for r in range(ADAFACTOR_MESH_WORLD)]
+        losses = [[h["loss"] for h in hist] for hist in histories]
+        diff = max(abs(a - b) for a, b in zip(losses[0], ref["losses"]))
+        first_rel = max(abs(rank["first"][k] - ref["first"][k])
+                        / ref["first"][k] for rank in ranks
+                        for k in ("loss", "grad_norm"))
+        log(f"adafactor --mesh {flags[1]} losses "
+            f"{[round(x, 5) for x in losses[0]]} on every rank: "
+            f"{all(x == losses[0] for x in losses)}; one process's "
+            f"{[round(x, 5) for x in ref['losses']]}: max |diff| "
+            f"{diff:.2e} (bound {loss_atol}); first step loss "
+            f"{ranks[0]['first']['loss']:.6g} / grad_norm "
+            f"{ranks[0]['first']['grad_norm']:.6g} against "
+            f"{ref['first']['loss']:.6g} / {ref['first']['grad_norm']:.6g}"
+            f": worst relative {first_rel:.2e} over the ranks (bound "
+            f"{first_rtol}); job {done[job]:.1f} s beside the other job, "
+            f"both references {ref_s:.1f} s beside the ranks' start")
+        steps_ms = [[h["step_time_s"] * 1e3 for h in hist]
+                    for hist in histories]
+        for r, rank in enumerate(ranks):
+            busy, wall = rank["busy_ms"], rank["profiled_step_ms"]
+            share = "not measured" if busy is None else f"{busy / wall:.3f}"
+            per = rank["reduces_per_step"]
+            log(f"adafactor --mesh {flags[1]} rank {r}: steps "
+                f"{[round(x, 1) for x in steps_ms[r]]} ms (the first "
+                f"carries start-up, the last is the profiled one); "
+                f"profiled step {wall:.1f} ms, busy {busy} ms (share "
+                f"{share}), peak {rank['peak_gib']:.2f} GiB; a step's gloo "
+                f"all-reduces {per['calls']:.0f} ({per['bytes'] / 2 ** 20:.2f}"
+                f" MiB, {per['ms']:.1f} ms); its embedding's statistics "
+                f"{rank['embed_stats']} of the whole [32000, 1024]'s "
+                f"[1024] and [32000] (both ranks on one GPU beside the "
+                "other job's two, staged through host memory; host clock "
+                "after a sync; information only)")
+        if not (len(losses[0]) == ADAFACTOR_MESH_STEPS
+                and all(x == losses[0] for x in losses)
+                and all(map(math.isfinite, losses[0]))
+                and diff <= loss_atol and first_rel <= first_rtol):
+            fail(f"adafactor --mesh {flags[1]} losses differ across ranks, "
+                 f"are not finite or are too far from one process's: "
+                 f"{losses}, {[rank['first'] for rank in ranks]}, {ref}")
+        info[job] = {"losses": losses[0], "max_loss_diff": diff,
+                     "first_rel": first_rel, "reference": ref,
+                     "step_ms": steps_ms, "job_s": done[job],
+                     "ref_s": ref_s, "ranks": ranks}
+    info["kernels"] = path_kernels(torch, flash, ADAFACTOR_MESH_BH,
+                                   "an adafactor mesh rank")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 7j took {phase_s:.1f} s (bound {ADAFACTOR_MESH_PHASE_S})")
+    if phase_s > ADAFACTOR_MESH_PHASE_S:
+        fail(f"phase 7j took {phase_s:.1f} s, over {ADAFACTOR_MESH_PHASE_S}")
+    info["phase_s"] = phase_s
+    return launches, info
+
+
 def profile_step(torch, trainer, state, batch):
     """(host ms, device busy ms or None) of one training step, the second
     of two, the step under torch.profiler."""
@@ -6763,6 +7020,194 @@ def train_cnn_phase(torch, flash, workdir: Path) -> dict:
             "peak_gib": peak_gib, "profile": busy}
 
 
+# One rank of the CNN gang: train_cnn.run with its flash launches, its
+# gloo all-reduces, bn_init's running statistics after the last step and
+# that step under torch.profiler.
+_CNN_GANG_RANK = r"""
+import json, os, sys, time
+import torch
+import torch.distributed as dist
+from kubeflow_tpu_torch.ops import flash
+from kubeflow_tpu_torch.runtime.train import Trainer
+from kubeflow_tpu_torch.tools import train_cnn
+from torch.profiler import ProfilerActivity, profile
+steps = int(sys.argv[1])
+reduces, seen, profiled, final = [], [0], {}, {}
+all_reduce, body, fit = dist.all_reduce, Trainer._step_body, Trainer.fit
+
+
+def counted(t, *args, **kw):
+    t0 = time.perf_counter()
+    out = all_reduce(t, *args, **kw)
+    reduces.append((t.numel() * t.element_size(), time.perf_counter() - t0))
+    return out
+
+
+def step_body(self, state, batch):
+    seen[0] += 1
+    if seen[0] < steps:
+        return body(self, state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = body(self, state, batch)
+        torch.cuda.synchronize()
+        profiled["wall"] = (time.perf_counter() - t0) * 1e3
+    profiled["busy"] = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return out
+
+
+def kept_fit(self, *args, **kw):
+    final["state"] = fit(self, *args, **kw)
+    return final["state"]
+
+
+dist.all_reduce, Trainer._step_body, Trainer.fit = counted, step_body, kept_fit
+for key in flash.launch_counts:
+    flash.launch_counts[key] = 0
+torch.cuda.reset_peak_memory_stats()
+trainer = train_cnn.run(sys.argv[2:])
+torch.cuda.synchronize()
+bn = final["state"].mutable["batch_stats"]["bn_init"]
+print("RESULT " + json.dumps(dict(
+    launches=dict(flash.launch_counts), history=trainer.metrics.history,
+    bn_mean=bn["mean"].tolist(), bn_var=bn["var"].tolist(),
+    world=dist.get_world_size(),
+    reduces_per_step={"calls": len(reduces) / steps,
+                      "bytes": sum(c[0] for c in reduces) / steps,
+                      "ms": sum(c[1] for c in reduces) * 1e3 / steps},
+    profiled_step_ms=profiled["wall"], busy_ms=profiled["busy"] or None,
+    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)), flush=True)
+"""
+
+
+def cnn_gang_reference(torch, rows: int):
+    """One process on the global batch of the CNN gang (train_cnn's
+    synthetic stream: rank d's ``rows`` from RandomState(d) a step), from
+    train_cnn's seed and optimizer: the losses of CNN_GANG_STEPS steps and
+    bn_init's running mean and variance after them."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.classification import classification_task
+    from kubeflow_tpu_torch.models.resnet import ResNetConfig
+    from kubeflow_tpu_torch.runtime import optim
+    from kubeflow_tpu_torch.runtime.train import Trainer
+
+    cfg = ResNetConfig("resnet50", dtype=torch.bfloat16)
+    init_fn, loss_fn = classification_task(
+        cfg.build(device="cuda"), (1, 224, 224, 3), device="cuda")
+    trainer = Trainer(init_fn=init_fn, loss_fn=loss_fn,
+                      tx=optim.sgd(0.1, momentum=0.9), device="cuda")
+    state = trainer.create_state()
+    step = trainer.compile_step()
+    streams = [np.random.RandomState(d) for d in range(CNN_GANG_WORLD)]
+    losses = []
+    for _ in range(CNN_GANG_STEPS):
+        parts = [{"image": r.randn(rows, 224, 224, 3).astype(np.float32),
+                  "label": r.randint(0, 1000, size=(rows,))}
+                 for r in streams]
+        state, m = step(state, trainer.shard_batch(
+            {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}))
+        losses.append(float(m["loss"]))
+    bn = state.mutable["batch_stats"]["bn_init"]
+    out = {"losses": losses, "bn_mean": bn["mean"].cpu(),
+           "bn_var": bn["var"].cpu()}
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def cnn_gang_phase(torch, flash, workdir: Path) -> dict:
+    """Phase 12b: tools/train_cnn.run on bench.py's ResNet-50 cell as a
+    gang of CNN_GANG_WORLD processes on the one GPU over gloo, each on
+    its share of the batch of 256, against one process on the same rows:
+    the ranks' losses equal, finite and within CNN_GANG_LOSS_ATOL of it,
+    bn_init's running statistics equal on both ranks and within
+    CNN_GANG_STATS_RTOL of its, no flash launch, the phase within
+    CNN_GANG_PHASE_S.  Information: each rank's step ms, its all-reduces
+    a step, a profiled step's busy share and its peak memory."""
+    from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
+
+    t_phase = time.perf_counter()
+    rows = CNN_TRAIN_BATCH // CNN_GANG_WORLD
+    argv = CNN_TRAIN_FLAGS + [
+        "--batch-size-per-device", str(rows), "--steps",
+        str(CNN_GANG_STEPS), "--log-every", "1", "--max-restarts", "0"]
+    torch.cuda.empty_cache()
+    with ThreadPoolExecutor(1) as pool:
+        future = pool.submit(
+            run_ranks, ["-c", _CNN_GANG_RANK, str(CNN_GANG_STEPS), *argv],
+            CNN_GANG_WORLD, timeout_s=CNN_GANG_TIMEOUT_S,
+            cwd=str(Path(__file__).resolve().parent),
+            env=dict(os.environ, KFT_DIST_BACKEND="gloo"))
+        ref = cnn_gang_reference(torch, rows)
+        results = future.result()
+    try:
+        check_ranks(results)
+    except RuntimeError as e:
+        fail(f"the CNN gang failed: {e}")
+    ranks = [json.loads(next(ln for ln in r.stdout.splitlines()
+                             if ln.startswith("RESULT "))[7:])
+             for r in results]
+    losses = [[h["loss"] for h in r["history"]] for r in ranks]
+    diff = max(abs(a - b) for a, b in zip(losses[0], ref["losses"]))
+
+    def rel(key):
+        got = torch.tensor(ranks[0][key])
+        return float((got - ref[key]).norm() / ref[key].norm())
+
+    stats_rel = max(rel("bn_mean"), rel("bn_var"))
+    equal = all(r["bn_mean"] == ranks[0]["bn_mean"]
+                and r["bn_var"] == ranks[0]["bn_var"] for r in ranks)
+    launched = {k: n for r in ranks for k, n in r["launches"].items() if n}
+    log(f"CNN gang ({CNN_GANG_WORLD} processes x {rows} rows): losses "
+        f"{[round(x, 5) for x in losses[0]]} on every rank: "
+        f"{all(x == losses[0] for x in losses)}; one process's on the same "
+        f"{CNN_TRAIN_BATCH} rows {[round(x, 5) for x in ref['losses']]}: "
+        f"max |diff| {diff:.2e} (bound {CNN_GANG_LOSS_ATOL}); bn_init's "
+        f"running statistics equal on both ranks: {equal}, relative "
+        f"{rel('bn_mean'):.2e} (mean) and {rel('bn_var'):.2e} (var) from "
+        f"one process's (bound {CNN_GANG_STATS_RTOL}); flash launches "
+        f"{launched or 0}")
+    for r, rank in enumerate(ranks):
+        busy, wall = rank["busy_ms"], rank["profiled_step_ms"]
+        share = "not measured" if busy is None else f"{busy / wall:.3f}"
+        per = rank["reduces_per_step"]
+        steps_ms = [round(h["step_time_s"] * 1e3, 1)
+                    for h in rank["history"]]
+        log(f"CNN gang rank {r}: steps {steps_ms} ms (the first carries "
+            f"start-up, the last is the profiled one, each with the host "
+            f"drawing its synthetic batch); profiled step {wall:.1f} ms, "
+            f"busy {busy} ms (share {share}), peak {rank['peak_gib']:.2f} "
+            f"GiB; a step's gloo all-reduces {per['calls']:.0f} "
+            f"({per['bytes'] / 2 ** 20:.1f} MiB, {per['ms']:.1f} ms) (both "
+            "ranks on one GPU, staged through host memory; host clock "
+            "after a sync; information only)")
+    if launched:
+        fail(f"the CNN gang launched flash kernels: {launched}")
+    if not (all(r["world"] == CNN_GANG_WORLD for r in ranks)
+            and len(losses[0]) == CNN_GANG_STEPS
+            and all(x == losses[0] for x in losses)
+            and all(map(math.isfinite, losses[0])) and equal
+            and diff <= CNN_GANG_LOSS_ATOL
+            and stats_rel <= CNN_GANG_STATS_RTOL):
+        fail(f"the CNN gang's losses or running statistics differ across "
+             f"ranks, are not finite or are too far from one process's: "
+             f"{losses}, {ref['losses']}, statistics equal {equal}, "
+             f"relative {stats_rel:.2e}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 12b took {phase_s:.1f} s (bound {CNN_GANG_PHASE_S})")
+    if phase_s > CNN_GANG_PHASE_S:
+        fail(f"phase 12b took {phase_s:.1f} s, over {CNN_GANG_PHASE_S}")
+    return {"losses": losses[0], "reference": ref["losses"],
+            "max_loss_diff": diff, "stats_rel": stats_rel,
+            "ranks": [{k: v for k, v in r.items()
+                       if k not in ("bn_mean", "bn_var")} for r in ranks],
+            "phase_s": phase_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -6914,6 +7359,8 @@ def main() -> int:
         moe_mesh_counts, moe_mesh_info = moe_mesh_phase(torch, flash,
                                                         workdir)
         phase_done("7i MoE mesh")
+        ada_counts, ada_info = adafactor_mesh_phase(torch, flash, workdir)
+        phase_done("7j adafactor mesh")
         log(f"train, single pass + adamw against two-pass + adafactor: "
             f"median step {train_info['step_ms']:.1f} / "
             f"{two_pass_info['step_ms']:.1f} ms, MFU "
@@ -6931,6 +7378,8 @@ def main() -> int:
         phase_done("11 CNN serve")
         cnn_train_info = train_cnn_phase(torch, flash, workdir)
         phase_done("12 CNN train")
+        cnn_train_info["gang"] = cnn_gang_phase(torch, flash, workdir)
+        phase_done("12b CNN gang")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -6953,7 +7402,8 @@ def main() -> int:
                                    "ring_train": ring_train_counts[name],
                                    "tensor": tensor_counts[name],
                                    "pipeline": pipe_counts[name],
-                                   "moe_mesh": moe_mesh_counts[name]}
+                                   "moe_mesh": moe_mesh_counts[name],
+                                   "adafactor_mesh": ada_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
     for name, row in two_pass_rows.items():
@@ -6971,7 +7421,8 @@ def main() -> int:
                                    "ring_train": ring_train_counts[name],
                                    "tensor": tensor_counts[name],
                                    "pipeline": pipe_counts[name],
-                                   "moe_mesh": moe_mesh_counts[name]}
+                                   "moe_mesh": moe_mesh_counts[name],
+                                   "adafactor_mesh": ada_counts[name]}
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
@@ -6989,7 +7440,8 @@ def main() -> int:
                                  "ring_train": ring_train_info,
                                  "tensor": tensor_info,
                                  "pipeline": pipe_info,
-                                 "moe_mesh": moe_mesh_info},
+                                 "moe_mesh": moe_mesh_info,
+                                 "adafactor_mesh": ada_info},
                     "checkpoint": ckpt_info,
                     "cnn_serve": cnn_serve_info,
                     "cnn_train": cnn_train_info}))

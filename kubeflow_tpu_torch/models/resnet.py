@@ -19,6 +19,13 @@ to the flax modules by tests/test_torch_resnet.py.  What carries over:
     E[x^2] - E[x]^2, reduced in float32 and clipped at 0 (torch's
     training-mode batch norm would update with the unbiased variance);
     the output cast to the compute dtype;
+  - under a data-parallel mesh (``set_batch_group``, the ranks that hold
+    other rows of the batch) BatchNorm's statistics are the global
+    batch's, as flax's are under pjit (``axis_name=None``, XLA reducing
+    over the sharded batch): the per-channel float32 sums of x and x^2
+    and the count are summed over the group, the gradient through them
+    summed over it too (parallel/tensor.py ``sum_over_ranks``), so the
+    running averages come out equal on every rank;
   - the last BatchNorm scale of every block starts at zero, so a fresh
     network's residual branches are zero;
   - parameter names are flax's (``conv_init``, ``bn_init``,
@@ -48,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.transformer import _lecun_normal
+from kubeflow_tpu_torch.parallel import tensor as tp
 
 Stats = Dict[str, Any]
 Pair = Tuple[int, int]
@@ -151,8 +159,12 @@ class BatchNorm(nn.Module):
     the running averages updated with them; in eval, y uses ``stats``
     (torch's fused batch norm, the same arithmetic) and ``new_stats`` is
     ``stats``.  The arithmetic runs in float32 and y is cast to the
-    compute dtype.
+    compute dtype.  ``group`` (``set_batch_group``): the process group
+    of the ranks holding the batch's other rows, over which the training
+    statistics are taken; None for the rank's own batch.
     """
+
+    group = None
 
     def __init__(self, features: int, momentum: float, epsilon: float,
                  dtype: torch.dtype = torch.bfloat16,
@@ -183,9 +195,18 @@ class BatchNorm(nn.Module):
         # the variance by Welford's method and would own the running
         # update (with the unbiased variance).
         xf = x.to(torch.float32)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp(torch.square(xf).mean(dim=(0, 2, 3))
-                          - torch.square(mean), min=0.0)
+        if self.group is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            square = torch.square(xf).mean(dim=(0, 2, 3))
+        else:
+            # The global batch's E[x] and E[x^2]: per-channel sums and
+            # the count over the group's ranks.
+            c = xf.shape[1]
+            sums = tp.sum_over_ranks(torch.cat([
+                xf.sum(dim=(0, 2, 3)), torch.square(xf).sum(dim=(0, 2, 3)),
+                xf.new_full((1,), xf.numel() // c)]), self.group)
+            mean, square = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        var = torch.clamp(square - torch.square(mean), min=0.0)
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
@@ -194,6 +215,19 @@ class BatchNorm(nn.Module):
             new = {"mean": m * stats["mean"] + (1 - m) * mean,
                    "var": m * stats["var"] + (1 - m) * var}
         return y.to(self.dtype), new
+
+
+def set_batch_group(module: nn.Module, group) -> None:
+    """Take every BatchNorm's training statistics of ``module`` over the
+    ranks of ``group`` (the ranks that hold the batch's other rows); None
+    or a group of one: each rank's own batch."""
+    import torch.distributed as dist
+
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 def collect_stats(module: nn.Module) -> Stats:

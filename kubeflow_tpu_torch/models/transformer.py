@@ -86,15 +86,20 @@ raises ``NotPortedError`` (ROADMAP queue 1 item 27) before any
 collective.  The aux loss is the global one: its statistics are summed
 over the ranks of other rows and positions, and under a pipeline the
 stages' sum (``pipelined_scan``'s ``with_aux``) is divided by the
-microbatches and averaged over the sequence shards, as JAX's is.  A
-known difference under pipeline x data (or fsdp): each rank microbatches
-its own rows, so the global microbatch m joins every rank's m-th slice
-of its rows, where JAX's is the global rows [m B/M, (m + 1) B/M).  The
-dense loss does not depend on the grouping; the aux, a product of each
-microbatch's means, and its routing groups do, so the port on the
-ranks' rows equals JAX on the global batch reordered to the port's
-microbatches (tests/test_torch_moe_mesh.py's ``moe_pipe8``), not on the
-same global batch.
+microbatches and averaged over the sequence shards, as JAX's is.
+
+Under pipeline x data (or fsdp) with M > 1 microbatches, JAX's
+microbatch m is the global rows [m B/M, (m + 1) B/M), spread over the D
+= data x fsdp ranks of a stage.  ``lm_task`` therefore exchanges the
+batch's rows among those ranks before the model (``microbatch_rows``,
+``to_microbatch_order``: the integer tokens, all-gathered over the group
+``group_over(mesh, (DATA, FSDP))``, staged through host memory on
+gloo): rank r's local microbatch m is then global rows m B/M + r B/(M D)
++ [0, B/(M D)), its share of JAX's microbatch m, and the MoE aux, a
+product of each microbatch's means, and its routing groups follow JAX's
+microbatches on the same global batch.  The targets are taken from the
+exchanged tokens, and a dropout mask keeps the rows the rank holds
+(``rank_dropout_mask``'s ``n_micro``).
 
 Remat (``cfg.remat``) checkpoints each block with ``torch.utils.checkpoint``
 under the JAX package's policies (``_remat_policy``).  With flash attention
@@ -140,6 +145,7 @@ from kubeflow_tpu_torch.parallel.ring import (
     from_next_rank,
     make_ring_attention,
 )
+from kubeflow_tpu_torch.parallel import p2p
 from kubeflow_tpu_torch.parallel import tensor as tp
 from kubeflow_tpu_torch.parallel.mesh import (
     DATA,
@@ -506,21 +512,65 @@ def dropout_mask(shape, rate: float, generator: torch.Generator,
 
 
 def rank_dropout_mask(shape, rate: float, generator: torch.Generator,
-                      device, mesh) -> torch.Tensor:
+                      device, mesh, n_micro: int = 0) -> torch.Tensor:
     """This rank's keep mask for activations of local ``shape`` [b, s,
-    e]: its rows (its data x fsdp shard) and positions (its sequence
-    shard) of the mask ``dropout_mask`` draws at the global shape, so the
-    masks of a mesh are those of one device on the global batch, and
-    every rank of a ``tensor`` group keeps the same one.  Each rank draws
-    the whole global mask (data x fsdp x sequence times its own)."""
-    rows, n_rows = _row_shard(mesh)
+    e]: its rows (``microbatch_rows``: its data x fsdp shard, or under a
+    pipeline of ``n_micro`` microbatches its rows of JAX's microbatches)
+    and positions (its sequence shard) of the mask ``dropout_mask`` draws
+    at the global shape, so the masks of a mesh are those of one device
+    on the global batch, and every rank of a ``tensor`` group keeps the
+    same one.  Each rank draws the whole global mask (data x fsdp x
+    sequence times its own)."""
+    _, n_rows = _row_shard(mesh)
     pos, n_pos = _sequence_shard(mesh)
     if n_rows * n_pos == 1:
         return dropout_mask(shape, rate, generator, device)
     b, s = shape[0], shape[1]
     keep = dropout_mask((b * n_rows, s * n_pos, *shape[2:]), rate,
                         generator, device)
-    return keep[rows * b:(rows + 1) * b, pos * s:(pos + 1) * s].contiguous()
+    rows = microbatch_rows(b, mesh, n_micro).to(keep.device)
+    return keep[rows, pos * s:(pos + 1) * s].contiguous()
+
+
+def _exchanges_rows(mesh, n_micro: int) -> bool:
+    """Whether a pipelined stage's batch goes to JAX's microbatch order:
+    under ``pipeline`` > 1 with data x fsdp and the microbatches each
+    above 1."""
+    return (n_micro > 1 and pipeline_stage(mesh)[1] > 1
+            and _row_shard(mesh)[1] > 1)
+
+
+def microbatch_rows(b: int, mesh, n_micro: int = 0) -> torch.Tensor:
+    """The global row of each of this rank's ``b`` rows: its data x fsdp
+    shard r of D, rows [r b, (r + 1) b); under a pipeline of ``n_micro``
+    > 1 microbatches (``_exchanges_rows``), its share of each of JAX's
+    microbatches, local microbatch m (rows [m b/M, (m + 1) b/M)) holding
+    global rows m B/M + r b/M + [0, b/M)."""
+    r, count = _row_shard(mesh)
+    if not _exchanges_rows(mesh, n_micro):
+        return torch.arange(r * b, (r + 1) * b)
+    if b % n_micro:
+        raise ValueError(f"batch {b} not divisible by pipeline_microbatches"
+                         f"={n_micro}")
+    mb = b // n_micro
+    return (torch.arange(n_micro)[:, None] * (count * mb) + r * mb
+            + torch.arange(mb)[None]).flatten()
+
+
+def to_microbatch_order(rows: torch.Tensor, mesh, n_micro: int
+                        ) -> torch.Tensor:
+    """This rank's ``rows`` [b, ...] of the global batch (its contiguous
+    data x fsdp shard) exchanged for its rows of JAX's microbatches
+    (``microbatch_rows``): the ranks of other rows at this stage, tensor,
+    expert and sequence index all-gather theirs (integers, no gradient;
+    staged through host memory on gloo) and each keeps its own.  ``rows``
+    itself where no exchange applies."""
+    if not _exchanges_rows(mesh, n_micro):
+        return rows
+    every = p2p.all_gather(rows, group_over(mesh, (DATA, FSDP)))
+    whole = every.reshape(-1, *rows.shape[1:])
+    return whole[microbatch_rows(rows.shape[0], mesh, n_micro).to(
+        whole.device)]
 
 
 def _dropped(y: torch.Tensor, keep: torch.Tensor, rate: float
@@ -802,7 +852,7 @@ class Transformer(nn.Module):
             for layer in range(cfg.n_layers):
                 pair = tuple(rank_dropout_mask(x.shape, cfg.dropout_rate,
                                                generator, x.device,
-                                               self.mesh)
+                                               self.mesh, n_micro)
                              for _ in range(2))
                 if 0 <= layer - stage.offset < stage.layers:
                     masks[layer - stage.offset] = pair
@@ -942,7 +992,10 @@ def lm_task(cfg: TransformerConfig, device=None,
 
     Under a mesh (the ``DeviceMesh`` of the trainer's ``Trainer(mesh=...)``)
     the batch is this rank's shard, rows over (data, fsdp) and, with
-    ``sequence`` above 1, its sequence shard, and the loss is the JAX
+    ``sequence`` above 1, its sequence shard; under a pipeline of
+    microbatches with data x fsdp above 1 the loss first exchanges those
+    rows for the rank's share of JAX's microbatches
+    (``to_microbatch_order``).  The loss is the JAX
     package's over the global batch: the targets are the global
     sequence's (each shard's last position predicts the first token of
     the next shard, taken from the next rank of the sequence group), only
@@ -1066,6 +1119,9 @@ def lm_task(cfg: TransformerConfig, device=None,
                 ) -> Tuple[torch.Tensor, Tuple[Dict[str, torch.Tensor], dict]]:
         del mutable  # no mutable collections
         tokens = batch["tokens"]
+        if mesh is not None:
+            tokens = to_microbatch_order(tokens, mesh,
+                                         cfg.pipeline_microbatches)
         out, aux = model(tokens, deterministic=False, generator=rng,
                          return_hidden=cfg.ce_chunk > 0, return_aux=True)
         loss = _global_loss(mean_ce(out, tokens), summed_over)

@@ -1,8 +1,10 @@
-"""Point-to-point transfers, broadcasts and out-of-place all-reduces
-between the ranks of one process group, shared by ring attention
-(parallel/ring.py), the GPipe schedule (parallel/pipeline.py), the MoE
-layer's global statistics (models/moe.py), adafactor's stage statistics
-(runtime/optim.py) and serving's forward-only reduce
+"""Point-to-point transfers, broadcasts, out-of-place all-reduces and
+all-gathers between the ranks of one process group, shared by ring
+attention (parallel/ring.py), the GPipe schedule (parallel/pipeline.py)
+and its exchange of rows into JAX's microbatches (models/transformer.py),
+the MoE layer's global statistics (models/moe.py), adafactor's
+statistics under a split (runtime/optim.py), BatchNorm's global
+statistics (models/resnet.py) and serving's forward-only reduce
 (parallel/tensor.py).
 
 On a gloo group a CUDA tensor is staged through host memory (``staged``):
@@ -120,3 +122,16 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
         if staged(t.device, group) else t.detach().contiguous().clone()
     dist.all_reduce(buf, group=group)
     return buf.to(t.device)
+
+
+def all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` (one shape on every rank) stacked in the
+    group's rank order, ``[ranks, *t.shape]`` on ``t``'s device, outside
+    autograd."""
+    import torch.distributed as dist
+
+    buf = t.detach().cpu() if staged(t.device, group) \
+        else t.detach().contiguous()
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, buf, group=group)
+    return torch.stack(parts).to(t.device)

@@ -33,11 +33,12 @@ blocks are replicated over the group:
 
 ``TensorShard`` names the share of a whole tensor a rank holds (the dim,
 the rank's index and the count along it, the mesh axis and its group:
-``tensor``; ``expert`` for an MoE weight's experts, models/moe.py; or for
-adafactor's statistics of a stage's stacked layers ``pipeline``), and a
-second split over another axis where there is one (an MoE ``wi`` under
-expert x tensor); ``mark`` attaches it to a tensor and ``shard_of``
-reads it back.
+``tensor``; ``expert`` for an MoE weight's experts, models/moe.py; for
+adafactor's statistics of a stage's stacked layers ``pipeline``, and of
+FSDP2's shards ``fsdp``, whose slices may be uneven: torch.chunk's, the
+last ones shorter or empty), and a second split over another axis where
+there is one (an MoE ``wi`` under expert x tensor); ``mark`` attaches it
+to a tensor and ``shard_of`` reads it back.
 ``mark_stage`` and ``stage_of`` do the same with the pipeline ``Stage``
 (parallel/pipeline.py) of a tensor that belongs to one of a stage's
 layers.  The model marks the parameters it splits and its stage's
@@ -66,10 +67,13 @@ class TensorShard:
     """Share ``index`` of ``count`` equal slices along ``dim`` of a whole
     tensor, held by that rank of the process ``group`` of mesh ``axis``
     (``tensor``; ``expert`` for an MoE weight's experts; ``pipeline`` for
-    a stage's rows of adafactor's statistics).  ``then`` is a second
-    split of the same tensor over another axis, or None: an MoE ``wi``
-    under expert x tensor holds its experts' slice of the expert dim and
-    its slice of the mlp dim."""
+    a stage's rows of adafactor's statistics; ``fsdp`` for their FSDP2
+    shards).  ``size`` is the whole dim's size where the slices may be
+    uneven (FSDP2's torch.chunk split: slices of ceil(size / count), the
+    last ones shorter or empty); None for ``count`` equal slices.
+    ``then`` is a second split of the same tensor over another axis, or
+    None: an MoE ``wi`` under expert x tensor holds its experts' slice of
+    the expert dim and its slice of the mlp dim."""
 
     dim: int
     index: int
@@ -77,32 +81,53 @@ class TensorShard:
     group: Any
     axis: str = "tensor"
     then: Optional["TensorShard"] = None
+    size: Optional[int] = None
+
+    def _span(self, n: int) -> Tuple[int, int]:
+        """(start, length) of this rank's torch.chunk slice of a dim of
+        ``n``: slices of ceil(n / count), the last ones shorter or
+        empty."""
+        step = -(-n // self.count)
+        start = min(self.index * step, n)
+        return start, min(step, n - start)
 
     def take(self, whole):
         """This rank's slice of ``whole`` (a tensor, or an int8
         ``QTensor`` whose scale is sliced with its values)."""
-        if whole.shape[self.dim] % self.count:
+        if self.size is None and whole.shape[self.dim] % self.count:
             raise ValueError(
                 f"dim {self.dim} of {tuple(whole.shape)} does not split "
                 f"over {self.count} {self.axis} ranks")
-        part = whole.chunk(self.count, dim=self.dim)[self.index]
+        if self.size is None:
+            part = whole.chunk(self.count, dim=self.dim)[self.index]
+        else:
+            part = whole.narrow(self.dim, *self._span(whole.shape[self.dim]))
         return part if self.then is None else self.then.take(part)
 
     def whole_shape(self, shape) -> Tuple[int, ...]:
         out = list(shape)
-        out[self.dim] *= self.count
+        out[self.dim] = (out[self.dim] * self.count if self.size is None
+                         else self.size)
         return tuple(out) if self.then is None else \
             self.then.whole_shape(out)
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """The whole tensor from every rank's ``local`` slice (a
-        collective over the group, then over ``then``'s)."""
+        collective over the group, then over ``then``'s; uneven slices
+        travel padded to the longest and are cut back)."""
         import torch.distributed as dist
 
         local = local.detach().contiguous()
+        step = None if self.size is None else -(-self.size // self.count)
+        if step is not None and local.shape[self.dim] < step:
+            pad = list(local.shape)
+            pad[self.dim] = step - local.shape[self.dim]
+            local = torch.cat([local, local.new_zeros(pad)], dim=self.dim)
         parts = [torch.empty_like(local) for _ in range(self.count)]
         dist.all_gather(parts, local, group=self.group)
         whole = torch.cat(parts, dim=self.dim)
+        if step is not None:
+            whole = whole.narrow(self.dim, 0, self.size)
         return whole if self.then is None else self.then.gather(whole)
 
     def axes(self) -> Tuple[str, ...]:
@@ -168,6 +193,27 @@ class _ReduceFromParallel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumOverRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+def sum_over_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` forward, and of its gradient over
+    ``group`` backward: a value every rank's loss reads (BatchNorm's
+    statistics over the data ranks, models/resnet.py), whose gradient on
+    each rank gathers what every rank's loss sends back; staged through
+    host memory on gloo (parallel/p2p.py).  ``x`` itself when ``group``
+    is None."""
+    return x if group is None else _SumOverRanks.apply(x, group)
 
 
 def copy_to_parallel(x: torch.Tensor, group) -> torch.Tensor:

@@ -42,13 +42,15 @@ is one rank's slice over the ``tensor`` or ``expert`` axis (its
 ``TensorShard``, parallel/tensor.py: the split weights of a
 tensor-parallel model, an MoE model's experts, and their moments) is
 gathered over its group too (over both, for an MoE weight split over
-both), after FSDP2's gather.
+both), after FSDP2's gather.  adafactor's statistics are plain tensors
+marked with the ``TensorShard`` chain of the dims they keep (uneven
+``fsdp`` links for FSDP2's shards, ``pipeline`` for a stage's layers,
+runtime/optim.py) and gather over each group the same way.
 Under ``pipeline`` above 1 each stage holds its own layers (marked with
 their ``Stage``, parallel/pipeline.py): a save gathers every stage's
 layer parameters under their global names and every stage's entries of
-the optimizer's per-parameter lists, in stage order, and adafactor's
-stacked statistics over the pipeline group (their ``TensorShard``); the
-replicated parameters are this rank's.  The files are those of a
+the optimizer's per-parameter lists, in stage order; the replicated
+parameters are this rank's.  The files are those of a
 one-device save, each weight whole in the JAX layout, so a trainer
 without a mesh resumes them.  A restore reads the full state on every
 rank and keeps each rank's shards of the sharded tensors: its stage's

@@ -35,19 +35,38 @@ module writes optax's arithmetic out:
 All take the parameters and gradients as a name -> tensor mapping (as
 ``Trainer`` passes them, in ``named_parameters()`` order); adamw and sgd
 also take plain sequences.  Under a mesh whose ``fsdp`` axis is above 1
-the trainer hands adamw and sgd the sharded parameters (DTensors: their
-elementwise arithmetic runs on each shard, and the moments are sharded
-as their parameters are); a parameter that is a slice over ``tensor``
-(parallel/tensor.py), or over ``expert`` (an MoE weight's experts),
-passes its ``TensorShard`` on to its moments.  adafactor refuses all
-three, as its factored statistics and block RMS would span the sharded
-dim (ROADMAP queue 1 item 24).  Under ``pipeline`` > 1 a stage's
-layered leaves stack its own layers (``leaf_groups`` on its local
-names): their factored statistics are its rows of the whole leaf's (the
-layer dim is never factored at the repo's configurations, and a leaf
-whose would be raises item 24's ``NotPortedError``), marked as such for
-checkpoints, and the block RMS of a leaf sums its squares over the
-stages.
+the trainer hands the optimizers the sharded parameters (DTensors: adamw
+and sgd run their elementwise arithmetic on each shard, and the moments
+are sharded as their parameters are); a parameter that is a slice over
+``tensor`` (parallel/tensor.py), or over ``expert`` (an MoE weight's
+experts), passes its ``TensorShard`` on to its moments.
+
+adafactor computes on every rank what optax.adafactor computes on the
+whole JAX leaf, whatever split the leaf is under: FSDP2's ``Shard(dim)``
+(read from the DTensor's placements; its local tensor, torch.chunk's
+slice, holds no padding), ``TensorShard`` slices over ``tensor`` and
+``expert`` (chained over expert x tensor), and under ``pipeline`` > 1 a
+stage's L/S layers (``leaf_groups`` on its local names stack its own
+layers: the stacked leaf is split over ``pipeline`` on its layer dim).
+Each rank's leaf is its local tensors, with the splits of their dims
+(``_layout``):
+
+  - the factored dims are the whole leaf's (``_factored_dims`` of its
+    global shape, never of the local one);
+  - a mean over a dim is the local sum, all-reduced over every group
+    that splits that dim, over the whole dim's size: ``v_row`` (over
+    d0), ``v_col`` (over d1) and ``row_col_mean`` (``v_row`` over d1);
+  - a statistic keeps the split of every dim it keeps and is replicated
+    over the groups of the dim it reduces: ``v`` (unfactored) is sharded
+    as its parameter; ``v_row`` is replicated over d0's groups and
+    sharded over the others, ``v_col`` likewise over d1's.  Each is
+    marked with its ``TensorShard`` chain (uneven ``fsdp`` links for
+    FSDP2's shards), so checkpoints gather it to JAX's layout;
+  - the block RMS of clip_by_block_rms and of scale_by_param_block_rms
+    sums squares over every group that splits the leaf, over the whole
+    leaf's size.
+
+A leaf under no split computes as one device does.
 
 The fused trainer (runtime/hfta.py) steps N members whose leaves and
 states are stacked on a leading member axis.  Its optimizer is
@@ -91,6 +110,7 @@ from typing import (
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.parallel import p2p
 from kubeflow_tpu_torch.parallel import tensor as tp
 
 Schedule = Callable[[int], float]
@@ -318,9 +338,10 @@ def _factored_dims(shape: Sequence[int]) -> Optional[Tuple[int, int]]:
 @dataclasses.dataclass
 class AdafactorState:
     """Updates taken so far (host int) and, per JAX leaf name, optax's
-    factored statistics in the stacked leaf's shapes: ``v_row`` and
-    ``v_col`` for a factored leaf (``v`` a [1] placeholder), ``v`` for
-    the others (``v_row``, ``v_col`` placeholders), all float32."""
+    factored statistics in the stacked leaf's shapes (this rank's share
+    of them under a split, module docstring): ``v_row`` and ``v_col`` for
+    a factored leaf (``v`` a [1] placeholder), ``v`` for the others
+    (``v_row``, ``v_col`` placeholders), all float32."""
 
     count: int
     v_row: Dict[str, torch.Tensor]
@@ -328,22 +349,119 @@ class AdafactorState:
     v: Dict[str, torch.Tensor]
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view of its storage); any other tensor
+    itself."""
+    to_local = getattr(t, "to_local", None)
+    return to_local() if callable(to_local) else t
+
+
+def _is_layered(members: List[str]) -> bool:
+    return members[0].startswith("layers.")
+
+
 def _leaf(tensors: Mapping[str, torch.Tensor], members: List[str]
           ) -> torch.Tensor:
-    """The JAX leaf of ``members``: stacked [L, ...] for layers (a copy),
-    the tensor itself for a leaf of its own."""
-    if len(members) == 1 and not members[0].startswith("layers."):
-        return tensors[members[0]]
-    return torch.stack([tensors[n] for n in members])
+    """This rank's part of the JAX leaf of ``members``: its local
+    tensors stacked [L, ...] for layers (a copy), the local tensor itself
+    for a leaf of its own."""
+    if not _is_layered(members):
+        return _local(tensors[members[0]])
+    return torch.stack([_local(tensors[n]) for n in members])
 
 
 def _member_leaf(tensors: Mapping[str, torch.Tensor], members: List[str]
                  ) -> torch.Tensor:
     """``_leaf`` of stacked members: [M, L, ...] for layers (a copy), the
     [M, ...] tensor itself for a leaf of its own."""
-    if len(members) == 1 and not members[0].startswith("layers."):
+    if not _is_layered(members):
         return tensors[members[0]]
     return torch.stack([tensors[n] for n in members], dim=1)
+
+
+def _fsdp_splits(t: torch.Tensor) -> List[tp.TensorShard]:
+    """FSDP2's splits of a DTensor ``t``: one uneven ``fsdp`` split for
+    each mesh dim it is sharded over (its ``Shard(dim)`` placements),
+    none for another tensor."""
+    if not callable(getattr(t, "to_local", None)):
+        return []
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    return [tp.TensorShard(placement.dim, coord[i], mesh.size(i),
+                           mesh.get_group(i), "fsdp",
+                           size=t.shape[placement.dim])
+            for i, placement in enumerate(t.placements)
+            if placement.is_shard()]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """A JAX leaf's whole shape and this rank's splits of it: one
+    ``TensorShard`` (no ``then``) per split, its dim the leaf's."""
+
+    whole: Tuple[int, ...]
+    splits: Tuple[tp.TensorShard, ...]
+
+    def groups(self, dim: Optional[int] = None) -> List:
+        """The groups that split ``dim`` (every dim when None)."""
+        return [s.group for s in self.splits if dim is None or s.dim == dim]
+
+    def mark(self, t: torch.Tensor, removed: Optional[int]) -> torch.Tensor:
+        """``t``, a statistic of the leaf without dim ``removed`` (None:
+        all of its dims), marked with the splits of the dims it keeps."""
+        chain = None
+        for s in self.splits:
+            if s.dim == removed:
+                continue
+            dim = s.dim - int(removed is not None and s.dim > removed)
+            chain = dataclasses.replace(s, dim=dim, then=chain)
+        return tp.mark(t, chain)
+
+
+def _layout(params: Mapping[str, torch.Tensor], members: List[str]
+            ) -> _Layout:
+    """The layout of the JAX leaf of ``members``: FSDP2's splits of its
+    DTensors, then their ``TensorShard`` slices over ``tensor`` and
+    ``expert``, then for a stage's layers the ``pipeline`` split of the
+    layer dim."""
+    first = params[members[0]]
+    splits = _fsdp_splits(first)
+    shard = tp.shard_of(first)
+    whole = tuple(first.shape) if shard is None else \
+        shard.whole_shape(first.shape)
+    while shard is not None:
+        splits.append(dataclasses.replace(shard, then=None))
+        shard = shard.then
+    if not _is_layered(members):
+        return _Layout(whole, tuple(splits))
+    splits = [dataclasses.replace(s, dim=s.dim + 1) for s in splits]
+    stage = tp.stage_of(first)
+    layers = len(members)
+    if stage is not None:
+        layers *= stage.count
+        splits.append(tp.TensorShard(0, stage.index, stage.count,
+                                     stage.group, "pipeline"))
+    return _Layout((layers,) + whole, tuple(splits))
+
+
+def _sum_over(t: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """The sum of ``t`` over each of ``groups`` in turn (orthogonal
+    axes of the mesh: their product's sum)."""
+    for group in groups:
+        t = p2p.all_reduce(t, group)
+    return t
+
+
+def _mean(t: torch.Tensor, dim: int, layout: _Layout, leaf_dim: int,
+          keepdim: bool = False) -> torch.Tensor:
+    """The mean of the whole leaf's values along its dim ``leaf_dim``
+    (``dim`` of ``t``): the local sum all-reduced over the groups that
+    split that dim, over its whole size; ``t.mean`` where none does."""
+    groups = layout.groups(leaf_dim)
+    if not groups:
+        return t.mean(dim, keepdim=keepdim)
+    return _sum_over(t.sum(dim, keepdim=keepdim), groups) \
+        / layout.whole[leaf_dim]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -364,43 +482,32 @@ class Adafactor:
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdafactorState:
         _check_float32("adafactor", _values(params))
-        if any(callable(getattr(p, "to_local", None))
-               or tp.shard_of(p) is not None for p in _values(params)):
-            from kubeflow_tpu_torch import NotPortedError
-
-            raise NotPortedError(
-                "adafactor on parameters sharded over fsdp > 1, tensor > 1 "
-                "or expert > 1 is not ported yet (its factored statistics "
-                "and block RMS span the sharded dim): ROADMAP queue 1 item "
-                "24")
         state = AdafactorState(count=0, v_row={}, v_col={}, v={})
         for leaf, members in self._groups(params).items():
-            first = params[members[0]]
-            stage = tp.stage_of(first)
-            shape = list(first.shape)
-            if members[0].startswith("layers."):
+            layout = _layout(params, members)
+            local = _local(params[members[0]])
+            shape = list(local.shape)
+            if _is_layered(members):
                 shape = [len(members)] + shape
-            dims = _factored_dims(shape)
-            if stage is not None:
-                _check_stage_split(leaf, shape, stage)
-            # A stage's statistics are its rows of the whole leaf's.
-            rows = None if stage is None else tp.TensorShard(
-                0, stage.index, stage.count, stage.group, "pipeline")
+            dims = _factored_dims(layout.whole)
 
-            def zeros(s, marked=True):
-                return tp.mark(torch.zeros(s, dtype=torch.float32,
-                                           device=first.device),
-                               rows if marked else None)
+            def zeros(s, removed=None):
+                return layout.mark(torch.zeros(s, dtype=torch.float32,
+                                               device=local.device), removed)
+
+            def placeholder():
+                return torch.zeros(1, dtype=torch.float32,
+                                   device=local.device)
 
             if dims is None:
-                state.v_row[leaf] = zeros(1, marked=False)
-                state.v_col[leaf] = zeros(1, marked=False)
+                state.v_row[leaf] = placeholder()
+                state.v_col[leaf] = placeholder()
                 state.v[leaf] = zeros(shape)
             else:
                 d1, d0 = dims
-                state.v_row[leaf] = zeros(np.delete(shape, d0).tolist())
-                state.v_col[leaf] = zeros(np.delete(shape, d1).tolist())
-                state.v[leaf] = zeros(1, marked=False)
+                state.v_row[leaf] = zeros(np.delete(shape, d0).tolist(), d0)
+                state.v_col[leaf] = zeros(np.delete(shape, d1).tolist(), d1)
+                state.v[leaf] = placeholder()
         return state
 
     def lr(self, count: int) -> float:
@@ -416,25 +523,24 @@ class Adafactor:
         decay = float(np.float32(1.0) - t ** np.float32(-DECAY_RATE))
         lr = self.lr(state.count)
         for leaf, members in self._groups(params).items():
+            layout = _layout(params, members)
             g = _leaf(grads, members)
             p = _leaf(params, members)
-            u = self._scaled(leaf, g, state, decay)
-            stage = tp.stage_of(params[members[0]])
+            u = self._scaled(leaf, g, state, decay, layout)
             # clip_by_block_rms(1.0): u / max(1, rms(u) / threshold).
-            rms_u = _block_rms(u, stage)
+            rms_u, rms_p = _block_rms(u, p, layout)
             u = u / torch.clamp(rms_u / CLIPPING_THRESHOLD, min=1.0)
             # scale_by_learning_rate, then scale_by_param_block_rms.
             u = u * lr
-            rms_p = _block_rms(p, stage)
             u = u * torch.where(rms_p <= MIN_PARAM_SCALE,
                                 torch.full_like(rms_p, MIN_PARAM_SCALE),
                                 rms_p)
             # scale(-1), applied.
-            if len(members) == 1 and not members[0].startswith("layers."):
-                params[members[0]].sub_(u)
-            else:
-                torch._foreach_sub_([params[n] for n in members],
+            if _is_layered(members):
+                torch._foreach_sub_([_local(params[n]) for n in members],
                                     list(u.unbind(0)))
+            else:
+                _local(params[members[0]]).sub_(u)
         state.count += 1
 
     @torch.no_grad()
@@ -452,7 +558,6 @@ class Adafactor:
         decay = 1.0 - (t.double() ** -DECAY_RATE).float()
         fresh = (1.0 - decay.double()).float()
         for leaf, members in self._groups(params).items():
-            layered = members[0].startswith("layers.")
             g = _member_leaf(grads, members)
             p = _member_leaf(params, members)
             dims = _factored_dims(list(g.shape[1:]))
@@ -484,7 +589,7 @@ class Adafactor:
                                       torch.full_like(rms_p, MIN_PARAM_SCALE),
                                       rms_p), u)
             p_new = p - u
-            if layered:
+            if _is_layered(members):
                 news = [(params[n], p_new[:, i]) for i, n in enumerate(members)]
             else:
                 news = [(params[members[0]], p_new)]
@@ -493,52 +598,43 @@ class Adafactor:
 
     @staticmethod
     def _scaled(leaf: str, g: torch.Tensor, state: AdafactorState,
-                decay: float) -> torch.Tensor:
-        """scale_by_factored_rms on one leaf: updates the leaf's
-        statistics in place and returns g scaled by their inverse root."""
+                decay: float, layout: _Layout) -> torch.Tensor:
+        """scale_by_factored_rms on this rank's part of one leaf: updates
+        its statistics in place and returns g scaled by their inverse
+        root (the means over split dims all-reduced, module
+        docstring)."""
         g_sqr = g * g + FACTORED_EPS
-        dims = _factored_dims(list(g.shape))
+        dims = _factored_dims(layout.whole)
         if dims is None:
-            v = state.v[leaf]
+            v = _local(state.v[leaf])
             v.mul_(decay).add_(g_sqr, alpha=1.0 - decay)
             return g * torch.rsqrt(v)
         d1, d0 = dims
-        v_row, v_col = state.v_row[leaf], state.v_col[leaf]
-        v_row.mul_(decay).add_(g_sqr.mean(d0), alpha=1.0 - decay)
-        v_col.mul_(decay).add_(g_sqr.mean(d1), alpha=1.0 - decay)
+        v_row, v_col = _local(state.v_row[leaf]), _local(state.v_col[leaf])
+        v_row.mul_(decay).add_(_mean(g_sqr, d0, layout, d0),
+                               alpha=1.0 - decay)
+        v_col.mul_(decay).add_(_mean(g_sqr, d1, layout, d1),
+                               alpha=1.0 - decay)
         reduced_d1 = d1 - 1 if d1 > d0 else d1
-        row_col_mean = v_row.mean(reduced_d1, keepdim=True)
+        row_col_mean = _mean(v_row, reduced_d1, layout, d1, keepdim=True)
         row_factor = torch.rsqrt(v_row / row_col_mean)
         col_factor = torch.rsqrt(v_col)
         return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
 
 
-def _check_stage_split(leaf: str, shape: Sequence[int], stage) -> None:
-    """Refuse a stage's share of a stacked leaf whose whole ``[L, ...]``
-    would factor over its layer dim: its statistics would then span the
-    stages.  At the repo's configurations the layer dim is never one of
-    the two largest, so the factored statistics split by layer."""
-    whole = [shape[0] * stage.count] + list(shape[1:])
-    dims = _factored_dims(whole)
-    if dims is not None and 0 in dims:
-        from kubeflow_tpu_torch import NotPortedError
-
-        raise NotPortedError(
-            f"adafactor over pipeline stages for {leaf} {tuple(whole)}, "
-            "whose factored statistics span its layer dim, is not ported "
-            "yet: ROADMAP queue 1 item 24")
-
-
-def _block_rms(t: torch.Tensor, stage) -> torch.Tensor:
-    """sqrt(mean(t * t)) over the whole JAX leaf: ``t`` itself, or with
-    a pipeline ``stage`` every stage's rows of it (a sum of squares over
-    the pipeline group)."""
-    if stage is None:
-        return torch.sqrt(torch.mean(t * t))
-    from kubeflow_tpu_torch.parallel.p2p import all_reduce
-
-    total = all_reduce(torch.sum(t * t), stage.group)
-    return torch.sqrt(total / (t.numel() * stage.count))
+def _block_rms(u: torch.Tensor, p: torch.Tensor, layout: _Layout
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sqrt(mean(t * t)) over the whole JAX leaf of the update ``u`` and
+    of the parameter ``p`` (this rank's parts): under splits, the local
+    sums of squares all-reduced together over every group that splits
+    the leaf, over the whole leaf's size."""
+    groups = layout.groups()
+    if not groups:
+        return torch.sqrt(torch.mean(u * u)), torch.sqrt(torch.mean(p * p))
+    sq = _sum_over(torch.stack([torch.sum(u * u), torch.sum(p * p)]),
+                   groups)
+    rms = torch.sqrt(sq / math.prod(layout.whole))
+    return rms[0], rms[1]
 
 
 def adafactor(learning_rate: ScalarOrSchedule) -> Adafactor:

@@ -15,10 +15,20 @@ with ``--data-dir``, the KFTR shards of ``{"image", "label"}`` examples
 under it through the record pipeline (data/).  ``--checkpoint-dir``
 saves verified checkpoints every ``--checkpoint-every`` steps, and a
 rerun resumes from the newest verified step.  MFU is reported over the
-card's bf16 peak (tools/train_lm.py's table).  A multi-process gang
-(``KFT_NUM_PROCESSES`` > 1) raises ``NotPortedError``: data parallelism
-over several cards, with BatchNorm's statistics reduced over the data
-ranks, is ROADMAP queue 1 item 23.
+card's bf16 peak (tools/train_lm.py's table).
+
+A multi-process gang (the operator's ``KFT_NUM_PROCESSES`` /
+``KFT_PROCESS_ID`` / ``KFT_COORDINATOR_ADDRESS``, or ``torchrun``; one
+GPU a process, or ``KFT_DIST_BACKEND=gloo`` when several share one)
+trains data-parallel as the JAX entry point does: ``MeshSpec(data=N)``
+over its N processes and ``Trainer(mesh=)``, each process on
+``--batch-size-per-device`` rows of its own (the KFTR shards split
+``RecordDataset(...).shard(process_id, N)``, the synthetic stream
+seeded with its process id), the step's examples the global batch, and
+BatchNorm's statistics the global batch's (models/classification.py).
+The trainer wraps the model with FSDP2 at its root over that mesh,
+which is data alone (fsdp 1): the parameters are replicated, and the
+gradients all-reduced over the data ranks once a step.
 """
 
 from __future__ import annotations
@@ -80,15 +90,7 @@ def run(argv=None):
     # chaos (train.step, checkpoint.*) drives a deployed container and
     # in-process tests.
     faults.install_from_env()
-    env = bootstrap.worker_env()
-    if env.is_distributed:
-        from kubeflow_tpu_torch import NotPortedError
-
-        raise NotPortedError(
-            f"a gang of {env.num_processes} processes is not ported yet: "
-            "data-parallel CNN training (BatchNorm statistics reduced over "
-            "the data ranks) is ROADMAP queue 1 item 23")
-    env = bootstrap.initialize(env)
+    env = bootstrap.initialize(device=args.device)
 
     import numpy as np
     import torch
@@ -110,18 +112,25 @@ def run(argv=None):
             logging.error("no *.kftr shards under %s", args.data_dir)
             return None
     device = resolve_device(args.device)
-    batch = args.batch_size_per_device  # one device
+    mesh = None
+    if env.is_distributed:
+        from kubeflow_tpu_torch.parallel.mesh import MeshSpec
+
+        mesh = MeshSpec(data=env.num_processes).build(device)
+    batch = args.batch_size_per_device  # this process's rows
     size = args.image_size
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     cfg = ResNetConfig(name=args.model, num_classes=args.num_classes,
                        dtype=dtype)
     init_fn, loss_fn = classification_task(
-        cfg.build(device=device), (1, size, size, 3), device=device)
+        cfg.build(device=device), (1, size, size, 3), device=device,
+        mesh=mesh)
     ckpt = (CheckpointManager(args.checkpoint_dir)
             if args.checkpoint_dir else None)
     trainer = Trainer(
         init_fn=init_fn, loss_fn=loss_fn,
         tx=optim.sgd(args.learning_rate, momentum=0.9), device=device,
+        mesh=mesh,
         checkpoints=ckpt, checkpoint_every=args.checkpoint_every,
         metrics=MetricsLogger(static={"job": env.job_name,
                                       "process": env.process_id}),
@@ -138,6 +147,8 @@ def run(argv=None):
                 shuffle_buffer=args.shuffle_buffer, seed=env.process_id,
                 repeat=-1,  # cycle forever; steps bound the run
             )
+            if env.num_processes > 1:
+                ds = ds.shard(env.process_id, env.num_processes)
             return tensor_batches(ds, batch)
     else:
         def data_factory():
@@ -155,7 +166,8 @@ def run(argv=None):
     supervisor = TrainSupervisor(
         trainer, max_restarts=args.max_restarts,
         stall_factor=args.stall_factor, heartbeat_s=args.heartbeat_s)
-    supervisor.run(data_factory, args.steps, examples_per_step=batch,
+    supervisor.run(data_factory, args.steps,
+                   examples_per_step=batch * env.num_processes,
                    log_every=args.log_every)
     logging.info("training done: %s", trainer.last_metrics)
     return trainer

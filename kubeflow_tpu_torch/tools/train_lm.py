@@ -30,9 +30,8 @@ data * fsdp)``, or a synthetic stream seeded with i.  ``--moe-experts N``
 (with ``--moe-capacity-factor``) trains the mixture-of-experts LM
 (models/moe.py; top-2, the einsum dispatch, as in the JAX entry point),
 under any mesh; its routing groups must not span ranks (ROADMAP queue 1
-item 27).  ``--optimizer adafactor`` over parameters split over fsdp,
-tensor or expert raises ``NotPortedError`` naming ROADMAP queue 1 item
-24.
+item 27).  ``--optimizer adafactor`` trains under every axis, its
+statistics those of the whole JAX leaves (runtime/optim.py).
 ``--optimizer adafactor``, ``--data-files``
 (KFTR shards of {"tokens": [s]} examples, data/) and
 ``--checkpoint-dir`` / ``--checkpoint-every`` (verified checkpoints,
@@ -84,13 +83,9 @@ def parse_mesh(flag: str) -> dict:
 
 def _not_ported(args, mesh_axes: dict) -> str:
     """The first flag this port does not serve yet, with its ROADMAP
-    item, or ''."""
-    split = [axis for axis in ("fsdp", "tensor", "expert")
-             if mesh_axes.get(axis, 1) > 1
-             and (axis != "expert" or args.moe_experts > 0)]
-    if args.optimizer == "adafactor" and split:
-        return (f"--optimizer adafactor over parameters split over "
-                f"{' and '.join(split)} (ROADMAP queue 1 item 24)")
+    item, or ''.  Every flag of the JAX entry point trains now; an MoE
+    routing group that spans ranks (item 27) depends on the shapes, and
+    the model refuses it before its first collective."""
     return ""
 
 

@@ -19,8 +19,10 @@ set ``moe_group_size`` to tile each rank's share:
     them within atol=rtol=1e-4; ``wi`` and ``wo`` hold JAX's shard shapes
     (half the experts, half the mlp dim) and the router stays whole; a
     gathered checkpoint that JAX's ``verify_step`` accepts and that a
-    trainer without a mesh restores exactly; adafactor refusing the
-    expert slices (item 24);
+    trainer without a mesh restores exactly; 5 adafactor steps over the
+    expert x tensor slices against the JAX ``Trainer`` with
+    ``optax.adafactor`` (loss, grad_norm, ``moe_aux`` within 1e-4
+    relative, the parameters within atol=rtol=1e-4);
   - ``moe_batch4`` (4 ranks): data=2, sequence=2 with the ring, groups
     of 16 (one rank's slice of a row), against the trainer without a
     mesh on the global batch (loss, grad_norm and ``moe_aux`` over 3
@@ -38,13 +40,15 @@ set ``moe_group_size`` to tile each rank's share:
     are a whole microbatch, which spans the two data ranks, so the port
     refuses them (item 27) and the job routes in groups of 16, a data
     rank's share of the microbatch, against JAX's pipelined ``lm_task``
-    at the same groups: loss and every gradient within atol 2e-4, rtol
+    at the same groups, each rank fed its contiguous rows of the global
+    batch (the loss exchanges them into JAX's microbatches, global rows
+    [m B/M, (m+1) B/M)): loss and every gradient within atol 2e-4, rtol
     1e-3 (JAX's own bounds there); the port's ``Trainer`` on that mesh,
-    each rank fed its contiguous rows, over 3 adamw steps against the JAX
-    ``Trainer`` on the global batch reordered so that JAX's microbatches
-    are the port's (each rank microbatches its own rows; JAX's
-    microbatch m is global rows [m B/M, (m+1) B/M), and the aux follows
-    the grouping), within those bounds; then test_transformer.py's
+    fed the same way, over 3 adamw steps against the JAX ``Trainer`` on
+    the same global batches, within those bounds; the rows each rank
+    holds after the exchange, and the aux it gives, against the aux of
+    the ranks' own contiguous microbatches (another number); then
+    test_transformer.py's
     ``test_pp_ring_moe_all_compose`` layout, pipeline=2, sequence=2,
     expert=2 with the ring (2 experts, M 2, in float32 where JAX's test
     runs bf16): one step's loss and ``moe_aux`` within 1e-4 of JAX's;
@@ -77,7 +81,6 @@ from kubeflow_tpu.parallel import MeshSpec as JaxMeshSpec
 from kubeflow_tpu.runtime.checkpoint import verify_step
 from kubeflow_tpu.runtime.metrics import MetricsLogger as JaxMetricsLogger
 from kubeflow_tpu.runtime.train import Trainer as JaxTrainer
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.models import moe
 from kubeflow_tpu_torch.models.convert import params_from_jax, params_to_jax
 from kubeflow_tpu_torch.models.transformer import TransformerConfig, lm_task
@@ -88,6 +91,7 @@ from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
 from kubeflow_tpu_torch.runtime.train import Trainer
 from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
 from kubeflow_tpu_torch.tools import train_lm
+from test_torch_adafactor import sharded_against_optax
 
 REPO = Path(__file__).resolve().parents[1]
 WORKER = str(REPO / "tests" / "torch_moe_mesh_worker.py")
@@ -147,12 +151,12 @@ def _quiet():
     return JaxMetricsLogger(stream=open("/dev/null", "w"))
 
 
-def _jax_moe8_trainer():
+def _jax_moe8_trainer(tx=None):
     """test_moe.py's expert-parallel trainer (its model built without a
-    mesh, as there) at the job's routing groups."""
+    mesh, as there) at the job's routing groups, with adamw or ``tx``."""
     init_fn, loss_fn = jax_lm_task(_jax_cfg(moe_group_size=MOE8_GROUP))
     return JaxTrainer(init_fn=init_fn, loss_fn=loss_fn,
-                      tx=optax.adamw(1e-3), metrics=_quiet(),
+                      tx=tx or optax.adamw(1e-3), metrics=_quiet(),
                       mesh=_jax_mesh(data=2, expert=2, tensor=2))
 
 
@@ -214,14 +218,6 @@ def _jax_steps(tree, batches, over, **mesh_spec):
     return metrics, jax.tree.map(np.asarray, state.params)
 
 
-def _trainer_order(batch, data=2, micro=PIPE["pipeline_microbatches"]):
-    """The global batch whose JAX microbatch m is the port trainer's: rank
-    d's m-th slice of its own contiguous rows, for d in order."""
-    b, s = batch.shape
-    return batch.reshape(data, micro, b // (data * micro), s).transpose(
-        1, 0, 2, 3).reshape(b, s)
-
-
 def _jax_pps(tr, state):
     state, m = tr.compile_step()(state, tr.shard_batch(
         {"tokens": _pps_tokens()}))
@@ -233,6 +229,7 @@ def both(tmp_path_factory):
     """The port's jobs run while the JAX side computes here."""
     work = tmp_path_factory.mktemp("moe_mesh")
     moe8_tr, pps_tr = _jax_moe8_trainer(), _jax_pps_trainer()
+    ada_tr = _jax_moe8_trainer(optax.adafactor(1e-3))
     moe8_state, pps_state = (moe8_tr.create_state(seed=0),
                              pps_tr.create_state(seed=0))
     tree = jax.tree.map(np.asarray, moe8_state.params)
@@ -259,6 +256,8 @@ def both(tmp_path_factory):
                    for name, n in JOBS.items()}
         jax_futures = {
             "moe8": pool.submit(_jax_moe8, moe8_tr, moe8_state),
+            "moe8_adafactor": pool.submit(_jax_moe8, ada_tr,
+                                          ada_tr.create_state(seed=0)),
             "pipe8": pool.submit(_jax_pipe8, tree),
             "pps": pool.submit(_jax_pps, pps_tr, pps_state),
             "batch4": pool.submit(
@@ -270,8 +269,7 @@ def both(tmp_path_factory):
                 dict(moe_impl="gather", moe_group_size=MOE8_GROUP),
                 fsdp=2, expert=2),
             "pipe_trainer": pool.submit(
-                _jax_steps, tree,
-                [_trainer_order(b) for b in _batches()[:PIPE_STEPS]], PIPE,
+                _jax_steps, tree, _batches()[:PIPE_STEPS], PIPE,
                 data=2, pipeline=2, expert=2),
         }
         jax_out = {name: f.result() for name, f in jax_futures.items()}
@@ -398,13 +396,27 @@ def test_partial_combines_sum_to_the_whole_layer(impl, split):
         torch.testing.assert_close(joined, getattr(layer, name).grad, **tol)
 
 
-def test_adafactor_refuses_expert_slices():
-    """adafactor's block RMS spans a leaf's experts: a parameter that is
-    a rank's slice of them is item 24's refusal."""
-    shard = tp.TensorShard(0, 0, 2, None, "expert")
-    params = {"layers.0.moe.wi": tp.mark(torch.zeros(2, 2, 8, 8), shard)}
-    with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 24"):
-        optim.adafactor(1e-3).init(params)
+def test_adafactor_refuses_expert_slices(monkeypatch):
+    """adafactor's block RMS spans a leaf's experts, and its factored
+    statistics the mlp dim of ``wo`` [E, mlp, embed]: each rank of
+    expert=2 holding 2 of the 4 experts of a factored MoE layer ends 3
+    updates at its experts' share of optax's parameters and statistics
+    on the whole leaves (the ranks as threads,
+    tests/test_torch_adafactor.py)."""
+    def split(coords, leaf):
+        if leaf == "layers.moe.router":
+            return None, None
+        index, group = coords["expert"]
+        return tp.TensorShard(0, index, 2, group, "expert"), None
+
+    results = sharded_against_optax(
+        monkeypatch, {"layers.moe.wi": (2, 4, 2, 130, 256),
+                      "layers.moe.wo": (2, 4, 256, 130),
+                      "layers.moe.router": (2, 130, 4)},
+        {"expert": 2}, split)
+    for local, _, state in results.values():
+        assert tuple(local["layers.0.moe.wi"].shape) == (2, 2, 130, 256)
+        assert tp.shard_of(state.v_row["layers.moe.wi"]).axis == "expert"
 
 
 def test_tensor_shard_chains_expert_and_mlp_splits():
@@ -477,9 +489,22 @@ def test_no_mesh_trainer_restores_moe8_checkpoint(jobs):
     assert state.params.layers[0].moe.wi.shape == (4, 2, 32, 64)
 
 
-def test_moe8_adafactor_refuses_the_expert_slices(jobs):
+def test_moe8_adafactor_refuses_the_expert_slices(jobs, jax_side):
+    """adafactor over the expert x tensor slices of ``wi`` and ``wo``
+    (refused before it was ported): the parameters after 5 steps are the
+    JAX ``Trainer``'s with ``optax.adafactor``."""
+    _assert_trees_close(_tree_of(jobs["moe8"][0]["adafactor_params"]),
+                        jax_side["moe8_adafactor"][1], **TOL)
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_moe8_adafactor_steps_match_jax(jobs, jax_side, step):
+    want = jax_side["moe8_adafactor"][0]
     for r in jobs["moe8"]:
-        assert "ROADMAP queue 1 item 24" in r["adafactor"], r["adafactor"]
+        for key in ("loss", "grad_norm", "moe_aux"):
+            np.testing.assert_allclose(r["adafactor"][key][step],
+                                       want[key][step], rtol=1e-4,
+                                       err_msg=key)
 
 
 # -- data x sequence: the global aux -------------------------------------------
@@ -579,12 +604,12 @@ def test_moe_pipe8_gradients_match_jax(jobs, jax_side):
 @pytest.mark.parametrize("key", ["loss", "grad_norm", "moe_aux"])
 def test_moe_pipe8_trainer_matches_jax(jobs, jax_side, key):
     """The port's ``Trainer`` at data=2 x pipeline=2 x expert=2, each rank
-    fed its contiguous rows, against the JAX ``Trainer`` on the global
-    batch in the order that makes JAX's microbatches the port's (a known
-    difference: each rank microbatches its own rows, where JAX's
-    microbatch m is the global rows [m B/M, (m+1) B/M); the aux, a
-    product of each microbatch's means, follows the grouping), over
-    PIPE_STEPS adamw steps within JAX's pipelined bounds."""
+    fed its contiguous rows, against the JAX ``Trainer`` on the same
+    global batches: the loss exchanges the rows so that the ranks' local
+    microbatch m is JAX's microbatch m, global rows [m B/M, (m+1) B/M)
+    (the aux, a product of each microbatch's means, follows the
+    grouping), over PIPE_STEPS adamw steps within JAX's pipelined
+    bounds."""
     want = jax_side["pipe_trainer"][0][key]
     for r in jobs["moe_pipe8"]:
         np.testing.assert_allclose(r["pipe_trainer"][key], want, **PIPE_TOL)
@@ -594,6 +619,20 @@ def test_moe_pipe8_trainer_params_match_jax(jobs, jax_side):
     _assert_trees_close(
         _tree_of(jobs["moe_pipe8"][0]["pipe_trainer_params"]),
         jax_side["pipe_trainer"][1], **PIPE_TOL)
+
+
+def test_moe_pipe8_ranks_hold_jax_microbatches(jobs):
+    """After the exchange data rank d's local microbatch m is global row
+    2 m + d (B 8, M 4, one row of each microbatch a rank), the same on
+    every stage and expert rank; the aux of the ranks' own contiguous
+    microbatches (what the port gave before the exchange) is another
+    number than JAX's, which the exchanged rows give."""
+    for r in jobs["moe_pipe8"]:
+        d = r["data_index"]
+        assert r["held_rows"] == [2 * m + d for m in range(4)]
+    first = jobs["moe_pipe8"][0]
+    assert abs(first["own_rows_aux"] - first["pipe_aux"]) > 1e-3 * abs(
+        first["pipe_aux"]), (first["own_rows_aux"], first["pipe_aux"])
 
 
 def test_moe_pipe8_refuses_a_group_that_spans_ranks(jobs):

@@ -24,7 +24,9 @@ together and joined with a timeout, hold every result these tests read:
     the mesh's parameters exactly, and that the mesh trainer resumes to
     step 2's loss within 1e-6; remat (the ring outside the checkpointed
     regions, FSDP2 gathering for the recompute) giving the same losses
-    within 1e-5; adafactor refusing parameters sharded over fsdp;
+    within 1e-5; 5 adafactor steps over FSDP2's shards against the JAX
+    ``Trainer`` with ``optax.adafactor`` (loss and grad_norm within 1e-4
+    relative, the parameters within atol=rtol=1e-4);
   - ``world1`` (1 rank): a one-rank mesh trainer (FSDP2 over a group of
     one) bit-equal to the trainer without a mesh over 3 steps, in loss,
     grad_norm and parameters, with flash and remat, and with the ring
@@ -40,8 +42,16 @@ together and joined with a timeout, hold every result these tests read:
     parameters after them within atol=rtol=1e-4; shard shapes as JAX's
     specs (``wi``'s mlp dim over tensor, its embed dim over fsdp); a
     gathered checkpoint that JAX's ``verify_step`` accepts and that a
-    trainer without a mesh restores exactly; adafactor refusing the
-    tensor slices;
+    trainer without a mesh restores exactly; 5 adafactor steps over the
+    tensor slices and FSDP2's shards against the JAX ``Trainer`` with
+    ``optax.adafactor`` (as mesh8's); adafactor at a width whose
+    matrices factor (vocab 256, d_model 128, d_ff 256, untied), each
+    split over fsdp and tensor, against the trainer
+    without a mesh on the global batch over 3 steps (loss and grad_norm
+    within 1e-5 relative, the parameters within atol=rtol=1e-5), and its
+    checkpoint after 2 steps, gathered to the JAX layout: JAX's
+    ``verify_step`` accepts it, and a trainer without a mesh restores it
+    and takes the third step to the mesh's loss and parameters (1e-5);
   - ``tensor2`` (2 ranks): tensor=2 alone with an untied unembed (the
     vocab-parallel ``w_out``), the chunked CE and dropout 0.1, against
     the trainer without a mesh from the same seed: loss and grad_norm
@@ -168,13 +178,17 @@ def _tensor_argv():
 
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
-    """The port's jobs run while the JAX trainers step here."""
+    """The port's jobs run while the JAX trainers step here (adafactor's
+    two in threads beside the rest)."""
     work = tmp_path_factory.mktemp("mesh_train")
     tree = jax.tree.map(np.asarray,
                         _jax_trainer(optax.adamw(1e-3)).create_state(
                             seed=0).params)
-    with concurrent.futures.ThreadPoolExecutor(len(JOBS)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(JOBS) + 2) as pool:
         futures = _start_jobs(work, tree, pool)
+        adafactor = {tensor: pool.submit(_jax_run, optax.adafactor(1e-3),
+                                         _batches(), tensor=tensor)
+                     for tensor in (False, True)}
         jax_out = {"init": tree}
         (jax_out["adamw_losses"], jax_out["adamw_norms"],
          jax_out["adamw_params"]) = _jax_run(optax.adamw(1e-3), _batches())
@@ -189,6 +203,9 @@ def both(tmp_path_factory):
         (jax_out["tensor_losses"], jax_out["tensor_norms"],
          jax_out["tensor_params"]) = _jax_run(optax.adamw(1e-3), _batches(),
                                               tensor=True)
+        for tensor, future in adafactor.items():
+            jax_out["adafactor_tensor" if tensor else "adafactor"] = \
+                future.result()
         for future in futures.values():
             check_ranks(future.result())
     jobs = {name: [torch.load(work / f"{name}-rank{r}.pt",
@@ -340,8 +357,24 @@ def test_mesh_trainer_resumes_its_checkpoint(jobs):
                                rtol=1e-6)
 
 
-def test_adafactor_refuses_sharded_fsdp(jobs):
-    assert "ROADMAP queue 1 item 24" in jobs["mesh8"][0]["adafactor"]
+def test_adafactor_refuses_sharded_fsdp(jobs, jax_side):
+    """adafactor over FSDP2's shards (refused before it was ported): the
+    parameters after 5 steps are the JAX ``Trainer``'s with
+    ``optax.adafactor`` on the same mesh."""
+    _assert_trees_close(_tree_of(jobs["mesh8"][0]["adafactor_params"]),
+                        jax_side["adafactor"][2], **TOL)
+
+
+@pytest.mark.parametrize("job,want", [("mesh8", "adafactor"),
+                                      ("tensor8", "adafactor_tensor")])
+@pytest.mark.parametrize("step", range(STEPS))
+def test_adafactor_steps_match_jax(jobs, jax_side, job, want, step):
+    losses, norms, _ = jax_side[want]
+    for r in jobs[job]:
+        np.testing.assert_allclose(r["adafactor_losses"][step], losses[step],
+                                   rtol=1e-4)
+        np.testing.assert_allclose(r["adafactor_norms"][step], norms[step],
+                                   rtol=1e-4)
 
 
 @pytest.mark.parametrize("variant", ["flash_remat", "ring"])
@@ -430,8 +463,64 @@ def test_no_mesh_trainer_restores_tensor_checkpoint(jobs):
                                    atol=0, rtol=0)
 
 
-def test_adafactor_refuses_tensor_slices(jobs):
-    assert "ROADMAP queue 1 item 24" in jobs["tensor8"][0]["adafactor"]
+def test_adafactor_refuses_tensor_slices(jobs, jax_side):
+    """adafactor over the tensor slices and FSDP2's shards (refused
+    before it was ported): the parameters after 5 steps are the JAX
+    ``Trainer``'s with ``optax.adafactor`` on the same mesh."""
+    _assert_trees_close(_tree_of(jobs["tensor8"][0]["adafactor_params"]),
+                        jax_side["adafactor_tensor"][2], **TOL)
+
+
+# tests/torch_mesh_train_worker.py's WIDE: adafactor's factored leaves.
+WIDE = dict(SMALL, attention="flash", vocab_size=256, d_model=128, d_ff=256,
+            tied_embeddings=False)
+
+
+def test_adafactor_factored_leaves_match_no_mesh(jobs):
+    """At WIDE every matrix factors, its statistics reduced over fsdp or
+    tensor where they split the reduced dim: data=2 x fsdp=2 x tensor=2's
+    3 adafactor steps are those of the trainer without a mesh on the
+    global batch."""
+    for r in jobs["tensor8"]:
+        (m_loss, m_norm, m_params), (p_loss, p_norm, p_params) = r["wide"]
+        np.testing.assert_allclose(m_loss, p_loss, rtol=1e-5)
+        np.testing.assert_allclose(m_norm, p_norm, rtol=1e-5)
+        for name, t in m_params.items():
+            torch.testing.assert_close(t, p_params[name], **NO_MESH_TOL)
+    shapes = jobs["tensor8"][0]["wide_stat_shapes"]
+    # embed [256, 128]: v_row, the mean over the vocab (split over
+    # tensor, so all-reduced), keeps this rank's 64 embed columns (its
+    # fsdp shard); wi [L, 2, 128, 256] keeps its layers, pair and 64
+    # embed rows.
+    assert shapes["embed"] == (64,) and shapes["layers.mlp.wi"] == (2, 2, 64)
+
+
+def test_adafactor_checkpoint_verifies_in_jax(jobs):
+    for step in (0, 1):
+        assert verify_step(jobs["dir"] / "ckpt_adafactor", step) == (
+            True, ""), step
+
+
+def test_no_mesh_trainer_resumes_adafactor_checkpoint(jobs):
+    """The mesh's adafactor save after 2 steps holds the statistics
+    gathered to the JAX layout: a trainer without a mesh restores it (its
+    template's shapes) and takes the third step to the mesh's third loss
+    and its parameters after it."""
+    init_fn, loss_fn = lm_task(TransformerConfig(dtype=torch.float32,
+                                                 **WIDE), device="cpu")
+    tr = Trainer(init_fn=init_fn, loss_fn=loss_fn, tx=optim.adafactor(1e-3),
+                 device="cpu",
+                 metrics=MetricsLogger(stream=open("/dev/null", "w")))
+    state = CheckpointManager(jobs["dir"] / "ckpt_adafactor").restore(
+        tr.create_state(seed=3), step=1)
+    assert state.step == 2 and state.opt_state.count == 2
+    assert state.opt_state.v_row["embed"].shape == (128,)
+    state, m = tr.compile_step()(state, tr.shard_batch(
+        {"tokens": _batches()[2]}))
+    (losses, norms, params), _ = jobs["tensor8"][0]["wide"]
+    np.testing.assert_allclose(float(m["loss"]), losses[2], rtol=1e-5)
+    for name, p in state.params.named_parameters():
+        torch.testing.assert_close(p.detach(), params[name], **NO_MESH_TOL)
 
 
 @pytest.mark.parametrize("job,variant", [("tensor2", "plain"),

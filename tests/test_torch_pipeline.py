@@ -33,7 +33,14 @@ through its dot attention, as tests/test_transformer.py's
     (relative) and the parameters after them; one layer a stage, ``wq``'s
     heads halved; a gathered checkpoint that JAX's ``verify_step``
     accepts, that a trainer without a mesh restores exactly, and that the
-    pipelined trainer resumes;
+    pipelined trainer resumes; 5 adafactor steps against the JAX
+    ``Trainer`` with ``optax.adafactor`` on that mesh (loss and grad_norm
+    within 1e-4 relative, the parameters within atol=rtol=1e-4); dropout
+    0.1 at 0 microbatches against the trainer without a mesh on the
+    global batch (2 sgd steps within 1e-5, pipe2's bounds).  Each rank is
+    fed its contiguous rows; the loss exchanges them among the data ranks
+    so that the ranks' microbatch m is JAX's, global rows [m B/M, (m+1)
+    B/M);
   - ``pipe4`` (4 ranks): pipeline=2, sequence=2 with the ring at M 2
     (JAX's ``test_pipelined_ring_matches_microbatched_sequential``): loss
     and gradients within 1e-5 of JAX's; fsdp=2, pipeline=2: 3 adamw steps
@@ -71,7 +78,6 @@ from kubeflow_tpu.parallel.pipeline import unmicrobatch as jax_unmicrobatch
 from kubeflow_tpu.runtime.checkpoint import verify_step
 from kubeflow_tpu.runtime.metrics import MetricsLogger as JaxMetricsLogger
 from kubeflow_tpu.runtime.train import Trainer as JaxTrainer
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.models.convert import params_from_jax, params_to_jax
 from kubeflow_tpu_torch.models.transformer import TransformerConfig, lm_task
 from kubeflow_tpu_torch.parallel import tensor as tp
@@ -82,6 +88,7 @@ from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
 from kubeflow_tpu_torch.runtime.train import Trainer
 from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
 from kubeflow_tpu_torch.tools import train_lm
+from test_torch_adafactor import sharded_against_optax
 
 REPO = Path(__file__).resolve().parents[1]
 WORKER = str(REPO / "tests" / "torch_pipeline_worker.py")
@@ -261,6 +268,8 @@ def both(tmp_path_factory):
                                       data=1, pipeline=2),
             "adamw8": pool.submit(_jax_run, optax.adamw(1e-3), STEPS,
                                   data=2, pipeline=2, tensor=2),
+            "adafactor8": pool.submit(_jax_run, optax.adafactor(1e-3),
+                                      STEPS, data=2, pipeline=2, tensor=2),
             "fsdp": pool.submit(_jax_run, optax.adamw(1e-3), 3, fsdp=2,
                                 pipeline=2),
         }
@@ -364,19 +373,27 @@ def test_prim_dead_stage_fails_within_the_timeout(jobs):
     assert seconds < 30
 
 
-def test_adafactor_refuses_a_stage_split_of_a_factored_layer_dim():
-    """A stacked leaf whose whole [L, ...] would factor over its layer dim
-    (L 256 and width 200, both past 128) cannot be split over stages
-    exactly: item 24's refusal."""
-    stage = Stage(index=0, count=2, layers=128, group=None)
-    params = {f"layers.{i}.w": tp.mark_stage(torch.zeros(200), stage)
-              for i in range(128)}
-    with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 24"):
-        optim.adafactor(1e-3).init(params)
-    small = {f"layers.{i}.w": tp.mark_stage(torch.zeros(200), stage)
-             for i in range(4)}
-    state = optim.adafactor(1e-3).init(small)
-    assert tp.shard_of(state.v["layers.w"]).count == 2
+def test_adafactor_refuses_a_stage_split_of_a_factored_layer_dim(
+        monkeypatch):
+    """A stacked leaf whose whole [L, ...] factors over its layer dim (L
+    256 and width 200, both past 128), split over 2 stages of 128
+    layers, beside a small one: each stage's parameters and statistics
+    after 3 updates are its rows of optax's on the whole leaves (the
+    stages as threads, tests/test_torch_adafactor.py); the statistic
+    that keeps the layer dim is the stage's rows, the one that reduces it
+    whole on both stages."""
+    def split(coords, leaf):
+        index, group = coords["pipeline"]
+        return None, Stage(index, 2, 128, group)
+
+    results = sharded_against_optax(
+        monkeypatch, {"layers.w": (256, 200), "layers.small": (256, 4)},
+        {"pipeline": 2}, split)
+    for local, _, state in results.values():
+        assert tp.shard_of(state.v_col["layers.w"]).axis == "pipeline"
+        assert tp.shard_of(state.v_row["layers.w"]) is None
+        assert tp.shard_of(state.v["layers.small"]).count == 2
+        assert len(local) == 256
 
 
 def test_prim_forward_without_autograd(jobs):
@@ -498,13 +515,11 @@ def test_train_lm_refuses_pipeline_without_microbatches(capsys):
 
 
 def test_train_lm_refuses_expert_with_item_21():
-    """The expert axis trains (tests/test_torch_moe_mesh.py): a one-rank
-    ``--mesh expert=1 --moe-experts 4`` gives the losses of no mesh, and
-    what stays refused over expert slices, adafactor, names item 24."""
-    moe = TRAIN_LM_ARGV + ["--moe-experts", "4"]
-    with pytest.raises(NotPortedError, match="ROADMAP queue 1 item 24"):
-        train_lm.run(moe + ["--mesh", "expert=2", "--optimizer",
-                            "adafactor"])
+    """The expert axis trains (tests/test_torch_moe_mesh.py), with
+    adafactor too (refused over expert slices before it was ported): a
+    one-rank ``--mesh expert=1 --moe-experts 4 --optimizer adafactor``
+    gives the losses of no mesh."""
+    moe = TRAIN_LM_ARGV + ["--moe-experts", "4", "--optimizer", "adafactor"]
     got, want = (train_lm.run(moe + flag).metrics.history
                  for flag in (["--mesh", "expert=1"], []))
     assert [h["loss"] for h in got] == [h["loss"] for h in want]
@@ -562,6 +577,34 @@ def test_no_mesh_trainer_restores_pipelined_checkpoint(jobs):
         torch.testing.assert_close(p.detach(),
                                    jobs["pipe8"][0]["ckpt_params"][name],
                                    atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_pipe8_adafactor_matches_jax(jobs, jax_side, step):
+    losses, norms, _ = jax_side["adafactor8"]
+    for r in jobs["pipe8"]:
+        np.testing.assert_allclose(r["adafactor_losses"][step], losses[step],
+                                   rtol=1e-4)
+        np.testing.assert_allclose(r["adafactor_norms"][step], norms[step],
+                                   rtol=1e-4)
+
+
+def test_pipe8_adafactor_params_match_jax(jobs, jax_side):
+    _assert_trees_close(_tree_of(jobs["pipe8"][0]["adafactor_params"]),
+                        jax_side["adafactor8"][2], **TOL)
+
+
+def test_pipe8_dropout_matches_no_mesh(jobs):
+    """Dropout 0.1 under data=2 x pipeline=2 x tensor=2 (0 microbatches)
+    against the trainer without a mesh on the global batch, pipe2's
+    bounds."""
+    for r in jobs["pipe8"]:
+        (m_loss, m_norm, m_params), (p_loss, p_norm, p_params) = r["dropout"]
+        np.testing.assert_allclose(m_loss, p_loss, rtol=1e-5)
+        np.testing.assert_allclose(m_norm, p_norm, rtol=1e-5)
+        for name, t in m_params.items():
+            torch.testing.assert_close(t, p_params[name], atol=1e-5,
+                                       rtol=1e-5)
 
 
 def test_pipe8_resumes_its_checkpoint(jobs):

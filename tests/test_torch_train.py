@@ -41,7 +41,7 @@ from kubeflow_tpu.runtime.metrics import MetricsLogger as JaxMetricsLogger
 from kubeflow_tpu.runtime import checkpoint as jax_checkpoint
 from kubeflow_tpu.runtime.train import Trainer as JaxTrainer
 from kubeflow_tpu.tools import train_lm as jax_train_lm
-from kubeflow_tpu_torch import NotPortedError, data
+from kubeflow_tpu_torch import data
 from kubeflow_tpu_torch.data import write_example_shards
 from kubeflow_tpu_torch.models.convert import (
     load_params,
@@ -422,19 +422,34 @@ def test_train_lm_run_returns_the_trainer_and_its_last_metrics():
 
 # --mesh with every axis (expert with --moe-experts) and --attention ring
 # are ported (tests/test_torch_parallel_train.py,
-# tests/test_torch_pipeline.py, tests/test_torch_moe_mesh.py); adafactor
-# over parameters split over expert or tensor is not, alone or beside the
-# other axes.
-@pytest.mark.parametrize("flag,item", [
+# tests/test_torch_pipeline.py, tests/test_torch_moe_mesh.py), and so is
+# adafactor over parameters split over any of them: the entry point
+# passes each flag set below, and the same flags with every axis at one
+# rank train here.
+@pytest.mark.parametrize("flag,one_rank", [
     (["--mesh", "pipeline=2,expert=2", "--pipeline-microbatches", "2",
-      "--moe-experts", "4", "--optimizer", "adafactor"], 24),
+      "--moe-experts", "4", "--optimizer", "adafactor"],
+     "pipeline=1,expert=1"),
     (["--mesh", "model=2,expert=2", "--moe-experts", "4", "--optimizer",
-      "adafactor"], 24),
+      "adafactor"], "model=1,expert=1"),
     (["--mesh", "expert=2", "--moe-experts", "4", "--optimizer",
-      "adafactor"], 24)], ids=["flag0", "flag1", "flag3"])
-def test_train_lm_not_ported_flags_raise(flag, item):
-    with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
-        train_lm.main(TINY_ARGS + ["--device", "cpu"] + flag)
+      "adafactor"], "expert=1")], ids=["flag0", "flag1", "flag3"])
+def test_train_lm_not_ported_flags_raise(flag, one_rank):
+    at = flag.index("--mesh") + 1
+    args = types.SimpleNamespace(optimizer="adafactor", moe_experts=4)
+    assert train_lm._not_ported(args, train_lm.parse_mesh(flag[at])) == ""
+    argv = TINY_ARGS + ["--device", "cpu"] + flag
+    argv[len(TINY_ARGS) + 2 + at] = one_rank
+    try:
+        trainer = train_lm.run(argv)
+    finally:
+        # The one-rank mesh started its own process group; later tests
+        # of this file start with none.
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    assert isinstance(trainer.tx, optim.Adafactor)
+    losses = [h["loss"] for h in trainer.metrics.history]
+    assert len(losses) == 2 and np.isfinite(losses).all()
 
 
 def _shards(tmp_path, n=24):

@@ -15,11 +15,12 @@ name each), and reads what each rank writes to ``WORKDIR/rank<r>.pt``:
 
 ``mesh8`` trains the LM at data=2, fsdp=2, sequence=2 with ring attention
 (adamw, sgd, remat, identical rows on every data shard, checkpoints and
-their resume, adafactor's refusal); ``world1`` holds a one-rank mesh
+their resume, adafactor steps); ``world1`` holds a one-rank mesh
 trainer to the trainer without a mesh; ``train_lm`` is
 ``tools/train_lm.py`` through the bootstrap at fsdp=2.  ``tensor8``
 trains at data=2, fsdp=2, tensor=2 with flash (adamw, a checkpoint,
-adafactor's refusal); ``tensor2`` at tensor=2 alone with an untied
+adafactor steps, and adafactor at a width whose matrices factor against
+no mesh, with a checkpoint); ``tensor2`` at tensor=2 alone with an untied
 unembed, the chunked CE and dropout 0.1, against the trainer without a
 mesh on the global batch (with and without remat), and restores that
 trainer's checkpoint; ``dropout4`` at data=2, sequence=2 with the ring
@@ -37,7 +38,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
-from kubeflow_tpu_torch import NotPortedError  # noqa: E402
 from kubeflow_tpu_torch.models.convert import (  # noqa: E402
     load_params,
     whole_parameters,
@@ -197,11 +197,10 @@ def mesh8(spec, workdir):
     tr.fit(iter([rows(b) for b in spec["batches"]]), 3, log_every=0)
     out["resumed_loss"] = tr.last_metrics["loss"]
 
-    try:
-        trainer(spec, mesh, optim.adafactor(1e-3)).create_state(seed=0)
-        out["adafactor"] = "trained"
-    except NotPortedError as e:
-        out["adafactor"] = str(e)
+    # adafactor over FSDP2's shards (the embed dim of each weight).
+    state, out["adafactor_losses"], out["adafactor_norms"] = run_steps(
+        trainer(spec, mesh, optim.adafactor(1e-3)), spec["batches"], rows)
+    out["adafactor_params"] = full_params(state.params)
     return out
 
 
@@ -244,13 +243,30 @@ def tensor8(spec, workdir):
     state = tr.fit(iter([rows(b) for b in spec["batches"]]), 2, log_every=0)
     out["ckpt_params"] = full_params(state.params)
 
-    try:
-        trainer(spec, mesh, optim.adafactor(1e-3),
-                attention="flash").create_state(seed=0)
-        out["adafactor"] = "trained"
-    except NotPortedError as e:
-        out["adafactor"] = str(e)
+    # adafactor over the tensor slices and FSDP2's shards.
+    state, out["adafactor_losses"], out["adafactor_norms"] = run_steps(
+        trainer(spec, mesh, optim.adafactor(1e-3), attention="flash"),
+        spec["batches"], rows)
+    out["adafactor_params"] = full_params(state.params)
+
+    # A width whose matrices factor: against the trainer without a mesh
+    # on the global batch, and a checkpoint of its statistics.
+    batches = spec["batches"][:3]
+    out.update(against_no_mesh(spec, mesh, batches, rows, WIDE,
+                               {"wide": ({}, {})},
+                               tx=lambda: optim.adafactor(1e-3)))
+    tr = trainer(spec, mesh, optim.adafactor(1e-3),
+                 CheckpointManager(workdir / "ckpt_adafactor"), **WIDE)
+    state = tr.fit(iter([rows(b) for b in batches]), 2, log_every=0)
+    out["wide_stat_shapes"] = {
+        leaf: tuple(v.shape) for leaf, v in state.opt_state.v_row.items()}
     return out
+
+
+# tensor8's adafactor width: every matrix of the embed dim and the vocab
+# or mlp dim factors (two dims of at least 128).
+WIDE = dict(attention="flash", vocab_size=256, d_model=128, d_ff=256,
+            tied_embeddings=False)
 
 
 TENSOR2 = dict(attention="flash", tied_embeddings=False, ce_chunk=8,

@@ -12,13 +12,15 @@ name each), and reads what each rank writes to
     python tests/torch_moe_mesh_worker.py train_lm WORKDIR    # 2 ranks
 
 ``moe8`` trains the MoE LM at data=2, expert=2, tensor=2 (adamw steps,
-shard shapes, a checkpoint, adafactor's refusal); ``moe_batch4`` at
+shard shapes, a checkpoint, adafactor steps); ``moe_batch4`` at
 data=2, sequence=2 with the ring and the trainer without a mesh on the
 global batch, with each rank's aux over its own tokens alone and a
 routing group that spans ranks, then at fsdp=2, expert=2 with the gather
 dispatch and without a mesh; ``moe_pipe8`` at data=2, pipeline=2,
-expert=2 (one loss and its gradients on JAX's microbatches, a routing
-group that spans ranks, the trainer's steps on its own rows), then at
+expert=2 (one loss and its gradients from each rank's contiguous rows,
+which the loss exchanges into JAX's microbatches, the rows it then holds
+and the aux of its own contiguous microbatches, a routing group that
+spans ranks, the trainer's steps, adamw and adafactor), then at
 pipeline=2, sequence=2, expert=2 with the ring (one step);
 ``train_lm`` is ``tools/train_lm.py --mesh expert=2 --moe-experts 4``.
 """
@@ -43,6 +45,8 @@ from kubeflow_tpu_torch.models.transformer import (  # noqa: E402
     Transformer,
     TransformerConfig,
     lm_task,
+    microbatch_rows,
+    to_microbatch_order,
 )
 from kubeflow_tpu_torch.parallel.mesh import (  # noqa: E402
     DATA,
@@ -147,8 +151,11 @@ def moe8(spec, workdir):
                  CheckpointManager(ckdir))
     state = tr.fit(iter([rows(b) for b in spec["batches"]]), 2, log_every=0)
     out["ckpt_params"] = full_params(state.params)
-    out["adafactor"] = refused(lambda: trainer(
-        cfg, params, mesh, optim.adafactor(1e-3)).create_state(seed=0))
+    # adafactor over the expert x tensor slices of wi and wo.
+    state, out["adafactor"] = run_steps(
+        trainer(cfg, params, mesh, optim.adafactor(1e-3)), spec["batches"],
+        rows)
+    out["adafactor_params"] = full_params(state.params)
     return out
 
 
@@ -213,31 +220,36 @@ def grads_tree(module, mesh):
 def moe_pipe8(spec, workdir):
     bootstrap.initialize(device="cpu", timeout_s=60)
     out = {}
-    # data=2, pipeline=2, expert=2: rank d's microbatch m is rows
-    # [m B/M + d mb, m B/M + (d + 1) mb) of the global batch, its data
-    # shard of JAX's microbatch m.
+    # data=2, pipeline=2, expert=2: each rank is fed its contiguous rows
+    # of the global batch, as train_lm feeds them; the loss exchanges
+    # them so that rank d's local microbatch m is its share of JAX's
+    # microbatch m, global rows [m B/M + d mb, m B/M + (d + 1) mb).
     mesh = MeshSpec(data=2, pipeline=2, expert=2).build("cpu", timeout_s=60)
     cfg, params, pipe = spec["cfg"], spec["params"], spec["pipe"]
-    tokens = spec["pipe_tokens"]
-    n_micro, d = pipe["pipeline_microbatches"], mesh.get_local_rank(DATA)
-    mine = tokens.reshape(n_micro, 2, -1, tokens.shape[1])[:, d].reshape(
-        -1, tokens.shape[1])
+    n_micro = pipe["pipeline_microbatches"]
+    own = dp_rows(mesh)(spec["pipe_tokens"])
     _, loss_fn = lm_task(_cfg(cfg, **pipe), device="cpu", mesh=mesh)
     piped = model(cfg, params, mesh, **pipe)
-    loss, (metrics, _) = loss_fn(piped, {}, {"tokens": mine}, None)
+    loss, (metrics, _) = loss_fn(piped, {}, own, None)
     loss.backward()
     out["pipe_loss"] = float(loss)
     out["pipe_aux"] = float(metrics["moe_aux"])
     out["pipe_grads"] = grads_tree(piped, mesh)
+    out["data_index"] = mesh.get_local_rank(DATA)
+    out["held_rows"] = microbatch_rows(own["tokens"].shape[0], mesh,
+                                       n_micro).tolist()
+    mine = to_microbatch_order(own["tokens"], mesh, n_micro)
+    with torch.no_grad():
+        # The aux of the rank's own contiguous rows as its microbatches.
+        out["own_rows_aux"] = float(model(cfg, params, mesh, **pipe)(
+            own["tokens"], return_aux=True)[1])
     out["spanning"] = refused(lambda: model(
         cfg, params, mesh, **dict(pipe, moe_group_size=2 * pipe[
             "moe_group_size"]))(mine))
 
     # The trainer on the same mesh, each rank fed its contiguous rows as
-    # train_lm feeds them: its microbatch m is its own m-th slice of
-    # them, so the global microbatch m joins rank 0's and rank 1's m-th
-    # slices (the test feeds the JAX trainer the global batch in that
-    # order).
+    # train_lm feeds them, against the JAX trainer on the same global
+    # batches.
     state, out["pipe_trainer"] = run_steps(
         trainer(cfg, params, mesh, optim.adamw(1e-3), **pipe),
         spec["batches"][:spec["pipe_steps"]], dp_rows(mesh))

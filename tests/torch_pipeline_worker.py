@@ -328,6 +328,22 @@ def pipe8(spec, workdir):
     tr = trainer(spec, mesh, optim.adamw(1e-3), CheckpointManager(ckdir))
     tr.fit(iter([rows(b) for b in spec["batches"]]), 3, log_every=0)
     out["resumed_loss"] = tr.last_metrics["loss"]
+
+    # adafactor over the stages' layers and the tensor slices.
+    state, out["adafactor_losses"], out["adafactor_norms"] = run_steps(
+        trainer(spec, mesh, optim.adafactor(1e-3)), spec["batches"], rows)
+    out["adafactor_params"] = full_params(state.params)
+
+    # Dropout (0 microbatches) under data x pipeline x tensor against no
+    # mesh on the global batch: each rank keeps its rows of every mask.
+    runs = []
+    for m, feed in ((mesh, rows), (None, lambda b: {"tokens": b})):
+        state, losses, norms = run_steps(
+            trainer(spec, m, optim.sgd(0.1), dropout_rate=0.1,
+                    pipeline_microbatches=0),
+            spec["batches"][:2], feed)
+        runs.append((losses, norms, full_params(state.params)))
+    out["dropout"] = runs
     return out
 
 
