@@ -313,7 +313,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      rank's step ms, a profiled step's busy share, its gloo all-reduces a
      step (those over the expert group apart: count, bytes, ms) and its
      peak memory (the two jobs run side by side), and the mean of
-     per-rank auxes beside the global one;
+     per-rank auxes beside the global one.  The data job's ranks then
+     take one forward and backward of the model with the gather dispatch
+     at routing groups of 16384 tokens (each group both ranks' 8192: its
+     slot positions carried from the first rank's counts), each on its 4
+     rows of one global batch: the loss, moe_aux and the routers'
+     gradient norm (summed over the ranks) within 1e-4 (relative) of one
+     process on the 8 rows;
  7j. adafactor over a mesh: tools/train_lm.run on bench.py's LM cell with
      --optimizer adafactor as 2 processes sharing the one GPU over gloo,
      3 steps each, the two jobs side by side: --mesh fsdp=2 (4 rows a
@@ -330,6 +336,22 @@ Phases, each fatal on failure (exit code 1, no result line):
      Information only: each rank's step ms, a profiled step's busy share,
      its gloo all-reduces a step (count, bytes, ms), its peak memory and
      the shapes of its share of the embedding's statistics;
+ 7k. the fused trainer over a mesh: phase 7e's width-4 gang (m1
+     stopping at step 2) as FusedTrainer(mesh=MeshSpec(data=2)) over 2
+     processes sharing the one GPU over gloo, 3 fused steps, every rank
+     given the global 8 x 2048 batch and keeping its 4 rows, the stacked
+     float32 gradients summed over the ranks in one flat all-reduce a
+     step.  The ranks' per-member losses equal and finite, the first
+     step's within 1e-3 of one process's fused step on the 8 rows; the
+     stacked state (parameters, moments, counts, steps) bit-equal on
+     both ranks (checksums of its bits); m1 bit-equal to its step-2
+     state; each rank launches exactly 36 each of flash_fwd, flash_dq and
+     flash_dkv (12 a fused step, the members folded), all at bh 128, and
+     none of the other kernels; the forward and backward at bh 128
+     against their plain versions within phase 2's bounds; the phase
+     within 90 s.  Information only: each rank's step ms against phase
+     7e's fused step, the gradient all-reduce's bytes and ms, a profiled
+     step's busy share and its peak memory;
   8. gradients: one step's gradients of the bf16 model (full width and
      depth, batch 2 x 2048) through the kernels (single pass, then two
      passes) and through the plain versions, each held to a float32 run
@@ -385,6 +407,7 @@ object {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import gc
 import http.client
 import itertools
 import json
@@ -709,6 +732,32 @@ ADAFACTOR_MESH_JOBS = {
     "fsdp": (["--mesh", "fsdp=2"], 4, 1e-3, 1e-4),
     "tensor": (["--mesh", "tensor=2"], 8, 1e-2, 3e-3),
 }
+# Phase 7k: the fused trainer over a mesh (ROADMAP item 22 done): phase
+# 7e's width-HFTA_MEMBERS gang (m1 stopping at HFTA_STOP) on bench.py's LM
+# cell, 8 x 2048 global, as FusedTrainer(mesh=MeshSpec(data=2)) over
+# HFTA_MESH_WORLD processes sharing the GPU over gloo, every rank given the
+# global batch and keeping its 4 rows, HFTA_MESH_STEPS steps.  Each rank
+# holds the whole stacked state and sums the stacked float32 gradients
+# (4 x 188M, about 3 GB) over the data group in one flat all-reduce a
+# step.  The losses must be equal on both ranks, each member's first one
+# within HFTA_LOSS_ATOL of one process's fused step on the same 8 rows,
+# the stacked state (parameters, moments, counts, steps) bit-equal on both
+# ranks (checksums of its bits), m1 frozen at its stop, and every rank
+# must launch flash_fwd, flash_dq and flash_dkv once a layer a fused step
+# at bh HFTA_MESH_BH (4 members x 4 rows x 8 heads); the kernels at that
+# bh against their plain versions.  The phase must end within
+# HFTA_MESH_PHASE_S.
+HFTA_MESH_WORLD, HFTA_MESH_STEPS, HFTA_MESH_TIMEOUT_S = 2, 3, 300
+HFTA_MESH_BH = HFTA_MEMBERS * TRAIN_BATCH // HFTA_MESH_WORLD * MODEL[
+    "n_heads"]
+HFTA_MESH_PHASE_S = 90.0
+# Phase 7i's data job also takes one forward and backward of its model
+# with the gather dispatch in routing groups of SPANNING_GROUP tokens,
+# twice a rank's 4 x 2048 (ROADMAP item 27 done: each group spans both
+# ranks), each rank on its rows of one global batch, against one process
+# on the 16384 global tokens: the loss, moe_aux and the routers' gradient
+# norm (summed over the ranks) within MOE_MESH_FIRST_RTOL["data"].
+SPANNING_GROUP = TRAIN_BATCH * TRAIN_SEQ
 # Phases 11-12: the CNN family.  Phase 11 serves these exports through the
 # classifier loader and the MicroBatcher; each model's name, its loader
 # config and its image size (the canonical input of each).
@@ -5754,10 +5803,43 @@ def summary(picked):
             "ms": sum(c[2] for c in picked) * 1e3 / steps}
 
 
+per_step = {"all": summary(reduces), "expert": summary(
+    [c for c in reduces if ranks_of(c[0]) == expert])}
+
+
+def spanning_step(spec):
+    # One forward and backward of the model at routing groups that span
+    # the ranks (KFT_SMOKE_SPANNING), on this rank's rows of one global
+    # batch: the loss, moe_aux and the routers' gradient norm, the
+    # gradients summed over the ranks.
+    from kubeflow_tpu_torch.models.transformer import (TransformerConfig,
+                                                       lm_task)
+    from kubeflow_tpu_torch.parallel import p2p
+    cfg = TransformerConfig(**dict(spec["model"], dtype=torch.bfloat16,
+                                   remat=True))
+    init_fn, loss_fn = lm_task(cfg, device="cuda", mesh=trainer.mesh)
+    model, _ = init_fn(torch.Generator(device="cuda").manual_seed(
+        spec["seed"]))
+    tokens = np.random.RandomState(spec["seed"]).randint(
+        0, cfg.vocab_size, size=(spec["rows"], cfg.max_seq_len))
+    b = spec["rows"] // dist.get_world_size()
+    mine = tokens[dist.get_rank() * b:(dist.get_rank() + 1) * b]
+    loss, (metrics, _) = loss_fn(model, {}, {"tokens": torch.as_tensor(
+        mine.astype(np.int32), device="cuda")}, None)
+    loss.backward()
+    routers = torch.cat([p.grad.float().flatten() for n, p in
+                         model.named_parameters()
+                         if n.endswith("moe.router")])
+    routers = p2p.all_reduce(routers, dist.group.WORLD)
+    return {"loss": float(loss.detach()), "aux": float(metrics["moe_aux"]),
+            "router_grad_norm": float(routers.norm())}
+
+
+spanning = os.environ.get("KFT_SMOKE_SPANNING")
 result(launches, peak, last=trainer.last_metrics, first=first,
-       reduces_per_step={"all": summary(reduces), "expert": summary(
-           [c for c in reduces if ranks_of(c[0]) == expert])},
-       profiled_step_ms=profiled["wall"], busy_ms=profiled["busy"] or None)
+       reduces_per_step=per_step, profiled_step_ms=profiled["wall"],
+       busy_ms=profiled["busy"] or None,
+       spanning=spanning and spanning_step(json.loads(spanning)))
 """
 
 
@@ -5813,6 +5895,47 @@ def moe_mesh_reference(torch, job: str, rows: int):
             "first": first}
 
 
+def spanning_spec() -> dict:
+    """Phase 7i's step at routing groups that span ranks: the cell's MoE
+    model with the gather dispatch in groups of SPANNING_GROUP tokens,
+    its weights and its global batch of TRAIN_BATCH x TRAIN_SEQ from one
+    seed."""
+    moe = dict(MOE, moe_impl="gather", moe_group_size=SPANNING_GROUP)
+    return {"model": dict(MODEL, **moe, max_seq_len=TRAIN_SEQ, dtype=None),
+            "rows": TRAIN_BATCH, "seed": SEED + 13}
+
+
+def spanning_reference(torch) -> dict:
+    """``spanning_spec``'s forward and backward in one process on the
+    whole global batch: the loss, moe_aux and routers' gradient norm."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig,
+        lm_task,
+    )
+
+    spec = spanning_spec()
+    cfg = TransformerConfig(**dict(spec["model"], dtype=torch.bfloat16,
+                                   remat=True))
+    init_fn, loss_fn = lm_task(cfg, device="cuda")
+    model, _ = init_fn(torch.Generator(device="cuda").manual_seed(
+        spec["seed"]))
+    tokens = np.random.RandomState(spec["seed"]).randint(
+        0, cfg.vocab_size, size=(spec["rows"], cfg.max_seq_len))
+    loss, (metrics, _) = loss_fn(model, {}, {"tokens": torch.as_tensor(
+        tokens.astype(np.int32), device="cuda")}, None)
+    loss.backward()
+    norm = float(torch.cat([p.grad.float().flatten() for n, p in
+                            model.named_parameters()
+                            if n.endswith("moe.router")]).norm())
+    out = {"loss": float(loss.detach()), "aux": float(metrics["moe_aux"]),
+           "router_grad_norm": norm}
+    del model, loss, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
 def router_gradients(torch, model, loss_fn, batch, coef):
     """The routers' gradient norm of the loss at ``model``'s weights on
     ``batch``, and that norm with the aux term's share of the gradient
@@ -5831,6 +5954,28 @@ def router_gradients(torch, model, loss_fn, batch, coef):
 
     return {"router_grad_norm": norm(whole), "router_aux_twice": norm(
         [g + a for g, a in zip(whole, share)])}
+
+
+def moe_spanning_check(ranks, ref) -> dict:
+    """The data job's step at routing groups that span both ranks against
+    one process on the global batch (``spanning_spec``)."""
+    worst = max(abs(rank["spanning"][k] - ref[k]) / abs(ref[k])
+                for rank in ranks for k in ref)
+    bound = MOE_MESH_FIRST_RTOL["data"]
+    share = TRAIN_SEQ * TRAIN_BATCH // MOE_MESH_WORLD
+    log(f"MoE --mesh data=2 at routing groups of {SPANNING_GROUP} tokens "
+        f"(the gather dispatch, each group both ranks' {share}): "
+        + ", ".join(f"{k} {ranks[0]['spanning'][k]:.6g} against "
+                    f"{ref[k]:.6g}" for k in ref)
+        + f" of one process on the {TRAIN_BATCH * TRAIN_SEQ} global tokens:"
+        f" worst relative {worst:.2e} over the ranks (bound {bound})")
+    if not (worst <= bound and all(
+            rank["spanning"]["loss"] == ranks[0]["spanning"]["loss"]
+            for rank in ranks)):
+        fail(f"MoE at routing groups that span ranks differs from one "
+             f"process: {[rank['spanning'] for rank in ranks]}, {ref}")
+    return {"ranks": [rank["spanning"] for rank in ranks],
+            "reference": ref, "worst_rel": worst}
 
 
 def moe_mesh_phase(torch, flash, workdir: Path):
@@ -5860,11 +6005,13 @@ def moe_mesh_phase(torch, flash, workdir: Path):
                               "--batch-size-per-device", str(rows),
                               "--steps", str(MOE_MESH_STEPS), "--log-every",
                               "1", "--max-restarts", "0", *flags]
+        env = dict(os.environ, KFT_DIST_BACKEND="gloo")
+        if job == "data":
+            env["KFT_SMOKE_SPANNING"] = json.dumps(spanning_spec())
         results = run_ranks(
             ["-c", _MOE_MESH_RANK, str(out), str(MOE_MESH_STEPS), *argv],
             MOE_MESH_WORLD, timeout_s=MOE_MESH_TIMEOUT_S,
-            cwd=str(Path(__file__).resolve().parent),
-            env=dict(os.environ, KFT_DIST_BACKEND="gloo"))
+            cwd=str(Path(__file__).resolve().parent), env=env)
         done[job] = time.perf_counter() - t_phase
         return results
 
@@ -5876,6 +6023,7 @@ def moe_mesh_phase(torch, flash, workdir: Path):
             futures[job] = pool.submit(job_ranks, job, flags, rows)
         for job, (flags, rows) in MOE_MESH_JOBS.items():
             refs[job] = moe_mesh_reference(torch, job, rows)
+        refs["data"]["spanning"] = spanning_reference(torch)
         ref_s = time.perf_counter() - t_phase
         outcomes = {job: f.result() for job, f in futures.items()}
     for job, (flags, rows) in MOE_MESH_JOBS.items():
@@ -5952,6 +6100,8 @@ def moe_mesh_phase(torch, flash, workdir: Path):
             fail(f"MoE --mesh {flags[1]}'s first step is more than "
                  f"{MOE_MESH_FIRST_RTOL[job]} from one process's: "
                  f"{[rank['first'] for rank in ranks]}, {ref_first}")
+        if job == "data":
+            info["spanning"] = moe_spanning_check(ranks, ref["spanning"])
         kernels = path_kernels(torch, flash, bh, f"an MoE --mesh {flags[1]} "
                                f"rank")
         info[job] = {"losses": losses[0], "max_loss_diff": diff,
@@ -6174,6 +6324,233 @@ def adafactor_mesh_phase(torch, flash, workdir: Path):
         fail(f"phase 7j took {phase_s:.1f} s, over {ADAFACTOR_MESH_PHASE_S}")
     info["phase_s"] = phase_s
     return launches, info
+
+
+# One rank of the fused trainer over a mesh: FusedTrainer(mesh=MeshSpec(
+# data=N)) on the global batch, each fused step's per-member losses, the
+# gloo all-reduces, the last step under torch.profiler (device only), and
+# checksums of the stacked state's bits.  Started as ``python -c SCRIPT
+# OUT_DIR STEPS SPEC_JSON``.
+_HFTA_MESH_RANK = _RANK_PRELUDE + r"""
+import itertools
+from torch.profiler import ProfilerActivity, profile
+from kubeflow_tpu_torch.models.transformer import TransformerConfig, lm_task
+from kubeflow_tpu_torch.parallel.mesh import MeshSpec
+from kubeflow_tpu_torch.runtime import bootstrap
+from kubeflow_tpu_torch.runtime.hfta import FusedTrainer, MemberSpec
+from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
+spec = json.loads(sys.argv[3])
+bootstrap.initialize(device="cuda")
+mesh = MeshSpec(data=spec["world"]).build("cuda")
+cfg = TransformerConfig(**dict(spec["model"], dtype=torch.bfloat16,
+                               remat=True))
+init_fn, loss_fn = lm_task(cfg, device="cuda", mesh=mesh)
+ft = FusedTrainer(init_fn=init_fn, loss_fn=loss_fn,
+                  members=[MemberSpec(**m) for m in spec["members"]],
+                  mesh=mesh, device="cuda", metrics=MetricsLogger(
+                      stream=open(os.devnull, "w")))
+body, profiled, losses, m1 = ft._fused_step, {}, [], {}
+
+
+def digest(t):
+    # Two sums of the tensor's bits (the second weighted by position):
+    # equal tensors give equal pairs, a flipped bit another pair.
+    t = t.detach().contiguous()
+    bits = t.view(torch.int32 if t.element_size() == 4 else
+                  torch.int64).flatten().to(torch.int64)
+    w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return [int(bits.sum()), int((bits * w).sum())]
+
+
+def member_digest(state, i):
+    return {k: digest(v[i]) for k, v in state.params.items()}
+
+
+def fused_step(state, active, stops, batch):
+    if len(losses) < steps - 1:
+        out = body(state, active, stops, batch)
+    else:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = body(state, active, stops, batch)
+            torch.cuda.synchronize()
+            profiled["wall"] = (time.perf_counter() - t0) * 1e3
+        profiled["busy"] = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    losses.append(out[2]["loss"].tolist())
+    if len(losses) == spec["stop"]:
+        m1["at_stop"] = member_digest(out[0], 1)
+    return out
+
+
+ft.compile_step = lambda: fused_step
+batch = {"tokens": np.random.RandomState(spec["seed"]).randint(
+    0, cfg.vocab_size, size=(spec["rows"], cfg.max_seq_len)).astype(
+        np.int32)}
+torch.cuda.reset_peak_memory_stats()
+for key in flash.launch_counts:
+    flash.launch_counts[key] = 0
+t0 = time.perf_counter()
+state = ft.fit(itertools.repeat(batch), steps, log_every=1,
+               examples_per_step=spec["rows"])
+torch.cuda.synchronize()
+fit_s = time.perf_counter() - t0
+launches = dict(flash.launch_counts)
+peak = torch.cuda.max_memory_allocated() / 2 ** 30
+inner = state.opt_state.inner
+stack = {f"params.{k}": digest(v) for k, v in state.params.items()}
+stack.update({f"{name}.{i}": digest(t) for name in ("mu", "nu")
+              for i, t in enumerate(getattr(inner, name))})
+stack.update(step=digest(state.step), count=digest(inner.count))
+grads = [c for c in reduces if c[1] > 2 ** 20]
+result(launches, peak, losses=losses, steps=state.step.tolist(),
+       stack=stack, fit_s=fit_s,
+       step_ms=[r["step_time_s"] * 1e3 for r in ft.metrics.history
+                if r.get("event") == "train_step"],
+       m1_frozen=m1["at_stop"] == member_digest(state, 1),
+       reduces_per_step={"calls": len(reduces) / steps,
+                         "bytes": sum(c[1] for c in reduces) / steps,
+                         "ms": sum(c[2] for c in reduces) * 1e3 / steps},
+       gradient_reduce_ms=[c[2] * 1e3 for c in grads],
+       gradient_reduce_bytes=grads[0][1] if grads else 0,
+       profiled_step_ms=profiled.get("wall"),
+       busy_ms=profiled.get("busy") or None)
+"""
+
+
+def hfta_mesh_reference(torch, batch):
+    """One process's fused step (phase 7e's gang without a mesh) on the
+    global ``batch``: each member's loss."""
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig,
+        lm_task,
+    )
+    from kubeflow_tpu_torch.runtime.hfta import FusedTrainer
+    from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
+
+    cfg = TransformerConfig(**dict(MODEL, max_seq_len=TRAIN_SEQ,
+                                   dtype=torch.bfloat16, remat=True))
+    init_fn, loss_fn = lm_task(cfg, device="cuda")
+    ft = FusedTrainer(init_fn=init_fn, loss_fn=loss_fn,
+                      members=hfta_members(), device="cuda",
+                      metrics=MetricsLogger(stream=open(os.devnull, "w")))
+    ft.fit(itertools.repeat(batch), 1, log_every=1)
+    losses = [ft.last_metrics[f"loss/m{i}"] for i in range(HFTA_MEMBERS)]
+    del ft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def hfta_mesh_phase(torch, flash, hfta_info, workdir: Path):
+    """Phase 7k: phase 7e's gang as FusedTrainer(mesh=MeshSpec(data=
+    HFTA_MESH_WORLD)) over HFTA_MESH_WORLD processes on the one GPU over
+    gloo, HFTA_MESH_STEPS fused steps on the global batch: each rank's
+    losses equal, finite and, at the first step, within HFTA_LOSS_ATOL of
+    one process's fused step on the same rows; the stacked state
+    bit-equal on every rank; m1 frozen at its stop; each rank's kernels
+    once a layer a step at bh HFTA_MESH_BH and the kernels at that shape
+    against their plain versions; the phase within HFTA_MESH_PHASE_S.
+    Information: each rank's step ms against phase 7e's fused step, the
+    gradient all-reduce's ms and bytes, a profiled step's busy share and
+    peak memory."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.testing.ranks import run_ranks
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows = TRAIN_BATCH
+    batch = {"tokens": np.random.RandomState(SEED + 12).randint(
+        0, MODEL["vocab_size"], size=(rows, TRAIN_SEQ)).astype(np.int32)}
+    # Before the ranks start: three gangs of 4 x 188M do not fit the card
+    # together.
+    ref = hfta_mesh_reference(torch, batch)
+    ref_s = time.perf_counter() - t_phase
+    log(f"hfta mesh: this process holds "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved as "
+        f"the ranks start")
+    out = workdir / "hfta_mesh"
+    out.mkdir()
+    spec = {"world": HFTA_MESH_WORLD, "rows": rows, "seed": SEED + 12,
+            "stop": HFTA_STOP,
+            "model": dict(MODEL, max_seq_len=TRAIN_SEQ),
+            "members": [dict(name=m.name, seed=m.seed, lr=m.lr,
+                             stop_step=m.stop_step)
+                        for m in hfta_members()]}
+    del spec["model"]["dtype"]
+    results = run_ranks(
+        ["-c", _HFTA_MESH_RANK, str(out), str(HFTA_MESH_STEPS),
+         json.dumps(spec)], HFTA_MESH_WORLD, timeout_s=HFTA_MESH_TIMEOUT_S,
+        cwd=str(Path(__file__).resolve().parent),
+        # Two gangs of 4 x 188M share the card: segments that grow in
+        # place leave less of it stranded between blocks.
+        env=dict(os.environ, KFT_DIST_BACKEND="gloo",
+                 PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    job_s = time.perf_counter() - t_phase - ref_s
+    want = {k: 0 for k in flash.launch_counts}
+    want.update({k: MODEL["n_layers"] * HFTA_MESH_STEPS
+                 for k in TRAIN_KERNELS})
+    ranks = rank_results(results, "the fused trainer over --mesh data=2",
+                         want, HFTA_MESH_BH)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in flash.launch_counts}
+    losses = ranks[0]["losses"]
+    first = max(abs(a - b) for a, b in zip(losses[0], ref))
+    same_stack = all(r["stack"] == ranks[0]["stack"] for r in ranks)
+    steps = ranks[0]["steps"]
+    frozen = all(r["m1_frozen"] for r in ranks)
+    shown = [[round(x, 5) for x in step] for step in losses]
+    log(f"hfta mesh: per-member losses {shown} on every rank: "
+        f"{all(r['losses'] == losses for r in ranks)}; the first step "
+        f"against one process's fused step on the same {rows} rows "
+        f"{[round(x, 5) for x in ref]}: max |diff| {first:.2e} (bound "
+        f"{HFTA_LOSS_ATOL}); member steps {steps}; stacked state "
+        f"({len(ranks[0]['stack'])} tensors) bit-equal on every rank: "
+        f"{same_stack}; m1 bit-equal to its step-{HFTA_STOP} state on "
+        f"every rank: {frozen}; reference {ref_s:.1f} s, the ranks' job "
+        f"{job_s:.1f} s")
+    for r, rank in enumerate(ranks):
+        busy, wall = rank["busy_ms"], rank["profiled_step_ms"]
+        share = "not measured" if busy is None else f"{busy / wall:.3f}"
+        per = rank["reduces_per_step"]
+        log(f"hfta mesh rank {r}: steps "
+            f"{[round(x, 1) for x in rank['step_ms']]} ms (the first "
+            f"carries start-up, the last is the profiled one) against "
+            f"phase 7e's fused step {hfta_info['step_ms']:.1f} ms on "
+            f"twice the rows; profiled step {wall:.1f} ms, busy {busy} "
+            f"ms (share {share}), peak {rank['peak_gib']:.2f} GiB; the "
+            f"gradients' all-reduce {rank['gradient_reduce_bytes'] / 2 ** 30:.3f}"
+            f" GiB in {[round(x, 1) for x in rank['gradient_reduce_ms']]} "
+            f"ms; a step's gloo all-reduces {per['calls']:.0f} "
+            f"({per['bytes'] / 2 ** 20:.1f} MiB, {per['ms']:.1f} ms) "
+            f"(both ranks on one GPU, staged through host memory; host "
+            f"clock after a sync; information only)")
+    if not (len(losses) == HFTA_MESH_STEPS
+            and all(r["losses"] == losses for r in ranks)
+            and all(math.isfinite(x) for step in losses for x in step)
+            and first <= HFTA_LOSS_ATOL and same_stack and frozen
+            and steps == [HFTA_MESH_STEPS, HFTA_STOP, HFTA_MESH_STEPS,
+                          HFTA_MESH_STEPS]):
+        fail(f"the fused trainer over a mesh: losses differ across ranks, "
+             f"are not finite or too far from one process's, or the "
+             f"stacks differ: {[r['losses'] for r in ranks]}, {ref}, "
+             f"{steps}, stacks equal {same_stack}")
+    kernels = path_kernels(torch, flash, HFTA_MESH_BH,
+                           "an HFTA mesh rank (4 members folded)")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 7k took {phase_s:.1f} s (bound {HFTA_MESH_PHASE_S})")
+    if phase_s > HFTA_MESH_PHASE_S:
+        fail(f"phase 7k took {phase_s:.1f} s, over {HFTA_MESH_PHASE_S}")
+    return launches, {"losses": losses, "reference": ref,
+                      "first_diff": first, "steps": steps,
+                      "ranks": [{k: v for k, v in r.items() if k != "stack"}
+                                for r in ranks],
+                      "ref_s": ref_s, "job_s": job_s, "kernels": kernels,
+                      "phase_s": phase_s}
 
 
 def profile_step(torch, trainer, state, batch):
@@ -7361,6 +7738,9 @@ def main() -> int:
         phase_done("7i MoE mesh")
         ada_counts, ada_info = adafactor_mesh_phase(torch, flash, workdir)
         phase_done("7j adafactor mesh")
+        hfta_mesh_counts, hfta_mesh_info = hfta_mesh_phase(
+            torch, flash, hfta_info, workdir)
+        phase_done("7k HFTA mesh")
         log(f"train, single pass + adamw against two-pass + adafactor: "
             f"median step {train_info['step_ms']:.1f} / "
             f"{two_pass_info['step_ms']:.1f} ms, MFU "
@@ -7403,7 +7783,8 @@ def main() -> int:
                                    "tensor": tensor_counts[name],
                                    "pipeline": pipe_counts[name],
                                    "moe_mesh": moe_mesh_counts[name],
-                                   "adafactor_mesh": ada_counts[name]}
+                                   "adafactor_mesh": ada_counts[name],
+                                   "hfta_mesh": hfta_mesh_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
     for name, row in two_pass_rows.items():
@@ -7422,7 +7803,8 @@ def main() -> int:
                                    "tensor": tensor_counts[name],
                                    "pipeline": pipe_counts[name],
                                    "moe_mesh": moe_mesh_counts[name],
-                                   "adafactor_mesh": ada_counts[name]}
+                                   "adafactor_mesh": ada_counts[name],
+                                   "hfta_mesh": hfta_mesh_counts[name]}
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
@@ -7441,7 +7823,8 @@ def main() -> int:
                                  "tensor": tensor_info,
                                  "pipeline": pipe_info,
                                  "moe_mesh": moe_mesh_info,
-                                 "adafactor_mesh": ada_info},
+                                 "adafactor_mesh": ada_info,
+                                 "hfta_mesh": hfta_mesh_info},
                     "checkpoint": ckpt_info,
                     "cnn_serve": cnn_serve_info,
                     "cnn_train": cnn_train_info}))

@@ -31,11 +31,18 @@ partitioner; three attributes say how:
 
   - ``spread`` (a ``Spread``): how many ranks hold the tokens of one
     routing call and how.  The routing group is fitted to the call's
-    global token count, as JAX fits it, and must tile the rank's own
-    tokens (a run of whole rows, or, split over ``sequence``, a slice of
-    every row), else the layer raises ``NotPortedError`` (ROADMAP queue
-    1 item 27): groups that span ranks would need a regrouping
-    exchange.  The aux loss is the global one: the per-expert top-1
+    global token count, as JAX fits it, over JAX's order of the call's
+    tokens (the global row-major ``[B, S]``, or under a pipeline JAX's
+    microbatch).  Where the groups tile the rank's own tokens (a run of
+    whole rows, or, split over ``sequence``, a slice of every row) the
+    rank routes them alone.  Where a group spans ranks, each rank still
+    routes only its own tokens, with the whole router: routing is per
+    token but for the slot position, and that comes from the counts of
+    the group's tokens before the rank's own in JAX's order (``_Spanning``:
+    an all-gather of integer per-expert counts, no token moves), with the
+    capacity of the global group; the dispatch and combine then run on
+    the rank's segments of its groups.  The aux loss is the global one:
+    the per-expert top-1
     counts and probability sums are summed over ``spread.group``, so its
     value is JAX's over all the call's tokens on every rank, and its
     gradient is this rank's share of the global aux's (the convention of
@@ -67,9 +74,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.parallel import tensor as tp
-from kubeflow_tpu_torch.parallel.p2p import all_reduce
+from kubeflow_tpu_torch.parallel.p2p import all_gather, all_reduce
 
 
 def default_group_size(impl: str) -> int:
@@ -109,13 +115,133 @@ def top_k_lower_first(probs: torch.Tensor, k: int
 class Spread:
     """How the tokens of one routing call lie over ranks: ``ranks`` ranks
     hold equal shares of them (1: this rank holds them all), with the
-    process ``group`` over which their statistics are summed;
-    ``within_rows``: each rank holds a slice of every row (the sequence
-    axis), else a run of whole rows."""
+    process ``group`` over which their statistics are summed, in the
+    group's rank order; ``shards`` above 1: the rows are split over that
+    many ranks (the sequence axis, innermost in that order) and each rank
+    holds a slice of every row of its run of rows, else each rank holds a
+    run of whole rows."""
 
     ranks: int = 1
     group: Any = None
-    within_rows: bool = False
+    shards: int = 1
+
+
+class _Spanning:
+    """The layout of a routing call on this rank (index ``index`` of
+    ``spread``'s group, tokens ``[b, s]``) when its groups of ``g`` tokens
+    span ranks.
+
+    JAX's order of the call's tokens is the global row-major one; it is
+    cut into runs of ``length`` tokens, each held whole by one rank: the
+    rank's rows (one run), or with the rows split over ``shards`` ranks
+    each row's slice (``b`` runs).  A run meets at most ``slots`` groups;
+    its tokens of one group, a segment, are contiguous.  This rank's
+    tokens are laid out as ``[runs x slots, width]`` segments
+    (``pad``, ``unpad``; ``valid`` marks the padding off), and a token's
+    slot position in its group is JAX's: the group's counts of the
+    earlier choices, the counts of its expert in the segments of the
+    group before its own (every rank's, all-gathered: integers, no
+    gradient) and the cumsum within its segment (``routes``).  Every
+    index here depends on the shapes alone."""
+
+    def __init__(self, b: int, s: int, g: int, spread: Spread, index: int,
+                 device):
+        shards = spread.shards
+        n_runs, length = (b, s) if shards > 1 else (1, b * s)
+
+        def runs_of(k):
+            if shards == 1:
+                return [k]
+            rows, q = divmod(k, shards)
+            return [(rows * b + i) * shards + q for i in range(b)]
+
+        def groups(u):
+            return u * length // g, ((u + 1) * length - 1) // g
+
+        every = [runs_of(k) for k in range(spread.ranks)]
+        slots = max(hi - lo + 1 for runs in every for lo, hi in
+                    map(groups, runs))
+        width = min(g, length)
+        # Every rank's segments in all-gather order (rank, run, slot),
+        # then sorted into JAX's order: by run, then slot.
+        keys, group_of = [], []
+        for runs in every:
+            for u in runs:
+                lo, hi = groups(u)
+                for w in range(slots):
+                    keys.append((u, w))
+                    group_of.append(lo + w if lo + w <= hi else -1)
+        order = sorted(range(len(keys)), key=keys.__getitem__)
+        at = {old: new for new, old in enumerate(order)}
+        sorted_groups = [group_of[i] for i in order]
+        # Each sorted segment's group's first and last segments (padding
+        # slots, which hold no token, stand for themselves).
+        bounds: dict = {}
+        for pos, grp in enumerate(sorted_groups):
+            if grp >= 0:
+                bounds.setdefault(grp, [pos, pos])[1] = pos
+        first = [bounds[grp][0] if grp >= 0 else pos
+                 for pos, grp in enumerate(sorted_groups)]
+        last = [bounds[grp][1] if grp >= 0 else pos
+                for pos, grp in enumerate(sorted_groups)]
+        n_local = b * s
+        src = torch.full((n_runs * slots, width), n_local, dtype=torch.int64)
+        mine = []
+        for i, u in enumerate(every[index]):
+            lo, hi = groups(u)
+            for w in range(slots):
+                mine.append(at[(index * n_runs + i) * slots + w])
+                if lo + w > hi:
+                    continue
+                start = max(0, (lo + w) * g - u * length)
+                end = min(length, (lo + w + 1) * g - u * length)
+                src[i * slots + w, :end - start] = torch.arange(
+                    i * length + start, i * length + end)
+        valid = src < n_local
+        inv = torch.empty(n_local, dtype=torch.int64)
+        inv[src[valid]] = torch.arange(src.numel())[valid.flatten()]
+        self.shape = (n_runs * slots, width)
+        self.src, self.valid, self.inv = (t.to(device)
+                                          for t in (src, valid, inv))
+        self.order, self.first, self.last, self.mine = (
+            torch.tensor(t, dtype=torch.int64, device=device)
+            for t in (order, first, last, mine))
+
+    def pad(self, flat: torch.Tensor) -> torch.Tensor:
+        """Tokens ``[b s, ...]`` laid out as segments ``[runs x slots,
+        width, ...]``, the padding zero."""
+        table = torch.cat([flat, flat.new_zeros((1,) + flat.shape[1:])])
+        return table[self.src]
+
+    def unpad(self, t: torch.Tensor) -> torch.Tensor:
+        """Segments ``[runs x slots, width, ...]`` back to this rank's
+        tokens ``[b s, ...]``."""
+        return t.reshape((-1,) + t.shape[2:])[self.inv]
+
+    def routes(self, gate_idx: torch.Tensor, capacity: int, experts: int,
+               group) -> list:
+        """Per choice the expert, JAX's slot position and the kept flag of
+        each segment token, ``[runs x slots, width]`` each, from the
+        top-k experts ``gate_idx`` ``[runs x slots, width, k]``."""
+        k = gate_idx.shape[-1]
+        onehots = [F.one_hot(gate_idx[..., c], experts)
+                   * self.valid[..., None] for c in range(k)]
+        counts = torch.stack([oh.sum(1) for oh in onehots])
+        every = all_gather(counts, group)  # [ranks, k, segments, E]
+        table = every.movedim(0, 1).reshape(k, -1, experts)[:, self.order]
+        cum = table.cumsum(1)
+        start = (cum - table)[:, self.first]
+        before = (cum - table - start)[:, self.mine]
+        total = (cum[:, self.last] - start)[:, self.mine]
+        routes, base = [], torch.zeros_like(total[0])
+        for c in range(k):
+            idx = gate_idx[..., c]
+            pos = (base + before[c])[:, None, :] \
+                + torch.cumsum(onehots[c], dim=1) - 1
+            my_pos = torch.gather(pos, 2, idx[..., None])[..., 0]
+            base = base + total[c]
+            routes.append((idx, my_pos, self.valid & (my_pos < capacity)))
+        return routes
 
 
 class MoEMLP(nn.Module):
@@ -150,17 +276,25 @@ class MoEMLP(nn.Module):
         self.spread = Spread()
         self.first_expert = 0
         self.group = self.expert_group = self.tensor_group = None
+        # ``_Spanning`` layouts by shape, spread and device.
+        self._layouts: dict = {}
 
-    def _route(self, tokens: torch.Tensor, capacity: int):
+    def _route(self, tokens: torch.Tensor, capacity: int,
+               spanning: Optional[_Spanning] = None):
         """Float32 routing of tokens [G, g, d]: probs [G, g, E], the
         renormalized gates and the top-k experts [G, g, k], and per
-        choice the expert, slot position and kept flag, each [G, g]."""
+        choice the expert, slot position and kept flag, each [G, g].
+        ``spanning``: the tokens are this rank's segments of groups that
+        span ranks, whose positions it gives."""
         e = self.num_experts
         logits = torch.einsum("gnd,de->gne", tokens.float(), self.router)
         probs = torch.softmax(logits, dim=-1)
         gate_vals, gate_idx = top_k_lower_first(probs, self.top_k)
         gate_vals = gate_vals / torch.clamp(
             gate_vals.sum(-1, keepdim=True), min=1e-9)
+        if spanning is not None:
+            return probs, gate_vals, gate_idx, spanning.routes(
+                gate_idx, capacity, e, self.spread.group)
         routes = []
         counts = torch.zeros((tokens.shape[0], e), dtype=torch.int64,
                              device=tokens.device)
@@ -175,34 +309,48 @@ class MoEMLP(nn.Module):
 
     def fit(self, b: int, s: int) -> int:
         """The routing group of tokens ``[b, s]``: fitted to the routing
-        call's global token count, and tiling this rank's tokens."""
-        spread = self.spread
-        n_tokens = b * s * spread.ranks
-        g = fit_divisor(
-            n_tokens, self.group_size or default_group_size(self.impl),
+        call's global token count, as JAX fits it."""
+        return fit_divisor(
+            b * s * self.spread.ranks,
+            self.group_size or default_group_size(self.impl),
             "MoE routing group",
             "Per-group capacity clamps to top_k and expert "
             "compute/memory inflates by up to num_experts/top_k x.  "
             "Choose batch*seq with a divisor close to group_size.")
-        span = s if spread.within_rows else b * s
-        if span % g:
-            raise NotPortedError(
-                f"an MoE routing group of {g} tokens (fitted to the "
-                f"{n_tokens} tokens of {spread.ranks} ranks) does not tile "
-                f"this rank's {'rows of ' if spread.within_rows else ''}"
-                f"{span} tokens: a group that spans ranks is ROADMAP queue "
-                "1 item 27 (choose moe_group_size dividing it)")
-        return g
+
+    def _spanning(self, b: int, s: int, g: int,
+                  device) -> Optional[_Spanning]:
+        """The layout of this rank's tokens when groups of ``g`` span
+        ranks; None when they tile its rows (or, split over the sequence,
+        its slice of each row)."""
+        spread = self.spread
+        if (s if spread.shards > 1 else b * s) % g == 0:
+            return None
+        import torch.distributed as dist
+
+        key = (b, s, g, spread.ranks, spread.shards, id(spread.group),
+               str(device))
+        if key not in self._layouts:
+            self._layouts[key] = _Spanning(
+                b, s, g, spread, dist.get_rank(spread.group), device)
+        return self._layouts[key]
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         e, k, dt = self.num_experts, self.top_k, self.dtype
         b, s, d = x.shape
         n_tokens = b * s
         g = self.fit(b, s)
-        n_groups = n_tokens // g
         capacity = max(k, int(math.ceil(g * k / e * self.capacity_factor)))
-        tokens = x.reshape(n_groups, g, d)
-        probs, gate_vals, gate_idx, routes = self._route(tokens, capacity)
+        spanning = self._spanning(b, s, g, x.device)
+        if spanning is None:
+            tokens = x.reshape(n_tokens // g, g, d)
+        else:
+            # This rank's segments of groups that span ranks, each padded
+            # to ``width`` tokens; the padding is never kept.
+            tokens = spanning.pad(x.reshape(n_tokens, d))
+        n_groups, g = tokens.shape[:2]
+        probs, gate_vals, gate_idx, routes = self._route(tokens, capacity,
+                                                         spanning)
         rows = torch.arange(n_groups, device=x.device)
         # This rank's experts [lo, lo + n_local).  The gates' gradient
         # covers only its slots: the backward sums it over ``group``.
@@ -268,9 +416,15 @@ class MoEMLP(nn.Module):
             out = torch.einsum("gnec,egcd->gnd",
                                combine.to(expert_out.dtype), expert_out)
         out = tp.reduce_from_parallel(out, self.group)
-
-        top1 = F.one_hot(gate_idx[..., 0].reshape(n_tokens), e).float()
-        flat_probs = probs.reshape(n_tokens, e)
+        top1 = gate_idx[..., 0]
+        if spanning is None:
+            out, top1, flat_probs = (out.reshape(n_tokens, d),
+                                     top1.reshape(n_tokens),
+                                     probs.reshape(n_tokens, e))
+        else:
+            out, top1, flat_probs = (spanning.unpad(t)
+                                     for t in (out, top1, probs))
+        top1 = F.one_hot(top1, e).float()
         if self.spread.group is None:
             fraction = top1.mean(0)
             mean_prob = flat_probs.mean(0)

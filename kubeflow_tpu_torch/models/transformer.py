@@ -81,9 +81,10 @@ hold the same rows, as those of a tensor group do.  The routing group is
 fitted to the tokens of one routing call over the whole mesh (the
 global batch; under a pipeline a microbatch over data x fsdp, each
 sequence shard routing its own, as JAX's schedule is manual over
-``sequence``) and must tile each rank's own tokens, else the forward
-raises ``NotPortedError`` (ROADMAP queue 1 item 27) before any
-collective.  The aux loss is the global one: its statistics are summed
+``sequence``), in JAX's order of those tokens, whichever ranks hold
+them: a group that spans ranks takes its slot positions from the counts
+of the ranks before (models/moe.py ``_Spanning``).  The aux loss is the
+global one: its statistics are summed
 over the ranks of other rows and positions, and under a pipeline the
 stages' sum (``pipelined_scan``'s ``with_aux``) is divided by the
 microbatches and averaged over the sequence shards, as JAX's is.
@@ -159,6 +160,7 @@ from kubeflow_tpu_torch.parallel.mesh import (
     expert_shard,
     group_over,
     pipeline_stage,
+    row_shard,
     sharded_dim,
     tensor_shard,
 )
@@ -260,16 +262,6 @@ def _sequence_shard(mesh) -> Tuple[int, int]:
     if mesh is None or axis_sizes(mesh)[SEQUENCE] == 1:
         return 0, 1
     return mesh.get_local_rank(SEQUENCE), axis_sizes(mesh)[SEQUENCE]
-
-
-def _row_shard(mesh) -> Tuple[int, int]:
-    """(this rank's index, count) of the batch's row shards, over
-    ``data`` x ``fsdp``; (0, 1) without a mesh."""
-    if mesh is None:
-        return 0, 1
-    sizes = axis_sizes(mesh)
-    return (mesh.get_local_rank(DATA) * sizes[FSDP]
-            + mesh.get_local_rank(FSDP), sizes[DATA] * sizes[FSDP])
 
 
 def _vocab_split(mesh, vocab_size: int):
@@ -521,7 +513,7 @@ def rank_dropout_mask(shape, rate: float, generator: torch.Generator,
     on the global batch, and every rank of a ``tensor`` group keeps the
     same one.  Each rank draws the whole global mask (data x fsdp x
     sequence times its own)."""
-    _, n_rows = _row_shard(mesh)
+    _, n_rows = row_shard(mesh)
     pos, n_pos = _sequence_shard(mesh)
     if n_rows * n_pos == 1:
         return dropout_mask(shape, rate, generator, device)
@@ -537,7 +529,7 @@ def _exchanges_rows(mesh, n_micro: int) -> bool:
     under ``pipeline`` > 1 with data x fsdp and the microbatches each
     above 1."""
     return (n_micro > 1 and pipeline_stage(mesh)[1] > 1
-            and _row_shard(mesh)[1] > 1)
+            and row_shard(mesh)[1] > 1)
 
 
 def microbatch_rows(b: int, mesh, n_micro: int = 0) -> torch.Tensor:
@@ -546,7 +538,7 @@ def microbatch_rows(b: int, mesh, n_micro: int = 0) -> torch.Tensor:
     > 1 microbatches (``_exchanges_rows``), its share of each of JAX's
     microbatches, local microbatch m (rows [m b/M, (m + 1) b/M)) holding
     global rows m B/M + r b/M + [0, b/M)."""
-    r, count = _row_shard(mesh)
+    r, count = row_shard(mesh)
     if not _exchanges_rows(mesh, n_micro):
         return torch.arange(r * b, (r + 1) * b)
     if b % n_micro:
@@ -816,7 +808,7 @@ class Transformer(nn.Module):
         if self.stage is None:
             spread = Spread(sizes[DATA] * sizes[FSDP] * sizes[SEQUENCE],
                             group_over(mesh, (DATA, FSDP, SEQUENCE)),
-                            within_rows=sizes[SEQUENCE] > 1)
+                            shards=sizes[SEQUENCE])
         else:
             spread = Spread(sizes[DATA] * sizes[FSDP],
                             group_over(mesh, (DATA, FSDP)))
@@ -858,10 +850,6 @@ class Transformer(nn.Module):
                     masks[layer - stage.offset] = pair
         pos = positions[:x.shape[0] // n_micro]
         moe = cfg.moe_experts > 0
-        if moe and self.layers:
-            # Every stage refuses a routing group that spans ranks before
-            # the schedule's first transfer, not one stage inside it.
-            self.layers[0].moe.fit(x.shape[0] // n_micro, x.shape[1])
 
         def stage_fn(act):
             aux = None
@@ -948,10 +936,6 @@ class Transformer(nn.Module):
                 device=tokens.device).expand(tokens.shape)
         x = self.embed_tokens(tokens)
         aux = None
-        if (self.mesh is not None and self.stage is None
-                and self.cfg.moe_experts and self.layers):
-            # Before the first layer's collectives, on every rank alike.
-            self.layers[0].moe.fit(*tokens.shape)
         if self.stage is not None:
             x, aux = self._pipelined(x, positions, drop, generator)
         else:
@@ -1147,11 +1131,12 @@ def _global_loss(share: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``share`` over ``group`` (the ranks that hold the
     batch's other rows and positions) as the value, with ``share``'s own
     gradient (an all-reduce of the value; nothing to do without a group
-    or in a group of one)."""
+    or in a group of one).  Inside the fused trainer's member map the
+    all-reduce runs once, on the members' stacked shares
+    (parallel/p2p.py)."""
     import torch.distributed as dist
 
     if group is None or dist.get_world_size(group) == 1:
         return share
-    total = share.detach().clone()
-    dist.all_reduce(total, group=group)
+    total = p2p.all_reduce(share, group)
     return total + (share - share.detach())

@@ -19,6 +19,7 @@ mesh FSDP2 shards over: the ``fsdp`` axis, with the ``data`` and
 replicate dim (HSDP) when either is above 1, at this rank's index along
 ``tensor``, ``pipeline`` and ``expert``: FSDP2 shards and reduces within
 one tensor index, one stage and one expert index, never across them.
+``row_shard`` is this rank's share of the batch's rows (data x fsdp);
 ``tensor_shard``, ``expert_shard`` and ``pipeline_stage`` are this
 rank's place along ``tensor``, ``expert`` and ``pipeline``
 (parallel/tensor.py, models/moe.py, parallel/pipeline.py);
@@ -228,6 +229,16 @@ def fsdp_mesh(mesh, timeout_s: float = DEFAULT_TIMEOUT_S):
                            ("replicate", FSDP))
     mesh._kft_fsdp_mesh = out
     return out
+
+
+def row_shard(mesh) -> Tuple[int, int]:
+    """(this rank's index, count) of the batch's row shards, over
+    ``data`` x ``fsdp``; (0, 1) without a mesh."""
+    if mesh is None:
+        return 0, 1
+    sizes = axis_sizes(mesh)
+    return (mesh.get_local_rank(DATA) * sizes[FSDP]
+            + mesh.get_local_rank(FSDP), sizes[DATA] * sizes[FSDP])
 
 
 def tensor_shard(mesh) -> Tuple[int, int]:

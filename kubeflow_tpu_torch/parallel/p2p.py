@@ -5,7 +5,9 @@ and its exchange of rows into JAX's microbatches (models/transformer.py),
 the MoE layer's global statistics (models/moe.py), adafactor's
 statistics under a split (runtime/optim.py), BatchNorm's global
 statistics (models/resnet.py) and serving's forward-only reduce
-(parallel/tensor.py).
+(parallel/tensor.py).  Inside the fused trainer's member map
+(runtime/member_map.py) ``all_reduce`` and ``all_gather`` of a member's
+view run once on the stack of every member's (``member_map.on_stack``).
 
 On a gloo group a CUDA tensor is staged through host memory (``staged``):
 gloo's point-to-point moves host tensors (on the card's torch its CUDA
@@ -24,6 +26,8 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import torch
+
+from kubeflow_tpu_torch.runtime import member_map
 
 
 def rank_and_size(group) -> Tuple[int, int]:
@@ -118,6 +122,9 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     autograd."""
     import torch.distributed as dist
 
+    if member_map.mapped(t):
+        return member_map.on_stack(lambda s: all_reduce(s, group), t)
+
     buf = t.detach().to("cpu", memory_format=torch.contiguous_format) \
         if staged(t.device, group) else t.detach().contiguous().clone()
     dist.all_reduce(buf, group=group)
@@ -129,6 +136,11 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     group's rank order, ``[ranks, *t.shape]`` on ``t``'s device, outside
     autograd."""
     import torch.distributed as dist
+
+    if member_map.mapped(t):
+        # Each member's ``[ranks, ...]``: the stack's gather, members first.
+        return member_map.on_stack(
+            lambda s: all_gather(s, group).movedim(0, 1), t)
 
     buf = t.detach().cpu() if staged(t.device, group) \
         else t.detach().contiguous()

@@ -1,5 +1,6 @@
 """Horizontally fused training arrays: N small jobs stepped as one program
-on one device.  The port of kubeflow_tpu/runtime/hfta.py.
+on one device, or over the batch axes of a mesh.  The port of
+kubeflow_tpu/runtime/hfta.py.
 
 HFTA (PAPERS.md, arXiv 2102.02344) fuses a swarm of hyperparameter-sweep
 jobs (same architecture, different lr and seed), each of which would
@@ -44,9 +45,36 @@ than its solo run's.
 The fit loop keeps ``Trainer.fit``'s dispatch discipline (at most two
 calls in flight, async checkpoints, the ``train.step`` fault site,
 ``on_step`` at each call boundary), so ``TrainSupervisor`` wraps a
-FusedTrainer unchanged.  A mesh raises ``NotPortedError`` (a fused
-trainer over a mesh, ROADMAP queue 1 item 22).  JAX's process-level cache
-of traced steps has no counterpart: eager PyTorch has nothing to trace.
+FusedTrainer unchanged.  JAX's process-level cache of traced steps has no
+counterpart: eager PyTorch has nothing to trace.
+
+Over a mesh (``mesh``, a ``DeviceMesh`` from parallel/mesh.py
+``MeshSpec.build``; every rank builds the same trainer and calls it in
+step), as JAX's fused trainer runs under one:
+
+  - ``data`` and ``fsdp`` are batch axes, as in JAX: every rank holds the
+    whole stacked state (parameters, moments, counts, learning rates,
+    steps and the members' generators), JAX's replicated pin, and no
+    FSDP2 wraps it.  A mesh whose ``pipeline``, ``expert``, ``sequence``
+    or ``tensor`` is above 1 raises ``NotPortedError`` (a fused trainer
+    over the model axes, ROADMAP queue 1 item 28);
+  - every rank is given the same global batch and ``shard_batch`` keeps
+    its rows, its data x fsdp shard (``parallel/mesh.py`` ``row_shard``);
+  - a member's loss is the task's own: under ``lm_task(cfg, mesh=mesh)``
+    the global loss as its value and this rank's share as its gradient.
+    The global loss's all-reduce and the MoE layer's statistics run
+    inside the member map once on the members' stack
+    (``member_map.on_stack``), and dropout keeps each member's rows of
+    its own global mask;
+  - after the one ``backward()`` the stacked gradients are summed over
+    the batch ranks (``batch_group``) in one flat all-reduce a dtype, so
+    ``grad_norm``, the non-finite mask, the update and the step counts
+    come out bit-equal on every rank, and so does the stacked state;
+  - each member's checkpoint is saved through the collective
+    ``CheckpointManager.save`` (every rank calls it, rank 0 writes) and
+    restored on every rank; the metrics count ``mesh.size()`` chips, and
+    the member-step counter and active gauge move on rank 0 alone, so
+    that a sum over the job's ranks counts each step once.
 """
 
 from __future__ import annotations
@@ -63,13 +91,24 @@ from torch.func import stack_module_state, vmap
 
 from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
+from kubeflow_tpu_torch.parallel import p2p
+from kubeflow_tpu_torch.parallel.mesh import (
+    DEFAULT_RULES,
+    EXPERT,
+    PIPELINE,
+    SEQUENCE,
+    TENSOR,
+    axis_sizes,
+    batch_group,
+    row_shard,
+)
 from kubeflow_tpu_torch.runtime import member_map
 from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
 from kubeflow_tpu_torch.runtime.metrics import MetricsLogger, Timer
 from kubeflow_tpu_torch.runtime.optim import default_tx_factory
 from kubeflow_tpu_torch.runtime.prom import REGISTRY
 from kubeflow_tpu_torch.runtime.train import (LossFn, TrainState, _Done,
-                                              place_batch)
+                                              _tree_map, place_batch)
 from kubeflow_tpu_torch.testing import faults
 
 
@@ -165,6 +204,21 @@ def _select(keep: torch.Tensor, new: Any, old: Any) -> Any:
     return new
 
 
+def _copy_module(module: torch.nn.Module,
+                 memo: Optional[dict] = None) -> torch.nn.Module:
+    """``copy.deepcopy(module, memo)`` that shares what its modules hold
+    besides tensors, modules and containers: configs, and under a mesh
+    the mesh and its process groups, which cannot be copied."""
+    memo = {} if memo is None else memo
+    for sub in module.modules():
+        for value in vars(sub).values():
+            if not isinstance(value, (torch.Tensor, torch.nn.Module, dict,
+                                      list, tuple, int, float, str,
+                                      type(None))):
+                memo[id(value)] = value
+    return copy.deepcopy(module, memo)
+
+
 def _copy_generator(gen: torch.Generator) -> torch.Generator:
     out = torch.Generator(device=gen.device)
     out.set_state(gen.get_state())
@@ -174,7 +228,8 @@ def _copy_generator(gen: torch.Generator) -> torch.Generator:
 @dataclasses.dataclass
 class FusedTrainer:
     """N same-architecture training jobs fused into one program on one
-    device (CUDA unless ``device="cpu"``).
+    device (CUDA unless ``device="cpu"``), or on this rank's device over
+    the batch axes of ``mesh``.
 
     init_fn / loss_fn: the same contracts as
       :class:`~kubeflow_tpu_torch.runtime.train.Trainer`; the member
@@ -188,8 +243,12 @@ class FusedTrainer:
       ``optim.default_tx_factory``.
     members: the member array.  Order is the stacking order and the
       checkpoint subdirectory layout — keep it stable across resumes.
-    mesh / rules: None; a mesh raises ``NotPortedError`` (a fused
-      trainer over a mesh, ROADMAP queue 1 item 22).
+    mesh / rules: a ``DeviceMesh`` from ``MeshSpec.build`` whose
+      ``data`` and ``fsdp`` may be any size (the module docstring says
+      what the fused step does over them) and the logical-axis rule
+      table, as ``Trainer`` takes them; ``pipeline``, ``expert``,
+      ``sequence`` or ``tensor`` above 1 raises ``NotPortedError`` (a
+      fused trainer over the model axes, ROADMAP queue 1 item 28).
     checkpoint_dir: per-member managers live at
       ``<checkpoint_dir>/<member.name>``; None disables checkpointing.
     mask_nonfinite: freeze a member whose loss goes non-finite instead
@@ -208,7 +267,7 @@ class FusedTrainer:
     members: Sequence[MemberSpec]
     mesh: Any = None
     tx_factory: Callable[[float], Any] = default_tx_factory
-    rules: Any = None
+    rules: Any = DEFAULT_RULES
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 1000
     max_to_keep: int = 3
@@ -222,11 +281,24 @@ class FusedTrainer:
         names = [m.name for m in self.members]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate member names: {names}")
-        if self.mesh is not None or self.rules is not None:
-            raise NotPortedError(
-                "a fused trainer over a mesh is not ported yet: ROADMAP "
-                "queue 1 item 22; the fused trainer runs on one device")
+        if self.mesh is not None:
+            sizes = axis_sizes(self.mesh)
+            model = [a for a in (PIPELINE, EXPERT, SEQUENCE, TENSOR)
+                     if sizes[a] > 1]
+            if model:
+                raise NotPortedError(
+                    f"a fused trainer over the model axes ({', '.join(model)}"
+                    " above 1) is not ported yet: ROADMAP queue 1 item 28; "
+                    "the fused trainer runs over data x fsdp")
         self.device = resolve_device(self.device)
+        # The ranks that hold other rows: the stacked gradients' sum.
+        self._batch_group = None
+        if self.mesh is not None and self.mesh.size() > 1:
+            self._batch_group = batch_group(self.mesh)
+        self._flat: Dict[torch.dtype, torch.Tensor] = {}
+        # Under a mesh rank 0 alone moves the member-step counter and the
+        # active gauge: summed over the ranks, each step counts once.
+        self._counting = self.mesh is None or self.mesh.get_rank() == 0
         self._tx = self.tx_factory(0.0)  # lr comes from opt_state
         self._skeleton: Optional[torch.nn.Module] = None
         self._forms: List[Any] = []
@@ -255,6 +327,10 @@ class FusedTrainer:
         """Per-member mask after the last fit() call — False means the
         member froze (early stop, non-finite loss or num_steps reached)."""
         return list(self._last_active)
+
+    def _set_active(self, active: Sequence[bool]) -> None:
+        if self._counting:
+            self._members_active.set(float(sum(active)))
 
     # -- per-member state --------------------------------------------------
 
@@ -289,7 +365,7 @@ class FusedTrainer:
         what a solo Trainer would hold."""
         if self._skeleton is None:
             raise ValueError("no fused state was built by this trainer")
-        model = copy.deepcopy(self._skeleton)
+        model = _copy_module(self._skeleton)
         model.load_state_dict(
             {k: v[i].detach().clone() for k, v in fused.params.items()},
             assign=True)
@@ -314,9 +390,9 @@ class FusedTrainer:
                                  "(the port's LM has none)")
         params = {k: v.detach().to(self.device).requires_grad_()
                   for k, v in params.items()}
-        memo = {id(p): torch.nn.Parameter(torch.empty_like(p, device="meta"))
-                for p in models[0].parameters()}
-        self._skeleton = copy.deepcopy(models[0], memo)
+        self._skeleton = _copy_module(models[0], {
+            id(p): torch.nn.Parameter(torch.empty_like(p, device="meta"))
+            for p in models[0].parameters()})
         self._forms = [(_form(s.opt_state), _form(s.mutable))
                        for s in solo_states]
         return TrainState(
@@ -355,6 +431,7 @@ class FusedTrainer:
                         torch.arange(n, device=self.device), batch)
             losses.sum().backward()
         grads = {k: p.grad for k, p in params.items()}
+        self._sum_over_batch(list(grads.values()))
         grad_norm = torch.stack([
             g.float().square().flatten(1).sum(1) for g in grads.values()
         ]).sum(0).sqrt()
@@ -370,6 +447,38 @@ class FusedTrainer:
                    **{k: v.detach() for k, v in aux.items()}}
         return state, keep & (state.step < stops), metrics
 
+    def _sum_over_batch(self, grads: List[torch.Tensor]) -> None:
+        """Each rank's share of the stacked gradients summed in place over
+        the batch ranks: one flat all-reduce a dtype, through a host
+        buffer kept across steps where the group is gloo and the
+        gradients are on the card (parallel/p2p.py ``staged``)."""
+        group = self._batch_group
+        if group is None:
+            return
+        import torch.distributed as dist
+
+        staged = p2p.staged(self.device, group)
+        for dtype in dict.fromkeys(g.dtype for g in grads):
+            part = [g for g in grads if g.dtype == dtype]
+            n = sum(g.numel() for g in part)
+            flat = self._flat.get(dtype)
+            if flat is None or flat.numel() != n:
+                flat = torch.empty(
+                    n, dtype=dtype,
+                    device="cpu" if staged else self.device,
+                    pin_memory=staged)
+                self._flat[dtype] = flat
+            views, at = [], 0
+            for g in part:
+                views.append(flat[at:at + g.numel()].view_as(g))
+                views[-1].copy_(g, non_blocking=True)
+                at += g.numel()
+            if staged:
+                torch.cuda.current_stream(self.device).synchronize()
+            dist.all_reduce(flat, group=group)
+            for v, g in zip(views, part):
+                g.copy_(v, non_blocking=True)
+
     def compile_step(self) -> Callable:
         """The fused step, ``(state, active, stops, batch) -> (state,
         active, metrics)``.  PyTorch runs eagerly, so there is nothing
@@ -378,7 +487,22 @@ class FusedTrainer:
 
     def shard_batch(self, batch: Any) -> Any:
         """One batch feeds every member (HFTA's shared-input shape),
-        placed on the device as ``Trainer.shard_batch`` places it."""
+        placed on the device as ``Trainer.shard_batch`` places it.  Under
+        a mesh every rank is given the same global batch and keeps its
+        rows of each leaf with a batch dim (its data x fsdp shard)."""
+        r, n = row_shard(self.mesh)
+        if n > 1:
+            def rows(x):
+                x = np.asarray(x) if not torch.is_tensor(x) else x
+                if x.ndim == 0:
+                    return x
+                if x.shape[0] % n:
+                    raise ValueError(f"batch of {x.shape[0]} rows does not "
+                                     f"split over {n} data x fsdp ranks")
+                b = x.shape[0] // n
+                return x[r * b:(r + 1) * b]
+
+            batch = _tree_map(rows, batch)
         return place_batch(batch, self.device)
 
     # -- loop --------------------------------------------------------------
@@ -436,7 +560,7 @@ class FusedTrainer:
                        for i in range(n)]
         state = self._stack_members(solo_states)
         del solo_states
-        self._members_active.set(float(sum(active_host)))
+        self._set_active(active_host)
         if gang_start >= num_steps or not any(active_host):
             self._last_active = active_host
             self._last_metrics = {}
@@ -472,7 +596,7 @@ class FusedTrainer:
             steps_host = [int(s) for s in state.step.tolist()]
             for idx, m in enumerate(self.members):
                 delta = steps_host[idx] - last_counted[idx]
-                if delta > 0:
+                if delta > 0 and self._counting:
                     self._member_steps.inc(delta, member=m.name)
                 last_counted[idx] = steps_host[idx]
                 gens[idx].set_state(
@@ -527,7 +651,7 @@ class FusedTrainer:
                     step=last,
                     step_time_s=dt,
                     examples_per_step=examples_per_step * max(1, sum(act)),
-                    n_chips=1,
+                    n_chips=1 if self.mesh is None else self.mesh.size(),
                     loss=sum(live) / len(live) if live else None,
                     members=n,
                     members_active=int(sum(act)),
@@ -537,7 +661,7 @@ class FusedTrainer:
             if crossed_stop or at_boundary or at_end:
                 steps_host = settle()
                 act_host = active.tolist()
-                self._members_active.set(float(sum(act_host)))
+                self._set_active(act_host)
                 for idx in range(n):
                     if at_boundary or at_end or steps_host[idx] == stops[idx]:
                         save(idx, steps_host)
@@ -554,7 +678,7 @@ class FusedTrainer:
             mgr.wait()
         act_host = [bool(a) for a in active.tolist()]
         self._last_active = act_host
-        self._members_active.set(float(sum(act_host)))
+        self._set_active(act_host)
         losses = final_metrics["loss"].tolist() if final_metrics else []
         self._last_metrics = {
             f"loss/{m.name}": float(l)

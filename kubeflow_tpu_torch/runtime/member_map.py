@@ -26,6 +26,13 @@ with their mapped dims, and what it computes there, ordinary autograd
 records on the stacked tensors, through which the fused step's one
 ``backward()`` then runs.  Outside the map :func:`checkpoint` is
 ``torch.utils.checkpoint.checkpoint`` and nothing else changes.
+
+A collective is a third thing: c10d runs on plain tensors, not on a
+member's view of a stack.  Under a mesh (the fused trainer over data x
+fsdp) the global loss and the MoE layer's statistics are summed over the
+ranks from inside the map; parallel/p2p.py's collectives hand a
+:func:`mapped` tensor to :func:`on_stack`, which runs them once on the
+``[members, ...]`` stack, never once a member.
 """
 
 from __future__ import annotations
@@ -85,6 +92,23 @@ class _Unmapped(torch.autograd.Function):
     def vmap(info, in_dims, fn, *tensors):
         outs = tuple(fn(info.batch_size, tuple(in_dims[1:]), *tensors))
         return outs, (0,) * len(outs)
+
+
+def mapped(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a member's view of a stack inside the member
+    map."""
+    return bool(_MEMBERS.get()) and torch._C._functorch.is_batchedtensor(t)
+
+
+def on_stack(fn: Callable[[torch.Tensor], torch.Tensor],
+             t: torch.Tensor) -> torch.Tensor:
+    """``fn`` of the ``[members, ...]`` stack behind the mapped ``t``,
+    mapped again: each member gets its row of the result."""
+    def outside(n, dims, stacked):
+        del n
+        return (fn(stacked.movedim(dims[0], 0)),)
+
+    return _Unmapped.apply(outside, t)[0]
 
 
 class _Bound(nn.Module):

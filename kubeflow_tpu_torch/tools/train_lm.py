@@ -29,8 +29,8 @@ by its (data, fsdp) coordinate: KFTR shards ``RecordDataset(...).shard(i,
 data * fsdp)``, or a synthetic stream seeded with i.  ``--moe-experts N``
 (with ``--moe-capacity-factor``) trains the mixture-of-experts LM
 (models/moe.py; top-2, the einsum dispatch, as in the JAX entry point),
-under any mesh; its routing groups must not span ranks (ROADMAP queue 1
-item 27).  ``--optimizer adafactor`` trains under every axis, its
+under any mesh, its routing groups JAX's whichever ranks hold their
+tokens.  ``--optimizer adafactor`` trains under every axis, its
 statistics those of the whole JAX leaves (runtime/optim.py).
 ``--optimizer adafactor``, ``--data-files``
 (KFTR shards of {"tokens": [s]} examples, data/) and
@@ -83,9 +83,7 @@ def parse_mesh(flag: str) -> dict:
 
 def _not_ported(args, mesh_axes: dict) -> str:
     """The first flag this port does not serve yet, with its ROADMAP
-    item, or ''.  Every flag of the JAX entry point trains now; an MoE
-    routing group that spans ranks (item 27) depends on the shapes, and
-    the model refuses it before its first collective."""
+    item, or ''.  Every flag of the JAX entry point trains now."""
     return ""
 
 

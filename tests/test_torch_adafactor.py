@@ -50,6 +50,10 @@ from kubeflow_tpu_torch.runtime import optim
 from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
 from kubeflow_tpu_torch.runtime.train import Trainer
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 OPT_TOL = dict(atol=1e-6, rtol=1e-5)
 LOSS_TOL = dict(atol=1e-4, rtol=1e-4)
 L = 3

@@ -11,6 +11,10 @@ from kubeflow_tpu.ops.attention import (
 )
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 # name -> (q_len, k_len, kv heads, kwargs from an rng)

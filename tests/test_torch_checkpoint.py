@@ -24,6 +24,10 @@ from kubeflow_tpu_torch.runtime.supervisor import TrainSupervisor
 from kubeflow_tpu_torch.runtime.train import Trainer
 from kubeflow_tpu_torch.testing import faults
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 SMALL = dict(vocab_size=64, d_model=16, n_layers=2, n_heads=2, n_kv_heads=1,
              d_ff=32, head_dim=8, max_seq_len=16, attention="flash")
 

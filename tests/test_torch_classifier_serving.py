@@ -36,6 +36,10 @@ from kubeflow_tpu_torch.serving.model_server import (
 )
 from test_torch_resnet import random_variables
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 JAX_LOADER = "kubeflow_tpu.serving.loaders:classifier"
 CONFIG = {"family": "resnet18", "num_classes": 10, "num_filters": 8,
           "top_k": 3}

@@ -63,6 +63,10 @@ from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
 from kubeflow_tpu_torch.tools import train_cnn
 from test_torch_resnet import assert_trees_close, random_variables
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 WORKER = str(REPO / "tests" / "torch_cnn_gang_worker.py")
 GANG_TIMEOUT_S = 150

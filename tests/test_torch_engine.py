@@ -43,6 +43,10 @@ from kubeflow_tpu_torch.serving.errors import (
 )
 from kubeflow_tpu_torch.testing import faults
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 SEED = 20261017
 VOCAB, NEW_TOKENS = 256, 12
 OVERRIDES = {"vocab_size": VOCAB, "d_model": 32, "n_layers": 2,

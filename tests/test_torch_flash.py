@@ -18,6 +18,10 @@ from kubeflow_tpu.ops.flash import flash_attention as jax_flash_attention
 from kubeflow_tpu_torch.ops import flash
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 

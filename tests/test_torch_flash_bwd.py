@@ -24,6 +24,10 @@ from kubeflow_tpu.ops.flash import flash_bwd_block as jax_flash_bwd_block
 from kubeflow_tpu_torch.ops import flash
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 

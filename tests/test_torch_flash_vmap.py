@@ -25,6 +25,10 @@ from torch.func import vmap
 from kubeflow_tpu.ops.flash import flash_attention as jax_flash_attention
 from kubeflow_tpu_torch.ops import flash
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-6, rtol=1e-6)
 JAX_TOL = dict(atol=1e-4, rtol=1e-4)
 M, B, S, D = 3, 2, 48, 16

@@ -31,6 +31,10 @@ from kubeflow_tpu_torch.models.generate import (
 )
 from kubeflow_tpu_torch.models.transformer import Transformer, TransformerConfig
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 VOCAB, T, NEW = 256, 12, 8
 SMALL = dict(vocab_size=VOCAB, d_model=32, n_layers=2, n_heads=4,
              n_kv_heads=2, d_ff=64, head_dim=8, max_seq_len=64)

@@ -56,6 +56,7 @@ from kubeflow_tpu_torch.models.transformer import (
     TransformerConfig,
     lm_task,
 )
+from kubeflow_tpu_torch.parallel.mesh import MeshSpec as PortMeshSpec
 from kubeflow_tpu_torch.runtime import optim
 from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
 from kubeflow_tpu_torch.runtime.hfta import (
@@ -70,6 +71,10 @@ from kubeflow_tpu_torch.runtime.prom import REGISTRY
 from kubeflow_tpu_torch.runtime.supervisor import TrainSupervisor
 from kubeflow_tpu_torch.runtime.train import Trainer, TrainState
 from kubeflow_tpu_torch.testing import faults
+
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.filterwarnings(
     "error:There is a performance drop")
@@ -379,15 +384,27 @@ def test_member_checkpoints_and_metrics(tmp_path):
     assert set(ft.last_metrics) == {"loss", "loss/m0", "loss/m1"}
 
 
+class _ShapedMesh:
+    """A mesh's names and sizes alone (``MeshSpec(**sizes)``'s shape on
+    a world of their product), as the fused trainer's axis check reads
+    them before any collective."""
+
+    def __init__(self, **sizes):
+        resolved = PortMeshSpec(**dict(dict(data=1), **sizes)).sizes(
+            int(np.prod(list(sizes.values()))))
+        self.mesh_dim_names = tuple(resolved)
+        self.shape = tuple(resolved.values())
+
+
 def test_member_validation():
     with pytest.raises(ValueError, match="duplicate"):
         make([MemberSpec(name="a"), MemberSpec(name="a")])
     with pytest.raises(ValueError, match="at least one"):
         make([])
-    with pytest.raises(NotPortedError, match="item 22"):
-        make(specs(2), mesh=object())
-    with pytest.raises(NotPortedError, match="item 22"):
-        make(specs(2), rules=(("batch", "data"),))
+    with pytest.raises(NotPortedError, match="item 28"):
+        make(specs(2), mesh=_ShapedMesh(tensor=2))
+    assert make(specs(2), rules=(("batch", "data"),)).rules == (
+        ("batch", "data"),)
     with pytest.raises(ValueError, match="member states"):
         make(specs(2)).fit(data_factory(), 1, member_states=[])
 

@@ -16,6 +16,10 @@ from kubeflow_tpu_torch.models.resnet import ResNet50, ResNetConfig
 from kubeflow_tpu_torch.models.transformer import Transformer, TransformerConfig
 from kubeflow_tpu_torch.serving.model_server import ModelServer
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ml_dtypes",
              "kubeflow_tpu")

@@ -28,6 +28,10 @@ from kubeflow_tpu_torch.models.resnet import to_internal
 from kubeflow_tpu_torch.testing.cnn import random_cnn_variables
 from test_torch_resnet import assert_trees_close, images, random_variables
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 
 # (JAX block, port block, input [b, h, w, c] at the block's true width)

@@ -39,6 +39,10 @@ from kubeflow_tpu_torch.ops import quantize as pq
 from kubeflow_tpu_torch.serving import http as phttp
 from kubeflow_tpu_torch.serving.engine import DecodeEngine
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 SEED = 20261020
 VOCAB, NEW_TOKENS, K = 128, 10, 4
 OVERRIDES = {"vocab_size": VOCAB, "d_model": 32, "n_layers": 2,

@@ -46,6 +46,10 @@ from kubeflow_tpu_torch.serving.engine import DecodeEngine
 from kubeflow_tpu_torch.serving.export import load_version
 from kubeflow_tpu_torch.testing import faults
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 SEED = 20261019
 VOCAB, NEW = 128, 8
 OVERRIDES = {"vocab_size": VOCAB, "d_model": 32, "n_layers": 2,

@@ -21,6 +21,10 @@ from kubeflow_tpu.serving.loaders import _model_config as jax_model_config
 from kubeflow_tpu_torch.ops import flash
 from kubeflow_tpu_torch.serving import export as port_export
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 JAX_LOADER = "kubeflow_tpu.serving.loaders:lm"
 SMALL = {"vocab_size": 96, "d_model": 32, "n_layers": 3, "n_heads": 4,
          "n_kv_heads": 2, "d_ff": 64, "head_dim": 8, "max_seq_len": 64}

@@ -51,6 +51,10 @@ from kubeflow_tpu_torch.runtime.train import Trainer
 from kubeflow_tpu_torch.serving.engine import DecodeEngine
 from kubeflow_tpu_torch.tools import train_lm
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 OUT_TOL = dict(atol=1e-5, rtol=1e-5)
 AUX_TOL = dict(atol=1e-6, rtol=1e-6)
 LOSS_TOL = dict(atol=1e-4, rtol=1e-4)

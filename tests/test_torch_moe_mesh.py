@@ -8,9 +8,9 @@ its trainers in threads; the port's ranks are JAX-free subprocesses
 joined with a timeout.  The model is tests/test_moe.py's ``CFG`` (2
 layers, vocab 64, d_model 32, 4 heads, d_ff 64, 4 experts, top-2) in
 float32; the port attends through ``attention="flash"`` (its plain
-version on the CPU), JAX through its dot attention.  Each routing group
-must lie within one rank's tokens (ROADMAP queue 1 item 27), so the jobs
-set ``moe_group_size`` to tile each rank's share:
+version on the CPU), JAX through its dot attention.  Most jobs set
+``moe_group_size`` to tile each rank's share; the spanning cases route in
+groups that span ranks, as JAX fits them to the global tokens:
 
   - ``moe8`` (8 ranks): test_moe.py's ``test_train_on_expert_parallel_
     mesh`` layout, data=2, expert=2, tensor=2, groups of 32 (a rank holds
@@ -30,17 +30,22 @@ set ``moe_group_size`` to tile each rank's share:
     against the JAX ``Trainer`` on that mesh (within 1e-4 relative, the
     parameters within atol=rtol=1e-4); the mean of the ranks' auxes over
     their own tokens differs from the global aux, which the mesh gives;
-    groups of 32 span two ranks and are refused (item 27); then fsdp=2,
+    groups of 32, each a row of two ranks' slices, hold one loss, its
+    ``moe_aux`` and every gradient to JAX's on the global batch within
+    atol=rtol=1e-4 (JAX on one device, its groups the same rows), at the
+    default capacity and at a capacity factor of 0.5, where the second
+    rank of each group drops choices; then fsdp=2,
     expert=2 with the gather dispatch (FSDP2 shards each rank's experts)
     over 2 adamw steps, against no mesh within 1e-5 and against the JAX
     ``Trainer`` on that mesh within 1e-4;
   - ``moe_pipe8`` (8 ranks): test_transformer.py's ``test_pipelined_moe_
     matches_microbatched_sequential`` layout, data=2, pipeline=2,
-    expert=2, M 4 on 8 x 16 tokens: its groups of (B/M)·S = 32 tokens
-    are a whole microbatch, which spans the two data ranks, so the port
-    refuses them (item 27) and the job routes in groups of 16, a data
-    rank's share of the microbatch, against JAX's pipelined ``lm_task``
-    at the same groups, each rank fed its contiguous rows of the global
+    expert=2, M 4 on 8 x 16 tokens: at JAX's own groups of (B/M)·S = 32
+    tokens, a whole microbatch, which spans the two data ranks, one loss,
+    ``moe_aux`` and every gradient against JAX's pipelined ``lm_task``
+    within atol=rtol=1e-4; then in groups of 16, a data rank's share of
+    the microbatch, against JAX's pipelined ``lm_task`` at the same
+    groups, each rank fed its contiguous rows of the global
     batch (the loss exchanges them into JAX's microbatches, global rows
     [m B/M, (m+1) B/M)): loss and every gradient within atol 2e-4, rtol
     1e-3 (JAX's own bounds there); the port's ``Trainer`` on that mesh,
@@ -93,6 +98,10 @@ from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
 from kubeflow_tpu_torch.tools import train_lm
 from test_torch_adafactor import sharded_against_optax
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 WORKER = str(REPO / "tests" / "torch_moe_mesh_worker.py")
 # tests/test_moe.py's TestMoETransformer.CFG.
@@ -102,6 +111,9 @@ BATCH, SEQ, STEPS = 8, 16, 5
 # moe8: a rank's 4 rows of 16 in two groups.  moe_batch4: one rank's 16
 # positions of a row.  moe_pipe8: a data rank's row of a microbatch.
 MOE8_GROUP, RING_GROUP, RING_SEQ, RING_STEPS = 32, 16, 32, 3
+# moe_batch4's groups that span ranks (2 x RING_GROUP: a whole row) at
+# the default capacity and at one where choices drop.
+SPANNING = {"default": {}, "drop": dict(moe_capacity_factor=0.5)}
 PIPE = dict(pipeline_microbatches=4, moe_group_size=SEQ)
 PIPE_STEPS = 3
 PIPE_TOL = dict(atol=2e-4, rtol=1e-3)
@@ -180,21 +192,31 @@ def _jax_moe8(tr, state):
     return metrics, jax.tree.map(np.asarray, state.params), shapes
 
 
-def _jax_pipe8(tree):
+def _jax_pipe8(tree, over=PIPE):
     """JAX's pipelined loss, moe_aux and gradients at data=2, pipeline=2,
-    expert=2 on the job's tokens."""
-    mesh = _jax_mesh(data=2, pipeline=2, expert=2)
-    _, loss_fn = jax_lm_task(_jax_cfg(**PIPE), mesh=mesh)
-    toks = jnp.asarray(_pipe_tokens())
+    expert=2 on the job's tokens at ``over``."""
+    return _jax_loss_grads(tree, _pipe_tokens(), over, data=2, pipeline=2,
+                           expert=2)
+
+
+def _jax_loss_grads(tree, tokens, over, **mesh_spec):
+    """JAX's loss, moe_aux and gradients of ``lm_task`` at ``over`` on
+    ``tokens``, under the mesh ``mesh_spec`` (one device without one)."""
+    mesh = _jax_mesh(**mesh_spec) if mesh_spec else None
+    _, loss_fn = jax_lm_task(_jax_cfg(**over), mesh=mesh)
+    toks = jnp.asarray(tokens)
 
     def loss(p):
         value, (metrics, _) = loss_fn(p, {}, {"tokens": toks},
                                       jax.random.key(0))
         return value, metrics["moe_aux"]
 
-    with mesh, nn.logical_axis_rules(list(JAX_RULES)):
-        (value, aux), grads = jax.jit(jax.value_and_grad(
-            loss, has_aux=True))(tree)
+    grad = jax.jit(jax.value_and_grad(loss, has_aux=True))
+    if mesh is None:
+        (value, aux), grads = grad(tree)
+    else:
+        with mesh, nn.logical_axis_rules(list(JAX_RULES)):
+            (value, aux), grads = grad(tree)
     return float(value), float(aux), jax.tree.map(np.asarray, grads)
 
 
@@ -241,6 +263,7 @@ def both(tmp_path_factory):
                 "long_batches": [torch.from_numpy(b) for b in
                                  _batches(RING_SEQ, RING_STEPS)],
                 "ring_group": RING_GROUP,
+                "spanning": SPANNING,
                 "pipe": PIPE,
                 "pipe_steps": PIPE_STEPS,
                 "pipe_tokens": torch.from_numpy(_pipe_tokens()),
@@ -249,7 +272,7 @@ def both(tmp_path_factory):
                 "pps_tokens": torch.from_numpy(_pps_tokens()),
                 "train_lm_argv": TRAIN_LM_ARGV + ["--mesh", "expert=2"]},
                work / "inputs.pt")
-    with concurrent.futures.ThreadPoolExecutor(len(JOBS) + 6) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(JOBS) + 9) as pool:
         futures = {name: pool.submit(run_ranks, [WORKER, name, str(work)], n,
                                      timeout_s=JOB_TIMEOUT_S, cwd=str(REPO),
                                      threads=1)
@@ -259,6 +282,13 @@ def both(tmp_path_factory):
             "moe8_adafactor": pool.submit(_jax_moe8, ada_tr,
                                           ada_tr.create_state(seed=0)),
             "pipe8": pool.submit(_jax_pipe8, tree),
+            "pipe8_spanning": pool.submit(
+                _jax_pipe8, tree,
+                dict(PIPE, moe_group_size=2 * PIPE["moe_group_size"])),
+            **{f"batch4_spanning_{name}": pool.submit(
+                _jax_loss_grads, tree, _batches(RING_SEQ, RING_STEPS)[0],
+                dict(over, moe_group_size=2 * RING_GROUP))
+               for name, over in SPANNING.items()},
             "pps": pool.submit(_jax_pps, pps_tr, pps_state),
             "batch4": pool.submit(
                 _jax_steps, tree, _batches(RING_SEQ, RING_STEPS),
@@ -396,7 +426,7 @@ def test_partial_combines_sum_to_the_whole_layer(impl, split):
         torch.testing.assert_close(joined, getattr(layer, name).grad, **tol)
 
 
-def test_adafactor_refuses_expert_slices(monkeypatch):
+def test_adafactor_over_expert_slices_matches_optax(monkeypatch):
     """adafactor's block RMS spans a leaf's experts, and its factored
     statistics the mlp dim of ``wo`` [E, mlp, embed]: each rank of
     expert=2 holding 2 of the 4 experts of a factored MoE layer ends 3
@@ -489,7 +519,7 @@ def test_no_mesh_trainer_restores_moe8_checkpoint(jobs):
     assert state.params.layers[0].moe.wi.shape == (4, 2, 32, 64)
 
 
-def test_moe8_adafactor_refuses_the_expert_slices(jobs, jax_side):
+def test_moe8_adafactor_params_match_jax(jobs, jax_side):
     """adafactor over the expert x tensor slices of ``wi`` and ``wo``
     (refused before it was ported): the parameters after 5 steps are the
     JAX ``Trainer``'s with ``optax.adafactor``."""
@@ -578,10 +608,23 @@ def test_fsdp_expert_gather_params_match_no_mesh(jobs):
                                    **NO_MESH_TOL)
 
 
-def test_moe_batch4_refuses_a_group_that_spans_ranks(jobs):
+@pytest.mark.parametrize("case", sorted(SPANNING))
+def test_moe_batch4_groups_that_span_ranks_match_jax(jobs, jax_side, case):
+    """Groups of 32 at data=2 x sequence=2 with the ring: a group is a
+    row, its first 16 tokens on the first rank of a sequence pair and its
+    last 16 on the second, whose slot positions start after the first's
+    counts.  The loss, ``moe_aux`` and every gradient are JAX's on the
+    global batch; at capacity factor 0.5 the second rank of each pair
+    drops choices (so a position counted from its own tokens alone would
+    keep other ones)."""
+    loss, aux, grads = jax_side[f"batch4_spanning_{case}"]
     for r in jobs["moe_batch4"]:
-        assert r["spanning"].startswith("NotPortedError"), r["spanning"]
-        assert "ROADMAP queue 1 item 27" in r["spanning"]
+        got = r[f"spanning_{case}"]
+        np.testing.assert_allclose(got["loss"], loss, **TOL)
+        np.testing.assert_allclose(got["aux"], aux, **TOL)
+        _assert_trees_close(got["grads"], grads, **TOL)
+        if case == "drop" and r["sequence_index"] == 1:
+            assert got["dropped"] > 0
 
 
 # -- data x pipeline x expert, pipeline x sequence x expert ---------------------
@@ -635,11 +678,16 @@ def test_moe_pipe8_ranks_hold_jax_microbatches(jobs):
         first["pipe_aux"]), (first["own_rows_aux"], first["pipe_aux"])
 
 
-def test_moe_pipe8_refuses_a_group_that_spans_ranks(jobs):
+def test_moe_pipe8_groups_that_span_ranks_match_jax(jobs, jax_side):
     """JAX's own (B/M)·S = 32 groups: a whole microbatch, half of it on
-    each data rank."""
+    each data rank.  One loss, ``moe_aux`` and every gradient against
+    JAX's pipelined ``lm_task`` on the same global batch."""
+    loss, aux, grads = jax_side["pipe8_spanning"]
     for r in jobs["moe_pipe8"]:
-        assert "ROADMAP queue 1 item 27" in r["spanning"], r["spanning"]
+        got = r["spanning"]
+        np.testing.assert_allclose(got["loss"], loss, **TOL)
+        np.testing.assert_allclose(got["aux"], aux, **TOL)
+        _assert_trees_close(got["grads"], grads, **TOL)
 
 
 @pytest.mark.parametrize("key", ["loss", "moe_aux"])

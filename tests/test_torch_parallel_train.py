@@ -63,7 +63,22 @@ together and joined with a timeout, hold every result these tests read:
     0.1 against the trainer without a mesh on the global batch: loss,
     grad_norm and parameters over 2 sgd steps within 1e-5; each rank's
     mask is its rows and positions of the one global draw, so the data
-    ranks' masks differ and so do the sequence shards';
+    ranks' masks differ and so do the sequence shards'.  Then the fused
+    trainer (runtime/hfta.py) on the same ranks at data=2, fsdp=2, every
+    rank given the global batch: a width-4 gang over 3 adamw steps with
+    m1 stopping at 2 against the JAX ``FusedTrainer`` on a
+    ``MeshSpec(data=2, fsdp=2)`` of 4 CPU devices from the same member
+    weights (per-member loss, grad_norm and every parameter within
+    atol=rtol=1e-4), its stacked state bit-equal on the 4 ranks and m1
+    bit-equal to its step-2 state; one step at dropout 0.1 and one MoE
+    step (routing groups of 128 of the 256 global tokens, each spanning
+    two ranks, and the global aux) against the fused trainer without a
+    mesh on the global batch within 1e-5; member checkpoints saved under
+    the mesh through ``TrainSupervisor`` that JAX's ``verify_step``
+    accepts, that a ``Trainer`` without a mesh restores and that a fused
+    run under the mesh resumes to the straight run's state bit for bit;
+    the member-step counter moved on rank 0 alone, and the metrics count
+    4 chips;
   - ``train_lm_tensor`` (2 ranks): tools/train_lm.py at ``--mesh
     model=2`` (``tensor``'s other name): both ranks' losses those of the
     entry point without a mesh on the same flags within 2e-4 (bf16).
@@ -83,8 +98,12 @@ from kubeflow_tpu.models.transformer import TransformerConfig as JaxConfig
 from kubeflow_tpu.models.transformer import lm_task as jax_lm_task
 from kubeflow_tpu.parallel import MeshSpec as JaxMeshSpec
 from kubeflow_tpu.runtime.checkpoint import verify_step
+from kubeflow_tpu.runtime.hfta import FusedTrainer as JaxFusedTrainer
+from kubeflow_tpu.runtime.hfta import MemberSpec as JaxMemberSpec
+from kubeflow_tpu.runtime.hfta import default_tx_factory as jax_default_tx
 from kubeflow_tpu.runtime.metrics import MetricsLogger as JaxMetricsLogger
 from kubeflow_tpu.runtime.train import Trainer as JaxTrainer
+from kubeflow_tpu.runtime.train import TrainState as JaxTrainState
 from kubeflow_tpu_torch.models.convert import (
     load_params,
     params_from_jax,
@@ -98,12 +117,23 @@ from kubeflow_tpu_torch.runtime.train import Trainer
 from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
 from kubeflow_tpu_torch.tools import train_lm
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 WORKER = str(REPO / "tests" / "torch_mesh_train_worker.py")
 SMALL = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=2,
              n_kv_heads=2, d_ff=64, head_dim=16, max_seq_len=32)
 BATCH, SEQ, STEPS, SGD_LR = 8, 32, 5, 0.1
 JOB_TIMEOUT_S = 240
+# The fused gang of dropout4's second mesh: member i from seed i at lr
+# 1e-3 (i + 1), m1 stopping at step 2, FUSED_STEPS steps.
+FUSED_MEMBERS = [dict(name=f"m{i}", seed=i, lr=1e-3 * (i + 1),
+                      stop_step=2 if i == 1 else None) for i in range(4)]
+FUSED_STEPS = 3
+FUSED_VARIANTS = {"dropout": dict(dropout_rate=0.1),
+                  "moe": dict(moe_experts=4, moe_group_size=128)}
 JOBS = {"mesh8": 8, "world1": 1, "train_lm": 2, "tensor8": 8, "tensor2": 2,
         "dropout4": 4, "train_lm_tensor": 2}
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -161,6 +191,10 @@ def _start_jobs(work, init_tree, pool):
                 "batches": [torch.from_numpy(b) for b in _batches()],
                 "same_rows": torch.from_numpy(_same_rows()),
                 "sgd_lr": SGD_LR,
+                "fused_cfg": SMALL,
+                "fused_members": FUSED_MEMBERS,
+                "fused_steps": FUSED_STEPS,
+                "fused_variants": FUSED_VARIANTS,
                 "train_lm_argv": TRAIN_LM_ARGV[2:],
                 "train_lm_tensor_argv": _tensor_argv()[2:]},
                work / "inputs.pt")
@@ -168,6 +202,48 @@ def _start_jobs(work, init_tree, pool):
                               timeout_s=JOB_TIMEOUT_S, cwd=str(REPO),
                               threads=1)
             for name, n in JOBS.items()}
+
+
+def _member_trees():
+    """Each fused member's initial weights as the JAX tree: the port's
+    draw from its seed, which every rank's ``create_member_state`` makes
+    alike."""
+    init_fn, _ = lm_task(TransformerConfig(dtype=torch.float32, **SMALL),
+                         device="cpu")
+    return [params_to_jax(init_fn(torch.Generator().manual_seed(
+        m["seed"]))[0]) for m in FUSED_MEMBERS]
+
+
+def _jax_fused(batches):
+    """The JAX ``FusedTrainer`` on a data=2 x fsdp=2 mesh of 4 CPU
+    devices, from the port's member weights (the fused state pinned
+    replicated, as its ``fit`` pins it): each step's per-member loss and
+    grad_norm and each member's parameters after the steps."""
+    mesh = JaxMeshSpec(data=2, fsdp=2).build(jax.devices()[:4])
+    init_fn, loss_fn = jax_lm_task(JaxConfig(dtype=jnp.float32, **SMALL),
+                                   mesh=mesh)
+    members = [JaxMemberSpec(**m) for m in FUSED_MEMBERS]
+    jft = JaxFusedTrainer(
+        init_fn=init_fn, loss_fn=loss_fn, members=members, mesh=mesh,
+        metrics=JaxMetricsLogger(stream=open("/dev/null", "w")))
+    states = [JaxTrainState(
+        step=jnp.zeros((), jnp.int32), params=tree,
+        opt_state=jax_default_tx(m.lr).init(tree),
+        rng=jax.random.split(jax.random.key(m.seed))[1], mutable={})
+        for m, tree in zip(members, _member_trees())]
+    state = jax.device_put(jft._stack_members(states), jax.sharding
+                           .NamedSharding(mesh, jax.sharding.PartitionSpec()))
+    step, active = jft.compile_step(), jnp.ones((4,), bool)
+    stops = jnp.asarray([m.stop_step or FUSED_STEPS for m in members],
+                        jnp.int32)
+    metrics = []
+    for b in batches:
+        state, active, m = step(state, active, stops,
+                                jft.shard_batch({"tokens": b}))
+        metrics.append({k: np.asarray(m[k]) for k in ("loss", "grad_norm")})
+    return metrics, [jax.tree.map(np.asarray, jft.member_state(state,
+                                                              i).params)
+                     for i in range(4)]
 
 
 def _tensor_argv():
@@ -184,11 +260,12 @@ def both(tmp_path_factory):
     tree = jax.tree.map(np.asarray,
                         _jax_trainer(optax.adamw(1e-3)).create_state(
                             seed=0).params)
-    with concurrent.futures.ThreadPoolExecutor(len(JOBS) + 2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(JOBS) + 3) as pool:
         futures = _start_jobs(work, tree, pool)
         adafactor = {tensor: pool.submit(_jax_run, optax.adafactor(1e-3),
                                          _batches(), tensor=tensor)
                      for tensor in (False, True)}
+        fused = pool.submit(_jax_fused, _batches()[:FUSED_STEPS])
         jax_out = {"init": tree}
         (jax_out["adamw_losses"], jax_out["adamw_norms"],
          jax_out["adamw_params"]) = _jax_run(optax.adamw(1e-3), _batches())
@@ -206,6 +283,7 @@ def both(tmp_path_factory):
         for tensor, future in adafactor.items():
             jax_out["adafactor_tensor" if tensor else "adafactor"] = \
                 future.result()
+        jax_out["fused"] = fused.result()
         for future in futures.values():
             check_ranks(future.result())
     jobs = {name: [torch.load(work / f"{name}-rank{r}.pt",
@@ -357,7 +435,7 @@ def test_mesh_trainer_resumes_its_checkpoint(jobs):
                                rtol=1e-6)
 
 
-def test_adafactor_refuses_sharded_fsdp(jobs, jax_side):
+def test_adafactor_over_fsdp_shards_matches_jax(jobs, jax_side):
     """adafactor over FSDP2's shards (refused before it was ported): the
     parameters after 5 steps are the JAX ``Trainer``'s with
     ``optax.adafactor`` on the same mesh."""
@@ -463,7 +541,7 @@ def test_no_mesh_trainer_restores_tensor_checkpoint(jobs):
                                    atol=0, rtol=0)
 
 
-def test_adafactor_refuses_tensor_slices(jobs, jax_side):
+def test_adafactor_over_tensor_slices_matches_jax(jobs, jax_side):
     """adafactor over the tensor slices and FSDP2's shards (refused
     before it was ported): the parameters after 5 steps are the JAX
     ``Trainer``'s with ``optax.adafactor`` on the same mesh."""
@@ -595,3 +673,100 @@ def test_train_lm_tensor_matches_no_mesh(jobs):
     want = [h["loss"] for h in plain.metrics.history]
     assert len(want) == 3
     np.testing.assert_allclose(losses[0], want, rtol=2e-4)
+
+
+# -- the fused trainer over data x fsdp (dropout4's second mesh) -------------
+
+
+def _member_tree(stack, i):
+    """Member ``i``'s parameters of a worker's stacked state as the JAX
+    tree."""
+    return _tree_of({k[len("params."):]: v[i] for k, v in stack.items()
+                     if k.startswith("params.")})
+
+
+@pytest.mark.parametrize("step", range(FUSED_STEPS))
+def test_fused_mesh_steps_match_jax(jobs, jax_side, step):
+    """Every rank's per-member loss and grad_norm of each fused step at
+    data=2 x fsdp=2 against JAX's ``FusedTrainer`` on the same mesh."""
+    want = jax_side["fused"][0][step]
+    for r in jobs["dropout4"]:
+        got = r["fused"]["metrics"][step]
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(got[key].numpy(), want[key],
+                                       err_msg=key, **TOL)
+
+
+def test_fused_mesh_params_match_jax(jobs, jax_side):
+    stack = jobs["dropout4"][0]["fused"]["stack"]
+    assert stack["step"].tolist() == [3, 2, 3, 3]
+    for i, want in enumerate(jax_side["fused"][1]):
+        _assert_trees_close(_member_tree(stack, i), want, **TOL)
+
+
+def test_fused_mesh_stacks_bit_equal_across_ranks(jobs):
+    """The stacked state (parameters, moments, counts, learning rates,
+    steps) is bit-equal on the 4 ranks, after the straight steps and
+    after the resumed run, and m1 stays at its step-2 state."""
+    first = jobs["dropout4"][0]["fused"]
+    for r in jobs["dropout4"]:
+        for name in ("stack", "resumed"):
+            assert set(r["fused"][name]) == set(first[name])
+            for k, v in r["fused"][name].items():
+                assert torch.equal(v, first[name][k]), (name, k)
+        for k, v in r["fused"]["m1_at_end"].items():
+            assert torch.equal(v, r["fused"]["m1_at_stop"][k]), k
+
+
+@pytest.mark.parametrize("variant", sorted(FUSED_VARIANTS))
+def test_fused_mesh_variant_matches_no_mesh(jobs, variant):
+    """One fused step at dropout 0.1 (each member its rows of its own
+    global masks) and one MoE step (groups that span ranks, the global
+    aux through the member map) against the fused trainer without a
+    mesh on the global batch."""
+    for r in jobs["dropout4"]:
+        (m_metrics, m_stack), (p_metrics, p_stack) = r["fused"][variant]
+        for key in ("loss", "grad_norm"):
+            torch.testing.assert_close(m_metrics[key], p_metrics[key],
+                                       **NO_MESH_TOL)
+        for k, v in m_stack.items():
+            torch.testing.assert_close(v, p_stack[k], **NO_MESH_TOL,
+                                       msg=k)
+
+
+def test_fused_mesh_checkpoints(jobs):
+    """Member checkpoints saved under the mesh: JAX's ``verify_step``
+    accepts them, a ``Trainer`` without a mesh on default_tx_factory(lr)
+    restores m0 at step 1 bit for bit, and the fused run that resumed
+    them under the mesh (m1 re-entering frozen) ends at the straight
+    run's state."""
+    fused = jobs["dropout4"][0]["fused"]
+    ckdir = jobs["dir"] / "ckpt_fused"
+    for m in FUSED_MEMBERS:
+        assert verify_step(ckdir / m["name"], 1) == (True, ""), m["name"]
+    init_fn, loss_fn = lm_task(TransformerConfig(dtype=torch.float32,
+                                                 **SMALL), device="cpu")
+    tr = Trainer(init_fn=init_fn, loss_fn=loss_fn,
+                 tx=optim.default_tx_factory(FUSED_MEMBERS[0]["lr"]),
+                 device="cpu",
+                 metrics=MetricsLogger(stream=open("/dev/null", "w")))
+    state = CheckpointManager(ckdir / "m0").restore(tr.create_state(seed=5),
+                                                    step=1)
+    assert state.step == 2 and state.opt_state.inner.count == 2
+    for name, p in state.params.named_parameters():
+        assert torch.equal(p.detach(), fused["saved_m0"][name]), name
+    assert fused["resumed_active"] == [False] * 4
+    for k, v in fused["resumed"].items():
+        assert torch.equal(v, fused["stack"][k]), k
+
+
+def test_fused_mesh_metrics_count_each_step_once(jobs):
+    """The member-step counter moves on rank 0 alone (3 steps of m0 over
+    the supervised run and its resume), and the logged throughput is
+    over 4 chips."""
+    counted = [r["fused"]["m0_counted"] for r in jobs["dropout4"]]
+    assert counted == [3, 0, 0, 0]
+    for record in jobs["dropout4"][0]["fused"]["history"]:
+        np.testing.assert_allclose(
+            record["examples_per_sec"] / record["examples_per_sec_per_chip"],
+            4, rtol=1e-3)

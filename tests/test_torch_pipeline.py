@@ -90,6 +90,10 @@ from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
 from kubeflow_tpu_torch.tools import train_lm
 from test_torch_adafactor import sharded_against_optax
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 WORKER = str(REPO / "tests" / "torch_pipeline_worker.py")
 # tests/test_transformer.py's CFG at 2 layers, TestPipelineParallel's LM.

@@ -32,6 +32,10 @@ from kubeflow_tpu_torch.ops import quantize as pq
 from kubeflow_tpu_torch.serving import loaders
 from kubeflow_tpu_torch.serving.export import load_version
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 SMALL = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4,
              n_kv_heads=2, d_ff=64, head_dim=8, max_seq_len=64)
 LOGITS_TOL = dict(atol=1e-4, rtol=1e-4)

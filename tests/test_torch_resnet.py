@@ -39,6 +39,10 @@ from kubeflow_tpu_torch.models.convert_cnn import (
     load_cnn_variables,
 )
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 BF16_REL = 2e-2
 NARROW = dict(num_classes=10, num_filters=8)

@@ -35,6 +35,10 @@ from kubeflow_tpu_torch.ops.flash import flash_attention
 from kubeflow_tpu_torch.parallel.ring import ring_attention
 from kubeflow_tpu_torch.testing import ring_check
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 B, S, D = 1, 32, 16
 CASES = {"causal": (4, 4, True), "full": (4, 4, False),

@@ -33,6 +33,10 @@ from kubeflow_tpu.serving.export import export as jax_export
 from kubeflow_tpu.serving.loaders import _model_config as jax_model_config
 from kubeflow_tpu_torch.serving import export as port_export
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 VOCAB, NEW = 128, 6
 OVERRIDES = {"vocab_size": VOCAB, "d_model": 32, "n_layers": 2,
              "n_heads": 4, "n_kv_heads": 2, "d_ff": 64, "head_dim": 8,

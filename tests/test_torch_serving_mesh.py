@@ -57,6 +57,10 @@ from kubeflow_tpu_torch.testing.ranks import (
     run_ranks,
 )
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 WORKER = str(REPO / "tests" / "torch_serving_mesh_worker.py")
 SEED = 20260804

@@ -37,6 +37,10 @@ from kubeflow_tpu_torch.models.convert import load_params, params_from_jax
 from kubeflow_tpu_torch.models.transformer import Transformer, TransformerConfig
 from kubeflow_tpu_torch.serving.engine import DecodeEngine
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 SEED = 20261018
 VOCAB, NEW_TOKENS, K = 128, 12, 4
 OVERRIDES = {"vocab_size": VOCAB, "d_model": 32, "n_layers": 2,

@@ -63,6 +63,10 @@ from kubeflow_tpu_torch.runtime.train import Trainer
 from kubeflow_tpu_torch.testing import faults
 from kubeflow_tpu_torch.tools import train_lm
 
+# One intra-op thread a process: the suite runs as several processes on
+# shared cores, where torch's OpenMP threads spin against each other.
+torch.set_num_threads(1)
+
 SMALL = dict(vocab_size=256, d_model=32, n_layers=2, n_heads=4,
              n_kv_heads=2, d_ff=64, head_dim=8, max_seq_len=64,
              attention="flash")

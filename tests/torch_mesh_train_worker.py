@@ -24,13 +24,20 @@ no mesh, with a checkpoint); ``tensor2`` at tensor=2 alone with an untied
 unembed, the chunked CE and dropout 0.1, against the trainer without a
 mesh on the global batch (with and without remat), and restores that
 trainer's checkpoint; ``dropout4`` at data=2, sequence=2 with the ring
-and dropout 0.1 against the trainer without a mesh.  Those two also
-write each rank's dropout mask for one draw.  ``train_lm_tensor`` is
-``tools/train_lm.py`` at ``--mesh model=2``.
+and dropout 0.1 against the trainer without a mesh, then runs the
+fused trainer (runtime/hfta.py) at data=2, fsdp=2: a width-4 gang over
+3 adamw steps with m1 stopping at 2 (each step's metrics and the stacked
+state), one step with dropout 0.1 and one MoE step whose routing groups
+span two ranks, each beside the fused trainer without a mesh on the
+global batch, and a supervised run with member checkpoints that a fused
+run resumes.  Those two also write each rank's dropout mask for one
+draw.  ``train_lm_tensor`` is ``tools/train_lm.py`` at ``--mesh
+model=2``.
 """
 
 import os
 import sys
+import warnings
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -59,7 +66,15 @@ from kubeflow_tpu_torch.runtime import bootstrap, optim  # noqa: E402
 from kubeflow_tpu_torch.runtime.checkpoint import (  # noqa: E402
     CheckpointManager,
 )
+from kubeflow_tpu_torch.runtime.hfta import (  # noqa: E402
+    FusedTrainer,
+    MemberSpec,
+)
 from kubeflow_tpu_torch.runtime.metrics import MetricsLogger  # noqa: E402
+from kubeflow_tpu_torch.runtime.prom import REGISTRY  # noqa: E402
+from kubeflow_tpu_torch.runtime.supervisor import (  # noqa: E402
+    TrainSupervisor,
+)
 from kubeflow_tpu_torch.runtime.train import Trainer  # noqa: E402
 
 
@@ -317,6 +332,99 @@ def dropout4(spec, workdir):
         tx=lambda: optim.sgd(spec["sgd_lr"]))
     out["coords"] = coords(mesh)
     out["mask"] = one_mask(mesh, (2, 16, 32))
+    out["fused"] = fused(spec, workdir)
+    return out
+
+
+def fused_trainer(spec, mesh, members, ckpt=None, **overrides):
+    cfg = TransformerConfig(dtype=torch.float32,
+                            **dict(spec["fused_cfg"], **overrides))
+    init_fn, loss_fn = lm_task(cfg, device="cpu", mesh=mesh)
+    return FusedTrainer(init_fn=init_fn, loss_fn=loss_fn, members=members,
+                        mesh=mesh, device="cpu", checkpoint_dir=ckpt,
+                        checkpoint_every=1,
+                        metrics=MetricsLogger(stream=open(os.devnull, "w")))
+
+
+def fused_steps(ft, batches, stops):
+    """The fused step over ``batches`` (every rank given the global
+    batch) from the members' own initial states: each step's per-member
+    loss and grad_norm, and the stacked state after each."""
+    state = ft._stack_members([ft.create_member_state(m)
+                               for m in ft.members])
+    step, active = ft.compile_step(), torch.ones(len(ft.members),
+                                                 dtype=torch.bool)
+    stops = torch.tensor(stops)
+    metrics, states = [], []
+    for batch in batches:
+        state, active, m = step(state, active, stops,
+                                ft.shard_batch({"tokens": batch}))
+        metrics.append({k: m[k].clone() for k in ("loss", "grad_norm")})
+        states.append(stacked(state))
+    return metrics, states
+
+
+def stacked(state):
+    """Every tensor of a fused state (parameters, moments, counts,
+    learning rates, steps), copied, by name."""
+    out = {f"params.{k}": v.detach().clone()
+           for k, v in state.params.items()}
+    out["step"] = state.step.clone()
+    inner = state.opt_state.inner
+    out["count"] = inner.count.clone()
+    out["lr"] = state.opt_state.learning_rate.clone()
+    for name in ("mu", "nu"):
+        for i, t in enumerate(getattr(inner, name)):
+            out[f"{name}.{i}"] = t.clone()
+    return out
+
+
+def fused(spec, workdir):
+    """The fused trainer at data=2 x fsdp=2 (module docstring), with
+    torch.func.vmap's fallback warning an error: no member loop may hide
+    in the map, and no collective may run on a member's view."""
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    warnings.filterwarnings("error", "There is a performance drop")
+    mesh = MeshSpec(data=2, fsdp=2).build("cpu", timeout_s=60)
+    members = [MemberSpec(**m) for m in spec["fused_members"]]
+    stops = [m.stop_step or spec["fused_steps"] for m in members]
+    batches = spec["batches"][:spec["fused_steps"]]
+    counter = REGISTRY.counter("kft_train_member_steps_total")
+    before = counter.value(member="m0")
+    out = {}
+    out["metrics"], states = fused_steps(
+        fused_trainer(spec, mesh, members), batches, stops)
+    out["stack"] = states[-1]
+    out["m1_at_stop"] = {k: v[1] for k, v in states[1].items()}
+    out["m1_at_end"] = {k: v[1] for k, v in states[-1].items()}
+    # Dropout and MoE (routing groups of 128 of the 256 global tokens:
+    # each spans two ranks' 64), one step each, with the fused trainer
+    # without a mesh on the global batch.
+    for name, over in spec["fused_variants"].items():
+        runs = []
+        for m in (mesh, None):
+            metrics, states = fused_steps(
+                fused_trainer(spec, m, members[:2], **over), batches[:1],
+                stops[:2])
+            runs.append((metrics[0], states[0]))
+        out[name] = runs
+    # Member checkpoints under the mesh (TrainSupervisor wraps the meshed
+    # trainer), then a fused run that resumes them to the end.
+    ckpt = str(workdir / "ckpt_fused")
+    ft = fused_trainer(spec, mesh, members, ckpt)
+    sup = TrainSupervisor(ft, max_restarts=0)
+    state = sup.run(lambda: iter({"tokens": b} for b in batches), 2,
+                    log_every=1, examples_per_step=8)
+    out["saved_m0"] = {k: v[0].detach().clone()
+                       for k, v in state.params.items()}
+    out["history"] = ft.metrics.history
+    resumed = fused_trainer(spec, mesh, members, ckpt)
+    state = resumed.fit(iter({"tokens": b} for b in batches),
+                        spec["fused_steps"], log_every=1)
+    out["resumed"] = stacked(state)
+    out["resumed_active"] = resumed.last_active
+    out["m0_counted"] = counter.value(member="m0") - before
+    out["active_gauge"] = REGISTRY.gauge("kft_train_members_active").value()
     return out
 
 

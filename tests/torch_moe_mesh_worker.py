@@ -14,13 +14,15 @@ name each), and reads what each rank writes to
 ``moe8`` trains the MoE LM at data=2, expert=2, tensor=2 (adamw steps,
 shard shapes, a checkpoint, adafactor steps); ``moe_batch4`` at
 data=2, sequence=2 with the ring and the trainer without a mesh on the
-global batch, with each rank's aux over its own tokens alone and a
-routing group that spans ranks, then at fsdp=2, expert=2 with the gather
-dispatch and without a mesh; ``moe_pipe8`` at data=2, pipeline=2,
-expert=2 (one loss and its gradients from each rank's contiguous rows,
-which the loss exchanges into JAX's microbatches, the rows it then holds
-and the aux of its own contiguous microbatches, a routing group that
-spans ranks, the trainer's steps, adamw and adafactor), then at
+global batch, with each rank's aux over its own tokens alone and one
+loss and its gradients at routing groups that span ranks (at two
+capacities, with each rank's dropped choices), then at fsdp=2, expert=2
+with the gather dispatch and without a mesh; ``moe_pipe8`` at data=2,
+pipeline=2, expert=2 (one loss and its gradients from each rank's
+contiguous rows, which the loss exchanges into JAX's microbatches, the
+rows it then holds and the aux of its own contiguous microbatches, one
+loss and its gradients at routing groups that span ranks, the trainer's
+steps, adamw and adafactor), then at
 pipeline=2, sequence=2, expert=2 with the ring (one step);
 ``train_lm`` is ``tools/train_lm.py --mesh expert=2 --moe-experts 4``.
 """
@@ -34,7 +36,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
-from kubeflow_tpu_torch import NotPortedError  # noqa: E402
 from kubeflow_tpu_torch.models.convert import (  # noqa: E402
     load_params,
     params_to_jax,
@@ -46,7 +47,6 @@ from kubeflow_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig,
     lm_task,
     microbatch_rows,
-    to_microbatch_order,
 )
 from kubeflow_tpu_torch.parallel.mesh import (  # noqa: E402
     DATA,
@@ -127,12 +127,28 @@ def full_params(module):
     return {n: p.clone() for n, p in whole_parameters(module).items()}
 
 
-def refused(fn) -> str:
-    try:
-        fn()
-    except (NotPortedError, ValueError) as e:
-        return f"{type(e).__name__}: {e}"
-    return "accepted"
+def loss_and_grads(cfg, params, mesh, batch, **overrides):
+    """One loss of ``lm_task`` at ``cfg`` with ``overrides`` on this
+    rank's ``batch``: its value, ``moe_aux``, the whole gradient as the
+    JAX tree (collectives) and each rank's dropped choices (a routing
+    position past the capacity) in every MoE layer."""
+    _, loss_fn = lm_task(_cfg(cfg, **overrides), device="cpu", mesh=mesh)
+    module = model(cfg, params, mesh, **overrides)
+    dropped = [0]
+    for block in module.layers:
+        route = block.moe._route
+
+        def counted(*args, route=route):
+            out = route(*args)
+            for _, _, keep in out[3]:
+                dropped[0] += int(keep.numel() - keep.sum())
+            return out
+
+        block.moe._route = counted
+    loss, (metrics, _) = loss_fn(module, {}, batch, None)
+    loss.backward()
+    return {"loss": float(loss), "aux": float(metrics["moe_aux"]),
+            "grads": grads_tree(module, mesh), "dropped": dropped[0]}
 
 
 def moe8(spec, workdir):
@@ -186,9 +202,14 @@ def moe_batch4(spec, workdir):
         for block in ring.layers:
             block.moe.spread = Spread()
         out["local_aux"] = float(ring(tokens, return_aux=True)[1])
-    out["spanning"] = refused(lambda: model(
-        cfg, params, mesh, attention="ring",
-        moe_group_size=2 * spec["ring_group"])(tokens))
+    # Groups of two ranks' slices of a row (the first rank's then the
+    # second's), at the default capacity and at one where the second
+    # rank's tokens drop.
+    for name, over in spec["spanning"].items():
+        out[f"spanning_{name}"] = loss_and_grads(
+            cfg, params, mesh, {"tokens": tokens}, attention="ring",
+            moe_group_size=2 * spec["ring_group"], **over)
+    out["sequence_index"] = r
 
     # fsdp=2, expert=2 with the gather dispatch: FSDP2 shards each rank's
     # experts on their embed dim.
@@ -238,14 +259,15 @@ def moe_pipe8(spec, workdir):
     out["data_index"] = mesh.get_local_rank(DATA)
     out["held_rows"] = microbatch_rows(own["tokens"].shape[0], mesh,
                                        n_micro).tolist()
-    mine = to_microbatch_order(own["tokens"], mesh, n_micro)
     with torch.no_grad():
         # The aux of the rank's own contiguous rows as its microbatches.
         out["own_rows_aux"] = float(model(cfg, params, mesh, **pipe)(
             own["tokens"], return_aux=True)[1])
-    out["spanning"] = refused(lambda: model(
-        cfg, params, mesh, **dict(pipe, moe_group_size=2 * pipe[
-            "moe_group_size"]))(mine))
+    # JAX's own (B/M)·S groups: a whole microbatch, half of it on each
+    # data rank.
+    out["spanning"] = loss_and_grads(
+        cfg, params, mesh, own,
+        **dict(pipe, moe_group_size=2 * pipe["moe_group_size"]))
 
     # The trainer on the same mesh, each rank fed its contiguous rows as
     # train_lm feeds them, against the JAX trainer on the same global
