@@ -169,7 +169,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      bytes of logits' copy to the host, the JSON answer's bytes and
      latency, and phase 6b's burst with tracing at sample rate 1
      against tracing off, in turns;
- 6i. tensor-parallel decode: three servers of serving.main --mesh
+ 6i. tensor-parallel decode: four servers of serving.main --mesh
      tensor=2, each 2 processes sharing the card over gloo
      (KFT_DIST_BACKEND=gloo), serving at once at the engine's CLI
      defaults: the bf16 export (phase 6b's burst of eight, then phase
@@ -188,7 +188,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      forward: one 1024-token prompt's prefill logits at tensor=2 against
      tensor=1 within the MESH_* bounds in bf16 and in float32, the
      ranks' scalars equal after their rounds, and no flash kernel
-     launched by either rank (each counts its own).
+     launched by either rank (each counts its own).  A fourth server,
+     the bf16 export with phase 6f's --kv_pool_blocks 128 and
+     --host_spill_blocks 1024, parks phase 6f's eight sessions
+     (park_kv; first tokens held as above), then takes their second
+     turns on 6f's first-turn tokens: each whole stream equal to 6f's or
+     parting at a near tie (the same gaps, at the first differing
+     position), pages spilled out and re-imported, no shed, no kv shed,
+     8 parked; rank 0's :fetch_kv of 6f's fetched tokens answers
+     whole-head pages of 6f's coverage, shape and dtype, each side within
+     MESH_TWO_PATHS times the one-device pages' distance (relative
+     Frobenius) from a float32 forward's; the phase within MESH_PHASE_S.
      Information only: streams equal and first differing positions,
      TTFT and tokens/s, one chunk and one fused round of 8 steps at 8
      live slots against 6b's rounds, the all-reduces and all-gathers of
@@ -399,7 +409,24 @@ Phases, each fatal on failure (exit code 1, no result line):
      CNN_GANG_STATS_RTOL (relative Frobenius) of that process's; no flash
      kernel launches; the phase within 90 s.  Information only: each
      rank's step ms, its gloo all-reduces a step (count, bytes, ms), a
-     profiled step's busy share and its peak memory.
+     profiled step's busy share and its peak memory;
+ 13. tools: runtime/profiling.py's ProfileSchedule(start=1, count=2)
+     around 4 steps of phase 7's trainer (lm_task and Trainer on bench.py's
+     LM cell, each step under step_marker), the launch counters zeroed as
+     the window opens and read as it closes, summarized by
+     tools/xplane_summary.py (its table printed): its events of
+     flash_fwd, flash_dq and flash_dkv equal the counters, 24 each, and
+     the window holds steps 1 and 2; then side by side as processes:
+     tools/launcher.py running ``python -m
+     kubeflow_tpu_torch.tools.train_lm`` on the LM cell for 3 steps with
+     KFT_SLICE_TYPE=h100-1 (exit 0, finite losses, each logged MFU over
+     topology.py's 989 TFLOP/s, this smoke's peak), tools/train_torch.py
+     on the card (its loss falls) and tools/telemetry.py --once (exit 0,
+     the report logged); MeshSpec.build(topology=h100-1) builds a
+     one-rank mesh and topology=h100-8 raises ValueError; the phase
+     within TOOLS_PHASE_S.  Information only: the window's device busy
+     share beside phase 9's step, the overlapped copies, the trace's
+     bytes, the launched trainer's MFU.
 
 The phases' times are printed.  The line before the last is a JSON
 object {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
@@ -413,6 +440,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -508,8 +536,14 @@ MESH_F32_ARGMAX = 0.999
 MESH_TIE_GAP = 0.1
 # Replies of the single-device phases that phase 6i holds the mesh's
 # first generated tokens to: "6b", "6c", "6e" (prompts, replies), "6g"
-# (the adapter work's replies), "6d" (prompt, wire payload, tokens).
+# (the adapter work's replies), "6d" (prompt, wire payload, tokens),
+# "6f" (the parked sessions, both turns' replies and one :fetch_kv
+# payload's pages).
 SERVED = {}
+# Phase 6i's bound on the whole phase (its four servers, their requests
+# and the 2-rank job, side by side), twice its slowest run before the
+# spill server joined it (PERF.md section 6).
+MESH_PHASE_S = 240.0
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 rate).
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -797,6 +831,15 @@ CNN_LEARN_STEPS, CNN_LEARN_BATCH = 30, 32
 CNN_GANG_WORLD, CNN_GANG_STEPS, CNN_GANG_TIMEOUT_S = 2, 3, 240
 CNN_GANG_LOSS_ATOL, CNN_GANG_STATS_RTOL = 5e-3, 1e-2
 CNN_GANG_PHASE_S = 90.0
+# Phase 13: the worker runtime and tooling.  The one-GPU shape the
+# launched trainer's KFT_SLICE_TYPE names, its steps, the profiled window
+# of phase 7's trainer (steps [1, 3) of 4) and the phase's bound.
+TOOLS_SLICE = "h100-1"
+TOOLS_TRAIN_STEPS = 3
+PROFILE_START, PROFILE_COUNT, PROFILE_STEPS = 1, 2, 4
+TORCH_WORKER_STEPS = 20
+TOOLS_TIMEOUT_S = 120
+TOOLS_PHASE_S = 60.0
 SERVE_KERNELS = ("flash_fwd", "flash_fwd_masked")
 TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
@@ -1624,16 +1667,17 @@ def pct(values, q):
     return ordered[min(len(ordered) - 1, int(len(ordered) * q))]
 
 
-def burst(port: int, prompts):
-    """Every prompt as its own concurrent :predict request; returns the
-    replies, each request's latency and the burst's wall time (host
-    clock)."""
+def burst(port: int, prompts, extra=None):
+    """Every prompt as its own concurrent :predict request (its instance
+    with ``extra``'s keys too); returns the replies, each request's
+    latency and the burst's wall time (host clock)."""
     replies = [None] * len(prompts)
     latencies = [None] * len(prompts)
 
     def call(i):
         t = time.perf_counter()
-        replies[i] = post(port, {"instances": [{"tokens": prompts[i]}]})
+        replies[i] = post(port, {"instances": [
+            dict(extra or {}, tokens=prompts[i])]})
         latencies[i] = time.perf_counter() - t
 
     t0 = time.perf_counter()
@@ -2968,6 +3012,11 @@ def spill_tier(torch, flash, base: Path, int8_base: Path):
             fail("the fetched payload re-encoded is not its wire form")
         nbytes = sum(payload[s].numel() * payload[s].element_size()
                      for s in ("k", "v"))
+        SERVED["6f"] = {"prompts": prompts, "extra": extra,
+                        "turn1": turn1["a"], "turn2": turn2["a"],
+                        "fetch_tokens": p + delivered,
+                        "fetch_covered": fetched["tokens_covered"],
+                        "fetch": (payload["k"], payload["v"])}
         streamed, _, _ = stream_generate(port["b"], {
             "tokens": p, "resume_tokens": delivered, "kv_handoff": wire})
         fetch_resumed = p + delivered + streamed
@@ -4198,6 +4247,115 @@ def mesh_compare(what: str, prompts, replies, want, ref):
             "streams_equal": diffs.count(None), "first_difference": diffs}
 
 
+def mesh_streams(torch, flash, export: Path, prompts, replies, want):
+    """Every reply's whole stream must equal ``want``'s (the one-device
+    phase's reply to the same context), or part from it at a near tie:
+    at the first differing position, in one device's logits after the
+    common prefix, the two tokens and its own top two lie within
+    MESH_TIE_GAP (``mesh_compare``'s rule, at the position where the
+    streams part).  Returns the streams equal and the first differing
+    positions with their gaps."""
+    got = [r["predictions"][0]["tokens"] for r in replies]
+    parted = {}
+    for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+        at = first_difference(g[len(p):], w[len(p):])
+        if at is None:
+            continue
+        pos = len(p) + at
+        logits = mesh_ref_logits(torch, flash, export, w[:pos])
+        gap = float(logits[w[pos]] - logits[g[pos]])
+        top2 = torch_top2_gap(logits)
+        parted[i] = {"at": at, "gap": gap, "top2_gap": top2}
+        if abs(gap) > MESH_TIE_GAP or top2 > MESH_TIE_GAP:
+            fail(f"mesh spill tier: second turn {i} parts from the "
+                 f"one-device stream at new token {at} ({g[pos]} against "
+                 f"{w[pos]}): their gap {gap:.4f} and the one-device top-2 "
+                 f"gap {top2:.4f} are not both within {MESH_TIE_GAP}")
+    log(f"mesh spill tier: second turns equal the one-device streams for "
+        f"{len(got) - len(parted)} / {len(got)} sessions"
+        + (", parting at near ties " + ", ".join(
+            f"session {i} at token {t['at']} (gap {t['gap']:.4f}, top-2 "
+            f"{t['top2_gap']:.4f})" for i, t in parted.items())
+           if parted else ""))
+    return {"streams_equal": len(got) - len(parted), "parted": parted}
+
+
+def f32_pages(torch, flash, export: Path, tokens, n: int):
+    """The first ``n`` pages of ``tokens``' keys and values from a float32
+    forward of the export's weights on one device (plain attention):
+    the yardstick of a bf16 page's error."""
+    from kubeflow_tpu_torch.models.generate import (
+        _forward_with_cache,
+        init_cache,
+    )
+
+    width = n * 16
+    model = load_model(torch, export, torch.float32)
+    cache = init_cache(model.cfg, 1, width, device="cuda")
+    with plain_kernels(flash), torch.inference_mode():
+        _forward_with_cache(model, torch.tensor([tokens[:width]],
+                                                device="cuda"), cache, 0)
+    del model
+    return tuple(c[:, 0].reshape(c.shape[0], n, 16, *c.shape[3:]).cpu()
+                 for c in cache)
+
+
+def mesh_fetch(torch, flash, export: Path, fetched: dict,
+               six: dict) -> dict:
+    """Rank 0's :fetch_kv answer against phase 6f's one-device server's
+    for the same tokens: the same coverage and page shapes (whole heads,
+    every rank's gathered), and each side's pages within MESH_TWO_PATHS
+    times the one-device pages' own distance (relative Frobenius) from
+    a float32 forward's: two bf16 paths of one function (phase 6i's
+    logits rule)."""
+    from kubeflow_tpu_torch.serving import http as serving_http
+
+    if fetched["kv_handoff"] is None \
+            or fetched["tokens_covered"] != six["fetch_covered"]:
+        fail(f"mesh :fetch_kv covered {fetched['tokens_covered']} tokens, "
+             f"the one-device server {six['fetch_covered']}")
+    payload = serving_http.decode_kv_handoff(fetched["kv_handoff"])
+    want = six["fetch"]
+    n = want[0].shape[1]
+    with _REF_LOCK:
+        ref = f32_pages(torch, flash, export, six["fetch_tokens"], n)
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    out = {"pages": n, "covered": fetched["tokens_covered"]}
+    for side, mine, theirs, f32 in zip(("k", "v"), (payload["k"],
+                                                     payload["v"]),
+                                       want, ref):
+        if tuple(mine.shape) != tuple(theirs.shape) \
+                or mine.dtype != theirs.dtype:
+            fail(f"mesh :fetch_kv {side} pages {tuple(mine.shape)} "
+                 f"{mine.dtype}, one device's {tuple(theirs.shape)} "
+                 f"{theirs.dtype}")
+        d_mesh, d_one = rel(mine, theirs), rel(theirs, f32)
+        out[side] = {"rel_fro_to_one_device": d_mesh,
+                     "one_device_rel_fro_to_f32": d_one,
+                     "mesh_rel_fro_to_f32": rel(mine, f32),
+                     "max_abs": float((mine.float()
+                                       - theirs.float()).abs().max())}
+        if d_mesh > MESH_TWO_PATHS * d_one:
+            fail(f"mesh :fetch_kv {side} pages {d_mesh:.3e} (relative "
+                 f"Frobenius) from the one-device server's, over "
+                 f"{MESH_TWO_PATHS} x its own {d_one:.3e} from float32")
+    log(f"mesh :fetch_kv on rank 0: {n} whole-head pages "
+        f"{tuple(payload['k'].shape)} {payload['k'].dtype}, as the "
+        f"one-device server's; relative Frobenius to it k "
+        f"{out['k']['rel_fro_to_one_device']:.3e} v "
+        f"{out['v']['rel_fro_to_one_device']:.3e} (bound "
+        f"{MESH_TWO_PATHS} x the one-device pages' distance from float32:"
+        f" k {out['k']['one_device_rel_fro_to_f32']:.3e} v "
+        f"{out['v']['one_device_rel_fro_to_f32']:.3e}); the mesh's own "
+        f"from float32 k {out['k']['mesh_rel_fro_to_f32']:.3e} v "
+        f"{out['v']['mesh_rel_fro_to_f32']:.3e}")
+    return out
+
+
 def torch_top2_gap(logits) -> float:
     top = logits.topk(2).values
     return float(top[0] - top[1])
@@ -4234,7 +4392,7 @@ def adapter_burst(port: int, work):
 
 def mesh_serving(torch, flash, workdir: Path, base: Path, int8_base: Path,
                  adir: Path, prompts, alongside):
-    """Phase 6i over REST: three servers of ``serving.main --mesh
+    """Phase 6i over REST: four servers of ``serving.main --mesh
     tensor=2``, 2 processes each on the card over gloo, at the engine's
     JAX CLI defaults, serving at once (each is latency-bound on its
     host-staged collectives; the card is idle most of the time): (a) the
@@ -4251,9 +4409,12 @@ def mesh_serving(torch, flash, workdir: Path, base: Path, int8_base: Path,
     counts its ranks').  ``alongside()`` (the 2-rank job, ``mesh_job``)
     runs in a thread from the servers' start to past their bursts, its
     result kept under "job": the two are independent, and both are
-    bound by the host's cores, not the card.  Information: streams
-    equal, TTFT and tokens/s (three servers and the job share the card
-    and the host's cores)."""
+    bound by the host's cores, not the card.  (d) the bf16 export with
+    phase 6f's spill flags: 6f's sessions parked, their second turns
+    (``mesh_streams``) and rank 0's :fetch_kv (``mesh_fetch``), spills
+    and re-imports counted, no shed.  The phase within MESH_PHASE_S.
+    Information: streams equal, TTFT and tokens/s (four servers and the
+    job share the card and the host's cores)."""
 
     def ref(export, prompts_, adapters=None):
         return lambda i: mesh_ref_logits(
@@ -4321,13 +4482,59 @@ def mesh_serving(torch, flash, workdir: Path, base: Path, int8_base: Path,
             **mesh_compare("6e int8 burst", iprompts, replies, want,
                            ref(int8_base, iprompts)))}
 
+    def serve_spill(port):
+        six = SERVED["6f"]
+        sessions = six["prompts"]
+        replies, latencies, t_burst = burst(port, sessions,
+                                            {"park_kv": True})
+        check_replies(sessions, replies, [], None)
+        out = {"parked": dict(
+            burst_info(sessions, latencies, t_burst,
+                       get(port, "/model/lm:stats")["batcher"]),
+            **mesh_compare("6f parked first turns", sessions, replies,
+                           six["turn1"], ref(base, sessions)))}
+        # Each second turn on 6f's first-turn tokens, so its stream is
+        # held to 6f's whole stream.
+        contexts = [t + e for t, e in zip(six["turn1"], six["extra"])]
+        replies, latencies, t_burst = burst(port, contexts)
+        check_replies(contexts, replies, [], None)
+        out["resumed"] = dict(
+            burst_info(contexts, latencies, t_burst,
+                       get(port, "/model/lm:stats")["batcher"]),
+            **mesh_streams(torch, flash, base, contexts, replies,
+                           six["turn2"]))
+        stats = get(port, "/model/lm:stats")["batcher"]
+        check_mesh_stats("spill", stats)
+        if stats["kv_spill_pages_out"] <= 0 or stats["kv_spill_pages_in"] \
+                <= 0 or stats["shed"] or stats["kv_shed_no_blocks"] \
+                or stats["parked_sessions"] != len(sessions):
+            fail(f"mesh spill tier: pages out "
+                 f"{stats['kv_spill_pages_out']}, in "
+                 f"{stats['kv_spill_pages_in']}, shed {stats['shed']}, kv "
+                 f"shed {stats['kv_shed_no_blocks']}, parked "
+                 f"{stats['parked_sessions']}")
+        out["spill_stats"] = {k: stats[k] for k in (
+            "kv_spill_pages_out", "kv_spill_pages_in", "host_tier_used",
+            "parked_sessions", "kv_shed_no_blocks", "prefix_hits")}
+        t0 = time.perf_counter()
+        fetched = post(port, {"tokens": six["fetch_tokens"]},
+                       "/model/lm:fetch_kv")
+        out["spill_fetch"] = dict(mesh_fetch(torch, flash, base, fetched,
+                                             six),
+                            fetch_ms=(time.perf_counter() - t0) * 1e3)
+        return out
+
     plan = {"bf16": (base, (), serve_base),
             "spec-adapters": (base, (
                 "--speculative_tokens", str(SPEC_TOKENS), "--adapters_dir",
                 str(adir), "--adapter_slots", "8", "--adapter_rank",
                 str(ADAPTER_RANK)), serve_spec),
-            "int8": (int8_base, (), serve_int8)}
+            "int8": (int8_base, (), serve_int8),
+            "spill": (base, ("--kv_pool_blocks", str(SPILL_POOL),
+                             "--host_spill_blocks", str(SPILL_HOST)),
+                      serve_spill)}
     servers, results, info = {}, {}, {}
+    t_phase = time.perf_counter()
     try:
         for name, (export, flags, _) in plan.items():
             servers[name] = start_mesh_server(workdir, name, export, *flags)
@@ -4387,12 +4594,25 @@ def mesh_serving(torch, flash, workdir: Path, base: Path, int8_base: Path,
     log_burst("mesh tensor=2 speculating engine with adapters (6c's "
               "prompts)", info["spec"])
     log_burst("mesh tensor=2 int8 engine (6e's prompts)", info["int8"])
+    log_burst("mesh tensor=2 spill tier, parked first turns (6f's "
+              "sessions)", info["parked"])
+    log_burst("mesh tensor=2 spill tier, second turns", info["resumed"])
+    spill = info["spill_stats"]
+    log(f"mesh spill tier: {len(SERVED['6f']['prompts'])} sessions parked "
+        f"on a {SPILL_POOL}-page pool a rank: {spill['kv_spill_pages_out']} "
+        f"pages spilled out, {spill['kv_spill_pages_in']} re-imported, "
+        f"kv shed {spill['kv_shed_no_blocks']}; :fetch_kv on rank 0 "
+        f"{info['spill_fetch']['fetch_ms']:.1f} ms (client clock)")
     log(f"mesh decode tier: phase 6d's handoff streamed {MAX_NEW_TOKENS} "
         f"tokens; TTFT {info['handoff']['ttft_s'] * 1e3:.1f} ms; "
-        f"{info['spec_steps']} verify calls; the three servers' requests "
+        f"{info['spec_steps']} verify calls; the four servers' requests "
         f"took {info['bursts_s']:.1f} s together (client clock; "
         f"information only; {card_line()})")
     _REF_MODELS.clear()
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 6i took {info['phase_s']:.1f} s (bound {MESH_PHASE_S})")
+    if info["phase_s"] > MESH_PHASE_S:
+        fail(f"phase 6i took {info['phase_s']:.1f} s, over {MESH_PHASE_S}")
     return info
 
 
@@ -7585,6 +7805,213 @@ def cnn_gang_phase(torch, flash, workdir: Path) -> dict:
             "phase_s": phase_s}
 
 
+def profiled_window(torch, flash, workdir: Path) -> dict:
+    """Phase 13 (a): a ProfileSchedule(start=1, count=2) around 4 steps
+    of phase 7's trainer (bench.py's LM cell, the port's ``lm_task`` and
+    ``Trainer``), each step under ``step_marker``; the launch counters
+    zeroed as the window opens and read as it closes; the trace
+    summarized by tools/xplane_summary.py (its table printed), whose
+    events of flash_fwd, flash_dq and flash_dkv must equal the counters,
+    24 each (12 layers x 2 steps)."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig,
+        lm_task,
+    )
+    from kubeflow_tpu_torch.runtime import optim, profiling
+    from kubeflow_tpu_torch.runtime.train import Trainer
+    from kubeflow_tpu_torch.tools import xplane_summary
+
+    cfg = TransformerConfig(**dict(MODEL, max_seq_len=TRAIN_SEQ, remat=True,
+                                   attention="flash", dtype=torch.bfloat16))
+    init_fn, loss_fn = lm_task(cfg, device="cuda")
+    trainer = Trainer(init_fn=init_fn, loss_fn=loss_fn,
+                      tx=optim.adamw(1e-3), device="cuda")
+    state = trainer.create_state(SEED)
+    step = trainer.compile_step()
+    batch = trainer.shard_batch({"tokens": np.random.RandomState(
+        SEED).randint(0, MODEL["vocab_size"], size=(
+            TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)})
+    logdir = workdir / "profile"
+    sched = profiling.ProfileSchedule(str(logdir), start=PROFILE_START,
+                                      count=PROFILE_COUNT)
+    counts, wall = None, 0.0
+    for i in range(PROFILE_STEPS):
+        sched.before_step(i)
+        if i == PROFILE_START:
+            for key in flash.launch_counts:
+                flash.launch_counts[key] = 0
+            t0 = time.perf_counter()
+        with profiling.step_marker(i):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        if i == PROFILE_START + PROFILE_COUNT - 1:
+            wall = time.perf_counter() - t0
+            counts = dict(flash.launch_counts)
+        sched.after_step(i)
+    sched.close()
+    del trainer, state, step, batch
+    torch.cuda.empty_cache()
+    traces = sorted(logdir.rglob("*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"ProfileSchedule wrote {len(traces)} traces: {traces}")
+    log(f"xplane_summary of the profiled window ({PROFILE_COUNT} steps, "
+        f"per step):")
+    planes = xplane_summary.summarize_xplane(traces[0], top_n=12,
+                                             steps=PROFILE_COUNT)
+    (plane,) = [p for p in planes if p.name.startswith("GPU")]
+    want = MODEL["n_layers"] * PROFILE_COUNT
+    events = {k: plane.events(k + "_kernel") for k in TRAIN_KERNELS}
+    log(f"profiled window: trace events {events}, launch counters "
+        f"{ {k: counts[k] for k in TRAIN_KERNELS} } (want {want} each)")
+    if any(events[k] != counts[k] or counts[k] != want
+           for k in TRAIN_KERNELS):
+        fail(f"the trace summary's kernel events {events} are not the "
+             f"launch counters {counts} ({want} each)")
+    steps = sorted(n for n in plane.containers if n.startswith("train_step"))
+    if steps != [f"train_step {i}" for i in range(
+            PROFILE_START, PROFILE_START + PROFILE_COUNT)]:
+        fail(f"the profiled window holds the steps {steps}")
+    return {"counts": counts, "events": events, "busy_ms": plane.busy_ms,
+            "wall_ms": wall * 1e3, "busy_share": plane.busy_ms
+            / (wall * 1e3), "overlapped_ms": sum(plane.overlap.values()),
+            "trace_bytes": traces[0].stat().st_size}
+
+
+def tools_phase(torch, flash, workdir: Path, breakdown: dict):
+    """Phase 13: the worker runtime and tooling.  (a) ``profiled_window``;
+    (b) side by side as processes: tools/launcher.py running
+    ``python -m kubeflow_tpu_torch.tools.train_lm`` on bench.py's LM cell
+    for 3 steps with KFT_SLICE_TYPE=h100-1 (exit 0, 3 finite losses, and
+    each logged MFU over topology.py's 989 TFLOP/s, this smoke's
+    PEAK_BF16_FLOPS), tools/train_torch.py on the card (its loss falls)
+    and ``tools/telemetry.py --once`` (exit 0, the report logged); (c)
+    ``MeshSpec.build(topology=)`` builds a one-rank mesh for h100-1 and
+    raises ValueError for h100-8.  The phase within TOOLS_PHASE_S."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.parallel.mesh import MeshSpec
+    from kubeflow_tpu_torch.runtime import topology
+
+    t_phase = time.perf_counter()
+    if topology.PEAK_BF16_FLOPS["H100"] != PEAK_BF16_FLOPS:
+        fail(f"topology.py's H100 peak {topology.PEAK_BF16_FLOPS} is not "
+             f"this smoke's {PEAK_BF16_FLOPS}")
+    info = {"profile": profiled_window(torch, flash, workdir)}
+    repo = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KFT_")}
+    env.update(PYTHONPATH=str(repo), PYTHONUNBUFFERED="1",
+               KFT_SLICE_TYPE=TOOLS_SLICE, KFT_PROCESS_ID="0")
+    metrics = workdir / "launched_metrics.json"
+    commands = {
+        "launcher": [sys.executable, "-m", "kubeflow_tpu_torch.tools.launcher",
+                     "--", sys.executable, "-m",
+                     "kubeflow_tpu_torch.tools.train_lm", *TRAIN_FLAGS,
+                     "--steps", str(TOOLS_TRAIN_STEPS), "--log-every", "1",
+                     "--max-restarts", "0", "--metrics-out", str(metrics)],
+        "train_torch": [sys.executable, "-m",
+                        "kubeflow_tpu_torch.tools.train_torch", "--steps",
+                        str(TORCH_WORKER_STEPS)],
+        "telemetry": [sys.executable, "-m",
+                      "kubeflow_tpu_torch.tools.telemetry", "--usage-id",
+                      "chip-smoke", "--once"]}
+    procs, errs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, argv in commands.items():
+            errs[name] = workdir / f"tools-{name}.err"
+            with open(errs[name], "w") as f:
+                procs[name] = subprocess.Popen(
+                    argv, cwd=str(repo), env=env, stdin=subprocess.DEVNULL,
+                    stdout=subprocess.DEVNULL, stderr=f)
+        codes = {}
+        for name, proc in procs.items():
+            try:
+                codes[name] = proc.wait(max(1.0, TOOLS_TIMEOUT_S - (
+                    time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                codes[name] = None
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    t_procs = time.perf_counter() - t0
+    bad = {k: c for k, c in codes.items() if c != 0}
+    if bad:
+        fail(f"phase 13 tools exited {bad}: " + "".join(
+            errs[k].read_text()[-1500:] for k in bad))
+    history = json.loads(metrics.read_text())["history"]
+    cfg = TransformerConfig(**{k: v for k, v in MODEL.items()
+                               if k != "dtype"})
+    flops = 3 * cfg.flops_per_token() * TRAIN_SEQ * TRAIN_BATCH
+    peaks = [flops / (r["step_time_s"] * r["mfu"]) if r.get("mfu")
+             else float("inf") for r in history]
+    # mfu is logged at 4 decimals: the peak it implies is that close.
+    slack = [0.5e-4 / r["mfu"] + 1e-5 if r.get("mfu") else 0.0
+             for r in history]
+    if len(history) != TOOLS_TRAIN_STEPS or not all(
+            math.isfinite(r["loss"]) for r in history) or any(
+            abs(p / PEAK_BF16_FLOPS - 1) > e for p, e in zip(peaks, slack)):
+        fail(f"the launched train_lm logged {history}: the peaks its MFU "
+             f"implies {peaks} are not {PEAK_BF16_FLOPS:.4g}")
+    worker = errs["train_torch"].read_text()
+    losses = [float(x) for x in re.findall(r"step \d+ loss ([0-9.]+)",
+                                           worker)]
+    if len(losses) < 2 or not losses[-1] < losses[0]:
+        fail(f"train_torch's loss did not fall on the card: {losses}")
+    report = errs["telemetry"].read_text()
+    if "usage report" not in report or '"torch_version"' not in report:
+        fail(f"telemetry --once reported nothing: {report[-500:]}")
+    info["launched"] = {"losses": [r["loss"] for r in history],
+                        "mfu": [r["mfu"] for r in history],
+                        "implied_peak": peaks, "step_s": [
+                            r["step_time_s"] for r in history]}
+    info["train_torch_losses"] = losses
+    info["processes_s"] = t_procs
+    created = not dist.is_initialized()
+    try:
+        mesh = MeshSpec(data=1).build(
+            "cuda", topology=topology.get_topology(TOOLS_SLICE))
+        if mesh.size() != 1:
+            fail(f"MeshSpec.build(topology={TOOLS_SLICE}) built {mesh}")
+    finally:
+        if created and dist.is_initialized():
+            dist.destroy_process_group()
+    try:
+        MeshSpec(data=-1).build("cuda",
+                                topology=topology.get_topology("h100-8"))
+        fail("MeshSpec.build(topology=h100-8) built on one GPU")
+    except ValueError as exc:
+        info["mismatch"] = str(exc)
+    prof = info["profile"]
+    phase_s = time.perf_counter() - t_phase
+    info["phase_s"] = phase_s
+    nine = breakdown.get("busy_ms", 0.0) / breakdown["step_ms"] \
+        if breakdown.get("busy_ms") else None
+    log(f"tools: launcher -> train_lm ({TOOLS_TRAIN_STEPS} steps, "
+        f"KFT_SLICE_TYPE={TOOLS_SLICE}) losses "
+        f"{[round(x, 4) for x in info['launched']['losses']]}, MFU "
+        f"{info['launched']['mfu']} over {PEAK_BF16_FLOPS:.4g} FLOP/s; "
+        f"train_torch losses {losses}; telemetry --once exit 0; the three "
+        f"processes {t_procs:.1f} s side by side; MeshSpec.build(topology="
+        f"{TOOLS_SLICE}) built, h100-8 raised: {info['mismatch']}")
+    log(f"profiled window of phase 7's trainer: device busy "
+        f"{prof['busy_ms']:.2f} ms over {prof['wall_ms']:.2f} ms of "
+        f"{PROFILE_COUNT} steps (share {prof['busy_share']:.3f}; phase 9's "
+        f"one profiled step of the same cell "
+        + (f"{nine:.3f}" if nine is not None else "not measured")
+        + f"), overlapped copies {prof['overlapped_ms']:.3f} ms, trace "
+        f"{prof['trace_bytes']} bytes (information only; {card_line()})")
+    log(f"phase 13 took {phase_s:.1f} s (bound {TOOLS_PHASE_S})")
+    if phase_s > TOOLS_PHASE_S:
+        fail(f"phase 13 took {phase_s:.1f} s, over {TOOLS_PHASE_S}")
+    return prof["counts"], info
+
+
 def main() -> int:
     try:
         import torch
@@ -7760,6 +8187,9 @@ def main() -> int:
         phase_done("12 CNN train")
         cnn_train_info["gang"] = cnn_gang_phase(torch, flash, workdir)
         phase_done("12b CNN gang")
+        tools_counts, tools_info = tools_phase(torch, flash, workdir,
+                                               learned)
+        phase_done("13 tools")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -7784,7 +8214,8 @@ def main() -> int:
                                    "pipeline": pipe_counts[name],
                                    "moe_mesh": moe_mesh_counts[name],
                                    "adafactor_mesh": ada_counts[name],
-                                   "hfta_mesh": hfta_mesh_counts[name]}
+                                   "hfta_mesh": hfta_mesh_counts[name],
+                                   "tools": tools_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
     for name, row in two_pass_rows.items():
@@ -7804,7 +8235,8 @@ def main() -> int:
                                    "pipeline": pipe_counts[name],
                                    "moe_mesh": moe_mesh_counts[name],
                                    "adafactor_mesh": ada_counts[name],
-                                   "hfta_mesh": hfta_mesh_counts[name]}
+                                   "hfta_mesh": hfta_mesh_counts[name],
+                                   "tools": tools_counts[name]}
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
@@ -7827,7 +8259,8 @@ def main() -> int:
                                  "hfta_mesh": hfta_mesh_info},
                     "checkpoint": ckpt_info,
                     "cnn_serve": cnn_serve_info,
-                    "cnn_train": cnn_train_info}))
+                    "cnn_train": cnn_train_info,
+                    "tools": tools_info}))
     log(f"phase times (s): {json.dumps(phase_s)}; total "
         f"{sum(phase_s.values()):.1f} s")
     log(f"card: {card}")

@@ -38,7 +38,6 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 
 # Canonical mesh axis names, outermost -> innermost (the JAX package's).
@@ -110,15 +109,18 @@ class MeshSpec:
         other collective.  A job whose process group is not up yet is a
         one-process job (``runtime/bootstrap.py`` starts a multi-process
         one): the mesh then starts its one-rank group itself, NCCL on
-        CUDA and gloo on the CPU."""
-        if topology is not None:
-            raise NotPortedError(
-                "MeshSpec.build(topology=...) is not ported yet: "
-                "runtime/topology.py is ROADMAP queue 1 item 15")
+        CUDA and gloo on the CPU.  A ``topology``
+        (``runtime/topology.py``) must name as many devices as the job
+        has ranks, or the build raises before any group is made."""
         import torch.distributed as dist
 
         dev = resolve_device(device)
         timeout = datetime.timedelta(seconds=timeout_s)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if topology is not None and topology.devices != world:
+            raise ValueError(
+                f"topology {topology.name} expects {topology.devices} "
+                f"devices, runtime sees {world}")
         if not dist.is_initialized():
             if dev.type == "cuda":
                 torch.cuda.set_device(torch.cuda.current_device())
@@ -126,7 +128,6 @@ class MeshSpec:
                 "nccl" if dev.type == "cuda" else "gloo",
                 store=dist.HashStore(), rank=0, world_size=1,
                 timeout=timeout)
-        world = dist.get_world_size()
         sizes = self.sizes(world)
         ranks = torch.arange(world, dtype=torch.int).reshape(
             [sizes[a] for a in AXIS_ORDER])

@@ -88,9 +88,15 @@ lockstep channel (serving/lockstep.py) before running it; every other
 rank runs ``follow()``, which builds the same engine when rank 0 builds
 one and replays each call on it.  Under a mesh the programs run
 uncaptured (an explicit ``cuda_graphs=True`` raises ``NotPortedError``,
-ROADMAP queue 1 item 25), and the host spill tier is not ported (item
-26).  A KV export gathers every rank's heads on rank 0; an import gives
-each rank its head slice.
+ROADMAP queue 1 item 25).  A KV export gathers every rank's heads on
+rank 0; an import gives each rank its head slice.  The host spill tier
+lives on rank 0 alone and holds whole-head pages, as the JAX engine's
+host arrays are whole: spill-out and park gather them (``_op_gather``,
+whose ranks first agree that each read its slice, so that a failed read
+fails every rank with ``lockstep.RankFault`` instead of leaving one in
+the all-gather), re-import scatters each rank its head slice, and
+``fetch_kv`` reads rank 0's host memory with no collective.  Its
+counters and ``spill_timing`` are rank 0's, once a job.
 
 Interface-compatible with the batchers (submit/accepts/stats/close), so
 ModelServer.enable_batching wires it behind the REST surface unchanged.
@@ -482,8 +488,6 @@ class DecodeEngine:
             if cuda_graphs:
                 raise _not_ported(
                     "CUDA graph capture under a tensor mesh", 25)
-            if host_spill_blocks > 0 and prefix_caching:
-                raise _not_ported("the host spill tier under a mesh", 26)
             cuda_graphs = False
             self._chan = lockstep.channel(mesh)
         self._metric_name = name
@@ -1364,12 +1368,21 @@ class DecodeEngine:
 
     def _op_gather(self, ids):
         """Pool blocks ``ids`` as whole-head host page stacks (every
-        rank's heads gathered, on rank 0 as on the others)."""
-        from kubeflow_tpu_torch.models.generate import gather_kv_pages
+        rank's heads gathered, on rank 0 as on the others).  Under a mesh
+        the ranks first agree that each read its pages: a rank whose
+        read failed makes every rank raise ``lockstep.RankFault`` before
+        the all-gather, never leaves the others inside it."""
+        from kubeflow_tpu_torch.models import generate
 
-        pages = gather_kv_pages(self._state, ids)
-        if self.mesh is None or self._state["cache_k"].shape[3] \
-                == self.cfg.n_kv_heads:
+        if self.mesh is None:
+            return generate.gather_kv_pages(self._state, ids)
+        pages, error = None, None
+        try:
+            pages = generate.gather_kv_pages(self._state, ids)
+        except Exception as exc:  # noqa: BLE001 -- every rank must hear
+            error = exc
+        self._chan.agree(error, "the page gather")
+        if self._state["cache_k"].shape[3] == self.cfg.n_kv_heads:
             return pages
         return tuple(tuple(None if t is None
                            else self._chan.gather_cat(t, dim=3)
@@ -1853,6 +1866,8 @@ class DecodeEngine:
                 pages_k, pages_v = self._device("gather", rec.blocks)
                 self.spill_timing["out_s"] += time.perf_counter() - t0
                 self.spill_timing["out_pages"] += n
+            except lockstep.ChannelClosed:
+                raise  # the mesh failed: the engine fails with it
             except Exception:  # noqa: BLE001 -- degrade to eviction
                 log.debug("engine %r: spill-out gather failed",
                           self._metric_name, exc_info=True)
@@ -1920,6 +1935,8 @@ class DecodeEngine:
             pages_k, pages_v = self._device("gather", entry["blocks"][:n])
             self.spill_timing["out_s"] += time.perf_counter() - t0
             self.spill_timing["out_pages"] += n
+        except lockstep.ChannelClosed:
+            raise  # the mesh failed: the engine fails with it
         except Exception:  # noqa: BLE001 -- degrade to device-only park
             log.debug("engine %r: park gather failed", self._metric_name,
                       exc_info=True)
@@ -2123,7 +2140,15 @@ class DecodeEngine:
                         # for counter consistency.
                         # kft: allow=lock-guard
                         self._slot_req[entry["slot"]] = None
-                    self._finish(entry)
+                    try:
+                        self._finish(entry)
+                    except Exception as exc:
+                        # Out of the slot table and the pending list, so
+                        # the engine's abort cannot reach it: resolve its
+                        # waiter here (a mesh's failed page gather).
+                        entry["err"] = exc
+                        entry["event"].set()
+                        raise
                     finished_entries.append(entry)
                     ttfts.append(entry["t_first"] - entry["t"])
                     finished += 1

@@ -50,6 +50,12 @@ class ChannelClosed(RuntimeError):
     or timed out): no more calls reach the followers."""
 
 
+class RankFault(ChannelClosed):
+    """A call that every rank runs failed on at least one of them
+    (``Channel.agree``): it is raised on every rank, and the channel
+    takes no more calls, since the ranks' device state may differ."""
+
+
 class Channel:
     """Rank 0's choke point and the followers' replay loop over one CPU
     process ``group`` of ``size`` ranks."""
@@ -100,8 +106,41 @@ class Channel:
 
         local = local.contiguous()
         parts = [torch.empty_like(local) for _ in range(self.size)]
-        dist.all_gather(parts, local, group=self.group)
+        try:
+            dist.all_gather(parts, local, group=self.group)
+        except Exception as exc:
+            raise self._broken(ChannelClosed(
+                f"lockstep all-gather failed on rank {self.rank}: "
+                f"{exc!r}")) from exc
         return torch.cat(parts, dim=dim)
+
+    def agree(self, error: Optional[BaseException], what: str) -> None:
+        """Every rank's verdict on a call that they all run (``error``:
+        this rank's failure, or None), met in one all-reduce before the
+        call's own collectives: when any rank failed, every rank raises
+        ``RankFault`` here, so that none is left waiting inside a
+        collective that another skipped."""
+        import torch
+        import torch.distributed as dist
+
+        failed = torch.tensor([int(error is not None)], dtype=torch.int64)
+        try:
+            dist.all_reduce(failed, group=self.group)
+        except Exception as exc:
+            raise self._broken(ChannelClosed(
+                f"lockstep agreement on {what} failed on rank "
+                f"{self.rank}: {exc!r}")) from exc
+        if failed.item():
+            raise self._broken(RankFault(
+                f"{what} failed on {failed.item()} of {self.size} ranks "
+                f"(this rank: {error!r})")) from error
+
+    def _broken(self, exc: ChannelClosed) -> ChannelClosed:
+        """Mark the channel failed (rank 0 sends nothing more) and return
+        ``exc`` to raise."""
+        if self._error is None:
+            self._error = exc
+        return exc
 
     # -- rank 0 -----------------------------------------------------------
 

@@ -15,7 +15,8 @@ with ``--data-dir``, the KFTR shards of ``{"image", "label"}`` examples
 under it through the record pipeline (data/).  ``--checkpoint-dir``
 saves verified checkpoints every ``--checkpoint-every`` steps, and a
 rerun resumes from the newest verified step.  MFU is reported over the
-card's bf16 peak (tools/train_lm.py's table).
+bf16 peak of the shape ``KFT_SLICE_TYPE`` names, else of the card
+(runtime/topology.py's table).
 
 A multi-process gang (the operator's ``KFT_NUM_PROCESSES`` /
 ``KFT_PROCESS_ID`` / ``KFT_COORDINATOR_ADDRESS``, or ``torchrun``; one
@@ -102,8 +103,8 @@ def run(argv=None):
     from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
     from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
     from kubeflow_tpu_torch.runtime.supervisor import TrainSupervisor
+    from kubeflow_tpu_torch.runtime.topology import mfu_peak
     from kubeflow_tpu_torch.runtime.train import Trainer
-    from kubeflow_tpu_torch.tools.train_lm import peak_bf16_flops
 
     files = []
     if args.data_dir:
@@ -135,7 +136,7 @@ def run(argv=None):
         metrics=MetricsLogger(static={"job": env.job_name,
                                       "process": env.process_id}),
         flops_per_example=cfg.fwd_flops_per_image * (size / 224) ** 2,
-        peak_flops_per_chip=peak_bf16_flops(device),
+        peak_flops_per_chip=mfu_peak(env.slice_type, device),
     )
 
     if files:

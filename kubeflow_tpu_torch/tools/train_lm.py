@@ -37,7 +37,9 @@ statistics those of the whole JAX leaves (runtime/optim.py).
 ``--checkpoint-dir`` / ``--checkpoint-every`` (verified checkpoints,
 runtime/checkpoint.py; a rerun resumes from the newest verified step)
 are wired as in the JAX entry point.  ``--metrics-out`` writes the JAX
-entry point's JSON ({"config": ..., "history": [...]}).
+entry point's JSON ({"config": ..., "history": [...]}).  MFU is over the
+bf16 peak of the shape ``KFT_SLICE_TYPE`` names (``h100-8``; the JAX
+entry point's rule), else of the card (runtime/topology.py's table).
 """
 
 from __future__ import annotations
@@ -46,23 +48,6 @@ import argparse
 import json
 import logging
 import sys
-
-# Published dense bf16 tensor-core peak per card (NVIDIA's data sheet,
-# SXM part), keyed by a substring of torch.cuda.get_device_name(); the
-# MFU denominator.  A card not listed reports no MFU.
-PEAK_BF16_FLOPS = {"H100": 989e12}
-
-
-def peak_bf16_flops(device) -> float:
-    """The card's bf16 peak FLOP/s from ``PEAK_BF16_FLOPS``, or 0 (no
-    MFU) on the CPU or an unlisted card."""
-    import torch
-
-    if device.type != "cuda":
-        return 0.0
-    name = torch.cuda.get_device_name(device)
-    return next((v for k, v in PEAK_BF16_FLOPS.items() if k in name), 0.0)
-
 
 def parse_mesh(flag: str) -> dict:
     """``--mesh`` as the JAX entry point parses it: ``axis=size`` pairs
@@ -186,6 +171,7 @@ def run(argv=None):
     from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
     from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
     from kubeflow_tpu_torch.runtime.supervisor import TrainSupervisor
+    from kubeflow_tpu_torch.runtime.topology import mfu_peak
     from kubeflow_tpu_torch.runtime.train import Trainer
 
     device = resolve_device(args.device)
@@ -221,7 +207,7 @@ def run(argv=None):
     # them.
     batch = args.batch_size_per_device
     global_batch = batch * dp_count
-    peak = peak_bf16_flops(device)
+    peak = mfu_peak(env.slice_type, device)
     if args.warmup_steps > 0:
         lr = optim.warmup_cosine_decay_schedule(
             init_value=0.0, peak_value=args.learning_rate,

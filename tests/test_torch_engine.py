@@ -501,17 +501,48 @@ def test_sampled_stream_repeats_alone_or_co_batched(spec):
     assert alone != run([prompt], [8], 8)[0]
 
 
-# The mesh's two refusals: capture under a tensor mesh and the host
-# spill tier under one (the mesh itself is ported,
-# tests/test_torch_serving_mesh.py).  Both refuse before the mesh is
-# read.  The first keeps the id of the mesh refusal it replaces.
+# The mesh's one refusal: capture under a tensor mesh (the mesh itself
+# is ported, tests/test_torch_serving_mesh.py).  It refuses before the
+# mesh is read, and keeps the id of the mesh refusal it replaces.
 @pytest.mark.parametrize("option,item", [
     ({"mesh": object(), "cuda_graphs": True}, 25),
-    ({"mesh": object(), "host_spill_blocks": 4}, 26),
-], ids=["option3-6", "option4-26"])
+], ids=["option3-6"])
 def test_held_back_options_raise_not_ported(spec, option, item):
     with pytest.raises(NotPortedError, match=f"ROADMAP queue 1 item {item}"):
         _port_engine(spec, **option)
+
+
+def test_host_spill_tier_builds_under_a_mesh(spec):
+    """The host spill tier under a mesh (the job's one rank here; two in
+    tests/test_torch_serving_mesh.py): the engine builds with it, a
+    parked session's pages reach rank 0's host tier through the mesh's
+    gather, and ``fetch_kv`` answers them."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel.mesh import MeshSpec
+    from kubeflow_tpu_torch.serving import lockstep
+
+    before = dist.is_initialized()
+    mesh = MeshSpec(data=1, tensor=1).build("cpu", timeout_s=60)
+    try:
+        lockstep.attach(mesh, 60)
+        engine = _port_engine(spec, mesh=mesh, host_spill_blocks=16,
+                              **GEOMETRY)
+        try:
+            prompt = np.asarray(_prompts([16], SEED)[0], np.int32)
+            out = engine.submit({"tokens": prompt, "park_kv": True})
+            st = engine.stats()
+            fetched = engine.fetch_kv({"tokens": out["tokens"][0]})
+        finally:
+            engine.close()
+        lockstep.channel(mesh).close()
+    finally:
+        if not before:  # the one-rank group this build started
+            dist.destroy_process_group()
+    assert st["host_spill_blocks"] == 16 and st["mesh_devices"] == 1
+    assert st["parked_sessions"] == 1 and st["kv_spill_pages_out"] > 0
+    assert fetched["tokens_covered"] == st["kv_spill_pages_out"] \
+        * GEOMETRY["kv_block_tokens"]
 
 
 def test_held_back_requests_raise_not_ported(spec):

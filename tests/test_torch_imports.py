@@ -95,7 +95,14 @@ def test_every_port_module_imports():
             "kubeflow_tpu_torch.testing.ranks",
             "kubeflow_tpu_torch.testing.ring_check",
             "kubeflow_tpu_torch.serving.sharding",
-            "kubeflow_tpu_torch.serving.lockstep"} <= set(names)
+            "kubeflow_tpu_torch.serving.lockstep",
+            "kubeflow_tpu_torch.version",
+            "kubeflow_tpu_torch.runtime.topology",
+            "kubeflow_tpu_torch.runtime.profiling",
+            "kubeflow_tpu_torch.tools.xplane_summary",
+            "kubeflow_tpu_torch.tools.launcher",
+            "kubeflow_tpu_torch.tools.train_torch",
+            "kubeflow_tpu_torch.tools.telemetry"} <= set(names)
 
 
 ANALYSIS = sorted(p.name for p in

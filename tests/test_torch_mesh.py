@@ -23,8 +23,8 @@ import numpy as np
 import pytest
 
 from kubeflow_tpu.parallel import mesh as jax_mesh
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.parallel import mesh
+from kubeflow_tpu_torch.runtime import topology
 from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
 
 REPO = str(Path(__file__).resolve().parents[1])
@@ -86,9 +86,26 @@ def test_sharded_dim_is_the_fsdp_entry(axes, dim):
     assert mesh.sharded_dim(axes, mesh.FSDP) == dim
 
 
-def test_topology_is_not_ported():
-    with pytest.raises(NotPortedError, match="item 15"):
-        mesh.MeshSpec(data=1).build("cpu", topology=object())
+@pytest.mark.parametrize("shape", ["cpu-1", "h100-1", "h100-8"])
+def test_topology_builds_on_a_matching_count(shape):
+    """``build(topology=)`` on a job of one rank: a one-device shape
+    builds the mesh, the 8-GPU one raises before any group is made."""
+    import torch.distributed as dist
+
+    topo = topology.get_topology(shape)
+    before = dist.is_initialized()
+    if topo.devices != 1:
+        with pytest.raises(ValueError, match="expects 8 devices, runtime "
+                                             "sees 1"):
+            mesh.MeshSpec(data=1).build("cpu", topology=topo)
+        assert dist.is_initialized() == before
+        return
+    try:
+        dm = mesh.MeshSpec(data=1).build("cpu", topology=topo)
+        assert tuple(dm.shape) == (1,) * len(mesh.AXIS_ORDER)
+    finally:
+        if not before:  # the group this build started
+            dist.destroy_process_group()
 
 
 # Each rank builds these meshes and prints, per mesh, the ranks of its

@@ -84,6 +84,18 @@ def _spec_prompts():
     return [rep, _prompts()[0], rep]
 
 
+def _spill_prompts():
+    """Five sessions of 12 prompt tokens (tests/test_torch_kv_spill.py's
+    pressure run has 9-13; one length keeps JAX's references to one
+    compiled shape a turn), and each second turn's three follow-up
+    tokens."""
+    rng = np.random.RandomState(SEED + 11)
+    prompts = [rng.randint(1, VOCAB, size=(12,)).astype(np.int32)
+               for _ in range(5)]
+    return prompts, [rng.randint(90, VOCAB, size=(3,)).astype(np.int32)
+                     for _ in prompts]
+
+
 def _probe_prompts():
     """bench.py's probe: prompts of cycling lengths from a seeded rng."""
     rng = np.random.RandomState(SEED + 7)
@@ -170,6 +182,8 @@ def _write_inputs(work, base, gqa, n_each):
         "adapter_workload": [(a, p.tolist()) for a, p in _workload(1)],
         "sweep_workload": [(a, p.tolist()) for a, p in _workload(n_each)],
         "probe_prompts": [p.tolist() for p in _probe_prompts()],
+        "spill_prompts": [p.tolist() for p in _spill_prompts()[0]],
+        "spill_followups": [f.tolist() for f in _spill_prompts()[1]],
     }, work / "inputs.pt")
 
 
@@ -206,6 +220,13 @@ def cases(tmp_path_factory, lm):
             "spec": _jax_tokens(cfg, params, _spec_prompts()),
             "adapters": _jax_adapter_refs(cfg, params, _workload(1)),
         }
+        prompts, followups = _spill_prompts()
+        for case, kv in (("spill", {}), ("spill_int8",
+                                         {"kv_cache_dtype": "int8"})):
+            turn1 = _jax_tokens(cfg, params, prompts, **kv)
+            refs[case] = (turn1, _jax_tokens(
+                cfg, params, [np.concatenate([np.asarray(t, np.int32), f])
+                              for t, f in zip(turn1, followups)], **kv))
         out, ranks = _results(work, "cases", 2, future)
     return out, ranks, refs
 
@@ -260,7 +281,7 @@ def test_mesh_fused_identity(cases):
 
 
 @pytest.mark.parametrize("case", ["greedy", "int8", "spec", "adapters",
-                                  "import", "fused"])
+                                  "import", "fused", "spill", "spill_int8"])
 def test_ranks_replicated_scalars_equal(cases, case):
     _, ranks, _ = cases
     mine, theirs = ranks[0][case], ranks[1][case]
@@ -286,6 +307,82 @@ def test_prefill_logits_match_jax(cases, lm, case):
                           adapter_ids=ids)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["spill", "spill_int8"])
+def test_host_spill_tier_under_the_mesh(cases, case):
+    """The host spill tier at tensor=2 (the twin of tests/
+    test_torch_kv_spill.py's pressure run): five parked sessions under a
+    12-page pool spill out, nothing sheds, and their second turns
+    re-import the pages and give JAX generate()'s tokens, float32 and
+    with an int8 pool; the counters are the one-device engine's (rank 0
+    counts once a job)."""
+    out, _, refs = cases
+    got, one = out[case], out[f"{case}_one"]
+    turn1, turn2 = refs[case]
+    assert got["turn1"] == one["turn1"] == turn1
+    assert got["turn2"] == one["turn2"] == turn2
+    st = got["stats"]
+    assert st["kv_spill_pages_out"] > 0 and st["kv_spill_pages_in"] > 0
+    assert st["shed"] == 0 and st["kv_shed_no_blocks"] == 0
+    assert st["parked_sessions"] == 5 and st["mesh_devices"] == 2
+    for key in ("kv_spill_pages_out", "kv_spill_pages_in",
+                "parked_sessions", "host_tier_used", "kv_fetches",
+                "kv_block_evictions"):
+        assert st[key] == one["stats"][key], key
+    assert got["timing"]["in_pages"] == st["kv_spill_pages_in"]
+    assert got["timing"]["out_pages"] == one["timing"]["out_pages"]
+
+
+@pytest.mark.parametrize("case", ["spill", "spill_int8"])
+def test_fetch_kv_under_the_mesh_matches_one_device(cases, case):
+    """Rank 0's ``fetch_kv`` answers whole-head pages: the one-device
+    engine's coverage and shapes, its values within float32 rounding
+    (the mesh's row-parallel sums round otherwise), an int8 pool's
+    values within one quantum and its scales within 1e-5."""
+    out, _, _ = cases
+    got, want = out[case]["fetch"], out[f"{case}_one"]["fetch"]
+    assert got["tokens_covered"] == want["tokens_covered"] > 0
+    for side in ("k", "v"):
+        mine, theirs = got["kv_handoff"][side], want["kv_handoff"][side]
+        if case == "spill":
+            assert mine.shape == theirs.shape
+            torch.testing.assert_close(mine, theirs, rtol=1e-5, atol=1e-5)
+            continue
+        assert mine["values"].shape == theirs["values"].shape
+        assert (mine["values"].int() - theirs["values"].int()).abs().max() \
+            <= 1
+        torch.testing.assert_close(mine["scale"], theirs["scale"],
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_spill_counters_are_rank_0s(cases, rank):
+    """The spill counters and ``spill_timing`` are rank 0's alone: a
+    follower's engine has no host side and keeps none."""
+    out, ranks, _ = cases
+    for case in ("spill", "spill_int8"):
+        counters = ranks[rank]["counters"][case]
+        if rank:
+            assert counters is None, (case, counters)
+            continue
+        st = out[case]["stats"]
+        assert counters["spill_pages_out"] == st["kv_spill_pages_out"]
+        assert counters["spill_pages_in"] == st["kv_spill_pages_in"] > 0
+        assert counters["timing"] == out[case]["timing"]
+
+
+def test_failed_gather_fails_every_rank_typed(cases):
+    """A page gather that fails on rank 1 fails the job on both ranks
+    with ``lockstep.RankFault``, before the all-gather: rank 0's request
+    gets the error, its engine then refuses, and no rank hangs (the job
+    returned)."""
+    out, ranks, _ = cases
+    first, second = out["spill_fault"]
+    assert first[0] == "RankFault" and "1 of 2 ranks" in first[1]
+    assert second is not None
+    assert ranks[1]["counters"]["fault"][0] == "RankFault"
+    assert "page gather broken on rank 1" in ranks[1]["counters"]["fault"][1]
 
 
 @pytest.mark.parametrize("rank", [0, 1])

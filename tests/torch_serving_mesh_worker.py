@@ -16,9 +16,14 @@ name each) and reads what they write:
 ``cases`` runs, one engine after another over a ``tensor`` mesh of the
 job's ranks, the greedy prompts with a prefix hit, an int8 KV pool,
 speculation, two adapters co-batched, a single-device export imported
-into the mesh engine and fused rounds; ``gqa`` the greedy prompts on a
-model with fewer kv heads than ranks; ``sweep`` speculation, the prefix
-cache and adapters together, a hot swap of the engine and its gauge;
+into the mesh engine, fused rounds, and the host spill tier at float32
+and with an int8 pool (parked sessions spilled under a tight pool and
+re-imported, rank 0's ``fetch_kv``, each beside a one-device engine on
+rank 0), then a page gather that fails on rank 1, which must fail
+both ranks typed (``lockstep.RankFault``), the job's last case; ``gqa``
+the greedy prompts on a model with fewer kv heads than ranks;
+``sweep`` speculation, the prefix cache and adapters together, a hot
+swap of the engine and its gauge;
 ``cuda`` the greedy prompts and fused rounds on the GPU (the ranks share
 it over gloo: ``KFT_DIST_BACKEND=gloo``); ``probe`` bench.py's multi-chip
 probe (a concurrent burst, then the first prompt alone) on rank 0 without
@@ -40,6 +45,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from kubeflow_tpu_torch.models import generate as generate_mod  # noqa: E402
 from kubeflow_tpu_torch.models.convert import (  # noqa: E402
     load_params,
     params_to_device,
@@ -70,6 +76,12 @@ SCALARS = ("lengths", "done", "last_token", "keys", "stop_len",
            "adapter_ids")
 GEOMETRY = dict(slots=2, prefill_len=16, prefill_chunk_tokens=4,
                 kv_block_tokens=4)
+# tests/test_torch_kv_spill.py's geometry: 12 pool pages for five
+# parked sessions of 12 prompt tokens, and their second turns.
+SPILL = dict(GEOMETRY, prefill_len=32, prefill_chunk_tokens=8,
+             kv_pool_blocks=12, host_spill_blocks=48)
+SPILL_COUNTERS = ("spill_pages_out", "spill_pages_in", "parked_sessions",
+                  "fetches")
 
 
 class Probe:
@@ -82,12 +94,28 @@ class Probe:
         self.chan = chan
         self.seen = {}
         self.engines = {}
+        self.counters = {}
 
     def dump(self, uid, case):
         engine = self.chan.target(uid)
         state = engine._state
         self.seen[case] = {k: state[k].cpu().clone() for k in SCALARS}
         self.engines[case] = weakref.ref(engine)
+        # A follower's engine has no host side, so no counters at all.
+        counters = getattr(engine, "_counters", None)
+        self.counters[case] = None if counters is None else dict(
+            {k: counters[k] for k in SPILL_COUNTERS},
+            timing=dict(engine.spill_timing))
+
+    def break_gather(self, rank):
+        """Make the page gather raise on ``rank`` from now on."""
+        if self.chan.rank != rank:
+            return
+
+        def broken(state, ids):
+            raise RuntimeError(f"page gather broken on rank {rank}")
+
+        generate_mod.gather_kv_pages = broken
 
     def logits(self, uid, tokens, ids, stack):
         """The forward of engine ``uid``'s served model (this rank's
@@ -258,6 +286,61 @@ def run_cases(mesh, chan, probe, inputs, out):
         out["fused_programs"] = eng.compiled_programs()
     finally:
         _close(chan, eng, "fused")
+    del eng  # the closed engines must be collectable (``Probe.alive``)
+
+    run_spill(mesh, chan, probe, inputs, out)
+
+
+def _spill_sessions(engine, inputs):
+    """Park each spill prompt, then send its second turn (the first
+    turn's tokens and a follow-up); rank 0's fetch of the last session's
+    context (the host tier's LRU has let the first go by then) and the
+    engine's counters."""
+    turn1 = [engine.submit({"tokens": np.asarray(p, np.int32),
+                            "park_kv": True})["tokens"][0].tolist()
+             for p in inputs["spill_prompts"]]
+    turn2 = [engine.submit({"tokens": np.asarray(t + f, np.int32)})
+             ["tokens"][0].tolist()
+             for t, f in zip(turn1, inputs["spill_followups"])]
+    fetch = engine.fetch_kv({"tokens": np.asarray(turn1[-1], np.int32)})
+    return {"turn1": turn1, "turn2": turn2, "fetch": fetch,
+            "stats": engine.stats(), "timing": dict(engine.spill_timing)}
+
+
+def run_spill(mesh, chan, probe, inputs, out):
+    """The host spill tier at tensor=2 beside one device, at float32 and
+    with an int8 pool; then a gather that fails on rank 1."""
+    base = _model(inputs, "base")
+    for case, kv in (("spill", "model"), ("spill_int8", "int8")):
+        decode = DecodeConfig(max_new_tokens=inputs["new_tokens"],
+                              kv_cache_dtype=kv)
+        one = DecodeEngine(base, decode, name=f"one-{case}", **SPILL)
+        try:
+            out[f"{case}_one"] = _spill_sessions(one, inputs)
+        finally:
+            one.close()
+        eng = DecodeEngine(base, decode, mesh=mesh, name=f"mesh-{case}",
+                           **SPILL)
+        try:
+            out[case] = _spill_sessions(eng, inputs)
+        finally:
+            _close(chan, eng, case)
+
+    decode = DecodeConfig(max_new_tokens=inputs["new_tokens"])
+    eng = DecodeEngine(base, decode, mesh=mesh, name="mesh-spill-fault",
+                       **SPILL)
+    chan.call("probe", "break_gather", 1)
+    results = []
+    for prompt in inputs["spill_prompts"][:2]:
+        try:
+            eng.submit({"tokens": np.asarray(prompt, np.int32),
+                        "park_kv": True})
+            results.append(None)
+        except Exception as exc:  # noqa: BLE001 -- the error is the result
+            results.append(exc)
+    out["spill_fault"] = [None if e is None else
+                          (type(e).__name__, str(e)) for e in results]
+    eng.close()
 
 
 def run_gqa(mesh, chan, probe, inputs, out):
@@ -386,8 +469,13 @@ def main(job: str, workdir: str) -> None:
             chan.close()
         torch.save(out, work / f"{job}.pt")
     else:
-        follow(mesh, lambda source: _model(inputs, source or "base"))
-    torch.save(dict(probe.seen, alive=probe.alive()),
+        try:
+            follow(mesh, lambda source: _model(inputs, source or "base"))
+        except lockstep.RankFault as exc:
+            # The job's last case fails a gather on this rank on purpose.
+            probe.counters["fault"] = (type(exc).__name__, str(exc))
+    torch.save(dict(probe.seen, alive=probe.alive(),
+                    counters=probe.counters),
                work / f"{job}-rank{env.process_id}.pt")
 
 
