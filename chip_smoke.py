@@ -426,7 +426,34 @@ Phases, each fatal on failure (exit code 1, no result line):
      one-rank mesh and topology=h100-8 raises ValueError; the phase
      within TOOLS_PHASE_S.  Information only: the window's device busy
      share beside phase 9's step, the overlapped copies, the trace's
-     bytes, the launched trainer's MFU.
+     bytes, the launched trainer's MFU;
+ 14. fleet: fleet/router.py's FleetRouter behind make_router_server, in
+     this process, in front of three port replicas on the card (the
+     188M LM at full width and depth through the captured DecodeEngine,
+     phase 6b's geometry at a 512-token prefill width, the weights at
+     float32 with TF32 off so that greedy identity holds across a
+     resume, as 6b's and 6d's identity checks run); the launch counters
+     zeroed just before the routed traffic and read just after.  Greedy
+     :generate streams through the router equal the same prompts sent
+     straight to one replica; with six streams in flight through the
+     router, a replica serving some of them is killed (its live sockets
+     severed) once every client holds 3 tokens, and every accepted
+     stream completes equal to its control, the victim force-ejected
+     (kft_router_ejections_total), kft_router_replays_total{outcome=
+     "ok"} moved and at least one
+     stream resumed after a delivered prefix; the registry's
+     source then becomes a --role prefill and a --role decode replica
+     and tiered streams through the same router equal the unified
+     controls, with kft_router_tier_requests_total{prefill, decode}
+     moving by the prompt count; no flash kernel launched so far; then
+     the source becomes a fourth replica serving the ``lm`` logits
+     loader (bf16, phase 6h's export) and FLEET_LM_CALLS :predict calls
+     through the router answer the logits a direct request to that
+     replica answers, with flash_fwd launched 12 times a call and no
+     other kernel.  Information only: the router's added latency, p50
+     :generate TTFT through the router against direct over
+     FLEET_TTFT_REQUESTS requests each.  The phase within
+     FLEET_PHASE_S; every router, pool, listener and replica closed.
 
 The phases' times are printed.  The line before the last is a JSON
 object {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
@@ -842,6 +869,15 @@ TOOLS_TIMEOUT_S = 120
 TOOLS_PHASE_S = 60.0
 SERVE_KERNELS = ("flash_fwd", "flash_fwd_masked")
 TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+# Phase 14: the fleet's engine prefill width, the prompts held to their
+# direct controls (and streamed six at once through the kill), the TTFT
+# sample (each direct and each routed, max_new_tokens 4), the routed lm
+# logits calls of LM_REST_LEN tokens, and the phase's bound.
+FLEET_PREFILL = 512
+FLEET_PROMPT_LENS = (300, 170, 420, 96, 256, 380)
+FLEET_TTFT_REQUESTS, FLEET_TTFT_LEN = 32, 256
+FLEET_LM_CALLS = 3
+FLEET_PHASE_S = 180.0
 
 
 def fail(msg: str) -> None:
@@ -8012,6 +8048,259 @@ def tools_phase(torch, flash, workdir: Path, breakdown: dict):
     return prof["counts"], info
 
 
+# -- phase 14: the fleet router in front of port replicas ------------------
+
+def export_f32(base: Path, dst: Path) -> None:
+    """The phase-4 export's weights as a float32 ``lm_generate`` version:
+    the params file linked (or copied), model.json written last."""
+    from kubeflow_tpu_torch.serving.export import MODEL_FILE, PARAMS_FILE
+
+    src, out = base / "1", dst / "1"
+    out.mkdir(parents=True)
+    try:
+        os.link(src / PARAMS_FILE, out / PARAMS_FILE)
+    except OSError:
+        shutil.copyfile(src / PARAMS_FILE, out / PARAMS_FILE)
+    meta = json.loads((src / MODEL_FILE).read_text())
+    meta["config"] = dict(meta["config"],
+                          model=dict(MODEL, dtype="float32"))
+    (out / MODEL_FILE).write_text(json.dumps(meta))
+
+
+def fleet_stream(port: int, body: dict, on_tokens=None):
+    """One :generate through e2e.stream_via, fatal unless it streamed to
+    its done line; (tokens, seconds to the first token line)."""
+    from kubeflow_tpu_torch.testing import e2e
+
+    t0 = time.perf_counter()
+    first = []
+
+    def seen(tokens):
+        if not first:
+            first.append(time.perf_counter() - t0)
+        if on_tokens is not None:
+            on_tokens(tokens)
+
+    status, _, tokens, terminal = e2e.stream_via(port, body, on_tokens=seen,
+                                                 timeout=600)
+    if status != 200 or terminal is None or not terminal.get("done"):
+        fail(f":generate on :{port} answered {status}, ended {terminal}")
+    return tokens, first[0]
+
+
+def fleet_phase(torch, flash, workdir: Path, base: Path, lm_base: Path):
+    """Phase 14 (see the module docstring): the fleet router in front of
+    the port's replicas on the card."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.fleet.endpoints import Endpoint, StaticEndpoints
+    from kubeflow_tpu_torch.runtime.prom import parse_metrics
+    from kubeflow_tpu_torch.testing import e2e
+
+    t_phase = time.perf_counter()
+    f32 = workdir / "lm_fleet_f32"
+    export_f32(base, f32)
+    engine = dict(lm_engine_slots=8, lm_engine_prefill_len=FLEET_PREFILL,
+                  decode_rounds=8, prefill_chunk_tokens=CHUNK,
+                  kv_block_tokens=16, max_queue_depth=64)
+    rng = torch.Generator().manual_seed(SEED + 14)
+    vocab = MODEL["vocab_size"]
+    prompts = [torch.randint(1, vocab, (n,), generator=rng).tolist()
+               for n in FLEET_PROMPT_LENS]
+    ttft_prompts = [torch.randint(1, vocab, (FLEET_TTFT_LEN,),
+                                  generator=rng).tolist()
+                    for _ in range(2 * FLEET_TTFT_REQUESTS)]
+    servers, router, router_httpd = [], None, None
+    info = {}
+
+    def scrape(port):
+        return parse_metrics(get_text(port, "/metrics"))
+
+    try:
+        t0 = time.perf_counter()
+        unified = [e2e.make_replica(str(f32), "cuda",
+                                    server_cls=e2e.KillableServer, **engine)
+                   for _ in range(3)]
+        servers += unified
+        tiers = [e2e.make_replica(str(f32), "cuda", role=role, **engine)
+                 for role in ("prefill", "decode")]
+        servers += tiers
+        logits = e2e.make_replica(str(lm_base), "cuda")
+        servers.append(logits)
+        info["replicas_up_s"] = time.perf_counter() - t0
+        ports = [h.server_address[1] for _, h in unified]
+        registry = e2e.static_registry(ports, probe_interval_s=0.2,
+                                        eject_threshold=3,
+                                        eject_backoff_s=2.0)
+        registry.refresh()
+        if len(registry.routable()) != 3:
+            fail(f"fleet registry: {registry.describe()}")
+        router, router_httpd = e2e.start_router(
+            registry, max_tries=3, max_replays=2, try_timeout_s=600.0)
+        rport = router_httpd.server_address[1]
+        # Warm-up outside the count and the timings: each replica's first
+        # request, straight to it.
+        for _, httpd in unified + tiers:
+            fleet_stream(httpd.server_address[1],
+                         {"tokens": prompts[3][:32], "max_new_tokens": 2})
+        torch.cuda.synchronize()
+        for key in flash.launch_counts:
+            flash.launch_counts[key] = 0
+
+        # -- routed streams equal direct ones --------------------------
+        direct = [fleet_stream(ports[0], {"tokens": p})[0] for p in prompts]
+        routed = [fleet_stream(rport, {"tokens": p})[0] for p in prompts]
+        for i, (got, want) in enumerate(zip(routed, direct)):
+            if got != want or len(want) != MAX_NEW_TOKENS:
+                fail(f"fleet prompt {i}: routed stream {got[:8]}... differs "
+                     f"from the direct one {want[:8]}... (first difference "
+                     f"{first_difference(got, want)})")
+
+        # -- router's added latency (information only) -----------------
+        ttft = {"direct": [], "router": []}
+        for j in range(FLEET_TTFT_REQUESTS):
+            for k, (what, port) in enumerate((("direct", ports[0]),
+                                              ("router", rport))):
+                body = {"tokens": ttft_prompts[2 * j + k],
+                        "max_new_tokens": 4}
+                ttft[what].append(fleet_stream(port, body)[1] * 1e3)
+        info["ttft_ms"] = {k: {"p50": pct(v, 0.5), "p99": pct(v, 0.99),
+                               "n": len(v)} for k, v in ttft.items()}
+        added = info["ttft_ms"]["router"]["p50"] \
+            - info["ttft_ms"]["direct"]["p50"]
+        info["router_added_ttft_p50_ms"] = added
+        log(f"phase 14 router's added latency: :generate TTFT p50 "
+            f"{info['ttft_ms']['router']['p50']:.2f} ms through the router "
+            f"against {info['ttft_ms']['direct']['p50']:.2f} ms direct "
+            f"({added:+.2f} ms; p99 {info['ttft_ms']['router']['p99']:.2f} / "
+            f"{info['ttft_ms']['direct']['p99']:.2f}; "
+            f"{FLEET_TTFT_REQUESTS} requests each of {FLEET_TTFT_LEN} "
+            f"tokens, one at a time; host clock; information only; "
+            f"{card_line()})")
+
+        # -- a replica killed mid-stream --------------------------------
+        # The kill waits until every client holds 3 tokens, so each
+        # stream on the victim dies with a prefix delivered and resumes.
+        before = scrape(rport)
+        killed = {}
+        kill = e2e.kill_serving_replica(unified, killed, threading.Lock())
+        held = [0] * len(prompts)
+        results = {}
+
+        def client(i):
+            def seen(tokens):
+                held[i] = len(tokens)
+                if min(held) >= 3 and not killed:
+                    kill(tokens)
+                    killed.setdefault("held", list(held))
+
+            results[i] = fleet_stream(rport, {"tokens": prompts[i]},
+                                      on_tokens=seen)[0]
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if not killed:
+            fail("phase 14: the kill never fired")
+        bad = [i for i in range(len(prompts))
+               if results.get(i) != direct[i]]
+        if bad:
+            fail(f"phase 14: streams {bad} differ from their controls "
+                 f"after replica {killed['index']} was killed: "
+                 f"{[first_difference(results.get(i) or [], direct[i]) for i in bad]}")
+        # The victim's ejection is read off the counter: a stream on it
+        # that finished before its socket was severed closes the breaker
+        # again (a success), as in the JAX router.
+        after = scrape(rport)
+        ejected = e2e.metric_delta(before, after, "kft_router_ejections_total",
+                                   endpoint=f"srv-{killed['index']}")
+        replays = e2e.metric_delta(before, after, "kft_router_replays_total",
+                                   outcome="ok")
+        resumed = e2e.metric_delta(before, after,
+                                   "kft_router_resume_tokens_count")
+        if ejected < 1 or replays < 1 or resumed < 1:
+            fail(f"phase 14: victim ejections {ejected}, replays ok "
+                 f"{replays}, resumed after delivered tokens {resumed}")
+        info["kill"] = {"replica": killed["index"], "replays_ok": replays,
+                        "resumed": resumed, "held_at_kill": killed["held"]}
+
+        # -- tiered prefill/decode through the same router --------------
+        registry.set_source(StaticEndpoints([
+            Endpoint(name=f"{role}-0",
+                     url=f"http://127.0.0.1:{h.server_address[1]}")
+            for role, (_, h) in zip(("prefill", "decode"), tiers)]))
+        registry.refresh()
+        learned = {s.name: s.tier for s in registry.all()}
+        if learned != {"prefill-0": "prefill", "decode-0": "decode"}:
+            fail(f"phase 14: registry learned tiers {learned}")
+        before = scrape(rport)
+        tiered = [fleet_stream(rport, {"tokens": p})[0] for p in prompts[:3]]
+        after = scrape(rport)
+        if tiered != direct[:3]:
+            fail("phase 14: tiered streams differ from the unified ones: "
+                 f"{[first_difference(a, b) for a, b in zip(tiered, direct)]}")
+        moved = {t: e2e.metric_delta(before, after,
+                                     "kft_router_tier_requests_total",
+                                     tier=t) for t in ("prefill", "decode")}
+        if moved != {"prefill": 3, "decode": 3}:
+            fail(f"phase 14: tier dispatches {moved}")
+        info["tiers"] = moved
+        engine_launches = dict(flash.launch_counts)
+        if any(engine_launches.values()):
+            fail(f"phase 14's engine traffic launched flash kernels: "
+                 f"{engine_launches}")
+
+        # -- lm logits through the router --------------------------------
+        lport = logits[1].server_address[1]
+        registry.set_source(StaticEndpoints([Endpoint(
+            name="lm-logits", url=f"http://127.0.0.1:{lport}")]))
+        registry.refresh()
+        gen = torch.Generator().manual_seed(SEED + 15)
+        bodies = [{"instances": [{"tokens": torch.randint(
+            1, vocab, (LM_REST_LEN,), generator=gen).tolist()}]}
+            for _ in range(FLEET_LM_CALLS)]
+        answers = []
+        for body in bodies:
+            status, raw, _ = post_raw(rport, "/model/lm:predict", body)
+            if status != 200:
+                fail(f"phase 14: routed lm :predict answered {status}")
+            answers.append(raw)
+        counts = dict(flash.launch_counts)
+        want = {k: (MODEL["n_layers"] * FLEET_LM_CALLS if k == "flash_fwd"
+                    else 0) for k in counts}
+        if counts != want:
+            fail(f"phase 14: {FLEET_LM_CALLS} routed lm calls launched "
+                 f"{counts}, want {want}")
+        for body, raw in zip(bodies, answers):
+            got = np.asarray(json.loads(raw)["predictions"][0]["logits"],
+                             np.float32)
+            status, direct_raw, _ = post_raw(lport, "/model/lm:predict",
+                                             body)
+            ref = np.asarray(json.loads(direct_raw)["predictions"][0][
+                "logits"], np.float32)
+            if status != 200 or got.shape != (LM_REST_LEN, vocab) \
+                    or not np.isfinite(got).all() \
+                    or not np.array_equal(got, ref):
+                fail(f"phase 14: routed logits {got.shape} differ from the "
+                     f"replica's direct answer")
+    finally:
+        e2e.close_fleet(router, router_httpd, servers)
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 14 fleet: {len(prompts)} routed streams equal to direct; "
+        f"replica {info['kill']['replica']} killed mid-stream, every "
+        f"stream equal to its control ({info['kill']['replays_ok']:.0f} "
+        f"replays ok); tiered dispatches {info['tiers']}; "
+        f"{FLEET_LM_CALLS} routed lm calls launched {counts}; replicas up "
+        f"in {info['replicas_up_s']:.1f} s; the phase {info['phase_s']:.1f} "
+        f"s (bound {FLEET_PHASE_S})")
+    if info["phase_s"] > FLEET_PHASE_S:
+        fail(f"phase 14 took {info['phase_s']:.1f} s, over {FLEET_PHASE_S}")
+    return counts, info
+
+
 def main() -> int:
     try:
         import torch
@@ -8190,6 +8479,9 @@ def main() -> int:
         tools_counts, tools_info = tools_phase(torch, flash, workdir,
                                                learned)
         phase_done("13 tools")
+        fleet_counts, fleet_info = fleet_phase(torch, flash, workdir, base,
+                                               lm_base)
+        phase_done("14 fleet")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -8215,7 +8507,8 @@ def main() -> int:
                                    "moe_mesh": moe_mesh_counts[name],
                                    "adafactor_mesh": ada_counts[name],
                                    "hfta_mesh": hfta_mesh_counts[name],
-                                   "tools": tools_counts[name]}
+                                   "tools": tools_counts[name],
+                                   "fleet": fleet_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
     for name, row in two_pass_rows.items():
@@ -8236,7 +8529,8 @@ def main() -> int:
                                    "moe_mesh": moe_mesh_counts[name],
                                    "adafactor_mesh": ada_counts[name],
                                    "hfta_mesh": hfta_mesh_counts[name],
-                                   "tools": tools_counts[name]}
+                                   "tools": tools_counts[name],
+                                   "fleet": fleet_counts[name]}
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
@@ -8260,7 +8554,7 @@ def main() -> int:
                     "checkpoint": ckpt_info,
                     "cnn_serve": cnn_serve_info,
                     "cnn_train": cnn_train_info,
-                    "tools": tools_info}))
+                    "tools": tools_info, "fleet": fleet_info}))
     log(f"phase times (s): {json.dumps(phase_s)}; total "
         f"{sum(phase_s.values()):.1f} s")
     log(f"card: {card}")

@@ -37,9 +37,10 @@ CAPTURE_PATH = "/capture"
 MAX_CAPTURE_MS = 60_000
 
 
-def _profiler(logdir: str, all_threads: bool = False):
+def _profiler(logdir: str, all_threads: bool = False, schedule=None):
     """A ``torch.profiler.profile`` of the CPU (and CUDA when there is a
-    card) that writes its Chrome trace under ``logdir`` when stopped."""
+    card) that writes its Chrome trace under ``logdir`` when stopped (or,
+    with a ``schedule``, when its active steps end)."""
     import torch
     from torch.profiler import (
         ProfilerActivity,
@@ -59,6 +60,8 @@ def _profiler(logdir: str, all_threads: bool = False):
                 profile_all_threads=True)
         except TypeError:  # a torch without it: the capturing thread only
             log.warning("this torch profiles the capturing thread only")
+    if schedule is not None:
+        kw["schedule"] = schedule
     return profile(activities=activities,
                    on_trace_ready=tensorboard_trace_handler(logdir), **kw)
 
@@ -211,16 +214,35 @@ class ProfileSchedule:
     _prof: object = None
 
     def before_step(self, step: int) -> None:
-        if (not self._done and not self._active and step == self.start):
-            self._prof = _profiler(self.logdir)
+        # The profiler starts one step ahead of the window when there is
+        # one, as torch.profiler's warmup: its first device records after
+        # a cold start can be lost (the window once lacked one of its
+        # flash_fwd kernels on an H100), and a warmup step's events are
+        # not kept.
+        first = max(0, self.start - 1)
+        if not self._done and not self._active and step == first:
+            schedule = None
+            if first < self.start:
+                from torch.profiler import schedule as torch_schedule
+
+                schedule = torch_schedule(wait=0, warmup=1,
+                                          active=self.count, repeat=1)
+            self._prof = _profiler(self.logdir, schedule=schedule)
             self._prof.start()
             self._active = True
 
     def after_step(self, step: int) -> None:
-        if self._active and step >= self.start + self.count - 1:
+        if not self._active:
+            return
+        if step >= self.start + self.count - 1:
             self._stop()
             log.info("profiled steps [%d, %d) -> %s",
                      self.start, self.start + self.count, self.logdir)
+        elif step < self.start:
+            # The warmup step ends: its kernels finish before the window
+            # opens, so none of them falls inside it.
+            _synchronize()
+            self._prof.step()
 
     def close(self) -> None:
         if self._active:

@@ -591,12 +591,16 @@ class _Handler(BaseHTTPRequestHandler):
 
 def make_http_server(
     model_server: ModelServer, port: int = 8000, host: str = "0.0.0.0",
+    server_cls: type = ThreadingHTTPServer,
 ) -> Tuple[ThreadingHTTPServer, threading.Thread]:
     """Build and start the REST server on a daemon thread; returns
-    (httpd, thread).  Port 0 binds an ephemeral port."""
+    (httpd, thread).  Port 0 binds an ephemeral port.  ``server_cls``
+    lets a chaos harness substitute a ThreadingHTTPServer subclass whose
+    kill() severs live connections (a SIGKILL's socket signature, in
+    process), as the JAX package's does."""
     handler = type("BoundHandler", (_Handler,),
                    {"api": ServingAPI(model_server)})
-    httpd = ThreadingHTTPServer((host, port), handler)
+    httpd = server_cls((host, port), handler)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True,
                               name="serving-http")
     thread.start()

@@ -48,6 +48,23 @@ JAX package fires its counterpart:
     batcher.dispatch  MicroBatcher batch dispatch (sleep = queue
                       stall, raise = the device-failure path to every
                       waiter of the batch)
+    kube.request      HttpKube transport attempt (raise = apiserver
+                      connection failure, before the retry layer)
+    router.forward    fleet router upstream attempt (raise = replica
+                      connection failure, before the socket — the
+                      retry/ejection layer sees it as a refused
+                      connect)
+    router.replay     each replay/failover attempt the router grants
+                      for an idempotent POST — after the cap and the
+                      retry-budget withdrawal, before the new replica
+                      is picked (raise = failure of the failover path
+                      itself)
+    router.tier_dispatch
+                      the router's tiered prefill-then-decode
+                      dispatch decision for a :generate (raise =
+                      tier routing failure — the request falls back
+                      to the untiered path, never hangs or 500s)
+    fleet.probe       endpoint registry readiness probe attempt
     loader.load       ModelServer.reload before load_version
                       (raise = corrupt checkpoint directory: the
                       reload breaker opens, last-good keeps serving)
@@ -63,14 +80,12 @@ JAX package fires its counterpart:
     data.next         each TensorBatches batch pull (raise = one
                       transient read error, retried with backoff)
 
-Not ported yet: the JAX package also fires ``kube.request`` (its
-Kubernetes transport), ``router.forward``, ``router.replay``,
-``router.tier_dispatch`` and ``fleet.probe`` (its fleet router and
-endpoint registry), ``scheduler.admit``, ``scheduler.preempt``,
-``scheduler.fuse`` and ``scheduler.colocate`` (its cluster scheduler)
-and ``autoscaler.claim`` (its serving autoscaler).  Those modules hold
-no JAX and come to the port with ROADMAP queue 1 item 18; a
-``KFT_FAULTS`` scenario naming one of them tests nothing here.
+Not ported yet: the JAX package also fires ``scheduler.admit``,
+``scheduler.preempt``, ``scheduler.fuse`` and ``scheduler.colocate``
+(its cluster scheduler) and ``autoscaler.claim`` (its serving claim
+client).  Those modules hold no JAX and come to the port with ROADMAP
+queue 1 item 18b; a ``KFT_FAULTS`` scenario naming one of them tests
+nothing here.
 
 Clock skips: deadline/backoff code reads :func:`monotonic` instead of
 ``time.monotonic`` — a ``skew`` action (or ``advance_clock`` from a

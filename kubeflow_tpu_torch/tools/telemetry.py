@@ -5,10 +5,10 @@ A periodic reporter that assembles an anonymous payload {usage id,
 framework and torch versions} and POSTs it to ``--report-url``, or logs
 it when no collector is configured (the report is always inspectable).
 ``torch_version`` takes the place of the JAX package's ``jax_version``.
-The JAX package adds ``node_count`` from its Kubernetes client; the
-port has no client yet (ROADMAP queue 1 item 18), so ``main`` reports
-none, which is what the JAX package reports when its client cannot be
-made.  ``collect(usage_id, kube=...)`` takes any client with
+``main`` adds ``node_count`` through the port's Kubernetes client
+(``operator/kube_real.py``) when it can be made, as the JAX package's
+does, and reports none without the ``kubernetes`` client or cluster
+credentials.  ``collect(usage_id, kube=...)`` takes any client with
 ``list_nodes()``.
 """
 
@@ -77,8 +77,15 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    kube = None
+    try:  # node count needs cluster credentials; fine without
+        from kubeflow_tpu_torch.operator.kube_real import RealKube
+
+        kube = RealKube()
+    except Exception:
+        pass
     while True:
-        report(collect(args.usage_id), args.report_url or None)
+        report(collect(args.usage_id, kube=kube), args.report_url or None)
         if args.once:
             return 0
         time.sleep(args.interval_hours * 3600)

@@ -102,7 +102,48 @@ def test_every_port_module_imports():
             "kubeflow_tpu_torch.tools.xplane_summary",
             "kubeflow_tpu_torch.tools.launcher",
             "kubeflow_tpu_torch.tools.train_torch",
-            "kubeflow_tpu_torch.tools.telemetry"} <= set(names)
+            "kubeflow_tpu_torch.tools.telemetry"} | set(
+                CONTROL_PLANE) | {"kubeflow_tpu_torch.testing.e2e"} \
+        <= set(names)
+
+
+# The fleet tier and its Kubernetes transport: stdlib-only copies of the
+# JAX package's modules.
+CONTROL_PLANE = [
+    "kubeflow_tpu_torch.operator", "kubeflow_tpu_torch.operator.kube",
+    "kubeflow_tpu_torch.operator.crd", "kubeflow_tpu_torch.operator.kube_http",
+    "kubeflow_tpu_torch.operator.kube_real",
+    "kubeflow_tpu_torch.testing.fake_apiserver",
+    "kubeflow_tpu_torch.fleet", "kubeflow_tpu_torch.fleet.endpoints",
+    "kubeflow_tpu_torch.fleet.router", "kubeflow_tpu_torch.fleet.autoscaler",
+    "kubeflow_tpu_torch.fleet.main"]
+
+
+@pytest.mark.parametrize("module", CONTROL_PLANE)
+def test_control_plane_modules_import_neither_jax_nor_torch(module):
+    """The fleet router, endpoint registry, autoscaler and entry point,
+    the TPUJob spec, the kube clients and the fake apiserver import
+    nothing of JAX or the JAX package, and no torch at module level (the
+    registry's gRPC probe imports the serving package only when an
+    endpoint is gRPC-only)."""
+    rel = module.replace(".", "/")
+    path = REPO / (rel + ".py")
+    if not path.exists():
+        path = REPO / rel / "__init__.py"
+    tree = ast.parse(path.read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    names = [a.name for n in top if isinstance(n, ast.Import)
+             for a in n.names] + [n.module or "" for n in top
+                                  if isinstance(n, ast.ImportFrom)]
+    assert not [m for m in _imports(path) if _forbidden(m)]
+    assert not [m for m in names if m.split(".")[0] == "torch"]
+
+
+def test_e2e_twins_import_nothing_of_jax():
+    imported = list(_imports(REPO / "kubeflow_tpu_torch/testing/e2e.py"))
+    assert imported
+    assert not [m for m in imported if _forbidden(m)]
 
 
 ANALYSIS = sorted(p.name for p in

@@ -66,11 +66,17 @@ LM_OVERRIDES = {
 }
 
 
+_VARIABLES = {}
+
+
 def _export_lm(base, version, seed=0):
-    """A JAX export of the ``lm`` loader (the port maps its name)."""
-    model = JaxTransformer(jax_model_config(LM_OVERRIDES))
-    variables = model.init(jax.random.key(seed), np.zeros((1, 4), np.int32))
-    jax_export(base, version, jax.tree.map(np.asarray, nn.unbox(variables)),
+    """A JAX export of the ``lm`` loader (the port maps its name); the
+    weights of each seed are initialized once a module."""
+    if seed not in _VARIABLES:
+        model = JaxTransformer(jax_model_config(LM_OVERRIDES))
+        _VARIABLES[seed] = jax.tree.map(np.asarray, nn.unbox(model.init(
+            jax.random.key(seed), np.zeros((1, 4), np.int32))))
+    jax_export(base, version, _VARIABLES[seed],
                loader=LM_LOADER, config=LM_OVERRIDES,
                signature={"inputs": ["tokens"], "outputs": ["logits"]})
 
