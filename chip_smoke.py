@@ -454,6 +454,29 @@ Phases, each fatal on failure (exit code 1, no result line):
      :generate TTFT through the router against direct over
      FLEET_TTFT_REQUESTS requests each.  The phase within
      FLEET_PHASE_S; every router, pool, listener and replica closed.
+ 15. operator: the port's fake apiserver with HttpKube,
+     GangScheduler({h100-1: 1}), ClusterScheduler with an
+     OPERATOR_GRACE_S checkpoint grace, and TPUJobController, in this
+     process; a pod runner (``PodRunner``) stands in for the kubelet and
+     starts each pod the reconciler creates as a process with the pod's
+     container command and KFT_* env.  A low-priority h100-1 TPUJob runs
+     ``tools/launcher.py -- tools/train_lm`` on bench.py's LM cell (188M,
+     full widths and depth) at OPERATOR_BATCH x 2048 with adafactor for
+     OPERATOR_STEPS steps, checkpointing every OPERATOR_CKPT_EVERY; once it holds a
+     verified step >= OPERATOR_MIN_VERIFIED a high-priority
+     OPERATOR_PREEMPTOR_STEPS-step job of the same shape is submitted.
+     Fatal unless: the victim goes Preempting, then Queued
+     PreemptedRequeued resumable (its pod SIGTERMed), the preemptor
+     Succeeded, the victim is re-admitted, resumes at its newest
+     verified step + 1 and Succeeded; kft_scheduler_preemptions_total
+     and kft_scheduler_resumes_total moved by 1 each; each worker (and
+     the control) launched flash_fwd, flash_dq and flash_dkv 12 times a
+     step it ran and no other flash kernel (train_lm's KFT_LAUNCHES
+     records); the resumed losses equal, bit for bit, those of an
+     uninterrupted control of the victim's command started beside it;
+     the phase within OPERATOR_PHASE_S.  Information only: each job's
+     queue wait, the preemption's submission-to-exit and SIGTERM-to-exit
+     times, and the restart-to-first-step time against the cold start.
 
 The phases' times are printed.  The line before the last is a JSON
 object {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
@@ -878,6 +901,26 @@ FLEET_PROMPT_LENS = (300, 170, 420, 96, 256, 380)
 FLEET_TTFT_REQUESTS, FLEET_TTFT_LEN = 32, 256
 FLEET_LM_CALLS = 3
 FLEET_PHASE_S = 180.0
+# Phase 15: the operator.  The victim's and the preemptor's gang shape;
+# their rows a step (bench.py's cell at 2 of its 8 rows) and optimizer
+# (adafactor, bench.py's other LM cell: adamw's 2.25 GB state took 13 s
+# a save on the card's host, and four saves lie on the phase's critical
+# path; adafactor's is 0.76 GB); the victim's steps and checkpoint
+# cadence, the preemptor's steps; the verified step the victim must
+# hold before the preemptor is submitted; the scheduler's checkpoint
+# grace and the pod runner's SIGTERM -> SIGKILL grace; the victim's
+# KFT_FAULTS sleep a step (it keeps the victim running through the
+# grace window however fast its saves: no numerics change); the bound.
+OPERATOR_SLICE = "h100-1"
+OPERATOR_BATCH = 2
+OPERATOR_OPTIMIZER = "adafactor"
+OPERATOR_STEPS, OPERATOR_CKPT_EVERY = 8, 2
+OPERATOR_PREEMPTOR_STEPS = 3
+OPERATOR_MIN_VERIFIED = 2
+OPERATOR_GRACE_S = 3.0
+OPERATOR_POD_GRACE_S = 10.0
+OPERATOR_STEP_SLEEP_S = 2.5
+OPERATOR_PHASE_S = 150.0
 
 
 def fail(msg: str) -> None:
@@ -8301,6 +8344,401 @@ def fleet_phase(torch, flash, workdir: Path, base: Path, lm_base: Path):
     return counts, info
 
 
+# -- phase 15: the operator preempts and resumes a training job --------
+
+def operator_command(steps: int, metrics: Path, ckpt=None):
+    """A worker's container command: the launcher running train_lm on
+    bench.py's LM cell at OPERATOR_BATCH rows a step with
+    OPERATOR_OPTIMIZER."""
+    flags = list(TRAIN_FLAGS)
+    flags[flags.index("--batch-size-per-device") + 1] = str(OPERATOR_BATCH)
+    flags[flags.index("--optimizer") + 1] = OPERATOR_OPTIMIZER
+    flags += ["--steps", str(steps), "--log-every", "1", "--max-restarts",
+              "0", "--metrics-out", str(metrics)]
+    if ckpt is not None:
+        flags += ["--checkpoint-dir", str(ckpt), "--checkpoint-every",
+                  str(OPERATOR_CKPT_EVERY)]
+    return [sys.executable, "-m", "kubeflow_tpu_torch.tools.launcher", "--",
+            sys.executable, "-m", "kubeflow_tpu_torch.tools.train_lm", *flags]
+
+
+def launch_lines(path: Path):
+    """The KFT_LAUNCHES records a worker logged (train_lm's
+    KFT_LOG_LAUNCHES), in order."""
+    if not path.exists():
+        return []
+    return [json.loads(line.split(" ", 1)[1])
+            for line in path.read_text(errors="replace").splitlines()
+            if line.startswith("KFT_LAUNCHES ")]
+
+
+class PodRunner:
+    """Stands in for the kubelet of the operator phase: each pod the
+    reconciler creates in the fake apiserver's store starts as a process
+    (its own session) with the pod's container command and its env over
+    this process's, is reported Running, then Succeeded or Failed by its
+    exit code; a pod the reconciler deletes gets SIGTERM, then SIGKILL
+    after ``grace_s``, and is not reported."""
+
+    def __init__(self, store, namespace: str, workdir: Path, base_env,
+                 grace_s: float):
+        self.store, self.ns, self.workdir = store, namespace, workdir
+        self.base_env, self.grace_s = base_env, grace_s
+        self.live = {}      # pod name -> its run
+        self.runs = []      # every run, in start order
+        self._seen_deletes = 0
+
+    def sync(self) -> None:
+        deleted = self.store.deleted_pods[self._seen_deletes:]
+        self._seen_deletes += len(deleted)
+        for key in deleted:
+            run = self.live.pop(key.split("/", 1)[1], None)
+            if run is not None:
+                self._terminate(run)
+        for pod in self.store.list_pods(self.ns):
+            name = pod["metadata"]["name"]
+            if name not in self.live and \
+                    pod["status"]["phase"] == "Pending":
+                self._start(pod)
+        for name, run in self.live.items():
+            if run["ended"] is None and run["proc"].poll() is not None:
+                run["ended"] = time.perf_counter()
+                run["code"] = run["proc"].returncode
+                try:
+                    self.store.set_pod_phase(
+                        self.ns, name,
+                        "Succeeded" if run["code"] == 0 else "Failed")
+                except KeyError:
+                    pass
+
+    def _start(self, pod) -> None:
+        name = pod["metadata"]["name"]
+        container = pod["spec"]["containers"][0]
+        env = dict(self.base_env)
+        env.update({e["name"]: e["value"] for e in container["env"]})
+        argv = list(container["command"]) + list(container.get("args", []))
+        log_path = self.workdir / f"{name}-{len(self.runs)}.log"
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen(
+                argv, cwd=str(Path(__file__).resolve().parent), env=env,
+                stdin=subprocess.DEVNULL, stdout=f, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        run = {"pod": name, "proc": proc, "log": log_path,
+               "started": time.perf_counter(), "ended": None, "code": None,
+               "terminated": None, "term_to_exit_s": None,
+               "first_step": None}
+        self.runs.append(run)
+        self.live[name] = run
+        self.store.set_pod_phase(self.ns, name, "Running")
+
+    def _terminate(self, run) -> None:
+        if run["ended"] is not None:
+            return
+        run["terminated"] = time.perf_counter()
+        signal_group(run["proc"], signal.SIGTERM)
+        deadline = run["terminated"] + self.grace_s
+        while group_alive(run["proc"]) and time.perf_counter() < deadline:
+            time.sleep(0.02)
+        if group_alive(run["proc"]):
+            signal_group(run["proc"], signal.SIGKILL)
+            run["proc"].wait()
+        run["ended"] = time.perf_counter()
+        run["code"] = run["proc"].returncode
+        run["term_to_exit_s"] = run["ended"] - run["terminated"]
+
+    def note_first_steps(self) -> None:
+        for run in self.runs:
+            if run["first_step"] is None and launch_lines(run["log"]):
+                run["first_step"] = time.perf_counter()
+
+    def close(self) -> None:
+        for run in self.runs:
+            if group_alive(run["proc"]):
+                signal_group(run["proc"], signal.SIGKILL)
+            run["proc"].wait()
+
+
+def signal_group(proc, sig) -> None:
+    try:
+        os.killpg(proc.pid, sig)
+    except ProcessLookupError:
+        pass
+
+
+def group_alive(proc) -> bool:
+    """Whether any process of ``proc``'s session group is left (the
+    launcher's train_lm child among them)."""
+    proc.poll()
+    try:
+        os.killpg(proc.pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def check_worker_launches(what: str, path: Path, flash) -> dict:
+    """A worker ran steps and launched flash_fwd, flash_dq and flash_dkv
+    12 times each a step it ran, and no other flash kernel: its last
+    KFT_LAUNCHES record against its first (one record a step)."""
+    lines = launch_lines(path)
+    if not lines:
+        fail(f"phase 15: {what} logged no KFT_LAUNCHES record: "
+             + path.read_text(errors="replace")[-1500:])
+    steps = lines[-1]["step"] - (lines[0]["step"] - 1)
+    counts = lines[-1]["counts"]
+    want = {k: (MODEL["n_layers"] * steps if k in TRAIN_KERNELS else 0)
+            for k in flash.launch_counts}
+    if steps < 1 or counts != want:
+        fail(f"phase 15: {what} ran {steps} steps and launched {counts}, "
+             f"not {want}")
+    return {"steps": steps, "counts": counts}
+
+
+def operator_phase(torch, flash, workdir: Path):
+    """Phase 15 (see the module docstring): the port's operator preempts a
+    real 188M train_lm pod and resumes it from its verified checkpoint."""
+    from kubeflow_tpu_torch.operator import crd
+    from kubeflow_tpu_torch.operator.gang import GangScheduler
+    from kubeflow_tpu_torch.operator.kube_http import HttpKube
+    from kubeflow_tpu_torch.operator.reconciler import TPUJobController
+    from kubeflow_tpu_torch.runtime import checkpoint
+    from kubeflow_tpu_torch.runtime.prom import (
+        REGISTRY,
+        parse_metrics,
+        sample_value,
+    )
+    from kubeflow_tpu_torch.scheduler import (
+        LABEL_PRIORITY,
+        LABEL_TENANT,
+        ClusterScheduler,
+        PreemptionConfig,
+        SchedulerConfig,
+    )
+    from kubeflow_tpu_torch.testing.fake_apiserver import make_fake_apiserver
+    from kubeflow_tpu_torch.tools.train_lm import LAUNCHES_ENV
+
+    t_phase = time.perf_counter()
+    ns = "kubeflow"
+    work = workdir / "operator"
+    work.mkdir()
+    victim_ckpt = work / "victim-ckpt"
+    victim_metrics, control_metrics = (work / "victim.json",
+                                       work / "control.json")
+    # The workers' bytecode goes to a cache in the phase's directory (the
+    # card's host compiles torch's modules afresh in every process where
+    # no cache is written: 9-10 s of each worker's start).
+    base_env = {k: v for k, v in os.environ.items()
+                if not k.startswith("KFT_")
+                and k != "PYTHONDONTWRITEBYTECODE"}
+    base_env.update(PYTHONPATH=str(Path(__file__).resolve().parent),
+                    PYTHONUNBUFFERED="1",
+                    PYTHONPYCACHEPREFIX=str(work / "pycache"))
+
+    def total(parsed, name):
+        return sum(v for _, v in parsed.get(name, ()))
+
+    before = parse_metrics(REGISTRY.render())
+
+    def job_cr(name, tenant, priority, command, env):
+        spec = crd.TPUJobSpec(
+            name=name, namespace=ns, slice_type=OPERATOR_SLICE,
+            worker=crd.WorkerSpec(image="kubeflow-tpu-torch:local",
+                                  command=command, env=env))
+        cr = spec.to_custom_resource()
+        cr["metadata"]["labels"] = {LABEL_TENANT: tenant,
+                                    LABEL_PRIORITY: priority}
+        return cr
+
+    apiserver, runner, control = None, None, None
+    info = {"victim_phases": [], "preemptor_phases": []}
+    try:
+        apiserver, _, store = make_fake_apiserver()
+        kube = HttpKube(base_url=f"http://127.0.0.1:"
+                                 f"{apiserver.server_address[1]}")
+        gang = GangScheduler({OPERATOR_SLICE: 1})
+        cluster = ClusterScheduler(gang, SchedulerConfig(
+            preemption=PreemptionConfig(grace_period_s=OPERATOR_GRACE_S)))
+        ctl = TPUJobController(kube, gang, cluster)
+        runner = PodRunner(store, ns, work, base_env, OPERATOR_POD_GRACE_S)
+        # The control: the victim's command and flags, uninterrupted,
+        # beside it (no checkpoint directory: saving copies the state
+        # and changes no value).
+        control_log = work / "control.log"
+        with open(control_log, "w") as f:
+            control = subprocess.Popen(
+                operator_command(OPERATOR_STEPS, control_metrics),
+                cwd=str(Path(__file__).resolve().parent),
+                env=dict(base_env, **{LAUNCHES_ENV: "1",
+                                      "KFT_SLICE_TYPE": OPERATOR_SLICE,
+                                      "KFT_PROCESS_ID": "0"}),
+                stdin=subprocess.DEVNULL, stdout=f,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        t_submit = {"victim": time.perf_counter()}
+        kube.create_custom(job_cr(
+            "lm-victim", "research", "low",
+            operator_command(OPERATOR_STEPS, victim_metrics, victim_ckpt),
+            {LAUNCHES_ENV: "1",
+             "KFT_FAULTS": f"train.step:sleep={OPERATOR_STEP_SLEEP_S}"}))
+        deadline = t_phase + OPERATOR_PHASE_S
+        newest_verified = None
+        while True:
+            if time.perf_counter() > deadline:
+                fail(f"phase 15 did not finish within {OPERATOR_PHASE_S} s: "
+                     f"victim {info['victim_phases']}, preemptor "
+                     f"{info['preemptor_phases']}, runs "
+                     f"{[(r['pod'], r['code']) for r in runner.runs]}")
+            ctl.reconcile_all()
+            runner.sync()
+            runner.note_first_steps()
+            st = {c["metadata"]["name"]: c.get("status") or {}
+                  for c in store.list_custom(ns)}
+            for job, key in (("lm-victim", "victim_phases"),
+                             ("lm-preemptor", "preemptor_phases")):
+                if job in st:
+                    now = (st[job].get("phase"), st[job].get("reason"),
+                           bool(st[job].get("resumable")))
+                    if not info[key] or info[key][-1] != now:
+                        info[key].append(now)
+            manifested = [s for s in checkpoint.list_checkpoint_steps(
+                victim_ckpt)
+                if checkpoint.manifest_path(victim_ckpt, s).exists()]
+            if "preemptor" not in t_submit:
+                # A manifest is the save's last artifact, written over the
+                # committed step's digests (verified again below).
+                if manifested and manifested[-1] >= OPERATOR_MIN_VERIFIED:
+                    info["verified_at_submit"] = manifested[-1]
+                    t_submit["preemptor"] = time.perf_counter()
+                    kube.create_custom(job_cr(
+                        "lm-preemptor", "prod", "high",
+                        operator_command(OPERATOR_PREEMPTOR_STEPS,
+                                         work / "preemptor.json"),
+                        {LAUNCHES_ENV: "1"}))
+            victim_runs = [r for r in runner.runs
+                           if r["pod"] == "lm-victim-worker-0"]
+            if newest_verified is None and victim_runs and \
+                    victim_runs[0]["terminated"] is not None:
+                # The evicted gang is gone: its newest committed step is
+                # the one its resume must continue after.
+                newest_verified = manifested[-1] if manifested else -1
+            done = {j: st.get(j, {}).get("phase") == "Succeeded"
+                    for j in ("lm-victim", "lm-preemptor")}
+            if all(done.values()) and control.poll() is not None:
+                break
+            time.sleep(0.2)
+        parsed = parse_metrics(REGISTRY.render())
+    finally:
+        if runner is not None:
+            runner.close()
+        if control is not None and control.poll() is None:
+            signal_group(control, signal.SIGKILL)
+            control.wait()
+        if apiserver is not None:
+            apiserver.shutdown()
+            apiserver.server_close()
+    phase_s = time.perf_counter() - t_phase
+
+    # The victim went Preempting -> Queued (PreemptedRequeued, resumable)
+    # -> admitted again -> Succeeded; the preemptor Succeeded.
+    phases = info["victim_phases"]
+    evicted = [i for i, p in enumerate(phases) if p[0] == "Preempting"]
+    requeued = [i for i, p in enumerate(phases)
+                if p == ("Queued", "PreemptedRequeued", True)]
+    if not evicted or not requeued or requeued[0] < evicted[0] or \
+            phases[-1][0] != "Succeeded":
+        fail(f"phase 15: the victim's phases {phases} are not Preempting "
+             f"-> Queued PreemptedRequeued resumable -> Succeeded")
+    if info["preemptor_phases"][-1][0] != "Succeeded":
+        fail(f"phase 15: the preemptor's phases {info['preemptor_phases']}")
+    runs = {}
+    for run in runner.runs:
+        runs.setdefault(run["pod"], []).append(run)
+    victim_runs = runs.get("lm-victim-worker-0", [])
+    preemptor_runs = runs.get("lm-preemptor-worker-0", [])
+    if len(victim_runs) != 2 or victim_runs[0]["terminated"] is None or \
+            victim_runs[1]["code"] != 0 or len(preemptor_runs) != 1 or \
+            preemptor_runs[0]["code"] != 0 or control.returncode != 0:
+        ran = [(r["pod"], r["code"], r["terminated"]) for r in runner.runs]
+        fail(f"phase 15: runs {ran}, control exit {control.returncode}: "
+             + "".join(r["log"].read_text(errors="replace")[-1500:]
+                       for r in runner.runs if r["code"] not in (0, None)
+                       and r["terminated"] is None))
+    for name, want in (("kft_scheduler_preemptions_total", 1),
+                       ("kft_scheduler_resumes_total", 1)):
+        moved = total(parsed, name) - total(before, name)
+        if moved != want:
+            fail(f"phase 15: {name} moved by {moved}, not {want}")
+    # The resumed run continues after the newest verified step, never
+    # from 0, and its losses equal the uninterrupted control's bit for
+    # bit (the flash kernels use no atomics; the data stream and the
+    # generators are restored).
+    if newest_verified is not None and newest_verified >= 0 and \
+            not checkpoint.verify_step(
+            victim_ckpt, newest_verified)[0]:
+        fail(f"phase 15: the victim's step {newest_verified} does not "
+             f"verify")
+    resumed = json.loads(victim_metrics.read_text())["history"]
+    control_hist = {r["step"]: r["loss"] for r in json.loads(
+        control_metrics.read_text())["history"]}
+    if newest_verified is None or newest_verified < OPERATOR_MIN_VERIFIED \
+            or resumed[0]["step"] != newest_verified + 1 \
+            or resumed[-1]["step"] != OPERATOR_STEPS - 1:
+        fail(f"phase 15: the resumed victim logged steps "
+             f"{[r['step'] for r in resumed]}; its newest verified step "
+             f"was {newest_verified}")
+    pairs = [(r["step"], r["loss"], control_hist.get(r["step"]))
+             for r in resumed]
+    if any(loss != want or not math.isfinite(loss)
+           for _, loss, want in pairs):
+        fail(f"phase 15: resumed losses differ from the control's "
+             f"(step, resumed, control): {pairs}")
+    workers = {"victim": victim_runs[0]["log"],
+               "preemptor": preemptor_runs[0]["log"],
+               "victim_resumed": victim_runs[1]["log"]}
+    launched = {w: check_worker_launches(w, path, flash)
+                for w, path in workers.items()}
+    info["control_launches"] = check_worker_launches("control", control_log,
+                                                     flash)
+    counts = {k: sum(w["counts"][k] for w in launched.values())
+              for k in flash.launch_counts}
+    victim_first, victim_again = victim_runs
+    info.update({
+        "phase_s": phase_s, "launches": launched,
+        "newest_verified": newest_verified,
+        "resumed_at": resumed[0]["step"],
+        "losses_after_resume": [(s, l) for s, l, _ in pairs],
+        "queue_wait_s": {
+            "victim": victim_first["started"] - t_submit["victim"],
+            "preemptor": preemptor_runs[0]["started"]
+            - t_submit["preemptor"],
+            "victim_requeued": victim_again["started"]
+            - victim_first["terminated"]},
+        "preemption_s": victim_first["ended"] - t_submit["preemptor"],
+        "grace_to_exit_s": victim_first["term_to_exit_s"],
+        "restart_to_first_step_s": (
+            victim_again["first_step"] - victim_again["started"]
+            if victim_again["first_step"] else None),
+        "cold_start_to_first_step_s": (
+            victim_first["first_step"] - victim_first["started"]
+            if victim_first["first_step"] else None),
+    })
+    log(f"phase 15 operator: victim {phases}; preempted "
+        f"{info['preemption_s']:.2f} s after the preemptor's submission "
+        f"(grace {OPERATOR_GRACE_S} s, SIGTERM to exit "
+        f"{info['grace_to_exit_s']:.3f} s); resumed at step "
+        f"{info['resumed_at']} after verified step {newest_verified}, "
+        f"losses equal to the control's at steps "
+        f"{[s for s, _, _ in pairs]}; queue waits "
+        + json.dumps({k: round(v, 3) for k, v in
+                      info["queue_wait_s"].items()})
+        + f" s; restart to first step "
+        f"{info['restart_to_first_step_s']} s (cold start "
+        f"{info['cold_start_to_first_step_s']} s); launches {counts}; the "
+        f"phase {phase_s:.1f} s (bound {OPERATOR_PHASE_S}; {card_line()})")
+    if phase_s > OPERATOR_PHASE_S:
+        fail(f"phase 15 took {phase_s:.1f} s, over {OPERATOR_PHASE_S}")
+    return counts, info
+
+
 def main() -> int:
     try:
         import torch
@@ -8482,6 +8920,9 @@ def main() -> int:
         fleet_counts, fleet_info = fleet_phase(torch, flash, workdir, base,
                                                lm_base)
         phase_done("14 fleet")
+        operator_counts, operator_info = operator_phase(torch, flash,
+                                                        workdir)
+        phase_done("15 operator")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -8508,7 +8949,8 @@ def main() -> int:
                                    "adafactor_mesh": ada_counts[name],
                                    "hfta_mesh": hfta_mesh_counts[name],
                                    "tools": tools_counts[name],
-                                   "fleet": fleet_counts[name]}
+                                   "fleet": fleet_counts[name],
+                                   "operator": operator_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
     for name, row in two_pass_rows.items():
@@ -8530,7 +8972,8 @@ def main() -> int:
                                    "adafactor_mesh": ada_counts[name],
                                    "hfta_mesh": hfta_mesh_counts[name],
                                    "tools": tools_counts[name],
-                                   "fleet": fleet_counts[name]}
+                                   "fleet": fleet_counts[name],
+                                   "operator": operator_counts[name]}
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
@@ -8554,7 +8997,8 @@ def main() -> int:
                     "checkpoint": ckpt_info,
                     "cnn_serve": cnn_serve_info,
                     "cnn_train": cnn_train_info,
-                    "tools": tools_info, "fleet": fleet_info}))
+                    "tools": tools_info, "fleet": fleet_info,
+                    "operator": operator_info}))
     log(f"phase times (s): {json.dumps(phase_s)}; total "
         f"{sum(phase_s.values()):.1f} s")
     log(f"card: {card}")

@@ -9,9 +9,9 @@ stay in lockstep:
 
   1. every literal ``faults.fire("<site>")`` in the port's code;
   2. the hook-site table in the port's ``testing/faults.py`` module
-     docstring (the registry the grammar documents).  Its "Not ported
-     yet" paragraph, which names the JAX package's other sites in
-     prose, is not a table and is not read as one;
+     docstring (the registry the grammar documents).  A "Not ported
+     yet" paragraph there, naming JAX sites the port lacks in prose, is
+     not a table and is not read as one;
   3. the **Fault injection (port).** paragraph of ``README.md``'s port
      section (the operator-facing list; ``docs/user_guide.md`` §5.5
      documents the JAX package's sites and is that package's).

@@ -15,10 +15,12 @@ label selector, readiness-probed and load-scraped directly:
       --autoscale_deployment tpu-serving --no-colocation
 
 Without ``--no-colocation`` the autoscaler claims GPUs from the shared
-train/serve pool through the scheduler's claim client, which the port
-does not have yet: that mode raises ``NotPortedError`` (ROADMAP queue 1
-item 18b).  ``KFT_ROUTER_READY rest=PORT`` on stderr marks the listener
-up (``--port 0`` binds any free port).
+train/serve pool through the scheduler's ``ServingClaimClient``
+(scheduler/colocate.py): its desired replica count becomes a
+high-priority claim CR that the operator's cluster scheduler arbitrates
+against training, and the router's status route shows the pool the
+reconciler stamps on the claim.  ``KFT_ROUTER_READY rest=PORT`` on
+stderr marks the listener up (``--port 0`` binds any free port).
 
 SIGTERM drains like serving/main.py: /readyz flips 503 immediately,
 in-flight proxied requests finish inside --drain_deadline_s, then the
@@ -40,15 +42,8 @@ from kubeflow_tpu_torch.fleet.endpoints import (
     KubeEndpoints,
     StaticEndpoints,
 )
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.fleet.router import FleetRouter, make_router_server
 from kubeflow_tpu_torch.testing import faults
-
-COLOCATION_NOT_PORTED = (
-    "--autoscale_deployment without --no-colocation claims GPUs through "
-    "the scheduler's ServingClaimClient (scheduler/colocate.py), which "
-    "is not ported yet (ROADMAP queue 1 item 18b); pass --no-colocation "
-    "to patch spec.replicas directly")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -135,8 +130,6 @@ def main(argv=None) -> int:
     from kubeflow_tpu_torch.runtime import tracing
 
     args = build_parser().parse_args(argv)
-    if args.autoscale_deployment and not args.no_colocation:
-        raise NotPortedError(COLOCATION_NOT_PORTED)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
     if tracing.enable_from_args(args) is not None:
         logging.info("request tracing on (sample rate %g) — "
@@ -166,11 +159,29 @@ def main(argv=None) -> int:
         eject_backoff_cap_s=args.eject_backoff_cap_s)
     registry.refresh()
     registry.start()
+    claims = None
+    if args.autoscale_deployment and not args.no_colocation:
+        from kubeflow_tpu_torch.scheduler.colocate import ServingClaimClient
+
+        if kube is None:
+            from kubeflow_tpu_torch.operator.kube_http import HttpKube
+
+            kube = HttpKube(base_url=args.kube_base_url or None)
+        claim_kwargs = dict(
+            slice_type=args.claim_slice_type,
+            tenant=args.claim_tenant,
+            priority=args.claim_priority)
+        if args.claim_image:
+            claim_kwargs["image"] = args.claim_image
+        claims = ServingClaimClient(
+            kube, args.kube_namespace, args.autoscale_deployment,
+            **claim_kwargs)
     router = FleetRouter(
         registry, max_tries=args.max_tries,
         try_timeout_s=args.try_timeout_s,
         retry_budget_ratio=args.retry_budget_ratio,
-        max_replays=args.max_replays)
+        max_replays=args.max_replays,
+        pool_status=claims.pool if claims is not None else None)
     httpd, _ = make_router_server(router, port=args.port,
                                   host=args.host)
     autoscaler = None
@@ -187,7 +198,8 @@ def main(argv=None) -> int:
             min_replicas=args.min_replicas,
             max_replicas=args.max_replicas,
             scale_up_cooldown_s=args.scale_up_cooldown_s,
-            scale_down_cooldown_s=args.scale_down_cooldown_s)
+            scale_down_cooldown_s=args.scale_down_cooldown_s,
+            claims=claims)
         autoscaler.start(args.autoscale_interval_s)
     logging.info("fleet router on :%d (%d endpoints discovered%s)",
                  httpd.server_address[1], len(registry.all()),

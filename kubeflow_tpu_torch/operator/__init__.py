@@ -1,15 +1,18 @@
-"""Control plane, first half: the TPUJob spec model and the Kubernetes
-transport (the port's copy of the JAX package's kubeflow_tpu/operator,
-stdlib only).
+"""Control plane: the TPUJob spec model, the Kubernetes transport, the
+gang scheduler and the reconciler (the port's copy of the JAX package's
+kubeflow_tpu/operator, stdlib only).
 
   crd.py        TPUJobSpec and its wire format on the port's gang shapes
   kube.py       the kube interface's in-memory FakeKube
   kube_http.py  HttpKube, the stdlib REST client
   kube_real.py  RealKube over the official ``kubernetes`` client
+  gang.py       all-or-nothing slice admission and node quarantine
+  reconciler.py TPUJobController: CR -> gang -> pods -> lifecycle
+  main.py       the operator daemon (``python -m
+                kubeflow_tpu_torch.operator.main --fake-kube``)
 
-The gang scheduler (``gang.py``), the reconciler (``reconciler.py``)
-and the operator's entry point (``main.py``) come with the scheduler,
-ROADMAP queue 1 item 18b.
+The policy layer above the gang (quotas, priorities, preemption,
+fusion, colocation) is ``kubeflow_tpu_torch.scheduler``.
 """
 
 from kubeflow_tpu_torch.operator.crd import (
@@ -24,7 +27,13 @@ from kubeflow_tpu_torch.operator.crd import (
     TPUJobSpec,
     WorkerSpec,
 )
+from kubeflow_tpu_torch.operator.gang import (
+    GangScheduler,
+    NodeQuarantine,
+    SliceClaim,
+)
 from kubeflow_tpu_torch.operator.kube import Conflict, FakeKube, NotFound
+from kubeflow_tpu_torch.operator.reconciler import TPUJobController
 
 __all__ = [
     "GROUP",
@@ -40,4 +49,8 @@ __all__ = [
     "Conflict",
     "FakeKube",
     "NotFound",
+    "GangScheduler",
+    "NodeQuarantine",
+    "SliceClaim",
+    "TPUJobController",
 ]

@@ -27,9 +27,11 @@ import os
 import re
 import socket
 import time
-from typing import Dict, Optional
+from typing import TYPE_CHECKING, Dict, Optional
 
-from kubeflow_tpu_torch.device import DeviceLike, resolve_device
+if TYPE_CHECKING:  # torch loads at initialize(): the operator reads the
+    # env names here without it
+    from kubeflow_tpu_torch.device import DeviceLike
 
 log = logging.getLogger(__name__)
 
@@ -151,6 +153,8 @@ def initialize(
         return env
     import torch
     import torch.distributed as dist
+
+    from kubeflow_tpu_torch.device import resolve_device
 
     host = env.coordinator_address.rsplit(":", 1)[0]
     _wait_dns(host, wait_coordinator_timeout_s)

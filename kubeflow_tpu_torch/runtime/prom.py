@@ -85,6 +85,14 @@ class Gauge(_Metric):
         with self._lock:
             self._values[_label_key(labels)] = float(value)
 
+    def labelsets(self) -> List[Dict[str, str]]:
+        """Every label combination this gauge has been set with: what a
+        control loop zeroes before re-exporting a sparse snapshot (a
+        drained queue bucket must scrape as 0, not hold its last
+        value)."""
+        with self._lock:
+            return [dict(key) for key in self._values]
+
 
 class Histogram(_Metric):
     """Bucketed observations per label set; ``value()`` reads a series'

@@ -17,9 +17,18 @@ and greedy tokens), so a caller can hold the tokens to a reference
 generate() on the same weights.  ``multichip_serving_smoke(mesh=
 "tensor=2")`` starts its decode replica as two ``serving.main --mesh
 tensor=2`` processes over gloo; without ``mesh`` the decode replica is
-one device in process.  The scenarios that need the operator or the
-scheduler (``tpujob``, ``scheduler``, ``train_resilience``, ``hfta``,
-``colocation``) come with ROADMAP queue 1 item 18b.
+one device in process.
+
+The control plane's scenarios are twins of the JAX package's
+``tpujob``, ``scheduler``, ``train_resilience``, ``hfta`` and
+``colocation``: the port's operator, cluster scheduler and fleet
+autoscaler, over the port's fake apiserver and ``HttpKube`` where JAX's
+run over its own, at the JAX scenarios' seeds, clock skews, sizes and
+assertions, with JAX's slice names mapped onto the port's GPU shapes
+(``SLICE_MAP``).  ``train_resilience`` trains the tiny LM in float32 on
+``device``; the others run on the host alone.
+
+    python -m kubeflow_tpu_torch.testing.e2e scheduler colocation --device cpu
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ import urllib.request
 from http.server import ThreadingHTTPServer
 from pathlib import Path
 from typing import Any, Dict, List, Optional
+
+from kubeflow_tpu_torch.operator.reconciler import LABEL_JOB
 
 JAX_LOADER = "kubeflow_tpu.serving.loaders:lm_generate"
 # The JAX scenarios' tiny float32 LM (the multichip and adapter scenarios
@@ -1243,7 +1254,727 @@ def adapter_serving_smoke(namespace: str = "kubeflow-test", device=None,
                      for (n, p), v in want.items()}}
 
 
+# -- the control plane: operator and cluster scheduler --------------------
+
+# JAX scenario slice names -> the port's shapes with as many hosts and,
+# for the one-host shape, as many chips (an h100-32 gang holds 32 GPUs on
+# the 4 hosts where a v5p-32 slice holds 16 chips).
+SLICE_MAP = {"v5e-8": "h100-8", "v5p-32": "h100-32"}
+
+
+def _start_apiserver():
+    """The fake apiserver and an HttpKube on it: (httpd, kube, store)."""
+    from kubeflow_tpu_torch.operator.kube_http import HttpKube
+    from kubeflow_tpu_torch.testing.fake_apiserver import make_fake_apiserver
+
+    apiserver, _, store = make_fake_apiserver()
+    kube = HttpKube(base_url=f"http://127.0.0.1:"
+                             f"{apiserver.server_address[1]}")
+    return apiserver, kube, store
+
+
+def _stop_apiserver(apiserver) -> None:
+    if apiserver is not None:
+        apiserver.shutdown()
+        apiserver.server_close()
+
+
+def _set_job_pods(kube, store, namespace: str, job: str,
+                  phase: str) -> None:
+    for p in kube.list_pods(namespace, labels={LABEL_JOB: job}):
+        store.set_pod_phase(namespace, p["metadata"]["name"], phase)
+
+
+def _checkpoint_victim(directory: str, steps: int = 5,
+                       width: int = 8) -> None:
+    """A victim gang's trainer checkpoints steps 0..steps-1 (its state:
+    a step counter and ``arange(width) + step``)."""
+    import torch
+
+    from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    base = torch.arange(width, dtype=torch.float32)
+    with CheckpointManager(directory) as mgr:
+        for step in range(steps):
+            mgr.save(step, {"step": torch.tensor(step, dtype=torch.int32),
+                            "w": base + step})
+
+
+def _assert_victim_resumes(directory: str, steps: int = 5,
+                           width: int = 8) -> None:
+    """The re-admitted gang restores its newest step and continues past
+    it: never step 0."""
+    import torch
+
+    from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    fresh = {"step": torch.zeros((), dtype=torch.int32),
+             "w": torch.zeros(width)}
+    with CheckpointManager(directory) as mgr:
+        restored, start = mgr.restore_or_init(fresh)
+    assert start == steps, f"resume restarted at {start}"
+    assert int(restored["step"]) == steps - 1
+    assert torch.equal(restored["w"], torch.arange(
+        width, dtype=torch.float32) + steps - 1)
+
+
+def tpujob_smoke(namespace: str = "kubeflow-test", device=None) -> None:
+    """Submit a tiny TPUJob to the in-process control plane and drive it
+    to completion (the JAX ``tpujob`` scenario; ``device`` is unused:
+    the control plane runs on the host)."""
+    from kubeflow_tpu_torch.operator import crd
+    from kubeflow_tpu_torch.operator.gang import GangScheduler
+    from kubeflow_tpu_torch.operator.kube import RUNNING, SUCCEEDED, FakeKube
+    from kubeflow_tpu_torch.operator.reconciler import (
+        JOB_RUNNING,
+        JOB_SUCCEEDED,
+        TPUJobController,
+    )
+
+    kube = FakeKube()
+    controller = TPUJobController(kube, GangScheduler(
+        {SLICE_MAP["v5e-8"]: 1}))
+    job = crd.TPUJobSpec(name="smoke", namespace=namespace,
+                         slice_type=SLICE_MAP["v5e-8"])
+    kube.create_custom(job.to_custom_resource())
+    cr = kube.list_custom()[0]
+    controller.reconcile_once(cr)
+    for pod in kube.list_pods(namespace):
+        kube.set_pod_phase(namespace, pod["metadata"]["name"], RUNNING)
+    assert controller.reconcile_once(cr) == JOB_RUNNING
+    for pod in kube.list_pods(namespace):
+        kube.set_pod_phase(namespace, pod["metadata"]["name"], SUCCEEDED)
+    assert controller.reconcile_once(cr) == JOB_SUCCEEDED
+
+
+def scheduler_smoke(namespace: str = "kubeflow-test", device=None) -> None:
+    """Two tenants' TPUJobs through the fake apiserver (real sockets,
+    HttpKube) against the port's policy layer, gang and reconciler (the
+    JAX ``scheduler`` scenario): a quota-capped greedy tenant, backfill
+    past a blocked large job, priority preemption through the clock-
+    skewed grace window with a victim that resumes from its newest
+    checkpoint step, and every outcome in ``kft_scheduler_*`` metrics."""
+    from kubeflow_tpu_torch.operator import crd
+    from kubeflow_tpu_torch.operator.gang import GangScheduler
+    from kubeflow_tpu_torch.operator.reconciler import (
+        JOB_PREEMPTING,
+        JOB_SUCCEEDED,
+        QUEUED,
+        STARTING,
+        TPUJobController,
+    )
+    from kubeflow_tpu_torch.runtime.prom import (
+        REGISTRY,
+        parse_metrics,
+        sample_value,
+    )
+    from kubeflow_tpu_torch.scheduler import (
+        LABEL_PRIORITY,
+        LABEL_TENANT,
+        ClusterScheduler,
+        PreemptionConfig,
+        SchedulerConfig,
+    )
+    from kubeflow_tpu_torch.testing import faults
+
+    small, large = SLICE_MAP["v5e-8"], SLICE_MAP["v5p-32"]
+
+    def make_cr(name, tenant, priority, slice_type=small, n=1):
+        job = crd.TPUJobSpec(name=name, namespace=namespace,
+                             slice_type=slice_type, num_slices=n)
+        cr = job.to_custom_resource()
+        cr["metadata"]["labels"] = {LABEL_TENANT: tenant,
+                                    LABEL_PRIORITY: priority}
+        return cr
+
+    apiserver = None
+    with faults.injected("seed=20260804") as inj, \
+            tempfile.TemporaryDirectory() as tmp:
+        try:
+            apiserver, kube, store = _start_apiserver()
+            gang = GangScheduler({small: 4, large: 1})
+            cluster = ClusterScheduler(gang, SchedulerConfig(
+                quotas={"greedy": {small: 16}},
+                preemption=PreemptionConfig(grace_period_s=30.0)))
+            ctl = TPUJobController(kube, gang, cluster)
+
+            def statuses():
+                return {c["metadata"]["name"]: (c.get("status") or {})
+                        for c in kube.list_custom(namespace)}
+
+            # -- 1. quota-capped greedy tenant ------------------------
+            for i in range(3):
+                kube.create_custom(
+                    make_cr(f"greedy-{i}", "greedy", "normal"))
+            kube.create_custom(make_cr("polite", "polite", "normal"))
+            ctl.reconcile_all()
+            st = statuses()
+            admitted = sorted(n for n in st
+                              if st[n].get("phase") == STARTING)
+            assert admitted == ["greedy-0", "greedy-1", "polite"], st
+            assert st["greedy-2"]["phase"] == QUEUED
+            assert st["greedy-2"]["reason"] == "QuotaExceeded", st
+
+            # -- 2. backfill past a blocked large job -----------------
+            kube.create_custom(make_cr("vp-run", "research", "high",
+                                       slice_type=large))
+            ctl.reconcile_all()
+            kube.create_custom(make_cr("vp-blocked", "research", "high",
+                                       slice_type=large))
+            kube.create_custom(make_cr("small-low", "batch", "low"))
+            ctl.reconcile_all()
+            st = statuses()
+            assert st["vp-blocked"]["reason"] == "WaitingForSlices", st
+            assert st["small-low"]["phase"] == STARTING, st
+            assert cluster.status()["counters"]["backfilled"] >= 1
+            # ETA unchanged: vp-run ends, vp-blocked starts at once
+            # with the backfilled job still holding its small gang.
+            _set_job_pods(kube, store, namespace, "vp-run", "Running")
+            ctl.reconcile_all()
+            _set_job_pods(kube, store, namespace, "vp-run", "Succeeded")
+            ctl.reconcile_all()
+            ctl.reconcile_all()
+            st = statuses()
+            assert st["vp-run"]["phase"] == JOB_SUCCEEDED
+            assert st["vp-blocked"]["phase"] == STARTING, st
+            assert st["small-low"]["phase"] == STARTING, st
+
+            # -- 3. preemption -> checkpoint grace -> resume ----------
+            _checkpoint_victim(f"{tmp}/victim-ckpt")
+            kube.create_custom(make_cr("vip", "prod", "high"))
+            ctl.reconcile_all()
+            st = statuses()
+            assert st["small-low"]["phase"] == JOB_PREEMPTING, st
+            assert st["small-low"]["resumable"] is True
+            assert kube.list_pods(
+                namespace, labels={LABEL_JOB: "small-low"}), \
+                "pods must survive the checkpoint grace window"
+            ctl.reconcile_all()
+            assert statuses()["small-low"]["phase"] == JOB_PREEMPTING
+            inj.advance_clock(31)   # grace elapses, zero wall waiting
+            ctl.reconcile_all()
+            st = statuses()
+            assert st["small-low"]["phase"] == QUEUED
+            assert st["small-low"]["reason"] == "PreemptedRequeued", st
+            ctl.reconcile_all()
+            st = statuses()
+            assert st["vip"]["phase"] == STARTING, st
+            _set_job_pods(kube, store, namespace, "vip", "Running")
+            ctl.reconcile_all()
+            _set_job_pods(kube, store, namespace, "vip", "Succeeded")
+            ctl.reconcile_all()
+            ctl.reconcile_all()
+            st = statuses()
+            assert st["vip"]["phase"] == JOB_SUCCEEDED
+            assert st["small-low"]["phase"] == STARTING, st
+            assert st["small-low"]["resumable"] is False
+            assert int(st["small-low"]["preemptions"]) == 1
+            assert int(st["small-low"].get("restarts", 0)) == 0, \
+                "preemption must not consume the restart budget"
+            _assert_victim_resumes(f"{tmp}/victim-ckpt")
+
+            # -- 4. outcomes in kft_scheduler_* metrics ---------------
+            parsed = parse_metrics(REGISTRY.render())
+            for name in ("kft_scheduler_preemptions_total",
+                         "kft_scheduler_backfills_total",
+                         "kft_scheduler_resumes_total"):
+                assert (sample_value(parsed, name, tenant="batch")
+                        or 0) >= 1, parsed.get(name)
+            assert sample_value(parsed, "kft_scheduler_quota_chips",
+                                tenant="greedy", slice_type=small) == 16
+            assert sample_value(parsed, "kft_scheduler_queue_depth",
+                                tenant="greedy",
+                                priority="normal") is not None
+            assert "kft_scheduler_queue_wait_seconds_count" in parsed
+        finally:
+            _stop_apiserver(apiserver)
+
+
+# The JAX train_resilience / hfta scenarios' tiny LM.
+TRAIN_OVERRIDES = dict(vocab_size=64, d_model=16, n_layers=1, n_heads=2,
+                       n_kv_heads=2, d_ff=32, head_dim=8, max_seq_len=16)
+# Their batch: 2 a device over the JAX test suite's 8 CPU devices.
+TRAIN_BATCH = 16
+
+
+def train_resilience_smoke(namespace: str = "kubeflow-test",
+                           device=None) -> Dict[str, Any]:
+    """Crash-safe training on the port (the JAX ``train_resilience``
+    scenario): the tiny LM trains in float32 under ``TrainSupervisor``
+    with an injected ``train.step`` raise and resumes from a verified
+    checkpoint (never step 0) with final parameters bit-identical to an
+    uninterrupted control; a truncated newest checkpoint is walked back
+    over; a TPUJob flapping on one node over the fake apiserver gets
+    the node quarantined and the re-placed gang kept off it; every
+    outcome moves its ``kft_*`` metric.  Returns the final and control
+    parameters."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig,
+        lm_task,
+    )
+    from kubeflow_tpu_torch.operator import crd
+    from kubeflow_tpu_torch.operator.gang import GangScheduler, NodeQuarantine
+    from kubeflow_tpu_torch.operator.kube import FAILED, RUNNING
+    from kubeflow_tpu_torch.operator.reconciler import TPUJobController
+    from kubeflow_tpu_torch.runtime import optim
+    from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
+    from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
+    from kubeflow_tpu_torch.runtime.prom import (
+        REGISTRY,
+        parse_metrics,
+        sample_value,
+    )
+    from kubeflow_tpu_torch.runtime.supervisor import TrainSupervisor
+    from kubeflow_tpu_torch.runtime.train import Trainer
+    from kubeflow_tpu_torch.testing import faults
+
+    def metric(parsed, name, **labels):
+        return sample_value(parsed, name, **labels) or 0.0
+
+    before = parse_metrics(REGISTRY.render())
+    cfg = TransformerConfig(dtype=torch.float32, **TRAIN_OVERRIDES)
+    init_fn, loss_fn = lm_task(cfg, device=device)
+    batch, steps = TRAIN_BATCH, 8
+
+    def data_factory():
+        rng = np.random.RandomState(0)
+        while True:
+            yield {"tokens": rng.randint(
+                0, cfg.vocab_size, size=(batch, 16)).astype(np.int32)}
+
+    def make_trainer(ckpt_dir):
+        return Trainer(
+            init_fn=init_fn, loss_fn=loss_fn, tx=optim.adamw(1e-3),
+            device=device,
+            checkpoints=CheckpointManager(ckpt_dir, max_to_keep=3),
+            checkpoint_every=2,
+            metrics=MetricsLogger(stream=open(os.devnull, "w")))
+
+    def params(state):
+        return {k: v.detach().cpu().clone()
+                for k, v in state.params.state_dict().items()}
+
+    with faults.injected("seed=20260804") as inj, \
+            tempfile.TemporaryDirectory() as tmp:
+        # -- control: one uninterrupted run ---------------------------
+        control = make_trainer(f"{tmp}/control")
+        control_state = TrainSupervisor(control, max_restarts=0).run(
+            data_factory, steps, examples_per_step=batch, log_every=0)
+        control.checkpoints.wait()
+
+        # -- 1. supervised resume from a verified step ----------------
+        trainer = make_trainer(f"{tmp}/victim")
+        sup = TrainSupervisor(trainer, max_restarts=2, backoff_s=5.0)
+        sup.run(data_factory, 4, examples_per_step=batch, log_every=0)
+        assert trainer.checkpoints.latest_verified_step() == 3
+        # Fault the FIRST step of the continuation; the skew entry
+        # ages the policy clock past the restart backoff.
+        faults.install(faults.parse(
+            "train.step:raise*1;train.step:skew=60"))
+        try:
+            final = sup.run(data_factory, steps,
+                            examples_per_step=batch, log_every=0)
+        finally:
+            faults.install(inj)
+        assert sup.restarts == 1, sup.stats()
+        boundaries = sup.steps_seen
+        assert boundaries == sorted(boundaries), boundaries
+        assert boundaries[-1] == steps
+        assert min(b for b in boundaries if b > 4) == 5, boundaries
+        got, want = params(final), params(control_state)
+        assert got.keys() == want.keys()
+        for k in got:   # loss identity: bit for bit
+            assert torch.equal(got[k], want[k]), k
+
+        # -- 2. corrupt latest -> walk-back restore -------------------
+        trainer.checkpoints.wait()
+        ckpt_dir = Path(f"{tmp}/victim")
+        all_steps = trainer.checkpoints.all_steps()
+        latest = all_steps[-1]
+        victim_file = max(
+            (p for p in (ckpt_dir / str(latest)).rglob("*")
+             if p.is_file()), key=lambda p: p.stat().st_size)
+        victim_file.write_bytes(victim_file.read_bytes()[:16])
+        restored, start = trainer.checkpoints.restore_or_init(
+            trainer.create_state())
+        prev_verified = max(s for s in all_steps if s != latest)
+        assert start == prev_verified + 1, (
+            f"walk-back resumed at {start}, want {prev_verified + 1}")
+
+        # -- 3. node flap -> quarantine + gang re-place ---------------
+        apiserver = None
+        try:
+            apiserver, kube, store = _start_apiserver()
+            ctl = TPUJobController(
+                kube, GangScheduler({SLICE_MAP["v5e-8"]: 1}),
+                quarantine=NodeQuarantine(threshold=3, window_s=600,
+                                          cooldown_s=1800))
+            kube.create_custom(crd.TPUJobSpec(
+                name="flappy", namespace=namespace,
+                slice_type=SLICE_MAP["v5e-8"]).to_custom_resource())
+            for _ in range(3):  # three worker failures on one node
+                ctl.reconcile_all()
+                for p in kube.list_pods(namespace):
+                    store.set_pod_node(namespace, p["metadata"]["name"],
+                                       "node-flap")
+                    store.set_pod_phase(namespace, p["metadata"]["name"],
+                                        RUNNING)
+                ctl.reconcile_all()
+                pod = kube.list_pods(namespace)[0]
+                store.set_pod_phase(namespace, pod["metadata"]["name"],
+                                    FAILED)
+                ctl.reconcile_all()
+            assert ctl.quarantine.quarantined() == ["node-flap"]
+            events = [e for e in store.events
+                      if e["reason"] == "NodeQuarantined"]
+            assert len(events) == 1, events
+            ctl.reconcile_all()
+            pods = kube.list_pods(namespace)
+            assert pods, "gang was not re-placed after quarantine"
+            for p in pods:
+                terms = (p["spec"]["affinity"]["nodeAffinity"]
+                         ["requiredDuringSchedulingIgnoredDuring"
+                          "Execution"]["nodeSelectorTerms"])
+                expr = terms[0]["matchExpressions"][0]
+                assert expr["operator"] == "NotIn"
+                assert "node-flap" in expr["values"]
+        finally:
+            _stop_apiserver(apiserver)
+
+        # -- 4. outcomes in kft_* metrics (deltas) --------------------
+        parsed = parse_metrics(REGISTRY.render())
+        assert metric(parsed, "kft_train_restarts_total", reason="step") \
+            - metric(before, "kft_train_restarts_total",
+                     reason="step") >= 1
+        assert metric(parsed, "kft_checkpoint_saves_total") \
+            - metric(before, "kft_checkpoint_saves_total") >= 4
+        assert metric(parsed, "kft_checkpoint_verify_failures_total") \
+            - metric(before, "kft_checkpoint_verify_failures_total") >= 1
+        assert sample_value(parsed, "kft_operator_quarantined_nodes") == 1
+        assert sample_value(
+            parsed, "kft_train_heartbeat_age_seconds") is not None
+    return {"final": got, "control": want}
+
+
+def hfta_smoke(namespace: str = "kubeflow-test", device=None) -> None:
+    """The HFTA tier's admission half on the port (the JAX ``hfta``
+    scenario's steps 1-3 and 5; its step 4, the fused trainer's
+    preempt/resume bit-identity, is
+    ``tests/test_torch_hfta.py::test_e2e_hfta_training_lifecycle_twin``):
+    two tenants' four fusable singletons admit as ONE fused gang billed
+    per member, a high-priority arrival evicts the gang and every member
+    resumes, one pod-gang success completes every member, and the fused
+    gauges read the gang while it runs."""
+    from kubeflow_tpu_torch.operator import crd
+    from kubeflow_tpu_torch.operator.gang import GangScheduler
+    from kubeflow_tpu_torch.operator.reconciler import (
+        JOB_PREEMPTING,
+        JOB_SUCCEEDED,
+        QUEUED,
+        STARTING,
+        TPUJobController,
+    )
+    from kubeflow_tpu_torch.runtime.prom import (
+        REGISTRY,
+        parse_metrics,
+        sample_value,
+    )
+    from kubeflow_tpu_torch.scheduler import (
+        LABEL_FUSE_FAMILY,
+        LABEL_PRIORITY,
+        LABEL_TENANT,
+        ClusterScheduler,
+        PreemptionConfig,
+        SchedulerConfig,
+    )
+    from kubeflow_tpu_torch.testing import faults
+
+    shape = SLICE_MAP["v5e-8"]
+
+    def make_cr(name, tenant, priority="low", family="sweep"):
+        job = crd.TPUJobSpec(name=name, namespace=namespace,
+                             slice_type=shape, num_slices=1)
+        cr = job.to_custom_resource()
+        cr["metadata"]["labels"] = {LABEL_TENANT: tenant,
+                                    LABEL_PRIORITY: priority,
+                                    LABEL_FUSE_FAMILY: family}
+        return cr
+
+    apiserver = None
+    with faults.injected("seed=20260807") as inj:
+        try:
+            apiserver, kube, store = _start_apiserver()
+            gang = GangScheduler({shape: 1})
+            cluster = ClusterScheduler(gang, SchedulerConfig(
+                quotas={"tenant-a": {shape: 4}, "tenant-b": {shape: 4}},
+                preemption=PreemptionConfig(grace_period_s=30.0)))
+            ctl = TPUJobController(kube, gang, cluster)
+
+            def statuses():
+                return {c["metadata"]["name"]: (c.get("status") or {})
+                        for c in kube.list_custom(namespace)}
+
+            # -- 1. two tenants' singletons fold into one gang --------
+            for i in range(4):
+                kube.create_custom(make_cr(
+                    f"m{i}", tenant=f"tenant-{'ab'[i % 2]}"))
+            ctl.reconcile_all()
+            st = statuses()
+            gkey = f"fused:{namespace}/sweep"
+            for i in range(4):
+                assert st[f"m{i}"]["phase"] == STARTING, st
+                assert st[f"m{i}"]["fusedGang"] == gkey, st
+            assert gang.admitted(gkey)
+            assert kube.list_pods(
+                namespace, labels={LABEL_JOB: "fused-sweep"}), \
+                "fused gang must run ONE shared pod gang"
+            quotas = {q["tenant"]: q["used_chips"]
+                      for q in cluster.status()["quotas"]}
+            assert quotas == {"tenant-a": 4.0, "tenant-b": 4.0}, quotas
+            rows = {r["job"]: r for r in cluster.status()["jobs"]}
+            assert rows[f"{namespace}/m0"]["members"] == 4
+            assert rows[f"{namespace}/m0"]["chips"] == 2.0
+            # -- 5. the fused gauges read the running gang ------------
+            parsed = parse_metrics(REGISTRY.render())
+            assert sample_value(parsed, "kft_scheduler_fused_gangs") == 1.0
+            assert sample_value(
+                parsed, "kft_scheduler_fused_members") == 4.0
+
+            # -- 2. preempt the gang; every member resumes ------------
+            kube.create_custom(make_cr("vip", tenant="prod",
+                                       priority="high", family=""))
+            ctl.reconcile_all()
+            st = statuses()
+            for i in range(4):
+                assert st[f"m{i}"]["phase"] == JOB_PREEMPTING, st
+                assert st[f"m{i}"]["resumable"] is True
+            inj.advance_clock(31)   # grace elapses, no wall waiting
+            ctl.reconcile_all()
+            st = statuses()
+            for i in range(4):
+                assert st[f"m{i}"]["phase"] == QUEUED, st
+                assert st[f"m{i}"]["reason"] == "PreemptedRequeued"
+                assert not st[f"m{i}"].get("fusedGang"), st
+            assert not gang.admitted(gkey)
+            ctl.reconcile_all()
+            assert statuses()["vip"]["phase"] == STARTING
+            _set_job_pods(kube, store, namespace, "vip", "Succeeded")
+            ctl.reconcile_all()
+            ctl.reconcile_all()
+            st = statuses()
+            assert st["vip"]["phase"] == JOB_SUCCEEDED
+            for i in range(4):
+                assert st[f"m{i}"]["phase"] == STARTING, st
+                assert int(st[f"m{i}"]["preemptions"]) == 1
+            assert gang.admitted(gkey)
+            assert cluster.status()["counters"]["resumed"] == 4
+
+            # -- 3. one pod-gang success completes every member -------
+            _set_job_pods(kube, store, namespace, "fused-sweep",
+                          "Succeeded")
+            ctl.reconcile_all()
+            st = statuses()
+            for i in range(4):
+                assert st[f"m{i}"]["phase"] == JOB_SUCCEEDED, st
+            assert not gang.admitted(gkey)
+            completed = [e for e in store.events
+                         if e["reason"] == "FusedMemberCompleted"]
+            assert len(completed) == 4, store.events
+        finally:
+            _stop_apiserver(apiserver)
+
+
+def colocation_smoke(namespace: str = "kubeflow-test", device=None) -> None:
+    """Train/serve colocation on one GPU pool (the JAX ``colocation``
+    scenario), driven through the fake apiserver by the port's fleet
+    ``Autoscaler`` in claims mode: a trough makes no claim; a burst
+    writes a 2-replica claim CR that evicts the low-priority gang on the
+    short serving grace while prepull pods pin the victim's nodes, and
+    the reconciler patches the Deployment on grant; the evening trough
+    releases the claim and the victim is backfilled and resumes from
+    its newest checkpoint step; the pool snapshot rides the claim status
+    back to the ServingClaimClient and every transition moves its
+    metric."""
+    from kubeflow_tpu_torch.fleet.autoscaler import Autoscaler
+    from kubeflow_tpu_torch.operator import crd
+    from kubeflow_tpu_torch.operator.gang import GangScheduler
+    from kubeflow_tpu_torch.operator.reconciler import (
+        JOB_PREEMPTING,
+        JOB_RUNNING,
+        QUEUED,
+        STARTING,
+        TPUJobController,
+    )
+    from kubeflow_tpu_torch.runtime.prom import (
+        REGISTRY,
+        parse_metrics,
+        sample_value,
+    )
+    from kubeflow_tpu_torch.scheduler import (
+        LABEL_PRIORITY,
+        LABEL_TENANT,
+        ClusterScheduler,
+        PreemptionConfig,
+        SchedulerConfig,
+        colocate,
+    )
+    from kubeflow_tpu_torch.testing import faults
+
+    class ScrapedLoad:
+        """Registry stand-in: the diurnal curve the scenario scripts."""
+
+        def __init__(self):
+            self.load = 0.0
+
+        def total_load(self):
+            return self.load
+
+        def ready_count(self):
+            return 1
+
+    def make_train_cr(name, priority, n=1):
+        job = crd.TPUJobSpec(name=name, namespace=namespace, num_slices=n)
+        cr = job.to_custom_resource()
+        cr["metadata"]["labels"] = {LABEL_TENANT: "research",
+                                    LABEL_PRIORITY: priority}
+        return cr
+
+    apiserver = None
+    with faults.injected("seed=20260807") as inj, \
+            tempfile.TemporaryDirectory() as tmp:
+        try:
+            apiserver, kube, store = _start_apiserver()
+            gang = GangScheduler({SLICE_MAP["v5e-8"]: 4})
+            cluster = ClusterScheduler(gang, SchedulerConfig(
+                preemption=PreemptionConfig(
+                    grace_period_s=30.0, serving_grace_period_s=5.0)))
+            ctl = TPUJobController(kube, gang, cluster)
+            store.create_deployment({
+                "metadata": {"name": "lm", "namespace": namespace},
+                "spec": {"replicas": 0}})
+            load = ScrapedLoad()
+            claims = colocate.ServingClaimClient(kube, namespace, "lm")
+            scaler = Autoscaler(
+                kube, namespace, "lm", load,
+                target_inflight_per_replica=4.0,
+                min_replicas=0, max_replicas=4,
+                scale_up_cooldown_s=10.0, scale_down_cooldown_s=60.0,
+                claims=claims)
+
+            def statuses():
+                return {c["metadata"]["name"]: (c.get("status") or {})
+                        for c in kube.list_custom(namespace)}
+
+            def prepulls():
+                return kube.list_pods(namespace, labels={
+                    colocate.LABEL_WORKLOAD: colocate.WORKLOAD_PREPULL})
+
+            # -- 1. overnight trough: training owns the pool ----------
+            out = scaler.reconcile_once()
+            assert out["desired"] == 0
+            assert out["claim"]["state"] == "released"
+            kube.create_custom(make_train_cr("night-batch", "low", n=2))
+            kube.create_custom(make_train_cr("steady", "normal", n=2))
+            ctl.reconcile_all()
+            st = statuses()
+            assert st["night-batch"]["phase"] == STARTING, st
+            assert st["steady"]["phase"] == STARTING, st
+            pool = cluster.pool_status()
+            assert pool["free_chips"] == 0
+            assert pool["training_chips"] == pool["capacity_chips"]
+            _checkpoint_victim(f"{tmp}/night-ckpt")
+            for i, p in enumerate(kube.list_pods(
+                    namespace, labels={LABEL_JOB: "night-batch"})):
+                store.set_pod_node(namespace, p["metadata"]["name"],
+                                   f"node-{i}")
+
+            # -- 2. morning burst: claim steals GPUs ------------------
+            load.load = 8.0   # ceil(8/4) = 2 replicas wanted
+            out = scaler.reconcile_once()
+            assert out["applied"] and out["desired"] == 2
+            assert out["claim"]["state"] == "pending"
+            assert kube.get_deployment(
+                namespace, "lm")["spec"]["replicas"] == 0
+            ctl.reconcile_all()
+            st = statuses()
+            assert st["night-batch"]["phase"] == JOB_PREEMPTING, st
+            assert st["night-batch"]["resumable"] is True
+            assert st["steady"]["phase"] == STARTING, st
+            assert sorted(p["spec"]["nodeName"] for p in prepulls()) == \
+                ["node-0", "node-1"], prepulls()
+            # SHORT serving grace: 6 s ends the drain (the 30 s
+            # training grace would still be holding it).
+            inj.advance_clock(6)
+            ctl.reconcile_all()
+            st = statuses()
+            assert st["night-batch"]["phase"] == QUEUED
+            assert st["night-batch"]["reason"] == "PreemptedRequeued"
+            ctl.reconcile_all()
+            ctl.reconcile_all()
+            st = statuses()
+            assert st["serving-lm"]["phase"] == JOB_RUNNING, st
+            assert st["serving-lm"]["grantedReplicas"] == 2
+            assert kube.get_deployment(
+                namespace, "lm")["spec"]["replicas"] == 2
+            inj.advance_clock(11)
+            out = scaler.reconcile_once()
+            assert out["claim"]["state"] == "granted"
+            pool = claims.pool()
+            assert pool is not None
+            assert pool["serving_chips"] == 16
+            assert pool["used_chips"] == pool["capacity_chips"]
+            ctl.reconcile_all()
+            assert prepulls() == []
+
+            # -- 3. evening trough: release, backfill, resume ---------
+            load.load = 0.0
+            inj.advance_clock(120)   # past the scale-down cooldown
+            out = scaler.reconcile_once()
+            assert out["desired"] == 0
+            assert out["claim"]["state"] == "released"
+            assert kube.get_deployment(
+                namespace, "lm")["spec"]["replicas"] == 0
+            ctl.reconcile_all()   # stale sweep frees the gang claim
+            ctl.reconcile_all()   # backfill re-admits the victim
+            st = statuses()
+            assert "serving-lm" not in st
+            assert st["night-batch"]["phase"] == STARTING, st
+            assert st["night-batch"]["resumable"] is False
+            assert int(st["night-batch"]["preemptions"]) == 1
+            assert int(st["night-batch"].get("restarts", 0)) == 0, \
+                "eviction must not consume the restart budget"
+            _assert_victim_resumes(f"{tmp}/night-ckpt")
+
+            # -- 4. every transition is scrapeable --------------------
+            parsed = parse_metrics(REGISTRY.render())
+            assert (sample_value(
+                parsed, "kft_scheduler_colocation_preemptions_total")
+                or 0) >= 1
+            assert (sample_value(
+                parsed, "kft_autoscaler_claim_granted_total",
+                deployment="lm") or 0) >= 1
+            assert (sample_value(
+                parsed, "kft_scheduler_resumes_total",
+                tenant="research") or 0) >= 1
+            claims.close()
+            parsed = parse_metrics(REGISTRY.render())
+            assert not any(
+                v for _, v in parsed.get(
+                    "kft_scheduler_serving_claim_chips", [])), \
+                "claim gauge must read 0 after close()"
+        finally:
+            _stop_apiserver(apiserver)
+
+
 SCENARIOS = {
+    "tpujob": tpujob_smoke,
+    "scheduler": scheduler_smoke,
+    "train_resilience": train_resilience_smoke,
+    "hfta": hfta_smoke,
+    "colocation": colocation_smoke,
     "fleet": fleet_smoke,
     "survivable": survivable_smoke,
     "kv_spill": kv_spill_smoke,

@@ -79,13 +79,17 @@ JAX package fires its counterpart:
     checkpoint.restore each CheckpointManager.restore attempt
     data.next         each TensorBatches batch pull (raise = one
                       transient read error, retried with backoff)
-
-Not ported yet: the JAX package also fires ``scheduler.admit``,
-``scheduler.preempt``, ``scheduler.fuse`` and ``scheduler.colocate``
-(its cluster scheduler) and ``autoscaler.claim`` (its serving claim
-client).  Those modules hold no JAX and come to the port with ROADMAP
-queue 1 item 18b; a ``KFT_FAULTS`` scenario naming one of them tests
-nothing here.
+    scheduler.admit   each ClusterScheduler plan pass, before any CR
+                      is read (raise = wedged policy pass: the
+                      reconciler holds the queue and keeps admitted
+                      gangs running)
+    scheduler.preempt each eviction wave the policy plans, after the
+                      rate limiter granted it
+    scheduler.fuse    each fused gang the fold forms from pending
+                      singletons of one family
+    scheduler.colocate each serving claim the fold admits into a plan
+                      pass as new demand (initial claim or grow delta)
+    autoscaler.claim  every autoscaler -> ServingClaim CR sync
 
 Clock skips: deadline/backoff code reads :func:`monotonic` instead of
 ``time.monotonic`` — a ``skew`` action (or ``advance_clock`` from a

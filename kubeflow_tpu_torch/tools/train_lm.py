@@ -40,6 +40,10 @@ are wired as in the JAX entry point.  ``--metrics-out`` writes the JAX
 entry point's JSON ({"config": ..., "history": [...]}).  MFU is over the
 bf16 peak of the shape ``KFT_SLICE_TYPE`` names (``h100-8``; the JAX
 entry point's rule), else of the card (runtime/topology.py's table).
+With ``KFT_LOG_LAUNCHES`` set in its environment it logs, after each
+step and at the end, ``KFT_LAUNCHES {"step": N, "counts": {...}}`` on
+stderr: the flash kernels' launch counters of this process (a worker
+the operator started reports them in its log).
 """
 
 from __future__ import annotations
@@ -47,7 +51,12 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
+
+# Set in a worker's environment to have it log its kernel launch
+# counters (module docstring).
+LAUNCHES_ENV = "KFT_LOG_LAUNCHES"
 
 def parse_mesh(flag: str) -> dict:
     """``--mesh`` as the JAX entry point parses it: ``axis=size`` pairs
@@ -249,9 +258,20 @@ def run(argv=None):
     supervisor = TrainSupervisor(
         trainer, max_restarts=args.max_restarts,
         stall_factor=args.stall_factor, heartbeat_s=args.heartbeat_s)
-    supervisor.run(data_factory, args.steps, examples_per_step=global_batch,
-                   log_every=args.log_every,
-                   steps_per_call=args.steps_per_call)
+    on_step = None
+    if os.environ.get(LAUNCHES_ENV):
+        from kubeflow_tpu_torch.ops import flash
+
+        def on_step(step):
+            print("KFT_LAUNCHES " + json.dumps(
+                {"step": int(step), "counts": dict(flash.launch_counts)}),
+                file=sys.stderr, flush=True)
+    state = supervisor.run(
+        data_factory, args.steps, examples_per_step=global_batch,
+        log_every=args.log_every, steps_per_call=args.steps_per_call,
+        on_step=on_step)
+    if on_step is not None:
+        on_step(state.step)
     logging.info("training done: %s", trainer.last_metrics)
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:

@@ -312,7 +312,8 @@ class TestFaultSiteRegistry:
         """The port's registry rows are exactly the sites its code fires
         (loader.load and batcher.dispatch among them), README lists the
         same, and the not-ported paragraph names only sites the JAX
-        package fires and the port does not."""
+        package fires and the port does not (none, once every JAX site
+        is ported, and then the paragraph is gone)."""
         fired = set()
         for path in core.py_files(REPO):
             for node in ast.walk(ast.parse(path.read_text())):
@@ -330,7 +331,8 @@ class TestFaultSiteRegistry:
         para = para[:para.index("```")]
         assert set(faultsites._BACKTICKED.findall(para)) == fired
         not_ported = doc[doc.index("Not ported yet"):
-                         doc.index("Clock skips")]
+                         doc.index("Clock skips")] \
+            if "Not ported yet" in doc else ""
         not_ported = set(re.findall(r"``([a-z_]+\.[a-z_]+)``",
                                     not_ported))
         jax_doc = ast.get_docstring(ast.parse(

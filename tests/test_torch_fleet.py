@@ -26,6 +26,7 @@ import kubeflow_tpu.fleet.router as jax_router
 import kubeflow_tpu.operator.kube as jax_kube
 import kubeflow_tpu.runtime.prom as jax_prom
 import kubeflow_tpu.runtime.tracing as jax_tracing
+import kubeflow_tpu.scheduler.colocate as jax_colocate
 import kubeflow_tpu.testing.faults as jax_faults
 import kubeflow_tpu_torch.fleet.autoscaler as port_autoscaler
 import kubeflow_tpu_torch.fleet.endpoints as port_endpoints
@@ -34,18 +35,21 @@ import kubeflow_tpu_torch.fleet.router as port_router
 import kubeflow_tpu_torch.operator.kube as port_kube
 import kubeflow_tpu_torch.runtime.prom as port_prom
 import kubeflow_tpu_torch.runtime.tracing as port_tracing
+import kubeflow_tpu_torch.scheduler.colocate as port_colocate
 import kubeflow_tpu_torch.testing.faults as port_faults
-from kubeflow_tpu_torch import NotPortedError
+from torch_control_parity import SLICE_MAP
 
 PACKAGES = {
     "jax": types.SimpleNamespace(
         endpoints=jax_endpoints, router=jax_router,
         autoscaler=jax_autoscaler, kube=jax_kube, prom=jax_prom,
-        tracing=jax_tracing, faults=jax_faults, main=jax_main),
+        tracing=jax_tracing, faults=jax_faults, main=jax_main,
+        colocate=jax_colocate),
     "port": types.SimpleNamespace(
         endpoints=port_endpoints, router=port_router,
         autoscaler=port_autoscaler, kube=port_kube, prom=port_prom,
-        tracing=port_tracing, faults=port_faults, main=port_main),
+        tracing=port_tracing, faults=port_faults, main=port_main,
+        colocate=port_colocate),
 }
 
 # The gauges among them, zeroed before each run so that both packages'
@@ -1136,6 +1140,132 @@ def autoscaler_claims_hook(r):
     r.note("records", out)
 
 
+# -- colocation mode on each package's real ServingClaimClient
+# (test_fleet.py's TestAutoscalerClaims) ----------------------------------
+
+
+def _claim_scaler(r, kube, reg, **kw):
+    kw.setdefault("claims", r.p.colocate.ServingClaimClient(kube, "kf",
+                                                            "srv"))
+    kw.setdefault("target_inflight_per_replica", 4.0)
+    kw.setdefault("min_replicas", 1)
+    kw.setdefault("max_replicas", 8)
+    return r.p.autoscaler.Autoscaler(kube, "kf", "srv", reg, **kw)
+
+
+def _claim_cr(kube):
+    """The claim CR as the arbiter reads it, its slice type named by the
+    port (the claim client's default: v5e-8 in JAX, h100-8 here, eight
+    chips a replica in both)."""
+    cr = kube.get_custom("kf", "serving-srv")
+    spec = dict(cr["spec"], sliceType=SLICE_MAP.get(
+        cr["spec"]["sliceType"], cr["spec"]["sliceType"]))
+    return {"metadata": cr["metadata"], "spec": spec,
+            "status": cr.get("status")}
+
+
+def claims_desire_rides_claim_cr(r):
+    kube = _kube(r, 1)
+    with r.p.faults.injected("seed=0"):
+        out = _claim_scaler(r, kube, _FixedLoad(20.0)).reconcile_once()
+    assert out["applied"] and out["desired"] == 5
+    assert out["claim"]["state"] == "pending"
+    cr = _claim_cr(kube)
+    assert cr["spec"]["numSlices"] == 5
+    assert cr["spec"]["sliceType"] == "h100-8"
+    assert cr["metadata"]["labels"]["kubeflow-tpu.org/workload"] == \
+        "serving"
+    # spec.replicas untouched: the reconciler patches on GRANT.
+    assert _spec_replicas(kube) == 1
+    r.note("records", out)
+    r.note("cr", cr)
+
+
+def claims_scale_to_zero_releases_whole_claim(r):
+    kube = _kube(r, 2)
+    reg = _FixedLoad(8.0)
+    with r.p.faults.injected("seed=0"):
+        scaler = _claim_scaler(r, kube, reg, min_replicas=0)
+        r.note("records", scaler.reconcile_once())
+        r.note("cr", _claim_cr(kube))
+        reg.load = 0.0
+        r.clock.advance(120)
+        out = scaler.reconcile_once()
+    assert out["desired"] == 0
+    assert out["claim"]["state"] == "released"
+    with pytest.raises(r.p.kube.NotFound):
+        kube.get_custom("kf", "serving-srv")
+    assert _spec_replicas(kube) == 0
+    r.note("records", out)
+
+
+def claims_hysteresis_band_never_flaps_claim(r):
+    creates = []
+    kube = _kube(r, 2)
+    create_custom = kube.create_custom
+
+    def counting_create(cr):
+        creates.append(cr["spec"]["numSlices"])
+        return create_custom(cr)
+    kube.create_custom = counting_create
+    reg = _FixedLoad(8.0, ready=2)
+    with r.p.faults.injected("seed=0"):
+        scaler = _claim_scaler(r, kube, reg, tolerance=0.2)
+        r.note("records", scaler.reconcile_once())
+        assert creates == [2]
+        for load in (9.0, 7.0, 9.5, 6.5):
+            reg.load = load
+            r.clock.advance(120)
+            out = scaler.reconcile_once()
+            assert not out["applied"]
+            r.note("records", out)
+    assert creates == [2]   # synced every pass, churned never
+    assert _claim_cr(kube)["spec"]["numSlices"] == 2
+
+
+def claims_denied_claim_reported_and_counted(r):
+    kube = _kube(r, 1)
+    with r.p.faults.injected("seed=0"):
+        scaler = _claim_scaler(r, kube, _FixedLoad(20.0))
+        r.note("records", scaler.reconcile_once())
+        # The arbiter's verdict comes back on the claim status.
+        kube.update_custom_status("kf", "serving-srv",
+                                  {"grantedReplicas": 0, "denied": True})
+        r.clock.advance(11)   # past the up-cooldown: desire holds
+        out = scaler.reconcile_once()
+    assert out["claim"]["state"] == "denied"
+    assert _spec_replicas(kube) == 1
+    r.note("records", out)
+
+
+def claims_no_colocation_restores_direct_patch(r):
+    kube = _kube(r, 1)
+    with r.p.faults.injected("seed=0") as inj:
+        out = _claim_scaler(r, kube, _FixedLoad(20.0),
+                            claims=None).reconcile_once()
+        assert inj.fired("autoscaler.claim") == 0
+    assert out["applied"] and "claim" not in out
+    assert _spec_replicas(kube) == 5
+    assert not kube.list_custom()
+    r.note("records", out)
+
+
+def claims_sync_is_a_fault_site(r):
+    """``autoscaler.claim`` fires on every sync; a raising sync leaves
+    the claim CR and spec.replicas as they were."""
+    kube = _kube(r, 1)
+    client = r.p.colocate.ServingClaimClient(kube, "kf", "srv")
+    with r.p.faults.injected("seed=20260804;autoscaler.claim:raise*1") \
+            as inj:
+        with pytest.raises(r.p.faults.FaultInjected):
+            client.sync(2)
+        assert not kube.list_custom()
+        r.note("synced", client.sync(2))
+        r.note("fired", inj.fired("autoscaler.claim"))
+    assert _claim_cr(kube)["spec"]["numSlices"] == 2
+    assert _spec_replicas(kube) == 1
+
+
 def autoscaler_rejects_zero_target(r):
     with pytest.raises(ValueError, match="target_inflight_per_replica"):
         _scaler(r, _kube(r, 1), _FixedLoad(1.0),
@@ -1193,6 +1323,10 @@ SCRIPTS = {f.__name__: f for f in [
     fetch_seeded_replay_never_fetches, tiers_learned,
     tiers_pipeline_prefill_then_decode, tiers_decode_death_sheds_429,
     autoscaler_cooldowns, autoscaler_claims_hook,
+    claims_desire_rides_claim_cr, claims_scale_to_zero_releases_whole_claim,
+    claims_hysteresis_band_never_flaps_claim,
+    claims_denied_claim_reported_and_counted,
+    claims_no_colocation_restores_direct_patch, claims_sync_is_a_fault_site,
     autoscaler_rejects_zero_target, snapshot_lock_discipline]}
 
 
@@ -1328,23 +1462,72 @@ def test_router_server_surface_matches_jax():
     assert answers["port"][0][-1][0] == 503
 
 
-def test_fleet_main_flags_match_jax_and_colocation_is_refused():
+def test_fleet_main_flags_match_jax_and_colocation_builds_a_claim_client(
+        monkeypatch):
     """The port's entry point takes the JAX entry point's flags with the
     same defaults (the claim shape aside: an H100 gang, where JAX names
     a TPU slice), ``--no-colocation`` keeps the direct patch path, and
-    the colocation mode it would otherwise take raises NotPortedError
-    naming item 18b before anything starts."""
+    without it ``--autoscale_deployment`` builds the scheduler's
+    ``ServingClaimClient`` from the ``--claim_*`` flags, hands it to the
+    autoscaler and the claim's pool snapshot to the router's status
+    route, as JAX's ``main`` does."""
     jax_args = vars(jax_main.build_parser().parse_args([]))
     port_args = vars(port_main.build_parser().parse_args([]))
     assert set(port_args) == set(jax_args)
     differ = {k for k in jax_args if port_args[k] != jax_args[k]}
     assert differ == {"claim_slice_type"}
     assert port_args["claim_slice_type"] == "h100-8"
+    assert SLICE_MAP[jax_args["claim_slice_type"]] == "h100-8"
     assert port_main.build_parser().parse_args(
         ["--no-colocation"]).no_colocation is True
-    with pytest.raises(NotPortedError, match="item 18b"):
-        port_main.main(["--autoscale_deployment", "srv", "--endpoints",
-                        "http://127.0.0.1:1"])
+
+    built = {}
+    for pkg_name, pkg in PACKAGES.items():
+        seen = {}
+
+        class Recorder:
+            def __init__(self, kube, namespace, deployment, registry, **kw):
+                seen["autoscaler"] = (namespace, deployment, kw)
+
+            def start(self, interval_s):
+                seen["interval_s"] = interval_s
+
+            def stop(self):
+                seen["stopped"] = True
+
+        class Router(pkg.router.FleetRouter):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                seen["router"] = self
+
+        stop = threading.Event()
+        stop.set()   # main's signal wait returns at once: drain, exit
+        with monkeypatch.context() as mp:
+            mp.setattr(pkg.main, "Autoscaler", Recorder)
+            mp.setattr(pkg.main, "FleetRouter", Router)
+            mp.setattr(pkg.main, "threading",
+                       types.SimpleNamespace(Event=lambda: stop))
+            mp.setattr(pkg.main, "signal", types.SimpleNamespace(
+                SIGTERM=15, SIGINT=2, signal=lambda *a: None))
+            assert pkg.main.main([
+                "--autoscale_deployment", "srv", "--port", "0",
+                "--host", "127.0.0.1", "--endpoints", "http://127.0.0.1:1",
+                "--kube_base_url", "http://127.0.0.1:1",
+                "--kube_namespace", "kf", "--claim_tenant", "team",
+                "--claim_priority", "normal", "--claim_image", "img:1",
+                "--drain_deadline_s", "0"]) == 0
+        namespace, deployment, kw = seen["autoscaler"]
+        claims = kw.pop("claims")
+        assert isinstance(claims, pkg.colocate.ServingClaimClient)
+        assert seen["router"].pool_status == claims.pool
+        assert seen["stopped"] is True
+        built[pkg_name] = (namespace, deployment, kw, claims.key,
+                           SLICE_MAP.get(claims.slice_type,
+                                         claims.slice_type),
+                           claims.tenant, claims.priority, claims.image)
+    assert built["port"] == built["jax"]
+    assert built["port"][3:] == ("kf/serving-srv", "h100-8", "team",
+                                 "normal", "img:1")
 
 
 def test_fleet_main_runs_the_router_as_a_process():

@@ -171,7 +171,10 @@ def test_main_runs_scenarios_by_name(capsys, monkeypatch):
     with pytest.raises(SystemExit):
         e2e.main(["no_such_scenario", "--device", "cpu"])
     assert set(e2e.SCENARIOS) == {"fleet", "survivable", "kv_spill",
-                                  "multichip_serving", "adapter_serving"}
+                                  "multichip_serving", "adapter_serving",
+                                  "tpujob", "scheduler",
+                                  "train_resilience", "hfta",
+                                  "colocation"}
 
 
 def test_make_http_server_takes_a_server_class_like_jax():

@@ -107,12 +107,20 @@ def test_every_port_module_imports():
         <= set(names)
 
 
-# The fleet tier and its Kubernetes transport: stdlib-only copies of the
-# JAX package's modules.
+# The control plane (the fleet tier, the operator, the cluster scheduler
+# and their Kubernetes transport): stdlib-only copies of the JAX
+# package's modules.
 CONTROL_PLANE = [
     "kubeflow_tpu_torch.operator", "kubeflow_tpu_torch.operator.kube",
     "kubeflow_tpu_torch.operator.crd", "kubeflow_tpu_torch.operator.kube_http",
     "kubeflow_tpu_torch.operator.kube_real",
+    "kubeflow_tpu_torch.operator.gang",
+    "kubeflow_tpu_torch.operator.reconciler",
+    "kubeflow_tpu_torch.operator.main",
+    "kubeflow_tpu_torch.scheduler", "kubeflow_tpu_torch.scheduler.preempt",
+    "kubeflow_tpu_torch.scheduler.policy",
+    "kubeflow_tpu_torch.scheduler.queue", "kubeflow_tpu_torch.scheduler.fuse",
+    "kubeflow_tpu_torch.scheduler.colocate",
     "kubeflow_tpu_torch.testing.fake_apiserver",
     "kubeflow_tpu_torch.fleet", "kubeflow_tpu_torch.fleet.endpoints",
     "kubeflow_tpu_torch.fleet.router", "kubeflow_tpu_torch.fleet.autoscaler",
@@ -122,10 +130,11 @@ CONTROL_PLANE = [
 @pytest.mark.parametrize("module", CONTROL_PLANE)
 def test_control_plane_modules_import_neither_jax_nor_torch(module):
     """The fleet router, endpoint registry, autoscaler and entry point,
-    the TPUJob spec, the kube clients and the fake apiserver import
-    nothing of JAX or the JAX package, and no torch at module level (the
-    registry's gRPC probe imports the serving package only when an
-    endpoint is gRPC-only)."""
+    the operator (gang scheduler, reconciler, entry point), the cluster
+    scheduler, the TPUJob spec, the kube clients and the fake apiserver
+    import nothing of JAX or the JAX package, and no torch at module
+    level (the registry's gRPC probe imports the serving package only
+    when an endpoint is gRPC-only)."""
     rel = module.replace(".", "/")
     path = REPO / (rel + ".py")
     if not path.exists():
@@ -138,6 +147,25 @@ def test_control_plane_modules_import_neither_jax_nor_torch(module):
                                   if isinstance(n, ast.ImportFrom)]
     assert not [m for m in _imports(path) if _forbidden(m)]
     assert not [m for m in names if m.split(".")[0] == "torch"]
+
+
+def test_operator_and_scheduler_load_no_torch():
+    """The operator's entry point, reconciler and the cluster scheduler
+    run without torch: importing them loads none (the reconciler reads
+    the worker env contract from runtime/bootstrap.py, which imports
+    torch only when a worker starts its process group)."""
+    import subprocess
+    import sys
+
+    code = ("import sys, kubeflow_tpu_torch.operator.main, "
+            "kubeflow_tpu_torch.operator.reconciler, "
+            "kubeflow_tpu_torch.scheduler; "
+            "print(sorted(m for m in ('torch', 'jax', 'kubeflow_tpu') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_e2e_twins_import_nothing_of_jax():
