@@ -262,7 +262,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      flash_fwd, flash_dq and flash_dkv causal (R (R + 1) / 2 at R = 4)
      and 16 non-causal, and no other kernel.  (b) tools/train_lm.run on
      bench.py's LM cell with --mesh data=1: the bootstrap's one-process
-     job, a one-rank NCCL group, FSDP2 wrapping; 3 steps' losses within
+     job, a one-rank NCCL group, FSDP2 wrapping; 2 steps' losses within
      1e-3 of phase 7's (same seed and batches), and 12 launches a step
      of flash_fwd, flash_dq and flash_dkv.  (c) the same with --mesh
      sequence=2 --attention ring as 2 processes on the card over gloo
@@ -275,11 +275,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      ms;
  7g. tensor parallelism: tools/train_lm.run on bench.py's LM cell with
      --mesh tensor=2 as 2 processes sharing the one GPU over gloo
-     (KFT_DIST_BACKEND=gloo), 3 steps from phase 7's seed and batches:
+     (KFT_DIST_BACKEND=gloo), 2 steps from phase 7's seed and batches:
      each rank holds half the heads, mlp and vocab (Megatron's column/
      row split, the vocab-parallel embedding and cross-entropy).  The
      ranks' losses equal, finite and within TENSOR_LOSS_ATOL of phase
-     7's; each rank launches exactly 36 each of flash_fwd, flash_dq and
+     7's; each rank launches exactly 24 each of flash_fwd, flash_dq and
      flash_dkv (one a layer a step), every one at bh 32 (8 rows x 4
      local heads), and none of the other kernels; the forward and
      backward at bh 32 against their plain versions within phase 2's
@@ -290,12 +290,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      bf16 (32 MB) alone;
  7h. pipeline parallelism (GPipe): tools/train_lm.run on bench.py's LM
      cell with --mesh pipeline=2 --pipeline-microbatches 4 as 2 processes
-     sharing the one GPU over gloo (KFT_DIST_BACKEND=gloo), 3 steps from
+     sharing the one GPU over gloo (KFT_DIST_BACKEND=gloo), 2 steps from
      phase 7's seed and batches: each stage holds 6 of the 12 layers and
      runs them on 4 microbatches of 2 rows (parallel/pipeline.py, the
      hops and broadcasts staged through host memory).  The ranks' losses
      equal, finite and within 1e-3 of phase 7's; each rank launches
-     exactly 72 each of flash_fwd, flash_dq and flash_dkv (24 a step),
+     exactly 48 each of flash_fwd, flash_dq and flash_dkv (24 a step),
      every one at bh 16, and none of the other kernels; one stage's
      forward and backward at bh 16 against their plain versions within
      phase 2's bounds; the phase within 90 s.  Information only: each
@@ -304,7 +304,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      GPipe's bubble share, a profiled step's busy share and its peak
      memory;
  7i. MoE over a mesh: tools/train_lm.run on bench.py's lm_moe cell
-     (phase 7c's model) as 2 processes sharing the one GPU over gloo, 3
+     (phase 7c's model) as 2 processes sharing the one GPU over gloo, 2
      steps each, with --mesh data=2 and adafactor (bench.py's own layout
      at 2 chips: 4 rows a rank, the aux from the per-expert statistics
      summed over the data ranks) and with --mesh expert=2 and adamw (2 of
@@ -315,7 +315,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      process's global one and ten times nearer it than the mean of the
      ranks' own auxes; the first step's loss, grad_norm and routers'
      gradient norm within 1e-4 (data) or 3e-3 (expert) relative of that
-     process's; each rank launches exactly 36 each of flash_fwd,
+     process's; each rank launches exactly 24 each of flash_fwd,
      flash_dq and flash_dkv (12 a step), at bh 32 (data) or 64
      (expert), and none of the other kernels; the forward and backward
      at bh 32 and 64 against their plain versions within phase 2's
@@ -332,14 +332,14 @@ Phases, each fatal on failure (exit code 1, no result line):
      process on the 8 rows;
  7j. adafactor over a mesh: tools/train_lm.run on bench.py's LM cell with
      --optimizer adafactor as 2 processes sharing the one GPU over gloo,
-     3 steps each, the two jobs side by side: --mesh fsdp=2 (4 rows a
+     2 steps each, the two jobs side by side: --mesh fsdp=2 (4 rows a
      rank; FSDP2 shards every weight's embed dim, and the factored
      statistics' means over it are all-reduced) and --mesh tensor=2 (all
      8 rows; the heads, mlp and vocab split).  For each: the ranks' losses
      equal, finite and within the job's bound of one process with
      adafactor on the same global batch from the same seed; the first
      step's loss and grad_norm within the job's relative bound of that
-     process's; each rank launches exactly 36 each of flash_fwd, flash_dq
+     process's; each rank launches exactly 24 each of flash_fwd, flash_dq
      and flash_dkv (12 a step), all at bh 32, and none of the other
      kernels; the forward and backward at bh 32 against their plain
      versions within phase 2's bounds; the phase within 90 s.
@@ -362,6 +362,27 @@ Phases, each fatal on failure (exit code 1, no result line):
      within 90 s.  Information only: each rank's step ms against phase
      7e's fused step, the gradient all-reduce's bytes and ms, a profiled
      step's busy share and its peak memory;
+ 7l. the fused trainer over the model axes: a 2-member gang (m0, m1 from
+     seeds 0 and 1 at lr 1e-3 and 2e-3, m1 stopping at step 1) on the
+     188M LM (remat, adamw) as one job of 2 processes sharing the GPU
+     over gloo that builds four meshes in turn: tensor=2, sequence=2
+     (the ring), expert=2 (bench.py's lm_moe cell) and pipeline=2 (2
+     microbatches), 2 fused steps each on a global 4 x 2048 batch.  For
+     each: the ranks' per-member losses equal and finite; against one
+     process's FusedTrainer without a mesh on the same members and rows,
+     the first step's losses within 1e-3 and grad_norms within 3e-3
+     (relative), the second step's losses within 1e-2; m1 bit-equal to
+     its step-1 state (checksums of its bits); each rank launches
+     exactly the flash_fwd, flash_dq and flash_dkv counts worked out
+     from its layers, microbatches and live ring hops (HFTA_AXES), all
+     at the (bh, s, causal) worked out from the members, its rows, heads
+     and sequence shard and its hops, and no other kernel; the forward
+     and backward at each such shape (bh 32 and 64 at s 2048 causal, bh
+     64 at s 1024 causal and non-causal) against their plain versions
+     within phase 2's bounds; the phase within 180 s.  Information only:
+     each axis's step ms a rank, its all-reduces and hops a step (count,
+     bytes, ms; host staging over gloo on one GPU, not NCCL) and its
+     peak memory;
   8. gradients: one step's gradients of the bf16 model (full width and
      depth, batch 2 x 2048) through the kernels (single pass, then two
      passes) and through the plain versions, each held to a float32 run
@@ -718,14 +739,14 @@ RING_F32_REL_TOL = {"o": 5e-3, "dq": 5e-3, "dk": 5e-3, "dv": 5e-3}
 RING_JOB_TIMEOUT_S = 300
 # The mesh trainer: --mesh data=1 for MESH_STEPS steps, each loss within
 # MESH_LOSS_ATOL of phase 7's (phase 7d's bound).
-MESH_STEPS, MESH_LOSS_ATOL = 3, 1e-3
+MESH_STEPS, MESH_LOSS_ATOL = 2, 1e-3
 # The ring trainer: --mesh sequence=2 --attention ring at the same cell
 # as RING_TRAIN_WORLD processes sharing the GPU over gloo
 # (KFT_DIST_BACKEND=gloo: gloo moves FSDP2's collectives of CUDA tensors
 # on the card's torch, and the ring stages its hops through host memory),
 # each loss within MESH_LOSS_ATOL of phase 7's on the same global batch
 # (sound reading: 4.67e-4, the ring's merge rounding otherwise).
-RING_TRAIN_WORLD, RING_TRAIN_STEPS, RING_TRAIN_TIMEOUT_S = 2, 3, 300
+RING_TRAIN_WORLD, RING_TRAIN_STEPS, RING_TRAIN_TIMEOUT_S = 2, 2, 300
 # Phase 7g: --mesh tensor=TENSOR_WORLD at the same cell as TENSOR_WORLD
 # processes sharing the GPU over gloo, each loss within TENSOR_LOSS_ATOL
 # of phase 7's.  Each row-parallel projection's output is two bf16
@@ -735,7 +756,7 @@ RING_TRAIN_WORLD, RING_TRAIN_STEPS, RING_TRAIN_TIMEOUT_S = 2, 3, 300
 # positions (predicted 1e-4 to 3e-3); a wrong slice or a missed
 # reduction moves the activations by O(1).  TENSOR_LOCAL_BH: the flash
 # kernels' batch x heads a rank (8 rows x 8 / TENSOR_WORLD heads).
-TENSOR_WORLD, TENSOR_STEPS, TENSOR_TIMEOUT_S = 2, 3, 300
+TENSOR_WORLD, TENSOR_STEPS, TENSOR_TIMEOUT_S = 2, 2, 300
 TENSOR_LOSS_ATOL = 1e-2
 TENSOR_LOCAL_BH = TRAIN_BATCH * MODEL["n_heads"] // TENSOR_WORLD
 # Phase 7h: --mesh pipeline=PIPE_WORLD --pipeline-microbatches PIPE_MICRO
@@ -746,7 +767,7 @@ TENSOR_LOCAL_BH = TRAIN_BATCH * MODEL["n_heads"] // TENSOR_WORLD
 # O(1)).  Each rank runs its 6 layers on 4 microbatches of 2 rows: the
 # flash kernels at bh PIPE_LOCAL_BH (2 rows x 8 heads), PIPE_PER_STEP
 # times a step each.  The phase must end within PIPE_PHASE_S.
-PIPE_WORLD, PIPE_MICRO, PIPE_STEPS, PIPE_TIMEOUT_S = 2, 4, 3, 240
+PIPE_WORLD, PIPE_MICRO, PIPE_STEPS, PIPE_TIMEOUT_S = 2, 4, 2, 240
 PIPE_LOCAL_BH = TRAIN_BATCH // PIPE_MICRO * MODEL["n_heads"]
 PIPE_PER_STEP = MODEL["n_layers"] // PIPE_WORLD * PIPE_MICRO
 PIPE_PHASE_S = 90.0
@@ -773,7 +794,7 @@ PIPE_PHASE_S = 90.0
 # Sound readings (NVIDIA H100 80GB HBM3 at 700 W): 1.5e-4 from the
 # global aux, where that mean stood 7.4e-2 from it.  The phase must end
 # within MOE_MESH_PHASE_S.
-MOE_MESH_WORLD, MOE_MESH_STEPS, MOE_MESH_TIMEOUT_S = 2, 3, 180
+MOE_MESH_WORLD, MOE_MESH_STEPS, MOE_MESH_TIMEOUT_S = 2, 2, 180
 MOE_MESH_LOSS_ATOL, MOE_MESH_AUX_RTOL = 1e-3, 1e-3
 # The first step (before the optimizer moves the router, whose collapse
 # under adamw makes the later losses ride on near ties): its loss,
@@ -809,7 +830,7 @@ MOE_MESH_JOBS = {
 # first step).  Every rank's flash kernels run at bh 32 (4 rows x 8
 # heads, 8 rows x 4 heads).  The phase must end within
 # ADAFACTOR_MESH_PHASE_S.
-ADAFACTOR_MESH_WORLD, ADAFACTOR_MESH_STEPS = 2, 3
+ADAFACTOR_MESH_WORLD, ADAFACTOR_MESH_STEPS = 2, 2
 ADAFACTOR_MESH_TIMEOUT_S, ADAFACTOR_MESH_PHASE_S = 240, 90.0
 ADAFACTOR_MESH_BH = 32
 ADAFACTOR_MESH_JOBS = {
@@ -835,6 +856,63 @@ HFTA_MESH_WORLD, HFTA_MESH_STEPS, HFTA_MESH_TIMEOUT_S = 2, 3, 300
 HFTA_MESH_BH = HFTA_MEMBERS * TRAIN_BATCH // HFTA_MESH_WORLD * MODEL[
     "n_heads"]
 HFTA_MESH_PHASE_S = 90.0
+# Phase 7l: the fused trainer over the model axes (ROADMAP item 28 done):
+# a HFTA_AXES_MEMBERS-member gang (m0 and m1 from seeds 0 and 1 at lr
+# 1e-3 and 2e-3, m1 stopping at step HFTA_AXES_STOP) on bench.py's LM at
+# its widths and 12 layers (remat, adamw, bf16), a global
+# HFTA_AXES_ROWS x 2048 batch (4 of the cell's 8 rows, to fit the
+# command's time limit), HFTA_AXES_STEPS fused steps, as one job of
+# HFTA_AXES_WORLD processes sharing the GPU over gloo that builds each
+# mesh of HFTA_AXES in turn (one cold start for the four).  Each entry:
+# the mesh, the config's overrides (expert: bench.py's lm_moe cell), and
+# for each rank its kernels' launches a fused step and the (bh, s,
+# causal) of those launches, worked out from the members, the rank's
+# rows and heads, its layers, microbatches and live ring hops:
+#   tensor=2: all 4 rows, 4 of the 8 heads: bh 2 x 4 x 4 = 32 at s 2048,
+#     causal, 12 layers;
+#   sequence=2: all 4 rows at half the sequence, 8 heads: bh 2 x 4 x 8 =
+#     64 at s 1024; the causal ring's live hops are rank 0's diagonal
+#     (causal) and rank 1's diagonal and the hop of rank 0's shard behind
+#     it (non-causal), once a layer each: 12 and 24 (12 + 12);
+#   expert=2: all 4 rows, 8 heads: bh 64 at s 2048, causal, 12 layers;
+#   pipeline=2, 2 microbatches: a stage's 6 layers once a microbatch, a
+#     microbatch of 2 rows: bh 2 x 2 x 8 = 32 at s 2048, causal, 12.
+# Each axis must give equal, finite per-member losses on both ranks; at
+# the first step losses within HFTA_LOSS_ATOL and grad_norms within
+# HFTA_AXES_GRAD_RTOL (relative) of one process's FusedTrainer without a
+# mesh on the same members and rows (dense, or the lm_moe cell), at the
+# second step losses within HFTA_AXES_LATER_ATOL of that process's; m1
+# bit-equal to its state at its stop (checksums); exactly those launches
+# at those shapes and no other kernel; the kernels at each shape against
+# their plain versions.  The first grad_norm is the backward through the
+# members' vmap rules, the sum over the batch ranks and the grad norm's
+# sums over the split axes: each rank's bf16 partial sums round otherwise
+# than one device's (7i's expert job read 3.2e-4 on it, 7j's tensor job
+# 1.1e-4, both at 3e-3), and a split leaf's squares left unsummed over
+# its group, or a gradient over the sequence group, moves it by 10% or
+# more.  The second step's losses carry the update: adamw's first step
+# moves each weight by about lr whatever its gradient's size, so an
+# element whose gradient rounds to the other sign moves by 2 lr; the four
+# axes' second-step losses of this phase's first card run spread over
+# 8.3e-4 (m0, lr 1e-3) and 2.19e-3 (m1, lr 2e-3), NVIDIA H100 80GB HBM3
+# at 700 W.  The bound is 7g's 1e-2, where m0 and m1 part by 0.21 at that
+# step.  The phase must end within HFTA_AXES_PHASE_S.
+HFTA_AXES_MEMBERS, HFTA_AXES_STOP, HFTA_AXES_STEPS = 2, 1, 2
+HFTA_AXES_WORLD, HFTA_AXES_ROWS, HFTA_AXES_TIMEOUT_S = 2, 4, 420
+HFTA_AXES_GRAD_RTOL, HFTA_AXES_LATER_ATOL = 3e-3, 1e-2
+_FULL_32 = (12, [(32, TRAIN_SEQ, True)])
+_FULL_64 = (12, [(64, TRAIN_SEQ, True)])
+HFTA_AXES = {
+    "tensor": ({"tensor": 2}, {}, [_FULL_32, _FULL_32]),
+    "sequence": ({"sequence": 2}, {"attention": "ring"},
+                 [(12, [(64, TRAIN_SEQ // 2, True)]),
+                  (24, [(64, TRAIN_SEQ // 2, True),
+                        (64, TRAIN_SEQ // 2, False)])]),
+    "expert": ({"expert": 2}, MOE, [_FULL_64, _FULL_64]),
+    "pipeline": ({"pipeline": 2}, {"pipeline_microbatches": 2},
+                 [_FULL_32, _FULL_32]),
+}
+HFTA_AXES_PHASE_S = 180.0
 # Phase 7i's data job also takes one forward and backward of its model
 # with the gather dispatch in routing groups of SPANNING_GROUP tokens,
 # twice a rank's 4 x 2048 (ROADMAP item 27 done: each group spans both
@@ -5704,6 +5782,20 @@ def result(launches, peak, **fields):
     print("RESULT " + json.dumps(dict(
         launches=launches, bh=sorted(shapes), peak_gib=peak, **fields)),
         flush=True)
+
+
+def digest(t):
+    # Two sums of the tensor's bits (the second weighted by position):
+    # equal tensors give equal pairs, a flipped bit another pair.
+    t = t.detach().contiguous()
+    bits = t.view(torch.int32 if t.element_size() == 4 else
+                  torch.int64).flatten().to(torch.int64)
+    w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return [int(bits.sum()), int((bits * w).sum())]
+
+
+def member_digest(state, i):
+    return {k: digest(v[i]) for k, v in state.params.items()}
 """
 
 # One rank of the tensor-parallel trainer: its gloo all-reduces a step,
@@ -5911,19 +6003,20 @@ result(launches, peak, moved_per_step=per_step, profiled_step_ms=wall,
 """
 
 
-def path_kernels(torch, flash, bh: int, what: str):
+def path_kernels(torch, flash, bh: int, what: str, seq: int = TRAIN_SEQ,
+                 causal: bool = True):
     """The training kernels at a mesh path's shape (``what`` names it):
-    [bh, 2048, 128] bf16, one launch of each of the forward and the
-    backward, o and lse against the forward's plain version, dq, dk and
-    dv against the backward's plain version on the kernel's own o and
-    lse, within phase 2's bounds."""
+    [bh, seq, 128] bf16, causal or not, one launch of each of the forward
+    and the backward, o and lse against the forward's plain version, dq,
+    dk and dv against the backward's plain version on the kernel's own o
+    and lse, within phase 2's bounds."""
     d = MODEL["head_dim"]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    q, k, v, g = (torch.randn(bh, TRAIN_SEQ, d, device="cuda",
+    q, k, v, g = (torch.randn(bh, seq, d, device="cuda",
                               generator=gen).bfloat16() for _ in range(4))
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     before = dict(flash.launch_counts)
-    o, lse = flash._FlashFunction.apply(q, k, v, True, 512, 512, 0)
+    o, lse = flash._FlashFunction.apply(q, k, v, causal, 512, 512, 0)
     o.backward(g)
     torch.cuda.synchronize()
     once = {n: flash.launch_counts[n] - before[n] for n in TRAIN_KERNELS}
@@ -5931,21 +6024,22 @@ def path_kernels(torch, flash, bh: int, what: str):
         fail(f"{what}'s kernels did not launch once each: {once}")
     qd, kd, vd = q.detach(), k.detach(), v.detach()
     ro, rlse = flash.flash_fwd_reference(qd.float(), kd.float(), vd.float(),
-                                         causal=True)
+                                         causal=causal)
+    shape = f"bh {bh}, s {seq}{'' if causal else ' non-causal'}"
     row = compare_out(torch, "flash_fwd", o.detach(), lse, ro, rlse,
-                      f"{what}'s call at bh {bh}")
+                      f"{what}'s call at {shape}")
     worst = {"o": row["rel_err_o"], "lse": row["max_abs_err_lse"]}
     delta = (g.float() * o.detach().float()).sum(-1)
     want = flash.flash_bwd_reference(qd, kd, vd, g, lse.detach(), delta,
-                                     causal=True)
+                                     causal=causal)
     for name, got, ref in zip(("dq", "dk", "dv"), (q.grad, k.grad, v.grad),
                               want):
         rel, mx, ok, finite = _bwd_errors(torch, got, ref)
         worst[name] = rel
         if not (ok and finite and rel <= BWD_REL_TOL):
-            fail(f"{what}'s {name} at bh {bh} disagrees with the plain "
+            fail(f"{what}'s {name} at {shape} disagrees with the plain "
                  f"version: relative {rel:.3e}, max {mx:.3e}")
-    log(f"{what}'s kernels at bh {bh}: o relative {worst['o']:.3e}, "
+    log(f"{what}'s kernels at {shape}: o relative {worst['o']:.3e}, "
         f"lse {worst['lse']:.3e}, dq {worst['dq']:.3e}, dk "
         f"{worst['dk']:.3e}, dv {worst['dv']:.3e} (bounds {O_REL_TOL}, "
         f"{LSE_ATOL}, {BWD_REL_TOL})")
@@ -6651,20 +6745,6 @@ ft = FusedTrainer(init_fn=init_fn, loss_fn=loss_fn,
 body, profiled, losses, m1 = ft._fused_step, {}, [], {}
 
 
-def digest(t):
-    # Two sums of the tensor's bits (the second weighted by position):
-    # equal tensors give equal pairs, a flipped bit another pair.
-    t = t.detach().contiguous()
-    bits = t.view(torch.int32 if t.element_size() == 4 else
-                  torch.int64).flatten().to(torch.int64)
-    w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
-    return [int(bits.sum()), int((bits * w).sum())]
-
-
-def member_digest(state, i):
-    return {k: digest(v[i]) for k, v in state.params.items()}
-
-
 def fused_step(state, active, stops, batch):
     if len(losses) < steps - 1:
         out = body(state, active, stops, batch)
@@ -6719,9 +6799,10 @@ result(launches, peak, losses=losses, steps=state.step.tolist(),
 """
 
 
-def hfta_mesh_reference(torch, batch):
-    """One process's fused step (phase 7e's gang without a mesh) on the
-    global ``batch``: each member's loss."""
+def hfta_mesh_reference(torch, batch, members=None, steps=1, **over):
+    """One process's ``steps`` fused steps (phase 7e's gang without a
+    mesh, or ``members`` on the model with ``over``) on the global
+    ``batch``: each step's per-member losses and grad_norms."""
     from kubeflow_tpu_torch.models.transformer import (
         TransformerConfig,
         lm_task,
@@ -6729,18 +6810,28 @@ def hfta_mesh_reference(torch, batch):
     from kubeflow_tpu_torch.runtime.hfta import FusedTrainer
     from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
 
+    members = members or hfta_members()
     cfg = TransformerConfig(**dict(MODEL, max_seq_len=TRAIN_SEQ,
-                                   dtype=torch.bfloat16, remat=True))
+                                   dtype=torch.bfloat16, remat=True,
+                                   **over))
     init_fn, loss_fn = lm_task(cfg, device="cuda")
     ft = FusedTrainer(init_fn=init_fn, loss_fn=loss_fn,
-                      members=hfta_members(), device="cuda",
+                      members=members, device="cuda",
                       metrics=MetricsLogger(stream=open(os.devnull, "w")))
-    ft.fit(itertools.repeat(batch), 1, log_every=1)
-    losses = [ft.last_metrics[f"loss/m{i}"] for i in range(HFTA_MEMBERS)]
-    del ft
+    body, losses, norms = ft._fused_step, [], []
+
+    def fused_step(state, active, stops, batch):
+        out = body(state, active, stops, batch)
+        losses.append(out[2]["loss"].tolist())
+        norms.append(out[2]["grad_norm"].tolist())
+        return out
+
+    ft.compile_step = lambda: fused_step
+    ft.fit(itertools.repeat(batch), steps, log_every=1)
+    del ft, body
     gc.collect()
     torch.cuda.empty_cache()
-    return losses
+    return {"losses": losses, "grad_norms": norms}
 
 
 def hfta_mesh_phase(torch, flash, hfta_info, workdir: Path):
@@ -6766,7 +6857,7 @@ def hfta_mesh_phase(torch, flash, hfta_info, workdir: Path):
         0, MODEL["vocab_size"], size=(rows, TRAIN_SEQ)).astype(np.int32)}
     # Before the ranks start: three gangs of 4 x 188M do not fit the card
     # together.
-    ref = hfta_mesh_reference(torch, batch)
+    ref = hfta_mesh_reference(torch, batch)["losses"][0]
     ref_s = time.perf_counter() - t_phase
     log(f"hfta mesh: this process holds "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
@@ -6850,6 +6941,286 @@ def hfta_mesh_phase(torch, flash, hfta_info, workdir: Path):
                                 for r in ranks],
                       "ref_s": ref_s, "job_s": job_s, "kernels": kernels,
                       "phase_s": phase_s}
+
+
+# One rank of the fused trainer over the model axes (phase 7l): for each
+# mesh of the spec in turn, FusedTrainer(mesh=...).fit on the global batch
+# with the launch counters zeroed just before and read just after, the
+# (kind, bh, s, causal) of every flash call, each fused step's per-member
+# losses and grad_norms, checksums of m1's rows at its stop and
+# at the end, the gloo all-reduces and the hops of the ring and of the
+# pipeline (count, bytes, host seconds), the step times and the peak
+# memory.  Started as ``python -c SCRIPT OUT_DIR STEPS SPEC_JSON``.
+_HFTA_AXES_RANK = _RANK_PRELUDE + r"""
+import gc
+import itertools
+from kubeflow_tpu_torch.models.transformer import TransformerConfig, lm_task
+from kubeflow_tpu_torch.parallel import p2p, ring
+from kubeflow_tpu_torch.parallel.mesh import MeshSpec
+from kubeflow_tpu_torch.runtime import bootstrap
+from kubeflow_tpu_torch.runtime.hfta import FusedTrainer, MemberSpec
+from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
+spec = json.loads(sys.argv[3])
+bootstrap.initialize(device="cuda")
+moved, calls = {}, set()
+
+
+def detailed(fn, kind):
+    def call(q, *args, causal, **kw):
+        calls.add((kind, q.shape[0], q.shape[1], bool(causal)))
+        return fn(q, *args, causal=causal, **kw)
+    return call
+
+
+flash.flash_fwd = detailed(flash.flash_fwd, "fwd")
+flash.flash_bwd = detailed(flash.flash_bwd, "bwd")
+
+
+def tally(kind, nbytes, seconds):
+    rec = moved.setdefault(kind, {"calls": 0, "bytes": 0, "s": 0.0})
+    rec["calls"] += 1
+    rec["bytes"] += nbytes
+    rec["s"] += seconds
+
+
+def size(ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+class Rotation(p2p.Rotation):
+    def __init__(self, tensors, *args, **kw):
+        t0 = time.perf_counter()
+        super().__init__(tensors, *args, **kw)
+        self.kft_bytes, self.kft_s = size(tensors), time.perf_counter() - t0
+
+    def wait(self):
+        t0 = time.perf_counter()
+        out = super().wait()
+        tally("ring hop", self.kft_bytes,
+              self.kft_s + time.perf_counter() - t0)
+        return out
+
+
+class Send(p2p.Send):
+    def __init__(self, t, *args, **kw):
+        t0 = time.perf_counter()
+        super().__init__(t, *args, **kw)
+        self.kft_bytes, self.kft_s = size([t]), time.perf_counter() - t0
+
+    def wait(self):
+        t0 = time.perf_counter()
+        super().wait()
+        tally("send", self.kft_bytes, self.kft_s + time.perf_counter() - t0)
+
+
+def timed(kind, fn):
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        tally(kind, size([out]), time.perf_counter() - t0)
+        return out
+    return call
+
+
+ring.Rotation, p2p.Send = Rotation, Send
+p2p.recv = timed("recv", p2p.recv)
+p2p.broadcast = timed("broadcast", p2p.broadcast)
+batch = {"tokens": np.random.RandomState(spec["seed"]).randint(
+    0, spec["model"]["vocab_size"],
+    size=(spec["rows"], spec["model"]["max_seq_len"])).astype(np.int32)}
+axes = {}
+for axis, (sizes, over) in spec["meshes"].items():
+    mesh = MeshSpec(**sizes).build("cuda")
+    cfg = TransformerConfig(**dict(spec["model"], **over,
+                                   dtype=torch.bfloat16, remat=True))
+    init_fn, loss_fn = lm_task(cfg, device="cuda", mesh=mesh)
+    ft = FusedTrainer(init_fn=init_fn, loss_fn=loss_fn,
+                      members=[MemberSpec(**m) for m in spec["members"]],
+                      mesh=mesh, device="cuda", metrics=MetricsLogger(
+                          stream=open(os.devnull, "w")))
+    body, losses, norms, m1 = ft._fused_step, [], [], {}
+
+    def fused_step(state, active, stops, batch):
+        out = body(state, active, stops, batch)
+        losses.append(out[2]["loss"].tolist())
+        norms.append(out[2]["grad_norm"].tolist())
+        if len(losses) == spec["stop"]:
+            m1["at_stop"] = member_digest(out[0], 1)
+        return out
+
+    ft.compile_step = lambda: fused_step
+    calls.clear()
+    reduces.clear()
+    moved.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in flash.launch_counts:
+        flash.launch_counts[key] = 0
+    state = ft.fit(itertools.repeat(batch), steps, log_every=1)
+    torch.cuda.synchronize()
+    launches = dict(flash.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per = {"all-reduce": {"calls": len(reduces),
+                          "bytes": sum(c[1] for c in reduces),
+                          "s": sum(c[2] for c in reduces)}, **moved}
+    axes[axis] = {
+        "launches": launches, "shapes": sorted(calls), "peak_gib": peak,
+        "losses": losses, "grad_norms": norms, "steps": state.step.tolist(),
+        "m1_frozen": m1["at_stop"] == member_digest(state, 1),
+        "step_ms": [r["step_time_s"] * 1e3 for r in ft.metrics.history
+                    if r.get("event") == "train_step"],
+        "per_step": {k: {"calls": v["calls"] / steps,
+                         "bytes": v["bytes"] / steps,
+                         "ms": v["s"] * 1e3 / steps}
+                     for k, v in per.items()}}
+    del ft, state, body, init_fn, loss_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+print("RESULT " + json.dumps(axes), flush=True)
+"""
+
+
+def hfta_axes_phase(torch, flash, workdir: Path):
+    """Phase 7l: the HFTA_AXES_MEMBERS-member gang over each model axis of
+    HFTA_AXES, one job of HFTA_AXES_WORLD processes on the one GPU over
+    gloo, HFTA_AXES_STEPS fused steps a mesh on a global HFTA_AXES_ROWS x
+    2048 batch: for each axis every rank's losses equal and finite; the
+    first step's losses within HFTA_LOSS_ATOL and grad_norms within
+    HFTA_AXES_GRAD_RTOL of one process's fused step on the same rows, the
+    second's losses within HFTA_AXES_LATER_ATOL; m1 frozen at its stop;
+    each rank's launches and their (bh, s, causal) those of HFTA_AXES;
+    the kernels at each of those shapes against their plain versions; the
+    phase within HFTA_AXES_PHASE_S.  Information: each axis's step ms,
+    all-reduces and hops a step and peak memory a rank."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.runtime.hfta import MemberSpec
+    from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    seed = SEED + 13
+    batch = {"tokens": np.random.RandomState(seed).randint(
+        0, MODEL["vocab_size"], size=(HFTA_AXES_ROWS, TRAIN_SEQ)).astype(
+            np.int32)}
+    members = [dict(name=f"m{i}", seed=i, lr=1e-3 * (i + 1),
+                    stop_step=HFTA_AXES_STOP if i == 1 else None)
+               for i in range(HFTA_AXES_MEMBERS)]
+    specs = [MemberSpec(**m) for m in members]
+    # One process without a mesh, before the ranks start: the dense
+    # model's control for tensor, sequence and pipeline, the lm_moe
+    # cell's for expert.
+    refs = {"dense": hfta_mesh_reference(torch, batch, specs,
+                                         HFTA_AXES_STEPS),
+            "moe": hfta_mesh_reference(torch, batch, specs,
+                                       HFTA_AXES_STEPS, **MOE)}
+    ref_s = time.perf_counter() - t_phase
+    out = workdir / "hfta_axes"
+    out.mkdir()
+    model = dict(MODEL, max_seq_len=TRAIN_SEQ)
+    del model["dtype"]
+    spec = {"rows": HFTA_AXES_ROWS, "seed": seed, "stop": HFTA_AXES_STOP,
+            "model": model, "members": members,
+            "meshes": {axis: (sizes, over) for axis, (sizes, over, _)
+                       in HFTA_AXES.items()}}
+    results = run_ranks(
+        ["-c", _HFTA_AXES_RANK, str(out), str(HFTA_AXES_STEPS),
+         json.dumps(spec)], HFTA_AXES_WORLD, timeout_s=HFTA_AXES_TIMEOUT_S,
+        cwd=str(Path(__file__).resolve().parent),
+        env=dict(os.environ, KFT_DIST_BACKEND="gloo",
+                 PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    job_s = time.perf_counter() - t_phase - ref_s
+    try:
+        check_ranks(results)
+    except RuntimeError as e:
+        fail(f"the fused trainer over the model axes failed: {e}")
+    ranks = [json.loads(next(ln for ln in r.stdout.splitlines()
+                             if ln.startswith("RESULT "))[7:])
+             for r in results]
+    launches = {k: 0 for k in flash.launch_counts}
+    info = {"reference": refs, "ref_s": ref_s, "job_s": job_s}
+    for axis, (sizes, over, per_rank) in HFTA_AXES.items():
+        ref = refs["moe" if over is MOE else "dense"]
+        got = [r[axis] for r in ranks]
+        for r, rank in enumerate(got):
+            per_step, at = per_rank[r]
+            want = {k: 0 for k in flash.launch_counts}
+            want.update({k: per_step * HFTA_AXES_STEPS
+                         for k in TRAIN_KERNELS})
+            shapes = sorted([kind, *shape] for kind in ("bwd", "fwd")
+                            for shape in at)
+            log(f"hfta {axis}=2 rank {r}: launches {rank['launches']} "
+                f"(want {want}); kernels at [kind, bh, s, causal] "
+                f"{rank['shapes']} (want {shapes})")
+            if rank["launches"] != want:
+                fail(f"hfta {axis}=2 rank {r} launches "
+                     f"{rank['launches']}, want {want}")
+            if sorted(rank["shapes"]) != shapes:
+                fail(f"hfta {axis}=2 rank {r} ran the kernels at "
+                     f"{rank['shapes']}, want {shapes}")
+            for k in launches:
+                launches[k] += rank["launches"][k]
+        losses, norms = got[0]["losses"], got[0]["grad_norms"]
+        first = max(abs(a - b) for a, b in zip(losses[0], ref["losses"][0]))
+        later = max(abs(a - b) for step, want in zip(losses[1:],
+                                                     ref["losses"][1:])
+                    for a, b in zip(step, want))
+        grad = max(abs(a - b) / b
+                   for a, b in zip(norms[0], ref["grad_norms"][0]))
+        shown = [[round(x, 5) for x in step] for step in ref["losses"]]
+        log(f"hfta {axis}=2: per-member losses "
+            f"{[[round(x, 5) for x in step] for step in losses]} on every "
+            f"rank: {all(g['losses'] == losses for g in got)}; one "
+            f"process's {shown}: max |diff| {first:.2e} at the first step "
+            f"(bound {HFTA_LOSS_ATOL}), {later:.2e} after it (bound "
+            f"{HFTA_AXES_LATER_ATOL}); first grad_norms "
+            f"{[round(x, 5) for x in norms[0]]} against "
+            f"{[round(x, 5) for x in ref['grad_norms'][0]]}: relative "
+            f"{grad:.2e} (bound {HFTA_AXES_GRAD_RTOL}); member steps "
+            f"{got[0]['steps']}; m1 bit-equal to its step-{HFTA_AXES_STOP} "
+            f"state on every rank: {all(g['m1_frozen'] for g in got)}")
+        for r, rank in enumerate(got):
+            moved = "; ".join(
+                f"{k} {v['calls']:.0f} ({v['bytes'] / 2 ** 20:.1f} MiB, "
+                f"{v['ms']:.1f} ms)" for k, v in rank["per_step"].items())
+            log(f"hfta {axis}=2 rank {r}: steps "
+                f"{[round(x, 1) for x in rank['step_ms']]} ms (the first "
+                f"carries the first step's start-up), peak "
+                f"{rank['peak_gib']:.2f} GiB; a step's {moved} (both ranks "
+                f"on one GPU over gloo, staged through host memory: host "
+                f"staging, not NCCL; host clock; information only)")
+        if not (len(losses) == HFTA_AXES_STEPS
+                and all(g["losses"] == losses for g in got)
+                and all(math.isfinite(x) for step in losses for x in step)
+                and first <= HFTA_LOSS_ATOL
+                and later <= HFTA_AXES_LATER_ATOL
+                and grad <= HFTA_AXES_GRAD_RTOL
+                and all(g["m1_frozen"] for g in got)
+                and got[0]["steps"] == [HFTA_AXES_STEPS, HFTA_AXES_STOP]):
+            fail(f"the fused trainer over {axis}=2: losses differ across "
+                 f"ranks, are not finite or too far from one process's, "
+                 f"the grad_norms too far from its, or m1 moved: "
+                 f"{[g['losses'] for g in got]}, {ref}, "
+                 f"{[g['steps'] for g in got]}, "
+                 f"{[g['m1_frozen'] for g in got]}")
+        info[axis] = {"losses": losses, "grad_norms": norms,
+                      "first_diff": first, "later_diff": later,
+                      "grad_rel": grad, "steps": got[0]["steps"],
+                      "ranks": got}
+    shapes = sorted({shape for _, _, per_rank in HFTA_AXES.values()
+                     for _, at in per_rank for shape in at})
+    info["kernels"] = {
+        f"{bh}x{seq}{'' if causal else 'n'}": path_kernels(
+            torch, flash, bh, "a fused model-axis rank", seq, causal)
+        for bh, seq, causal in shapes}
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 7l took {phase_s:.1f} s (the controls {ref_s:.1f} s, the "
+        f"ranks' job {job_s:.1f} s; bound {HFTA_AXES_PHASE_S})")
+    if phase_s > HFTA_AXES_PHASE_S:
+        fail(f"phase 7l took {phase_s:.1f} s, over {HFTA_AXES_PHASE_S}")
+    info["phase_s"] = phase_s
+    return launches, info
 
 
 def profile_step(torch, trainer, state, batch):
@@ -8524,15 +8895,15 @@ def operator_phase(torch, flash, workdir: Path):
     victim_ckpt = work / "victim-ckpt"
     victim_metrics, control_metrics = (work / "victim.json",
                                        work / "control.json")
-    # The workers' bytecode goes to a cache in the phase's directory (the
-    # card's host compiles torch's modules afresh in every process where
-    # no cache is written: 9-10 s of each worker's start).
+    # The workers' bytecode goes to the smoke's shared cache (main()
+    # sets PYTHONPYCACHEPREFIX; the card's host compiles torch's modules
+    # afresh in every process where no cache is written: 9-10 s of each
+    # worker's start).
     base_env = {k: v for k, v in os.environ.items()
                 if not k.startswith("KFT_")
                 and k != "PYTHONDONTWRITEBYTECODE"}
     base_env.update(PYTHONPATH=str(Path(__file__).resolve().parent),
-                    PYTHONUNBUFFERED="1",
-                    PYTHONPYCACHEPREFIX=str(work / "pycache"))
+                    PYTHONUNBUFFERED="1")
 
     def total(parsed, name):
         return sum(v for _, v in parsed.get(name, ()))
@@ -8801,6 +9172,13 @@ def main() -> int:
     direct = [torch.randint(1, vocab, (DIRECT_LEN,), generator=rng).tolist()
               for _ in range(DIRECT_ROWS)]
     workdir = Path(tempfile.mkdtemp(prefix="kft-chip-smoke-"))
+    # Every process the smoke starts (the meshes' ranks, the servers, the
+    # operator's pods) shares one bytecode cache in the work directory:
+    # where PYTHONDONTWRITEBYTECODE is set and torch ships no bytecode,
+    # each cold start compiles torch's modules anew (9-10 s of a
+    # process's start on an H100 host, PERF.md section 6).
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(workdir / "pycache")
     try:
         base = workdir / "lm"
         export_model(torch, base)
@@ -8895,6 +9273,9 @@ def main() -> int:
         hfta_mesh_counts, hfta_mesh_info = hfta_mesh_phase(
             torch, flash, hfta_info, workdir)
         phase_done("7k HFTA mesh")
+        hfta_axes_counts, hfta_axes_info = hfta_axes_phase(torch, flash,
+                                                           workdir)
+        phase_done("7l HFTA model axes")
         log(f"train, single pass + adamw against two-pass + adafactor: "
             f"median step {train_info['step_ms']:.1f} / "
             f"{two_pass_info['step_ms']:.1f} ms, MFU "
@@ -8948,6 +9329,7 @@ def main() -> int:
                                    "moe_mesh": moe_mesh_counts[name],
                                    "adafactor_mesh": ada_counts[name],
                                    "hfta_mesh": hfta_mesh_counts[name],
+                                   "hfta_axes": hfta_axes_counts[name],
                                    "tools": tools_counts[name],
                                    "fleet": fleet_counts[name],
                                    "operator": operator_counts[name]}
@@ -8971,6 +9353,7 @@ def main() -> int:
                                    "moe_mesh": moe_mesh_counts[name],
                                    "adafactor_mesh": ada_counts[name],
                                    "hfta_mesh": hfta_mesh_counts[name],
+                                   "hfta_axes": hfta_axes_counts[name],
                                    "tools": tools_counts[name],
                                    "fleet": fleet_counts[name],
                                    "operator": operator_counts[name]}
@@ -8993,7 +9376,8 @@ def main() -> int:
                                  "pipeline": pipe_info,
                                  "moe_mesh": moe_mesh_info,
                                  "adafactor_mesh": ada_info,
-                                 "hfta_mesh": hfta_mesh_info},
+                                 "hfta_mesh": hfta_mesh_info,
+                                 "hfta_axes": hfta_axes_info},
                     "checkpoint": ckpt_info,
                     "cnn_serve": cnn_serve_info,
                     "cnn_train": cnn_train_info,

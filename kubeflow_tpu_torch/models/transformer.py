@@ -850,17 +850,24 @@ class Transformer(nn.Module):
                     masks[layer - stage.offset] = pair
         pos = positions[:x.shape[0] // n_micro]
         moe = cfg.moe_experts > 0
+        # The masks reach the stage as the schedule's extras, which the
+        # fused trainer's member map hands in stacked (parallel/pipeline.py).
+        flat = [t for pair in masks if pair is not None for t in pair]
 
-        def stage_fn(act):
+        def stage_fn(act, *flat_masks):
+            # Every layer of the stage has its pair, or none has one.
+            pairs = list(zip(flat_masks[::2], flat_masks[1::2])) \
+                if flat_masks else [None] * stage.layers
             aux = None
-            for block, pair in zip(self.layers, masks):
+            for block, pair in zip(self.layers, pairs):
                 act, part = block(act, pos, None, pair)
                 if part is not None:
                     aux = part if aux is None else aux + part
             return (act, aux) if moe else act
 
         out = pipelined_scan(stage_fn, microbatch(x, n_micro), stage.group,
-                             with_aux=moe, gradient_sync=self._gradient_sync)
+                             with_aux=moe, gradient_sync=self._gradient_sync,
+                             module=self.layers, extras=flat)
         if not moe:
             return unmicrobatch(out), None
         out, aux = out

@@ -36,6 +36,7 @@ import datetime
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
@@ -240,6 +241,21 @@ def row_shard(mesh) -> Tuple[int, int]:
     sizes = axis_sizes(mesh)
     return (mesh.get_local_rank(DATA) * sizes[FSDP]
             + mesh.get_local_rank(FSDP), sizes[DATA] * sizes[FSDP])
+
+
+def sequence_shard(x, mesh):
+    """This rank's shard along ``sequence`` of a ``[b, s, ...]`` batch leaf
+    (a tensor, or an array as numpy reads it); a leaf of fewer dims, and
+    every leaf without a mesh or with ``sequence`` 1, whole."""
+    x = x if torch.is_tensor(x) else np.asarray(x)
+    n = 1 if mesh is None else axis_sizes(mesh)[SEQUENCE]
+    if n == 1 or x.ndim < 2:
+        return x
+    if x.shape[1] % n:
+        raise ValueError(f"sequence length {x.shape[1]} does not split "
+                         f"over {n} sequence ranks")
+    s, r = x.shape[1] // n, mesh.get_local_rank(SEQUENCE)
+    return x[:, r * s:(r + 1) * s]
 
 
 def tensor_shard(mesh) -> Tuple[int, int]:

@@ -48,6 +48,12 @@ def staged(device: torch.device, group) -> bool:
     return device.type == "cuda" and dist.get_backend(group) == "gloo"
 
 
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous host copy of ``t`` (gloo moves contiguous tensors;
+    ``.cpu()`` keeps a strided tensor's strides)."""
+    return t.detach().to("cpu", memory_format=torch.contiguous_format)
+
+
 class Rotation:
     """One transfer of ``tensors`` to the next rank of the ring and of
     the previous rank's into fresh buffers (``step=-1``: to the previous
@@ -61,7 +67,7 @@ class Rotation:
         me, n = rank_and_size(group)
         self._device = tensors[0].device
         stage = staged(self._device, group)
-        send = [t.cpu() if stage else t.contiguous() for t in tensors]
+        send = [_host(t) if stage else t.contiguous() for t in tensors]
         self._recv = [torch.empty_like(t) for t in send]
         nxt = dist.get_global_rank(group, (me + step) % n)
         prv = dist.get_global_rank(group, (me - step) % n)
@@ -83,7 +89,7 @@ class Send:
     def __init__(self, t: torch.Tensor, dst: int, group, tag: int = 0):
         import torch.distributed as dist
 
-        self._t = t.detach().cpu() if staged(t.device, group) \
+        self._t = _host(t) if staged(t.device, group) \
             else t.detach().contiguous()
         self._work = dist.isend(self._t, dist.get_global_rank(group, dst),
                                 group=group, tag=tag)
@@ -111,7 +117,7 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     gives those)."""
     import torch.distributed as dist
 
-    buf = t.detach().cpu() if staged(t.device, group) \
+    buf = _host(t) if staged(t.device, group) \
         else t.detach().contiguous()
     dist.broadcast(buf, dist.get_global_rank(group, src), group=group)
     return buf.to(t.device, non_blocking=True)
@@ -125,8 +131,8 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     if member_map.mapped(t):
         return member_map.on_stack(lambda s: all_reduce(s, group), t)
 
-    buf = t.detach().to("cpu", memory_format=torch.contiguous_format) \
-        if staged(t.device, group) else t.detach().contiguous().clone()
+    buf = _host(t) if staged(t.device, group) \
+        else t.detach().contiguous().clone()
     dist.all_reduce(buf, group=group)
     return buf.to(t.device)
 
@@ -142,7 +148,7 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
         return member_map.on_stack(
             lambda s: all_gather(s, group).movedim(0, 1), t)
 
-    buf = t.detach().cpu() if staged(t.device, group) \
+    buf = _host(t) if staged(t.device, group) \
         else t.detach().contiguous()
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, buf, group=group)

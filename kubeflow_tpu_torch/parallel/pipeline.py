@@ -41,6 +41,14 @@ whose layers are FSDP2 modules turns their gradient reduction off for
 the others, so a layer run M times a step reduces its summed gradient
 once (models/transformer.py).
 
+Under the fused trainer's member map (runtime/hfta.py) a stage's input
+is a member's view of a stack, and the schedule leaves the map
+(``member_map.over_members``): it runs once on the ``[M, members, mb,
+...]`` microbatches, its hops and broadcasts carrying every member, each
+stage mapping its layers over the members' own parameters, and the
+backward schedule accumulating the stacked gradients.  Each member sees
+the microbatch order of its solo run.
+
 Transfers go through parallel/p2p.py (host-staged on a gloo group, device
 memory on NCCL) under the group's timeout.  ``Stage`` records a rank's
 share of the layer stack; checkpoints (runtime/checkpoint.py) and the
@@ -58,6 +66,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from kubeflow_tpu_torch.parallel import p2p
+from kubeflow_tpu_torch.runtime import member_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,11 +100,15 @@ def unmicrobatch(x: torch.Tensor) -> torch.Tensor:
 
 def pipelined_scan(stage_fn: Callable, x: torch.Tensor, group, *,
                    with_aux: bool = False,
-                   gradient_sync: Optional[Callable[[bool], None]] = None):
+                   gradient_sync: Optional[Callable[[bool], None]] = None,
+                   module: Optional[torch.nn.Module] = None,
+                   extras: Sequence[torch.Tensor] = ()):
     """Run microbatches ``x`` [M, mb, ...] through every stage of the
     ``pipeline`` ``group`` (this rank's stage is ``stage_fn``, a callable
-    over its local layers: activation -> activation of the same shape and
-    dtype, or, ``with_aux``, -> (activation, aux scalar)).
+    over its local layers: ``stage_fn(activation, *extras)`` ->
+    activation of the same shape and dtype, or, ``with_aux``, ->
+    (activation, aux scalar); ``extras`` are tensors every microbatch's
+    call reads, dropout's masks).
 
     Returns the last stage's outputs [M, mb, ...] on every rank of the
     group; with ``with_aux``, ``(outputs, aux)``: the float32 sum of the
@@ -105,9 +118,18 @@ def pipelined_scan(stage_fn: Callable, x: torch.Tensor, group, *,
     whatever the stage reads (its parameters' ``.grad`` accumulate in the
     backward's nested ``torch.autograd.backward``, so call ``backward()``
     on the loss, not ``torch.autograd.grad``).  Without a process group
-    the rank is the only stage."""
+    the rank is the only stage.
+
+    Inside the fused trainer's member map (runtime/member_map.py), where
+    ``x`` is a member's view of a stack, ``module`` names the module whose
+    parameters ``stage_fn`` reads (the stage's layers): the schedule then
+    runs once on the members' stack (``_members_scan``)."""
+    if member_map.mapped(x):
+        return _members_scan(stage_fn, x, group, with_aux, gradient_sync,
+                             module, extras)
     me, n = p2p.rank_and_size(group)
-    sched = _Schedule(stage_fn, group, me, n, with_aux, gradient_sync)
+    sched = _Schedule(lambda inp: stage_fn(inp, *extras), group, me, n,
+                      with_aux, gradient_sync)
     if torch.is_grad_enabled():
         # The anchor makes the schedule a node of the caller's graph even
         # when ``x`` needs no gradient (the stage's parameters still do).
@@ -116,6 +138,33 @@ def pipelined_scan(stage_fn: Callable, x: torch.Tensor, group, *,
     else:
         ys, aux = sched.forward(x, keep=False)
     return (ys, aux) if with_aux else ys
+
+
+def _members_scan(stage_fn, x, group, with_aux, gradient_sync, module,
+                  extras):
+    """``pipelined_scan`` of mapped members, run once on their stack:
+    the schedule's hops and broadcasts carry ``[M, members, mb, ...]``
+    microbatches (the order of the microbatches is each member's own),
+    each stage runs each member's layers with that member's parameters
+    (a vmap of ``functional_call`` of ``module``), and the backward
+    schedule accumulates the stacked parameters' gradients."""
+    if module is None:
+        raise ValueError("a pipelined stage under the member map names "
+                         "the module whose parameters it reads")
+
+    def stacked(each, xs, *ext):
+        def stage(act, *e):
+            return each(stage_fn, act, *e)
+
+        out = pipelined_scan(stage, xs.transpose(0, 1), group,
+                             with_aux=with_aux, gradient_sync=gradient_sync,
+                             extras=ext)
+        ys, aux = out if with_aux else (out, None)
+        ys = ys.transpose(0, 1)
+        return (ys, aux) if with_aux else (ys,)
+
+    outs = member_map.over_members(stacked, module, x, *extras)
+    return tuple(outs) if with_aux else outs[0]
 
 
 class _Schedule:

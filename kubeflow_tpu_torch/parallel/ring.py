@@ -32,6 +32,10 @@ the next shard moves while the current one is computed (parallel/p2p.py
 ``Rotation``: on a gloo group a CUDA tensor is staged through host
 memory, gloo's transport when several processes share one GPU; NCCL
 moves device memory).
+
+Under the fused trainer's member map (runtime/hfta.py) ``_RingFunction``'s
+``vmap`` rule folds the members into the batch dim: each hop moves the
+members' shards in one rotation and launches the kernels once for all.
 """
 
 from __future__ import annotations
@@ -136,22 +140,50 @@ def _ring_bwd(q, k, v, o, lse, g, group, causal: bool):
 
 class _RingFunction(torch.autograd.Function):
     """Differentiable ring attention on the local shard: ``apply(q, k, v,
-    group, causal) -> o`` in q's dtype; saves (q, k, v, o, lse), the
-    counterpart of JAX's ``_ring_vjp_fwd`` residuals."""
+    group, causal) -> (o, lse)``, o in q's dtype and lse not
+    differentiable; saves (q, k, v, o, lse), the counterpart of JAX's
+    ``_ring_vjp_fwd`` residuals.
+
+    Under ``torch.func.vmap`` (the fused trainer's members,
+    runtime/hfta.py) the ``vmap`` rule folds the mapped axis into the
+    batch dim and applies the function once: each hop's rotation moves
+    the members' ``[m * b, ...]`` shards together, and each live hop's
+    kernel launch folds the members as ``_FlashFunction.vmap`` does."""
+
+    generate_vmap_rule = False
 
     @staticmethod
-    def forward(ctx, q, k, v, group, causal: bool):
+    def forward(q, k, v, group, causal: bool):
         o, lse = _ring_fwd(q, k, v, group, causal)
-        o = o.to(q.dtype)
+        return o.to(q.dtype), lse
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, group, causal = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.group, ctx.causal = group, causal
-        return o
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, g_lse):
+        del g_lse  # lse is not differentiable
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _ring_bwd(q, k, v, o, lse, g, ctx.group, ctx.causal)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, group, causal):
+        m = info.batch_size
+
+        def fold(t, dim):
+            t = t.expand(m, *t.shape) if dim is None else t.movedim(dim, 0)
+            return t.reshape(-1, *t.shape[2:])
+
+        o, lse = _RingFunction.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
+                                     fold(v, in_dims[2]), group, causal)
+        return (o.reshape(m, -1, *o.shape[1:]),
+                lse.reshape(m, -1, *lse.shape[1:])), (0, 0)
 
 
 def ring_attention(
@@ -176,7 +208,7 @@ def ring_attention(
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"{q.shape[2]} query heads are not a multiple of "
                          f"{k.shape[2]} kv heads")
-    return _RingFunction.apply(q, k, v, group, causal)
+    return _RingFunction.apply(q, k, v, group, causal)[0]
 
 
 def make_ring_attention(

@@ -31,6 +31,11 @@ blocks are replicated over the group:
     ``[b, s]`` values); its gradient is ``softmax - onehot`` on the
     rank's own slice.
 
+Inside the fused trainer's member map (runtime/hfta.py) each of the four
+autograd functions (the pair, the ranks' sum and the vocab-parallel CE)
+has a ``vmap`` rule that applies it once to the ``[members, ...]``
+stack: one all-reduce of the stack a call, never one a member.
+
 ``TensorShard`` names the share of a whole tensor a rank holds (the dim,
 the rank's index and the count along it, the mesh axis and its group:
 ``tensor``; ``expert`` for an MoE weight's experts, models/moe.py; for
@@ -174,36 +179,70 @@ def _all_reduce(t: torch.Tensor, group, op=None) -> torch.Tensor:
     return t
 
 
+def _stacked(t: torch.Tensor, dim: Optional[int], m: int) -> torch.Tensor:
+    """The ``[members, ...]`` stack of a vmap rule's input: its mapped
+    dim moved to the front, an unmapped one expanded to every member."""
+    return t.expand(m, *t.shape) if dim is None else t.movedim(dim, 0)
+
+
 class _CopyToParallel(torch.autograd.Function):
+    generate_vmap_rule = False
+
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(x, group):
         return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
         return _all_reduce(g.contiguous().clone(), ctx.group), None
 
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _CopyToParallel.apply(x, group), in_dims[0]
+
 
 class _ReduceFromParallel(torch.autograd.Function):
+    generate_vmap_rule = False
+
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(x, group):
         return _all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, g):
         return g, None
 
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _ReduceFromParallel.apply(x, group), in_dims[0]
+
 
 class _SumOverRanks(torch.autograd.Function):
+    generate_vmap_rule = False
+
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(x, group):
         return all_reduce(x, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
         return all_reduce(g, ctx.group), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _SumOverRanks.apply(x, group), in_dims[0]
 
 
 def sum_over_ranks(x: torch.Tensor, group) -> torch.Tensor:
@@ -270,8 +309,10 @@ def vocab_parallel_embedding(table, tokens: torch.Tensor,
 
 
 class _VocabParallelCE(torch.autograd.Function):
+    generate_vmap_rule = False
+
     @staticmethod
-    def forward(ctx, logits, targets, start, group):
+    def forward(logits, targets, start, group):
         import torch.distributed as dist
 
         lf = logits.float()
@@ -286,17 +327,32 @@ class _VocabParallelCE(torch.autograd.Function):
         target = lf.gather(-1, local[..., None])[..., 0]
         target = torch.where(inside, target, torch.zeros_like(target))
         _all_reduce(target, group)
-        ctx.save_for_backward(logits, lse, local, inside)
-        return lse - target
+        return lse - target, lse, local, inside
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        _, lse, local, inside = output
+        ctx.mark_non_differentiable(lse, local, inside)
+        ctx.save_for_backward(inputs[0], lse, local, inside)
+
+    @staticmethod
+    def backward(ctx, g, *_):
         logits, lse, local, inside = ctx.saved_tensors
         grad = torch.exp(logits.float() - lse[..., None])
         grad.scatter_add_(-1, local[..., None],
                           -inside[..., None].to(grad.dtype))
         grad.mul_(g[..., None])
         return grad.to(logits.dtype), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, logits, targets, start, group):
+        """The members' logits and targets stacked (the positions' dims
+        gain a leading one): one call, each reduction on the stack."""
+        m = info.batch_size
+        out = _VocabParallelCE.apply(_stacked(logits, in_dims[0], m),
+                                     _stacked(targets, in_dims[1], m),
+                                     start, group)
+        return out, (0, 0, 0, 0)
 
 
 def vocab_parallel_cross_entropy(logits: torch.Tensor,
@@ -307,4 +363,4 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor,
     against ``targets`` ``[*, n]`` ids of the whole vocab; the same value
     on every rank of ``group``.  The reductions run in float32 whatever
     the logits' dtype; the gradient is the logits' dtype."""
-    return _VocabParallelCE.apply(logits, targets, start, group)
+    return _VocabParallelCE.apply(logits, targets, start, group)[0]

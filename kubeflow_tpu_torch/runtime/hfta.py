@@ -50,31 +50,49 @@ counterpart: eager PyTorch has nothing to trace.
 
 Over a mesh (``mesh``, a ``DeviceMesh`` from parallel/mesh.py
 ``MeshSpec.build``; every rank builds the same trainer and calls it in
-step), as JAX's fused trainer runs under one:
+step), as JAX's fused trainer runs each member's loss under the mesh and
+its rules with the stacked state pinned replicated:
 
-  - ``data`` and ``fsdp`` are batch axes, as in JAX: every rank holds the
-    whole stacked state (parameters, moments, counts, learning rates,
-    steps and the members' generators), JAX's replicated pin, and no
-    FSDP2 wraps it.  A mesh whose ``pipeline``, ``expert``, ``sequence``
-    or ``tensor`` is above 1 raises ``NotPortedError`` (a fused trainer
-    over the model axes, ROADMAP queue 1 item 28);
+  - every rank holds its share of each member's model, the share a solo
+    ``Trainer`` over the same mesh holds, stacked: whole over ``data``
+    and ``fsdp`` (the batch axes: no FSDP2 wraps the stack), its slices
+    of the heads, mlp and vocab over ``tensor``, its E/N experts over
+    ``expert``, its stage's layers over ``pipeline``.  Each stacked leaf
+    and the skeleton carry the solo leaf's marks (its ``TensorShard``,
+    its pipeline ``Stage``), which the grad norm, adafactor and the
+    checkpoints read;
   - every rank is given the same global batch and ``shard_batch`` keeps
-    its rows, its data x fsdp shard (``parallel/mesh.py`` ``row_shard``);
+    its rows, its data x fsdp shard (``parallel/mesh.py`` ``row_shard``),
+    and with ``sequence`` above 1 its sequence shard;
   - a member's loss is the task's own: under ``lm_task(cfg, mesh=mesh)``
     the global loss as its value and this rank's share as its gradient.
-    The global loss's all-reduce and the MoE layer's statistics run
-    inside the member map once on the members' stack
-    (``member_map.on_stack``), and dropout keeps each member's rows of
-    its own global mask;
+    Every collective of the member loss runs once on the members' stack,
+    inside the map: the global loss's all-reduce and the MoE layer's
+    statistics through ``member_map.on_stack``; the tensor-parallel pairs
+    and the vocab-parallel CE (parallel/tensor.py) and ring attention
+    (parallel/ring.py, each hop's rotation moving the members' shards
+    folded into the batch) through their ``vmap`` rules; the GPipe
+    schedule through ``member_map.over_members`` (its hops and broadcasts
+    carry the stack, each stage maps its layers over the members'
+    parameters, the backward schedule accumulates the stacked
+    gradients).  Dropout keeps each member's share of its own global
+    mask (a tensor group's ranks one mask, sequence and pipeline ranks
+    their share of the global draw);
   - after the one ``backward()`` the stacked gradients are summed over
-    the batch ranks (``batch_group``) in one flat all-reduce a dtype, so
-    ``grad_norm``, the non-finite mask, the update and the step counts
-    come out bit-equal on every rank, and so does the stacked state;
-  - each member's checkpoint is saved through the collective
-    ``CheckpointManager.save`` (every rank calls it, rank 0 writes) and
-    restored on every rank; the metrics count ``mesh.size()`` chips, and
-    the member-step counter and active gauge move on rank 0 alone, so
-    that a sum over the job's ranks counts each step once.
+    the batch ranks (``batch_group``: data x fsdp x sequence at this
+    rank's model-axis index) in one flat all-reduce a dtype; each
+    member's ``grad_norm`` is its global norm over the shards, as
+    ``Trainer._grad_norm`` takes it, the leaves split over ``tensor``,
+    ``expert`` or ``pipeline`` summed over those groups in one
+    all-reduce of the ``[kinds, M]`` stack an axis.  The non-finite mask,
+    the update and the step counts come out equal on every rank that
+    holds the same share;
+  - each member's checkpoint is its solo state (``member_state``, marks
+    and all) saved through the collective ``CheckpointManager.save``
+    (every rank calls it, rank 0 writes whole JAX leaves) and restored on
+    every rank into its share; the metrics count ``mesh.size()`` chips,
+    and the member-step counter and active gauge move on rank 0 alone,
+    so that a sum over the job's ranks counts each step once.
 """
 
 from __future__ import annotations
@@ -92,15 +110,16 @@ from torch.func import stack_module_state, vmap
 from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.parallel import p2p
+from kubeflow_tpu_torch.parallel import tensor as tp
 from kubeflow_tpu_torch.parallel.mesh import (
     DEFAULT_RULES,
     EXPERT,
     PIPELINE,
-    SEQUENCE,
     TENSOR,
     axis_sizes,
     batch_group,
     row_shard,
+    sequence_shard,
 )
 from kubeflow_tpu_torch.runtime import member_map
 from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
@@ -108,7 +127,8 @@ from kubeflow_tpu_torch.runtime.metrics import MetricsLogger, Timer
 from kubeflow_tpu_torch.runtime.optim import default_tx_factory
 from kubeflow_tpu_torch.runtime.prom import REGISTRY
 from kubeflow_tpu_torch.runtime.train import (LossFn, TrainState, _Done,
-                                              _tree_map, place_batch)
+                                              _sum_over_splits, _tree_map,
+                                              place_batch)
 from kubeflow_tpu_torch.testing import faults
 
 
@@ -127,15 +147,24 @@ class MemberSpec:
     stop_step: Optional[int] = None
 
 
+@dataclasses.dataclass(frozen=True)
 class _Tensor:
-    """Stands for a tensor leaf in a state's form (``_form``)."""
+    """Stands for a tensor leaf in a state's form (``_form``), with the
+    marks of the share it is under a split: its ``TensorShard`` and its
+    pipeline ``Stage`` (parallel/tensor.py), which checkpoints read."""
+
+    shard: Any = None
+    stage: Any = None
+
+    def mark(self, t: torch.Tensor) -> torch.Tensor:
+        return tp.mark_stage(tp.mark(t, self.shard), self.stage)
 
 
 def _form(tree: Any) -> Any:
     """A state's structure and host scalars, its tensors replaced by
-    ``_Tensor``: what ``_unstack`` needs to rebuild one member."""
+    ``_Tensor``s: what ``_unstack`` needs to rebuild one member."""
     if isinstance(tree, torch.Tensor):
-        return _Tensor
+        return _Tensor(tp.shard_of(tree), tp.stage_of(tree))
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
             f.name: _form(getattr(tree, f.name))
@@ -171,10 +200,10 @@ def _stack(trees: Sequence[Any], device: torch.device) -> Any:
 
 def _unstack(form: Any, stacked: Any, i: int) -> Any:
     """Member ``i`` of a stacked state, in the solo ``form``: tensors
-    copied, vectors back to host scalars (a float the stack rounded to
-    float32 keeps the form's own value)."""
-    if form is _Tensor:
-        return stacked[i].detach().clone()
+    copied and marked as the form's, vectors back to host scalars (a
+    float the stack rounded to float32 keeps the form's own value)."""
+    if isinstance(form, _Tensor):
+        return form.mark(stacked[i].detach().clone())
     if isinstance(form, int):
         return int(stacked[i])
     if isinstance(form, float):
@@ -229,7 +258,7 @@ def _copy_generator(gen: torch.Generator) -> torch.Generator:
 class FusedTrainer:
     """N same-architecture training jobs fused into one program on one
     device (CUDA unless ``device="cpu"``), or on this rank's device over
-    the batch axes of ``mesh``.
+    ``mesh``, each member's model split as a solo trainer's would be.
 
     init_fn / loss_fn: the same contracts as
       :class:`~kubeflow_tpu_torch.runtime.train.Trainer`; the member
@@ -243,12 +272,10 @@ class FusedTrainer:
       ``optim.default_tx_factory``.
     members: the member array.  Order is the stacking order and the
       checkpoint subdirectory layout — keep it stable across resumes.
-    mesh / rules: a ``DeviceMesh`` from ``MeshSpec.build`` whose
-      ``data`` and ``fsdp`` may be any size (the module docstring says
-      what the fused step does over them) and the logical-axis rule
-      table, as ``Trainer`` takes them; ``pipeline``, ``expert``,
-      ``sequence`` or ``tensor`` above 1 raises ``NotPortedError`` (a
-      fused trainer over the model axes, ROADMAP queue 1 item 28).
+    mesh / rules: a ``DeviceMesh`` from ``MeshSpec.build`` over any of
+      ``MeshSpec``'s axes (the module docstring says what the fused step
+      does over each) and the logical-axis rule table, as ``Trainer``
+      takes them.
     checkpoint_dir: per-member managers live at
       ``<checkpoint_dir>/<member.name>``; None disables checkpointing.
     mask_nonfinite: freeze a member whose loss goes non-finite instead
@@ -281,20 +308,12 @@ class FusedTrainer:
         names = [m.name for m in self.members]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate member names: {names}")
-        if self.mesh is not None:
-            sizes = axis_sizes(self.mesh)
-            model = [a for a in (PIPELINE, EXPERT, SEQUENCE, TENSOR)
-                     if sizes[a] > 1]
-            if model:
-                raise NotPortedError(
-                    f"a fused trainer over the model axes ({', '.join(model)}"
-                    " above 1) is not ported yet: ROADMAP queue 1 item 28; "
-                    "the fused trainer runs over data x fsdp")
         self.device = resolve_device(self.device)
-        # The ranks that hold other rows: the stacked gradients' sum.
-        self._batch_group = None
-        if self.mesh is not None and self.mesh.size() > 1:
-            self._batch_group = batch_group(self.mesh)
+        sizes = {} if self.mesh is None else axis_sizes(self.mesh)
+        # The model axes over which a leaf may be split: the grad norm's
+        # sums.
+        self._splits = [axis for axis in (TENSOR, EXPERT, PIPELINE)
+                        if sizes.get(axis, 1) > 1]
         self._flat: Dict[torch.dtype, torch.Tensor] = {}
         # Under a mesh rank 0 alone moves the member-step counter and the
         # active gauge: summed over the ranks, each step counts once.
@@ -369,6 +388,9 @@ class FusedTrainer:
         model.load_state_dict(
             {k: v[i].detach().clone() for k, v in fused.params.items()},
             assign=True)
+        marks = dict(self._skeleton.named_parameters())
+        for name, param in model.named_parameters():
+            tp.like(param, marks[name])
         opt_form, mutable_form = self._forms[i]
         return TrainState(
             step=int(fused.step[i]), params=model,
@@ -388,10 +410,16 @@ class FusedTrainer:
         if buffers:
             raise NotPortedError("a fused model with buffers is not ported "
                                  "(the port's LM has none)")
-        params = {k: v.detach().to(self.device).requires_grad_()
-                  for k, v in params.items()}
+        solo = dict(models[0].named_parameters())
+        # Each stacked leaf, like the skeleton's, carries its solo leaf's
+        # marks (a slice's TensorShard, a stage layer's Stage; dims count
+        # from the solo leaf): the grad norm and adafactor read them, and
+        # ``member_state`` hands them on to what checkpoints save.
+        params = {k: tp.like(v.detach().to(self.device).requires_grad_(),
+                             solo[k]) for k, v in params.items()}
         self._skeleton = _copy_module(models[0], {
-            id(p): torch.nn.Parameter(torch.empty_like(p, device="meta"))
+            id(p): tp.like(torch.nn.Parameter(
+                torch.empty_like(p, device="meta")), p)
             for p in models[0].parameters()})
         self._forms = [(_form(s.opt_state), _form(s.mutable))
                        for s in solo_states]
@@ -432,9 +460,7 @@ class FusedTrainer:
             losses.sum().backward()
         grads = {k: p.grad for k, p in params.items()}
         self._sum_over_batch(list(grads.values()))
-        grad_norm = torch.stack([
-            g.float().square().flatten(1).sum(1) for g in grads.values()
-        ]).sum(0).sqrt()
+        grad_norm = self._grad_norm(grads, params)
         losses = losses.detach()
         keep = active & torch.isfinite(losses) if self.mask_nonfinite \
             else active
@@ -447,13 +473,31 @@ class FusedTrainer:
                    **{k: v.detach() for k, v in aux.items()}}
         return state, keep & (state.step < stops), metrics
 
+    def _grad_norm(self, grads: Dict[str, torch.Tensor],
+                   params: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Each member's global gradient norm, ``[M]`` float32, as
+        ``Trainer._grad_norm`` takes a solo one: each leaf's squares
+        summed by member, the sums of the leaves split over ``tensor``,
+        ``expert`` or ``pipeline`` then summed over those groups (one
+        all-reduce of the ``[kinds, M]`` stack an axis), the replicated
+        leaves' counted once."""
+        sq = torch.stack([g.float().square().flatten(1).sum(1)
+                          for g in grads.values()])
+        if not self._splits:
+            return sq.sum(0).sqrt()
+        return _sum_over_splits(sq, params.values(), self.mesh,
+                                self._splits).sqrt()
+
     def _sum_over_batch(self, grads: List[torch.Tensor]) -> None:
         """Each rank's share of the stacked gradients summed in place over
-        the batch ranks: one flat all-reduce a dtype, through a host
-        buffer kept across steps where the group is gloo and the
-        gradients are on the card (parallel/p2p.py ``staged``)."""
-        group = self._batch_group
-        if group is None:
+        the batch ranks (data x fsdp x sequence at this rank's index of
+        the model axes, ``batch_group``): one flat all-reduce a dtype,
+        through a host buffer kept across steps where the group is gloo
+        and the gradients are on the card (parallel/p2p.py ``staged``)."""
+        if self.mesh is None or self.mesh.size() == 1:
+            return
+        group = batch_group(self.mesh)
+        if p2p.rank_and_size(group)[1] == 1:
             return
         import torch.distributed as dist
 
@@ -489,20 +533,23 @@ class FusedTrainer:
         """One batch feeds every member (HFTA's shared-input shape),
         placed on the device as ``Trainer.shard_batch`` places it.  Under
         a mesh every rank is given the same global batch and keeps its
-        rows of each leaf with a batch dim (its data x fsdp shard)."""
+        rows of each leaf with a batch dim (its data x fsdp shard) and,
+        with ``sequence`` above 1, its sequence shard of each ``[b, s,
+        ...]`` leaf."""
         r, n = row_shard(self.mesh)
-        if n > 1:
-            def rows(x):
-                x = np.asarray(x) if not torch.is_tensor(x) else x
-                if x.ndim == 0:
-                    return x
-                if x.shape[0] % n:
-                    raise ValueError(f"batch of {x.shape[0]} rows does not "
-                                     f"split over {n} data x fsdp ranks")
-                b = x.shape[0] // n
-                return x[r * b:(r + 1) * b]
 
-            batch = _tree_map(rows, batch)
+        def cut(x):
+            x = np.asarray(x) if not torch.is_tensor(x) else x
+            if x.ndim == 0:
+                return x
+            if x.shape[0] % n:
+                raise ValueError(f"batch of {x.shape[0]} rows does not "
+                                 f"split over {n} data x fsdp ranks")
+            b = x.shape[0] // n
+            return sequence_shard(x[r * b:(r + 1) * b], self.mesh)
+
+        if self.mesh is not None:
+            batch = _tree_map(cut, batch)
         return place_batch(batch, self.device)
 
     # -- loop --------------------------------------------------------------

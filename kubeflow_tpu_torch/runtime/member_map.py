@@ -28,11 +28,16 @@ records on the stacked tensors, through which the fused step's one
 ``torch.utils.checkpoint.checkpoint`` and nothing else changes.
 
 A collective is a third thing: c10d runs on plain tensors, not on a
-member's view of a stack.  Under a mesh (the fused trainer over data x
-fsdp) the global loss and the MoE layer's statistics are summed over the
-ranks from inside the map; parallel/p2p.py's collectives hand a
-:func:`mapped` tensor to :func:`on_stack`, which runs them once on the
-``[members, ...]`` stack, never once a member.
+member's view of a stack.  Under a mesh the global loss and the MoE
+layer's statistics are summed over the ranks from inside the map;
+parallel/p2p.py's collectives hand a :func:`mapped` tensor to
+:func:`on_stack`, which runs them once on the ``[members, ...]`` stack,
+never once a member.  The autograd functions of the model axes (the
+tensor-parallel pairs and the vocab-parallel CE, parallel/tensor.py; ring
+attention, parallel/ring.py) have ``vmap`` rules that apply them once to
+the stack, and the GPipe schedule leaves the map through
+:func:`over_members`: its hops and broadcasts carry the stack, and each
+stage maps its layers over the members' parameters.
 """
 
 from __future__ import annotations
@@ -109,6 +114,38 @@ def on_stack(fn: Callable[[torch.Tensor], torch.Tensor],
         return (fn(stacked.movedim(dims[0], 0)),)
 
     return _Unmapped.apply(outside, t)[0]
+
+
+def over_members(fn: Callable, module: nn.Module, *tensors
+                 ) -> Sequence[torch.Tensor]:
+    """``fn(each, *stacks)`` run once outside the member map on the
+    ``[members, ...]`` stacks behind ``tensors`` (an unmapped one
+    expanded to every member); its outputs, each a stack on dim 0, are
+    mapped again.  ``each(g, *xs)`` maps ``g(*xs)`` over the members'
+    rows of the stacks ``xs`` with each member's parameters of ``module``
+    in place (``torch.func.vmap`` of ``functional_call``): the per-member
+    work inside ``fn``, whose collectives and transfers then carry the
+    whole stack (the GPipe schedule, parallel/pipeline.py)."""
+    named = list(module.named_parameters())
+    names = [n for n, _ in named]
+    k = len(names)
+
+    def outside(n, dims, *stacked):
+        params, param_dims = tuple(stacked[:k]), tuple(dims[:k])
+        rest = [t.expand(n, *t.shape) if d is None else t.movedim(d, 0)
+                for t, d in zip(stacked[k:], dims[k:])]
+
+        def each(g: Callable, *xs):
+            def member(p, *a):
+                return call(module, dict(zip(names, p)),
+                            lambda _, *b: g(*b), *a)
+
+            return vmap(member, in_dims=(param_dims,) + (0,) * len(xs))(
+                params, *xs)
+
+        return tuple(fn(each, *rest))
+
+    return _Unmapped.apply(outside, *[p for _, p in named], *tensors)
 
 
 class _Bound(nn.Module):

@@ -418,17 +418,19 @@ class _Layout:
         return tp.mark(t, chain)
 
 
-def _layout(params: Mapping[str, torch.Tensor], members: List[str]
-            ) -> _Layout:
+def _layout(params: Mapping[str, torch.Tensor], members: List[str],
+            stacked: bool = False) -> _Layout:
     """The layout of the JAX leaf of ``members``: FSDP2's splits of its
     DTensors, then their ``TensorShard`` slices over ``tensor`` and
     ``expert``, then for a stage's layers the ``pipeline`` split of the
-    layer dim."""
+    layer dim.  ``stacked``: the tensors are members' ``[M, ...]`` stacks
+    marked as their solo leaves are (runtime/hfta.py), and the layout is
+    a member's."""
     first = params[members[0]]
     splits = _fsdp_splits(first)
     shard = tp.shard_of(first)
-    whole = tuple(first.shape) if shard is None else \
-        shard.whole_shape(first.shape)
+    shape = tuple(first.shape[1:] if stacked else first.shape)
+    whole = shape if shard is None else shard.whole_shape(shape)
     while shard is not None:
         splits.append(dataclasses.replace(shard, then=None))
         shard = shard.then
@@ -552,15 +554,19 @@ class Adafactor:
         [M, ...] and its statistics [M, ...], ``state.count`` [M] int,
         ``lr`` [M] float32 (the injected state's); the factored dims are
         the solo leaf's, the block RMS each member's own; rows where
-        ``keep`` is False unchanged."""
+        ``keep`` is False unchanged.  A leaf under a split (its solo
+        marks, runtime/hfta.py) takes the whole JAX leaf's factored dims,
+        means and block RMS as ``update`` does, each all-reduce on the
+        members' stack."""
         t = state.count + 1
         # optax: decay_rate_t = 1 - (count + 1) ** -0.8, in float32.
         decay = 1.0 - (t.double() ** -DECAY_RATE).float()
         fresh = (1.0 - decay.double()).float()
         for leaf, members in self._groups(params).items():
+            layout = _layout(params, members, stacked=True)
             g = _member_leaf(grads, members)
             p = _member_leaf(params, members)
-            dims = _factored_dims(list(g.shape[1:]))
+            dims = _factored_dims(layout.whole)
             g_sqr = g * g + FACTORED_EPS
             if dims is None:
                 v = state.v[leaf]
@@ -568,23 +574,25 @@ class Adafactor:
                 u = g * torch.rsqrt(v_new)
                 stats = ((v, v_new),)
             else:
-                d1, d0 = dims[0] + 1, dims[1] + 1
+                # d1, d0 are the solo leaf's dims, one less than the
+                # stack's.
+                d1, d0 = dims
                 v_row, v_col = state.v_row[leaf], state.v_col[leaf]
                 row_new = v_row * _rows(decay, v_row) \
-                    + g_sqr.mean(d0) * _rows(fresh, v_row)
+                    + _mean(g_sqr, d0 + 1, layout, d0) * _rows(fresh, v_row)
                 col_new = v_col * _rows(decay, v_col) \
-                    + g_sqr.mean(d1) * _rows(fresh, v_col)
+                    + _mean(g_sqr, d1 + 1, layout, d1) * _rows(fresh, v_col)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_col_mean = row_new.mean(reduced_d1, keepdim=True)
+                row_col_mean = _mean(row_new, reduced_d1 + 1, layout, d1,
+                                     keepdim=True)
                 row_factor = torch.rsqrt(row_new / row_col_mean)
                 col_factor = torch.rsqrt(col_new)
-                u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+                u = g * row_factor.unsqueeze(d0 + 1) \
+                    * col_factor.unsqueeze(d1 + 1)
                 stats = ((v_row, row_new), (v_col, col_new))
-            every = tuple(range(1, u.dim()))
-            rms_u = torch.sqrt(torch.mean(u * u, dim=every))
+            rms_u, rms_p = _member_block_rms(u, p, layout)
             u = u / _rows(torch.clamp(rms_u / CLIPPING_THRESHOLD, min=1.0), u)
             u = u * _rows(lr, u)
-            rms_p = torch.sqrt(torch.mean(p * p, dim=every))
             u = u * _rows(torch.where(rms_p <= MIN_PARAM_SCALE,
                                       torch.full_like(rms_p, MIN_PARAM_SCALE),
                                       rms_p), u)
@@ -633,6 +641,22 @@ def _block_rms(u: torch.Tensor, p: torch.Tensor, layout: _Layout
         return torch.sqrt(torch.mean(u * u)), torch.sqrt(torch.mean(p * p))
     sq = _sum_over(torch.stack([torch.sum(u * u), torch.sum(p * p)]),
                    groups)
+    rms = torch.sqrt(sq / math.prod(layout.whole))
+    return rms[0], rms[1]
+
+
+def _member_block_rms(u: torch.Tensor, p: torch.Tensor, layout: _Layout
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_block_rms`` of each member of the stacks ``u`` and ``p`` [M,
+    ...]: two [M] vectors; under splits the local sums of squares of
+    both, ``[2, M]``, all-reduced once over each group."""
+    every = tuple(range(1, u.dim()))
+    groups = layout.groups()
+    if not groups:
+        return (torch.sqrt(torch.mean(u * u, dim=every)),
+                torch.sqrt(torch.mean(p * p, dim=every)))
+    sq = _sum_over(torch.stack([torch.sum(u * u, dim=every),
+                                torch.sum(p * p, dim=every)]), groups)
     rms = torch.sqrt(sq / math.prod(layout.whole))
     return rms[0], rms[1]
 

@@ -87,6 +87,7 @@ import torch
 from torch import nn
 
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
+from kubeflow_tpu_torch.parallel import p2p
 from kubeflow_tpu_torch.parallel import tensor as tp
 from kubeflow_tpu_torch.parallel.mesh import (
     DEFAULT_RULES,
@@ -97,6 +98,7 @@ from kubeflow_tpu_torch.parallel.mesh import (
     TENSOR,
     axis_sizes,
     fsdp_mesh,
+    sequence_shard,
     sharded_dim,
 )
 from kubeflow_tpu_torch.runtime.metrics import MetricsLogger, Timer
@@ -169,6 +171,29 @@ def _split_bits(param) -> int:
         axes.add(PIPELINE)
     return sum(1 << bit for bit, axis in enumerate(_SPLIT_AXES)
                if axis in axes)
+
+
+def _sum_over_splits(sq: torch.Tensor, params, mesh, axes,
+                     whole=None) -> torch.Tensor:
+    """``sq`` (``[leaves, *rest]``, each leaf's squares summed over its
+    local share) summed over the leaves and over the ranks that hold
+    their shards: over ``whole``, a group that splits every leaf, and
+    over each of ``axes`` for the leaves split over that axis (one
+    all-reduce of the sums by kind a group); a replicated leaf counted
+    once.  The grad norm of ``Trainer`` and of the fused trainer."""
+    # Each leaf's sums go to those of its kind: a bit for each axis it
+    # is split over.
+    kind = torch.tensor([_split_bits(p) for p in params], device=sq.device)
+    sq = sq.new_zeros((2 ** len(_SPLIT_AXES), *sq.shape[1:])
+                      ).index_add_(0, kind, sq)
+    if whole is not None:
+        sq = p2p.all_reduce(sq, whole)
+    for axis in axes:
+        bit = _SPLIT_AXES.index(axis)
+        over = [k for k in range(sq.shape[0]) if k >> bit & 1]
+        summed = p2p.all_reduce(sq, mesh.get_group(axis))
+        sq[over] = summed[over]
+    return sq.sum(0)
 
 
 class _Done:
@@ -286,30 +311,16 @@ class Trainer:
         is a slice over that axis, and over ``pipeline`` for those of a
         stage's layers; the replicated ones counted once."""
         sizes = {} if self.mesh is None else axis_sizes(self.mesh)
-        split = [(axis, _SPLIT_AXES.index(axis))
-                 for axis in (TENSOR, EXPERT, PIPELINE)
+        split = [axis for axis in (TENSOR, EXPERT, PIPELINE)
                  if sizes.get(axis, 1) > 1]
         fsdp = sizes.get(FSDP, 1)
         if fsdp == 1 and not split:
             return global_norm([_local(g) for g in grads])
-        import torch.distributed as dist
-
         sq = torch.stack(torch._foreach_norm(
             [_local(g).float() for g in grads])) ** 2
-        # Each gradient's squares go to the sum of its kind: a bit for
-        # each axis it is split over.
-        kind = torch.tensor([_split_bits(p) for p in params],
-                            device=sq.device)
-        sq = torch.zeros(2 ** len(_SPLIT_AXES), device=sq.device
-                         ).index_add_(0, kind, sq)
-        if fsdp > 1:
-            dist.all_reduce(sq, group=self.mesh.get_group(FSDP))
-        for axis, bit in split:
-            over = [k for k in range(sq.numel()) if k >> bit & 1]
-            summed = sq.clone()
-            dist.all_reduce(summed, group=self.mesh.get_group(axis))
-            sq[over] = summed[over]
-        return torch.sqrt(sq.sum())
+        whole = self.mesh.get_group(FSDP) if fsdp > 1 else None
+        return torch.sqrt(_sum_over_splits(sq, params, self.mesh, split,
+                                           whole))
 
     def _step_body(self, state: TrainState, batch: Any
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -366,21 +377,7 @@ class Trainer:
         (every rank of a ``sequence`` group feeds the same rows), and
         each ``[b, s, ...]`` leaf keeps this rank's sequence shard."""
         if self.mesh is not None and axis_sizes(self.mesh)[SEQUENCE] > 1:
-            n = axis_sizes(self.mesh)[SEQUENCE]
-            r = self.mesh.get_local_rank(SEQUENCE)
-
-            def cut(x):
-                x = np.asarray(x) if not torch.is_tensor(x) else x
-                if x.ndim < 2:
-                    return x
-                if x.shape[1] % n:
-                    raise ValueError(
-                        f"sequence length {x.shape[1]} does not split over "
-                        f"{n} sequence ranks")
-                s = x.shape[1] // n
-                return x[:, r * s:(r + 1) * s]
-
-            batch = _tree_map(cut, batch)
+            batch = _tree_map(lambda x: sequence_shard(x, self.mesh), batch)
         return place_batch(batch, self.device)
 
     # -- loop -------------------------------------------------------------

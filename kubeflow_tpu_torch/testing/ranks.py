@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import random
 import socket
 import subprocess
 import sys
@@ -27,11 +28,26 @@ class RankResult:
     stderr: str
 
 
+# Coordinator ports are drawn below Linux's default ephemeral range
+# (32768-60999): a port bound to 0 comes from that range, and between its
+# release and rank 0's listen any socket bound to 0 (gloo's pairs, another
+# job's) may take it, which fails the job with EADDRINUSE.
+_PORTS = range(20000, 32768)
+
+
 def free_port() -> int:
-    """A port no one listens on now (bound to port 0, then released)."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port no one listens on now: a random one below the ephemeral
+    range that binds, then released."""
+    rng = random.SystemRandom()
+    for _ in range(64):
+        port = rng.choice(_PORTS)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError(f"no free port in {_PORTS}")
 
 
 def run_ranks(argv: Sequence[str], world: int, *, timeout_s: float,

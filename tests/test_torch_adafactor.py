@@ -20,6 +20,10 @@ as threads whose all-reduces (parallel/p2p.py ``all_reduce``) meet in a
 3 updates with the slices its marks name of optax's (OPT_TOL): uneven
 FSDP2 shards (one rank's empty), a chained expert x tensor slice and a
 factored layer dim over pipeline stages beside uneven FSDP2 shards.
+``sharded_members_against_optax`` does the same for the fused trainer's
+stacked update (``Adafactor.update_members``): three members, each with
+its own learning rate, one masked at the last update, under each split,
+every statistic's all-reduce carrying the members' stack.
 """
 
 import threading
@@ -288,22 +292,7 @@ def sharded_against_optax(monkeypatch, shapes, sizes, split, updates=3):
                         lambda t, group: group.all_reduce(t))
 
     def shares(coords, flat):
-        """This rank's named local tensors of the whole leaves ``flat``
-        and, per leaf, its held layers."""
-        out, held = {}, {}
-        for leaf, whole in flat.items():
-            shard, stage = split(coords, leaf)
-            if not leaf.startswith("layers."):
-                out[leaf] = tp.mark(_share(shard, whole), shard)
-                continue
-            rest = leaf.split(".", 1)[1]
-            layers = range(whole.shape[0]) if stage is None else range(
-                stage.offset, stage.offset + stage.layers)
-            held[leaf] = layers
-            for j, layer in enumerate(layers):
-                out[f"layers.{j}.{rest}"] = tp.mark_stage(tp.mark(
-                    _share(shard, whole[layer]), shard), stage)
-        return out, held
+        return _shares(split, coords, flat)
 
     results, errors = {}, []
 
@@ -322,13 +311,7 @@ def sharded_against_optax(monkeypatch, shapes, sizes, split, updates=3):
             for row in groups[r].values():
                 row[1].barrier.abort()
 
-    threads = [threading.Thread(target=rank, args=(r,)) for r in groups]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(120)
-    if errors:
-        raise errors[0][1]
+    _run_threads(groups, rank, errors)
     assert len(results) == len(groups)
     for r, (local, held, state) in results.items():
         for leaf, whole in want.items():
@@ -355,6 +338,139 @@ def sharded_against_optax(monkeypatch, shapes, sizes, split, updates=3):
                     ours[leaf].numpy(), expect.numpy(), **OPT_TOL,
                     err_msg=f"rank {r} {key} {leaf}")
     return results
+
+
+def _shares(split, coords, flat):
+    """This rank's named local tensors of the whole leaves ``flat`` (as
+    ``split`` names its shares) and, per leaf, its held layers."""
+    out, held = {}, {}
+    for leaf, whole in flat.items():
+        shard, stage = split(coords, leaf)
+        if not leaf.startswith("layers."):
+            out[leaf] = tp.mark(_share(shard, whole), shard)
+            continue
+        rest = leaf.split(".", 1)[1]
+        layers = range(whole.shape[0]) if stage is None else range(
+            stage.offset, stage.offset + stage.layers)
+        held[leaf] = layers
+        for j, layer in enumerate(layers):
+            out[f"layers.{j}.{rest}"] = tp.mark_stage(tp.mark(
+                _share(shard, whole[layer]), shard), stage)
+    return out, held
+
+
+def _run_threads(groups, rank, errors):
+    """``rank(r)`` for every rank of ``groups`` in a thread each, joined;
+    the first error a rank appended to ``errors`` raised."""
+    threads = [threading.Thread(target=rank, args=(r,)) for r in groups]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    if errors:
+        raise errors[0][1]
+
+
+def _optax_whole(params, grads, lr):
+    """optax.adafactor(lr)'s parameters after ``grads`` from ``params``
+    (whole leaves, flat names)."""
+    tx = optax.adafactor(lr)
+    jparams = jax.tree.map(jnp.asarray, _jax_tree(params))
+    jstate = tx.init(jparams)
+    for g in grads:
+        step, jstate = tx.update(jax.tree.map(jnp.asarray, _jax_tree(g)),
+                                 jstate, jparams)
+        jparams = optax.apply_updates(jparams, step)
+    return _flat(jax.tree.map(np.asarray, jparams))
+
+
+# The stacked members' learning rates; the last is masked at the last
+# update.
+MEMBER_LRS = (1e-2, 2e-2, 3e-2)
+
+
+def sharded_members_against_optax(monkeypatch, shapes, sizes, split,
+                                  updates=3):
+    """``sharded_against_optax`` for the fused trainer's stacked members
+    (runtime/hfta.py): each rank stacks its shares of every member's
+    whole leaves on a leading member axis, marked as a solo share is,
+    and takes ``updates`` of ``Adafactor.update_members`` with the
+    members' own learning rates (``MEMBER_LRS``), the last member masked
+    at the last update.  Each member's rows must then be its shares of
+    optax's on its own whole leaves (the masked one's after one update
+    fewer), each statistic's all-reduce run once on the stack."""
+    rng = np.random.default_rng(9)
+    n = len(MEMBER_LRS)
+    params = [{k: rng.standard_normal(s).astype(np.float32)
+               for k, s in shapes.items()} for _ in range(n)]
+    grads = [[{k: (rng.standard_normal(s) * rng.choice([1e-3, 1.0, 30.0],
+                                                       size=s))
+               .astype(np.float32) for k, s in shapes.items()}
+              for _ in range(n)] for _ in range(updates)]
+    want = [_optax_whole(params[m], [g[m] for g in grads[:updates - (
+        m == n - 1)]], lr) for m, lr in enumerate(MEMBER_LRS)]
+    groups = axis_groups(sizes)
+    calls = []
+
+    def all_reduce(t, group):
+        calls.append(t.shape)
+        return group.all_reduce(t)
+
+    monkeypatch.setattr(optim.p2p, "all_reduce", all_reduce)
+
+    def stack(members):
+        return {k: tp.like(torch.stack([m[k] for m in members]),
+                           members[0][k]) for k in members[0]}
+
+    results, errors = {}, []
+
+    def rank(r):
+        _ME.rank = r
+        try:
+            coords = groups[r]
+            solo = [_shares(split, coords, p)[0] for p in params]
+            port = optim.adafactor(0.0)
+            states = [port.init(s) for s in solo]
+            state = optim.AdafactorState(
+                count=torch.zeros(n, dtype=torch.int64),
+                **{key: stack([getattr(st, key) for st in states])
+                   for key in ("v_row", "v_col", "v")})
+            local = stack(solo)
+            for u, g in enumerate(grads):
+                keep = torch.tensor([m < n - 1 or u < updates - 1
+                                     for m in range(n)])
+                port.update_members(
+                    stack([_shares(split, coords, gm)[0] for gm in g]),
+                    state, local, keep, torch.tensor(MEMBER_LRS))
+            results[r] = (local, _shares(split, coords, params[0])[1],
+                          state.count.tolist())
+        except BaseException as e:  # surfaced below, with the rank
+            errors.append((r, e))
+            for row in groups[r].values():
+                row[1].barrier.abort()
+
+    _run_threads(groups, rank, errors)
+    assert len(results) == len(groups)
+    for r, (local, held, counts) in results.items():
+        assert counts == [updates] * (n - 1) + [updates - 1]
+        for m in range(n):
+            for leaf, whole in want[m].items():
+                shard, _ = split(groups[r], leaf)
+                if leaf.startswith("layers."):
+                    rest = leaf.split(".", 1)[1]
+                    got = np.stack([local[f"layers.{j}.{rest}"][m].numpy()
+                                    for j in range(len(held[leaf]))])
+                    expect = np.stack([_share(shard, np.array(whole[i]))
+                                       .numpy() for i in held[leaf]])
+                else:
+                    got = local[leaf][m].numpy()
+                    expect = _share(shard, np.array(whole)).numpy()
+                np.testing.assert_allclose(
+                    got, expect, **OPT_TOL,
+                    err_msg=f"rank {r} member {m} {leaf}")
+    # Every all-reduce carried the members' stack, never one member's.
+    assert calls and all(shape[0] == n or tuple(shape) == (2, n)
+                         for shape in calls), calls
 
 
 def _share(shard, whole):
@@ -444,3 +560,13 @@ def test_sharded_statistics_match_optax(monkeypatch, case):
             (1,), (1,), (0,)]
         assert [tuple(results[r][2].v_row["embed"].shape)
                 for r in range(3)] == [(44,), (44,), (42,)]
+
+
+@pytest.mark.parametrize("case", sorted(SPLITS))
+def test_sharded_member_updates_match_optax(monkeypatch, case):
+    """The fused trainer's stacked update under each split: each member's
+    shares after 3 updates are its shares of optax's with its own
+    learning rate, and a member masked at the last update kept its
+    rows (module docstring)."""
+    shapes, sizes, split = SPLITS[case]
+    sharded_members_against_optax(monkeypatch, shapes, sizes, split)

@@ -45,7 +45,6 @@ from kubeflow_tpu.runtime.hfta import FusedTrainer as JaxFusedTrainer
 from kubeflow_tpu.runtime.hfta import default_tx_factory as jax_default_tx
 from kubeflow_tpu.runtime.hfta import MemberSpec as JaxMemberSpec
 from kubeflow_tpu.runtime.metrics import MetricsLogger as JaxMetricsLogger
-from kubeflow_tpu_torch import NotPortedError
 from kubeflow_tpu_torch.models.convert import (
     load_params,
     params_from_jax,
@@ -386,8 +385,8 @@ def test_member_checkpoints_and_metrics(tmp_path):
 
 class _ShapedMesh:
     """A mesh's names and sizes alone (``MeshSpec(**sizes)``'s shape on
-    a world of their product), as the fused trainer's axis check reads
-    them before any collective."""
+    a world of their product) and rank 0, as the fused trainer reads them
+    when it is built, before any collective."""
 
     def __init__(self, **sizes):
         resolved = PortMeshSpec(**dict(dict(data=1), **sizes)).sizes(
@@ -395,14 +394,18 @@ class _ShapedMesh:
         self.mesh_dim_names = tuple(resolved)
         self.shape = tuple(resolved.values())
 
+    def get_rank(self):
+        return 0
+
 
 def test_member_validation():
     with pytest.raises(ValueError, match="duplicate"):
         make([MemberSpec(name="a"), MemberSpec(name="a")])
     with pytest.raises(ValueError, match="at least one"):
         make([])
-    with pytest.raises(NotPortedError, match="item 28"):
-        make(specs(2), mesh=_ShapedMesh(tensor=2))
+    for axis in ("tensor", "sequence", "expert", "pipeline"):
+        mesh = _ShapedMesh(**{axis: 2})
+        assert make(specs(2), mesh=mesh).mesh is mesh, axis
     assert make(specs(2), rules=(("batch", "data"),)).rules == (
         ("batch", "data"),)
     with pytest.raises(ValueError, match="member states"):

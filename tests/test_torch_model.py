@@ -160,9 +160,9 @@ def test_two_pass_model_matches_jax():
         np.int32)
     want = np.asarray(JaxTransformer(cfg).apply({"params": tree}, tokens))
     _, jloss_fn = jax_lm_task(cfg)
-    (jloss, _), jgrads = jax.value_and_grad(
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jloss_fn(p, {}, {"tokens": jnp.asarray(tokens)},
-                           jax.random.key(1)), has_aux=True)(tree)
+                           jax.random.key(1)), has_aux=True))(tree)
 
     model = _port_model(overrides, tree)
     taken = []

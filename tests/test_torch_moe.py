@@ -216,9 +216,9 @@ def test_lm_task_loss_aux_and_grads_match_jax(impl):
     tokens = np.random.default_rng(1).integers(0, 128, (2, 48),
                                                dtype=np.int32)
     _, jax_loss_fn = jax_lm_task(jcfg)
-    (jloss, (jmetrics, _)), jgrads = jax.value_and_grad(
+    (jloss, (jmetrics, _)), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jax_loss_fn(p, {}, {"tokens": jnp.asarray(tokens)},
-                              jax.random.key(1)), has_aux=True)(tree)
+                              jax.random.key(1)), has_aux=True))(tree)
 
     cfg = TransformerConfig(dtype=torch.float32, **overrides)
     model = load_params(Transformer(cfg, device="meta"),

@@ -37,7 +37,12 @@ groups that span ranks, as JAX fits them to the global tokens:
     rank of each group drops choices; then fsdp=2,
     expert=2 with the gather dispatch (FSDP2 shards each rank's experts)
     over 2 adamw steps, against no mesh within 1e-5 and against the JAX
-    ``Trainer`` on that mesh within 1e-4;
+    ``Trainer`` on that mesh within 1e-4; the fused gang
+    (tests/torch_fused_gang.py) over that mesh, each rank's E/N experts
+    stacked, against the JAX ``FusedTrainer`` on fsdp=2 x expert=2
+    (per-member loss and grad_norm every step and each member's
+    parameters within 1e-4, the ranks' losses equal, m1 bit-equal from
+    its stop);
   - ``moe_pipe8`` (8 ranks): test_transformer.py's ``test_pipelined_moe_
     matches_microbatched_sequential`` layout, data=2, pipeline=2,
     expert=2, M 4 on 8 x 16 tokens: at JAX's own groups of (B/M)·S = 32
@@ -97,6 +102,8 @@ from kubeflow_tpu_torch.runtime.train import Trainer
 from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
 from kubeflow_tpu_torch.tools import train_lm
 from test_torch_adafactor import sharded_against_optax
+from torch_fused_gang import GANG, GANG_STEPS
+from torch_fused_jax import check_members, check_step, jax_gang
 
 # One intra-op thread a process: the suite runs as several processes on
 # shared cores, where torch's OpenMP threads spin against each other.
@@ -119,6 +126,9 @@ PIPE_STEPS = 3
 PIPE_TOL = dict(atol=2e-4, rtol=1e-3)
 # test_pp_ring_moe_all_compose's model and batch, in float32.
 PPS = dict(MOE, moe_experts=2, attention="ring", pipeline_microbatches=2)
+# The fused gang over fsdp=2 x expert=2 (moe_batch4's second mesh;
+# tests/torch_fused_gang.py), at the routing group the global batch fits.
+GANG_CFG, GANG_MESH = dict(MOE, attention="flash"), dict(fsdp=2, expert=2)
 JOBS = {"moe8": 8, "moe_batch4": 4, "moe_pipe8": 8, "train_lm": 2}
 JOB_TIMEOUT_S = 150
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -270,6 +280,7 @@ def both(tmp_path_factory):
                 "pps_cfg": PPS,
                 "pps_params": params_from_jax(pps_tree),
                 "pps_tokens": torch.from_numpy(_pps_tokens()),
+                "gang_cfg": GANG_CFG,
                 "train_lm_argv": TRAIN_LM_ARGV + ["--mesh", "expert=2"]},
                work / "inputs.pt")
     with concurrent.futures.ThreadPoolExecutor(len(JOBS) + 9) as pool:
@@ -301,6 +312,8 @@ def both(tmp_path_factory):
             "pipe_trainer": pool.submit(
                 _jax_steps, tree, _batches()[:PIPE_STEPS], PIPE,
                 data=2, pipeline=2, expert=2),
+            "gang": pool.submit(jax_gang, MOE, GANG,
+                                _batches()[:GANG_STEPS], **GANG_MESH),
         }
         jax_out = {name: f.result() for name, f in jax_futures.items()}
         jax_out["init"] = tree
@@ -717,3 +730,26 @@ def test_train_lm_expert_matches_no_mesh(jobs):
     assert len(want) == 3
     np.testing.assert_allclose(losses[0][-1], want[-1], rtol=2e-4)
     np.testing.assert_allclose(losses[0], want, rtol=1e-3)
+
+
+# -- the fused trainer over the expert axis (moe_batch4's second mesh) --------
+
+
+@pytest.mark.parametrize("step", range(GANG_STEPS))
+def test_fused_gang_over_experts_steps_match_jax(jobs, jax_side, step):
+    """Every rank's per-member loss and grad_norm of each fused step at
+    fsdp=2 x expert=2 (each rank's E/N experts stacked, the expert
+    group's reduce and the aux statistics on the members' stack) against
+    JAX's ``FusedTrainer`` on the same mesh shape; the ranks' losses
+    equal."""
+    check_step([r["gang"] for r in jobs["moe_batch4"]], jax_side["gang"][0],
+               step, **TOL)
+
+
+def test_fused_gang_over_experts_members_match_jax(jobs, jax_side):
+    """Each member's whole parameters (every expert gathered) after the
+    steps against JAX's, and m1 bit-equal on every rank from its stop to
+    the end."""
+    check_members([r["gang"] for r in jobs["moe_batch4"]],
+                  jax_side["gang"][1], GANG_CFG,
+                  [GANG_STEPS, GANG[1]["stop_step"]], **TOL)

@@ -58,13 +58,25 @@ together and joined with a timeout, hold every result these tests read:
     over 3 adamw steps within 1e-5 (relative), parameters within
     atol=rtol=1e-5, with and without remat; both tensor ranks keep the
     same dropout mask; a checkpoint saved without a mesh restores onto
-    the tensor slices and resumes to the third step's loss;
+    the tensor slices and resumes to the third step's loss.  Then the
+    fused gang (tests/torch_fused_gang.py: m0, m1 from seeds 0, 1 at lr
+    1e-3, 2e-3, m1 stopping at step 2, 3 steps on the global batches)
+    over the tensor slices against the JAX ``FusedTrainer`` on a
+    ``MeshSpec(tensor=2)`` of 2 CPU devices (tests/torch_fused_jax.py):
+    per-member loss and grad_norm every step and every member's
+    parameters within atol=rtol=1e-4, the ranks' losses equal, m1
+    bit-equal from its stop; its member checkpoints, gathered over the
+    slices, pass JAX's ``verify_step`` and a ``Trainer`` without a mesh
+    restores m0 bit for bit;
   - ``dropout4`` (4 ranks): data=2, sequence=2 with the ring at dropout
     0.1 against the trainer without a mesh on the global batch: loss,
     grad_norm and parameters over 2 sgd steps within 1e-5; each rank's
     mask is its rows and positions of the one global draw, so the data
-    ranks' masks differ and so do the sequence shards'.  Then the fused
-    trainer (runtime/hfta.py) on the same ranks at data=2, fsdp=2, every
+    ranks' masks differ and so do the sequence shards'.  The fused gang
+    over that mesh (the ring's hops carrying the members' stack) against
+    the JAX ``FusedTrainer`` on data=2 x sequence=2, as tensor2's.  Then
+    the fused trainer (runtime/hfta.py) on the same ranks at data=2,
+    fsdp=2, every
     rank given the global batch: a width-4 gang over 3 adamw steps with
     m1 stopping at 2 against the JAX ``FusedTrainer`` on a
     ``MeshSpec(data=2, fsdp=2)`` of 4 CPU devices from the same member
@@ -98,12 +110,8 @@ from kubeflow_tpu.models.transformer import TransformerConfig as JaxConfig
 from kubeflow_tpu.models.transformer import lm_task as jax_lm_task
 from kubeflow_tpu.parallel import MeshSpec as JaxMeshSpec
 from kubeflow_tpu.runtime.checkpoint import verify_step
-from kubeflow_tpu.runtime.hfta import FusedTrainer as JaxFusedTrainer
-from kubeflow_tpu.runtime.hfta import MemberSpec as JaxMemberSpec
-from kubeflow_tpu.runtime.hfta import default_tx_factory as jax_default_tx
 from kubeflow_tpu.runtime.metrics import MetricsLogger as JaxMetricsLogger
 from kubeflow_tpu.runtime.train import Trainer as JaxTrainer
-from kubeflow_tpu.runtime.train import TrainState as JaxTrainState
 from kubeflow_tpu_torch.models.convert import (
     load_params,
     params_from_jax,
@@ -116,6 +124,8 @@ from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
 from kubeflow_tpu_torch.runtime.train import Trainer
 from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
 from kubeflow_tpu_torch.tools import train_lm
+from torch_fused_gang import GANG, GANG_STEPS
+from torch_fused_jax import check_members, check_step, jax_gang
 
 # One intra-op thread a process: the suite runs as several processes on
 # shared cores, where torch's OpenMP threads spin against each other.
@@ -134,6 +144,11 @@ FUSED_MEMBERS = [dict(name=f"m{i}", seed=i, lr=1e-3 * (i + 1),
 FUSED_STEPS = 3
 FUSED_VARIANTS = {"dropout": dict(dropout_rate=0.1),
                   "moe": dict(moe_experts=4, moe_group_size=128)}
+# The fused gang over the model axes (tests/torch_fused_gang.py): its
+# config on each job's mesh and the JAX FusedTrainer's mesh beside it.
+GANGS = {"tensor2": (dict(SMALL, attention="flash"), dict(tensor=2)),
+         "dropout4": (dict(SMALL, attention="ring"),
+                      dict(data=2, sequence=2))}
 JOBS = {"mesh8": 8, "world1": 1, "train_lm": 2, "tensor8": 8, "tensor2": 2,
         "dropout4": 4, "train_lm_tensor": 2}
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -171,8 +186,9 @@ def _jax_trainer(tx, tensor=False):
                       metrics=JaxMetricsLogger(stream=open("/dev/null", "w")))
 
 
-def _jax_run(tx, batches, tensor=False):
-    tr = _jax_trainer(tx, tensor)
+def _jax_run(tr, batches):
+    """The JAX trainer ``tr``'s steps over ``batches`` from seed 0 (its
+    step compiled once a trainer, so a trainer serves several runs)."""
     state = tr.create_state(seed=0)
     step = tr.compile_step()
     losses, norms = [], []
@@ -195,6 +211,7 @@ def _start_jobs(work, init_tree, pool):
                 "fused_members": FUSED_MEMBERS,
                 "fused_steps": FUSED_STEPS,
                 "fused_variants": FUSED_VARIANTS,
+                "gang_cfg": {job: cfg for job, (cfg, _) in GANGS.items()},
                 "train_lm_argv": TRAIN_LM_ARGV[2:],
                 "train_lm_tensor_argv": _tensor_argv()[2:]},
                work / "inputs.pt")
@@ -204,46 +221,11 @@ def _start_jobs(work, init_tree, pool):
             for name, n in JOBS.items()}
 
 
-def _member_trees():
-    """Each fused member's initial weights as the JAX tree: the port's
-    draw from its seed, which every rank's ``create_member_state`` makes
-    alike."""
-    init_fn, _ = lm_task(TransformerConfig(dtype=torch.float32, **SMALL),
-                         device="cpu")
-    return [params_to_jax(init_fn(torch.Generator().manual_seed(
-        m["seed"]))[0]) for m in FUSED_MEMBERS]
-
-
 def _jax_fused(batches):
     """The JAX ``FusedTrainer`` on a data=2 x fsdp=2 mesh of 4 CPU
-    devices, from the port's member weights (the fused state pinned
-    replicated, as its ``fit`` pins it): each step's per-member loss and
-    grad_norm and each member's parameters after the steps."""
-    mesh = JaxMeshSpec(data=2, fsdp=2).build(jax.devices()[:4])
-    init_fn, loss_fn = jax_lm_task(JaxConfig(dtype=jnp.float32, **SMALL),
-                                   mesh=mesh)
-    members = [JaxMemberSpec(**m) for m in FUSED_MEMBERS]
-    jft = JaxFusedTrainer(
-        init_fn=init_fn, loss_fn=loss_fn, members=members, mesh=mesh,
-        metrics=JaxMetricsLogger(stream=open("/dev/null", "w")))
-    states = [JaxTrainState(
-        step=jnp.zeros((), jnp.int32), params=tree,
-        opt_state=jax_default_tx(m.lr).init(tree),
-        rng=jax.random.split(jax.random.key(m.seed))[1], mutable={})
-        for m, tree in zip(members, _member_trees())]
-    state = jax.device_put(jft._stack_members(states), jax.sharding
-                           .NamedSharding(mesh, jax.sharding.PartitionSpec()))
-    step, active = jft.compile_step(), jnp.ones((4,), bool)
-    stops = jnp.asarray([m.stop_step or FUSED_STEPS for m in members],
-                        jnp.int32)
-    metrics = []
-    for b in batches:
-        state, active, m = step(state, active, stops,
-                                jft.shard_batch({"tokens": b}))
-        metrics.append({k: np.asarray(m[k]) for k in ("loss", "grad_norm")})
-    return metrics, [jax.tree.map(np.asarray, jft.member_state(state,
-                                                              i).params)
-                     for i in range(4)]
+    devices, from the port's member weights: each step's per-member loss
+    and grad_norm and each member's parameters after the steps."""
+    return jax_gang(SMALL, FUSED_MEMBERS, batches, data=2, fsdp=2)
 
 
 def _tensor_argv():
@@ -257,33 +239,35 @@ def both(tmp_path_factory):
     """The port's jobs run while the JAX trainers step here (adafactor's
     two in threads beside the rest)."""
     work = tmp_path_factory.mktemp("mesh_train")
-    tree = jax.tree.map(np.asarray,
-                        _jax_trainer(optax.adamw(1e-3)).create_state(
-                            seed=0).params)
-    with concurrent.futures.ThreadPoolExecutor(len(JOBS) + 3) as pool:
+    adamw = _jax_trainer(optax.adamw(1e-3))
+    tree = jax.tree.map(np.asarray, adamw.create_state(seed=0).params)
+    with concurrent.futures.ThreadPoolExecutor(len(JOBS) + 5) as pool:
         futures = _start_jobs(work, tree, pool)
-        adafactor = {tensor: pool.submit(_jax_run, optax.adafactor(1e-3),
-                                         _batches(), tensor=tensor)
-                     for tensor in (False, True)}
+        adafactor = {tensor: pool.submit(
+            _jax_run, _jax_trainer(optax.adafactor(1e-3), tensor),
+            _batches()) for tensor in (False, True)}
         fused = pool.submit(_jax_fused, _batches()[:FUSED_STEPS])
+        gangs = {job: pool.submit(jax_gang, SMALL, GANG,
+                                  _batches()[:GANG_STEPS], **mesh_spec)
+                 for job, (_, mesh_spec) in GANGS.items()}
         jax_out = {"init": tree}
         (jax_out["adamw_losses"], jax_out["adamw_norms"],
-         jax_out["adamw_params"]) = _jax_run(optax.adamw(1e-3), _batches())
-        _, _, jax_out["sgd_params"] = _jax_run(optax.sgd(SGD_LR),
-                                               _batches()[:3])
+         jax_out["adamw_params"]) = _jax_run(adamw, _batches())
+        sgd = _jax_trainer(optax.sgd(SGD_LR))
+        _, _, jax_out["sgd_params"] = _jax_run(sgd, _batches()[:3])
         jax_out["same_rows_losses"], jax_out["same_rows_norms"], _ = \
-            _jax_run(optax.sgd(SGD_LR), [_same_rows()])
+            _jax_run(sgd, [_same_rows()])
         tr = _jax_trainer(optax.adamw(1e-3), tensor=True)
         jax_out["tensor_wi_spec"] = tuple(
             tr.create_state(seed=0).params["layers"]["mlp"]["wi"]
             .sharding.spec)
         (jax_out["tensor_losses"], jax_out["tensor_norms"],
-         jax_out["tensor_params"]) = _jax_run(optax.adamw(1e-3), _batches(),
-                                              tensor=True)
+         jax_out["tensor_params"]) = _jax_run(tr, _batches())
         for tensor, future in adafactor.items():
             jax_out["adafactor_tensor" if tensor else "adafactor"] = \
                 future.result()
         jax_out["fused"] = fused.result()
+        jax_out["gangs"] = {job: f.result() for job, f in gangs.items()}
         for future in futures.values():
             check_ranks(future.result())
     jobs = {name: [torch.load(work / f"{name}-rank{r}.pt",
@@ -770,3 +754,49 @@ def test_fused_mesh_metrics_count_each_step_once(jobs):
         np.testing.assert_allclose(
             record["examples_per_sec"] / record["examples_per_sec_per_chip"],
             4, rtol=1e-3)
+
+
+# -- the fused trainer over the model axes (tensor2's and dropout4's meshes) --
+
+
+@pytest.mark.parametrize("job", sorted(GANGS))
+@pytest.mark.parametrize("step", range(GANG_STEPS))
+def test_fused_gang_over_model_axis_steps_match_jax(jobs, jax_side, job,
+                                                    step):
+    """Every rank's per-member loss and grad_norm of each fused step at
+    tensor=2 (the members' slices stacked) and at data=2 x sequence=2 (the
+    ring's hops carrying the stack) against JAX's ``FusedTrainer`` on the
+    same mesh shape; the ranks' losses equal."""
+    check_step([r["gang"] for r in jobs[job]], jax_side["gangs"][job][0],
+               step, **TOL)
+
+
+@pytest.mark.parametrize("job", sorted(GANGS))
+def test_fused_gang_over_model_axis_members_match_jax(jobs, jax_side, job):
+    """Each member's whole parameters after the steps against JAX's, and
+    m1 bit-equal on every rank from its stop to the end."""
+    check_members([r["gang"] for r in jobs[job]], jax_side["gangs"][job][1],
+                  GANGS[job][0], [GANG_STEPS, GANG[1]["stop_step"]], **TOL)
+
+
+def test_fused_gang_tensor_checkpoint(jobs):
+    """The member checkpoints the gang's fit saved over tensor=2 (each
+    slice gathered): JAX's ``verify_step`` accepts each member's last
+    step, and a ``Trainer`` without a mesh on default_tx_factory(lr)
+    restores m0's bit for bit."""
+    ckdir = jobs["dir"] / "ckpt_gang_tensor"
+    for m in GANG:
+        last = m.get("stop_step", GANG_STEPS) - 1
+        assert verify_step(ckdir / m["name"], last) == (True, ""), m["name"]
+    init_fn, loss_fn = lm_task(TransformerConfig(dtype=torch.float32,
+                                                 **SMALL), device="cpu")
+    tr = Trainer(init_fn=init_fn, loss_fn=loss_fn,
+                 tx=optim.default_tx_factory(GANG[0]["lr"]), device="cpu",
+                 metrics=MetricsLogger(stream=open("/dev/null", "w")))
+    state = CheckpointManager(ckdir / "m0").restore(
+        tr.create_state(seed=5), step=GANG_STEPS - 1)
+    assert state.step == GANG_STEPS
+    assert state.opt_state.inner.count == GANG_STEPS
+    saved = jobs["tensor2"][0]["gang"]["params"][0]
+    for name, p in state.params.named_parameters():
+        assert torch.equal(p.detach(), saved[name]), name

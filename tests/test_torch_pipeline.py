@@ -27,7 +27,13 @@ through its dot attention, as tests/test_transformer.py's
     checkpoint saved without a mesh restored onto the stages and resumed;
     the MoE LM's loss and aux against the mean over the microbatches
     without a mesh; the refusals (layers or batch that do not divide,
-    positions or segment ids);
+    positions or segment ids); the fused gang (tests/torch_fused_gang.py)
+    over the stages at M 2 against the JAX ``FusedTrainer`` on
+    pipeline=2 (per-member loss and grad_norm every step and each
+    member's parameters within 1e-4, both stages' losses equal, m1
+    bit-equal from its stop), and its member checkpoints, every stage's
+    layers gathered: JAX's ``verify_step`` accepts them and a ``Trainer``
+    without a mesh restores m0 bit for bit;
   - ``pipe8`` (8 ranks): ``TestPipelineParallel``'s data=2, pipeline=2,
     tensor=2 layout: loss and grad_norm over 5 adamw steps within 1e-4
     (relative) and the parameters after them; one layer a stage, ``wq``'s
@@ -89,6 +95,8 @@ from kubeflow_tpu_torch.runtime.train import Trainer
 from kubeflow_tpu_torch.testing.ranks import check_ranks, run_ranks
 from kubeflow_tpu_torch.tools import train_lm
 from test_torch_adafactor import sharded_against_optax
+from torch_fused_gang import GANG, GANG_STEPS
+from torch_fused_jax import check_members, check_step, jax_gang
 
 # One intra-op thread a process: the suite runs as several processes on
 # shared cores, where torch's OpenMP threads spin against each other.
@@ -101,6 +109,8 @@ PP = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
           d_ff=64, head_dim=8, max_seq_len=32)
 MICRO, BATCH, SEQ, STEPS = 4, 8, 16, 5
 PRIM_L, PRIM_D = 8, 16
+# The fused gang over pipe2's stages (tests/torch_fused_gang.py) at M 2.
+GANG_OVER = dict(pipeline_microbatches=2)
 JOBS = {"prim": 4, "pipe2": 2, "pipe8": 8, "pipe4": 4, "train_lm": 2}
 JOB_TIMEOUT_S = 150
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -255,7 +265,8 @@ def both(tmp_path_factory):
                 "prim_b": torch.from_numpy(prim["b"]),
                 "prim_x": torch.from_numpy(prim["x"]),
                 "prim_x_aux": torch.from_numpy(prim["x_aux"]),
-                "train_lm_argv": TRAIN_LM_ARGV + PIPE_FLAGS},
+                "train_lm_argv": TRAIN_LM_ARGV + PIPE_FLAGS,
+                "gang_cfg": GANG_OVER},
                work / "inputs.pt")
     with concurrent.futures.ThreadPoolExecutor(len(JOBS) + 7) as pool:
         futures = {name: pool.submit(run_ranks, [WORKER, name, str(work)], n,
@@ -276,6 +287,8 @@ def both(tmp_path_factory):
                                       STEPS, data=2, pipeline=2, tensor=2),
             "fsdp": pool.submit(_jax_run, optax.adamw(1e-3), 3, fsdp=2,
                                 pipeline=2),
+            "gang": pool.submit(jax_gang, dict(PP, **GANG_OVER), GANG,
+                                _batches()[:GANG_STEPS], pipeline=2),
         }
         jax_out = {name: f.result() for name, f in jax_futures.items()}
         jax_out["init"] = tree
@@ -670,3 +683,49 @@ def test_train_lm_pipeline_matches_no_mesh(jobs):
     want = [h["loss"] for h in plain.metrics.history]
     assert len(want) == 3
     np.testing.assert_allclose(losses[0], want, rtol=2e-4)
+
+
+# -- the fused trainer over the stages (pipe2) ---------------------------------
+
+
+@pytest.mark.parametrize("step", range(GANG_STEPS))
+def test_fused_gang_over_stages_steps_match_jax(jobs, jax_side, step):
+    """Every rank's per-member loss and grad_norm of each fused step at
+    pipeline=2, M 2 (the schedule run once on the members' stack, each
+    stage mapping its layers over the members' parameters) against JAX's
+    ``FusedTrainer`` on the same mesh shape; both stages' losses equal."""
+    check_step([r["gang"] for r in jobs["pipe2"]], jax_side["gang"][0], step,
+               **TOL)
+
+
+def test_fused_gang_over_stages_members_match_jax(jobs, jax_side):
+    """Each member's whole parameters (every stage's layers gathered)
+    after the steps against JAX's, and m1 bit-equal on both stages from
+    its stop to the end."""
+    check_members([r["gang"] for r in jobs["pipe2"]], jax_side["gang"][1],
+                  dict(PP, **GANG_OVER), [GANG_STEPS, GANG[1]["stop_step"]],
+                  **TOL)
+
+
+def test_fused_gang_stage_checkpoint(jobs):
+    """The member checkpoints the gang's fit saved over pipeline=2 (every
+    stage's layers gathered under their global names): JAX's
+    ``verify_step`` accepts each member's last step, and a ``Trainer``
+    without a mesh on default_tx_factory(lr) restores m0's bit for bit."""
+    ckdir = jobs["dir"] / "ckpt_gang_pipe"
+    for m in GANG:
+        last = m.get("stop_step", GANG_STEPS) - 1
+        assert verify_step(ckdir / m["name"], last) == (True, ""), m["name"]
+    init_fn, loss_fn = lm_task(TransformerConfig(dtype=torch.float32, **PP),
+                               device="cpu")
+    tr = Trainer(init_fn=init_fn, loss_fn=loss_fn,
+                 tx=optim.default_tx_factory(GANG[0]["lr"]), device="cpu",
+                 metrics=MetricsLogger(stream=open("/dev/null", "w")))
+    state = CheckpointManager(ckdir / "m0").restore(
+        tr.create_state(seed=5), step=GANG_STEPS - 1)
+    assert state.step == GANG_STEPS
+    assert state.opt_state.inner.count == GANG_STEPS
+    saved = jobs["pipe2"][0]["gang"]["params"][0]
+    assert set(saved) == {n for n, _ in state.params.named_parameters()}
+    for name, p in state.params.named_parameters():
+        assert torch.equal(p.detach(), saved[name]), name

@@ -18,6 +18,7 @@ another route.  Tolerances:
 
 import collections
 import dataclasses
+import functools
 import json
 import socket
 import types
@@ -86,6 +87,13 @@ def _tokens(seed=1, shape=(2, 48), vocab=256):
 
 
 def _jax_params(cfg, seed=0):
+    """The JAX model's initial weights at ``cfg`` from ``seed`` (numpy),
+    drawn once a module for each (cfg, seed) and copied to each caller."""
+    return jax.tree.map(np.copy, _jax_init(cfg, seed))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init(cfg, seed):
     init_fn, _ = jax_lm_task(cfg)
     params, _ = init_fn(jax.random.key(seed))
     return jax.tree.map(np.asarray, nn.unbox(params))
@@ -121,9 +129,9 @@ def test_lm_task_loss_and_grads_match_jax(ce_dtype, ce_chunk):
     tree = _jax_params(jcfg)
     tokens = _tokens()
     _, jax_loss_fn = jax_lm_task(jcfg)
-    (jloss, (jmetrics, _)), jgrads = jax.value_and_grad(
+    (jloss, (jmetrics, _)), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jax_loss_fn(p, {}, {"tokens": jnp.asarray(tokens)},
-                              jax.random.key(1)), has_aux=True)(tree)
+                              jax.random.key(1)), has_aux=True))(tree)
 
     model = _port_model(overrides, tree)
     _, loss_fn = lm_task(model.cfg, device="cpu")

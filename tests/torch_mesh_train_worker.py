@@ -23,8 +23,11 @@ adafactor steps, and adafactor at a width whose matrices factor against
 no mesh, with a checkpoint); ``tensor2`` at tensor=2 alone with an untied
 unembed, the chunked CE and dropout 0.1, against the trainer without a
 mesh on the global batch (with and without remat), and restores that
-trainer's checkpoint; ``dropout4`` at data=2, sequence=2 with the ring
-and dropout 0.1 against the trainer without a mesh, then runs the
+trainer's checkpoint, then runs the fused gang of
+tests/torch_fused_gang.py over its tensor slices, with member
+checkpoints; ``dropout4`` at data=2, sequence=2 with the ring
+and dropout 0.1 against the trainer without a mesh and the fused gang
+over that mesh, then runs the
 fused trainer (runtime/hfta.py) at data=2, fsdp=2: a width-4 gang over
 3 adamw steps with m1 stopping at 2 (each step's metrics and the stacked
 state), one step with dropout 0.1 and one MoE step whose routing groups
@@ -37,7 +40,6 @@ model=2``.
 
 import os
 import sys
-import warnings
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -76,6 +78,7 @@ from kubeflow_tpu_torch.runtime.supervisor import (  # noqa: E402
     TrainSupervisor,
 )
 from kubeflow_tpu_torch.runtime.train import Trainer  # noqa: E402
+from torch_fused_gang import gang, stacked, strict_map  # noqa: E402
 
 
 def _clone(tree):
@@ -316,6 +319,10 @@ def tensor2(spec, workdir):
                              for n, p in state.params.named_parameters()}
     _, m = tr.compile_step()(state, tr.shard_batch({"tokens": batches[2]}))
     out["resumed_loss"] = float(m["loss"])
+    # The fused gang over the tensor slices, with member checkpoints.
+    out["gang"] = gang(TransformerConfig(dtype=torch.float32,
+                                         **spec["gang_cfg"]["tensor2"]),
+                       mesh, spec["batches"], workdir / "ckpt_gang_tensor")
     return out
 
 
@@ -332,6 +339,10 @@ def dropout4(spec, workdir):
         tx=lambda: optim.sgd(spec["sgd_lr"]))
     out["coords"] = coords(mesh)
     out["mask"] = one_mask(mesh, (2, 16, 32))
+    # The fused gang over the sequence shards (the ring).
+    out["gang"] = gang(TransformerConfig(dtype=torch.float32,
+                                         **spec["gang_cfg"]["dropout4"]),
+                       mesh, spec["batches"])
     out["fused"] = fused(spec, workdir)
     return out
 
@@ -364,27 +375,11 @@ def fused_steps(ft, batches, stops):
     return metrics, states
 
 
-def stacked(state):
-    """Every tensor of a fused state (parameters, moments, counts,
-    learning rates, steps), copied, by name."""
-    out = {f"params.{k}": v.detach().clone()
-           for k, v in state.params.items()}
-    out["step"] = state.step.clone()
-    inner = state.opt_state.inner
-    out["count"] = inner.count.clone()
-    out["lr"] = state.opt_state.learning_rate.clone()
-    for name in ("mu", "nu"):
-        for i, t in enumerate(getattr(inner, name)):
-            out[f"{name}.{i}"] = t.clone()
-    return out
-
-
 def fused(spec, workdir):
     """The fused trainer at data=2 x fsdp=2 (module docstring), with
     torch.func.vmap's fallback warning an error: no member loop may hide
     in the map, and no collective may run on a member's view."""
-    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
-    warnings.filterwarnings("error", "There is a performance drop")
+    strict_map()
     mesh = MeshSpec(data=2, fsdp=2).build("cpu", timeout_s=60)
     members = [MemberSpec(**m) for m in spec["fused_members"]]
     stops = [m.stop_step or spec["fused_steps"] for m in members]

@@ -17,7 +17,8 @@ data=2, sequence=2 with the ring and the trainer without a mesh on the
 global batch, with each rank's aux over its own tokens alone and one
 loss and its gradients at routing groups that span ranks (at two
 capacities, with each rank's dropped choices), then at fsdp=2, expert=2
-with the gather dispatch and without a mesh; ``moe_pipe8`` at data=2,
+with the gather dispatch and without a mesh, and the fused gang of
+tests/torch_fused_gang.py over that mesh; ``moe_pipe8`` at data=2,
 pipeline=2, expert=2 (one loss and its gradients from each rank's
 contiguous rows, which the loss exchanges into JAX's microbatches, the
 rows it then holds and the aux of its own contiguous microbatches, one
@@ -57,6 +58,7 @@ from kubeflow_tpu_torch.parallel.mesh import (  # noqa: E402
     batch_group,
 )
 from kubeflow_tpu_torch.runtime import bootstrap, optim  # noqa: E402
+from torch_fused_gang import gang  # noqa: E402
 from kubeflow_tpu_torch.runtime.checkpoint import (  # noqa: E402
     CheckpointManager,
 )
@@ -220,6 +222,8 @@ def moe_batch4(spec, workdir):
             trainer(cfg, params, m, optim.adamw(1e-3), moe_impl="gather"),
             spec["batches"][:2], feed)
         out[f"{name}_params"] = full_params(state.params)
+    # The fused gang over the experts: each rank's E/N experts stacked.
+    out["gang"] = gang(_cfg(spec["gang_cfg"]), mesh, spec["batches"])
     return out
 
 

@@ -18,7 +18,8 @@ stage of a group whose first never sends; ``pipe2`` the LM at
 data=1, pipeline=2 (logits with and without remat, adamw and adafactor
 steps, dropout at 0 microbatches against no mesh, a checkpoint saved
 without a mesh restored onto the stages, the MoE LM against the mean of
-its microbatches without a mesh, the refusals);
+its microbatches without a mesh, the refusals, and the fused gang of
+tests/torch_fused_gang.py over the stages with member checkpoints);
 ``pipe8`` at data=2, pipeline=2, tensor=2 (adamw steps, shard shapes, a
 checkpoint and its resume); ``pipe4`` at pipeline=2, sequence=2 with the
 ring (one loss and its gradients) and at fsdp=2, pipeline=2 (adamw
@@ -68,6 +69,7 @@ from kubeflow_tpu_torch.runtime.checkpoint import (  # noqa: E402
 )
 from kubeflow_tpu_torch.runtime.metrics import MetricsLogger  # noqa: E402
 from kubeflow_tpu_torch.runtime.train import Trainer  # noqa: E402
+from torch_fused_gang import gang  # noqa: E402
 
 
 def _clone(tree):
@@ -275,6 +277,9 @@ def pipe2(spec, workdir):
     out["resumed_loss"] = float(m["loss"])
 
     out["moe"] = moe_pipelined(spec, mesh, tokens)
+    # The fused gang over the stages, with member checkpoints.
+    out["gang"] = gang(_cfg(spec, **spec["gang_cfg"]), mesh, spec["batches"],
+                       workdir / "ckpt_gang_pipe")
     out["refusals"] = {
         "layers": refused(lambda: Transformer(
             _cfg(spec, n_layers=3), device="cpu", mesh=mesh)),
