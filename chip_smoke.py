@@ -498,6 +498,29 @@ Phases, each fatal on failure (exit code 1, no result line):
      the phase within OPERATOR_PHASE_S.  Information only: each job's
      queue wait, the preemption's submission-to-exit and SIGTERM-to-exit
      times, and the restart-to-first-step time against the cold start.
+     The three CRs (victim, preemptor, and the control, whose worker
+     command the control process runs) are rendered by the port's
+     deployment CLI in this process (``tools/cli.py`` ``init``,
+     ``generate tpu-job NAME --param slice_type=h100-1 --param image=...
+     --param command=...``, ``show``, parsed as JSON documents where
+     PyYAML is absent); the tenant and priority labels and the worker
+     env are set on the rendered objects, as ``kubectl label`` and
+     ``patch`` would.  After the victim succeeds, the CLI's
+     ``checkpoints verify`` must exit 0 on its directory and
+     ``checkpoints list`` mark its newest step as the resume step; their
+     seconds are printed.
+ 16. e2e: the port's e2e harness (``testing/e2e.py`` ``main``) runs its
+     ``serving`` (a ResNet-18 classifier over REST), ``engine`` (the
+     DecodeEngine's mixed lengths, prefix cache, speculation,
+     block-exhaustion and fused-round checks), ``faults`` (the seeded
+     KFT_FAULTS scenario) and ``train`` (two train_cnn steps in a
+     subprocess) smokes on CUDA in this process, last, with the
+     lock-order sanitizer (``testing/lockcheck.py``) installed around
+     it.  Fatal unless: the exit code is 0, the JUnit report has 4
+     tests, 0 failures and 0 errors, the sanitizer recorded no
+     violation, no flash kernel launched, and the phase took at most
+     E2E_PHASE_S.  Each scenario's seconds and the number of
+     instrumented lock sites are printed.
 
 The phases' times are printed.  The line before the last is a JSON
 object {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
@@ -8865,10 +8888,82 @@ def check_worker_launches(what: str, path: Path, flash) -> dict:
     return {"steps": steps, "counts": counts}
 
 
+def parse_manifests(text: str):
+    """The documents ``cli show`` printed: YAML where PyYAML is installed,
+    else the JSON documents of the renderer's fallback."""
+    try:
+        import yaml
+    except ImportError:
+        return [json.loads(doc) for doc in text.split("---\n")
+                if doc.strip()]
+    return [doc for doc in yaml.safe_load_all(text) if doc]
+
+
+def cli_run(argv):
+    """The port's deployment CLI in this process: (exit code, stdout,
+    seconds)."""
+    import contextlib
+    import io
+
+    from kubeflow_tpu_torch.tools import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def cli_job_crs(work: Path, namespace: str, jobs) -> dict:
+    """Phase 15's TPUJob CRs as a user renders them: ``init``, one
+    ``generate tpu-job NAME --param slice_type=... --param image=...
+    --param command=...`` a job, then ``show``, parsed; each CR by name.
+    ``jobs`` maps a name to its worker command."""
+    app = str(work / "app.json")
+    for name, command in jobs.items():
+        # A list param is comma-separated on the command line.
+        if any("," in part for part in command):
+            fail(f"phase 15: {name}'s command holds a comma: {command}")
+    steps = [["init", "--namespace", namespace]] + [
+        ["generate", "tpu-job", name, "--param",
+         f"slice_type={OPERATOR_SLICE}", "--param",
+         "image=kubeflow-tpu-torch:local", "--param",
+         "command=" + ",".join(command)]
+        for name, command in jobs.items()] + [["show"]]
+    for argv in steps:
+        rc, out, _ = cli_run(["--app-file", app] + argv)
+        if rc != 0:
+            fail(f"phase 15: cli {argv[0]} exited {rc}: {out[-1500:]}")
+    crs = {cr["metadata"]["name"]: cr for cr in parse_manifests(out)
+           if cr.get("kind") == "TPUJob"}
+    for name, command in jobs.items():
+        cr = crs.get(name)
+        if cr is None or cr["spec"]["worker"]["command"] != command or \
+                cr["spec"]["sliceType"] != OPERATOR_SLICE:
+            fail(f"phase 15: cli show rendered {cr} for {name}")
+    return crs
+
+
+def check_victim_checkpoints(ckpt: Path, newest: int) -> dict:
+    """The port's ``cli checkpoints verify`` and ``list`` on the victim's
+    directory: verify exits 0 and list marks ``newest`` as the step a
+    restore resumes at."""
+    rc, verify_out, verify_s = cli_run(["checkpoints", "verify", str(ckpt)])
+    if rc != 0:
+        fail(f"phase 15: cli checkpoints verify exited {rc}: {verify_out}")
+    rc, list_out, list_s = cli_run(["checkpoints", "list", str(ckpt)])
+    resume = [line.split()[0] for line in list_out.splitlines()
+              if "resumes here" in line]
+    if rc != 0 or resume != [str(newest)]:
+        fail(f"phase 15: cli checkpoints list exited {rc} and marked "
+             f"{resume}, not step {newest}: {list_out}")
+    return {"verify_s": verify_s, "list_s": list_s, "resume_step": newest,
+            "steps": len(list_out.splitlines()) - 1}
+
+
 def operator_phase(torch, flash, workdir: Path):
     """Phase 15 (see the module docstring): the port's operator preempts a
     real 188M train_lm pod and resumes it from its verified checkpoint."""
-    from kubeflow_tpu_torch.operator import crd
     from kubeflow_tpu_torch.operator.gang import GangScheduler
     from kubeflow_tpu_torch.operator.kube_http import HttpKube
     from kubeflow_tpu_torch.operator.reconciler import TPUJobController
@@ -8909,15 +9004,22 @@ def operator_phase(torch, flash, workdir: Path):
         return sum(v for _, v in parsed.get(name, ()))
 
     before = parse_metrics(REGISTRY.render())
+    commands = {
+        "lm-victim": operator_command(OPERATOR_STEPS, victim_metrics,
+                                      victim_ckpt),
+        "lm-preemptor": operator_command(OPERATOR_PREEMPTOR_STEPS,
+                                         work / "preemptor.json"),
+        "lm-control": operator_command(OPERATOR_STEPS, control_metrics)}
+    rendered = cli_job_crs(work, ns, commands)
 
-    def job_cr(name, tenant, priority, command, env):
-        spec = crd.TPUJobSpec(
-            name=name, namespace=ns, slice_type=OPERATOR_SLICE,
-            worker=crd.WorkerSpec(image="kubeflow-tpu-torch:local",
-                                  command=command, env=env))
-        cr = spec.to_custom_resource()
+    def job_cr(name, tenant, priority, env):
+        """The CLI's CR with what ``kubectl label`` and ``kubectl patch``
+        would add: the tenant and priority labels (the tpu-job prototype
+        takes neither) and the worker's env."""
+        cr = json.loads(json.dumps(rendered[name]))
         cr["metadata"]["labels"] = {LABEL_TENANT: tenant,
                                     LABEL_PRIORITY: priority}
+        cr["spec"]["worker"]["env"] = dict(env)
         return cr
 
     apiserver, runner, control = None, None, None
@@ -8937,7 +9039,7 @@ def operator_phase(torch, flash, workdir: Path):
         control_log = work / "control.log"
         with open(control_log, "w") as f:
             control = subprocess.Popen(
-                operator_command(OPERATOR_STEPS, control_metrics),
+                rendered["lm-control"]["spec"]["worker"]["command"],
                 cwd=str(Path(__file__).resolve().parent),
                 env=dict(base_env, **{LAUNCHES_ENV: "1",
                                       "KFT_SLICE_TYPE": OPERATOR_SLICE,
@@ -8947,7 +9049,6 @@ def operator_phase(torch, flash, workdir: Path):
         t_submit = {"victim": time.perf_counter()}
         kube.create_custom(job_cr(
             "lm-victim", "research", "low",
-            operator_command(OPERATOR_STEPS, victim_metrics, victim_ckpt),
             {LAUNCHES_ENV: "1",
              "KFT_FAULTS": f"train.step:sleep={OPERATOR_STEP_SLEEP_S}"}))
         deadline = t_phase + OPERATOR_PHASE_S
@@ -8981,8 +9082,6 @@ def operator_phase(torch, flash, workdir: Path):
                     t_submit["preemptor"] = time.perf_counter()
                     kube.create_custom(job_cr(
                         "lm-preemptor", "prod", "high",
-                        operator_command(OPERATOR_PREEMPTOR_STEPS,
-                                         work / "preemptor.json"),
                         {LAUNCHES_ENV: "1"}))
             victim_runs = [r for r in runner.runs
                            if r["pod"] == "lm-victim-worker-0"]
@@ -9047,6 +9146,10 @@ def operator_phase(torch, flash, workdir: Path):
             victim_ckpt, newest_verified)[0]:
         fail(f"phase 15: the victim's step {newest_verified} does not "
              f"verify")
+    # The port's deployment CLI judges the finished victim's directory:
+    # every step verified, the newest the one a restore resumes at.
+    cli_checkpoints = check_victim_checkpoints(
+        victim_ckpt, max(checkpoint.list_checkpoint_steps(victim_ckpt)))
     resumed = json.loads(victim_metrics.read_text())["history"]
     control_hist = {r["step"]: r["loss"] for r in json.loads(
         control_metrics.read_text())["history"]}
@@ -9074,6 +9177,7 @@ def operator_phase(torch, flash, workdir: Path):
     victim_first, victim_again = victim_runs
     info.update({
         "phase_s": phase_s, "launches": launched,
+        "cli_checkpoints": cli_checkpoints,
         "newest_verified": newest_verified,
         "resumed_at": resumed[0]["step"],
         "losses_after_resume": [(s, l) for s, l, _ in pairs],
@@ -9103,10 +9207,66 @@ def operator_phase(torch, flash, workdir: Path):
                       info["queue_wait_s"].items()})
         + f" s; restart to first step "
         f"{info['restart_to_first_step_s']} s (cold start "
-        f"{info['cold_start_to_first_step_s']} s); launches {counts}; the "
+        f"{info['cold_start_to_first_step_s']} s); cli checkpoints "
+        f"verify {cli_checkpoints['verify_s']:.2f} s, list "
+        f"{cli_checkpoints['list_s']:.2f} s over "
+        f"{cli_checkpoints['steps']} steps (resume step "
+        f"{cli_checkpoints['resume_step']}); launches {counts}; the "
         f"phase {phase_s:.1f} s (bound {OPERATOR_PHASE_S}; {card_line()})")
     if phase_s > OPERATOR_PHASE_S:
         fail(f"phase 15 took {phase_s:.1f} s, over {OPERATOR_PHASE_S}")
+    return counts, info
+
+
+# -- phase 16: the e2e harness's smokes on the card under the sanitizer --
+
+E2E_SCENARIOS = ("serving", "engine", "faults", "train")
+E2E_PHASE_S = 60.0
+
+
+def e2e_phase(torch, flash, workdir: Path):
+    """Phase 16 (see the module docstring): the port's e2e ``serving``,
+    ``engine``, ``faults`` and ``train`` smokes on CUDA through
+    ``testing/e2e.main`` in this process, with ``threading.Lock``
+    instrumented by the lock-order sanitizer."""
+    import xml.etree.ElementTree as ET
+
+    from kubeflow_tpu_torch.testing import e2e, lockcheck
+
+    art = workdir / "e2e-artifacts"
+    before = dict(flash.launch_counts)
+    t0 = time.perf_counter()
+    sanitizer = lockcheck.install()
+    try:
+        rc = e2e.main(list(E2E_SCENARIOS) + ["--artifacts-dir", str(art)])
+    finally:
+        lockcheck.uninstall()
+    phase_s = time.perf_counter() - t0
+    violations = sanitizer.violations()
+    sites = sanitizer.sites()
+    counts = {k: flash.launch_counts[k] - before.get(k, 0)
+              for k in flash.launch_counts}
+    root = ET.parse(art / "junit_e2e.xml").getroot()
+    suite = {k: root.get(k) for k in ("tests", "failures", "errors")}
+    cases = {c.get("name"): float(c.get("time")) for c in root}
+    if rc != 0 or suite != {"tests": str(len(E2E_SCENARIOS)),
+                            "failures": "0", "errors": "0"}:
+        fail(f"phase 16: e2e.main exited {rc}, JUnit {suite}: "
+             + (art / "junit_e2e.xml").read_text()[-3000:])
+    if violations:
+        fail("phase 16: lock-order inversions: "
+             + "; ".join(repr(v) for v in violations))
+    if any(counts.values()):
+        fail(f"phase 16 launched flash kernels: {counts}")
+    info = {"phase_s": phase_s, "scenario_s": cases,
+            "lock_sites": sorted(sites), "violations": 0}
+    log(f"phase 16 e2e under the lock-order sanitizer: JUnit {suite}, "
+        f"scenarios (s) {json.dumps(cases)}, {len(sites)} instrumented "
+        f"lock sites {sorted(sites)}, 0 violations, flash launches "
+        f"{counts}; the phase "
+        f"{phase_s:.1f} s (bound {E2E_PHASE_S}; {card_line()})")
+    if phase_s > E2E_PHASE_S:
+        fail(f"phase 16 took {phase_s:.1f} s, over {E2E_PHASE_S}")
     return counts, info
 
 
@@ -9304,6 +9464,9 @@ def main() -> int:
         operator_counts, operator_info = operator_phase(torch, flash,
                                                         workdir)
         phase_done("15 operator")
+        # Last: no later phase runs on instrumented locks.
+        e2e_counts, e2e_info = e2e_phase(torch, flash, workdir)
+        phase_done("16 e2e")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -9332,7 +9495,8 @@ def main() -> int:
                                    "hfta_axes": hfta_axes_counts[name],
                                    "tools": tools_counts[name],
                                    "fleet": fleet_counts[name],
-                                   "operator": operator_counts[name]}
+                                   "operator": operator_counts[name],
+                                   "e2e": e2e_counts[name]}
         kernels.append(row)
     timed["flash_fwd"]["train_shape"]["launches"] = train_counts["flash_fwd"]
     for name, row in two_pass_rows.items():
@@ -9356,7 +9520,8 @@ def main() -> int:
                                    "hfta_axes": hfta_axes_counts[name],
                                    "tools": tools_counts[name],
                                    "fleet": fleet_counts[name],
-                                   "operator": operator_counts[name]}
+                                   "operator": operator_counts[name],
+                                   "e2e": e2e_counts[name]}
         kernels.append(row)
     log(json.dumps({"engine": engine_info,
                     "speculation": spec_info, "tiers": tier_info,
@@ -9382,7 +9547,7 @@ def main() -> int:
                     "cnn_serve": cnn_serve_info,
                     "cnn_train": cnn_train_info,
                     "tools": tools_info, "fleet": fleet_info,
-                    "operator": operator_info}))
+                    "operator": operator_info, "e2e": e2e_info}))
     log(f"phase times (s): {json.dumps(phase_s)}; total "
         f"{sum(phase_s.values()):.1f} s")
     log(f"card: {card}")

@@ -29,6 +29,21 @@ assertions, with JAX's slice names mapped onto the port's GPU shapes
 ``device``; the others run on the host alone.
 
     python -m kubeflow_tpu_torch.testing.e2e scheduler colocation --device cpu
+
+The serving smokes are twins of JAX's ``serving`` (a ResNet-18
+classifier over REST), ``engine`` (the DecodeEngine behind REST: mixed
+lengths, the prefix cache, speculation, block exhaustion, fused rounds),
+``faults`` (the seeded ``KFT_FAULTS`` scenario) and ``train`` (two
+ResNet-18 steps in a subprocess), on ``device``.  The commands that act
+on the current kubectl context (``deploy``, ``deploy-crds``,
+``tpujob-real``, ``teardown``) render through the port's registry
+(``kubeflow_tpu_torch.manifests``).  ``COMMANDS`` holds all 18 of the JAX
+harness's commands; ``main`` runs the named ones in order (every
+hermetic one, ``SCENARIOS``, by default) and writes one JUnit report,
+``ARTIFACTS/junit_e2e.xml``, with a case a command:
+
+    python -m kubeflow_tpu_torch.testing.e2e serving engine faults train \
+        --device cpu --artifacts-dir /tmp/artifacts
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 from kubeflow_tpu_torch.operator.reconciler import LABEL_JOB
+from kubeflow_tpu_torch.testing.junit import JUnitSuite
 
 JAX_LOADER = "kubeflow_tpu.serving.loaders:lm_generate"
 # The JAX scenarios' tiny float32 LM (the multichip and adapter scenarios
@@ -112,26 +128,34 @@ class KillableServer(ThreadingHTTPServer):
         self.server_close()
 
 
-def seeded_params(overrides: Dict[str, Any], seed: int = 0):
-    """JAX-layout weights of a seeded random LM, made by the port."""
+def seeded_lm(overrides: Dict[str, Any], seed: int = 0, device="cpu"):
+    """A seeded random float32 LM made by the port, on ``device``, and
+    its JAX-layout weights (the tree an export carries)."""
     import torch
 
+    from kubeflow_tpu_torch.device import resolve_device
     from kubeflow_tpu_torch.models.convert import params_to_jax
     from kubeflow_tpu_torch.models.transformer import Transformer
     from kubeflow_tpu_torch.serving.loaders import _model_config
 
     cfg = _model_config(dict(overrides, dtype="float32"))
-    return params_to_jax(Transformer(
-        cfg, device="cpu", generator=torch.Generator().manual_seed(seed)))
+    model = Transformer(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
+    return model.to(resolve_device(device)), params_to_jax(model)
+
+
+def seeded_params(overrides: Dict[str, Any], seed: int = 0):
+    """JAX-layout weights of a seeded random LM, made by the port."""
+    return seeded_lm(overrides, seed)[1]
 
 
 def export_lm(base: str, params, overrides: Dict[str, Any],
-              max_new: int) -> None:
+              max_new: int, version: int = 1) -> None:
     """One greedy ``lm_generate`` version of ``params`` under ``base``,
     servable by both packages."""
     from kubeflow_tpu_torch.serving.export import export
 
-    export(base, 1, {"params": params}, loader=JAX_LOADER,
+    export(base, version, {"params": params}, loader=JAX_LOADER,
            config={"model": overrides, "max_new_tokens": max_new,
                    "temperature": 0.0},
            signature={"inputs": ["tokens"], "outputs": ["tokens"]})
@@ -1969,24 +1993,616 @@ def colocation_smoke(namespace: str = "kubeflow-test", device=None) -> None:
             _stop_apiserver(apiserver)
 
 
-SCENARIOS = {
+# -- the serving, engine, faults and train smokes ----------------------------
+
+
+def serving_smoke(namespace: str = "kubeflow-test", device=None) -> None:
+    """Export a seeded ResNet-18 classifier (4 classes, 8 filters), serve
+    it over REST, assert a live predict whose scores sum to 1: the twin
+    of the JAX package's ``serving`` smoke."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.resnet import ResNet18
+    from kubeflow_tpu_torch.serving.export import export
+    from kubeflow_tpu_torch.serving.http import make_http_server
+    from kubeflow_tpu_torch.serving.model_server import ModelServer
+    from kubeflow_tpu_torch.testing.cnn import random_cnn_variables
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model = ResNet18(num_classes=4, num_filters=8, device="meta")
+        export(f"{tmp}/m", 1, random_cnn_variables(model, seed=0),
+               loader="kubeflow_tpu.serving.loaders:classifier",
+               config={"family": "resnet18", "num_classes": 4,
+                       "num_filters": 8},
+               signature={"inputs": ["image"]})
+        server = ModelServer(device=device)
+        server.add_model("m", f"{tmp}/m")
+        httpd, _ = make_http_server(server, port=0, host="127.0.0.1")
+        try:
+            port = httpd.server_address[1]
+            code, out = predict_via(port, {"instances": [
+                {"image": np.zeros((32, 32, 3), np.float32).tolist()}]},
+                path="/model/m:predict")
+            assert code == 200, (code, out)
+            assert len(out["predictions"]) == 1
+            scores = out["predictions"][0]["scores"]
+            assert abs(sum(scores) - 1.0) < 1e-3
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.stop()
+
+
+def engine_smoke(namespace: str = "kubeflow-test", device=None) -> None:
+    """The twin of the JAX package's ``engine`` smoke, on the port's
+    DecodeEngine behind REST (2 slots, prefill width 16, 8-token chunks,
+    4-token blocks):
+
+      1. three mixed-length requests through 2 slots all complete, and
+         the engine drains to zero occupancy and an empty queue;
+      2. a shared-prefix burst registers prefix-cache hits (``:stats``
+         and ``kft_engine_prefix_hits_total``) and keeps the worst
+         inter-token gap under the chunk-budget bound;
+      3. a ``--speculative_tokens 4`` rebuild accepts drafts on prompts
+         the n-gram drafter predicts (chosen by simulating it against
+         ``generate()``), reports the three programs on ``:stats`` and is
+         token-identical to a spec-off rebuild;
+      4. an 8-page pool with a queue cap of 1 sheds 429s while every
+         accepted request completes, admission recovers, and the
+         kv shed and eviction counters move as deltas over /metrics;
+      5. ``--decode_rounds 8`` dispatches fused rounds, reports the
+         ``decode_rounds`` program, and is token-identical to a
+         ``decode_rounds 1`` rebuild that has no fused program.
+    """
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.models.generate import DecodeConfig, generate
+    from kubeflow_tpu_torch.runtime.prom import sample_value
+    from kubeflow_tpu_torch.serving.engine import _ngram_propose
+    from kubeflow_tpu_torch.serving.main import batcher_factory
+
+    max_new = 16
+    model, params = seeded_lm(OVERRIDES, device=device)
+    geometry = dict(lm_engine_slots=2, lm_engine_prefill_len=16,
+                    prefill_chunk_tokens=8, kv_block_tokens=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        export_lm(f"{tmp}/lm", params, OVERRIDES, max_new)
+        server, httpd = make_replica(f"{tmp}/lm", device, **geometry)
+        try:
+            port = httpd.server_address[1]
+            rng = np.random.RandomState(0)
+            outs: dict = {}
+
+            def post(prompt):
+                return predict_via(
+                    port, {"instances": [{"tokens": prompt}]}, timeout=120)
+
+            def client(i, prompt):
+                code, out = post(prompt)
+                assert code == 200, (code, out)
+                outs[i] = out
+
+            def burst(prompts, fn=client):
+                threads = [threading.Thread(target=fn, args=(i, p))
+                           for i, p in enumerate(prompts)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=WAIT_S)
+                assert not any(t.is_alive() for t in threads), \
+                    "a client hung"
+
+            def tokens_of(i, prompt):
+                tokens = outs[i]["predictions"][0]["tokens"]
+                assert tokens[:len(prompt)] == prompt
+                assert len(tokens) == len(prompt) + max_new
+                return tokens
+
+            def stats():
+                return get_json(port, "/model/lm:stats")["batcher"]
+
+            def engine_metric(name):
+                return sample_value(scrape(port), name,
+                                    engine="lm-v1") or 0
+
+            def rebuild(spec_tokens, **extra):
+                server.enable_batching("lm", batcher_factory(
+                    micro_batch_size=0, batch_timeout_s=0.005,
+                    lm_engine=True, speculative_tokens=spec_tokens,
+                    **dict(geometry, **extra)))
+
+            # -- 1. mixed lengths through 2 slots -------------------------
+            prompts = [rng.randint(1, 128, size=(n,)).tolist()
+                       for n in (3, 9, 16)]
+            burst(prompts)
+            for i, prompt in enumerate(prompts):
+                tokens_of(i, prompt)
+            _wait(lambda: (lambda s: s["active_slots"] == 0
+                           and s["queue_depth"] == 0
+                           and s["in_flight_requests"] == 0)(stats()),
+                  30, "engine never drained", poll=0.05)
+            assert stats()["requests"] == len(prompts)
+
+            # -- 2. shared-prefix burst ------------------------------------
+            shared = rng.randint(1, 128, size=(8,)).tolist()
+            prefixed = [shared + rng.randint(1, 128, size=(4,)).tolist()
+                        for _ in range(4)]
+            outs.clear()
+            burst(prefixed)
+            for i, prompt in enumerate(prefixed):
+                tokens_of(i, prompt)
+            st = stats()
+            assert st["prefix_hits"] > 0, (
+                f"shared-prefix burst produced no cache hits: {st}")
+            assert st["cached_token_ratio"] > 0
+            turn_ms = st["token_latency_p95_ms"] + st["prefill_chunk_p95_ms"]
+            bound_ms = 500.0 + 25.0 * max(turn_ms, 1.0)
+            assert st["inter_token_gap_max_ms"] <= bound_ms, (
+                f"inter-token gap {st['inter_token_gap_max_ms']} ms "
+                f"exceeded the chunk-budget bound {bound_ms:.0f} ms")
+            parsed = scrape(port)
+            assert (sample_value(parsed, "kft_engine_prefix_hits_total")
+                    or 0) > 0, "kft_engine_prefix_hits_total not exported"
+            assert sample_value(
+                parsed, "kft_serving_cached_token_ratio") is not None
+
+            # -- 3. speculative burst --------------------------------------
+            rebuild(4)
+            cand = [(rng.randint(1, 128, size=(4,)).tolist() * 3)[:12]
+                    for _ in range(8)]
+            with torch.inference_mode():
+                refs = generate(model, torch.tensor(cand),
+                                DecodeConfig(max_new_tokens=max_new,
+                                             temperature=0.0))[0]
+            refs = refs.cpu().numpy()
+
+            def sim_accepts(prompt, cont):
+                hist = list(prompt) + [cont[0]]
+                accepted, i = 0, 1
+                while i < len(cont):
+                    room = len(cont) - i - 1
+                    prop = (_ngram_propose(np.asarray(hist, np.int32),
+                                           min(4, room))
+                            if room > 0 else np.empty((0,), np.int32))
+                    a = 0
+                    for j, p in enumerate(prop.tolist()):
+                        if p != cont[i + j]:
+                            break
+                        a += 1
+                    accepted += a
+                    hist.extend(cont[i:i + a + 1])
+                    i += a + 1
+                return accepted
+
+            scores = [sim_accepts(c, refs[i, 12:].tolist())
+                      for i, c in enumerate(cand)]
+            ranked = sorted(range(len(cand)), key=lambda i: scores[i],
+                            reverse=True)
+            assert scores[ranked[0]] > 0, (
+                "no candidate prompt is draftable under the n-gram "
+                "drafter; widen the candidate pool")
+            spec_prompts = [cand[i] for i in ranked[:4]]
+            outs.clear()
+            burst(spec_prompts)
+            spec_out = {i: tokens_of(i, p)
+                        for i, p in enumerate(spec_prompts)}
+            st = stats()
+            assert st["spec_drafted"] > 0, (
+                f"speculative burst proposed no drafts: {st}")
+            assert st["spec_accepted"] > 0, (
+                f"speculative burst accepted no drafts: {st}")
+            assert 0 < st["spec_acceptance_rate"] <= 1
+            programs = st["compiled_programs"]
+            assert set(programs) == {"chunked_prefill", "step",
+                                     "verify"}, programs
+            assert programs["verify"] == 1, programs
+            assert programs["chunked_prefill"] == 1, programs
+            accepted = engine_metric("kft_engine_spec_accepted_total")
+            drafted = engine_metric("kft_engine_spec_drafted_total")
+            assert accepted > 0, (
+                "kft_engine_spec_accepted_total not exported/zero")
+            assert drafted >= accepted
+            rebuild(0)
+            outs.clear()
+            for i, prompt in enumerate(spec_prompts):
+                client(i, prompt)
+                assert outs[i]["predictions"][0]["tokens"] \
+                    == spec_out[i], (
+                    f"speculation changed tokens for prompt {i}")
+            st = stats()
+            assert st["spec_drafted"] == 0
+            assert st["compiled_programs"]["verify"] == 0
+            assert set(st["compiled_programs"]) \
+                == {"chunked_prefill", "step", "verify"}
+
+            # -- 4. block exhaustion ---------------------------------------
+            shed_before = engine_metric("kft_engine_kv_shed_no_blocks_total")
+            evict_before = engine_metric(
+                "kft_engine_kv_block_evictions_total")
+            rebuild(0, kv_pool_blocks=8, max_queue_depth=1)
+            exhaust = [rng.randint(1, 128, size=(12,)).tolist()
+                       for _ in range(8)]
+            outs.clear()
+            codes: dict = {}
+
+            def burst_client(i, prompt):
+                codes[i], out = post(prompt)
+                if codes[i] == 200:
+                    outs[i] = out
+
+            burst(exhaust, burst_client)
+            ok = [i for i, c in codes.items() if c == 200]
+            shed = [i for i, c in codes.items() if c == 429]
+            assert codes and set(codes.values()) <= {200, 429}, codes
+            assert ok, f"exhaustion burst completed nothing: {codes}"
+            assert shed, f"pool exhaustion shed nothing (want 429s): {codes}"
+            for i in ok:
+                tokens_of(i, exhaust[i])
+            client("post", exhaust[0])
+            assert len(outs["post"]["predictions"][0]["tokens"]) \
+                == len(exhaust[0]) + max_new
+            st = stats()
+            assert st["shed"] >= len(shed), st
+            assert st["kv_shed_no_blocks"] >= 1, st
+            assert st["kv_blocks"] == 8
+            parsed = scrape(port)
+            assert sample_value(parsed, "kft_engine_kv_blocks",
+                                engine="lm-v1") == 8
+            assert (sample_value(parsed, "kft_engine_kv_blocks_used",
+                                 engine="lm-v1") or 0) > 0
+            shed_after = sample_value(
+                parsed, "kft_engine_kv_shed_no_blocks_total",
+                engine="lm-v1") or 0
+            evict_after = sample_value(
+                parsed, "kft_engine_kv_block_evictions_total",
+                engine="lm-v1") or 0
+            assert shed_after - shed_before >= 1, (
+                shed_before, shed_after, codes)
+            assert evict_after > evict_before, (evict_before, evict_after)
+
+            # -- 5. fused rounds -------------------------------------------
+            fused_before = engine_metric("kft_engine_fused_rounds_total")
+            rebuild(0, decode_rounds=8)
+            fused_prompts = [rng.randint(1, 128, size=(n,)).tolist()
+                             for n in (3, 9, 16)]
+            outs.clear()
+            burst(fused_prompts)
+            fused_out = {i: tokens_of(i, p)
+                         for i, p in enumerate(fused_prompts)}
+            st = stats()
+            assert st["decode_rounds"] == 8, st
+            assert st["fused_rounds"] > 0, (
+                f"fused burst dispatched no fused rounds: {st}")
+            assert st["steps_per_round_p50"] >= 1, st
+            programs = st["compiled_programs"]
+            assert programs.get("decode_rounds") == 1, programs
+            assert programs["chunked_prefill"] == 1, programs
+            assert programs["verify"] == 0, programs
+            fused_after = engine_metric("kft_engine_fused_rounds_total")
+            assert fused_after - fused_before > 0, (fused_before,
+                                                    fused_after)
+            rebuild(0)
+            outs.clear()
+            burst(fused_prompts)
+            for i in range(len(fused_prompts)):
+                assert outs[i]["predictions"][0]["tokens"] \
+                    == fused_out[i], (
+                    f"fused decode changed tokens for prompt {i}")
+            st = stats()
+            assert st["fused_rounds"] == 0, st
+            assert "decode_rounds" not in st["compiled_programs"], \
+                st["compiled_programs"]
+        finally:
+            close_fleet(servers=[(server, httpd)])
+
+
+def fault_injection_smoke(namespace: str = "kubeflow-test",
+                          device=None) -> None:
+    """The twin of the JAX package's ``faults`` smoke: a seeded
+    ``KFT_FAULTS`` scenario against the port's serving fault layer.
+
+      1. overload shed: slot and queue seat full => 429 with Retry-After,
+         while the accepted requests complete;
+      2. a deadline that expires mid-generation (slow steps injected) =>
+         504, and the freed slot serves a follow-up;
+      3. a corrupt version trips the reload breaker (no loader hot loop)
+         while the last good version serves; a new good version loads;
+      4. graceful drain: /readyz 503 with a request in flight, /healthz
+         200, and the accepted request completes;
+      5. the shed, expired and reload-failure counters are on /metrics.
+
+    Override the scenario by exporting KFT_FAULTS (same grammar)."""
+    from kubeflow_tpu_torch.serving.http import make_http_server
+    from kubeflow_tpu_torch.serving.main import batcher_factory, wait_for_drain
+    from kubeflow_tpu_torch.serving.model_server import ModelServer
+    from kubeflow_tpu_torch.testing import faults
+
+    max_new = 16
+    scenario = os.environ.get(faults.ENV) or \
+        "seed=20260803;engine.step:sleep=0.03"
+    params = seeded_params(OVERRIDES)
+
+    def predict_req(port, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/model/lm:predict",
+            data=json.dumps(body).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=180) as resp:
+                return resp.status, dict(resp.headers), \
+                    json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, dict(e.headers), json.loads(e.read())
+
+    prompt = list(range(1, 9))
+    body_full = {"instances": [{"tokens": prompt}]}
+    with faults.injected(scenario) as inj, \
+            tempfile.TemporaryDirectory() as tmp:
+        export_lm(f"{tmp}/lm", params, OVERRIDES, max_new)
+        server = ModelServer(reload_backoff_s=0.5, device=device)
+        server.add_model("lm", f"{tmp}/lm")
+        server.enable_batching("lm", batcher_factory(
+            micro_batch_size=0, batch_timeout_s=0.005, lm_engine=True,
+            lm_engine_slots=1, lm_engine_prefill_len=16,
+            max_queue_depth=1))
+        httpd, _ = make_http_server(server, port=0, host="127.0.0.1")
+        port = httpd.server_address[1]
+        try:
+            # -- 1. overload shed ---------------------------------------
+            results: dict = {}
+
+            def client(i, body):
+                results[i] = predict_req(port, body)
+
+            t0 = threading.Thread(target=client, args=(0, body_full))
+            t0.start()
+            _wait(lambda: get_json(port, "/model/lm:stats")["batcher"]
+                  ["in_flight_requests"] >= 1, 120,
+                  "first request never ran")
+            burst = [threading.Thread(target=client, args=(i, body_full))
+                     for i in range(1, 5)]
+            for t in burst:
+                t.start()
+            for t in [t0] + burst:
+                t.join(timeout=180)
+            codes = sorted(results[i][0] for i in range(5))
+            assert codes.count(429) >= 1, codes
+            assert codes.count(200) >= 2, codes
+            assert all(results[i][1].get("Retry-After") for i in range(5)
+                       if results[i][0] == 429), (
+                "429 responses must carry Retry-After")
+            for i in range(5):
+                if results[i][0] == 200:
+                    tokens = results[i][2]["predictions"][0]["tokens"]
+                    assert tokens[:len(prompt)] == prompt
+                    assert len(tokens) == len(prompt) + max_new
+            # -- 2. deadline expiry mid-generation ----------------------
+            code, _, payload = predict_req(
+                port, {**body_full, "deadline_ms": 120})
+            assert code == 504, (code, payload)
+            assert "deadline" in payload["error"].lower()
+            code, _, payload = predict_req(port, body_full)
+            assert code == 200, (code, payload)
+            stats = get_json(port, "/model/lm:stats")["batcher"]
+            assert stats["deadline_expired"] >= 1, stats
+            assert stats["shed"] >= 1, stats
+            # -- 3. loader circuit-break --------------------------------
+            os.makedirs(f"{tmp}/lm/2")
+            with open(f"{tmp}/lm/2/model.json", "w") as f:
+                f.write("{corrupt json")
+            raised = False
+            try:
+                server.reload("lm")
+            except Exception:  # noqa: BLE001 — the corrupt load raises
+                raised = True
+            assert raised, "corrupt version must raise"
+            attempts = inj.fired("loader.load")
+            for _ in range(5):
+                assert server.reload("lm") is False
+            assert inj.fired("loader.load") == attempts
+            code, _, _ = predict_req(port, body_full)
+            assert code == 200
+            assert server.get("lm").version == 1
+            inj.advance_clock(30)
+            raised = False
+            try:
+                server.reload("lm")
+            except Exception:  # noqa: BLE001 — still corrupt
+                raised = True
+            assert raised, "still-corrupt version must raise"
+            assert inj.fired("loader.load") == attempts + 1
+            export_lm(f"{tmp}/lm", params, OVERRIDES, max_new, version=3)
+            assert server.reload("lm") is True
+            assert server.get("lm").version == 3
+            code, _, _ = predict_req(port, body_full)
+            assert code == 200
+            # -- 4. graceful drain --------------------------------------
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/readyz", timeout=30) as r:
+                assert r.status == 200
+            holder: dict = {}
+            t = threading.Thread(target=lambda: holder.update(
+                {"resp": predict_req(port, body_full)}))
+            t.start()
+            _wait(lambda: server.inflight() >= 1, 120,
+                  "drain request never ran")
+            server.begin_drain()
+            try:
+                urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/readyz", timeout=30)
+                raise AssertionError("/readyz must be 503 while draining")
+            except urllib.error.HTTPError as e:
+                assert e.code == 503
+                assert json.loads(e.read())["status"] == "draining"
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+                assert r.status == 200
+            t.join(timeout=180)
+            assert holder["resp"][0] == 200, (
+                "request accepted before drain was lost")
+            assert wait_for_drain(server, deadline_s=30)
+            # -- 5. shed/expired/breaker visible in kft_* metrics -------
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+                metrics = r.read().decode()
+            for needle in ('kft_serving_shed_total{batcher="lm-v1"}',
+                           'kft_serving_deadline_expired_total'
+                           '{batcher="lm-v1"}',
+                           'kft_serving_reload_failures_total'
+                           '{model="lm"}'):
+                line = [ln for ln in metrics.splitlines()
+                        if ln.startswith(needle)]
+                assert line and float(line[0].rsplit(" ", 1)[1]) >= 1, (
+                    f"expected a nonzero {needle} series")
+        finally:
+            close_fleet(servers=[(server, httpd)])
+
+
+def train_smoke(namespace: str = "kubeflow-test", device=None) -> None:
+    """Two real train steps of the ResNet-18 trainer in a subprocess: the
+    twin of the JAX package's ``train`` smoke (CUDA unless ``device``
+    asks for the CPU)."""
+    argv = [sys.executable, "-m", "kubeflow_tpu_torch.tools.train_cnn",
+            "--model", "resnet18", "--steps", "2",
+            "--batch-size-per-device", "2", "--image-size", "32",
+            "--num-classes", "4"]
+    if device is not None:
+        from kubeflow_tpu_torch.device import resolve_device
+
+        argv += ["--device", resolve_device(device).type]
+    proc = subprocess.run(argv, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+# -- the real-cluster commands -------------------------------------------------
+
+
+def _kubectl(args, *, input_text: str = None, timeout: int = 300) -> str:
+    proc = subprocess.run(
+        ["kubectl"] + args, input=input_text, text=True,
+        capture_output=True, timeout=timeout,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"kubectl {' '.join(args)} failed: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def deploy_real(namespace: str = "kubeflow-test") -> None:
+    """Deploy the platform, rendered through the port's registry, to the
+    current kubectl context and wait for every Deployment to roll out
+    within the reference's 10-minute readiness budget
+    (testing/test_deploy.py:160-190).  KFT_E2E_DEPLOY selects the
+    prototypes (comma-separated; default the full kubeflow-core)."""
+    import kubeflow_tpu_torch.manifests  # noqa: F401 — registers prototypes
+    from kubeflow_tpu_torch.config.registry import App
+    from kubeflow_tpu_torch.manifests.base import to_yaml
+
+    app = App()
+    prototypes = os.environ.get("KFT_E2E_DEPLOY", "kubeflow-core")
+    for i, proto in enumerate(p.strip() for p in prototypes.split(",")):
+        app.add(proto, f"c{i}-{proto}", namespace=namespace)
+    objects = app.render()
+    _kubectl(["create", "namespace", namespace,
+              "--dry-run=client", "-o", "yaml"])  # validates kubectl works
+    try:
+        _kubectl(["create", "namespace", namespace])
+    except RuntimeError:
+        pass  # already exists
+    _kubectl(["apply", "-n", namespace, "-f", "-"],
+             input_text=to_yaml(objects))
+    deployments = [o["metadata"]["name"] for o in objects
+                   if o["kind"] == "Deployment"]
+    for name in deployments:
+        _kubectl(["rollout", "status", f"deployment/{name}",
+                  "-n", namespace, "--timeout=600s"], timeout=650)
+
+
+def deploy_crds(namespace: str = "kubeflow-test") -> None:
+    """Apply only the CRDs (+ namespace) to the current context: the
+    footing for clusters that cannot pull the platform images, where the
+    operator runs as a host process against the cluster."""
+    import kubeflow_tpu_torch.manifests  # noqa: F401
+    from kubeflow_tpu_torch.config.registry import default_registry
+    from kubeflow_tpu_torch.manifests.base import to_yaml
+
+    objs = default_registry.generate("tpujob-operator", "op",
+                                     namespace=namespace)
+    crds = [o for o in objs if o["kind"] == "CustomResourceDefinition"]
+    try:
+        _kubectl(["create", "namespace", namespace])
+    except RuntimeError:
+        pass  # already exists
+    _kubectl(["apply", "-f", "-"], input_text=to_yaml(crds))
+
+
+def tpujob_real(namespace: str = "kubeflow-test") -> None:
+    """Submit the tpu-job-simple example (``h100-1``, or KFT_E2E_SLICE)
+    to the real cluster and poll the CR until the operator reports a
+    terminal phase."""
+    import kubeflow_tpu_torch.manifests  # noqa: F401
+    from kubeflow_tpu_torch.config.registry import default_registry
+    from kubeflow_tpu_torch.manifests.base import to_yaml
+
+    objs = default_registry.generate(
+        "tpu-job-simple", "e2e-smoke", namespace=namespace,
+        slice_type=os.environ.get("KFT_E2E_SLICE", "h100-1"))
+    _kubectl(["apply", "-n", namespace, "-f", "-"],
+             input_text=to_yaml(objs))
+    deadline = time.time() + 600
+    phase = ""
+    while time.time() < deadline:
+        out = _kubectl(["get", "tpujobs.kubeflow-tpu.org", "e2e-smoke",
+                        "-n", namespace, "-o", "json"])
+        phase = json.loads(out).get("status", {}).get("phase", "")
+        if phase in ("Succeeded", "Failed"):
+            break
+        time.sleep(5)
+    assert phase == "Succeeded", f"TPUJob ended in phase {phase!r}"
+
+
+def teardown(namespace: str = "kubeflow-test") -> None:
+    """Delete the test namespace of a real cluster; with no cluster there
+    is nothing to tear down."""
+    try:
+        _kubectl(["delete", "namespace", namespace, "--ignore-not-found"],
+                 timeout=600)
+    except (RuntimeError, FileNotFoundError):
+        pass
+
+
+COMMANDS = {
     "tpujob": tpujob_smoke,
-    "scheduler": scheduler_smoke,
-    "train_resilience": train_resilience_smoke,
-    "hfta": hfta_smoke,
-    "colocation": colocation_smoke,
+    "serving": serving_smoke,
+    "engine": engine_smoke,
+    "faults": fault_injection_smoke,
     "fleet": fleet_smoke,
     "survivable": survivable_smoke,
     "kv_spill": kv_spill_smoke,
     "multichip_serving": multichip_serving_smoke,
     "adapter_serving": adapter_serving_smoke,
+    "scheduler": scheduler_smoke,
+    "train": train_smoke,
+    "train_resilience": train_resilience_smoke,
+    "hfta": hfta_smoke,
+    "colocation": colocation_smoke,
+    "deploy": deploy_real,
+    "deploy-crds": deploy_crds,
+    "tpujob-real": tpujob_real,
+    "teardown": teardown,
 }
+# The commands that act on the current kubectl context take no device.
+CLUSTER_COMMANDS = {"deploy", "deploy-crds", "tpujob-real", "teardown"}
+# The hermetic scenarios, run by default.
+SCENARIOS = {k: v for k, v in COMMANDS.items() if k not in CLUSTER_COMMANDS}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="kubeflow_tpu_torch.testing.e2e")
     ap.add_argument("scenarios", nargs="*", default=list(SCENARIOS),
-                    help=f"scenarios to run, in order: {sorted(SCENARIOS)}")
+                    help=f"commands to run, in order: {sorted(COMMANDS)} "
+                         f"(default: every hermetic scenario)")
     ap.add_argument("--namespace", default="kubeflow-test")
     ap.add_argument("--device", default=None,
                     help="replicas' device (default CUDA; 'cpu' asks for "
@@ -1995,27 +2611,37 @@ def main(argv=None) -> int:
                     help="multichip_serving: the decode replica's mesh "
                          "(e.g. tensor=2: serving.main processes); empty "
                          "= one device in process")
+    ap.add_argument("--artifacts-dir",
+                    default=os.path.join(tempfile.gettempdir(), "artifacts"),
+                    help="where junit_e2e.xml is written, one case a "
+                         "command (default: %(default)s)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
-    unknown = [s for s in args.scenarios if s not in SCENARIOS]
+    unknown = [s for s in args.scenarios if s not in COMMANDS]
     if unknown:
-        ap.error(f"unknown scenarios {unknown}; known: {sorted(SCENARIOS)}")
-    failed = []
+        ap.error(f"unknown scenarios {unknown}; known: {sorted(COMMANDS)}")
+    suite = JUnitSuite("e2e")
     for name in args.scenarios:
-        kwargs: Dict[str, Any] = {"namespace": args.namespace,
-                                  "device": args.device}
+        kwargs: Dict[str, Any] = {"namespace": args.namespace}
+        if name not in CLUSTER_COMMANDS:
+            kwargs["device"] = args.device
         if name == "multichip_serving" and args.mesh:
             kwargs["mesh"] = args.mesh
-        t0 = time.perf_counter()
-        try:
-            SCENARIOS[name](**kwargs)
-        except Exception as e:  # noqa: BLE001 — report and go on
-            failed.append(name)
-            log.exception("scenario %s failed", name)
-            print(f"FAIL {name}: {type(e).__name__}: {e}", flush=True)
-            continue
-        print(f"PASS {name} ({time.perf_counter() - t0:.1f} s)", flush=True)
-    return 1 if failed else 0
+
+        def run(name=name, kwargs=kwargs):
+            try:
+                COMMANDS[name](**kwargs)
+            except Exception as e:
+                log.exception("scenario %s failed", name)
+                print(f"FAIL {name}: {type(e).__name__}: {e}", flush=True)
+                raise
+
+        case = suite.run(name, run)
+        if case.ok:
+            print(f"PASS {name} ({case.time_s:.1f} s)", flush=True)
+    path = suite.write(args.artifacts_dir)
+    print(f"junit: {path}", file=sys.stderr)
+    return 0 if suite.ok else 1
 
 
 if __name__ == "__main__":

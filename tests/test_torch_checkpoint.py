@@ -23,6 +23,8 @@ from kubeflow_tpu_torch.runtime.prom import REGISTRY
 from kubeflow_tpu_torch.runtime.supervisor import TrainSupervisor
 from kubeflow_tpu_torch.runtime.train import Trainer
 from kubeflow_tpu_torch.testing import faults
+from kubeflow_tpu_torch.tools import cli as port_cli
+from torch_lockcheck import lockcheck_order  # noqa: F401
 
 # One intra-op thread a process: the suite runs as several processes on
 # shared cores, where torch's OpenMP threads spin against each other.
@@ -187,7 +189,21 @@ def test_a_save_fault_surfaces_at_the_next_save(tmp_path):
     assert start == 1
 
 
+def clis_agree(capsys, *argv):
+    """The port's and the JAX package's ``checkpoints`` verbs on one
+    directory: the same exit code and the same report; returns both."""
+    capsys.readouterr()
+    port_rc = port_cli.main(["checkpoints", *argv])
+    port_out = capsys.readouterr().out
+    jax_rc = jax_cli.main(["checkpoints", *argv])
+    jax_out = capsys.readouterr().out
+    assert (port_rc, port_out) == (jax_rc, jax_out)
+    return port_rc, port_out
+
+
 def test_jax_verifier_and_cli_accept_a_port_directory(tmp_path, capsys):
+    import shutil
+
     trainer = _trainer(tmp_path)
     trainer.fit(_data(), 4, log_every=0)
     for step in (1, 3):
@@ -195,8 +211,19 @@ def test_jax_verifier_and_cli_accept_a_port_directory(tmp_path, capsys):
     assert jax_cli.main(["checkpoints", "verify", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "verified" in out
+    assert clis_agree(capsys, "verify", str(tmp_path))[0] == 0
+    assert "resumes here" in clis_agree(capsys, "list", str(tmp_path))[1]
+    # The fused members' layout (runtime/hfta.py: one directory a member
+    # under the root): one verdict table a member in both CLIs.
+    fused = tmp_path.parent / (tmp_path.name + "-fused")
+    for member in ("m0", "m1"):
+        shutil.copytree(tmp_path, fused / member)
+    rc, out = clis_agree(capsys, "list", str(fused))
+    assert rc == 0 and out.count("resumes here") == 2
     (tmp_path / "3" / checkpoint.STATE_FILE).write_bytes(b"x")
     assert jax_cli.main(["checkpoints", "verify", str(tmp_path)]) == 2
+    assert clis_agree(capsys, "verify", str(tmp_path))[0] == 2
+    assert "corrupt" in clis_agree(capsys, "list", str(tmp_path))[1]
 
 
 def test_supervised_restart_resumes_from_the_checkpoint(tmp_path):

@@ -454,8 +454,35 @@ def test_abort_resolves_retired_requests(spec, monkeypatch):
             raise RuntimeError("device died")
         return real(*args, **kwargs)
 
+    # Both requests must be in the engine before its first decode step:
+    # a second submit that arrived only after the first request's one
+    # surviving step would find no live slot, the loop would deliver the
+    # first request's tokens, and only the second would see the death.
+    # So the first prefill waits until both submits have been queued.
+    both_queued = threading.Event()
+    admitted = {"n": 0}
+    count_lock = threading.Lock()
+    real_prefill = pgen.prefill_chunk_into_slot
+
+    def prefill_after_both_queued(*args, **kwargs):
+        assert both_queued.wait(WAIT_S), "the second submit never queued"
+        return real_prefill(*args, **kwargs)
+
     monkeypatch.setattr(pgen, "decode_step", dies_on_second_step)
+    monkeypatch.setattr(pgen, "prefill_chunk_into_slot",
+                        prefill_after_both_queued)
     engine = _port_engine(spec, slots=2, prefill_len=16, sync_lag=4)
+    real_admit = engine._admit
+
+    def admit_and_count(*args, **kwargs):
+        entry = real_admit(*args, **kwargs)
+        with count_lock:
+            admitted["n"] += 1
+            if admitted["n"] == 2:
+                both_queued.set()
+        return entry
+
+    monkeypatch.setattr(engine, "_admit", admit_and_count)
     try:
         outs = _serve(engine, [list(range(1, 5))] * 2, news=[2, 12])
         assert all(isinstance(o, RuntimeError) for o in outs), outs

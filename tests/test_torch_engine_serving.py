@@ -27,6 +27,7 @@ from kubeflow_tpu.models.transformer import Transformer as JaxTransformer
 from kubeflow_tpu.serving.export import export as jax_export
 from kubeflow_tpu.serving.loaders import _model_config as jax_model_config
 from kubeflow_tpu_torch.serving import main as serving_main
+from torch_lockcheck import lockcheck_order  # noqa: F401
 
 VOCAB, NEW = 128, 6
 OVERRIDES = {"vocab_size": VOCAB, "d_model": 32, "n_layers": 2,

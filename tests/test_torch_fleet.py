@@ -38,6 +38,7 @@ import kubeflow_tpu_torch.runtime.tracing as port_tracing
 import kubeflow_tpu_torch.scheduler.colocate as port_colocate
 import kubeflow_tpu_torch.testing.faults as port_faults
 from torch_control_parity import SLICE_MAP
+from torch_lockcheck import lockcheck_order  # noqa: F401
 
 PACKAGES = {
     "jax": types.SimpleNamespace(

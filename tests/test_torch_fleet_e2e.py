@@ -139,7 +139,7 @@ def test_adapter_serving_twin_matches_jax():
     assert len(variants) == 12
 
 
-def test_main_runs_scenarios_by_name(capsys, monkeypatch):
+def test_main_runs_scenarios_by_name(capsys, monkeypatch, tmp_path):
     """``main`` runs the named scenarios in order with ``--device`` (and
     ``--mesh`` for multichip_serving only), reports each, exits 1 when
     one failed and refuses an unknown name."""
@@ -152,20 +152,21 @@ def test_main_runs_scenarios_by_name(capsys, monkeypatch):
                 raise AssertionError("scripted failure")
         return run
 
-    monkeypatch.setitem(e2e.SCENARIOS, "fleet", scenario("fleet"))
-    monkeypatch.setitem(e2e.SCENARIOS, "multichip_serving",
+    monkeypatch.setitem(e2e.COMMANDS, "fleet", scenario("fleet"))
+    monkeypatch.setitem(e2e.COMMANDS, "multichip_serving",
                         scenario("multichip_serving"))
-    monkeypatch.setitem(e2e.SCENARIOS, "kv_spill",
+    monkeypatch.setitem(e2e.COMMANDS, "kv_spill",
                         scenario("kv_spill", fails=True))
+    art = ["--artifacts-dir", str(tmp_path)]
     assert e2e.main(["multichip_serving", "fleet", "--device", "cpu",
-                     "--mesh", "tensor=2"]) == 0
+                     "--mesh", "tensor=2"] + art) == 0
     assert calls == [
         ("multichip_serving", {"namespace": "kubeflow-test",
                                "device": "cpu", "mesh": "tensor=2"}),
         ("fleet", {"namespace": "kubeflow-test", "device": "cpu"})]
     out = capsys.readouterr().out
     assert "PASS multichip_serving" in out and "PASS fleet" in out
-    assert e2e.main(["kv_spill", "fleet", "--device", "cpu"]) == 1
+    assert e2e.main(["kv_spill", "fleet", "--device", "cpu"] + art) == 1
     assert "FAIL kv_spill: AssertionError: scripted failure" in \
         capsys.readouterr().out
     with pytest.raises(SystemExit):
@@ -174,7 +175,8 @@ def test_main_runs_scenarios_by_name(capsys, monkeypatch):
                                   "multichip_serving", "adapter_serving",
                                   "tpujob", "scheduler",
                                   "train_resilience", "hfta",
-                                  "colocation"}
+                                  "colocation", "serving", "engine",
+                                  "faults", "train"}
 
 
 def test_make_http_server_takes_a_server_class_like_jax():

@@ -103,8 +103,8 @@ def test_every_port_module_imports():
             "kubeflow_tpu_torch.tools.launcher",
             "kubeflow_tpu_torch.tools.train_torch",
             "kubeflow_tpu_torch.tools.telemetry"} | set(
-                CONTROL_PLANE) | {"kubeflow_tpu_torch.testing.e2e"} \
-        <= set(names)
+                CONTROL_PLANE) | set(DEPLOYMENT) | {
+                    "kubeflow_tpu_torch.testing.e2e"} <= set(names)
 
 
 # The control plane (the fleet tier, the operator, the cluster scheduler
@@ -127,7 +127,27 @@ CONTROL_PLANE = [
     "kubeflow_tpu_torch.fleet.main"]
 
 
-@pytest.mark.parametrize("module", CONTROL_PLANE)
+# The deployment surface (the typed params and registry, every manifest
+# package, the bootstrapper and the CLI) and the test harness's JUnit
+# report and lock-order sanitizer: stdlib-only copies of the JAX
+# package's modules.
+DEPLOYMENT = [
+    "kubeflow_tpu_torch.config", "kubeflow_tpu_torch.config.params",
+    "kubeflow_tpu_torch.config.registry",
+    "kubeflow_tpu_torch.manifests", "kubeflow_tpu_torch.manifests.base",
+    "kubeflow_tpu_torch.manifests.tpujob", "kubeflow_tpu_torch.manifests.torch",
+    "kubeflow_tpu_torch.manifests.serving",
+    "kubeflow_tpu_torch.manifests.jupyterhub",
+    "kubeflow_tpu_torch.manifests.core",
+    "kubeflow_tpu_torch.manifests.tensorboard",
+    "kubeflow_tpu_torch.manifests.addons", "kubeflow_tpu_torch.manifests.certs",
+    "kubeflow_tpu_torch.manifests.iap", "kubeflow_tpu_torch.manifests.endpoints",
+    "kubeflow_tpu_torch.manifests.examples",
+    "kubeflow_tpu_torch.tools.bootstrap", "kubeflow_tpu_torch.tools.cli",
+    "kubeflow_tpu_torch.testing.junit", "kubeflow_tpu_torch.testing.lockcheck"]
+
+
+@pytest.mark.parametrize("module", CONTROL_PLANE + DEPLOYMENT)
 def test_control_plane_modules_import_neither_jax_nor_torch(module):
     """The fleet router, endpoint registry, autoscaler and entry point,
     the operator (gang scheduler, reconciler, entry point), the cluster
@@ -147,6 +167,26 @@ def test_control_plane_modules_import_neither_jax_nor_torch(module):
                                   if isinstance(n, ast.ImportFrom)]
     assert not [m for m in _imports(path) if _forbidden(m)]
     assert not [m for m in names if m.split(".")[0] == "torch"]
+
+
+def test_cli_and_renderers_load_no_torch():
+    """The deployment CLI renders, bootstraps and judges checkpoints
+    without torch or JAX: importing it (and so every manifest package)
+    loads neither; ``checkpoints`` imports the port's checkpoint module
+    only when it runs."""
+    import subprocess
+    import sys
+
+    code = ("import sys, kubeflow_tpu_torch.tools.cli, "
+            "kubeflow_tpu_torch.tools.bootstrap, "
+            "kubeflow_tpu_torch.testing.lockcheck, "
+            "kubeflow_tpu_torch.testing.junit; "
+            "print(sorted(m for m in ('torch', 'jax', 'kubeflow_tpu') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_operator_and_scheduler_load_no_torch():

@@ -49,6 +49,7 @@ from kubeflow_tpu_torch.runtime import optim
 from kubeflow_tpu_torch.runtime.metrics import MetricsLogger
 from kubeflow_tpu_torch.runtime.train import Trainer
 from kubeflow_tpu_torch.serving.engine import DecodeEngine
+from kubeflow_tpu_torch.tools import cli as port_cli
 from kubeflow_tpu_torch.tools import train_lm
 
 # One intra-op thread a process: the suite runs as several processes on
@@ -304,7 +305,7 @@ TINY_MOE_ARGS = ["--d-model", "32", "--n-layers", "2", "--n-heads", "4",
                  "--device", "cpu", "--moe-experts", "4"]
 
 
-def test_train_lm_moe_checkpoints_pass_the_jax_verifier(tmp_path):
+def test_train_lm_moe_checkpoints_pass_the_jax_verifier(tmp_path, capsys):
     """``train_lm --moe-experts 4`` on the CPU trains, reports
     ``moe_aux``, and writes checkpoints that the JAX package's
     ``kubeflow-tpu checkpoints verify`` accepts; a rerun resumes."""
@@ -319,6 +320,15 @@ def test_train_lm_moe_checkpoints_pass_the_jax_verifier(tmp_path):
     for step in (1, 3):
         assert jax_checkpoint.verify_step(ckpt, step) == (True, "")
     assert jax_cli.main(["checkpoints", "verify", str(ckpt)]) == 0
+    # The port's CLI gives the JAX one's verdict and report.
+    for verb in ("verify", "list"):
+        capsys.readouterr()
+        port_rc = port_cli.main(["checkpoints", verb, str(ckpt)])
+        port_out = capsys.readouterr().out
+        assert (port_rc, port_out) == (
+            jax_cli.main(["checkpoints", verb, str(ckpt)]),
+            capsys.readouterr().out)
+        assert port_rc == 0
     second = train_lm.run(flags + ["--steps", "5"])
     assert [r["step"] for r in second.metrics.history] == [4]
 

@@ -16,6 +16,7 @@ from torch_control_parity import (
     load_variants,
     jax_test_names,
 )
+from torch_lockcheck import lockcheck_order  # noqa: F401
 
 # One intra-op thread a process: the suite runs as several processes on
 # shared cores (the checkpoint case saves tensors).

@@ -32,6 +32,7 @@ from kubeflow_tpu.models.transformer import Transformer as JaxTransformer
 from kubeflow_tpu.serving.export import export as jax_export
 from kubeflow_tpu.serving.loaders import _model_config as jax_model_config
 from kubeflow_tpu_torch.serving import export as port_export
+from torch_lockcheck import lockcheck_order  # noqa: F401
 
 # One intra-op thread a process: the suite runs as several processes on
 # shared cores, where torch's OpenMP threads spin against each other.

@@ -63,6 +63,7 @@ from kubeflow_tpu_torch.runtime.supervisor import TrainSupervisor
 from kubeflow_tpu_torch.runtime.train import Trainer
 from kubeflow_tpu_torch.testing import faults
 from kubeflow_tpu_torch.tools import train_lm
+from torch_lockcheck import lockcheck_order  # noqa: F401
 
 # One intra-op thread a process: the suite runs as several processes on
 # shared cores, where torch's OpenMP threads spin against each other.
